@@ -21,6 +21,13 @@ force_cpu(8)
 import pytest  # noqa: E402
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers",
+        "cuda: needs an NVIDIA GPU and nvcc (paddle_tpu_torch kernels); "
+        "the test decides in its body and skips without a card")
+
+
 @pytest.fixture(scope="session")
 def markov_gpt():
     """A tiny GPT trained (once per session) on the deterministic stream
