@@ -1,6 +1,6 @@
 """Environment flags the port reads — its own copy of the few it needs
-from ``paddle_tpu/flags.py`` (the port imports nothing of the JAX
-package)."""
+from ``paddle_tpu/flags.py``, same names and defaults (the port imports
+nothing of the JAX package)."""
 from __future__ import annotations
 
 import os
@@ -23,3 +23,45 @@ def kv_cache_dtype() -> str:
     raise ValueError(
         f"PADDLE_TPU_KV_DTYPE={v!r}: expected fp32|bf16|int8 (or empty "
         f"for the model compute dtype)")
+
+
+def kv_layout() -> str:
+    """KV-cache LAYOUT for serving, from ``PADDLE_TPU_KV_LAYOUT``:
+    'contiguous' (default — one [L, max_batch, rows, Hkv, hd] slab, every
+    slot provisioned for the worst-case context) or 'paged'
+    (``text/kv_pool.py`` — a fixed pool of block_size-row blocks shared by
+    all slots through per-slot block tables, with refcounted prefix reuse
+    and copy-on-write).  ``DecodeServer(layout=...)`` overrides it."""
+    v = os.environ.get("PADDLE_TPU_KV_LAYOUT", "").strip().lower()
+    if v in ("", "contiguous", "slab"):
+        return "contiguous"
+    if v == "paged":
+        return "paged"
+    raise ValueError(
+        f"PADDLE_TPU_KV_LAYOUT={v!r}: expected contiguous|paged")
+
+
+def kv_block_size() -> int:
+    """Rows per KV-cache block under the paged layout
+    (``PADDLE_TPU_KV_BLOCK``, default 16).  Must be a multiple of 8."""
+    v = os.environ.get("PADDLE_TPU_KV_BLOCK", "16")
+    try:
+        bs = int(v)
+    except ValueError:
+        raise ValueError(
+            f"PADDLE_TPU_KV_BLOCK={v!r}: expected an integer multiple "
+            f"of 8")
+    if bs < 8 or bs % 8:
+        raise ValueError(
+            f"PADDLE_TPU_KV_BLOCK={bs}: must be a positive multiple of 8")
+    return bs
+
+
+def kv_radix() -> bool:
+    """Token-granular radix matching in the paged prefix index (on by
+    default): a prompt sharing only PART of an indexed block's tokens
+    splits that node, so admission adopts the longest token prefix.
+    ``PADDLE_TPU_KV_RADIX=0`` restores whole-block matching.  Read when a
+    ``PagedAllocator`` is built."""
+    v = os.environ.get("PADDLE_TPU_KV_RADIX", "1").strip().lower()
+    return v not in ("0", "false", "off", "no")

@@ -8,9 +8,10 @@ Each source becomes its own shared library with a plain C interface:
 
 All sources compile at once (one ``nvcc`` process each, started
 together) into ``paddle_tpu_torch/_build/<hash>/``, where ``<hash>``
-covers every source and the flags — an edited source gets a fresh
-directory, an unchanged tree reuses the libraries it built before.  No
-PyTorch header is included, so a build takes seconds, not minutes.
+covers every source, every header beside them (``csrc/*.cuh``) and the
+flags — an edited file gets a fresh directory, an unchanged tree reuses
+the libraries it built before.  No PyTorch header is included, so a
+build takes seconds, not minutes.
 
 Nothing here runs at import: the first kernel launch (or ``build_all``)
 builds.  A wrapper passes pointers and the stream as ``ctypes.c_void_p``
@@ -29,7 +30,7 @@ from pathlib import Path
 _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
-SOURCES = ("flash_fwd", "decode_attention")
+SOURCES = ("flash_fwd", "decode_attention", "paged_decode_attention")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 
@@ -50,9 +51,10 @@ def _nvcc() -> str:
 
 def _build_dir() -> Path:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for name in SOURCES:
-        h.update(name.encode())
-        h.update((_SRC / f"{name}.cu").read_bytes())
+    files = [_SRC / f"{name}.cu" for name in SOURCES]
+    for path in files + sorted(_SRC.glob("*.cuh")):
+        h.update(path.name.encode())
+        h.update(path.read_bytes())
     return _OUT / h.hexdigest()[:16]
 
 

@@ -1,15 +1,22 @@
-"""Split-KV decode attention and the quantized-KV helpers: the
-hand-written Hopper kernel and its plain PyTorch twin.
+"""Split-KV decode attention, contiguous and paged, and the quantized-KV
+helpers: the hand-written Hopper kernels and their plain PyTorch twins.
 
-Counterpart of ``paddle_tpu/ops/decode_attention.py``.  The Pallas kernel
-(``_decode_call``) becomes ``csrc/decode_attention.cu`` — a split-KV
-partial kernel plus a combine kernel; the note at the top of that file
-says what bounds it and how it is laid out.  ``quantize_kv`` /
-``dequantize_kv`` are THE int8 cache format, as in the JAX package.
+Counterpart of ``paddle_tpu/ops/decode_attention.py``.  The Pallas
+kernels become CUDA sources that share one split-KV body
+(``csrc/split_kv.cuh`` — a partial kernel plus a combine kernel; the note
+at its top says what bounds it and how it is laid out):
 
-:func:`decode_attention` takes a CPU tensor to :func:`_plain_decode` and
-launches the kernel for a CUDA tensor, raising on what the kernel does
-not take — there is no fallback.
+* ``_decode_call`` -> ``csrc/decode_attention.cu``, a contiguous cache
+  [B, T, Hkv, hd];
+* ``_paged_call`` -> ``csrc/paged_decode_attention.cu``, a block pool
+  [N, bs, Hkv, hd] read through per-slot block tables.
+
+``quantize_kv`` / ``dequantize_kv`` are THE int8 cache format, as in the
+JAX package.
+
+:func:`decode_attention` and :func:`paged_decode_attention` take a CPU
+tensor to the plain twin and launch the kernel for a CUDA tensor, raising
+on what the kernel does not take — there is no fallback.
 """
 from __future__ import annotations
 
@@ -23,7 +30,8 @@ _NEG = -1e30
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 _HEAD_DIMS = (64, 128)
-_R_CAP = 64     # query rows (Tq * G) one CTA holds
+_R_CAP = 1024   # query rows (Tq * G) per kv head, the JAX kernels' cap
+_RT = 64        # query rows one CTA holds; R is cut into tiles of it
 _BT = 64        # cache rows per kernel tile; a split is a multiple of it
 _TARGET_CTAS = 264   # two CTAs per SM on a 132-SM card
 
@@ -67,62 +75,112 @@ def _plain_decode(q, k, v, pos, k_scale, v_scale, scale):
     return out.reshape(B, Tq, Hq, hd).to(q.dtype)
 
 
-def split_plan(B: int, Hkv: int, T: int):
+def split_plan(B: int, Hkv: int, T: int, R: int = 1):
     """(chunk, nsplit): cut the T walk into splits of ``chunk`` rows (a
-    multiple of the kernel's 64-row tile) so that B * Hkv * nsplit CTAs
-    fill the card about twice over; splits past a row's frontier exit at
-    once, so the plan is sized on the cache length, not on pos."""
+    multiple of the kernel's 64-row tile) so that the CTAs — one per
+    (64-row query tile of the R rows, split, kv head, batch row) — fill
+    the card about twice over; splits past a row's frontier exit at once,
+    so the plan is sized on the cache length, not on pos."""
     tiles = -(-T // _BT)
-    want = max(1, min(tiles, -(-_TARGET_CTAS // max(1, B * Hkv))))
+    cells = max(1, B * Hkv * -(-R // _RT))
+    want = max(1, min(tiles, -(-_TARGET_CTAS // cells)))
     chunk = -(-tiles // want) * _BT
     return chunk, -(-T // chunk)
 
 
-def _check(q, k, v, pos, k_scale, v_scale):
+def _check(q, k, v, pos, k_scale, v_scale, tables=None):
+    """Refuse what the kernels do not take.  k/v are a contiguous cache
+    [B, T, Hkv, hd] or, with ``tables`` [B, nmax] int32, a pool
+    [N, bs, Hkv, hd] (bs a multiple of 8); int8 scales are k.shape[:3]."""
+    what = "decode_attention" if tables is None else "paged_decode_attention"
     dev = q.device
-    if not all(t.device == dev for t in (k, v, pos)):
-        raise ValueError("decode_attention: q, k, v, pos must share one "
-                         "device")
+    if not all(t.device == dev for t in (k, v, pos)) or (
+            tables is not None and tables.device != dev):
+        raise ValueError(f"{what}: q, k, v, pos (and tables) must share one "
+                         f"device")
     if q.dtype not in _Q_DTYPES:
-        raise TypeError(f"decode_attention: q must be float32 or bfloat16, "
-                        f"got {q.dtype}")
+        raise TypeError(f"{what}: q must be float32 or bfloat16, got "
+                        f"{q.dtype}")
     if k.dtype not in _KV_DTYPES or v.dtype != k.dtype:
-        raise TypeError(f"decode_attention: cache must be float32, bfloat16 "
-                        f"or int8, got {k.dtype}/{v.dtype}")
+        raise TypeError(f"{what}: cache must be float32, bfloat16 or int8, "
+                        f"got {k.dtype}/{v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
-        raise ValueError(f"decode_attention: expected q [B,Tq,Hq,hd] and "
-                         f"k = v [B,T,Hkv,hd], got {tuple(q.shape)}, "
-                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+        raise ValueError(f"{what}: expected q [B,Tq,Hq,hd] and k = v "
+                         f"[{'B,T' if tables is None else 'N,bs'},Hkv,hd], "
+                         f"got {tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
     B, Tq, Hq, hd = q.shape
     Hkv = k.shape[2]
-    if k.shape[0] != B or k.shape[3] != hd or Hq % Hkv:
-        raise ValueError(f"decode_attention: cache {tuple(k.shape)} does not "
-                         f"match q {tuple(q.shape)}")
+    if (tables is None and k.shape[0] != B) or k.shape[3] != hd or Hq % Hkv:
+        raise ValueError(f"{what}: cache {tuple(k.shape)} does not match q "
+                         f"{tuple(q.shape)}")
     if hd not in _HEAD_DIMS:
-        raise ValueError(f"decode_attention: head_dim {hd} not in "
-                         f"{_HEAD_DIMS}")
+        raise ValueError(f"{what}: head_dim {hd} not in {_HEAD_DIMS}")
     if Tq * (Hq // Hkv) > _R_CAP:
-        raise ValueError(f"decode_attention: Tq * G = {Tq * (Hq // Hkv)} "
-                         f"query rows per kv head exceed {_R_CAP}")
+        raise ValueError(f"{what}: Tq * G = {Tq * (Hq // Hkv)} query rows "
+                         f"per kv head exceed {_R_CAP}")
     if pos.dtype != torch.int32 or pos.shape != (B,):
-        raise ValueError(f"decode_attention: pos must be int32 [B], got "
-                         f"{pos.dtype} {tuple(pos.shape)}")
+        raise ValueError(f"{what}: pos must be int32 [B], got {pos.dtype} "
+                         f"{tuple(pos.shape)}")
+    tensors = [("q", q), ("k", k), ("v", v), ("pos", pos)]
+    if tables is not None:
+        bs = k.shape[1]
+        if bs < 8 or bs % 8:
+            raise ValueError(f"{what}: block size {bs} is not a positive "
+                             f"multiple of 8")
+        if tables.dtype != torch.int32 or tables.dim() != 2 \
+                or tables.shape[0] != B:
+            raise ValueError(f"{what}: tables must be int32 [B, nmax], got "
+                             f"{tables.dtype} {tuple(tables.shape)}")
+        tensors.append(("tables", tables))
     quant = k.dtype == torch.int8
     if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
-        raise ValueError("decode_attention: int8 caches need k_scale and "
-                         "v_scale; float caches take none")
-    tensors = [("q", q), ("k", k), ("v", v), ("pos", pos)]
+        raise ValueError(f"{what}: int8 caches need k_scale and v_scale; "
+                         f"float caches take none")
     if quant:
         for name, s in (("k_scale", k_scale), ("v_scale", v_scale)):
             if s.dtype != torch.float32 or s.shape != k.shape[:3] \
                     or s.device != dev:
-                raise ValueError(f"decode_attention: {name} must be float32 "
+                raise ValueError(f"{what}: {name} must be float32 "
                                  f"{tuple(k.shape[:3])} on {dev}")
             tensors.append((name, s))
     for name, t in tensors:
         if not t.is_contiguous() or t.data_ptr() % 16:
-            raise ValueError(f"decode_attention: {name} must be contiguous "
-                             f"and 16-byte aligned")
+            raise ValueError(f"{what}: {name} must be contiguous and 16-byte "
+                             f"aligned")
+
+
+def _launch(name, q, k, Hkv, T, ptrs, dims, scale):
+    """Allocate the output and the split scratch, launch ``csrc/<name>.cu``
+    on q's card with ``ptrs`` (input pointers, None for an absent scale)
+    and ``dims``, and raise on a refused launch."""
+    B, Tq, Hq, hd = q.shape
+    R = Tq * (Hq // Hkv)
+    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
+    chunk, nsplit = split_plan(B, Hkv, T, R)
+    out = torch.empty_like(q)
+    f32 = dict(dtype=torch.float32, device=q.device)
+    o_part = torch.empty((B, Hkv, nsplit, R, hd), **f32)
+    m_part = torch.empty((B, Hkv, nsplit, R), **f32)
+    l_part = torch.empty((B, Hkv, nsplit, R), **f32)
+    ptrs = [*ptrs, out.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
+            l_part.data_ptr()]
+    ints = [*dims, hd, _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], chunk, nsplit]
+    fn = getattr(_build.load(name), name)
+    if fn.argtypes is None:
+        fn.restype = ctypes.c_int
+        fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int]
+                       * len(ints) + [ctypes.c_float, ctypes.c_void_p])
+    with torch.cuda.device(q.device):        # launch on q's card
+        code = fn(*ptrs, *ints, float(scale),
+                  torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(code, name)
+    return out
+
+
+def _scale_ptrs(k_scale, v_scale):
+    return (k_scale.data_ptr() if k_scale is not None else None,
+            v_scale.data_ptr() if v_scale is not None else None)
 
 
 def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, scale=None):
@@ -133,38 +191,95 @@ def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, scale=None):
 
     CPU tensors run :func:`_plain_decode`.  CUDA tensors launch
     ``csrc/decode_attention.cu`` (q float32/bfloat16; cache float32,
-    bfloat16 or int8; hd in {64, 128}; Tq * Hq / Hkv <= 64); every launch
-    adds one to ``decode_attention.launches``."""
+    bfloat16 or int8; hd in {64, 128}; Tq * Hq / Hkv <= 1024); every
+    launch adds one to ``decode_attention.launches``."""
     if not q.is_cuda:
         return _plain_decode(q, k, v, pos, k_scale, v_scale, scale)
     _check(q, k, v, pos, k_scale, v_scale)
-    B, Tq, Hq, hd = q.shape
+    B, Tq, Hq, _ = q.shape
     T, Hkv = k.shape[1], k.shape[2]
-    R = Tq * (Hq // Hkv)
-    scale = scale if scale is not None else 1.0 / (hd ** 0.5)
-    chunk, nsplit = split_plan(B, Hkv, T)
-    out = torch.empty_like(q)
-    f32 = dict(dtype=torch.float32, device=q.device)
-    o_part = torch.empty((B, Hkv, nsplit, R, hd), **f32)
-    m_part = torch.empty((B, Hkv, nsplit, R), **f32)
-    l_part = torch.empty((B, Hkv, nsplit, R), **f32)
-    fn = _build.load("decode_attention").decode_attention
-    if fn.argtypes is None:
-        fn.restype = ctypes.c_int
-        fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 10
-                       + [ctypes.c_float, ctypes.c_void_p])
-    with torch.cuda.device(q.device):        # launch on q's card
-        code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                  k_scale.data_ptr() if k_scale is not None else None,
-                  v_scale.data_ptr() if v_scale is not None else None,
-                  pos.data_ptr(), out.data_ptr(), o_part.data_ptr(),
-                  m_part.data_ptr(), l_part.data_ptr(),
-                  B, Tq, Hq, Hkv, T, hd, _Q_DTYPES[q.dtype],
-                  _KV_DTYPES[k.dtype], chunk, nsplit, float(scale),
-                  torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(code, "decode_attention")
+    out = _launch("decode_attention", q, k, Hkv, T,
+                  [q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                   *_scale_ptrs(k_scale, v_scale), pos.data_ptr()],
+                  [B, Tq, Hq, Hkv, T], scale)
     decode_attention.launches += 1
     return out
 
 
 decode_attention.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# paged (block-table) attention — the pool layout's decode hot path
+# ---------------------------------------------------------------------------
+
+
+def gather_paged_view(k_pool, tables):
+    """Per-slot contiguous view of a pooled leaf: k_pool [N, bs, ...] +
+    tables [B, nmax] -> [B, nmax*bs, ...] (a copy).  Unmapped entries (-1)
+    clamp to block 0 — the allocator maps every block through a live
+    slot's write position, so those rows sit past its causal frontier
+    and are masked like a slab's unwritten rows.  The plain twin's and
+    the CPU paths' materialization; the kernel resolves the table per
+    staged row instead."""
+    idx = tables.long().clamp(0, k_pool.shape[0] - 1)          # [B, nmax]
+    g = k_pool[idx]                                          # [B,nmax,bs,...]
+    return g.reshape((g.shape[0], g.shape[1] * g.shape[2]) + g.shape[3:])
+
+
+def paged_supported(q_shape, pool_shape) -> bool:
+    """The JAX package's static shape gate for its paged kernel: q
+    [B, Tq, Hq, hd] against a pool [N, bs, Hkv, hd].  (It admits hd 256,
+    which this port's kernels do not take yet — ``_check`` refuses it.)"""
+    B, Tq, Hq, hd = q_shape
+    N, bs, Hkv = pool_shape[0], pool_shape[1], pool_shape[2]
+    return (hd in (64, 128, 256) and Hq % Hkv == 0
+            and Tq * (Hq // Hkv) <= _R_CAP
+            and bs >= 8 and bs % 8 == 0)
+
+
+def _plain_paged(q, k_pool, v_pool, tables, pos, k_scale, v_scale, scale):
+    """The plain twin of the paged kernel (the JAX package's
+    ``_xla_paged``): gather each slot's view through its table, then
+    :func:`_plain_decode`.  It equals the kernel wherever every unmapped
+    block lies past the slot's frontier — what the allocator guarantees
+    for a live slot.  A free slot (table row all -1) differs: the gather
+    reads block 0 here, the kernel reads nothing and returns zeros; both
+    outputs are discarded by the server."""
+    k = gather_paged_view(k_pool, tables)
+    v = gather_paged_view(v_pool, tables)
+    ks = gather_paged_view(k_scale, tables) if k_scale is not None else None
+    vs = gather_paged_view(v_scale, tables) if v_scale is not None else None
+    return _plain_decode(q, k, v, pos, ks, vs, scale)
+
+
+def paged_decode_attention(q, k_pool, v_pool, tables, pos,
+                           k_scale=None, v_scale=None, scale=None):
+    """Block-table decode attention: q [B, Tq, Hq, hd] against a pooled
+    cache k/v [N, bs, Hkv, hd] addressed through ``tables`` [B, nmax]
+    int32 (physical block per logical block; -1 = unmapped) ->
+    [B, Tq, Hq, hd] (q.dtype).  Logical row t of slot b is row t % bs of
+    block tables[b, t // bs]; rows t <= pos[b] + i are attended.  int8
+    pools pass per-row scales [N, bs, Hkv] float32.
+
+    CPU tensors run :func:`_plain_paged`.  CUDA tensors launch
+    ``csrc/paged_decode_attention.cu`` (what ``decode_attention`` takes,
+    with bs a multiple of 8; unmapped blocks are never read); every
+    launch adds one to ``paged_decode_attention.launches``."""
+    if not q.is_cuda:
+        return _plain_paged(q, k_pool, v_pool, tables, pos, k_scale,
+                            v_scale, scale)
+    _check(q, k_pool, v_pool, pos, k_scale, v_scale, tables)
+    B, Tq, Hq, _ = q.shape
+    N, bs, Hkv = k_pool.shape[:3]
+    nmax = tables.shape[1]
+    out = _launch("paged_decode_attention", q, k_pool, Hkv, nmax * bs,
+                  [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
+                   *_scale_ptrs(k_scale, v_scale), pos.data_ptr(),
+                   tables.data_ptr()],
+                  [B, Tq, Hq, Hkv, N, nmax, bs], scale)
+    paged_decode_attention.launches += 1
+    return out
+
+
+paged_decode_attention.launches = 0

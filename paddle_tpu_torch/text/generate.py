@@ -1,18 +1,20 @@
-"""Autoregressive GPT generation over a contiguous KV cache.
+"""Autoregressive GPT generation over a KV cache.
 
-Counterpart of ``paddle_tpu/text/generate.py`` for the serving slice:
-the cache format (with the int8 ``k_s``/``v_s`` scale planes), the
-single-position decode step, whole-prompt prefill, the logit filter, and
-``generate``.  Where the JAX module scans over layers and returns a new
+Counterpart of ``paddle_tpu/text/generate.py`` for the serving slices:
+the cache format (with the int8 ``k_s``/``v_s`` scale planes; the paged
+layout lives in ``text/kv_pool.py``), the single-position decode step,
+whole-prompt and chunked prefill (and the chunk math the paged prefill
+shares), the logit filter, and ``generate``.  Where the JAX module scans over layers and returns a new
 cache, this one loops over layers and **writes cache rows in place**
 (``index_put_`` / slice assignment into the [L, B, T, ...] leaves): a
 decode step writes each layer's fresh row before that layer attends the
 cache, which is what the JAX step computes by splicing the row into its
 copy.  The returned cache is the same dict that was passed in.
 
-On a CUDA cache every cached-attention site runs the split-KV decode
-kernel (``ops/decode_attention``) and prefill runs the flash kernel;
-on the CPU they keep the reference's plain math.
+On a CUDA cache every cached-attention site (decode steps and prefill
+chunks) runs the split-KV decode kernel (``ops/decode_attention``) and
+whole-prompt prefill runs the flash kernel; on the CPU they keep the
+reference's plain math.
 """
 from __future__ import annotations
 
@@ -25,7 +27,8 @@ from .. import resolve_device
 from ..ops import decode_attention as da
 from ..ops.attention import attention_array
 
-__all__ = ["init_cache", "decode_step", "prefill_slot", "generate"]
+__all__ = ["init_cache", "decode_step", "prefill_slot", "prefill_slot_chunk",
+           "generate"]
 
 
 def _kv_store_dtype(cfg: gpt.GPTConfig):
@@ -46,13 +49,27 @@ def _round_cache_len(n: int) -> int:
     return -(-n // 128) * 128
 
 
-def init_cache(cfg: gpt.GPTConfig, batch: int, max_len: int, device=None):
+def init_cache(cfg: gpt.GPTConfig, batch: int, max_len: int, device=None,
+               layout=None, block_size=None, num_blocks=None):
     """Per-layer K/V cache [L, B, T, Hkv, hd] with T = ``max_len`` rounded
     by :func:`_round_cache_len`, on ``device`` (default the card).
     ``PADDLE_TPU_KV_DTYPE`` selects the storage dtype; int8 caches carry
     per-(position, head) fp32 scale planes ``k_s``/``v_s`` [L, B, T, Hkv].
     A layer's slice ``cache[name][l]`` is contiguous, which is the form
-    the decode kernel takes."""
+    the decode kernel takes.
+
+    ``layout="paged"`` returns the pooled format instead
+    (``kv_pool.init_paged_cache``: a block pool read through an int32
+    ``tables`` leaf [batch, nmax])."""
+    if layout == "paged":
+        from . import kv_pool
+
+        return kv_pool.init_paged_cache(cfg, batch, max_len,
+                                        block_size=block_size,
+                                        num_blocks=num_blocks, device=device)
+    if layout not in ("contiguous", None, ""):
+        raise ValueError(
+            f"layout {layout!r}: expected 'contiguous' or 'paged'")
     dev = resolve_device(device)
     L, H, hd = cfg.num_layers, cfg.kv_heads, cfg.head_dim
     dt = _kv_store_dtype(cfg)
@@ -231,7 +248,8 @@ def _merge_slot_rows(csl: dict, rows: dict, slot: int, pos0: int,
     """Write the first ``length`` rows of a prompt chunk (leaves
     [1, P, ...]) into one slot's rows [pos0, pos0 + length) of a layer's
     cache — IN PLACE.  Pad rows are not written: the old tenant's rows
-    past ``length`` stay hidden by the causal mask until overwritten."""
+    past ``length`` stay hidden by the causal mask until overwritten.
+    Shared by prefill_slot (pos0 == 0) and the chunk paths."""
     for name, val in rows.items():
         arr = csl[name]
         arr[slot, pos0:pos0 + length] = val[0, :length].to(arr.dtype)
@@ -246,16 +264,88 @@ def prefill_slot(params, cache, tokens, length: int, slot: int,
     ``slot`` = batch row of the serving cache.  Writes that slot's cache
     rows [0, length) in place and returns (logits at position length-1
     [V] float32, cache)."""
-    dt = cfg.dtype
-    P = tokens.shape[1]
-    x = woq.embed(params, tokens, dt)
-    if cfg.pos_embed == "learned":
-        x = x + params["wpe"][:P].to(dt)[None]
+    x = _embed_chunk(params, tokens, 0, cfg)
     for l in range(cfg.num_layers):
         x, rows = _prefill_block(x, gpt.layer(params, l), cfg)
         _merge_slot_rows(_layer_cache(cache, l), rows, slot, 0, length)
+    return _last_logits(x, length, params, cfg), cache
+
+
+# ---------------------------------------------------------------------------
+# chunked prefill: a prompt chunk at an offset, attending the rows before it
+# ---------------------------------------------------------------------------
+
+
+def _chunk_pre_attn(x, p, pos0: int, cfg: gpt.GPTConfig):
+    """Pre-attention half of one block on a C-token chunk [B, C, D] at
+    positions [pos0, pos0 + C): ln1 -> qkv projection (Hkv heads kept) ->
+    rope over the chunk's positions -> storage-dtype rows.  Returns
+    (q [B, C, H, hd], rows)."""
+    C = x.shape[1]
+    q, k_new, v_new = gpt._project_qkv(gpt._norm(x, p, "ln1", cfg), p, cfg)
+    if cfg.pos_embed == "rope":
+        chunk_pos = pos0 + torch.arange(C, device=x.device)
+        q = gpt.apply_rope(q, chunk_pos)
+        k_new = gpt.apply_rope(k_new, chunk_pos)
+    return q, _store_rows(k_new, v_new, cfg)
+
+
+def _chunk_attend_block(x, p, csl, pos0: int, length: int,
+                        cfg: gpt.GPTConfig):
+    """One block over a C-token chunk [1, C, D] at positions
+    [pos0, pos0 + C) against one slot's cache leaves ``csl`` [1, T, ...]
+    whose rows [0, pos0) are filled — THE shared body of
+    :func:`prefill_slot_chunk` and ``kv_pool.paged_prefill_chunk``.
+
+    The chunk's first ``length`` rows are written into ``csl`` at
+    [pos0, pos0 + length) IN PLACE, then row i attends rows t <= pos0 + i
+    (``_attend_cache``: on the card the decode kernel at Tq = C).  Pad
+    rows are never written: a valid row i < length sees only rows
+    <= pos0 + i, so what sits past the prompt cannot reach it, and the
+    pads' own outputs are discarded.  Returns (x_out, rows) — the chunk's
+    storage-dtype row leaves [1, C, ...]."""
+    q, rows = _chunk_pre_attn(x, p, pos0, cfg)
+    _merge_slot_rows(csl, rows, 0, pos0, length)
+    pos = torch.full((x.shape[0],), pos0, dtype=torch.int32, device=x.device)
+    attn = _attend_cache(q, csl, pos, cfg)                 # [1, C, D]
+    return _block_post_attn(x, attn, p, cfg), rows
+
+
+def _embed_chunk(params, tokens, pos0: int, cfg: gpt.GPTConfig):
+    """Embed a chunk's tokens [1, C] at positions [pos0, pos0 + C)."""
+    x = woq.embed(params, tokens, cfg.dtype)
+    if cfg.pos_embed == "learned":
+        C = tokens.shape[1]
+        x = x + params["wpe"][pos0:pos0 + C].to(cfg.dtype)[None]
+    return x
+
+
+def _last_logits(x, length: int, params, cfg: gpt.GPTConfig):
+    """Logits [V] float32 at the chunk's last valid row (the final norm
+    is per row, so only that row is normalized)."""
     last = gpt._norm(x[:, length - 1:length], params, "ln_f", cfg)
-    return woq.logits(last, params, dt)[0, 0].float(), cache
+    return woq.logits(last, params, cfg.dtype)[0, 0].float()
+
+
+@torch.no_grad()
+def prefill_slot_chunk(params, cache, tokens, pos0: int, length: int,
+                       slot: int, cfg: gpt.GPTConfig):
+    """One fixed-size chunk of a prompt at positions [pos0, pos0 + C) for
+    one slot of a contiguous cache — the multi-chunk admission step: a
+    long prompt feeds as a sequence of these, each attending the slot's
+    already-filled rows [0, pos0).
+
+    tokens [1, C] int (pad tail beyond ``length``).  PRECONDITION
+    pos0 + C <= the cache rows and the wpe table (the server's walk
+    overlaps its last window instead of overrunning).  Writes the slot's
+    rows [pos0, pos0 + length) in place and returns (logits at the
+    chunk's last valid position [V] float32, cache)."""
+    x = _embed_chunk(params, tokens, pos0, cfg)
+    for l in range(cfg.num_layers):
+        csl = {name: arr[l, slot:slot + 1] for name, arr in cache.items()}
+        x, _ = _chunk_attend_block(x, gpt.layer(params, l), csl, pos0,
+                                   length, cfg)
+    return _last_logits(x, length, params, cfg), cache
 
 
 # ---------------------------------------------------------------------------

@@ -1,0 +1,611 @@
+"""Paged KV cache: block pool, block tables, refcounted prefix reuse.
+
+Counterpart of ``paddle_tpu/text/kv_pool.py`` for the paged serving
+slice:
+
+* **block pool** — leaves ``[L, N + 1, bs, Hkv, hd]`` (int8 scale planes
+  ``[L, N + 1, bs, Hkv]`` ride along as in the contiguous layout) shared
+  by every slot.  Blocks ``[0, N)`` belong to the allocator; block ``N``
+  is the WRITE SINK (see :func:`_scatter_rows`) and no table ever names
+  it;
+* **block tables** — an int32 ``[max_batch, nmax]`` leaf mapping each
+  slot's logical block to a physical block (-1 = unmapped), pushed from
+  the host allocator when it changes;
+* **host allocator** (:class:`PagedAllocator`) — the free list,
+  refcounts, copy-on-write and the radix prefix index, in plain Python
+  and numpy, replaying the JAX package's allocator operation for
+  operation.  The JAX package's host-RAM spill tier, RSS watchdog and
+  cross-replica chain migration are not ported: the code paths that
+  would reach them are the no-ops they are there with
+  ``PADDLE_TPU_KV_SPILL_MB=0`` (the default).
+
+Device math: :func:`paged_decode_step_batched` (the pooled twin of
+``serving.decode_step_batched``) writes each layer's fresh rows into the
+pool, then attends through the tables — on the card with the
+block-table kernel (``ops/decode_attention.paged_decode_attention``), on
+the CPU through each slot's gathered view.  :func:`paged_prefill_chunk`
+is the pooled ``generate.prefill_slot_chunk``.  Both write in place and
+return the cache they were given.
+"""
+from __future__ import annotations
+
+import zlib
+
+import numpy as np
+import torch
+
+from . import generate, gpt, woq
+from .. import flags as _flags
+from .. import resolve_device
+from ..ops import decode_attention as da
+
+__all__ = [
+    "PoolExhausted", "PagedAllocator", "round_len", "init_paged_cache",
+    "paged_decode_step_batched", "paged_prefill_chunk", "copy_blocks",
+    "prefix_fingerprint",
+]
+
+# the value/scale leaves of a pooled cache (everything except "tables")
+POOL_LEAVES = ("k", "v", "k_s", "v_s")
+
+
+class PoolExhausted(RuntimeError):
+    """The KV block pool has no free block.  The message carries the JAX
+    package's ``RESOURCE_EXHAUSTED`` marker."""
+
+    def __init__(self, need: int = 1, total: int = 0):
+        super().__init__(
+            f"RESOURCE_EXHAUSTED: KV block pool exhausted "
+            f"(need {need} more block(s), pool size {total})")
+
+
+def round_len(max_len: int, block_size: int) -> int:
+    """A paged cache's per-slot logical row count: the contiguous
+    layout's rounding (``generate._round_cache_len``), then up to a whole
+    number of blocks.  Pick ``block_size`` dividing the contiguous
+    length when parity with a contiguous cache of the same window
+    matters."""
+    T = generate._round_cache_len(max_len)
+    bs = int(block_size)
+    return -(-T // bs) * bs
+
+
+def init_paged_cache(cfg: gpt.GPTConfig, batch: int, max_len: int,
+                     block_size: int | None = None,
+                     num_blocks: int | None = None, device=None) -> dict:
+    """The pooled cache (``generate.init_cache(layout="paged")``) on
+    ``device`` (default the card): value leaves ``[L, N + 1, bs, Hkv, hd]``
+    (+ int8 scale planes ``[L, N + 1, bs, Hkv]``) and an int32 ``tables``
+    leaf ``[batch, nmax]`` initialized unmapped (-1).  ``num_blocks`` (N)
+    defaults to full provisioning (``batch * nmax``); block N is the
+    write sink, outside the allocator's range."""
+    bs = _flags.kv_block_size() if block_size is None else int(block_size)
+    if bs < 8 or bs % 8:
+        raise ValueError(f"block_size {bs}: must be a positive multiple "
+                         f"of 8 (the decode kernel's row tile)")
+    T = round_len(max_len, bs)
+    nmax = T // bs
+    N = batch * nmax if num_blocks is None else int(num_blocks)
+    if N < 1:
+        raise ValueError(f"num_blocks must be >= 1, got {N}")
+    dev = resolve_device(device)
+    L, H, hd = cfg.num_layers, cfg.kv_heads, cfg.head_dim
+    dt = generate._kv_store_dtype(cfg)
+    shape = (L, N + 1, bs, H, hd)
+    cache = {"k": torch.zeros(shape, dtype=dt, device=dev),
+             "v": torch.zeros(shape, dtype=dt, device=dev),
+             "tables": torch.full((batch, nmax), -1, dtype=torch.int32,
+                                  device=dev)}
+    if dt == torch.int8:
+        cache["k_s"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=dev)
+        cache["v_s"] = torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=dev)
+    return cache
+
+
+def _geometry(cache: dict):
+    """(N, block_size, nmax) of a pooled cache: N allocator blocks (the
+    pool holds N + 1, the last being the write sink)."""
+    return (cache["k"].shape[1] - 1, cache["k"].shape[2],
+            cache["tables"].shape[1])
+
+
+def _layer_pool(cache: dict, l: int) -> dict:
+    """Layer ``l``'s pool leaves [N + 1, bs, ...] (contiguous views: writes
+    land in the cache, and the kernel takes them without a copy)."""
+    return {n: cache[n][l] for n in POOL_LEAVES if n in cache}
+
+
+def _scatter_rows(pool_l: dict, rows: dict, phys) -> None:
+    """Write row leaves [R, Hkv(, hd)] into one layer's pool leaves
+    [N + 1, bs, Hkv(, hd)] at flat physical rows ``phys`` [R] — IN PLACE.
+    The single row write every paged path funnels through.
+
+    Rows with nowhere to go (an unmapped block, a pad row, a row past
+    the table) carry the index of the sink block's first row, N * bs.
+    ``index_put_`` has no drop mode (out of range it raises on the CPU
+    and asserts on the card), and a boolean mask would sync the host once
+    per layer; the sink keeps the write one sync-free scatter.  Several
+    rows may land in the sink at once; which one stays does not matter,
+    since no table names the sink."""
+    for name, val in rows.items():
+        arr = pool_l[name]
+        flat = arr.view((-1,) + arr.shape[2:])
+        flat.index_put_((phys,), val.to(arr.dtype))
+
+
+def _phys_rows(trows, logi, N: int, bs: int, valid=None):
+    """Flat physical row of logical rows ``logi`` [R] through table rows
+    ``trows`` [R, nmax] (one table row per written row): the sink row
+    N * bs where the block is unmapped, past the table, or ``valid`` is
+    False."""
+    nmax = trows.shape[1]
+    blk = logi // bs
+    tb = torch.gather(trows, 1, blk.clamp(max=nmax - 1)[:, None])[:, 0]
+    ok = (tb >= 0) & (blk < nmax)
+    if valid is not None:
+        ok &= valid
+    return torch.where(ok, tb.long() * bs + logi % bs,
+                       torch.full_like(logi, N * bs))
+
+
+def _attend_pool(q, pool_l: dict, tables, pos, cfg: gpt.GPTConfig):
+    """Cached attention for q [B, Tq, H, hd] through the block tables
+    against one layer's pool ``pool_l`` (rows through the current
+    positions written): row i of slot b attends logical rows
+    t <= pos[b] + i.  Returns [B, Tq, H*hd] in the compute dtype.
+
+    CUDA: the block-table kernel, which reads each slot's mapped blocks
+    and nothing else.  CPU: the contiguous path's plain math
+    (``generate._attend_cache``) on each slot's gathered view — the JAX
+    package's own route off its kernel."""
+    B, Tq, H, hd = q.shape
+    if pool_l["k"].is_cuda:
+        out = da.paged_decode_attention(
+            q.contiguous(), pool_l["k"], pool_l["v"], tables, pos,
+            k_scale=pool_l.get("k_s"), v_scale=pool_l.get("v_s"))
+        return out.to(cfg.dtype).reshape(B, Tq, H * hd)
+    view = {n: da.gather_paged_view(v, tables) for n, v in pool_l.items()}
+    return generate._attend_cache(q, view, pos, cfg)
+
+
+@torch.no_grad()
+def paged_decode_step_batched(params, cache, token, pos,
+                              cfg: gpt.GPTConfig):
+    """``serving.decode_step_batched`` on the pooled layout: token [B]
+    int, pos int32 [B] (each slot's write position), cache an
+    :func:`init_paged_cache` tree -> (logits [B, V] float32, cache).
+
+    Per layer: the fresh rows are scattered into the pool first (through
+    the table; a free slot's row goes to the sink), then the layer
+    attends through the tables — scatter-then-attend, so this step
+    attends exactly what later steps read back (int8 included)."""
+    N, bs, _ = _geometry(cache)
+    tables = cache["tables"]
+    phys = _phys_rows(tables, pos.long(), N, bs)
+    x = generate._embed_step(params, token, pos, cfg)
+    for l in range(cfg.num_layers):
+        p = gpt.layer(params, l)
+        pool_l = _layer_pool(cache, l)
+        q3, rows = generate._block_pre_attn(x, p, pos, cfg)
+        _scatter_rows(pool_l, rows, phys)
+        attn = _attend_pool(q3, pool_l, tables, pos, cfg)    # [B, 1, D]
+        x = generate._block_post_attn(x, attn, p, cfg)
+    x = gpt._norm(x, params, "ln_f", cfg)
+    return woq.logits(x, params, cfg.dtype)[:, 0].float(), cache
+
+
+@torch.no_grad()
+def paged_prefill_chunk(params, cache, tokens, pos0: int, length: int,
+                        slot: int, cfg: gpt.GPTConfig):
+    """``generate.prefill_slot_chunk`` on the pooled layout: one chunk of
+    a prompt at positions [pos0, pos0 + C) for one slot.  Per layer, the
+    slot's table-gathered view (rows [0, pos0) filled) goes through
+    ``generate._chunk_attend_block`` — on the card the contiguous decode
+    kernel at Tq = C — and the chunk's valid rows then scatter through
+    the table (pads and unmapped entries to the sink).  Returns (logits
+    at the chunk's last valid position [V] float32, cache).
+
+    With a shared prefix adopted into the table, ``pos0`` starts at the
+    first unshared row: the shared blocks are attended through the
+    gather but never recomputed.  The caller has made rows
+    [pos0, pos0 + length) writable (``PagedAllocator.ensure_rows``)."""
+    N, bs, _ = _geometry(cache)
+    trow = cache["tables"][slot:slot + 1]                 # [1, nmax]
+    C = tokens.shape[1]
+    idx = torch.arange(C, device=trow.device)
+    phys = _phys_rows(trow.expand(C, -1), pos0 + idx, N, bs,
+                      valid=idx < length)
+    x = generate._embed_chunk(params, tokens, pos0, cfg)
+    for l in range(cfg.num_layers):
+        pool_l = _layer_pool(cache, l)
+        csl = {n: da.gather_paged_view(v, trow) for n, v in pool_l.items()}
+        x, rows = generate._chunk_attend_block(x, gpt.layer(params, l), csl,
+                                               pos0, length, cfg)
+        _scatter_rows(pool_l, {n: v[0] for n, v in rows.items()}, phys)
+    return generate._last_logits(x, length, params, cfg), cache
+
+
+@torch.no_grad()
+def copy_blocks(cache: dict, src, dst) -> dict:
+    """Copy physical blocks ``src`` -> ``dst`` (int [P]) across every
+    pool leaf and layer, in place — the device half of copy-on-write.
+    Destinations are freshly allocated (never in ``src``), and the
+    source rows are gathered before any write, so there is no ordering
+    hazard."""
+    for name in POOL_LEAVES:
+        if name in cache:
+            arr = cache[name]
+            arr[:, dst] = arr[:, src]
+    return cache
+
+
+# ---------------------------------------------------------------------------
+# host allocator: free list + refcounts + radix prefix index
+# ---------------------------------------------------------------------------
+
+
+def prefix_fingerprint(tokens) -> int:
+    """Deterministic fingerprint of a token run, equal to the JAX
+    package's (crc32 over the int64 bytes — Python's ``hash()`` is salted
+    per process), for prefix-aware routing across replicas."""
+    return zlib.crc32(np.asarray(tuple(tokens), np.int64).tobytes())
+
+
+class _PrefixEntry:
+    """One indexed radix node: the physical pool block, its LRU clock,
+    its position in the interned tree (``key`` = the intern-table key
+    ``(parent chain id, token run)``, ``parent`` = the previous node's
+    chain id, 0 at the root) and ``end`` — the cumulative token count of
+    the chain through this node.  A node's run never crosses a block
+    boundary, and its block holds valid rows for in-block offsets
+    ``[0, end - 1 mod bs]`` — split siblings share a block precisely
+    because their common rows are identical."""
+
+    __slots__ = ("block", "last_hit", "key", "parent", "end")
+
+    def __init__(self, block: int, tick: int, key, parent: int,
+                 end: int):
+        self.block = block
+        self.last_hit = tick
+        self.key = key
+        self.parent = parent
+        self.end = end
+
+
+class PagedAllocator:
+    """Host-side block accounting for one pooled cache: the free list,
+    per-block refcounts, the per-slot table mirror (pushed to the device
+    leaf when ``dirty``), pending copy-on-write copies, and the prefix
+    index.
+
+    Prefix identity is an interned parent-id RADIX tree: a node's chain
+    id is interned under ``(parent_chain_id, token_run)`` where the run
+    never crosses a block boundary, and siblings under one parent always
+    diverge on their first token (``_children`` maps parent ->
+    {first token -> child id}).  A prompt sharing only part of a node's
+    run SPLITS the node (:meth:`_split_entry`): a new parent takes the
+    shared tokens and an extra refcount on the SAME physical block; the
+    adopter's first divergent write copies the block through the normal
+    copy-on-write drain.
+
+    The index holds its own reference on every registered block (one
+    per node — split siblings stack refs on a shared block, mirrored in
+    ``_blk_ents``), so a retired request's prefix blocks survive for the
+    next request until :meth:`evict_cold` or :meth:`close` releases
+    them."""
+
+    def __init__(self, num_blocks: int, block_size: int, nmax: int,
+                 max_batch: int):
+        if num_blocks < 1:
+            raise ValueError(f"num_blocks must be >= 1, got {num_blocks}")
+        self.N = int(num_blocks)
+        self.bs = int(block_size)
+        self.nmax = int(nmax)
+        self.max_batch = int(max_batch)
+        self.tables = np.full((max_batch, nmax), -1, np.int32)
+        # pop() takes from the end: ids ascending-on-pop, deterministic
+        self._free = list(range(self.N - 1, -1, -1))
+        self._ref = np.zeros(self.N, np.int64)
+        self._blk_ents = np.zeros(self.N, np.int64)  # index entries per block
+        self._prefix: dict = {}              # chain id -> _PrefixEntry
+        self._interned: dict = {}            # (parent id, run) -> chain id
+        self._children: dict = {}            # chain id -> {tok0 -> child id}
+        self._next_chain = 1                 # 0 is the root sentinel
+        self._pending_copies: list = []      # [(src, dst)] for copy_blocks
+        self._tick = 0                       # LRU clock for the index
+        self.dirty = True                    # tables need a device push
+        self.radix_on = _flags.kv_radix()
+        self.prefix_hits = 0
+        self.prefix_misses = 0
+        self.cow_copies = 0
+        self.peak_blocks_in_use = 0
+        self.radix_splits = 0
+
+    # -- pool accounting ----------------------------------------------------
+
+    @property
+    def blocks_in_use(self) -> int:
+        return self.N - len(self._free)
+
+    def _alloc_block(self) -> int:
+        """One block off the free list (ref 1) — every allocation path
+        funnels through here."""
+        if not self._free:
+            raise PoolExhausted(1, self.N)
+        b = self._free.pop()
+        self._ref[b] = 1
+        self.peak_blocks_in_use = max(self.peak_blocks_in_use,
+                                      self.blocks_in_use)
+        return b
+
+    def _decref_free(self, b: int) -> None:
+        """Drop one reference; a block reaching zero returns to the free
+        list — the single release path.  Pending copies whose destination
+        just died are discarded with it: a stale (src, dst) surviving
+        into a later drain could copy into a REALLOCATED dst."""
+        self._ref[b] -= 1
+        if self._ref[b] < 0:
+            raise AssertionError(f"block {b} refcount went negative")
+        if self._ref[b] == 0:
+            self._free.append(b)
+            if self._pending_copies:
+                self._pending_copies = [p for p in self._pending_copies
+                                        if p[1] != b]
+
+    def _cow_block(self, slot: int, li: int) -> int:
+        """Copy-on-write: the slot is about to write into a block another
+        holder (a slot or the prefix index) also references — allocate a
+        fresh block, queue the device copy, remap the table entry, and
+        drop the shared reference."""
+        src = int(self.tables[slot, li])
+        dst = self._alloc_block()
+        self._pending_copies.append((src, dst))
+        self.tables[slot, li] = dst
+        self._decref_free(src)
+        self.dirty = True
+        self.cow_copies += 1
+        return dst
+
+    def ensure_rows(self, slot: int, start: int, stop: int) -> None:
+        """Make rows [start, stop) of ``slot`` writable: allocate
+        unmapped logical blocks, copy-on-write shared ones.  Raises
+        :exc:`PoolExhausted` when the free list runs dry; row indices
+        clamp to the slot's logical window."""
+        if stop <= start:
+            return
+        lo = max(0, start // self.bs)
+        hi = min(self.nmax - 1, (stop - 1) // self.bs)
+        for li in range(lo, hi + 1):
+            b = int(self.tables[slot, li])
+            if b < 0:
+                self.tables[slot, li] = self._alloc_block()
+                self.dirty = True
+            elif self._ref[b] > 1:
+                self._cow_block(slot, li)
+
+    def free_slot(self, slot: int) -> None:
+        """Retire a slot: every mapped block loses the slot's reference
+        (prefix-indexed blocks stay resident under the index's own
+        ref)."""
+        for li in range(self.nmax):
+            b = int(self.tables[slot, li])
+            if b >= 0:
+                self._decref_free(b)
+        self.tables[slot] = -1
+        self.dirty = True
+
+    def take_copies(self) -> list:
+        """Drain the pending copy-on-write (src, dst) pairs for
+        :func:`copy_blocks`."""
+        out, self._pending_copies = self._pending_copies, []
+        return out
+
+    # -- radix prefix index -------------------------------------------------
+
+    def adopt_prefix(self, slot: int, prompt) -> int:
+        """Map the longest indexed TOKEN prefix of ``prompt`` into
+        ``slot``'s table (one incref per mapped block) and return the
+        shared row count, capped at ``len(prompt) - 1`` so admission
+        always computes at least the last token's logits (a fully shared
+        prompt copies its final block on that one-row write).
+
+        The walk descends the radix tree one node per step; a node
+        matching only partially is SPLIT at the divergence point
+        (``PADDLE_TPU_KV_RADIX``) so the shared head still adopts.
+        Hits/misses count in TOKEN rows."""
+        n = len(prompt)
+        self._tick += 1
+        matched = 0
+        parent = 0
+        deepest = {}                 # block index -> deepest node's block
+        while matched < n:
+            cid = self._children.get(parent, {}).get(prompt[matched])
+            if cid is None:
+                break
+            ent = self._prefix[cid]
+            run = ent.key[1]
+            lim = min(len(run), n - matched)
+            m = 0
+            while m < lim and run[m] == prompt[matched + m]:
+                m += 1
+            if m == len(run):
+                ent.last_hit = self._tick
+                matched += m
+                deepest[(ent.end - 1) // self.bs] = ent.block
+                parent = cid
+                continue
+            # partial match: split iff it buys adoptable rows
+            if self.radix_on and m and min(matched + m, n - 1) > matched:
+                scid = self._split_entry(cid, m)
+                sent = self._prefix[scid]
+                sent.last_hit = self._tick
+                matched += m
+                deepest[(sent.end - 1) // self.bs] = sent.block
+            break
+        for bi, b in deepest.items():
+            self._ref[b] += 1
+            self.tables[slot, bi] = b
+        if deepest:
+            self.dirty = True
+        shared = min(matched, n - 1)
+        if shared > 0:
+            self.prefix_hits += shared
+        missed = (n - 1) - shared
+        if missed > 0:
+            self.prefix_misses += missed
+        return shared
+
+    def register_prefix(self, slot: int, prompt) -> None:
+        """Index ``slot``'s full prompt blocks for future sharing (the
+        index takes its own reference per node).  The owner never
+        rewrites a full prompt block — decode writes start at
+        ``len(prompt)`` — so registered blocks are immutable until
+        released; partial tail blocks are never registered.  The walk
+        descends existing nodes, splits at mid-run divergence (the new
+        sibling is backed by the slot's own block) and interns the
+        remainder one block-run per node."""
+        self._tick += 1
+        n_full = (len(prompt) // self.bs) * self.bs
+        off = 0
+        parent = 0
+        while off < n_full:
+            b = int(self.tables[slot, off // self.bs])
+            if b < 0:
+                break
+            stop = (off // self.bs + 1) * self.bs
+            run = tuple(prompt[off:stop])
+            cid = self._children.get(parent, {}).get(run[0])
+            if cid is None:
+                key = (parent, run)
+                cid = self._next_chain
+                self._next_chain += 1
+                self._interned[key] = cid
+                self._prefix[cid] = _PrefixEntry(b, self._tick, key,
+                                                 parent, stop)
+                self._children.setdefault(parent, {})[run[0]] = cid
+                self._blk_ents[b] += 1
+                self._ref[b] += 1
+                parent = cid
+                off = stop
+                continue
+            ent = self._prefix[cid]
+            erun = ent.key[1]
+            # a node's run never crosses a block boundary, so erun fits
+            # inside run's remainder
+            m = 0
+            while m < len(erun) and erun[m] == run[m]:
+                m += 1
+            if m == len(erun):
+                ent.last_hit = self._tick
+                parent = cid
+                off += m
+                continue
+            if not (self.radix_on and m):
+                # block-granular baseline: a mid-run divergence is a stop
+                break
+            parent = self._split_entry(cid, m)
+            self._prefix[parent].last_hit = self._tick
+            off += m
+
+    def _split_entry(self, cid: int, m: int) -> int:
+        """Split an indexed node at run offset ``m``: a new parent node
+        takes tokens ``[:m]`` and an extra refcount on the SAME physical
+        block (rows up to the split point are identical by the chain
+        invariant), while the deep node keeps its chain id with tokens
+        ``[m:]`` — its descendants' parent pointers stay valid.  No device
+        copy happens here: the first writer adopting the split node sees
+        the stacked refcount and copies through the normal COW drain.
+        Returns the new parent's chain id."""
+        ent = self._prefix[cid]
+        run = ent.key[1]
+        parent = ent.parent
+        skey = (parent, run[:m])
+        scid = self._next_chain
+        self._next_chain += 1
+        self._interned[skey] = scid
+        self._prefix[scid] = _PrefixEntry(ent.block, self._tick, skey,
+                                          parent,
+                                          ent.end - (len(run) - m))
+        self._blk_ents[ent.block] += 1
+        self._ref[ent.block] += 1
+        # re-key the deep node under the split node (same cid)
+        del self._interned[ent.key]
+        ent.key = (scid, run[m:])
+        ent.parent = scid
+        self._interned[ent.key] = cid
+        self._children.setdefault(parent, {})[run[0]] = scid
+        self._children[scid] = {run[m]: cid}
+        self.radix_splits += 1
+        return scid
+
+    @property
+    def prefix_entries(self) -> int:
+        return len(self._prefix)
+
+    def _drop_entry(self, cid: int) -> None:
+        """Remove one index entry plus its intern record (and its
+        parent's child-map slot) — the single removal path eviction and
+        close share."""
+        ent = self._prefix.pop(cid)
+        self._interned.pop(ent.key, None)
+        pm = self._children.get(ent.parent)
+        if pm is not None:
+            tok0 = ent.key[1][0]
+            if pm.get(tok0) == cid:
+                del pm[tok0]
+            if not pm:
+                del self._children[ent.parent]
+        self._blk_ents[ent.block] -= 1
+        self._decref_free(ent.block)
+
+    def _cold_leaves(self, max_entries: int | None) -> list:
+        """Eviction candidates: tree LEAVES no live slot references,
+        coldest (LRU) first.  "No slot references" means every ref on the
+        block is index-held (``_blk_ents``); only leaves are candidates
+        because dropping an inner node would orphan its descendants."""
+        cold = sorted(
+            (ent.last_hit, cid) for cid, ent in self._prefix.items()
+            if self._ref[ent.block] == self._blk_ents[ent.block]
+            and not self._children.get(cid))
+        return cold if max_entries is None else cold[:max_entries]
+
+    def evict_cold(self, max_entries: int | None = None) -> int:
+        """Drop cold prefix-cache leaves — the first relief when the pool
+        runs dry.  Returns the number of entries dropped.  A cold inner
+        block's whole subtree is cold too, so repeated engagements drain
+        chains tail-first."""
+        freed = 0
+        for _, cid in self._cold_leaves(max_entries):
+            self._drop_entry(cid)
+            freed += 1
+        return freed
+
+    def close(self) -> None:
+        """Release the whole index and every table (server shutdown)."""
+        for cid in list(self._prefix):
+            if cid in self._prefix:
+                self._drop_entry(cid)
+        for slot in range(self.max_batch):
+            if (self.tables[slot] >= 0).any():
+                self.free_slot(slot)
+
+    def stats(self) -> dict:
+        """The JAX allocator's stats, key for key; the spill-tier and
+        migration counters are 0 (the tier is not ported)."""
+        return {
+            "num_blocks": self.N, "block_size": self.bs,
+            "blocks_in_use": self.blocks_in_use,
+            "peak_blocks_in_use": self.peak_blocks_in_use,
+            "prefix_entries": self.prefix_entries,
+            "prefix_hits": self.prefix_hits,
+            "prefix_misses": self.prefix_misses,
+            "cow_copies": self.cow_copies,
+            "radix_splits": self.radix_splits,
+            "spilled_blocks": 0,
+            "restored_blocks": 0,
+            "spilled_entries": 0,
+            "host_spill_bytes": 0,
+            "chain_migrations": 0,
+        }

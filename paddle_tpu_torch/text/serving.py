@@ -1,7 +1,7 @@
 """Continuous-batching decode server (slot scheduler over the KV cache).
 
-Counterpart of ``paddle_tpu/text/serving.py`` for the first slice: one
-resident batched KV cache of ``max_batch`` slots; requests join and leave
+Counterpart of ``paddle_tpu/text/serving.py`` for the serving slices:
+one resident KV cache for ``max_batch`` slots; requests join and leave
 mid-flight; each tick is ONE batched decode step over every slot with
 its own position; a freed slot is reused without clearing (the causal
 mask ``t <= pos`` hides stale rows until they are overwritten).
@@ -12,30 +12,56 @@ mask ``t <= pos`` hides stale rows until they are overwritten).
         srv.tick()
     tokens = srv.result(rid)
 
-Admission prefills the whole prompt in one pass at a power-of-two bucket
-(``generate.prefill_slot``, the flash kernel on the card); ticks run the
-split-KV decode kernel.  Everything else the JAX server does — paged
-layout, chunked/budgeted prefill, async dispatch and ``tick_block``,
-speculation, adapters and constraints, tensor parallelism, MoE, TTLs,
-admission control, telemetry, fault handling, the fleet — is later
-slices' work.
+Two cache layouts (``layout=``, default ``PADDLE_TPU_KV_LAYOUT``):
+
+* ``"contiguous"`` — one slab, every slot provisioned for ``max_len``
+  rows.  Admission prefills the whole prompt in one pass at a
+  power-of-two bucket (``generate.prefill_slot``, the flash kernel on the
+  card) or, with ``prefill_chunk=N``, in fixed N-token chunks
+  (``generate.prefill_slot_chunk``); ticks run the split-KV decode
+  kernel.
+* ``"paged"`` — a pool of ``block_size``-row blocks shared by all slots
+  through block tables (``text/kv_pool.py``): blocks are allocated as a
+  slot's position crosses block boundaries, prompts adopt the longest
+  indexed prefix of earlier prompts (refcounted, copied on write), and
+  admission is always chunked (``kv_pool.paged_prefill_chunk``, the
+  contiguous decode kernel on the card) starting past the adopted rows;
+  ticks run the block-table decode kernel.  When the pool runs dry,
+  admission evicts cold prefix entries and otherwise parks the request
+  at the queue front until blocks free.
+
+Everything else the JAX server does — budgeted prefill, async dispatch
+and ``tick_block``, speculation, adapters and constraints, tensor
+parallelism, MoE, TTLs, admission control, telemetry, the full OOM
+ladder, the spill tier, the fleet — is later slices' work.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from . import generate, gpt
+from . import generate, gpt, kv_pool
+from .. import flags as _flags
 from .. import resolve_device
 
 __all__ = ["decode_step_batched", "sample_step_batched", "DecodeServer",
            "validate_request"]
 
 
+# cold prefix-cache entries evicted per relief round when the pool runs dry
+# (LRU-first batches; never the whole index at once)
+_EVICT_BATCH = 4
+
+
 def decode_step_batched(params, cache, token, pos, cfg: gpt.GPTConfig):
     """decode_step with PER-SLOT positions: token [B], pos int32 [B].
     The port's decode step takes per-slot positions directly (the JAX
-    package vmaps its scalar-position step instead)."""
+    package vmaps its scalar-position step instead).  A pooled cache (a
+    ``tables`` leaf marks the paged layout) routes to the block-table
+    twin, ``kv_pool.paged_decode_step_batched``."""
+    if "tables" in cache:
+        return kv_pool.paged_decode_step_batched(params, cache, token, pos,
+                                                 cfg)
     return generate.decode_step(params, cache, token, pos, cfg)
 
 
@@ -107,15 +133,21 @@ class DecodeServer:
 
     Greedy by default; per-request ``temperature``/``top_k``/``top_p``
     sample with per-slot parameters, drawn from a ``torch.Generator``
-    seeded with ``seed``.  With ``prefill=True`` admission runs the whole
-    bucket-padded prompt through ONE ``generate.prefill_slot`` pass and
-    ticks only generate; with ``prefill=False`` prompts are fed token by
-    token through the tick step.  ``device`` defaults to the card;
-    ``params`` must live there."""
+    seeded with ``seed``.  With ``prefill=True`` admission computes the
+    prompt before the slot joins the ticks (one bucket-padded
+    ``generate.prefill_slot`` pass; fixed ``prefill_chunk``-token chunks;
+    or, paged, chunks after the adopted prefix) and ticks only generate;
+    with ``prefill=False`` prompts are fed token by token through the
+    tick step.  ``layout``/``block_size``/``num_blocks`` pick the cache
+    layout (module note; ``num_blocks`` defaults to full provisioning).
+    ``device`` defaults to the card; ``params`` must live there."""
 
     def __init__(self, params, cfg: gpt.GPTConfig, max_batch: int,
                  max_len: int, eos_id: int | None = None,
-                 prefill: bool = True, seed: int = 0, device=None):
+                 prefill: bool = True, seed: int = 0, device=None,
+                 layout: str | None = None, block_size: int | None = None,
+                 num_blocks: int | None = None,
+                 prefill_chunk: int | None = None):
         self.device = resolve_device(device)
         if params["wte"].device != self.device:
             raise ValueError(f"params live on {params['wte'].device}, the "
@@ -128,7 +160,30 @@ class DecodeServer:
         self.max_len = max_len
         self.eos_id = eos_id
         self._prefill = bool(prefill)
-        self.cache = generate.init_cache(cfg, max_batch, max_len, self.device)
+        window = min(max_len, cfg.max_seq_len)
+        if prefill_chunk is not None:
+            if not prefill:
+                raise ValueError("prefill_chunk requires prefill=True "
+                                 "(chunked admission IS a prefill mode)")
+            if not 1 <= int(prefill_chunk) <= window:
+                raise ValueError(f"prefill_chunk must be in [1, {window}] "
+                                 f"(the serving window), got "
+                                 f"{prefill_chunk}")
+        self._chunk = int(prefill_chunk) if prefill_chunk is not None \
+            else None
+        lay = layout if layout is not None else _flags.kv_layout()
+        if lay not in ("contiguous", "paged"):
+            raise ValueError(
+                f"layout {lay!r}: expected 'contiguous' or 'paged'")
+        self._paged = lay == "paged"
+        self.cache = generate.init_cache(
+            cfg, max_batch, max_len, self.device, layout=lay,
+            block_size=block_size, num_blocks=num_blocks)
+        # the host allocator mirrors the built pool's geometry
+        self._pool = (kv_pool.PagedAllocator(
+            *kv_pool._geometry(self.cache), max_batch)
+            if self._paged else None)
+        self._prefill_rows = 0       # prompt rows admission computed
         self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
         self._free = list(range(max_batch))
         self._slots: dict[int, dict] = {}        # slot -> request state
@@ -152,6 +207,15 @@ class DecodeServer:
             prompt, max_new_tokens, stop, temperature, top_k, top_p,
             window=min(self.max_len, self.cfg.max_seq_len),
             vocab_size=self.cfg.vocab_size)
+        if self._paged:
+            # a request needing more blocks than the whole pool can NEVER
+            # be admitted: refuse it here rather than park it forever
+            need = -(-(len(prompt) + max_new_tokens) // self._pool.bs)
+            if need > self._pool.N:
+                raise ValueError(
+                    f"request needs {need} KV blocks but the pool has "
+                    f"{self._pool.N} (raise num_blocks or shrink the "
+                    f"request)")
         rid = self._next_rid
         self._next_rid += 1
         self._queue.append({"rid": rid, "prompt": prompt,
@@ -184,22 +248,143 @@ class DecodeServer:
             st = dict(req, generated=[], pos=0)
             if self._prefill:
                 n = len(req["prompt"])
-                bucket = _pow2_bucket(n, self.max_len, self.cfg.max_seq_len)
-                padded = torch.zeros((1, bucket), dtype=torch.int64,
-                                     device=self.device)
-                padded[0, :n] = torch.tensor(req["prompt"],
-                                             device=self.device)
-                logits, self.cache = generate.prefill_slot(
-                    self.params, self.cache, padded, n, slot, self.cfg)
+                try:
+                    logits = self._prefill_slot(req["prompt"], slot)
+                except kv_pool.PoolExhausted:
+                    # no free blocks even after evicting the cold prefix
+                    # cache: the request WAITS for active slots to retire
+                    # — park it back at the queue front, stop admitting
+                    self._release(slot)
+                    self._queue.insert(0, req)
+                    break
+                except Exception:
+                    # neither lose the request nor leak the slot
+                    self._release(slot)
+                    self._queue.insert(0, req)
+                    raise
                 t = self._first_token(logits, st)
                 st["generated"].append(t)
                 st["pos"] = n            # cache rows [0, n) are filled
                 self._tokens += 1
                 if self._finished(st, t):
                     self._results[st["rid"]] = st["generated"]
-                    self._free.append(slot)
+                    self._release(slot)
                     continue
             self._slots[slot] = st
+
+    def _release(self, slot: int) -> None:
+        """Return a slot (and, paged, its blocks) to the free lists."""
+        if self._paged:
+            self._pool.free_slot(slot)
+        self._free.append(slot)
+
+    def _chunk_starts(self, n: int, C: int, shared: int = 0) -> list:
+        """Chunk starts covering prompt rows [shared, n) at width C.  The
+        LAST window starts at n - C (overlapping the previous chunk)
+        instead of overrunning the window: overlapped rows recompute to
+        the same values, and a write past the window would not fit."""
+        if n - shared <= C:
+            window = min(self.max_len, self.cfg.max_seq_len)
+            return [shared if shared + C <= window else max(0, n - C)]
+        return list(range(shared, n - C, C)) + [n - C]
+
+    def _prefill_slot(self, prompt, slot: int):
+        """Admission prefill of ``prompt`` into ``slot``; returns the
+        logits [V] at its last position."""
+        n = len(prompt)
+        if self._paged:
+            return self._paged_prefill_slot(prompt, slot)
+        if self._chunk is None:
+            bucket = _pow2_bucket(n, self.max_len, self.cfg.max_seq_len)
+            logits, self.cache = generate.prefill_slot(
+                self.params, self.cache, self._padded(prompt, bucket), n,
+                slot, self.cfg)
+            self._prefill_rows += n
+            return logits
+        C = self._chunk
+        for s in self._chunk_starts(n, C):
+            chunk = prompt[s:s + C]
+            logits, self.cache = generate.prefill_slot_chunk(
+                self.params, self.cache, self._padded(chunk, C), s,
+                len(chunk), slot, self.cfg)
+            self._prefill_rows += len(chunk)
+        return logits
+
+    def _padded(self, tokens, width: int):
+        """[1, width] int64 on the server's device, ``tokens`` then 0s."""
+        padded = torch.zeros((1, width), dtype=torch.int64)
+        padded[0, :len(tokens)] = torch.tensor(tokens, dtype=torch.int64)
+        return padded.to(self.device)
+
+    def _paged_prefill_slot(self, prompt, slot: int):
+        """Paged admission: adopt the longest indexed prompt prefix into
+        the slot's table (those rows are never recomputed), make the
+        suffix's rows writable (allocate / copy-on-write, evicting cold
+        prefix entries while the pool is dry), run the suffix through
+        ``kv_pool.paged_prefill_chunk`` and index this prompt's full
+        blocks for later prompts.  Raises ``PoolExhausted`` when nothing
+        more can be evicted."""
+        n = len(prompt)
+        alloc = self._pool
+        shared = alloc.adopt_prefix(slot, prompt)
+        window = min(self.max_len, self.cfg.max_seq_len)
+        # the chunk width: prefill_chunk, or one power-of-two chunk over
+        # the suffix, floored at the block size; the start backs off from
+        # ``shared`` only when the chunk would overrun the window
+        C = (min(self._chunk, window) if self._chunk else
+             min(max(_pow2_bucket(n - shared), alloc.bs), window))
+        starts = self._chunk_starts(n, C, shared)
+        while True:
+            try:
+                alloc.ensure_rows(slot, min(starts), n)
+                break
+            except kv_pool.PoolExhausted:
+                # cold entries hold ref == their index refs, so this
+                # request's freshly adopted blocks are never victims
+                if alloc.evict_cold(_EVICT_BATCH) == 0:
+                    raise
+        self._apply_pool_ops()
+        for s in starts:
+            chunk = prompt[s:s + C]
+            logits, self.cache = kv_pool.paged_prefill_chunk(
+                self.params, self.cache, self._padded(chunk, C), s,
+                len(chunk), slot, self.cfg)
+            self._prefill_rows += len(chunk)
+        alloc.register_prefix(slot, prompt)
+        return logits
+
+    def _apply_pool_ops(self):
+        """Run the allocator's pending device work: copy-on-write block
+        copies, then the table push when the host mirror changed."""
+        pairs = self._pool.take_copies()
+        if pairs:
+            idx = torch.tensor(pairs, dtype=torch.int64, device=self.device)
+            kv_pool.copy_blocks(self.cache, idx[:, 0], idx[:, 1])
+        if self._pool.dirty:
+            self.cache["tables"].copy_(torch.from_numpy(self._pool.tables))
+            self._pool.dirty = False
+
+    def _ensure_decode_blocks(self):
+        """Before a tick: map (or copy-on-write) every active slot's block
+        under the row it writes — admission reserves no rows up front,
+        the memory point of the paged layout.  When the pool is dry, cold
+        prefix entries are evicted and the allocation retried once; a
+        second ``PoolExhausted`` propagates."""
+        cap = self._pool.nmax * self._pool.bs
+
+        def ensure():
+            for slot, st in self._slots.items():
+                self._pool.ensure_rows(slot, st["pos"],
+                                       min(st["pos"] + 1, cap))
+
+        try:
+            ensure()
+        except kv_pool.PoolExhausted:
+            if self._pool.evict_cold(max(_EVICT_BATCH,
+                                         len(self._slots))) == 0:
+                raise
+            ensure()
+        self._apply_pool_ops()
 
     def pending(self) -> bool:
         return bool(self._slots or self._queue)
@@ -240,6 +425,8 @@ class DecodeServer:
             if not self._slots:
                 return
         dev = self.device
+        if self._paged:
+            self._ensure_decode_blocks()
         tok, pos = self._feed_arrays()
         temp, tk, tp = self._sampling_arrays()
         tok_t = torch.from_numpy(tok).to(dev)
@@ -268,7 +455,7 @@ class DecodeServer:
         for slot in done:
             st = self._slots.pop(slot)
             self._results[st["rid"]] = st["generated"]
-            self._free.append(slot)
+            self._release(slot)
         self._admit()
 
     def result(self, rid: int):
@@ -294,27 +481,38 @@ class DecodeServer:
 
     def load_stats(self) -> dict:
         """Scheduler load read from host state: queue depth, slot use,
-        KV utilization (filled rows over the slab's rows) and the tokens
-        generated so far."""
+        KV utilization, the tokens generated and the prompt rows
+        admission computed so far.  KV utilization is the paged pool's
+        blocks in use over its blocks, or the slab's filled rows over its
+        rows; a paged server adds its allocator's ``kv_pool`` stats."""
         act = len(self._slots)
-        rows = (int(self.cache["k"].shape[2]) if self.cache is not None
-                else self.max_len)
-        return {
+        if self._paged:
+            kv = self._pool.blocks_in_use / self._pool.N
+        else:
+            rows = (int(self.cache["k"].shape[2]) if self.cache is not None
+                    else self.max_len)
+            kv = sum(min(st["pos"], rows) for st in self._slots.values()) \
+                / (self.max_batch * rows)
+        stats = {
             "queue_depth": len(self._queue),
             "active_slots": act,
             "free_slots": len(self._free),
             "slot_occupancy": act / self.max_batch,
-            "kv_utilization": sum(min(st["pos"], rows)
-                                  for st in self._slots.values())
-            / (self.max_batch * rows),
+            "kv_utilization": kv,
             "tokens_generated": self._tokens,
+            "prefill_rows": self._prefill_rows,
         }
+        if self._paged:
+            stats["kv_pool"] = self._pool.stats()
+        return stats
 
     def close(self):
-        """Release the KV cache.  Unfinished requests are abandoned:
-        ``result()`` raises for them and ``status()`` says ``dropped``.
-        Idempotent."""
+        """Release the KV cache (and, paged, every block and the prefix
+        index).  Unfinished requests are abandoned: ``result()`` raises
+        for them and ``status()`` says ``dropped``.  Idempotent."""
         self.cache = None
+        if self._paged:
+            self._pool.close()
         for st in self._slots.values():
             self._dropped.add(st["rid"])
         for req in self._queue:

@@ -1,24 +1,30 @@
 """Where the PyTorch/CUDA port's serving time goes on the card.
 
-    python3 -m paddle_tpu_torch.tools.profile_serving [--ticks 8] [--trace PATH]
+    python3 -m paddle_tpu_torch.tools.profile_serving [--paged] [--ticks 8] [--trace PATH]
 
 (from the repository root).
 
-Builds the port's main path (:func:`build_main_path`, the one definition
-that ``chip_smoke.py`` drives too) — GPT-1.3B (``gpt_1p3b()``, random
-bf16 weights from seed 0) in ``paddle_tpu_torch``'s
-``DecodeServer(max_batch=8, max_len=512)`` with 8 requests of 40..300
-prompt tokens — warms it, then traces with ``torch.profiler``:
+Builds one of the port's serving paths — the one definition of each that
+``chip_smoke.py`` drives too — warms it, then traces with
+``torch.profiler``:
 
-* ``--ticks`` steady decode ticks (all 8 slots decoding), and
-* one admission prefill of a 300-token prompt (bucket 512).
+* default, :func:`build_main_path`: GPT-1.3B (``gpt_1p3b()``, random bf16
+  weights from seed 0) in ``DecodeServer(max_batch=8, max_len=512)``
+  (contiguous KV) with 8 requests of 40..300 prompt tokens; traced: the
+  steady decode tick and one admission prefill of a 300-token prompt
+  (bucket 512);
+* ``--paged``, :func:`build_paged_path`: the same model behind
+  ``DecodeServer(layout="paged", block_size=16, num_blocks=128)`` with 8
+  chat requests sharing a 200-token system prompt; traced: the steady
+  paged decode tick and one paged admission (a new request sharing the
+  system prompt: adopt, then one chunk over its 100-token tail).
 
-For each it prints one JSON line: host wall per tick (or per prefill),
+For each it prints one JSON line: host wall per tick (or per admission),
 device kernel time and the device's busy share of the wall, kernel
-launches, and device time by kernel family (the two hand-written
-attention kernels, matmuls, everything else).  ``--trace`` also writes
-the decode window's Chrome trace.  Needs a CUDA card; imports nothing of
-JAX or the JAX package.
+launches, and device time by kernel family (the hand-written attention
+kernels, matmuls, everything else).  ``--trace`` also writes the decode
+window's Chrome trace.  Needs a CUDA card; imports nothing of JAX or the
+JAX package.
 """
 from __future__ import annotations
 
@@ -60,7 +66,47 @@ def build_main_path(device="cuda", seed=0):
     prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in LENS]
     return cfg, params, srv, prompts
 
-FAMILIES = (("decode_attention", ("decode_partial", "decode_combine")),
+
+# The paged path's traffic: a chat deployment whose requests share one
+# system prompt.  Every prompt is the PREFIX-token system prompt plus its
+# own tail; request 2 repeats request 1's prompt exactly (so its listed
+# tail length is not used).  The prefix ends inside block 12 (rows
+# 192-207 at block size 16), so each later request diverges from the
+# indexed chain mid-block: a radix split, then a copy-on-write of the
+# split block at the adopter's first write.
+PREFIX = 200
+TAILS = [40, 100, 10, 90, 60, 20, 80, 40]
+PAGED_GEOMETRY = dict(max_batch=8, max_len=512, layout="paged",
+                      block_size=16, num_blocks=128)
+
+
+def paged_prompts(vocab_size: int, seed: int = 0) -> list:
+    """The paged path's 8 prompts, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    prefix = rng.integers(0, vocab_size, PREFIX).tolist()
+    prompts = [prefix + rng.integers(0, vocab_size, n).tolist()
+               for n in TAILS]
+    prompts[2] = list(prompts[1])
+    return prompts
+
+
+def build_paged_path(device="cuda", seed=0):
+    """The paged path, at full width: GPT-1.3B with random weights from
+    ``seed`` (bf16) behind ``DecodeServer(max_batch=8, max_len=512,
+    layout="paged", block_size=16, num_blocks=128)`` — a 403 MB pool (plus
+    one sink block) where the contiguous slab takes 805 MB — and the
+    prompts of :func:`paged_prompts`.  Returns (cfg, params, server,
+    prompts); nothing is submitted yet."""
+    cfg = gpt.gpt_1p3b()
+    params = gpt.init_params(cfg, seed=seed, device=device)
+    srv = serving.DecodeServer(params, cfg, device=device, **PAGED_GEOMETRY)
+    return cfg, params, srv, paged_prompts(cfg.vocab_size, seed)
+
+
+# kernel-name keys, lower case; split_kv.cuh's kernels carry their row
+# addressing (ContiguousRows / PagedRows) in their template arguments
+FAMILIES = (("paged_decode_attention", ("pagedrows",)),
+            ("decode_attention", ("contiguousrows",)),
             ("flash_attention_fwd", ("flash_fwd_kernel",)),
             ("matmul", ("gemm", "gemv", "cutlass", "xmma", "cublas",
                         "splitk", "nvjet")),
@@ -104,6 +150,8 @@ def summarize(torch, prof, wall, n):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--paged", action="store_true",
+                    help="profile the paged path (build_paged_path)")
     ap.add_argument("--ticks", type=int, default=8)
     ap.add_argument("--trace", default=None,
                     help="write the decode window's Chrome trace here")
@@ -118,7 +166,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    _, _, srv, prompts = build_main_path()
+    _, _, srv, prompts = (build_paged_path() if args.paged
+                          else build_main_path())
     for p in prompts:                       # warm-up serve (first launches)
         srv.submit(p, max_new_tokens=4)
     while srv.pending():
@@ -135,20 +184,29 @@ def main() -> int:
             srv.tick()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    out = {"what": "decode tick, 8 slots decoding", "card": card,
-           **summarize(torch, prof, wall, args.ticks)}
+    layout = "paged" if args.paged else "contiguous"
+    out = {"what": f"decode tick, 8 slots decoding, {layout} KV",
+           "card": card, **summarize(torch, prof, wall, args.ticks)}
     print(json.dumps({"decode_tick": out}), flush=True)
     if args.trace:
         prof.export_chrome_trace(args.trace)
     while srv.pending():
         srv.tick()
+    if args.paged:
+        # the system prompt and a tail no indexed chain holds: adopt 200
+        # rows, then one 128-wide chunk over the 100-token tail
+        prompt = prompts[0][:PREFIX] + prompts[1][PREFIX:][::-1]
+        what = ("paged admission, 300 tokens, 200 adopted, one chunk "
+                "over the tail")
+    else:
+        prompt = prompts[3]
+        what = "admission prefill, 300 tokens at bucket 512"
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        srv.submit(prompts[3], max_new_tokens=1)     # 300 tokens, bucket 512
+        srv.submit(prompt, max_new_tokens=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    out = {"what": "admission prefill, 300 tokens at bucket 512",
-           "card": card, **summarize(torch, prof, wall, 1)}
+    out = {"what": what, "card": card, **summarize(torch, prof, wall, 1)}
     print(json.dumps({"prefill": out}), flush=True)
     return 0
 

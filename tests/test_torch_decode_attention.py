@@ -104,7 +104,7 @@ def _good():
     (dict(q=torch.zeros(2, 1, 4, 64, dtype=torch.float16)),
      "got torch.float16"),
     (dict(pos=torch.zeros(2, dtype=torch.int64)), "pos must be int32"),
-    (dict(q=torch.zeros(2, 17, 16, 64)), "Tq \\* G = 68"),
+    (dict(q=torch.zeros(2, 257, 16, 64)), "Tq \\* G = 1028"),
     (dict(k=torch.zeros(2, 4, 16, 64).transpose(1, 2)), "k must be contig"),
     (dict(k=torch.zeros(2, 16, 4, 64, dtype=torch.int8),
           v=torch.zeros(2, 16, 4, 64, dtype=torch.int8)), "need k_scale"),
@@ -125,6 +125,52 @@ def test_kernel_wrapper_refuses(bad, match):
 def test_kernel_wrapper_accepts_good_inputs():
     g = _good()
     da._check(g["q"], g["k"], g["v"], g["pos"], None, None)
+
+
+@pytest.mark.parametrize("G", [1, 4])
+def test_wide_query_block_matches_jax_attend_cache(interpret, G):
+    """A prefill chunk's query block (Tq = 256, so Tq * G up to 1024 rows
+    per kv head): the port's plain paths equal the JAX ``_attend_cache``,
+    which reaches the interpret-mode Pallas kernel at that width."""
+    from paddle_tpu.text import generate as JG
+    from paddle_tpu.text import gpt as jgpt
+    from paddle_tpu_torch import convert
+    from paddle_tpu_torch.text import generate as G_
+
+    Tq, Hkv, hd, T, pos0 = 256, 2, 64, 512, 100
+    jcfg = jgpt.GPTConfig(vocab_size=16, hidden_size=Hkv * G * hd,
+                          num_layers=1, num_heads=Hkv * G,
+                          num_kv_heads=Hkv, dtype=jnp.float32)
+    rng = np.random.default_rng(7)
+    q = rng.standard_normal((1, Tq, Hkv * G, hd)).astype(np.float32)
+    k = rng.standard_normal((1, T, Hkv, hd)).astype(np.float32)
+    v = rng.standard_normal((1, T, Hkv, hd)).astype(np.float32)
+    assert jda.supported(q.shape, k.shape)
+    ref = np.asarray(JG._attend_cache(
+        jnp.asarray(q), {"k": jnp.asarray(k), "v": jnp.asarray(v)},
+        jnp.asarray(pos0, jnp.int32), jcfg))
+    pos = torch.tensor([pos0], dtype=torch.int32)
+    tq, tk, tv = (torch.from_numpy(a) for a in (q, k, v))
+    out = G_._attend_cache(tq, {"k": tk, "v": tv}, pos,
+                           convert.config_from_jax(jcfg))
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-5, rtol=0)
+    plain = da.decode_attention(tq, tk, tv, pos)
+    np.testing.assert_allclose(plain.reshape(1, Tq, -1).numpy(), ref,
+                               atol=1e-5, rtol=0)
+
+
+@pytest.mark.parametrize("Bn,Hkv,Tn,R", [(1, 16, 512, 512), (1, 16, 512, 1024),
+                                         (8, 16, 512, 1), (2, 4, 2048, 100)])
+def test_split_plan_counts_query_tiles(Bn, Hkv, Tn, R):
+    """Wide query blocks already give one CTA per 64-row tile: the plan
+    splits the cache walk only as far as the card needs more CTAs."""
+    chunk, nsplit = da.split_plan(Bn, Hkv, Tn, R)
+    assert chunk % 64 == 0 and chunk * nsplit >= Tn
+    assert chunk * (nsplit - 1) < Tn
+    cells = Bn * Hkv * -(-R // 64)          # CTAs per split
+    # at least half the target (whole 64-row splits round the count)
+    assert cells * nsplit >= min(264, cells * -(-Tn // 64)) // 2
+    assert nsplit == 1 or cells * (nsplit - 1) < 264
 
 
 @pytest.mark.parametrize("Bn,Hkv,Tn", [(1, 16, 2048), (8, 16, 512),

@@ -157,6 +157,51 @@ def test_markov_served_tokens_equal_jax(markov, prefill, kv, monkeypatch):
     assert srv.load_stats()["tokens_generated"] == 8 * len(PROMPTS)
 
 
+@pytest.mark.parametrize("chunk,kv", [(4, ""), (8, ""), (4, "int8")])
+def test_markov_chunked_admission_equals_jax(markov, chunk, kv,
+                                             monkeypatch):
+    """``prefill_chunk=N`` on the contiguous layout: prompts longer than N
+    admit through several ``prefill_slot_chunk`` calls (the last window
+    overlapping the one before); tokens equal the JAX chunked server's
+    and the whole-prompt server's."""
+    monkeypatch.setenv("PADDLE_TPU_KV_DTYPE", kv)
+    jcfg, jparams, cfg, params = markov
+    srv = serving.DecodeServer(params, cfg, max_batch=3, max_len=32,
+                               prefill_chunk=chunk, device="cpu")
+    got = _serve(srv, PROMPTS, max_new_tokens=8)
+    jsrv = jserving.DecodeServer(jparams, jcfg, max_batch=3, max_len=32,
+                                 prefill_chunk=chunk)
+    jgot = [list(map(int, t)) for t in _serve(jsrv, PROMPTS,
+                                              max_new_tokens=8)]
+    whole = _serve(serving.DecodeServer(params, cfg, max_batch=3,
+                                        max_len=32, device="cpu"),
+                   PROMPTS, max_new_tokens=8)
+    assert got == jgot == whole
+    assert srv.load_stats()["prefill_rows"] >= sum(map(len, PROMPTS))
+
+
+def test_prefill_slot_chunk_matches_jax_rows():
+    """Chunk logits and the slot's cache rows against the JAX
+    ``prefill_slot_chunk`` on an fp32 config, two chunks per prompt."""
+    jcfg, jp, cfg, params = _tiny("rope_gqa")
+    jfn = jax.jit(functools.partial(JG.prefill_slot_chunk, cfg=jcfg))
+    jcache = JG.init_cache(jcfg, 2, 40)
+    tcache = G.init_cache(cfg, 2, 40, device="cpu")
+    toks = np.random.default_rng(3).integers(0, 64, 27)
+    for pos0, length in ((0, 16), (16, 11)):
+        pad = np.zeros((1, 16), np.int32)
+        pad[0, :length] = toks[pos0:pos0 + length]
+        jl, jcache = jfn(jp, jcache, jnp.asarray(pad), jnp.asarray(pos0),
+                         jnp.asarray(length), jnp.asarray(1))
+        tl, tcache = G.prefill_slot_chunk(params, tcache,
+                                          torch.from_numpy(pad), pos0,
+                                          length, 1, cfg)
+        np.testing.assert_allclose(tl.numpy(), np.asarray(jl), atol=1e-4,
+                                   rtol=0)
+    for name in jcache:
+        _rows_close(tcache[name][:, 1, :27], jcache[name][:, 1, :27], False)
+
+
 def test_markov_generate_equals_jax(markov):
     jcfg, jparams, cfg, params = markov
     p = np.asarray([PROMPTS[1], PROMPTS[2][:1] * 9])
@@ -290,6 +335,7 @@ def test_package_imports_no_jax():
         "('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
         "assert len(names) >= 10, names\n"
+        "assert 'paddle_tpu_torch.text.kv_pool' in names, names\n"
         "print(len(names), bad)\n"
         "sys.exit(1 if bad else 0)\n")
     import os
