@@ -7,20 +7,27 @@ Phases, in order; any failure raises and the script exits non-zero:
 1. the card's name and power limit (``nvidia-smi``);
 2. build every CUDA source of the port from this checkout (all ``nvcc``
    processes at once) and print the build seconds;
-3. hold each kernel against its plain PyTorch twin at the serving paths'
-   widths (bf16 outputs within 1e-2 * (1 + |plain|), lse within 1e-3):
-   flash prefill; split-KV decode at a tick's Tq and at prefill-chunk
-   widths (Tq * G = 512 and 1024 query rows per kv head); block-table
-   (paged) decode, whose free slots must come back exactly zero;
+3. hold each kernel against its plain PyTorch twin at the paths' widths
+   (bf16 outputs within 1e-2 * (1 + |plain|), lse and loss within 1e-3):
+   flash prefill (head_dim 64, 128, 256); split-KV decode at a tick's Tq
+   and at prefill-chunk widths (Tq * G = 512 and 1024 query rows per kv
+   head), head_dim 128 and 256; block-table (paged) decode, whose free
+   slots must come back exactly zero; the flash backward (dq, dk/dv) at
+   the train shape, head_dim 64/128/256, causal and not, ragged T, GQA;
+   the fused softmax-CE forward and backward at the train loss head and
+   at ragged shapes;
 4. check the decode paths on the card against the CPU on small fp32
    models (fp32 and int8 KV): contiguous prefill and batched decode, then
    paged prefill chunks and paged decode steps through shuffled block
-   tables;
+   tables; then five AdamW train steps of small fp32 models (MHA with
+   learned positions, GQA with rope; accum 1 and 2) on the card against
+   the same steps on the CPU;
 5. time each kernel with CUDA events at its path's shapes (L2 flushed
    between launches), beside its plain twin, its least possible time on
    the card, and a PyTorch call on the same work as a yardstick the port
-   never calls (``scaled_dot_product_attention``; for the paged kernel on
-   a pre-gathered contiguous copy, the gather timed on its own);
+   never calls (``scaled_dot_product_attention`` and its backward,
+   ``cross_entropy`` and its backward; for the paged kernel SDPA on a
+   pre-gathered contiguous copy, the gather timed on its own);
 6. the main path, as ``paddle_tpu_torch.tools.profile_serving.
    build_main_path`` defines it: GPT-1.3B (``gpt.gpt_1p3b()``, full width,
    random weights from a seed, bf16) served by ``DecodeServer(max_batch=8,
@@ -34,7 +41,14 @@ Phases, in order; any failure raises and the script exits non-zero:
    to a contiguous server's on the same prompts and one request to a solo
    ``generate``; the allocator's prefix hits, copies-on-write and radix
    splits; the kernels' launch counts read around it;
-8. one ``{"kernels": [...]}`` JSON line, then, as the last line,
+8. the train path, as ``paddle_tpu_torch.tools.profile_train.
+   build_train_path`` defines it: GPT-1.3B with fp32 master weights from a
+   seed, batch 8 x 2048 tokens in 8 micro-batches, AdamW (bf16 moments),
+   the fused loss head (``PADDLE_TPU_FUSED_CE=1``) — four steps on one
+   batch with step time, tokens/s, MFU, peak memory and each step's
+   kernel launches (exactly 192 flash fwd, dq and dk/dv, 8 CE fwd and
+   bwd); the loss must start near ln(vocab) and fall;
+9. one ``{"kernels": [...]}`` JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a CUDA card.  Imports nothing
@@ -42,7 +56,9 @@ of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import gc
 import json
+import math
 import os
 import statistics
 import sys
@@ -52,6 +68,7 @@ import numpy as np
 
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM HBM3
 BF16_FLOPS_PER_S = 989e12        # H100 SXM dense bf16 tensor-core peak
+FP32_FLOPS_PER_S = 67e12         # H100 SXM fp32 outside the tensor cores
 # bf16 outputs: |kernel - plain| <= TOL * (1 + |plain|) elementwise — one
 # bf16 ulp (2^-7 relative) where fp32 summation order tips a rounding
 BF16_TOL = 1e-2
@@ -63,6 +80,22 @@ PATH_TOL = 1e-3                  # fp32 logits, card vs CPU, TF32 off
 # leaves the reference must do so on a token whose logit, in the
 # reference's own context, is within two steps of the best one.
 TIE_TOL = 0.0625
+# CE dlogits are softmax values ~ 1/V, rounded once to bf16 by kernel and
+# twin alike: |kernel - plain| <= CE_DX_ATOL + BF16_TOL * |plain|
+CE_DX_ATOL = 1e-6
+# small fp32 models trained on the card vs the CPU: fp32 losses differ by
+# summation order only (TRAIN_LOSS_TOL).  Parameters: Adam divides by
+# sqrt(v) + eps, so an element whose grad is ~eps or cancels to ~eps takes
+# steps of up to lr whose size (or sign) rests on the last bits of that
+# grad — and with accum 2 a grad on a bf16 rounding boundary of the carry
+# rounds the other way on one side.  So a few elements may part by up to
+# a step per step taken (TRAIN_STEPS * lr); all but a TRAIN_PARAM_FAR
+# share of them must agree within TRAIN_PARAM_TOL.
+TRAIN_LR = 1e-3
+TRAIN_STEPS = 5
+TRAIN_LOSS_TOL = 1e-4
+TRAIN_PARAM_TOL = TRAIN_LR / 10
+TRAIN_PARAM_FAR = 1e-4
 
 
 def log(msg):
@@ -88,9 +121,9 @@ def cold_ms(torch, fn, iters=20):
     return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
-def bound(nbytes, flops):
+def bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / BF16_FLOPS_PER_S * 1e3
+    t_ops = flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else
                                  "operations")
 
@@ -98,9 +131,9 @@ def bound(nbytes, flops):
 def check_flash(torch, fa):
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst_out = worst_lse = 0.0
-    # every prefill bucket of the main path, a ragged T, and D = 64
+    # every prefill bucket of the main path, a ragged T, D = 64 and 256
     for T, D in [(64, 128), (128, 128), (256, 128), (512, 128), (1000, 128),
-                 (256, 64)]:
+                 (256, 64), (300, 256)]:
         q, k, v = (torch.randn(1, T, 16, D, generator=gen, device="cuda")
                    .to(torch.bfloat16) for _ in range(3))
         out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
@@ -124,15 +157,17 @@ def check_decode(torch, da):
     B = 8
     worst = 0.0
     # the main path's shape (T = 512 cache rows, Hkv = 16, Tq = 1, bf16)
-    # first, then T = 2048 over GQA, Tq = 4 and int8
-    cases = [(512, 16, 1, "bf16")] + [(2048, h, tq, kv) for h in (16, 4)
-                                      for tq in (1, 4)
-                                      for kv in ("bf16", "int8")]
-    for T, Hkv, Tq, kv in cases:
-        q = torch.randn(B, Tq, 16, 128, generator=gen,
+    # first, then T = 2048 over GQA, Tq = 4 and int8, then head_dim 256
+    # (32-row query tiles: Tq = 16 at G = 4 is two of them)
+    cases = [(512, 16, 1, "bf16", 128)] + [
+        (2048, h, tq, kv, 128) for h in (16, 4) for tq in (1, 4)
+        for kv in ("bf16", "int8")] + [(1024, 4, 1, "bf16", 256),
+                                       (1024, 4, 16, "int8", 256)]
+    for T, Hkv, Tq, kv, hd in cases:
+        q = torch.randn(B, Tq, 16, hd, generator=gen,
                         device="cuda").to(torch.bfloat16)
-        k = torch.randn(B, T, Hkv, 128, generator=gen, device="cuda")
-        v = torch.randn(B, T, Hkv, 128, generator=gen, device="cuda")
+        k = torch.randn(B, T, Hkv, hd, generator=gen, device="cuda")
+        v = torch.randn(B, T, Hkv, hd, generator=gen, device="cuda")
         ks = vs = None
         if kv == "int8":
             k, ks = da.quantize_kv(k)
@@ -146,7 +181,7 @@ def check_decode(torch, da):
         ref = da._plain_decode(q, k, v, pos, ks, vs, None)
         torch.cuda.synchronize()
         err = (out.float() - ref.float()).abs().max().item()
-        log(f"  decode Hq=16 Hkv={Hkv} hd=128 T={T} Tq={Tq} {kv}: "
+        log(f"  decode Hq=16 Hkv={Hkv} hd={hd} T={T} Tq={Tq} {kv}: "
             f"max|out-plain| {err:.3g} (tol {BF16_TOL}*(1+|plain|))")
         if not torch.allclose(out.float(), ref.float(), atol=BF16_TOL,
                               rtol=BF16_TOL):
@@ -189,16 +224,17 @@ def check_decode_wide(torch, da):
     return worst
 
 
-def paged_inputs(torch, da, gen, Tq, Hq, Hkv, bs, nmax, kv, pos_list):
+def paged_inputs(torch, da, gen, Tq, Hq, Hkv, bs, nmax, kv, pos_list,
+                 hd=128):
     """q and a pool of B * nmax + 1 shuffled blocks: slot b maps distinct
     random blocks through its frontier pos + Tq - 1 and leaves the rest
     -1; a slot whose position is None is free (all -1, pos 0)."""
     B = len(pos_list)
     N = B * nmax + 1
-    q = torch.randn(B, Tq, Hq, 128, generator=gen,
+    q = torch.randn(B, Tq, Hq, hd, generator=gen,
                     device="cuda").to(torch.bfloat16)
-    k = torch.randn(N, bs, Hkv, 128, generator=gen, device="cuda")
-    v = torch.randn(N, bs, Hkv, 128, generator=gen, device="cuda")
+    k = torch.randn(N, bs, Hkv, hd, generator=gen, device="cuda")
+    v = torch.randn(N, bs, Hkv, hd, generator=gen, device="cuda")
     ks = vs = None
     if kv == "int8":
         k, ks = da.quantize_kv(k)
@@ -220,23 +256,28 @@ def check_paged(torch, da):
     """The paged kernel against gather-then-attend on every live slot, at
     the paged path's tick shape first (B = 8, Hq = Hkv = 16, bs = 16,
     nmax = 32, bf16), then GQA, Tq = 4, int8, block size 8; a free slot
-    must return exactly zero (the kernel reads no unmapped block)."""
+    must return exactly zero (the kernel reads no unmapped block); last,
+    head_dim 256."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     worst = 0.0
-    for Tq, Hkv, kv, bs in [(1, 16, "bf16", 16), (1, 16, "int8", 16),
-                            (4, 4, "bf16", 8), (4, 4, "int8", 16),
-                            (64, 4, "bf16", 16)]:
+    for Tq, Hkv, kv, bs, hd in [(1, 16, "bf16", 16, 128),
+                                (1, 16, "int8", 16, 128),
+                                (4, 4, "bf16", 8, 128),
+                                (4, 4, "int8", 16, 128),
+                                (64, 4, "bf16", 16, 128),
+                                (4, 4, "bf16", 16, 256),
+                                (64, 4, "int8", 16, 256)]:
         nmax = 512 // bs
         pos_list = [0, 1, bs - 1, bs, 200, None, 512 - Tq, 333]
         q, k, v, ks, vs, tables, pos = paged_inputs(
-            torch, da, gen, Tq, 16, Hkv, bs, nmax, kv, pos_list)
+            torch, da, gen, Tq, 16, Hkv, bs, nmax, kv, pos_list, hd)
         out = da.paged_decode_attention(q, k, v, tables, pos, ks, vs)
         ref = da._plain_paged(q, k, v, tables, pos, ks, vs, None)
         torch.cuda.synchronize()
         live = [b for b, p in enumerate(pos_list) if p is not None]
         err = (out[live].float() - ref[live].float()).abs().max().item()
         zero = not out[pos_list.index(None)].any().item()
-        log(f"  paged Hq=16 Hkv={Hkv} hd=128 bs={bs} nmax={nmax} Tq={Tq} "
+        log(f"  paged Hq=16 Hkv={Hkv} hd={hd} bs={bs} nmax={nmax} Tq={Tq} "
             f"{kv}: max|out-plain| {err:.3g} (tol {BF16_TOL}*(1+|plain|)), "
             f"free slot zero: {zero}")
         if not (zero and torch.allclose(out[live].float(), ref[live].float(),
@@ -245,6 +286,76 @@ def check_paged(torch, da):
                                  f"Hkv={Hkv} Tq={Tq} {kv}")
         worst = max(worst, err)
     return worst
+
+
+def check_flash_bwd(torch, fa):
+    """dq, dk and dv of the backward kernels against ``_plain_bwd`` on the
+    forward kernel's out and lse (bf16, tol 1e-2·(1 + |plain|)): the train
+    path's shape first (B = 1, T = 2048, H = 16, D = 128, causal), then
+    head_dim 64 and 256, causal and not, ragged T and GQA (G = 4).
+    Returns the worst errors of the dq kernel and of the dk/dv kernel."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    worst_q = worst_kv = 0.0
+    for B, T, H, Hkv, D, causal in [(1, 2048, 16, 16, 128, True),
+                                    (2, 200, 16, 4, 128, True),
+                                    (2, 200, 16, 4, 64, False),
+                                    (1, 512, 16, 16, 64, True),
+                                    (1, 200, 8, 2, 256, True),
+                                    (1, 512, 8, 8, 256, False)]:
+        q, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                 .to(torch.bfloat16) for _ in range(2))
+        k, v = (torch.randn(B, T, Hkv, D, generator=gen, device="cuda")
+                .to(torch.bfloat16) for _ in range(2))
+        out, lse = fa.flash_attention_fwd(q, k, v, causal)
+        dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, causal)
+        dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal)
+        ref = fa._plain_bwd(q, k, v, out, lse, do, causal)
+        torch.cuda.synchronize()
+        got = (dq, dk, dv)
+        errs = [(g.float() - r.float()).abs().max().item()
+                for g, r in zip(got, ref)]
+        log(f"  flash_bwd bf16 B={B} T={T} H={H} Hkv={Hkv} D={D} "
+            f"causal={causal}: max|d{{q,k,v}}-plain| "
+            f"{', '.join(f'{e:.3g}' for e in errs)} "
+            f"(tol {BF16_TOL}*(1+|plain|))")
+        if not all(torch.allclose(g.float(), r.float(), atol=BF16_TOL,
+                                  rtol=BF16_TOL) for g, r in zip(got, ref)):
+            raise AssertionError(f"flash_bwd disagrees at T={T} D={D} "
+                                 f"Hkv={Hkv} causal={causal}")
+        worst_q, worst_kv = max(worst_q, errs[0]), max(worst_kv, *errs[1:])
+    return worst_q, worst_kv
+
+
+def check_ce(torch, fc):
+    """The CE kernels against their plain twins on bf16 logits: the train
+    path's loss head (N = 2048 rows, V = 50304), then ragged N = 37 with
+    V = 1000 (16-byte rows) and V = 999 (the scalar walk); row 0's label
+    lies outside the vocabulary and picks nothing.  Loss and lse within
+    LSE_TOL; dlogits within CE_DX_ATOL + BF16_TOL·|plain|, both sides fed
+    the kernel's lse.  Returns the worst errors (forward, backward)."""
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    worst_f = worst_b = 0.0
+    for N, V in [(2048, 50304), (37, 1000), (37, 999)]:
+        x = (2 * torch.randn(N, V, generator=gen, device="cuda")).bfloat16()
+        y = torch.randint(0, V, (N,), generator=gen, device="cuda")
+        y[0] = -1
+        dl = torch.randn(N, generator=gen, device="cuda")
+        loss, lse = fc.ce_fwd(x, y)
+        dx = fc.ce_bwd(x, y, lse, dl)
+        ref_loss, ref_lse = fc._plain_ce_fwd(x, y)
+        ref_dx = fc._plain_ce_bwd(x, y, lse, dl)
+        torch.cuda.synchronize()
+        e_f = max((loss - ref_loss).abs().max().item(),
+                  (lse - ref_lse).abs().max().item())
+        e_b = (dx.float() - ref_dx.float()).abs().max().item()
+        log(f"  fused_ce bf16 N={N} V={V}: max|loss,lse - plain| {e_f:.3g} "
+            f"(tol {LSE_TOL}), max|dlogits - plain| {e_b:.3g} (tol "
+            f"{CE_DX_ATOL} + {BF16_TOL}*|plain|)")
+        if not (e_f <= LSE_TOL and torch.allclose(
+                dx.float(), ref_dx.float(), atol=CE_DX_ATOL, rtol=BF16_TOL)):
+            raise AssertionError(f"fused CE disagrees at N={N} V={V}")
+        worst_f, worst_b = max(worst_f, e_f), max(worst_b, e_b)
+    return worst_f, worst_b
 
 
 def _small_models(torch, gpt):
@@ -258,6 +369,15 @@ def _small_models(torch, gpt):
                          ("mha-learned", {}, "int8"),
                          ("gqa-rope", gqa, "int8")]:
         yield name, gpt.GPTConfig(**{**base, **kw}), kv
+
+
+def _leaves(params):
+    """(name, tensor) of every leaf of a parameter tree."""
+    for n, v in params.items():
+        if n == "blocks":
+            yield from ((f"blocks.{k}", t) for k, t in v.items())
+        else:
+            yield n, v
 
 
 def _to_card(params):
@@ -362,6 +482,70 @@ def check_paged_path_vs_cpu(torch, gpt, G, kv_pool, serving):
                                  f"{name}")
     os.environ.pop("PADDLE_TPU_KV_DTYPE", None)
     return worst
+
+
+def check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW):
+    """Small fp32 models (head_dim 128, 2 layers, B = 4 of 64 tokens):
+    five AdamW steps of ``build_gpt_train_step`` on the card (flash fwd
+    and backward kernels; the CE kernels under PADDLE_TPU_FUSED_CE=1)
+    against the same steps on the CPU (plain paths) from the same fp32
+    masters and batches — MHA with learned positions and LayerNorm, GQA
+    with rope, RMSNorm and SwiGLU; accum 1 and 2 (the bf16 gradient
+    carry); one run with the log-softmax loss head.  Losses within
+    TRAIN_LOSS_TOL; final params within TRAIN_PARAM_TOL but for a
+    TRAIN_PARAM_FAR share, and all within TRAIN_STEPS * TRAIN_LR."""
+    base = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
+                max_seq_len=128, dtype=torch.float32)
+    gqa = dict(num_heads=4, num_kv_heads=2, hidden_size=512,
+               pos_embed="rope", norm="rmsnorm", activation="swiglu")
+    worst_loss = worst_param = 0.0
+    for name, kw, accum, ce in [("mha-learned", {}, 1, "1"),
+                                ("mha-learned", {}, 2, "1"),
+                                ("gqa-rope", gqa, 1, "1"),
+                                ("gqa-rope", gqa, 2, "1"),
+                                ("mha-learned", {}, 1, "0")]:
+        os.environ["PADDLE_TPU_FUSED_CE"] = ce
+        cfg = gpt.GPTConfig(**{**base, **kw})
+        master = gpt.init_master_params(cfg, seed=7, device="cpu")
+        rng = np.random.default_rng(3)
+        batches = [rng.integers(0, cfg.vocab_size, (4, 65))
+                   for _ in range(TRAIN_STEPS)]
+
+        def run(dev, params):
+            opt = AdamW(learning_rate=TRAIN_LR, weight_decay=0.01)
+            _, step_fn, _ = gpt_hybrid.build_gpt_train_step(
+                cfg, opt, accum=accum, device=dev)
+            st = gpt_hybrid.GPTTrainState(
+                params, opt.init_state(params),
+                torch.zeros((), dtype=torch.int32, device=dev))
+            losses = []
+            for b in batches:
+                st, loss = step_fn(st, b, None, TRAIN_LR)
+                losses.append(loss.item())
+            return losses, dict(_leaves(st.params))
+
+        cpu_losses, cpu_params = run("cpu", master)
+        losses, params = run("cuda", _to_card(master))
+        d_loss = max(abs(a - b) for a, b in zip(cpu_losses, losses))
+        diff = torch.cat([(params[n].cpu() - t).abs().flatten()
+                          for n, t in cpu_params.items()])
+        d_param = diff.max().item()
+        far = (diff > TRAIN_PARAM_TOL).float().mean().item()
+        log(f"  {name} accum={accum} fused_ce={ce}: losses (card) "
+            f"{[round(x, 5) for x in losses]}; max|loss card - cpu| "
+            f"{d_loss:.3g} (tol {TRAIN_LOSS_TOL}); params card - cpu: max "
+            f"{d_param:.3g} (tol {TRAIN_STEPS * TRAIN_LR}), share past "
+            f"{TRAIN_PARAM_TOL} {far:.3g} of {diff.numel()} (tol "
+            f"{TRAIN_PARAM_FAR})")
+        if not (all(map(math.isfinite, losses))
+                and d_loss <= TRAIN_LOSS_TOL and far <= TRAIN_PARAM_FAR
+                and d_param <= TRAIN_STEPS * TRAIN_LR):
+            raise AssertionError(f"card training disagrees with the CPU on "
+                                 f"{name} accum={accum}")
+        worst_loss, worst_param = max(worst_loss, d_loss), max(worst_param,
+                                                               d_param)
+    os.environ.pop("PADDLE_TPU_FUSED_CE", None)
+    return worst_loss, worst_param
 
 
 def time_flash(torch, fa, F, T):
@@ -472,16 +656,97 @@ def time_paged(torch, da, F, pos_list):
     }
 
 
-def launch_counts(fa, da):
-    return {"flash_attention_fwd": fa.flash_attention_fwd.launches,
-            "decode_attention": da.decode_attention.launches,
-            "paged_decode_attention": da.paged_decode_attention.launches}
+def time_flash_bwd(torch, fa, F, T=2048):
+    """The dq and dk/dv kernels at one train micro-batch (B = 1, T = 2048,
+    H = 16, D = 128, bf16, causal).  Bounds count the causal pairs only.
+    The plain twin and the yardstick (the backward of SDPA on the same q,
+    k, v and do) each compute dq, dk and dv in one call, so both rows
+    carry those whole times."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    B, H, D = 1, 16, 128
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    _, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True)
+    pairs = B * H * T * (T + 1) // 2
+    act, rows = B * T * H * D * 2, B * H * T * 4    # one bf16 [B,T,H,D]; lse
+    # dq reads q k v out do lse, writes dq and delta; dk/dv reads q k v do
+    # lse delta, writes dk dv.  Products: dq 3 of 2·D each per pair, dk/dv 4
+    dq_ms, dq_by = bound(6 * act + 2 * rows, 6 * D * pairs)
+    dkv_ms, dkv_by = bound(6 * act + 2 * rows, 8 * D * pairs)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    ot = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+    dot = do.transpose(1, 2)
+    shared = {
+        "shape": f"B={B} T={T} H={H} D={D} bf16 causal",
+        "plain_ms": cold_ms(torch, lambda: fa._plain_bwd(
+            q, k, v, out, lse, do, True)),
+        "library_ms": cold_ms(torch, lambda: torch.autograd.grad(
+            ot, (qt, kt, vt), dot, retain_graph=True)),
+        "plain_and_library_compute": "dq, dk and dv",
+    }
+    return {
+        "dq": {**shared, "bound_ms": dq_ms, "bound_by": dq_by,
+               "ms": cold_ms(torch, lambda: fa.flash_attention_bwd_dq(
+                   q, k, v, out, lse, do, True))},
+        "dkv": {**shared, "bound_ms": dkv_ms, "bound_by": dkv_by,
+                "ms": cold_ms(torch, lambda: fa.flash_attention_bwd_dkv(
+                    q, k, v, lse, delta, do, True))},
+    }
 
 
-def zero_counts(fa, da):
-    fa.flash_attention_fwd.launches = 0
-    da.decode_attention.launches = 0
-    da.paged_decode_attention.launches = 0
+def time_ce(torch, fc, F, N=2048, V=50304):
+    """The CE kernels at the train path's loss head: one micro-batch's
+    N = 2048 rows of V = 50304 bf16 logits, dloss = 1/N (the mean's).
+    Yardstick: ``F.cross_entropy(reduction="none")`` and its backward.
+    Operations (max, subtract, exp, add per logit) count at the fp32 rate;
+    the bytes bound both."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x = (2 * torch.randn(N, V, generator=gen, device="cuda")).bfloat16()
+    y = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    dl = torch.full((N,), 1.0 / N, device="cuda")
+    _, lse = fc.ce_fwd(x, y)
+    xg = x.detach().requires_grad_()
+    lt = F.cross_entropy(xg, y, reduction="none")
+    shape = f"N={N} V={V} bf16"
+    f_ms, f_by = bound(N * V * 2 + N * (8 + 4 + 4), 4 * N * V,
+                       FP32_FLOPS_PER_S)
+    b_ms, b_by = bound(2 * N * V * 2 + N * (8 + 4 + 4), 4 * N * V,
+                       FP32_FLOPS_PER_S)
+    return {
+        "fwd": {"shape": shape, "bound_ms": f_ms, "bound_by": f_by,
+                "ms": cold_ms(torch, lambda: fc.ce_fwd(x, y)),
+                "plain_ms": cold_ms(torch, lambda: fc._plain_ce_fwd(x, y)),
+                "library_ms": cold_ms(torch, lambda: F.cross_entropy(
+                    x, y, reduction="none"))},
+        "bwd": {"shape": shape, "bound_ms": b_ms, "bound_by": b_by,
+                "ms": cold_ms(torch, lambda: fc.ce_bwd(x, y, lse, dl)),
+                "plain_ms": cold_ms(torch, lambda: fc._plain_ce_bwd(
+                    x, y, lse, dl)),
+                "library_ms": cold_ms(torch, lambda: torch.autograd.grad(
+                    lt, xg, dl, retain_graph=True))},
+    }
+
+
+def counters(fa, da, fc):
+    """Every kernel wrapper of the port, by the name the kernels line
+    gives it; each carries its ``launches`` count."""
+    return {"flash_attention_fwd": fa.flash_attention_fwd,
+            "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
+            "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
+            "fused_ce_fwd": fc.ce_fwd, "fused_ce_bwd": fc.ce_bwd,
+            "decode_attention": da.decode_attention,
+            "paged_decode_attention": da.paged_decode_attention}
+
+
+def launch_counts(ks):
+    return {name: fn.launches for name, fn in ks.items()}
+
+
+def zero_counts(ks):
+    for fn in ks.values():
+        fn.launches = 0
 
 
 def serve(torch, srv, prompts, new):
@@ -529,7 +794,7 @@ def check_solo(torch, gpt, G, params, cfg, prompt, served, new):
                         solo[0, len(prompt):].tolist(), "vs solo generate")
 
 
-def main_path(torch, gpt, G, serving, fa, da, wl):
+def main_path(torch, gpt, G, serving, ks, wl):
     cfg, params, srv, prompts = wl.build_main_path("cuda", seed=0)
     n_params = sum(t.numel() for n, t in params.items() if n != "blocks") \
         + sum(t.numel() for t in params["blocks"].values())
@@ -543,9 +808,9 @@ def main_path(torch, gpt, G, serving, fa, da, wl):
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    zero_counts(fa, da)
+    zero_counts(ks)
     served, t_admit, ticks, wall = serve(torch, srv, prompts, new)
-    launches = launch_counts(fa, da)
+    launches = launch_counts(ks)
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(s) for s in served)
     log(f"  served {len(served)} requests, {n_tok} tokens in {wall:.3f} s "
@@ -582,7 +847,7 @@ def main_path(torch, gpt, G, serving, fa, da, wl):
     return stats, launches
 
 
-def paged_path(torch, gpt, G, serving, kv_pool, fa, da, wl):
+def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
     cfg, params, srv, prompts = wl.build_paged_path("cuda", seed=0)
     new, L = wl.NEW, cfg.num_layers
     lens = [len(p) for p in prompts]
@@ -604,9 +869,9 @@ def paged_path(torch, gpt, G, serving, kv_pool, fa, da, wl):
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
-        zero_counts(fa, da)
+        zero_counts(ks)
         served, t_admit, ticks, wall = serve(torch, srv, prompts, new)
-        launches = launch_counts(fa, da)
+        launches = launch_counts(ks)
     finally:
         kv_pool.paged_prefill_chunk = plain_chunk
     peak = torch.cuda.max_memory_allocated()
@@ -664,6 +929,72 @@ def paged_path(torch, gpt, G, serving, kv_pool, fa, da, wl):
     return stats, launches
 
 
+def train_path(torch, gpt, ks, tr, steps=4):
+    """``steps`` train steps of the train path on one batch, each timed
+    on the host clock (it ends in a sync: the loss is read), with every
+    kernel's launches counted per step.  Returns (stats, launches)."""
+    cfg, opt, init_fn, step_fn, tokens = tr.build_train_path("cuda", seed=0)
+    state = init_fn(0)
+    n_params = sum(t.numel() for _, t in _leaves(state.params))
+    assert n_params == gpt.count_params(cfg)
+    assert all(t.dtype == torch.float32 for _, t in _leaves(state.params))
+    n_tok = tr.BATCH * tr.SEQ
+    fpt = gpt.flops_per_token(cfg, tr.SEQ)
+    log(f"  gpt_1p3b: {n_params} fp32 master params; batch {tr.BATCH} x "
+        f"{tr.SEQ} tokens in {tr.ACCUM} micro-batches; flops/token {fpt:.4g}")
+    want = {"flash_attention_fwd": cfg.num_layers * tr.ACCUM,
+            "flash_attention_bwd_dq": cfg.num_layers * tr.ACCUM,
+            "flash_attention_bwd_dkv": cfg.num_layers * tr.ACCUM,
+            "fused_ce_fwd": tr.ACCUM, "fused_ce_bwd": tr.ACCUM,
+            "decode_attention": 0, "paged_decode_attention": 0}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(ks)
+    losses, step_s, per_step = [], [], []
+    for _ in range(steps):
+        before = launch_counts(ks)
+        t0 = time.perf_counter()
+        state, loss = step_fn(state, tokens, None, tr.LR)
+        losses.append(loss.item())
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        per_step.append({n: c - before[n]
+                         for n, c in launch_counts(ks).items()})
+        log(f"  step {len(losses)}: loss {losses[-1]:.5f}, "
+            f"{step_s[-1] * 1e3:.1f} ms, {n_tok / step_s[-1]:.0f} tokens/s, "
+            f"launches {per_step[-1]}")
+    launches = launch_counts(ks)
+    peak = torch.cuda.max_memory_allocated()
+    if not all(map(math.isfinite, losses)):
+        raise AssertionError(f"non-finite train losses {losses}")
+    if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
+        raise AssertionError(f"first loss {losses[0]} is not near "
+                             f"ln({cfg.vocab_size})")
+    if not losses[-1] < losses[0]:
+        raise AssertionError(f"the loss did not fall: {losses}")
+    for i, got in enumerate(per_step):
+        if got != want:
+            raise AssertionError(f"step {i + 1} launched {got}, not {want}")
+    steady = statistics.median(step_s[1:])
+    stats = {
+        "model": "gpt_1p3b", "params": n_params, "batch": tr.BATCH,
+        "seq": tr.SEQ, "accum": tr.ACCUM, "optimizer":
+        f"AdamW(lr={tr.LR}, weight_decay={tr.WEIGHT_DECAY}, bf16 state)",
+        "flags": tr.FLAGS, "losses": losses, "step_ms": [1e3 * t for t in
+                                                          step_s],
+        "tokens_per_s": [n_tok / t for t in step_s],
+        "steady_step_ms": 1e3 * steady,
+        "steady_tokens_per_s": n_tok / steady,
+        "mfu": fpt * n_tok / steady / BF16_FLOPS_PER_S,
+        "peak_mem_gb": peak / 1e9, "launches_per_step": per_step[-1],
+    }
+    log(f"  steady (median of steps 2-{steps}): {stats['steady_step_ms']:.1f}"
+        f" ms/step, {stats['steady_tokens_per_s']:.0f} tokens/s, MFU "
+        f"{stats['mfu']:.4f}; peak memory {stats['peak_mem_gb']:.2f} GB")
+    del state
+    return stats, launches
+
+
 def main() -> int:
     import torch
 
@@ -676,9 +1007,12 @@ def main() -> int:
     from paddle_tpu_torch.ops import _build
     from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text import generate as G
-    from paddle_tpu_torch.text import gpt, kv_pool, serving
+    from paddle_tpu_torch.text import gpt, gpt_hybrid, kv_pool, serving
     from paddle_tpu_torch.tools import profile_serving as wl
+    from paddle_tpu_torch.tools import profile_train as tr
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -697,10 +1031,15 @@ def main() -> int:
            "decode_attention": max(check_decode(torch, da),
                                    check_decode_wide(torch, da)),
            "paged_decode_attention": check_paged(torch, da)}
+    err["flash_attention_bwd_dq"], err["flash_attention_bwd_dkv"] = \
+        check_flash_bwd(torch, fa)
+    err["fused_ce_fwd"], err["fused_ce_bwd"] = check_ce(torch, fc)
 
     log("[decode paths on the card vs the CPU]")
     check_path_vs_cpu(torch, gpt, G, serving)
     check_paged_path_vs_cpu(torch, gpt, G, kv_pool, serving)
+    log("[train steps on the card vs the CPU]")
+    check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW)
 
     log("[kernel timings at the paths' shapes]")
     flash_by_t = {T: time_flash(torch, fa, F, T) for T in (64, 128, 256, 512)}
@@ -714,18 +1053,35 @@ def main() -> int:
     paged_lens = [len(p) for p in wl.paged_prompts(50304)]
     paged = time_paged(torch, da, F, [n + wl.NEW // 2 for n in paged_lens])
     log(f"  paged_decode_attention {json.dumps(paged)}")
+    flash_train = time_flash(torch, fa, F, tr.SEQ)
+    log(f"  flash_attention_fwd at the train shape {json.dumps(flash_train)}")
+    bwd = time_flash_bwd(torch, fa, F, tr.SEQ)
+    ce = time_ce(torch, fc, F)
+    for name, row in (("flash_attention_bwd_dq", bwd["dq"]),
+                      ("flash_attention_bwd_dkv", bwd["dkv"]),
+                      ("fused_ce_fwd", ce["fwd"]),
+                      ("fused_ce_bwd", ce["bwd"])):
+        log(f"  {name} {json.dumps(row)}")
+    ks = counters(fa, da, fc)
 
     log("[main path: DecodeServer, gpt_1p3b, contiguous KV]")
-    stats, main_launches = main_path(torch, gpt, G, serving, fa, da, wl)
+    stats, main_launches = main_path(torch, gpt, G, serving, ks, wl)
     log(json.dumps({"main_path": stats}))
 
     log("[paged path: DecodeServer(layout='paged'), gpt_1p3b]")
-    pstats, paged_launches = paged_path(torch, gpt, G, serving, kv_pool, fa,
-                                        da, wl)
+    pstats, paged_launches = paged_path(torch, gpt, G, serving, kv_pool, ks,
+                                        wl)
     log(json.dumps({"paged_path": pstats}))
 
+    gc.collect()                    # the serving models leave the card
+    torch.cuda.empty_cache()
+    log("[train path: build_gpt_train_step, gpt_1p3b, AdamW, accum 8]")
+    tstats, train_launches = train_path(torch, gpt, ks, tr)
+    log(json.dumps({"train_path": tstats}))
+
     def entry(name, src, replaces, row, **extra):
-        by_path = {"main": main_launches[name], "paged": paged_launches[name]}
+        by_path = {"main": main_launches[name], "paged": paged_launches[name],
+                   "train": train_launches[name]}
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": sum(by_path.values()),
                 "launches_by_path": by_path,
@@ -736,7 +1092,16 @@ def main() -> int:
 
     kernels = [
         entry("flash_attention_fwd", "paddle_tpu_torch/csrc/flash_fwd.cu",
-              "paddle_tpu/ops/flash_attention.py:164", flash_by_t[512]),
+              "paddle_tpu/ops/flash_attention.py:164", flash_by_t[512],
+              at_train_shape=flash_train),
+        entry("flash_attention_bwd_dq", "paddle_tpu_torch/csrc/flash_bwd.cu",
+              "paddle_tpu/ops/flash_attention.py:249", bwd["dq"]),
+        entry("flash_attention_bwd_dkv", "paddle_tpu_torch/csrc/flash_bwd.cu",
+              "paddle_tpu/ops/flash_attention.py:302", bwd["dkv"]),
+        entry("fused_ce_fwd", "paddle_tpu_torch/csrc/fused_ce.cu",
+              "paddle_tpu/ops/fused_ce.py:159", ce["fwd"]),
+        entry("fused_ce_bwd", "paddle_tpu_torch/csrc/fused_ce.cu",
+              "paddle_tpu/ops/fused_ce.py:200", ce["bwd"]),
         entry("decode_attention", "paddle_tpu_torch/csrc/decode_attention.cu",
               "paddle_tpu/ops/decode_attention.py:282", dec,
               at_admission_chunk=dec_chunk),

@@ -23,6 +23,9 @@
 //    different banks).  A lane scores keys lane and lane+32 for its
 //    warp's 4 rows, so each k element read from shared memory feeds 4
 //    FMAs; the p·v product broadcasts p with a warp shuffle.
+//  * D is 64, 128 or 256 (the JAX gate's widths).  At D = 256 a lane
+//    holds 4 rows x 8 fp32 accumulators and the tiles take 160 KB of
+//    shared memory: one CTA per SM.
 //  * Causally dead k tiles are never visited (the walk stops at the
 //    tile's last row).  The ragged edge is masked here, so any T works —
 //    the TPU's T % 128 gate is a tiling artifact that does not apply.
@@ -235,9 +238,13 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
     return (int)launch<float, 64>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
   if (dtype == 0 && D == 128)
     return (int)launch<float, 128>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
+  if (dtype == 0 && D == 256)
+    return (int)launch<float, 256>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
   if (dtype == 1 && D == 64)
     return (int)launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
   if (dtype == 1 && D == 128)
     return (int)launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
+  if (dtype == 1 && D == 256)
+    return (int)launch<__nv_bfloat16, 256>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }

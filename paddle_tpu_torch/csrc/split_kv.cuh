@@ -29,9 +29,9 @@
 //    across sequential grid steps in VMEM scratch; on the GPU nothing
 //    carries over between blocks.
 //  * GQA: a kv head's whole query group is R = Tq·G rows (row r = tq·G + g),
-//    held in 64-row tiles, one tile per CTA (R up to 1024 — the TPU
-//    kernels' cap — is 16 tiles), so each K/V row is read once per tile and
-//    never once per query head.
+//    held in 64-row tiles (32-row at hd 256), one tile per CTA (R up to
+//    1024 — the TPU kernels' cap — is 16 tiles), so each K/V row is read
+//    once per tile and never once per query head.
 //  * int8 K/V are dequantized by their scales as they are staged in shared
 //    memory; no dequantized copy is written to device memory.
 //  * Loads are 4 elements per thread, consecutive threads on consecutive
@@ -49,7 +49,11 @@ namespace split_kv {
 
 constexpr int kThreads = 128;
 constexpr int kBT = 64;          // cache rows per staged tile (two per lane)
-constexpr int kRT = 64;          // query rows per CTA (one row tile)
+// Query rows per CTA (one row tile): 64, or 32 at hd 256 — there a 64-row
+// tile's Qs and Acc alone (128 KB) plus the staged K/V tiles would pass the
+// 227 KB of shared memory a CTA may have.
+template <int HD>
+constexpr int kRT = HD > 128 ? 32 : 64;
 constexpr int kRMax = 1024;      // query rows (Tq * G) per kv head in all
 constexpr int kMaxDevices = 64;  // cards per process the launcher tracks
 constexpr float kNeg = -1e30f;
@@ -139,7 +143,7 @@ partial(const QT* __restrict__ q, const KT* __restrict__ k,
   const int s = blockIdx.x % nsplit, rt = blockIdx.x / nsplit;
   const int h = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv, R = Tq * G;
-  const int r0 = rt * kRT, Rc = min(kRT, R - r0);
+  const int r0 = rt * kRT<HD>, Rc = min(kRT<HD>, R - r0);
   const int p_b = pos[b];
   // rows the tile's last query row can see
   const int n_valid = min(T, p_b + (r0 + Rc - 1) / G + 1);
@@ -264,7 +268,7 @@ combine(const float* __restrict__ o_part, const float* __restrict__ m_part,
         int nsplit) {
   const int rt = blockIdx.x, h = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv, R = Tq * G;
-  const int r0 = rt * kRT, Rc = min(kRT, R - r0);
+  const int r0 = rt * kRT<HD>, Rc = min(kRT<HD>, R - r0);
   const size_t base = (size_t)(b * Hkv + h) * nsplit * R;
   for (int idx = threadIdx.x; idx < Rc * HD; idx += kThreads) {
     const int r = r0 + idx / HD, d = idx % HD;
@@ -288,7 +292,7 @@ combine(const float* __restrict__ o_part, const float* __restrict__ m_part,
 template <typename QT, typename KT, int HD, class Rows>
 cudaError_t launch(const Args& a, Rows rows) {
   const int R = a.Tq * (a.Hq / a.Hkv);
-  const int Rt = min(R, kRT), n_rt = (R + kRT - 1) / kRT;
+  const int Rt = min(R, kRT<HD>), n_rt = (R + kRT<HD> - 1) / kRT<HD>;
   const size_t smem = sizeof(long long) * kBT +
                       sizeof(float) * ((size_t)2 * Rt * HD + kBT * (HD + 1) +
                                        kBT * HD + (size_t)Rt * kBT + 3 * Rt);
@@ -327,6 +331,7 @@ template <typename QT, typename KT, class Rows>
 cudaError_t by_hd(int hd, const Args& a, Rows rows) {
   if (hd == 64) return launch<QT, KT, 64>(a, rows);
   if (hd == 128) return launch<QT, KT, 128>(a, rows);
+  if (hd == 256) return launch<QT, KT, 256>(a, rows);
   return cudaErrorInvalidValue;
 }
 

@@ -65,3 +65,20 @@ def kv_radix() -> bool:
     ``PagedAllocator`` is built."""
     v = os.environ.get("PADDLE_TPU_KV_RADIX", "1").strip().lower()
     return v not in ("0", "false", "off", "no")
+
+
+def fused_ce() -> bool:
+    """The fused softmax-CE loss head (``ops/fused_ce.py``), from
+    ``PADDLE_TPU_FUSED_CE == "1"`` — read by ``gpt.loss_fn`` at each call,
+    as the JAX package reads it at trace time.  Off: the fp32
+    ``log_softmax`` expression."""
+    return os.environ.get("PADDLE_TPU_FUSED_CE", "") == "1"
+
+
+def fused_ln() -> bool:
+    """The fused LayerNorm kernels (Pallas #4/#5), from
+    ``PADDLE_TPU_FUSED_LN == "1"``.  They are not ported yet: with the flag
+    set, ``gpt._norm`` raises on a CUDA tensor rather than quietly taking
+    the plain path; on the CPU it takes the plain expression, as the JAX
+    package does off its TPU."""
+    return os.environ.get("PADDLE_TPU_FUSED_LN", "") == "1"

@@ -2,10 +2,11 @@
 flash-kernel path.
 
 Counterpart of ``paddle_tpu/ops/attention.py``.  CUDA tensors go to the
-hand-written flash kernel (``ops/flash_attention.py``) at any sequence
-length — the TPU's ``T % 128`` gate is a tiling artifact of its kernel
-and does not apply; CPU tensors take :func:`xla_attention`, the JAX
-package's plain expression.
+hand-written flash kernels (``ops/flash_attention.py``: the forward, and
+the backward under autograd) at any sequence length — the TPU's
+``T % 128`` gate is a tiling artifact of its kernel and does not apply;
+CPU tensors take :func:`xla_attention`, the JAX package's plain
+expression.
 """
 from __future__ import annotations
 
@@ -31,9 +32,16 @@ def xla_attention(q, k, v, is_causal=False, scale=None):
 
 def attention_array(q, k, v, is_causal=False, scale=None):
     """q [B, T, H, D], k/v [B, S, Hkv, D] with Hkv dividing H (GQA heads
-    need not be repeated) -> [B, T, H, D].  CUDA: the flash kernel;
-    CPU: :func:`xla_attention` on repeated heads."""
+    need not be repeated) -> [B, T, H, D].  CUDA: the flash kernel — under
+    autograd (grad enabled and an input requiring grad) through
+    :func:`~.flash_attention.flash_attention`, whose backward is the
+    hand-written backward kernels; otherwise (serving) the forward kernel
+    alone.  CPU: :func:`xla_attention` on repeated heads, differentiated by
+    PyTorch as the JAX package differentiates its XLA path."""
     if q.is_cuda:
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                        or v.requires_grad):
+            return fa.flash_attention(q, k, v, causal=is_causal, scale=scale)
         return fa.flash_attention_fwd(q, k, v, causal=is_causal,
                                       scale=scale)[0]
     rep = q.shape[2] // k.shape[2]

@@ -29,9 +29,8 @@ from . import _build
 _NEG = -1e30
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _KV_DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
-_HEAD_DIMS = (64, 128)
+_HEAD_DIMS = (64, 128, 256)
 _R_CAP = 1024   # query rows (Tq * G) per kv head, the JAX kernels' cap
-_RT = 64        # query rows one CTA holds; R is cut into tiles of it
 _BT = 64        # cache rows per kernel tile; a split is a multiple of it
 _TARGET_CTAS = 264   # two CTAs per SM on a 132-SM card
 
@@ -75,14 +74,20 @@ def _plain_decode(q, k, v, pos, k_scale, v_scale, scale):
     return out.reshape(B, Tq, Hq, hd).to(q.dtype)
 
 
-def split_plan(B: int, Hkv: int, T: int, R: int = 1):
+def row_tile(hd: int) -> int:
+    """Query rows one CTA holds (``kRT`` in csrc/split_kv.cuh): 64, or 32
+    at hd 256, where a 64-row tile would not fit in shared memory."""
+    return 32 if hd > 128 else 64
+
+
+def split_plan(B: int, Hkv: int, T: int, R: int = 1, hd: int = 128):
     """(chunk, nsplit): cut the T walk into splits of ``chunk`` rows (a
     multiple of the kernel's 64-row tile) so that the CTAs — one per
-    (64-row query tile of the R rows, split, kv head, batch row) — fill
-    the card about twice over; splits past a row's frontier exit at once,
-    so the plan is sized on the cache length, not on pos."""
+    (query tile of the R rows, split, kv head, batch row) — fill the card
+    about twice over; splits past a row's frontier exit at once, so the
+    plan is sized on the cache length, not on pos."""
     tiles = -(-T // _BT)
-    cells = max(1, B * Hkv * -(-R // _RT))
+    cells = max(1, B * Hkv * -(-R // row_tile(hd)))
     want = max(1, min(tiles, -(-_TARGET_CTAS // cells)))
     chunk = -(-tiles // want) * _BT
     return chunk, -(-T // chunk)
@@ -157,7 +162,7 @@ def _launch(name, q, k, Hkv, T, ptrs, dims, scale):
     B, Tq, Hq, hd = q.shape
     R = Tq * (Hq // Hkv)
     scale = scale if scale is not None else 1.0 / (hd ** 0.5)
-    chunk, nsplit = split_plan(B, Hkv, T, R)
+    chunk, nsplit = split_plan(B, Hkv, T, R, hd)
     out = torch.empty_like(q)
     f32 = dict(dtype=torch.float32, device=q.device)
     o_part = torch.empty((B, Hkv, nsplit, R, hd), **f32)
@@ -191,7 +196,7 @@ def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, scale=None):
 
     CPU tensors run :func:`_plain_decode`.  CUDA tensors launch
     ``csrc/decode_attention.cu`` (q float32/bfloat16; cache float32,
-    bfloat16 or int8; hd in {64, 128}; Tq * Hq / Hkv <= 1024); every
+    bfloat16 or int8; hd in {64, 128, 256}; Tq * Hq / Hkv <= 1024); every
     launch adds one to ``decode_attention.launches``."""
     if not q.is_cuda:
         return _plain_decode(q, k, v, pos, k_scale, v_scale, scale)
@@ -229,11 +234,11 @@ def gather_paged_view(k_pool, tables):
 
 def paged_supported(q_shape, pool_shape) -> bool:
     """The JAX package's static shape gate for its paged kernel: q
-    [B, Tq, Hq, hd] against a pool [N, bs, Hkv, hd].  (It admits hd 256,
-    which this port's kernels do not take yet — ``_check`` refuses it.)"""
+    [B, Tq, Hq, hd] against a pool [N, bs, Hkv, hd] — what the port's
+    paged kernel takes too."""
     B, Tq, Hq, hd = q_shape
     N, bs, Hkv = pool_shape[0], pool_shape[1], pool_shape[2]
-    return (hd in (64, 128, 256) and Hq % Hkv == 0
+    return (hd in _HEAD_DIMS and Hq % Hkv == 0
             and Tq * (Hq // Hkv) <= _R_CAP
             and bs >= 8 and bs % 8 == 0)
 

@@ -1,7 +1,8 @@
 """GPT decoder-only transformer — the flagship model family, in PyTorch.
 
-Counterpart of ``paddle_tpu/text/gpt.py`` for the dense, float-weight,
-inference-time model.  The parameters keep the JAX tree's names and its
+Counterpart of ``paddle_tpu/text/gpt.py`` for the dense, float-weight
+model: the forward that serving runs, and the loss that training
+differentiates (``loss_fn``).  The parameters keep the JAX tree's names and its
 stacked layout: every block weight carries a leading [L, ...] axis
 (``blocks["qkv_w"]`` is [L, 3, D, D]), so a JAX checkpoint maps over
 name for name (``convert.params_from_jax``).  Where the JAX forward scans
@@ -10,7 +11,7 @@ the stack, this one loops over ``l`` and slices it.
 Functions take ``params`` as a mapping — a plain dict from
 :func:`init_params` / ``convert.params_from_jax``, or a :class:`GPT`
 module, which answers ``params["wte"]`` the same way.  Dropout, remat
-and MoE are out of this slice.
+and MoE are not ported yet: a config that asks for them raises.
 """
 from __future__ import annotations
 
@@ -22,8 +23,9 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import woq
-from .. import resolve_device
+from .. import flags, resolve_device
 from ..ops.attention import attention_array
+from ..ops.fused_ce import fused_softmax_ce
 
 
 @dataclasses.dataclass
@@ -34,6 +36,10 @@ class GPTConfig:
     num_heads: int = 12
     max_seq_len: int = 1024
     ffn_ratio: int = 4
+    # not ported yet: any other value than these defaults raises
+    dropout: float = 0.0
+    remat: bool = False
+    use_flash: bool = True
     dtype: torch.dtype = torch.bfloat16   # compute dtype
     # grouped-query attention: num_kv_heads < num_heads shares each K/V
     # head across a group of query heads (None = MHA)
@@ -43,6 +49,15 @@ class GPTConfig:
     activation: str = "gelu"       # "gelu" | "swiglu" (gated FFN)
 
     def __post_init__(self):
+        if self.dropout != 0.0:
+            raise NotImplementedError(
+                f"dropout {self.dropout}: dropout is not ported yet")
+        if self.remat:
+            raise NotImplementedError("remat is not ported yet")
+        if not self.use_flash:
+            raise NotImplementedError(
+                "use_flash=False: on the card the port's attention is the "
+                "flash kernel; there is no other path to select")
         if (self.num_kv_heads is not None
                 and self.num_heads % self.num_kv_heads):
             raise ValueError(
@@ -81,14 +96,26 @@ def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
     and init scales (normal std 0.02; the two residual projections
     0.02 / sqrt(2L)), drawn in float32 from a ``torch.Generator`` on
     ``device`` seeded with ``seed`` and stored in the compute dtype
-    ``cfg.dtype`` (inference only: no float32 master copy).  The numbers
-    differ from JAX's for the same seed — carry JAX weights over with
-    ``convert.params_from_jax`` instead."""
+    ``cfg.dtype`` — the serving form; training keeps float32 masters
+    (:func:`init_master_params`).  The numbers differ from JAX's for the
+    same seed — carry JAX weights over with ``convert.params_from_jax``
+    instead."""
+    return _draw_params(cfg, seed, device, cfg.dtype)
+
+
+def init_master_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
+    """The same draw as :func:`init_params` kept in float32: the master
+    weights a train step updates ("params stay fp32", as in the JAX
+    package), cast to ``cfg.dtype`` at each use.  Rounding them to
+    ``cfg.dtype`` gives :func:`init_params`' tree for the same seed."""
+    return _draw_params(cfg, seed, device, torch.float32)
+
+
+def _draw_params(cfg: GPTConfig, seed, device, dtype) -> dict:
     dev = resolve_device(device)
     gen = torch.Generator(device=dev).manual_seed(int(seed))
     D, Fd, L, V, T = (cfg.hidden_size, cfg.ffn_size, cfg.num_layers,
                       cfg.vocab_size, cfg.max_seq_len)
-    dtype = cfg.dtype
     s = 0.02
 
     def nrm(shape, std=s):
@@ -140,18 +167,20 @@ class GPT(nn.Module):
     parameters of the same names (``wte``, ``wpe``, ``ln_f_g``, ...) and
     ``blocks`` is a ``ParameterDict`` of the stacked [L, ...] weights.
     ``module["wte"]`` reads like the dict, so every function here takes
-    either.  Inference only in this slice: the parameters do not require
-    grad."""
+    either.  The parameters require grad only with ``trainable=True``
+    (then :func:`loss_fn` on the module backpropagates into them); the
+    default is the serving form."""
 
-    def __init__(self, cfg: GPTConfig, params: dict):
+    def __init__(self, cfg: GPTConfig, params: dict, trainable: bool = False):
         super().__init__()
         self.cfg = cfg
         for name, t in params.items():
             if name == "blocks":
                 continue
-            self.register_parameter(name, nn.Parameter(t, requires_grad=False))
+            self.register_parameter(name, nn.Parameter(
+                t, requires_grad=trainable))
         self.blocks = nn.ParameterDict({
-            name: nn.Parameter(t, requires_grad=False)
+            name: nn.Parameter(t, requires_grad=trainable)
             for name, t in params["blocks"].items()})
 
     def __getitem__(self, name):
@@ -181,11 +210,18 @@ def _rms_norm(x, g, eps=1e-5):
 
 def _norm(x, p, prefix: str, cfg: GPTConfig):
     """Block-norm dispatch: statistics in fp32, output in the compute
-    dtype (the JAX package's _norm)."""
-    xf = x.float()
+    dtype (the JAX package's _norm).  ``PADDLE_TPU_FUSED_LN=1`` selects
+    the fused LayerNorm kernels there, which are not ported yet: on a CUDA
+    tensor it raises; on the CPU it takes this plain expression, as the
+    JAX package does off its TPU (rmsnorm never takes that kernel)."""
     if cfg.norm == "rmsnorm":
-        return _rms_norm(xf, p[prefix + "_g"]).to(cfg.dtype)
-    return _layer_norm(xf, p[prefix + "_g"], p[prefix + "_b"]).to(cfg.dtype)
+        return _rms_norm(x.float(), p[prefix + "_g"]).to(cfg.dtype)
+    if x.is_cuda and flags.fused_ln():
+        raise NotImplementedError(
+            "PADDLE_TPU_FUSED_LN=1: the fused LayerNorm kernels (Pallas "
+            "_ln_fwd_impl / _ln_bwd_impl) are not ported to the card yet")
+    return _layer_norm(x.float(), p[prefix + "_g"],
+                       p[prefix + "_b"]).to(cfg.dtype)
 
 
 def apply_rope(x, positions, base: float = 10000.0):
@@ -266,17 +302,47 @@ def _block(x, p, cfg: GPTConfig):
     return _ffn_dense(x, p, cfg)
 
 
-def forward(params, tokens, cfg: GPTConfig):
-    """tokens [B, T] int -> logits [B, T, V] (compute dtype)."""
+def forward_with_aux(params, tokens, cfg: GPTConfig, key=None):
+    """tokens [B, T] int -> (logits [B, T, V] in the compute dtype, aux
+    loss).  aux is the MoE load-balancing term, 0 for the dense models
+    this port runs.  ``key`` (the JAX package's dropout key) is accepted
+    and unused: dropout is not ported.
+
+    The stacked block weights are unbound once into per-layer views, so
+    under autograd each [L, ...] leaf gets its gradient by one stack of
+    the layers' slices."""
     B, T = tokens.shape
     dt = cfg.dtype
     x = woq.embed(params, tokens, dt)
     if cfg.pos_embed == "learned":
         x = x + params["wpe"][:T].to(dt)[None]
+    per_layer = {name: t.unbind(0) for name, t in params["blocks"].items()}
     for l in range(cfg.num_layers):
-        x = _block(x, layer(params, l), cfg)
+        x = _block(x, {name: ts[l] for name, ts in per_layer.items()}, cfg)
     x = _norm(x, params, "ln_f", cfg)
-    return woq.logits(x, params, dt)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return woq.logits(x, params, dt), aux
+
+
+def forward(params, tokens, cfg: GPTConfig):
+    """tokens [B, T] int -> logits [B, T, V] (compute dtype)."""
+    return forward_with_aux(params, tokens, cfg)[0]
+
+
+def loss_fn(params, tokens, cfg: GPTConfig, key=None):
+    """Next-token LM loss of tokens [B, T + 1]: the mean fp32 softmax-CE
+    of the logits over tokens[:, :-1] against tokens[:, 1:], plus the aux
+    loss.  ``PADDLE_TPU_FUSED_CE=1`` (read at each call) takes the fused
+    loss head (``ops/fused_ce.py``: the hand-written kernels on the card,
+    their plain twins on the CPU); otherwise the fp32 ``log_softmax``
+    expression, as in the JAX package."""
+    logits, aux = forward_with_aux(params, tokens[:, :-1], cfg, key=key)
+    tgt = tokens[:, 1:]
+    if flags.fused_ce():
+        return torch.mean(fused_softmax_ce(logits, tgt)) + aux
+    logp = torch.log_softmax(logits.float(), dim=-1)
+    ll = torch.gather(logp, -1, tgt[..., None].long())[..., 0]
+    return -torch.mean(ll) + aux
 
 
 def count_params(cfg: GPTConfig) -> int:
@@ -293,3 +359,19 @@ def count_params(cfg: GPTConfig) -> int:
     final_norm = 2 * D if cfg.norm == "layernorm" else D
     pos = T * D if cfg.pos_embed == "learned" else 0
     return V * D + pos + final_norm + L * per_block
+
+
+def flops_per_token(cfg: GPTConfig, seq_len: int) -> float:
+    """Training FLOPs per token, as the JAX package counts them: 6 x the
+    matmul weights (qkv, attention projection and FFN per block, plus the
+    tied head V·D once) plus the attention term 12·L·D·T (full,
+    non-causal accounting — the conservative standard for MFU)."""
+    D, Fd, L, V = cfg.hidden_size, cfg.ffn_size, cfg.num_layers, \
+        cfg.vocab_size
+    Dkv = cfg.kv_heads * cfg.head_dim
+    qkv_w = (D * D + 2 * D * Dkv if cfg.num_kv_heads is not None
+             else 3 * D * D)
+    ffn_w = (3 if cfg.activation == "swiglu" else 2) * D * Fd
+    n_matmul = L * (qkv_w + D * D + ffn_w) + V * D
+    attn = 12 * L * D * seq_len
+    return 6 * n_matmul + attn

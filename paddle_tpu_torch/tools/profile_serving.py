@@ -105,24 +105,24 @@ def build_paged_path(device="cuda", seed=0):
 
 # kernel-name keys, lower case; split_kv.cuh's kernels carry their row
 # addressing (ContiguousRows / PagedRows) in their template arguments
+MATMUL_KEYS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk", "nvjet")
 FAMILIES = (("paged_decode_attention", ("pagedrows",)),
             ("decode_attention", ("contiguousrows",)),
             ("flash_attention_fwd", ("flash_fwd_kernel",)),
-            ("matmul", ("gemm", "gemv", "cutlass", "xmma", "cublas",
-                        "splitk", "nvjet")),
+            ("matmul", MATMUL_KEYS),
             ("layer_norm", ("layer_norm",)),
             ("cache_write", ("index_put", "scatter")))
 
 
-def family(name: str) -> str:
+def family(name: str, families=FAMILIES) -> str:
     low = name.lower()
-    for fam, keys in FAMILIES:
+    for fam, keys in families:
         if any(k in low for k in keys):
             return fam
     return "other"
 
 
-def summarize(torch, prof, wall, n):
+def summarize(torch, prof, wall, n, families=FAMILIES):
     """Device time per unit of work, by family, from the trace's kernel
     events (one stream: kernels do not overlap, so their sum is the
     device's busy time)."""
@@ -135,7 +135,7 @@ def summarize(torch, prof, wall, n):
         if us <= 0:
             continue
         launches += evt.count
-        fam = family(evt.key)
+        fam = family(evt.key, families)
         by_fam[fam] = by_fam.get(fam, 0.0) + us / 1e3
     dev_ms = sum(by_fam.values())
     return {

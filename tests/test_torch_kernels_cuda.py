@@ -1,6 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch twins, on a card:
-flash prefill, split-KV decode (up to 1024 query rows per kv head) and
-block-table (paged) decode.
+flash prefill, split-KV decode (up to 1024 query rows per kv head),
+block-table (paged) decode, the flash backward (dq and dk/dv) and the
+fused softmax cross-entropy (forward and backward).
 
 Every test here is marked ``cuda`` and decides in its body whether a
 card is present — never at import, in ``skipif`` or in ``parametrize``,
@@ -12,14 +13,18 @@ on the card machine as it stands:
 
 Tolerances: a bf16 output may sit one bf16 ulp (2^-7 relative) from the
 plain twin's where fp32 summation order tips a rounding: atol = rtol =
-1e-2; fp32 outputs differ only by summation order (1e-4); lse is fp32
-(1e-3).
+1e-2; fp32 outputs differ only by summation order (1e-4; the backward's
+dk/dv sum up to 2048 rows and a GQA group: 1e-3); lse and the CE loss are
+fp32 (1e-3); CE dlogits are tiny (softmax ~ 1/V) and rounded once in both:
+rtol 1e-2 with atol 1e-6.
 """
 import pytest
 import torch
 
 from paddle_tpu_torch.ops import decode_attention as da
 from paddle_tpu_torch.ops import flash_attention as fa
+from paddle_tpu_torch.ops import fused_ce as fc
+from paddle_tpu_torch.text import gpt
 
 pytestmark = pytest.mark.cuda
 
@@ -36,6 +41,8 @@ def _card():
     (1000, 16, 16, 128, "bfloat16", True),
     (200, 4, 2, 64, "float32", False),
     (37, 8, 8, 64, "float32", True),
+    (300, 8, 2, 256, "bfloat16", True),
+    (100, 4, 4, 256, "float32", False),
 ])
 def test_flash_fwd_matches_plain(T, H, Hkv, D, dtype, causal):
     gen = _card()
@@ -53,19 +60,22 @@ def test_flash_fwd_matches_plain(T, H, Hkv, D, dtype, causal):
     assert (lse - ref_lse).abs().max().item() < 1e-3
 
 
-@pytest.mark.parametrize("Hq,Hkv,Tq,kv,qdt", [
-    (16, 16, 1, "bfloat16", "bfloat16"),
-    (16, 4, 4, "int8", "bfloat16"),
-    (8, 2, 3, "float32", "float32"),
-    (16, 16, 1, "float32", "bfloat16"),
+@pytest.mark.parametrize("Hq,Hkv,Tq,kv,qdt,hd", [
+    (16, 16, 1, "bfloat16", "bfloat16", 128),
+    (16, 4, 4, "int8", "bfloat16", 128),
+    (8, 2, 3, "float32", "float32", 128),
+    (16, 16, 1, "float32", "bfloat16", 128),
+    (8, 2, 1, "bfloat16", "bfloat16", 256),
+    (8, 2, 4, "int8", "bfloat16", 256),
+    (4, 1, 3, "float32", "float32", 256),
 ])
-def test_decode_matches_plain(Hq, Hkv, Tq, kv, qdt):
+def test_decode_matches_plain(Hq, Hkv, Tq, kv, qdt, hd):
     gen = _card()
     T = 520
-    q = torch.randn(3, Tq, Hq, 128, generator=gen,
+    q = torch.randn(3, Tq, Hq, hd, generator=gen,
                     device="cuda").to(getattr(torch, qdt))
-    k = torch.randn(3, T, Hkv, 128, generator=gen, device="cuda")
-    v = torch.randn(3, T, Hkv, 128, generator=gen, device="cuda")
+    k = torch.randn(3, T, Hkv, hd, generator=gen, device="cuda")
+    v = torch.randn(3, T, Hkv, hd, generator=gen, device="cuda")
     ks = vs = None
     if kv == "int8":
         k, ks = da.quantize_kv(k)
@@ -82,21 +92,23 @@ def test_decode_matches_plain(Hq, Hkv, Tq, kv, qdt):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
-@pytest.mark.parametrize("B,Tq,Hq,Hkv,pos0,kv", [
-    (1, 512, 16, 16, 0, "bfloat16"),      # R = 512, an admission chunk
-    (2, 512, 16, 16, 0, "int8"),
-    (2, 256, 16, 4, 200, "bfloat16"),     # R = 1024, the cap
-    (1, 100, 8, 2, 37, "float32"),        # ragged last row tile
+@pytest.mark.parametrize("B,Tq,Hq,Hkv,pos0,kv,hd", [
+    (1, 512, 16, 16, 0, "bfloat16", 128),  # R = 512, an admission chunk
+    (2, 512, 16, 16, 0, "int8", 128),
+    (2, 256, 16, 4, 200, "bfloat16", 128),  # R = 1024, the cap
+    (1, 100, 8, 2, 37, "float32", 128),     # ragged last row tile
+    (2, 256, 16, 4, 200, "bfloat16", 256),  # 32 row tiles of 32 rows
+    (1, 100, 8, 2, 37, "float32", 256),
 ])
-def test_decode_wide_query_rows_match_plain(B, Tq, Hq, Hkv, pos0, kv):
+def test_decode_wide_query_rows_match_plain(B, Tq, Hq, Hkv, pos0, kv, hd):
     """Tq * G up to 1024 query rows per kv head (prefill chunks), cut into
-    64-row tiles across CTAs."""
+    64-row tiles (32-row at hd 256) across CTAs."""
     gen = _card()
     T = 512
-    q = torch.randn(B, Tq, Hq, 128, generator=gen, device="cuda")
+    q = torch.randn(B, Tq, Hq, hd, generator=gen, device="cuda")
     q = q.bfloat16() if kv != "float32" else q
-    k = torch.randn(B, T, Hkv, 128, generator=gen, device="cuda")
-    v = torch.randn(B, T, Hkv, 128, generator=gen, device="cuda")
+    k = torch.randn(B, T, Hkv, hd, generator=gen, device="cuda")
+    v = torch.randn(B, T, Hkv, hd, generator=gen, device="cuda")
     ks = vs = None
     if kv == "int8":
         k, ks = da.quantize_kv(k)
@@ -113,15 +125,15 @@ def test_decode_wide_query_rows_match_plain(B, Tq, Hq, Hkv, pos0, kv):
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
 
 
-def _paged_inputs(gen, B, Tq, Hq, Hkv, bs, nmax, kv, qdt, pos_list):
+def _paged_inputs(gen, B, Tq, Hq, Hkv, bs, nmax, kv, qdt, pos_list, hd=128):
     """A shuffled pool: live slot b maps its blocks through its write
     frontier to random distinct physical blocks and leaves the rest -1;
     a slot whose position is None is free (table row all -1, pos 0)."""
     N = B * nmax + 3
-    q = torch.randn(B, Tq, Hq, 128, generator=gen,
+    q = torch.randn(B, Tq, Hq, hd, generator=gen,
                     device="cuda").to(getattr(torch, qdt))
-    k = torch.randn(N, bs, Hkv, 128, generator=gen, device="cuda")
-    v = torch.randn(N, bs, Hkv, 128, generator=gen, device="cuda")
+    k = torch.randn(N, bs, Hkv, hd, generator=gen, device="cuda")
+    v = torch.randn(N, bs, Hkv, hd, generator=gen, device="cuda")
     ks = vs = None
     if kv == "int8":
         k, ks = da.quantize_kv(k)
@@ -140,13 +152,15 @@ def _paged_inputs(gen, B, Tq, Hq, Hkv, bs, nmax, kv, qdt, pos_list):
     return q, k, v, ks, vs, tables, pos
 
 
-@pytest.mark.parametrize("Hq,Hkv,Tq,kv,qdt,bs", [
-    (16, 16, 1, "bfloat16", "bfloat16", 16),   # the paged path's tick
-    (16, 4, 4, "int8", "bfloat16", 8),
-    (8, 2, 3, "float32", "float32", 24),
-    (16, 16, 1, "int8", "bfloat16", 16),
+@pytest.mark.parametrize("Hq,Hkv,Tq,kv,qdt,bs,hd", [
+    (16, 16, 1, "bfloat16", "bfloat16", 16, 128),   # the paged path's tick
+    (16, 4, 4, "int8", "bfloat16", 8, 128),
+    (8, 2, 3, "float32", "float32", 24, 128),
+    (16, 16, 1, "int8", "bfloat16", 16, 128),
+    (8, 2, 4, "bfloat16", "bfloat16", 16, 256),
+    (4, 1, 3, "float32", "float32", 8, 256),
 ])
-def test_paged_matches_plain(Hq, Hkv, Tq, kv, qdt, bs):
+def test_paged_matches_plain(Hq, Hkv, Tq, kv, qdt, bs, hd):
     """Live slots equal the gather-then-attend twin; a free slot returns
     zeros (the kernel reads no unmapped block, the twin reads block 0)."""
     gen = _card()
@@ -154,7 +168,7 @@ def test_paged_matches_plain(Hq, Hkv, Tq, kv, qdt, bs):
     T = nmax * bs
     pos_list = [0, 1, bs - 1, bs, 200, None, T - Tq, 333]
     q, k, v, ks, vs, tables, pos = _paged_inputs(
-        gen, 8, Tq, Hq, Hkv, bs, nmax, kv, qdt, pos_list)
+        gen, 8, Tq, Hq, Hkv, bs, nmax, kv, qdt, pos_list, hd)
     before = da.paged_decode_attention.launches
     out = da.paged_decode_attention(q, k, v, tables, pos, ks, vs)
     ref = da._plain_paged(q, k, v, tables, pos, ks, vs, None)
@@ -241,10 +255,169 @@ def test_cuda_tensors_the_kernels_cannot_take_raise():
     pool = torch.zeros(6, 16, 4, 64, device="cuda")
     with pytest.raises(ValueError, match="tables must be int32"):
         da.paged_decode_attention(q, pool, pool, tables.long(), pos)
-    with pytest.raises(ValueError, match="head_dim 256"):
-        z = torch.zeros(2, 1, 4, 256, device="cuda")
-        da.paged_decode_attention(z, torch.zeros(6, 16, 4, 256,
+    with pytest.raises(ValueError, match="head_dim 96"):
+        z = torch.zeros(2, 1, 4, 96, device="cuda")
+        da.paged_decode_attention(z, torch.zeros(6, 16, 4, 96,
                                                  device="cuda"),
-                                  torch.zeros(6, 16, 4, 256, device="cuda"),
+                                  torch.zeros(6, 16, 4, 96, device="cuda"),
                                   tables, pos)
     assert da.paged_decode_attention.launches == before
+
+
+@pytest.mark.parametrize("B,T,H,Hkv,D,dtype,causal", [
+    (1, 2048, 16, 16, 128, "bfloat16", True),     # the train path's shape
+    (2, 200, 8, 2, 64, "bfloat16", True),         # ragged T, GQA (G = 4)
+    (1, 300, 4, 1, 128, "float32", False),
+    (1, 130, 4, 4, 256, "bfloat16", True),
+    (2, 77, 8, 2, 256, "float32", False),
+    (1, 64, 2, 2, 64, "float32", True),
+])
+def test_flash_bwd_matches_plain(B, T, H, Hkv, D, dtype, causal):
+    """dq, dk, dv of both backward kernels against ``_plain_bwd``, from the
+    forward kernel's out and lse; each kernel launched once."""
+    gen = _card()
+    dt = getattr(torch, dtype)
+    q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, T, Hkv, D, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, T, Hkv, D, generator=gen, device="cuda").to(dt)
+    do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dt)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    before = (fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
+    ref = fa._plain_bwd(q, k, v, out, lse, do, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    tol = 1e-2 if dt == torch.bfloat16 else 1e-3
+    for g, r in zip(got, ref):
+        assert g.shape == r.shape and g.dtype == r.dtype
+        torch.testing.assert_close(g.float(), r.float(), atol=tol, rtol=tol)
+
+
+def test_attention_under_autograd_runs_the_backward_kernels():
+    """``attention_array`` on CUDA tensors that require grad goes through
+    the autograd Function: the backward launches dq and dk/dv (no plain
+    path), and the grads equal autograd through the plain forward."""
+    gen = _card()
+    q, k, v = (torch.randn(2, 96, 4, 64, generator=gen, device="cuda")
+               .requires_grad_() for _ in range(3))
+    from paddle_tpu_torch.ops import attention
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_bwd_dq.launches,
+              fa.flash_attention_bwd_dkv.launches)
+    out = attention.attention_array(q, k, v, is_causal=True)
+    out.sum().backward()
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_bwd_dq.launches,
+            fa.flash_attention_bwd_dkv.launches) == tuple(
+                b + 1 for b in before)
+    ref = [x.detach().clone().requires_grad_() for x in (q, k, v)]
+    fa._plain_fwd(*ref, True)[0].sum().backward()
+    for g, r in zip((q.grad, k.grad, v.grad), ref):
+        torch.testing.assert_close(g, r.grad, atol=1e-3, rtol=1e-3)
+    with torch.no_grad():                       # serving: forward only
+        attention.attention_array(q, k, v, is_causal=True)
+    assert fa.flash_attention_bwd_dq.launches == before[1] + 1
+
+
+@pytest.mark.parametrize("N,V,dtype", [
+    (2048, 50304, "bfloat16"),     # the train path's loss head
+    (37, 1000, "bfloat16"),
+    (37, 999, "bfloat16"),         # rows not 16-byte aligned: scalar walk
+    (37, 1000, "float32"),
+    (5, 3, "float32"),
+])
+def test_fused_ce_matches_plain(N, V, dtype):
+    gen = _card()
+    x = (2 * torch.randn(N, V, generator=gen, device="cuda")).to(
+        getattr(torch, dtype))
+    y = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    y[0] = -1                                   # outside the vocab: no pick
+    dl = torch.randn(N, generator=gen, device="cuda")
+    before = (fc.ce_fwd.launches, fc.ce_bwd.launches)
+    loss, lse = fc.ce_fwd(x, y)
+    dx = fc.ce_bwd(x, y, lse, dl)
+    ref_loss, ref_lse = fc._plain_ce_fwd(x, y)
+    ref_dx = fc._plain_ce_bwd(x, y, ref_lse, dl)
+    torch.cuda.synchronize()
+    assert (fc.ce_fwd.launches, fc.ce_bwd.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    torch.testing.assert_close(loss, ref_loss, atol=1e-3, rtol=1e-5)
+    torch.testing.assert_close(lse, ref_lse, atol=1e-3, rtol=1e-5)
+    assert dx.dtype == x.dtype
+    torch.testing.assert_close(dx.float(), ref_dx.float(), atol=1e-6,
+                               rtol=1e-2)
+
+
+def test_fused_softmax_ce_autograd_on_card():
+    gen = _card()
+    x = torch.randn(3, 40, 500, generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    y = torch.randint(0, 500, (3, 40), generator=gen, device="cuda")
+    before = (fc.ce_fwd.launches, fc.ce_bwd.launches)
+    loss = fc.fused_softmax_ce(x, y)
+    loss.mean().backward()
+    assert (fc.ce_fwd.launches, fc.ce_bwd.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    ref = x.detach().float().requires_grad_()
+    torch.nn.functional.cross_entropy(ref.reshape(-1, 500),
+                                      y.reshape(-1)).backward()
+    torch.testing.assert_close(x.grad.float(), ref.grad, atol=1e-6,
+                               rtol=2e-2)
+
+
+def test_new_kernel_wrappers_refuse_cuda_inputs():
+    """No fallback: CUDA tensors outside the backward and CE kernels'
+    contracts raise before any launch (dtype, head_dim, contiguity,
+    device)."""
+    _card()
+    launches = lambda: (fa.flash_attention_bwd_dq.launches,  # noqa: E731
+                        fa.flash_attention_bwd_dkv.launches,
+                        fc.ce_fwd.launches, fc.ce_bwd.launches)
+    before = launches()
+    z = torch.zeros(1, 8, 2, 64, device="cuda")
+    lse = torch.zeros(2, 8, device="cuda")
+    h = z.half()
+    with pytest.raises(TypeError, match="got torch.float16/"):
+        fa.flash_attention_bwd(h, h, h, h, lse, h)
+    w = torch.zeros(1, 8, 2, 96, device="cuda")
+    with pytest.raises(ValueError, match="head_dim 96"):
+        fa.flash_attention_bwd(w, w, w, w, lse, w)
+    strided = torch.zeros(1, 2, 8, 64, device="cuda").transpose(1, 2)
+    with pytest.raises(ValueError, match="do must be contig"):
+        fa.flash_attention_bwd(z, z, z, z, lse, strided)
+    with pytest.raises(ValueError, match="lse must be float32"):
+        fa.flash_attention_bwd(z, z, z, z, lse[:1], z)
+    with pytest.raises(ValueError, match="share one device"):
+        fa.flash_attention_bwd(z, z.cpu(), z, z, lse, z)
+    x = torch.zeros(4, 8, device="cuda")
+    y = torch.zeros(4, dtype=torch.long, device="cuda")
+    with pytest.raises(ValueError, match="share one device"):
+        fc.ce_fwd(x, y.cpu())
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fc.ce_fwd(x.half(), y)
+    with pytest.raises(TypeError, match="labels must be int64"):
+        fc.ce_fwd(x, y.int())
+    with pytest.raises(ValueError, match="must be contiguous"):
+        fc.ce_fwd(torch.zeros(8, 4, device="cuda").t(), y)
+    with pytest.raises(ValueError, match="dloss must be contiguous float32"):
+        fc.ce_bwd(x, y, torch.zeros(4, device="cuda"),
+                  torch.zeros(4, device="cuda", dtype=torch.float64))
+    assert launches() == before
+
+
+def test_fused_ln_flag_raises_on_the_card(monkeypatch):
+    """The fused LayerNorm kernels are not ported: asking for them on a
+    card raises rather than quietly taking the plain path."""
+    _card()
+    cfg = gpt.GPTConfig(vocab_size=64, hidden_size=128, num_layers=1,
+                        num_heads=2, max_seq_len=16, dtype=torch.float32)
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    toks = torch.zeros(1, 8, dtype=torch.long, device="cuda")
+    monkeypatch.setenv("PADDLE_TPU_FUSED_LN", "1")
+    with pytest.raises(NotImplementedError, match="PADDLE_TPU_FUSED_LN"):
+        gpt.forward(params, toks, cfg)
+    monkeypatch.setenv("PADDLE_TPU_FUSED_LN", "0")
+    assert torch.isfinite(gpt.forward(params, toks, cfg)).all()
