@@ -15,19 +15,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    slots must come back exactly zero; the flash backward (dq, dk/dv) at
    the train shape, head_dim 64/128/256, causal and not, ragged T, GQA;
    the fused softmax-CE forward and backward at the train loss head and
-   at ragged shapes;
+   at ragged shapes; the fused LayerNorm forward and backward at the train
+   shape and at ragged shapes; the W4A16 matmul at N = 1, 8, 256 for each
+   gpt_1p3b weight shape, bf16 and fp32, nibble extremes included;
 4. check the decode paths on the card against the CPU on small fp32
    models (fp32 and int8 KV): contiguous prefill and batched decode, then
    paged prefill chunks and paged decode steps through shuffled block
-   tables; then five AdamW train steps of small fp32 models (MHA with
-   learned positions, GQA with rope; accum 1 and 2) on the card against
-   the same steps on the CPU;
+   tables; then the same contiguous checks on int8 and int4 weight-only
+   models with ``PADDLE_TPU_W4_KERNEL=1``; then five AdamW train steps of
+   small fp32 models (MHA with learned positions, GQA with rope; accum 1
+   and 2; the LayerNorm ones again with ``PADDLE_TPU_FUSED_LN=1``) on the
+   card against the same steps on the CPU;
 5. time each kernel with CUDA events at its path's shapes (L2 flushed
-   between launches), beside its plain twin, its least possible time on
+   and the host's enqueue hidden before each launch), beside its plain twin, its least possible time on
    the card, and a PyTorch call on the same work as a yardstick the port
    never calls (``scaled_dot_product_attention`` and its backward,
-   ``cross_entropy`` and its backward; for the paged kernel SDPA on a
-   pre-gathered contiguous copy, the gather timed on its own);
+   ``cross_entropy`` and its backward, ``layer_norm`` and its backward,
+   a bf16 ``matmul`` on a pre-dequantized weight; for the paged kernel
+   SDPA on a pre-gathered contiguous copy, the gather timed on its own);
 6. the main path, as ``paddle_tpu_torch.tools.profile_serving.
    build_main_path`` defines it: GPT-1.3B (``gpt.gpt_1p3b()``, full width,
    random weights from a seed, bf16) served by ``DecodeServer(max_batch=8,
@@ -41,14 +46,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    to a contiguous server's on the same prompts and one request to a solo
    ``generate``; the allocator's prefix hits, copies-on-write and radix
    splits; the kernels' launch counts read around it;
-8. the train path, as ``paddle_tpu_torch.tools.profile_train.
+8. the W4 path, as ``build_w4_path`` defines it: the main path's model and
+   requests with int4 weights (group 64) and ``PADDLE_TPU_W4_KERNEL=1`` —
+   exactly 6 W4 launches per layer in every decode tick and in every
+   admission at a prefill bucket of at most 256 rows (none at 512), two
+   requests checked against a solo ``generate`` on the dequantizing route
+   (flag off), weight bytes against the bf16 model's;
+9. the train path, as ``paddle_tpu_torch.tools.profile_train.
    build_train_path`` defines it: GPT-1.3B with fp32 master weights from a
    seed, batch 8 x 2048 tokens in 8 micro-batches, AdamW (bf16 moments),
    the fused loss head (``PADDLE_TPU_FUSED_CE=1``) — four steps on one
    batch with step time, tokens/s, MFU, peak memory and each step's
    kernel launches (exactly 192 flash fwd, dq and dk/dv, 8 CE fwd and
-   bwd); the loss must start near ln(vocab) and fall;
-9. one ``{"kernels": [...]}`` JSON line, then, as the last line,
+   bwd); the loss must start near ln(vocab) and fall; then the same for
+   the headline rung (``build_train_path(fused_ln=True)``: the fused
+   LayerNorm too, exactly 392 LN fwd and bwd launches a step), printed
+   beside it;
+10. one ``{"kernels": [...]}`` JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a CUDA card.  Imports nothing
@@ -91,6 +105,12 @@ CE_DX_ATOL = 1e-6
 # rounds the other way on one side.  So a few elements may part by up to
 # a step per step taken (TRAIN_STEPS * lr); all but a TRAIN_PARAM_FAR
 # share of them must agree within TRAIN_PARAM_TOL.
+# LayerNorm: mu and rstd are fp32 row statistics, dg and db fp32 sums over
+# all N rows; kernel and twin sum in other orders (per CTA and warp, in row
+# blocks): |kernel - plain| <= LN_FP32_TOL * (1 + |plain|)
+LN_FP32_TOL = 1e-4
+# fp32 W4 outputs: sums of up to 8192 products in another order
+W4_FP32_TOL = 1e-4
 TRAIN_LR = 1e-3
 TRAIN_STEPS = 5
 TRAIN_LOSS_TOL = 1e-4
@@ -102,11 +122,18 @@ def log(msg):
     print(msg, flush=True)
 
 
+# cycles the card spins (about 1 ms) between the flush and a timed call, so
+# the host has enqueued the whole call before its first event fires
+SPIN_CYCLES = 2_000_000
+
+
 def cold_ms(torch, fn, iters=20):
     """Median device time of ``fn`` over ``iters`` launches, each bracketed
     by CUDA events, with the 50 MB L2 flushed (a 256 MB write) before
     each: the real caller finds its inputs cold, 23 layers of weights
-    having streamed through since."""
+    having streamed through since.  The card then spins for SPIN_CYCLES,
+    so host work inside ``fn`` (a wrapper's checks, autograd's backward
+    setup) is never timed as device time, however slow the host."""
     flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
     fn()
     torch.cuda.synchronize()
@@ -114,6 +141,7 @@ def cold_ms(torch, fn, iters=20):
            torch.cuda.Event(enable_timing=True)) for _ in range(iters)]
     for a, b in ev:
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         a.record()
         fn()
         b.record()
@@ -358,6 +386,104 @@ def check_ce(torch, fc):
     return worst_f, worst_b
 
 
+def _ln_inputs(torch, gen, N, F, dt, wdt):
+    x = (2 * torch.randn(N, F, generator=gen, device="cuda") + 0.5).to(dt)
+    g = (1 + 0.5 * torch.randn(F, generator=gen, device="cuda")).to(wdt)
+    b = torch.randn(F, generator=gen, device="cuda").to(wdt)
+    dy = torch.randn(N, F, generator=gen, device="cuda").to(dt)
+    return x, g, b, dy
+
+
+def _within(torch, got, ref, tol):
+    """(max |got - ref|, every element within tol * (1 + |ref|))."""
+    d = (got.float() - ref.float()).abs()
+    return d.max().item(), bool((d <= tol * (1 + ref.float().abs())).all())
+
+
+def check_norm(torch, fn):
+    """The LayerNorm kernels against their plain twins: the train path's
+    shape (N = 2048, F = 2048, bf16 x, fp32 g and b) first, then a decode
+    tick's (bf16 g and b), ragged N and F in fp32 and bf16 (F = 999 takes
+    the scalar walk) and gpt_13b's width.  y and dx within BF16_TOL·(1 +
+    |plain|); mu, rstd, dg and db within LN_FP32_TOL·(1 + |plain|), both
+    sides of the backward fed the kernel's mu and rstd.  Returns the worst
+    errors (forward y, backward dx)."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    bf, f32 = torch.bfloat16, torch.float32
+    worst_f = worst_b = 0.0
+    for N, F, dt, wdt in [(2048, 2048, bf, f32), (8, 2048, bf, bf),
+                          (37, 1000, f32, f32), (37, 999, bf, f32),
+                          (3, 5120, bf, f32)]:
+        x, g, b, dy = _ln_inputs(torch, gen, N, F, dt, wdt)
+        y, mu, r = fn.ln_fwd(x, g, b)
+        dx, dg, db = fn.ln_bwd(x, g, mu, r, dy)
+        ref_y, ref_mu, ref_r = fn._plain_ln_fwd(x, g, b)
+        ref_dx, ref_dg, ref_db = fn._plain_ln_bwd(x, g, mu, r, dy)
+        torch.cuda.synchronize()
+        e_y, ok_y = _within(torch, y, ref_y, BF16_TOL)
+        e_dx, ok_dx = _within(torch, dx, ref_dx, BF16_TOL)
+        stats = [_within(torch, a, b_, LN_FP32_TOL) for a, b_ in
+                 ((mu, ref_mu), (r, ref_r), (dg, ref_dg), (db, ref_db))]
+        log(f"  fused_norm x {str(dt)[6:]} g/b {str(wdt)[6:]} N={N} F={F}: "
+            f"max|y-plain| {e_y:.3g}, max|dx-plain| {e_dx:.3g} (tol "
+            f"{BF16_TOL}*(1+|plain|)); max|mu, rstd, dg, db - plain| "
+            f"{', '.join(f'{e:.3g}' for e, _ in stats)} (tol "
+            f"{LN_FP32_TOL}*(1+|plain|))")
+        if not (ok_y and ok_dx and all(ok for _, ok in stats)):
+            raise AssertionError(f"fused LayerNorm disagrees at N={N} F={F}")
+        worst_f, worst_b = max(worst_f, e_y), max(worst_b, e_dx)
+    return worst_f, worst_b
+
+
+W4_SHAPES = [(2048, 2048), (2048, 8192), (8192, 2048)]   # gpt_1p3b (K, M)
+
+
+def _w4_inputs(torch, woq, gen, N, K, M, dt, gs=64):
+    q = torch.randint(-7, 8, (K, M), generator=gen, device="cuda")
+    q[:2, :2] = torch.tensor([[-7, 7], [7, -7]])        # nibble extremes,
+    q[K // 2:K // 2 + 2, :2] = torch.tensor([[-7, 7], [7, -7]])  # both halves
+    packed = woq.pack_int4_halves(q)
+    scale = 0.001 + 0.01 * torch.rand(K // gs, 1, M, generator=gen,
+                                      device="cuda")
+    x = torch.randn(N, K, generator=gen, device="cuda").to(dt)
+    return x, packed, scale
+
+
+def check_w4(torch, wm, woq):
+    """The W4 kernel against ``_plain_w4`` for every gpt_1p3b weight shape
+    (gs 64) at N = 1, 8 (a decode tick) and 256 (the kernel's cap), bf16
+    and fp32: bf16 within BF16_TOL·(1 + |plain|), fp32 within
+    W4_FP32_TOL·(1 + |plain|); and one-hot rows of x read back ``woq.w``'s
+    dequantized weight bit for bit.  Returns the worst error."""
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    worst = 0.0
+    for K, M in W4_SHAPES:
+        for N in (1, 8, 256):
+            for dt in (torch.bfloat16, torch.float32):
+                x, packed, scale = _w4_inputs(torch, woq, gen, N, K, M, dt)
+                out = wm.w4_matmul(x, packed, scale)
+                ref = wm._plain_w4(x, packed, scale)
+                torch.cuda.synchronize()
+                tol = BF16_TOL if dt == torch.bfloat16 else W4_FP32_TOL
+                err, ok = _within(torch, out, ref, tol)
+                if not ok:
+                    raise AssertionError(f"w4_matmul disagrees at N={N} "
+                                         f"K={K} M={M} {dt}")
+                worst = max(worst, err)
+        rows = torch.tensor([0, 1, K // 2, K - 1], device="cuda")
+        for dt in (torch.bfloat16, torch.float32):
+            eye = torch.zeros(len(rows), K, dtype=dt, device="cuda")
+            eye[torch.arange(len(rows)), rows] = 1
+            w = woq.w({"w": packed, "w_s": scale}, "w", dt)[rows]
+            if not torch.equal(wm.w4_matmul(eye, packed, scale), w):
+                raise AssertionError(f"w4_matmul's weight is not woq.w's at "
+                                     f"K={K} M={M} {dt}")
+        log(f"  w4_matmul K={K} M={M} gs=64 N=1/8/256 bf16/fp32: max|out - "
+            f"plain| so far {worst:.3g} (tol {BF16_TOL}*(1+|plain|) bf16, "
+            f"{W4_FP32_TOL}*(1+|plain|) fp32); one-hot rows equal woq.w")
+    return worst
+
+
 def _small_models(torch, gpt):
     """(name, cfg, kv) of the small fp32 models the card-vs-CPU checks
     run: head_dim 128, MHA with learned positions and GQA with rope."""
@@ -386,6 +512,40 @@ def _to_card(params):
                 else v.cuda()) for n, v in params.items()}
 
 
+def _prefill_decode_gap(torch, G, serving, cfg, cpu, card):
+    """Prefill three prompts (5, 40 and 100 tokens, one slot each) and run
+    five batched decode steps on the card and on the CPU from the same
+    weights; returns the largest |logits card - cpu|."""
+    worst = 0.0
+    V = cfg.vocab_size
+    caches = {"cpu": G.init_cache(cfg, 3, 160, "cpu"),
+              "cuda": G.init_cache(cfg, 3, 160, "cuda")}
+    rng = np.random.default_rng(0)
+    lens = [5, 40, 100]
+    for slot, n in enumerate(lens):
+        toks = np.zeros((1, serving._pow2_bucket(n)), np.int64)
+        toks[0, :n] = rng.integers(0, V, n)
+        outs = {}
+        for dev, p in (("cpu", cpu), ("cuda", card)):
+            outs[dev], _ = G.prefill_slot(
+                p, caches[dev], torch.from_numpy(toks).to(dev), n, slot, cfg)
+        worst = max(worst, (outs["cuda"].cpu() - outs["cpu"]).abs().max()
+                    .item())
+    pos = np.array(lens, np.int32)
+    for _ in range(5):
+        tok = rng.integers(0, V, 3)
+        outs = {}
+        for dev, p in (("cpu", cpu), ("cuda", card)):
+            outs[dev], _ = serving.decode_step_batched(
+                p, caches[dev], torch.from_numpy(tok).to(dev),
+                torch.from_numpy(pos).to(dev), cfg)
+        d = (outs["cuda"].cpu() - outs["cpu"]).abs().max().item()
+        assert np.isfinite(d)
+        worst = max(worst, d)
+        pos = pos + 1
+    return worst
+
+
 def check_path_vs_cpu(torch, gpt, G, serving):
     """Small fp32 models: prefill and batched-decode logits on the card
     (both kernels) against the CPU's plain paths."""
@@ -393,38 +553,50 @@ def check_path_vs_cpu(torch, gpt, G, serving):
     for name, cfg, kv in _small_models(torch, gpt):
         os.environ["PADDLE_TPU_KV_DTYPE"] = kv
         cpu = gpt.init_params(cfg, seed=3, device="cpu")
-        card = _to_card(cpu)
-        caches = {"cpu": G.init_cache(cfg, 3, 160, "cpu"),
-                  "cuda": G.init_cache(cfg, 3, 160, "cuda")}
-        rng = np.random.default_rng(0)
-        lens = [5, 40, 100]
-        for slot, n in enumerate(lens):
-            toks = np.zeros((1, serving._pow2_bucket(n)), np.int64)
-            toks[0, :n] = rng.integers(0, 512, n)
-            outs = {}
-            for dev, p in (("cpu", cpu), ("cuda", card)):
-                outs[dev], _ = G.prefill_slot(
-                    p, caches[dev], torch.from_numpy(toks).to(dev), n, slot,
-                    cfg)
-            worst = max(worst, (outs["cuda"].cpu() - outs["cpu"])
-                        .abs().max().item())
-        pos = np.array(lens, np.int32)
-        for _ in range(5):
-            tok = rng.integers(0, 512, 3)
-            outs = {}
-            for dev, p in (("cpu", cpu), ("cuda", card)):
-                outs[dev], _ = serving.decode_step_batched(
-                    p, caches[dev], torch.from_numpy(tok).to(dev),
-                    torch.from_numpy(pos).to(dev), cfg)
-            d = (outs["cuda"].cpu() - outs["cpu"]).abs().max().item()
-            assert np.isfinite(d)
-            worst = max(worst, d)
-            pos = pos + 1
+        worst = max(worst, _prefill_decode_gap(torch, G, serving, cfg, cpu,
+                                               _to_card(cpu)))
         log(f"  {name} kv={kv or 'fp32'}: max|logits card - cpu| so far "
             f"{worst:.3g} (tol {PATH_TOL})")
         if not worst <= PATH_TOL:
             raise AssertionError(f"card path disagrees with CPU on {name}")
     os.environ.pop("PADDLE_TPU_KV_DTYPE", None)
+    return worst
+
+
+def check_quantized_vs_cpu(torch, gpt, G, serving, woq, wm):
+    """Weight-only int8 and int4 small fp32 models (hidden 128, head_dim
+    64; MHA with learned positions and GQA with rope and SwiGLU; int4 at
+    group 32 and 64), quantized on the CPU and copied to the card: prefill
+    and batched-decode logits with ``PADDLE_TPU_W4_KERNEL=1`` — on the
+    card through the W4 kernel, which must have launched for every int4
+    model — against the CPU's plain paths, within PATH_TOL."""
+    os.environ["PADDLE_TPU_W4_KERNEL"] = "1"
+    base = dict(vocab_size=512, hidden_size=128, num_layers=2, num_heads=2,
+                max_seq_len=256, dtype=torch.float32)
+    gqa = dict(num_kv_heads=1, pos_embed="rope", activation="swiglu")
+    worst = 0.0
+    for name, kw, bits, gs in [("mha-learned", {}, 8, None),
+                               ("mha-learned", {}, 4, 32),
+                               ("gqa-rope", gqa, 4, 64),
+                               ("gqa-rope", gqa, 8, None)]:
+        cfg = gpt.GPTConfig(**{**base, **kw})
+        float_cpu = gpt.init_params(cfg, seed=9, device="cpu")
+        cpu = woq.quantize_gpt_int8(float_cpu) if bits == 8 \
+            else woq.quantize_gpt_int4(float_cpu, group_size=gs)
+        before = wm.w4_matmul.launches
+        worst = max(worst, _prefill_decode_gap(torch, G, serving, cfg, cpu,
+                                               _to_card(cpu)))
+        launched = wm.w4_matmul.launches - before
+        log(f"  {name} int{bits}{f' gs={gs}' if gs else ''}: max|logits "
+            f"card - cpu| so far {worst:.3g} (tol {PATH_TOL}); "
+            f"{launched} W4 launches")
+        if not worst <= PATH_TOL:
+            raise AssertionError(f"quantized card path disagrees with CPU on "
+                                 f"{name} int{bits}")
+        if (launched > 0) != (bits == 4):
+            raise AssertionError(f"{launched} W4 launches on an int{bits} "
+                                 f"model")
+    os.environ.pop("PADDLE_TPU_W4_KERNEL", None)
     return worst
 
 
@@ -484,14 +656,16 @@ def check_paged_path_vs_cpu(torch, gpt, G, kv_pool, serving):
     return worst
 
 
-def check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW):
+def check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW, fn):
     """Small fp32 models (head_dim 128, 2 layers, B = 4 of 64 tokens):
     five AdamW steps of ``build_gpt_train_step`` on the card (flash fwd
     and backward kernels; the CE kernels under PADDLE_TPU_FUSED_CE=1)
     against the same steps on the CPU (plain paths) from the same fp32
     masters and batches — MHA with learned positions and LayerNorm, GQA
     with rope, RMSNorm and SwiGLU; accum 1 and 2 (the bf16 gradient
-    carry); one run with the log-softmax loss head.  Losses within
+    carry); one run with the log-softmax loss head; the LayerNorm runs
+    again with PADDLE_TPU_FUSED_LN=1 (the LN kernels on the card, their
+    twins on the CPU).  Losses within
     TRAIN_LOSS_TOL; final params within TRAIN_PARAM_TOL but for a
     TRAIN_PARAM_FAR share, and all within TRAIN_STEPS * TRAIN_LR."""
     base = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
@@ -499,12 +673,16 @@ def check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW):
     gqa = dict(num_heads=4, num_kv_heads=2, hidden_size=512,
                pos_embed="rope", norm="rmsnorm", activation="swiglu")
     worst_loss = worst_param = 0.0
-    for name, kw, accum, ce in [("mha-learned", {}, 1, "1"),
-                                ("mha-learned", {}, 2, "1"),
-                                ("gqa-rope", gqa, 1, "1"),
-                                ("gqa-rope", gqa, 2, "1"),
-                                ("mha-learned", {}, 1, "0")]:
+    runs = [("mha-learned", {}, 1, "1"), ("mha-learned", {}, 2, "1"),
+            ("gqa-rope", gqa, 1, "1"), ("gqa-rope", gqa, 2, "1"),
+            ("mha-learned", {}, 1, "0")]
+    # the LayerNorm runs again with the fused kernels (RMSNorm never
+    # takes them, so the GQA runs would repeat themselves)
+    runs = [r + ("0",) for r in runs] + [r + ("1",) for r in runs
+                                         if r[0] == "mha-learned"]
+    for name, kw, accum, ce, ln in runs:
         os.environ["PADDLE_TPU_FUSED_CE"] = ce
+        os.environ["PADDLE_TPU_FUSED_LN"] = ln
         cfg = gpt.GPTConfig(**{**base, **kw})
         master = gpt.init_master_params(cfg, seed=7, device="cpu")
         rng = np.random.default_rng(3)
@@ -525,13 +703,19 @@ def check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW):
             return losses, dict(_leaves(st.params))
 
         cpu_losses, cpu_params = run("cpu", master)
+        ln_before = fn.ln_bwd.launches
         losses, params = run("cuda", _to_card(master))
+        if (fn.ln_bwd.launches > ln_before) != (ln == "1"):
+            raise AssertionError(f"fused LN flag {ln}: "
+                                 f"{fn.ln_bwd.launches - ln_before} LN "
+                                 f"backward launches")
         d_loss = max(abs(a - b) for a, b in zip(cpu_losses, losses))
         diff = torch.cat([(params[n].cpu() - t).abs().flatten()
                           for n, t in cpu_params.items()])
         d_param = diff.max().item()
         far = (diff > TRAIN_PARAM_TOL).float().mean().item()
-        log(f"  {name} accum={accum} fused_ce={ce}: losses (card) "
+        log(f"  {name} accum={accum} fused_ce={ce} fused_ln={ln}: losses "
+            f"(card) "
             f"{[round(x, 5) for x in losses]}; max|loss card - cpu| "
             f"{d_loss:.3g} (tol {TRAIN_LOSS_TOL}); params card - cpu: max "
             f"{d_param:.3g} (tol {TRAIN_STEPS * TRAIN_LR}), share past "
@@ -545,6 +729,7 @@ def check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW):
         worst_loss, worst_param = max(worst_loss, d_loss), max(worst_param,
                                                                d_param)
     os.environ.pop("PADDLE_TPU_FUSED_CE", None)
+    os.environ.pop("PADDLE_TPU_FUSED_LN", None)
     return worst_loss, worst_param
 
 
@@ -729,13 +914,71 @@ def time_ce(torch, fc, F, N=2048, V=50304):
     }
 
 
-def counters(fa, da, fc):
+def time_norm(torch, fn, F, N=2048, D=2048):
+    """The LayerNorm kernels at the train path's shape: one micro-batch's
+    N = 2048 rows of D = 2048, bf16 x and dy, fp32 g and b.  Bytes: the
+    forward reads x, g, b and writes y, mu, rstd; the backward reads x,
+    dy, g, mu, rstd and writes dx, dg, db.  Operations (about 8 a forward
+    element, 12 a backward one) count at the fp32 rate.  Yardstick:
+    ``F.layer_norm`` and its backward (x, weight and bias grads) on the
+    same x and dy, with bf16 copies of g and b (one dtype for all three)."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x, g, b, dy = _ln_inputs(torch, gen, N, D, torch.bfloat16, torch.float32)
+    _, mu, r = fn.ln_fwd(x, g, b)
+    gb, bb = g.bfloat16(), b.bfloat16()
+    xl, gl, bl = (t.detach().requires_grad_() for t in (x, gb, bb))
+    yl = F.layer_norm(xl, (D,), gl, bl, 1e-5)
+    act = N * D * 2
+    f_ms, f_by = bound(2 * act + 2 * D * 4 + 2 * N * 4, 8 * N * D,
+                       FP32_FLOPS_PER_S)
+    b_ms, b_by = bound(3 * act + 3 * D * 4 + 2 * N * 4, 12 * N * D,
+                       FP32_FLOPS_PER_S)
+    shape = f"N={N} F={D} bf16 x, fp32 g/b"
+    return {
+        "fwd": {"shape": shape, "bound_ms": f_ms, "bound_by": f_by,
+                "ms": cold_ms(torch, lambda: fn.ln_fwd(x, g, b)),
+                "plain_ms": cold_ms(torch, lambda: fn._plain_ln_fwd(x, g, b)),
+                "library_ms": cold_ms(torch, lambda: F.layer_norm(
+                    x, (D,), gb, bb, 1e-5))},
+        "bwd": {"shape": shape, "bound_ms": b_ms, "bound_by": b_by,
+                "ms": cold_ms(torch, lambda: fn.ln_bwd(x, g, mu, r, dy)),
+                "plain_ms": cold_ms(torch, lambda: fn._plain_ln_bwd(
+                    x, g, mu, r, dy)),
+                "library_ms": cold_ms(torch, lambda: torch.autograd.grad(
+                    yl, (xl, gl, bl), dy, retain_graph=True))},
+    }
+
+
+def time_w4(torch, wm, woq, N, K, M):
+    """The W4 kernel at one gpt_1p3b weight shape (gs 64, bf16 x).  Bytes:
+    the packed weight, its fp32 scales, x and the output; operations
+    2·N·K·M at the bf16 tensor-core rate.  Yardstick: a bf16 ``matmul``
+    on the weight dequantized beforehand (it reads 4x the weight bytes)."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    x, packed, scale = _w4_inputs(torch, woq, gen, N, K, M, torch.bfloat16)
+    wdq = woq.w({"w": packed, "w_s": scale}, "w", torch.bfloat16)
+    b_ms, b_by = bound(packed.numel() + scale.numel() * 4 + x.numel() * 2
+                       + N * M * 2, 2 * N * K * M)
+    return {
+        "shape": f"N={N} K={K} M={M} gs=64 bf16 (splits "
+                 f"{wm.splits_for(N, K, M, wm._sm_count(x.device))})",
+        "ms": cold_ms(torch, lambda: wm.w4_matmul(x, packed, scale)),
+        "plain_ms": cold_ms(torch, lambda: wm._plain_w4(x, packed, scale)),
+        "bound_ms": b_ms, "bound_by": b_by,
+        "library_ms": cold_ms(torch, lambda: torch.matmul(x, wdq)),
+    }
+
+
+def counters(fa, da, fc, fn, wm):
     """Every kernel wrapper of the port, by the name the kernels line
     gives it; each carries its ``launches`` count."""
     return {"flash_attention_fwd": fa.flash_attention_fwd,
             "flash_attention_bwd_dq": fa.flash_attention_bwd_dq,
             "flash_attention_bwd_dkv": fa.flash_attention_bwd_dkv,
             "fused_ce_fwd": fc.ce_fwd, "fused_ce_bwd": fc.ce_bwd,
+            "fused_layer_norm_fwd": fn.ln_fwd,
+            "fused_layer_norm_bwd": fn.ln_bwd,
+            "w4_matmul": wm.w4_matmul,
             "decode_attention": da.decode_attention,
             "paged_decode_attention": da.paged_decode_attention}
 
@@ -929,11 +1172,102 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
     return stats, launches
 
 
-def train_path(torch, gpt, ks, tr, steps=4):
-    """``steps`` train steps of the train path on one batch, each timed
-    on the host clock (it ends in a sync: the loss is read), with every
-    kernel's launches counted per step.  Returns (stats, launches)."""
-    cfg, opt, init_fn, step_fn, tokens = tr.build_train_path("cuda", seed=0)
+def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
+    """The W4 path (``build_w4_path``): the main path's 8 requests on the
+    int4 GPT-1.3B with the W4 kernel, each admission and each tick's W4
+    launches counted.  Returns (stats, launches)."""
+    cfg, params, srv, prompts = wl.build_w4_path("cuda", seed=0)
+    L, new = cfg.num_layers, wl.NEW
+    per_pass = 6 * L                # qkv (3 slices) + proj + fc + out
+    assert per_pass == 144
+    assert woq.is_quantized(params) and params["blocks"]["fc_w"].dtype \
+        == torch.int8 and params["blocks"]["fc_w_s"].dim() == 4
+    w4_bytes = sum(t.numel() * t.element_size() for _, t in _leaves(params))
+    bf16_bytes = 2 * gpt.count_params(cfg)
+    log(f"  weights on the card: {w4_bytes / 1e9:.3f} GB int4 (group "
+        f"{wl.W4_GROUP}, int8 embedding) against {bf16_bytes / 1e9:.3f} GB "
+        f"bf16 ({w4_bytes / bf16_bytes:.3f}x)")
+    # the bucket rule of DecodeServer._prefill_slot: an admission runs the
+    # W4 kernel when its bucket has at most _N_CAP rows
+    buckets = [serving._pow2_bucket(n, srv.max_len, cfg.max_seq_len)
+               for n in wl.LENS]
+    want_admit = [per_pass if b <= wm._N_CAP else 0 for b in buckets]
+    w4 = ks["w4_matmul"]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(ks)
+    t0 = time.perf_counter()
+    rids, admit = [], []
+    for p in prompts:
+        before = w4.launches
+        rids.append(srv.submit(p, max_new_tokens=new))
+        admit.append(w4.launches - before)
+    t_admit = time.perf_counter() - t0
+    ticks, per_tick = [], []
+    while srv.pending():
+        before = w4.launches
+        t1 = time.perf_counter()
+        srv.tick()
+        ticks.append(time.perf_counter() - t1)
+        per_tick.append(w4.launches - before)
+        if len(ticks) > 10 * new:
+            raise AssertionError("server did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = launch_counts(ks)
+    peak = torch.cuda.max_memory_allocated()
+    served = [srv.result(r) for r in rids]
+    n_tok = sum(len(x) for x in served)
+    log(f"  served {len(served)} requests, {n_tok} tokens in {wall:.3f} s "
+        f"({len(ticks)} ticks; admission prefill {t_admit * 1e3:.1f} ms)")
+    log(f"  W4 launches per admission {admit} (buckets {buckets}), per "
+        f"tick {sorted(set(per_tick))}; launches in the W4 path: {launches}")
+    if admit != want_admit:
+        raise AssertionError(f"W4 launches per admission {admit}, not "
+                             f"{want_admit}")
+    if any(c != per_pass for c in per_tick):
+        raise AssertionError(f"W4 launches per tick {per_tick}, not "
+                             f"{per_pass} each")
+    assert launches["w4_matmul"] == per_pass * len(ticks) + sum(want_admit)
+    assert launches["flash_attention_fwd"] == L * len(prompts), launches
+    assert launches["decode_attention"] == L * len(ticks), launches
+    assert launches["fused_layer_norm_fwd"] == 0, launches
+    assert all(len(x) == new and all(0 <= t < cfg.vocab_size for t in x)
+               for x in served)
+    # the reference: the same int4 weights through the dequantizing route
+    os.environ["PADDLE_TPU_W4_KERNEL"] = "0"
+    solo_div = {r: check_solo(torch, gpt, G, params, cfg, prompts[r],
+                              served[r], new) for r in (0, 3)}
+    os.environ.pop("PADDLE_TPU_W4_KERNEL", None)
+    srv.close()
+    stats = {
+        "model": "gpt_1p3b int4 (quantize_gpt_int4, group 64)",
+        "weight_bytes": w4_bytes, "bf16_weight_bytes": bf16_bytes,
+        "requests": len(served), "prompt_lens": wl.LENS, "new_tokens": new,
+        "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+        "ticks": len(ticks), "tick_ms_mean": 1e3 * statistics.mean(ticks),
+        "tick_ms_median": 1e3 * statistics.median(ticks),
+        "admission_ms": 1e3 * t_admit, "peak_mem_gb": peak / 1e9,
+        "w4_per_tick": per_pass, "w4_per_admission": admit,
+        "launches": launches,
+        "dequant_route_equal": {r: d is None for r, d in solo_div.items()},
+        "dequant_route_divergence": {r: d for r, d in solo_div.items()
+                                     if d is not None},
+    }
+    log(f"  tokens/s {stats['tokens_per_s']:.1f}, mean tick "
+        f"{stats['tick_ms_mean']:.2f} ms, peak memory "
+        f"{stats['peak_mem_gb']:.2f} GB")
+    return stats, launches
+
+
+def train_path(torch, gpt, ks, tr, fused_ln=False, steps=4):
+    """``steps`` train steps of the train path (with ``fused_ln``, the
+    headline rung) on one batch, each timed on the host clock (it ends in
+    a sync: the loss is read), with every kernel's launches counted per
+    step.  Returns (stats, launches)."""
+    cfg, opt, init_fn, step_fn, tokens = tr.build_train_path(
+        "cuda", seed=0, fused_ln=fused_ln)
     state = init_fn(0)
     n_params = sum(t.numel() for _, t in _leaves(state.params))
     assert n_params == gpt.count_params(cfg)
@@ -946,7 +1280,14 @@ def train_path(torch, gpt, ks, tr, steps=4):
             "flash_attention_bwd_dq": cfg.num_layers * tr.ACCUM,
             "flash_attention_bwd_dkv": cfg.num_layers * tr.ACCUM,
             "fused_ce_fwd": tr.ACCUM, "fused_ce_bwd": tr.ACCUM,
-            "decode_attention": 0, "paged_decode_attention": 0}
+            # every LayerNorm (two a block and the final one) of every
+            # micro-batch, on the headline rung
+            "fused_layer_norm_fwd": (2 * cfg.num_layers + 1) * tr.ACCUM
+            * fused_ln,
+            "fused_layer_norm_bwd": (2 * cfg.num_layers + 1) * tr.ACCUM
+            * fused_ln,
+            "w4_matmul": 0, "decode_attention": 0,
+            "paged_decode_attention": 0}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(ks)
@@ -977,10 +1318,12 @@ def train_path(torch, gpt, ks, tr, steps=4):
             raise AssertionError(f"step {i + 1} launched {got}, not {want}")
     steady = statistics.median(step_s[1:])
     stats = {
+        "rung": "gpt_1.3b_fused_acc8_b8" if fused_ln else
+        "gpt_1.3b_acc8_b8 + fused CE",
         "model": "gpt_1p3b", "params": n_params, "batch": tr.BATCH,
         "seq": tr.SEQ, "accum": tr.ACCUM, "optimizer":
         f"AdamW(lr={tr.LR}, weight_decay={tr.WEIGHT_DECAY}, bf16 state)",
-        "flags": tr.FLAGS, "losses": losses, "step_ms": [1e3 * t for t in
+        "flags": tr.FUSED_FLAGS if fused_ln else tr.FLAGS, "losses": losses, "step_ms": [1e3 * t for t in
                                                           step_s],
         "tokens_per_s": [n_tok / t for t in step_s],
         "steady_step_ms": 1e3 * steady,
@@ -1008,9 +1351,11 @@ def main() -> int:
     from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import woq_matmul as wm
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text import generate as G
-    from paddle_tpu_torch.text import gpt, gpt_hybrid, kv_pool, serving
+    from paddle_tpu_torch.text import gpt, gpt_hybrid, kv_pool, serving, woq
     from paddle_tpu_torch.tools import profile_serving as wl
     from paddle_tpu_torch.tools import profile_train as tr
 
@@ -1034,12 +1379,17 @@ def main() -> int:
     err["flash_attention_bwd_dq"], err["flash_attention_bwd_dkv"] = \
         check_flash_bwd(torch, fa)
     err["fused_ce_fwd"], err["fused_ce_bwd"] = check_ce(torch, fc)
+    err["fused_layer_norm_fwd"], err["fused_layer_norm_bwd"] = \
+        check_norm(torch, fn)
+    err["w4_matmul"] = check_w4(torch, wm, woq)
 
     log("[decode paths on the card vs the CPU]")
     check_path_vs_cpu(torch, gpt, G, serving)
     check_paged_path_vs_cpu(torch, gpt, G, kv_pool, serving)
+    log("[weight-only int8 / int4 models on the card vs the CPU]")
+    check_quantized_vs_cpu(torch, gpt, G, serving, woq, wm)
     log("[train steps on the card vs the CPU]")
-    check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW)
+    check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW, fn)
 
     log("[kernel timings at the paths' shapes]")
     flash_by_t = {T: time_flash(torch, fa, F, T) for T in (64, 128, 256, 512)}
@@ -1057,39 +1407,69 @@ def main() -> int:
     log(f"  flash_attention_fwd at the train shape {json.dumps(flash_train)}")
     bwd = time_flash_bwd(torch, fa, F, tr.SEQ)
     ce = time_ce(torch, fc, F)
+    ln = time_norm(torch, fn, F)
+    w4_rows = {f"N={N} K={K} M={M}": time_w4(torch, wm, woq, N, K, M)
+               for N, K, M in [(8, 2048, 2048), (8, 2048, 8192),
+                               (8, 8192, 2048), (256, 2048, 2048)]}
     for name, row in (("flash_attention_bwd_dq", bwd["dq"]),
                       ("flash_attention_bwd_dkv", bwd["dkv"]),
                       ("fused_ce_fwd", ce["fwd"]),
-                      ("fused_ce_bwd", ce["bwd"])):
+                      ("fused_ce_bwd", ce["bwd"]),
+                      ("fused_layer_norm_fwd", ln["fwd"]),
+                      ("fused_layer_norm_bwd", ln["bwd"]),
+                      *(("w4_matmul", r) for r in w4_rows.values())):
         log(f"  {name} {json.dumps(row)}")
-    ks = counters(fa, da, fc)
+    ks = counters(fa, da, fc, fn, wm)
+    by_path = {}
 
     log("[main path: DecodeServer, gpt_1p3b, contiguous KV]")
-    stats, main_launches = main_path(torch, gpt, G, serving, ks, wl)
+    stats, by_path["main"] = main_path(torch, gpt, G, serving, ks, wl)
     log(json.dumps({"main_path": stats}))
 
     log("[paged path: DecodeServer(layout='paged'), gpt_1p3b]")
-    pstats, paged_launches = paged_path(torch, gpt, G, serving, kv_pool, ks,
-                                        wl)
+    pstats, by_path["paged"] = paged_path(torch, gpt, G, serving, kv_pool,
+                                          ks, wl)
     log(json.dumps({"paged_path": pstats}))
 
-    gc.collect()                    # the serving models leave the card
+    gc.collect()                    # the bf16 serving models leave the card
     torch.cuda.empty_cache()
-    log("[train path: build_gpt_train_step, gpt_1p3b, AdamW, accum 8]")
-    tstats, train_launches = train_path(torch, gpt, ks, tr)
-    log(json.dumps({"train_path": tstats}))
+    log("[W4 path: DecodeServer, gpt_1p3b int4 weights, W4 kernel]")
+    wstats, by_path["w4"] = w4_path(torch, gpt, G, serving, woq, wm, ks, wl)
+    log(json.dumps({"w4_path": wstats}))
+    log(f"  beside the main path (bf16 weights, this run): tokens/s "
+        f"{wstats['tokens_per_s']:.1f} vs {stats['tokens_per_s']:.1f}, mean "
+        f"tick {wstats['tick_ms_mean']:.2f} vs {stats['tick_ms_mean']:.2f} "
+        f"ms, peak memory {wstats['peak_mem_gb']:.2f} vs "
+        f"{stats['peak_mem_gb']:.2f} GB")
+
+    train = {}
+    for fused_ln, path in ((False, "train"), (True, "train_fused")):
+        gc.collect()                # the last model leaves the card
+        torch.cuda.empty_cache()
+        rung = "gpt_1.3b_fused_acc8_b8" if fused_ln else "gpt_1.3b_acc8_b8"
+        log(f"[train path: build_gpt_train_step, gpt_1p3b, AdamW, accum 8, "
+            f"rung {rung}]")
+        train[path], by_path[path] = train_path(torch, gpt, ks, tr,
+                                                fused_ln=fused_ln)
+        log(json.dumps({f"{path}_path": train[path]}))
+    a, b = train["train"], train["train_fused"]
+    log(f"  headline rung vs gpt_1.3b_acc8_b8, this run: steady "
+        f"{b['steady_step_ms']:.1f} vs {a['steady_step_ms']:.1f} ms/step, "
+        f"{b['steady_tokens_per_s']:.0f} vs {a['steady_tokens_per_s']:.0f} "
+        f"tokens/s, MFU {b['mfu']:.4f} vs {a['mfu']:.4f}, peak memory "
+        f"{b['peak_mem_gb']:.2f} vs {a['peak_mem_gb']:.2f} GB")
 
     def entry(name, src, replaces, row, **extra):
-        by_path = {"main": main_launches[name], "paged": paged_launches[name],
-                   "train": train_launches[name]}
+        launches = {p: counts[name] for p, counts in by_path.items()}
         return {"name": name, "route": "cuda", "source": src,
-                "replaces": replaces, "launches": sum(by_path.values()),
-                "launches_by_path": by_path,
+                "replaces": replaces, "launches": sum(launches.values()),
+                "launches_by_path": launches,
                 "max_abs_err": err[name], "ms": row["ms"],
                 "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
                 "bound_by": row["bound_by"], "library_ms": row["library_ms"],
                 "shape": row["shape"], **extra}
 
+    w4_main, *w4_more = w4_rows.values()
     kernels = [
         entry("flash_attention_fwd", "paddle_tpu_torch/csrc/flash_fwd.cu",
               "paddle_tpu/ops/flash_attention.py:164", flash_by_t[512],
@@ -1098,10 +1478,17 @@ def main() -> int:
               "paddle_tpu/ops/flash_attention.py:249", bwd["dq"]),
         entry("flash_attention_bwd_dkv", "paddle_tpu_torch/csrc/flash_bwd.cu",
               "paddle_tpu/ops/flash_attention.py:302", bwd["dkv"]),
+        entry("fused_layer_norm_fwd", "paddle_tpu_torch/csrc/fused_norm.cu",
+              "paddle_tpu/ops/fused_norm.py:144", ln["fwd"]),
+        entry("fused_layer_norm_bwd", "paddle_tpu_torch/csrc/fused_norm.cu",
+              "paddle_tpu/ops/fused_norm.py:202", ln["bwd"]),
         entry("fused_ce_fwd", "paddle_tpu_torch/csrc/fused_ce.cu",
               "paddle_tpu/ops/fused_ce.py:159", ce["fwd"]),
         entry("fused_ce_bwd", "paddle_tpu_torch/csrc/fused_ce.cu",
               "paddle_tpu/ops/fused_ce.py:200", ce["bwd"]),
+        entry("w4_matmul", "paddle_tpu_torch/csrc/woq_matmul.cu",
+              "paddle_tpu/ops/woq_matmul.py:157", w4_main,
+              at_other_shapes=w4_more),
         entry("decode_attention", "paddle_tpu_torch/csrc/decode_attention.cu",
               "paddle_tpu/ops/decode_attention.py:282", dec,
               at_admission_chunk=dec_chunk),

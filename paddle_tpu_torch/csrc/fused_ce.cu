@@ -27,50 +27,19 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "row_vec.cuh"
+
 namespace {
+
+using row_vec::from_f;
+using row_vec::loadv;
+using row_vec::storev;
+using row_vec::to_f;
+using row_vec::Vec;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr float kNeg = -1e30f;
-
-template <typename T> struct Vec;
-template <> struct Vec<float> { static constexpr int n = 4; };
-template <> struct Vec<__nv_bfloat16> { static constexpr int n = 8; };
-
-__device__ __forceinline__ void loadv(const float* p, float* o) {
-  const float4 v = *reinterpret_cast<const float4*>(p);
-  o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
-}
-
-__device__ __forceinline__ void loadv(const __nv_bfloat16* p, float* o) {
-  const uint4 u = *reinterpret_cast<const uint4*>(p);
-  const __nv_bfloat162* h = reinterpret_cast<const __nv_bfloat162*>(&u);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(h[e]);
-    o[2 * e] = f.x;
-    o[2 * e + 1] = f.y;
-  }
-}
-
-__device__ __forceinline__ void storev(float* p, const float* o) {
-  *reinterpret_cast<float4*>(p) = make_float4(o[0], o[1], o[2], o[3]);
-}
-
-__device__ __forceinline__ void storev(__nv_bfloat16* p, const float* o) {
-  uint4 u;
-  __nv_bfloat162* h = reinterpret_cast<__nv_bfloat162*>(&u);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(o[2 * e], o[2 * e + 1]);
-  *reinterpret_cast<uint4*>(p) = u;
-}
-
-__device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ void from_f(float* p, float v) { *p = v; }
-__device__ __forceinline__ void from_f(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
 
 // Merge a running (max m, sum l of exp(x − m)) with another.
 __device__ __forceinline__ void merge(float& m, float& l, float m2, float l2) {
@@ -161,18 +130,12 @@ ce_bwd_kernel(const T* __restrict__ x, const long long* __restrict__ labels,
 }
 
 template <typename T>
-bool vec_ok(const void* a, const void* b, int V) {
-  return V % Vec<T>::n == 0 && (uintptr_t)a % 16 == 0 &&
-         (b == nullptr || (uintptr_t)b % 16 == 0);
-}
-
-template <typename T>
 cudaError_t fwd(const void* x, const void* labels, void* loss, void* lse,
                 int N, int V, cudaStream_t st) {
   const T* xt = static_cast<const T*>(x);
   const long long* lt = static_cast<const long long*>(labels);
   float *lo = static_cast<float*>(loss), *ls = static_cast<float*>(lse);
-  if (vec_ok<T>(x, nullptr, V))
+  if (row_vec::aligned<T>(V, x))
     ce_fwd_kernel<T, true><<<N, kThreads, 0, st>>>(xt, lt, lo, ls, V);
   else
     ce_fwd_kernel<T, false><<<N, kThreads, 0, st>>>(xt, lt, lo, ls, V);
@@ -187,7 +150,7 @@ cudaError_t bwd(const void* x, const void* labels, const void* lse,
   const float* ls = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(dloss);
   T* dt = static_cast<T*>(dx);
-  if (vec_ok<T>(x, dx, V))
+  if (row_vec::aligned<T>(V, x, dx))
     ce_bwd_kernel<T, true><<<N, kThreads, 0, st>>>(xt, lt, ls, dl, dt, V);
   else
     ce_bwd_kernel<T, false><<<N, kThreads, 0, st>>>(xt, lt, ls, dl, dt, V);

@@ -76,9 +76,21 @@ def fused_ce() -> bool:
 
 
 def fused_ln() -> bool:
-    """The fused LayerNorm kernels (Pallas #4/#5), from
-    ``PADDLE_TPU_FUSED_LN == "1"``.  They are not ported yet: with the flag
-    set, ``gpt._norm`` raises on a CUDA tensor rather than quietly taking
-    the plain path; on the CPU it takes the plain expression, as the JAX
-    package does off its TPU."""
+    """The fused LayerNorm kernels (``ops/fused_norm.py``: Pallas #4/#5 in
+    the JAX package, ``csrc/fused_norm.cu`` here), from
+    ``PADDLE_TPU_FUSED_LN == "1"`` — read by ``gpt._norm`` at each call.
+    On: every LayerNorm takes ``fused_layer_norm`` on its compute-dtype
+    input and saves only x and the [N, 1] statistics for the backward —
+    the kernels on a CUDA tensor, their plain twins on the CPU.  Off: the
+    fp32 ``F.layer_norm`` expression.  RMSNorm never takes it."""
     return os.environ.get("PADDLE_TPU_FUSED_LN", "") == "1"
+
+
+def w4_kernel() -> bool:
+    """The W4A16 dequant-matmul kernel (``ops/woq_matmul.py``: Pallas #8
+    in the JAX package, ``csrc/woq_matmul.cu`` here) for nibble-packed
+    int4 weights, from ``PADDLE_TPU_W4_KERNEL == "1"`` — read by
+    ``woq.mm`` / ``woq.mm_stacked`` at each call, where the JAX package
+    reads it inline (``paddle_tpu/text/woq.py``).  Off: the weight is
+    dequantized in the compute dtype and multiplied as a float matrix."""
+    return os.environ.get("PADDLE_TPU_W4_KERNEL", "") == "1"

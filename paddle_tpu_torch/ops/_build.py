@@ -31,7 +31,7 @@ _PKG = Path(__file__).resolve().parent.parent
 _SRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
 SOURCES = ("flash_fwd", "flash_bwd", "decode_attention",
-           "paged_decode_attention", "fused_ce")
+           "paged_decode_attention", "fused_ce", "fused_norm", "woq_matmul")
 _FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
           "-shared", "-Xcompiler", "-fPIC")
 

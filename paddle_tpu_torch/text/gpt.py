@@ -1,8 +1,9 @@
 """GPT decoder-only transformer — the flagship model family, in PyTorch.
 
-Counterpart of ``paddle_tpu/text/gpt.py`` for the dense, float-weight
-model: the forward that serving runs, and the loss that training
-differentiates (``loss_fn``).  The parameters keep the JAX tree's names and its
+Counterpart of ``paddle_tpu/text/gpt.py`` for the dense model: the
+forward that serving runs (on float weights, or weight-only int8 / int4
+ones — every weight resolves through ``text/woq.py``), and the loss that
+training differentiates (``loss_fn``).  The parameters keep the JAX tree's names and its
 stacked layout: every block weight carries a leading [L, ...] axis
 (``blocks["qkv_w"]`` is [L, 3, D, D]), so a JAX checkpoint maps over
 name for name (``convert.params_from_jax``).  Where the JAX forward scans
@@ -26,6 +27,7 @@ from . import woq
 from .. import flags, resolve_device
 from ..ops.attention import attention_array
 from ..ops.fused_ce import fused_softmax_ce
+from ..ops.fused_norm import fused_layer_norm
 
 
 @dataclasses.dataclass
@@ -210,16 +212,17 @@ def _rms_norm(x, g, eps=1e-5):
 
 def _norm(x, p, prefix: str, cfg: GPTConfig):
     """Block-norm dispatch: statistics in fp32, output in the compute
-    dtype (the JAX package's _norm).  ``PADDLE_TPU_FUSED_LN=1`` selects
-    the fused LayerNorm kernels there, which are not ported yet: on a CUDA
-    tensor it raises; on the CPU it takes this plain expression, as the
-    JAX package does off its TPU (rmsnorm never takes that kernel)."""
+    dtype (the JAX package's _norm / _ln) — the single entry every train
+    and decode block normalises through.  ``PADDLE_TPU_FUSED_LN=1`` (read
+    at each call) takes ``fused_layer_norm`` on x as it is, in the compute
+    dtype (the kernels on the card, their plain twins on the CPU);
+    otherwise the fp32 ``F.layer_norm`` expression.  RMSNorm never takes
+    the fused kernels (other math)."""
     if cfg.norm == "rmsnorm":
         return _rms_norm(x.float(), p[prefix + "_g"]).to(cfg.dtype)
-    if x.is_cuda and flags.fused_ln():
-        raise NotImplementedError(
-            "PADDLE_TPU_FUSED_LN=1: the fused LayerNorm kernels (Pallas "
-            "_ln_fwd_impl / _ln_bwd_impl) are not ported to the card yet")
+    if flags.fused_ln():
+        return fused_layer_norm(x, p[prefix + "_g"],
+                                p[prefix + "_b"]).to(cfg.dtype)
     return _layer_norm(x.float(), p[prefix + "_g"],
                        p[prefix + "_b"]).to(cfg.dtype)
 

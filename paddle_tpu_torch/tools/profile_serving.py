@@ -1,6 +1,6 @@
 """Where the PyTorch/CUDA port's serving time goes on the card.
 
-    python3 -m paddle_tpu_torch.tools.profile_serving [--paged] [--ticks 8] [--trace PATH]
+    python3 -m paddle_tpu_torch.tools.profile_serving [--paged | --w4] [--ticks 8] [--trace PATH]
 
 (from the repository root).
 
@@ -17,7 +17,12 @@ Builds one of the port's serving paths — the one definition of each that
   ``DecodeServer(layout="paged", block_size=16, num_blocks=128)`` with 8
   chat requests sharing a 200-token system prompt; traced: the steady
   paged decode tick and one paged admission (a new request sharing the
-  system prompt: adopt, then one chunk over its 100-token tail).
+  system prompt: adopt, then one chunk over its 100-token tail);
+* ``--w4``, :func:`build_w4_path`: the main path's model and traffic with
+  its weights quantized to int4 (``woq.quantize_gpt_int4``, group 64)
+  and ``PADDLE_TPU_W4_KERNEL=1``; traced: the steady decode tick and one
+  admission prefill of a 200-token prompt (bucket 256, where the W4
+  kernel runs at N = 256).
 
 For each it prints one JSON line: host wall per tick (or per admission),
 device kernel time and the device's busy share of the wall, kernel
@@ -30,13 +35,14 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import subprocess
 import sys
 import time
 
 import numpy as np
 
-from ..text import gpt, serving
+from ..text import gpt, serving, woq
 
 # The main path's traffic: 8 greedy requests whose prompts fall in every
 # prefill bucket (64, 128, 256, 512), NEW new tokens each.
@@ -52,19 +58,47 @@ def card_line() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
+def main_prompts(vocab_size: int, seed: int = 0) -> list:
+    """The main path's 8 prompts, of lengths ``LENS``, drawn from
+    ``seed``."""
+    rng = np.random.default_rng(seed)
+    return [rng.integers(0, vocab_size, n).tolist() for n in LENS]
+
+
 def build_main_path(device="cuda", seed=0):
     """The port's main path, at full width: GPT-1.3B with random weights
     from ``seed`` (bf16, as the preset computes) behind
     ``DecodeServer(max_batch=8, max_len=512)``, and the prompts of
-    lengths ``LENS`` drawn from ``seed``.  Returns (cfg, params, server,
-    prompts); nothing is submitted yet."""
+    :func:`main_prompts`.  Returns (cfg, params, server, prompts); nothing
+    is submitted yet."""
     cfg = gpt.gpt_1p3b()
     params = gpt.init_params(cfg, seed=seed, device=device)
     srv = serving.DecodeServer(params, cfg, max_batch=8, max_len=512,
                                device=device)
-    rng = np.random.default_rng(seed)
-    prompts = [rng.integers(0, cfg.vocab_size, n).tolist() for n in LENS]
-    return cfg, params, srv, prompts
+    return cfg, params, srv, main_prompts(cfg.vocab_size, seed)
+
+
+# The W4 path: the main path's model, weight-only int4 at group size 64
+# (the JAX package's default), served through the W4 kernel.
+W4_GROUP = 64
+W4_FLAGS = {"PADDLE_TPU_W4_KERNEL": "1"}
+
+
+def build_w4_path(device="cuda", seed=0):
+    """The W4 path, at full width: sets ``W4_FLAGS`` in the environment
+    (read at each matmul), quantizes the main path's GPT-1.3B (bf16 weights
+    from ``seed``) with ``woq.quantize_gpt_int4(params, group_size=64)`` —
+    packed int4 block weights, int8 embedding — behind
+    ``DecodeServer(max_batch=8, max_len=512)`` with contiguous bf16 KV, and
+    the prompts of :func:`main_prompts`.  Returns (cfg, params, server,
+    prompts); nothing is submitted yet."""
+    os.environ.update(W4_FLAGS)
+    cfg = gpt.gpt_1p3b()
+    params = woq.quantize_gpt_int4(
+        gpt.init_params(cfg, seed=seed, device=device), group_size=W4_GROUP)
+    srv = serving.DecodeServer(params, cfg, max_batch=8, max_len=512,
+                               device=device)
+    return cfg, params, srv, main_prompts(cfg.vocab_size, seed)
 
 
 # The paged path's traffic: a chat deployment whose requests share one
@@ -106,7 +140,9 @@ def build_paged_path(device="cuda", seed=0):
 # kernel-name keys, lower case; split_kv.cuh's kernels carry their row
 # addressing (ContiguousRows / PagedRows) in their template arguments
 MATMUL_KEYS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk", "nvjet")
-FAMILIES = (("paged_decode_attention", ("pagedrows",)),
+FAMILIES = (("w4_matmul", ("w4_kernel", "w4_sum_kernel")),
+            ("fused_layer_norm", ("ln_fwd_kernel",)),
+            ("paged_decode_attention", ("pagedrows",)),
             ("decode_attention", ("contiguousrows",)),
             ("flash_attention_fwd", ("flash_fwd_kernel",)),
             ("matmul", MATMUL_KEYS),
@@ -150,8 +186,11 @@ def summarize(torch, prof, wall, n, families=FAMILIES):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--paged", action="store_true",
-                    help="profile the paged path (build_paged_path)")
+    kind = ap.add_mutually_exclusive_group()
+    kind.add_argument("--paged", action="store_true",
+                      help="profile the paged path (build_paged_path)")
+    kind.add_argument("--w4", action="store_true",
+                      help="profile the int4 W4 path (build_w4_path)")
     ap.add_argument("--ticks", type=int, default=8)
     ap.add_argument("--trace", default=None,
                     help="write the decode window's Chrome trace here")
@@ -166,8 +205,9 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
-    _, _, srv, prompts = (build_paged_path() if args.paged
-                          else build_main_path())
+    build = (build_paged_path if args.paged else
+             build_w4_path if args.w4 else build_main_path)
+    _, _, srv, prompts = build()
     for p in prompts:                       # warm-up serve (first launches)
         srv.submit(p, max_new_tokens=4)
     while srv.pending():
@@ -185,7 +225,8 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     layout = "paged" if args.paged else "contiguous"
-    out = {"what": f"decode tick, 8 slots decoding, {layout} KV",
+    weights = "int4 weights, W4 kernel" if args.w4 else "bf16 weights"
+    out = {"what": f"decode tick, 8 slots decoding, {layout} KV, {weights}",
            "card": card, **summarize(torch, prof, wall, args.ticks)}
     print(json.dumps({"decode_tick": out}), flush=True)
     if args.trace:
@@ -198,6 +239,10 @@ def main() -> int:
         prompt = prompts[0][:PREFIX] + prompts[1][PREFIX:][::-1]
         what = ("paged admission, 300 tokens, 200 adopted, one chunk "
                 "over the tail")
+    elif args.w4:
+        prompt = prompts[2]
+        what = ("admission prefill, 200 tokens at bucket 256 (the W4 "
+                "kernel at N = 256)")
     else:
         prompt = prompts[3]
         what = "admission prefill, 300 tokens at bucket 512"

@@ -1,6 +1,6 @@
 """Where the PyTorch/CUDA port's train-step time goes on the card.
 
-    python3 -m paddle_tpu_torch.tools.profile_train [--trace PATH]
+    python3 -m paddle_tpu_torch.tools.profile_train [--fused-ln] [--trace PATH]
 
 (from the repository root).
 
@@ -10,13 +10,16 @@ definition of it that ``chip_smoke.py`` drives too: GPT-1.3B
 of 2048 tokens in 8 micro-batches of one sequence, AdamW(lr 2e-4, weight
 decay 0.01, bf16 moments), the fused loss head (``PADDLE_TPU_FUSED_CE=1``)
 — as the JAX package's ``gpt_1.3b_acc8_b8`` rung in bench.py runs it with
-that flag.  It warms the step once, then traces one step with
-``torch.profiler`` and, in a window of its own, one optimizer update.
+that flag.  ``--fused-ln`` builds the headline rung
+``gpt_1.3b_fused_acc8_b8`` instead (bench.py:425-426, 704-706): the same
+step with the fused LayerNorm kernels too (``PADDLE_TPU_FUSED_LN=1``).
+It warms the step once, then traces one step with ``torch.profiler`` and,
+in a window of its own, one optimizer update.
 
 It prints one JSON line: the step's host wall, device kernel time and the
 device's busy share of the wall, kernel launches, and device time by
-kernel family (matmul, flash fwd, dq, dkv, CE fwd, CE bwd, elementwise)
-and the ten elementwise kernels with the most device time; the optimizer
+kernel family (matmul, flash fwd, dq, dkv, CE fwd, CE bwd, LN fwd, LN bwd,
+elementwise) and the ten elementwise kernels with the most device time; the optimizer
 update's device time (its elementwise kernels, which the
 step's "elementwise" family includes).  ``--trace`` writes the step's
 Chrome trace.  Needs a CUDA card; imports nothing of JAX or the JAX
@@ -38,19 +41,23 @@ from ..text import gpt, gpt_hybrid
 from . import profile_serving
 
 # The train path: the gpt_1.3b_acc8_b8 rung's batch, accumulation and
-# optimizer (bench.py), plus the fused loss head.
+# optimizer (bench.py), plus the fused loss head; the headline rung
+# gpt_1.3b_fused_acc8_b8 is the same with the fused LayerNorm as well.
 BATCH, SEQ, ACCUM = 8, 2048, 8
 LR, WEIGHT_DECAY = 2e-4, 0.01
-FLAGS = {"PADDLE_TPU_FUSED_CE": "1"}
+FLAGS = {"PADDLE_TPU_FUSED_CE": "1", "PADDLE_TPU_FUSED_LN": "0"}
+FUSED_FLAGS = {"PADDLE_TPU_FUSED_CE": "1", "PADDLE_TPU_FUSED_LN": "1"}
 
 
-def build_train_path(device="cuda", seed=0):
-    """The port's train path at full width: sets ``FLAGS`` in the
-    environment, builds ``build_gpt_train_step(gpt_1p3b(), AdamW(...),
-    accum=8)`` on ``device`` and draws the batch, tokens [8, 2049] from
+def build_train_path(device="cuda", seed=0, fused_ln=False):
+    """The port's train path at full width: sets ``FLAGS`` (with
+    ``fused_ln``, ``FUSED_FLAGS``: the headline rung) in the environment,
+    where the step reads them at each call, builds
+    ``build_gpt_train_step(gpt_1p3b(), AdamW(...), accum=8)`` on
+    ``device`` and draws the batch, tokens [8, 2049] from
     ``numpy.default_rng(seed)`` as bench.py draws them.  Returns (cfg,
     optimizer, init_fn, step_fn, tokens); nothing is initialised yet."""
-    os.environ.update(FLAGS)
+    os.environ.update(FUSED_FLAGS if fused_ln else FLAGS)
     cfg = gpt.gpt_1p3b()
     opt = AdamW(learning_rate=LR, weight_decay=WEIGHT_DECAY,
                 state_dtype=torch.bfloat16)
@@ -69,6 +76,8 @@ FAMILIES = (("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
             ("flash_fwd", ("flash_fwd_kernel",)),
             ("ce_fwd", ("ce_fwd_kernel",)),
             ("ce_bwd", ("ce_bwd_kernel",)),
+            ("ln_fwd", ("ln_fwd_kernel",)),
+            ("ln_bwd", ("ln_bwd_kernel", "ln_bwd_sum_kernel")),
             ("matmul", profile_serving.MATMUL_KEYS),
             ("elementwise", ("",)))
 
@@ -86,6 +95,8 @@ def top_elementwise(torch, prof, n=10):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--fused-ln", action="store_true",
+                    help="the headline rung: fused LayerNorm kernels too")
     ap.add_argument("--trace", default=None,
                     help="write the step's Chrome trace here")
     args = ap.parse_args()
@@ -97,7 +108,8 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = profile_serving.card_line()
     print(card, flush=True)
-    cfg, opt, init_fn, step_fn, tokens = build_train_path()
+    cfg, opt, init_fn, step_fn, tokens = build_train_path(
+        fused_ln=args.fused_ln)
     state = init_fn(0)
     state, loss = step_fn(state, tokens, None, LR)       # warm-up step
     torch.cuda.synchronize()
@@ -126,7 +138,8 @@ def main() -> int:
     tok_s = BATCH * SEQ / step["wall_ms"] * 1e3
     print(json.dumps({"train_step": {
         "what": f"one train step, gpt_1p3b, B={BATCH} T={SEQ} "
-                f"accum={ACCUM}, AdamW bf16 state, fused CE",
+                f"accum={ACCUM}, AdamW bf16 state, fused CE"
+                + (" and LN" if args.fused_ln else ""),
         "card": card, "loss": loss.item(), **step,
         "tokens_per_s_profiled": tok_s,
         "optimizer_update": update}}), flush=True)

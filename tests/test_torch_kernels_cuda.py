@@ -1,7 +1,8 @@
 """The port's CUDA kernels against their plain PyTorch twins, on a card:
 flash prefill, split-KV decode (up to 1024 query rows per kv head),
-block-table (paged) decode, the flash backward (dq and dk/dv) and the
-fused softmax cross-entropy (forward and backward).
+block-table (paged) decode, the flash backward (dq and dk/dv), the
+fused softmax cross-entropy and the fused LayerNorm (forward and
+backward), and the W4A16 dequant-matmul.
 
 Every test here is marked ``cuda`` and decides in its body whether a
 card is present — never at import, in ``skipif`` or in ``parametrize``,
@@ -16,7 +17,9 @@ plain twin's where fp32 summation order tips a rounding: atol = rtol =
 1e-2; fp32 outputs differ only by summation order (1e-4; the backward's
 dk/dv sum up to 2048 rows and a GQA group: 1e-3); lse and the CE loss are
 fp32 (1e-3); CE dlogits are tiny (softmax ~ 1/V) and rounded once in both:
-rtol 1e-2 with atol 1e-6.
+rtol 1e-2 with atol 1e-6.  LayerNorm's mu and rstd are fp32 (1e-5); dg
+and db sum N rows in row-block order (1e-3 + 1e-4 relative).  The W4
+kernel's dequantized weight equals ``woq.w``'s bit for bit.
 """
 import pytest
 import torch
@@ -24,7 +27,9 @@ import torch
 from paddle_tpu_torch.ops import decode_attention as da
 from paddle_tpu_torch.ops import flash_attention as fa
 from paddle_tpu_torch.ops import fused_ce as fc
-from paddle_tpu_torch.text import gpt
+from paddle_tpu_torch.ops import fused_norm as fn
+from paddle_tpu_torch.ops import woq_matmul as wm
+from paddle_tpu_torch.text import gpt, woq
 
 pytestmark = pytest.mark.cuda
 
@@ -409,15 +414,142 @@ def test_new_kernel_wrappers_refuse_cuda_inputs():
 
 
 def test_fused_ln_flag_raises_on_the_card(monkeypatch):
-    """The fused LayerNorm kernels are not ported: asking for them on a
-    card raises rather than quietly taking the plain path."""
-    _card()
-    cfg = gpt.GPTConfig(vocab_size=64, hidden_size=128, num_layers=1,
+    """``PADDLE_TPU_FUSED_LN=1`` on a card (it raised before kernels
+    #4/#5 were ported): every LayerNorm of the forward launches the
+    forward kernel, and under autograd the backward kernel, with the
+    flag-off forward's logits and grads within summation-order
+    tolerance (fp32 model)."""
+    gen = _card()
+    cfg = gpt.GPTConfig(vocab_size=64, hidden_size=128, num_layers=2,
                         num_heads=2, max_seq_len=16, dtype=torch.float32)
-    params = gpt.init_params(cfg, seed=0, device="cuda")
-    toks = torch.zeros(1, 8, dtype=torch.long, device="cuda")
-    monkeypatch.setenv("PADDLE_TPU_FUSED_LN", "1")
-    with pytest.raises(NotImplementedError, match="PADDLE_TPU_FUSED_LN"):
-        gpt.forward(params, toks, cfg)
-    monkeypatch.setenv("PADDLE_TPU_FUSED_LN", "0")
-    assert torch.isfinite(gpt.forward(params, toks, cfg)).all()
+    params = gpt.init_master_params(cfg, seed=0, device="cuda")
+    for t in params["blocks"].values():
+        t.add_(0.01 * torch.randn(t.shape, generator=gen, device="cuda"))
+    toks = torch.randint(0, 64, (2, 9), generator=gen, device="cuda")
+    runs = {}
+    for flag in ("0", "1"):
+        monkeypatch.setenv("PADDLE_TPU_FUSED_LN", flag)
+        leaves = {n: t.detach().clone().requires_grad_()
+                  for n, t in params["blocks"].items()}
+        p = {**params, "blocks": leaves}
+        before = (fn.ln_fwd.launches, fn.ln_bwd.launches)
+        loss = gpt.loss_fn(p, toks, cfg)
+        loss.backward()
+        torch.cuda.synchronize()
+        runs[flag] = (loss.item(), {n: t.grad for n, t in leaves.items()},
+                      (fn.ln_fwd.launches - before[0],
+                       fn.ln_bwd.launches - before[1]))
+    n_norms = 2 * cfg.num_layers + 1
+    assert runs["1"][2] == (n_norms, n_norms) and runs["0"][2] == (0, 0)
+    assert abs(runs["1"][0] - runs["0"][0]) < 1e-5
+    for n, g in runs["1"][1].items():
+        torch.testing.assert_close(g, runs["0"][1][n], atol=1e-5, rtol=1e-4)
+
+
+@pytest.mark.parametrize("N,F,dtype,wdtype", [
+    (2048, 2048, "bfloat16", "float32"),    # the train path's shape
+    (8, 2048, "bfloat16", "bfloat16"),      # a decode tick's, bf16 params
+    (37, 1000, "float32", "float32"),       # ragged rows and columns
+    (5, 999, "bfloat16", "float32"),        # the scalar walk
+    (3, 5120, "float32", "bfloat16"),       # gpt_13b's width
+    (2, 8192, "float32", "float32"),        # the widest row taken
+])
+def test_fused_norm_matches_plain(N, F, dtype, wdtype):
+    gen = _card()
+    dt, wdt = getattr(torch, dtype), getattr(torch, wdtype)
+    x = (2 * torch.randn(N, F, generator=gen, device="cuda") + 0.5).to(dt)
+    g = (1 + 0.5 * torch.randn(F, generator=gen, device="cuda")).to(wdt)
+    b = torch.randn(F, generator=gen, device="cuda").to(wdt)
+    dy = torch.randn(N, F, generator=gen, device="cuda").to(dt)
+    before = (fn.ln_fwd.launches, fn.ln_bwd.launches)
+    y, mu, r = fn.ln_fwd(x, g, b)
+    dx, dg, db = fn.ln_bwd(x, g, mu, r, dy)
+    ref_y, ref_mu, ref_r = fn._plain_ln_fwd(x, g, b)
+    ref_dx, ref_dg, ref_db = fn._plain_ln_bwd(x, g, mu, r, dy)
+    torch.cuda.synchronize()
+    assert (fn.ln_fwd.launches, fn.ln_bwd.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    assert y.dtype == dx.dtype == dt and dg.dtype == torch.float32
+    tol = 1e-2 if dt == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y.float(), ref_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(dx.float(), ref_dx.float(), atol=tol,
+                               rtol=tol)
+    torch.testing.assert_close(mu, ref_mu, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(r, ref_r, atol=1e-5, rtol=1e-5)
+    # column sums over N rows, in row-block order: fp32 order only
+    torch.testing.assert_close(dg, ref_dg, atol=1e-3, rtol=1e-4)
+    torch.testing.assert_close(db, ref_db, atol=1e-3, rtol=1e-4)
+
+
+@pytest.mark.parametrize("N,K,M,gs,dtype", [
+    (8, 2048, 2048, 64, "bfloat16"),        # a tick's qkv / proj slice
+    (8, 2048, 8192, 64, "bfloat16"),        # fc
+    (8, 8192, 2048, 64, "bfloat16"),        # out
+    (1, 2048, 2048, 64, "float32"),
+    (256, 2048, 2048, 64, "bfloat16"),      # the cap
+    (37, 192, 130, 32, "float32"),          # ragged N and M (byte loads)
+    (5, 96, 64, 48, "bfloat16"),            # gs not a power of two
+])
+def test_w4_matmul_matches_plain(N, K, M, gs, dtype):
+    gen = _card()
+    dt = getattr(torch, dtype)
+    q = torch.randint(-7, 8, (K, M), generator=gen, device="cuda")
+    q[:2, :2] = torch.tensor([[-7, 7], [7, -7]])
+    q[K // 2:K // 2 + 2, :2] = torch.tensor([[-7, 7], [7, -7]])
+    packed = woq.pack_int4_halves(q)
+    scale = 0.01 + 0.09 * torch.rand(K // gs, 1, M, generator=gen,
+                                     device="cuda")
+    x = torch.randn(N, K, generator=gen, device="cuda").to(dt)
+    before = wm.w4_matmul.launches
+    out = wm.w4_matmul(x, packed, scale)
+    ref = wm._plain_w4(x, packed, scale)
+    torch.cuda.synchronize()
+    assert wm.w4_matmul.launches == before + 1
+    assert out.dtype == dt and out.shape == (N, M)
+    tol = 1e-2 if dt == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    # the kernel's weight is woq.w's, bit for bit: a one-hot x reads a row
+    for row in (0, K // 2, K - 1):
+        e = torch.zeros(1, K, device="cuda", dtype=dt)
+        e[0, row] = 1
+        w_row = woq.w({"w": packed, "w_s": scale}, "w", dt)[row]
+        assert torch.equal(wm.w4_matmul(e, packed, scale)[0], w_row)
+
+
+def test_norm_and_w4_wrappers_refuse_cuda_inputs():
+    """No fallback: CUDA tensors outside the LayerNorm and W4 kernels'
+    contracts raise before any launch."""
+    _card()
+    launches = lambda: (fn.ln_fwd.launches, fn.ln_bwd.launches,  # noqa: E731
+                        wm.w4_matmul.launches)
+    before = launches()
+    x = torch.zeros(4, 64, device="cuda")
+    g = torch.ones(64, device="cuda")
+    with pytest.raises(ValueError, match="1 to 8192"):
+        fn.ln_fwd(torch.zeros(2, 8200, device="cuda"),
+                  torch.ones(8200, device="cuda"),
+                  torch.zeros(8200, device="cuda"))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        fn.ln_fwd(x.half(), g, g)
+    with pytest.raises(TypeError, match="share one dtype"):
+        fn.ln_fwd(x, g, g.bfloat16())
+    with pytest.raises(ValueError, match="must be contiguous"):
+        fn.ln_fwd(torch.zeros(64, 4, device="cuda").t(), g, g)
+    with pytest.raises(ValueError, match="share one device"):
+        fn.ln_fwd(x, g.cpu(), g)
+    mu = torch.zeros(4, 1, device="cuda")
+    with pytest.raises(ValueError, match="dy must be contiguous"):
+        fn.ln_bwd(x, g, mu, mu, x.bfloat16())
+    with pytest.raises(ValueError, match="rstd must be contiguous"):
+        fn.ln_bwd(x, g, mu, mu[:2], x)
+    packed = torch.zeros(32, 16, dtype=torch.int8, device="cuda")
+    scale = torch.ones(2, 1, 16, device="cuda")
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        wm.w4_matmul(x.half(), packed, scale)
+    with pytest.raises(TypeError, match="scale float32"):
+        wm.w4_matmul(x, packed, scale.bfloat16())
+    with pytest.raises(ValueError, match="share one device"):
+        wm.w4_matmul(x, packed.cpu(), scale)
+    with pytest.raises(ValueError, match="shape mismatch"):
+        wm.w4_matmul(x[:, :62], packed, scale)
+    assert launches() == before

@@ -334,8 +334,9 @@ def test_package_imports_no_jax():
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'jaxlib')) or m == 'paddle_tpu' or "
         "m.startswith('paddle_tpu.')]\n"
-        "assert len(names) >= 20, names\n"
+        "assert len(names) >= 22, names\n"
         "for want in ('text.kv_pool', 'text.gpt_hybrid', 'ops.fused_ce', "
+        "'ops.fused_norm', 'ops.woq_matmul', 'text.woq', "
         "'optimizer', 'optimizer.optimizer', 'tools.profile_train'):\n"
         "    assert 'paddle_tpu_torch.' + want in names, (want, names)\n"
         "print(len(names), bad)\n"

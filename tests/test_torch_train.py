@@ -21,7 +21,10 @@ on the CPU.
   with bf16 moments, the fused CE flag) at a small width against the JAX
   step — losses within 1e-3 (bf16 matmul rounding);
 * the ``markov_gpt`` recipe (tests/conftest.py) trained in the port
-  reaches loss < 0.1.
+  reaches loss < 0.1;
+* with ``PADDLE_TPU_FUSED_LN=1`` the loss runs the fused LayerNorm's plain
+  twins and equals the JAX package's flagged loss (Pallas in interpret
+  mode) within 1e-5.
 """
 import dataclasses
 import functools
@@ -35,9 +38,11 @@ import jax.numpy as jnp
 from jax.sharding import Mesh, NamedSharding, PartitionSpec
 
 from paddle_tpu import optimizer as jopt
+from paddle_tpu.ops import fused_norm as jfused_norm
 from paddle_tpu.text import gpt as jgpt
 from paddle_tpu.text import gpt_hybrid as jhybrid
 from paddle_tpu_torch import convert
+from paddle_tpu_torch.ops import fused_norm
 from paddle_tpu_torch.optimizer import AdamW
 from paddle_tpu_torch.text import gpt, gpt_hybrid
 
@@ -274,15 +279,25 @@ def test_unported_config_values_raise(field, value):
 
 
 def test_fused_ln_flag_takes_the_plain_norm_on_cpu(monkeypatch):
-    """PADDLE_TPU_FUSED_LN=1: the JAX package's LayerNorm falls back to its
-    plain expression off its TPU; the port's does the same on the CPU (on
-    a card it raises — tests/test_torch_kernels_cuda.py)."""
-    cfg = convert.config_from_jax(_jcfg())
-    params = gpt.init_params(cfg, seed=1, device="cpu")
-    toks = torch.from_numpy(TOKENS)
-    ref = gpt.loss_fn(params, toks, cfg)
+    """PADDLE_TPU_FUSED_LN=1 on the CPU: every LayerNorm of the port goes
+    through ``fused_layer_norm`` on its kernels' plain twins (on a card, the
+    kernels — tests/test_torch_kernels_cuda.py), and the loss matches the
+    JAX package's flagged loss, whose Pallas kernels run in interpret mode
+    (hidden 128: their gate wants F % 128 == 0)."""
+    monkeypatch.setattr(jfused_norm, "_INTERPRET", True)
     monkeypatch.setenv("PADDLE_TPU_FUSED_LN", "1")
-    assert torch.equal(gpt.loss_fn(params, toks, cfg), ref)
+    jcfg = _jcfg(hidden_size=128)
+    jp = jgpt.init_params(jcfg, jax.random.PRNGKey(1))
+    ref = float(jgpt.loss_fn(jp, jnp.asarray(TOKENS), jcfg))
+    cfg = convert.config_from_jax(jcfg)
+    params = convert.params_from_jax(jax.device_get(jp))
+    calls = []
+    plain = fused_norm._plain_ln_fwd
+    monkeypatch.setattr(fused_norm, "_plain_ln_fwd",
+                        lambda *a: calls.append(1) or plain(*a))
+    loss = gpt.loss_fn(params, torch.from_numpy(TOKENS), cfg)
+    assert len(calls) == 2 * cfg.num_layers + 1
+    assert abs(loss.item() - ref) < TOL
 
 
 @pytest.mark.parametrize("arch", [GRID[0], GRID[-1], GRID[5]])
