@@ -9,9 +9,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    processes at once) and print the build seconds;
 3. hold each kernel against its plain PyTorch twin at the paths' widths
    (bf16 outputs within 1e-2 * (1 + |plain|), lse and loss within 1e-3):
-   flash prefill (head_dim 64, 128, 256); split-KV decode at a tick's Tq
-   and at prefill-chunk widths (Tq * G = 512 and 1024 query rows per kv
-   head), head_dim 128 and 256; block-table (paged) decode, whose free
+   flash prefill on the tensor-core body (head_dim 64, 128, 256, causal
+   and not, GQA, S != T, the train shape); split-KV decode at a tick's Tq,
+   and decode at prefill-chunk widths (Tq * G from R_TC - 1 to 1024 query
+   rows per kv head, the tensor-core route from R_TC on), head_dim 64, 128
+   and 256, bf16 and int8; block-table (paged) decode, whose free
    slots must come back exactly zero; the flash backward (dq, dk/dv) at
    the train shape, head_dim 64/128/256, causal and not, ragged T, GQA;
    the fused softmax-CE forward and backward at the train loss head and
@@ -33,19 +35,23 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``cross_entropy`` and its backward, ``layer_norm`` and its backward,
    a bf16 ``matmul`` on a pre-dequantized weight; for the paged kernel
    SDPA on a pre-gathered contiguous copy, the gather timed on its own);
+   the decode kernel also at the paged serve's admission widths R = 128
+   and 256;
 6. the main path, as ``paddle_tpu_torch.tools.profile_serving.
    build_main_path`` defines it: GPT-1.3B (``gpt.gpt_1p3b()``, full width,
    random weights from a seed, bf16) served by ``DecodeServer(max_batch=8,
    max_len=512)`` — 8 greedy requests, prompts of 40..300 tokens (prefill
    buckets 64, 128, 256, 512), 64 new tokens each — with the kernels'
-   launch counts read around it and one request checked against a solo
-   ``generate``;
+   launch counts read around it (every flash forward on the tensor-core
+   body) and one request checked against a solo ``generate``;
 7. the paged path, as ``build_paged_path`` defines it: the same model
    behind ``DecodeServer(layout="paged", block_size=16, num_blocks=128)``,
    8 chat requests sharing a 200-token system prompt — served tokens equal
    to a contiguous server's on the same prompts and one request to a solo
    ``generate``; the allocator's prefix hits, copies-on-write and radix
-   splits; the kernels' launch counts read around it;
+   splits; the kernels' launch counts read around it, each admission's
+   width C and the tensor-core decode launches it added (all of them at
+   C >= R_TC, none below);
 8. the W4 path, as ``build_w4_path`` defines it: the main path's model and
    requests with int4 weights (group 64) and ``PADDLE_TPU_W4_KERNEL=1`` —
    exactly 6 W4 launches per layer in every decode tick and in every
@@ -157,25 +163,38 @@ def bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
 
 
 def check_flash(torch, fa):
+    """bf16 flash forwards (the tensor-core body: ``route`` says so and
+    ``tc_launches`` counts each) against the plain twin: every prefill
+    bucket of the main path, a ragged T, the train shape, GQA, not causal,
+    S != T, head_dim 64 and 256."""
     gen = torch.Generator(device="cuda").manual_seed(1)
     worst_out = worst_lse = 0.0
-    # every prefill bucket of the main path, a ragged T, D = 64 and 256
-    for T, D in [(64, 128), (128, 128), (256, 128), (512, 128), (1000, 128),
-                 (256, 64), (300, 256)]:
-        q, k, v = (torch.randn(1, T, 16, D, generator=gen, device="cuda")
-                   .to(torch.bfloat16) for _ in range(3))
-        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
-        ref, ref_lse = fa._plain_fwd(q, k, v, True)
+    # (T, S, Hkv, D, causal), H = 16
+    cases = [(T, T, 16, 128, True) for T in (64, 128, 256, 512, 1000)] + [
+        (2048, 2048, 16, 128, True), (2048, 2048, 4, 128, False),
+        (200, 333, 4, 128, False), (333, 200, 16, 64, True),
+        (256, 256, 16, 64, True), (300, 300, 4, 256, True),
+        (200, 200, 16, 256, False)]
+    for T, S, Hkv, D, causal in cases:
+        q = torch.randn(1, T, 16, D, generator=gen, device="cuda").bfloat16()
+        k, v = (torch.randn(1, S, Hkv, D, generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        before = fa.flash_attention_fwd.tc_launches
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+        ref, ref_lse = fa._plain_fwd(q, k, v, causal)
         torch.cuda.synchronize()
+        tc = fa.flash_attention_fwd.tc_launches - before
         e_out = (out.float() - ref.float()).abs().max().item()
         e_lse = (lse - ref_lse).abs().max().item()
         ok = torch.allclose(out.float(), ref.float(), atol=BF16_TOL,
                             rtol=BF16_TOL)
-        log(f"  flash_fwd bf16 T={T} H=16 D={D} causal: max|out-plain| "
-            f"{e_out:.3g} (tol {BF16_TOL}*(1+|plain|)), max|lse-plain| "
-            f"{e_lse:.3g} (tol {LSE_TOL})")
-        if not (ok and e_lse <= LSE_TOL):
-            raise AssertionError(f"flash_fwd disagrees at T={T} D={D}")
+        log(f"  flash_fwd bf16 T={T} S={S} H=16 Hkv={Hkv} D={D} "
+            f"causal={causal} ({fa.route(q.dtype, D)}, {tc} tc launch): "
+            f"max|out-plain| {e_out:.3g} (tol {BF16_TOL}*(1+|plain|)), "
+            f"max|lse-plain| {e_lse:.3g} (tol {LSE_TOL})")
+        if not (ok and e_lse <= LSE_TOL and tc == 1):
+            raise AssertionError(f"flash_fwd disagrees at T={T} S={S} "
+                                 f"Hkv={Hkv} D={D} causal={causal}")
         worst_out, worst_lse = max(worst_out, e_out), max(worst_lse, e_lse)
     return worst_out
 
@@ -220,34 +239,50 @@ def check_decode(torch, da):
 
 
 def check_decode_wide(torch, da):
-    """Prefill-chunk widths: Tq * G = 512 (G = 1) and 1024 (G = 4) query
-    rows per kv head, bf16 and int8, against the plain twin."""
+    """Prefill-chunk widths against the plain twin, each launch on the
+    route ``da.route`` names (``tc_launches`` counts the tensor-core
+    ones): R = Tq * G = 512 (G = 1) and 1024 (G = 4), bf16 and int8;
+    ``R_TC`` - 1 and ``R_TC``; the paged serve's widths 128 and 256 past a
+    200-row prefix; pos > 0 with a ragged T; G = 4 int8 at head_dim 64;
+    head_dim 256."""
     gen = torch.Generator(device="cuda").manual_seed(6)
     worst = 0.0
-    T = 512
-    for Tq, Hkv, kv in [(512, 16, "bf16"), (512, 16, "int8"),
-                        (256, 4, "bf16"), (256, 4, "int8")]:
-        q = torch.randn(2, Tq, 16, 128, generator=gen,
+    # (B, Tq, Hkv, T, pos0, kv, hd), Hq = 16
+    for B, Tq, Hkv, T, pos0, kv, hd in [
+            (2, 512, 16, 512, 0, "bf16", 128), (2, 512, 16, 512, 0, "int8", 128),
+            (2, 256, 4, 512, 0, "bf16", 128), (2, 256, 4, 512, 0, "int8", 128),
+            (1, da.R_TC - 1, 16, 512, 300, "bf16", 128),
+            (1, da.R_TC, 16, 512, 300, "bf16", 128),
+            (1, 128, 16, 512, 200, "bf16", 128),
+            (1, 256, 16, 512, 200, "bf16", 128),
+            (2, 96, 16, 333, 37, "bf16", 64), (2, 40, 4, 333, 150, "int8", 64),
+            (2, 100, 4, 520, 300, "bf16", 256)]:
+        q = torch.randn(B, Tq, 16, hd, generator=gen,
                         device="cuda").to(torch.bfloat16)
-        k = torch.randn(2, T, Hkv, 128, generator=gen, device="cuda")
-        v = torch.randn(2, T, Hkv, 128, generator=gen, device="cuda")
+        k = torch.randn(B, T, Hkv, hd, generator=gen, device="cuda")
+        v = torch.randn(B, T, Hkv, hd, generator=gen, device="cuda")
         ks = vs = None
         if kv == "int8":
             k, ks = da.quantize_kv(k)
             v, vs = da.quantize_kv(v)
         else:
             k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
-        pos = torch.tensor([0, T - Tq], dtype=torch.int32, device="cuda")
+        pos = torch.tensor([pos0, T - Tq][:B], dtype=torch.int32,
+                           device="cuda")
+        R = Tq * 16 // Hkv
+        route = da.route(R, q.dtype, hd, k.dtype)
+        before = da.decode_attention.tc_launches
         out = da.decode_attention(q, k, v, pos, ks, vs)
         ref = da._plain_decode(q, k, v, pos, ks, vs, None)
         torch.cuda.synchronize()
+        tc = da.decode_attention.tc_launches - before
         err = (out.float() - ref.float()).abs().max().item()
-        R = Tq * 16 // Hkv
-        log(f"  decode R={R} (Tq={Tq} G={16 // Hkv}) T={T} {kv}: "
-            f"max|out-plain| {err:.3g} (tol {BF16_TOL}*(1+|plain|))")
+        log(f"  decode R={R} (Tq={Tq} G={16 // Hkv}) B={B} T={T} pos={pos0} "
+            f"hd={hd} {kv} ({route}): max|out-plain| {err:.3g} "
+            f"(tol {BF16_TOL}*(1+|plain|))")
         if not torch.allclose(out.float(), ref.float(), atol=BF16_TOL,
-                              rtol=BF16_TOL):
-            raise AssertionError(f"decode disagrees at R={R} {kv}")
+                              rtol=BF16_TOL) or tc != (route == "tc"):
+            raise AssertionError(f"decode disagrees at R={R} {kv} hd={hd}")
         worst = max(worst, err)
     return worst
 
@@ -779,30 +814,35 @@ def time_decode(torch, da, F, pos_list, T=512):
     }
 
 
-def time_decode_chunk(torch, da, F, Tq=512):
-    """The decode kernel at an admission chunk's width: one slot, Tq = 512
-    query rows from position 0 against a 512-row cache (Hq = Hkv = 16,
-    bf16) — causal attention over the chunk."""
+def time_decode_chunk(torch, da, F, Tq=512, T=512):
+    """The decode kernel at an admission chunk's width: one slot, Tq query
+    rows at the end of a T-row cache (pos = T - Tq; Hq = Hkv = 16, hd 128,
+    bf16), each row seeing the cache through its own position.  Bytes:
+    the T live K/V rows, q and out; operations: the visible pairs."""
     gen = torch.Generator(device="cuda").manual_seed(8)
     Hq = Hkv = 16
-    hd, T = 128, 512
+    hd, pos0 = 128, T - Tq
     q, k, v = (torch.randn(1, n, h, hd, generator=gen, device="cuda")
                .to(torch.bfloat16) for n, h in ((Tq, Hq), (T, Hkv), (T, Hkv)))
-    pos = torch.zeros(1, dtype=torch.int32, device="cuda")
-    live = Tq                                        # rows the chunk sees
-    nbytes = live * Hkv * hd * 2 * 2 + 2 * q.numel() * 2 + 4
-    flops = 4 * Hq * hd * Tq * (Tq + 1) // 2         # causal pairs only
-    b_ms, b_by = bound(nbytes, flops)
-    qt, kt, vt = (x.transpose(1, 2) for x in (q, k[:, :Tq], v[:, :Tq]))
+    pos = torch.full((1,), pos0, dtype=torch.int32, device="cuda")
+    nbytes = T * Hkv * hd * 2 * 2 + 2 * q.numel() * 2 + 4
+    pairs = Tq * pos0 + Tq * (Tq + 1) // 2
+    b_ms, b_by = bound(nbytes, 4 * Hq * hd * pairs)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    mask = (torch.arange(T, device="cuda")[None, :]
+            <= pos0 + torch.arange(Tq, device="cuda")[:, None])
+    lib = (lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True)
+           ) if pos0 == 0 else (lambda: F.scaled_dot_product_attention(
+               qt, kt, vt, attn_mask=mask))
     return {
-        "shape": f"B=1 Tq={Tq} Hq={Hq} Hkv={Hkv} hd={hd} T={T} bf16 pos=0 "
-                 f"(R={Tq * Hq // Hkv})",
+        "shape": f"B=1 Tq={Tq} Hq={Hq} Hkv={Hkv} hd={hd} T={T} bf16 "
+                 f"pos={pos0} (R={Tq * Hq // Hkv}, "
+                 f"{da.route(Tq * Hq // Hkv, q.dtype, hd)} route)",
         "ms": cold_ms(torch, lambda: da.decode_attention(q, k, v, pos)),
         "plain_ms": cold_ms(torch, lambda: da._plain_decode(
             q, k, v, pos, None, None, None)),
         "bound_ms": b_ms, "bound_by": b_by,
-        "library_ms": cold_ms(torch, lambda: F.scaled_dot_product_attention(
-            qt, kt, vt, is_causal=True)),
+        "library_ms": cold_ms(torch, lib),
     }
 
 
@@ -987,9 +1027,17 @@ def launch_counts(ks):
     return {name: fn.launches for name, fn in ks.items()}
 
 
+def tc_counts(ks):
+    """Launches on the tensor-core bodies, for the wrappers that have them."""
+    return {name: fn.tc_launches for name, fn in ks.items()
+            if hasattr(fn, "tc_launches")}
+
+
 def zero_counts(ks):
     for fn in ks.values():
         fn.launches = 0
+        if hasattr(fn, "tc_launches"):
+            fn.tc_launches = 0
 
 
 def serve(torch, srv, prompts, new):
@@ -1054,16 +1102,22 @@ def main_path(torch, gpt, G, serving, ks, wl):
     zero_counts(ks)
     served, t_admit, ticks, wall = serve(torch, srv, prompts, new)
     launches = launch_counts(ks)
+    tc = tc_counts(ks)
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(s) for s in served)
     log(f"  served {len(served)} requests, {n_tok} tokens in {wall:.3f} s "
         f"({len(ticks)} ticks; admission prefill {t_admit * 1e3:.1f} ms)")
-    log(f"  launches in the main path: {launches}")
+    log(f"  launches in the main path: {launches}; on tensor-core bodies: "
+        f"{tc}")
     if not (launches["flash_attention_fwd"] and launches["decode_attention"]):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     assert launches["flash_attention_fwd"] == cfg.num_layers * len(prompts)
     assert launches["decode_attention"] == cfg.num_layers * len(ticks)
     assert launches["paged_decode_attention"] == 0
+    # bf16 prefill runs the tensor-core flash body; the tick (R = 1) the
+    # split-KV decode body
+    assert tc == {"flash_attention_fwd": launches["flash_attention_fwd"],
+                  "decode_attention": 0}, tc
     assert all(len(s) == new and all(0 <= t < cfg.vocab_size for t in s)
                for s in served)
 
@@ -1081,7 +1135,8 @@ def main_path(torch, gpt, G, serving, ks, wl):
         "ticks": len(ticks), "tick_ms_mean": 1e3 * statistics.mean(ticks),
         "tick_ms_median": 1e3 * statistics.median(ticks),
         "admission_ms": 1e3 * t_admit, "peak_mem_gb": peak / 1e9,
-        "launches": launches, "solo_generate_equal": solo_div is None,
+        "launches": launches, "tc_launches": tc,
+        "solo_generate_equal": solo_div is None,
         "solo_divergence": solo_div,
     }
     log(f"  tokens/s {stats['tokens_per_s']:.1f}, mean tick "
@@ -1091,6 +1146,7 @@ def main_path(torch, gpt, G, serving, ks, wl):
 
 
 def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
+    from paddle_tpu_torch.ops.decode_attention import R_TC
     cfg, params, srv, prompts = wl.build_paged_path("cuda", seed=0)
     new, L = wl.NEW, cfg.num_layers
     lens = [len(p) for p in prompts]
@@ -1101,12 +1157,16 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
     cont.close()
     del cont
 
-    chunk_calls = []
+    chunk_calls = []        # (pos0, length, width C, tc launches added)
     plain_chunk = kv_pool.paged_prefill_chunk
+    dec = ks["decode_attention"]
 
     def counted_chunk(*args, **kw):
-        chunk_calls.append(args[3:5])                 # (pos0, length)
-        return plain_chunk(*args, **kw)
+        before = dec.tc_launches
+        out = plain_chunk(*args, **kw)
+        chunk_calls.append((*args[3:5], args[2].shape[1],
+                            dec.tc_launches - before))
+        return out
 
     kv_pool.paged_prefill_chunk = counted_chunk
     try:
@@ -1115,6 +1175,7 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
         zero_counts(ks)
         served, t_admit, ticks, wall = serve(torch, srv, prompts, new)
         launches = launch_counts(ks)
+        tc = tc_counts(ks)
     finally:
         kv_pool.paged_prefill_chunk = plain_chunk
     peak = torch.cuda.max_memory_allocated()
@@ -1124,7 +1185,11 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
     log(f"  served {len(served)} requests, {n_tok} tokens in {wall:.3f} s "
         f"({len(ticks)} ticks; admission {t_admit * 1e3:.1f} ms in "
         f"{len(chunk_calls)} chunks {chunk_calls})")
-    log(f"  launches in the paged path: {launches}")
+    log(f"  launches in the paged path: {launches}; on tensor-core bodies: "
+        f"{tc}")
+    for pos0, length, C, added in chunk_calls:
+        log(f"  admission chunk pos0={pos0} length={length} C={C}: "
+            f"{added} tensor-core decode launches (R_TC={R_TC})")
     log(f"  allocator: {json.dumps(pool)}; prefilled rows "
         f"{load['prefill_rows']} of {sum(lens)} prompt rows")
     if not (launches["paged_decode_attention"]
@@ -1133,6 +1198,10 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
     assert launches["paged_decode_attention"] == L * len(ticks), launches
     assert launches["decode_attention"] == L * len(chunk_calls), launches
     assert launches["flash_attention_fwd"] == 0, launches
+    # every admission at C >= R_TC (G = 1: R = C) on the tensor-core route
+    for _, _, C, added in chunk_calls:
+        assert added == L * (C >= R_TC), chunk_calls
+    assert tc["decode_attention"] == sum(c[3] for c in chunk_calls), tc
     assert all(len(s) == new for s in served)
     cont_div = {r: check_tokens(torch, gpt, params, cfg, prompts[r],
                                 served[r], cont_tokens[r],
@@ -1159,7 +1228,8 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
         "tick_ms_median": 1e3 * statistics.median(ticks),
         "admission_ms": 1e3 * t_admit, "admission_chunks": len(chunk_calls),
         "prefill_rows": load["prefill_rows"], "prompt_rows": sum(lens),
-        "peak_mem_gb": peak / 1e9, "launches": launches, "kv_pool": pool,
+        "peak_mem_gb": peak / 1e9, "launches": launches, "tc_launches": tc,
+        "admission_chunks_pos0_length_width_tc": chunk_calls, "kv_pool": pool,
         "contiguous_tokens_equal": all(d is None for d in cont_div.values()),
         "tokens_before_divergence": same,
         "contiguous_divergences": {r: d for r, d in cont_div.items()
@@ -1230,6 +1300,9 @@ def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
         raise AssertionError(f"W4 launches per tick {per_tick}, not "
                              f"{per_pass} each")
     assert launches["w4_matmul"] == per_pass * len(ticks) + sum(want_admit)
+    tc = tc_counts(ks)
+    assert tc == {"flash_attention_fwd": launches["flash_attention_fwd"],
+                  "decode_attention": 0}, tc
     assert launches["flash_attention_fwd"] == L * len(prompts), launches
     assert launches["decode_attention"] == L * len(ticks), launches
     assert launches["fused_layer_norm_fwd"] == 0, launches
@@ -1250,7 +1323,7 @@ def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
         "tick_ms_median": 1e3 * statistics.median(ticks),
         "admission_ms": 1e3 * t_admit, "peak_mem_gb": peak / 1e9,
         "w4_per_tick": per_pass, "w4_per_admission": admit,
-        "launches": launches,
+        "launches": launches, "tc_launches": tc,
         "dequant_route_equal": {r: d is None for r, d in solo_div.items()},
         "dequant_route_divergence": {r: d for r, d in solo_div.items()
                                      if d is not None},
@@ -1316,6 +1389,11 @@ def train_path(torch, gpt, ks, tr, fused_ln=False, steps=4):
     for i, got in enumerate(per_step):
         if got != want:
             raise AssertionError(f"step {i + 1} launched {got}, not {want}")
+    # every flash forward of every step on the tensor-core body (bf16)
+    tc = tc_counts(ks)
+    if tc != {"flash_attention_fwd": steps * want["flash_attention_fwd"],
+              "decode_attention": 0}:
+        raise AssertionError(f"tensor-core launches {tc} in {steps} steps")
     steady = statistics.median(step_s[1:])
     stats = {
         "rung": "gpt_1.3b_fused_acc8_b8" if fused_ln else
@@ -1330,6 +1408,7 @@ def train_path(torch, gpt, ks, tr, fused_ln=False, steps=4):
         "steady_tokens_per_s": n_tok / steady,
         "mfu": fpt * n_tok / steady / BF16_FLOPS_PER_S,
         "peak_mem_gb": peak / 1e9, "launches_per_step": per_step[-1],
+        "tc_launches": tc,
     }
     log(f"  steady (median of steps 2-{steps}): {stats['steady_step_ms']:.1f}"
         f" ms/step, {stats['steady_tokens_per_s']:.0f} tokens/s, MFU "
@@ -1400,6 +1479,11 @@ def main() -> int:
     log(f"  decode_attention {json.dumps(dec)}")
     dec_chunk = time_decode_chunk(torch, da, F)
     log(f"  decode_attention admission chunk {json.dumps(dec_chunk)}")
+    # the paged serve's admission widths (G = 1: R = C)
+    dec_widths = {f"R={R}": time_decode_chunk(torch, da, F, Tq=R)
+                  for R in (128, 256)}
+    for row in dec_widths.values():
+        log(f"  decode_attention admission chunk {json.dumps(row)}")
     paged_lens = [len(p) for p in wl.paged_prompts(50304)]
     paged = time_paged(torch, da, F, [n + wl.NEW // 2 for n in paged_lens])
     log(f"  paged_decode_attention {json.dumps(paged)}")
@@ -1459,8 +1543,17 @@ def main() -> int:
         f"tokens/s, MFU {b['mfu']:.4f} vs {a['mfu']:.4f}, peak memory "
         f"{b['peak_mem_gb']:.2f} vs {a['peak_mem_gb']:.2f} GB")
 
+    tc_by_path = {"main": stats["tc_launches"], "paged": pstats["tc_launches"],
+                  "w4": wstats["tc_launches"],
+                  **{p: t["tc_launches"] for p, t in train.items()}}
+
     def entry(name, src, replaces, row, **extra):
         launches = {p: counts[name] for p, counts in by_path.items()}
+        if name in tc_by_path["main"]:
+            tc = {p: counts[name] for p, counts in tc_by_path.items()}
+            extra = {"tc_launches": sum(tc.values()),
+                     "tc_launches_by_path": tc,
+                     "tc_body": "paddle_tpu_torch/csrc/attn_tc.cuh", **extra}
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches,
@@ -1491,7 +1584,8 @@ def main() -> int:
               at_other_shapes=w4_more),
         entry("decode_attention", "paddle_tpu_torch/csrc/decode_attention.cu",
               "paddle_tpu/ops/decode_attention.py:282", dec,
-              at_admission_chunk=dec_chunk),
+              at_admission_chunk=dec_chunk,
+              at_admission_widths=dec_widths),
         entry("paged_decode_attention",
               "paddle_tpu_torch/csrc/paged_decode_attention.cu",
               "paddle_tpu/ops/decode_attention.py:509", paged,

@@ -5,15 +5,25 @@
 // online-softmax attention over q, k, v [B, T, H, D] that returns out in
 // q's dtype and the per-row logsumexp in fp32.
 //
-// What bounds it on an H100: at the prefill shapes of the serving path
-// (B = 1, T <= 2048, H = 16, D = 128, causal) the work is 2·T²·H·D
-// multiply-adds against 8·T·H·D bytes of q, k, v and out in bf16, so below
-// T ~ 1k the bytes bound it and above that the operations do.  This first
-// version runs its products as fp32 FMAs on the CUDA cores (no wgmma/TMA
-// yet), so in practice its FMA and shared-memory issue rate bound it; the
-// tensor-core version is later work.
+// Two bodies, chosen statically by dtype (``flash_attention.route`` in the
+// wrapper takes the same decision):
+//  * bf16 q/k/v, D in {64, 128, 256}: the tensor-core body of attn_tc.cuh
+//    (wgmma products, a cp.async ring of swizzled K/V tiles) — its note
+//    says what bounds it and how it is laid out.  One CTA (one warpgroup)
+//    per (64-row q tile, b·h); the grid walks q tiles from the last, so
+//    the heaviest causal tiles start first.  No split and no combine: a
+//    CTA walks all the keys its rows see.
+//  * fp32 q/k/v: the fp32-FMA body below, kept for the small fp32 models
+//    whose card-vs-CPU gates need fp32 products.
 //
-// Design:
+// The fp32 body, what bounds it and its design: at the prefill shapes of
+// the serving path (B = 1, T <= 2048, H = 16, D = 128, causal) the work is
+// 2·T²·H·D multiply-adds against 8·T·H·D bytes of q, k, v and out, so
+// below T ~ 1k the bytes bound it and above that the operations do.  It
+// runs its products as fp32 FMAs on the CUDA cores, so in practice its FMA
+// and shared-memory issue rate bound it.
+//
+// Design of the fp32 body:
 //  * One CTA per (b·h, 32-row q tile); 8 warps, 4 query rows each.  The
 //    TPU kernel carries the running max / denominator / accumulator
 //    across sequential grid steps in VMEM scratch; here the k-tile walk is
@@ -39,6 +49,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "attn_tc.cuh"
+
 namespace {
 
 constexpr int kWarps = 8;
@@ -54,18 +66,6 @@ __device__ __forceinline__ void load4(const float* p, float* o) {
   o[0] = v.x; o[1] = v.y; o[2] = v.z; o[3] = v.w;
 }
 
-__device__ __forceinline__ void load4(const __nv_bfloat16* p, float* o) {
-  const __nv_bfloat162* p2 = reinterpret_cast<const __nv_bfloat162*>(p);
-  const float2 a = __bfloat1622float2(p2[0]);
-  const float2 b = __bfloat1622float2(p2[1]);
-  o[0] = a.x; o[1] = a.y; o[2] = b.x; o[3] = b.y;
-}
-
-__device__ __forceinline__ void store1(float* p, float v) { *p = v; }
-__device__ __forceinline__ void store1(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
-}
-
 __device__ __forceinline__ float warp_max(float v) {
   for (int o = 16; o > 0; o >>= 1) v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
   return v;
@@ -76,10 +76,10 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, T* __restrict__ o,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o,
                  float* __restrict__ lse, int Tq, int S, int H, int Hkv,
                  float scale, int causal) {
   extern __shared__ float smem[];
@@ -189,14 +189,14 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const int i = q0 + warp * kRows + rr;
     if (i >= Tq) continue;
     const float ls = l[rr] == 0.f ? 1.f : l[rr];
-    T* orow = o + ((size_t)(b * Tq + i) * H + h) * D;
+    float* orow = o + ((size_t)(b * Tq + i) * H + h) * D;
 #pragma unroll
-    for (int e = 0; e < NV; ++e) store1(orow + lane + 32 * e, acc[rr][e] / ls);
+    for (int e = 0; e < NV; ++e) orow[lane + 32 * e] = acc[rr][e] / ls;
     if (lane == 0) lse[(size_t)bh * Tq + i] = m[rr] + logf(ls);
   }
 }
 
-template <typename T, int D>
+template <int D>
 cudaError_t launch(const void* q, const void* k, const void* v, void* o,
                    void* lse, int B, int Tq, int S, int H, int Hkv,
                    int causal, float scale, cudaStream_t stream) {
@@ -208,23 +208,107 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
   if (e != cudaSuccess) return e;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
   if (smem > attr_bytes[dev]) {
-    e = cudaFuncSetAttribute(flash_fwd_kernel<T, D>,
+    e = cudaFuncSetAttribute(flash_fwd_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)smem);
     if (e != cudaSuccess) return e;
     attr_bytes[dev] = smem;
   }
   const dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
-  flash_fwd_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), static_cast<float*>(lse),
+  flash_fwd_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o),
+      static_cast<float*>(lse),
       Tq, S, H, Hkv, scale, causal);
+  return cudaGetLastError();
+}
+
+// ---- bf16: the tensor-core body (attn_tc.cuh) ----
+
+// Row addressing of one (b, h, 64-row q tile) for attn_tc::attend.
+template <int D>
+struct FlashTile {
+  const __nv_bfloat16* q;
+  int b, h, hk, q0, Tq, S, H, Hkv, causal;
+  __device__ __forceinline__ const __nv_bfloat16* q_row(int i) const {
+    const int t = q0 + i;
+    return t < Tq ? q + ((size_t)(b * Tq + t) * H + h) * D : nullptr;
+  }
+  __device__ __forceinline__ size_t kv_row(int t) const {
+    return (size_t)(b * S + t) * Hkv + hk;
+  }
+  __device__ __forceinline__ int frontier(int i) const {
+    return causal ? min(q0 + i, S - 1) : S - 1;
+  }
+};
+
+template <int D>
+__global__ void __launch_bounds__(attn_tc::kThreads)
+flash_fwd_tc_kernel(const __nv_bfloat16* __restrict__ q,
+                    const __nv_bfloat16* __restrict__ k,
+                    const __nv_bfloat16* __restrict__ v,
+                    __nv_bfloat16* __restrict__ o, float* __restrict__ lse,
+                    int Tq, int S, int H, int Hkv, float scale, int causal) {
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int q0 = (gridDim.y - 1 - blockIdx.y) * attn_tc::kBM;  // last first
+  const FlashTile<D> pol{q, b, h, h / (H / Hkv), q0, Tq, S, H, Hkv, causal};
+  const int k_end = causal ? min(S, q0 + attn_tc::kBM) : S;
+  attn_tc::State<D> st;
+  attn_tc::attend<D, __nv_bfloat16>(pol, k, v, nullptr, nullptr, 0, k_end,
+                                    scale * attn_tc::kLog2e, st);
+
+  const int i0 = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+  float inv[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const float ls = st.l[r] == 0.f ? 1.f : st.l[r];
+    inv[r] = 1.f / ls;
+    const int t = q0 + i0 + 8 * r;
+    if ((threadIdx.x & 3) == 0 && t < Tq)
+      lse[(size_t)bh * Tq + t] = st.m[r] * attn_tc::kLn2 + logf(ls);
+  }
+#pragma unroll
+  for (int nb = 0; nb < D / 64; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int r = attn_tc::acc_half(e), t = q0 + i0 + 8 * r;
+      if (t >= Tq) continue;
+      *reinterpret_cast<__nv_bfloat162*>(
+          o + ((size_t)(b * Tq + t) * H + h) * D + attn_tc::acc_col(nb, e)) =
+          __floats2bfloat162_rn(st.o[nb][e] * inv[r], st.o[nb][e + 1] * inv[r]);
+    }
+}
+
+template <int D>
+cudaError_t launch_tc(const void* q, const void* k, const void* v, void* o,
+                      void* lse, int B, int Tq, int S, int H, int Hkv,
+                      int causal, float scale, cudaStream_t stream) {
+  const size_t smem = attn_tc::smem_bytes<D>(false);
+  static size_t attr_bytes[attn_tc::kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= attn_tc::kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem > attr_bytes[dev]) {
+    e = cudaFuncSetAttribute(flash_fwd_tc_kernel<D>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)smem);
+    if (e != cudaSuccess) return e;
+    attr_bytes[dev] = smem;
+  }
+  const dim3 grid(B * H, (Tq + attn_tc::kBM - 1) / attn_tc::kBM);
+  if (grid.y > 65535) return cudaErrorInvalidValue;
+  flash_fwd_tc_kernel<D><<<grid, attn_tc::kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), static_cast<__nv_bfloat16*>(o),
+      static_cast<float*>(lse), Tq, S, H, Hkv, scale, causal);
   return cudaGetLastError();
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it).
+// dtype: 0 = float32 (the FMA body), 1 = bfloat16 (the tensor-core body);
+// q, k, v and out share it.
 // q [B, Tq, H, D], k/v [B, S, Hkv, D], out like q, lse [B*H, Tq] float32;
 // all contiguous.  Returns cudaGetLastError() after the launch.
 extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
@@ -235,16 +319,16 @@ extern "C" int flash_fwd(const void* q, const void* k, const void* v, void* o,
   if (Tq <= 0 || S <= 0 || Hkv <= 0 || H % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   if (dtype == 0 && D == 64)
-    return (int)launch<float, 64>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
+    return (int)launch<64>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
   if (dtype == 0 && D == 128)
-    return (int)launch<float, 128>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
+    return (int)launch<128>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
   if (dtype == 0 && D == 256)
-    return (int)launch<float, 256>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
+    return (int)launch<256>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
   if (dtype == 1 && D == 64)
-    return (int)launch<__nv_bfloat16, 64>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
+    return (int)launch_tc<64>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
   if (dtype == 1 && D == 128)
-    return (int)launch<__nv_bfloat16, 128>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
+    return (int)launch_tc<128>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
   if (dtype == 1 && D == 256)
-    return (int)launch<__nv_bfloat16, 256>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
+    return (int)launch_tc<256>(q, k, v, o, lse, B, Tq, S, H, Hkv, causal, scale, st);
   return (int)cudaErrorInvalidValue;
 }

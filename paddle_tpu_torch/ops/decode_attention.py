@@ -7,7 +7,9 @@ kernels become CUDA sources that share one split-KV body
 at its top says what bounds it and how it is laid out):
 
 * ``_decode_call`` -> ``csrc/decode_attention.cu``, a contiguous cache
-  [B, T, Hkv, hd];
+  [B, T, Hkv, hd]; at admission-chunk widths (R = Tq·G >= ``R_TC``, bf16
+  q, bf16 or int8 cache) it runs the tensor-core body of
+  ``csrc/attn_tc.cuh`` instead (:func:`route`);
 * ``_paged_call`` -> ``csrc/paged_decode_attention.cu``, a block pool
   [N, bs, Hkv, hd] read through per-slot block tables.
 
@@ -33,6 +35,15 @@ _HEAD_DIMS = (64, 128, 256)
 _R_CAP = 1024   # query rows (Tq * G) per kv head, the JAX kernels' cap
 _BT = 64        # cache rows per kernel tile; a split is a multiple of it
 _TARGET_CTAS = 264   # two CTAs per SM on a 132-SM card
+_SMS = 132           # SMs of an H100 SXM
+_TC_ROWS = 64        # packed query rows per tensor-core CTA (attn_tc kBM)
+_TC_MIN_CHUNK = 512  # cache rows a tensor-core split walks at least
+# The least R = Tq * G that takes the tensor-core route: the smallest R, not
+# below 16, at which it beat the split-KV body in a sweep on an H100
+# (B = 1, T = 512, bf16, R = 8..512: it won at every width, 0.020 against
+# 0.055 ms at R = 16; tools/sweep_decode_routes.py, PERF.md).  Read at
+# every launch.
+R_TC = 16
 
 
 def quantize_kv(x):
@@ -72,6 +83,39 @@ def _plain_decode(q, k, v, pos, k_scale, v_scale, scale):
     w = torch.softmax(s, dim=-1)
     out = torch.einsum("bkgit,btkd->bikgd", w, vf)
     return out.reshape(B, Tq, Hq, hd).to(q.dtype)
+
+
+def route(R: int, q_dtype, hd: int, kv_dtype=torch.bfloat16) -> str:
+    """Which body a contiguous ``decode_attention`` launch of R = Tq * G
+    packed query rows per kv head takes: "tc" (the wgmma body of
+    ``csrc/attn_tc.cuh``) for bf16 q over a bf16 or int8 cache once
+    R >= ``R_TC``; else "split" (the split-KV body of
+    ``csrc/split_kv.cuh``: the decode tick, fp32 q or cache).  The C entry
+    takes the same decision from the same inputs and ``R_TC``."""
+    if q_dtype not in _Q_DTYPES or kv_dtype not in _KV_DTYPES \
+            or hd not in _HEAD_DIMS:
+        raise ValueError(f"decode_attention: no route for q {q_dtype}, "
+                         f"cache {kv_dtype}, head_dim {hd}")
+    tc = (q_dtype == torch.bfloat16 and kv_dtype != torch.float32
+          and R >= R_TC)
+    return "tc" if tc else "split"
+
+
+def tc_split_plan(B: int, Hkv: int, T: int, R: int):
+    """(chunk, nsplit) of the tensor-core route: one CTA per (64-row tile
+    of the R rows, split, kv head, batch row).  The cache walk is split
+    only when the (row tiles x Hkv x B) CTAs are fewer than the card's
+    132 SMs, into about as many splits as fill it — but no split walks
+    fewer than ``_TC_MIN_CHUNK`` rows: a split's partial sums cost a pass
+    of split_kv.cuh's combine kernel, which the sweep (PERF.md) found
+    dearer than a CTA walking a 512-row cache alone.  A split is a
+    multiple of the 64-row key tile."""
+    tiles = -(-T // _BT)
+    cells = B * Hkv * -(-R // _TC_ROWS)
+    want = 1 if cells >= _SMS else min(-(-_SMS // cells),
+                                       max(1, tiles // (_TC_MIN_CHUNK // _BT)))
+    chunk = -(-tiles // want) * _BT
+    return chunk, -(-T // chunk)
 
 
 def row_tile(hd: int) -> int:
@@ -155,14 +199,18 @@ def _check(q, k, v, pos, k_scale, v_scale, tables=None):
                              f"aligned")
 
 
-def _launch(name, q, k, Hkv, T, ptrs, dims, scale):
+def _launch(name, q, k, Hkv, T, ptrs, dims, scale, tc=None):
     """Allocate the output and the split scratch, launch ``csrc/<name>.cu``
     on q's card with ``ptrs`` (input pointers, None for an absent scale)
-    and ``dims``, and raise on a refused launch."""
+    and ``dims``, and raise on a refused launch.  ``tc`` (the contiguous
+    kernel only): whether the launch takes the tensor-core route, whose
+    split plan it then uses; ``R_TC`` goes to the C entry, which decides
+    the same."""
     B, Tq, Hq, hd = q.shape
     R = Tq * (Hq // Hkv)
     scale = scale if scale is not None else 1.0 / (hd ** 0.5)
-    chunk, nsplit = split_plan(B, Hkv, T, R, hd)
+    chunk, nsplit = (tc_split_plan(B, Hkv, T, R) if tc
+                     else split_plan(B, Hkv, T, R, hd))
     out = torch.empty_like(q)
     f32 = dict(dtype=torch.float32, device=q.device)
     o_part = torch.empty((B, Hkv, nsplit, R, hd), **f32)
@@ -171,6 +219,8 @@ def _launch(name, q, k, Hkv, T, ptrs, dims, scale):
     ptrs = [*ptrs, out.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
             l_part.data_ptr()]
     ints = [*dims, hd, _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], chunk, nsplit]
+    if tc is not None:
+        ints.append(R_TC)
     fn = getattr(_build.load(name), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -197,21 +247,25 @@ def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, scale=None):
     CPU tensors run :func:`_plain_decode`.  CUDA tensors launch
     ``csrc/decode_attention.cu`` (q float32/bfloat16; cache float32,
     bfloat16 or int8; hd in {64, 128, 256}; Tq * Hq / Hkv <= 1024); every
-    launch adds one to ``decode_attention.launches``."""
+    launch adds one to ``decode_attention.launches``, and one on the
+    tensor-core route (:func:`route`) to ``.tc_launches``."""
     if not q.is_cuda:
         return _plain_decode(q, k, v, pos, k_scale, v_scale, scale)
     _check(q, k, v, pos, k_scale, v_scale)
-    B, Tq, Hq, _ = q.shape
+    B, Tq, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
+    tc = route(Tq * (Hq // Hkv), q.dtype, hd, k.dtype) == "tc"
     out = _launch("decode_attention", q, k, Hkv, T,
                   [q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    *_scale_ptrs(k_scale, v_scale), pos.data_ptr()],
-                  [B, Tq, Hq, Hkv, T], scale)
+                  [B, Tq, Hq, Hkv, T], scale, tc)
     decode_attention.launches += 1
+    decode_attention.tc_launches += tc
     return out
 
 
 decode_attention.launches = 0
+decode_attention.tc_launches = 0
 
 
 # ---------------------------------------------------------------------------

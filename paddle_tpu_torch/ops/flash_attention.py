@@ -2,7 +2,9 @@
 and their plain PyTorch twins.
 
 Counterpart of ``paddle_tpu/ops/flash_attention.py``.  The Pallas forward
-(``_flash_fwd_impl``) becomes ``csrc/flash_fwd.cu``; the backward's two
+(``_flash_fwd_impl``) becomes ``csrc/flash_fwd.cu`` — bf16 on the
+tensor-core body of ``csrc/attn_tc.cuh``, fp32 on an FMA body
+(:func:`route`); the backward's two
 Pallas kernels (``dq_kernel``, ``dkv_kernel`` of ``_flash_bwd_impl``)
 become ``csrc/flash_bwd.cu`` — see the notes at the top of those files for
 what bounds them and how they are laid out.  The custom-vjp ``_flash``
@@ -27,6 +29,17 @@ from . import _build
 _NEG = -1e30  # large-negative instead of -inf: keeps lse finite on empty rows
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128, 256)
+
+
+def route(q_dtype, hd) -> str:
+    """Which body of ``csrc/flash_fwd.cu`` a forward launch takes: "tc"
+    (the wgmma body of ``csrc/attn_tc.cuh``) for bfloat16, "fma" (fp32
+    products on the CUDA cores) for float32.  The C entry decides the same
+    from the same dtype; every head dim the kernel takes runs on either."""
+    if q_dtype not in _DTYPES or hd not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention_fwd: no route for {q_dtype}, "
+                         f"head_dim {hd}")
+    return "tc" if q_dtype == torch.bfloat16 else "fma"
 
 
 def _plain_fwd(q, k, v, causal: bool, scale=None):
@@ -84,7 +97,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
 
     CPU tensors run :func:`_plain_fwd`.  CUDA tensors launch
     ``csrc/flash_fwd.cu`` (float32 or bfloat16, D in {64, 128, 256}, any T);
-    every launch adds one to ``flash_attention_fwd.launches``."""
+    every launch adds one to ``flash_attention_fwd.launches``, and one on
+    the tensor-core body (:func:`route`) to ``.tc_launches``."""
     if not q.is_cuda:
         return _plain_fwd(q, k, v, causal, scale)
     _check(q, k, v)
@@ -105,10 +119,12 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
                   torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "flash_fwd")
     flash_attention_fwd.launches += 1
+    flash_attention_fwd.tc_launches += route(q.dtype, D) == "tc"
     return out, lse
 
 
 flash_attention_fwd.launches = 0
+flash_attention_fwd.tc_launches = 0
 
 
 def _plain_bwd(q, k, v, out, lse, do, causal: bool, scale=None):

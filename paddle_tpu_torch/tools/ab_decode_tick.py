@@ -1,5 +1,5 @@
-"""A/B of the contiguous decode kernel at the serving tick's shape across
-checkouts, on one card.
+"""A/B of the decode tick's kernels (the contiguous decode kernel and the
+paged one) across checkouts, on one card.
 
     python3 paddle_tpu_torch/tools/ab_decode_tick.py ROOT_A ROOT_B ROOT_B ROOT_A
 
@@ -8,8 +8,9 @@ of its own, in the order given (two builds of the same template kernels
 in one process fail to launch), by ``chip_smoke.time_decode`` of THIS
 checkout on that checkout's ``decode_attention``: B = 8 slots at the main
 path's mid-serve positions, T = 512, Hq = Hkv = 16, hd = 128, bf16, L2
-flushed, median of 20 launches.  Prints the card line, then one JSON line
-per run.  Needs a CUDA card; imports nothing of JAX or the JAX package.
+flushed, median of 20 launches; then by ``chip_smoke.time_paged`` on its
+``paged_decode_attention`` at the paged path's mid-serve tick.  Prints the
+card line, then two JSON lines per run.  Needs a CUDA card; imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
@@ -40,7 +41,13 @@ def _child(root: str) -> None:
     assert Path(da.__file__).resolve().is_relative_to(Path(root).resolve())
     row = chip_smoke.time_decode(torch, da, F,
                                  [n + wl.NEW // 2 for n in wl.LENS])
-    print(json.dumps({"root": root, **row}), flush=True)
+    print(json.dumps({"root": root, "kernel": "decode_attention", **row}),
+          flush=True)
+    lens = [len(p) for p in wl.paged_prompts(50304)]
+    row = chip_smoke.time_paged(torch, da, F,
+                                [n + wl.NEW // 2 for n in lens])
+    print(json.dumps({"root": root, "kernel": "paged_decode_attention",
+                      **row}), flush=True)
 
 
 def main() -> int:

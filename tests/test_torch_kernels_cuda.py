@@ -1,5 +1,7 @@
 """The port's CUDA kernels against their plain PyTorch twins, on a card:
-flash prefill, split-KV decode (up to 1024 query rows per kv head),
+flash prefill (fp32 on the FMA body, bf16 on the tensor-core body),
+split-KV decode (up to 1024 query rows per kv head; the tensor-core route
+from ``R_TC`` packed rows on),
 block-table (paged) decode, the flash backward (dq and dk/dv), the
 fused softmax cross-entropy and the fused LayerNorm (forward and
 backward), and the W4A16 dequant-matmul.
@@ -128,6 +130,124 @@ def test_decode_wide_query_rows_match_plain(B, Tq, Hq, Hkv, pos0, kv, hd):
     assert da.decode_attention.launches == before + 1
     tol = 1e-2 if q.dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+
+@pytest.mark.parametrize("B,T,S,H,Hkv,D,causal", [
+    (1, 64, 64, 16, 16, 128, True),
+    (1, 64, 64, 16, 16, 128, False),
+    (2, 200, 200, 16, 4, 128, True),      # ragged T, GQA (G = 4)
+    (2, 200, 200, 16, 4, 128, False),
+    (1, 2048, 2048, 16, 16, 128, True),   # the train path's shape
+    (1, 2048, 2048, 16, 4, 128, False),
+    (2, 200, 333, 8, 2, 64, False),       # S != T
+    (2, 333, 200, 8, 8, 64, True),        # S < T, causal: rows past S
+    (1, 300, 300, 8, 2, 256, True),
+    (1, 130, 77, 4, 4, 256, False),
+])
+def test_flash_fwd_tensor_core_body_matches_plain(B, T, S, H, Hkv, D, causal):
+    """bf16 forwards run the tensor-core body (``route`` says so and
+    ``tc_launches`` counts it): out within 1e-2 * (1 + |plain|), the fp32
+    lse within 1e-3."""
+    gen = _card()
+    q = torch.randn(B, T, H, D, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").bfloat16()
+    v = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").bfloat16()
+    assert fa.route(q.dtype, D) == "tc"
+    before = (fa.flash_attention_fwd.launches,
+              fa.flash_attention_fwd.tc_launches)
+    out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    ref, ref_lse = fa._plain_fwd(q, k, v, causal)
+    torch.cuda.synchronize()
+    assert (fa.flash_attention_fwd.launches,
+            fa.flash_attention_fwd.tc_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+    assert (lse - ref_lse).abs().max().item() < 1e-3
+
+
+def test_flash_fwd_fp32_stays_on_the_fma_body():
+    gen = _card()
+    q, k, v = (torch.randn(1, 100, 4, 128, generator=gen, device="cuda")
+               for _ in range(3))
+    assert fa.route(q.dtype, 128) == "fma"
+    before = fa.flash_attention_fwd.tc_launches
+    out, _ = fa.flash_attention_fwd(q, k, v, causal=True)
+    assert fa.flash_attention_fwd.tc_launches == before
+    torch.testing.assert_close(out, fa._plain_fwd(q, k, v, True)[0],
+                               atol=1e-4, rtol=1e-4)
+
+
+def test_flash_bwd_from_the_tensor_core_forward():
+    """The unchanged dq and dk/dv kernels fed the tensor-core forward's out
+    and lse (train shape, then GQA at head_dim 64): grads within the bf16
+    tolerance of ``_plain_bwd`` on the same out and lse, and of
+    ``_plain_bwd`` on the plain forward's."""
+    gen = _card()
+    for B, T, H, Hkv, D in [(1, 2048, 16, 16, 128), (2, 200, 8, 2, 64)]:
+        q, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                 .bfloat16() for _ in range(2))
+        k, v = (torch.randn(B, T, Hkv, D, generator=gen, device="cuda")
+                .bfloat16() for _ in range(2))
+        before = fa.flash_attention_fwd.tc_launches
+        out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
+        assert fa.flash_attention_fwd.tc_launches == before + 1
+        got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        ref = fa._plain_bwd(q, k, v, out, lse, do, True)
+        p_out, p_lse = fa._plain_fwd(q, k, v, True)
+        ref_plain = fa._plain_bwd(q, k, v, p_out, p_lse, do, True)
+        torch.cuda.synchronize()
+        for g, r, rp in zip(got, ref, ref_plain):
+            torch.testing.assert_close(g.float(), r.float(), atol=1e-2,
+                                       rtol=1e-2)
+            torch.testing.assert_close(g.float(), rp.float(), atol=1e-2,
+                                       rtol=1e-2)
+
+
+@pytest.mark.parametrize("B,Tq,Hq,Hkv,T,pos0,kv,hd", [
+    (1, da.R_TC - 1, 16, 16, 512, 0, "bfloat16", 128),  # last split-KV R
+    (1, da.R_TC, 16, 16, 512, 0, "bfloat16", 128),      # first tc R
+    (1, 512, 16, 16, 512, 0, "bfloat16", 128),          # R = 512
+    (1, 512, 16, 16, 512, 0, "int8", 128),
+    (2, 256, 16, 4, 520, 200, "bfloat16", 128),         # R = 1024, G = 4
+    (2, 256, 16, 4, 520, 200, "int8", 128),
+    (2, 96, 8, 8, 333, 37, "bfloat16", 64),             # pos > 0, ragged T
+    (2, 40, 8, 2, 333, 150, "int8", 64),                # G = 4, R = 160
+    (3, 128, 16, 16, 512, 100, "bfloat16", 128),        # the paged widths
+    (1, 256, 16, 16, 512, 0, "bfloat16", 128),
+    (2, 100, 8, 2, 520, 300, "bfloat16", 256),
+    (1, 64, 4, 1, 333, 10, "int8", 256),                # G = 4, hd 256
+])
+def test_decode_tensor_core_route_matches_plain(B, Tq, Hq, Hkv, T, pos0, kv,
+                                                hd):
+    """Wide query blocks take the tensor-core route from ``R_TC`` packed
+    rows on (``tc_launches`` counts exactly those), narrower ones the
+    split-KV body; both within 1e-2 * (1 + |plain|), bf16 and int8."""
+    gen = _card()
+    q = torch.randn(B, Tq, Hq, hd, generator=gen, device="cuda").bfloat16()
+    k = torch.randn(B, T, Hkv, hd, generator=gen, device="cuda")
+    v = torch.randn(B, T, Hkv, hd, generator=gen, device="cuda")
+    ks = vs = None
+    if kv == "int8":
+        k, ks = da.quantize_kv(k)
+        v, vs = da.quantize_kv(v)
+    else:
+        k, v = k.bfloat16(), v.bfloat16()
+    pos = torch.tensor([pos0, T - Tq, T // 3][:B], dtype=torch.int32,
+                       device="cuda")
+    R = Tq * Hq // Hkv
+    want_tc = da.route(R, q.dtype, hd, k.dtype) == "tc"
+    assert want_tc == (R >= da.R_TC)
+    before = (da.decode_attention.launches, da.decode_attention.tc_launches)
+    out = da.decode_attention(q, k, v, pos, ks, vs)
+    ref = da._plain_decode(q, k, v, pos, ks, vs, None)
+    torch.cuda.synchronize()
+    assert (da.decode_attention.launches,
+            da.decode_attention.tc_launches) == (before[0] + 1,
+                                                before[1] + want_tc)
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
 
 
 def _paged_inputs(gen, B, Tq, Hq, Hkv, bs, nmax, kv, qdt, pos_list, hd=128):
