@@ -51,9 +51,9 @@ def _dtype_name(d) -> str:
 
 def config_from_jax(jcfg) -> gpt.GPTConfig:
     """The port's ``GPTConfig`` from a JAX ``GPTConfig``'s field values
-    (compute dtype mapped by name).  MoE configs raise, and so does
-    ``GPTConfig`` on dropout, remat or use_flash other than the defaults
-    (not ported yet)."""
+    (compute dtype mapped by name; ``use_flash`` is carried as it is).
+    MoE configs raise, and so does ``GPTConfig`` on dropout or remat
+    other than the defaults (not ported yet)."""
     if getattr(jcfg, "moe", None) is not None:
         raise NotImplementedError("MoE configs are not ported yet")
     kw = {f: getattr(jcfg, f) for f in _CFG_FIELDS}

@@ -38,9 +38,13 @@ class GPTConfig:
     num_heads: int = 12
     max_seq_len: int = 1024
     ffn_ratio: int = 4
-    # not ported yet: any other value than these defaults raises
+    # dropout and remat are not ported yet: any other value than these
+    # defaults raises
     dropout: float = 0.0
     remat: bool = False
+    # carried for the JAX config's sake and read by no math: attention
+    # routes by shape there too (paddle_tpu/ops/attention.py), and on the
+    # card the port's one attention path is the flash kernels
     use_flash: bool = True
     dtype: torch.dtype = torch.bfloat16   # compute dtype
     # grouped-query attention: num_kv_heads < num_heads shares each K/V
@@ -56,10 +60,6 @@ class GPTConfig:
                 f"dropout {self.dropout}: dropout is not ported yet")
         if self.remat:
             raise NotImplementedError("remat is not ported yet")
-        if not self.use_flash:
-            raise NotImplementedError(
-                "use_flash=False: on the card the port's attention is the "
-                "flash kernel; there is no other path to select")
         if (self.num_kv_heads is not None
                 and self.num_heads % self.num_kv_heads):
             raise ValueError(

@@ -95,6 +95,44 @@ def test_config_from_jax_maps_fields():
     assert convert.config_from_jax(_jcfg()).dtype == torch.float32
 
 
+def _generate_ref_jcfg():
+    """The reference config of tests/test_generate.py: fp32, head_dim 8,
+    ``use_flash=False``."""
+    return jgpt.GPTConfig(vocab_size=64, hidden_size=32, num_layers=2,
+                          num_heads=4, max_seq_len=32, dtype=jnp.float32,
+                          use_flash=False)
+
+
+def test_config_from_jax_carries_use_flash_false():
+    """``use_flash`` reaches no math in either package (attention routes by
+    shape), so the port takes the JAX config's value as it is."""
+    jcfg = _generate_ref_jcfg()
+    cfg = convert.config_from_jax(jcfg)
+    assert cfg.use_flash is False
+    for f in ("vocab_size", "hidden_size", "num_layers", "num_heads",
+              "max_seq_len", "ffn_ratio", "num_kv_heads"):
+        assert getattr(cfg, f) == getattr(jcfg, f)
+    assert cfg.dtype == torch.float32
+    assert gpt.GPTConfig(use_flash=False).use_flash is False
+
+
+@pytest.mark.parametrize("use_flash", [False, True])
+def test_use_flash_false_logits_match_jax(use_flash):
+    """The port's fp32 logits on the use_flash=False reference config, with
+    the JAX weights carried over, equal the JAX package's (atol 1e-4: CPU
+    matmul summation order), and the field changes nothing in the port."""
+    jcfg = _generate_ref_jcfg()
+    jp = jgpt.init_params(jcfg, jax.random.PRNGKey(0))
+    toks = np.random.default_rng(0).integers(0, 64, (2, 8))
+    ref = np.asarray(jgpt.forward(jp, jnp.asarray(toks), jcfg))
+    cfg = dataclasses.replace(convert.config_from_jax(jcfg),
+                              use_flash=use_flash)
+    params = convert.params_from_jax(jax.device_get(jp))
+    out = gpt.forward(params, torch.from_numpy(toks), cfg)
+    assert out.dtype == torch.float32 and out.shape == ref.shape
+    np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=0)
+
+
 def test_apply_rope_per_row_positions():
     """[B, T] positions (the serving step: one position per slot) rotate
     each batch row as the shared-[T] form rotates that row alone."""

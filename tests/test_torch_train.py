@@ -269,8 +269,7 @@ def test_master_params_round_to_the_serving_params():
         assert torch.equal(t.to(torch.bfloat16), _get(served, path))
 
 
-@pytest.mark.parametrize("field,value", [("dropout", 0.1), ("remat", True),
-                                         ("use_flash", False)])
+@pytest.mark.parametrize("field,value", [("dropout", 0.1), ("remat", True)])
 def test_unported_config_values_raise(field, value):
     with pytest.raises(NotImplementedError):
         gpt.GPTConfig(**{field: value})
