@@ -15,7 +15,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    rows per kv head, the tensor-core route from R_TC on), head_dim 64, 128
    and 256, bf16 and int8; block-table (paged) decode, whose free
    slots must come back exactly zero; the flash backward (dq, dk/dv) at
-   the train shape, head_dim 64/128/256, causal and not, ragged T, GQA;
+   the train shape, head_dim 64/128/256, causal and not, ragged T, S != T,
+   GQA, on the tensor-core bodies at head_dim 64/128 (``route_bwd``);
    the fused softmax-CE forward and backward at the train loss head and
    at ragged shapes; the fused LayerNorm forward and backward at the train
    shape and at ragged shapes; the W4A16 matmul at N = 1, 8, 256 for each
@@ -63,8 +64,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    seed, batch 8 x 2048 tokens in 8 micro-batches, AdamW (bf16 moments),
    the fused loss head (``PADDLE_TPU_FUSED_CE=1``) — four steps on one
    batch with step time, tokens/s, MFU, peak memory and each step's
-   kernel launches (exactly 192 flash fwd, dq and dk/dv, 8 CE fwd and
-   bwd); the loss must start near ln(vocab) and fall; then the same for
+   kernel launches (exactly 192 flash fwd, dq and dk/dv, each on its
+   tensor-core body, 8 CE fwd and bwd); the loss must start near
+   ln(vocab) and fall; then the same for
    the headline rung (``build_train_path(fused_ln=True)``: the fused
    LayerNorm too, exactly 392 LN fwd and bwd launches a step), printed
    beside it;
@@ -355,36 +357,52 @@ def check_flash_bwd(torch, fa):
     """dq, dk and dv of the backward kernels against ``_plain_bwd`` on the
     forward kernel's out and lse (bf16, tol 1e-2·(1 + |plain|)): the train
     path's shape first (B = 1, T = 2048, H = 16, D = 128, causal), then
-    head_dim 64 and 256, causal and not, ragged T and GQA (G = 4).
+    head_dim 64 and 256, causal and not, ragged T (77, 130, 200), S != T
+    and GQA (G = 4).  Each launch on the route ``route_bwd`` names: one
+    tensor-core launch of each kernel at head_dim 64 and 128, none at 256.
     Returns the worst errors of the dq kernel and of the dk/dv kernel."""
     gen = torch.Generator(device="cuda").manual_seed(10)
     worst_q = worst_kv = 0.0
-    for B, T, H, Hkv, D, causal in [(1, 2048, 16, 16, 128, True),
-                                    (2, 200, 16, 4, 128, True),
-                                    (2, 200, 16, 4, 64, False),
-                                    (1, 512, 16, 16, 64, True),
-                                    (1, 200, 8, 2, 256, True),
-                                    (1, 512, 8, 8, 256, False)]:
+    for B, T, S, H, Hkv, D, causal in [(1, 2048, 2048, 16, 16, 128, True),
+                                       (2, 200, 200, 16, 4, 128, True),
+                                       (2, 200, 200, 16, 4, 64, False),
+                                       (1, 512, 512, 16, 16, 64, True),
+                                       (1, 77, 77, 8, 8, 128, True),
+                                       (2, 130, 130, 16, 4, 128, True),
+                                       (1, 200, 333, 8, 2, 128, False),
+                                       (2, 333, 200, 8, 2, 64, False),
+                                       (1, 77, 130, 4, 4, 128, True),
+                                       (1, 200, 200, 8, 2, 256, True),
+                                       (1, 512, 512, 8, 8, 256, False)]:
         q, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
                  .to(torch.bfloat16) for _ in range(2))
-        k, v = (torch.randn(B, T, Hkv, D, generator=gen, device="cuda")
+        k, v = (torch.randn(B, S, Hkv, D, generator=gen, device="cuda")
                 .to(torch.bfloat16) for _ in range(2))
         out, lse = fa.flash_attention_fwd(q, k, v, causal)
+        before = (fa.flash_attention_bwd_dq.tc_launches,
+                  fa.flash_attention_bwd_dkv.tc_launches)
         dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, causal)
         dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal)
+        tc = (fa.flash_attention_bwd_dq.tc_launches - before[0],
+              fa.flash_attention_bwd_dkv.tc_launches - before[1])
         ref = fa._plain_bwd(q, k, v, out, lse, do, causal)
         torch.cuda.synchronize()
         got = (dq, dk, dv)
         errs = [(g.float() - r.float()).abs().max().item()
                 for g, r in zip(got, ref)]
-        log(f"  flash_bwd bf16 B={B} T={T} H={H} Hkv={Hkv} D={D} "
-            f"causal={causal}: max|d{{q,k,v}}-plain| "
+        route = fa.route_bwd(q.dtype, D)
+        log(f"  flash_bwd bf16 B={B} T={T} S={S} H={H} Hkv={Hkv} D={D} "
+            f"causal={causal} ({route}, tc launches dq/dkv {tc}): "
+            f"max|d{{q,k,v}}-plain| "
             f"{', '.join(f'{e:.3g}' for e in errs)} "
             f"(tol {BF16_TOL}*(1+|plain|))")
         if not all(torch.allclose(g.float(), r.float(), atol=BF16_TOL,
                                   rtol=BF16_TOL) for g, r in zip(got, ref)):
-            raise AssertionError(f"flash_bwd disagrees at T={T} D={D} "
+            raise AssertionError(f"flash_bwd disagrees at T={T} S={S} D={D} "
                                  f"Hkv={Hkv} causal={causal}")
+        if tc != ((route == "tc"),) * 2:
+            raise AssertionError(f"flash_bwd at D={D} took {tc} tensor-core "
+                                 f"launches on route {route}")
         worst_q, worst_kv = max(worst_q, errs[0]), max(worst_kv, *errs[1:])
     return worst_q, worst_kv
 
@@ -905,6 +923,7 @@ def time_flash_bwd(torch, fa, F, T=2048):
     dot = do.transpose(1, 2)
     shared = {
         "shape": f"B={B} T={T} H={H} D={D} bf16 causal",
+        "route": fa.route_bwd(q.dtype, D),
         "plain_ms": cold_ms(torch, lambda: fa._plain_bwd(
             q, k, v, out, lse, do, True)),
         "library_ms": cold_ms(torch, lambda: torch.autograd.grad(
@@ -1117,6 +1136,7 @@ def main_path(torch, gpt, G, serving, ks, wl):
     # bf16 prefill runs the tensor-core flash body; the tick (R = 1) the
     # split-KV decode body
     assert tc == {"flash_attention_fwd": launches["flash_attention_fwd"],
+                  "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                   "decode_attention": 0}, tc
     assert all(len(s) == new and all(0 <= t < cfg.vocab_size for t in s)
                for s in served)
@@ -1302,6 +1322,7 @@ def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
     assert launches["w4_matmul"] == per_pass * len(ticks) + sum(want_admit)
     tc = tc_counts(ks)
     assert tc == {"flash_attention_fwd": launches["flash_attention_fwd"],
+                  "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                   "decode_attention": 0}, tc
     assert launches["flash_attention_fwd"] == L * len(prompts), launches
     assert launches["decode_attention"] == L * len(ticks), launches
@@ -1364,9 +1385,9 @@ def train_path(torch, gpt, ks, tr, fused_ln=False, steps=4):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts(ks)
-    losses, step_s, per_step = [], [], []
+    losses, step_s, per_step, per_step_tc = [], [], [], []
     for _ in range(steps):
-        before = launch_counts(ks)
+        before, before_tc = launch_counts(ks), tc_counts(ks)
         t0 = time.perf_counter()
         state, loss = step_fn(state, tokens, None, tr.LR)
         losses.append(loss.item())
@@ -1374,6 +1395,8 @@ def train_path(torch, gpt, ks, tr, fused_ln=False, steps=4):
         step_s.append(time.perf_counter() - t0)
         per_step.append({n: c - before[n]
                          for n, c in launch_counts(ks).items()})
+        per_step_tc.append({n: c - before_tc[n]
+                            for n, c in tc_counts(ks).items()})
         log(f"  step {len(losses)}: loss {losses[-1]:.5f}, "
             f"{step_s[-1] * 1e3:.1f} ms, {n_tok / step_s[-1]:.0f} tokens/s, "
             f"launches {per_step[-1]}")
@@ -1389,10 +1412,17 @@ def train_path(torch, gpt, ks, tr, fused_ln=False, steps=4):
     for i, got in enumerate(per_step):
         if got != want:
             raise AssertionError(f"step {i + 1} launched {got}, not {want}")
-    # every flash forward of every step on the tensor-core body (bf16)
+    # every flash forward, dq and dk/dv of every step on the tensor-core
+    # bodies (bf16, head_dim 128)
+    want_tc = {name: want[name] for name in (
+        "flash_attention_fwd", "flash_attention_bwd_dq",
+        "flash_attention_bwd_dkv", "decode_attention")}
+    for i, got in enumerate(per_step_tc):
+        if got != want_tc:
+            raise AssertionError(f"step {i + 1} launched {got} on the "
+                                 f"tensor-core bodies, not {want_tc}")
     tc = tc_counts(ks)
-    if tc != {"flash_attention_fwd": steps * want["flash_attention_fwd"],
-              "decode_attention": 0}:
+    if tc != {n: steps * c for n, c in want_tc.items()}:
         raise AssertionError(f"tensor-core launches {tc} in {steps} steps")
     steady = statistics.median(step_s[1:])
     stats = {
@@ -1408,7 +1438,7 @@ def train_path(torch, gpt, ks, tr, fused_ln=False, steps=4):
         "steady_tokens_per_s": n_tok / steady,
         "mfu": fpt * n_tok / steady / BF16_FLOPS_PER_S,
         "peak_mem_gb": peak / 1e9, "launches_per_step": per_step[-1],
-        "tc_launches": tc,
+        "tc_launches_per_step": per_step_tc[-1], "tc_launches": tc,
     }
     log(f"  steady (median of steps 2-{steps}): {stats['steady_step_ms']:.1f}"
         f" ms/step, {stats['steady_tokens_per_s']:.0f} tokens/s, MFU "
@@ -1547,13 +1577,21 @@ def main() -> int:
                   "w4": wstats["tc_launches"],
                   **{p: t["tc_launches"] for p, t in train.items()}}
 
+    tc_bodies = {
+        "flash_attention_fwd": "paddle_tpu_torch/csrc/attn_tc.cuh",
+        "decode_attention": "paddle_tpu_torch/csrc/attn_tc.cuh",
+        "flash_attention_bwd_dq": "paddle_tpu_torch/csrc/flash_bwd.cu "
+        "(tc::dq_kernel, on attn_tc.cuh's primitives)",
+        "flash_attention_bwd_dkv": "paddle_tpu_torch/csrc/flash_bwd.cu "
+        "(tc::dkv_kernel, on attn_tc.cuh's primitives)"}
+
     def entry(name, src, replaces, row, **extra):
         launches = {p: counts[name] for p, counts in by_path.items()}
         if name in tc_by_path["main"]:
             tc = {p: counts[name] for p, counts in tc_by_path.items()}
             extra = {"tc_launches": sum(tc.values()),
                      "tc_launches_by_path": tc,
-                     "tc_body": "paddle_tpu_torch/csrc/attn_tc.cuh", **extra}
+                     "tc_body": tc_bodies[name], **extra}
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches,

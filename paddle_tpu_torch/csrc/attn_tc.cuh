@@ -184,6 +184,34 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(db), "r"(1));
 }
 
+constexpr uint32_t kBlock = kBM * 128;  // a 64-row column block of a tile
+static_assert(kBM == kBN, "Q and K/V tiles share kBlock");
+
+// d = A·Bᵀ over D: A and B 64-row swizzled tiles, both read K-major (the
+// head dim contiguous).  Issues the chain; the caller commits and waits.
+template <int D>
+__device__ __forceinline__ void mma_abt(float (&d)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int k = 0; k < D / 16; ++k) {
+    const uint32_t off = (k >> 2) * kBlock + (k & 3) * 32;  // 16 wide a step
+    mma_ss(d, desc(a + off, 16, 1024), desc(b + off, 16, 1024), k > 0);
+  }
+}
+
+// acc[nb] += A·B: A 64 x 64 from registers (bf16 pairs in wgmma's A
+// layout), B a 64-row tile read MN-major (column block nb of the head dim).
+template <int D>
+__device__ __forceinline__ void mma_ab(float (&acc)[D / 64][32],
+                                       const uint32_t (&a)[kBN / 16][4],
+                                       uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+    for (int nb = 0; nb < D / 64; ++nb)
+      mma_rs(acc[nb], a[kk][0], a[kk][1], a[kk][2], a[kk][3],
+             desc(b + nb * kBlock + kk * 2048, kBlock, 1024));
+}
+
 __device__ __forceinline__ float ex2(float x) {
   float y;
   asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
@@ -200,6 +228,19 @@ __device__ __forceinline__ uint32_t i8_pair(int w, int j) {
   const float lo = (float)((int)((unsigned)w << (24 - 16 * j)) >> 24);
   const float hi = (float)((int)((unsigned)w << (16 - 16 * j)) >> 24);
   return pack_bf16(lo, hi);
+}
+
+// x (accumulator layout, fp32) -> wgmma's A operand, bf16 pairs: the
+// accumulator layout is the A layout, so no value changes threads.
+__device__ __forceinline__ void to_a(const float (&x)[32],
+                                     uint32_t (&a)[kBN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      a[kk][r] = pack_bf16(x[8 * kk + 2 * r], x[8 * kk + 2 * r + 1]);
+      asm volatile("" : "+r"(a[kk][r])::"memory");
+    }
 }
 
 __device__ __forceinline__ float quad_max(float v) {
@@ -359,12 +400,7 @@ __device__ __forceinline__ void attend(const Pol& pol, const KT* __restrict__ k,
 
     // S = Q·Kᵀ over D in 16-wide steps
     wg_fence();
-#pragma unroll
-    for (int d = 0; d < D / 16; ++d) {
-      const uint32_t off = (d & 3) * 32;         // within a 128-byte row
-      mma_ss(s, desc(qs + (d >> 2) * (kBM * 128) + off, 16, 1024),
-             desc(kt + (d >> 2) * (kBN * 128) + off, 16, 1024), d > 0);
-    }
+    mma_abt<D>(s, qs, kt);
     wg_commit();
     wg_wait0();
     fence_regs(s);
@@ -411,20 +447,9 @@ __device__ __forceinline__ void attend(const Pol& pol, const KT* __restrict__ k,
 #pragma unroll
     for (int b = 0; b < NB; ++b) fence_regs(st.o[b]);
     uint32_t a[kBN / 16][4];   // P in wgmma's A layout: S's, cast to bf16
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        a[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
-        asm volatile("" : "+r"(a[kk][r])::"memory");
-      }
+    to_a(s, a);
     wg_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk)
-#pragma unroll
-      for (int b = 0; b < NB; ++b)
-        mma_rs(st.o[b], a[kk][0], a[kk][1], a[kk][2], a[kk][3],
-               desc(vt + b * (kBN * 128) + kk * 2048, kBN * 128, 1024));
+    mma_ab<D>(st.o, a, vt);
     wg_commit();
     wg_wait0();
 #pragma unroll

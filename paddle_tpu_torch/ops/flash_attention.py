@@ -6,7 +6,9 @@ Counterpart of ``paddle_tpu/ops/flash_attention.py``.  The Pallas forward
 tensor-core body of ``csrc/attn_tc.cuh``, fp32 on an FMA body
 (:func:`route`); the backward's two
 Pallas kernels (``dq_kernel``, ``dkv_kernel`` of ``_flash_bwd_impl``)
-become ``csrc/flash_bwd.cu`` — see the notes at the top of those files for
+become ``csrc/flash_bwd.cu`` — bf16 at head dim 64 and 128 on tensor-core
+bodies over the same primitives, the rest on an FMA body
+(:func:`route_bwd`) — see the notes at the top of those files for
 what bounds them and how they are laid out.  The custom-vjp ``_flash``
 becomes :class:`_Flash`, a ``torch.autograd.Function``
 (:func:`flash_attention`).
@@ -40,6 +42,18 @@ def route(q_dtype, hd) -> str:
         raise ValueError(f"flash_attention_fwd: no route for {q_dtype}, "
                          f"head_dim {hd}")
     return "tc" if q_dtype == torch.bfloat16 else "fma"
+
+
+def route_bwd(q_dtype, hd) -> str:
+    """Which body of ``csrc/flash_bwd.cu`` a backward launch (dq or dk/dv)
+    takes: "tc" (wgmma products over ``csrc/attn_tc.cuh``) for bfloat16 at
+    head dim 64 or 128, "fma" (fp32 products on the CUDA cores) for float32
+    and for bfloat16 at head dim 256, where the dk/dv accumulators alone
+    would fill a warpgroup's registers.  The C entries decide the same."""
+    if q_dtype not in _DTYPES or hd not in _HEAD_DIMS:
+        raise ValueError(f"flash_attention_bwd: no route for {q_dtype}, "
+                         f"head_dim {hd}")
+    return "tc" if q_dtype == torch.bfloat16 and hd in (64, 128) else "fma"
 
 
 def _plain_fwd(q, k, v, causal: bool, scale=None):
@@ -208,7 +222,8 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, causal=False, scale=None):
     """Launch the dq kernel (``csrc/flash_bwd.cu``, Pallas ``dq_kernel``)
     on CUDA tensors -> (dq like q, delta [B*H, T] float32 =
     rowsum(do * out), which :func:`flash_attention_bwd_dkv` reads).  Every
-    launch adds one to ``flash_attention_bwd_dq.launches``."""
+    launch adds one to ``flash_attention_bwd_dq.launches``, and one on the
+    tensor-core body (:func:`route_bwd`) to ``.tc_launches``."""
     _check_bwd(q, k, v, lse, do, out=out)
     B, T, H, D = q.shape
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
@@ -222,10 +237,12 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, causal=False, scale=None):
                   torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "flash_bwd_dq")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.tc_launches += route_bwd(q.dtype, D) == "tc"
     return dq, delta
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.tc_launches = 0
 
 
 def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal=False,
@@ -233,7 +250,8 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal=False,
     """Launch the dk/dv kernel (``csrc/flash_bwd.cu``, Pallas
     ``dkv_kernel``) on CUDA tensors -> (dk, dv) like k and v, each
     kv head's group summed.  Every launch adds one to
-    ``flash_attention_bwd_dkv.launches``."""
+    ``flash_attention_bwd_dkv.launches``, and one on the tensor-core body
+    (:func:`route_bwd`) to ``.tc_launches``."""
     _check_bwd(q, k, v, lse, do, delta=delta)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
     dk = torch.empty_like(k)
@@ -246,10 +264,13 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal=False,
                   torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "flash_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.tc_launches += \
+        route_bwd(q.dtype, q.shape[-1]) == "tc"
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.tc_launches = 0
 
 
 def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None):

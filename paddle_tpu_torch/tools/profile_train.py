@@ -71,8 +71,8 @@ def build_train_path(device="cuda", seed=0, fused_ln=False):
 
 
 # kernel-name keys, lower case, first match wins
-FAMILIES = (("flash_bwd_dq", ("flash_bwd_dq_kernel",)),
-            ("flash_bwd_dkv", ("flash_bwd_dkv_kernel",)),
+FAMILIES = (("flash_bwd_dq", ("flash_bwd_dq_kernel", "tc::dq_kernel")),
+            ("flash_bwd_dkv", ("flash_bwd_dkv_kernel", "tc::dkv_kernel")),
             ("flash_fwd", ("flash_fwd_kernel", "flash_fwd_tc_kernel")),
             ("ce_fwd", ("ce_fwd_kernel",)),
             ("ce_bwd", ("ce_bwd_kernel",)),

@@ -1,10 +1,11 @@
-"""The routes of the port's two attention-forward kernels, and the plain
-twins at the shapes those routes take.
+"""The routes of the port's two attention-forward kernels and of the flash
+backward, and the plain twins at the shapes those routes take.
 
-``flash_attention.route`` and ``decode_attention.route`` name the body a
-launch runs (the tensor-core body of ``csrc/attn_tc.cuh`` or the older
-FMA / split-KV body); ``decode_attention.tc_split_plan`` cuts the
-tensor-core route's cache walk.  Both are plain Python, checked here on
+``flash_attention.route``, ``flash_attention.route_bwd`` and
+``decode_attention.route`` name the body a launch runs (a tensor-core
+body on ``csrc/attn_tc.cuh`` or the older FMA / split-KV body);
+``decode_attention.tc_split_plan`` cuts the tensor-core route's cache
+walk.  All are plain Python, checked here on
 the CPU; the kernels themselves run only on a card
 (tests/test_torch_kernels_cuda.py checks that ``tc_launches`` counts
 exactly what ``route`` names).
@@ -95,6 +96,46 @@ def test_flash_route(dtype, want, hd):
 def test_flash_route_refuses(dtype, hd):
     with pytest.raises(ValueError, match="no route"):
         fa.route(getattr(torch, dtype), hd)
+
+
+@pytest.mark.parametrize("dtype,hd,want", [
+    ("bfloat16", 64, "tc"), ("bfloat16", 128, "tc"),
+    ("bfloat16", 256, "fma"),          # dk/dv accumulators fill a warpgroup
+    ("float32", 64, "fma"), ("float32", 128, "fma"), ("float32", 256, "fma")])
+def test_flash_bwd_route(dtype, hd, want):
+    assert fa.route_bwd(getattr(torch, dtype), hd) == want
+
+
+@pytest.mark.parametrize("dtype,hd", [("float16", 128), ("bfloat16", 48),
+                                      ("float32", 96)])
+def test_flash_bwd_route_refuses(dtype, hd):
+    with pytest.raises(ValueError, match="no route"):
+        fa.route_bwd(getattr(torch, dtype), hd)
+
+
+def test_flash_bwd_route_matches_the_c_entry():
+    """The C entries send bf16 at head_dim 64 and 128 to the tensor-core
+    bodies (``tc::launch_*``) and the rest to the FMA body, as
+    ``route_bwd`` says."""
+    src = (_CSRC / "flash_bwd.cu").read_text()
+    for entry in ("flash_bwd_dq", "flash_bwd_dkv"):
+        body = src[src.index(f'extern "C" int {entry}('):]
+        body = body[:body.index("#undef")]
+        bf16 = body[body.index("if (dtype == 1)"):]
+        fp32 = body[body.index("if (dtype == 0)"):body.index("if (dtype == 1)")]
+        launch = entry.removeprefix("flash_bwd_")
+        for hd in (64, 128, 256):
+            got = "tc" if f"tc::launch_{launch}<{hd}>" in bf16 else "fma"
+            assert got == fa.route_bwd(torch.bfloat16, hd), (entry, hd)
+        assert "tc::" not in fp32
+
+
+@pytest.mark.parametrize("name", ["flash_attention_bwd_dq",
+                                  "flash_attention_bwd_dkv",
+                                  "flash_attention_fwd"])
+def test_flash_wrappers_carry_tc_launches(name):
+    fn = getattr(fa, name)
+    assert isinstance(fn.launches, int) and isinstance(fn.tc_launches, int)
 
 
 def test_tile_sizes_match_the_cuda_body():

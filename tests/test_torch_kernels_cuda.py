@@ -2,7 +2,8 @@
 flash prefill (fp32 on the FMA body, bf16 on the tensor-core body),
 split-KV decode (up to 1024 query rows per kv head; the tensor-core route
 from ``R_TC`` packed rows on),
-block-table (paged) decode, the flash backward (dq and dk/dv), the
+block-table (paged) decode, the flash backward (dq and dk/dv; bf16 at
+head_dim 64 and 128 on the tensor-core bodies), the
 fused softmax cross-entropy and the fused LayerNorm (forward and
 backward), and the W4A16 dequant-matmul.
 
@@ -180,10 +181,10 @@ def test_flash_fwd_fp32_stays_on_the_fma_body():
 
 
 def test_flash_bwd_from_the_tensor_core_forward():
-    """The unchanged dq and dk/dv kernels fed the tensor-core forward's out
-    and lse (train shape, then GQA at head_dim 64): grads within the bf16
-    tolerance of ``_plain_bwd`` on the same out and lse, and of
-    ``_plain_bwd`` on the plain forward's."""
+    """The dq and dk/dv kernels (tensor-core bodies: ``tc_launches`` counts
+    each) fed the tensor-core forward's out and lse (train shape, then GQA
+    at head_dim 64): grads within the bf16 tolerance of ``_plain_bwd`` on
+    the same out and lse, and of ``_plain_bwd`` on the plain forward's."""
     gen = _card()
     for B, T, H, Hkv, D in [(1, 2048, 16, 16, 128), (2, 200, 8, 2, 64)]:
         q, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
@@ -193,7 +194,13 @@ def test_flash_bwd_from_the_tensor_core_forward():
         before = fa.flash_attention_fwd.tc_launches
         out, lse = fa.flash_attention_fwd(q, k, v, causal=True)
         assert fa.flash_attention_fwd.tc_launches == before + 1
+        assert fa.route_bwd(q.dtype, D) == "tc"
+        before = (fa.flash_attention_bwd_dq.tc_launches,
+                  fa.flash_attention_bwd_dkv.tc_launches)
         got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=True)
+        assert (fa.flash_attention_bwd_dq.tc_launches,
+                fa.flash_attention_bwd_dkv.tc_launches) == (before[0] + 1,
+                                                           before[1] + 1)
         ref = fa._plain_bwd(q, k, v, out, lse, do, True)
         p_out, p_lse = fa._plain_fwd(q, k, v, True)
         ref_plain = fa._plain_bwd(q, k, v, p_out, p_lse, do, True)
@@ -389,32 +396,46 @@ def test_cuda_tensors_the_kernels_cannot_take_raise():
     assert da.paged_decode_attention.launches == before
 
 
-@pytest.mark.parametrize("B,T,H,Hkv,D,dtype,causal", [
-    (1, 2048, 16, 16, 128, "bfloat16", True),     # the train path's shape
-    (2, 200, 8, 2, 64, "bfloat16", True),         # ragged T, GQA (G = 4)
-    (1, 300, 4, 1, 128, "float32", False),
-    (1, 130, 4, 4, 256, "bfloat16", True),
-    (2, 77, 8, 2, 256, "float32", False),
-    (1, 64, 2, 2, 64, "float32", True),
+@pytest.mark.parametrize("B,T,S,H,Hkv,D,dtype,causal", [
+    (1, 2048, 2048, 16, 16, 128, "bfloat16", True),   # the train path's shape
+    (2, 200, 200, 8, 2, 64, "bfloat16", True),        # ragged T, GQA (G = 4)
+    (1, 300, 300, 4, 1, 128, "float32", False),
+    (1, 130, 130, 4, 4, 256, "bfloat16", True),
+    (2, 77, 77, 8, 2, 256, "float32", False),
+    (1, 64, 64, 2, 2, 64, "float32", True),
+    (1, 77, 77, 8, 8, 128, "bfloat16", True),         # T % 64 != 0
+    (2, 130, 130, 16, 4, 128, "bfloat16", True),      # ragged T, G = 4
+    (2, 200, 200, 16, 4, 128, "bfloat16", False),
+    (1, 200, 333, 8, 2, 128, "bfloat16", False),      # S != T
+    (2, 333, 200, 8, 2, 64, "bfloat16", False),       # S < T, head_dim 64
+    (2, 130, 77, 8, 2, 64, "bfloat16", True),         # causal, rows past S
+    (1, 77, 130, 4, 4, 128, "bfloat16", True),        # causal, keys no row sees
+    (1, 2048, 2048, 16, 4, 64, "bfloat16", True),
 ])
-def test_flash_bwd_matches_plain(B, T, H, Hkv, D, dtype, causal):
+def test_flash_bwd_matches_plain(B, T, S, H, Hkv, D, dtype, causal):
     """dq, dk, dv of both backward kernels against ``_plain_bwd``, from the
-    forward kernel's out and lse; each kernel launched once."""
+    forward kernel's out and lse; each kernel launched once, on the body
+    ``route_bwd`` names (``tc_launches`` counts the tensor-core one)."""
     gen = _card()
     dt = getattr(torch, dtype)
     q = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dt)
-    k = torch.randn(B, T, Hkv, D, generator=gen, device="cuda").to(dt)
-    v = torch.randn(B, T, Hkv, D, generator=gen, device="cuda").to(dt)
+    k = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dt)
+    v = torch.randn(B, S, Hkv, D, generator=gen, device="cuda").to(dt)
     do = torch.randn(B, T, H, D, generator=gen, device="cuda").to(dt)
     out, lse = fa.flash_attention_fwd(q, k, v, causal=causal)
+    tc = fa.route_bwd(dt, D) == "tc"
     before = (fa.flash_attention_bwd_dq.launches,
-              fa.flash_attention_bwd_dkv.launches)
+              fa.flash_attention_bwd_dkv.launches,
+              fa.flash_attention_bwd_dq.tc_launches,
+              fa.flash_attention_bwd_dkv.tc_launches)
     got = fa.flash_attention_bwd(q, k, v, out, lse, do, causal=causal)
     ref = fa._plain_bwd(q, k, v, out, lse, do, causal)
     torch.cuda.synchronize()
     assert (fa.flash_attention_bwd_dq.launches,
-            fa.flash_attention_bwd_dkv.launches) == (before[0] + 1,
-                                                    before[1] + 1)
+            fa.flash_attention_bwd_dkv.launches,
+            fa.flash_attention_bwd_dq.tc_launches,
+            fa.flash_attention_bwd_dkv.tc_launches) == (
+                before[0] + 1, before[1] + 1, before[2] + tc, before[3] + tc)
     tol = 1e-2 if dt == torch.bfloat16 else 1e-3
     for g, r in zip(got, ref):
         assert g.shape == r.shape and g.dtype == r.dtype
