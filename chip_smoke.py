@@ -19,8 +19,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    GQA, on the tensor-core bodies at head_dim 64/128 (``route_bwd``);
    the fused softmax-CE forward and backward at the train loss head and
    at ragged shapes; the fused LayerNorm forward and backward at the train
-   shape and at ragged shapes; the W4A16 matmul at N = 1, 8, 256 for each
-   gpt_1p3b weight shape, bf16 and fp32, nibble extremes included;
+   shape and at ragged shapes (the backward bit-equal on a second call);
+   the W4A16 matmul at N = 1, 8, 64, 128, 256 for each gpt_1p3b weight
+   shape, bf16 on the tensor-core body and fp32 on the FMA body (counted
+   by ``tc_launches``), nibble extremes included;
 4. check the decode paths on the card against the CPU on small fp32
    models (fp32 and int8 KV): contiguous prefill and batched decode, then
    paged prefill chunks and paged decode steps through shuffled block
@@ -37,7 +39,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    a bf16 ``matmul`` on a pre-dequantized weight; for the paged kernel
    SDPA on a pre-gathered contiguous copy, the gather timed on its own);
    the decode kernel also at the paged serve's admission widths R = 128
-   and 256;
+   and 256; the W4 kernel at N = 8, 64, 128 and 256 for each gpt_1p3b
+   weight shape; the LayerNorm backward's row pass and column sum apart;
 6. the main path, as ``paddle_tpu_torch.tools.profile_serving.
    build_main_path`` defines it: GPT-1.3B (``gpt.gpt_1p3b()``, full width,
    random weights from a seed, bf16) served by ``DecodeServer(max_batch=8,
@@ -56,7 +59,8 @@ Phases, in order; any failure raises and the script exits non-zero:
 8. the W4 path, as ``build_w4_path`` defines it: the main path's model and
    requests with int4 weights (group 64) and ``PADDLE_TPU_W4_KERNEL=1`` —
    exactly 6 W4 launches per layer in every decode tick and in every
-   admission at a prefill bucket of at most 256 rows (none at 512), two
+   admission at a prefill bucket of at most 256 rows (none at 512), each
+   on the tensor-core body (``tc_launches``), two
    requests checked against a solo ``generate`` on the dequantizing route
    (flag off), weight bytes against the bf16 model's;
 9. the train path, as ``paddle_tpu_torch.tools.profile_train.
@@ -459,8 +463,9 @@ def check_norm(torch, fn):
     tick's (bf16 g and b), ragged N and F in fp32 and bf16 (F = 999 takes
     the scalar walk) and gpt_13b's width.  y and dx within BF16_TOL·(1 +
     |plain|); mu, rstd, dg and db within LN_FP32_TOL·(1 + |plain|), both
-    sides of the backward fed the kernel's mu and rstd.  Returns the worst
-    errors (forward y, backward dx)."""
+    sides of the backward fed the kernel's mu and rstd; a second backward
+    on the same inputs gives the same bits.  Returns the worst errors
+    (forward y, backward dx)."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     bf, f32 = torch.bfloat16, torch.float32
     worst_f = worst_b = 0.0
@@ -484,6 +489,10 @@ def check_norm(torch, fn):
             f"{LN_FP32_TOL}*(1+|plain|))")
         if not (ok_y and ok_dx and all(ok for _, ok in stats)):
             raise AssertionError(f"fused LayerNorm disagrees at N={N} F={F}")
+        again = fn.ln_bwd(x, g, mu, r, dy)      # sums in a fixed order
+        if not all(torch.equal(a, b_) for a, b_ in zip(again, (dx, dg, db))):
+            raise AssertionError(f"ln_bwd gave other bits on a second call "
+                                 f"at N={N} F={F}")
         worst_f, worst_b = max(worst_f, e_y), max(worst_b, e_dx)
     return worst_f, worst_b
 
@@ -504,17 +513,28 @@ def _w4_inputs(torch, woq, gen, N, K, M, dt, gs=64):
 
 def check_w4(torch, wm, woq):
     """The W4 kernel against ``_plain_w4`` for every gpt_1p3b weight shape
-    (gs 64) at N = 1, 8 (a decode tick) and 256 (the kernel's cap), bf16
-    and fp32: bf16 within BF16_TOL·(1 + |plain|), fp32 within
-    W4_FP32_TOL·(1 + |plain|); and one-hot rows of x read back ``woq.w``'s
-    dequantized weight bit for bit.  Returns the worst error."""
+    (gs 64) at N = 1, 8 (a decode tick), 64, 128 and 256 (admission
+    buckets, the last the kernel's cap), bf16 and fp32: bf16 within
+    BF16_TOL·(1 + |plain|), fp32 within W4_FP32_TOL·(1 + |plain|), each
+    launch on the body ``route`` names (bf16: the tensor-core body, counted
+    in ``tc_launches``; fp32: the FMA body); and one-hot rows of x read
+    back ``woq.w``'s dequantized weight bit for bit on both bodies.
+    Returns the worst error."""
     gen = torch.Generator(device="cuda").manual_seed(15)
     worst = 0.0
+    w4 = wm.w4_matmul
     for K, M in W4_SHAPES:
-        for N in (1, 8, 256):
+        for N in (1, 8, 64, 128, 256):
             for dt in (torch.bfloat16, torch.float32):
                 x, packed, scale = _w4_inputs(torch, woq, gen, N, K, M, dt)
-                out = wm.w4_matmul(x, packed, scale)
+                body = wm.route(dt, N, K, M, 64)
+                if body != ("tc" if dt == torch.bfloat16 else "fma"):
+                    raise AssertionError(f"W4 route {body} for {dt}")
+                before = w4.tc_launches
+                out = w4(x, packed, scale)
+                if w4.tc_launches - before != (body == "tc"):
+                    raise AssertionError(f"w4_matmul at N={N} K={K} M={M} "
+                                         f"{dt} did not run its {body} body")
                 ref = wm._plain_w4(x, packed, scale)
                 torch.cuda.synchronize()
                 tol = BF16_TOL if dt == torch.bfloat16 else W4_FP32_TOL
@@ -531,9 +551,10 @@ def check_w4(torch, wm, woq):
             if not torch.equal(wm.w4_matmul(eye, packed, scale), w):
                 raise AssertionError(f"w4_matmul's weight is not woq.w's at "
                                      f"K={K} M={M} {dt}")
-        log(f"  w4_matmul K={K} M={M} gs=64 N=1/8/256 bf16/fp32: max|out - "
-            f"plain| so far {worst:.3g} (tol {BF16_TOL}*(1+|plain|) bf16, "
-            f"{W4_FP32_TOL}*(1+|plain|) fp32); one-hot rows equal woq.w")
+        log(f"  w4_matmul K={K} M={M} gs=64 N=1/8/64/128/256 bf16 (tc) / "
+            f"fp32 (fma): max|out - plain| so far {worst:.3g} (tol "
+            f"{BF16_TOL}*(1+|plain|) bf16, {W4_FP32_TOL}*(1+|plain|) fp32); "
+            f"one-hot rows equal woq.w")
     return worst
 
 
@@ -980,7 +1001,9 @@ def time_norm(torch, fn, F, N=2048, D=2048):
     dy, g, mu, rstd and writes dx, dg, db.  Operations (about 8 a forward
     element, 12 a backward one) count at the fp32 rate.  Yardstick:
     ``F.layer_norm`` and its backward (x, weight and bias grads) on the
-    same x and dy, with bf16 copies of g and b (one dtype for all three)."""
+    same x and dy, with bf16 copies of g and b (one dtype for all three).
+    The backward's two kernels are also timed apart: the row pass
+    (``rows_ms``) and the column sum of dg/db (``cols_ms``)."""
     gen = torch.Generator(device="cuda").manual_seed(16)
     x, g, b, dy = _ln_inputs(torch, gen, N, D, torch.bfloat16, torch.float32)
     _, mu, r = fn.ln_fwd(x, g, b)
@@ -1004,7 +1027,13 @@ def time_norm(torch, fn, F, N=2048, D=2048):
                 "plain_ms": cold_ms(torch, lambda: fn._plain_ln_bwd(
                     x, g, mu, r, dy)),
                 "library_ms": cold_ms(torch, lambda: torch.autograd.grad(
-                    yl, (xl, gl, bl), dy, retain_graph=True))},
+                    yl, (xl, gl, bl), dy, retain_graph=True)),
+                "rows_ms": cold_ms(torch, lambda: fn._ln_bwd_launch(
+                    x, g, mu, r, dy, passes=1)),
+                "cols_ms": cold_ms(torch, lambda: fn._ln_bwd_launch(
+                    x, g, mu, r, dy, passes=2)),
+                "ctas_rows_each":
+                    fn.bwd_plan(N, fn._sm_count(x.device))[::-1]},
     }
 
 
@@ -1018,9 +1047,11 @@ def time_w4(torch, wm, woq, N, K, M):
     wdq = woq.w({"w": packed, "w_s": scale}, "w", torch.bfloat16)
     b_ms, b_by = bound(packed.numel() + scale.numel() * 4 + x.numel() * 2
                        + N * M * 2, 2 * N * K * M)
+    body = wm.route(x.dtype, N, K, M, 64)
+    splits = wm.splits_for(N, K, M, wm._sm_count(x.device), body)
     return {
-        "shape": f"N={N} K={K} M={M} gs=64 bf16 (splits "
-                 f"{wm.splits_for(N, K, M, wm._sm_count(x.device))})",
+        "shape": f"N={N} K={K} M={M} gs=64 bf16 ({body} body, splits "
+                 f"{splits})",
         "ms": cold_ms(torch, lambda: wm.w4_matmul(x, packed, scale)),
         "plain_ms": cold_ms(torch, lambda: wm._plain_w4(x, packed, scale)),
         "bound_ms": b_ms, "bound_by": b_by,
@@ -1137,7 +1168,7 @@ def main_path(torch, gpt, G, serving, ks, wl):
     # split-KV decode body
     assert tc == {"flash_attention_fwd": launches["flash_attention_fwd"],
                   "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-                  "decode_attention": 0}, tc
+                  "w4_matmul": 0, "decode_attention": 0}, tc
     assert all(len(s) == new and all(0 <= t < cfg.vocab_size for t in s)
                for s in served)
 
@@ -1288,19 +1319,21 @@ def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
     torch.cuda.reset_peak_memory_stats()
     zero_counts(ks)
     t0 = time.perf_counter()
-    rids, admit = [], []
+    rids, admit, admit_tc = [], [], []
     for p in prompts:
-        before = w4.launches
+        before, before_tc = w4.launches, w4.tc_launches
         rids.append(srv.submit(p, max_new_tokens=new))
         admit.append(w4.launches - before)
+        admit_tc.append(w4.tc_launches - before_tc)
     t_admit = time.perf_counter() - t0
-    ticks, per_tick = [], []
+    ticks, per_tick, per_tick_tc = [], [], []
     while srv.pending():
-        before = w4.launches
+        before, before_tc = w4.launches, w4.tc_launches
         t1 = time.perf_counter()
         srv.tick()
         ticks.append(time.perf_counter() - t1)
         per_tick.append(w4.launches - before)
+        per_tick_tc.append(w4.tc_launches - before_tc)
         if len(ticks) > 10 * new:
             raise AssertionError("server did not drain")
     torch.cuda.synchronize()
@@ -1319,10 +1352,20 @@ def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
     if any(c != per_pass for c in per_tick):
         raise AssertionError(f"W4 launches per tick {per_tick}, not "
                              f"{per_pass} each")
+    if admit_tc != want_admit or any(c != per_pass for c in per_tick_tc):
+        raise AssertionError(f"W4 tensor-core launches per admission "
+                             f"{admit_tc} and per tick "
+                             f"{sorted(set(per_tick_tc))}, not {want_admit} "
+                             f"and {per_pass}")
     assert launches["w4_matmul"] == per_pass * len(ticks) + sum(want_admit)
+    # every W4 launch (bf16 x, gs 64) on the tensor-core body
     tc = tc_counts(ks)
+    if tc["w4_matmul"] != launches["w4_matmul"]:
+        raise AssertionError(f"{tc['w4_matmul']} of {launches['w4_matmul']} "
+                             f"W4 launches on the tensor-core body")
     assert tc == {"flash_attention_fwd": launches["flash_attention_fwd"],
                   "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+                  "w4_matmul": launches["w4_matmul"],
                   "decode_attention": 0}, tc
     assert launches["flash_attention_fwd"] == L * len(prompts), launches
     assert launches["decode_attention"] == L * len(ticks), launches
@@ -1344,6 +1387,7 @@ def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
         "tick_ms_median": 1e3 * statistics.median(ticks),
         "admission_ms": 1e3 * t_admit, "peak_mem_gb": peak / 1e9,
         "w4_per_tick": per_pass, "w4_per_admission": admit,
+        "w4_tc_per_admission": admit_tc,
         "launches": launches, "tc_launches": tc,
         "dequant_route_equal": {r: d is None for r, d in solo_div.items()},
         "dequant_route_divergence": {r: d for r, d in solo_div.items()
@@ -1416,7 +1460,7 @@ def train_path(torch, gpt, ks, tr, fused_ln=False, steps=4):
     # bodies (bf16, head_dim 128)
     want_tc = {name: want[name] for name in (
         "flash_attention_fwd", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv", "decode_attention")}
+        "flash_attention_bwd_dkv", "w4_matmul", "decode_attention")}
     for i, got in enumerate(per_step_tc):
         if got != want_tc:
             raise AssertionError(f"step {i + 1} launched {got} on the "
@@ -1522,9 +1566,10 @@ def main() -> int:
     bwd = time_flash_bwd(torch, fa, F, tr.SEQ)
     ce = time_ce(torch, fc, F)
     ln = time_norm(torch, fn, F)
+    # a tick (N = 8) and the admission buckets up to the cap, at every
+    # gpt_1p3b weight shape; the first row is the kernels line's
     w4_rows = {f"N={N} K={K} M={M}": time_w4(torch, wm, woq, N, K, M)
-               for N, K, M in [(8, 2048, 2048), (8, 2048, 8192),
-                               (8, 8192, 2048), (256, 2048, 2048)]}
+               for N in (8, 64, 128, 256) for K, M in W4_SHAPES}
     for name, row in (("flash_attention_bwd_dq", bwd["dq"]),
                       ("flash_attention_bwd_dkv", bwd["dkv"]),
                       ("fused_ce_fwd", ce["fwd"]),
@@ -1583,7 +1628,9 @@ def main() -> int:
         "flash_attention_bwd_dq": "paddle_tpu_torch/csrc/flash_bwd.cu "
         "(tc::dq_kernel, on attn_tc.cuh's primitives)",
         "flash_attention_bwd_dkv": "paddle_tpu_torch/csrc/flash_bwd.cu "
-        "(tc::dkv_kernel, on attn_tc.cuh's primitives)"}
+        "(tc::dkv_kernel, on attn_tc.cuh's primitives)",
+        "w4_matmul": "paddle_tpu_torch/csrc/woq_matmul.cu "
+        "(w4tc::w4_tc_kernel, on attn_tc.cuh's primitives)"}
 
     def entry(name, src, replaces, row, **extra):
         launches = {p: counts[name] for p, counts in by_path.items()}

@@ -93,6 +93,15 @@ def _sm_count(device) -> int:
     return torch.cuda.get_device_properties(device).multi_processor_count
 
 
+def bwd_plan(N: int, sm_count: int) -> tuple[int, int]:
+    """(R, P) for the backward's row pass: P CTAs of R consecutive rows
+    each — CTA b takes rows [b·R, min((b + 1)·R, N)) — so every row is
+    normalised exactly once and at most one CTA, hence one fp32 partial
+    row of dg and of db, falls to each SM."""
+    R = -(-N // sm_count)
+    return R, -(-N // R)
+
+
 def ln_fwd(x, g, b, eps=1e-5):
     """x [N, F], g and b [F] -> (y [N, F] in x.dtype, mu [N, 1], rstd
     [N, 1] float32).
@@ -126,8 +135,9 @@ def ln_bwd(x, g, mu, rstd, dy):
     g [F] and the forward's mu, rstd [N, 1] float32.
 
     CPU tensors run :func:`_plain_ln_bwd`.  CUDA tensors launch the
-    backward kernel of ``csrc/fused_norm.cu`` — its row pass and its
-    column sum of dg/db, one launch in ``ln_bwd.launches``."""
+    backward kernels of ``csrc/fused_norm.cu`` — its row pass (at most one
+    CTA per SM, :func:`bwd_plan`) and its column sum of dg/db — counted as
+    one launch in ``ln_bwd.launches``."""
     if not x.is_cuda:
         return _plain_ln_bwd(x, g, mu, rstd, dy)
     _check("ln_bwd", x, ("g", g))
@@ -143,22 +153,30 @@ def ln_bwd(x, g, mu, rstd, dy):
             raise ValueError(f"ln_bwd: {name} must be contiguous float32 "
                              f"[{N}, 1] on x's device, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    # a few CTAs per SM for the row pass; each writes one partial row
-    R = -(-N // (2 * _sm_count(x.device)))
-    nb = -(-N // R)
+    dx, dg, db = _ln_bwd_launch(x, g, mu, rstd, dy, passes=3)
+    ln_bwd.launches += 1
+    return dx, dg, db
+
+
+def _ln_bwd_launch(x, g, mu, rstd, dy, passes):
+    """Launch the backward's row pass (passes & 1) and its column sum of
+    dg/db (passes & 2) on checked CUDA inputs.  ``ln_bwd`` runs both;
+    one alone is for timing them apart (the column pass then sums
+    whatever the scratch holds)."""
+    N, F = x.shape
+    R, P = bwd_plan(N, _sm_count(x.device))
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
-    part = torch.empty((2, nb, F), **f32)
+    part = torch.empty((2, P, F), **f32)
     dgb = torch.empty((2, F), **f32)
-    fn = _fn("ln_bwd", 10, 3, 0)
+    fn = _fn("ln_bwd", 10, 4, 0)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), g.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
                   dy.data_ptr(), dx.data_ptr(), part[0].data_ptr(),
                   part[1].data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(),
-                  N, F, R, _DTYPES[x.dtype], _DTYPES[g.dtype],
+                  N, F, R, passes, _DTYPES[x.dtype], _DTYPES[g.dtype],
                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "ln_bwd")
-    ln_bwd.launches += 1
     return dx, dgb[0], dgb[1]
 
 

@@ -77,7 +77,10 @@ FAMILIES = (("flash_bwd_dq", ("flash_bwd_dq_kernel", "tc::dq_kernel")),
             ("ce_fwd", ("ce_fwd_kernel",)),
             ("ce_bwd", ("ce_bwd_kernel",)),
             ("ln_fwd", ("ln_fwd_kernel",)),
-            ("ln_bwd", ("ln_bwd_kernel", "ln_bwd_sum_kernel")),
+            # the backward's row pass and its dg/db column sum, apart (the
+            # names before and after the row pass took groups of rows)
+            ("ln_bwd_rows", ("ln_bwd_kernel", "ln_bwd_rows_kernel")),
+            ("ln_bwd_cols", ("ln_bwd_sum_kernel", "ln_bwd_cols_kernel")),
             ("matmul", profile_serving.MATMUL_KEYS),
             ("elementwise", ("",)))
 

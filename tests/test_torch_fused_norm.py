@@ -137,6 +137,16 @@ def test_defaults_and_no_launches_on_the_cpu():
     assert (fn.ln_fwd.launches, fn.ln_bwd.launches) == before
 
 
+@pytest.mark.parametrize("N", [1, 7, 131, 132, 133, 2048, 4096, 5000])
+@pytest.mark.parametrize("sms", [132, 114])
+def test_bwd_plan_covers_rows_once_with_a_partial_per_sm_at_most(N, sms):
+    R, P = fn.bwd_plan(N, sms)
+    assert 1 <= P <= sms
+    rows = [r for b in range(P) for r in range(b * R, min((b + 1) * R, N))]
+    assert rows == list(range(N))             # each row once, in order
+    assert all(b * R < N for b in range(P))   # no CTA without a row
+
+
 @pytest.mark.parametrize("arch", [("learned", "gelu", None),
                                   ("rope", "swiglu", 2)])
 def test_loss_and_grads_with_fused_ln_match_jax(interpret, monkeypatch,

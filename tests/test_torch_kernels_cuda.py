@@ -5,7 +5,10 @@ from ``R_TC`` packed rows on),
 block-table (paged) decode, the flash backward (dq and dk/dv; bf16 at
 head_dim 64 and 128 on the tensor-core bodies), the
 fused softmax cross-entropy and the fused LayerNorm (forward and
-backward), and the W4A16 dequant-matmul.
+backward; the backward's sums in a fixed order, so a second call gives
+the same bits), and the W4A16 dequant-matmul (bf16 x on the tensor-core
+body, fp32 x and odd group sizes on the FMA body, each launch's body
+checked through ``tc_launches``).
 
 Every test here is marked ``cuda`` and decides in its body whether a
 card is present — never at import, in ``skipif`` or in ``parametrize``,
@@ -594,6 +597,10 @@ def test_fused_ln_flag_raises_on_the_card(monkeypatch):
     (5, 999, "bfloat16", "float32"),        # the scalar walk
     (3, 5120, "float32", "bfloat16"),       # gpt_13b's width
     (2, 8192, "float32", "float32"),        # the widest row taken
+    (1, 2048, "bfloat16", "float32"),       # one row: one CTA
+    (7, 2048, "bfloat16", "float32"),       # a ragged row group
+    (4096, 2048, "bfloat16", "float32"),    # 32 rows a CTA
+    (133, 4096, "bfloat16", "bfloat16"),    # 2-row groups, one CTA short
 ])
 def test_fused_norm_matches_plain(N, F, dtype, wdtype):
     gen = _card()
@@ -620,6 +627,10 @@ def test_fused_norm_matches_plain(N, F, dtype, wdtype):
     # column sums over N rows, in row-block order: fp32 order only
     torch.testing.assert_close(dg, ref_dg, atol=1e-3, rtol=1e-4)
     torch.testing.assert_close(db, ref_db, atol=1e-3, rtol=1e-4)
+    # a fixed order of sums: a second call gives the same bits
+    dx2, dg2, db2 = fn.ln_bwd(x, g, mu, r, dy)
+    assert torch.equal(dx2, dx) and torch.equal(dg2, dg) \
+        and torch.equal(db2, db)
 
 
 @pytest.mark.parametrize("N,K,M,gs,dtype", [
@@ -630,6 +641,13 @@ def test_fused_norm_matches_plain(N, F, dtype, wdtype):
     (256, 2048, 2048, 64, "bfloat16"),      # the cap
     (37, 192, 130, 32, "float32"),          # ragged N and M (byte loads)
     (5, 96, 64, 48, "bfloat16"),            # gs not a power of two
+    (16, 2048, 2048, 64, "bfloat16"),       # the n16 product
+    (64, 2048, 8192, 64, "bfloat16"),       # an admission bucket, n64
+    (100, 8192, 2048, 64, "bfloat16"),      # n64 products looped, ragged
+    (128, 2048, 2048, 64, "bfloat16"),
+    (24, 192, 130, 32, "bfloat16"),         # ragged M on the tc route
+    (3, 160, 72, 16, "bfloat16"),           # K/2 = 80: a part stage, M % 16
+    (8, 160, 64, 40, "bfloat16"),           # gs 40: the fma route in bf16
 ])
 def test_w4_matmul_matches_plain(N, K, M, gs, dtype):
     gen = _card()
@@ -641,11 +659,14 @@ def test_w4_matmul_matches_plain(N, K, M, gs, dtype):
     scale = 0.01 + 0.09 * torch.rand(K // gs, 1, M, generator=gen,
                                      device="cuda")
     x = torch.randn(N, K, generator=gen, device="cuda").to(dt)
-    before = wm.w4_matmul.launches
+    body = wm.route(dt, N, K, M, gs)
+    assert body == ("tc" if dt == torch.bfloat16 and gs % 16 == 0 else "fma")
+    before = (wm.w4_matmul.launches, wm.w4_matmul.tc_launches)
     out = wm.w4_matmul(x, packed, scale)
     ref = wm._plain_w4(x, packed, scale)
     torch.cuda.synchronize()
-    assert wm.w4_matmul.launches == before + 1
+    assert (wm.w4_matmul.launches, wm.w4_matmul.tc_launches) == \
+        (before[0] + 1, before[1] + (body == "tc"))
     assert out.dtype == dt and out.shape == (N, M)
     tol = 1e-2 if dt == torch.bfloat16 else 1e-4
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)

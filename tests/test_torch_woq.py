@@ -163,6 +163,43 @@ def test_w4_matmul_contract_on_the_cpu():
         wm.w4_matmul(x, packed, scale[:3])
     assert wm.splits_for(8, 2048, 2048, 132) > 1      # fills the card
     assert wm.splits_for(256, 2048, 2048, 132) == 1
+    assert wm.w4_matmul.tc_launches >= 0      # the tensor-core body's count
+
+
+@pytest.mark.parametrize("dtype,K,gs,want", [
+    (torch.bfloat16, 192, 32, "tc"),
+    (torch.bfloat16, 192, 48, "tc"),
+    (torch.bfloat16, 2048, 64, "tc"),         # gpt_1p3b, group 64
+    (torch.bfloat16, 160, 40, "fma"),         # gs not a multiple of 16
+    (torch.bfloat16, 48, 16, "fma"),          # K/2 not a multiple of 16
+    (torch.float32, 2048, 64, "fma"),         # fp32 x is never rounded
+])
+def test_w4_route(dtype, K, gs, want):
+    assert wm.route(dtype, 8, K, 2048, gs) == want
+    assert wm.route(dtype, 256, K, 130, gs) == want   # N, M do not matter
+
+
+def test_w4_route_refuses_an_unknown_dtype():
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        wm.route(torch.float16, 8, 2048, 2048, 64)
+
+
+@pytest.mark.parametrize("K,M", [(2048, 2048), (2048, 8192), (8192, 2048)])
+def test_w4_tc_splits_fill_the_card_at_a_tick(K, M):
+    """At N = 8 the tensor-core route's 64-column tiles times the K splits
+    give every one of 132 SMs a CTA; at N = 256 the partials would outgrow
+    half the weight, so one split; a split walks whole 64-row stages and
+    none is empty."""
+    sms = 132
+    s8 = wm.splits_for(8, K, M, sms)
+    assert -(-M // 64) * s8 >= sms
+    assert wm.splits_for(256, K, M, sms) <= max(1, K // (16 * 256))
+    assert wm.splits_for(256, 2048, 2048, sms) == 1
+    for N in (1, 8, 16, 64, 100, 128, 256):
+        s = wm.splits_for(N, K, M, sms)
+        per = -(-(K // 2) // s)
+        chunk = -(-per // 64) * 64
+        assert chunk % 64 == 0 and (s - 1) * chunk < K // 2 <= s * chunk
 
 
 @pytest.mark.parametrize("w4", ["0", "1"])
