@@ -161,6 +161,33 @@ def cold_ms(torch, fn, iters=20):
     return statistics.median(a.elapsed_time(b) for a, b in ev)
 
 
+def kernel_ms(torch, fn, names, iters=20):
+    """Mean device ms of each kernel a call of ``fn`` launches, by name:
+    ``names`` maps a label to a substring of the kernel's name.  The
+    ``iters`` calls run as in :func:`cold_ms` (L2 flushed, card spinning)
+    under ``torch.profiler``; raises if a label matched no kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    flush = torch.empty(64 << 20, dtype=torch.int32, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            flush.zero_()
+            torch.cuda._sleep(SPIN_CYCLES)
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for evt in prof.key_averages():
+        for label, sub in names.items():
+            if sub in evt.key and evt.self_device_time_total > 0:
+                out[label] = out.get(label, 0.0) + \
+                    evt.self_device_time_total / 1e3 / iters
+    missing = set(names) - set(out)
+    if missing:
+        raise RuntimeError(f"kernel_ms: no device time for {sorted(missing)}")
+    return out
+
+
 def bound(nbytes, flops, flops_per_s=BF16_FLOPS_PER_S):
     t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
     t_ops = flops / flops_per_s * 1e3
@@ -1002,8 +1029,7 @@ def time_norm(torch, fn, F, N=2048, D=2048):
     element, 12 a backward one) count at the fp32 rate.  Yardstick:
     ``F.layer_norm`` and its backward (x, weight and bias grads) on the
     same x and dy, with bf16 copies of g and b (one dtype for all three).
-    The backward's two kernels are also timed apart: the row pass
-    (``rows_ms``) and the column sum of dg/db (``cols_ms``)."""
+    :func:`ln_bwd_apart` times the backward's two kernels apart."""
     gen = torch.Generator(device="cuda").manual_seed(16)
     x, g, b, dy = _ln_inputs(torch, gen, N, D, torch.bfloat16, torch.float32)
     _, mu, r = fn.ln_fwd(x, g, b)
@@ -1028,13 +1054,22 @@ def time_norm(torch, fn, F, N=2048, D=2048):
                     x, g, mu, r, dy)),
                 "library_ms": cold_ms(torch, lambda: torch.autograd.grad(
                     yl, (xl, gl, bl), dy, retain_graph=True)),
-                "rows_ms": cold_ms(torch, lambda: fn._ln_bwd_launch(
-                    x, g, mu, r, dy, passes=1)),
-                "cols_ms": cold_ms(torch, lambda: fn._ln_bwd_launch(
-                    x, g, mu, r, dy, passes=2)),
                 "ctas_rows_each":
                     fn.bwd_plan(N, fn._sm_count(x.device))[::-1]},
     }
+
+
+def ln_bwd_apart(torch, fn, N=2048, D=2048):
+    """The LayerNorm backward's two kernels on :func:`time_norm`'s inputs,
+    timed apart by name in a profile of the call (:func:`kernel_ms`): the
+    row pass (``rows_ms``) and the column sum of dg/db (``cols_ms``).  It
+    runs after the paths, so the profiler touches no path's timing."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    x, g, b, dy = _ln_inputs(torch, gen, N, D, torch.bfloat16, torch.float32)
+    _, mu, r = fn.ln_fwd(x, g, b)
+    return kernel_ms(torch, lambda: fn.ln_bwd(x, g, mu, r, dy),
+                     {"rows_ms": "ln_bwd_rows_kernel",
+                      "cols_ms": "ln_bwd_cols_kernel"})
 
 
 def time_w4(torch, wm, woq, N, K, M):
@@ -1618,6 +1653,10 @@ def main() -> int:
         f"tokens/s, MFU {b['mfu']:.4f} vs {a['mfu']:.4f}, peak memory "
         f"{b['peak_mem_gb']:.2f} vs {a['peak_mem_gb']:.2f} GB")
 
+    ln["bwd"].update(ln_bwd_apart(torch, fn))
+    log(f"  fused_layer_norm_bwd apart: rows_ms {ln['bwd']['rows_ms']:.4f}, "
+        f"cols_ms {ln['bwd']['cols_ms']:.4f} (ms {ln['bwd']['ms']:.4f})")
+
     tc_by_path = {"main": stats["tc_launches"], "paged": pstats["tc_launches"],
                   "w4": wstats["tc_launches"],
                   **{p: t["tc_launches"] for p, t in train.items()}}
@@ -1659,7 +1698,8 @@ def main() -> int:
         entry("fused_layer_norm_fwd", "paddle_tpu_torch/csrc/fused_norm.cu",
               "paddle_tpu/ops/fused_norm.py:144", ln["fwd"]),
         entry("fused_layer_norm_bwd", "paddle_tpu_torch/csrc/fused_norm.cu",
-              "paddle_tpu/ops/fused_norm.py:202", ln["bwd"]),
+              "paddle_tpu/ops/fused_norm.py:202", ln["bwd"],
+              rows_ms=ln["bwd"]["rows_ms"], cols_ms=ln["bwd"]["cols_ms"]),
         entry("fused_ce_fwd", "paddle_tpu_torch/csrc/fused_ce.cu",
               "paddle_tpu/ops/fused_ce.py:159", ce["fwd"]),
         entry("fused_ce_bwd", "paddle_tpu_torch/csrc/fused_ce.cu",

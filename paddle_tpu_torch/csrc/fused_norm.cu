@@ -411,28 +411,24 @@ cudaError_t fwd(const void* x, const void* g, const void* b, void* y,
 struct BwdArgs {
   const void *x, *g, *mu, *rstd, *dy;
   void *dx, *dg_part, *db_part, *dg, *db;
-  int N, F, R, passes;        // passes: 1 = row pass, 2 = column pass
+  int N, F, R;
 };
 
 template <typename T, typename W, int KV, bool VEC>
 cudaError_t bwd_at(const BwdArgs& a, cudaStream_t st) {
   const int nb = (a.N + a.R - 1) / a.R;
-  if (a.passes & 1) {
-    ln_bwd_rows_kernel<T, W, KV, VEC><<<nb, kThreads, 0, st>>>(
-        static_cast<const T*>(a.x), static_cast<const W*>(a.g),
-        static_cast<const float*>(a.mu), static_cast<const float*>(a.rstd),
-        static_cast<const T*>(a.dy), static_cast<T*>(a.dx),
-        static_cast<float*>(a.dg_part), static_cast<float*>(a.db_part), a.N,
-        a.F, a.R);
-    const cudaError_t err = cudaGetLastError();
-    if (err != cudaSuccess) return err;
-  }
-  if (a.passes & 2) {
-    ln_bwd_cols_kernel<<<dim3((a.F + 31) / 32, 2), kThreads, 0, st>>>(
-        static_cast<const float*>(a.dg_part),
-        static_cast<const float*>(a.db_part), static_cast<float*>(a.dg),
-        static_cast<float*>(a.db), nb, a.F);
-  }
+  ln_bwd_rows_kernel<T, W, KV, VEC><<<nb, kThreads, 0, st>>>(
+      static_cast<const T*>(a.x), static_cast<const W*>(a.g),
+      static_cast<const float*>(a.mu), static_cast<const float*>(a.rstd),
+      static_cast<const T*>(a.dy), static_cast<T*>(a.dx),
+      static_cast<float*>(a.dg_part), static_cast<float*>(a.db_part), a.N,
+      a.F, a.R);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return err;
+  ln_bwd_cols_kernel<<<dim3((a.F + 31) / 32, 2), kThreads, 0, st>>>(
+      static_cast<const float*>(a.dg_part),
+      static_cast<const float*>(a.db_part), static_cast<float*>(a.dg),
+      static_cast<float*>(a.db), nb, a.F);
   return cudaGetLastError();
 }
 
@@ -463,10 +459,9 @@ bool shape_ok(int N, int F) { return N > 0 && F > 0 && F <= kMaxF; }
 // dtype codes: 0 = float32, 1 = bfloat16; xdtype for x, y, dy and dx,
 // wdtype for g and b.  x / y / dy / dx [N, F] contiguous, g and b [F],
 // mu / rstd [N] float32, dg / db [F] float32, dg_part / db_part
-// [ceil(N / R), F] float32 scratch.  F <= kMaxF = 8192.  ln_bwd's passes:
-// 3 runs the row pass and the column pass (the call), 1 or 2 one of them
-// (to time them apart).  Each returns cudaGetLastError() after its
-// launches.
+// [ceil(N / R), F] float32 scratch.  F <= kMaxF = 8192.  ln_bwd launches
+// the row pass, then the column pass.  Each returns cudaGetLastError()
+// after its launches.
 extern "C" int ln_fwd(const void* x, const void* g, const void* b, void* y,
                       void* mu, void* rstd, int N, int F, float eps,
                       int xdtype, int wdtype, void* stream) {
@@ -487,13 +482,11 @@ extern "C" int ln_fwd(const void* x, const void* g, const void* b, void* y,
 extern "C" int ln_bwd(const void* x, const void* g, const void* mu,
                       const void* rstd, const void* dy, void* dx,
                       void* dg_part, void* db_part, void* dg, void* db, int N,
-                      int F, int R, int passes, int xdtype, int wdtype,
-                      void* stream) {
+                      int F, int R, int xdtype, int wdtype, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (!shape_ok(N, F) || R <= 0 || passes < 1 || passes > 3)
-    return (int)cudaErrorInvalidValue;
+  if (!shape_ok(N, F) || R <= 0) return (int)cudaErrorInvalidValue;
   const BwdArgs a{x, g, mu, rstd, dy, dx, dg_part, db_part, dg, db,
-                  N, F, R, passes};
+                  N, F, R};
   if (xdtype == 0 && wdtype == 0) return (int)bwd<float, float>(a, st);
   if (xdtype == 0 && wdtype == 1)
     return (int)bwd<float, __nv_bfloat16>(a, st);

@@ -44,7 +44,8 @@
 //    filled by 16-byte cp.async copies, zero past the split's rows, past M
 //    and past N.  The copies, not the ring's depth, set the pace: staging
 //    the scales 16 bytes a copy instead of 4 cut the time at every shape,
-//    while 2 or 8 stages did not beat 4 (tools/ab_w4.py).  Packed rows
+//    while 2 stages were level with 4 but at one shape and 8 lost at the
+//    wide ones (PERF.md).  Packed rows
 //    whose width or base is not a multiple of 16 bytes are staged by byte
 //    loads, their scales 4 bytes a copy.  gs % 16 == 0 and K % 32 == 0
 //    keep every k16 step inside one scale group in both halves.
@@ -294,10 +295,7 @@ constexpr int kPackedBytes = kBKp * kPitch;
 constexpr int kScaleBytes = 2 * kSteps * kBM * 4;
 constexpr int kNT = 64;                  // rows of x a CTA, at most
 constexpr int kMaxN = 256;
-#ifndef W4_TC_STAGES
-#define W4_TC_STAGES 4     // ring depth (tools/ab_w4.py builds others)
-#endif
-constexpr int kStages = W4_TC_STAGES;
+constexpr int kStages = 4;              // ring depth
 __host__ __device__ constexpr int stage_bytes(int BN) {
   return 2 * BN * 128 + kPackedBytes + kScaleBytes;
 }

@@ -153,30 +153,20 @@ def ln_bwd(x, g, mu, rstd, dy):
             raise ValueError(f"ln_bwd: {name} must be contiguous float32 "
                              f"[{N}, 1] on x's device, got {t.dtype} "
                              f"{tuple(t.shape)}")
-    dx, dg, db = _ln_bwd_launch(x, g, mu, rstd, dy, passes=3)
-    ln_bwd.launches += 1
-    return dx, dg, db
-
-
-def _ln_bwd_launch(x, g, mu, rstd, dy, passes):
-    """Launch the backward's row pass (passes & 1) and its column sum of
-    dg/db (passes & 2) on checked CUDA inputs.  ``ln_bwd`` runs both;
-    one alone is for timing them apart (the column pass then sums
-    whatever the scratch holds)."""
-    N, F = x.shape
     R, P = bwd_plan(N, _sm_count(x.device))
     f32 = dict(dtype=torch.float32, device=x.device)
     dx = torch.empty_like(x)
     part = torch.empty((2, P, F), **f32)
     dgb = torch.empty((2, F), **f32)
-    fn = _fn("ln_bwd", 10, 4, 0)
+    fn = _fn("ln_bwd", 10, 3, 0)
     with torch.cuda.device(x.device):
         code = fn(x.data_ptr(), g.data_ptr(), mu.data_ptr(), rstd.data_ptr(),
                   dy.data_ptr(), dx.data_ptr(), part[0].data_ptr(),
                   part[1].data_ptr(), dgb[0].data_ptr(), dgb[1].data_ptr(),
-                  N, F, R, passes, _DTYPES[x.dtype], _DTYPES[g.dtype],
+                  N, F, R, _DTYPES[x.dtype], _DTYPES[g.dtype],
                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "ln_bwd")
+    ln_bwd.launches += 1
     return dx, dgb[0], dgb[1]
 
 

@@ -75,8 +75,7 @@ def route(dtype, N: int, K: int, M: int, gs: int) -> str:
     return "fma"
 
 
-def splits_for(N: int, K: int, M: int, sm_count: int,
-               route: str = "tc") -> int:
+def splits_for(N: int, K: int, M: int, sm_count: int, route: str) -> int:
     """K splits for one launch: enough CTAs for about two per SM when the
     output tiles alone are fewer (at N = 8 a 2048-wide output is 32 tiles
     of 64 columns on the tensor-core route, at N = 256 128 tiles of 64 ×
@@ -84,7 +83,8 @@ def splits_for(N: int, K: int, M: int, sm_count: int,
     read once) stay within half the weight's K/2 · M bytes — so N = 256
     takes one split at 2048².  On the "tc"
     route a split walks whole 64-row stages and none is empty; on "fma"
-    every split keeps at least ``_MIN_SPLIT_ROWS`` packed rows."""
+    every split keeps at least ``_MIN_SPLIT_ROWS`` packed rows.  ``route``
+    is :func:`route`'s answer for the launch."""
     Kp = K // 2
     if route == "tc":
         tiles, rows = -(-M // _TC_BM) * -(-N // _TC_BN), _TC_BKP

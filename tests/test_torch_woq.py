@@ -161,8 +161,10 @@ def test_w4_matmul_contract_on_the_cpu():
         wm.w4_matmul(x[:, :126], packed, scale)
     with pytest.raises(ValueError, match="shape mismatch"):
         wm.w4_matmul(x, packed, scale[:3])
-    assert wm.splits_for(8, 2048, 2048, 132) > 1      # fills the card
-    assert wm.splits_for(256, 2048, 2048, 132) == 1
+    assert wm.splits_for(8, 2048, 2048, 132, "fma") > 1      # fills the card
+    assert wm.splits_for(256, 2048, 2048, 132, "fma") == 1
+    assert wm.splits_for(8, 2048, 2048, 132, "tc") > 1
+    assert wm.splits_for(256, 2048, 2048, 132, "tc") == 1
     assert wm.w4_matmul.tc_launches >= 0      # the tensor-core body's count
 
 
@@ -191,12 +193,12 @@ def test_w4_tc_splits_fill_the_card_at_a_tick(K, M):
     half the weight, so one split; a split walks whole 64-row stages and
     none is empty."""
     sms = 132
-    s8 = wm.splits_for(8, K, M, sms)
+    s8 = wm.splits_for(8, K, M, sms, "tc")
     assert -(-M // 64) * s8 >= sms
-    assert wm.splits_for(256, K, M, sms) <= max(1, K // (16 * 256))
-    assert wm.splits_for(256, 2048, 2048, sms) == 1
+    assert wm.splits_for(256, K, M, sms, "tc") <= max(1, K // (16 * 256))
+    assert wm.splits_for(256, 2048, 2048, sms, "tc") == 1
     for N in (1, 8, 16, 64, 100, 128, 256):
-        s = wm.splits_for(N, K, M, sms)
+        s = wm.splits_for(N, K, M, sms, "tc")
         per = -(-(K // 2) // s)
         chunk = -(-per // 64) * 64
         assert chunk % 64 == 0 and (s - 1) * chunk < K // 2 <= s * chunk
