@@ -10,16 +10,18 @@ Phases, in order; any failure raises and the script exits non-zero:
 3. hold each kernel against its plain PyTorch twin at the paths' widths
    (bf16 outputs within 1e-2 * (1 + |plain|), lse and loss within 1e-3):
    flash prefill on the tensor-core body (head_dim 64, 128, 256, causal
-   and not, GQA, S != T, the train shape); split-KV decode at a tick's Tq,
-   and decode at prefill-chunk widths (Tq * G from R_TC - 1 to 1024 query
-   rows per kv head, the tensor-core route from R_TC on), head_dim 64, 128
-   and 256, bf16 and int8; block-table (paged) decode, whose free
+   and not, GQA, S != T, the train shape); decode at a tick's widths on
+   the tick body (R = Tq * G < R_TC, bf16, int8 and fp32 caches, the same
+   bits on a second call), and at prefill-chunk widths (Tq * G from R_TC -
+   1 to 1024 query rows per kv head, the tensor-core route from R_TC on),
+   head_dim 64, 128 and 256, bf16 and int8; block-table (paged) decode, whose free
    slots must come back exactly zero; the flash backward (dq, dk/dv) at
    the train shape, head_dim 64/128/256, causal and not, ragged T, S != T,
    GQA, on the tensor-core bodies at head_dim 64/128 (``route_bwd``);
    the fused softmax-CE forward and backward at the train loss head and
    at ragged shapes; the fused LayerNorm forward and backward at the train
-   shape and at ragged shapes (the backward bit-equal on a second call);
+   shape and at ragged shapes up to F = 8192 and N = 4099 (both bit-equal
+   on a second call);
    the W4A16 matmul at N = 1, 8, 64, 128, 256 for each gpt_1p3b weight
    shape, bf16 on the tensor-core body and fp32 on the FMA body (counted
    by ``tc_launches``), nibble extremes included;
@@ -47,7 +49,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    max_len=512)`` — 8 greedy requests, prompts of 40..300 tokens (prefill
    buckets 64, 128, 256, 512), 64 new tokens each — with the kernels'
    launch counts read around it (every flash forward on the tensor-core
-   body) and one request checked against a solo ``generate``;
+   body, every decode launch on the tick body: ``tick_launches``) and one
+   request checked against a solo ``generate``;
 7. the paged path, as ``build_paged_path`` defines it: the same model
    behind ``DecodeServer(layout="paged", block_size=16, num_blocks=128)``,
    8 chat requests sharing a 200-token system prompt — served tokens equal
@@ -55,12 +58,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``generate``; the allocator's prefix hits, copies-on-write and radix
    splits; the kernels' launch counts read around it, each admission's
    width C and the tensor-core decode launches it added (all of them at
-   C >= R_TC, none below);
+   C >= R_TC, the tick body below);
 8. the W4 path, as ``build_w4_path`` defines it: the main path's model and
    requests with int4 weights (group 64) and ``PADDLE_TPU_W4_KERNEL=1`` —
    exactly 6 W4 launches per layer in every decode tick and in every
    admission at a prefill bucket of at most 256 rows (none at 512), each
-   on the tensor-core body (``tc_launches``), two
+   on the tensor-core body (``tc_launches``), every decode launch on the
+   tick body, two
    requests checked against a solo ``generate`` on the dequantizing route
    (flag off), weight bytes against the bf16 model's;
 9. the train path, as ``paddle_tpu_torch.tools.profile_train.
@@ -123,6 +127,8 @@ CE_DX_ATOL = 1e-6
 LN_FP32_TOL = 1e-4
 # fp32 W4 outputs: sums of up to 8192 products in another order
 W4_FP32_TOL = 1e-4
+# fp32 decode attention outputs: sums over the cache in another order
+ATTN_FP32_TOL = 1e-4
 TRAIN_LR = 1e-3
 TRAIN_STEPS = 5
 TRAIN_LOSS_TOL = 1e-4
@@ -233,40 +239,63 @@ def check_flash(torch, fa):
 
 
 def check_decode(torch, da):
+    """Decode at a tick's widths and a few more against the plain twin,
+    each launch on the route ``da.route`` names (``tick_launches`` and
+    ``tc_launches`` count them): the main path's shape (T = 512 cache
+    rows, Hkv = 16, Tq = 1, bf16) first, then T = 2048 over GQA, Tq = 4
+    and int8, head_dim 256 (Tq = 16 at G = 4: the tensor-core route), the
+    tick body's R = 12 and 15 at head_dim 64, 128 and 256, and fp32 q over
+    an fp32 cache (tolerance 1e-4: summation order only).  A tick launch
+    gives the same bits on a second call (its splits merge in order)."""
     gen = torch.Generator(device="cuda").manual_seed(2)
     B = 8
     worst = 0.0
-    # the main path's shape (T = 512 cache rows, Hkv = 16, Tq = 1, bf16)
-    # first, then T = 2048 over GQA, Tq = 4 and int8, then head_dim 256
-    # (32-row query tiles: Tq = 16 at G = 4 is two of them)
     cases = [(512, 16, 1, "bf16", 128)] + [
         (2048, h, tq, kv, 128) for h in (16, 4) for tq in (1, 4)
         for kv in ("bf16", "int8")] + [(1024, 4, 1, "bf16", 256),
-                                       (1024, 4, 16, "int8", 256)]
+                                       (1024, 4, 16, "int8", 256),
+                                       (520, 4, 3, "int8", 64),
+                                       (520, 16, 15, "bf16", 128),
+                                       (520, 16, 15, "int8", 256),
+                                       (520, 16, 1, "fp32", 128),
+                                       (520, 4, 3, "fp32", 256)]
     for T, Hkv, Tq, kv, hd in cases:
-        q = torch.randn(B, Tq, 16, hd, generator=gen,
-                        device="cuda").to(torch.bfloat16)
+        qdt = torch.float32 if kv == "fp32" else torch.bfloat16
+        q = torch.randn(B, Tq, 16, hd, generator=gen, device="cuda").to(qdt)
         k = torch.randn(B, T, Hkv, hd, generator=gen, device="cuda")
         v = torch.randn(B, T, Hkv, hd, generator=gen, device="cuda")
         ks = vs = None
         if kv == "int8":
             k, ks = da.quantize_kv(k)
             v, vs = da.quantize_kv(v)
-        else:
+        elif kv == "bf16":
             k, v = k.to(torch.bfloat16), v.to(torch.bfloat16)
         # frontiers in the first tile, on a tile edge, mid-cache, at the end
         pos = torch.tensor([0, 1, 63, 64, T // 3, T // 2, 3 * T // 4, T - Tq],
                            dtype=torch.int32, device="cuda")
+        R = Tq * 16 // Hkv
+        route = da.route(R, qdt, hd, k.dtype)
+        before = (da.decode_attention.tick_launches,
+                  da.decode_attention.tc_launches)
         out = da.decode_attention(q, k, v, pos, ks, vs)
         ref = da._plain_decode(q, k, v, pos, ks, vs, None)
         torch.cuda.synchronize()
+        ran = (da.decode_attention.tick_launches - before[0],
+               da.decode_attention.tc_launches - before[1])
         err = (out.float() - ref.float()).abs().max().item()
-        log(f"  decode Hq=16 Hkv={Hkv} hd={hd} T={T} Tq={Tq} {kv}: "
-            f"max|out-plain| {err:.3g} (tol {BF16_TOL}*(1+|plain|))")
-        if not torch.allclose(out.float(), ref.float(), atol=BF16_TOL,
-                              rtol=BF16_TOL):
+        tol = BF16_TOL if qdt == torch.bfloat16 else ATTN_FP32_TOL
+        log(f"  decode Hq=16 Hkv={Hkv} hd={hd} T={T} Tq={Tq} {kv} "
+            f"({route}): max|out-plain| {err:.3g} (tol {tol}*(1+|plain|))")
+        if not torch.allclose(out.float(), ref.float(), atol=tol, rtol=tol):
             raise AssertionError(f"decode disagrees at T={T} Hkv={Hkv} "
-                                 f"Tq={Tq} {kv}")
+                                 f"Tq={Tq} {kv} hd={hd}")
+        if ran != (route == "tick", route == "tc"):
+            raise AssertionError(f"decode at R={R} {kv} ran (tick, tc) "
+                                 f"{ran}, route {route}")
+        if route == "tick" and not torch.equal(
+                da.decode_attention(q, k, v, pos, ks, vs), out):
+            raise AssertionError(f"the tick body gave other bits on a "
+                                 f"second call at R={R} {kv} hd={hd}")
         worst = max(worst, err)
     return worst
 
@@ -488,30 +517,36 @@ def check_norm(torch, fn):
     """The LayerNorm kernels against their plain twins: the train path's
     shape (N = 2048, F = 2048, bf16 x, fp32 g and b) first, then a decode
     tick's (bf16 g and b), ragged N and F in fp32 and bf16 (F = 999 takes
-    the scalar walk) and gpt_13b's width.  y and dx within BF16_TOL·(1 +
-    |plain|); mu, rstd, dg and db within LN_FP32_TOL·(1 + |plain|), both
-    sides of the backward fed the kernel's mu and rstd; a second backward
-    on the same inputs gives the same bits.  Returns the worst errors
-    (forward y, backward dx)."""
+    the scalar walk), gpt_13b's width, and the forward's row groups: one
+    row, F = 1, more rows than its persistent grid (N = 4099), 2-8 warps
+    a row up to F = 8192.  y and dx within BF16_TOL·(1 + |plain|) (fp32 x:
+    LN_FP32_TOL); mu, rstd, dg and db within LN_FP32_TOL·(1 + |plain|),
+    both sides of the backward fed the kernel's mu and rstd; a second
+    forward and a second backward on the same inputs give the same bits.
+    Returns the worst errors (forward y, backward dx)."""
     gen = torch.Generator(device="cuda").manual_seed(14)
     bf, f32 = torch.bfloat16, torch.float32
     worst_f = worst_b = 0.0
     for N, F, dt, wdt in [(2048, 2048, bf, f32), (8, 2048, bf, bf),
                           (37, 1000, f32, f32), (37, 999, bf, f32),
-                          (3, 5120, bf, f32)]:
+                          (3, 5120, bf, f32), (1, 2048, bf, f32),
+                          (7, 1, f32, bf), (4099, 2048, bf, f32),
+                          (4099, 999, f32, f32), (7, 8192, f32, f32),
+                          (7, 8192, bf, bf), (2048, 5120, bf, f32)]:
         x, g, b, dy = _ln_inputs(torch, gen, N, F, dt, wdt)
         y, mu, r = fn.ln_fwd(x, g, b)
         dx, dg, db = fn.ln_bwd(x, g, mu, r, dy)
         ref_y, ref_mu, ref_r = fn._plain_ln_fwd(x, g, b)
         ref_dx, ref_dg, ref_db = fn._plain_ln_bwd(x, g, mu, r, dy)
         torch.cuda.synchronize()
-        e_y, ok_y = _within(torch, y, ref_y, BF16_TOL)
-        e_dx, ok_dx = _within(torch, dx, ref_dx, BF16_TOL)
+        tol = BF16_TOL if dt == bf else LN_FP32_TOL
+        e_y, ok_y = _within(torch, y, ref_y, tol)
+        e_dx, ok_dx = _within(torch, dx, ref_dx, tol)
         stats = [_within(torch, a, b_, LN_FP32_TOL) for a, b_ in
                  ((mu, ref_mu), (r, ref_r), (dg, ref_dg), (db, ref_db))]
         log(f"  fused_norm x {str(dt)[6:]} g/b {str(wdt)[6:]} N={N} F={F}: "
             f"max|y-plain| {e_y:.3g}, max|dx-plain| {e_dx:.3g} (tol "
-            f"{BF16_TOL}*(1+|plain|)); max|mu, rstd, dg, db - plain| "
+            f"{tol}*(1+|plain|)); max|mu, rstd, dg, db - plain| "
             f"{', '.join(f'{e:.3g}' for e, _ in stats)} (tol "
             f"{LN_FP32_TOL}*(1+|plain|))")
         if not (ok_y and ok_dx and all(ok for _, ok in stats)):
@@ -519,6 +554,10 @@ def check_norm(torch, fn):
         again = fn.ln_bwd(x, g, mu, r, dy)      # sums in a fixed order
         if not all(torch.equal(a, b_) for a, b_ in zip(again, (dx, dg, db))):
             raise AssertionError(f"ln_bwd gave other bits on a second call "
+                                 f"at N={N} F={F}")
+        again = fn.ln_fwd(x, g, b)
+        if not all(torch.equal(a, b_) for a, b_ in zip(again, (y, mu, r))):
+            raise AssertionError(f"ln_fwd gave other bits on a second call "
                                  f"at N={N} F={F}")
         worst_f, worst_b = max(worst_f, e_y), max(worst_b, e_dx)
     return worst_f, worst_b
@@ -1118,11 +1157,18 @@ def tc_counts(ks):
             if hasattr(fn, "tc_launches")}
 
 
+def tick_counts(ks):
+    """Launches on the tick body (``decode_attention`` below ``R_TC``)."""
+    return {name: fn.tick_launches for name, fn in ks.items()
+            if hasattr(fn, "tick_launches")}
+
+
 def zero_counts(ks):
     for fn in ks.values():
         fn.launches = 0
-        if hasattr(fn, "tc_launches"):
-            fn.tc_launches = 0
+        for attr in ("tc_launches", "tick_launches"):
+            if hasattr(fn, attr):
+                setattr(fn, attr, 0)
 
 
 def serve(torch, srv, prompts, new):
@@ -1188,22 +1234,27 @@ def main_path(torch, gpt, G, serving, ks, wl):
     served, t_admit, ticks, wall = serve(torch, srv, prompts, new)
     launches = launch_counts(ks)
     tc = tc_counts(ks)
+    tick = tick_counts(ks)
     peak = torch.cuda.max_memory_allocated()
     n_tok = sum(len(s) for s in served)
     log(f"  served {len(served)} requests, {n_tok} tokens in {wall:.3f} s "
         f"({len(ticks)} ticks; admission prefill {t_admit * 1e3:.1f} ms)")
     log(f"  launches in the main path: {launches}; on tensor-core bodies: "
-        f"{tc}")
+        f"{tc}; on the tick body: {tick}")
     if not (launches["flash_attention_fwd"] and launches["decode_attention"]):
         raise AssertionError(f"a kernel of the path never ran: {launches}")
     assert launches["flash_attention_fwd"] == cfg.num_layers * len(prompts)
     assert launches["decode_attention"] == cfg.num_layers * len(ticks)
     assert launches["paged_decode_attention"] == 0
-    # bf16 prefill runs the tensor-core flash body; the tick (R = 1) the
-    # split-KV decode body
+    # bf16 prefill runs the tensor-core flash body; every tick (R = 1) the
+    # tick decode body
     assert tc == {"flash_attention_fwd": launches["flash_attention_fwd"],
                   "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                   "w4_matmul": 0, "decode_attention": 0}, tc
+    if tick["decode_attention"] != launches["decode_attention"]:
+        raise AssertionError(f"{tick['decode_attention']} of "
+                             f"{launches['decode_attention']} tick launches "
+                             f"on the tick body")
     assert all(len(s) == new and all(0 <= t < cfg.vocab_size for t in s)
                for s in served)
 
@@ -1221,7 +1272,7 @@ def main_path(torch, gpt, G, serving, ks, wl):
         "ticks": len(ticks), "tick_ms_mean": 1e3 * statistics.mean(ticks),
         "tick_ms_median": 1e3 * statistics.median(ticks),
         "admission_ms": 1e3 * t_admit, "peak_mem_gb": peak / 1e9,
-        "launches": launches, "tc_launches": tc,
+        "launches": launches, "tc_launches": tc, "tick_launches": tick,
         "solo_generate_equal": solo_div is None,
         "solo_divergence": solo_div,
     }
@@ -1262,6 +1313,7 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
         served, t_admit, ticks, wall = serve(torch, srv, prompts, new)
         launches = launch_counts(ks)
         tc = tc_counts(ks)
+        tick = tick_counts(ks)
     finally:
         kv_pool.paged_prefill_chunk = plain_chunk
     peak = torch.cuda.max_memory_allocated()
@@ -1288,6 +1340,9 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
     for _, _, C, added in chunk_calls:
         assert added == L * (C >= R_TC), chunk_calls
     assert tc["decode_attention"] == sum(c[3] for c in chunk_calls), tc
+    # ... and every one below it on the tick body
+    assert tick["decode_attention"] == L * sum(
+        c[2] < R_TC for c in chunk_calls), (tick, chunk_calls)
     assert all(len(s) == new for s in served)
     cont_div = {r: check_tokens(torch, gpt, params, cfg, prompts[r],
                                 served[r], cont_tokens[r],
@@ -1315,6 +1370,7 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
         "admission_ms": 1e3 * t_admit, "admission_chunks": len(chunk_calls),
         "prefill_rows": load["prefill_rows"], "prompt_rows": sum(lens),
         "peak_mem_gb": peak / 1e9, "launches": launches, "tc_launches": tc,
+        "tick_launches": tick,
         "admission_chunks_pos0_length_width_tc": chunk_calls, "kv_pool": pool,
         "contiguous_tokens_equal": all(d is None for d in cont_div.values()),
         "tokens_before_divergence": same,
@@ -1405,6 +1461,11 @@ def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
     assert launches["flash_attention_fwd"] == L * len(prompts), launches
     assert launches["decode_attention"] == L * len(ticks), launches
     assert launches["fused_layer_norm_fwd"] == 0, launches
+    tick = tick_counts(ks)
+    if tick["decode_attention"] != launches["decode_attention"]:
+        raise AssertionError(f"{tick['decode_attention']} of "
+                             f"{launches['decode_attention']} W4-path tick "
+                             f"launches on the tick body")
     assert all(len(x) == new and all(0 <= t < cfg.vocab_size for t in x)
                for x in served)
     # the reference: the same int4 weights through the dequantizing route
@@ -1423,7 +1484,7 @@ def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
         "admission_ms": 1e3 * t_admit, "peak_mem_gb": peak / 1e9,
         "w4_per_tick": per_pass, "w4_per_admission": admit,
         "w4_tc_per_admission": admit_tc,
-        "launches": launches, "tc_launches": tc,
+        "launches": launches, "tc_launches": tc, "tick_launches": tick,
         "dequant_route_equal": {r: d is None for r, d in solo_div.items()},
         "dequant_route_divergence": {r: d for r, d in solo_div.items()
                                      if d is not None},
@@ -1585,6 +1646,8 @@ def main() -> int:
         log(f"  flash_attention_fwd {json.dumps(row)}")
     # decode at mid-serve: every slot halfway through its new tokens
     dec = time_decode(torch, da, F, [n + wl.NEW // 2 for n in wl.LENS])
+    dec.update(route=da.route(1, torch.bfloat16, 128),
+               chunk_nsplit=da.tick_plan(len(wl.LENS), 16, 512, 1))
     log(f"  decode_attention {json.dumps(dec)}")
     dec_chunk = time_decode_chunk(torch, da, F)
     log(f"  decode_attention admission chunk {json.dumps(dec_chunk)}")
@@ -1660,6 +1723,11 @@ def main() -> int:
     tc_by_path = {"main": stats["tc_launches"], "paged": pstats["tc_launches"],
                   "w4": wstats["tc_launches"],
                   **{p: t["tc_launches"] for p, t in train.items()}}
+    assert all(by_path[p]["decode_attention"] == 0 for p in train)
+    tick_by_path = {"main": stats["tick_launches"]["decode_attention"],
+                    "paged": pstats["tick_launches"]["decode_attention"],
+                    "w4": wstats["tick_launches"]["decode_attention"],
+                    **{p: 0 for p in train}}
 
     tc_bodies = {
         "flash_attention_fwd": "paddle_tpu_torch/csrc/attn_tc.cuh",
@@ -1678,6 +1746,11 @@ def main() -> int:
             extra = {"tc_launches": sum(tc.values()),
                      "tc_launches_by_path": tc,
                      "tc_body": tc_bodies[name], **extra}
+        if name == "decode_attention":
+            extra = {"tick_launches": sum(tick_by_path.values()),
+                     "tick_launches_by_path": tick_by_path,
+                     "tick_body": "paddle_tpu_torch/csrc/decode_tick.cuh",
+                     **extra}
         return {"name": name, "route": "cuda", "source": src,
                 "replaces": replaces, "launches": sum(launches.values()),
                 "launches_by_path": launches,

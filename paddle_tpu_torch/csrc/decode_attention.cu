@@ -8,19 +8,24 @@
 // TPU kernel's cap: a decode tick has Tq = 1, a prefill chunk Tq = its
 // width.
 //
-// Two routes, chosen by the launch's shape and dtypes (the wrapper's
+// Three routes, chosen by the launch's shape and dtypes (the wrapper's
 // ``decode_attention.route`` takes the same decision from the same inputs):
-//  * R = Tq·G >= r_tc with bf16 q and a bf16 or int8 cache (an admission
+//  * R = Tq·G < r_tc (the decode tick, narrow chunks; any q and cache
+//    dtype): the tick body of decode_tick.cuh, one CTA per (query tile,
+//    split, kv head, batch row), the splits merged by the last CTA of each
+//    tile.  Its note says what bounds it and how it is laid out.
+//  * R >= r_tc with bf16 q and a bf16 or int8 cache (an admission
 //    chunk): the tensor-core body of attn_tc.cuh, one CTA per (64-row
 //    tile of the R packed rows, split, kv head, batch row).  With one split
 //    it writes the output itself; with more it writes the split-KV
 //    scratch (o_part, m_part, l_part) and split_kv.cuh's combine kernel
 //    merges the splits, unchanged.
-//  * everything else (the decode tick, fp32 q or cache): the split-KV body
-//    of split_kv.cuh, which this file instantiates with contiguous row
-//    addressing.  Its note says what bounds it and how it is laid out.
+//  * R >= r_tc otherwise (fp32 q or cache: the small fp32 models'
+//    admission chunks): the split-KV body of split_kv.cuh, which this file
+//    instantiates with contiguous row addressing.
 
 #include "attn_tc.cuh"
+#include "decode_tick.cuh"
 #include "split_kv.cuh"
 
 namespace {
@@ -164,27 +169,32 @@ cudaError_t tc_by_hd(int hd, const split_kv::Args& a) {
 // else null).  q [B, Tq, Hq, hd], k/v [B, T, Hkv, hd], pos [B] int32; all
 // contiguous.  Scratch: o_part [B, Hkv, nsplit, R, hd], m_part/l_part
 // [B, Hkv, nsplit, R] float32 with R = Tq * Hq / Hkv <= 1024 and
-// nsplit * chunk >= T, chunk a multiple of 64.  r_tc: the least R that
-// takes the tensor-core route (with bf16 q and a bf16 or int8 cache).
-// Returns cudaGetLastError().
+// nsplit * chunk >= T, chunk a multiple of 64; tickets: the tick route's
+// B * Hkv * R int32, all 0 (left 0), when nsplit > 1.  r_tc: the least R
+// that leaves the tick route (for the tensor-core route with bf16 q and a
+// bf16 or int8 cache, else the split-KV body).  Returns
+// cudaGetLastError().
 extern "C" int decode_attention(const void* q, const void* k, const void* v,
                                 const void* ks, const void* vs,
                                 const void* pos, void* out, void* o_part,
-                                void* m_part, void* l_part, int B, int Tq,
-                                int Hq, int Hkv, int T, int hd, int q_dtype,
-                                int kv_dtype, int chunk, int nsplit, int r_tc,
-                                float scale, void* stream) {
+                                void* m_part, void* l_part, void* tickets,
+                                int B, int Tq, int Hq, int Hkv, int T, int hd,
+                                int q_dtype, int kv_dtype, int chunk,
+                                int nsplit, int r_tc, float scale,
+                                void* stream) {
   const split_kv::Args a{q, k, v, ks, vs, pos, out, o_part, m_part, l_part,
                          B, Tq, Hq, Hkv, T, chunk, nsplit, scale,
                          static_cast<cudaStream_t>(stream)};
-  const bool tc = Hkv > 0 && Hq % Hkv == 0 && q_dtype == 1 &&
-                  (kv_dtype == 1 || kv_dtype == 2) &&
-                  Tq * (Hq / Hkv) >= r_tc;
-  if (!tc)
-    return (int)split_kv::run(q_dtype, kv_dtype, hd, a,
-                              split_kv::ContiguousRows{T, Hkv});
-  if (B <= 0 || Tq <= 0 || T <= 0 || Tq * (Hq / Hkv) > split_kv::kRMax ||
-      chunk <= 0 || chunk % attn_tc::kBN != 0 || nsplit <= 0 ||
+  if (Hkv <= 0 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  const int R = Tq * (Hq / Hkv);
+  const split_kv::ContiguousRows rows{T, Hkv};
+  if (R < r_tc)
+    return (int)tick::run(q_dtype, kv_dtype, hd, a, rows,
+                          static_cast<int*>(tickets));
+  if (q_dtype != 1 || (kv_dtype != 1 && kv_dtype != 2))
+    return (int)split_kv::run(q_dtype, kv_dtype, hd, a, rows);
+  if (B <= 0 || Tq <= 0 || T <= 0 || R > split_kv::kRMax || chunk <= 0 ||
+      chunk % attn_tc::kBN != 0 || nsplit <= 0 ||
       (long long)chunk * nsplit < T)
     return (int)cudaErrorInvalidValue;
   if (kv_dtype == 1) return (int)tc_by_hd<__nv_bfloat16>(hd, a);

@@ -14,14 +14,28 @@
 // What bounds it on an H100: bytes.  At the train path's shape (N = 2048
 // rows of F = 2048, bf16 x) the forward reads x and writes y (16.8 MB), the
 // backward reads x and dy and writes dx (25.2 MB); each does tens of
-// operations per element, far under the card's rate.  So a CTA holds
-// whole rows in registers — every element is read from device memory once —
-// with 16-byte loads (8 bf16 or 4 fp32 a thread, consecutive threads on
-// consecutive addresses), and a scalar walk for rows whose length or base
-// is not a multiple of 16 bytes.  A thread holds KV of those accesses, KV in
-// {1, 2, 4, 8} picked by F, so F up to kMaxF = 8192 is taken (the JAX
-// package's widest preset, gpt_13b, has F = 5120); a wider row is refused.
+// operations per element, far under the card's rate.  So every element is
+// read from device memory once and held in registers, with 16-byte loads
+// (8 bf16 or 4 fp32 a thread, consecutive threads on consecutive
+// addresses), and a scalar walk for rows whose length or base is not a
+// multiple of 16 bytes.  F up to kMaxF = 8192 is taken (the JAX package's
+// widest preset, gpt_13b, has F = 5120); a wider row is refused.
 //
+// The forward: persistent CTAs (at most two an SM, `fwd_at`) walk the
+// rows with a grid stride.  A CTA stages g and b once, as fp32 in shared
+// memory, while its first rows' loads fly.  A row belongs to a group of RW
+// warps — one warp up to 1024 bf16 / 512 fp32 columns, 2, 4 or 8 warps
+// past that (`fwd_shape`) — holding at most kFwdKV = 4 16-byte accesses a
+// thread (8 only for an fp32 row past 4096), kept as raw words and
+// converted at each of the row's three walks.  The row's two sums go
+// through warp shuffles, and through shared memory in warp order (two
+// barriers a row) when RW > 1.  The next row's loads are issued before
+// this row is reduced and stored.  On an H100 at N = F = 2048 bf16, 4
+// accesses a thread (2 warps a row) ran 13.0 µs against 13.9 with 8 (one
+// warp, 178 registers) and 14.2 with 2; the sums in the 256-thread order
+// below, which keep the bits of the forward before the row groups, cost
+// about 0.4 µs more (PERF.md, PR 8).
+
 // The TPU sums dg and db across its sequential grid in one VMEM block.  CTAs
 // run in no order here, so the backward is two kernels, both in a fixed
 // order (no float atomics: the result is the same on every run):
@@ -63,39 +77,22 @@ using row_vec::Vec;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kMaxF = 8192;
+constexpr int kMaxDevices = 64;   // cards per process the launcher tracks
+constexpr int kFwdCtasPerSm = 2;  // the forward's persistent CTAs an SM
+constexpr int kFwdKV = 4;         // the forward's 16-byte accesses a thread
 
-// The column of a thread's element (k, i): access k of KV, element i of an
-// access.  Vector walk: access k covers NV consecutive columns; scalar walk:
-// consecutive threads take consecutive columns.
-template <int NV, bool VEC>
-__device__ __forceinline__ int col(int k, int i) {
-  return VEC ? (threadIdx.x + k * kThreads) * NV + i
-             : (k * NV + i) * kThreads + threadIdx.x;
+// The column of element (k, i) — access k of KV, element i of an access —
+// of thread t of the TPR threads that share a row.  Vector walk: access k
+// covers NV consecutive columns; scalar walk: consecutive threads take
+// consecutive columns.
+template <int NV, bool VEC, int TPR = kThreads>
+__device__ __forceinline__ int col_of(int t, int k, int i) {
+  return VEC ? (t + k * TPR) * NV + i : (k * NV + i) * TPR + t;
 }
 
-// Load a row's elements of this thread (0 past F).
-template <typename T, int KV, bool VEC>
-__device__ __forceinline__ void load_row(const T* __restrict__ r, int F,
-                                         float* v) {
-  constexpr int NV = Vec<T>::n;
-#pragma unroll
-  for (int k = 0; k < KV; ++k) {
-    if (VEC) {
-      const int j = col<NV, VEC>(k, 0);
-      if (j < F) {
-        loadv(r + j, v + k * NV);
-      } else {
-#pragma unroll
-        for (int i = 0; i < NV; ++i) v[k * NV + i] = 0.f;
-      }
-    } else {
-#pragma unroll
-      for (int i = 0; i < NV; ++i) {
-        const int j = col<NV, VEC>(k, i);
-        v[k * NV + i] = j < F ? to_f(r[j]) : 0.f;
-      }
-    }
-  }
+template <int NV, bool VEC>
+__device__ __forceinline__ int col(int k, int i) {
+  return col_of<NV, VEC>(threadIdx.x, k, i);
 }
 
 template <typename T, int KV, bool VEC>
@@ -130,57 +127,200 @@ __device__ __forceinline__ void load_param(const W* __restrict__ p, int F,
     }
 }
 
-// Sums of a and b over the CTA, in a fixed order; every thread gets them.
-__device__ __forceinline__ float2 block_sum(float a, float b, float2* sh) {
+// A row's elements of this thread (thread t of the TPR sharing the row) as
+// loaded: raw 16-byte words on the vector walk (converted when used, so
+// the loads stay in flight), fp32 on the scalar walk; 0 past F and for a
+// row that is not live.
+template <typename T, int KV, bool VEC, int TPR = kThreads>
+struct RowIn {
+  static constexpr int NV = Vec<T>::n, E = KV * NV;
+  typename std::conditional<VEC, uint4, float>::type v[VEC ? KV : E];
+
+  __device__ __forceinline__ void load(const T* __restrict__ r, int F,
+                                       bool live, int t) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_xor_sync(0xffffffffu, a, o);
-    b += __shfl_xor_sync(0xffffffffu, b, o);
+    for (int k = 0; k < (VEC ? KV : E); ++k) {
+      if constexpr (VEC) {
+        const int j = col_of<NV, true, TPR>(t, k, 0);
+        v[k] = live && j < F ? *reinterpret_cast<const uint4*>(r + j)
+                             : make_uint4(0, 0, 0, 0);
+      } else {
+        const int j = col_of<NV, false, TPR>(t, k / NV, k % NV);
+        v[k] = live && j < F ? to_f(r[j]) : 0.f;
+      }
+    }
   }
-  if ((threadIdx.x & 31) == 0) sh[threadIdx.x >> 5] = make_float2(a, b);
-  __syncthreads();
-  float2 t = sh[0];
+
+  // Element e (access e / NV, element e % NV) as fp32; e is a constant
+  // once the callers' loops unroll.
+  __device__ __forceinline__ float at(int e) const {
+    if constexpr (VEC)
+      return row_vec::unpack<T>(v[e / NV], e % NV);
+    else
+      return v[e];
+  }
+
+  __device__ __forceinline__ void get(float* o) const {
 #pragma unroll
-  for (int w = 1; w < kWarps; ++w) {
-    t.x += sh[w].x;
-    t.y += sh[w].y;
+    for (int e = 0; e < E; ++e) o[e] = at(e);
   }
-  __syncthreads();               // sh is free for the next call
-  return t;
+
+  // An empty asm that "changes" the raw words: what was converted from
+  // them before it is not reused after it, so a caller that walks the
+  // row several times holds 16-byte words, not KV·NV floats, between
+  // the walks.
+  __device__ __forceinline__ void refresh() {
+#pragma unroll
+    for (int k = 0; k < (VEC ? KV : E); ++k) {
+      if constexpr (VEC)
+        asm volatile("" : "+r"(v[k].x), "+r"(v[k].y), "+r"(v[k].z),
+                     "+r"(v[k].w));
+      else
+        asm volatile("" : "+f"(v[k]));
+    }
+  }
+};
+
+// A row's sum in the order of a 256-thread CTA that holds the whole row
+// (the order of the forward before the row groups, so its bits stay):
+// virtual thread vt sums its elements in turn, each virtual warp sums its
+// 32 threads by a shuffle butterfly, and the 8 warp sums are added in warp
+// order.  A lane of real warp wr (of the RW of its row group) holds the
+// virtual threads lane + 32·(wr + RW·a), a < 8 / RW, whose running sums
+// are p[a].  RW > 1 passes one CTA barrier (all threads of the CTA call it
+// together); `red` holds 8 floats a row group and must not be written
+// again before the next barrier.
+template <int RW>
+__device__ __forceinline__ float cta_order_sum(float* p, float* red) {
+  constexpr int A = kWarps / RW;
+#pragma unroll
+  for (int a = 0; a < A; ++a)
+#pragma unroll
+    for (int o = 16; o > 0; o >>= 1)
+      p[a] += __shfl_xor_sync(0xffffffffu, p[a], o);
+  if constexpr (RW == 1) {
+    float t = p[0];
+#pragma unroll
+    for (int a = 1; a < A; ++a) t += p[a];
+    return t;
+  } else {
+    const int warp = threadIdx.x >> 5, wr = warp % RW;
+    float* r = red + (warp / RW) * kWarps;
+    if ((threadIdx.x & 31) == 0)
+#pragma unroll
+      for (int a = 0; a < A; ++a) r[wr + RW * a] = p[a];
+    __syncthreads();
+    float t = r[0];
+#pragma unroll
+    for (int w = 1; w < kWarps; ++w) t += r[w];
+    return t;
+  }
 }
 
-template <typename T, typename W, int KV, bool VEC>
+// g and b as fp32 into gb[0, F) and gb[Fp, Fp + F), by the whole CTA —
+// 16-byte loads where both are aligned, else one element a thread.
+template <typename W>
+__device__ __forceinline__ void stage_params(const W* __restrict__ g,
+                                             const W* __restrict__ b,
+                                             float* gb, int F, int Fp) {
+  constexpr int NW = Vec<W>::n;
+  if (F % NW == 0 && (((uintptr_t)g | (uintptr_t)b) & 15) == 0) {
+    for (int c = threadIdx.x; c < F / NW; c += kThreads) {
+      float t[NW];
+      loadv(g + c * NW, t);
+#pragma unroll
+      for (int i = 0; i < NW; ++i) gb[c * NW + i] = t[i];
+      loadv(b + c * NW, t);
+#pragma unroll
+      for (int i = 0; i < NW; ++i) gb[Fp + c * NW + i] = t[i];
+    }
+  } else {
+    for (int j = threadIdx.x; j < F; j += kThreads) {
+      gb[j] = to_f(g[j]);
+      gb[Fp + j] = to_f(b[j]);
+    }
+  }
+}
+
+// Forward: CTA c normalises rows c·GR + grp, (c + gridDim.x)·GR + grp, ...
+// (GR = kWarps / RW row groups a CTA, grp this thread's group).  Every
+// thread runs every iteration (the loop bound is the CTA's), so a group
+// whose row is past N computes on zeros and stores nothing.
+template <typename T, typename W, int KV, int RW, bool VEC>
 __global__ void __launch_bounds__(kThreads)
 ln_fwd_kernel(const T* __restrict__ x, const W* __restrict__ g,
               const W* __restrict__ b, T* __restrict__ y,
-              float* __restrict__ mu, float* __restrict__ rstd, int F,
+              float* __restrict__ mu, float* __restrict__ rstd, int N, int F,
               float eps) {
-  constexpr int NV = Vec<T>::n, E = KV * NV;
-  __shared__ float2 sh[kWarps];
-  const size_t base = (size_t)blockIdx.x * F;
-  float v[E];
-  load_row<T, KV, VEC>(x + base, F, v);
-  float s = 0.f;
+  constexpr int NV = Vec<T>::n, E = KV * NV, TPR = 32 * RW;
+  constexpr int GR = kWarps / RW;
+  extern __shared__ __align__(16) float gb[];   // g, then b at Fp
+  __shared__ float red[2][kWarps * kWarps / RW];
+  constexpr int A = kWarps / RW;   // virtual warps a lane's sums belong to
+  const int grp = (threadIdx.x >> 5) / RW, t = threadIdx.x % TPR;
+  const int Fp = (F + 3) & ~3;
+  const int step = gridDim.x * GR;
+  int row = blockIdx.x * GR + grp;
+  RowIn<T, KV, VEC, TPR> cur, nxt;
+  cur.load(x + (size_t)row * F, F, row < N, t);
+  stage_params(g, b, gb, F, Fp);
+  __syncthreads();
+  for (int r0 = blockIdx.x * GR; r0 < N; r0 += step, row += step) {
+    if (r0 + step < N)                      // the next row's loads fly
+      nxt.load(x + (size_t)(row + step) * F, F, row + step < N, t);
+    // element e of this lane belongs to virtual thread slot a: by access
+    // (e / NV) on the vector walk, by element on the scalar walk
+    float p[A] = {};
 #pragma unroll
-  for (int e = 0; e < E; ++e) s += v[e];
-  const float m = block_sum(s, 0.f, sh).x / (float)F;
-  float q = 0.f;
+    for (int e = 0; e < E; ++e) p[(VEC ? e / NV : e) % A] += cur.at(e);
+    const float m = cta_order_sum<RW>(p, red[0]) / (float)F;
+    cur.refresh();
 #pragma unroll
-  for (int e = 0; e < E; ++e) {
-    const int j = col<NV, VEC>(e / NV, e % NV);
-    const float c = j < F ? v[e] - m : 0.f;
-    q += c * c;
-  }
-  const float r = rsqrtf(block_sum(q, 0.f, sh).x / (float)F + eps);
-  float gv[E], bv[E];
-  load_param<W, NV, KV, VEC>(g, F, gv);
-  load_param<W, NV, KV, VEC>(b, F, bv);
+    for (int a = 0; a < A; ++a) p[a] = 0.f;
 #pragma unroll
-  for (int e = 0; e < E; ++e) v[e] = ((v[e] - m) * r) * gv[e] + bv[e];
-  store_row<T, KV, VEC>(y + base, F, v);
-  if (threadIdx.x == 0) {
-    mu[blockIdx.x] = m;
-    rstd[blockIdx.x] = r;
+    for (int e = 0; e < E; ++e) {
+      const int j = col_of<NV, VEC, TPR>(t, e / NV, e % NV);
+      const float c = j < F ? cur.at(e) - m : 0.f;
+      p[(VEC ? e / NV : e) % A] += c * c;
+    }
+    const float r = rsqrtf(cta_order_sum<RW>(p, red[1]) / (float)F + eps);
+    cur.refresh();
+    if (row < N) {                 // each access normalised and stored
+      T* yr = y + (size_t)row * F;
+#pragma unroll
+      for (int k = 0; k < KV; ++k) {
+        float o[NV];
+        if constexpr (VEC) {         // g and b as 16-byte shared reads
+          const int j = col_of<NV, true, TPR>(t, k, 0);
+          if (j >= F) continue;
+#pragma unroll
+          for (int i = 0; i < NV; i += 4) {
+            const float4 gg = *reinterpret_cast<const float4*>(gb + j + i);
+            const float4 bb =
+                *reinterpret_cast<const float4*>(gb + Fp + j + i);
+            const float gw[4] = {gg.x, gg.y, gg.z, gg.w};
+            const float bw[4] = {bb.x, bb.y, bb.z, bb.w};
+#pragma unroll
+            for (int u = 0; u < 4; ++u)
+              o[i + u] = ((cur.at(k * NV + i + u) - m) * r) * gw[u] + bw[u];
+          }
+          storev(yr + j, o);
+        } else {
+#pragma unroll
+          for (int i = 0; i < NV; ++i) {
+            const int j = col_of<NV, false, TPR>(t, k, i);
+            if (j < F)
+              from_f(yr + j, ((cur.at(k * NV + i) - m) * r) * gb[j] +
+                                 gb[Fp + j]);
+          }
+        }
+      }
+      if (t == 0) {
+        mu[row] = m;
+        rstd[row] = r;
+      }
+    }
+    cur = nxt;
   }
 }
 
@@ -191,51 +331,6 @@ __host__ __device__ constexpr int group_rows() {
   constexpr int fit = 32 / (KV * Vec<T>::n);
   return fit > 4 ? 4 : fit > 0 ? fit : 1;
 }
-
-// A row's elements of this thread as loaded: raw 16-byte words on the
-// vector walk (converted when used, so the loads stay in flight), fp32 on
-// the scalar walk.
-template <typename T, int KV, bool VEC>
-struct RowIn {
-  static constexpr int NV = Vec<T>::n, E = KV * NV;
-  typename std::conditional<VEC, uint4, float>::type v[VEC ? KV : E];
-
-  __device__ __forceinline__ void load(const T* __restrict__ r, int F,
-                                       bool live) {
-#pragma unroll
-    for (int k = 0; k < (VEC ? KV : E); ++k) {
-      if constexpr (VEC) {
-        const int j = col<NV, true>(k, 0);
-        v[k] = live && j < F ? *reinterpret_cast<const uint4*>(r + j)
-                             : make_uint4(0, 0, 0, 0);
-      } else {
-        const int j = col<NV, false>(k / NV, k % NV);
-        v[k] = live && j < F ? to_f(r[j]) : 0.f;
-      }
-    }
-  }
-
-  __device__ __forceinline__ void get(float* o) const {
-#pragma unroll
-    for (int k = 0; k < (VEC ? KV : E); ++k) {
-      if constexpr (!VEC) {
-        o[k] = v[k];
-      } else if constexpr (std::is_same<T, float>::value) {
-        o[4 * k] = __uint_as_float(v[k].x);
-        o[4 * k + 1] = __uint_as_float(v[k].y);
-        o[4 * k + 2] = __uint_as_float(v[k].z);
-        o[4 * k + 3] = __uint_as_float(v[k].w);
-      } else {
-        const uint32_t w[4] = {v[k].x, v[k].y, v[k].z, v[k].w};
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {   // bf16 pair: low half first
-          o[8 * k + 2 * e] = __uint_as_float(w[e] << 16);
-          o[8 * k + 2 * e + 1] = __uint_as_float(w[e] & 0xFFFF0000u);
-        }
-      }
-    }
-  }
-};
 
 // Row pass: CTA b normalises rows [b·R, min((b + 1)·R, N)) in groups of RB
 // rows (dx), summing dy·xhat and dy per column in registers, and writes one
@@ -267,8 +362,8 @@ ln_bwd_rows_kernel(const T* __restrict__ x, const W* __restrict__ g,
     for (int rb = 0; rb < RB; ++rb) {
       const int row = row0 + rb;
       const bool live = row < r1;
-      xin[rb].load(x + (size_t)row * F, F, live);
-      din[rb].load(dy + (size_t)row * F, F, live);
+      xin[rb].load(x + (size_t)row * F, F, live, threadIdx.x);
+      din[rb].load(dy + (size_t)row * F, F, live, threadIdx.x);
       min_[rb] = live ? mu[row] : 0.f;
       rin[rb] = live ? rstd[row] : 0.f;
     }
@@ -371,14 +466,58 @@ int accesses(int F) {
   return 0;
 }
 
-template <typename T, typename W, int KV, bool VEC>
+// The forward's row shape for F columns of T: RW warps a row — the fewest
+// (up to kWarps) whose kFwdKV accesses a thread cover F — then KV
+// accesses a thread, the fewest (up to 8) that cover F; KV = 0: too wide.
+template <typename T>
+void fwd_shape(int F, int* kv, int* rw) {
+  const int per = 32 * Vec<T>::n;    // columns one access of a warp covers
+  *rw = 1;
+  while (*rw < kWarps && F > *rw * kFwdKV * per) *rw *= 2;
+  *kv = 1;
+  while (*kv < 8 && F > *kv * *rw * per) *kv *= 2;
+  if (F > *kv * *rw * per) *kv = 0;
+}
+
+// Persistent grid of the forward: one CTA per GR rows, but no more than
+// kFwdCtasPerSm (or as many as fit, if fewer) on each SM.  The SM count
+// and the fit are asked once per card (and again when the shared memory
+// of g and b grows).
+template <typename T, typename W, int KV, int RW, bool VEC>
 cudaError_t fwd_at(const void* x, const void* g, const void* b, void* y,
                    void* mu, void* rstd, int N, int F, float eps,
                    cudaStream_t st) {
-  ln_fwd_kernel<T, W, KV, VEC><<<N, kThreads, 0, st>>>(
+  constexpr int GR = kWarps / RW;
+  const auto kern = ln_fwd_kernel<T, W, KV, RW, VEC>;
+  const size_t smem = 2 * (size_t)((F + 3) & ~3) * sizeof(float);
+  static int fit[kMaxDevices], sms[kMaxDevices];
+  static size_t fit_smem[kMaxDevices];
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (sms[dev] == 0 || smem > fit_smem[dev]) {
+    if (smem > 48 * 1024) {
+      e = cudaFuncSetAttribute(kern,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+      if (e != cudaSuccess) return e;
+    }
+    e = cudaDeviceGetAttribute(&sms[dev], cudaDevAttrMultiProcessorCount,
+                               dev);
+    if (e != cudaSuccess) return e;
+    e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&fit[dev], kern,
+                                                      kThreads, smem);
+    if (e != cudaSuccess) return e;
+    fit_smem[dev] = smem;
+  }
+  const int per_sm = fit[dev] < kFwdCtasPerSm ? fit[dev] : kFwdCtasPerSm;
+  const int want = (N + GR - 1) / GR, cap = per_sm * sms[dev];
+  const int grid = want < cap ? want : cap > 0 ? cap : 1;
+  kern<<<grid, kThreads, smem, st>>>(
       static_cast<const T*>(x), static_cast<const W*>(g),
       static_cast<const W*>(b), static_cast<T*>(y), static_cast<float*>(mu),
-      static_cast<float*>(rstd), F, eps);
+      static_cast<float*>(rstd), N, F, eps);
   return cudaGetLastError();
 }
 
@@ -386,14 +525,20 @@ template <typename T, typename W, bool VEC>
 cudaError_t fwd_vec(const void* x, const void* g, const void* b, void* y,
                     void* mu, void* rstd, int N, int F, float eps,
                     cudaStream_t st) {
-  switch (accesses<T>(F)) {
-    case 1: return fwd_at<T, W, 1, VEC>(x, g, b, y, mu, rstd, N, F, eps, st);
-    case 2: return fwd_at<T, W, 2, VEC>(x, g, b, y, mu, rstd, N, F, eps, st);
-    case 4: return fwd_at<T, W, 4, VEC>(x, g, b, y, mu, rstd, N, F, eps, st);
-    case 8:   // fp32 only: a bf16 row of kMaxF takes 4 accesses
-      if constexpr (4 * kThreads * Vec<T>::n < kMaxF)
-        return fwd_at<T, W, 8, VEC>(x, g, b, y, mu, rstd, N, F, eps, st);
-  }
+#define LN_FWD(KV, RW) \
+  fwd_at<T, W, KV, RW, VEC>(x, g, b, y, mu, rstd, N, F, eps, st)
+  int kv, rw;
+  fwd_shape<T>(F, &kv, &rw);
+  // below kWarps warps a row, more than one warp takes kFwdKV accesses
+  if (rw == 1 && kv == 1) return LN_FWD(1, 1);
+  if (rw == 1 && kv == 2) return LN_FWD(2, 1);
+  if (rw == 1 && kv == 4) return LN_FWD(4, 1);
+  if (rw == 1 && kv == 8) return LN_FWD(8, 1);
+  if (rw == 2 && kv == kFwdKV) return LN_FWD(kFwdKV, 2);
+  if (rw == 4 && kv == kFwdKV) return LN_FWD(kFwdKV, 4);
+  if (rw == 8 && kv == 4) return LN_FWD(4, 8);
+  if (rw == 8 && kv == 8) return LN_FWD(8, 8);
+#undef LN_FWD
   return cudaErrorInvalidValue;
 }
 

@@ -1,13 +1,16 @@
-// Row-streaming helpers shared by csrc/fused_ce.cu and csrc/fused_norm.cu:
-// 16-byte loads and stores of a row's elements (8 bf16 or 4 fp32, widened to
-// or narrowed from fp32 registers) and the scalar conversions of the
-// unaligned walk.
+// Row-streaming helpers shared by csrc/fused_ce.cu, csrc/fused_norm.cu and
+// csrc/decode_tick.cuh: 16-byte loads and stores of a row's elements (8
+// bf16 or 4 fp32, widened to or narrowed from fp32 registers), the
+// widening of one element of a raw 16-byte word, and the scalar
+// conversions of the unaligned walk.
 
 #pragma once
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace row_vec {
 
@@ -42,6 +45,22 @@ __device__ __forceinline__ void storev(__nv_bfloat16* p, const float* o) {
 #pragma unroll
   for (int e = 0; e < 4; ++e) h[e] = __floats2bfloat162_rn(o[2 * e], o[2 * e + 1]);
   *reinterpret_cast<uint4*>(p) = u;
+}
+
+// Element n of a raw 16-byte chunk of T (float, bf16 or int8) as fp32; n
+// is a constant once the caller's loop unrolls, so no register is indexed.
+template <typename T>
+__device__ __forceinline__ float unpack(const uint4& u, int n) {
+  const int per = 4 / (int)sizeof(T);           // elements a 32-bit word
+  const uint32_t w = n / per == 0 ? u.x : n / per == 1 ? u.y
+                   : n / per == 2 ? u.z : u.w;
+  if constexpr (std::is_same<T, float>::value) {
+    return __uint_as_float(w);
+  } else if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    return __uint_as_float(n % 2 ? w & 0xFFFF0000u : w << 16);  // low first
+  } else {
+    return (float)(int8_t)(w >> (8 * (n % 4)));
+  }
 }
 
 __device__ __forceinline__ float to_f(float x) { return x; }

@@ -1,8 +1,10 @@
 // Split-KV decode attention for Hopper (sm_90a): the kernels that
-// csrc/decode_attention.cu (a contiguous cache) and
-// csrc/paged_decode_attention.cu (a block-table pool) both launch.  The two
-// differ only in where cache row t of batch row b lives, which the `Rows`
-// template parameter answers (ContiguousRows, PagedRows below).
+// csrc/paged_decode_attention.cu (a block-table pool) launches, and
+// csrc/decode_attention.cu (a contiguous cache) for fp32 q or caches at
+// R = Tq·G >= r_tc — its narrower launches run csrc/decode_tick.cuh, its
+// bf16 chunks attn_tc.cuh.  The layouts differ only in where cache row t
+// of batch row b lives, which the `Rows` template parameter answers
+// (ContiguousRows, PagedRows below; decode_tick.cuh takes them too).
 //
 // Function: grouped-query attention of q [B, Tq, Hq, hd] against the rows
 // of a KV cache, Hkv kv heads, where query row i of batch row b sees cache

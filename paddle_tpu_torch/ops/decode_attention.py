@@ -7,9 +7,10 @@ kernels become CUDA sources that share one split-KV body
 at its top says what bounds it and how it is laid out):
 
 * ``_decode_call`` -> ``csrc/decode_attention.cu``, a contiguous cache
-  [B, T, Hkv, hd]; at admission-chunk widths (R = Tq·G >= ``R_TC``, bf16
-  q, bf16 or int8 cache) it runs the tensor-core body of
-  ``csrc/attn_tc.cuh`` instead (:func:`route`);
+  [B, T, Hkv, hd]; at a tick's widths (R = Tq·G < ``R_TC``) it runs the
+  tick body of ``csrc/decode_tick.cuh``, at admission-chunk widths (bf16
+  q, bf16 or int8 cache) the tensor-core body of ``csrc/attn_tc.cuh``
+  (:func:`route`);
 * ``_paged_call`` -> ``csrc/paged_decode_attention.cu``, a block pool
   [N, bs, Hkv, hd] read through per-slot block tables.
 
@@ -38,11 +39,15 @@ _TARGET_CTAS = 264   # two CTAs per SM on a 132-SM card
 _SMS = 132           # SMs of an H100 SXM
 _TC_ROWS = 64        # packed query rows per tensor-core CTA (attn_tc kBM)
 _TC_MIN_CHUNK = 512  # cache rows a tensor-core split walks at least
+# CTAs the tick route's plan aims at (8 an SM: a tick's splits past a
+# slot's frontier return at once, so about half of them work)
+_TICK_CTAS = 8 * _SMS
 # The least R = Tq * G that takes the tensor-core route: the smallest R, not
 # below 16, at which it beat the split-KV body in a sweep on an H100
 # (B = 1, T = 512, bf16, R = 8..512: it won at every width, 0.020 against
-# 0.055 ms at R = 16; tools/sweep_decode_routes.py, PERF.md).  Read at
-# every launch.
+# 0.055 ms at R = 16; tools/sweep_decode_routes.py, PERF.md).  Below it
+# the tick body runs; against that body the same sweep puts the crossing
+# between R = 8 and 12 (PERF.md, PR 8).  Read at every launch.
 R_TC = 16
 
 
@@ -87,18 +92,39 @@ def _plain_decode(q, k, v, pos, k_scale, v_scale, scale):
 
 def route(R: int, q_dtype, hd: int, kv_dtype=torch.bfloat16) -> str:
     """Which body a contiguous ``decode_attention`` launch of R = Tq * G
-    packed query rows per kv head takes: "tc" (the wgmma body of
-    ``csrc/attn_tc.cuh``) for bf16 q over a bf16 or int8 cache once
-    R >= ``R_TC``; else "split" (the split-KV body of
-    ``csrc/split_kv.cuh``: the decode tick, fp32 q or cache).  The C entry
-    takes the same decision from the same inputs and ``R_TC``."""
+    packed query rows per kv head takes: "tick" (``csrc/decode_tick.cuh``)
+    below ``R_TC``, for every dtype; from ``R_TC`` on, "tc" (the wgmma
+    body of ``csrc/attn_tc.cuh``) for bf16 q over a bf16 or int8 cache,
+    else "split" (the split-KV body of ``csrc/split_kv.cuh``: fp32 q or
+    cache).  The C entry takes the same decision from the same inputs and
+    ``R_TC``."""
     if q_dtype not in _Q_DTYPES or kv_dtype not in _KV_DTYPES \
             or hd not in _HEAD_DIMS:
         raise ValueError(f"decode_attention: no route for q {q_dtype}, "
                          f"cache {kv_dtype}, head_dim {hd}")
-    tc = (q_dtype == torch.bfloat16 and kv_dtype != torch.float32
-          and R >= R_TC)
+    if R < R_TC:
+        return "tick"
+    tc = q_dtype == torch.bfloat16 and kv_dtype != torch.float32
     return "tc" if tc else "split"
+
+
+def tick_rows(R: int) -> int:
+    """Query rows one CTA of the tick route holds (``RT`` in
+    csrc/decode_tick.cuh): 1 for a lone row, else 4."""
+    return 1 if R == 1 else 4
+
+
+def tick_plan(B: int, Hkv: int, T: int, R: int):
+    """(chunk, nsplit) of the tick route: one CTA per (tile of
+    :func:`tick_rows` query rows, split, kv head, batch row), the T walk
+    cut into splits of ``chunk`` rows (a multiple of 64) so that the CTAs
+    number about ``_TICK_CTAS`` — sized on the cache length, not on pos,
+    which is on the card; splits past a slot's frontier return at once."""
+    tiles = -(-T // _BT)
+    cells = B * Hkv * -(-R // tick_rows(R))
+    want = max(1, min(tiles, -(-_TICK_CTAS // cells)))
+    chunk = -(-tiles // want) * _BT
+    return chunk, -(-T // chunk)
 
 
 def tc_split_plan(B: int, Hkv: int, T: int, R: int):
@@ -199,27 +225,45 @@ def _check(q, k, v, pos, k_scale, v_scale, tables=None):
                              f"aligned")
 
 
-def _launch(name, q, k, Hkv, T, ptrs, dims, scale, tc=None):
+# The tick route's tickets: int32 counters, one per (b, kv head, query
+# tile), that the kernel leaves at 0 — kept per (card, stream), so that
+# launches sharing a buffer are ordered.
+_tickets: dict = {}
+
+
+def _ticket_buf(device, stream: int, n: int):
+    buf = _tickets.get((device, stream))
+    if buf is None or buf.numel() < n:
+        buf = torch.zeros(max(n, 1024), dtype=torch.int32, device=device)
+        _tickets[(device, stream)] = buf
+    return buf
+
+
+def _launch(name, q, k, Hkv, T, ptrs, dims, scale, body=None):
     """Allocate the output and the split scratch, launch ``csrc/<name>.cu``
     on q's card with ``ptrs`` (input pointers, None for an absent scale)
-    and ``dims``, and raise on a refused launch.  ``tc`` (the contiguous
-    kernel only): whether the launch takes the tensor-core route, whose
-    split plan it then uses; ``R_TC`` goes to the C entry, which decides
-    the same."""
+    and ``dims``, and raise on a refused launch.  ``body`` (the contiguous
+    kernel only): the :func:`route` the launch takes, whose split plan it
+    then uses (the tick route's tickets too); ``R_TC`` goes to the C
+    entry, which decides the same."""
     B, Tq, Hq, hd = q.shape
     R = Tq * (Hq // Hkv)
     scale = scale if scale is not None else 1.0 / (hd ** 0.5)
-    chunk, nsplit = (tc_split_plan(B, Hkv, T, R) if tc
+    plan = {"tick": tick_plan, "tc": tc_split_plan}.get(body)
+    chunk, nsplit = (plan(B, Hkv, T, R) if plan
                      else split_plan(B, Hkv, T, R, hd))
     out = torch.empty_like(q)
     f32 = dict(dtype=torch.float32, device=q.device)
     o_part = torch.empty((B, Hkv, nsplit, R, hd), **f32)
     m_part = torch.empty((B, Hkv, nsplit, R), **f32)
     l_part = torch.empty((B, Hkv, nsplit, R), **f32)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     ptrs = [*ptrs, out.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
             l_part.data_ptr()]
     ints = [*dims, hd, _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], chunk, nsplit]
-    if tc is not None:
+    if body is not None:
+        ptrs.append(_ticket_buf(q.device, stream, B * Hkv * R).data_ptr()
+                    if body == "tick" else None)
         ints.append(R_TC)
     fn = getattr(_build.load(name), name)
     if fn.argtypes is None:
@@ -227,8 +271,7 @@ def _launch(name, q, k, Hkv, T, ptrs, dims, scale, tc=None):
         fn.argtypes = ([ctypes.c_void_p] * len(ptrs) + [ctypes.c_int]
                        * len(ints) + [ctypes.c_float, ctypes.c_void_p])
     with torch.cuda.device(q.device):        # launch on q's card
-        code = fn(*ptrs, *ints, float(scale),
-                  torch.cuda.current_stream(q.device).cuda_stream)
+        code = fn(*ptrs, *ints, float(scale), stream)
     _build.check(code, name)
     return out
 
@@ -247,24 +290,27 @@ def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, scale=None):
     CPU tensors run :func:`_plain_decode`.  CUDA tensors launch
     ``csrc/decode_attention.cu`` (q float32/bfloat16; cache float32,
     bfloat16 or int8; hd in {64, 128, 256}; Tq * Hq / Hkv <= 1024); every
-    launch adds one to ``decode_attention.launches``, and one on the
-    tensor-core route (:func:`route`) to ``.tc_launches``."""
+    launch adds one to ``decode_attention.launches``, and one on the tick
+    route (:func:`route`) to ``.tick_launches``, on the tensor-core route
+    to ``.tc_launches``."""
     if not q.is_cuda:
         return _plain_decode(q, k, v, pos, k_scale, v_scale, scale)
     _check(q, k, v, pos, k_scale, v_scale)
     B, Tq, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
-    tc = route(Tq * (Hq // Hkv), q.dtype, hd, k.dtype) == "tc"
+    body = route(Tq * (Hq // Hkv), q.dtype, hd, k.dtype)
     out = _launch("decode_attention", q, k, Hkv, T,
                   [q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    *_scale_ptrs(k_scale, v_scale), pos.data_ptr()],
-                  [B, Tq, Hq, Hkv, T], scale, tc)
+                  [B, Tq, Hq, Hkv, T], scale, body)
     decode_attention.launches += 1
-    decode_attention.tc_launches += tc
+    decode_attention.tick_launches += body == "tick"
+    decode_attention.tc_launches += body == "tc"
     return out
 
 
 decode_attention.launches = 0
+decode_attention.tick_launches = 0
 decode_attention.tc_launches = 0
 
 

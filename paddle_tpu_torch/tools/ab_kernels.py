@@ -1,7 +1,7 @@
 """A/B of the decode tick's kernels (the contiguous decode kernel and the
-paged one) across checkouts, on one card.
+paged one) and of the LayerNorm forward across checkouts, on one card.
 
-    python3 paddle_tpu_torch/tools/ab_decode_tick.py ROOT_A ROOT_B ROOT_B ROOT_A
+    python3 paddle_tpu_torch/tools/ab_kernels.py ROOT_A ROOT_B ROOT_B ROOT_A
 
 Each ROOT is the top directory of a checkout.  Each is timed in a process
 of its own, in the order given (two builds of the same template kernels
@@ -9,11 +9,19 @@ in one process fail to launch), by ``chip_smoke.time_decode`` of THIS
 checkout on that checkout's ``decode_attention``: B = 8 slots at the main
 path's mid-serve positions, T = 512, Hq = Hkv = 16, hd = 128, bf16, L2
 flushed, median of 20 launches; then by ``chip_smoke.time_paged`` on its
-``paged_decode_attention`` at the paged path's mid-serve tick.  Prints the
-card line, then two JSON lines per run.  Needs a CUDA card; imports nothing of JAX or the JAX package.
+``paged_decode_attention`` at the paged path's mid-serve tick; then by
+``chip_smoke.time_norm`` on its ``ln_fwd`` at the train shape (N = F =
+2048, bf16 x, fp32 g and b), whose row also carries ``bits``: a hash of
+the forward's y, mu and rstd on those inputs, so that two checkouts'
+outputs can be held equal bit for bit.  Prints the card line, the
+floor of that timing (``chip_smoke.cold_ms`` of a one-element add, and of
+a 16 MB bf16 copy and a sum over 13.4 MB as byte-bound yardsticks), then
+three JSON lines per run.  Needs a CUDA card; imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
+import hashlib
+import importlib.util
 import json
 import os
 import subprocess
@@ -24,8 +32,6 @@ _HERE = Path(__file__).resolve()
 
 
 def _child(root: str) -> None:
-    import importlib.util
-
     import torch
     import torch.nn.functional as F
 
@@ -35,6 +41,7 @@ def _child(root: str) -> None:
     chip_smoke = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(chip_smoke)
     from paddle_tpu_torch.ops import decode_attention as da
+    from paddle_tpu_torch.ops import fused_norm as fn
     from paddle_tpu_torch.tools import profile_serving as wl
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -48,6 +55,16 @@ def _child(root: str) -> None:
                                 [n + wl.NEW // 2 for n in lens])
     print(json.dumps({"root": root, "kernel": "paged_decode_attention",
                       **row}), flush=True)
+    row = chip_smoke.time_norm(torch, fn, F)["fwd"]
+    gen = torch.Generator(device="cuda").manual_seed(16)  # time_norm's
+    x, g, b, _ = chip_smoke._ln_inputs(torch, gen, 2048, 2048,
+                                       torch.bfloat16, torch.float32)
+    h = hashlib.sha256()
+    for t in fn.ln_fwd(x, g, b):
+        h.update(t.contiguous().view(torch.uint8).cpu().numpy().tobytes())
+    row["bits"] = h.hexdigest()[:16]
+    print(json.dumps({"root": root, "kernel": "fused_layer_norm_fwd",
+                      **row}), flush=True)
 
 
 def main() -> int:
@@ -59,11 +76,24 @@ def main() -> int:
         return 2
     import torch
     if not torch.cuda.is_available():
-        print("ab_decode_tick: no CUDA device", file=sys.stderr)
+        print("ab_kernels: no CUDA device", file=sys.stderr)
         return 2
     sys.path.insert(0, str(_HERE.parents[2]))
     from paddle_tpu_torch.tools import profile_serving as wl
     print(wl.card_line(), flush=True)
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", _HERE.parents[2] / "chip_smoke.py")
+    chip_smoke = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(chip_smoke)
+    one = torch.zeros(1, device="cuda")
+    x = torch.randn(8 << 20, device="cuda").bfloat16()       # 16 MB
+    y = torch.empty_like(x)
+    print(json.dumps({"floor": {
+        "one_element_add_ms": chip_smoke.cold_ms(torch, lambda: one.add_(1)),
+        "copy_16MB_ms": chip_smoke.cold_ms(torch, lambda: y.copy_(x)),
+        "sum_13_4MB_ms": chip_smoke.cold_ms(
+            torch, lambda: x[:6_700_000].sum())}}), flush=True)
+    del one, x, y
     for root in sys.argv[1:]:
         env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
         subprocess.run([sys.executable, str(_HERE), "--child",

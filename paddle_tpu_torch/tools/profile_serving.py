@@ -140,13 +140,14 @@ def build_paged_path(device="cuda", seed=0):
 # kernel-name keys, lower case; split_kv.cuh's kernels carry their row
 # addressing (ContiguousRows / PagedRows) in their template arguments; the
 # tensor-core bodies are flash_fwd_tc_kernel, decode_chunk_tc_kernel and
-# w4_tc_kernel
+# w4_tc_kernel; the decode tick's body is decode_tick_kernel
 MATMUL_KEYS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk", "nvjet")
 FAMILIES = (("w4_matmul", ("w4_kernel", "w4_tc_kernel",
                            "w4_sum_kernel")),
             ("fused_layer_norm", ("ln_fwd_kernel",)),
             ("paged_decode_attention", ("pagedrows",)),
-            ("decode_attention", ("contiguousrows", "decode_chunk_tc_kernel")),
+            ("decode_attention", ("decode_tick_kernel", "contiguousrows",
+                                  "decode_chunk_tc_kernel")),
             ("flash_attention_fwd", ("flash_fwd_kernel",
                                      "flash_fwd_tc_kernel")),
             ("matmul", MATMUL_KEYS),

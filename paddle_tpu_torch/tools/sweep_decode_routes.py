@@ -1,6 +1,6 @@
-"""Sweep of the contiguous decode kernel's two routes across query widths,
-on one card: the split-KV body and the tensor-core body, each forced at
-every width, so that ``decode_attention.R_TC`` (the least R = Tq·G taking
+"""Sweep of the contiguous decode kernel's two bf16 routes across query
+widths, on one card: the tick body and the tensor-core body, each forced
+at every width, so that ``decode_attention.R_TC`` (the least R = Tq·G taking
 the tensor-core route) can be read off.
 
     python3 -m paddle_tpu_torch.tools.sweep_decode_routes [--widths 8,16,...]
@@ -47,7 +47,7 @@ def main() -> int:
     try:
         for R in (int(w) for w in args.widths.split(",")):
             row = {"R": R}
-            for name, r_tc in (("split", 1 << 30), ("tc", 1)):
+            for name, r_tc in (("tick", 1 << 30), ("tc", 1)):
                 da.R_TC = r_tc
                 before = da.decode_attention.tc_launches
                 t = chip_smoke.time_decode_chunk(torch, da, F, Tq=R)
@@ -56,7 +56,7 @@ def main() -> int:
                 row[f"{name}_ms"] = t["ms"]
                 row.update(bound_ms=t["bound_ms"], bound_by=t["bound_by"],
                            library_ms=t["library_ms"])
-            row["faster"] = "tc" if row["tc_ms"] < row["split_ms"] else "split"
+            row["faster"] = "tc" if row["tc_ms"] < row["tick_ms"] else "tick"
             print(json.dumps(row), flush=True)
     finally:
         da.R_TC = chosen

@@ -3,9 +3,10 @@ backward, and the plain twins at the shapes those routes take.
 
 ``flash_attention.route``, ``flash_attention.route_bwd`` and
 ``decode_attention.route`` name the body a launch runs (a tensor-core
-body on ``csrc/attn_tc.cuh`` or the older FMA / split-KV body);
-``decode_attention.tc_split_plan`` cuts the tensor-core route's cache
-walk.  All are plain Python, checked here on
+body on ``csrc/attn_tc.cuh``, the decode tick's body in
+``csrc/decode_tick.cuh``, or the older FMA / split-KV body);
+``decode_attention.tc_split_plan`` and ``tick_plan`` cut the tensor-core
+and tick routes' cache walks.  All are plain Python, checked here on
 the CPU; the kernels themselves run only on a card
 (tests/test_torch_kernels_cuda.py checks that ``tc_launches`` counts
 exactly what ``route`` names).
@@ -49,8 +50,8 @@ def interpret():
 
 
 @pytest.mark.parametrize("R,qdt,hd,kvdt,want", [
-    (1, "bfloat16", 128, "bfloat16", "split"),       # the decode tick
-    (da.R_TC - 1, "bfloat16", 128, "bfloat16", "split"),
+    (1, "bfloat16", 128, "bfloat16", "tick"),        # the decode tick
+    (da.R_TC - 1, "bfloat16", 128, "bfloat16", "tick"),
     (da.R_TC, "bfloat16", 128, "bfloat16", "tc"),
     (512, "bfloat16", 128, "bfloat16", "tc"),        # an admission chunk
     (1024, "bfloat16", 64, "int8", "tc"),
@@ -66,8 +67,38 @@ def test_decode_route(R, qdt, hd, kvdt, want):
 def test_decode_route_reads_r_tc_at_each_call(monkeypatch):
     assert da.route(64, torch.bfloat16, 128) == "tc"
     monkeypatch.setattr(da, "R_TC", 65)
-    assert da.route(64, torch.bfloat16, 128) == "split"
+    assert da.route(64, torch.bfloat16, 128) == "tick"
     assert da.route(65, torch.bfloat16, 128) == "tc"
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("qdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kvdt", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("R", [1, 4, 12, 15])
+def test_decode_route_ticks_below_r_tc_for_every_dtype(R, kvdt, qdt, hd):
+    """Every width under ``R_TC`` takes the tick body, whatever q's and the
+    cache's dtypes; from ``R_TC`` on, fp32 goes to the split-KV body."""
+    qd, kd = getattr(torch, qdt), getattr(torch, kvdt)
+    assert da.route(R, qd, hd, kd) == "tick"
+    wide = "tc" if qdt == "bfloat16" and kvdt != "float32" else "split"
+    assert da.route(da.R_TC, qd, hd, kd) == wide
+
+
+def test_decode_route_matches_the_c_entry():
+    """The C entry sends R < r_tc to the tick body before it looks at a
+    dtype, then bf16 q over a bf16 or int8 cache to the tensor-core body
+    and the rest to the split-KV body, as ``route`` says; the tick body's
+    row tile is ``tick_rows``'s."""
+    src = (_CSRC / "decode_attention.cu").read_text()
+    body = src[src.index('extern "C" int decode_attention('):]
+    tick, tc = body.index("if (R < r_tc)"), body.index("if (q_dtype != 1")
+    assert tick < tc < body.index("tc_by_hd")
+    assert "tick::run" in body[tick:tc]
+    assert "split_kv::run" in body[tc:body.index("tc_by_hd")]
+    tick_src = (_CSRC / "decode_tick.cuh").read_text()
+    assert "== 1)\n    return launch<QT, KT, HD, 1>" in tick_src
+    assert "return launch<QT, KT, HD, 4>" in tick_src
+    assert [da.tick_rows(R) for R in (1, 2, 15)] == [1, 4, 4]
 
 
 def test_r_tc_is_at_least_16():
@@ -174,6 +205,52 @@ def test_tc_split_plan(B, Hkv, T, R):
 ])
 def test_tc_split_plan_examples(B, Hkv, T, R, want):
     assert da.tc_split_plan(B, Hkv, T, R) == want
+
+
+@settings(max_examples=300, deadline=None)
+@given(B=st.integers(1, 16), Hkv=st.integers(1, 32),
+       T=st.integers(1, 8192), R=st.integers(1, 1024))
+def test_tick_plan_covers_each_cache_row_once(B, Hkv, T, R):
+    """The tick route's splits are whole 64-row tiles that cover the cache
+    once, and the plan never splits past about ``_TICK_CTAS`` CTAs."""
+    chunk, nsplit = da.tick_plan(B, Hkv, T, R)
+    cells = B * Hkv * -(-R // da.tick_rows(R))
+    assert chunk % 64 == 0 and chunk > 0 and nsplit >= 1
+    assert chunk * nsplit >= T and chunk * (nsplit - 1) < T
+    if nsplit > 1:
+        assert cells * (nsplit - 1) < da._TICK_CTAS
+
+
+def test_tick_plan_fills_the_card_at_the_tick():
+    """The main path's mid-serve tick (B = 8 slots, Hkv = 16, T = 512,
+    R = 1; ``tools/profile_serving.py``'s prompts plus half the new
+    tokens): the splits live at those frontiers — pos is on the card, so
+    the plan cannot see it — still give every one of the 132 SMs a CTA,
+    and one 64-row split each costs no CTA more than the cache needs."""
+    from paddle_tpu_torch.tools import profile_serving as wl
+    pos = [n + wl.NEW // 2 for n in wl.LENS]
+    chunk, nsplit = da.tick_plan(len(pos), 16, 512, 1)
+    assert (chunk, nsplit) == (64, 8)
+    live = 16 * sum(-(-(p + 1) // chunk) for p in pos)
+    assert live >= 132
+    assert 8 * 16 * nsplit <= da._TICK_CTAS
+
+
+@pytest.mark.parametrize("B,Hkv,T,R,want", [
+    (8, 16, 512, 1, (64, 8)),         # the main path's tick
+    (8, 16, 2048, 1, (256, 8)),
+    (8, 4, 512, 4, (64, 8)),          # G = 4 at a tick: one 4-row tile
+    (1, 16, 512, 15, (64, 8)),        # four tiles of 4 rows
+    (64, 32, 512, 1, (512, 1)),       # 2048 cells fill the card alone
+])
+def test_tick_plan_examples(B, Hkv, T, R, want):
+    assert da.tick_plan(B, Hkv, T, R) == want
+
+
+def test_tick_wrapper_counts_its_route():
+    fn = da.decode_attention
+    assert isinstance(fn.tick_launches, int) and isinstance(
+        fn.tc_launches, int)
 
 
 # ------------------------------------- plain twins at the routes' shapes

@@ -1,12 +1,13 @@
 """The port's CUDA kernels against their plain PyTorch twins, on a card:
 flash prefill (fp32 on the FMA body, bf16 on the tensor-core body),
-split-KV decode (up to 1024 query rows per kv head; the tensor-core route
-from ``R_TC`` packed rows on),
+decode (up to 1024 query rows per kv head: the tick body below ``R_TC``
+packed rows, bit-equal on a second call; the tensor-core route from
+``R_TC`` on),
 block-table (paged) decode, the flash backward (dq and dk/dv; bf16 at
 head_dim 64 and 128 on the tensor-core bodies), the
 fused softmax cross-entropy and the fused LayerNorm (forward and
-backward; the backward's sums in a fixed order, so a second call gives
-the same bits), and the W4A16 dequant-matmul (bf16 x on the tensor-core
+backward; both sum in a fixed order, so a second call gives the same
+bits), and the W4A16 dequant-matmul (bf16 x on the tensor-core
 body, fp32 x and odd group sizes on the FMA body, each launch's body
 checked through ``tc_launches``).
 
@@ -101,6 +102,62 @@ def test_decode_matches_plain(Hq, Hkv, Tq, kv, qdt, hd):
     assert da.decode_attention.launches == before + 1
     tol = 1e-2 if q.dtype == torch.bfloat16 else 1e-4
     torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("kv", ["bfloat16", "int8", "float32"])
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("Tq,G", [(1, 1), (1, 4), (3, 4), (4, 1), (15, 1)])
+def test_decode_tick_body_matches_plain(Tq, G, hd, kv):
+    """The tick body (R = Tq * G < R_TC) at every frontier kind — the first
+    row, a tile edge, mid-cache, the last row — over a ragged 520-row
+    cache; fp32 caches with fp32 q.  Its splits merge in a fixed order,
+    so a second call gives the same bits."""
+    gen = _card()
+    B, Hkv, T = 6, 2, 520
+    qdt = torch.float32 if kv == "float32" else torch.bfloat16
+    q = torch.randn(B, Tq, Hkv * G, hd, generator=gen,
+                    device="cuda").to(qdt)
+    k = torch.randn(B, T, Hkv, hd, generator=gen, device="cuda")
+    v = torch.randn(B, T, Hkv, hd, generator=gen, device="cuda")
+    ks = vs = None
+    if kv == "int8":
+        k, ks = da.quantize_kv(k)
+        v, vs = da.quantize_kv(v)
+    else:
+        k, v = k.to(getattr(torch, kv)), v.to(getattr(torch, kv))
+    pos = torch.tensor([0, 1, 63, 64, T // 3, T - Tq], dtype=torch.int32,
+                       device="cuda")
+    assert da.route(Tq * G, qdt, hd, k.dtype) == "tick"
+    before = (da.decode_attention.launches, da.decode_attention.tick_launches)
+    out = da.decode_attention(q, k, v, pos, ks, vs)
+    ref = da._plain_decode(q, k, v, pos, ks, vs, None)
+    torch.cuda.synchronize()
+    assert (da.decode_attention.launches,
+            da.decode_attention.tick_launches) == (before[0] + 1,
+                                                   before[1] + 1)
+    tol = 1e-2 if qdt == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out.float(), ref.float(), atol=tol, rtol=tol)
+    assert torch.equal(da.decode_attention(q, k, v, pos, ks, vs), out)
+
+
+def test_decode_tick_route_refuses_cuda_inputs():
+    """No fallback on the tick route: what its body does not take raises
+    before any launch."""
+    _card()
+    before = (da.decode_attention.launches, da.decode_attention.tick_launches)
+    pos = torch.zeros(2, dtype=torch.int32, device="cuda")
+    k = torch.zeros(2, 64, 2, 96, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 96"):
+        da.decode_attention(k[:, :1], k, k, pos)
+    k = torch.zeros(2, 64, 2, 128, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="got torch.float16"):
+        da.decode_attention(k[:, :1].half(), k, k, pos)
+    with pytest.raises(ValueError, match="pos must be int32"):
+        da.decode_attention(k[:, :1], k, k, pos.long())
+    with pytest.raises(ValueError, match="need k_scale"):
+        da.decode_attention(k[:, :1], k.to(torch.int8), k.to(torch.int8), pos)
+    assert (da.decode_attention.launches,
+            da.decode_attention.tick_launches) == before
 
 
 @pytest.mark.parametrize("B,Tq,Hq,Hkv,pos0,kv,hd", [
@@ -631,6 +688,35 @@ def test_fused_norm_matches_plain(N, F, dtype, wdtype):
     dx2, dg2, db2 = fn.ln_bwd(x, g, mu, r, dy)
     assert torch.equal(dx2, dx) and torch.equal(dg2, dg) \
         and torch.equal(db2, db)
+
+
+@pytest.mark.parametrize("wdtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("F", [1, 999, 2048, 5120, 8192])
+@pytest.mark.parametrize("N", [1, 7, 2048, 4099])
+def test_ln_fwd_matches_plain(N, F, dtype, wdtype):
+    """The LayerNorm forward's persistent body: one warp a row up to 1024
+    bf16 / 512 fp32 columns, 2-8 warps past that, the scalar walk at
+    F = 999 and F = 1, more rows than the grid at N = 4099.  y within the
+    plain twin's tolerance, mu and rstd within fp32 rounding, and the same
+    bits on a second call."""
+    gen = _card()
+    dt, wdt = getattr(torch, dtype), getattr(torch, wdtype)
+    x = (2 * torch.randn(N, F, generator=gen, device="cuda") + 0.5).to(dt)
+    g = (1 + 0.5 * torch.randn(F, generator=gen, device="cuda")).to(wdt)
+    b = torch.randn(F, generator=gen, device="cuda").to(wdt)
+    before = fn.ln_fwd.launches
+    y, mu, r = fn.ln_fwd(x, g, b)
+    ref_y, ref_mu, ref_r = fn._plain_ln_fwd(x, g, b)
+    torch.cuda.synchronize()
+    assert fn.ln_fwd.launches == before + 1
+    assert y.dtype == dt and mu.shape == r.shape == (N, 1)
+    tol = 1e-2 if dt == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(y.float(), ref_y.float(), atol=tol, rtol=tol)
+    torch.testing.assert_close(mu, ref_mu, atol=1e-5, rtol=1e-5)
+    torch.testing.assert_close(r, ref_r, atol=1e-5, rtol=1e-5)
+    again = fn.ln_fwd(x, g, b)
+    assert all(torch.equal(a, c) for a, c in zip(again, (y, mu, r)))
 
 
 @pytest.mark.parametrize("N,K,M,gs,dtype", [
