@@ -1,11 +1,14 @@
 // Decode attention at a tick's widths for Hopper (sm_90a): the body that
-// csrc/decode_attention.cu runs for R = Tq·G < r_tc packed query rows per
-// kv head — the decode tick itself (R = 1, or G at Tq = 1) and narrow
-// chunks.  Written over split_kv.cuh's `Rows` policy (where cache row t of
-// batch row b lives); instantiated for ContiguousRows.
+// csrc/decode_attention.cu (a contiguous cache) and
+// csrc/paged_decode_attention.cu (a block-table pool) run for R = Tq·G <
+// r_tc packed query rows per kv head — the decode tick itself (R = 1, or
+// G at Tq = 1) and narrow chunks.  Written over split_kv.cuh's `Rows`
+// policy (where cache row t of batch row b lives); instantiated for
+// ContiguousRows and PagedRows.
 //
-// Replaces: paddle_tpu/ops/decode_attention.py::_decode_call (the Pallas
-// kernel at its pl.pallas_call, decode_attention.py:282) at those widths.
+// Replaces: paddle_tpu/ops/decode_attention.py::_decode_call and
+// ::_paged_call (the Pallas kernels at their pl.pallas_call,
+// decode_attention.py:282 and :509) at those widths.
 // Function: as split_kv.cuh's — query row r = tq·G + g of (b, kv head h)
 // attends cache rows t <= pos[b] + tq; scores scale · (q · k) in fp32, int8
 // rows scaled by their fp32 (row, head) scale, out in q's dtype.
@@ -31,6 +34,13 @@
 //  * Each lane group runs its own online softmax (log2 units, max -1e30,
 //    so exp2 of a masked -inf score is 0); groups merge by shuffles, warps
 //    through shared memory in warp order.
+//  * Block tables (PagedRows): a row's block is one more trip to memory
+//    in front of its K/V loads.  So a CTA reads its split's slice of the
+//    table once (chunk / bs entries, 4 at the paged tick, one more where
+//    a block straddles the split), into shared memory, before pos — the
+//    slice depends on the split alone — and each
+//    lane steps its rows' (block, row in block) by additions, with no
+//    division in the load loop.  An unmapped block (-1) is never read.
 //  * Splits: `chunk` rows each (ops/decode_attention.py `tick_plan` sizes
 //    the grid from T, so that the splits live at a tick fill the card);
 //    a split past the tile's last frontier returns at once.  A CTA alone
@@ -85,20 +95,33 @@ decode_tick_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   constexpr int NE = Gm::NE, LPR = Gm::LPR, CPL = Gm::CPL, RPW = Gm::RPW;
   constexpr int E = Gm::E, U = Gm::U;
   constexpr bool kQuant = std::is_same<KT, int8_t>::value;
+  constexpr int kStep = kWarps * RPW * U;  // rows a CTA takes a step
   __shared__ __align__(16) float so[kWarps][RT][HD];
   __shared__ float sm[kWarps][RT], sl[kWarps][RT];
   __shared__ int last;
+  // PagedRows: the split's slice of the block table (dynamic, chunk / bs
+  // + 2 entries), -1 where unmapped
+  extern __shared__ int tick_tbl[];
 
   const int s = blockIdx.x % nsplit, rt = blockIdx.x / nsplit;
   const int h = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv, R = Tq * G;
   const int r0 = rt * RT, Rc = min(RT, R - r0);
+  const int t_begin = s * chunk;
+  if constexpr (!Rows::kDense) {          // issued beside pos's load
+    const int tb0 = t_begin / rows.bs;
+    const int n = min(rows.nmax, (t_begin + chunk - 1) / rows.bs + 1) - tb0;
+    for (int i = threadIdx.x; i < n; i += kThreads) {
+      const int pb = __ldg(rows.tables + b * rows.nmax + tb0 + i);
+      tick_tbl[i] = pb < 0 || pb >= rows.N ? -1 : pb;
+    }
+  }
   const int p_b = pos[b];
   // rows the tile's last query row can see, and the splits they span
   const int n_valid = min(T, p_b + (r0 + Rc - 1) / G + 1);
   const int n_act = (n_valid + chunk - 1) / chunk;
   if (s >= n_act) return;
-  const int t_begin = s * chunk, t_end = min(t_begin + chunk, n_valid);
+  const int t_end = min(t_begin + chunk, n_valid);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int grp = lane / LPR, j = lane % LPR;
 
@@ -121,16 +144,40 @@ decode_tick_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
     m[r] = kNeg;
     l[r] = 0.f;
   }
+  // PagedRows: the lane's first row of a step as (entry of the table
+  // slice, row in the block), and a step's stride in the same terms
+  int blk = 0, off = 0, step_b = 0, step_r = 0;
+  if constexpr (!Rows::kDense) {
+    const int t = t_begin + warp * RPW * U + grp;
+    blk = t / rows.bs - t_begin / rows.bs;
+    off = t % rows.bs;
+    step_b = kStep / rows.bs;
+    step_r = kStep % rows.bs;
+    __syncthreads();                      // the table slice is in
+  }
 
-  for (int t0 = t_begin + warp * RPW * U; t0 < t_end;
-       t0 += kWarps * RPW * U) {
+  for (int t0 = t_begin + warp * RPW * U; t0 < t_end; t0 += kStep) {
     uint4 kr[U][CPL], vr[U][CPL];
     float sk[U], sv[U];
     bool ok[U];
+    int bu = blk, ou = off;
 #pragma unroll
     for (int u = 0; u < U; ++u) {         // every load of the step, first
       const int t = t0 + u * RPW + grp;
-      const long long row = t < t_end ? rows(b, t, h) : -1;
+      long long row = -1;
+      if constexpr (Rows::kDense) {
+        if (t < t_end) row = rows(b, t, h);
+      } else {
+        if (t < t_end) {
+          const int pb = tick_tbl[bu];
+          if (pb >= 0) row = (long long)((size_t)(pb * rows.bs + ou) * Hkv + h);
+        }
+        ou += RPW;                        // RPW <= 8 <= bs: one carry
+        if (ou >= rows.bs) {
+          ou -= rows.bs;
+          ++bu;
+        }
+      }
       ok[u] = row >= 0;                   // an unstored row is never read
 #pragma unroll
       for (int i = 0; i < CPL; ++i) {
@@ -193,6 +240,14 @@ decode_tick_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
           for (int r = 0; r < RT; ++r)
             acc[r][i * NE + n] = fmaf(sc[u][r], x, acc[r][i * NE + n]);
         }
+    if constexpr (!Rows::kDense) {
+      blk += step_b;
+      off += step_r;
+      if (off >= rows.bs) {
+        off -= rows.bs;
+        ++blk;
+      }
+    }
   }
 
   // merge the warp's lane groups (lanes j, j + LPR, ... hold the same
@@ -293,8 +348,10 @@ decode_tick_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
 template <typename QT, typename KT, int HD, int RT, class Rows>
 cudaError_t launch(const split_kv::Args& a, Rows rows, int* tickets) {
   const int R = a.Tq * (a.Hq / a.Hkv), n_rt = (R + RT - 1) / RT;
+  size_t smem = 0;                        // the table slice (PagedRows)
+  if constexpr (!Rows::kDense) smem = sizeof(int) * (a.chunk / rows.bs + 2);
   decode_tick_kernel<QT, KT, HD, RT, Rows>
-      <<<dim3(a.nsplit * n_rt, a.Hkv, a.B), kThreads, 0, a.stream>>>(
+      <<<dim3(a.nsplit * n_rt, a.Hkv, a.B), kThreads, smem, a.stream>>>(
           static_cast<const QT*>(a.q), static_cast<const KT*>(a.k),
           static_cast<const KT*>(a.v), static_cast<const float*>(a.ks),
           static_cast<const float*>(a.vs), static_cast<const int*>(a.pos),

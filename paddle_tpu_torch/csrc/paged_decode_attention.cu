@@ -1,5 +1,5 @@
-// Split-KV decode attention through block tables (the paged KV layout), for
-// Hopper (sm_90a).
+// Decode attention through block tables (the paged KV layout), for Hopper
+// (sm_90a).
 //
 // Replaces: paddle_tpu/ops/decode_attention.py::_paged_call (the Pallas
 // kernel at its pl.pallas_call, decode_attention.py:509) — the function of
@@ -10,19 +10,29 @@
 // row b sees rows t <= pos[b] + i that are mapped; int8 pools carry
 // per-(row, head) fp32 scales [N, bs, Hkv].
 //
+// Routes, chosen by the launch's shape and dtypes as csrc/decode_attention.cu
+// chooses them (the wrapper's ``decode_attention.paged_route`` takes the
+// same decision from the same inputs):
+//  * R = Tq·G < r_tc (the paged decode tick, narrow chunks; any dtype):
+//    the tick body of decode_tick.cuh over PagedRows — each CTA reads its
+//    split's slice of the table once, into shared memory.
+//  * R >= r_tc otherwise: the split-KV body of split_kv.cuh, which resolves
+//    each staged 64-row tile's rows through the table.
+//
 // Where it departs from the TPU kernel, and why:
 //  * The Pallas grid steps one pool block per cell and must DMA an
 //    in-bounds block even for an unmapped entry (it clamps the index and
 //    skips the compute).  Here a block is never read unless it is mapped:
 //    an unmapped row is not loaded and not attended, so a free slot (table
 //    row all -1, pos 0) returns zeros without touching the pool.
-//  * The staged tile is 64 cache rows whatever the block size (any
-//    multiple of 8): each staged row resolves its own block through the
-//    table, so one tile may span several blocks.
+//  * A tile or a split is cut in cache rows whatever the block size (any
+//    multiple of 8), so one may span several blocks; each row resolves its
+//    own block through the table.
 //
-// The kernels, what bounds them and how they are laid out: split_kv.cuh,
-// which this file instantiates with block-table row addressing.
+// What bounds each body and how it is laid out: the notes of
+// decode_tick.cuh and split_kv.cuh.
 
+#include "decode_tick.cuh"
 #include "split_kv.cuh"
 
 // q_dtype: 0 = float32, 1 = bfloat16 (out shares it); kv_dtype: 0 = float32,
@@ -31,20 +41,27 @@
 // [B, nmax] int32, pos [B] int32; all contiguous.  Scratch as for
 // decode_attention, over T = nmax * bs logical rows: o_part
 // [B, Hkv, nsplit, R, hd], m_part/l_part [B, Hkv, nsplit, R] float32, R =
-// Tq * Hq / Hkv <= 1024, nsplit * chunk >= T, chunk a multiple of 64.
-// Returns cudaGetLastError().
+// Tq * Hq / Hkv <= 1024, nsplit * chunk >= T, chunk a multiple of 64;
+// tickets: the tick route's B * Hkv * R int32, all 0 (left 0), when
+// nsplit > 1.  r_tc: the least R that leaves the tick route.  Returns
+// cudaGetLastError().
 extern "C" int paged_decode_attention(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* pos, const void* tables, void* out,
-    void* o_part, void* m_part, void* l_part, int B, int Tq, int Hq, int Hkv,
-    int N, int nmax, int bs, int hd, int q_dtype, int kv_dtype, int chunk,
-    int nsplit, float scale, void* stream) {
-  if (N <= 0 || nmax <= 0 || bs < 8 || bs % 8 != 0)
+    void* o_part, void* m_part, void* l_part, void* tickets, int B, int Tq,
+    int Hq, int Hkv, int N, int nmax, int bs, int hd, int q_dtype,
+    int kv_dtype, int chunk, int nsplit, int r_tc, float scale,
+    void* stream) {
+  if (N <= 0 || nmax <= 0 || bs < 8 || bs % 8 != 0 || Hkv <= 0 ||
+      Hq % Hkv != 0)
     return (int)cudaErrorInvalidValue;
   const split_kv::Args a{q, k, v, ks, vs, pos, out, o_part, m_part, l_part,
                          B, Tq, Hq, Hkv, nmax * bs, chunk, nsplit, scale,
                          static_cast<cudaStream_t>(stream)};
-  return (int)split_kv::run(
-      q_dtype, kv_dtype, hd, a,
-      split_kv::PagedRows{static_cast<const int*>(tables), N, nmax, bs, Hkv});
+  const split_kv::PagedRows rows{static_cast<const int*>(tables), N, nmax,
+                                 bs, Hkv};
+  if (Tq * (Hq / Hkv) < r_tc)
+    return (int)tick::run(q_dtype, kv_dtype, hd, a, rows,
+                          static_cast<int*>(tickets));
+  return (int)split_kv::run(q_dtype, kv_dtype, hd, a, rows);
 }

@@ -108,6 +108,16 @@ def route(R: int, q_dtype, hd: int, kv_dtype=torch.bfloat16) -> str:
     return "tc" if tc else "split"
 
 
+def paged_route(R: int, q_dtype, hd: int, kv_dtype=torch.bfloat16) -> str:
+    """Which body a ``paged_decode_attention`` launch of R = Tq * G packed
+    query rows per kv head takes: "tick" (``csrc/decode_tick.cuh`` over
+    the block tables) below ``R_TC``, for every dtype; from ``R_TC`` on,
+    "split" (``csrc/split_kv.cuh``).  The C entry takes the same decision
+    from the same inputs and ``R_TC``."""
+    body = route(R, q_dtype, hd, kv_dtype)
+    return "split" if body == "tc" else body
+
+
 def tick_rows(R: int) -> int:
     """Query rows one CTA of the tick route holds (``RT`` in
     csrc/decode_tick.cuh): 1 for a lone row, else 4."""
@@ -239,12 +249,12 @@ def _ticket_buf(device, stream: int, n: int):
     return buf
 
 
-def _launch(name, q, k, Hkv, T, ptrs, dims, scale, body=None):
+def _launch(name, q, k, Hkv, T, ptrs, dims, scale, body):
     """Allocate the output and the split scratch, launch ``csrc/<name>.cu``
     on q's card with ``ptrs`` (input pointers, None for an absent scale)
-    and ``dims``, and raise on a refused launch.  ``body`` (the contiguous
-    kernel only): the :func:`route` the launch takes, whose split plan it
-    then uses (the tick route's tickets too); ``R_TC`` goes to the C
+    and ``dims``, and raise on a refused launch.  ``body``: the route the
+    launch takes (:func:`route`, :func:`paged_route`), whose split plan
+    it then uses (the tick route's tickets too); ``R_TC`` goes to the C
     entry, which decides the same."""
     B, Tq, Hq, hd = q.shape
     R = Tq * (Hq // Hkv)
@@ -258,13 +268,12 @@ def _launch(name, q, k, Hkv, T, ptrs, dims, scale, body=None):
     m_part = torch.empty((B, Hkv, nsplit, R), **f32)
     l_part = torch.empty((B, Hkv, nsplit, R), **f32)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    tickets = (_ticket_buf(q.device, stream, B * Hkv * R).data_ptr()
+               if body == "tick" else None)
     ptrs = [*ptrs, out.data_ptr(), o_part.data_ptr(), m_part.data_ptr(),
-            l_part.data_ptr()]
-    ints = [*dims, hd, _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], chunk, nsplit]
-    if body is not None:
-        ptrs.append(_ticket_buf(q.device, stream, B * Hkv * R).data_ptr()
-                    if body == "tick" else None)
-        ints.append(R_TC)
+            l_part.data_ptr(), tickets]
+    ints = [*dims, hd, _Q_DTYPES[q.dtype], _KV_DTYPES[k.dtype], chunk, nsplit,
+            R_TC]
     fn = getattr(_build.load(name), name)
     if fn.argtypes is None:
         fn.restype = ctypes.c_int
@@ -370,21 +379,28 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos,
     CPU tensors run :func:`_plain_paged`.  CUDA tensors launch
     ``csrc/paged_decode_attention.cu`` (what ``decode_attention`` takes,
     with bs a multiple of 8; unmapped blocks are never read); every
-    launch adds one to ``paged_decode_attention.launches``."""
+    launch adds one to ``paged_decode_attention.launches``, and one on
+    the tick route (:func:`paged_route`) to ``.tick_launches``, on the
+    tensor-core route to ``.tc_launches``."""
     if not q.is_cuda:
         return _plain_paged(q, k_pool, v_pool, tables, pos, k_scale,
                             v_scale, scale)
     _check(q, k_pool, v_pool, pos, k_scale, v_scale, tables)
-    B, Tq, Hq, _ = q.shape
+    B, Tq, Hq, hd = q.shape
     N, bs, Hkv = k_pool.shape[:3]
     nmax = tables.shape[1]
+    body = paged_route(Tq * (Hq // Hkv), q.dtype, hd, k_pool.dtype)
     out = _launch("paged_decode_attention", q, k_pool, Hkv, nmax * bs,
                   [q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
                    *_scale_ptrs(k_scale, v_scale), pos.data_ptr(),
                    tables.data_ptr()],
-                  [B, Tq, Hq, Hkv, N, nmax, bs], scale)
+                  [B, Tq, Hq, Hkv, N, nmax, bs], scale, body)
     paged_decode_attention.launches += 1
+    paged_decode_attention.tick_launches += body == "tick"
+    paged_decode_attention.tc_launches += body == "tc"
     return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.tick_launches = 0
+paged_decode_attention.tc_launches = 0

@@ -28,6 +28,8 @@ rtol 1e-2 with atol 1e-6.  LayerNorm's mu and rstd are fp32 (1e-5); dg
 and db sum N rows in row-block order (1e-3 + 1e-4 relative).  The W4
 kernel's dequantized weight equals ``woq.w``'s bit for bit.
 """
+import itertools
+
 import pytest
 import torch
 
@@ -382,6 +384,59 @@ def test_paged_wide_query_rows_match_plain():
     ref = da._plain_paged(q, k, v, tables, pos, None, None, None)
     torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
                                rtol=1e-2)
+
+
+def _paged_route_cases():
+    """(Tq, G, hd, bs, kv): every Tq of the routes' edges (1, 4, R_TC - 1,
+    R_TC, 64, 256) at every pool dtype and head_dim, G and the block size
+    rotated through the cases so that each pairs with every head_dim."""
+    cases = []
+    for i, (Tq, kv, hd) in enumerate(itertools.product(
+            (1, 4, da.R_TC - 1, da.R_TC, 64, 256),
+            ("bfloat16", "int8", "float32"), (64, 128, 256))):
+        cases.append((Tq, (1, 4)[(i // 3 + i // 9) % 2], hd,
+                      (8, 16, 64)[(i + i // 3) % 3], kv))
+    return cases
+
+
+@pytest.mark.parametrize("Tq,G,hd,bs,kv", _paged_route_cases())
+def test_paged_routes_match_plain_and_the_contiguous_kernel(Tq, G, hd, bs,
+                                                            kv):
+    """Each route of the paged kernel (``paged_route``: the tick body below
+    ``R_TC``; from there the tensor-core body for bf16 q over a bf16 or
+    int8 pool, the split-KV body for fp32), counted on its counter: live
+    slots within tolerance of the gather-then-attend twin and equal bit
+    for bit to the contiguous kernel on ``gather_paged_view``'s copy (the
+    same body walks the same rows in the same order under the same plan);
+    a free slot exactly zero; a second call the same bits."""
+    gen = _card()
+    Hkv, nmax = 2, 512 // bs
+    T = nmax * bs
+    qdt = "float32" if kv == "float32" else "bfloat16"
+    pos_list = [None if p is None else min(p, T - Tq)
+                for p in (0, 1, bs - 1, bs, 200, None, T, 333)]
+    q, k, v, ks, vs, tables, pos = _paged_inputs(
+        gen, 8, Tq, Hkv * G, Hkv, bs, nmax, kv, qdt, pos_list, hd)
+    body = da.paged_route(Tq * G, q.dtype, hd, k.dtype)
+    fn = da.paged_decode_attention
+    before = (fn.launches, fn.tick_launches, fn.tc_launches)
+    out = fn(q, k, v, tables, pos, ks, vs)
+    ref = da._plain_paged(q, k, v, tables, pos, ks, vs, None)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.tick_launches, fn.tc_launches) == (
+        before[0] + 1, before[1] + (body == "tick"),
+        before[2] + (body == "tc"))
+    live = [b for b, p in enumerate(pos_list) if p is not None]
+    tol = 1e-2 if q.dtype == torch.bfloat16 else 1e-4
+    torch.testing.assert_close(out[live].float(), ref[live].float(),
+                               atol=tol, rtol=tol)
+    assert not out[pos_list.index(None)].any()
+    kg, vg, ksg, vsg = (None if x is None else da.gather_paged_view(x, tables)
+                        for x in (k, v, ks, vs))
+    assert da.route(Tq * G, q.dtype, hd, k.dtype) == body
+    flat = da.decode_attention(q, kg, vg, pos, ksg, vsg)
+    assert torch.equal(out[live], flat[live])
+    assert torch.equal(fn(q, k, v, tables, pos, ks, vs), out)
 
 
 def test_kernels_launch_on_a_second_card():
