@@ -14,8 +14,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    the tick body (R = Tq * G < R_TC, bf16, int8 and fp32 caches, the same
    bits on a second call), and at prefill-chunk widths (Tq * G from R_TC -
    1 to 1024 query rows per kv head, the tensor-core route from R_TC on),
-   head_dim 64, 128 and 256, bf16 and int8; block-table (paged) decode, whose free
-   slots must come back exactly zero; the flash backward (dq, dk/dv) at
+   head_dim 64, 128 and 256, bf16 and int8; block-table (paged) decode on
+   each of its routes (the tick body below R_TC, the tensor-core body
+   reading the pool in place from R_TC on), bf16 and int8, whose free
+   slots must come back exactly zero and whose live slots must equal the
+   contiguous kernel on a gathered copy bit for bit, the same bits again
+   on a second call; the flash backward (dq, dk/dv) at
    the train shape, head_dim 64/128/256, causal and not, ragged T, S != T,
    GQA, on the tensor-core bodies at head_dim 64/128 (``route_bwd``);
    the fused softmax-CE forward and backward at the train loss head and
@@ -40,8 +44,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``cross_entropy`` and its backward, ``layer_norm`` and its backward,
    a bf16 ``matmul`` on a pre-dequantized weight; for the paged kernel
    SDPA on a pre-gathered contiguous copy, the gather timed on its own);
-   the decode kernel also at the paged serve's admission widths R = 128
-   and 256; the W4 kernel at N = 8, 64, 128 and 256 for each gpt_1p3b
+   the decode kernel also at admission widths R = 128 and 256, and the
+   paged kernel at the paged serve's admission widths C = 128 and 256;
+   the W4 kernel at N = 8, 64, 128 and 256 for each gpt_1p3b
    weight shape; the LayerNorm backward's row pass and column sum apart;
 6. the main path, as ``paddle_tpu_torch.tools.profile_serving.
    build_main_path`` defines it: GPT-1.3B (``gpt.gpt_1p3b()``, full width,
@@ -57,8 +62,10 @@ Phases, in order; any failure raises and the script exits non-zero:
    to a contiguous server's on the same prompts and one request to a solo
    ``generate``; the allocator's prefix hits, copies-on-write and radix
    splits; the kernels' launch counts read around it, each admission's
-   width C and the tensor-core decode launches it added (all of them at
-   C >= R_TC, the tick body below);
+   width C and the tensor-core paged launches it added: every launch of
+   the path is the block-table kernel's (none of the contiguous one), each
+   tick on its tick body, each admission at C >= R_TC on its tensor-core
+   body reading the pool in place (the tick body below);
 8. the W4 path, as ``build_w4_path`` defines it: the main path's model and
    requests with int4 weights (group 64) and ``PADDLE_TPU_W4_KERNEL=1`` —
    exactly 6 W4 launches per layer in every decode tick and in every
@@ -380,35 +387,66 @@ def paged_inputs(torch, da, gen, Tq, Hq, Hkv, bs, nmax, kv, pos_list,
 def check_paged(torch, da):
     """The paged kernel against gather-then-attend on every live slot, at
     the paged path's tick shape first (B = 8, Hq = Hkv = 16, bs = 16,
-    nmax = 32, bf16), then GQA, Tq = 4, int8, block size 8; a free slot
-    must return exactly zero (the kernel reads no unmapped block); last,
-    head_dim 256."""
+    nmax = 32, bf16), then GQA, Tq = 4, int8, block size 8, the routes'
+    edge R_TC - 1 / R_TC and the paged serve's admission widths 128 and
+    256 (bf16 and int8); last, head_dim 256.  Each launch on the route
+    ``da.paged_route`` names (``tick_launches`` and ``tc_launches`` count
+    them); a free slot must return exactly zero (the kernel reads no
+    unmapped block); live slots must equal the contiguous kernel on
+    ``gather_paged_view``'s copy bit for bit (the same body walks the
+    same rows in the same order under the same plan), and a second call
+    the same bits."""
     gen = torch.Generator(device="cuda").manual_seed(7)
     worst = 0.0
+    fn = da.paged_decode_attention
     for Tq, Hkv, kv, bs, hd in [(1, 16, "bf16", 16, 128),
                                 (1, 16, "int8", 16, 128),
                                 (4, 4, "bf16", 8, 128),
                                 (4, 4, "int8", 16, 128),
+                                (da.R_TC - 1, 16, "bf16", 16, 128),
+                                (da.R_TC - 1, 16, "int8", 8, 128),
+                                (da.R_TC, 16, "bf16", 16, 128),
+                                (da.R_TC, 16, "int8", 8, 128),
                                 (64, 4, "bf16", 16, 128),
+                                (128, 16, "bf16", 16, 128),
+                                (128, 16, "int8", 16, 128),
+                                (256, 16, "bf16", 16, 128),
+                                (256, 16, "int8", 64, 128),
                                 (4, 4, "bf16", 16, 256),
                                 (64, 4, "int8", 16, 256)]:
         nmax = 512 // bs
-        pos_list = [0, 1, bs - 1, bs, 200, None, 512 - Tq, 333]
+        pos_list = [None if p is None else min(p, 512 - Tq)
+                    for p in (0, 1, bs - 1, bs, 200, None, 512, 333)]
         q, k, v, ks, vs, tables, pos = paged_inputs(
             torch, da, gen, Tq, 16, Hkv, bs, nmax, kv, pos_list, hd)
-        out = da.paged_decode_attention(q, k, v, tables, pos, ks, vs)
+        route = da.paged_route(Tq * 16 // Hkv, q.dtype, hd, k.dtype)
+        before = (fn.tick_launches, fn.tc_launches)
+        out = fn(q, k, v, tables, pos, ks, vs)
         ref = da._plain_paged(q, k, v, tables, pos, ks, vs, None)
         torch.cuda.synchronize()
+        ran = (fn.tick_launches - before[0], fn.tc_launches - before[1])
         live = [b for b, p in enumerate(pos_list) if p is not None]
         err = (out[live].float() - ref[live].float()).abs().max().item()
         zero = not out[pos_list.index(None)].any().item()
+        kg, vg, ksg, vsg = (None if x is None else
+                            da.gather_paged_view(x, tables)
+                            for x in (k, v, ks, vs))
+        flat = da.decode_attention(q, kg, vg, pos, ksg, vsg)
+        bits = torch.equal(out[live], flat[live])
+        again = torch.equal(fn(q, k, v, tables, pos, ks, vs), out)
         log(f"  paged Hq=16 Hkv={Hkv} hd={hd} bs={bs} nmax={nmax} Tq={Tq} "
-            f"{kv}: max|out-plain| {err:.3g} (tol {BF16_TOL}*(1+|plain|)), "
-            f"free slot zero: {zero}")
-        if not (zero and torch.allclose(out[live].float(), ref[live].float(),
-                                        atol=BF16_TOL, rtol=BF16_TOL)):
+            f"{kv} ({route}): max|out-plain| {err:.3g} (tol "
+            f"{BF16_TOL}*(1+|plain|)), free slot zero: {zero}, live slots "
+            f"equal the contiguous kernel on the gathered copy: {bits}, "
+            f"second call equal: {again}")
+        if not (zero and bits and again and torch.allclose(
+                out[live].float(), ref[live].float(), atol=BF16_TOL,
+                rtol=BF16_TOL)):
             raise AssertionError(f"paged decode disagrees at bs={bs} "
                                  f"Hkv={Hkv} Tq={Tq} {kv}")
+        if ran != (route == "tick", route == "tc"):
+            raise AssertionError(f"paged decode at Tq={Tq} {kv} ran (tick, "
+                                 f"tc) {ran}, route {route}")
         worst = max(worst, err)
     return worst
 
@@ -742,8 +780,8 @@ def check_quantized_vs_cpu(torch, gpt, G, serving, woq, wm):
 
 def check_paged_path_vs_cpu(torch, gpt, G, kv_pool, serving):
     """Small fp32 models: paged prefill chunks (several per prompt, the
-    contiguous decode kernel at Tq = 64) and paged decode steps (the
-    block-table kernel) through shuffled tables with a free slot, on the
+    block-table kernel at Tq = 64 on the pool in place) and paged decode
+    steps (its tick body) through shuffled tables with a free slot, on the
     card against the CPU's plain paths."""
     worst = 0.0
     for name, cfg, kv in _small_models(torch, gpt):
@@ -951,29 +989,33 @@ def time_decode_chunk(torch, da, F, Tq=512, T=512):
     }
 
 
-def time_paged(torch, da, F, pos_list):
-    """The paged kernel at the paged path's mid-serve tick: B = 8,
-    Hq = Hkv = 16, hd = 128, bs = 16, nmax = 32, bf16, every slot's
-    blocks distinct and shuffled.  Bound: the live K/V rows, the tables,
-    q and the output.  Yardstick: SDPA on a pre-gathered contiguous copy
-    (``gather_ms`` times the gather of K and V on its own)."""
+def time_paged(torch, da, F, pos_list, Tq=1):
+    """The paged kernel at the paged path's shapes: Hq = Hkv = 16, hd =
+    128, bs = 16, nmax = 32, bf16, every slot's blocks distinct and
+    shuffled — the mid-serve tick (B = 8, Tq = 1) or an admission chunk
+    (one slot, Tq = C query rows).  Bound: the live K/V rows, the tables,
+    q and the output; operations: the visible (query, key) pairs.
+    Yardstick: SDPA on a pre-gathered contiguous copy (``gather_ms`` times
+    the gather of K and V on its own)."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     bs, nmax, Hq, hd = 16, 32, 16, 128
     q, k, v, _, _, tables, pos = paged_inputs(
-        torch, da, gen, 1, Hq, Hq, bs, nmax, "bf16", pos_list)
+        torch, da, gen, Tq, Hq, Hq, bs, nmax, "bf16", pos_list)
     B, T = len(pos_list), nmax * bs
-    live = sum(p + 1 for p in pos_list)
+    live = sum(min(T, p + Tq) for p in pos_list)
+    pairs = sum(Tq * p + Tq * (Tq + 1) // 2 for p in pos_list)
     nbytes = (live * Hq * hd * 2 * 2 + 2 * q.numel() * 2 + B * 4
               + tables.numel() * 4)
-    flops = 4 * live * Hq * hd
-    b_ms, b_by = bound(nbytes, flops)
+    b_ms, b_by = bound(nbytes, 4 * Hq * hd * pairs)
     kg, vg = (da.gather_paged_view(x, tables) for x in (k, v))
-    mask = (torch.arange(T, device="cuda")[None, :]
-            <= pos[:, None])[:, None, None, :]      # [B, 1, 1, T]
+    mask = (torch.arange(T, device="cuda")[None, None, :]
+            <= pos[:, None, None] + torch.arange(Tq, device="cuda")[:, None]
+            )[:, None]                              # [B, 1, Tq, T]
     qt, kt, vt = q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2)
     return {
-        "shape": f"B={B} Tq=1 Hq={Hq} Hkv={Hq} hd={hd} bs={bs} nmax={nmax} "
-                 f"bf16 pos={pos_list}",
+        "shape": f"B={B} Tq={Tq} Hq={Hq} Hkv={Hq} hd={hd} bs={bs} "
+                 f"nmax={nmax} bf16 pos={pos_list} "
+                 f"({da.paged_route(Tq, q.dtype, hd)} route)",
         "ms": cold_ms(torch, lambda: da.paged_decode_attention(
             q, k, v, tables, pos)),
         "plain_ms": cold_ms(torch, lambda: da._plain_paged(
@@ -1158,7 +1200,7 @@ def tc_counts(ks):
 
 
 def tick_counts(ks):
-    """Launches on the tick body (``decode_attention`` below ``R_TC``)."""
+    """Launches on the tick body (both decode kernels below ``R_TC``)."""
     return {name: fn.tick_launches for name, fn in ks.items()
             if hasattr(fn, "tick_launches")}
 
@@ -1250,7 +1292,8 @@ def main_path(torch, gpt, G, serving, ks, wl):
     # tick decode body
     assert tc == {"flash_attention_fwd": launches["flash_attention_fwd"],
                   "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
-                  "w4_matmul": 0, "decode_attention": 0}, tc
+                  "w4_matmul": 0, "decode_attention": 0,
+                  "paged_decode_attention": 0}, tc
     if tick["decode_attention"] != launches["decode_attention"]:
         raise AssertionError(f"{tick['decode_attention']} of "
                              f"{launches['decode_attention']} tick launches "
@@ -1296,7 +1339,7 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
 
     chunk_calls = []        # (pos0, length, width C, tc launches added)
     plain_chunk = kv_pool.paged_prefill_chunk
-    dec = ks["decode_attention"]
+    dec = ks["paged_decode_attention"]
 
     def counted_chunk(*args, **kw):
         before = dec.tc_launches
@@ -1327,22 +1370,28 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
         f"{tc}")
     for pos0, length, C, added in chunk_calls:
         log(f"  admission chunk pos0={pos0} length={length} C={C}: "
-            f"{added} tensor-core decode launches (R_TC={R_TC})")
+            f"{added} tensor-core paged launches (R_TC={R_TC})")
     log(f"  allocator: {json.dumps(pool)}; prefilled rows "
         f"{load['prefill_rows']} of {sum(lens)} prompt rows")
-    if not (launches["paged_decode_attention"]
-            and launches["decode_attention"]):
+    if not launches["paged_decode_attention"]:
         raise AssertionError(f"a kernel of the path never ran: {launches}")
-    assert launches["paged_decode_attention"] == L * len(ticks), launches
-    assert launches["decode_attention"] == L * len(chunk_calls), launches
+    # every attention of the path is the block-table kernel's: the pool is
+    # read in place, never through a gathered copy and the contiguous one
+    assert launches["paged_decode_attention"] == L * (
+        len(ticks) + len(chunk_calls)), launches
+    assert launches["decode_attention"] == 0, launches
     assert launches["flash_attention_fwd"] == 0, launches
-    # every admission at C >= R_TC (G = 1: R = C) on the tensor-core route
+    # every admission at C >= R_TC (G = 1: R = C) on the tensor-core body
     for _, _, C, added in chunk_calls:
         assert added == L * (C >= R_TC), chunk_calls
-    assert tc["decode_attention"] == sum(c[3] for c in chunk_calls), tc
-    # ... and every one below it on the tick body
-    assert tick["decode_attention"] == L * sum(
-        c[2] < R_TC for c in chunk_calls), (tick, chunk_calls)
+    assert tc["paged_decode_attention"] == sum(c[3] for c in chunk_calls), tc
+    assert tc["decode_attention"] == 0, tc
+    # ... and every tick (R = 1), and every admission below R_TC, on the
+    # tick body
+    narrow = sum(c[2] < R_TC for c in chunk_calls)
+    assert tick["paged_decode_attention"] == L * (len(ticks) + narrow), (
+        tick, chunk_calls)
+    assert tick["decode_attention"] == 0, tick
     assert all(len(s) == new for s in served)
     cont_div = {r: check_tokens(torch, gpt, params, cfg, prompts[r],
                                 served[r], cont_tokens[r],
@@ -1457,7 +1506,7 @@ def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
     assert tc == {"flash_attention_fwd": launches["flash_attention_fwd"],
                   "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
                   "w4_matmul": launches["w4_matmul"],
-                  "decode_attention": 0}, tc
+                  "decode_attention": 0, "paged_decode_attention": 0}, tc
     assert launches["flash_attention_fwd"] == L * len(prompts), launches
     assert launches["decode_attention"] == L * len(ticks), launches
     assert launches["fused_layer_norm_fwd"] == 0, launches
@@ -1556,7 +1605,8 @@ def train_path(torch, gpt, ks, tr, fused_ln=False, steps=4):
     # bodies (bf16, head_dim 128)
     want_tc = {name: want[name] for name in (
         "flash_attention_fwd", "flash_attention_bwd_dq",
-        "flash_attention_bwd_dkv", "w4_matmul", "decode_attention")}
+        "flash_attention_bwd_dkv", "w4_matmul", "decode_attention",
+        "paged_decode_attention")}
     for i, got in enumerate(per_step_tc):
         if got != want_tc:
             raise AssertionError(f"step {i + 1} launched {got} on the "
@@ -1658,7 +1708,14 @@ def main() -> int:
         log(f"  decode_attention admission chunk {json.dumps(row)}")
     paged_lens = [len(p) for p in wl.paged_prompts(50304)]
     paged = time_paged(torch, da, F, [n + wl.NEW // 2 for n in paged_lens])
+    paged.update(chunk_nsplit=da.tick_plan(len(paged_lens), 16, 512, 1))
     log(f"  paged_decode_attention {json.dumps(paged)}")
+    # the paged serve's admission widths, one slot's chunk ending at its
+    # 512th row (as the decode kernel's widths above)
+    paged_widths = {f"C={C}": time_paged(torch, da, F, [512 - C], Tq=C)
+                    for C in (128, 256)}
+    for row in paged_widths.values():
+        log(f"  paged_decode_attention admission chunk {json.dumps(row)}")
     flash_train = time_flash(torch, fa, F, tr.SEQ)
     log(f"  flash_attention_fwd at the train shape {json.dumps(flash_train)}")
     bwd = time_flash_bwd(torch, fa, F, tr.SEQ)
@@ -1724,14 +1781,18 @@ def main() -> int:
                   "w4": wstats["tc_launches"],
                   **{p: t["tc_launches"] for p, t in train.items()}}
     assert all(by_path[p]["decode_attention"] == 0 for p in train)
-    tick_by_path = {"main": stats["tick_launches"]["decode_attention"],
-                    "paged": pstats["tick_launches"]["decode_attention"],
-                    "w4": wstats["tick_launches"]["decode_attention"],
-                    **{p: 0 for p in train}}
+    tick_by_path = {name: {"main": stats["tick_launches"][name],
+                           "paged": pstats["tick_launches"][name],
+                           "w4": wstats["tick_launches"][name],
+                           **{p: 0 for p in train}}
+                    for name in ("decode_attention", "paged_decode_attention")}
 
     tc_bodies = {
         "flash_attention_fwd": "paddle_tpu_torch/csrc/attn_tc.cuh",
-        "decode_attention": "paddle_tpu_torch/csrc/attn_tc.cuh",
+        "decode_attention": "paddle_tpu_torch/csrc/decode_chunk_tc.cuh "
+        "(attn_tc.cuh's tile body)",
+        "paged_decode_attention": "paddle_tpu_torch/csrc/decode_chunk_tc.cuh "
+        "(attn_tc.cuh's tile body, the pool read in place)",
         "flash_attention_bwd_dq": "paddle_tpu_torch/csrc/flash_bwd.cu "
         "(tc::dq_kernel, on attn_tc.cuh's primitives)",
         "flash_attention_bwd_dkv": "paddle_tpu_torch/csrc/flash_bwd.cu "
@@ -1746,9 +1807,9 @@ def main() -> int:
             extra = {"tc_launches": sum(tc.values()),
                      "tc_launches_by_path": tc,
                      "tc_body": tc_bodies[name], **extra}
-        if name == "decode_attention":
-            extra = {"tick_launches": sum(tick_by_path.values()),
-                     "tick_launches_by_path": tick_by_path,
+        if name in tick_by_path:
+            extra = {"tick_launches": sum(tick_by_path[name].values()),
+                     "tick_launches_by_path": tick_by_path[name],
                      "tick_body": "paddle_tpu_torch/csrc/decode_tick.cuh",
                      **extra}
         return {"name": name, "route": "cuda", "source": src,
@@ -1787,7 +1848,8 @@ def main() -> int:
         entry("paged_decode_attention",
               "paddle_tpu_torch/csrc/paged_decode_attention.cu",
               "paddle_tpu/ops/decode_attention.py:509", paged,
-              gather_ms=paged["gather_ms"]),
+              gather_ms=paged["gather_ms"],
+              at_admission_widths=paged_widths),
     ]
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

@@ -1,15 +1,17 @@
 // Tensor-core attention-forward tile body for Hopper (sm_90a): the body
-// that csrc/flash_fwd.cu (bf16 q/k/v) and the wide-query route of
-// csrc/decode_attention.cu (bf16 q, R = Tq·G >= R_TC) both run.
+// that csrc/flash_fwd.cu (bf16 q/k/v) and the wide-query routes of
+// csrc/decode_attention.cu and csrc/paged_decode_attention.cu (bf16 q,
+// R = Tq·G >= R_TC, through csrc/decode_chunk_tc.cuh) run.
 //
-// Replaces the products of two Pallas kernels:
+// Replaces the products of three Pallas kernels:
 //  * paddle_tpu/ops/flash_attention.py::_flash_fwd_impl (pl.pallas_call at
 //    flash_attention.py:164): S = Q·Kᵀ, an online softmax and O = P·V over
 //    k tiles, with a causal frontier;
-//  * paddle_tpu/ops/decode_attention.py::_decode_call (pl.pallas_call at
-//    decode_attention.py:282) at admission-chunk widths: the same function
-//    over a KV cache, packed query row r = tq·G + g seeing cache rows
-//    t <= pos[b] + tq.
+//  * paddle_tpu/ops/decode_attention.py::_decode_call and ::_paged_call
+//    (pl.pallas_call at decode_attention.py:282 and :509) at
+//    admission-chunk widths: the same function over a KV cache (contiguous
+//    or a block-table pool), packed query row r = tq·G + g seeing cache
+//    rows t <= pos[b] + tq.
 //
 // Function: each query row takes its softmax over the key rows it can see;
 // scores are scale · (q · k) of bf16 q and k accumulated in fp32.  A score
@@ -58,10 +60,16 @@
 //    dequantized copy is written anywhere.
 //  * Causal and cache frontiers: the walk stops at the tile's last row's
 //    frontier; only tiles that cross the first row's frontier are masked.
+//  * Rows that may not be stored (a block-table pool: the policy's
+//    kStaged): each staged tile's 64 rows are resolved once, into shared
+//    memory, before its copies are issued; an unstored row is zero-filled
+//    and never read.  Its scores are then 0, so a row whose every key is
+//    unstored (a free slot) weighs zero V rows and comes out exactly 0;
+//    within a live slot's frontier every row is stored.
 //
 // Shared memory: 1 KB alignment slack + Q (128·D bytes) + 2 stages of K
-// and V (256·D bytes each) [+ int8 scales]: 81 KB at D = 128 (two CTAs an
-// SM), 161 KB at D = 256 (one).
+// and V (256·D bytes each) [+ int8 scales] [+ 64 staged row indices]: 81
+// KB at D = 128 (two CTAs an SM), 161 KB at D = 256 (one).
 
 #pragma once
 
@@ -83,9 +91,10 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxDevices = 64;    // cards per process the launchers track
 
 template <int D>
-constexpr size_t smem_bytes(bool int8_kv) {
+constexpr size_t smem_bytes(bool int8_kv, bool staged = false) {
   return 1024 + (size_t)kBM * D * 2 + (size_t)kStages * 2 * kBN * D * 2 +
-         (int8_kv ? (size_t)kStages * 2 * kBN * sizeof(float) : 0);
+         (int8_kv ? (size_t)kStages * 2 * kBN * sizeof(float) : 0) +
+         (staged ? (size_t)kBN * sizeof(int) : 0);
 }
 
 extern __shared__ __align__(1024) unsigned char attn_tc_smem[];
@@ -270,31 +279,51 @@ __device__ __forceinline__ int acc_col(int b, int e) {
 }
 
 // Stage keys [k0, k0 + kBN) of k and v (rows below k_lim exist; the rest
-// are zero-filled) into ring slot (ks_, vs_), and their int8 scales.
+// are zero-filled) into ring slot (ks_, vs_), and their int8 scales.  A
+// kStaged policy's rows are first resolved into srows (-1: not stored,
+// zero-filled like a row past k_lim); every thread must call this.
 template <int D, typename KT, class Pol>
 __device__ __forceinline__ void load_kv(const Pol& pol, const KT* __restrict__ k,
                                         const KT* __restrict__ v,
                                         const float* __restrict__ ksc,
                                         const float* __restrict__ vsc,
                                         int k0, int k_lim, uint32_t ks_,
-                                        uint32_t vs_, float* ksm, float* vsm) {
+                                        uint32_t vs_, float* ksm, float* vsm,
+                                        int* srows) {
   const int tid = threadIdx.x;
+  if constexpr (Pol::kStaged) {
+    for (int r = tid; r < kBN; r += kThreads)
+      srows[r] = k0 + r < k_lim ? (int)pol.kv_row(k0 + r) : -1;
+    __syncthreads();
+  }
+  // row of key k0 + r in k/v (0 where it is not stored) and whether it is
+  auto row_of = [&](int r, size_t& row) {
+    if constexpr (Pol::kStaged) {
+      const int sr = srows[r];
+      row = sr >= 0 ? (size_t)sr : 0;
+      return sr >= 0;
+    } else {
+      const bool ok = k0 + r < k_lim;
+      row = ok ? (size_t)pol.kv_row(k0 + r) : 0;
+      return ok;
+    }
+  };
   if constexpr (std::is_same<KT, __nv_bfloat16>::value) {
     constexpr int C = D / 8;                     // 16-byte chunks a row
     for (int idx = tid; idx < kBN * C; idx += kThreads) {
-      const int r = idx / C, c = idx % C, t = k0 + r;
-      const bool ok = t < k_lim;
-      const size_t row = ok ? pol.kv_row(t) : 0;
+      const int r = idx / C, c = idx % C;
+      size_t row;
+      const bool ok = row_of(r, row);
       cp16(ks_ + swz(r, c, kBN), k + row * D + c * 8, ok);
       cp16(vs_ + swz(r, c, kBN), v + row * D + c * 8, ok);
     }
   } else {                                       // int8: stage as bf16
     constexpr int C = D / 16;                    // 16-value chunks a row
     for (int idx = tid; idx < kBN * C; idx += kThreads) {
-      const int r = idx / C, c = idx % C, t = k0 + r;
+      const int r = idx / C, c = idx % C;
       int4 kx = make_int4(0, 0, 0, 0), vx = kx;
-      if (t < k_lim) {
-        const size_t row = pol.kv_row(t);
+      size_t row;
+      if (row_of(r, row)) {
         kx = *reinterpret_cast<const int4*>(k + row * D + c * 16);
         vx = *reinterpret_cast<const int4*>(v + row * D + c * 16);
       }
@@ -317,9 +346,8 @@ __device__ __forceinline__ void load_kv(const Pol& pol, const KT* __restrict__ k
       }
     }
     for (int r = tid; r < kBN; r += kThreads) {
-      const int t = k0 + r;
-      const bool ok = t < k_lim;
-      const size_t row = ok ? pol.kv_row(t) : 0;
+      size_t row;
+      const bool ok = row_of(r, row);
       ksm[r] = ok ? ksc[row] : 0.f;
       vsm[r] = ok ? vsc[row] : 0.f;
     }
@@ -329,8 +357,13 @@ __device__ __forceinline__ void load_kv(const Pol& pol, const KT* __restrict__ k
 // Attend the CTA's 64 query rows to keys [k_begin, k_end) (k_begin a
 // multiple of kBN).  qk2 = scale · log2 e.  The policy `pol` answers:
 //   const __nv_bfloat16* q_row(int i)  query row i of the tile, or nullptr
-//   size_t kv_row(int t)               row index of key t in k/v (and scales)
+//   kv_row(int t)                      row index of key t in k/v (and
+//                                      scales); with kStaged, < 0 where
+//                                      key t is not stored
 //   int frontier(int i)                last key row i may see (inclusive)
+//   static constexpr bool kStaged      whether keys may be unstored (their
+//                                      rows are then resolved a tile at a
+//                                      time into shared memory)
 // Rows past the policy's rows and keys past a row's frontier are masked;
 // frontiers must not decrease with i.
 template <int D, typename KT, class Pol>
@@ -352,6 +385,8 @@ __device__ __forceinline__ void attend(const Pol& pol, const KT* __restrict__ k,
   const uint32_t ring = qs + kBM * D * 2;        // [stage][K, V] tiles
   float* scales = reinterpret_cast<float*>(
       attn_tc_smem + (ring - raw) + kStages * 2 * kTile);   // [stage][ks, vs][kBN]
+  int* srows = reinterpret_cast<int*>(                     // [kBN] (kStaged)
+      scales + (kInt8 ? kStages * 2 * kBN : 0));
 
   {  // Q: 64 rows x D, zero rows past the policy's
     constexpr int C = D / 8;
@@ -363,7 +398,7 @@ __device__ __forceinline__ void attend(const Pol& pol, const KT* __restrict__ k,
   }
   const int n_tiles = (k_end - k_begin + kBN - 1) / kBN;
   load_kv<D, KT>(pol, k, v, ksc, vsc, k_begin, k_end, ring, ring + kTile,
-                 scales, scales + kBN);
+                 scales, scales + kBN, srows);
   cp_commit();
 
   const int i0 = warp * 16 + (lane >> 2);
@@ -387,7 +422,7 @@ __device__ __forceinline__ void attend(const Pol& pol, const KT* __restrict__ k,
       const uint32_t nxt = ring + (slot ^ 1) * 2 * kTile;
       float* nsc = scales + (slot ^ 1) * 2 * kBN;
       load_kv<D, KT>(pol, k, v, ksc, vsc, k0 + kBN, k_end, nxt, nxt + kTile,
-                     nsc, nsc + kBN);
+                     nsc, nsc + kBN, srows);
     }
     cp_commit();
     cp_wait<1>();           // this tile (and Q) landed; the next one flies

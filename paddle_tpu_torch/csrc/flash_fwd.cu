@@ -228,6 +228,7 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* o,
 // Row addressing of one (b, h, 64-row q tile) for attn_tc::attend.
 template <int D>
 struct FlashTile {
+  static constexpr bool kStaged = false;   // every key is stored
   const __nv_bfloat16* q;
   int b, h, hk, q0, Tq, S, H, Hkv, causal;
   __device__ __forceinline__ const __nv_bfloat16* q_row(int i) const {

@@ -16,8 +16,13 @@
 //  * R = Tq·G < r_tc (the paged decode tick, narrow chunks; any dtype):
 //    the tick body of decode_tick.cuh over PagedRows — each CTA reads its
 //    split's slice of the table once, into shared memory.
-//  * R >= r_tc otherwise: the split-KV body of split_kv.cuh, which resolves
-//    each staged 64-row tile's rows through the table.
+//  * R >= r_tc with bf16 q and a bf16 or int8 pool (a paged admission
+//    chunk, attending the pool in place): the tensor-core body of
+//    decode_chunk_tc.cuh over PagedRows — each staged 64-row tile's rows
+//    are resolved once, into shared memory, before its copies.
+//  * R >= r_tc otherwise (fp32 q or pool: the small fp32 models'
+//    admission chunks): the split-KV body of split_kv.cuh, which resolves
+//    each staged tile's rows through the table likewise.
 //
 // Where it departs from the TPU kernel, and why:
 //  * The Pallas grid steps one pool block per cell and must DMA an
@@ -30,8 +35,9 @@
 //    own block through the table.
 //
 // What bounds each body and how it is laid out: the notes of
-// decode_tick.cuh and split_kv.cuh.
+// decode_tick.cuh, attn_tc.cuh and split_kv.cuh.
 
+#include "decode_chunk_tc.cuh"
 #include "decode_tick.cuh"
 #include "split_kv.cuh"
 
@@ -43,8 +49,9 @@
 // [B, Hkv, nsplit, R, hd], m_part/l_part [B, Hkv, nsplit, R] float32, R =
 // Tq * Hq / Hkv <= 1024, nsplit * chunk >= T, chunk a multiple of 64;
 // tickets: the tick route's B * Hkv * R int32, all 0 (left 0), when
-// nsplit > 1.  r_tc: the least R that leaves the tick route.  Returns
-// cudaGetLastError().
+// nsplit > 1.  r_tc: the least R that leaves the tick route (for the
+// tensor-core route with bf16 q and a bf16 or int8 pool, else the split-KV
+// body).  Returns cudaGetLastError().
 extern "C" int paged_decode_attention(
     const void* q, const void* k, const void* v, const void* ks,
     const void* vs, const void* pos, const void* tables, void* out,
@@ -63,5 +70,7 @@ extern "C" int paged_decode_attention(
   if (Tq * (Hq / Hkv) < r_tc)
     return (int)tick::run(q_dtype, kv_dtype, hd, a, rows,
                           static_cast<int*>(tickets));
-  return (int)split_kv::run(q_dtype, kv_dtype, hd, a, rows);
+  if (q_dtype != 1 || (kv_dtype != 1 && kv_dtype != 2))
+    return (int)split_kv::run(q_dtype, kv_dtype, hd, a, rows);
+  return (int)chunk_tc::run(kv_dtype, hd, a, rows);
 }

@@ -1,18 +1,21 @@
-"""Split-KV decode attention, contiguous and paged, and the quantized-KV
-helpers: the hand-written Hopper kernels and their plain PyTorch twins.
+"""Decode attention, contiguous and paged, and the quantized-KV helpers:
+the hand-written Hopper kernels and their plain PyTorch twins.
 
 Counterpart of ``paddle_tpu/ops/decode_attention.py``.  The Pallas
-kernels become CUDA sources that share one split-KV body
-(``csrc/split_kv.cuh`` — a partial kernel plus a combine kernel; the note
-at its top says what bounds it and how it is laid out):
+kernels become CUDA sources that share three bodies, each written over
+where cache row t of batch row b lives (a contiguous cache or a block
+table) — the note atop each says what bounds it and how it is laid out:
+at a tick's widths (R = Tq·G < ``R_TC``) the tick body of
+``csrc/decode_tick.cuh``; at admission-chunk widths with bf16 q over a
+bf16 or int8 cache the tensor-core body of ``csrc/decode_chunk_tc.cuh``
+(``csrc/attn_tc.cuh``'s tiles); otherwise (fp32) the split-KV body of
+``csrc/split_kv.cuh``:
 
 * ``_decode_call`` -> ``csrc/decode_attention.cu``, a contiguous cache
-  [B, T, Hkv, hd]; at a tick's widths (R = Tq·G < ``R_TC``) it runs the
-  tick body of ``csrc/decode_tick.cuh``, at admission-chunk widths (bf16
-  q, bf16 or int8 cache) the tensor-core body of ``csrc/attn_tc.cuh``
-  (:func:`route`);
+  [B, T, Hkv, hd] (:func:`route`);
 * ``_paged_call`` -> ``csrc/paged_decode_attention.cu``, a block pool
-  [N, bs, Hkv, hd] read through per-slot block tables.
+  [N, bs, Hkv, hd] read in place through per-slot block tables
+  (:func:`paged_route`).
 
 ``quantize_kv`` / ``dequantize_kv`` are THE int8 cache format, as in the
 JAX package.
@@ -109,13 +112,13 @@ def route(R: int, q_dtype, hd: int, kv_dtype=torch.bfloat16) -> str:
 
 
 def paged_route(R: int, q_dtype, hd: int, kv_dtype=torch.bfloat16) -> str:
-    """Which body a ``paged_decode_attention`` launch of R = Tq * G packed
-    query rows per kv head takes: "tick" (``csrc/decode_tick.cuh`` over
-    the block tables) below ``R_TC``, for every dtype; from ``R_TC`` on,
-    "split" (``csrc/split_kv.cuh``).  The C entry takes the same decision
-    from the same inputs and ``R_TC``."""
-    body = route(R, q_dtype, hd, kv_dtype)
-    return "split" if body == "tc" else body
+    """Which body a ``paged_decode_attention`` launch takes: the same as
+    :func:`route` for a contiguous cache — "tick" below ``R_TC``, then
+    "tc" (``csrc/decode_chunk_tc.cuh``, the pool read in place) for bf16
+    q over a bf16 or int8 pool, else "split" — each body over the block
+    tables.  The paged C entry takes the same decision from the same
+    inputs and ``R_TC``."""
+    return route(R, q_dtype, hd, kv_dtype)
 
 
 def tick_rows(R: int) -> int:

@@ -294,8 +294,9 @@ def _chunk_attend_block(x, p, csl, pos0: int, length: int,
                         cfg: gpt.GPTConfig):
     """One block over a C-token chunk [1, C, D] at positions
     [pos0, pos0 + C) against one slot's cache leaves ``csl`` [1, T, ...]
-    whose rows [0, pos0) are filled — THE shared body of
-    :func:`prefill_slot_chunk` and ``kv_pool.paged_prefill_chunk``.
+    whose rows [0, pos0) are filled — the body of
+    :func:`prefill_slot_chunk` (``kv_pool.paged_prefill_chunk`` runs its
+    two halves around the pool's own scatter and attention).
 
     The chunk's first ``length`` rows are written into ``csl`` at
     [pos0, pos0 + length) IN PLACE, then row i attends rows t <= pos0 + i

@@ -20,12 +20,12 @@ slice:
   ``PADDLE_TPU_KV_SPILL_MB=0`` (the default).
 
 Device math: :func:`paged_decode_step_batched` (the pooled twin of
-``serving.decode_step_batched``) writes each layer's fresh rows into the
-pool, then attends through the tables — on the card with the
-block-table kernel (``ops/decode_attention.paged_decode_attention``), on
-the CPU through each slot's gathered view.  :func:`paged_prefill_chunk`
-is the pooled ``generate.prefill_slot_chunk``.  Both write in place and
-return the cache they were given.
+``serving.decode_step_batched``) and :func:`paged_prefill_chunk` (the
+pooled ``generate.prefill_slot_chunk``) write each layer's fresh rows
+into the pool, then attend through the tables — on the card with the
+block-table kernel (``ops/decode_attention.paged_decode_attention``),
+which reads the pool in place, on the CPU through each slot's gathered
+view.  Both write in place and return the cache they were given.
 """
 from __future__ import annotations
 
@@ -201,29 +201,36 @@ def paged_prefill_chunk(params, cache, tokens, pos0: int, length: int,
                         slot: int, cfg: gpt.GPTConfig):
     """``generate.prefill_slot_chunk`` on the pooled layout: one chunk of
     a prompt at positions [pos0, pos0 + C) for one slot.  Per layer, the
-    slot's table-gathered view (rows [0, pos0) filled) goes through
-    ``generate._chunk_attend_block`` — on the card the contiguous decode
-    kernel at Tq = C — and the chunk's valid rows then scatter through
-    the table (pads and unmapped entries to the sink).  Returns (logits
-    at the chunk's last valid position [V] float32, cache).
+    chunk's valid rows scatter through the table first (pads and
+    unmapped entries to the sink), then its C rows attend the slot's rows
+    t <= pos0 + i through the table (:func:`_attend_pool`: on the card the
+    block-table kernel at Tq = C reads the pool in place; on the CPU the
+    slot's gathered view) — the scatter-then-attend order of
+    :func:`paged_decode_step_batched`.  Returns (logits at the chunk's
+    last valid position [V] float32, cache).
 
+    A valid row i < ``length`` sees only rows <= pos0 + i, which the
+    caller has made writable (``PagedAllocator.ensure_rows``) and this
+    chunk or an earlier one has written, so the pads' rows (in the sink,
+    or unmapped) never reach it; the pads' own outputs are discarded.
     With a shared prefix adopted into the table, ``pos0`` starts at the
-    first unshared row: the shared blocks are attended through the
-    gather but never recomputed.  The caller has made rows
-    [pos0, pos0 + length) writable (``PagedAllocator.ensure_rows``)."""
+    first unshared row: the shared blocks are attended but never
+    recomputed."""
     N, bs, _ = _geometry(cache)
     trow = cache["tables"][slot:slot + 1]                 # [1, nmax]
     C = tokens.shape[1]
     idx = torch.arange(C, device=trow.device)
     phys = _phys_rows(trow.expand(C, -1), pos0 + idx, N, bs,
                       valid=idx < length)
+    pos = torch.full((1,), pos0, dtype=torch.int32, device=trow.device)
     x = generate._embed_chunk(params, tokens, pos0, cfg)
     for l in range(cfg.num_layers):
+        p = gpt.layer(params, l)
         pool_l = _layer_pool(cache, l)
-        csl = {n: da.gather_paged_view(v, trow) for n, v in pool_l.items()}
-        x, rows = generate._chunk_attend_block(x, gpt.layer(params, l), csl,
-                                               pos0, length, cfg)
+        q, rows = generate._chunk_pre_attn(x, p, pos0, cfg)
         _scatter_rows(pool_l, {n: v[0] for n, v in rows.items()}, phys)
+        attn = _attend_pool(q, pool_l, trow, pos, cfg)      # [1, C, D]
+        x = generate._block_post_attn(x, attn, p, cfg)
     return generate._last_logits(x, length, params, cfg), cache
 
 

@@ -137,10 +137,11 @@ def build_paged_path(device="cuda", seed=0):
     return cfg, params, srv, paged_prompts(cfg.vocab_size, seed)
 
 
-# kernel-name keys, lower case; split_kv.cuh's kernels carry their row
-# addressing (ContiguousRows / PagedRows) in their template arguments; the
-# tensor-core bodies are flash_fwd_tc_kernel, decode_chunk_tc_kernel and
-# w4_tc_kernel; the decode tick's body is decode_tick_kernel
+# kernel-name keys, lower case; the decode kernels (split_kv.cuh's,
+# decode_tick_kernel, decode_chunk_tc_kernel) carry their row addressing
+# (ContiguousRows / PagedRows) in their template arguments, so a PagedRows
+# kernel is the paged family's whatever its body; the other tensor-core
+# bodies are flash_fwd_tc_kernel and w4_tc_kernel
 MATMUL_KEYS = ("gemm", "gemv", "cutlass", "xmma", "cublas", "splitk", "nvjet")
 FAMILIES = (("w4_matmul", ("w4_kernel", "w4_tc_kernel",
                            "w4_sum_kernel")),

@@ -1,10 +1,11 @@
 """The routes of the port's two attention-forward kernels and of the flash
 backward, and the plain twins at the shapes those routes take.
 
-``flash_attention.route``, ``flash_attention.route_bwd`` and
-``decode_attention.route`` name the body a launch runs (a tensor-core
-body on ``csrc/attn_tc.cuh``, the decode tick's body in
-``csrc/decode_tick.cuh``, or the older FMA / split-KV body);
+``flash_attention.route``, ``flash_attention.route_bwd``,
+``decode_attention.route`` and ``decode_attention.paged_route`` name the
+body a launch runs (a tensor-core body on ``csrc/attn_tc.cuh``, the
+decode tick's body in ``csrc/decode_tick.cuh``, or the older FMA /
+split-KV body);
 ``decode_attention.tc_split_plan`` and ``tick_plan`` cut the tensor-core
 and tick routes' cache walks.  All are plain Python, checked here on
 the CPU; the kernels themselves run only on a card
@@ -92,13 +93,41 @@ def test_decode_route_matches_the_c_entry():
     src = (_CSRC / "decode_attention.cu").read_text()
     body = src[src.index('extern "C" int decode_attention('):]
     tick, tc = body.index("if (R < r_tc)"), body.index("if (q_dtype != 1")
-    assert tick < tc < body.index("tc_by_hd")
+    assert tick < tc < body.index("chunk_tc::run")
     assert "tick::run" in body[tick:tc]
-    assert "split_kv::run" in body[tc:body.index("tc_by_hd")]
+    assert "split_kv::run" in body[tc:body.index("chunk_tc::run")]
     tick_src = (_CSRC / "decode_tick.cuh").read_text()
     assert "== 1)\n    return launch<QT, KT, HD, 1>" in tick_src
     assert "return launch<QT, KT, HD, 4>" in tick_src
     assert [da.tick_rows(R) for R in (1, 2, 15)] == [1, 4, 4]
+
+
+@pytest.mark.parametrize("hd", [64, 128, 256])
+@pytest.mark.parametrize("qdt", ["bfloat16", "float32"])
+@pytest.mark.parametrize("kvdt", ["bfloat16", "int8", "float32"])
+def test_paged_route_is_the_contiguous_route(kvdt, qdt, hd):
+    """The paged kernel takes the contiguous kernel's body at every width
+    and dtype: the tick body below ``R_TC``, then the tensor-core body for
+    bf16 q over a bf16 or int8 pool (read in place), else split-KV."""
+    qd, kd = getattr(torch, qdt), getattr(torch, kvdt)
+    for R in (1, 4, da.R_TC - 1, da.R_TC, 64, 256, 512, 1024):
+        assert da.paged_route(R, qd, hd, kd) == da.route(R, qd, hd, kd)
+
+
+def test_paged_route_matches_the_c_entry():
+    """The paged C entry decides as the contiguous one: R < r_tc to the
+    tick body (over the block tables) before it looks at a dtype, then
+    bf16 q over a bf16 or int8 pool to the tensor-core body, the rest to
+    the split-KV body — each instantiated with block-table rows."""
+    src = (_CSRC / "paged_decode_attention.cu").read_text()
+    body = src[src.index('extern "C" int paged_decode_attention('):]
+    tick = body.index("if (Tq * (Hq / Hkv) < r_tc)")
+    tc = body.index("if (q_dtype != 1 || (kv_dtype != 1 && kv_dtype != 2))")
+    end = body.index("chunk_tc::run(kv_dtype, hd, a, rows)")
+    assert tick < tc < end
+    assert "tick::run" in body[tick:tc]
+    assert "split_kv::run" in body[tc:end]
+    assert "split_kv::PagedRows rows{" in body[:tick]
 
 
 def test_r_tc_is_at_least_16():
@@ -251,6 +280,12 @@ def test_tick_wrapper_counts_its_route():
     fn = da.decode_attention
     assert isinstance(fn.tick_launches, int) and isinstance(
         fn.tc_launches, int)
+
+
+def test_paged_wrapper_counts_its_routes():
+    fn = da.paged_decode_attention
+    assert all(isinstance(n, int) for n in (
+        fn.launches, fn.tick_launches, fn.tc_launches))
 
 
 # ------------------------------------- plain twins at the routes' shapes
