@@ -13,11 +13,14 @@
 // row) runs attn_tc.cuh's tile body (its note says what bounds it and how
 // it is laid out).  With one split it writes the output itself; with more
 // it writes the split-KV scratch (o_part, m_part, l_part) and
-// split_kv.cuh's combine kernel merges the splits.  Block-table rows are
-// resolved a staged tile at a time (the policy's kStaged), and a row the
-// table does not map is zero-filled, never read: so the body on the pool
-// and the same body on a gathered copy of it walk the same values at
-// every row a live slot's query can see, in the same order — equal bits.
+// split_kv.cuh's combine kernel merges the splits.  Block tables: a CTA
+// copies its split's slice of the table into shared memory once, beside
+// pos's load (a table read in front of every staged tile cost ~3 µs a
+// launch at the paged admission); each staged tile then resolves its 64
+// rows from that slice (the policy's kStaged), and a row the table does
+// not map is zero-filled, never read.  So the body on the pool and the
+// same body on a gathered copy of it walk the same values at every row a
+// live slot's query can see, in the same order — equal bits.
 
 #pragma once
 
@@ -35,19 +38,28 @@ namespace chunk_tc {
 // Row addressing of one (b, kv head h, 64-row tile of the R packed query
 // rows) for attn_tc::attend: packed row r = tq·G + g is query head h·G + g
 // at position tq, and sees cache rows t <= pos[b] + tq.
+// PagedRows: key t's block comes from `slice`, the CTA's slice of the
+// table in shared memory (entry 0: block tb0).
 template <int HD, class Rows>
 struct ChunkTile {
   static constexpr bool kStaged = !Rows::kDense;
   const __nv_bfloat16* q;
   Rows rows;
-  int b, h, r0, R, G, Tq, Hq, T, p_b;
+  const int* slice;
+  int tb0, b, h, r0, R, G, Tq, Hq, T, p_b;
   __device__ __forceinline__ const __nv_bfloat16* q_row(int i) const {
     const int r = r0 + i;
     if (r >= R) return nullptr;
     return q + ((size_t)(b * Tq + r / G) * Hq + h * G + r % G) * HD;
   }
   __device__ __forceinline__ long long kv_row(int t) const {
-    return rows(b, t, h);
+    if constexpr (Rows::kDense) {
+      return rows(b, t, h);
+    } else {
+      const int pb = slice[t / rows.bs - tb0];
+      if (pb < 0) return -1;
+      return (long long)((size_t)(pb * rows.bs + t % rows.bs) * rows.Hkv + h);
+    }
   }
   __device__ __forceinline__ int frontier(int i) const {
     return min(p_b + (r0 + i) / G, T - 1);
@@ -69,18 +81,30 @@ decode_chunk_tc_kernel(const __nv_bfloat16* __restrict__ q,
                        float* __restrict__ o_part, float* __restrict__ m_part,
                        float* __restrict__ l_part, int Tq, int Hq, int Hkv,
                        int T, int chunk, int nsplit, float scale) {
+  constexpr bool kInt8 = std::is_same<KT, int8_t>::value;
   const int s = blockIdx.x % nsplit, rt = blockIdx.x / nsplit;
   const int h = blockIdx.y, b = blockIdx.z;
   const int G = Hq / Hkv, R = Tq * G;
   const int r0 = rt * attn_tc::kBM, Rc = min(attn_tc::kBM, R - r0);
+  const int t_begin = s * chunk;
+  // PagedRows: the table slice sits past what attn_tc::attend uses
+  int* slice = reinterpret_cast<int*>(
+      attn_tc::attn_tc_smem + attn_tc::smem_bytes<HD>(kInt8, true));
+  if constexpr (!Rows::kDense)             // issued beside pos's load
+    rows.load_slice(slice, b, t_begin, chunk, attn_tc::kThreads);
   const int p_b = pos[b];
   // rows the tile's last query row can see
   const int n_valid = min(T, p_b + (r0 + Rc - 1) / G + 1);
-  const int t_begin = s * chunk;
   if (t_begin >= n_valid) return;        // the combine skips this split
   const int t_end = min(t_begin + chunk, n_valid);
+  int tb0 = 0;
+  if constexpr (!Rows::kDense) {
+    tb0 = t_begin / rows.bs;
+    __syncthreads();                      // the slice is in
+  }
 
-  const ChunkTile<HD, Rows> pol{q, rows, b, h, r0, R, G, Tq, Hq, T, p_b};
+  const ChunkTile<HD, Rows> pol{q,  rows, slice, tb0, b,  h,
+                                r0, R,    G,     Tq,  Hq, T, p_b};
   attn_tc::State<HD> st;
   attn_tc::attend<HD, KT>(pol, k, v, ks, vs, t_begin, t_end,
                           scale * attn_tc::kLog2e, st);
@@ -122,7 +146,8 @@ cudaError_t launch_tc(const split_kv::Args& a, Rows rows) {
   constexpr bool kInt8 = std::is_same<KT, int8_t>::value;
   const int R = a.Tq * (a.Hq / a.Hkv);
   const int n_rt = (R + attn_tc::kBM - 1) / attn_tc::kBM;
-  const size_t smem = attn_tc::smem_bytes<HD>(kInt8, !Rows::kDense);
+  size_t smem = attn_tc::smem_bytes<HD>(kInt8, !Rows::kDense);
+  if constexpr (!Rows::kDense) smem += sizeof(int) * rows.slice_len(a.chunk);
   static size_t attr_bytes[attn_tc::kMaxDevices] = {};
   int dev = 0;
   cudaError_t e = cudaGetDevice(&dev);

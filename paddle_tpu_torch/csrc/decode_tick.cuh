@@ -99,8 +99,8 @@ decode_tick_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   __shared__ __align__(16) float so[kWarps][RT][HD];
   __shared__ float sm[kWarps][RT], sl[kWarps][RT];
   __shared__ int last;
-  // PagedRows: the split's slice of the block table (dynamic, chunk / bs
-  // + 2 entries), -1 where unmapped
+  // PagedRows: the split's slice of the block table (dynamic,
+  // rows.slice_len(chunk) entries), -1 where unmapped
   extern __shared__ int tick_tbl[];
 
   const int s = blockIdx.x % nsplit, rt = blockIdx.x / nsplit;
@@ -108,14 +108,8 @@ decode_tick_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   const int G = Hq / Hkv, R = Tq * G;
   const int r0 = rt * RT, Rc = min(RT, R - r0);
   const int t_begin = s * chunk;
-  if constexpr (!Rows::kDense) {          // issued beside pos's load
-    const int tb0 = t_begin / rows.bs;
-    const int n = min(rows.nmax, (t_begin + chunk - 1) / rows.bs + 1) - tb0;
-    for (int i = threadIdx.x; i < n; i += kThreads) {
-      const int pb = __ldg(rows.tables + b * rows.nmax + tb0 + i);
-      tick_tbl[i] = pb < 0 || pb >= rows.N ? -1 : pb;
-    }
-  }
+  if constexpr (!Rows::kDense)             // issued beside pos's load
+    rows.load_slice(tick_tbl, b, t_begin, chunk, kThreads);
   const int p_b = pos[b];
   // rows the tile's last query row can see, and the splits they span
   const int n_valid = min(T, p_b + (r0 + Rc - 1) / G + 1);
@@ -349,7 +343,7 @@ template <typename QT, typename KT, int HD, int RT, class Rows>
 cudaError_t launch(const split_kv::Args& a, Rows rows, int* tickets) {
   const int R = a.Tq * (a.Hq / a.Hkv), n_rt = (R + RT - 1) / RT;
   size_t smem = 0;                        // the table slice (PagedRows)
-  if constexpr (!Rows::kDense) smem = sizeof(int) * (a.chunk / rows.bs + 2);
+  if constexpr (!Rows::kDense) smem = sizeof(int) * rows.slice_len(a.chunk);
   decode_tick_kernel<QT, KT, HD, RT, Rows>
       <<<dim3(a.nsplit * n_rt, a.Hkv, a.B), kThreads, smem, a.stream>>>(
           static_cast<const QT*>(a.q), static_cast<const KT*>(a.k),

@@ -79,7 +79,9 @@ struct ContiguousRows {
 // batch row b is row t % bs of physical block tables[b, t / bs].  -1 (and,
 // defensively, any entry outside [0, N)) means "not stored": never read.
 // A staged tile resolves its rows once, into shared memory, before the
-// loads that depend on them.
+// loads that depend on them.  The tick and tensor-core bodies first copy
+// their split's slice of the table into shared memory (load_slice), so
+// that no table read stands in front of a tile's loads.
 struct PagedRows {
   static constexpr bool kDense = false;
   const int* tables;
@@ -88,6 +90,20 @@ struct PagedRows {
     const int pb = tables[(size_t)b * nmax + t / bs];
     if (pb < 0 || pb >= N) return -1;
     return (long long)((size_t)(pb * bs + t % bs) * Hkv + h);
+  }
+  // Entries a slice of `chunk` rows spans, at most.
+  __host__ __device__ int slice_len(int chunk) const { return chunk / bs + 2; }
+  // Batch row b's entries for rows [t_begin, t_begin + chunk) into dst
+  // (entry 0: block t_begin / bs), -1 where a block is not stored; each
+  // of a CTA's `threads` threads takes every threads-th entry.
+  __device__ __forceinline__ void load_slice(int* dst, int b, int t_begin,
+                                             int chunk, int threads) const {
+    const int tb0 = t_begin / bs;
+    const int n = min(nmax, (t_begin + chunk - 1) / bs + 1) - tb0;
+    for (int i = threadIdx.x; i < n; i += threads) {
+      const int pb = __ldg(tables + b * nmax + tb0 + i);
+      dst[i] = pb < 0 || pb >= N ? -1 : pb;
+    }
   }
 };
 

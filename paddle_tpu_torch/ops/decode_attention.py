@@ -220,7 +220,9 @@ def _check(q, k, v, pos, k_scale, v_scale, tables=None):
                 or tables.shape[0] != B:
             raise ValueError(f"{what}: tables must be int32 [B, nmax], got "
                              f"{tables.dtype} {tuple(tables.shape)}")
-        tensors.append(("tables", tables))
+        # read an entry at a time: a slot's row of a larger table will do
+        if not tables.is_contiguous():
+            raise ValueError(f"{what}: tables must be contiguous")
     quant = k.dtype == torch.int8
     if quant != (k_scale is not None) or (k_scale is None) != (v_scale is None):
         raise ValueError(f"{what}: int8 caches need k_scale and v_scale; "
