@@ -91,7 +91,8 @@ constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kMaxDevices = 64;    // cards per process the launchers track
 
 template <int D>
-constexpr size_t smem_bytes(bool int8_kv, bool staged = false) {
+__host__ __device__ constexpr size_t smem_bytes(bool int8_kv,
+                                                bool staged = false) {
   return 1024 + (size_t)kBM * D * 2 + (size_t)kStages * 2 * kBN * D * 2 +
          (int8_kv ? (size_t)kStages * 2 * kBN * sizeof(float) : 0) +
          (staged ? (size_t)kBN * sizeof(int) : 0);
