@@ -1014,8 +1014,7 @@ def time_paged(torch, da, F, pos_list, Tq=1):
     qt, kt, vt = q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2)
     return {
         "shape": f"B={B} Tq={Tq} Hq={Hq} Hkv={Hq} hd={hd} bs={bs} "
-                 f"nmax={nmax} bf16 pos={pos_list} "
-                 f"({da.paged_route(Tq, q.dtype, hd)} route)",
+                 f"nmax={nmax} bf16 pos={pos_list}",
         "ms": cold_ms(torch, lambda: da.paged_decode_attention(
             q, k, v, tables, pos)),
         "plain_ms": cold_ms(torch, lambda: da._plain_paged(
@@ -1708,13 +1707,17 @@ def main() -> int:
         log(f"  decode_attention admission chunk {json.dumps(row)}")
     paged_lens = [len(p) for p in wl.paged_prompts(50304)]
     paged = time_paged(torch, da, F, [n + wl.NEW // 2 for n in paged_lens])
-    paged.update(chunk_nsplit=da.tick_plan(len(paged_lens), 16, 512, 1))
+    paged.update(route=da.paged_route(1, torch.bfloat16, 128),
+                 chunk_nsplit=da.tick_plan(len(paged_lens), 16, 512, 1))
     log(f"  paged_decode_attention {json.dumps(paged)}")
     # the paged serve's admission widths, one slot's chunk ending at its
     # 512th row (as the decode kernel's widths above)
-    paged_widths = {f"C={C}": time_paged(torch, da, F, [512 - C], Tq=C)
-                    for C in (128, 256)}
-    for row in paged_widths.values():
+    paged_widths = {}
+    for C in (128, 256):
+        row = time_paged(torch, da, F, [512 - C], Tq=C)
+        row.update(route=da.paged_route(C, torch.bfloat16, 128),
+                   chunk_nsplit=da.tc_split_plan(1, 16, 512, C))
+        paged_widths[f"C={C}"] = row
         log(f"  paged_decode_attention admission chunk {json.dumps(row)}")
     flash_train = time_flash(torch, fa, F, tr.SEQ)
     log(f"  flash_attention_fwd at the train shape {json.dumps(flash_train)}")

@@ -61,14 +61,18 @@
 //  * Causal and cache frontiers: the walk stops at the tile's last row's
 //    frontier; only tiles that cross the first row's frontier are masked.
 //  * Rows that may not be stored (a block-table pool: the policy's
-//    kStaged): each staged tile's 64 rows are resolved once, into shared
-//    memory, before its copies are issued; an unstored row is zero-filled
-//    and never read.  Its scores are then 0, so a row whose every key is
+//    kStaged): each tile's 64 rows are resolved once, into shared memory,
+//    two tiles ahead of its copies — a ring of three row tiles, filled
+//    while the current tile's copies land, so no barrier or address
+//    arithmetic stands between a tile and its copies (one barrier a tile,
+//    or each thread resolving its own rows, cost 3.5 and 11 µs a launch
+//    at the paged admission's shapes).  An unstored row is zero-filled and
+//    never read.  Its scores are then 0, so a row whose every key is
 //    unstored (a free slot) weighs zero V rows and comes out exactly 0;
 //    within a live slot's frontier every row is stored.
 //
 // Shared memory: 1 KB alignment slack + Q (128·D bytes) + 2 stages of K
-// and V (256·D bytes each) [+ int8 scales] [+ 64 staged row indices]: 81
+// and V (256·D bytes each) [+ int8 scales] [+ 3 tiles of row indices]: 81
 // KB at D = 128 (two CTAs an SM), 161 KB at D = 256 (one).
 
 #pragma once
@@ -85,6 +89,7 @@ constexpr int kThreads = 128;      // one warpgroup
 constexpr int kBM = 64;            // query rows per CTA
 constexpr int kBN = 64;            // keys per staged tile
 constexpr int kStages = 2;
+constexpr int kRowRing = 3;        // tiles of resolved rows (kStaged)
 constexpr float kNeg = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 constexpr float kLn2 = 0.6931471805599453f;
@@ -95,7 +100,7 @@ __host__ __device__ constexpr size_t smem_bytes(bool int8_kv,
                                                 bool staged = false) {
   return 1024 + (size_t)kBM * D * 2 + (size_t)kStages * 2 * kBN * D * 2 +
          (int8_kv ? (size_t)kStages * 2 * kBN * sizeof(float) : 0) +
-         (staged ? (size_t)kBN * sizeof(int) : 0);
+         (staged ? (size_t)kRowRing * kBN * sizeof(int) : 0);
 }
 
 extern __shared__ __align__(1024) unsigned char attn_tc_smem[];
@@ -279,10 +284,20 @@ __device__ __forceinline__ int acc_col(int b, int e) {
   return 64 * b + 8 * (e >> 2) + 2 * (threadIdx.x & 3) + (e & 1);
 }
 
+// Threads [tid0, tid0 + kBN) resolve keys [k0, k0 + kBN) of a kStaged
+// policy into dst: the row index, or -1 where the key is not stored or
+// lies past k_lim.
+template <class Pol>
+__device__ __forceinline__ void resolve_rows(const Pol& pol, int k0,
+                                             int k_lim, int* dst, int tid0) {
+  const int r = (int)threadIdx.x - tid0;
+  if (r >= 0 && r < kBN)
+    dst[r] = k0 + r < k_lim ? (int)pol.kv_row(k0 + r) : -1;
+}
+
 // Stage keys [k0, k0 + kBN) of k and v (rows below k_lim exist; the rest
 // are zero-filled) into ring slot (ks_, vs_), and their int8 scales.  A
-// kStaged policy's rows are first resolved into srows (-1: not stored,
-// zero-filled like a row past k_lim); every thread must call this.
+// kStaged policy's rows come from srows (resolve_rows, -1: zero-filled).
 template <int D, typename KT, class Pol>
 __device__ __forceinline__ void load_kv(const Pol& pol, const KT* __restrict__ k,
                                         const KT* __restrict__ v,
@@ -292,11 +307,6 @@ __device__ __forceinline__ void load_kv(const Pol& pol, const KT* __restrict__ k
                                         uint32_t vs_, float* ksm, float* vsm,
                                         int* srows) {
   const int tid = threadIdx.x;
-  if constexpr (Pol::kStaged) {
-    for (int r = tid; r < kBN; r += kThreads)
-      srows[r] = k0 + r < k_lim ? (int)pol.kv_row(k0 + r) : -1;
-    __syncthreads();
-  }
   // row of key k0 + r in k/v (0 where it is not stored) and whether it is
   auto row_of = [&](int r, size_t& row) {
     if constexpr (Pol::kStaged) {
@@ -364,7 +374,8 @@ __device__ __forceinline__ void load_kv(const Pol& pol, const KT* __restrict__ k
 //   int frontier(int i)                last key row i may see (inclusive)
 //   static constexpr bool kStaged      whether keys may be unstored (their
 //                                      rows are then resolved a tile at a
-//                                      time into shared memory)
+//                                      time into shared memory, two tiles
+//                                      ahead)
 // Rows past the policy's rows and keys past a row's frontier are masked;
 // frontiers must not decrease with i.
 template <int D, typename KT, class Pol>
@@ -386,7 +397,7 @@ __device__ __forceinline__ void attend(const Pol& pol, const KT* __restrict__ k,
   const uint32_t ring = qs + kBM * D * 2;        // [stage][K, V] tiles
   float* scales = reinterpret_cast<float*>(
       attn_tc_smem + (ring - raw) + kStages * 2 * kTile);   // [stage][ks, vs][kBN]
-  int* srows = reinterpret_cast<int*>(                     // [kBN] (kStaged)
+  int* srows = reinterpret_cast<int*>(     // [kRowRing][kBN] (kStaged)
       scales + (kInt8 ? kStages * 2 * kBN : 0));
 
   {  // Q: 64 rows x D, zero rows past the policy's
@@ -398,6 +409,11 @@ __device__ __forceinline__ void attend(const Pol& pol, const KT* __restrict__ k,
     }
   }
   const int n_tiles = (k_end - k_begin + kBN - 1) / kBN;
+  if constexpr (Pol::kStaged) {   // the first two tiles' rows, half each
+    resolve_rows(pol, k_begin, k_end, srows, 0);
+    resolve_rows(pol, k_begin + kBN, k_end, srows + kBN, kBN);
+    __syncthreads();
+  }
   load_kv<D, KT>(pol, k, v, ksc, vsc, k_begin, k_end, ring, ring + kTile,
                  scales, scales + kBN, srows);
   cp_commit();
@@ -423,8 +439,14 @@ __device__ __forceinline__ void attend(const Pol& pol, const KT* __restrict__ k,
       const uint32_t nxt = ring + (slot ^ 1) * 2 * kTile;
       float* nsc = scales + (slot ^ 1) * 2 * kBN;
       load_kv<D, KT>(pol, k, v, ksc, vsc, k0 + kBN, k_end, nxt, nxt + kTile,
-                     nsc, nsc + kBN, srows);
+                     nsc, nsc + kBN, srows + (it + 1) % kRowRing * kBN);
     }
+    // two tiles ahead, into the ring slot tile it - 1 was read from (a
+    // barrier of each loop step since): read after this step's barriers
+    if constexpr (Pol::kStaged)
+      if (it + 2 < n_tiles)
+        resolve_rows(pol, k0 + 2 * kBN, k_end,
+                     srows + (it + 2) % kRowRing * kBN, 0);
     cp_commit();
     cp_wait<1>();           // this tile (and Q) landed; the next one flies
     fence_async_smem();

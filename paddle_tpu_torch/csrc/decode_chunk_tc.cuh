@@ -15,12 +15,12 @@
 // it writes the split-KV scratch (o_part, m_part, l_part) and
 // split_kv.cuh's combine kernel merges the splits.  Block tables: a CTA
 // copies its split's slice of the table into shared memory once, beside
-// pos's load (a table read in front of every staged tile cost ~3 µs a
-// launch at the paged admission); each staged tile then resolves its 64
-// rows from that slice (the policy's kStaged), and a row the table does
-// not map is zero-filled, never read.  So the body on the pool and the
-// same body on a gathered copy of it walk the same values at every row a
-// live slot's query can see, in the same order — equal bits.
+// pos's load, so no table read stands in front of a tile; attn_tc.cuh
+// resolves each tile's 64 rows from that slice two tiles ahead (the
+// policy's kStaged), and a row the table does not map is zero-filled,
+// never read.  So the body on the pool and the same body on a gathered
+// copy of it walk the same values at every row a live slot's query can
+// see, in the same order — equal bits.
 
 #pragma once
 
@@ -90,9 +90,9 @@ decode_chunk_tc_kernel(const __nv_bfloat16* __restrict__ q,
   // PagedRows: the table slice sits past what attn_tc::attend uses
   int* slice = reinterpret_cast<int*>(
       attn_tc::attn_tc_smem + attn_tc::smem_bytes<HD>(kInt8, true));
-  if constexpr (!Rows::kDense)             // issued beside pos's load
-    rows.load_slice(slice, b, t_begin, chunk, attn_tc::kThreads);
   const int p_b = pos[b];
+  if constexpr (!Rows::kDense)             // in flight beside pos's load
+    rows.load_slice(slice, b, t_begin, chunk, attn_tc::kThreads);
   // rows the tile's last query row can see
   const int n_valid = min(T, p_b + (r0 + Rc - 1) / G + 1);
   if (t_begin >= n_valid) return;        // the combine skips this split

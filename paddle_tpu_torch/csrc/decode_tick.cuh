@@ -108,9 +108,9 @@ decode_tick_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
   const int G = Hq / Hkv, R = Tq * G;
   const int r0 = rt * RT, Rc = min(RT, R - r0);
   const int t_begin = s * chunk;
-  if constexpr (!Rows::kDense)             // issued beside pos's load
-    rows.load_slice(tick_tbl, b, t_begin, chunk, kThreads);
   const int p_b = pos[b];
+  if constexpr (!Rows::kDense)             // in flight beside pos's load
+    rows.load_slice(tick_tbl, b, t_begin, chunk, kThreads);
   // rows the tile's last query row can see, and the splits they span
   const int n_valid = min(T, p_b + (r0 + Rc - 1) / G + 1);
   const int n_act = (n_valid + chunk - 1) / chunk;

@@ -1,5 +1,6 @@
-"""A/B of the decode tick's kernels (the contiguous decode kernel and the
-paged one) and of the LayerNorm forward across checkouts, on one card.
+"""A/B of the decode kernels (the contiguous one and the paged one, at
+the tick and at admission widths) and of the LayerNorm forward across
+checkouts, on one card.
 
     python3 paddle_tpu_torch/tools/ab_kernels.py ROOT_A ROOT_B ROOT_B ROOT_A
 
@@ -9,14 +10,17 @@ in one process fail to launch), by ``chip_smoke.time_decode`` of THIS
 checkout on that checkout's ``decode_attention``: B = 8 slots at the main
 path's mid-serve positions, T = 512, Hq = Hkv = 16, hd = 128, bf16, L2
 flushed, median of 20 launches; then by ``chip_smoke.time_paged`` on its
-``paged_decode_attention`` at the paged path's mid-serve tick; then by
+``paged_decode_attention`` at the paged path's mid-serve tick and at the
+paged serve's admission widths C = 128 and 256 (one slot's chunk ending
+at its 512th row), and by ``chip_smoke.time_decode_chunk`` on its
+``decode_attention`` at the same geometry for C = 128; then by
 ``chip_smoke.time_norm`` on its ``ln_fwd`` at the train shape (N = F =
 2048, bf16 x, fp32 g and b), whose row also carries ``bits``: a hash of
 the forward's y, mu and rstd on those inputs, so that two checkouts'
 outputs can be held equal bit for bit.  Prints the card line, the
 floor of that timing (``chip_smoke.cold_ms`` of a one-element add, and of
 a 16 MB bf16 copy and a sum over 13.4 MB as byte-bound yardsticks), then
-three JSON lines per run.  Needs a CUDA card; imports nothing of JAX or the JAX package.
+six JSON lines per run.  Needs a CUDA card; imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
@@ -54,6 +58,14 @@ def _child(root: str) -> None:
     row = chip_smoke.time_paged(torch, da, F,
                                 [n + wl.NEW // 2 for n in lens])
     print(json.dumps({"root": root, "kernel": "paged_decode_attention",
+                      **row}), flush=True)
+    for C in (128, 256):
+        row = chip_smoke.time_paged(torch, da, F, [512 - C], Tq=C)
+        print(json.dumps({"root": root, "kernel":
+                          f"paged_decode_attention C={C}", **row}),
+              flush=True)
+    row = chip_smoke.time_decode_chunk(torch, da, F, Tq=128)
+    print(json.dumps({"root": root, "kernel": "decode_attention R=128",
                       **row}), flush=True)
     row = chip_smoke.time_norm(torch, fn, F)["fwd"]
     gen = torch.Generator(device="cuda").manual_seed(16)  # time_norm's
