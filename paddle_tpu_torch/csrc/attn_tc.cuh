@@ -63,13 +63,16 @@
 //  * Rows that may not be stored (a block-table pool: the policy's
 //    kStaged): each tile's 64 rows are resolved once, into shared memory,
 //    two tiles ahead of its copies — a ring of three row tiles, filled
-//    while the current tile's copies land, so no barrier or address
-//    arithmetic stands between a tile and its copies (one barrier a tile,
-//    or each thread resolving its own rows, cost 3.5 and 11 µs a launch
-//    at the paged admission's shapes).  An unstored row is zero-filled and
-//    never read.  Its scores are then 0, so a row whose every key is
-//    unstored (a free slot) weighs zero V rows and comes out exactly 0;
-//    within a live slot's frontier every row is stored.
+//    while the tensor cores run the S product, so no barrier or address
+//    arithmetic stands between a tile and its copies.  At the paged
+//    admission's shapes a barrier at every tile cost 3.5 µs a launch,
+//    each thread resolving its own rows 11 µs, the ring filled before
+//    the copies land 2.5 µs, filled under the product 1.4 µs (against
+//    this body on the same memory, contiguous; PERF.md).  An unstored row
+//    is zero-filled and never read.  Its scores are then 0, so a row
+//    whose every key is unstored (a free slot) weighs zero V rows and
+//    comes out exactly 0; within a live slot's frontier every row is
+//    stored.
 //
 // Shared memory: 1 KB alignment slack + Q (128·D bytes) + 2 stages of K
 // and V (256·D bytes each) [+ int8 scales] [+ 3 tiles of row indices]: 81
@@ -441,12 +444,6 @@ __device__ __forceinline__ void attend(const Pol& pol, const KT* __restrict__ k,
       load_kv<D, KT>(pol, k, v, ksc, vsc, k0 + kBN, k_end, nxt, nxt + kTile,
                      nsc, nsc + kBN, srows + (it + 1) % kRowRing * kBN);
     }
-    // two tiles ahead, into the ring slot tile it - 1 was read from (a
-    // barrier of each loop step since): read after this step's barriers
-    if constexpr (Pol::kStaged)
-      if (it + 2 < n_tiles)
-        resolve_rows(pol, k0 + 2 * kBN, k_end,
-                     srows + (it + 2) % kRowRing * kBN, 0);
     cp_commit();
     cp_wait<1>();           // this tile (and Q) landed; the next one flies
     fence_async_smem();
@@ -460,6 +457,12 @@ __device__ __forceinline__ void attend(const Pol& pol, const KT* __restrict__ k,
     wg_fence();
     mma_abt<D>(s, qs, kt);
     wg_commit();
+    // two tiles ahead, while the product runs, into the ring slot tile
+    // it - 1 was read from (a barrier of each loop step since)
+    if constexpr (Pol::kStaged)
+      if (it + 2 < n_tiles)
+        resolve_rows(pol, k0 + 2 * kBN, k_end,
+                     srows + (it + 2) % kRowRing * kBN, 0);
     wg_wait0();
     fence_regs(s);
 
