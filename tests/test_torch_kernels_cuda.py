@@ -3,7 +3,9 @@ flash prefill (fp32 on the FMA body, bf16 on the tensor-core body),
 decode (up to 1024 query rows per kv head: the tick body below ``R_TC``
 packed rows, bit-equal on a second call; the tensor-core route from
 ``R_TC`` on),
-block-table (paged) decode, the flash backward (dq and dk/dv; bf16 at
+block-table (paged) decode on each of its routes (live slots bit-equal
+to the contiguous kernel on a gathered copy), the flash backward (dq and
+dk/dv; bf16 at
 head_dim 64 and 128 on the tensor-core bodies), the
 fused softmax cross-entropy and the fused LayerNorm (forward and
 backward; both sum in a fixed order, so a second call gives the same
