@@ -45,7 +45,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    a bf16 ``matmul`` on a pre-dequantized weight; for the paged kernel
    SDPA on a pre-gathered contiguous copy, the gather timed on its own);
    the decode kernel also at admission widths R = 128 and 256, and the
-   paged kernel at the paged serve's admission widths C = 128 and 256;
+   paged kernel at the paged serve's admission widths C = 128 and 256,
+   and on the contiguous kernel's own memory viewed as blocks (the
+   tables' cost; bit-equal outputs);
    the W4 kernel at N = 8, 64, 128 and 256 for each gpt_1p3b
    weight shape; the LayerNorm backward's row pass and column sum apart;
 6. the main path, as ``paddle_tpu_torch.tools.profile_serving.
@@ -1027,6 +1029,44 @@ def time_paged(torch, da, F, pos_list, Tq=1):
     }
 
 
+def time_paged_addressing(torch, da, pos_list, Tq=1):
+    """What the block tables cost the paged kernel: the contiguous kernel
+    on a cache [B, 512, 16, 128] bf16 against the paged kernel on the
+    same memory viewed as a pool of 16-row blocks (identity tables), and
+    on a shuffled copy of it — the same rows, bits and work, so the
+    difference is the table's resolution alone (tick: B = 8, Tq = 1;
+    admission: one slot, Tq = C)."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    bs, nmax, H, hd = 16, 32, 16, 128
+    B, T = len(pos_list), bs * nmax
+    q = torch.randn(B, Tq, H, hd, generator=gen, device="cuda").bfloat16()
+    k, v = (torch.randn(B, T, H, hd, generator=gen, device="cuda")
+            .bfloat16() for _ in range(2))
+    pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
+    kp, vp = (x.view(B * nmax, bs, H, hd) for x in (k, v))
+    ident = torch.arange(B * nmax, dtype=torch.int32,
+                         device="cuda").view(B, nmax)
+    perm = torch.randperm(B * nmax, generator=gen, device="cuda").int()
+    k_shuf, v_shuf = torch.empty_like(kp), torch.empty_like(vp)
+    k_shuf[perm.long()] = kp
+    v_shuf[perm.long()] = vp
+    perm = perm.view(B, nmax)
+    flat = da.decode_attention(q, k, v, pos)
+    return {
+        "shape": f"B={B} Tq={Tq} Hq=Hkv={H} hd={hd} bs={bs} nmax={nmax} "
+                 f"bf16 pos={pos_list}",
+        "contiguous_ms": cold_ms(torch, lambda: da.decode_attention(
+            q, k, v, pos)),
+        "paged_identity_ms": cold_ms(torch, lambda: da.paged_decode_attention(
+            q, kp, vp, ident, pos)),
+        "paged_shuffled_ms": cold_ms(torch, lambda: da.paged_decode_attention(
+            q, k_shuf, v_shuf, perm, pos)),
+        "bits_equal": all(
+            torch.equal(da.paged_decode_attention(q, kk, vv, tt, pos), flat)
+            for kk, vv, tt in ((kp, vp, ident), (k_shuf, v_shuf, perm))),
+    }
+
+
 def time_flash_bwd(torch, fa, F, T=2048):
     """The dq and dk/dv kernels at one train micro-batch (B = 1, T = 2048,
     H = 16, D = 128, bf16, causal).  Bounds count the causal pairs only.
@@ -1719,6 +1759,15 @@ def main() -> int:
                    chunk_nsplit=da.tc_split_plan(1, 16, 512, C))
         paged_widths[f"C={C}"] = row
         log(f"  paged_decode_attention admission chunk {json.dumps(row)}")
+    # the tables' cost: the paged kernel on the contiguous kernel's memory
+    tick_pos = [n + wl.NEW // 2 for n in paged_lens]
+    paged_addr = {"tick": time_paged_addressing(torch, da, tick_pos),
+                  "C=128": time_paged_addressing(torch, da, [384], Tq=128)}
+    log(f"  paged_decode_attention on contiguous memory "
+        f"{json.dumps(paged_addr)}")
+    if not all(r["bits_equal"] for r in paged_addr.values()):
+        raise AssertionError("the paged kernel on the contiguous kernel's "
+                             "memory gave other bits")
     flash_train = time_flash(torch, fa, F, tr.SEQ)
     log(f"  flash_attention_fwd at the train shape {json.dumps(flash_train)}")
     bwd = time_flash_bwd(torch, fa, F, tr.SEQ)
@@ -1852,7 +1901,8 @@ def main() -> int:
               "paddle_tpu_torch/csrc/paged_decode_attention.cu",
               "paddle_tpu/ops/decode_attention.py:509", paged,
               gather_ms=paged["gather_ms"],
-              at_admission_widths=paged_widths),
+              at_admission_widths=paged_widths,
+              on_contiguous_memory=paged_addr),
     ]
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

@@ -14,13 +14,16 @@ flushed, median of 20 launches; then by ``chip_smoke.time_paged`` on its
 paged serve's admission widths C = 128 and 256 (one slot's chunk ending
 at its 512th row), and by ``chip_smoke.time_decode_chunk`` on its
 ``decode_attention`` at the same geometry for C = 128; then by
+``chip_smoke.time_paged_addressing`` (both kernels on the same memory,
+the paged one through identity and shuffled tables) at the paged tick
+and at C = 128; then by
 ``chip_smoke.time_norm`` on its ``ln_fwd`` at the train shape (N = F =
 2048, bf16 x, fp32 g and b), whose row also carries ``bits``: a hash of
 the forward's y, mu and rstd on those inputs, so that two checkouts'
 outputs can be held equal bit for bit.  Prints the card line, the
 floor of that timing (``chip_smoke.cold_ms`` of a one-element add, and of
 a 16 MB bf16 copy and a sum over 13.4 MB as byte-bound yardsticks), then
-six JSON lines per run.  Needs a CUDA card; imports nothing of JAX or the JAX package.
+eight JSON lines per run.  Needs a CUDA card; imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
@@ -67,6 +70,12 @@ def _child(root: str) -> None:
     row = chip_smoke.time_decode_chunk(torch, da, F, Tq=128)
     print(json.dumps({"root": root, "kernel": "decode_attention R=128",
                       **row}), flush=True)
+    for what, args in (("tick", ([n + wl.NEW // 2 for n in lens],)),
+                       ("C=128", ([384], 128))):
+        row = chip_smoke.time_paged_addressing(torch, da, *args)
+        print(json.dumps({"root": root, "kernel": "paged_decode_attention "
+                          f"on contiguous memory, {what}", **row}),
+              flush=True)
     row = chip_smoke.time_norm(torch, fn, F)["fwd"]
     gen = torch.Generator(device="cuda").manual_seed(16)  # time_norm's
     x, g, b, _ = chip_smoke._ln_inputs(torch, gen, 2048, 2048,
