@@ -37,10 +37,10 @@
 //  * Block tables (PagedRows): a row's block is one more trip to memory
 //    in front of its K/V loads.  So a CTA reads its split's slice of the
 //    table once (chunk / bs entries, 4 at the paged tick, one more where
-//    a block straddles the split), into shared memory, before pos — the
-//    slice depends on the split alone — and each
-//    lane steps its rows' (block, row in block) by additions, with no
-//    division in the load loop.  An unmapped block (-1) is never read.
+//    a block straddles the split) into shared memory, in flight beside
+//    pos's load (the slice depends on the split alone), and each lane
+//    steps its rows' (block, row in block) by additions, with no division
+//    in the load loop.  An unmapped block (-1) is never read.
 //  * Splits: `chunk` rows each (ops/decode_attention.py `tick_plan` sizes
 //    the grid from T, so that the splits live at a tick fill the card);
 //    a split past the tile's last frontier returns at once.  A CTA alone
@@ -164,7 +164,8 @@ decode_tick_kernel(const QT* __restrict__ q, const KT* __restrict__ k,
       } else {
         if (t < t_end) {
           const int pb = tick_tbl[bu];
-          if (pb >= 0) row = (long long)((size_t)(pb * rows.bs + ou) * Hkv + h);
+          if (pb >= 0)
+            row = (long long)((size_t)(pb * rows.bs + ou) * Hkv + h);
         }
         ou += RPW;                        // RPW <= 8 <= bs: one carry
         if (ou >= rows.bs) {

@@ -18,8 +18,9 @@
 //    split's slice of the table once, into shared memory.
 //  * R >= r_tc with bf16 q and a bf16 or int8 pool (a paged admission
 //    chunk, attending the pool in place): the tensor-core body of
-//    decode_chunk_tc.cuh over PagedRows — each staged 64-row tile's rows
-//    are resolved once, into shared memory, before its copies.
+//    decode_chunk_tc.cuh over PagedRows — each CTA reads its split's
+//    slice of the table once, and each 64-row tile's rows are resolved
+//    from it two tiles ahead of their copies.
 //  * R >= r_tc otherwise (fp32 q or pool: the small fp32 models'
 //    admission chunks): the split-KV body of split_kv.cuh, which resolves
 //    each staged tile's rows through the table likewise.

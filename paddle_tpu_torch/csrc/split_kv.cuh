@@ -93,7 +93,9 @@ struct PagedRows {
     return (long long)((size_t)(pb * bs + t % bs) * Hkv + h);
   }
   // Entries a slice of `chunk` rows spans, at most.
-  __host__ __device__ int slice_len(int chunk) const { return chunk / bs + 2; }
+  __host__ __device__ int slice_len(int chunk) const {
+    return chunk / bs + 2;
+  }
   // Batch row b's entries for rows [t_begin, t_begin + chunk) into dst
   // (entry 0: block t_begin / bs), -1 where a block is not stored; each
   // of a CTA's `threads` threads takes every threads-th entry.
