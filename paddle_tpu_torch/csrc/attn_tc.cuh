@@ -67,7 +67,7 @@
 //    arithmetic stands between a tile and its copies.  At the paged
 //    admission's shapes a barrier at every tile cost 3.5 µs a launch,
 //    each thread resolving its own rows 11 µs, the ring filled before
-//    the copies land 2.5 µs, filled under the product 1.4 µs (against
+//    the copies land 2.5 µs, filled under the product 1.6 µs (against
 //    this body on the same memory, contiguous; PERF.md).  An unstored row
 //    is zero-filled and never read.  Its scores are then 0, so a row
 //    whose every key is unstored (a free slot) weighs zero V rows and
