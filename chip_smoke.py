@@ -33,7 +33,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    models (fp32 and int8 KV): contiguous prefill and batched decode, then
    paged prefill chunks and paged decode steps through shuffled block
    tables; then the same contiguous checks on int8 and int4 weight-only
-   models with ``PADDLE_TPU_W4_KERNEL=1``; then five AdamW train steps of
+   models with ``PADDLE_TPU_W4_KERNEL=1``; then small fp32 models served
+   through the step Engine's CUDA graphs against eager steps (contiguous,
+   paged through shuffled tables, int8 KV, int4 with the W4 kernel):
+   graphed tick, ``tick_block(8)`` and async streams equal to the eager
+   tick's exactly, captured logits within PATH_TOL of the eager step's;
+   then five AdamW train steps of
    small fp32 models (MHA with learned positions, GQA with rope; accum 1
    and 2; the LayerNorm ones again with ``PADDLE_TPU_FUSED_LN=1``) on the
    card against the same steps on the CPU;
@@ -54,10 +59,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    build_main_path`` defines it: GPT-1.3B (``gpt.gpt_1p3b()``, full width,
    random weights from a seed, bf16) served by ``DecodeServer(max_batch=8,
    max_len=512)`` — 8 greedy requests, prompts of 40..300 tokens (prefill
-   buckets 64, 128, 256, 512), 64 new tokens each — with the kernels'
+   buckets 64, 128, 256, 512), 64 new tokens each — warmed up
+   (``DecodeServer.warmup``), then served through the step Engine: every
+   tick one replay of the captured step graph, with the kernels'
    launch counts read around it (every flash forward on the tensor-core
-   body, every decode launch on the tick body: ``tick_launches``) and one
-   request checked against a solo ``generate``;
+   body, every decode launch on the tick body: ``tick_launches``; a
+   replay counts the launches it captured) and one
+   request checked against a solo ``generate``; then the same requests
+   served three more ways, a fresh server each on the same weights —
+   eager ticks (the private ``_graphs=False``), graphed
+   ``tick_block(8)``, graphed ``async_dispatch=True`` ticks — with
+   tokens/s, tick ms, admission ms, peak memory and graphs for each of
+   the four, every graphed way's streams held to the eager ones by the
+   tie rule (the same for phases 7 and 8);
 7. the paged path, as ``build_paged_path`` defines it: the same model
    behind ``DecodeServer(layout="paged", block_size=16, num_blocks=128)``,
    8 chat requests sharing a 200-token system prompt — served tokens equal
@@ -70,7 +84,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    body reading the pool in place (the tick body below);
 8. the W4 path, as ``build_w4_path`` defines it: the main path's model and
    requests with int4 weights (group 64) and ``PADDLE_TPU_W4_KERNEL=1`` —
-   exactly 6 W4 launches per layer in every decode tick and in every
+   every tick a replay of the step graph, exactly 6 W4 launches per layer
+   in every decode tick and in every
    admission at a prefill bucket of at most 256 rows (none at 512), each
    on the tensor-core body (``tc_launches``), every decode launch on the
    tick body, two
@@ -836,6 +851,88 @@ def check_paged_path_vs_cpu(torch, gpt, G, kv_pool, serving):
     return worst
 
 
+def check_graphs_vs_eager(torch, gpt, serving, woq, engine):
+    """Small fp32 models served through the step Engine's graphs against
+    eager steps (the private ``_graphs=False``) on the card: greedy
+    streams of the graphed tick, tick_block(8) and async tick equal the
+    eager tick's exactly (six requests of 5-100 tokens, four slots, 12
+    new tokens); the captured step's logits sit within PATH_TOL of the
+    eager step's from one cache state.  Contiguous (MHA with learned
+    positions, GQA with rope), paged through shuffled block tables, int8
+    KV, int4 weights with the W4 kernel.  Returns (worst logit gap, every
+    case bit-equal)."""
+    base = dict(vocab_size=512, hidden_size=256, num_layers=2,
+                num_heads=2, max_seq_len=256, dtype=torch.float32)
+    gqa = dict(num_heads=4, num_kv_heads=2, hidden_size=512,
+               pos_embed="rope", activation="swiglu")
+    paged = dict(layout="paged", block_size=16, num_blocks=48)
+    cases = [("mha-learned", {}, "", {}, None),
+             ("gqa-rope", gqa, "", {}, None),
+             ("mha-learned paged", {}, "", paged, None),
+             ("gqa-rope int8 KV", gqa, "int8", {}, None),
+             ("gqa-rope int8 KV paged", gqa, "int8", paged, None),
+             ("mha-learned int4 W4", dict(hidden_size=128), "", {}, 32)]
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, 512, n).tolist()
+               for n in (5, 40, 100, 17, 60, 33)]
+    worst, bits = 0.0, True
+    for name, kw, kv, lay, gs in cases:
+        os.environ["PADDLE_TPU_KV_DTYPE"] = kv
+        if gs:
+            os.environ["PADDLE_TPU_W4_KERNEL"] = "1"
+        cfg = gpt.GPTConfig(**{**base, **kw})
+        params = gpt.init_params(cfg, seed=7, device="cuda")
+        if gs:
+            params = woq.quantize_gpt_int4(params, group_size=gs)
+
+        def server(graphs, **extra):
+            srv = serving.DecodeServer(params, cfg, max_batch=4, max_len=160,
+                                       device="cuda", _graphs=graphs, **lay,
+                                       **extra)
+            if lay:
+                srv._pool._free = [int(b) for b in np.random.default_rng(
+                    0).permutation(srv._pool.N)]
+            return srv
+
+        eager = server(False)
+        ref = serve(torch, eager, prompts, 12)[0]
+        eager.close()
+        for way, extra, block in (("graph", {}, None), ("block8", {}, 8),
+                                  ("async", dict(async_dispatch=True),
+                                   None)):
+            srv = server(True, **extra)
+            got = serve(torch, srv, prompts, 12, block)[0]
+            if got != ref:
+                raise AssertionError(f"{name}: the {way} streams differ from "
+                                     f"the eager tick's")
+            if not engine.ENGINE.graphs(srv._bind):
+                raise AssertionError(f"{name}: {way} served without graphs")
+            srv.close()
+        logits = []
+        for graphs in (False, True):
+            srv = server(graphs)
+            for p in prompts[:4]:
+                srv.submit(p, max_new_tokens=12)
+            srv._ensure_decode_blocks(1)
+            tok, pos = srv._feed_arrays()
+            (out,) = engine.ENGINE.get("step", srv._spec())(
+                srv._host(tok), srv._host(pos))
+            logits.append(out.clone())
+            srv.close()
+        gap = (logits[1] - logits[0]).abs().max().item()
+        same = torch.equal(logits[0], logits[1])
+        worst, bits = max(worst, gap), bits and same
+        log(f"  {name}: graph, block8 and async streams equal the eager "
+            f"tick's; captured step logits {'bit-equal to' if same else ''}"
+            f"{'' if same else f'{gap:.3g} from'} the eager step's (tol "
+            f"{PATH_TOL})")
+        if not gap <= PATH_TOL:
+            raise AssertionError(f"{name}: captured logits {gap} from eager")
+        os.environ.pop("PADDLE_TPU_W4_KERNEL", None)
+    os.environ.pop("PADDLE_TPU_KV_DTYPE", None)
+    return worst, bits
+
+
 def check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW, fn):
     """Small fp32 models (head_dim 128, 2 layers, B = 4 of 64 tokens):
     five AdamW steps of ``build_gpt_train_step`` on the card (flash fwd
@@ -1252,16 +1349,17 @@ def zero_counts(ks):
                 setattr(fn, attr, 0)
 
 
-def serve(torch, srv, prompts, new):
-    """Submit every prompt, tick until drained; returns (tokens per
-    request, admission seconds, per-tick seconds, wall seconds)."""
+def serve(torch, srv, prompts, new, block=None):
+    """Submit every prompt, then ``tick()`` (or ``tick_block(block)``)
+    until drained; returns (tokens per request, admission seconds,
+    per-call seconds, wall seconds)."""
     t0 = time.perf_counter()
     rids = [srv.submit(p, max_new_tokens=new) for p in prompts]
     t_admit = time.perf_counter() - t0
     ticks = []
     while srv.pending():
         t1 = time.perf_counter()
-        srv.tick()
+        srv.tick_block(block) if block else srv.tick()
         ticks.append(time.perf_counter() - t1)
         if len(ticks) > 10 * new:
             raise AssertionError("server did not drain")
@@ -1297,7 +1395,90 @@ def check_solo(torch, gpt, G, params, cfg, prompt, served, new):
                         solo[0, len(prompt):].tolist(), "vs solo generate")
 
 
-def main_path(torch, gpt, G, serving, ks, wl):
+# the ways each serving path's requests are served besides the gated
+# graphed tick: (name, server options, tick_block size)
+WAYS = (("eager", dict(_graphs=False), None), ("block8", {}, 8),
+        ("async", dict(async_dispatch=True), None))
+
+
+def way_stats(torch, engine, srv, served, t_admit, ticks, wall, peak, warm,
+              block=None):
+    """One way's numbers: tokens/s over the serve's wall, per-call ms
+    (a call: one tick, or one tick_block of ``block`` steps), admission
+    ms (the submits), peak memory, the server's graphs and its warmup."""
+    n_tok = sum(len(s) for s in served)
+    return {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "calls": len(ticks), "steps_per_call": block or 1,
+            "tick_ms_mean": 1e3 * statistics.mean(ticks),
+            "tick_ms_median": 1e3 * statistics.median(ticks),
+            "admission_ms": 1e3 * t_admit, "peak_mem_gb": peak / 1e9,
+            "graphs": len(engine.ENGINE.graphs(srv._bind)),
+            "warmup_s": sum(warm.values())}
+
+
+def step_replays(engine, srv):
+    """Replays of the server's step graph so far (0 before its capture)."""
+    return sum(g.replays for g in engine.ENGINE.graphs(srv._bind)
+               if g.name == "serving.step")
+
+
+def graphed_serve(torch, engine, srv, ticks, replays0):
+    """The gated serve went through captured graphs: the server's step
+    graph replayed once a tick (``replays0``: its replays before the
+    serve, the warmup's).  Returns the server's graph count."""
+    graphs = {g.name for g in engine.ENGINE.graphs(srv._bind)}
+    replays = step_replays(engine, srv) - replays0
+    if replays != len(ticks):
+        raise AssertionError(f"the serve's {len(ticks)} ticks replayed the "
+                             f"step graph {replays} times (graphs: "
+                             f"{sorted(graphs)})")
+    return len(graphs)
+
+
+def serving_ways(torch, gpt, engine, wl, path, cfg, params, prompts, new,
+                 graph_served, graph_stats):
+    """The gated serve's requests served the other ways of ``WAYS`` — eager
+    ticks, graphed tick_block(8), graphed async ticks — one fresh server
+    each on the same weights (warmed up, then closed); every graphed
+    way's streams held to the eager ones by the tie rule.  Returns
+    {way: stats}."""
+    lens = [len(p) for p in prompts]
+    ways, streams = {"graph": graph_stats}, {"graph": graph_served}
+    for name, kw, block in WAYS:
+        gc.collect()
+        torch.cuda.empty_cache()
+        srv = wl.make_server(path, params, cfg, **kw)
+        warm = srv.warmup(prompt_lens=lens, blocks=(block,) if block else ())
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        served, t_admit, ticks, wall = serve(torch, srv, prompts, new, block)
+        ways[name] = way_stats(torch, engine, srv, served, t_admit, ticks,
+                               wall, torch.cuda.max_memory_allocated(), warm,
+                               block)
+        streams[name] = served
+        srv.close()
+    if ways["eager"]["graphs"] or not all(ways[w]["graphs"] for w in
+                                          ("graph", "block8", "async")):
+        raise AssertionError(f"{path}: graphs per way "
+                             f"{ {w: v['graphs'] for w, v in ways.items()} }")
+    for name in ("graph", "block8", "async"):
+        div = {r: check_tokens(torch, gpt, params, cfg, prompts[r],
+                               streams[name][r], streams["eager"][r],
+                               f"{path} {name} request {r} vs eager")
+               for r in range(len(prompts))}
+        ways[name]["eager_equal"] = all(d is None for d in div.values())
+        ways[name]["eager_divergences"] = {r: d for r, d in div.items()
+                                           if d is not None}
+    for name, w in ways.items():
+        log(f"  {path} {name}: tokens/s {w['tokens_per_s']:.1f}, tick ms "
+            f"mean {w['tick_ms_mean']:.2f} median {w['tick_ms_median']:.2f} "
+            f"({w['steps_per_call']}-step calls), admission "
+            f"{w['admission_ms']:.1f} ms, peak {w['peak_mem_gb']:.2f} GB, "
+            f"{w['graphs']} graphs")
+    return ways
+
+
+def main_path(torch, gpt, G, serving, engine, ks, wl):
     cfg, params, srv, prompts = wl.build_main_path("cuda", seed=0)
     n_params = sum(t.numel() for n, t in params.items() if n != "blocks") \
         + sum(t.numel() for t in params["blocks"].values())
@@ -1308,6 +1489,8 @@ def main_path(torch, gpt, G, serving, ks, wl):
     lens, new = wl.LENS, wl.NEW
     buckets = sorted({serving._pow2_bucket(n, 512) for n in lens})
     assert buckets == [64, 128, 256, 512], buckets
+    warm = srv.warmup(prompt_lens=lens)
+    replays0 = step_replays(engine, srv)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1317,6 +1500,7 @@ def main_path(torch, gpt, G, serving, ks, wl):
     tc = tc_counts(ks)
     tick = tick_counts(ks)
     peak = torch.cuda.max_memory_allocated()
+    n_graphs = graphed_serve(torch, engine, srv, ticks, replays0)
     n_tok = sum(len(s) for s in served)
     log(f"  served {len(served)} requests, {n_tok} tokens in {wall:.3f} s "
         f"({len(ticks)} ticks; admission prefill {t_admit * 1e3:.1f} ms)")
@@ -1339,6 +1523,11 @@ def main_path(torch, gpt, G, serving, ks, wl):
                              f"on the tick body")
     assert all(len(s) == new and all(0 <= t < cfg.vocab_size for t in s)
                for s in served)
+    graph_way = way_stats(torch, engine, srv, served, t_admit, ticks, wall,
+                          peak, warm)
+    srv.close()
+    ways = serving_ways(torch, gpt, engine, wl, "main", cfg, params, prompts,
+                        new, served, graph_way)
 
     solo_div = check_solo(torch, gpt, G, params, cfg, prompts[0], served[0],
                           new)
@@ -1355,8 +1544,8 @@ def main_path(torch, gpt, G, serving, ks, wl):
         "tick_ms_median": 1e3 * statistics.median(ticks),
         "admission_ms": 1e3 * t_admit, "peak_mem_gb": peak / 1e9,
         "launches": launches, "tc_launches": tc, "tick_launches": tick,
-        "solo_generate_equal": solo_div is None,
-        "solo_divergence": solo_div,
+        "graphs": n_graphs, "solo_generate_equal": solo_div is None,
+        "solo_divergence": solo_div, "ways": ways,
     }
     log(f"  tokens/s {stats['tokens_per_s']:.1f}, mean tick "
         f"{stats['tick_ms_mean']:.2f} ms, peak memory "
@@ -1364,7 +1553,7 @@ def main_path(torch, gpt, G, serving, ks, wl):
     return stats, launches
 
 
-def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
+def paged_path(torch, gpt, G, serving, kv_pool, engine, ks, wl):
     from paddle_tpu_torch.ops.decode_attention import R_TC
     cfg, params, srv, prompts = wl.build_paged_path("cuda", seed=0)
     new, L = wl.NEW, cfg.num_layers
@@ -1375,6 +1564,8 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
     cont_tokens = serve(torch, cont, prompts, new)[0]
     cont.close()
     del cont
+    warm = srv.warmup(prompt_lens=lens)
+    replays0 = step_replays(engine, srv)
 
     chunk_calls = []        # (pos0, length, width C, tc launches added)
     plain_chunk = kv_pool.paged_prefill_chunk
@@ -1399,6 +1590,7 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
     finally:
         kv_pool.paged_prefill_chunk = plain_chunk
     peak = torch.cuda.max_memory_allocated()
+    n_graphs = graphed_serve(torch, engine, srv, ticks, replays0)
     load = srv.load_stats()
     pool = load["kv_pool"]
     n_tok = sum(len(s) for s in served)
@@ -1445,9 +1637,13 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
     assert pool["prefix_hits"] >= 7 * 192, pool
     assert pool["cow_copies"] >= 1 and pool["radix_splits"] >= 1, pool
     assert load["prefill_rows"] < sum(lens), load
+    graph_way = way_stats(torch, engine, srv, served, t_admit, ticks, wall,
+                          peak, warm)
+    srv.close()
+    ways = serving_ways(torch, gpt, engine, wl, "paged", cfg, params,
+                        prompts, new, served, graph_way)
     solo_div = check_solo(torch, gpt, G, params, cfg, prompts[0], served[0],
                           new)
-    srv.close()
     stats = {
         "model": "gpt_1p3b", "layout": "paged", "block_size": 16,
         "num_blocks": 128, "requests": len(served), "prompt_lens": lens,
@@ -1465,6 +1661,7 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
         "contiguous_divergences": {r: d for r, d in cont_div.items()
                                    if d is not None},
         "solo_generate_equal": solo_div is None, "solo_divergence": solo_div,
+        "graphs": n_graphs, "ways": ways,
     }
     log(f"  tokens/s {stats['tokens_per_s']:.1f}, mean tick "
         f"{stats['tick_ms_mean']:.2f} ms, peak memory "
@@ -1472,7 +1669,7 @@ def paged_path(torch, gpt, G, serving, kv_pool, ks, wl):
     return stats, launches
 
 
-def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
+def w4_path(torch, gpt, G, serving, woq, wm, engine, ks, wl):
     """The W4 path (``build_w4_path``): the main path's 8 requests on the
     int4 GPT-1.3B with the W4 kernel, each admission and each tick's W4
     launches counted.  Returns (stats, launches)."""
@@ -1493,6 +1690,8 @@ def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
                for n in wl.LENS]
     want_admit = [per_pass if b <= wm._N_CAP else 0 for b in buckets]
     w4 = ks["w4_matmul"]
+    warm = srv.warmup(prompt_lens=wl.LENS)
+    replays0 = step_replays(engine, srv)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1519,6 +1718,7 @@ def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
     wall = time.perf_counter() - t0
     launches = launch_counts(ks)
     peak = torch.cuda.max_memory_allocated()
+    n_graphs = graphed_serve(torch, engine, srv, ticks, replays0)
     served = [srv.result(r) for r in rids]
     n_tok = sum(len(x) for x in served)
     log(f"  served {len(served)} requests, {n_tok} tokens in {wall:.3f} s "
@@ -1556,12 +1756,16 @@ def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
                              f"launches on the tick body")
     assert all(len(x) == new and all(0 <= t < cfg.vocab_size for t in x)
                for x in served)
+    graph_way = way_stats(torch, engine, srv, served, t_admit, ticks, wall,
+                          peak, warm)
+    srv.close()
+    ways = serving_ways(torch, gpt, engine, wl, "w4", cfg, params, prompts,
+                        new, served, graph_way)
     # the reference: the same int4 weights through the dequantizing route
     os.environ["PADDLE_TPU_W4_KERNEL"] = "0"
     solo_div = {r: check_solo(torch, gpt, G, params, cfg, prompts[r],
                               served[r], new) for r in (0, 3)}
     os.environ.pop("PADDLE_TPU_W4_KERNEL", None)
-    srv.close()
     stats = {
         "model": "gpt_1p3b int4 (quantize_gpt_int4, group 64)",
         "weight_bytes": w4_bytes, "bf16_weight_bytes": bf16_bytes,
@@ -1573,6 +1777,7 @@ def w4_path(torch, gpt, G, serving, woq, wm, ks, wl):
         "w4_per_tick": per_pass, "w4_per_admission": admit,
         "w4_tc_per_admission": admit_tc,
         "launches": launches, "tc_launches": tc, "tick_launches": tick,
+        "graphs": n_graphs, "ways": ways,
         "dequant_route_equal": {r: d is None for r, d in solo_div.items()},
         "dequant_route_divergence": {r: d for r, d in solo_div.items()
                                      if d is not None},
@@ -1693,6 +1898,7 @@ def main() -> int:
     from paddle_tpu_torch.ops import woq_matmul as wm
     from paddle_tpu_torch.optimizer import AdamW
     from paddle_tpu_torch.text import generate as G
+    from paddle_tpu_torch.text import engine
     from paddle_tpu_torch.text import gpt, gpt_hybrid, kv_pool, serving, woq
     from paddle_tpu_torch.tools import profile_serving as wl
     from paddle_tpu_torch.tools import profile_train as tr
@@ -1726,6 +1932,8 @@ def main() -> int:
     check_paged_path_vs_cpu(torch, gpt, G, kv_pool, serving)
     log("[weight-only int8 / int4 models on the card vs the CPU]")
     check_quantized_vs_cpu(torch, gpt, G, serving, woq, wm)
+    log("[served through graphs vs eager steps: small fp32 models]")
+    check_graphs_vs_eager(torch, gpt, serving, woq, engine)
     log("[train steps on the card vs the CPU]")
     check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW, fn)
 
@@ -1789,18 +1997,20 @@ def main() -> int:
     by_path = {}
 
     log("[main path: DecodeServer, gpt_1p3b, contiguous KV]")
-    stats, by_path["main"] = main_path(torch, gpt, G, serving, ks, wl)
+    stats, by_path["main"] = main_path(torch, gpt, G, serving, engine, ks,
+                                       wl)
     log(json.dumps({"main_path": stats}))
 
     log("[paged path: DecodeServer(layout='paged'), gpt_1p3b]")
     pstats, by_path["paged"] = paged_path(torch, gpt, G, serving, kv_pool,
-                                          ks, wl)
+                                          engine, ks, wl)
     log(json.dumps({"paged_path": pstats}))
 
     gc.collect()                    # the bf16 serving models leave the card
     torch.cuda.empty_cache()
     log("[W4 path: DecodeServer, gpt_1p3b int4 weights, W4 kernel]")
-    wstats, by_path["w4"] = w4_path(torch, gpt, G, serving, woq, wm, ks, wl)
+    wstats, by_path["w4"] = w4_path(torch, gpt, G, serving, woq, wm, engine,
+                                    ks, wl)
     log(json.dumps({"w4_path": wstats}))
     log(f"  beside the main path (bf16 weights, this run): tokens/s "
         f"{wstats['tokens_per_s']:.1f} vs {stats['tokens_per_s']:.1f}, mean "

@@ -94,3 +94,16 @@ def w4_kernel() -> bool:
     reads it inline (``paddle_tpu/text/woq.py``).  Off: the weight is
     dequantized in the compute dtype and multiplied as a float matrix."""
     return os.environ.get("PADDLE_TPU_W4_KERNEL", "") == "1"
+
+
+def decode_jit_key() -> tuple:
+    """The decode-routing flags a captured step bakes in — the port's copy
+    of ``paddle_tpu/flags.py``'s ``decode_jit_key``, cut to the flags the
+    port reads: the W4 kernel gate (``woq.mm``), the fused LayerNorm
+    (``gpt._norm``), the KV-cache storage dtype, layout and block size.
+    ``text/engine.cfg_key`` folds it into every step key, so flipping one
+    of them mid-process keys a new CUDA graph instead of replaying one
+    captured on the other route."""
+    return (os.environ.get("PADDLE_TPU_W4_KERNEL", ""),
+            os.environ.get("PADDLE_TPU_FUSED_LN", ""),
+            kv_cache_dtype(), kv_layout(), kv_block_size())

@@ -1,0 +1,659 @@
+"""The step Engine: one registry that builds, caches and replays every
+decode step the server runs.
+
+Counterpart of ``paddle_tpu/text/engine.py``.  The JAX Engine compiles
+each step once per config value and re-launches the executable; here a
+step on the card is captured once as a CUDA graph and replayed, so a
+tick costs the host one graph launch instead of the ~700 Python kernel
+wrappers of an eager step.
+
+* :class:`StepSpec` — the declarative description of one step: the
+  model config (whose :func:`cfg_key` folds in ``flags.decode_jit_key()``
+  — the W4 and fused-LN routes, KV dtype, layout and block size, all
+  baked into a captured graph), the layout tag, prompt bucket or chunk
+  width, block length, and an un-keyed ``payload``: the server's
+  :class:`Binding`.
+* the registry — ``@register(kind, key=..., name=...)`` builders, each
+  keyed only by the spec fields it reads.  ``step``, ``sample``,
+  ``block``, ``sample_block``, ``async``, ``async_block`` and
+  ``async_sample_block`` are captured on the card; ``prefill``,
+  ``prefill_chunk`` and ``paged_prefill`` are registered eager (their
+  graphs are later work).  On the CPU every kind runs its plain callable.
+* :class:`Engine` — the bounded, thread-safe cache (``_LRU``, sized by
+  ``PADDLE_TPU_STEP_CACHE_SIZE`` as in the JAX package), ``get``,
+  ``purge`` and ``warmup``.
+
+The one design difference from the JAX Engine: **a graph is bound to
+buffers.**  It reads the server's params and cache leaves (the paged
+``tables`` leaf included) by address and owns static input and output
+buffers, so the Engine keys each step by ``spec.key(kind)`` plus the
+binding — the leaves' ``data_ptr``s.  Two servers with one config never
+share a graph; ``Engine.purge(cfg, binding=...)`` (which
+``DecodeServer.close`` calls) drops a server's graphs and their private
+memory pools.  A graph keeps references to what it reads, so it never
+replays into freed memory.
+
+Capture follows PyTorch's recipe: one eager run on the capture stream
+first — it builds the kernels (``ops/_build.load``), sets their
+``argtypes`` and creates the stream's tick ticket buffer
+(``ops/decode_attention._ticket_buf``), which would otherwise be born
+inside the capture — then ``torch.cuda.graph`` records the same call.
+Every step is idempotent on the cache (it rewrites the rows it attends
+from the same inputs), so the eager run and the replay that follows
+leave the cache as one step would.  A capture that fails raises; there
+is no eager fallback on the card.
+
+The kernel wrappers count launches in Python (``.launches``,
+``.tc_launches``, ``.tick_launches``), which a replay does not run: each
+graph records the counts its capture added, puts back what its eager and
+captured runs added, and adds the recorded counts at every replay — so N
+replays count exactly N eager steps' launches.
+"""
+from __future__ import annotations
+
+import collections
+import dataclasses
+import os as _os
+import threading
+import time as _time
+from typing import Any, Callable
+
+import torch
+
+from .. import flags as _flags
+
+__all__ = ["StepSpec", "Binding", "Engine", "ENGINE", "register", "kinds",
+           "cfg_key"]
+
+
+class _LRU:
+    """Bounded step cache with least-recently-used eviction; evicting an
+    entry drops the last reference to its graph (and with it the graph's
+    private memory pool).  Thread-safe: an unlocked OrderedDict corrupts
+    under concurrent ``move_to_end``/``popitem``."""
+
+    _MISS = object()
+
+    def __init__(self, maxsize: int):
+        self._d = collections.OrderedDict()
+        self._mu = threading.Lock()
+        self.maxsize = maxsize
+
+    def get(self, k, default=None):
+        with self._mu:
+            if k in self._d:
+                self._d.move_to_end(k)
+                return self._d[k]
+            return default
+
+    def __getitem__(self, k):
+        v = self.get(k, _LRU._MISS)
+        if v is _LRU._MISS:
+            raise KeyError(k)
+        return v
+
+    def __setitem__(self, k, v):
+        evicted = []
+        with self._mu:
+            self._d[k] = v
+            self._d.move_to_end(k)
+            while len(self._d) > self.maxsize:
+                evicted.append(self._d.popitem(last=False)[1])
+        for fn in evicted:
+            _release(fn)
+
+    def __len__(self):
+        with self._mu:
+            return len(self._d)
+
+    def keys(self):
+        with self._mu:
+            return list(self._d.keys())
+
+    def values(self):
+        with self._mu:
+            return list(self._d.values())
+
+    def pop(self, k, default=None):
+        with self._mu:
+            return self._d.pop(k, default)
+
+    def clear(self):
+        with self._mu:
+            dropped = list(self._d.values())
+            self._d.clear()
+        for fn in dropped:
+            _release(fn)
+
+
+def cfg_key(cfg):
+    """Value-based key of a GPTConfig (an unhashable dataclass) plus
+    ``flags.decode_jit_key()``: the routes a captured step bakes in."""
+    return (cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads,
+            cfg.num_kv_heads, cfg.max_seq_len, cfg.ffn_ratio, str(cfg.dtype),
+            cfg.pos_embed, cfg.norm, cfg.activation,
+            _flags.decode_jit_key())
+
+
+def _param_leaves(params) -> list:
+    if isinstance(params, torch.nn.Module):
+        return list(params.parameters())
+    return [t for n, t in params.items() if n != "blocks"] \
+        + list(params["blocks"].values())
+
+
+class Binding:
+    """The buffers a server's steps read and write: its ``params`` and
+    ``cache`` (leaves written in place by every step).  ``key`` — the
+    device, the graph switch and every leaf's address — is the part of
+    the Engine's cache key that keeps one server's graphs from another's.
+
+    ``graphs=False`` runs the steps eagerly on the card: a private switch
+    for the card tests, ``chip_smoke.py`` and ``tools/profile_serving``,
+    which hold graphs against the eager steps (the JAX server has no
+    eager mode either)."""
+
+    def __init__(self, params, cache: dict, graphs: bool = True):
+        self.params = params
+        self.cache = cache
+        self.device = cache["k"].device
+        self.graphs = bool(graphs) and self.device.type == "cuda"
+        self.key = (str(self.device), self.graphs,
+                    tuple(t.data_ptr() for t in cache.values()),
+                    tuple(t.data_ptr() for t in _param_leaves(params)))
+
+
+@dataclasses.dataclass(frozen=True)
+class StepSpec:
+    """Declarative description of one step.  Fields a kind does not read
+    stay at their defaults:
+
+    * ``cfg`` — the model's GPTConfig (keyed by value via :func:`cfg_key`);
+    * ``paged`` — the layout tag (block tables vs the contiguous slab);
+    * ``bucket`` — prompt bucket (``prefill``) or chunk width
+      (``paged_prefill``);
+    * ``width`` — the chunk width of ``prefill_chunk``;
+    * ``k`` — the block length of the block kinds;
+    * ``extra`` — kind-specific scalars folded into the key as they are;
+    * ``payload`` — the server's :class:`Binding`, never keyed by value
+      (the Engine adds its ``key``)."""
+
+    cfg: Any
+    paged: bool = False
+    bucket: int | None = None
+    width: int | None = None
+    k: int | None = None
+    extra: tuple = ()
+    payload: Any = dataclasses.field(default=None, compare=False)
+
+    def key(self, kind: str) -> tuple:
+        """The step key of ``kind`` at this spec: ``cfg_key`` plus exactly
+        the fields the kind's step depends on."""
+        return _REGISTRY[kind].key(self)
+
+
+class _Kind:
+    __slots__ = ("kind", "key", "name", "build", "graphed")
+
+    def __init__(self, kind, key, name, build, graphed):
+        self.kind, self.key, self.name = kind, key, name
+        self.build, self.graphed = build, graphed
+
+
+_REGISTRY: dict[str, _Kind] = {}
+
+
+def register(kind: str, *, key: Callable, name, graphed: bool = True):
+    """Register a step builder: ``key(spec)`` -> step key (reading only
+    the fields the step depends on), ``name(spec)`` -> its name (a str
+    for a fixed one), ``graphed`` -> captured on the card or run eagerly.
+    The builder takes the :class:`StepSpec` and returns the step body
+    ``body(params, cache, *feeds) -> tuple of tensors``."""
+    name_fn = (lambda spec, _n=name: _n) if isinstance(name, str) else name
+
+    def deco(build: Callable) -> Callable:
+        _REGISTRY[kind] = _Kind(kind, key, name_fn, build, graphed)
+        return build
+
+    return deco
+
+
+def kinds() -> tuple:
+    """Every registered step kind, sorted."""
+    return tuple(sorted(_REGISTRY))
+
+
+# --------------------------------------------------------------------------
+# registry: the serving steps.  Builders import their siblings at build
+# time (serving imports this module).
+# --------------------------------------------------------------------------
+
+
+@register("step", key=lambda s: ("step", cfg_key(s.cfg), s.paged),
+          name="serving.step")
+def _build_step(spec):
+    """One batched decode step: (tok [B], pos [B]) -> (logits [B, V],)."""
+    from . import serving
+
+    def body(p, c, tok, pos, _cfg=spec.cfg):
+        return (serving.decode_step_batched(p, c, tok, pos, _cfg)[0],)
+    return body
+
+
+@register("sample", key=lambda s: ("sample", cfg_key(s.cfg), s.paged),
+          name="serving.sample_step")
+def _build_sample(spec):
+    """One sampled step: (tok, pos, key, temp, top_k, top_p) -> (tokens,)
+    — greedy where temp == 0."""
+    from . import serving
+
+    def body(p, c, tok, pos, key, te, tk, tp, _cfg=spec.cfg):
+        return (serving.sample_step_batched(p, c, tok, pos, key, te, tk, tp,
+                                            _cfg)[0],)
+    return body
+
+
+@register("block", key=lambda s: ("block", cfg_key(s.cfg), s.k, s.paged),
+          name=lambda s: f"serving.block@{s.k}")
+def _build_block(spec):
+    """``k`` greedy steps, each argmax fed back on the device:
+    (tok, pos) -> (tokens [B, k],)."""
+    from . import serving
+
+    def body(p, c, tok, pos, _cfg=spec.cfg, _k=spec.k):
+        return (serving.decode_block_batched(p, c, tok, pos, _k, _cfg)[0],)
+    return body
+
+
+@register("sample_block",
+          key=lambda s: ("sample_block", cfg_key(s.cfg), s.k, s.paged),
+          name=lambda s: f"serving.sample_block@{s.k}")
+def _build_sample_block(spec):
+    """``k`` sampled steps; step j draws with the key of step n + j."""
+    from . import serving
+
+    def body(p, c, tok, pos, key, te, tk, tp, _cfg=spec.cfg, _k=spec.k):
+        return (serving.sample_block_batched(p, c, tok, pos, key, te, tk, tp,
+                                             _k, _cfg)[0],)
+    return body
+
+
+@register("async", key=lambda s: ("async", cfg_key(s.cfg), s.paged),
+          name="serving.async_step")
+def _build_async(spec):
+    """The async-dispatch step: the ``sample`` step whose feed token is
+    selected on the device — ``pm`` [B] bool takes ``pv`` (the in-flight
+    step's tokens, never fetched) over ``ht`` (host tokens).  Greedy slots
+    pass temp 0, so one step serves greedy and sampled ticks."""
+    from . import serving
+
+    def body(p, c, ht, pm, pv, pos, key, te, tk, tp, _cfg=spec.cfg):
+        return (serving.sample_step_batched(p, c, torch.where(pm, pv, ht),
+                                            pos, key, te, tk, tp, _cfg)[0],)
+    return body
+
+
+@register("async_block",
+          key=lambda s: ("async_block", cfg_key(s.cfg), s.k, s.paged),
+          name=lambda s: f"serving.async_block@{s.k}")
+def _build_async_block(spec):
+    """Async greedy block: ``block`` with the device-side feed select."""
+    from . import serving
+
+    def body(p, c, ht, pm, pv, pos, _cfg=spec.cfg, _k=spec.k):
+        return (serving.decode_block_batched(p, c, torch.where(pm, pv, ht),
+                                             pos, _k, _cfg)[0],)
+    return body
+
+
+@register("async_sample_block",
+          key=lambda s: ("async_sample_block", cfg_key(s.cfg), s.k,
+                         s.paged),
+          name=lambda s: f"serving.async_sample_block@{s.k}")
+def _build_async_sample_block(spec):
+    """Async sampled block: ``sample_block`` with the feed select."""
+    from . import serving
+
+    def body(p, c, ht, pm, pv, pos, key, te, tk, tp, _cfg=spec.cfg,
+             _k=spec.k):
+        return (serving.sample_block_batched(
+            p, c, torch.where(pm, pv, ht), pos, key, te, tk, tp, _k,
+            _cfg)[0],)
+    return body
+
+
+@register("prefill", graphed=False,
+          key=lambda s: ("prefill", cfg_key(s.cfg), int(s.bucket)),
+          name=lambda s: f"serving.prefill@{s.bucket}")
+def _build_prefill(spec):
+    """Whole-prompt admission at one bucket (eager): (tokens [1, bucket],
+    length, slot) -> (logits [V],)."""
+    from . import generate
+
+    def body(p, c, tokens, length, slot, _cfg=spec.cfg):
+        return (generate.prefill_slot(p, c, tokens, length, slot, _cfg)[0],)
+    return body
+
+
+@register("prefill_chunk", graphed=False,
+          key=lambda s: ("prefill_chunk", cfg_key(s.cfg), int(s.width)),
+          name=lambda s: f"serving.prefill_chunk@{s.width}")
+def _build_prefill_chunk(spec):
+    """One fixed-width admission chunk on the slab (eager): (tokens
+    [1, C], pos0, length, slot) -> (logits [V],)."""
+    from . import generate
+
+    def body(p, c, tokens, pos0, length, slot, _cfg=spec.cfg):
+        return (generate.prefill_slot_chunk(p, c, tokens, pos0, length, slot,
+                                            _cfg)[0],)
+    return body
+
+
+@register("paged_prefill", graphed=False,
+          key=lambda s: ("paged_prefill", cfg_key(s.cfg), int(s.bucket)),
+          name=lambda s: f"serving.paged_prefill@{s.bucket}")
+def _build_paged_prefill(spec):
+    """One admission chunk through the block tables (eager), any offset:
+    (tokens [1, C], pos0, length, slot) -> (logits [V],).  The chunk
+    function is looked up at each call."""
+    from . import kv_pool
+
+    def body(p, c, tokens, pos0, length, slot, _cfg=spec.cfg):
+        return (kv_pool.paged_prefill_chunk(p, c, tokens, pos0, length, slot,
+                                            _cfg)[0],)
+    return body
+
+
+# --------------------------------------------------------------------------
+# launch counters: a replay runs no Python wrapper
+# --------------------------------------------------------------------------
+
+
+_COUNTERS: list = []
+
+
+def _counter_fields() -> list:
+    """(wrapper, attribute) of every launch counter of the port's
+    kernels."""
+    if _COUNTERS:
+        return _COUNTERS
+    from ..ops import decode_attention as da
+    from ..ops import flash_attention as fa
+    from ..ops import fused_ce as fc
+    from ..ops import fused_norm as fn
+    from ..ops import woq_matmul as wm
+
+    wrappers = (fa.flash_attention_fwd, fa.flash_attention_bwd_dq,
+                fa.flash_attention_bwd_dkv, fc.ce_fwd, fc.ce_bwd,
+                fn.ln_fwd, fn.ln_bwd, wm.w4_matmul, da.decode_attention,
+                da.paged_decode_attention)
+    _COUNTERS.extend((w, a) for w in wrappers
+                     for a in ("launches", "tc_launches", "tick_launches")
+                     if hasattr(w, a))
+    return _COUNTERS
+
+
+def _counts() -> list:
+    return [getattr(w, a) for w, a in _counter_fields()]
+
+
+def _set_counts(values) -> None:
+    for (w, a), v in zip(_counter_fields(), values):
+        setattr(w, a, v)
+
+
+def _add_counts(delta) -> None:
+    for (w, a), d in zip(_counter_fields(), delta):
+        if d:
+            setattr(w, a, getattr(w, a) + d)
+
+
+# --------------------------------------------------------------------------
+# the two step wrappers
+# --------------------------------------------------------------------------
+
+
+_WARM_RUNS = 1          # eager runs on the capture stream before capture
+_capture_streams: dict = {}
+
+
+def _capture_stream(device) -> torch.cuda.Stream:
+    """One side stream per card for every eager warm run and capture, so
+    their per-stream state (the tick ticket buffer, cuBLAS's workspace)
+    is made once, outside any capture."""
+    s = _capture_streams.get(device)
+    if s is None:
+        s = _capture_streams[device] = torch.cuda.Stream(device)
+    return s
+
+
+class _Eager:
+    """A step run eagerly: on the CPU (the plain twins) or on the card
+    with graphs off.  Host tensors among the feeds move to the binding's
+    device (without blocking when they are pinned)."""
+
+    def __init__(self, body, binding: Binding, name: str):
+        self.body, self.binding, self.name = body, binding, name
+
+    def __call__(self, *feeds):
+        dev = self.binding.device
+        feeds = [f.to(dev, non_blocking=True)
+                 if isinstance(f, torch.Tensor) and f.device != dev else f
+                 for f in feeds]
+        return self.body(self.binding.params, self.binding.cache, *feeds)
+
+
+class _Graph:
+    """A step captured as a CUDA graph on its first call and replayed
+    after.  ``static`` holds the input buffers the graph reads (each call
+    copies its feeds in, without blocking), ``out`` the output tensors a
+    replay overwrites — a caller must copy them out before the next
+    replay.  ``delta``: the launch counts one replay stands for."""
+
+    def __init__(self, body, binding: Binding, name: str):
+        self.body, self.binding, self.name = body, binding, name
+        self.graph = None
+        self.static = self.out = self.delta = None
+        self.replays = 0
+        self._keep = ()
+
+    def _capture(self, feeds) -> None:
+        from ..ops import decode_attention as da
+
+        dev = self.binding.device
+        p, c = self.binding.params, self.binding.cache
+        self.static = tuple(torch.empty(f.shape, dtype=f.dtype, device=dev)
+                            for f in feeds)
+        for buf, f in zip(self.static, feeds):
+            buf.copy_(f, non_blocking=True)
+        before = _counts()
+        side = _capture_stream(dev)
+        cur = torch.cuda.current_stream(dev)
+        side.wait_stream(cur)
+        with torch.cuda.stream(side):
+            for _ in range(_WARM_RUNS):
+                self.body(p, c, *self.static)
+        warm = _counts()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph, stream=side):
+            out = self.body(p, c, *self.static)
+        cur.wait_stream(side)
+        self.delta = [a - b for a, b in zip(_counts(), warm)]
+        _set_counts(before)
+        self.graph, self.out = graph, out
+        # buffers the graph reads by address that no binding names: the
+        # tick route's ticket buffers (replaced, never freed, while held)
+        self._keep = tuple(da._tickets.values())
+
+    def __call__(self, *feeds):
+        if self.graph is None:
+            self._capture(feeds)
+        else:
+            if len(feeds) != len(self.static):
+                raise ValueError(f"{self.name}: {len(feeds)} feeds, the "
+                                 f"graph takes {len(self.static)}")
+            for buf, f in zip(self.static, feeds):
+                if f.shape != buf.shape or f.dtype != buf.dtype:
+                    raise ValueError(
+                        f"{self.name}: feed {tuple(f.shape)} {f.dtype} "
+                        f"does not fit the captured {tuple(buf.shape)} "
+                        f"{buf.dtype}")
+                buf.copy_(f, non_blocking=True)
+        self.graph.replay()
+        self.replays += 1
+        _add_counts(self.delta)
+        return self.out
+
+    def release(self) -> None:
+        """Drop the graph, its buffers and its private pool."""
+        if self.graph is not None:
+            self.graph.reset()
+        self.graph = self.static = self.out = None
+        self._keep = ()
+
+
+def _release(fn) -> None:
+    if isinstance(fn, _Graph):
+        fn.release()
+
+
+class Engine:
+    """THE step authority: build via the registry, cache by
+    ``spec.key(kind)`` plus the binding, capture on the card, warm up and
+    purge.  ``_steps`` is the bounded cache (``PADDLE_TPU_STEP_CACHE_SIZE``
+    entries, default 64, read at construction)."""
+
+    def __init__(self):
+        self._steps = _LRU(
+            int(_os.environ.get("PADDLE_TPU_STEP_CACHE_SIZE", "64")))
+
+    def get(self, kind: str, spec: StepSpec):
+        """The step ``kind`` at ``spec``, bound to ``spec.payload`` (a
+        :class:`Binding`): a cache hit, or a new :class:`_Graph` (a graphed
+        kind on a card with graphs on; captured at its first call) or
+        eager callable.  Either is called with the kind's feeds and
+        returns the step's output tensors."""
+        entry = _REGISTRY[kind]
+        bind = spec.payload
+        if not isinstance(bind, Binding):
+            raise TypeError(f"{kind}: StepSpec.payload must be the server's "
+                            f"Binding, got {type(bind).__name__}")
+        key = entry.key(spec) + (bind.key,)
+        fn = self._steps.get(key)
+        if fn is None:
+            wrap = _Graph if entry.graphed and bind.graphs else _Eager
+            fn = wrap(entry.build(spec), bind, entry.name(spec))
+            self._steps[key] = fn
+        return fn
+
+    def graphs(self, binding: Binding | None = None) -> list:
+        """The captured graphs in the cache (of one binding, if given)."""
+        return [fn for fn in self._steps.values()
+                if isinstance(fn, _Graph) and fn.graph is not None
+                and (binding is None or fn.binding is binding)]
+
+    def purge(self, *cfgs, binding: Binding | None = None) -> int:
+        """Drop every cached step keyed to any of ``cfgs`` (whatever its
+        binding) or, given a ``binding``, every step bound to it (of those
+        configs only, when some are named) — releasing each graph and its
+        private pool.  Returns the number dropped."""
+        cks = [cfg_key(c) for c in cfgs if c is not None]
+        if not cks and binding is None:
+            return 0
+        dropped = 0
+        for k in self._steps.keys():
+            if (not cks or k[1] in cks) and (binding is None
+                                             or k[-1] == binding.key):
+                fn = self._steps.pop(k, None)
+                if fn is not None:
+                    _release(fn)
+                    dropped += 1
+        return dropped
+
+    def warmup(self, srv, prompt_lens=None, blocks=(), sample=False) -> dict:
+        """Build (and on the card capture) every step ``srv`` (a
+        DecodeServer) will serve, so its first request pays device time
+        only: the tick step of its dispatch mode (``step``, or on an async
+        server ``async_block`` at k = 1, its greedy step), the sampled
+        twins when ``sample`` (``sample``, ``async``), the block
+        kinds for each size in ``blocks``, and admission's eager kernels
+        at the buckets or chunk widths of ``prompt_lens`` (default every
+        bucket up to the serving window).
+
+        Warm steps run on the live cache with zero feeds, writing rows at
+        position 0 of every slot (through an idle paged server's empty
+        tables, into the sink block) — rows admission overwrites before
+        any mask exposes them, which holds only for requests admitted
+        later: a busy server raises.  The step counter, the counters of
+        the kernel wrappers and the server's host state are left as they
+        were, so a warmed server serves the tokens a cold one does.
+
+        Returns {name: seconds} of each build (capture or first run)."""
+        if srv._inflight is not None and not srv._slots and not srv._queue:
+            srv._inflight = None       # a drained server's overrun step
+        if srv._slots or srv._queue or srv._inflight is not None:
+            raise RuntimeError(
+                "DecodeServer.warmup() requires an idle server: warm steps "
+                "write rows at position 0 of every slot, which only "
+                "requests admitted later are sure to overwrite")
+        if srv.cache is None:
+            raise RuntimeError("the server is closed")
+        dev = srv.device
+        cuda = dev.type == "cuda"
+        B = srv.max_batch
+        zi = torch.zeros(B, dtype=torch.int64)
+        zp = torch.zeros(B, dtype=torch.int32)
+        zf = torch.zeros(B, dtype=torch.float32)
+        of = torch.ones(B, dtype=torch.float32)
+        zb = torch.zeros(B, dtype=torch.bool)
+        key = torch.tensor(srv._key(0))
+        pv = zi.to(dev)
+        timings = {}
+        counts = _counts()
+
+        def warm(name, kind, *feeds, **kw):
+            t0 = _time.perf_counter()
+            self.get(kind, srv._spec(**kw))(*feeds)
+            if cuda:
+                torch.cuda.synchronize(dev)
+            timings[name] = _time.perf_counter() - t0
+
+        try:
+            if srv._async:
+                warm("async_step", "async_block", zi, zb, pv, zp, k=1)
+                if sample:
+                    warm("async_sample_step", "async", zi, zb, pv, zp, key,
+                         zf, zi, of)
+            else:
+                warm("step", "step", zi, zp)
+                if sample:
+                    warm("sample_step", "sample", zi, zp, key, zf, zi, of)
+            for k in blocks:
+                k = int(k)
+                if srv._async:
+                    warm(f"async_block{k}", "async_block", zi, zb, pv, zp,
+                         k=k)
+                    if sample:
+                        warm(f"async_sample_block{k}", "async_sample_block",
+                             zi, zb, pv, zp, key, zf, zi, of, k=k)
+                else:
+                    warm(f"block{k}", "block", zi, zp, k=k)
+                    if sample:
+                        warm(f"sample_block{k}", "sample_block", zi, zp, key,
+                             zf, zi, of, k=k)
+            for kind, width in srv._admission_widths(prompt_lens):
+                pad = srv._padded([0], width)
+                if kind == "prefill":
+                    warm(f"prefill{width}", kind, pad, 1, 0, bucket=width)
+                elif kind == "prefill_chunk":
+                    warm(f"prefill_chunk{width}", kind, pad, 0, 1, 0,
+                         width=width)
+                else:
+                    warm(f"paged_prefill{width}", kind, pad, 0, 1, 0,
+                         bucket=width)
+        finally:
+            _set_counts(counts)
+        return timings
+
+
+ENGINE = Engine()

@@ -9,8 +9,29 @@ mask ``t <= pos`` hides stale rows until they are overwritten).
     srv = DecodeServer(params, cfg, max_batch=8, max_len=256, eos_id=2)
     rid = srv.submit([5, 3, 9], max_new_tokens=32)
     while srv.pending():
-        srv.tick()
+        srv.tick()              # or srv.tick_block(8)
     tokens = srv.result(rid)
+
+Every step runs through the step Engine (``text/engine.py``): on the card
+each decode step is captured once as a CUDA graph bound to this server's
+buffers and replayed at every tick; on the CPU it runs its plain
+callable.  Dispatch modes, as in the JAX server:
+
+* ``tick()`` — one step, one device->host fetch of the tokens;
+* ``tick_block(k)`` — k steps on the device, each argmax (or draw) fed
+  back on the device, one fetch of a [B, k] block; slots still feeding
+  their prompt fall back to single ticks, and tokens past a request's
+  end are discarded;
+* ``async_dispatch=True`` — one step (or block) in flight: each tick
+  dispatches step N+1, feeding step N's tokens from the device, before it
+  fetches step N's.  Host feeds go through pinned memory without
+  blocking; each dispatch's tokens are copied out to pinned memory
+  before the next replay overwrites the graph's output.
+
+Sampling draws from a counter-based stream keyed (seed, step number)
+— the JAX server's ``fold_in(base_key, n)`` schedule — so a slot's draws
+are the same under tick, tick_block, async dispatch, eager steps or
+graphs, and ``warmup`` (which advances no counter) changes nothing.
 
 Two cache layouts (``layout=``, default ``PADDLE_TPU_KV_LAYOUT``):
 
@@ -22,35 +43,42 @@ Two cache layouts (``layout=``, default ``PADDLE_TPU_KV_LAYOUT``):
   kernel.
 * ``"paged"`` — a pool of ``block_size``-row blocks shared by all slots
   through block tables (``text/kv_pool.py``): blocks are allocated as a
-  slot's position crosses block boundaries, prompts adopt the longest
-  indexed prefix of earlier prompts (refcounted, copied on write), and
-  admission is always chunked (``kv_pool.paged_prefill_chunk``, the
-  contiguous decode kernel on the card) starting past the adopted rows;
-  ticks run the block-table decode kernel.  When the pool runs dry,
-  admission evicts cold prefix entries and otherwise parks the request
-  at the queue front until blocks free.
+  slot's position crosses block boundaries (ahead of a block dispatch,
+  every row it may write), prompts adopt the longest indexed prefix of
+  earlier prompts (refcounted, copied on write), and admission is always
+  chunked (``kv_pool.paged_prefill_chunk``) starting past the adopted
+  rows; ticks run the block-table decode kernel.  When the pool runs
+  dry, admission evicts cold prefix entries and otherwise parks the
+  request at the queue front until blocks free.
 
-Everything else the JAX server does — budgeted prefill, async dispatch
-and ``tick_block``, speculation, adapters and constraints, tensor
-parallelism, MoE, TTLs, admission control, telemetry, the full OOM
-ladder, the spill tier, the fleet — is later slices' work.
+Admission runs eagerly (its graphs are later work).  Everything else the
+JAX server does — budgeted prefill, speculation, adapters and
+constraints, tensor parallelism, MoE, TTLs, admission control,
+telemetry, the full OOM ladder, the spill tier, the fleet — is later
+slices' work.
 """
 from __future__ import annotations
+
+import zlib
 
 import numpy as np
 import torch
 
-from . import generate, gpt, kv_pool
+from . import engine, generate, gpt, kv_pool
 from .. import flags as _flags
 from .. import resolve_device
 
-__all__ = ["decode_step_batched", "sample_step_batched", "DecodeServer",
+__all__ = ["decode_step_batched", "sample_step_batched",
+           "decode_block_batched", "sample_block_batched", "DecodeServer",
            "validate_request"]
 
 
 # cold prefix-cache entries evicted per relief round when the pool runs dry
 # (LRU-first batches; never the whole index at once)
 _EVICT_BATCH = 4
+# admission draws use counters from here up (one per request id), clear of
+# the per-step counters of the device steps
+_ADMIT_COUNTER = 1 << 40
 
 
 def decode_step_batched(params, cache, token, pos, cfg: gpt.GPTConfig):
@@ -65,25 +93,115 @@ def decode_step_batched(params, cache, token, pos, cfg: gpt.GPTConfig):
     return generate.decode_step(params, cache, token, pos, cfg)
 
 
-def _sample_batched(logits, generator, temp, topk, topp):
+# -- the sampling stream: counter-based, keyed (seed, step) ----------------
+
+_M32 = 0xFFFFFFFF
+
+
+def _mix32(h):
+    """A 32-bit integer finalizer (xorshift-multiply rounds) on int64
+    values in [0, 2^32); both multipliers are below 2^31, so every product
+    stays inside int64 on any device."""
+    h = h ^ (h >> 16)
+    h = (h * 0x7FEB352D) & _M32
+    h = h ^ (h >> 15)
+    h = (h * 0x5BD1E995) & _M32
+    return h ^ (h >> 16)
+
+
+def seed_key(seed: int) -> int:
+    """The 32-bit stream key of a server seed (host side)."""
+    return zlib.crc32(np.int64(seed).tobytes()) & _M32
+
+
+def _gumbel(key, shape, device):
+    """Standard Gumbel noise of ``shape`` [B, V] as a pure function of
+    ``key`` — an int64 tensor [2] (stream key, counter) — and the element
+    index: the port's ``jax.random`` counterpart, with no generator state
+    (so a replayed graph draws what the eager step draws)."""
+    c = key[1]
+    h = _mix32(_mix32(key[0] ^ (c & _M32)) ^ ((c >> 32) & _M32))
+    n = 1
+    for d in shape:
+        n *= d
+    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    bits = _mix32(_mix32(idx ^ h) ^ 0x3C6EF372)
+    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    return -torch.log(-torch.log(u))
+
+
+def _sample_batched(logits, key, temp, topk, topp):
     """Per-slot sampling over batched logits [B, V]: temperature, top-k,
     nucleus (generate._filter_logits) with PER-SLOT parameters, so one
-    step serves a batch mixing greedy and sampled requests.  temp/topp
-    float32 [B], topk int [B] (0 = off); slots with temp == 0 take the
-    argmax of the raw logits."""
+    step serves a batch mixing greedy and sampled requests; the draw is
+    the Gumbel-max of the filtered logits under ``key``'s noise (exactly
+    a categorical draw from their softmax).  temp/topp float32 [B], topk
+    int [B] (0 = off); slots with temp == 0 take the argmax of the raw
+    logits."""
     scaled = generate._filter_logits(logits, temp, topk, topp)
-    sampled = torch.multinomial(torch.softmax(scaled, dim=-1), 1,
-                                generator=generator)[:, 0]
+    noise = _gumbel(key, scaled.shape, scaled.device)
+    sampled = torch.argmax(scaled.float() + noise, dim=-1)
     greedy = torch.argmax(logits, dim=-1)
     return torch.where(temp > 0.0, sampled, greedy)
 
 
-def sample_step_batched(params, cache, tok, pos, generator, temp, topk, topp,
+def _step_key(key, j: int):
+    """The key of step n + j from the key of step n (on the device)."""
+    return torch.stack([key[0], key[1] + j])
+
+
+def sample_step_batched(params, cache, tok, pos, key, temp, topk, topp,
                         cfg: gpt.GPTConfig):
     """One batched decode step that returns sampled TOKENS [B] (greedy
     where temp == 0) instead of logits."""
     logits, cache = decode_step_batched(params, cache, tok, pos, cfg)
-    return _sample_batched(logits, generator, temp, topk, topp), cache
+    return _sample_batched(logits, key, temp, topk, topp), cache
+
+
+def _row_limit(cache, cfg: gpt.GPTConfig) -> int:
+    """The last position a step may write: the cache's rows (the slab's,
+    or the block tables' reach) and the position table's."""
+    rows = (cache["tables"].shape[1] * cache["k"].shape[2]
+            if "tables" in cache else cache["k"].shape[2])
+    return min(rows, cfg.max_seq_len) - 1
+
+
+def decode_block_batched(params, cache, tok, pos, k: int,
+                         cfg: gpt.GPTConfig):
+    """``k`` greedy decode steps on the device, each argmax fed back as
+    the next step's token — a Python loop of steps inside one capture,
+    where the JAX package scans.  tok/pos [B] are the next token to feed
+    and its position per slot.  Returns (tokens [B, k], cache).  A slot
+    whose request ends mid-block keeps decoding (the
+    caller discards its surplus); its positions are held at the cache's
+    last row, whose rows it owns and no mask exposes."""
+    lim = _row_limit(cache, cfg)
+    pos = torch.clamp(pos, max=lim)
+    toks = []
+    for _ in range(k):
+        logits, cache = decode_step_batched(params, cache, tok, pos, cfg)
+        tok = torch.argmax(logits, dim=-1)
+        toks.append(tok)
+        pos = torch.clamp(pos + 1, max=lim)
+    return torch.stack(toks, dim=1), cache
+
+
+def sample_block_batched(params, cache, tok, pos, key, temp, topk, topp,
+                         k: int, cfg: gpt.GPTConfig):
+    """``k`` sampled decode steps on the device, one host fetch — the
+    sampling twin of :func:`decode_block_batched`.  Step j draws with the
+    key of step n + j (``key`` is step n's), the schedule of the per-tick
+    path, so tick and tick_block draw the same tokens.  Returns (tokens
+    [B, k], cache)."""
+    lim = _row_limit(cache, cfg)
+    pos = torch.clamp(pos, max=lim)
+    toks = []
+    for j in range(k):
+        logits, cache = decode_step_batched(params, cache, tok, pos, cfg)
+        tok = _sample_batched(logits, _step_key(key, j), temp, topk, topp)
+        toks.append(tok)
+        pos = torch.clamp(pos + 1, max=lim)
+    return torch.stack(toks, dim=1), cache
 
 
 def _hits_stop(st: dict) -> bool:
@@ -132,22 +250,28 @@ class DecodeServer:
     """Host-side slot scheduler around one batched decode step.
 
     Greedy by default; per-request ``temperature``/``top_k``/``top_p``
-    sample with per-slot parameters, drawn from a ``torch.Generator``
-    seeded with ``seed``.  With ``prefill=True`` admission computes the
+    sample with per-slot parameters from the counter-based stream of
+    ``seed`` (module note).  With ``prefill=True`` admission computes the
     prompt before the slot joins the ticks (one bucket-padded
     ``generate.prefill_slot`` pass; fixed ``prefill_chunk``-token chunks;
     or, paged, chunks after the adopted prefix) and ticks only generate;
     with ``prefill=False`` prompts are fed token by token through the
     tick step.  ``layout``/``block_size``/``num_blocks`` pick the cache
     layout (module note; ``num_blocks`` defaults to full provisioning).
-    ``device`` defaults to the card; ``params`` must live there."""
+    ``async_dispatch=True`` keeps one step or block in flight (module
+    note).  ``device`` defaults to the card; ``params`` must live there.
+
+    ``_graphs=False`` is private: it runs the steps eagerly on the card,
+    for the card tests, ``chip_smoke.py`` and ``tools/profile_serving``,
+    which hold the graphs against the eager steps."""
 
     def __init__(self, params, cfg: gpt.GPTConfig, max_batch: int,
                  max_len: int, eos_id: int | None = None,
                  prefill: bool = True, seed: int = 0, device=None,
                  layout: str | None = None, block_size: int | None = None,
                  num_blocks: int | None = None,
-                 prefill_chunk: int | None = None):
+                 prefill_chunk: int | None = None,
+                 async_dispatch: bool = False, _graphs: bool = True):
         self.device = resolve_device(device)
         if params["wte"].device != self.device:
             raise ValueError(f"params live on {params['wte'].device}, the "
@@ -183,8 +307,13 @@ class DecodeServer:
         self._pool = (kv_pool.PagedAllocator(
             *kv_pool._geometry(self.cache), max_batch)
             if self._paged else None)
+        # what every step of this server is bound to (text/engine.py)
+        self._bind = engine.Binding(params, self.cache, graphs=_graphs)
         self._prefill_rows = 0       # prompt rows admission computed
-        self._gen = torch.Generator(device=self.device).manual_seed(int(seed))
+        self._seed_key = seed_key(seed)
+        self._step_no = 0            # device steps dispatched so far
+        self._async = bool(async_dispatch)
+        self._inflight: dict | None = None   # the async step in flight
         self._free = list(range(max_batch))
         self._slots: dict[int, dict] = {}        # slot -> request state
         self._queue: list[dict] = []             # waiting requests
@@ -192,6 +321,43 @@ class DecodeServer:
         self._dropped: set[int] = set()          # rids abandoned by close()
         self._next_rid = 0
         self._tokens = 0                          # tokens generated so far
+
+    # -- host <-> device ----------------------------------------------------
+
+    def _spec(self, **kw) -> engine.StepSpec:
+        return engine.StepSpec(cfg=self.cfg, paged=self._paged,
+                               payload=self._bind, **kw)
+
+    def _host(self, arr):
+        """A host feed as a CPU tensor — pinned on a card, so its copy to
+        the device does not block and the caching host allocator keeps
+        the buffer until that copy has run."""
+        t = torch.from_numpy(np.ascontiguousarray(arr))
+        return t.pin_memory() if self.device.type == "cuda" else t
+
+    def _key(self, n: int):
+        """The sampling key of counter ``n``: int64 [2] (stream key, n)."""
+        return np.array([self._seed_key, n], np.int64)
+
+    def _fetch_start(self, t):
+        """Start copying a step's output ``t`` to the host: into pinned
+        memory without blocking on a card (a graph's output is then free
+        to be overwritten by the next replay, which the stream orders
+        after the copy).  :meth:`_fetch_wait` returns it as numpy."""
+        if t.device.type != "cuda":
+            return t, None
+        h = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        h.copy_(t, non_blocking=True)
+        ev = torch.cuda.Event()
+        ev.record(torch.cuda.current_stream(t.device))
+        return h, ev
+
+    @staticmethod
+    def _fetch_wait(fetch):
+        h, ev = fetch
+        if ev is not None:
+            ev.synchronize()
+        return h.numpy()
 
     # -- request lifecycle --------------------------------------------------
 
@@ -231,11 +397,15 @@ class DecodeServer:
                 or _hits_stop(st))
 
     def _first_token(self, logits, st) -> int:
-        """The admission token from the prefill logits [V]."""
+        """The admission token from the prefill logits [V]: a draw keyed
+        by the request id (independent of admission order and batch-mates,
+        as the JAX server's ``fold_in(base, (1 << 20) + rid)``)."""
         if st["temperature"] > 0.0:
             dev = self.device
+            key = torch.tensor(self._key(_ADMIT_COUNTER + st["rid"]),
+                               device=dev)
             return int(_sample_batched(
-                logits[None], self._gen,
+                logits[None], key,
                 torch.tensor([st["temperature"]], device=dev),
                 torch.tensor([st["top_k"]], device=dev),
                 torch.tensor([st["top_p"]], device=dev))[0])
@@ -278,6 +448,13 @@ class DecodeServer:
             self._pool.free_slot(slot)
         self._free.append(slot)
 
+    def _retire(self, done) -> None:
+        for slot in done:
+            st = self._slots.pop(slot)
+            self._results[st["rid"]] = st["generated"]
+            self._release(slot)
+        self._admit()
+
     def _chunk_starts(self, n: int, C: int, shared: int = 0) -> list:
         """Chunk starts covering prompt rows [shared, n) at width C.  The
         LAST window starts at n - C (overlapping the previous chunk)
@@ -288,6 +465,32 @@ class DecodeServer:
             return [shared if shared + C <= window else max(0, n - C)]
         return list(range(shared, n - C, C)) + [n - C]
 
+    def _admission_widths(self, prompt_lens=None) -> list:
+        """(kind, width) of the admission steps prompts of ``prompt_lens``
+        take (default: every bucket up to the serving window) — what
+        ``warmup`` builds.  Contiguous: the prompt bucket, or the one
+        chunk width; paged: the suffix chunk's width, which depends on
+        the adopted prefix, so every power of two from the block size
+        up to the window."""
+        window = min(self.max_len, self.cfg.max_seq_len)
+        if self._chunk is not None:
+            return [("paged_prefill" if self._paged else "prefill_chunk",
+                     min(self._chunk, window))]
+        if self._paged:
+            widths, w = [], self._pool.bs
+            while True:
+                widths.append(min(w, window))
+                if w >= window:
+                    break
+                w *= 2
+            return [("paged_prefill", w) for w in sorted(set(widths))]
+        lens = prompt_lens if prompt_lens is not None else [
+            1 << i for i in range(window.bit_length() + 1)
+            if (1 << i) <= window]
+        buckets = {_pow2_bucket(int(n), self.max_len, self.cfg.max_seq_len)
+                   for n in lens}
+        return [("prefill", b) for b in sorted(buckets)]
+
     def _prefill_slot(self, prompt, slot: int):
         """Admission prefill of ``prompt`` into ``slot``; returns the
         logits [V] at its last position."""
@@ -296,25 +499,23 @@ class DecodeServer:
             return self._paged_prefill_slot(prompt, slot)
         if self._chunk is None:
             bucket = _pow2_bucket(n, self.max_len, self.cfg.max_seq_len)
-            logits, self.cache = generate.prefill_slot(
-                self.params, self.cache, self._padded(prompt, bucket), n,
-                slot, self.cfg)
+            fn = engine.ENGINE.get("prefill", self._spec(bucket=bucket))
+            (logits,) = fn(self._padded(prompt, bucket), n, slot)
             self._prefill_rows += n
             return logits
         C = self._chunk
+        fn = engine.ENGINE.get("prefill_chunk", self._spec(width=C))
         for s in self._chunk_starts(n, C):
             chunk = prompt[s:s + C]
-            logits, self.cache = generate.prefill_slot_chunk(
-                self.params, self.cache, self._padded(chunk, C), s,
-                len(chunk), slot, self.cfg)
+            (logits,) = fn(self._padded(chunk, C), s, len(chunk), slot)
             self._prefill_rows += len(chunk)
         return logits
 
     def _padded(self, tokens, width: int):
         """[1, width] int64 on the server's device, ``tokens`` then 0s."""
-        padded = torch.zeros((1, width), dtype=torch.int64)
-        padded[0, :len(tokens)] = torch.tensor(tokens, dtype=torch.int64)
-        return padded.to(self.device)
+        padded = np.zeros((1, width), np.int64)
+        padded[0, :len(tokens)] = tokens
+        return self._host(padded).to(self.device, non_blocking=True)
 
     def _paged_prefill_slot(self, prompt, slot: int):
         """Paged admission: adopt the longest indexed prompt prefix into
@@ -344,38 +545,47 @@ class DecodeServer:
                 if alloc.evict_cold(_EVICT_BATCH) == 0:
                     raise
         self._apply_pool_ops()
+        fn = engine.ENGINE.get("paged_prefill", self._spec(bucket=C))
         for s in starts:
             chunk = prompt[s:s + C]
-            logits, self.cache = kv_pool.paged_prefill_chunk(
-                self.params, self.cache, self._padded(chunk, C), s,
-                len(chunk), slot, self.cfg)
+            (logits,) = fn(self._padded(chunk, C), s, len(chunk), slot)
             self._prefill_rows += len(chunk)
         alloc.register_prefix(slot, prompt)
         return logits
 
     def _apply_pool_ops(self):
         """Run the allocator's pending device work: copy-on-write block
-        copies, then the table push when the host mirror changed."""
+        copies, then the table push when the host mirror changed — in
+        place (the graphs read the ``tables`` leaf by address), from
+        pinned memory, so an async server's push does not wait for the
+        step in flight (the stream runs it after that step)."""
         pairs = self._pool.take_copies()
         if pairs:
-            idx = torch.tensor(pairs, dtype=torch.int64, device=self.device)
+            idx = self._host(np.asarray(pairs, np.int64)).to(
+                self.device, non_blocking=True)
             kv_pool.copy_blocks(self.cache, idx[:, 0], idx[:, 1])
         if self._pool.dirty:
-            self.cache["tables"].copy_(torch.from_numpy(self._pool.tables))
+            self.cache["tables"].copy_(self._host(self._pool.tables),
+                                       non_blocking=True)
             self._pool.dirty = False
 
-    def _ensure_decode_blocks(self):
-        """Before a tick: map (or copy-on-write) every active slot's block
-        under the row it writes — admission reserves no rows up front,
-        the memory point of the paged layout.  When the pool is dry, cold
-        prefix entries are evicted and the allocation retried once; a
-        second ``PoolExhausted`` propagates."""
+    def _ensure_decode_blocks(self, steps: int = 1):
+        """Before a dispatch of ``steps`` decode steps: map (or
+        copy-on-write) every active slot's blocks under rows
+        [pos, pos + steps) — admission reserves no rows up front, the
+        memory point of the paged layout; rows past the tables' reach
+        clamp (a block's overrun past a request's end writes no mapped
+        row).  When the pool is dry, cold prefix entries are evicted and
+        the allocation retried once; a second ``PoolExhausted``
+        propagates."""
+        if not self._paged or not self._slots:
+            return
         cap = self._pool.nmax * self._pool.bs
 
         def ensure():
             for slot, st in self._slots.items():
                 self._pool.ensure_rows(slot, st["pos"],
-                                       min(st["pos"] + 1, cap))
+                                       min(st["pos"] + steps, cap))
 
         try:
             ensure()
@@ -417,30 +627,34 @@ class DecodeServer:
                 tp[slot] = st["top_p"]
         return temp, tk, tp
 
+    # -- sync dispatch ------------------------------------------------------
+
     def tick(self):
         """One batched decode step over every slot, then retire finished
-        requests and admit queued ones."""
+        requests and admit queued ones (with ``async_dispatch``: dispatch
+        the next step before processing the one in flight)."""
+        if self._async:
+            self._tick_async()
+            return
         if not self._slots:
             self._admit()
             if not self._slots:
                 return
-        dev = self.device
-        if self._paged:
-            self._ensure_decode_blocks()
+        self._ensure_decode_blocks(1)
         tok, pos = self._feed_arrays()
         temp, tk, tp = self._sampling_arrays()
-        tok_t = torch.from_numpy(tok).to(dev)
-        pos_t = torch.from_numpy(pos).to(dev)
+        n = self._step_no
+        tok, pos = self._host(tok), self._host(pos)
         if temp.any():
-            nxt, self.cache = sample_step_batched(
-                self.params, self.cache, tok_t, pos_t, self._gen,
-                torch.from_numpy(temp).to(dev), torch.from_numpy(tk).to(dev),
-                torch.from_numpy(tp).to(dev), self.cfg)
+            fn = engine.ENGINE.get("sample", self._spec())
+            (nxt,) = fn(tok, pos, self._host(self._key(n)), self._host(temp),
+                        self._host(tk), self._host(tp))
         else:
-            logits, self.cache = decode_step_batched(
-                self.params, self.cache, tok_t, pos_t, self.cfg)
+            (logits,) = engine.ENGINE.get("step", self._spec())(tok, pos)
             nxt = torch.argmax(logits, dim=-1)
-        nxt = nxt.cpu().numpy()          # the tick's one device->host fetch
+        # the step counter advances only after the step call returned
+        self._step_no = n + 1
+        nxt = self._fetch_wait(self._fetch_start(nxt))   # the one fetch
         done = []
         for slot, st in self._slots.items():
             i = st["pos"]
@@ -452,11 +666,251 @@ class DecodeServer:
             self._tokens += 1
             if self._finished(st, t):
                 done.append(slot)
-        for slot in done:
-            st = self._slots.pop(slot)
-            self._results[st["rid"]] = st["generated"]
-            self._release(slot)
-        self._admit()
+        self._retire(done)
+
+    def tick_block(self, block: int = 8):
+        """``block`` decode steps with ONE host round trip (greedy, or
+        sampled from the per-step keys tick uses).  When some slot is
+        still feeding its prompt token by token (``prefill=False``),
+        falls back to ``block`` single ticks.  Slots finishing mid-block
+        overrun on the device; their surplus tokens are discarded here."""
+        block = int(block)
+        if block < 1:
+            raise ValueError(f"block must be >= 1, got {block}")
+        if self._async:
+            self._tick_block_async(block)
+            return
+        if not self._slots:
+            self._admit()
+            if not self._slots:
+                return
+        # a slot at pos == len(prompt)-1 is fine for block decode (its
+        # feed token is the prompt's last; everything after is feedback)
+        if any(st["pos"] < len(st["prompt"]) - 1
+               for st in self._slots.values()):
+            for _ in range(block):
+                self.tick()
+                if not self._slots:
+                    break
+            return
+        self._ensure_decode_blocks(block)
+        tok, pos = self._feed_arrays()
+        temp, tk, tp = self._sampling_arrays()
+        n = self._step_no
+        tok, pos = self._host(tok), self._host(pos)
+        if temp.any():
+            fn = engine.ENGINE.get("sample_block", self._spec(k=block))
+            (toks,) = fn(tok, pos, self._host(self._key(n)),
+                         self._host(temp), self._host(tk), self._host(tp))
+        else:
+            (toks,) = engine.ENGINE.get("block", self._spec(k=block))(tok,
+                                                                      pos)
+        self._step_no = n + block        # after the call: see tick
+        toks = self._fetch_wait(self._fetch_start(toks))
+        done = []
+        for slot, st in self._slots.items():
+            for j in range(block):
+                t = int(toks[slot, j])
+                st["generated"].append(t)
+                st["pos"] += 1
+                self._tokens += 1
+                if self._finished(st, t):
+                    done.append(slot)
+                    break
+        self._retire(done)
+
+    # -- async dispatch: one step or block in flight ------------------------
+
+    def _dispatch_feed(self, prev, block: int = 1):
+        """Host-side feed of an async dispatch.  Returns (host_tok,
+        prev_mask, pos, temp, tk, tp, snap): per slot the feed token comes
+        from the host (prompt, or a generated token already fetched)
+        unless it is the output of the dispatch still in flight — then
+        ``prev_mask`` selects that DEVICE token inside the step.  ``snap``
+        records (slot, st, fed position) for the deferred bookkeeping;
+        each slot's pos advances by ``block`` optimistically (a slot that
+        finishes mid-block retires at process time)."""
+        B = self.max_batch
+        ht = np.zeros((B,), np.int64)
+        pm = np.zeros((B,), bool)
+        pos = np.zeros((B,), np.int32)
+        temp = np.zeros((B,), np.float32)
+        tk = np.zeros((B,), np.int64)
+        tp = np.ones((B,), np.float32)
+        snap = []
+        for slot, st in self._slots.items():
+            i = st["pos"]
+            n_p = len(st["prompt"])
+            if i < n_p:
+                ht[slot] = st["prompt"][i]
+            elif i - n_p < len(st["generated"]):
+                ht[slot] = st["generated"][i - n_p]
+            else:
+                # the previous dispatch's output: on the device, unfetched
+                assert prev is not None, "in-flight feed without inflight"
+                pm[slot] = True
+            if i >= n_p - 1:      # the step at i produces a kept token
+                temp[slot] = st["temperature"]
+                tk[slot] = st["top_k"]
+                tp[slot] = st["top_p"]
+            pos[slot] = i
+            snap.append((slot, st, i))
+            st["pos"] = i + block
+        return ht, pm, pos, temp, tk, tp, snap
+
+    def _prev_feed(self, prev):
+        """The [B] device tokens feeding off the in-flight dispatch (a
+        step's tokens, a block's last column)."""
+        if prev is None:
+            return torch.zeros((self.max_batch,), dtype=torch.int64,
+                               device=self.device)
+        return prev["feed"]
+
+    def _rollback_dispatch(self, snap, n):
+        """Undo one ``_dispatch_feed``'s optimistic advances after the
+        dispatch itself failed: restoring pos and the step counter makes
+        a retry dispatch the same step."""
+        for slot, st, i in snap:
+            if self._slots.get(slot) is st:
+                st["pos"] = i
+        self._step_no = n
+
+    def _dispatch_step_async(self, prev):
+        self._ensure_decode_blocks(1)
+        ht, pm, pos, temp, tk, tp, snap = self._dispatch_feed(prev)
+        n = self._step_no
+        self._step_no = n + 1
+        feeds = (self._host(ht), self._host(pm), self._prev_feed(prev),
+                 self._host(pos))
+        try:
+            if temp.any():
+                fn = engine.ENGINE.get("async", self._spec())
+                (nxt,) = fn(*feeds, self._host(self._key(n)),
+                            self._host(temp), self._host(tk), self._host(tp))
+            else:
+                # greedy: the k = 1 greedy block, which skips the
+                # sampler's sorts and noise the ``async`` step computes
+                # for every slot
+                fn = engine.ENGINE.get("async_block", self._spec(k=1))
+                nxt = fn(*feeds)[0][:, 0]
+        except Exception:
+            self._rollback_dispatch(snap, n)
+            raise
+        self._inflight = {"kind": "step", "fetch": self._fetch_start(nxt),
+                          "feed": nxt, "snap": snap, "step_no0": n}
+
+    def _dispatch_block_async(self, prev, block: int):
+        self._ensure_decode_blocks(block)
+        ht, pm, pos, temp, tk, tp, snap = self._dispatch_feed(prev, block)
+        n = self._step_no
+        self._step_no = n + block
+        feeds = (self._host(ht), self._host(pm), self._prev_feed(prev),
+                 self._host(pos))
+        try:
+            if temp.any():
+                fn = engine.ENGINE.get("async_sample_block",
+                                       self._spec(k=block))
+                (toks,) = fn(*feeds, self._host(self._key(n)),
+                             self._host(temp), self._host(tk),
+                             self._host(tp))
+            else:
+                fn = engine.ENGINE.get("async_block", self._spec(k=block))
+                (toks,) = fn(*feeds)
+        except Exception:
+            self._rollback_dispatch(snap, n)
+            raise
+        self._inflight = {"kind": "block", "fetch": self._fetch_start(toks),
+                          "feed": toks[:, -1], "snap": snap,
+                          "block": block, "step_no0": n}
+
+    def _process_inflight(self, prev):
+        """Fetch a dispatch's tokens and run its deferred host
+        bookkeeping.  Slots whose request retired (or was replaced by a
+        new tenant) since the dispatch are skipped — their tokens are the
+        overrun the async pipeline trades for overlap."""
+        toks = self._fetch_wait(prev["fetch"])
+        done = []
+        for slot, st, i in prev["snap"]:
+            if self._slots.get(slot) is not st:
+                continue    # retired or replaced while this was in flight
+            if prev["kind"] == "step":
+                if i < len(st["prompt"]) - 1:
+                    continue            # still feeding prompt
+                t = int(toks[slot])
+                st["generated"].append(t)
+                self._tokens += 1
+                if self._finished(st, t):
+                    done.append(slot)
+            else:
+                for j in range(prev["block"]):
+                    t = int(toks[slot, j])
+                    st["generated"].append(t)
+                    self._tokens += 1
+                    if self._finished(st, t):
+                        done.append(slot)
+                        break
+        self._retire(done)
+
+    def _drain_inflight(self):
+        """Fetch and process the pending async dispatch now."""
+        prev, self._inflight = self._inflight, None
+        if prev is not None:
+            self._process_inflight(prev)
+
+    def _tick_async(self):
+        """One async tick: dispatch step N+1 first (feeding the in-flight
+        step's device tokens), then block on step N for bookkeeping — the
+        card is never idle while the host schedules.  The last dispatch
+        before a drain is overrun work whose tokens are never kept."""
+        prev, self._inflight = self._inflight, None
+        if not self._slots:
+            self._admit()
+            if not self._slots:
+                return
+        try:
+            self._dispatch_step_async(prev)
+        except Exception:
+            self._inflight = prev      # its tokens are still fetchable
+            raise
+        if prev is not None:
+            self._process_inflight(prev)
+
+    def _tick_block_async(self, block: int):
+        """Async tick_block: one BLOCK in flight (see :meth:`_tick_async`).
+        Prompt-feeding slots fall back to single async ticks after the
+        in-flight dispatch is processed — the same tokens."""
+        prev, self._inflight = self._inflight, None
+        if not self._slots:
+            self._admit()
+            if not self._slots:
+                return
+        if any(st["pos"] < len(st["prompt"]) - 1
+               for st in self._slots.values()):
+            if prev is not None:
+                self._process_inflight(prev)
+            for _ in range(block):
+                self.tick()
+                if not self._slots:
+                    break
+            return
+        try:
+            self._dispatch_block_async(prev, block)
+        except Exception:
+            self._inflight = prev
+            raise
+        if prev is not None:
+            self._process_inflight(prev)
+
+    def warmup(self, prompt_lens=None, blocks=(), sample: bool = False):
+        """Build (on the card: capture) every step this server will serve
+        before its first request: ``Engine.warmup`` (text/engine.py).
+        Requires an idle server; leaves the step counter, the kernels'
+        launch counters and every request's state as they were.  Returns
+        {step: seconds}."""
+        return engine.ENGINE.warmup(self, prompt_lens=prompt_lens,
+                                    blocks=blocks, sample=sample)
+
+    # -- results and state --------------------------------------------------
 
     def result(self, rid: int):
         """Generated tokens (no prompt) once the request finished."""
@@ -507,9 +961,17 @@ class DecodeServer:
         return stats
 
     def close(self):
-        """Release the KV cache (and, paged, every block and the prefix
-        index).  Unfinished requests are abandoned: ``result()`` raises
-        for them and ``status()`` says ``dropped``.  Idempotent."""
+        """Release this server's steps (``Engine.purge``: its graphs and
+        their memory pools) and its KV cache (and, paged, every block and
+        the prefix index).  The step in flight is abandoned unfetched;
+        unfinished requests too: ``result()`` raises for them and
+        ``status()`` says ``dropped``.  Idempotent."""
+        self._inflight = None
+        if self._bind is not None:
+            # by binding alone: a routing flag flipped since a capture
+            # changed its config key, not what it holds
+            engine.ENGINE.purge(binding=self._bind)
+            self._bind = None
         self.cache = None
         if self._paged:
             self._pool.close()

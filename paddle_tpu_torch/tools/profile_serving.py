@@ -1,35 +1,40 @@
 """Where the PyTorch/CUDA port's serving time goes on the card.
 
-    python3 -m paddle_tpu_torch.tools.profile_serving [--paged | --w4] [--ticks 8] [--trace PATH]
+    python3 -m paddle_tpu_torch.tools.profile_serving [--paged | --w4] [--ticks 8]
+        [--trace PATH]
 
 (from the repository root).
 
 Builds one of the port's serving paths — the one definition of each that
-``chip_smoke.py`` drives too — warms it, then traces with
-``torch.profiler``:
+``chip_smoke.py`` drives too — and, for each dispatch arm (:data:`ARMS`:
+eager ticks, graphed ticks, graphed ``tick_block(8)``, graphed async
+ticks; one server each on the same weights), warms it up and traces a
+steady decode window with ``torch.profiler``; then one admission:
 
 * default, :func:`build_main_path`: GPT-1.3B (``gpt_1p3b()``, random bf16
   weights from seed 0) in ``DecodeServer(max_batch=8, max_len=512)``
   (contiguous KV) with 8 requests of 40..300 prompt tokens; traced: the
-  steady decode tick and one admission prefill of a 300-token prompt
+  steady decode window and one admission prefill of a 300-token prompt
   (bucket 512);
 * ``--paged``, :func:`build_paged_path`: the same model behind
   ``DecodeServer(layout="paged", block_size=16, num_blocks=128)`` with 8
   chat requests sharing a 200-token system prompt; traced: the steady
-  paged decode tick and one paged admission (a new request sharing the
+  paged decode window and one paged admission (a new request sharing the
   system prompt: adopt, then one chunk over its 100-token tail);
 * ``--w4``, :func:`build_w4_path`: the main path's model and traffic with
   its weights quantized to int4 (``woq.quantize_gpt_int4``, group 64)
-  and ``PADDLE_TPU_W4_KERNEL=1``; traced: the steady decode tick and one
+  and ``PADDLE_TPU_W4_KERNEL=1``; traced: the steady decode window and one
   admission prefill of a 200-token prompt (bucket 256, where the W4
   kernel runs at N = 256).
 
-For each it prints one JSON line: host wall per tick (or per admission),
-device kernel time and the device's busy share of the wall, kernel
-launches, and device time by kernel family (the hand-written attention
-kernels, matmuls, everything else).  ``--trace`` also writes the decode
-window's Chrome trace.  Needs a CUDA card; imports nothing of JAX or the
-JAX package.
+For each arm, and for the admission, it prints one JSON line: host wall
+per decode step (or per admission), device kernel time and the device's
+busy share of the wall, kernel launches, and device time by kernel
+family (the hand-written attention kernels, matmuls, everything else);
+each arm also the wall of as many steps again without the profiler
+(``unprofiled_wall_ms``) and the device time's share of it.
+``--trace`` also writes the graph arm's decode window's Chrome trace.
+Needs a CUDA card; imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
@@ -65,7 +70,17 @@ def main_prompts(vocab_size: int, seed: int = 0) -> list:
     return [rng.integers(0, vocab_size, n).tolist() for n in LENS]
 
 
-def build_main_path(device="cuda", seed=0):
+def make_server(path: str, params, cfg, device="cuda", **kw):
+    """A server of ``path`` ("main", "w4" or "paged") at its geometry on
+    ``params``; ``kw`` adds server options (``async_dispatch``, or the
+    private ``_graphs=False`` that runs the steps eagerly)."""
+    geometry = PAGED_GEOMETRY if path == "paged" else dict(max_batch=8,
+                                                           max_len=512)
+    return serving.DecodeServer(params, cfg, device=device, **geometry,
+                                **kw)
+
+
+def build_main_path(device="cuda", seed=0, **server_kw):
     """The port's main path, at full width: GPT-1.3B with random weights
     from ``seed`` (bf16, as the preset computes) behind
     ``DecodeServer(max_batch=8, max_len=512)``, and the prompts of
@@ -73,8 +88,7 @@ def build_main_path(device="cuda", seed=0):
     is submitted yet."""
     cfg = gpt.gpt_1p3b()
     params = gpt.init_params(cfg, seed=seed, device=device)
-    srv = serving.DecodeServer(params, cfg, max_batch=8, max_len=512,
-                               device=device)
+    srv = make_server("main", params, cfg, device, **server_kw)
     return cfg, params, srv, main_prompts(cfg.vocab_size, seed)
 
 
@@ -84,7 +98,7 @@ W4_GROUP = 64
 W4_FLAGS = {"PADDLE_TPU_W4_KERNEL": "1"}
 
 
-def build_w4_path(device="cuda", seed=0):
+def build_w4_path(device="cuda", seed=0, **server_kw):
     """The W4 path, at full width: sets ``W4_FLAGS`` in the environment
     (read at each matmul), quantizes the main path's GPT-1.3B (bf16 weights
     from ``seed``) with ``woq.quantize_gpt_int4(params, group_size=64)`` —
@@ -96,8 +110,7 @@ def build_w4_path(device="cuda", seed=0):
     cfg = gpt.gpt_1p3b()
     params = woq.quantize_gpt_int4(
         gpt.init_params(cfg, seed=seed, device=device), group_size=W4_GROUP)
-    srv = serving.DecodeServer(params, cfg, max_batch=8, max_len=512,
-                               device=device)
+    srv = make_server("w4", params, cfg, device, **server_kw)
     return cfg, params, srv, main_prompts(cfg.vocab_size, seed)
 
 
@@ -124,7 +137,7 @@ def paged_prompts(vocab_size: int, seed: int = 0) -> list:
     return prompts
 
 
-def build_paged_path(device="cuda", seed=0):
+def build_paged_path(device="cuda", seed=0, **server_kw):
     """The paged path, at full width: GPT-1.3B with random weights from
     ``seed`` (bf16) behind ``DecodeServer(max_batch=8, max_len=512,
     layout="paged", block_size=16, num_blocks=128)`` — a 403 MB pool (plus
@@ -133,7 +146,7 @@ def build_paged_path(device="cuda", seed=0):
     prompts); nothing is submitted yet."""
     cfg = gpt.gpt_1p3b()
     params = gpt.init_params(cfg, seed=seed, device=device)
-    srv = serving.DecodeServer(params, cfg, device=device, **PAGED_GEOMETRY)
+    srv = make_server("paged", params, cfg, device, **server_kw)
     return cfg, params, srv, paged_prompts(cfg.vocab_size, seed)
 
 
@@ -190,6 +203,55 @@ def summarize(torch, prof, wall, n, families=FAMILIES):
     }
 
 
+# the dispatch arms profiled side by side: eager ticks (the private
+# ``_graphs=False``), graphed ticks, graphed tick_block(8), graphed async
+# ticks
+ARMS = ("eager", "graph", "block8", "async")
+
+
+def arm_server(path: str, params, cfg, arm: str, device="cuda"):
+    """A server of ``path`` for one arm of :data:`ARMS`."""
+    return make_server(path, params, cfg, device, _graphs=arm != "eager",
+                       async_dispatch=arm == "async")
+
+
+def _decode_window(torch, srv, prompts, arm, calls, acts):
+    """Warm ``srv`` up, serve a short round, submit ``prompts`` again with
+    NEW tokens each, run a few dispatch calls, then ``calls`` more under
+    the profiler and ``calls`` more without it (every slot decoding
+    throughout): (profiler, profiled wall seconds, unprofiled wall
+    seconds, decode steps in each window)."""
+    from torch.profiler import profile
+
+    k = 8 if arm == "block8" else 1
+    step = (lambda: srv.tick_block(k)) if k > 1 else srv.tick
+    srv.warmup(prompt_lens=[len(p) for p in prompts],
+               blocks=(k,) if k > 1 else ())
+    for p in prompts:                       # warm-up serve
+        srv.submit(p, max_new_tokens=4)
+    while srv.pending():
+        step()
+    for p in prompts:
+        srv.submit(p, max_new_tokens=NEW)
+    for _ in range(4 if k == 1 else 1):
+        step()
+    torch.cuda.synchronize()
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            step()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        step()
+    torch.cuda.synchronize()
+    plain = time.perf_counter() - t0
+    while srv.pending():
+        step()
+    return prof, wall, plain, calls * k
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     kind = ap.add_mutually_exclusive_group()
@@ -197,9 +259,12 @@ def main() -> int:
                       help="profile the paged path (build_paged_path)")
     kind.add_argument("--w4", action="store_true",
                       help="profile the int4 W4 path (build_w4_path)")
-    ap.add_argument("--ticks", type=int, default=8)
+    ap.add_argument("--ticks", type=int, default=8,
+                    help="tick calls profiled per arm (tick_block(8) "
+                    "arm: 3 calls per 8 ticks)")
     ap.add_argument("--trace", default=None,
-                    help="write the decode window's Chrome trace here")
+                    help="write the graph arm's decode window's Chrome "
+                    "trace here")
     args = ap.parse_args()
 
     import torch
@@ -211,32 +276,41 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = card_line()
     print(card, flush=True)
+    path = "paged" if args.paged else "w4" if args.w4 else "main"
     build = (build_paged_path if args.paged else
              build_w4_path if args.w4 else build_main_path)
-    _, _, srv, prompts = build()
-    for p in prompts:                       # warm-up serve (first launches)
-        srv.submit(p, max_new_tokens=4)
-    while srv.pending():
-        srv.tick()
-    for p in prompts:
-        srv.submit(p, max_new_tokens=NEW)
-    for _ in range(4):
-        srv.tick()
-    torch.cuda.synchronize()
+    cfg, params, srv, prompts = build()
+    srv.close()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        for _ in range(args.ticks):
-            srv.tick()
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     layout = "paged" if args.paged else "contiguous"
     weights = "int4 weights, W4 kernel" if args.w4 else "bf16 weights"
-    out = {"what": f"decode tick, 8 slots decoding, {layout} KV, {weights}",
-           "card": card, **summarize(torch, prof, wall, args.ticks)}
-    print(json.dumps({"decode_tick": out}), flush=True)
-    if args.trace:
-        prof.export_chrome_trace(args.trace)
+    for arm in ARMS:
+        srv = arm_server(path, params, cfg, arm)
+        # tick_block(8) arm: 1 + 2 * 3 calls stay inside NEW tokens
+        calls = max(1, (args.ticks * 3) // 8) if arm == "block8" \
+            else args.ticks
+        prof, wall, plain, steps = _decode_window(torch, srv, prompts, arm,
+                                                  calls, acts)
+        srv.close()
+        out = {"arm": arm,
+               "what": f"decode, 8 slots decoding, {layout} KV, {weights}; "
+                       f"per decode step",
+               "card": card, "calls": calls, "steps": steps,
+               "wall_ms_per_call": wall * 1e3 / calls,
+               **summarize(torch, prof, wall, steps)}
+        # the same window's length without the profiler, whose tracing
+        # stretches the host's side; busy share against it
+        out["unprofiled_wall_ms"] = plain * 1e3 / steps
+        if out["device_ms"]:
+            out["unprofiled_busy_share"] = out["device_ms"] / (
+                plain * 1e3 / steps)
+        print(json.dumps({"decode_tick": out}), flush=True)
+        if args.trace and arm == "graph":
+            prof.export_chrome_trace(args.trace)
+    srv = arm_server(path, params, cfg, "graph")
+    srv.warmup(prompt_lens=[len(p) for p in prompts])
+    for p in prompts:                       # fill the prefix index
+        srv.submit(p, max_new_tokens=4)
     while srv.pending():
         srv.tick()
     if args.paged:
@@ -252,11 +326,13 @@ def main() -> int:
     else:
         prompt = prompts[3]
         what = "admission prefill, 300 tokens at bucket 512"
+    torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
         srv.submit(prompt, max_new_tokens=1)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
+    srv.close()
     out = {"what": what, "card": card, **summarize(torch, prof, wall, 1)}
     print(json.dumps({"prefill": out}), flush=True)
     return 0

@@ -858,3 +858,219 @@ def test_norm_and_w4_wrappers_refuse_cuda_inputs():
     with pytest.raises(ValueError, match="shape mismatch"):
         wm.w4_matmul(x[:, :62], packed, scale)
     assert launches() == before
+
+
+# ---------------------------------------------------------------------------
+# the step Engine on the card: captured graphs against the eager steps
+# ---------------------------------------------------------------------------
+
+_GRAPH_CASES = ("contiguous", "paged", "int8_kv", "w4")
+_GRAPH_LENS = (5, 40, 100, 17, 60, 33)
+
+
+def _graph_case(case, monkeypatch):
+    """A small fp32 model (head_dim 64) on the card for one case: float
+    weights, or int4 ones (group 32) with the W4 kernel on; int8 KV for
+    ``int8_kv``."""
+    gen = _card()
+    monkeypatch.delenv("PADDLE_TPU_KV_DTYPE", raising=False)
+    monkeypatch.delenv("PADDLE_TPU_W4_KERNEL", raising=False)
+    if case == "int8_kv":
+        monkeypatch.setenv("PADDLE_TPU_KV_DTYPE", "int8")
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, max_seq_len=256, dtype=torch.float32)
+    params = gpt.init_params(cfg, seed=3, device="cuda")
+    if case == "w4":
+        monkeypatch.setenv("PADDLE_TPU_W4_KERNEL", "1")
+        params = woq.quantize_gpt_int4(params, group_size=32)
+    prompts = [torch.randint(0, 512, (n,), generator=gen,
+                             device="cuda").tolist() for n in _GRAPH_LENS]
+    return cfg, params, prompts
+
+
+def _graph_server(cfg, params, case, graphs, **kw):
+    """max_batch 4 (six requests queue); the paged case hands out its
+    blocks in a shuffled order, so the tables the steps read are not the
+    identity."""
+    from paddle_tpu_torch.text import serving
+
+    lay = (dict(layout="paged", block_size=16, num_blocks=48)
+           if case == "paged" else {})
+    srv = serving.DecodeServer(params, cfg, max_batch=4, max_len=160,
+                               device="cuda", _graphs=graphs, **lay, **kw)
+    if case == "paged":
+        srv._pool._free = torch.randperm(
+            srv._pool.N, generator=torch.Generator().manual_seed(0)).tolist()
+    return srv
+
+
+def _serve_all(srv, prompts, block=None, **kw):
+    rids = [srv.submit(p, max_new_tokens=12, **kw) for p in prompts]
+    for _ in range(400):
+        if not srv.pending():
+            break
+        srv.tick_block(block) if block else srv.tick()
+    assert not srv.pending()
+    return [srv.result(r) for r in rids]
+
+
+@pytest.mark.parametrize("case", _GRAPH_CASES)
+def test_graphed_serving_equals_eager(case, monkeypatch):
+    """Greedy streams of graphed tick, tick_block(4) and async dispatch
+    (tick and block) equal the eager tick's exactly; each server served
+    through its own graphs.  Sampled streams: the graphs draw what the
+    eager steps draw, mode for mode."""
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case(case, monkeypatch)
+    ref = _serve_all(_graph_server(cfg, params, case, False), prompts)
+    for block, async_ in ((None, False), (4, False), (None, True),
+                          (4, True)):
+        srv = _graph_server(cfg, params, case, True, async_dispatch=async_)
+        assert _serve_all(srv, prompts, block) == ref, (block, async_)
+        graphs = engine.ENGINE.graphs(srv._bind)
+        assert graphs and all(g.replays > 0 for g in graphs), graphs
+        srv.close()
+    samp = dict(temperature=0.9, top_k=20)
+    for block, async_ in ((None, False), (4, False), (4, True)):
+        want = _serve_all(_graph_server(cfg, params, case, False,
+                                        async_dispatch=async_, seed=4),
+                          prompts, block, **samp)
+        srv = _graph_server(cfg, params, case, True, async_dispatch=async_,
+                            seed=4)
+        assert _serve_all(srv, prompts, block, **samp) == want
+        srv.close()
+
+
+@pytest.mark.parametrize("case", _GRAPH_CASES)
+def test_graphed_step_logits_match_the_eager_step(case, monkeypatch):
+    """From one cache state (admission is eager on both servers), the
+    captured step's logits sit within 1e-3 of the eager step's (the
+    smoke's PATH_TOL; cuBLAS may choose another algorithm on the capture
+    stream) and its block's tokens equal the eager block's."""
+    cfg, params, prompts = _graph_case(case, monkeypatch)
+    from paddle_tpu_torch.text import engine
+
+    out = {}
+    for graphs in (False, True):
+        srv = _graph_server(cfg, params, case, graphs)
+        for p in prompts[:4]:
+            srv.submit(p, max_new_tokens=12)
+        srv._ensure_decode_blocks(4)
+        tok, pos = srv._feed_arrays()
+        tok, pos = srv._host(tok), srv._host(pos)
+        (logits,) = engine.ENGINE.get("step", srv._spec())(tok, pos)
+        logits = logits.clone()
+        (toks,) = engine.ENGINE.get("block", srv._spec(k=4))(tok, pos)
+        out[graphs] = (logits, toks.clone())
+        srv.close()
+    gap = (out[True][0] - out[False][0]).abs().max().item()
+    assert gap <= 1e-3, gap
+    assert torch.equal(out[True][1], out[False][1])
+
+
+def test_graph_replays_count_the_eager_step_launches(monkeypatch):
+    """A replay runs no Python wrapper, yet the counters read as if it
+    had: the capturing tick adds one eager step's launches (its eager
+    warm run and capture are put back), N replays N steps', a block of
+    3 three steps'."""
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case("w4", monkeypatch)
+
+    def counts():
+        return {(w.__name__, a): getattr(w, a)
+                for w, a in engine._counter_fields()}
+
+    def delta(fn):
+        before = counts()
+        fn()
+        torch.cuda.synchronize()
+        after = counts()
+        return {k: after[k] - before[k] for k in after}
+
+    eager = _graph_server(cfg, params, "w4", False)
+    for p in prompts[:4]:
+        eager.submit(p, max_new_tokens=40)
+    one = delta(eager.tick)
+    assert one[("decode_attention", "launches")] == cfg.num_layers
+    assert one[("decode_attention", "tick_launches")] == cfg.num_layers
+    assert one[("w4_matmul", "launches")] == 6 * cfg.num_layers
+    srv = _graph_server(cfg, params, "w4", True)
+    for p in prompts[:4]:
+        srv.submit(p, max_new_tokens=40)
+    assert delta(srv.tick) == one                 # the capturing tick
+    assert delta(lambda: [srv.tick() for _ in range(5)]) == {
+        k: 5 * v for k, v in one.items()}
+    assert delta(lambda: srv.tick_block(3)) == {k: 3 * v
+                                                for k, v in one.items()}
+    (g,) = [g for g in engine.ENGINE.graphs(srv._bind) if g.name ==
+            "serving.step"]
+    assert g.replays == 6
+    with pytest.raises(ValueError, match="does not fit"):
+        g(torch.zeros(3, dtype=torch.int64), torch.zeros(3,
+                                                         dtype=torch.int32))
+    srv.close()
+
+
+def test_two_servers_of_one_config_keep_separate_graphs(monkeypatch):
+    """Two graphed servers of one config, ticked in turn: each replays
+    its own graphs (bound to its own cache) and serves its eager
+    reference's streams."""
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case("contiguous", monkeypatch)
+    halves = (prompts[:3], prompts[3:])
+    refs = [_serve_all(_graph_server(cfg, params, "contiguous", False), h)
+            for h in halves]
+    a, b = (_graph_server(cfg, params, "contiguous", True) for _ in "ab")
+    rids = [[s.submit(p, max_new_tokens=12) for p in h]
+            for s, h in zip((a, b), halves)]
+    while a.pending() or b.pending():
+        for s in (a, b):
+            if s.pending():
+                s.tick()
+    assert [[s.result(r) for r in rs] for s, rs in zip((a, b), rids)] \
+        == refs
+    ga, gb = engine.ENGINE.graphs(a._bind), engine.ENGINE.graphs(b._bind)
+    assert ga and gb and not {id(g) for g in ga} & {id(g) for g in gb}
+    assert a._bind.key != b._bind.key
+    a.close()
+    b.close()
+
+
+def test_close_releases_the_servers_graphs(monkeypatch):
+    """close() purges the server's graphs: none is left in the Engine, and
+    the card's allocated memory falls by at least the server's cache to
+    no more than it was before the server (every graph pool freed too).
+    A capture frees cuBLAS's workspaces, so the memory before the server
+    is an upper bound, not an equality."""
+    import gc
+
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case("contiguous", monkeypatch)
+    first = _graph_server(cfg, params, "contiguous", True)   # per-process
+    _serve_all(first, prompts[:2])                           # state made
+    first.close()
+    del first
+    gc.collect()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    srv = _graph_server(cfg, params, "contiguous", True)
+    srv.warmup(blocks=(4,), sample=True)
+    _serve_all(srv, prompts, 4)
+    bind = srv._bind
+    assert len(engine.ENGINE.graphs(bind)) == 4
+    cache_bytes = sum(t.numel() * t.element_size()
+                      for t in srv.cache.values())
+    torch.cuda.synchronize()
+    during = torch.cuda.memory_allocated()
+    srv.close()
+    assert engine.ENGINE.graphs(bind) == []
+    del srv, bind
+    gc.collect()
+    torch.cuda.synchronize()
+    after = torch.cuda.memory_allocated()
+    assert during - after >= cache_bytes, (during, after, cache_bytes)
+    assert after <= base + (64 << 10), (base, after)

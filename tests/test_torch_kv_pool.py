@@ -26,6 +26,7 @@ JAX package's, on the CPU.
   tiny model at the path's geometry: the allocator counters the card
   run asserts.
 """
+import dataclasses
 import functools
 
 import numpy as np
@@ -524,6 +525,68 @@ def test_markov_paged_chunked_admission_equals_jax(markov, chunk):
     got, cont, jgot, st, jst = _three_ways(markov, prompts, block_size=8,
                                            prefill_chunk=chunk)
     assert got == cont == jgot and st == jst
+
+
+def _serve_mode(srv, prompts, block=None, max_new=6):
+    rids = [srv.submit(p, max_new_tokens=max_new) for p in prompts]
+    for _ in range(300):
+        if not srv.pending():
+            break
+        srv.tick_block(block) if block else srv.tick()
+    assert not srv.pending()
+    return [[int(t) for t in srv.result(r)] for r in rids]
+
+
+@pytest.mark.parametrize("kv", ["", "int8"])
+def test_paged_tick_block_maps_ahead_and_equals_contiguous(markov, kv,
+                                                           monkeypatch):
+    """Paged tick_block and async dispatch (mirrors the JAX package's
+    test_paged_matches_contiguous_block_and_async), the markov model in
+    fp32: streams equal the contiguous single-tick server's and the JAX
+    paged server's under each mode; and before every block dispatch the
+    tables the step reads map each active slot's rows [pos, pos + k)
+    (clamped to the tables' reach) — allocation ahead of the block."""
+    monkeypatch.setenv("PADDLE_TPU_KV_DTYPE", kv)
+    jcfg, jparams, cfg, params = markov
+    jcfg = dataclasses.replace(jcfg, dtype=jnp.float32)
+    cfg = dataclasses.replace(cfg, dtype=torch.float32)
+    rng = np.random.default_rng(1)
+    prompts = [[int(t) for t in rng.integers(0, 13, n)] for n in (9, 4, 12)]
+    kw = dict(max_batch=2, max_len=32)
+    ref = _serve_mode(serving.DecodeServer(params, cfg, device="cpu", **kw),
+                      prompts)
+    seen = []
+    real_get = serving.engine.ENGINE.get
+
+    def spy_get(kind, spec):
+        fn = real_get(kind, spec)
+        if kind not in ("block", "async_block"):
+            return fn
+
+        def call(*feeds):
+            seen.append((spec.k, feeds[-1].clone(),
+                         spec.payload.cache["tables"].clone()))
+            return fn(*feeds)
+        return call
+
+    monkeypatch.setattr(serving.engine.ENGINE, "get", spy_get)
+    for block, async_ in ((3, False), (None, True), (3, True)):
+        got = _serve_mode(serving.DecodeServer(
+            params, cfg, device="cpu", layout="paged", block_size=8,
+            async_dispatch=async_, **kw), prompts, block)
+        jgot = _serve_mode(jserving.DecodeServer(
+            jparams, jcfg, layout="paged", block_size=8,
+            async_dispatch=async_, **kw), prompts, block)
+        assert got == ref == jgot, (block, async_)
+    assert len(seen) >= 4
+    for k, pos, tables in seen:
+        cap = tables.shape[1] * 8
+        for b in range(pos.shape[0]):
+            if (tables[b] < 0).all():
+                continue                       # a free slot
+            p = int(pos[b])
+            lo, hi = p // 8, (min(p + k, cap) - 1) // 8
+            assert (tables[b, lo:hi + 1] >= 0).all(), (k, p, tables[b])
 
 
 def test_pool_exhaustion_queues_until_blocks_free(markov):

@@ -12,6 +12,7 @@ serving.py) against the JAX package's, on the CPU.
 * the sampling filter, sampled-request laws, and the package boundary
   (no JAX imported, no silent CPU fallback).
 """
+import dataclasses
 import functools
 import subprocess
 import sys
@@ -346,3 +347,168 @@ def test_package_imports_no_jax():
     res = subprocess.run([sys.executable, "-c", code], cwd=root,
                          capture_output=True, text=True, timeout=120)
     assert res.returncode == 0, res.stdout + res.stderr
+
+
+# ---------------------------------------------------------------------------
+# tick_block and async dispatch (the step Engine's dispatch modes), on the
+# markov model computed in fp32, float and int8 KV
+# ---------------------------------------------------------------------------
+
+
+def _fp32(markov):
+    """The markov model computed in fp32 by both packages (its weights are
+    the fp32 masters it was trained as)."""
+    jcfg, jparams, cfg, params = markov
+    return (dataclasses.replace(jcfg, dtype=jnp.float32), jparams,
+            dataclasses.replace(cfg, dtype=torch.float32), params)
+
+
+def _serve_mode(srv, prompts, block=None, **kw):
+    """Submit every prompt, then ``tick_block(block)`` (or ``tick``) until
+    drained; tokens per request as ints."""
+    rids = [srv.submit(p, **kw) for p in prompts]
+    for _ in range(300):
+        if not srv.pending():
+            break
+        srv.tick_block(block) if block else srv.tick()
+    assert not srv.pending()
+    return [[int(t) for t in srv.result(r)] for r in rids]
+
+
+@pytest.mark.parametrize("kv", ["", "int8"])
+@pytest.mark.parametrize("block", [4, 8])
+def test_tick_block_streams_equal_jax_and_single_ticks(markov, block, kv,
+                                                       monkeypatch):
+    """tick_block(4|8) with queueing (5 requests, 3 slots): the port's
+    streams equal its own single ticks and the JAX server's tick_block."""
+    monkeypatch.setenv("PADDLE_TPU_KV_DTYPE", kv)
+    jcfg, jparams, cfg, params = _fp32(markov)
+    kw = dict(max_batch=3, max_len=32)
+    ticks = _serve_mode(serving.DecodeServer(params, cfg, device="cpu",
+                                             **kw), PROMPTS,
+                        max_new_tokens=8)
+    got = _serve_mode(serving.DecodeServer(params, cfg, device="cpu", **kw),
+                      PROMPTS, block, max_new_tokens=8)
+    jgot = _serve_mode(jserving.DecodeServer(jparams, jcfg, **kw), PROMPTS,
+                       block, max_new_tokens=8)
+    assert got == ticks == jgot
+    for p, g in zip(PROMPTS, got):
+        assert [p[-1]] + g == _rule_run(p[-1], 9)
+
+
+@pytest.mark.parametrize("kv", ["", "int8"])
+def test_async_dispatch_equals_sync_and_jax(markov, kv, monkeypatch):
+    """async_dispatch=True, greedy, under tick and tick_block(4): the same
+    streams as the sync server and as the JAX async server."""
+    monkeypatch.setenv("PADDLE_TPU_KV_DTYPE", kv)
+    jcfg, jparams, cfg, params = _fp32(markov)
+    kw = dict(max_batch=3, max_len=32)
+    want = _serve_mode(serving.DecodeServer(params, cfg, device="cpu",
+                                            **kw), PROMPTS,
+                       max_new_tokens=8)
+    for block in (None, 4):
+        got = _serve_mode(serving.DecodeServer(
+            params, cfg, device="cpu", async_dispatch=True, **kw), PROMPTS,
+            block, max_new_tokens=8)
+        jgot = _serve_mode(jserving.DecodeServer(
+            jparams, jcfg, async_dispatch=True, **kw), PROMPTS, block,
+            max_new_tokens=8)
+        assert got == want == jgot, block
+
+
+def test_async_sampled_equals_sync_sampled(markov):
+    """Sampled serving draws from the (seed, step) keys: async tick and
+    tick_block draw what sync tick and tick_block draw (no queueing — an
+    admission shift changes which steps a queued slot occupies, as in
+    the JAX server), and tick_block what tick draws."""
+    _, _, cfg, params = _fp32(markov)
+    kw = dict(max_batch=5, max_len=32, seed=5, device="cpu")
+    samp = dict(max_new_tokens=8, temperature=3.0, top_k=6)
+    want = _serve_mode(serving.DecodeServer(params, cfg, **kw), PROMPTS,
+                       **samp)
+    greedy = _serve_mode(serving.DecodeServer(params, cfg, **kw), PROMPTS,
+                         max_new_tokens=8)
+    assert want != greedy                        # sampling engaged
+    for block in (None, 2, 4):
+        for async_ in (False, True):
+            got = _serve_mode(serving.DecodeServer(
+                params, cfg, async_dispatch=async_, **kw), PROMPTS, block,
+                **samp)
+            assert got == want, (block, async_)
+
+
+def test_eos_and_stop_mid_block_retire_and_readmit(markov):
+    """Requests ending on eos or a stop sequence in the middle of a block
+    retire there (the block's surplus discarded) and queued requests
+    admit into the freed slots — tick_block and async as single ticks
+    and as the JAX server's tick_block; a block overrunning the serving
+    window's last row stays in the cache."""
+    jcfg, jparams, cfg, params = _fp32(markov)
+    prompts = PROMPTS + [_rule_run(5, 4), _rule_run(9, 7)]
+    eos = _rule_run(PROMPTS[1][-1], 4)[-1]
+    stop = [_rule_run(PROMPTS[2][-1], 3)[1:]]
+    kw = dict(max_batch=2, max_len=32, eos_id=eos)
+    submit = dict(max_new_tokens=10, stop=stop)
+    want = _serve_mode(serving.DecodeServer(params, cfg, device="cpu",
+                                            **kw), prompts, **submit)
+    assert any(len(w) < 10 for w in want)        # eos / stop engaged
+    jgot = _serve_mode(jserving.DecodeServer(jparams, jcfg, **kw), prompts,
+                       3, **submit)
+    assert jgot == want
+    for block in (3, 8):
+        for async_ in (False, True):
+            got = _serve_mode(serving.DecodeServer(
+                params, cfg, device="cpu", async_dispatch=async_, **kw),
+                prompts, block, **submit)
+            assert got == want, (block, async_)
+    # a request filling the window (12 + 20 = 32 rows): its block's
+    # overrun past row 31 is held at the last row
+    full = [_rule_run(2, 12)]
+    ref = _serve_mode(serving.DecodeServer(params, cfg, device="cpu",
+                                           max_batch=1, max_len=32),
+                      full, max_new_tokens=20)
+    for async_ in (False, True):
+        assert _serve_mode(serving.DecodeServer(
+            params, cfg, device="cpu", max_batch=1, max_len=32,
+            async_dispatch=async_), full, 8, max_new_tokens=20) == ref
+
+
+def test_tick_block_rejects_block_below_one(markov):
+    _, _, cfg, params = markov
+    srv = serving.DecodeServer(params, cfg, max_batch=1, max_len=32,
+                               device="cpu")
+    for bad in (0, -1):
+        with pytest.raises(ValueError, match="block"):
+            srv.tick_block(bad)
+
+
+def test_prompt_feeding_slots_fall_back_to_single_ticks(markov):
+    """With prefill=False a slot feeds its prompt token by token, so
+    tick_block runs single ticks (sync and async) — the same streams."""
+    _, _, cfg, params = _fp32(markov)
+    kw = dict(max_batch=2, max_len=32, prefill=False, device="cpu")
+    want = _serve_mode(serving.DecodeServer(params, cfg, **kw), PROMPTS,
+                       max_new_tokens=6)
+    for async_ in (False, True):
+        got = _serve_mode(serving.DecodeServer(
+            params, cfg, async_dispatch=async_, **kw), PROMPTS, 4,
+            max_new_tokens=6)
+        assert got == want, async_
+
+
+def test_close_abandons_in_flight_work(markov):
+    _, _, cfg, params = markov
+    srv = serving.DecodeServer(params, cfg, max_batch=2, max_len=32,
+                               device="cpu", async_dispatch=True)
+    a = srv.submit(PROMPTS[1], max_new_tokens=8)
+    b = srv.submit(PROMPTS[2], max_new_tokens=8)
+    c = srv.submit(PROMPTS[3], max_new_tokens=8)
+    srv.tick()
+    srv.tick_block(3)
+    assert srv._inflight is not None             # a dispatch in flight
+    srv.close()
+    assert srv._inflight is None
+    assert [srv.status(r) for r in (a, b, c)] == ["dropped"] * 3
+    with pytest.raises(RuntimeError, match="abandoned"):
+        srv.result(a)
+    srv.close()                                  # idempotent
