@@ -38,7 +38,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    paged through shuffled tables, int8 KV, int4 with the W4 kernel):
    graphed tick, ``tick_block(8)`` and async streams equal to the eager
    tick's exactly, captured logits within PATH_TOL of the eager step's;
-   then five AdamW train steps of
+   budgeted (``prefill_budget=16``) graphed, block and async streams held
+   to the eager monolithic ones (a PATH_TOL tie at most), each admission
+   kind's graph bit-equal to its eager body from one cache state (and
+   after its feeds change: another slot, offset and length), and a
+   prompt re-admitted after a drained server's ``warmup()`` bit-equal to
+   the same walk without it; then five AdamW train steps of
    small fp32 models (MHA with learned positions, GQA with rope; accum 1
    and 2; the LayerNorm ones again with ``PADDLE_TPU_FUSED_LN=1``) on the
    card against the same steps on the CPU;
@@ -61,7 +66,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    max_len=512)`` — 8 greedy requests, prompts of 40..300 tokens (prefill
    buckets 64, 128, 256, 512), 64 new tokens each — warmed up
    (``DecodeServer.warmup``), then served through the step Engine: every
-   tick one replay of the captured step graph, with the kernels'
+   tick one replay of the captured step graph and every admission one
+   replay of its bucket's graph, with the kernels'
    launch counts read around it (every flash forward on the tensor-core
    body, every decode launch on the tick body: ``tick_launches``; a
    replay counts the launches it captured) and one
@@ -69,28 +75,40 @@ Phases, in order; any failure raises and the script exits non-zero:
    served three more ways, a fresh server each on the same weights —
    eager ticks (the private ``_graphs=False``), graphed
    ``tick_block(8)``, graphed ``async_dispatch=True`` ticks — with
-   tokens/s, tick ms, admission ms, peak memory and graphs for each of
-   the four, every graphed way's streams held to the eager ones by the
-   tie rule (the same for phases 7 and 8);
+   tokens/s, tick ms, admission ms, peak memory, warmup seconds and
+   graphs for each of the four, every graphed way's streams held to the
+   eager ones by the tie rule; then one admission profiled eager and
+   graphed (``profile_serving.profile_admission``: wall, device ms,
+   launches) — the same for phases 7 and 8;
 7. the paged path, as ``build_paged_path`` defines it: the same model
    behind ``DecodeServer(layout="paged", block_size=16, num_blocks=128)``,
    8 chat requests sharing a 200-token system prompt — served tokens equal
    to a contiguous server's on the same prompts and one request to a solo
    ``generate``; the allocator's prefix hits, copies-on-write and radix
    splits; the kernels' launch counts read around it, each admission's
-   width C and the tensor-core paged launches it added: every launch of
+   width C and the tensor-core paged launches it added (each chunk one
+   replay of its width's graph): every launch of
    the path is the block-table kernel's (none of the contiguous one), each
    tick on its tick body, each admission at C >= R_TC on its tensor-core
    body reading the pool in place (the tick body below);
 8. the W4 path, as ``build_w4_path`` defines it: the main path's model and
    requests with int4 weights (group 64) and ``PADDLE_TPU_W4_KERNEL=1`` —
-   every tick a replay of the step graph, exactly 6 W4 launches per layer
+   every tick a replay of the step graph and every admission of its
+   bucket's, exactly 6 W4 launches per layer
    in every decode tick and in every
    admission at a prefill bucket of at most 256 rows (none at 512), each
    on the tensor-core body (``tc_launches``), every decode launch on the
    tick body, two
    requests checked against a solo ``generate`` on the dequantizing route
-   (flag off), weight bytes against the bf16 model's;
+   (flag off), weight bytes against the bf16 model's; between phases 7
+   and 8, the budgeted serve: the main path's requests arriving over time
+   (4 at once, then one every 8 ticks) on two graphed servers,
+   monolithic and ``prefill_budget=64`` — streams equal by the tie rule,
+   each long prompt claimed, chunks interleaved, each chunk one replay;
+   the monolithic serve's longest stall against the budgeted serve's
+   longest tick while a slot admits; then greedy ``generate.generate``
+   on GPT-1.3B (8 prompts of 64 tokens, 32 new): one replay of its
+   captured step a position, rows equal by the tie rule to a server's;
 9. the train path, as ``paddle_tpu_torch.tools.profile_train.
    build_train_path`` defines it: GPT-1.3B with fp32 master weights from a
    seed, batch 8 x 2048 tokens in 8 micro-batches, AdamW (bf16 moments),
@@ -851,6 +869,80 @@ def check_paged_path_vs_cpu(torch, gpt, G, kv_pool, serving):
     return worst
 
 
+# the admission kinds' graph names (``text/engine.py``)
+ADMISSION_GRAPHS = ("serving.prefill@", "serving.prefill_chunk@",
+                    "serving.paged_prefill@")
+
+
+def admission_bits(torch, engine, srv, prompts):
+    """From one cache state of ``srv`` (a graphed server; four of
+    ``prompts`` admitted), each admission kind's graph against its eager
+    body on the same binding — the contiguous bucket and chunk kinds, or
+    the paged kind — at two feeds, the second another slot, offset and
+    length (a replay after the feeds changed).  Returns {kind: logits and
+    cache bit-equal at both}."""
+    for p in prompts[:4]:
+        srv.submit(p, max_new_tokens=12)
+    slot_of = {len(st["prompt"]): s for s, st in srv._slots.items()}
+    if srv._paged:      # rows the slots' tables map: [0, 112), [0, 48)
+        cases = [("paged_prefill", dict(bucket=32),
+                  [(64, 30, slot_of[100]), (16, 20, slot_of[40])])]
+    else:
+        cases = [("prefill", dict(bucket=64),
+                  [(0, 40, slot_of[40]), (0, 17, slot_of[17])]),
+                 ("prefill_chunk", dict(width=32),
+                  [(32, 32, slot_of[100]), (64, 20, slot_of[40])])]
+    rng = np.random.default_rng(5)
+    out = {}
+    for kind, kw, feeds in cases:
+        spec = srv._spec(**kw)
+        width = kw.get("bucket") or kw.get("width")
+        eager = engine._Eager(engine._REGISTRY[kind].build(spec), srv._bind,
+                              kind)
+        graph = engine.ENGINE.get(kind, spec)
+        same = True
+        for pos0, length, slot in feeds:
+            toks = rng.integers(0, srv.cfg.vocab_size, length).tolist()
+            f = (srv._feeds(toks, width, length, slot) if kind == "prefill"
+                 else srv._feeds(toks, width, pos0, length, slot))
+            snap = {n: t.clone() for n, t in srv.cache.items()}
+            want = eager(*f)[0].clone()
+            want_cache = {n: t.clone() for n, t in srv.cache.items()}
+            for n, t in srv.cache.items():
+                t.copy_(snap[n])
+            got = graph(*f)[0].clone()
+            # a paged pool's sink block takes pad rows in no fixed order
+            live = ((lambda n, c: c[n][:, :-1] if n != "tables" else c[n])
+                    if srv._paged else (lambda n, c: c[n]))
+            same = same and torch.equal(got, want) and all(
+                torch.equal(live(n, srv.cache), live(n, want_cache))
+                for n in snap)
+        out[kind] = same
+    srv.close()
+    return out
+
+
+def readmit_after_warmup(torch, make, prompt):
+    """Serve ``prompt`` to the end on a fresh server from ``make``, warm it
+    up, admit the prompt again (a paged server adopts its indexed
+    blocks): the admission logits, against those of the same walk without
+    the warmup.  True when bit-equal."""
+    def run(warm):
+        srv = make()
+        serve(torch, srv, [prompt], 4)
+        if warm:
+            srv.warmup(prompt_lens=[len(prompt)])
+        seen = []
+        prefill = srv._prefill_slot
+        srv._prefill_slot = lambda p, s: seen.append(
+            prefill(p, s).clone()) or seen[-1]
+        serve(torch, srv, [prompt], 4)
+        srv.close()
+        return seen[0]
+
+    return torch.equal(run(True), run(False))
+
+
 def check_graphs_vs_eager(torch, gpt, serving, woq, engine):
     """Small fp32 models served through the step Engine's graphs against
     eager steps (the private ``_graphs=False``) on the card: greedy
@@ -859,8 +951,16 @@ def check_graphs_vs_eager(torch, gpt, serving, woq, engine):
     new tokens); the captured step's logits sit within PATH_TOL of the
     eager step's from one cache state.  Contiguous (MHA with learned
     positions, GQA with rope), paged through shuffled block tables, int8
-    KV, int4 weights with the W4 kernel.  Returns (worst logit gap, every
-    case bit-equal)."""
+    KV, int4 weights with the W4 kernel.  Then admission: the budgeted
+    (``prefill_budget=16``) graphed, block8 and async streams against the
+    eager monolithic ones (equal, or leaving them on a PATH_TOL tie: the
+    chunk route sums in another order than the bucket's flash); each
+    admission kind's graph bit-equal to its eager body
+    (:func:`admission_bits`); and re-admission after a drained server's
+    warmup bit-equal to the same walk without it
+    (:func:`readmit_after_warmup`; paged, sync and async).  Returns
+    (worst logit gap, every step case bit-equal, every admission check
+    held)."""
     base = dict(vocab_size=512, hidden_size=256, num_layers=2,
                 num_heads=2, max_seq_len=256, dtype=torch.float32)
     gqa = dict(num_heads=4, num_kv_heads=2, hidden_size=512,
@@ -875,7 +975,7 @@ def check_graphs_vs_eager(torch, gpt, serving, woq, engine):
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, 512, n).tolist()
                for n in (5, 40, 100, 17, 60, 33)]
-    worst, bits = 0.0, True
+    worst, bits, admitted = 0.0, True, True
     for name, kw, kv, lay, gs in cases:
         os.environ["PADDLE_TPU_KV_DTYPE"] = kv
         if gs:
@@ -928,9 +1028,36 @@ def check_graphs_vs_eager(torch, gpt, serving, woq, engine):
             f"{PATH_TOL})")
         if not gap <= PATH_TOL:
             raise AssertionError(f"{name}: captured logits {gap} from eager")
+        long = sum(len(p) > 16 for p in prompts)
+        for way, extra, block in (("graph", {}, None), ("block8", {}, 8),
+                                  ("async", dict(async_dispatch=True),
+                                   None)):
+            srv = server(True, prefill_budget=16, **extra)
+            got = serve(torch, srv, prompts, 12, block)[0]
+            st = srv.stats()
+            srv.close()
+            for r in range(len(prompts)):
+                check_tokens(torch, gpt, params, cfg, prompts[r], got[r],
+                             ref[r], f"{name} budgeted {way} request {r}",
+                             tol=PATH_TOL)
+            if st["serving.admitting_claims"] != long \
+                    or st["serving.prefill_chunks_interleaved"] <= long:
+                raise AssertionError(f"{name} budgeted {way}: {st}")
+        adm = admission_bits(torch, engine, server(True), prompts)
+        c1 = {a: readmit_after_warmup(torch, lambda a=a: server(
+                  True, async_dispatch=a), prompts[1])
+              for a in ((False, True) if lay else (False,))}
+        log(f"  {name}: budgeted graph, block8 and async streams held to "
+            f"the eager monolithic ones; admission graphs bit-equal to "
+            f"eager {adm}; re-admission after warmup bit-equal (async: "
+            f"sync) {c1}")
+        if not (all(adm.values()) and all(c1.values())):
+            raise AssertionError(f"{name}: admission graphs {adm}, "
+                                 f"re-admission after warmup {c1}")
+        admitted = admitted and all(adm.values()) and all(c1.values())
         os.environ.pop("PADDLE_TPU_W4_KERNEL", None)
     os.environ.pop("PADDLE_TPU_KV_DTYPE", None)
-    return worst, bits
+    return worst, bits, admitted
 
 
 def check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW, fn):
@@ -1368,12 +1495,15 @@ def serve(torch, srv, prompts, new, block=None):
     return [srv.result(r) for r in rids], t_admit, ticks, wall
 
 
-def check_tokens(torch, gpt, params, cfg, prompt, got, ref, what):
+def check_tokens(torch, gpt, params, cfg, prompt, got, ref, what,
+                 tol=TIE_TOL):
     """``got`` equals the reference stream ``ref`` (both greedy
-    continuations of ``prompt``), or first leaves it on a bf16 tie: in a
+    continuations of ``prompt``), or first leaves it on a tie: in a
     teacher-forced forward over prompt + ref, the logit of got's token at
-    the divergence is within TIE_TOL of the best.  Returns None when
-    equal, else (index, gap) — gap = best logit - got's logit there."""
+    the divergence is within ``tol`` of the best (TIE_TOL, a bf16 tie; on
+    the small fp32 models PATH_TOL, the logit gap two correct routes may
+    show).  Returns None when equal, else (index, gap) — gap = best logit
+    - got's logit there."""
     if got == ref:
         return None
     i = next(j for j, (a, b) in enumerate(zip(got, ref)) if a != b)
@@ -1381,8 +1511,8 @@ def check_tokens(torch, gpt, params, cfg, prompt, got, ref, what):
     row = gpt.forward(params, seq, cfg)[0, len(prompt) - 1 + i].float()
     gap = (row.max() - row[got[i]]).item()
     log(f"  {what}: leaves the reference at token {i} of {len(ref)} on a "
-        f"logit {gap:.4g} under the best (tie tolerance {TIE_TOL})")
-    if not gap <= TIE_TOL:
+        f"logit {gap:.4g} under the best (tie tolerance {tol})")
+    if not gap <= tol:
         raise AssertionError(f"{what}: differs from the reference at token "
                              f"{i}: {got[:i + 3]} vs {ref[:i + 3]}, logit "
                              f"gap {gap}")
@@ -1390,7 +1520,14 @@ def check_tokens(torch, gpt, params, cfg, prompt, got, ref, what):
 
 
 def check_solo(torch, gpt, G, params, cfg, prompt, served, new):
+    """``served`` against a solo ``generate`` of ``prompt`` by the tie
+    rule; then the generate cache the Engine keeps (with a reference to
+    ``params``) is purged, so the path's weights leave the card with it.
+    Called with every server of ``cfg`` closed."""
+    from paddle_tpu_torch.text import engine
+
     solo = G.generate(params, cfg, [prompt], new, device="cuda")
+    engine.ENGINE.purge(cfg)
     return check_tokens(torch, gpt, params, cfg, prompt, served,
                         solo[0, len(prompt):].tolist(), "vs solo generate")
 
@@ -1405,13 +1542,20 @@ def way_stats(torch, engine, srv, served, t_admit, ticks, wall, peak, warm,
               block=None):
     """One way's numbers: tokens/s over the serve's wall, per-call ms
     (a call: one tick, or one tick_block of ``block`` steps), admission
-    ms (the submits), peak memory, the server's graphs and its warmup."""
+    ms (the submits), peak memory, the server's graphs and its warmup.
+    ``reserved_gb``: the caching allocator's memory with the server alive
+    and the free cached blocks dropped — weights, cache and every graph's
+    private pool, which ``max_memory_allocated`` does not see once its
+    capture has freed its transients into the pool."""
     n_tok = sum(len(s) for s in served)
+    gc.collect()
+    torch.cuda.empty_cache()
     return {"tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
             "calls": len(ticks), "steps_per_call": block or 1,
             "tick_ms_mean": 1e3 * statistics.mean(ticks),
             "tick_ms_median": 1e3 * statistics.median(ticks),
             "admission_ms": 1e3 * t_admit, "peak_mem_gb": peak / 1e9,
+            "reserved_gb": torch.cuda.memory_reserved() / 1e9,
             "graphs": len(engine.ENGINE.graphs(srv._bind)),
             "warmup_s": sum(warm.values())}
 
@@ -1422,17 +1566,54 @@ def step_replays(engine, srv):
                if g.name == "serving.step")
 
 
-def graphed_serve(torch, engine, srv, ticks, replays0):
+def admission_replays(engine, srv):
+    """Replays of the server's admission graphs so far."""
+    return sum(g.replays for g in engine.ENGINE.graphs(srv._bind)
+               if g.name.startswith(ADMISSION_GRAPHS))
+
+
+def replays_now(engine, srv):
+    """(step, admission) replays of ``srv``'s graphs so far: read after
+    warmup, the baseline :func:`graphed_serve` counts from."""
+    return step_replays(engine, srv), admission_replays(engine, srv)
+
+
+def graphed_serve(torch, engine, srv, ticks, replays0, admissions):
     """The gated serve went through captured graphs: the server's step
-    graph replayed once a tick (``replays0``: its replays before the
-    serve, the warmup's).  Returns the server's graph count."""
+    graph replayed once a tick, and an admission graph once an admission
+    call (``admissions``: the serve's prefill and chunk calls);
+    ``replays0``: :func:`replays_now` before the serve, after the
+    warmup's.  Returns the server's graph count."""
     graphs = {g.name for g in engine.ENGINE.graphs(srv._bind)}
-    replays = step_replays(engine, srv) - replays0
-    if replays != len(ticks):
+    replays = step_replays(engine, srv) - replays0[0]
+    adm = admission_replays(engine, srv) - replays0[1]
+    if replays != len(ticks) or adm != admissions:
         raise AssertionError(f"the serve's {len(ticks)} ticks replayed the "
-                             f"step graph {replays} times (graphs: "
+                             f"step graph {replays} times and its "
+                             f"{admissions} admission calls the admission "
+                             f"graphs {adm} times (graphs: "
                              f"{sorted(graphs)})")
     return len(graphs)
+
+
+def admission_profiles(torch, wl, path, params, cfg, prompts):
+    """One admission of ``path``, eager and graphed
+    (``profile_serving.profile_admission``): wall (profiled and not),
+    device ms and kernel launches of each, logged; returns {arm: row}."""
+    from torch.profiler import ProfilerActivity
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    rows = {}
+    for arm in ("eager", "graph"):
+        gc.collect()
+        torch.cuda.empty_cache()
+        rows[arm] = r = wl.profile_admission(torch, path, params, cfg,
+                                             prompts, arm, acts)
+        log(f"  {path} admission, {arm}: wall {r['unprofiled_wall_ms']:.3f} "
+            f"ms ({r['wall_ms']:.3f} profiled), device "
+            f"{r['device_ms']:.3f} ms, {r['launches']:.0f} launches "
+            f"({r['what']})")
+    return rows
 
 
 def serving_ways(torch, gpt, engine, wl, path, cfg, params, prompts, new,
@@ -1473,8 +1654,11 @@ def serving_ways(torch, gpt, engine, wl, path, cfg, params, prompts, new,
         log(f"  {path} {name}: tokens/s {w['tokens_per_s']:.1f}, tick ms "
             f"mean {w['tick_ms_mean']:.2f} median {w['tick_ms_median']:.2f} "
             f"({w['steps_per_call']}-step calls), admission "
-            f"{w['admission_ms']:.1f} ms, peak {w['peak_mem_gb']:.2f} GB, "
-            f"{w['graphs']} graphs")
+            f"{w['admission_ms']:.1f} ms, peak {w['peak_mem_gb']:.4f} GB, "
+            f"reserved {w['reserved_gb']:.4f} GB "
+            f"({1e3 * (w['reserved_gb'] - ways['eager']['reserved_gb']):+.1f}"
+            f" MB over eager), {w['graphs']} graphs, warmup "
+            f"{w['warmup_s']:.3f} s")
     return ways
 
 
@@ -1490,7 +1674,7 @@ def main_path(torch, gpt, G, serving, engine, ks, wl):
     buckets = sorted({serving._pow2_bucket(n, 512) for n in lens})
     assert buckets == [64, 128, 256, 512], buckets
     warm = srv.warmup(prompt_lens=lens)
-    replays0 = step_replays(engine, srv)
+    replays0 = replays_now(engine, srv)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1500,10 +1684,12 @@ def main_path(torch, gpt, G, serving, engine, ks, wl):
     tc = tc_counts(ks)
     tick = tick_counts(ks)
     peak = torch.cuda.max_memory_allocated()
-    n_graphs = graphed_serve(torch, engine, srv, ticks, replays0)
+    n_graphs = graphed_serve(torch, engine, srv, ticks, replays0,
+                             len(prompts))
     n_tok = sum(len(s) for s in served)
     log(f"  served {len(served)} requests, {n_tok} tokens in {wall:.3f} s "
-        f"({len(ticks)} ticks; admission prefill {t_admit * 1e3:.1f} ms)")
+        f"({len(ticks)} ticks; admission prefill {t_admit * 1e3:.1f} ms, "
+        f"each admission one replay of its bucket's graph)")
     log(f"  launches in the main path: {launches}; on tensor-core bodies: "
         f"{tc}; on the tick body: {tick}")
     if not (launches["flash_attention_fwd"] and launches["decode_attention"]):
@@ -1528,6 +1714,7 @@ def main_path(torch, gpt, G, serving, engine, ks, wl):
     srv.close()
     ways = serving_ways(torch, gpt, engine, wl, "main", cfg, params, prompts,
                         new, served, graph_way)
+    admission = admission_profiles(torch, wl, "main", params, cfg, prompts)
 
     solo_div = check_solo(torch, gpt, G, params, cfg, prompts[0], served[0],
                           new)
@@ -1545,7 +1732,7 @@ def main_path(torch, gpt, G, serving, engine, ks, wl):
         "admission_ms": 1e3 * t_admit, "peak_mem_gb": peak / 1e9,
         "launches": launches, "tc_launches": tc, "tick_launches": tick,
         "graphs": n_graphs, "solo_generate_equal": solo_div is None,
-        "solo_divergence": solo_div, "ways": ways,
+        "solo_divergence": solo_div, "ways": ways, "admission": admission,
     }
     log(f"  tokens/s {stats['tokens_per_s']:.1f}, mean tick "
         f"{stats['tick_ms_mean']:.2f} ms, peak memory "
@@ -1553,7 +1740,7 @@ def main_path(torch, gpt, G, serving, engine, ks, wl):
     return stats, launches
 
 
-def paged_path(torch, gpt, G, serving, kv_pool, engine, ks, wl):
+def paged_path(torch, gpt, G, serving, engine, ks, wl):
     from paddle_tpu_torch.ops.decode_attention import R_TC
     cfg, params, srv, prompts = wl.build_paged_path("cuda", seed=0)
     new, L = wl.NEW, cfg.num_layers
@@ -1565,20 +1752,28 @@ def paged_path(torch, gpt, G, serving, kv_pool, engine, ks, wl):
     cont.close()
     del cont
     warm = srv.warmup(prompt_lens=lens)
-    replays0 = step_replays(engine, srv)
+    replays0 = replays_now(engine, srv)
 
     chunk_calls = []        # (pos0, length, width C, tc launches added)
-    plain_chunk = kv_pool.paged_prefill_chunk
+    get = engine.ENGINE.get
     dec = ks["paged_decode_attention"]
 
-    def counted_chunk(*args, **kw):
-        before = dec.tc_launches
-        out = plain_chunk(*args, **kw)
-        chunk_calls.append((*args[3:5], args[2].shape[1],
-                            dec.tc_launches - before))
-        return out
+    def counted_get(kind, spec):
+        # each admission chunk call (a graph replay, which counts the
+        # launches it captured), read from its feeds
+        fn = get(kind, spec)
+        if kind != "paged_prefill":
+            return fn
 
-    kv_pool.paged_prefill_chunk = counted_chunk
+        def counted(tokens, pos0, length, slot):
+            before = dec.tc_launches
+            out = fn(tokens, pos0, length, slot)
+            chunk_calls.append((int(pos0), int(length), tokens.shape[1],
+                                dec.tc_launches - before))
+            return out
+        return counted
+
+    engine.ENGINE.get = counted_get
     try:
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
@@ -1588,9 +1783,10 @@ def paged_path(torch, gpt, G, serving, kv_pool, engine, ks, wl):
         tc = tc_counts(ks)
         tick = tick_counts(ks)
     finally:
-        kv_pool.paged_prefill_chunk = plain_chunk
+        del engine.ENGINE.get
     peak = torch.cuda.max_memory_allocated()
-    n_graphs = graphed_serve(torch, engine, srv, ticks, replays0)
+    n_graphs = graphed_serve(torch, engine, srv, ticks, replays0,
+                             len(chunk_calls))
     load = srv.load_stats()
     pool = load["kv_pool"]
     n_tok = sum(len(s) for s in served)
@@ -1642,6 +1838,7 @@ def paged_path(torch, gpt, G, serving, kv_pool, engine, ks, wl):
     srv.close()
     ways = serving_ways(torch, gpt, engine, wl, "paged", cfg, params,
                         prompts, new, served, graph_way)
+    admission = admission_profiles(torch, wl, "paged", params, cfg, prompts)
     solo_div = check_solo(torch, gpt, G, params, cfg, prompts[0], served[0],
                           new)
     stats = {
@@ -1661,7 +1858,7 @@ def paged_path(torch, gpt, G, serving, kv_pool, engine, ks, wl):
         "contiguous_divergences": {r: d for r, d in cont_div.items()
                                    if d is not None},
         "solo_generate_equal": solo_div is None, "solo_divergence": solo_div,
-        "graphs": n_graphs, "ways": ways,
+        "graphs": n_graphs, "ways": ways, "admission": admission,
     }
     log(f"  tokens/s {stats['tokens_per_s']:.1f}, mean tick "
         f"{stats['tick_ms_mean']:.2f} ms, peak memory "
@@ -1691,7 +1888,7 @@ def w4_path(torch, gpt, G, serving, woq, wm, engine, ks, wl):
     want_admit = [per_pass if b <= wm._N_CAP else 0 for b in buckets]
     w4 = ks["w4_matmul"]
     warm = srv.warmup(prompt_lens=wl.LENS)
-    replays0 = step_replays(engine, srv)
+    replays0 = replays_now(engine, srv)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1718,7 +1915,8 @@ def w4_path(torch, gpt, G, serving, woq, wm, engine, ks, wl):
     wall = time.perf_counter() - t0
     launches = launch_counts(ks)
     peak = torch.cuda.max_memory_allocated()
-    n_graphs = graphed_serve(torch, engine, srv, ticks, replays0)
+    n_graphs = graphed_serve(torch, engine, srv, ticks, replays0,
+                             len(prompts))
     served = [srv.result(r) for r in rids]
     n_tok = sum(len(x) for x in served)
     log(f"  served {len(served)} requests, {n_tok} tokens in {wall:.3f} s "
@@ -1761,6 +1959,7 @@ def w4_path(torch, gpt, G, serving, woq, wm, engine, ks, wl):
     srv.close()
     ways = serving_ways(torch, gpt, engine, wl, "w4", cfg, params, prompts,
                         new, served, graph_way)
+    admission = admission_profiles(torch, wl, "w4", params, cfg, prompts)
     # the reference: the same int4 weights through the dequantizing route
     os.environ["PADDLE_TPU_W4_KERNEL"] = "0"
     solo_div = {r: check_solo(torch, gpt, G, params, cfg, prompts[r],
@@ -1777,7 +1976,7 @@ def w4_path(torch, gpt, G, serving, woq, wm, engine, ks, wl):
         "w4_per_tick": per_pass, "w4_per_admission": admit,
         "w4_tc_per_admission": admit_tc,
         "launches": launches, "tc_launches": tc, "tick_launches": tick,
-        "graphs": n_graphs, "ways": ways,
+        "graphs": n_graphs, "ways": ways, "admission": admission,
         "dequant_route_equal": {r: d is None for r, d in solo_div.items()},
         "dequant_route_divergence": {r: d for r, d in solo_div.items()
                                      if d is not None},
@@ -1786,6 +1985,192 @@ def w4_path(torch, gpt, G, serving, woq, wm, engine, ks, wl):
         f"{stats['tick_ms_mean']:.2f} ms, peak memory "
         f"{stats['peak_mem_gb']:.2f} GB")
     return stats, launches
+
+
+def staggered_serve(torch, srv, prompts, new, first=4, every=8):
+    """The first ``first`` prompts at once, then one more every ``every``
+    ticks, ``tick()`` until drained.  Returns (tokens per request, wall of
+    each loop iteration — its submit and its tick, the gap the decoding
+    slots see —, whether a slot was admitting at each tick, wall
+    seconds)."""
+    t0 = time.perf_counter()
+    rids = [srv.submit(p, max_new_tokens=new) for p in prompts[:first]]
+    waiting = list(prompts[first:])
+    walls, admitting = [], []
+    while srv.pending() or waiting:
+        t1 = time.perf_counter()
+        if waiting and len(walls) % every == every - 1:
+            rids.append(srv.submit(waiting.pop(0), max_new_tokens=new))
+        admitting.append(any(st.get("admitting")
+                             for st in srv._slots.values()))
+        srv.tick()
+        walls.append(time.perf_counter() - t1)
+        if len(walls) > 20 * new:
+            raise AssertionError("server did not drain")
+    torch.cuda.synchronize()
+    return ([srv.result(r) for r in rids], walls, admitting,
+            time.perf_counter() - t0)
+
+
+BUDGET = 64     # the budgeted serve's prefill budget, tokens a round
+
+
+def budgeted_path(torch, gpt, engine, wl):
+    """The main path's 8 requests arriving over time (4 at once, then one
+    every 8 ticks), served by two fresh graphed servers of its geometry,
+    warmed up: monolithic admission, and ``prefill_budget=BUDGET``.
+    Gated: every budgeted stream equal to the monolithic one by the tie
+    rule, each prompt longer than the budget claimed, at least one chunk
+    interleaved, and every chunk one replay of the budget-width graph.
+    Reported: each serve's tokens/s, the longest loop iteration (the
+    decoding slots' longest stall) of the monolithic serve against the
+    budgeted serve's longest tick while a slot was admitting."""
+    cfg, params, mono, prompts = wl.build_main_path("cuda", seed=0)
+    lens = [len(p) for p in prompts]
+    runs = {}
+    for name in ("monolithic", "budgeted"):
+        srv = mono if name == "monolithic" else wl.make_server(
+            "main", params, cfg, prefill_budget=BUDGET)
+        warm = srv.warmup(prompt_lens=lens)
+        replays0 = replays_now(engine, srv)
+        torch.cuda.synchronize()
+        served, walls, admitting, wall = staggered_serve(torch, srv,
+                                                         prompts, wl.NEW)
+        n_tok = sum(len(x) for x in served)
+        adm_walls = [w for w, a in zip(walls, admitting) if a]
+        adm_replays = admission_replays(engine, srv) - replays0[1]
+        # device ms of one admission replay: the budget-width chunk, or
+        # the bucket of the longest prompt (300 tokens at 512)
+        if name == "budgeted":
+            fn = engine.ENGINE.get("prefill_chunk", srv._spec(width=BUDGET))
+            feeds = srv._feeds(prompts[3][:BUDGET], BUDGET, 0, BUDGET, 0)
+        else:
+            fn = engine.ENGINE.get("prefill", srv._spec(bucket=512))
+            feeds = srv._feeds(prompts[3], 512, len(prompts[3]), 0)
+        replay_ms = event_ms(torch, lambda: fn(*feeds))
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn(*feeds)
+            torch.cuda.synchronize()
+            t_prof = time.perf_counter() - t0
+        replay_families = wl.summarize(torch, prof, t_prof, 1)[
+            "device_ms_by_family"]
+        runs[name] = {
+            "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "ticks": len(walls), "warmup_s": sum(warm.values()),
+            "longest_iteration_ms": 1e3 * max(walls),
+            "median_iteration_ms": 1e3 * statistics.median(walls),
+            "admitting_ticks": len(adm_walls),
+            "longest_admitting_tick_ms": (1e3 * max(adm_walls)
+                                          if adm_walls else None),
+            "admitting_ticks_ms": [round(1e3 * w, 3) for w in adm_walls],
+            "iterations_ms": [round(1e3 * w, 3) for w in walls[:40]],
+            "admission_replay_device_ms": replay_ms,
+            "admission_replay_by_family": replay_families,
+            **srv.stats(),
+            "admission_replays": adm_replays,
+            "streams": served}
+        srv.close()
+    b, m = runs["budgeted"], runs["monolithic"]
+    long = sum(n > BUDGET for n in lens)
+    div = {r: check_tokens(torch, gpt, params, cfg, prompts[r],
+                           b["streams"][r], m["streams"][r],
+                           f"budgeted request {r} vs monolithic")
+           for r in range(len(prompts))}
+    for run in runs.values():
+        run.pop("streams")
+    log(f"  monolithic: tokens/s {m['tokens_per_s']:.1f}, longest loop "
+        f"iteration {m['longest_iteration_ms']:.2f} ms (median "
+        f"{m['median_iteration_ms']:.2f}), a 300-token admission replay "
+        f"{m['admission_replay_device_ms']:.3f} ms of device; budgeted "
+        f"{BUDGET}: tokens/s {b['tokens_per_s']:.1f}, longest tick while "
+        f"admitting {b['longest_admitting_tick_ms']:.2f} ms of "
+        f"{b['admitting_ticks']} admitting ticks (median "
+        f"{statistics.median(b['admitting_ticks_ms']):.2f}), longest "
+        f"iteration {b['longest_iteration_ms']:.2f} ms, a {BUDGET}-token "
+        f"chunk replay {b['admission_replay_device_ms']:.3f} ms of device "
+        f"(by family, profiled: {b['admission_replay_by_family']}; the "
+        f"slot's copy is cache_gather)")
+    log(f"  monolithic iterations (ms): {m['iterations_ms']}")
+    log(f"  budgeted iterations (ms): {b['iterations_ms']}; admitting "
+        f"ticks: {b['admitting_ticks_ms']}")
+    if b["serving.admitting_claims"] != long \
+            or b["serving.prefill_chunks_interleaved"] < 1:
+        raise AssertionError(f"budgeted serve: {b}")
+    # every chunk one replay; the short prompts' bucket admissions too
+    if b["admission_replays"] != (b["serving.prefill_chunks_interleaved"]
+                                  + len(lens) - long):
+        raise AssertionError(f"budgeted serve's admission replays: {b}")
+    return {"budget": BUDGET, "arrivals": "4 at once, then one every 8 "
+            "ticks", **runs,
+            "streams_equal": all(d is None for d in div.values()),
+            "divergences": {r: d for r, d in div.items() if d is not None}}
+
+
+def event_ms(torch, fn, iters=10):
+    """Device ms of one ``fn()`` (a graph replay with its feed copies),
+    CUDA events around ``iters`` back-to-back calls after one more."""
+    fn()
+    torch.cuda.synchronize()
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def generate_path(torch, gpt, G, serving, engine):
+    """Greedy ``generate.generate`` on GPT-1.3B (the main path's weights):
+    batch 8, one 64-token prompt each, 32 new tokens — gated equal by the
+    tie rule to a ``DecodeServer`` (main geometry, graphed) serving the
+    same prompts, every position one replay of the captured step (the
+    first call captures it)."""
+    cfg = gpt.gpt_1p3b()
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    prompts = np.random.default_rng(2).integers(0, cfg.vocab_size, (8, 64))
+    new, P = 32, 64
+
+    def replays():
+        return sum(g.replays for g in engine.ENGINE.graphs()
+                   if g.name == "generate.generate")
+
+    walls = []
+    for _ in range(2):          # the first call captures the step
+        r0 = replays()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = G.generate(params, cfg, prompts, new, device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if replays() - r0 != P + new - 1:
+            raise AssertionError(f"generate replayed its step "
+                                 f"{replays() - r0} times, not "
+                                 f"{P + new - 1}")
+    srv = serving.DecodeServer(params, cfg, max_batch=8, max_len=512,
+                               device="cuda")
+    ref = serve(torch, srv, prompts.tolist(), new)[0]
+    srv.close()
+    got = out[:, P:].tolist()
+    div = {r: check_tokens(torch, gpt, params, cfg, prompts[r].tolist(),
+                           got[r], ref[r], f"generate row {r} vs the server")
+           for r in range(len(got))}
+    engine.ENGINE.purge(cfg)
+    stats = {"batch": 8, "prompt": P, "new_tokens": new,
+             "replays_per_call": P + new - 1, "first_call_s": walls[0],
+             "second_call_s": walls[1],
+             "tokens_per_s": 8 * new / walls[1],
+             "server_equal": all(d is None for d in div.values()),
+             "divergences": {r: d for r, d in div.items() if d is not None}}
+    log(f"  generate: {P + new - 1} replays a call; first call "
+        f"{walls[0]:.3f} s (capture), second {walls[1]:.3f} s "
+        f"({stats['tokens_per_s']:.1f} tokens/s); rows equal to the "
+        f"server's: {stats['server_equal']} {stats['divergences']}")
+    return stats
 
 
 def train_path(torch, gpt, ks, tr, fused_ln=False, steps=4):
@@ -1932,7 +2317,8 @@ def main() -> int:
     check_paged_path_vs_cpu(torch, gpt, G, kv_pool, serving)
     log("[weight-only int8 / int4 models on the card vs the CPU]")
     check_quantized_vs_cpu(torch, gpt, G, serving, woq, wm)
-    log("[served through graphs vs eager steps: small fp32 models]")
+    log("[served through graphs vs eager steps, admission included: small "
+        "fp32 models]")
     check_graphs_vs_eager(torch, gpt, serving, woq, engine)
     log("[train steps on the card vs the CPU]")
     check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW, fn)
@@ -2002,9 +2388,22 @@ def main() -> int:
     log(json.dumps({"main_path": stats}))
 
     log("[paged path: DecodeServer(layout='paged'), gpt_1p3b]")
-    pstats, by_path["paged"] = paged_path(torch, gpt, G, serving, kv_pool,
-                                          engine, ks, wl)
+    pstats, by_path["paged"] = paged_path(torch, gpt, G, serving, engine,
+                                          ks, wl)
     log(json.dumps({"paged_path": pstats}))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[budgeted serve: the main path, prefill_budget={BUDGET}, "
+        f"staggered arrivals]")
+    bstats = budgeted_path(torch, gpt, engine, wl)
+    log(json.dumps({"budgeted_serve": bstats}))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[generate: gpt_1p3b, batch 8, 64-token prompts, 32 new tokens]")
+    gstats = generate_path(torch, gpt, G, serving, engine)
+    log(json.dumps({"generate": gstats}))
 
     gc.collect()                    # the bf16 serving models leave the card
     torch.cuda.empty_cache()

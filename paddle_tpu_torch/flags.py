@@ -96,14 +96,36 @@ def w4_kernel() -> bool:
     return os.environ.get("PADDLE_TPU_W4_KERNEL", "") == "1"
 
 
+def prefill_budget() -> int:
+    """Per-scheduler-round admission prefill token budget
+    (``PADDLE_TPU_PREFILL_BUDGET``, default 0 = monolithic admission), the
+    default of ``DecodeServer(prefill_budget=)``.  When > 0, a prompt
+    longer than the budget is admitted in budget-wide chunks, one a
+    scheduler round between decode steps, so its prefill never stalls the
+    decoding slots.  The budget is the width of the admission steps — a
+    captured shape — so the raw string is part of
+    :func:`decode_jit_key`."""
+    v = os.environ.get("PADDLE_TPU_PREFILL_BUDGET", "0")
+    try:
+        b = int(v)
+    except ValueError:
+        raise ValueError(
+            f"PADDLE_TPU_PREFILL_BUDGET={v!r}: expected an integer >= 0 "
+            f"(0 keeps monolithic admission)")
+    if b < 0:
+        raise ValueError(f"PADDLE_TPU_PREFILL_BUDGET={b}: must be >= 0")
+    return b
+
+
 def decode_jit_key() -> tuple:
     """The decode-routing flags a captured step bakes in — the port's copy
     of ``paddle_tpu/flags.py``'s ``decode_jit_key``, cut to the flags the
     port reads: the W4 kernel gate (``woq.mm``), the fused LayerNorm
-    (``gpt._norm``), the KV-cache storage dtype, layout and block size.
-    ``text/engine.cfg_key`` folds it into every step key, so flipping one
-    of them mid-process keys a new CUDA graph instead of replaying one
-    captured on the other route."""
+    (``gpt._norm``), the KV-cache storage dtype, layout and block size,
+    and the admission prefill budget.  ``text/engine.cfg_key`` folds it
+    into every step key, so flipping one of them mid-process keys a new
+    CUDA graph instead of replaying one captured on the other route."""
     return (os.environ.get("PADDLE_TPU_W4_KERNEL", ""),
             os.environ.get("PADDLE_TPU_FUSED_LN", ""),
-            kv_cache_dtype(), kv_layout(), kv_block_size())
+            kv_cache_dtype(), kv_layout(), kv_block_size(),
+            os.environ.get("PADDLE_TPU_PREFILL_BUDGET", ""))

@@ -1,5 +1,5 @@
 """The step Engine: one registry that builds, caches and replays every
-decode step the server runs.
+step the server and ``generate`` run.
 
 Counterpart of ``paddle_tpu/text/engine.py``.  The JAX Engine compiles
 each step once per config value and re-launches the executable; here a
@@ -11,17 +11,21 @@ wrappers of an eager step.
   model config (whose :func:`cfg_key` folds in ``flags.decode_jit_key()``
   — the W4 and fused-LN routes, KV dtype, layout and block size, all
   baked into a captured graph), the layout tag, prompt bucket or chunk
-  width, block length, and an un-keyed ``payload``: the server's
-  :class:`Binding`.
+  width, block length, ``generate``'s knobs and prompt shape, and an
+  un-keyed ``payload``: the server's :class:`Binding`.
 * the registry — ``@register(kind, key=..., name=...)`` builders, each
-  keyed only by the spec fields it reads.  ``step``, ``sample``,
-  ``block``, ``sample_block``, ``async``, ``async_block`` and
-  ``async_sample_block`` are captured on the card; ``prefill``,
-  ``prefill_chunk`` and ``paged_prefill`` are registered eager (their
-  graphs are later work).  On the CPU every kind runs its plain callable.
+  keyed only by the spec fields it reads.  Every kind is captured on the
+  card: the decode ticks (``step``, ``sample``, ``block``,
+  ``sample_block``, ``async``, ``async_block``, ``async_sample_block``),
+  admission (``prefill`` per bucket, ``prefill_chunk`` per width,
+  ``paged_prefill`` per chunk width — fed the tokens and the offset,
+  length and slot as device tensors, so one graph serves any prompt and
+  slot) and ``generate``'s decode step.  On the CPU every kind runs its
+  plain callable.
 * :class:`Engine` — the bounded, thread-safe cache (``_LRU``, sized by
   ``PADDLE_TPU_STEP_CACHE_SIZE`` as in the JAX package), ``get``,
-  ``purge`` and ``warmup``.
+  ``purge``, ``warmup`` and the caches ``generate`` binds its steps to
+  (:meth:`Engine.generate_binding`).
 
 The one design difference from the JAX Engine: **a graph is bound to
 buffers.**  It reads the server's params and cache leaves (the paged
@@ -39,8 +43,9 @@ first — it builds the kernels (``ops/_build.load``), sets their
 (``ops/decode_attention._ticket_buf``), which would otherwise be born
 inside the capture — then ``torch.cuda.graph`` records the same call.
 Every step is idempotent on the cache (it rewrites the rows it attends
-from the same inputs), so the eager run and the replay that follows
-leave the cache as one step would.  A capture that fails raises; there
+from the same inputs — an admission the rows of its prompt or chunk), so
+the eager run and the replay that follows leave the cache as one step
+would.  A capture that fails raises; there
 is no eager fallback on the card.
 
 The kernel wrappers count launches in Python (``.launches``,
@@ -156,6 +161,9 @@ class Binding:
     def __init__(self, params, cache: dict, graphs: bool = True):
         self.params = params
         self.cache = cache
+        # held by a caller driving the binding's steps from its own loop
+        # (``generate``), so two threads never interleave on one cache
+        self.lock = threading.Lock()
         self.device = cache["k"].device
         self.graphs = bool(graphs) and self.device.type == "cuda"
         self.key = (str(self.device), self.graphs,
@@ -174,7 +182,11 @@ class StepSpec:
       (``paged_prefill``);
     * ``width`` — the chunk width of ``prefill_chunk``;
     * ``k`` — the block length of the block kinds;
-    * ``extra`` — kind-specific scalars folded into the key as they are;
+    * ``extra`` — kind-specific scalars folded into the key as they are
+      (``generate``'s ``(max_new_tokens, top_k, top_p)``, as in the JAX
+      registry);
+    * ``shape`` — the feed shape of a kind the JAX package retraces per
+      shape and a graph fixes (``generate``'s prompt [B, P]);
     * ``payload`` — the server's :class:`Binding`, never keyed by value
       (the Engine adds its ``key``)."""
 
@@ -184,6 +196,7 @@ class StepSpec:
     width: int | None = None
     k: int | None = None
     extra: tuple = ()
+    shape: tuple = ()
     payload: Any = dataclasses.field(default=None, compare=False)
 
     def key(self, kind: str) -> tuple:
@@ -193,26 +206,25 @@ class StepSpec:
 
 
 class _Kind:
-    __slots__ = ("kind", "key", "name", "build", "graphed")
+    __slots__ = ("kind", "key", "name", "build")
 
-    def __init__(self, kind, key, name, build, graphed):
-        self.kind, self.key, self.name = kind, key, name
-        self.build, self.graphed = build, graphed
+    def __init__(self, kind, key, name, build):
+        self.kind, self.key, self.name, self.build = kind, key, name, build
 
 
 _REGISTRY: dict[str, _Kind] = {}
 
 
-def register(kind: str, *, key: Callable, name, graphed: bool = True):
+def register(kind: str, *, key: Callable, name):
     """Register a step builder: ``key(spec)`` -> step key (reading only
     the fields the step depends on), ``name(spec)`` -> its name (a str
-    for a fixed one), ``graphed`` -> captured on the card or run eagerly.
-    The builder takes the :class:`StepSpec` and returns the step body
-    ``body(params, cache, *feeds) -> tuple of tensors``."""
+    for a fixed one).  The builder takes the :class:`StepSpec` and returns
+    the step body ``body(params, cache, *feeds) -> tuple of tensors``,
+    captured on the card."""
     name_fn = (lambda spec, _n=name: _n) if isinstance(name, str) else name
 
     def deco(build: Callable) -> Callable:
-        _REGISTRY[kind] = _Kind(kind, key, name_fn, build, graphed)
+        _REGISTRY[kind] = _Kind(kind, key, name_fn, build)
         return build
 
     return deco
@@ -322,12 +334,12 @@ def _build_async_sample_block(spec):
     return body
 
 
-@register("prefill", graphed=False,
+@register("prefill",
           key=lambda s: ("prefill", cfg_key(s.cfg), int(s.bucket)),
           name=lambda s: f"serving.prefill@{s.bucket}")
 def _build_prefill(spec):
-    """Whole-prompt admission at one bucket (eager): (tokens [1, bucket],
-    length, slot) -> (logits [V],)."""
+    """Whole-prompt admission at one bucket: (tokens [1, bucket], length,
+    slot) -> (logits [V],); length and slot are 0-d int64 device feeds."""
     from . import generate
 
     def body(p, c, tokens, length, slot, _cfg=spec.cfg):
@@ -335,12 +347,13 @@ def _build_prefill(spec):
     return body
 
 
-@register("prefill_chunk", graphed=False,
+@register("prefill_chunk",
           key=lambda s: ("prefill_chunk", cfg_key(s.cfg), int(s.width)),
           name=lambda s: f"serving.prefill_chunk@{s.width}")
 def _build_prefill_chunk(spec):
-    """One fixed-width admission chunk on the slab (eager): (tokens
-    [1, C], pos0, length, slot) -> (logits [V],)."""
+    """One fixed-width admission chunk on the slab (``prefill_chunk=N``,
+    or a budgeted admission's chunk): (tokens [1, C], pos0, length, slot)
+    -> (logits [V],), any offset and slot."""
     from . import generate
 
     def body(p, c, tokens, pos0, length, slot, _cfg=spec.cfg):
@@ -349,18 +362,35 @@ def _build_prefill_chunk(spec):
     return body
 
 
-@register("paged_prefill", graphed=False,
+@register("paged_prefill",
           key=lambda s: ("paged_prefill", cfg_key(s.cfg), int(s.bucket)),
           name=lambda s: f"serving.paged_prefill@{s.bucket}")
 def _build_paged_prefill(spec):
-    """One admission chunk through the block tables (eager), any offset:
-    (tokens [1, C], pos0, length, slot) -> (logits [V],).  The chunk
-    function is looked up at each call."""
+    """One admission chunk through the block tables, any offset and slot:
+    (tokens [1, C], pos0, length, slot) -> (logits [V],).  Copy-on-write
+    and the table push run before it, outside the graph (the graph reads
+    the ``tables`` leaf by address)."""
     from . import kv_pool
 
     def body(p, c, tokens, pos0, length, slot, _cfg=spec.cfg):
         return (kv_pool.paged_prefill_chunk(p, c, tokens, pos0, length, slot,
                                             _cfg)[0],)
+    return body
+
+
+@register("generate",
+          key=lambda s: ("generate", cfg_key(s.cfg), *s.extra, s.shape),
+          name="generate.generate")
+def _build_generate(spec):
+    """``generate``'s decode step over its own cache: (tok [B], pos) ->
+    (logits [B, V],), pos a 0-d int32 device feed — one replay a
+    position.  Keyed as the JAX registry keys its whole-generate jit
+    (cfg, max_new_tokens, top_k, top_p), plus the prompt shape the graph
+    is fixed to."""
+    from . import generate
+
+    def body(p, c, tok, pos, _cfg=spec.cfg):
+        return (generate.decode_step(p, c, tok, pos, _cfg)[0],)
     return body
 
 
@@ -414,6 +444,7 @@ def _add_counts(delta) -> None:
 
 
 _WARM_RUNS = 1          # eager runs on the capture stream before capture
+_GEN_BINDINGS = 4       # generate caches kept (Engine.generate_binding)
 _capture_streams: dict = {}
 
 
@@ -521,11 +552,40 @@ class Engine:
     """THE step authority: build via the registry, cache by
     ``spec.key(kind)`` plus the binding, capture on the card, warm up and
     purge.  ``_steps`` is the bounded cache (``PADDLE_TPU_STEP_CACHE_SIZE``
-    entries, default 64, read at construction)."""
+    entries, default 64, read at construction); ``_gen`` holds the caches
+    ``generate`` binds its steps to (:meth:`generate_binding`)."""
 
     def __init__(self):
         self._steps = _LRU(
             int(_os.environ.get("PADDLE_TPU_STEP_CACHE_SIZE", "64")))
+        self._gen = collections.OrderedDict()
+        self._gen_mu = threading.Lock()
+
+    def generate_binding(self, params, cfg, batch: int, rows: int,
+                         device) -> Binding:
+        """The :class:`Binding` ``generate`` runs ``params`` on for a batch
+        of ``batch`` sequences of ``rows`` positions: a cache of its own
+        (``generate.init_cache``), made at the first such call and kept at
+        a fixed address, so the graph captured over it replays at every
+        later call of that shape.  At most ``_GEN_BINDINGS`` are kept (the
+        least recently used goes first, with its steps); :meth:`purge` of
+        the config frees them."""
+        from . import generate
+
+        key = (cfg_key(cfg), str(device), int(batch), int(rows),
+               tuple(t.data_ptr() for t in _param_leaves(params)))
+        evicted = []
+        with self._gen_mu:
+            bind = self._gen.get(key)
+            if bind is None:
+                bind = self._gen[key] = Binding(
+                    params, generate.init_cache(cfg, batch, rows, device))
+                while len(self._gen) > _GEN_BINDINGS:
+                    evicted.append(self._gen.popitem(last=False)[1])
+            self._gen.move_to_end(key)
+        for old in evicted:
+            self.purge(binding=old)
+        return bind
 
     def get(self, kind: str, spec: StepSpec):
         """The step ``kind`` at ``spec``, bound to ``spec.payload`` (a
@@ -541,7 +601,7 @@ class Engine:
         key = entry.key(spec) + (bind.key,)
         fn = self._steps.get(key)
         if fn is None:
-            wrap = _Graph if entry.graphed and bind.graphs else _Eager
+            wrap = _Graph if bind.graphs else _Eager
             fn = wrap(entry.build(spec), bind, entry.name(spec))
             self._steps[key] = fn
         return fn
@@ -556,10 +616,15 @@ class Engine:
         """Drop every cached step keyed to any of ``cfgs`` (whatever its
         binding) or, given a ``binding``, every step bound to it (of those
         configs only, when some are named) — releasing each graph and its
-        private pool.  Returns the number dropped."""
+        private pool.  Purging configs also frees ``generate``'s caches of
+        them.  Returns the number of steps dropped."""
         cks = [cfg_key(c) for c in cfgs if c is not None]
         if not cks and binding is None:
             return 0
+        if cks and binding is None:
+            with self._gen_mu:
+                for k in [k for k in self._gen if k[0] in cks]:
+                    del self._gen[k]
         dropped = 0
         for k in self._steps.keys():
             if (not cks or k[1] in cks) and (binding is None
@@ -576,17 +641,21 @@ class Engine:
         only: the tick step of its dispatch mode (``step``, or on an async
         server ``async_block`` at k = 1, its greedy step), the sampled
         twins when ``sample`` (``sample``, ``async``), the block
-        kinds for each size in ``blocks``, and admission's eager kernels
-        at the buckets or chunk widths of ``prompt_lens`` (default every
-        bucket up to the serving window).
+        kinds for each size in ``blocks``, and the admission steps at the
+        buckets or chunk widths of ``prompt_lens`` (default every bucket
+        up to the serving window) and at the budget width when
+        ``prefill_budget`` is set (``DecodeServer._admission_widths``).
 
         Warm steps run on the live cache with zero feeds, writing rows at
-        position 0 of every slot (through an idle paged server's empty
-        tables, into the sink block) — rows admission overwrites before
-        any mask exposes them, which holds only for requests admitted
-        later: a busy server raises.  The step counter, the counters of
-        the kernel wrappers and the server's host state are left as they
-        were, so a warmed server serves the tokens a cold one does.
+        position 0 of every slot (warm admissions: of slot 0) — rows
+        admission overwrites before any mask exposes them, which holds
+        only for requests admitted later: a busy server raises.  A paged
+        server pushes its pending pool work first: a drained server's
+        device tables may still name the retired slots' blocks, which the
+        prefix index keeps, and the warm steps must write through the
+        empty tables, into the sink block.  The step counter, the counters
+        of the kernel wrappers and the server's host state are left as
+        they were, so a warmed server serves the tokens a cold one does.
 
         Returns {name: seconds} of each build (capture or first run)."""
         if srv._inflight is not None and not srv._slots and not srv._queue:
@@ -598,6 +667,8 @@ class Engine:
                 "requests admitted later are sure to overwrite")
         if srv.cache is None:
             raise RuntimeError("the server is closed")
+        if srv._paged:
+            srv._apply_pool_ops()
         dev = srv.device
         cuda = dev.type == "cuda"
         B = srv.max_batch
@@ -641,15 +712,15 @@ class Engine:
                     if sample:
                         warm(f"sample_block{k}", "sample_block", zi, zp, key,
                              zf, zi, of, k=k)
-            for kind, width in srv._admission_widths(prompt_lens):
-                pad = srv._padded([0], width)
+            for name, kind, width in srv._admission_widths(prompt_lens):
                 if kind == "prefill":
-                    warm(f"prefill{width}", kind, pad, 1, 0, bucket=width)
+                    warm(name, kind, *srv._feeds([0], width, 1, 0),
+                         bucket=width)
                 elif kind == "prefill_chunk":
-                    warm(f"prefill_chunk{width}", kind, pad, 0, 1, 0,
+                    warm(name, kind, *srv._feeds([0], width, 0, 1, 0),
                          width=width)
                 else:
-                    warm(f"paged_prefill{width}", kind, pad, 0, 1, 0,
+                    warm(name, kind, *srv._feeds([0], width, 0, 1, 0),
                          bucket=width)
         finally:
             _set_counts(counts)

@@ -6,10 +6,13 @@ layout lives in ``text/kv_pool.py``), the single-position decode step,
 whole-prompt and chunked prefill (and the chunk math the paged prefill
 shares), the logit filter, and ``generate``.  Where the JAX module scans over layers and returns a new
 cache, this one loops over layers and **writes cache rows in place**
-(``index_put_`` / slice assignment into the [L, B, T, ...] leaves): a
+(``index_put_`` / ``index_copy_`` into the [L, B, T, ...] leaves): a
 decode step writes each layer's fresh row before that layer attends the
 cache, which is what the JAX step computes by splicing the row into its
-copy.  The returned cache is the same dict that was passed in.
+copy.  The returned cache is the same dict that was passed in.  The
+admission functions take their offset, length and slot as device
+tensors (or ints), so a captured graph serves any prompt and slot;
+``generate`` runs through the step Engine (``text/engine.py``).
 
 On a CUDA cache every cached-attention site (decode steps and prefill
 chunks) runs the split-KV decode kernel (``ops/decode_attention``) and
@@ -243,31 +246,58 @@ def _prefill_block(x, p, cfg: gpt.GPTConfig):
     return gpt._ffn_dense(x + a, p, cfg), rows
 
 
-def _merge_slot_rows(csl: dict, rows: dict, slot: int, pos0: int,
-                     length: int) -> None:
-    """Write the first ``length`` rows of a prompt chunk (leaves
-    [1, P, ...]) into one slot's rows [pos0, pos0 + length) of a layer's
-    cache — IN PLACE.  Pad rows are not written: the old tenant's rows
-    past ``length`` stay hidden by the causal mask until overwritten.
-    Shared by prefill_slot (pos0 == 0) and the chunk paths."""
+def _index(v, device) -> torch.Tensor:
+    """A position, length or slot as an int64 0-d tensor on ``device``:
+    a Python int, or a 0-d or [1] int tensor already there — what a
+    captured admission step is fed, read by no host code (a Python int
+    is for eager callers only: it is copied to the device)."""
+    if isinstance(v, torch.Tensor):
+        return v.reshape(()).to(device=device, dtype=torch.int64)
+    return torch.tensor(int(v), dtype=torch.int64, device=device)
+
+
+def _slot_rows(slot, pos0, length, P: int, T: int):
+    """(dst, src) int64 [P] of a masked merge of a P-row chunk into one
+    slot's rows [pos0, pos0 + length) of a layer cache [B, T, ...] seen as
+    [B * T, ...]: chunk row i < length goes to row slot * T + pos0 + i;
+    a pad row i >= length repeats row length - 1 (the same destination and
+    the same value), so pads write nothing of their own.  PRECONDITION
+    pos0 + P <= T: no row lands past the cache's end."""
+    i = torch.arange(P, device=length.device)
+    src = torch.minimum(i, length - 1)
+    return slot * T + pos0 + src, src
+
+
+def _merge_slot_rows(csl: dict, rows: dict, dst, src) -> None:
+    """Write a chunk's rows (leaves [1, P, ...]) into one layer's cache
+    leaves [B, T, ...] at the :func:`_slot_rows` indices — IN PLACE.  The
+    reference's masked merge: pad rows leave the old tenant's rows bit for
+    bit (they stay hidden by the causal mask until overwritten), and the
+    slot and offset are device indices.  Shared by prefill_slot (pos0 ==
+    0) and the chunk path."""
     for name, val in rows.items():
         arr = csl[name]
-        arr[slot, pos0:pos0 + length] = val[0, :length].to(arr.dtype)
+        flat = arr.view((-1,) + arr.shape[2:])
+        flat.index_copy_(0, dst, val[0].index_select(0, src).to(arr.dtype))
 
 
 @torch.no_grad()
-def prefill_slot(params, cache, tokens, length: int, slot: int,
-                 cfg: gpt.GPTConfig):
+def prefill_slot(params, cache, tokens, length, slot, cfg: gpt.GPTConfig):
     """Process one request's whole (padded) prompt in a single pass.
 
     tokens [1, P] int padded to P; ``length`` = valid prompt tokens;
-    ``slot`` = batch row of the serving cache.  Writes that slot's cache
-    rows [0, length) in place and returns (logits at position length-1
-    [V] float32, cache)."""
-    x = _embed_chunk(params, tokens, 0, cfg)
+    ``slot`` = batch row of the serving cache — each a Python int or a
+    0-d int tensor on the cache's device (a captured step's feeds).
+    Writes that slot's cache rows [0, length) in place and returns (logits
+    at position length-1 [V] float32, cache)."""
+    dev = tokens.device
+    length, slot = _index(length, dev), _index(slot, dev)
+    dst, src = _slot_rows(slot, 0, length, tokens.shape[1],
+                          cache["k"].shape[2])
+    x = _embed_chunk(params, tokens, cfg)
     for l in range(cfg.num_layers):
         x, rows = _prefill_block(x, gpt.layer(params, l), cfg)
-        _merge_slot_rows(_layer_cache(cache, l), rows, slot, 0, length)
+        _merge_slot_rows(_layer_cache(cache, l), rows, dst, src)
     return _last_logits(x, length, params, cfg), cache
 
 
@@ -276,11 +306,11 @@ def prefill_slot(params, cache, tokens, length: int, slot: int,
 # ---------------------------------------------------------------------------
 
 
-def _chunk_pre_attn(x, p, pos0: int, cfg: gpt.GPTConfig):
+def _chunk_pre_attn(x, p, pos0, cfg: gpt.GPTConfig):
     """Pre-attention half of one block on a C-token chunk [B, C, D] at
-    positions [pos0, pos0 + C): ln1 -> qkv projection (Hkv heads kept) ->
-    rope over the chunk's positions -> storage-dtype rows.  Returns
-    (q [B, C, H, hd], rows)."""
+    positions [pos0, pos0 + C) (``pos0`` an int or a 0-d tensor): ln1 ->
+    qkv projection (Hkv heads kept) -> rope over the chunk's positions ->
+    storage-dtype rows.  Returns (q [B, C, H, hd], rows)."""
     C = x.shape[1]
     q, k_new, v_new = gpt._project_qkv(gpt._norm(x, p, "ln1", cfg), p, cfg)
     if cfg.pos_embed == "rope":
@@ -290,62 +320,64 @@ def _chunk_pre_attn(x, p, pos0: int, cfg: gpt.GPTConfig):
     return q, _store_rows(k_new, v_new, cfg)
 
 
-def _chunk_attend_block(x, p, csl, pos0: int, length: int,
-                        cfg: gpt.GPTConfig):
-    """One block over a C-token chunk [1, C, D] at positions
-    [pos0, pos0 + C) against one slot's cache leaves ``csl`` [1, T, ...]
-    whose rows [0, pos0) are filled — the body of
-    :func:`prefill_slot_chunk` (``kv_pool.paged_prefill_chunk`` runs its
-    two halves around the pool's own scatter and attention).
-
-    The chunk's first ``length`` rows are written into ``csl`` at
-    [pos0, pos0 + length) IN PLACE, then row i attends rows t <= pos0 + i
-    (``_attend_cache``: on the card the decode kernel at Tq = C).  Pad
-    rows are never written: a valid row i < length sees only rows
-    <= pos0 + i, so what sits past the prompt cannot reach it, and the
-    pads' own outputs are discarded.  Returns (x_out, rows) — the chunk's
-    storage-dtype row leaves [1, C, ...]."""
-    q, rows = _chunk_pre_attn(x, p, pos0, cfg)
-    _merge_slot_rows(csl, rows, 0, pos0, length)
-    pos = torch.full((x.shape[0],), pos0, dtype=torch.int32, device=x.device)
-    attn = _attend_cache(q, csl, pos, cfg)                 # [1, C, D]
-    return _block_post_attn(x, attn, p, cfg), rows
-
-
-def _embed_chunk(params, tokens, pos0: int, cfg: gpt.GPTConfig):
-    """Embed a chunk's tokens [1, C] at positions [pos0, pos0 + C)."""
+def _embed_chunk(params, tokens, cfg: gpt.GPTConfig, pos0=None):
+    """Embed a chunk's tokens [1, C] at positions [pos0, pos0 + C): from 0
+    when ``pos0`` is None, else from a 0-d int64 tensor (a gather of the
+    position table, no host read)."""
     x = woq.embed(params, tokens, cfg.dtype)
     if cfg.pos_embed == "learned":
         C = tokens.shape[1]
-        x = x + params["wpe"][pos0:pos0 + C].to(cfg.dtype)[None]
+        wpe = (params["wpe"][:C] if pos0 is None else params["wpe"]
+               .index_select(0, pos0 + torch.arange(C, device=x.device)))
+        x = x + wpe.to(cfg.dtype)[None]
     return x
 
 
-def _last_logits(x, length: int, params, cfg: gpt.GPTConfig):
-    """Logits [V] float32 at the chunk's last valid row (the final norm
-    is per row, so only that row is normalized)."""
-    last = gpt._norm(x[:, length - 1:length], params, "ln_f", cfg)
+def _last_logits(x, length, params, cfg: gpt.GPTConfig):
+    """Logits [V] float32 at the chunk's last valid row, ``length`` a 0-d
+    int64 tensor (the final norm is per row, so only that row is
+    normalized)."""
+    last = x.index_select(1, (length - 1).reshape(1))
+    last = gpt._norm(last, params, "ln_f", cfg)
     return woq.logits(last, params, cfg.dtype)[0, 0].float()
 
 
 @torch.no_grad()
-def prefill_slot_chunk(params, cache, tokens, pos0: int, length: int,
-                       slot: int, cfg: gpt.GPTConfig):
+def prefill_slot_chunk(params, cache, tokens, pos0, length, slot,
+                       cfg: gpt.GPTConfig):
     """One fixed-size chunk of a prompt at positions [pos0, pos0 + C) for
     one slot of a contiguous cache — the multi-chunk admission step: a
     long prompt feeds as a sequence of these, each attending the slot's
-    already-filled rows [0, pos0).
+    already-filled rows [0, pos0).  ``pos0``, ``length`` and ``slot`` are
+    Python ints or 0-d int tensors on the cache's device.
 
     tokens [1, C] int (pad tail beyond ``length``).  PRECONDITION
     pos0 + C <= the cache rows and the wpe table (the server's walk
-    overlaps its last window instead of overrunning).  Writes the slot's
-    rows [pos0, pos0 + length) in place and returns (logits at the
-    chunk's last valid position [V] float32, cache)."""
-    x = _embed_chunk(params, tokens, pos0, cfg)
+    overlaps its last window instead of overrunning).  Per layer, the
+    chunk's first ``length`` rows merge into the slot's rows in place
+    (:func:`_merge_slot_rows`: pads write nothing), then row i attends the
+    slot's rows t <= pos0 + i (``_attend_cache``: on the card the decode
+    kernel at Tq = C) on a copy of the slot's rows [1, T, ...] — the slot
+    is a device index, and the kernel takes a contiguous cache.  A valid
+    row sees only rows <= pos0 + i, so what sits past the prompt cannot
+    reach it; the pads' own outputs are discarded.  Returns (logits at
+    the chunk's last valid position [V] float32, cache)."""
+    dev = tokens.device
+    pos0, length, slot = (_index(v, dev) for v in (pos0, length, slot))
+    dst, src = _slot_rows(slot, pos0, length, tokens.shape[1],
+                          cache["k"].shape[2])
+    pos = pos0.to(torch.int32).reshape(1)
+    rows_of = slot.reshape(1)
+    x = _embed_chunk(params, tokens, cfg, pos0)
     for l in range(cfg.num_layers):
-        csl = {name: arr[l, slot:slot + 1] for name, arr in cache.items()}
-        x, _ = _chunk_attend_block(x, gpt.layer(params, l), csl, pos0,
-                                   length, cfg)
+        p = gpt.layer(params, l)
+        csl = _layer_cache(cache, l)
+        q, rows = _chunk_pre_attn(x, p, pos0, cfg)
+        _merge_slot_rows(csl, rows, dst, src)
+        view = {name: arr.index_select(0, rows_of)
+                for name, arr in csl.items()}
+        attn = _attend_cache(q, view, pos, cfg)            # [1, C, D]
+        x = _block_post_attn(x, attn, p, cfg)
     return _last_logits(x, length, params, cfg), cache
 
 
@@ -391,8 +423,18 @@ def generate(params, cfg: gpt.GPTConfig, prompt, max_new_tokens=32,
     ``device`` (default the card; ``params`` must live there).  Greedy at
     temperature 0; otherwise temperature -> top-k -> nucleus sampling,
     drawn from ``generator`` (a ``torch.Generator`` on ``device``).  The
-    prompt is fed token by token through :func:`decode_step`, as the JAX
-    package's generate does."""
+    prompt is fed token by token, as the JAX package's generate does.
+
+    Runs through the step Engine's ``generate`` kind (``text/engine.py``)
+    over a cache of the Engine's (``Engine.generate_binding``, one per
+    config, batch and length; it holds ``params`` too, until
+    ``Engine.purge(cfg)`` frees both): on the
+    card one captured decode step, replayed once a position with the
+    token and the position as device feeds.  The step ends at the logits,
+    so the draw — the argmax, or the caller's generator, whose state no
+    graph holds — runs outside the graph, on both paths alike."""
+    from . import engine
+
     dev = resolve_device(device)
     if params["wte"].device != dev:
         raise ValueError(f"params live on {params['wte'].device}, "
@@ -408,18 +450,23 @@ def generate(params, cfg: gpt.GPTConfig, prompt, max_new_tokens=32,
     top_k = min(int(top_k), cfg.vocab_size)
     if not 0.0 < top_p <= 1.0:
         raise ValueError(f"top_p must be in (0, 1], got {top_p}")
-    cache = init_cache(cfg, B, total, dev)
+    bind = engine.ENGINE.generate_binding(params, cfg, B, total, dev)
+    step = engine.ENGINE.get("generate", engine.StepSpec(
+        cfg=cfg, extra=(int(max_new_tokens), top_k, float(top_p)),
+        shape=(B, P), payload=bind))
     tokens = torch.zeros((B, total), dtype=torch.int64, device=dev)
     tokens[:, :P] = prompt
-    for pos in range(total - 1):
-        logits, cache = decode_step(params, cache, tokens[:, pos], pos, cfg)
-        if pos + 1 < P:
-            continue            # prompt positions keep their given token
-        if temperature > 0.0:
-            x = _filter_logits(logits, temperature, top_k, top_p)
-            nxt = torch.multinomial(torch.softmax(x, dim=-1), 1,
-                                    generator=generator)[:, 0]
-        else:
-            nxt = torch.argmax(logits, dim=-1)
-        tokens[:, pos + 1] = nxt
+    positions = torch.arange(total, dtype=torch.int32, device=dev)
+    with bind.lock:
+        for pos in range(total - 1):
+            (logits,) = step(tokens[:, pos], positions[pos])
+            if pos + 1 < P:
+                continue        # prompt positions keep their given token
+            if temperature > 0.0:
+                x = _filter_logits(logits, temperature, top_k, top_p)
+                nxt = torch.multinomial(torch.softmax(x, dim=-1), 1,
+                                        generator=generator)[:, 0]
+            else:
+                nxt = torch.argmax(logits, dim=-1)
+            tokens[:, pos + 1] = nxt
     return tokens

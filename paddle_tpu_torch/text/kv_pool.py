@@ -197,15 +197,18 @@ def paged_decode_step_batched(params, cache, token, pos,
 
 
 @torch.no_grad()
-def paged_prefill_chunk(params, cache, tokens, pos0: int, length: int,
-                        slot: int, cfg: gpt.GPTConfig):
+def paged_prefill_chunk(params, cache, tokens, pos0, length, slot,
+                        cfg: gpt.GPTConfig):
     """``generate.prefill_slot_chunk`` on the pooled layout: one chunk of
-    a prompt at positions [pos0, pos0 + C) for one slot.  Per layer, the
-    chunk's valid rows scatter through the table first (pads and
-    unmapped entries to the sink), then its C rows attend the slot's rows
-    t <= pos0 + i through the table (:func:`_attend_pool`: on the card the
-    block-table kernel at Tq = C reads the pool in place; on the CPU the
-    slot's gathered view) — the scatter-then-attend order of
+    a prompt at positions [pos0, pos0 + C) for one slot; ``pos0``,
+    ``length`` and ``slot`` are Python ints or 0-d int tensors on the
+    cache's device (a captured step's feeds: the slot's table row is
+    gathered, nothing is read on the host).  Per layer, the chunk's valid
+    rows scatter through the table first (pads and unmapped entries to
+    the sink), then its C rows attend the slot's rows t <= pos0 + i
+    through the table (:func:`_attend_pool`: on the card the block-table
+    kernel at Tq = C reads the pool in place; on the CPU the slot's
+    gathered view) — the scatter-then-attend order of
     :func:`paged_decode_step_batched`.  Returns (logits at the chunk's
     last valid position [V] float32, cache).
 
@@ -217,13 +220,16 @@ def paged_prefill_chunk(params, cache, tokens, pos0: int, length: int,
     first unshared row: the shared blocks are attended but never
     recomputed."""
     N, bs, _ = _geometry(cache)
-    trow = cache["tables"][slot:slot + 1]                 # [1, nmax]
+    dev = tokens.device
+    pos0, length, slot = (generate._index(v, dev)
+                          for v in (pos0, length, slot))
+    trow = cache["tables"].index_select(0, slot.reshape(1))   # [1, nmax]
     C = tokens.shape[1]
-    idx = torch.arange(C, device=trow.device)
+    idx = torch.arange(C, device=dev)
     phys = _phys_rows(trow.expand(C, -1), pos0 + idx, N, bs,
                       valid=idx < length)
-    pos = torch.full((1,), pos0, dtype=torch.int32, device=trow.device)
-    x = generate._embed_chunk(params, tokens, pos0, cfg)
+    pos = pos0.to(torch.int32).reshape(1)
+    x = generate._embed_chunk(params, tokens, cfg, pos0)
     for l in range(cfg.num_layers):
         p = gpt.layer(params, l)
         pool_l = _layer_pool(cache, l)

@@ -51,11 +51,22 @@ Two cache layouts (``layout=``, default ``PADDLE_TPU_KV_LAYOUT``):
   dry, admission evicts cold prefix entries and otherwise parks the
   request at the queue front until blocks free.
 
-Admission runs eagerly (its graphs are later work).  Everything else the
-JAX server does — budgeted prefill, speculation, adapters and
-constraints, tensor parallelism, MoE, TTLs, admission control,
-telemetry, the full OOM ladder, the spill tier, the fleet — is later
-slices' work.
+Admission runs through the Engine as well: one graph per prompt bucket
+or chunk width, fed the tokens, the offset, the length and the slot as
+device tensors.  ``prefill_budget=N`` (``PADDLE_TPU_PREFILL_BUDGET``)
+makes it stall-free, as the JAX server's budgeted admission: a prompt
+longer than N claims its slot without a prefill, and each scheduler round
+(``tick``, ``tick_block``, async) runs one N-wide chunk of the oldest
+admitting slot before its decode step; the admitting slot rides the
+decode steps at its prefill frontier (that row is rewritten by its next
+chunk) and samples nothing until its last chunk graduates it.  Greedy
+tokens are those of monolithic admission; only the schedule changes.
+
+Everything else the JAX server does — speculation, adapters and
+constraints, tensor parallelism, MoE, TTLs, admission control and its
+SLO ladder, telemetry, the full OOM ladder (for half-prefilled slots
+too), the spill tier, the fleet — is later slices' work; no entry point
+of the port reaches it.
 """
 from __future__ import annotations
 
@@ -259,7 +270,10 @@ class DecodeServer:
     tick step.  ``layout``/``block_size``/``num_blocks`` pick the cache
     layout (module note; ``num_blocks`` defaults to full provisioning).
     ``async_dispatch=True`` keeps one step or block in flight (module
-    note).  ``device`` defaults to the card; ``params`` must live there.
+    note).  ``prefill_budget=N`` (default ``PADDLE_TPU_PREFILL_BUDGET``,
+    0 = off; clamped to the serving window) admits prompts longer than N
+    in N-token chunks interleaved with the decode steps (module note).
+    ``device`` defaults to the card; ``params`` must live there.
 
     ``_graphs=False`` is private: it runs the steps eagerly on the card,
     for the card tests, ``chip_smoke.py`` and ``tools/profile_serving``,
@@ -271,7 +285,8 @@ class DecodeServer:
                  layout: str | None = None, block_size: int | None = None,
                  num_blocks: int | None = None,
                  prefill_chunk: int | None = None,
-                 async_dispatch: bool = False, _graphs: bool = True):
+                 async_dispatch: bool = False,
+                 prefill_budget: int | None = None, _graphs: bool = True):
         self.device = resolve_device(device)
         if params["wte"].device != self.device:
             raise ValueError(f"params live on {params['wte'].device}, the "
@@ -295,6 +310,19 @@ class DecodeServer:
                                  f"{prefill_chunk}")
         self._chunk = int(prefill_chunk) if prefill_chunk is not None \
             else None
+        if prefill_budget is not None:
+            budget = int(prefill_budget)
+            if budget < 0:
+                raise ValueError(f"prefill_budget must be >= 0, got "
+                                 f"{budget}")
+            if budget and not prefill:
+                raise ValueError("prefill_budget requires prefill=True "
+                                 "(budgeted admission IS a prefill mode)")
+        else:
+            budget = _flags.prefill_budget() if prefill else 0
+        self._budget = min(budget, window)
+        self._admitting_claims = 0       # budgeted claims so far
+        self._chunks_interleaved = 0     # budgeted chunks run so far
         lay = layout if layout is not None else _flags.kv_layout()
         if lay not in ("contiguous", "paged"):
             raise ValueError(
@@ -411,36 +439,115 @@ class DecodeServer:
                 torch.tensor([st["top_p"]], device=dev))[0])
         return int(torch.argmax(logits))
 
+    def _take_first_token(self, st, logits) -> bool:
+        """Append the admission token drawn from the prefill logits; the
+        slot decodes from position len(prompt) on.  True when that token
+        ends the request."""
+        t = self._first_token(logits, st)
+        st["generated"].append(t)
+        st["pos"] = len(st["prompt"])          # cache rows [0, n) filled
+        self._tokens += 1
+        return self._finished(st, t)
+
     def _admit(self):
         while self._queue and self._free:
             slot = self._free.pop()
             req = self._queue.pop(0)
             st = dict(req, generated=[], pos=0)
-            if self._prefill:
-                n = len(req["prompt"])
-                try:
-                    logits = self._prefill_slot(req["prompt"], slot)
-                except kv_pool.PoolExhausted:
-                    # no free blocks even after evicting the cold prefix
-                    # cache: the request WAITS for active slots to retire
-                    # — park it back at the queue front, stop admitting
-                    self._release(slot)
-                    self._queue.insert(0, req)
-                    break
-                except Exception:
-                    # neither lose the request nor leak the slot
-                    self._release(slot)
-                    self._queue.insert(0, req)
-                    raise
-                t = self._first_token(logits, st)
-                st["generated"].append(t)
-                st["pos"] = n            # cache rows [0, n) are filled
-                self._tokens += 1
-                if self._finished(st, t):
-                    self._results[st["rid"]] = st["generated"]
-                    self._release(slot)
+            budgeted = self._budget and len(req["prompt"]) > self._budget
+            if not (self._prefill or budgeted):
+                self._slots[slot] = st         # fed token by token
+                continue
+            try:
+                if budgeted:
+                    self._claim_admitting(slot, st)
                     continue
+                logits = self._prefill_slot(req["prompt"], slot)
+            except kv_pool.PoolExhausted:
+                # no free blocks even after evicting the cold prefix
+                # cache: the request WAITS for active slots to retire —
+                # park it back at the queue front, stop admitting
+                self._release(slot)
+                self._queue.insert(0, req)
+                break
+            except Exception:
+                # neither lose the request nor leak the slot
+                self._release(slot)
+                self._queue.insert(0, req)
+                raise
+            if self._take_first_token(st, logits):
+                self._results[st["rid"]] = st["generated"]
+                self._release(slot)
+                continue
             self._slots[slot] = st
+
+    # -- budgeted admission: chunked-prefill co-scheduling ------------------
+
+    def _claim_admitting(self, slot: int, st) -> None:
+        """Budgeted admission, part 1: claim the slot and plan the
+        prompt's chunk starts at the budget width WITHOUT running a
+        prefill — the walks of monolithic admission (contiguous: the fixed
+        chunk rule; paged: adopt the longest indexed prefix, then the
+        suffix rule, the slot's rows allocated in full here, since the
+        decode steps the slot rides write its frontier row).  Raises
+        ``PoolExhausted`` (the caller parks the request) before anything
+        is claimed."""
+        prompt = st["prompt"]
+        n = len(prompt)
+        if self._paged:
+            shared = self._pool.adopt_prefix(slot, prompt)
+            starts = self._chunk_starts(n, self._budget, shared)
+            self._ensure_admission_rows(slot, min(starts), n)
+            self._apply_pool_ops()
+        else:
+            starts = self._chunk_starts(n, self._budget)
+        # pos doubles as the prefill frontier: rows [starts[0], pos) are
+        # written; decode steps feed prompt[pos] at pos meanwhile, a row
+        # the next chunk rewrites
+        st.update(admitting=True, admit_starts=starts, admit_i=0,
+                  pos=starts[0])
+        self._slots[slot] = st
+        self._admitting_claims += 1
+
+    def _advance_admitting(self) -> bool:
+        """Budgeted admission, part 2: run ONE budget-width chunk of the
+        oldest admitting slot (claim order) through the graphed
+        ``prefill_chunk`` or ``paged_prefill`` kind — at most ``budget``
+        prefill tokens a scheduler round.  The last chunk graduates the
+        slot.  Host state moves only after the step returned.  Returns
+        True when a chunk ran."""
+        slot = next((s for s, st in self._slots.items()
+                     if st.get("admitting")), None)
+        if slot is None:
+            return False
+        st = self._slots[slot]
+        W = self._budget
+        s = st["admit_starts"][st["admit_i"]]
+        chunk = st["prompt"][s:s + W]
+        kind, spec = (("paged_prefill", self._spec(bucket=W)) if self._paged
+                      else ("prefill_chunk", self._spec(width=W)))
+        (logits,) = engine.ENGINE.get(kind, spec)(
+            *self._feeds(chunk, W, s, len(chunk), slot))
+        self._prefill_rows += len(chunk)
+        self._chunks_interleaved += 1
+        st["admit_i"] += 1
+        st["pos"] = min(s + len(chunk), len(st["prompt"]))
+        if st["admit_i"] == len(st["admit_starts"]):
+            self._graduate(slot, st, logits)
+        return True
+
+    def _graduate(self, slot: int, st, logits) -> None:
+        """The last chunk landed: draw the admission token exactly as
+        monolithic admission does and let the slot decode (or retire at
+        once); paged, the prompt's blocks index for later prompts."""
+        for k in ("admitting", "admit_starts", "admit_i"):
+            del st[k]
+        if self._paged:
+            self._pool.register_prefix(slot, st["prompt"])
+        if self._take_first_token(st, logits):
+            del self._slots[slot]
+            self._results[st["rid"]] = st["generated"]
+            self._release(slot)
 
     def _release(self, slot: int) -> None:
         """Return a slot (and, paged, its blocks) to the free lists."""
@@ -466,65 +573,93 @@ class DecodeServer:
         return list(range(shared, n - C, C)) + [n - C]
 
     def _admission_widths(self, prompt_lens=None) -> list:
-        """(kind, width) of the admission steps prompts of ``prompt_lens``
-        take (default: every bucket up to the serving window) — what
-        ``warmup`` builds.  Contiguous: the prompt bucket, or the one
-        chunk width; paged: the suffix chunk's width, which depends on
-        the adopted prefix, so every power of two from the block size
-        up to the window."""
+        """(name, kind, width) of the admission steps prompts of
+        ``prompt_lens`` take (default: every bucket up to the serving
+        window) — what ``warmup`` captures.  Contiguous: the prompt
+        bucket, or the one chunk width; paged: the suffix chunk's width,
+        which depends on the adopted prefix, so every power of two from the
+        block size up to the window; with a budget, prompts longer than it
+        take the budget-width chunk instead (named as the JAX warmup names
+        it)."""
         window = min(self.max_len, self.cfg.max_seq_len)
+        kind = "paged_prefill" if self._paged else "prefill_chunk"
         if self._chunk is not None:
-            return [("paged_prefill" if self._paged else "prefill_chunk",
-                     min(self._chunk, window))]
-        if self._paged:
+            widths = [(kind, min(self._chunk, window))]
+        elif self._paged:
             widths, w = [], self._pool.bs
             while True:
-                widths.append(min(w, window))
+                widths.append((kind, min(w, window)))
                 if w >= window:
                     break
                 w *= 2
-            return [("paged_prefill", w) for w in sorted(set(widths))]
-        lens = prompt_lens if prompt_lens is not None else [
-            1 << i for i in range(window.bit_length() + 1)
-            if (1 << i) <= window]
-        buckets = {_pow2_bucket(int(n), self.max_len, self.cfg.max_seq_len)
-                   for n in lens}
-        return [("prefill", b) for b in sorted(buckets)]
+        else:
+            lens = prompt_lens if prompt_lens is not None else [
+                1 << i for i in range(window.bit_length() + 1)
+                if (1 << i) <= window]
+            widths = [("prefill", _pow2_bucket(int(n), self.max_len,
+                                               self.cfg.max_seq_len))
+                      for n in lens
+                      if not self._budget or int(n) <= self._budget]
+        out = {(k, w): f"{k}{w}" for k, w in widths}
+        if self._budget and (kind, self._budget) not in out:
+            out[(kind, self._budget)] = (f"{kind}{self._budget}"
+                                         if self._paged else
+                                         f"{kind}@{self._budget}")
+        return [(name, k, w) for (k, w), name in sorted(out.items())]
 
     def _prefill_slot(self, prompt, slot: int):
         """Admission prefill of ``prompt`` into ``slot``; returns the
-        logits [V] at its last position."""
+        logits [V] at its last position (the step's output buffer: read
+        it before the next admission)."""
         n = len(prompt)
         if self._paged:
             return self._paged_prefill_slot(prompt, slot)
         if self._chunk is None:
             bucket = _pow2_bucket(n, self.max_len, self.cfg.max_seq_len)
             fn = engine.ENGINE.get("prefill", self._spec(bucket=bucket))
-            (logits,) = fn(self._padded(prompt, bucket), n, slot)
+            (logits,) = fn(*self._feeds(prompt, bucket, n, slot))
             self._prefill_rows += n
             return logits
         C = self._chunk
         fn = engine.ENGINE.get("prefill_chunk", self._spec(width=C))
         for s in self._chunk_starts(n, C):
             chunk = prompt[s:s + C]
-            (logits,) = fn(self._padded(chunk, C), s, len(chunk), slot)
+            (logits,) = fn(*self._feeds(chunk, C, s, len(chunk), slot))
             self._prefill_rows += len(chunk)
         return logits
 
-    def _padded(self, tokens, width: int):
-        """[1, width] int64 on the server's device, ``tokens`` then 0s."""
+    def _feeds(self, tokens, width: int, *scalars) -> tuple:
+        """An admission step's feeds as host tensors (pinned on a card,
+        so the copy into a graph's inputs does not block): the tokens
+        [1, width] int64, ``tokens`` then 0s, and each scalar (offset,
+        length, slot) as an int64 [1]."""
         padded = np.zeros((1, width), np.int64)
         padded[0, :len(tokens)] = tokens
-        return self._host(padded).to(self.device, non_blocking=True)
+        return (self._host(padded),
+                *(self._host(np.array([v], np.int64)) for v in scalars))
+
+    def _ensure_admission_rows(self, slot: int, start: int, stop: int):
+        """Make a slot's rows [start, stop) writable for its admission,
+        evicting cold prefix entries while the pool is dry (their blocks
+        hold only index refs, so this request's freshly adopted blocks are
+        never victims); raises ``PoolExhausted`` when nothing more can
+        go."""
+        while True:
+            try:
+                self._pool.ensure_rows(slot, start, stop)
+                return
+            except kv_pool.PoolExhausted:
+                if self._pool.evict_cold(_EVICT_BATCH) == 0:
+                    raise
 
     def _paged_prefill_slot(self, prompt, slot: int):
         """Paged admission: adopt the longest indexed prompt prefix into
         the slot's table (those rows are never recomputed), make the
         suffix's rows writable (allocate / copy-on-write, evicting cold
-        prefix entries while the pool is dry), run the suffix through
-        ``kv_pool.paged_prefill_chunk`` and index this prompt's full
-        blocks for later prompts.  Raises ``PoolExhausted`` when nothing
-        more can be evicted."""
+        prefix entries while the pool is dry), run the suffix through the
+        ``paged_prefill`` step and index this prompt's full blocks for
+        later prompts.  Raises ``PoolExhausted`` when nothing more can be
+        evicted."""
         n = len(prompt)
         alloc = self._pool
         shared = alloc.adopt_prefix(slot, prompt)
@@ -535,20 +670,12 @@ class DecodeServer:
         C = (min(self._chunk, window) if self._chunk else
              min(max(_pow2_bucket(n - shared), alloc.bs), window))
         starts = self._chunk_starts(n, C, shared)
-        while True:
-            try:
-                alloc.ensure_rows(slot, min(starts), n)
-                break
-            except kv_pool.PoolExhausted:
-                # cold entries hold ref == their index refs, so this
-                # request's freshly adopted blocks are never victims
-                if alloc.evict_cold(_EVICT_BATCH) == 0:
-                    raise
+        self._ensure_admission_rows(slot, min(starts), n)
         self._apply_pool_ops()
         fn = engine.ENGINE.get("paged_prefill", self._spec(bucket=C))
         for s in starts:
             chunk = prompt[s:s + C]
-            (logits,) = fn(self._padded(chunk, C), s, len(chunk), slot)
+            (logits,) = fn(*self._feeds(chunk, C, s, len(chunk), slot))
             self._prefill_rows += len(chunk)
         alloc.register_prefix(slot, prompt)
         return logits
@@ -615,13 +742,14 @@ class DecodeServer:
         return tok, pos
 
     def _sampling_arrays(self):
-        """Per-slot (temperature, top_k, top_p); free and prompt-feeding
-        slots sample nothing (temp 0)."""
+        """Per-slot (temperature, top_k, top_p); free, prompt-feeding and
+        admitting slots sample nothing (temp 0)."""
         temp = np.zeros((self.max_batch,), np.float32)
         tk = np.zeros((self.max_batch,), np.int64)
         tp = np.ones((self.max_batch,), np.float32)
         for slot, st in self._slots.items():
-            if st["pos"] >= len(st["prompt"]) - 1:
+            if st["pos"] >= len(st["prompt"]) - 1 \
+                    and not st.get("admitting"):
                 temp[slot] = st["temperature"]
                 tk[slot] = st["top_k"]
                 tp[slot] = st["top_p"]
@@ -640,6 +768,11 @@ class DecodeServer:
             self._admit()
             if not self._slots:
                 return
+        # budgeted admission: at most one prefill chunk a round, before
+        # the decode step
+        self._advance_admitting()
+        if self._all_admitting():
+            return
         self._ensure_decode_blocks(1)
         tok, pos = self._feed_arrays()
         temp, tk, tp = self._sampling_arrays()
@@ -657,6 +790,8 @@ class DecodeServer:
         nxt = self._fetch_wait(self._fetch_start(nxt))   # the one fetch
         done = []
         for slot, st in self._slots.items():
+            if st.get("admitting"):
+                continue        # rode the step at its frontier: discarded
             i = st["pos"]
             st["pos"] = i + 1
             if i < len(st["prompt"]) - 1:
@@ -667,6 +802,16 @@ class DecodeServer:
             if self._finished(st, t):
                 done.append(slot)
         self._retire(done)
+
+    def _all_admitting(self) -> bool:
+        """No slot decodes this round: every slot is admitting."""
+        return all(st.get("admitting") for st in self._slots.values())
+
+    def _stepwise(self) -> bool:
+        """Some slot feeds its prompt token by token or is admitting:
+        ``tick_block`` falls back to single ticks."""
+        return any(st["pos"] < len(st["prompt"]) - 1 or st.get("admitting")
+                   for st in self._slots.values())
 
     def tick_block(self, block: int = 8):
         """``block`` decode steps with ONE host round trip (greedy, or
@@ -685,9 +830,10 @@ class DecodeServer:
             if not self._slots:
                 return
         # a slot at pos == len(prompt)-1 is fine for block decode (its
-        # feed token is the prompt's last; everything after is feedback)
-        if any(st["pos"] < len(st["prompt"]) - 1
-               for st in self._slots.values()):
+        # feed token is the prompt's last; everything after is feedback);
+        # admitting slots take single ticks too: one chunk a tick is the
+        # budgeted interleaving
+        if self._stepwise():
             for _ in range(block):
                 self.tick()
                 if not self._slots:
@@ -741,6 +887,13 @@ class DecodeServer:
         for slot, st in self._slots.items():
             i = st["pos"]
             n_p = len(st["prompt"])
+            if st.get("admitting"):
+                # rides the step at its prefill frontier: no snap entry,
+                # no advance — the admission owns pos, the output is
+                # discarded and the row rewritten by the next chunk
+                ht[slot] = st["prompt"][i]
+                pos[slot] = i
+                continue
             if i < n_p:
                 ht[slot] = st["prompt"][i]
             elif i - n_p < len(st["generated"]):
@@ -868,6 +1021,18 @@ class DecodeServer:
             if not self._slots:
                 return
         try:
+            # one prefill chunk a round, before the dispatch: the stream
+            # runs it after the step in flight, so the frontier row that
+            # step wrote is rewritten before anything attends it
+            self._advance_admitting()
+        except Exception:
+            self._inflight = prev      # its tokens are still fetchable
+            raise
+        if self._all_admitting():
+            if prev is not None:
+                self._process_inflight(prev)
+            return
+        try:
             self._dispatch_step_async(prev)
         except Exception:
             self._inflight = prev      # its tokens are still fetchable
@@ -884,8 +1049,7 @@ class DecodeServer:
             self._admit()
             if not self._slots:
                 return
-        if any(st["pos"] < len(st["prompt"]) - 1
-               for st in self._slots.values()):
+        if self._stepwise():
             if prev is not None:
                 self._process_inflight(prev)
             for _ in range(block):
@@ -955,10 +1119,21 @@ class DecodeServer:
             "kv_utilization": kv,
             "tokens_generated": self._tokens,
             "prefill_rows": self._prefill_rows,
+            "admitting_slots": sum(1 for st in self._slots.values()
+                                   if st.get("admitting")),
+            "prefill_budget": self._budget,
         }
         if self._paged:
             stats["kv_pool"] = self._pool.stats()
         return stats
+
+    def stats(self) -> dict:
+        """The server's counters under the JAX server's telemetry names
+        (which the port does not have yet): budgeted claims and the
+        budget-width chunks run so far."""
+        return {"serving.admitting_claims": self._admitting_claims,
+                "serving.prefill_chunks_interleaved":
+                    self._chunks_interleaved}
 
     def close(self):
         """Release this server's steps (``Engine.purge``: its graphs and

@@ -9,7 +9,8 @@ Builds one of the port's serving paths — the one definition of each that
 ``chip_smoke.py`` drives too — and, for each dispatch arm (:data:`ARMS`:
 eager ticks, graphed ticks, graphed ``tick_block(8)``, graphed async
 ticks; one server each on the same weights), warms it up and traces a
-steady decode window with ``torch.profiler``; then one admission:
+steady decode window with ``torch.profiler``; then one admission, eager
+and graphed (:func:`profile_admission`):
 
 * default, :func:`build_main_path`: GPT-1.3B (``gpt_1p3b()``, random bf16
   weights from seed 0) in ``DecodeServer(max_batch=8, max_len=512)``
@@ -27,11 +28,11 @@ steady decode window with ``torch.profiler``; then one admission:
   admission prefill of a 200-token prompt (bucket 256, where the W4
   kernel runs at N = 256).
 
-For each arm, and for the admission, it prints one JSON line: host wall
-per decode step (or per admission), device kernel time and the device's
-busy share of the wall, kernel launches, and device time by kernel
-family (the hand-written attention kernels, matmuls, everything else);
-each arm also the wall of as many steps again without the profiler
+For each arm, and for each admission arm, it prints one JSON line: host
+wall per decode step (or per admission), device kernel time and the
+device's busy share of the wall, kernel launches, and device time by
+kernel family (the hand-written attention kernels, matmuls, everything
+else); each also the wall of the same work again without the profiler
 (``unprofiled_wall_ms``) and the device time's share of it.
 ``--trace`` also writes the graph arm's decode window's Chrome trace.
 Needs a CUDA card; imports nothing of JAX or the JAX package.
@@ -166,7 +167,9 @@ FAMILIES = (("w4_matmul", ("w4_kernel", "w4_tc_kernel",
                                      "flash_fwd_tc_kernel")),
             ("matmul", MATMUL_KEYS),
             ("layer_norm", ("layer_norm",)),
-            ("cache_write", ("index_put", "scatter")))
+            ("cache_write", ("index_put", "scatter")),
+            # the contiguous admission chunk's copy of its slot's rows
+            ("cache_gather", ("indexselect",)))
 
 
 def family(name: str, families=FAMILIES) -> str:
@@ -252,6 +255,61 @@ def _decode_window(torch, srv, prompts, arm, calls, acts):
     return prof, wall, plain, calls * k
 
 
+def admission_prompts(path: str, prompts: list, vocab_size: int) -> tuple:
+    """(two prompts of the same admission work, what) for ``path``'s
+    profiled admission: the second is traced, the first timed without the
+    profiler.  Paged: the system prompt and a 100-token tail no indexed
+    chain holds (adopt 200 rows, then one 128-wide chunk), two such tails;
+    else one prompt of the path, twice."""
+    if path == "paged":
+        rng = np.random.default_rng(1)
+        return ([prompts[0][:PREFIX]
+                 + rng.integers(0, vocab_size, 100).tolist()
+                 for _ in range(2)],
+                "paged admission, 300 tokens, 200 adopted, one chunk over "
+                "the tail")
+    if path == "w4":
+        return ([prompts[2]] * 2, "admission prefill, 200 tokens at bucket "
+                "256 (the W4 kernel at N = 256)")
+    return [prompts[3]] * 2, "admission prefill, 300 tokens at bucket 512"
+
+
+def profile_admission(torch, path: str, params, cfg, prompts, arm: str,
+                      acts):
+    """One admission of ``path`` on a server of ``arm`` ("eager" or
+    "graph"): warm the server up at the admission's widths, serve
+    ``prompts`` once (4 tokens each, filling a paged prefix index), time
+    one admission without the profiler, then trace another of the same
+    work (:func:`admission_prompts`).  Returns the trace's summary (per
+    admission) with ``unprofiled_wall_ms`` and ``what``."""
+    from torch.profiler import profile
+
+    (plain, traced), what = admission_prompts(path, prompts,
+                                              cfg.vocab_size)
+    srv = arm_server(path, params, cfg, arm)
+    srv.warmup(prompt_lens=[len(p) for p in prompts] + [len(traced)])
+    for p in prompts:
+        srv.submit(p, max_new_tokens=4)
+    while srv.pending():
+        srv.tick()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    srv.submit(plain, max_new_tokens=1)
+    torch.cuda.synchronize()
+    unprofiled = time.perf_counter() - t0
+    with profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        srv.submit(traced, max_new_tokens=1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    srv.close()
+    out = {"what": what, "arm": arm, **summarize(torch, prof, wall, 1),
+           "unprofiled_wall_ms": unprofiled * 1e3}
+    if out["device_ms"]:
+        out["unprofiled_busy_share"] = out["device_ms"] / (unprofiled * 1e3)
+    return out
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     kind = ap.add_mutually_exclusive_group()
@@ -307,34 +365,10 @@ def main() -> int:
         print(json.dumps({"decode_tick": out}), flush=True)
         if args.trace and arm == "graph":
             prof.export_chrome_trace(args.trace)
-    srv = arm_server(path, params, cfg, "graph")
-    srv.warmup(prompt_lens=[len(p) for p in prompts])
-    for p in prompts:                       # fill the prefix index
-        srv.submit(p, max_new_tokens=4)
-    while srv.pending():
-        srv.tick()
-    if args.paged:
-        # the system prompt and a tail no indexed chain holds: adopt 200
-        # rows, then one 128-wide chunk over the 100-token tail
-        prompt = prompts[0][:PREFIX] + prompts[1][PREFIX:][::-1]
-        what = ("paged admission, 300 tokens, 200 adopted, one chunk "
-                "over the tail")
-    elif args.w4:
-        prompt = prompts[2]
-        what = ("admission prefill, 200 tokens at bucket 256 (the W4 "
-                "kernel at N = 256)")
-    else:
-        prompt = prompts[3]
-        what = "admission prefill, 300 tokens at bucket 512"
-    torch.cuda.synchronize()
-    with profile(activities=acts) as prof:
-        t0 = time.perf_counter()
-        srv.submit(prompt, max_new_tokens=1)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    srv.close()
-    out = {"what": what, "card": card, **summarize(torch, prof, wall, 1)}
-    print(json.dumps({"prefill": out}), flush=True)
+    for arm in ("eager", "graph"):
+        out = profile_admission(torch, path, params, cfg, prompts, arm,
+                                acts)
+        print(json.dumps({"prefill": {**out, "card": card}}), flush=True)
     return 0
 
 

@@ -11,7 +11,11 @@ JAX package's (paddle_tpu/text/engine.py), on the CPU.
   the sampling stream where it was (a warmed server draws what a cold
   one draws);
 * the counter-based sampling stream: a pure function of (key, element),
-  drawing in distribution.
+  drawing in distribution;
+* ``generate`` runs as the Engine's ``generate`` kind: greedy fp32 tokens
+  equal to the JAX ``generate``'s, keyed as the JAX registry keys it plus
+  the prompt shape, its step and cache reused by a second call of the
+  shape and freed by ``purge(cfg)``.
 
 On the CPU every kind runs its plain callable; the card tests hold the
 captured graphs against the eager steps.
@@ -20,20 +24,25 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+import jax.numpy as jnp
+
 from paddle_tpu.text import engine as jengine
+from paddle_tpu.text import generate as jgenerate
 from paddle_tpu.text import gpt as jgpt
 from paddle_tpu.text import serving as jserving
 from paddle_tpu_torch import convert
 from paddle_tpu_torch.text import engine, gpt, serving
+from paddle_tpu_torch.text import generate as G
 
 _FIELDS = dict(paged=(False, True), bucket=(8, 16), width=(4, 8),
-               k=(2, 4))
+               k=(2, 4), extra=((8, 0, 1.0), (16, 3, 0.9)))
 _READS = {"step": {"paged"}, "sample": {"paged"}, "async": {"paged"},
           "block": {"paged", "k"}, "sample_block": {"paged", "k"},
           "async_block": {"paged", "k"},
           "async_sample_block": {"paged", "k"},
           "prefill": {"bucket"}, "prefill_chunk": {"width"},
-          "paged_prefill": {"bucket"}}
+          "paged_prefill": {"bucket"}, "generate": {"extra"}}
 
 
 def _cfg(**kw):
@@ -58,7 +67,9 @@ def test_registry_kinds():
 def test_each_kind_keys_only_its_fields(kind):
     """Varying a field the kind reads changes its key; any other field
     leaves it; and the key carries the same fields, in the same order,
-    as the JAX registry's (its config key and shard fragment aside)."""
+    as the JAX registry's (its config key and shard fragment aside; the
+    JAX ``generate`` key has no kind name, and the port's adds the prompt
+    shape a graph is fixed to, ``()`` here)."""
     cfg = _cfg()
     base = {f: v[0] for f, v in _FIELDS.items()}
     key0 = engine.StepSpec(cfg=cfg, **base).key(kind)
@@ -74,8 +85,8 @@ def test_each_kind_keys_only_its_fields(kind):
                           num_heads=2, max_seq_len=64)
     jck = jengine.cfg_key(jcfg)
     jkey = jengine.StepSpec(cfg=jcfg, **base).key(kind)
-    assert [x for x in jkey if x != jck and x is not None] \
-        == [x for x in key0 if x != key0[1]]
+    assert [x for x in jkey if x not in (jck, kind) and x is not None] \
+        == [x for x in key0 if x not in (key0[1], kind, ())]
 
 
 def test_cfg_key_folds_in_the_routing_flags(monkeypatch):
@@ -309,3 +320,28 @@ def test_jax_server_and_port_share_the_warmup_surface(markov_gpt):
                              device="cpu").warmup(prompt_lens=[3, 5],
                                                   blocks=(2,), sample=True)
     assert set(t) <= set(jt)
+
+
+def test_generate_runs_through_the_engine():
+    jcfg = jgpt.GPTConfig(vocab_size=64, hidden_size=64, num_layers=2,
+                          num_heads=4, max_seq_len=32, dtype=jnp.float32)
+    jp = jgpt.init_params(jcfg, jax.random.PRNGKey(1))
+    cfg = convert.config_from_jax(jcfg)
+    params = convert.params_from_jax(jax.device_get(jp))
+    prompt = np.random.default_rng(0).integers(0, 64, (2, 5))
+    ref = np.asarray(jgenerate.generate(jp, jcfg, prompt, 7)).tolist()
+    engine.ENGINE.purge(cfg)
+    assert G.generate(params, cfg, prompt, 7, device="cpu").tolist() == ref
+    (key,) = [k for k in engine.ENGINE._steps.keys() if k[0] == "generate"
+              and k[1] == engine.cfg_key(cfg)]
+    jkey = jengine.StepSpec(cfg=jcfg, extra=(7, 0, 1.0)).key("generate")
+    assert jkey == (jengine.cfg_key(jcfg), 7, 0, 1.0)
+    assert key[:-1] == ("generate", engine.cfg_key(cfg), *jkey[1:], (2, 5))
+    step = engine.ENGINE._steps.get(key)
+    (gkey,) = [k for k in engine.ENGINE._gen if k[0] == key[1]]
+    assert G.generate(params, cfg, prompt, 7, device="cpu").tolist() == ref
+    assert engine.ENGINE._steps.get(key) is step          # replayed, not
+    assert [k for k in engine.ENGINE._gen if k[0] == key[1]] == [gkey]
+    assert engine.ENGINE.purge(cfg) == 1
+    assert gkey not in engine.ENGINE._gen
+    assert key not in engine.ENGINE._steps.keys()

@@ -944,10 +944,11 @@ def test_graphed_serving_equals_eager(case, monkeypatch):
 
 @pytest.mark.parametrize("case", _GRAPH_CASES)
 def test_graphed_step_logits_match_the_eager_step(case, monkeypatch):
-    """From one cache state (admission is eager on both servers), the
-    captured step's logits sit within 1e-3 of the eager step's (the
-    smoke's PATH_TOL; cuBLAS may choose another algorithm on the capture
-    stream) and its block's tokens equal the eager block's."""
+    """From one cache state (each server admitted the same prompts, the
+    eager one eagerly), the captured step's logits sit within 1e-3 of the
+    eager step's (the smoke's PATH_TOL; cuBLAS may choose another
+    algorithm on the capture stream) and its block's tokens equal the
+    eager block's."""
     cfg, params, prompts = _graph_case(case, monkeypatch)
     from paddle_tpu_torch.text import engine
 
@@ -1061,7 +1062,9 @@ def test_close_releases_the_servers_graphs(monkeypatch):
     srv.warmup(blocks=(4,), sample=True)
     _serve_all(srv, prompts, 4)
     bind = srv._bind
-    assert len(engine.ENGINE.graphs(bind)) == 4
+    # step, sample, block4, sample_block4 and every prefill bucket
+    assert len(engine.ENGINE.graphs(bind)) == 4 + len(
+        srv._admission_widths())
     cache_bytes = sum(t.numel() * t.element_size()
                       for t in srv.cache.values())
     torch.cuda.synchronize()
@@ -1074,3 +1077,117 @@ def test_close_releases_the_servers_graphs(monkeypatch):
     after = torch.cuda.memory_allocated()
     assert during - after >= cache_bytes, (during, after, cache_bytes)
     assert after <= base + (64 << 10), (base, after)
+
+
+# ---------------------------------------------------------------------------
+# admission and generate through the Engine on the card
+# ---------------------------------------------------------------------------
+
+
+def _admission_cases(srv):
+    """(kind, spec fields, [(pos0, length, slot), ...]) of each admission
+    kind ``srv`` runs, at two feeds — the second another slot, offset and
+    length — on slots whose rows (paged: whose mapped blocks) the feeds
+    write."""
+    slot_of = {len(st["prompt"]): s for s, st in srv._slots.items()}
+    if srv._paged:      # mapped rows: [0, 112) and [0, 48)
+        return [("paged_prefill", dict(bucket=32),
+                 [(64, 30, slot_of[100]), (16, 20, slot_of[40])])]
+    return [("prefill", dict(bucket=64),
+             [(0, 40, slot_of[40]), (0, 17, slot_of[17])]),
+            ("prefill_chunk", dict(width=32),
+             [(32, 32, slot_of[100]), (64, 20, slot_of[40])])]
+
+
+@pytest.mark.parametrize("case", _GRAPH_CASES)
+def test_graphed_admission_equals_eager(case, monkeypatch):
+    """From one cache state, each admission kind's graph gives its eager
+    body's logits and cache bit for bit; so does a replay after the feeds
+    changed (another slot, offset and length)."""
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case(case, monkeypatch)
+    srv = _graph_server(cfg, params, case, True)
+    for p in prompts[:4]:
+        srv.submit(p, max_new_tokens=12)
+    gen = torch.Generator().manual_seed(5)
+    for kind, kw, feeds in _admission_cases(srv):
+        spec = srv._spec(**kw)
+        width = kw.get("bucket") or kw.get("width")
+        eager = engine._Eager(engine._REGISTRY[kind].build(spec), srv._bind,
+                              kind)
+        graph = engine.ENGINE.get(kind, spec)
+        for pos0, length, slot in feeds:
+            toks = torch.randint(0, cfg.vocab_size, (length,),
+                                 generator=gen).tolist()
+            f = (srv._feeds(toks, width, length, slot) if kind == "prefill"
+                 else srv._feeds(toks, width, pos0, length, slot))
+            snap = {n: t.clone() for n, t in srv.cache.items()}
+            want = eager(*f)[0].clone()
+            want_cache = {n: t.clone() for n, t in srv.cache.items()}
+            for n, t in srv.cache.items():
+                t.copy_(snap[n])
+            r0 = graph.replays
+            got = graph(*f)[0]
+            assert graph.replays == r0 + 1
+            assert torch.equal(got, want), (kind, pos0, length, slot)
+            for n in snap:
+                assert torch.equal(_live(srv, n),
+                                   _live(srv, n, want_cache)), (kind, n)
+    srv.close()
+
+
+def _live(srv, name, cache=None):
+    """A cache leaf as far as it is defined: a paged pool without its
+    sink block, whose row several pad rows write in no fixed order."""
+    t = (srv.cache if cache is None else cache)[name]
+    return t[:, :-1] if srv._paged and name != "tables" else t
+
+
+@pytest.mark.parametrize("async_", [False, True])
+def test_graphed_warmup_after_a_drain_keeps_the_prefix_rows(async_,
+                                                            monkeypatch):
+    """A paged graphed server: serve a prompt to the end, warm up, admit it
+    again — the admission logits of the same walk without the warmup, bit
+    for bit."""
+    cfg, params, prompts = _graph_case("paged", monkeypatch)
+
+    def readmit(warm):
+        srv = _graph_server(cfg, params, "paged", True,
+                            async_dispatch=async_)
+        _serve_all(srv, prompts[1:2])
+        if warm:
+            srv.warmup()
+        seen = []
+        prefill = srv._prefill_slot
+        srv._prefill_slot = lambda p, s: seen.append(
+            prefill(p, s).clone()) or seen[-1]
+        _serve_all(srv, prompts[1:2])
+        assert srv.load_stats()["kv_pool"]["prefix_hits"] >= 32
+        srv.close()
+        return seen[0]
+
+    assert torch.equal(readmit(True), readmit(False))
+
+
+def test_generate_replays_its_step(monkeypatch):
+    """generate on the card: one replay of the captured step a position,
+    the tokens of the graphs-off server's streams; a second call of the
+    shape replays the same graph."""
+    from paddle_tpu_torch.text import engine
+    from paddle_tpu_torch.text import generate as G
+
+    cfg, params, prompts = _graph_case("contiguous", monkeypatch)
+    batch = torch.tensor([p[:17] for p in prompts[1:3]])
+    ref = _serve_all(_graph_server(cfg, params, "contiguous", False),
+                     batch.tolist())
+    for _ in range(2):
+        before = {id(g): g.replays for g in engine.ENGINE.graphs()}
+        out = G.generate(params, cfg, batch, 12, device="cuda")
+        (g,) = [g for g in engine.ENGINE.graphs()
+                if g.name == "generate.generate"]
+        assert g.replays - before.get(id(g), 0) == 17 + 12 - 1
+        assert out[:, 17:].tolist() == ref
+    engine.ENGINE.purge(cfg)
+    assert not [g for g in engine.ENGINE.graphs()
+                if g.name == "generate.generate"]
