@@ -24,8 +24,8 @@ Phases, in order; any failure raises and the script exits non-zero:
    GQA, on the tensor-core bodies at head_dim 64/128 (``route_bwd``);
    the fused softmax-CE forward and backward at the train loss head and
    at ragged shapes; the fused LayerNorm forward and backward at the train
-   shape and at ragged shapes up to F = 8192 and N = 4099 (both bit-equal
-   on a second call);
+   shapes (F = 2048 and the 760M rungs' 1536) and at ragged shapes up to
+   F = 8192 and N = 4099 (both bit-equal on a second call);
    the W4A16 matmul at N = 1, 8, 64, 128, 256 for each gpt_1p3b weight
    shape, bf16 on the tensor-core body and fp32 on the FMA body (counted
    by ``tc_launches``), nibble extremes included;
@@ -46,7 +46,13 @@ Phases, in order; any failure raises and the script exits non-zero:
    the same walk without it; then five AdamW train steps of
    small fp32 models (MHA with learned positions, GQA with rope; accum 1
    and 2; the LayerNorm ones again with ``PADDLE_TPU_FUSED_LN=1``) on the
-   card against the same steps on the CPU;
+   card against the same steps on the CPU; then the rest of the training
+   surface on a small fp32 rope model with the fused LN and CE kernels,
+   accum 2, five steps each on the card against the CPU: AdamW under no
+   remat, full remat and "dots" (each remat run bit-equal to no remat on
+   the card), dropout 0.1 with a fixed key without remat and under
+   "dots" (bit-equal again), Adafactor, Lamb, AdamW with a
+   ``ClipGradByGlobalNorm`` and on a ``LinearWarmup`` schedule;
 5. time each kernel with CUDA events at its path's shapes (L2 flushed
    and the host's enqueue hidden before each launch), beside its plain twin, its least possible time on
    the card, and a PyTorch call on the same work as a yardstick the port
@@ -109,17 +115,20 @@ Phases, in order; any failure raises and the script exits non-zero:
    longest tick while a slot admits; then greedy ``generate.generate``
    on GPT-1.3B (8 prompts of 64 tokens, 32 new): one replay of its
    captured step a position, rows equal by the tie rule to a server's;
-9. the train path, as ``paddle_tpu_torch.tools.profile_train.
-   build_train_path`` defines it: GPT-1.3B with fp32 master weights from a
-   seed, batch 8 x 2048 tokens in 8 micro-batches, AdamW (bf16 moments),
-   the fused loss head (``PADDLE_TPU_FUSED_CE=1``) — four steps on one
-   batch with step time, tokens/s, MFU, peak memory and each step's
-   kernel launches (exactly 192 flash fwd, dq and dk/dv, each on its
-   tensor-core body, 8 CE fwd and bwd); the loss must start near
-   ln(vocab) and fall; then the same for
-   the headline rung (``build_train_path(fused_ln=True)``: the fused
-   LayerNorm too, exactly 392 LN fwd and bwd launches a step), printed
-   beside it;
+9. the train rungs, as ``paddle_tpu_torch.tools.profile_train.
+   build_train_path`` defines them (``RUNGS``, the JAX bench's recipes):
+   GPT-1.3B with fp32 master weights from a seed, batch 8 x 2048 tokens in
+   8 micro-batches, AdamW (bf16 moments), the fused loss head
+   (``PADDLE_TPU_FUSED_CE=1``); the headline rung (the fused LayerNorm
+   too); GPT-760M, batch 16 in 16, AdamW, fused LN and CE, without remat
+   and under remat "dots"; GPT-1.3B under full remat with Adafactor —
+   four steps of each on one batch with step time, tokens/s, MFU, peak
+   memory (and its split at the optimizer update), the bytes one
+   micro-batch's forward keeps, and each step's kernel launches, exactly
+   as ``expected_train_launches`` counts them (every flash forward, dq and
+   dk/dv on its tensor-core body, the recompute's included); the loss must
+   start near ln(vocab) and fall, and a remat rung's forward must keep
+   fewer bytes than its remat-off twin's, its step peak no more;
 10. one ``{"kernels": [...]}`` JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -592,7 +601,8 @@ def check_norm(torch, fn):
     tick's (bf16 g and b), ragged N and F in fp32 and bf16 (F = 999 takes
     the scalar walk), gpt_13b's width, and the forward's row groups: one
     row, F = 1, more rows than its persistent grid (N = 4099), 2-8 warps
-    a row up to F = 8192.  y and dx within BF16_TOL·(1 + |plain|) (fp32 x:
+    a row up to F = 8192, and the 760M rungs' train shape (N = 2048,
+    F = 1536).  y and dx within BF16_TOL·(1 + |plain|) (fp32 x:
     LN_FP32_TOL); mu, rstd, dg and db within LN_FP32_TOL·(1 + |plain|),
     both sides of the backward fed the kernel's mu and rstd; a second
     forward and a second backward on the same inputs give the same bits.
@@ -605,7 +615,8 @@ def check_norm(torch, fn):
                           (3, 5120, bf, f32), (1, 2048, bf, f32),
                           (7, 1, f32, bf), (4099, 2048, bf, f32),
                           (4099, 999, f32, f32), (7, 8192, f32, f32),
-                          (7, 8192, bf, bf), (2048, 5120, bf, f32)]:
+                          (7, 8192, bf, bf), (2048, 5120, bf, f32),
+                          (2048, 1536, bf, f32)]:
         x, g, b, dy = _ln_inputs(torch, gen, N, F, dt, wdt)
         y, mu, r = fn.ln_fwd(x, g, b)
         dx, dg, db = fn.ln_bwd(x, g, mu, r, dy)
@@ -1132,6 +1143,109 @@ def check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW, fn):
                                  f"{name} accum={accum}")
         worst_loss, worst_param = max(worst_loss, d_loss), max(worst_param,
                                                                d_param)
+    os.environ.pop("PADDLE_TPU_FUSED_CE", None)
+    os.environ.pop("PADDLE_TPU_FUSED_LN", None)
+    return worst_loss, worst_param
+
+
+def check_train_surface_vs_cpu(torch, gpt, gpt_hybrid, optim, clip, lrs):
+    """The rest of the training surface on small fp32 models (hidden 256,
+    2 layers, head_dim 128, rope — a learned-position model's key bias
+    has no gradient in exact arithmetic, and Adafactor would step it by
+    the sign of each device's rounding noise — LayerNorm and the loss head
+    on the fused kernels, B = 4 of 64 tokens, accum 2): five steps each of
+    AdamW under no remat, full remat and "dots"; dropout 0.1 with a fixed
+    key, without remat and under "dots"; Adafactor; Lamb; AdamW with a
+    ``ClipGradByGlobalNorm``; AdamW on a ``LinearWarmup`` schedule (the
+    step given no lr).  Each run on the card against the same run on the
+    CPU (``check_train_vs_cpu``'s tolerances); on the card, each remat run
+    bit-equal (losses and params) to its run without remat.  Returns the
+    worst card-vs-CPU loss and parameter gaps."""
+    os.environ["PADDLE_TPU_FUSED_CE"] = "1"
+    os.environ["PADDLE_TPU_FUSED_LN"] = "1"
+    base = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
+                max_seq_len=128, dtype=torch.float32, pos_embed="rope")
+
+    def adamw(**kw):
+        return optim.AdamW(**{"learning_rate": TRAIN_LR,
+                              "weight_decay": 0.01, **kw}), None
+
+    def warmup():
+        sched = lrs.LinearWarmup(TRAIN_LR, warmup_steps=3,
+                                 start_lr=TRAIN_LR / 4, end_lr=TRAIN_LR)
+        return adamw(learning_rate=sched)[0], sched
+
+    dots = dict(remat=True, remat_policy="dots")
+    # name, config fields, (optimizer, its scheduler or None: stepped
+    # after each train step), dropout key, the run it equals
+    runs = [("adamw", {}, adamw, None, None),
+            ("adamw full remat", dict(remat=True), adamw, None, "adamw"),
+            ("adamw dots remat", dots, adamw, None, "adamw"),
+            ("dropout 0.1", dict(dropout=0.1), adamw, 5, None),
+            ("dropout 0.1 dots remat", dict(dots, dropout=0.1), adamw, 5,
+             "dropout 0.1"),
+            ("adafactor", {}, lambda: (optim.Adafactor(
+                learning_rate=TRAIN_LR), None), None, None),
+            ("lamb", {}, lambda: (optim.Lamb(learning_rate=TRAIN_LR), None),
+             None, None),
+            ("adamw global-norm clip", {}, lambda: adamw(
+                grad_clip=clip.ClipGradByGlobalNorm(0.5)), None, None),
+            ("adamw linear warmup", {}, warmup, None, None)]
+    card_runs = {}
+    worst_loss = worst_param = 0.0
+    for name, kw, make_opt, key, same_as in runs:
+        cfg = gpt.GPTConfig(**{**base, **kw})
+        master = gpt.init_master_params(cfg, seed=7, device="cpu")
+        rng = np.random.default_rng(3)
+        batches = [rng.integers(0, cfg.vocab_size, (4, 65))
+                   for _ in range(TRAIN_STEPS)]
+
+        def run(dev, params):
+            opt, sched = make_opt()
+            _, step_fn, _ = gpt_hybrid.build_gpt_train_step(
+                cfg, opt, accum=2, device=dev)
+            st = gpt_hybrid.GPTTrainState(
+                params, opt.init_state(params),
+                torch.zeros((), dtype=torch.int32, device=dev))
+            losses = []
+            for b in batches:
+                st, loss = step_fn(st, b, key, None)
+                losses.append(loss.item())
+                if sched is not None:
+                    sched.step()
+            return losses, dict(_leaves(st.params))
+
+        cpu_losses, cpu_params = run("cpu", master)
+        losses, params = run("cuda", _to_card(master))
+        card_runs[name] = losses, params
+        d_loss = max(abs(a - b) for a, b in zip(cpu_losses, losses))
+        diff = torch.cat([(params[n].cpu() - t).abs().flatten()
+                          for n, t in cpu_params.items()])
+        d_param = diff.max().item()
+        far = (diff > TRAIN_PARAM_TOL).float().mean().item()
+        same = ""
+        if same_as is not None:
+            ref_losses, ref_params = card_runs[same_as]
+            bits = losses == ref_losses and all(
+                torch.equal(t, ref_params[n]) for n, t in params.items())
+            same = f"; card bit-equal to {same_as!r}: {bits}"
+            if not bits:
+                raise AssertionError(f"{name} on the card is not bit-equal "
+                                     f"to {same_as}")
+        log(f"  {name}: losses (card) {[round(x, 5) for x in losses]}; "
+            f"max|loss card - cpu| {d_loss:.3g} (tol {TRAIN_LOSS_TOL}); "
+            f"params card - cpu: max {d_param:.3g} (tol "
+            f"{TRAIN_STEPS * TRAIN_LR}), share past {TRAIN_PARAM_TOL} "
+            f"{far:.3g} of {diff.numel()} (tol {TRAIN_PARAM_FAR}){same}")
+        if not (all(map(math.isfinite, losses))
+                and d_loss <= TRAIN_LOSS_TOL and far <= TRAIN_PARAM_FAR
+                and d_param <= TRAIN_STEPS * TRAIN_LR):
+            raise AssertionError(f"card training disagrees with the CPU on "
+                                 f"{name}")
+        worst_loss = max(worst_loss, d_loss)
+        worst_param = max(worst_param, d_param)
+    if card_runs["dropout 0.1"][0] == card_runs["adamw"][0]:
+        raise AssertionError("dropout 0.1 left the losses as they were")
     os.environ.pop("PADDLE_TPU_FUSED_CE", None)
     os.environ.pop("PADDLE_TPU_FUSED_LN", None)
     return worst_loss, worst_param
@@ -2173,53 +2287,102 @@ def generate_path(torch, gpt, G, serving, engine):
     return stats
 
 
-def train_path(torch, gpt, ks, tr, fused_ln=False, steps=4):
-    """``steps`` train steps of the train path (with ``fused_ln``, the
-    headline rung) on one batch, each timed on the host clock (it ends in
-    a sync: the loss is read), with every kernel's launches counted per
-    step.  Returns (stats, launches)."""
+def expected_train_launches(cfg, rung, remat_policies):
+    """Each kernel's launches in one step of ``rung``: per micro-batch a
+    flash forward, dq and dk/dv a layer, the CE forward and backward once,
+    and on the fused-LN rungs every LayerNorm (two a block and the final
+    one) forward and backward once — plus, under remat with a checkpoint
+    (any policy but "everything"), each block's flash forward and its two
+    LayerNorm forwards again in the recompute.  Checkpoint early stop
+    cuts none of these: a block's last saved tensor is the FFN output
+    matmul's input, after both norms and the attention."""
+    L, A = cfg.num_layers, rung.accum
+    again = int(cfg.remat and remat_policies.canonical(cfg.remat_policy)
+                != "everything")
+    ln = int(rung.flags["PADDLE_TPU_FUSED_LN"] == "1")
+    return {"flash_attention_fwd": L * A * (1 + again),
+            "flash_attention_bwd_dq": L * A,
+            "flash_attention_bwd_dkv": L * A,
+            "fused_ce_fwd": A, "fused_ce_bwd": A,
+            "fused_layer_norm_fwd": ((2 * L + 1) + 2 * L * again) * A * ln,
+            "fused_layer_norm_bwd": (2 * L + 1) * A * ln,
+            "w4_matmul": 0, "decode_attention": 0,
+            "paged_decode_attention": 0}
+
+
+def forward_bytes(torch, gpt, cfg, params, tokens):
+    """Bytes one micro-batch's forward (``loss_fn`` on its one sequence,
+    the masters as fresh autograd leaves, as the step takes them) leaves
+    allocated for its backward: what remat trades against recompute."""
+    leaves = {n: ({k: t.detach().requires_grad_(True) for k, t in v.items()}
+                  if n == "blocks" else v.detach().requires_grad_(True))
+              for n, v in params.items()}
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    loss = gpt.loss_fn(leaves, tokens[:1], cfg)
+    kept = torch.cuda.memory_allocated() - before
+    del loss
+    return kept
+
+
+def train_path(torch, gpt, ks, tr, remat_policies, rung, steps=4):
+    """``steps`` train steps of ``rung`` (``tr.RUNGS``) on one batch, each
+    timed on the host clock (it ends in a sync: the loss is read), with
+    every kernel's launches counted per step and the step's memory split
+    at the optimizer update (the peak of the micro-batches' phase, and of
+    the update); then the bytes one micro-batch's forward keeps.  Returns
+    (stats, launches)."""
+    r = tr.RUNGS[rung]
     cfg, opt, init_fn, step_fn, tokens = tr.build_train_path(
-        "cuda", seed=0, fused_ln=fused_ln)
+        "cuda", seed=0, rung=rung)
     state = init_fn(0)
     n_params = sum(t.numel() for _, t in _leaves(state.params))
     assert n_params == gpt.count_params(cfg)
     assert all(t.dtype == torch.float32 for _, t in _leaves(state.params))
-    n_tok = tr.BATCH * tr.SEQ
+    n_tok = r.batch * tr.SEQ
     fpt = gpt.flops_per_token(cfg, tr.SEQ)
-    log(f"  gpt_1p3b: {n_params} fp32 master params; batch {tr.BATCH} x "
-        f"{tr.SEQ} tokens in {tr.ACCUM} micro-batches; flops/token {fpt:.4g}")
-    want = {"flash_attention_fwd": cfg.num_layers * tr.ACCUM,
-            "flash_attention_bwd_dq": cfg.num_layers * tr.ACCUM,
-            "flash_attention_bwd_dkv": cfg.num_layers * tr.ACCUM,
-            "fused_ce_fwd": tr.ACCUM, "fused_ce_bwd": tr.ACCUM,
-            # every LayerNorm (two a block and the final one) of every
-            # micro-batch, on the headline rung
-            "fused_layer_norm_fwd": (2 * cfg.num_layers + 1) * tr.ACCUM
-            * fused_ln,
-            "fused_layer_norm_bwd": (2 * cfg.num_layers + 1) * tr.ACCUM
-            * fused_ln,
-            "w4_matmul": 0, "decode_attention": 0,
-            "paged_decode_attention": 0}
+    log(f"  hidden {cfg.hidden_size}, {cfg.num_layers} layers: {n_params} "
+        f"fp32 master params; batch {r.batch} x {tr.SEQ} tokens in "
+        f"{r.accum} micro-batches; remat {cfg.remat} (policy "
+        f"{cfg.remat_policy}); {r.describe()}; optimizer state "
+        f"{tr.state_bytes(state.opt_state) / 1e9:.3f} GB; flops/token "
+        f"{fpt:.4g}")
+    want = expected_train_launches(cfg, r, remat_policies)
+    phase = {}
+    apply = opt.apply_gradients
+
+    def split_at_update(*args, **kwargs):
+        # the peak since the step began is the micro-batches' phase; the
+        # update's own peak is read after it
+        phase["grads"] = torch.cuda.max_memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = apply(*args, **kwargs)
+        phase["update"] = torch.cuda.max_memory_allocated()
+        return out
+
+    opt.apply_gradients = split_at_update
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     zero_counts(ks)
-    losses, step_s, per_step, per_step_tc = [], [], [], []
+    losses, step_s, per_step, per_step_tc, peaks = [], [], [], [], []
     for _ in range(steps):
         before, before_tc = launch_counts(ks), tc_counts(ks)
+        torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
         state, loss = step_fn(state, tokens, None, tr.LR)
         losses.append(loss.item())
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
+        peaks.append(dict(phase))
         per_step.append({n: c - before[n]
                          for n, c in launch_counts(ks).items()})
         per_step_tc.append({n: c - before_tc[n]
                             for n, c in tc_counts(ks).items()})
         log(f"  step {len(losses)}: loss {losses[-1]:.5f}, "
             f"{step_s[-1] * 1e3:.1f} ms, {n_tok / step_s[-1]:.0f} tokens/s, "
-            f"launches {per_step[-1]}")
+            f"peak GB micro-batches {phase['grads'] / 1e9:.2f} / update "
+            f"{phase['update'] / 1e9:.2f}, launches {per_step[-1]}")
     launches = launch_counts(ks)
-    peak = torch.cuda.max_memory_allocated()
+    opt.apply_gradients = apply
     if not all(map(math.isfinite, losses)):
         raise AssertionError(f"non-finite train losses {losses}")
     if abs(losses[0] - math.log(cfg.vocab_size)) > 1.0:
@@ -2230,8 +2393,8 @@ def train_path(torch, gpt, ks, tr, fused_ln=False, steps=4):
     for i, got in enumerate(per_step):
         if got != want:
             raise AssertionError(f"step {i + 1} launched {got}, not {want}")
-    # every flash forward, dq and dk/dv of every step on the tensor-core
-    # bodies (bf16, head_dim 128)
+    # every flash forward (the recompute's too), dq and dk/dv of every step
+    # on the tensor-core bodies (bf16, head_dim 128)
     want_tc = {name: want[name] for name in (
         "flash_attention_fwd", "flash_attention_bwd_dq",
         "flash_attention_bwd_dkv", "w4_matmul", "decode_attention",
@@ -2243,27 +2406,49 @@ def train_path(torch, gpt, ks, tr, fused_ln=False, steps=4):
     tc = tc_counts(ks)
     if tc != {n: steps * c for n, c in want_tc.items()}:
         raise AssertionError(f"tensor-core launches {tc} in {steps} steps")
+    kept = forward_bytes(torch, gpt, cfg, state.params, tokens)
     steady = statistics.median(step_s[1:])
+    grads_peak = max(p["grads"] for p in peaks)
+    update_peak = max(p["update"] for p in peaks)
     stats = {
-        "rung": "gpt_1.3b_fused_acc8_b8" if fused_ln else
-        "gpt_1.3b_acc8_b8 + fused CE",
-        "model": "gpt_1p3b", "params": n_params, "batch": tr.BATCH,
-        "seq": tr.SEQ, "accum": tr.ACCUM, "optimizer":
-        f"AdamW(lr={tr.LR}, weight_decay={tr.WEIGHT_DECAY}, bf16 state)",
-        "flags": tr.FUSED_FLAGS if fused_ln else tr.FLAGS, "losses": losses, "step_ms": [1e3 * t for t in
-                                                          step_s],
+        "rung": rung + (" + fused CE" if rung == "gpt_1.3b_acc8_b8" else ""),
+        "hidden": cfg.hidden_size, "layers": cfg.num_layers,
+        "params": n_params, "batch": r.batch, "seq": tr.SEQ,
+        "accum": r.accum, "remat": cfg.remat,
+        "remat_policy": cfg.remat_policy, "optimizer": r.describe(),
+        "optimizer_state_gb": tr.state_bytes(state.opt_state) / 1e9,
+        "flags": r.flags, "losses": losses,
+        "step_ms": [1e3 * t for t in step_s],
         "tokens_per_s": [n_tok / t for t in step_s],
         "steady_step_ms": 1e3 * steady,
         "steady_tokens_per_s": n_tok / steady,
         "mfu": fpt * n_tok / steady / BF16_FLOPS_PER_S,
-        "peak_mem_gb": peak / 1e9, "launches_per_step": per_step[-1],
+        "peak_mem_gb": max(grads_peak, update_peak) / 1e9,
+        "peak_micro_batches_gb": grads_peak / 1e9,
+        "peak_update_gb": update_peak / 1e9,
+        "forward_kept_gb": kept / 1e9,
+        "launches_per_step": per_step[-1],
         "tc_launches_per_step": per_step_tc[-1], "tc_launches": tc,
     }
     log(f"  steady (median of steps 2-{steps}): {stats['steady_step_ms']:.1f}"
         f" ms/step, {stats['steady_tokens_per_s']:.0f} tokens/s, MFU "
-        f"{stats['mfu']:.4f}; peak memory {stats['peak_mem_gb']:.2f} GB")
+        f"{stats['mfu']:.4f}; peak memory {stats['peak_mem_gb']:.2f} GB "
+        f"(micro-batches {grads_peak / 1e9:.2f}, update "
+        f"{update_peak / 1e9:.2f}); one micro-batch's forward keeps "
+        f"{kept / 1e9:.3f} GB")
     del state
     return stats, launches
+
+
+# the train rungs the smoke drives (tools/profile_train.RUNGS), in order;
+# each remat rung is held against the remat-off twin named beside it
+TRAIN_RUNGS = (("train", "gpt_1.3b_acc8_b8", None),
+               ("train_fused", "gpt_1.3b_fused_acc8_b8", None),
+               ("train_760m", "gpt_760m_fused_acc16_b16", None),
+               ("train_760m_dots", "gpt_760m_fused_dots_acc16_b16",
+                "train_760m"),
+               ("train_1.3b_remat_af", "gpt_1.3b_fused_remat_af_acc8_b8",
+                "train_fused"))
 
 
 def main() -> int:
@@ -2280,8 +2465,11 @@ def main() -> int:
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_ce as fc
     from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import remat_policies
     from paddle_tpu_torch.ops import woq_matmul as wm
-    from paddle_tpu_torch.optimizer import AdamW
+    from paddle_tpu_torch import nn as clip
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.optimizer import lr as lrs
     from paddle_tpu_torch.text import generate as G
     from paddle_tpu_torch.text import engine
     from paddle_tpu_torch.text import gpt, gpt_hybrid, kv_pool, serving, woq
@@ -2321,7 +2509,10 @@ def main() -> int:
         "fp32 models]")
     check_graphs_vs_eager(torch, gpt, serving, woq, engine)
     log("[train steps on the card vs the CPU]")
-    check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW, fn)
+    check_train_vs_cpu(torch, gpt, gpt_hybrid, optim.AdamW, fn)
+    log("[remat, dropout, Adafactor, Lamb, clipping, a schedule: train "
+        "steps on the card vs the CPU, remat bit-equal to none]")
+    check_train_surface_vs_cpu(torch, gpt, gpt_hybrid, optim, clip, lrs)
 
     log("[kernel timings at the paths' shapes]")
     flash_by_t = {T: time_flash(torch, fa, F, T) for T in (64, 128, 256, 512)}
@@ -2418,21 +2609,38 @@ def main() -> int:
         f"{stats['peak_mem_gb']:.2f} GB")
 
     train = {}
-    for fused_ln, path in ((False, "train"), (True, "train_fused")):
+    for path, rung, twin in TRAIN_RUNGS:
         gc.collect()                # the last model leaves the card
         torch.cuda.empty_cache()
-        rung = "gpt_1.3b_fused_acc8_b8" if fused_ln else "gpt_1.3b_acc8_b8"
-        log(f"[train path: build_gpt_train_step, gpt_1p3b, AdamW, accum 8, "
-            f"rung {rung}]")
+        log(f"[train path: build_gpt_train_step, rung {rung}]")
         train[path], by_path[path] = train_path(torch, gpt, ks, tr,
-                                                fused_ln=fused_ln)
+                                                remat_policies, rung)
         log(json.dumps({f"{path}_path": train[path]}))
-    a, b = train["train"], train["train_fused"]
-    log(f"  headline rung vs gpt_1.3b_acc8_b8, this run: steady "
-        f"{b['steady_step_ms']:.1f} vs {a['steady_step_ms']:.1f} ms/step, "
-        f"{b['steady_tokens_per_s']:.0f} vs {a['steady_tokens_per_s']:.0f} "
-        f"tokens/s, MFU {b['mfu']:.4f} vs {a['mfu']:.4f}, peak memory "
-        f"{b['peak_mem_gb']:.2f} vs {a['peak_mem_gb']:.2f} GB")
+    for path, rung, twin in TRAIN_RUNGS:
+        a, b = train[twin or "train"], train[path]
+        if path == "train":
+            continue
+        log(f"  {rung} vs {a['rung']}, this run: steady "
+            f"{b['steady_step_ms']:.1f} vs {a['steady_step_ms']:.1f} "
+            f"ms/step, {b['steady_tokens_per_s']:.0f} vs "
+            f"{a['steady_tokens_per_s']:.0f} tokens/s, MFU {b['mfu']:.4f} "
+            f"vs {a['mfu']:.4f}, peak memory {b['peak_mem_gb']:.2f} vs "
+            f"{a['peak_mem_gb']:.2f} GB (micro-batches "
+            f"{b['peak_micro_batches_gb']:.2f} vs "
+            f"{a['peak_micro_batches_gb']:.2f}, update "
+            f"{b['peak_update_gb']:.2f} vs {a['peak_update_gb']:.2f}), a "
+            f"micro-batch's forward keeps {b['forward_kept_gb']:.3f} vs "
+            f"{a['forward_kept_gb']:.3f} GB")
+        # remat trades recompute for the activations a forward keeps; the
+        # step's peak is the optimizer update's, which remat cannot lower,
+        # so there it must only not rise
+        if twin and not (b["forward_kept_gb"] < a["forward_kept_gb"]
+                         and b["peak_mem_gb"] <= a["peak_mem_gb"]):
+            raise AssertionError(
+                f"{rung}: a forward keeps {b['forward_kept_gb']} GB and the "
+                f"step peaks at {b['peak_mem_gb']} GB, against "
+                f"{a['forward_kept_gb']} and {a['peak_mem_gb']} GB for "
+                f"{a['rung']}")
 
     ln["bwd"].update(ln_bwd_apart(torch, fn))
     log(f"  fused_layer_norm_bwd apart: rows_ms {ln['bwd']['rows_ms']:.4f}, "

@@ -1,5 +1,5 @@
-"""Carry a JAX-package GPT across: its parameter tree, its config and an
-Adam/AdamW optimizer state.
+"""Carry a JAX-package GPT across: its parameter tree, its config and its
+optimizer state.
 
 The port imports nothing of JAX; callers hand over host values —
 ``jax.device_get(params)`` (a tree of numpy arrays) and the JAX
@@ -17,8 +17,8 @@ from .text import gpt
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 _CFG_FIELDS = ("vocab_size", "hidden_size", "num_layers", "num_heads",
-               "max_seq_len", "ffn_ratio", "dropout", "remat", "use_flash",
-               "num_kv_heads", "pos_embed", "norm", "activation")
+               "max_seq_len", "ffn_ratio", "dropout", "remat", "remat_policy",
+               "use_flash", "num_kv_heads", "pos_embed", "norm", "activation")
 
 
 def _tensor(a, device):
@@ -51,9 +51,9 @@ def _dtype_name(d) -> str:
 
 def config_from_jax(jcfg) -> gpt.GPTConfig:
     """The port's ``GPTConfig`` from a JAX ``GPTConfig``'s field values
-    (compute dtype mapped by name; ``use_flash`` is carried as it is).
-    MoE configs raise, and so does ``GPTConfig`` on dropout or remat
-    other than the defaults (not ported yet)."""
+    (compute dtype mapped by name; ``use_flash`` is carried as it is;
+    ``GPTConfig`` validates ``remat_policy``).  MoE configs raise (not
+    ported yet)."""
     if getattr(jcfg, "moe", None) is not None:
         raise NotImplementedError("MoE configs are not ported yet")
     kw = {f: getattr(jcfg, f) for f in _CFG_FIELDS}
@@ -62,16 +62,15 @@ def config_from_jax(jcfg) -> gpt.GPTConfig:
 
 
 def opt_state_from_jax(tree, device="cpu"):
-    """A JAX Adam/AdamW optimizer state (``init_state``'s tree: the
-    parameter tree's dicts with an ``(m, v)`` tuple at each leaf, as numpy
-    arrays from ``jax.device_get``) -> the port's state tree on
-    ``device``, dtypes kept.  With the step count carried beside it, a run
+    """A JAX optimizer state (``init_state``'s tree: the parameter tree's
+    dicts with a tuple of arrays at each leaf, as numpy arrays from
+    ``jax.device_get`` — Adam's ``(m, v)``, Momentum's ``(v,)``,
+    Adafactor's factored ``(rows, cols)`` or full ``(v,)`` plus its first
+    moment, SGD's ``()``) -> the port's state tree on ``device``, shapes
+    and dtypes kept.  With the step count carried beside it, a run
     resumes mid-trajectory in the port."""
     if isinstance(tree, dict):
         return {k: opt_state_from_jax(v, device) for k, v in tree.items()}
     if isinstance(tree, (tuple, list)):
-        if len(tree) != 2:
-            raise ValueError(f"expected an Adam (m, v) state leaf, got "
-                             f"{len(tree)} arrays")
         return tuple(_tensor(a, device) for a in tree)
     raise TypeError(f"unexpected optimizer-state leaf {type(tree).__name__}")

@@ -86,6 +86,16 @@ def fused_ln() -> bool:
     return os.environ.get("PADDLE_TPU_FUSED_LN", "") == "1"
 
 
+def remat_policy() -> str | None:
+    """The remat policy name from ``PADDLE_TPU_REMAT_POLICY`` (unset or
+    empty: None, full recompute).  Read by ``gpt.forward_with_aux`` only
+    when the config sets no ``remat_policy``: an explicit config stays
+    authoritative, as in the JAX package (text/gpt.py ``_remat_policy``).
+    Names are validated where they are resolved
+    (``ops/remat_policies.py``)."""
+    return os.environ.get("PADDLE_TPU_REMAT_POLICY") or None
+
+
 def w4_kernel() -> bool:
     """The W4A16 dequant-matmul kernel (``ops/woq_matmul.py``: Pallas #8
     in the JAX package, ``csrc/woq_matmul.cu`` here) for nibble-packed

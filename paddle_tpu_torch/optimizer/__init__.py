@@ -1,4 +1,10 @@
 """Optimizers of the port (counterpart of ``paddle_tpu/optimizer``)."""
-from .optimizer import Adam, AdamW, Optimizer
+from . import lr  # noqa: F401
+from .optimizer import (  # noqa: F401
+    SGD, Adadelta, Adafactor, Adagrad, Adam, Adamax, AdamW, L1Decay, L2Decay,
+    Lamb, Lars, Momentum, Optimizer, RMSProp,
+)
 
-__all__ = ["Adam", "AdamW", "Optimizer"]
+__all__ = ["SGD", "Adadelta", "Adafactor", "Adagrad", "Adam", "Adamax",
+           "AdamW", "L1Decay", "L2Decay", "Lamb", "Lars", "Momentum",
+           "Optimizer", "RMSProp", "lr"]

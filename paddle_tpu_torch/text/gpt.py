@@ -11,8 +11,12 @@ the stack, this one loops over ``l`` and slices it.
 
 Functions take ``params`` as a mapping — a plain dict from
 :func:`init_params` / ``convert.params_from_jax``, or a :class:`GPT`
-module, which answers ``params["wte"]`` the same way.  Dropout, remat
-and MoE are not ported yet: a config that asks for them raises.
+module, which answers ``params["wte"]`` the same way.  MoE is not
+ported yet.
+
+Remat (``cfg.remat``) wraps each block in ``torch.utils.checkpoint``
+under the config's policy (``ops/remat_policies.py``); dropout draws its
+masks from the counter-based ``rng.py``, so a recompute rebuilds them.
 """
 from __future__ import annotations
 
@@ -24,7 +28,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import woq
-from .. import flags, resolve_device
+from .. import flags, resolve_device, rng
+from ..ops import remat_policies
 from ..ops.attention import attention_array
 from ..ops.fused_ce import fused_softmax_ce
 from ..ops.fused_norm import fused_layer_norm
@@ -38,10 +43,13 @@ class GPTConfig:
     num_heads: int = 12
     max_seq_len: int = 1024
     ffn_ratio: int = 4
-    # dropout and remat are not ported yet: any other value than these
-    # defaults raises
     dropout: float = 0.0
     remat: bool = False
+    # the checkpoint policy when remat=True (ops/remat_policies.py): None
+    # = save nothing (full recompute); "dots" = keep matmul outputs;
+    # "dots_no_batch" = keep only non-batch matmuls; "everything" = keep
+    # all (no checkpoint).  None defers to PADDLE_TPU_REMAT_POLICY.
+    remat_policy: str | None = None
     # carried for the JAX config's sake and read by no math: attention
     # routes by shape there too (paddle_tpu/ops/attention.py), and on the
     # card the port's one attention path is the flash kernels
@@ -55,11 +63,7 @@ class GPTConfig:
     activation: str = "gelu"       # "gelu" | "swiglu" (gated FFN)
 
     def __post_init__(self):
-        if self.dropout != 0.0:
-            raise NotImplementedError(
-                f"dropout {self.dropout}: dropout is not ported yet")
-        if self.remat:
-            raise NotImplementedError("remat is not ported yet")
+        remat_policies.canonical(self.remat_policy)
         if (self.num_kv_heads is not None
                 and self.num_heads % self.num_kv_heads):
             raise ValueError(
@@ -291,37 +295,78 @@ def _ffn_dense(x, p, cfg: GPTConfig):
     return x + _ffn_body(_norm(x, p, "ln2", cfg), p, cfg)
 
 
-def _block(x, p, cfg: GPTConfig):
-    """One transformer block on [B, T, D] activations (compute dtype)."""
+def _dropout(x, rate, key):
+    """Inverted dropout, as the JAX package's ``_dropout``: each element
+    kept with probability ``1 - rate`` and scaled by ``1 / keep``.  The
+    mask is a pure function of ``key`` and the element index
+    (``rng.bernoulli``), so a remat recompute draws it again exactly."""
+    keep = 1.0 - rate
+    mask = rng.bernoulli(key, keep, x.shape, x.device)
+    return torch.where(mask, x / keep,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def _block(x, p, cfg: GPTConfig, dropout_key=None):
+    """One transformer block on [B, T, D] activations (compute dtype).
+    With ``cfg.dropout > 0`` and a ``dropout_key``, dropout on the
+    attention projection's output (key ``fold_in(dropout_key, 0)``) and
+    on the FFN's (``fold_in(dropout_key, 1)``), as in the JAX block."""
     B, T, D = x.shape
     dt = cfg.dtype
+    drop = cfg.dropout > 0.0 and dropout_key is not None
     h = _norm(x, p, "ln1", cfg)
     q, k, v = _project_qkv(h, p, cfg)
     if cfg.pos_embed == "rope":
         pos = torch.arange(T, device=x.device)
         q, k = apply_rope(q, pos), apply_rope(k, pos)
     attn = attention_array(q, k, v, is_causal=True).reshape(B, T, D)
-    x = x + woq.mm(attn, p, "proj_w", dt) + p["proj_b"].to(dt)
-    return _ffn_dense(x, p, cfg)
+    a = woq.mm(attn, p, "proj_w", dt)
+    if drop:
+        x = x + _dropout(a + p["proj_b"].to(dt), cfg.dropout,
+                         rng.fold_in(dropout_key, 0))
+    else:
+        x = x + a + p["proj_b"].to(dt)
+    h = _ffn_body(_norm(x, p, "ln2", cfg), p, cfg)
+    if drop:
+        h = _dropout(h, cfg.dropout, rng.fold_in(dropout_key, 1))
+    return x + h
+
+
+def _remat_wrap(cfg: GPTConfig):
+    """The block as ``forward_with_aux`` calls it: ``_block`` itself, or
+    under the checkpoint of ``cfg.remat_policy`` (unset: the
+    ``PADDLE_TPU_REMAT_POLICY`` flag, read at each call)."""
+    if not cfg.remat:
+        return _block
+    name = cfg.remat_policy
+    if name is None:
+        name = flags.remat_policy()
+    return remat_policies.resolve(name)(_block)
 
 
 def forward_with_aux(params, tokens, cfg: GPTConfig, key=None):
     """tokens [B, T] int -> (logits [B, T, V] in the compute dtype, aux
     loss).  aux is the MoE load-balancing term, 0 for the dense models
-    this port runs.  ``key`` (the JAX package's dropout key) is accepted
-    and unused: dropout is not ported.
+    this port runs.  ``key`` (an int or an int64 tensor, ``rng.py``)
+    turns dropout on when ``cfg.dropout > 0``: layer ``l`` draws under
+    ``rng.fold_in(key, l)`` (the JAX package splits its key over the
+    layers); None is eval mode.
 
     The stacked block weights are unbound once into per-layer views, so
     under autograd each [L, ...] leaf gets its gradient by one stack of
-    the layers' slices."""
+    the layers' slices.  Under ``cfg.remat`` only the blocks are
+    checkpointed; the embedding, the final norm and the head are not."""
     B, T = tokens.shape
     dt = cfg.dtype
     x = woq.embed(params, tokens, dt)
     if cfg.pos_embed == "learned":
         x = x + params["wpe"][:T].to(dt)[None]
+    blk = _remat_wrap(cfg)
+    need_keys = key is not None and cfg.dropout > 0.0
     per_layer = {name: t.unbind(0) for name, t in params["blocks"].items()}
     for l in range(cfg.num_layers):
-        x = _block(x, {name: ts[l] for name, ts in per_layer.items()}, cfg)
+        x = blk(x, {name: ts[l] for name, ts in per_layer.items()}, cfg,
+                rng.fold_in(key, l) if need_keys else None)
     x = _norm(x, params, "ln_f", cfg)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return woq.logits(x, params, dt), aux
@@ -338,7 +383,8 @@ def loss_fn(params, tokens, cfg: GPTConfig, key=None):
     loss.  ``PADDLE_TPU_FUSED_CE=1`` (read at each call) takes the fused
     loss head (``ops/fused_ce.py``: the hand-written kernels on the card,
     their plain twins on the CPU); otherwise the fp32 ``log_softmax``
-    expression, as in the JAX package."""
+    expression, as in the JAX package.  ``key``: the dropout key of
+    :func:`forward_with_aux` (None: no dropout)."""
     logits, aux = forward_with_aux(params, tokens[:, :-1], cfg, key=key)
     tgt = tokens[:, 1:]
     if flags.fused_ce():

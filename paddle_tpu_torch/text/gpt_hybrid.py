@@ -15,6 +15,8 @@ PyTorch's autograd through the hand-written kernels' backward functions
 ``l * (1/accum)``; the optimizer receives the bf16 grads.  (A trajectory
 accumulated in fp32 would not match the JAX one.)  The carry is updated
 in place, which saves a copy of the gradient tree per micro-batch.
+Each micro-batch draws its dropout under its own key (``rng.fold_in(key,
+i)``, where the JAX step splits its key over the micro-batches).
 """
 from __future__ import annotations
 
@@ -22,7 +24,7 @@ from typing import Any, NamedTuple
 
 import torch
 
-from .. import resolve_device
+from .. import resolve_device, rng
 from . import gpt
 
 
@@ -69,8 +71,10 @@ def build_gpt_train_step(cfg: gpt.GPTConfig, optimizer, accum: int = 1,
       ``seed`` on the device, the optimizer's initial state, step 0;
     * ``step_fn(state, tokens, key, lr) -> (state, loss)``: tokens
       [B, T + 1] (tensor or array; B divisible by ``accum``), ``key``
-      accepted for the contract and unused (dropout is not ported), the
-      loss a 0-d fp32 tensor on the device (no host sync);
+      the dropout key (an int or an int64 tensor on the device,
+      ``rng.py``; None: no dropout), ``lr`` a number, or None for the
+      optimizer's own (its scheduler's current value); the loss a 0-d
+      fp32 tensor on the device (no host sync);
     * ``meta``: the axis sizes (all 1 here), ``accum`` and the device.
 
     Runs on the card unless ``device="cpu"``."""
@@ -98,8 +102,9 @@ def build_gpt_train_step(cfg: gpt.GPTConfig, optimizer, accum: int = 1,
             loss = torch.zeros((), dtype=torch.float32, device=dev)
             grads = {path: torch.zeros_like(t, dtype=torch.bfloat16)
                      for path, t in _leaves(state.params)}
-            for t in micro:
-                l, g = value_and_grad(loss_fn, state.params, t, key)
+            for i, t in enumerate(micro):
+                k = None if key is None else rng.fold_in(key, i)
+                l, g = value_and_grad(loss_fn, state.params, t, k)
                 for path, gl in _leaves(g):
                     grads[path].add_((gl * inv).to(torch.bfloat16))
                 del g

@@ -70,14 +70,12 @@ of the port reaches it.
 """
 from __future__ import annotations
 
-import zlib
-
 import numpy as np
 import torch
 
 from . import engine, generate, gpt, kv_pool
 from .. import flags as _flags
-from .. import resolve_device
+from .. import resolve_device, rng
 
 __all__ = ["decode_step_batched", "sample_step_batched",
            "decode_block_batched", "sample_block_batched", "DecodeServer",
@@ -105,40 +103,9 @@ def decode_step_batched(params, cache, token, pos, cfg: gpt.GPTConfig):
 
 
 # -- the sampling stream: counter-based, keyed (seed, step) ----------------
-
-_M32 = 0xFFFFFFFF
-
-
-def _mix32(h):
-    """A 32-bit integer finalizer (xorshift-multiply rounds) on int64
-    values in [0, 2^32); both multipliers are below 2^31, so every product
-    stays inside int64 on any device."""
-    h = h ^ (h >> 16)
-    h = (h * 0x7FEB352D) & _M32
-    h = h ^ (h >> 15)
-    h = (h * 0x5BD1E995) & _M32
-    return h ^ (h >> 16)
-
-
-def seed_key(seed: int) -> int:
-    """The 32-bit stream key of a server seed (host side)."""
-    return zlib.crc32(np.int64(seed).tobytes()) & _M32
-
-
-def _gumbel(key, shape, device):
-    """Standard Gumbel noise of ``shape`` [B, V] as a pure function of
-    ``key`` — an int64 tensor [2] (stream key, counter) — and the element
-    index: the port's ``jax.random`` counterpart, with no generator state
-    (so a replayed graph draws what the eager step draws)."""
-    c = key[1]
-    h = _mix32(_mix32(key[0] ^ (c & _M32)) ^ ((c >> 32) & _M32))
-    n = 1
-    for d in shape:
-        n *= d
-    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
-    bits = _mix32(_mix32(idx ^ h) ^ 0x3C6EF372)
-    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
-    return -torch.log(-torch.log(u))
+# Gumbel noise hashed from (seed key, step counter, element) by the port's
+# counter-based helper (``paddle_tpu_torch/rng.py``): no generator state, so
+# a replayed graph draws what the eager step draws.
 
 
 def _sample_batched(logits, key, temp, topk, topp):
@@ -150,7 +117,7 @@ def _sample_batched(logits, key, temp, topk, topp):
     int [B] (0 = off); slots with temp == 0 take the argmax of the raw
     logits."""
     scaled = generate._filter_logits(logits, temp, topk, topp)
-    noise = _gumbel(key, scaled.shape, scaled.device)
+    noise = rng.gumbel(key, scaled.shape, scaled.device)
     sampled = torch.argmax(scaled.float() + noise, dim=-1)
     greedy = torch.argmax(logits, dim=-1)
     return torch.where(temp > 0.0, sampled, greedy)
@@ -338,7 +305,7 @@ class DecodeServer:
         # what every step of this server is bound to (text/engine.py)
         self._bind = engine.Binding(params, self.cache, graphs=_graphs)
         self._prefill_rows = 0       # prompt rows admission computed
-        self._seed_key = seed_key(seed)
+        self._seed_key = rng.seed_key(seed)
         self._step_no = 0            # device steps dispatched so far
         self._async = bool(async_dispatch)
         self._inflight: dict | None = None   # the async step in flight

@@ -1,33 +1,44 @@
 """Where the PyTorch/CUDA port's train-step time goes on the card.
 
-    python3 -m paddle_tpu_torch.tools.profile_train [--fused-ln] [--trace PATH]
+    python3 -m paddle_tpu_torch.tools.profile_train [--rung NAME]
+        [--fused-ln] [--trace PATH]
 
 (from the repository root).
 
-Builds the port's train path — :func:`build_train_path`, the one
-definition of it that ``chip_smoke.py`` drives too: GPT-1.3B
-(``gpt_1p3b()``, fp32 master weights from seed 0, bf16 compute), batch 8
-of 2048 tokens in 8 micro-batches of one sequence, AdamW(lr 2e-4, weight
-decay 0.01, bf16 moments), the fused loss head (``PADDLE_TPU_FUSED_CE=1``)
-— as the JAX package's ``gpt_1.3b_acc8_b8`` rung in bench.py runs it with
-that flag.  ``--fused-ln`` builds the headline rung
-``gpt_1.3b_fused_acc8_b8`` instead (bench.py:425-426, 704-706): the same
-step with the fused LayerNorm kernels too (``PADDLE_TPU_FUSED_LN=1``).
+Builds one of the port's train rungs — :func:`build_train_path`, the one
+definition of them that ``chip_smoke.py`` drives too.  Each is a rung of
+the JAX package's bench (``_gpt_rungs``, bench.py:415-470; built as at
+bench.py:700-718), fp32 master weights from seed 0, bf16 compute, batches
+of 2048-token sequences in micro-batches of one sequence (``RUNGS``):
+
+* ``gpt_1.3b_acc8_b8`` (the default): GPT-1.3B, batch 8 in 8
+  micro-batches, AdamW(lr 2e-4, weight decay 0.01, bf16 moments), with the
+  fused loss head (``PADDLE_TPU_FUSED_CE=1``) that bench.py leaves off;
+* ``gpt_1.3b_fused_acc8_b8`` (``--fused-ln``, the headline rung): the
+  same with the fused LayerNorm kernels too (``PADDLE_TPU_FUSED_LN=1``);
+* ``gpt_760m_fused_acc16_b16``: GPT-760M (hidden 1536, 24 layers, 12
+  heads of 128), batch 16 in 16 micro-batches, AdamW, fused LN and CE;
+* ``gpt_760m_fused_dots_acc16_b16``: the same under remat with the
+  "dots" policy — first in the bench's preference (bench.py:2331);
+* ``gpt_1.3b_fused_remat_af_acc8_b8``: GPT-1.3B, batch 8 in 8, full
+  remat, ``Adafactor(learning_rate=2e-4)``, fused LN and CE.
+
 It warms the step once, then traces one step with ``torch.profiler`` and,
-in a window of its own, one optimizer update.
+in a window of its own, one optimizer update on bf16 gradients.
 
 It prints one JSON line: the step's host wall, device kernel time and the
 device's busy share of the wall, kernel launches, and device time by
 kernel family (matmul, flash fwd, dq, dkv, CE fwd, CE bwd, LN fwd, LN bwd,
-elementwise) and the ten elementwise kernels with the most device time; the optimizer
-update's device time (its elementwise kernels, which the
-step's "elementwise" family includes).  ``--trace`` writes the step's
-Chrome trace.  Needs a CUDA card; imports nothing of JAX or the JAX
-package.
+elementwise) and the ten elementwise kernels with the most device time;
+the optimizer update's device time (its elementwise kernels, which the
+step's "elementwise" family includes) and the bytes of the optimizer's
+state.  ``--trace`` writes the step's Chrome trace.  Needs a CUDA card;
+imports nothing of JAX or the JAX package.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import sys
@@ -36,38 +47,89 @@ import time
 import numpy as np
 import torch
 
-from ..optimizer import AdamW
+from ..optimizer import Adafactor, AdamW
 from ..text import gpt, gpt_hybrid
 from . import profile_serving
 
-# The train path: the gpt_1.3b_acc8_b8 rung's batch, accumulation and
-# optimizer (bench.py), plus the fused loss head; the headline rung
-# gpt_1.3b_fused_acc8_b8 is the same with the fused LayerNorm as well.
-BATCH, SEQ, ACCUM = 8, 2048, 8
+SEQ = 2048
 LR, WEIGHT_DECAY = 2e-4, 0.01
 FLAGS = {"PADDLE_TPU_FUSED_CE": "1", "PADDLE_TPU_FUSED_LN": "0"}
 FUSED_FLAGS = {"PADDLE_TPU_FUSED_CE": "1", "PADDLE_TPU_FUSED_LN": "1"}
+# the bench's model configurations (bench.py:415-428)
+C13 = dict(vocab_size=50304, hidden_size=2048, num_layers=24, num_heads=16,
+           max_seq_len=2048)
+C760 = dict(vocab_size=50304, hidden_size=1536, num_layers=24, num_heads=12,
+            max_seq_len=2048)
 
 
-def build_train_path(device="cuda", seed=0, fused_ln=False):
-    """The port's train path at full width: sets ``FLAGS`` (with
-    ``fused_ln``, ``FUSED_FLAGS``: the headline rung) in the environment,
+@dataclasses.dataclass(frozen=True)
+class Rung:
+    """One train rung: the model config's fields, batch, accumulation,
+    optimizer ("adamw": AdamW(LR, WEIGHT_DECAY, bf16 moments);
+    "adafactor": Adafactor(LR)) and the kernel flags."""
+    cfg: dict
+    batch: int
+    accum: int
+    optimizer: str
+    flags: dict
+
+    def describe(self) -> str:
+        if self.optimizer == "adafactor":
+            return f"Adafactor(lr={LR})"
+        return f"AdamW(lr={LR}, weight_decay={WEIGHT_DECAY}, bf16 state)"
+
+
+RUNGS = {
+    "gpt_1.3b_acc8_b8": Rung(dict(C13, remat=False), 8, 8, "adamw", FLAGS),
+    "gpt_1.3b_fused_acc8_b8": Rung(dict(C13, remat=False), 8, 8, "adamw",
+                                   FUSED_FLAGS),
+    "gpt_760m_fused_acc16_b16": Rung(dict(C760, remat=False), 16, 16,
+                                     "adamw", FUSED_FLAGS),
+    "gpt_760m_fused_dots_acc16_b16": Rung(
+        dict(C760, remat=True, remat_policy="dots"), 16, 16, "adamw",
+        FUSED_FLAGS),
+    "gpt_1.3b_fused_remat_af_acc8_b8": Rung(dict(C13, remat=True), 8, 8,
+                                            "adafactor", FUSED_FLAGS),
+}
+# gpt_1.3b_acc8_b8's batch and accumulation, which older callers read here
+BATCH, ACCUM = 8, 8
+
+
+def build_train_path(device="cuda", seed=0, fused_ln=False, rung=None):
+    """A train rung at full width: ``rung`` names one of ``RUNGS`` (None:
+    ``gpt_1.3b_fused_acc8_b8`` with ``fused_ln``, else
+    ``gpt_1.3b_acc8_b8``).  Sets the rung's flags in the environment,
     where the step reads them at each call, builds
-    ``build_gpt_train_step(gpt_1p3b(), AdamW(...), accum=8)`` on
-    ``device`` and draws the batch, tokens [8, 2049] from
+    ``build_gpt_train_step(cfg, optimizer, accum)`` on ``device`` and
+    draws the batch, tokens [batch, 2049], from
     ``numpy.default_rng(seed)`` as bench.py draws them.  Returns (cfg,
     optimizer, init_fn, step_fn, tokens); nothing is initialised yet."""
-    os.environ.update(FUSED_FLAGS if fused_ln else FLAGS)
-    cfg = gpt.gpt_1p3b()
-    opt = AdamW(learning_rate=LR, weight_decay=WEIGHT_DECAY,
-                state_dtype=torch.bfloat16)
+    if rung is None:
+        rung = "gpt_1.3b_fused_acc8_b8" if fused_ln else "gpt_1.3b_acc8_b8"
+    r = RUNGS[rung]
+    os.environ.update(r.flags)
+    cfg = gpt.GPTConfig(**r.cfg)
+    if r.optimizer == "adafactor":
+        opt = Adafactor(learning_rate=LR)
+    else:
+        opt = AdamW(learning_rate=LR, weight_decay=WEIGHT_DECAY,
+                    state_dtype=torch.bfloat16)
     init_fn, step_fn, meta = gpt_hybrid.build_gpt_train_step(
-        cfg, opt, accum=ACCUM, device=device)
+        cfg, opt, accum=r.accum, device=device)
     rng = np.random.default_rng(seed)
     tokens = torch.as_tensor(rng.integers(0, cfg.vocab_size,
-                                          (BATCH, SEQ + 1)),
+                                          (r.batch, SEQ + 1)),
                              device=meta["device"])
     return cfg, opt, init_fn, step_fn, tokens
+
+
+def state_bytes(tree) -> int:
+    """Bytes of every tensor in a (params or optimizer-state) tree."""
+    if isinstance(tree, dict):
+        return sum(state_bytes(v) for v in tree.values())
+    if isinstance(tree, (tuple, list)):
+        return sum(state_bytes(v) for v in tree)
+    return tree.numel() * tree.element_size()
 
 
 # kernel-name keys, lower case, first match wins
@@ -98,8 +160,10 @@ def top_elementwise(torch, prof, n=10):
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--rung", default=None, choices=sorted(RUNGS),
+                    help="the rung to profile (default gpt_1.3b_acc8_b8)")
     ap.add_argument("--fused-ln", action="store_true",
-                    help="the headline rung: fused LayerNorm kernels too")
+                    help="the headline rung gpt_1.3b_fused_acc8_b8")
     ap.add_argument("--trace", default=None,
                     help="write the step's Chrome trace here")
     args = ap.parse_args()
@@ -111,8 +175,10 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     card = profile_serving.card_line()
     print(card, flush=True)
-    cfg, opt, init_fn, step_fn, tokens = build_train_path(
-        fused_ln=args.fused_ln)
+    rung = args.rung or ("gpt_1.3b_fused_acc8_b8" if args.fused_ln
+                         else "gpt_1.3b_acc8_b8")
+    r = RUNGS[rung]
+    cfg, opt, init_fn, step_fn, tokens = build_train_path(rung=rung)
     state = init_fn(0)
     state, loss = step_fn(state, tokens, None, LR)       # warm-up step
     torch.cuda.synchronize()
@@ -138,11 +204,15 @@ def main() -> int:
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     update = profile_serving.summarize(torch, prof, wall, 1, FAMILIES)
-    tok_s = BATCH * SEQ / step["wall_ms"] * 1e3
+    update["state_bytes"] = state_bytes(state.opt_state)
+    tok_s = r.batch * SEQ / step["wall_ms"] * 1e3
     print(json.dumps({"train_step": {
-        "what": f"one train step, gpt_1p3b, B={BATCH} T={SEQ} "
-                f"accum={ACCUM}, AdamW bf16 state, fused CE"
-                + (" and LN" if args.fused_ln else ""),
+        "rung": rung,
+        "what": f"one train step, hidden {cfg.hidden_size}, "
+                f"{cfg.num_layers} layers, B={r.batch} T={SEQ} "
+                f"accum={r.accum}, remat={cfg.remat} "
+                f"policy={cfg.remat_policy}, {r.describe()}, flags "
+                f"{r.flags}",
         "card": card, "loss": loss.item(), **step,
         "tokens_per_s_profiled": tok_s,
         "optimizer_update": update}}), flush=True)

@@ -32,6 +32,7 @@ from paddle_tpu.text import generate as jgenerate
 from paddle_tpu.text import gpt as jgpt
 from paddle_tpu.text import serving as jserving
 from paddle_tpu_torch import convert
+from paddle_tpu_torch.rng import seed_key
 from paddle_tpu_torch.text import engine, gpt, serving
 from paddle_tpu_torch.text import generate as G
 
@@ -294,18 +295,18 @@ def test_sampling_stream_is_keyed_and_in_distribution():
     temp = torch.ones(B)
     tk = torch.zeros(B, dtype=torch.int64)
     tp = torch.ones(B)
-    key = torch.tensor([serving.seed_key(3), 17])
+    key = torch.tensor([seed_key(3), 17])
     a = serving._sample_batched(rows, key, temp, tk, tp)
     assert torch.equal(a, serving._sample_batched(rows, key, temp, tk, tp))
-    b = serving._sample_batched(rows, torch.tensor([serving.seed_key(3),
-                                                    18]), temp, tk, tp)
+    b = serving._sample_batched(rows, torch.tensor([seed_key(3), 18]),
+                                temp, tk, tp)
     assert (a != b).float().mean() > 0.3
     freq = torch.bincount(a, minlength=8).float() / B
     want = torch.softmax(logits, -1)
     assert (freq - want).abs().max() < 0.01, (freq, want)
     # the block's key schedule is the tick's: step n + j
     assert torch.equal(serving._step_key(key, 3), torch.tensor(
-        [serving.seed_key(3), 20]))
+        [seed_key(3), 20]))
 
 
 def test_jax_server_and_port_share_the_warmup_surface(markov_gpt):

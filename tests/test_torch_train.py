@@ -24,7 +24,10 @@ on the CPU.
   reaches loss < 0.1;
 * with ``PADDLE_TPU_FUSED_LN=1`` the loss runs the fused LayerNorm's plain
   twins and equals the JAX package's flagged loss (Pallas in interpret
-  mode) within 1e-5.
+  mode) within 1e-5;
+* a 3-step trajectory under ``remat_policy="dots"`` with Adafactor at
+  accum 2 (hidden 128, so Adafactor factors the block matrices) against
+  the JAX step — losses within 1e-5, params within the accum-2 1e-4.
 """
 import dataclasses
 import functools
@@ -43,7 +46,7 @@ from paddle_tpu.text import gpt as jgpt
 from paddle_tpu.text import gpt_hybrid as jhybrid
 from paddle_tpu_torch import convert
 from paddle_tpu_torch.ops import fused_norm
-from paddle_tpu_torch.optimizer import AdamW
+from paddle_tpu_torch.optimizer import Adafactor, AdamW
 from paddle_tpu_torch.text import gpt, gpt_hybrid
 
 from test_torch_gpt import GRID, _jcfg
@@ -271,10 +274,72 @@ def test_master_params_round_to_the_serving_params():
 
 @pytest.mark.parametrize("field,value", [("dropout", 0.1), ("remat", True)])
 def test_unported_config_values_raise(field, value):
-    with pytest.raises(NotImplementedError):
-        gpt.GPTConfig(**{field: value})
-    with pytest.raises(NotImplementedError):
-        convert.config_from_jax(dataclasses.replace(_jcfg(), **{field: value}))
+    """Dropout and remat once raised here; both are ported now: the port's
+    config and ``config_from_jax`` take them (remat with every reference
+    policy), and a loss runs under them."""
+    policies = [None, "dots", "dots_no_batch", "everything"] \
+        if field == "remat" else [None]
+    for policy in policies:
+        kw = {field: value, "remat_policy": policy}
+        cfg = gpt.GPTConfig(**kw)
+        assert (cfg.dropout, cfg.remat, cfg.remat_policy) == (
+            kw.get("dropout", 0.0), kw.get("remat", False), policy)
+        jcfg = dataclasses.replace(_jcfg(), **kw)
+        cfg = convert.config_from_jax(jcfg)
+        assert getattr(cfg, field) == value and cfg.remat_policy == policy
+        loss = gpt.loss_fn(gpt.init_master_params(cfg, 0, "cpu"),
+                           torch.from_numpy(TOKENS), cfg, key=3)
+        assert torch.isfinite(loss)
+
+
+def test_remat_adafactor_accum_trajectory_matches_jax():
+    """bench.py's ``gpt_1.3b_fused_remat_af`` recipe pieces at a small
+    width — remat (policy "dots"), Adafactor, accum 2 — three steps of
+    the port's step against the JAX step from the same weights."""
+    jcfg = _jcfg("learned", "layernorm", "gelu", None, hidden_size=128,
+                 remat=True, remat_policy="dots")
+    mesh = Mesh(np.array(jax.devices()[:1]), ("dp",))
+    jinit, jstep, _ = jhybrid.build_gpt_train_step(
+        jcfg, mesh, jopt.Adafactor(learning_rate=1e-3), accum=2)
+    rng = np.random.default_rng(6)
+    batches = [rng.integers(0, 64, (4, 13)) for _ in range(3)]
+    js = _jax_init(jinit, mesh)
+    p0 = jax.device_get(js.params)
+    j_losses = []
+    for b in batches:
+        js, loss = jstep(js, jnp.asarray(b, jnp.int32),
+                         jax.random.PRNGKey(0), 1e-3)
+        j_losses.append(float(loss))
+
+    cfg = convert.config_from_jax(jcfg)
+    assert cfg.remat and cfg.remat_policy == "dots"
+    opt = Adafactor(learning_rate=1e-3)
+    _, step_fn, _ = gpt_hybrid.build_gpt_train_step(cfg, opt, accum=2,
+                                                    device="cpu")
+    params = convert.params_from_jax(p0)
+    st = gpt_hybrid.GPTTrainState(params, opt.init_state(params),
+                                  torch.zeros((), dtype=torch.int32))
+    assert len(st.opt_state["blocks"]["fc_w"]) == 2        # factored
+    for i, b in enumerate(batches):
+        st, loss = step_fn(st, b, None, None)     # lr: the optimizer's
+        assert abs(loss.item() - j_losses[i]) < TOL, (i, loss, j_losses)
+    # the key bias's gradient is 0 in exact arithmetic (softmax ignores a
+    # shift shared by a query's scores), so in both packages it is
+    # rounding noise that Adafactor (eps 1e-30) scales to steps of ~lr:
+    # those rows are compared apart, by the bound on the steps they took
+    # (|u| <= 1 / sqrt(1 - beta2_t) = t^0.4 at step t, in each package)
+    jp = jax.device_get(js.params)
+    kb, jkb = st.params["blocks"]["qkv_b"], jp["blocks"]["qkv_b"]
+    keep = torch.ones(kb.shape, dtype=torch.bool)
+    keep[:, 1] = False
+    np.testing.assert_allclose(kb[keep].numpy(), np.asarray(jkb)[keep],
+                               atol=1e-4, rtol=0)
+    assert np.abs(kb[:, 1].numpy() - np.asarray(jkb[:, 1])).max() \
+        <= 2 * sum(t ** 0.4 for t in range(1, len(batches) + 1)) * 1e-3
+    _close_trees({n: v for n, v in st.params.items() if n != "blocks"},
+                 jp, 1e-4)
+    _close_trees({n: v for n, v in st.params["blocks"].items()
+                  if n != "qkv_b"}, jp["blocks"], 1e-4)
 
 
 def test_fused_ln_flag_takes_the_plain_norm_on_cpu(monkeypatch):
