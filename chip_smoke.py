@@ -115,6 +115,24 @@ Phases, in order; any failure raises and the script exits non-zero:
    longest tick while a slot admits; then greedy ``generate.generate``
    on GPT-1.3B (8 prompts of 64 tokens, 32 new): one replay of its
    captured step a position, rows equal by the tie rule to a server's;
+   then the pressure phase on GPT-1.3B (``pressure_phase``): the paged
+   path's server under ``profile_serving.pressure_waves`` (six waves of 8
+   chat requests with system prompts A, B, C, D, E, then A again) three
+   times — with the host-RAM spill tier, evict-only, and a roomy pool of
+   512 blocks that never relieves — with the spill's and the restore's
+   wall a block and the returning wave's admissions profiled (device ms
+   by family); gates: blocks spilled, the returning wave's chain restored
+   (one ``inject`` replay a restored run) and none of its 192 shared rows
+   recomputed, streams equal to the roomy serve's by the tie rule, every
+   launch on the block-table kernel's tick and tensor-core bodies; then,
+   on the main path's model and prompts: an async graphed server whose
+   injected OOMs walk the ladder (async -> sync, cap 4, 2, 1, evicting
+   with progress carried), a budgeted server whose half-prefilled slot
+   is evicted and admitted again, the wedge watchdog (``wedged`` set by
+   the hung fetch, cleared by the next tick), a real
+   ``torch.cuda.OutOfMemoryError`` classified and survived, a TTL shed
+   and a NaN-poisoned tick — streams held to the unfaulted serves' by
+   the tie rule — and the OOM drill again on small fp32 models (PATH_TOL);
 9. the train rungs, as ``paddle_tpu_torch.tools.profile_train.
    build_train_path`` defines them (``RUNGS``, the JAX bench's recipes):
    GPT-1.3B with fp32 master weights from a seed, batch 8 x 2048 tokens in
@@ -137,6 +155,7 @@ of JAX or of the JAX package.
 """
 from __future__ import annotations
 
+import contextlib
 import gc
 import json
 import math
@@ -2287,6 +2306,565 @@ def generate_path(torch, gpt, G, serving, engine):
     return stats
 
 
+# ---------------------------------------------------------------------------
+# the pressure phase: the spill tier and its restores, the OOM ladder (a
+# half-prefilled slot too), TTL shedding, the NaN guard, the wedge
+# watchdog and a real OOM, on GPT-1.3B
+# ---------------------------------------------------------------------------
+
+# device time by family in a pressure profile: the restore's copies and
+# scatter first, then the serving families
+PRESSURE_FAMILIES = (("memcpy_htod", ("memcpy htod",)),
+                     ("memcpy_dtoh", ("memcpy dtoh",)),
+                     ("memcpy_dtod", ("memcpy dtod",)),
+                     ("memset", ("memset",)),
+                     ("inject_scatter", ("index_copy",)))
+
+
+def restore_runs(recs, bs):
+    """The inject calls ``_drain_restores`` makes for restore records
+    ``recs``: per slot, one a run of contiguous blocks."""
+    runs = 0
+    by_slot = {}
+    for slot, start, _rows, _b in recs:
+        by_slot.setdefault(slot, []).append(start)
+    for starts in by_slot.values():
+        starts.sort()
+        runs += 1 + sum(b != a + bs for a, b in zip(starts, starts[1:]))
+    return runs
+
+
+def pressure_serve(torch, engine, wl, cfg, params, waves, name, spill_mb,
+                   num_blocks=None):
+    """One paged server of the pressure phase (the paged path's geometry;
+    ``num_blocks`` overrides the pool size, ``spill_mb`` sets
+    ``PADDLE_TPU_KV_SPILL_MB`` for its construction) serving ``waves``
+    (``profile_serving.serve_waves``), warmed up first at every prompt's
+    admission widths and, with the spill tier, at the inject width the
+    returning chain needs.  Records each spill fetch's and each restore's
+    wall (synchronized), the restore records, every admission chunk's
+    width, and profiles the last wave's admissions.  Returns a dict."""
+    from torch.profiler import ProfilerActivity, profile
+
+    os.environ["PADDLE_TPU_KV_SPILL_MB"] = str(spill_mb)
+    t0 = time.perf_counter()
+    try:
+        srv = wl.make_server("paged", params, cfg,
+                             **({"num_blocks": num_blocks}
+                                if num_blocks else {}))
+    finally:
+        del os.environ["PADDLE_TPU_KV_SPILL_MB"]
+    build_s = time.perf_counter() - t0     # the spill tier's pinning
+    srv.warmup(prompt_lens=sorted({len(p) for w in waves for p in w}))
+    inject_bucket = 256                  # the 12-block chain: rows [0, 192)
+    if spill_mb:
+        # capture the inject graph before the serve, writing nowhere (no
+        # table names the sink), so the profiled restore is a replay
+        rows = [torch.zeros((t.shape[0], 1, inject_bucket)
+                            + tuple(t.shape[3:]), dtype=t.dtype,
+                            device=srv.device)
+                for n, t in srv.cache.items() if n != "tables"]
+        engine.ENGINE.get("inject", srv._spec(bucket=inject_bucket))(
+            *rows, *srv._scalars(0, 0, 0))
+        del rows
+    inject_replays0 = sum(g.replays for g in engine.ENGINE.graphs(srv._bind)
+                          if g.name.startswith("serving.inject@"))
+    spills, restores, recs, chunks = [], [], [], []
+    fetch, drain = srv._spill_fetch, srv._drain_restores
+    take = srv._pool.take_restores
+
+    def timed_fetch(blocks):
+        t0 = time.perf_counter()
+        out = fetch(blocks)
+        spills.append((len(blocks), time.perf_counter() - t0))
+        return out
+
+    def taken():
+        got = take()
+        recs.extend(got)
+        return got
+
+    def timed_drain():
+        n = len(recs)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        drain()
+        torch.cuda.synchronize()
+        if len(recs) > n:
+            restores.append((len(recs) - n, time.perf_counter() - t0))
+
+    srv._spill_fetch, srv._drain_restores = timed_fetch, timed_drain
+    srv._pool.take_restores = taken
+    get = engine.ENGINE.get
+
+    def counted_get(kind, spec):
+        fn = get(kind, spec)
+        if kind != "paged_prefill":
+            return fn
+
+        def counted(tokens, pos0, length, slot):
+            chunks.append(tokens.shape[1])
+            return fn(tokens, pos0, length, slot)
+        return counted
+
+    prof = {}
+
+    def around(i):
+        if i != len(waves) - 1:
+            return contextlib.nullcontext()
+        prof["p"] = profile(activities=[ProfilerActivity.CPU,
+                                        ProfilerActivity.CUDA])
+        return prof["p"]
+
+    engine.ENGINE.get = counted_get
+    try:
+        res = wl.serve_waves(srv, waves, wl.NEW, around=around,
+                             sync=torch.cuda.synchronize)
+    finally:
+        del engine.ENGINE.get
+    last = res[-1]
+    adm = wl.summarize(torch, prof["p"], last["admission_s"], 1,
+                       PRESSURE_FAMILIES + wl.FAMILIES)
+    out = {"name": name, "spill_mb": spill_mb, "build_s": build_s,
+           "num_blocks": srv._pool.N, "waves": res,
+           "ticks": sum(w["ticks"] for w in res),
+           "tokens": sum(len(s) for w in res for s in w["streams"]),
+           "wall_s": sum(w["wall_s"] for w in res),
+           "admission_chunks": chunks,
+           "stats": srv.stats(), "kv_pool": srv.load_stats()["kv_pool"],
+           "inject_replays": sum(
+               g.replays for g in engine.ENGINE.graphs(srv._bind)
+               if g.name.startswith("serving.inject@")) - inject_replays0,
+           "restore_runs": restore_runs(recs, srv._pool.bs),
+           "spill_fetches": spills, "restores": restores,
+           "last_wave_admission": adm}
+    out["tokens_per_s"] = out["tokens"] / out["wall_s"]
+    nb = sum(n for n, _ in spills)
+    out["spill_ms_per_block"] = (1e3 * sum(w for _, w in spills) / nb
+                                 if nb else None)
+    nr = sum(n for n, _ in restores)
+    out["restore_ms_per_block"] = (1e3 * sum(w for _, w in restores) / nr
+                                   if nr else None)
+    srv.close()
+    return out
+
+
+def drill_server(torch, wl, cfg, params, **kw):
+    """A graphed main-path server (the main path's geometry) warmed up at
+    the main path's prompts' buckets (and its budget width)."""
+    srv = wl.make_server("main", params, cfg, **kw)
+    srv.warmup(prompt_lens=wl.LENS)
+    return srv
+
+
+def drill_serve(torch, srv, prompts, new, priorities=None, on_tick=None):
+    """Submit every prompt (with ``priorities``), tick until drained
+    (``on_tick(srv)`` after each tick); returns the per-request
+    outcomes."""
+    pr = priorities or [0] * len(prompts)
+    rids = [srv.submit(p, max_new_tokens=new, priority=q)
+            for p, q in zip(prompts, pr)]
+    for _ in range(20 * new):
+        if not srv.pending():
+            break
+        srv.tick()
+        if on_tick:
+            on_tick(srv)
+    if srv.pending():
+        raise AssertionError("the server did not drain")
+    torch.cuda.synchronize()
+    return [srv.result(r) for r in rids]
+
+
+def hold_streams(torch, gpt, params, cfg, prompts, got, ref, what,
+                 tol=TIE_TOL):
+    """Every stream of ``got`` against ``ref`` by the tie rule; returns
+    the number equal throughout."""
+    div = [check_tokens(torch, gpt, params, cfg, prompts[r], got[r], ref[r],
+                        f"{what} request {r}", tol=tol)
+           for r in range(len(prompts))]
+    return sum(d is None for d in div)
+
+
+def ladder_events(tl):
+    return [e["args"]["action"] for e in tl.events("resilience.oom_degrade")]
+
+
+def oom_drill(torch, gpt, wl, cfg, params, prompts, new, ref_async,
+              faults, tl, tol=TIE_TOL):
+    """The OOM ladder on an async graphed main server: injected tick OOMs
+    at checks 2, 4, 6 and 8 walk it — async -> sync, cap 8 -> 4, 4 -> 2,
+    2 -> 1, each cap rung evicting the slots past it back to the queue
+    with their progress carried.  Every stream is held to the unfaulted
+    async serve's ``ref_async``.  Returns the drill's record."""
+    tl.reset()
+    faults.install("oom:tick:2,oom:tick:4,oom:tick:6,oom:tick:8")
+    try:
+        srv = drill_server(torch, wl, cfg, params, async_dispatch=True)
+        got = drill_serve(torch, srv, prompts, new)
+        after = (srv._async, srv._admit_cap, srv.stats())
+        srv.close()
+    finally:
+        faults.reset()
+    rungs = ladder_events(tl)
+    want = ["sync_dispatch", "admit_cap=4", "admit_cap=2", "admit_cap=1"]
+    if rungs != want:
+        raise AssertionError(f"the OOM ladder's rungs {rungs}, not {want}")
+    if after[0] or after[1] != 1:
+        raise AssertionError(f"after the drill: async {after[0]}, admit cap "
+                             f"{after[1]}")
+    ctr = after[2]
+    if ctr.get("resilience.oom_evictions", 0) < 4 + 2 + 1:
+        raise AssertionError(f"evictions: {ctr}")
+    equal = hold_streams(torch, gpt, params, cfg, prompts, got, ref_async,
+                         "oom drill", tol)
+    return {"rungs": rungs, "counters": ctr, "streams_equal": equal,
+            "streams": len(prompts)}
+
+
+def budgeted_oom_drill(torch, gpt, wl, cfg, params, prompts, new, faults,
+                       tl, tol=TIE_TOL):
+    """A budgeted main server (``prefill_budget=64``) hit by a tick OOM
+    while its longest prompt (lowest priority) is admitting: the ladder's
+    cap rung evicts that half-prefilled slot back to the queue with its
+    original prompt; it claims its slot again and finishes.  Streams held
+    to the unfaulted budgeted serve's."""
+    pr = [0 if n == max(map(len, prompts)) else 1 for n in map(len, prompts)]
+    srv = drill_server(torch, wl, cfg, params, prefill_budget=BUDGET)
+    ref = drill_serve(torch, srv, prompts, new, pr)
+    srv.close()
+    tl.reset()
+    victims = []
+    faults.install("oom:tick:2")
+    try:
+        srv = drill_server(torch, wl, cfg, params, prefill_budget=BUDGET)
+        evict = srv._evict_one
+
+        def watched():
+            slot = min(srv._slots, key=lambda s: (
+                srv._slots[s]["priority"], -srv._slots[s]["t_submit"]))
+            st = srv._slots[slot]
+            victims.append((st["rid"], bool(st.get("admitting")),
+                            len(st["generated"])))
+            return evict()
+
+        srv._evict_one = watched
+        got = drill_serve(torch, srv, prompts, new, pr)
+        ctr = srv.stats()
+        srv.close()
+    finally:
+        faults.reset()
+    long_rid = pr.index(0)
+    if not any(rid == long_rid and adm for rid, adm, _ in victims):
+        raise AssertionError(f"the long prompt was not evicted while "
+                             f"admitting: {victims}")
+    if ctr.get("serving.admitting_claims", 0) < sum(
+            len(p) > BUDGET for p in prompts) + 1:
+        raise AssertionError(f"no second claim: {ctr}")
+    equal = hold_streams(torch, gpt, params, cfg, prompts, got, ref,
+                         "budgeted oom drill", tol)
+    return {"victims": victims, "counters": ctr, "streams_equal": equal,
+            "streams": len(prompts), "rungs": ladder_events(tl)}
+
+
+def wedge_drill(torch, gpt, wl, cfg, params, prompts, new, ref_async,
+                faults, tl, tol=TIE_TOL):
+    """The wedge watchdog on an async graphed main server:
+    ``PADDLE_TPU_STEP_BUDGET_S=0.5`` and a ``hang`` fault on the second
+    fetch (``PADDLE_TPU_FAULT_WEDGE_S=2``): ``wedged`` is set by that tick
+    and cleared by the next clean one; the streams are the unfaulted
+    async serve's."""
+    flags_seen = []
+    os.environ.update(PADDLE_TPU_STEP_BUDGET_S="0.5",
+                      PADDLE_TPU_FAULT_WEDGE_S="2")
+    tl.reset()
+    faults.install("wedge:tick:2")
+    try:
+        srv = drill_server(torch, wl, cfg, params, async_dispatch=True)
+        got = drill_serve(torch, srv, prompts, new,
+                          on_tick=lambda s: flags_seen.append(s.wedged))
+        ctr = srv.stats()
+        srv.close()
+    finally:
+        faults.reset()
+        for k in ("PADDLE_TPU_STEP_BUDGET_S", "PADDLE_TPU_FAULT_WEDGE_S"):
+            del os.environ[k]
+    i = flags_seen.index(True) if True in flags_seen else None
+    if i is None or flags_seen[i + 1] or any(flags_seen[i + 1:]):
+        raise AssertionError(f"wedged after each tick: {flags_seen}")
+    if tl.counter("resilience.wedge_detected") != 1 \
+            or ctr.get("resilience.wedge_recoveries") != 1:
+        raise AssertionError(f"wedge counters: {tl.counters('resilience')}")
+    equal = hold_streams(torch, gpt, params, cfg, prompts, got, ref_async,
+                         "wedge drill", tol)
+    return {"wedged_at_tick": i, "ticks": len(flags_seen),
+            "streams_equal": equal, "streams": len(prompts)}
+
+
+def real_oom(torch, wl, cfg, params, prompt, new, resilience):
+    """A real ``torch.cuda.OutOfMemoryError``: a graphed main server serves
+    one request; an allocation past what the card has free fails,
+    ``resilience.is_oom`` classifies it, ``empty_cache`` runs, and the
+    same server serves the request again — the same stream."""
+    srv = drill_server(torch, wl, cfg, params)
+    before = drill_serve(torch, srv, [prompt], new)[0]
+    free, total = torch.cuda.mem_get_info()
+    try:
+        torch.empty(free + (1 << 30), dtype=torch.uint8, device="cuda")
+    except torch.cuda.OutOfMemoryError as e:
+        caught = e
+    else:
+        raise AssertionError("an allocation past the free memory succeeded")
+    if not resilience.is_oom(caught):
+        raise AssertionError(f"is_oom({caught!r}) is False")
+    torch.cuda.empty_cache()
+    after = drill_serve(torch, srv, [prompt], new)[0]
+    srv.close()
+    if after != before:
+        raise AssertionError("the stream changed after the real OOM")
+    return {"free_gb": free / 1e9, "total_gb": total / 1e9,
+            "error": str(caught).splitlines()[0][:120],
+            "is_oom": True, "stream_unchanged": True}
+
+
+def ttl_and_nan(torch, wl, cfg, params, prompts, new, faults, resilience):
+    """TTL: a request queued behind 8 busy slots with ``ttl_s=0.001``
+    past its wait is ``timeout`` and ``result`` raises
+    ``DeadlineExceeded``; the 8 finish.  NaN: ``corrupt_nan`` on the
+    first tick's logits (``nan:logits:2``: check 1 is its admission) fails
+    exactly the request decoding then; the requests submitted after it
+    finish."""
+    srv = drill_server(torch, wl, cfg, params)
+    rids = [srv.submit(p, max_new_tokens=new) for p in prompts]
+    doomed = srv.submit(prompts[0], max_new_tokens=new, ttl_s=0.001)
+    time.sleep(0.01)
+    while srv.pending():
+        srv.tick()
+    if srv.status(doomed) != "timeout":
+        raise AssertionError(f"status {srv.status(doomed)}, not timeout")
+    try:
+        srv.result(doomed)
+    except resilience.DeadlineExceeded:
+        pass
+    else:
+        raise AssertionError("result() of a shed request did not raise")
+    if any(srv.status(r) != "ok" for r in rids):
+        raise AssertionError("a live request did not finish")
+    faults.install("nan:logits:2")
+    try:
+        bad = srv.submit(prompts[1], max_new_tokens=new)
+        srv.tick()
+    finally:
+        faults.reset()
+    if srv.status(bad) != "error":
+        raise AssertionError(f"the poisoned request is {srv.status(bad)}")
+    ok = drill_serve(torch, srv, prompts[2:4], new)
+    srv.close()
+    if not all(len(s) == new for s in ok):
+        raise AssertionError("a request after the NaN did not finish")
+    return {"shed": "timeout", "nan_failed": "error",
+            "after_nan_finished": len(ok)}
+
+
+def small_oom_drill(torch, gpt, serving, faults, tl):
+    """The OOM ladder's drill on the small fp32 models (contiguous and
+    paged): injected OOMs at checks 2, 4 and 6 of an async graphed server
+    (async -> sync, cap 4 -> 2 -> 1; paged, the evict rung first while
+    the prefix index holds cold entries): streams held to the unfaulted
+    async server's, exactly where the evicted requests' carried tokens prefill
+    to the decode steps' argmax (PATH_TOL, the two routes' logit gap, at
+    most).  Returns {case: requests equal throughout}."""
+    out = {}
+    for name, cfg, kv in list(_small_models(torch, gpt))[:2]:
+        params = gpt.init_params(cfg, seed=1, device="cuda")
+        gen = torch.Generator().manual_seed(2)
+        prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                                 generator=gen).tolist()
+                   for n in (5, 40, 100, 17)]
+        for layout in ("contiguous", "paged"):
+            lay = (dict(layout="paged", block_size=16) if layout == "paged"
+                   else {})
+
+            def run(spec):
+                tl.reset()
+                if spec:
+                    faults.install(spec)
+                try:
+                    srv = serving.DecodeServer(params, cfg, max_batch=4,
+                                               max_len=160, device="cuda",
+                                               async_dispatch=True, **lay)
+                    got = drill_serve(torch, srv, prompts, 24)
+                    srv.close()
+                finally:
+                    faults.reset()
+                return got
+
+            ref = run("")
+            got = run("oom:tick:2,oom:tick:4,oom:tick:6")
+            rungs = ladder_events(tl)
+            # paged, an injected OOM takes the first rung while the prefix
+            # index holds cold entries (the retired requests' prompts)
+            walk = [r for r in rungs if r != "evict_prefix_cache"]
+            if len(rungs) != 3 or walk != ["sync_dispatch", "admit_cap=2",
+                                           "admit_cap=1"][:len(walk)] \
+                    or (layout == "contiguous" and len(walk) != 3):
+                raise AssertionError(f"{name} {layout}: rungs {rungs}")
+            out[f"{name} {layout}"] = hold_streams(
+                torch, gpt, params, cfg, prompts, got, ref,
+                f"{name} {layout} oom drill", PATH_TOL)
+        del params
+    return out
+
+
+def pressure_phase(torch, gpt, serving, engine, ks, wl):
+    """The pressure phase (module note, phase 9): the paged spill tier
+    under six waves of chat traffic, then the drills on the main path.
+    Returns (stats, launches, tc, tick)."""
+    from paddle_tpu_torch import faults, resilience
+    from paddle_tpu_torch import telemetry as tl
+    from paddle_tpu_torch.ops.decode_attention import R_TC
+
+    zero_counts(ks)
+    cfg = gpt.gpt_1p3b()
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    L = cfg.num_layers
+    waves = wl.pressure_waves(cfg.vocab_size, seed=0)
+    serves = {}
+    for name, spill_mb, blocks in (("roomy", 0, 512),
+                                   ("spill", wl.PRESSURE_SPILL_MB, None),
+                                   ("evict", 0, None)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        launch0, tc0, tick0 = (launch_counts(ks), tc_counts(ks),
+                               tick_counts(ks))
+        r = serves[name] = pressure_serve(torch, engine, wl, cfg, params,
+                                          waves, name, spill_mb, blocks)
+        dl = {k: v - launch0[k] for k, v in launch_counts(ks).items()}
+        dtc = {k: v - tc0[k] for k, v in tc_counts(ks).items()}
+        dtk = {k: v - tick0[k] for k, v in tick_counts(ks).items()}
+        narrow = sum(C < R_TC for C in r["admission_chunks"])
+        wide = len(r["admission_chunks"]) - narrow
+        # every attention of the serve on the block-table kernel, each tick
+        # and narrow chunk on its tick body, each wide chunk on its
+        # tensor-core body — the restores' admissions included
+        if not (dl["paged_decode_attention"] == L * (r["ticks"] + len(
+                r["admission_chunks"])) and dtk["paged_decode_attention"]
+                == L * (r["ticks"] + narrow)
+                and dtc["paged_decode_attention"] == L * wide
+                and dl["decode_attention"] == 0
+                and dl["flash_attention_fwd"] == 0):
+            raise AssertionError(f"{name}: launches {dl}, tc {dtc}, tick "
+                                 f"{dtk}, {r['ticks']} ticks, chunks "
+                                 f"{r['admission_chunks']}")
+        a = r["last_wave_admission"]
+        log(f"  {name} serve (num_blocks {r['num_blocks']}, spill "
+            f"{spill_mb} MiB, server built in {r['build_s']:.3f} s): "
+            f"{r['tokens']} tokens in {r['wall_s']:.3f} s "
+            f"({r['tokens_per_s']:.1f} tokens/s, {r['ticks']} ticks); per "
+            f"wave prefilled rows "
+            f"{[w['prefill_rows'] for w in r['waves']]} of "
+            f"{[w['prompt_rows'] for w in r['waves']]}, spilled "
+            f"{[w['spilled_blocks'] for w in r['waves']]}, restored "
+            f"{[w['restored_blocks'] for w in r['waves']]} blocks")
+        log(f"  {name} serve, the returning wave's admissions: wall "
+            f"{1e3 * r['waves'][-1]['admission_s']:.3f} ms (profiled), "
+            f"device {a['device_ms']:.3f} ms by family "
+            f"{json.dumps(a['device_ms_by_family'])}")
+        if r["spill_ms_per_block"] is not None:
+            log(f"  {name} serve: spill {r['spill_ms_per_block']:.4f} ms a "
+                f"block ({sum(n for n, _ in r['spill_fetches'])} blocks in "
+                f"{len(r['spill_fetches'])} fetches), restore "
+                f"{r['restore_ms_per_block']:.4f} ms a block "
+                f"({sum(n for n, _ in r['restores'])} blocks, "
+                f"{r['inject_replays']} inject replays), host spill "
+                f"{r['kv_pool']['host_spill_bytes'] / 2**20:.1f} MiB")
+    sp, ev, rm = serves["spill"], serves["evict"], serves["roomy"]
+    last = sp["waves"][-1]
+    if not (sp["kv_pool"]["spilled_blocks"] > 0
+            and last["restored_blocks"] > 0
+            and last["prefix_hits"] >= 8 * 192
+            and last["prefill_rows"] == last["prompt_rows"]
+            - last["prefix_hits"]):
+        raise AssertionError(f"the spill serve: {sp['kv_pool']}, last wave "
+                             f"{ {k: v for k, v in last.items() if k != 'streams'} }")
+    if sp["inject_replays"] != sp["restore_runs"] or not sp["restore_runs"]:
+        raise AssertionError(f"{sp['inject_replays']} inject replays for "
+                             f"{sp['restore_runs']} restored runs")
+    if rm["stats"].get("resilience.oom_retries") \
+            or rm["kv_pool"]["spilled_blocks"]:
+        raise AssertionError(f"the roomy serve relieved its pool: "
+                             f"{rm['stats']}")
+    flat = [p for w in waves for p in w]
+    equal = {}
+    for name in ("spill", "evict"):
+        got = [s for w in serves[name]["waves"] for s in w["streams"]]
+        ref = [s for w in rm["waves"] for s in w["streams"]]
+        equal[name] = hold_streams(torch, gpt, params, cfg, flat, got, ref,
+                                   f"{name} serve vs roomy")
+    tails = sum(len(p) - wl.PREFIX for p in waves[-1])
+    ev_last = ev["waves"][-1]
+    log(f"  the returning wave: prefilled rows {last['prefill_rows']} "
+        f"restored vs {ev_last['prefill_rows']} evict-only (tails "
+        f"{tails}); admission device "
+        f"{sp['last_wave_admission']['device_ms']:.3f} ms restored vs "
+        f"{ev['last_wave_admission']['device_ms']:.3f} ms recomputed; "
+        f"streams equal to the roomy serve's: {equal}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the drills, on the main path's model and prompts
+    cfg, params, srv, prompts = wl.build_main_path("cuda", seed=0)
+    srv.close()
+    new = wl.NEW
+    ref = drill_server(torch, wl, cfg, params, async_dispatch=True)
+    ref_async = drill_serve(torch, ref, prompts, new)
+    ref.close()
+    drills = {"oom": oom_drill(torch, gpt, wl, cfg, params, prompts, new,
+                               ref_async, faults, tl)}
+    log(f"  OOM drill: rungs {drills['oom']['rungs']}, evictions "
+        f"{drills['oom']['counters'].get('resilience.oom_evictions')}, "
+        f"{drills['oom']['streams_equal']} of {len(prompts)} streams equal "
+        f"throughout to the unfaulted async serve's (the rest by the tie "
+        f"rule)")
+    drills["budgeted_oom"] = budgeted_oom_drill(torch, gpt, wl, cfg, params,
+                                                prompts, new, faults, tl)
+    log(f"  budgeted OOM drill: victims (rid, admitting, generated) "
+        f"{drills['budgeted_oom']['victims']}, rungs "
+        f"{drills['budgeted_oom']['rungs']}, "
+        f"{drills['budgeted_oom']['streams_equal']} of {len(prompts)} "
+        f"streams equal throughout")
+    drills["wedge"] = wedge_drill(torch, gpt, wl, cfg, params, prompts, new,
+                                  ref_async, faults, tl)
+    log(f"  wedge drill: wedged after tick {drills['wedge']['wedged_at_tick']}"
+        f", cleared by the next; {drills['wedge']['streams_equal']} of "
+        f"{len(prompts)} streams equal throughout")
+    drills["real_oom"] = real_oom(torch, wl, cfg, params, prompts[0], new,
+                                  resilience)
+    log(f"  real OOM: {json.dumps(drills['real_oom'])}")
+    drills["ttl_nan"] = ttl_and_nan(torch, wl, cfg, params, prompts, new,
+                                    faults, resilience)
+    log(f"  TTL and NaN: {json.dumps(drills['ttl_nan'])}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    drills["small_fp32_oom"] = small_oom_drill(torch, gpt, serving, faults,
+                                               tl)
+    log(f"  small fp32 models, OOM drill: requests equal throughout "
+        f"{drills['small_fp32_oom']} (of 4 each)")
+    launches, tc, tick = launch_counts(ks), tc_counts(ks), tick_counts(ks)
+    stats = {
+        "serves": {k: {kk: vv for kk, vv in v.items()
+                       if kk not in ("waves", "spill_fetches", "restores")}
+                   | {"waves": [{kk: vv for kk, vv in w.items()
+                                 if kk != "streams"} for w in v["waves"]]}
+                   for k, v in serves.items()},
+        "streams_equal_to_roomy": equal, "returning_wave_tails": tails,
+        "drills": drills, "launches": launches, "tc_launches": tc,
+        "tick_launches": tick}
+    return stats, launches
+
+
 def expected_train_launches(cfg, rung, remat_policies):
     """Each kernel's launches in one step of ``rung``: per micro-batch a
     flash forward, dq and dk/dv a layer, the CE forward and backward once,
@@ -2596,6 +3174,14 @@ def main() -> int:
     gstats = generate_path(torch, gpt, G, serving, engine)
     log(json.dumps({"generate": gstats}))
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[pressure: gpt_1p3b — the paged spill tier under six waves of chat "
+        "traffic; the OOM ladder, wedge, real OOM, TTL and NaN drills]")
+    prstats, by_path["pressure"] = pressure_phase(torch, gpt, serving,
+                                                  engine, ks, wl)
+    log(json.dumps({"pressure": prstats}))
+
     gc.collect()                    # the bf16 serving models leave the card
     torch.cuda.empty_cache()
     log("[W4 path: DecodeServer, gpt_1p3b int4 weights, W4 kernel]")
@@ -2648,11 +3234,13 @@ def main() -> int:
 
     tc_by_path = {"main": stats["tc_launches"], "paged": pstats["tc_launches"],
                   "w4": wstats["tc_launches"],
+                  "pressure": prstats["tc_launches"],
                   **{p: t["tc_launches"] for p, t in train.items()}}
     assert all(by_path[p]["decode_attention"] == 0 for p in train)
     tick_by_path = {name: {"main": stats["tick_launches"][name],
                            "paged": pstats["tick_launches"][name],
                            "w4": wstats["tick_launches"][name],
+                           "pressure": prstats["tick_launches"][name],
                            **{p: 0 for p in train}}
                     for name in ("decode_attention", "paged_decode_attention")}
 

@@ -127,6 +127,119 @@ def prefill_budget() -> int:
     return b
 
 
+def telemetry_enabled() -> bool:
+    """The telemetry registry's master switch (``PADDLE_TPU_TELEMETRY``,
+    on by default): off, every record call of ``paddle_tpu_torch.telemetry``
+    returns at once.  Host bookkeeping only — never part of a step key."""
+    v = os.environ.get("PADDLE_TPU_TELEMETRY", "1").strip().lower()
+    return v not in ("0", "false", "off", "no")
+
+
+def resilience_enabled() -> bool:
+    """The resilience layer's master switch (``PADDLE_TPU_RESILIENCE``,
+    on by default).  On, the server survives faults: it sheds expired
+    queued requests, runs the OOM degradation ladder, recovers a wedged
+    async fetch and fails a request with non-finite logits instead of
+    serving it.  ``PADDLE_TPU_RESILIENCE=0`` fails fast everywhere
+    (``resilience.retry`` makes one attempt, no ladder, no shed).  Host
+    scheduling only — never part of a step key."""
+    v = os.environ.get("PADDLE_TPU_RESILIENCE", "1").strip().lower()
+    return v not in ("0", "false", "off", "no")
+
+
+def request_ttl_s() -> float | None:
+    """Default per-request deadline (``PADDLE_TPU_REQUEST_TTL_S`` seconds,
+    None = off): a request still queued this long after it entered the
+    queue is shed with the ``timeout`` status.  ``DecodeServer.submit(
+    ttl_s=...)`` overrides it per request."""
+    v = os.environ.get("PADDLE_TPU_REQUEST_TTL_S", "").strip()
+    if not v:
+        return None
+    try:
+        ttl = float(v)
+    except ValueError:
+        return None
+    return ttl if ttl > 0 else None
+
+
+def step_budget_s() -> float:
+    """Wall budget of one async serving fetch (``PADDLE_TPU_STEP_BUDGET_S``
+    seconds, 0 = watchdog off, the default).  Past it the wedge watchdog
+    marks the server wedged, cancels the dispatches in flight, rolls the
+    slots back and decodes those steps again.  The budget must exceed an
+    honest step with room to spare (captures excluded: warm up first)."""
+    try:
+        return max(0.0, float(
+            os.environ.get("PADDLE_TPU_STEP_BUDGET_S", "0")))
+    except ValueError:
+        return 0.0
+
+
+def kv_spill_mb() -> int:
+    """Host-RAM spill tier capacity in MiB for cold prefix-cache blocks
+    (``PADDLE_TPU_KV_SPILL_MB``, default 0 = spill off).  Set, the evict
+    rung demotes cold block-aligned prefix chains to pinned host memory
+    (one batched gather and one device-to-host copy a round) instead of
+    dropping them, and admission restores a spilled chain through the
+    ``inject`` step instead of recomputing it.  Host scheduling only."""
+    try:
+        return max(0, int(os.environ.get("PADDLE_TPU_KV_SPILL_MB", "0")))
+    except ValueError:
+        return 0
+
+
+def kv_spill_batch() -> int:
+    """Most prefix blocks demoted a spill round
+    (``PADDLE_TPU_KV_SPILL_BATCH``, default 8); candidates past it are
+    dropped as the plain evict rung drops them."""
+    try:
+        return max(1, int(os.environ.get("PADDLE_TPU_KV_SPILL_BATCH",
+                                         "8")))
+    except ValueError:
+        return 8
+
+
+def kv_spill_rss_mb() -> int:
+    """Host-RSS watchdog threshold in MiB (``PADDLE_TPU_KV_SPILL_RSS_MB``,
+    default 0 = off).  Over it, every 16th scheduler tick releases up to
+    ``kv_spill_batch()`` entries: the oldest spilled chains first, then
+    cold prefix leaves through the evict rung."""
+    try:
+        return max(0, int(os.environ.get("PADDLE_TPU_KV_SPILL_RSS_MB",
+                                         "0")))
+    except ValueError:
+        return 0
+
+
+def kv_restore() -> bool:
+    """Whether admission restores spilled prefix chains
+    (``PADDLE_TPU_KV_RESTORE``, on by default).  ``0`` keeps the spill
+    store write-only: admission recomputes instead."""
+    v = os.environ.get("PADDLE_TPU_KV_RESTORE", "1").strip().lower()
+    return v not in ("0", "false", "off", "no")
+
+
+def requeue_max() -> int:
+    """How often one request may be evicted by the OOM ladder and
+    requeued (``PADDLE_TPU_EVICT_REQUEUE_MAX``, default 8; 0 = no bound).
+    Past it the request fails with the ``error`` status instead of
+    cycling."""
+    try:
+        return max(0, int(os.environ.get("PADDLE_TPU_EVICT_REQUEUE_MAX",
+                                         "8")))
+    except ValueError:
+        return 8
+
+
+def nan_guard_serving() -> bool:
+    """The serving NaN guard on the decode ticks' logits
+    (``PADDLE_TPU_NAN_GUARD_SERVING == "1"``, off by default): a greedy
+    tick then fetches its logits [B, V] and fails the request whose row
+    is not finite.  Admission logits are always checked (they are
+    fetched anyway); with a fault installed the ticks are too."""
+    return os.environ.get("PADDLE_TPU_NAN_GUARD_SERVING", "") == "1"
+
+
 def decode_jit_key() -> tuple:
     """The decode-routing flags a captured step bakes in — the port's copy
     of ``paddle_tpu/flags.py``'s ``decode_jit_key``, cut to the flags the

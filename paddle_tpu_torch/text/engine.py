@@ -20,8 +20,9 @@ wrappers of an eager step.
   admission (``prefill`` per bucket, ``prefill_chunk`` per width,
   ``paged_prefill`` per chunk width — fed the tokens and the offset,
   length and slot as device tensors, so one graph serves any prompt and
-  slot) and ``generate``'s decode step.  On the CPU every kind runs its
-  plain callable.
+  slot), ``inject`` per rows bucket (a spilled prefix chain restored
+  into the pool through the block tables) and ``generate``'s decode
+  step.  On the CPU every kind runs its plain callable.
 * :class:`Engine` — the bounded, thread-safe cache (``_LRU``, sized by
   ``PADDLE_TPU_STEP_CACHE_SIZE`` as in the JAX package), ``get``,
   ``purge``, ``warmup`` and the caches ``generate`` binds its steps to
@@ -45,8 +46,10 @@ inside the capture — then ``torch.cuda.graph`` records the same call.
 Every step is idempotent on the cache (it rewrites the rows it attends
 from the same inputs — an admission the rows of its prompt or chunk), so
 the eager run and the replay that follows leave the cache as one step
-would.  A capture that fails raises; there
-is no eager fallback on the card.
+would.  A capture that fails (a real allocator OOM inside it, say)
+raises after the capture has ended and its graph has been dropped: the
+step is left uncaptured, the launch counters as they were, and the next
+call captures afresh.  There is no eager fallback on the card.
 
 The kernel wrappers count launches in Python (``.launches``,
 ``.tc_launches``, ``.tick_launches``), which a replay does not run: each
@@ -378,6 +381,31 @@ def _build_paged_prefill(spec):
     return body
 
 
+@register("inject",
+          key=lambda s: ("inject", cfg_key(s.cfg), int(s.bucket), s.paged),
+          name=lambda s: f"serving.inject@{s.bucket}")
+def _build_inject(spec):
+    """Rows written into one slot's pool rows [start, length) through its
+    block table (``kv_pool.inject_rows``): (one [L, 1, bucket, Hkv(, hd)]
+    rows feed per pool leaf, in ``POOL_LEAVES`` order, start, length,
+    slot) -> ().  The server restores a spilled prefix chain with it.
+    Paged only: the contiguous twin (the JAX package's
+    ``generate._merge_slot_rows``, which only its fleet handoff runs) is
+    not ported."""
+    from . import kv_pool
+
+    if not spec.paged:
+        raise NotImplementedError("the inject step is ported for the paged "
+                                  "layout only")
+
+    def body(p, c, *feeds):
+        names = [n for n in kv_pool.POOL_LEAVES if n in c]
+        *rows, start, length, slot = feeds
+        kv_pool.inject_rows(c, dict(zip(names, rows)), start, length, slot)
+        return ()
+    return body
+
+
 @register("generate",
           key=lambda s: ("generate", cfg_key(s.cfg), *s.extra, s.shape),
           name="generate.generate")
@@ -501,13 +529,24 @@ class _Graph:
         side = _capture_stream(dev)
         cur = torch.cuda.current_stream(dev)
         side.wait_stream(cur)
-        with torch.cuda.stream(side):
-            for _ in range(_WARM_RUNS):
-                self.body(p, c, *self.static)
-        warm = _counts()
-        graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(graph, stream=side):
-            out = self.body(p, c, *self.static)
+        graph = None
+        try:
+            with torch.cuda.stream(side):
+                for _ in range(_WARM_RUNS):
+                    self.body(p, c, *self.static)
+            warm = _counts()
+            graph = torch.cuda.CUDAGraph()
+            # a failure inside ends the capture on the way out (the
+            # context manager's exit); the graph is dropped below
+            with torch.cuda.graph(graph, stream=side):
+                out = self.body(p, c, *self.static)
+        except BaseException:
+            cur.wait_stream(side)
+            if graph is not None:
+                graph.reset()
+            self.static = None
+            _set_counts(before)
+            raise
         cur.wait_stream(side)
         self.delta = [a - b for a, b in zip(_counts(), warm)]
         _set_counts(before)

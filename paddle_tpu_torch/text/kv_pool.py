@@ -14,10 +14,18 @@ slice:
 * **host allocator** (:class:`PagedAllocator`) — the free list,
   refcounts, copy-on-write and the radix prefix index, in plain Python
   and numpy, replaying the JAX package's allocator operation for
-  operation.  The JAX package's host-RAM spill tier, RSS watchdog and
-  cross-replica chain migration are not ported: the code paths that
-  would reach them are the no-ops they are there with
-  ``PADDLE_TPU_KV_SPILL_MB=0`` (the default).
+  operation, with its telemetry counters (``kv_pool.*``);
+* **host-RAM spill tier** (``PADDLE_TPU_KV_SPILL_MB``) — the evict rung
+  demotes cold block-aligned prefix chains to pinned host memory
+  (:meth:`PagedAllocator.spill_cold`; the caller's one batched gather and
+  device-to-host copy a round) instead of dropping them, admission
+  restores a spilled chain block by block as its adopt walk descends
+  (:meth:`PagedAllocator.take_restores` feeds the caller's
+  :func:`inject_rows` step, graphed on the card), and an RSS watchdog
+  (``PADDLE_TPU_KV_SPILL_RSS_MB``) releases the oldest spills first.
+  The byte accounting against the budget is the JAX package's.  Restores
+  and spills never replace a pool tensor: the graphs read the pool by
+  address.  Cross-replica chain migration (the fleet's) is not ported.
 
 Device math: :func:`paged_decode_step_batched` (the pooled twin of
 ``serving.decode_step_batched``) and :func:`paged_prefill_chunk` (the
@@ -29,6 +37,7 @@ view.  Both write in place and return the cache they were given.
 """
 from __future__ import annotations
 
+import weakref
 import zlib
 
 import numpy as np
@@ -37,12 +46,13 @@ import torch
 from . import generate, gpt, woq
 from .. import flags as _flags
 from .. import resolve_device
+from .. import telemetry as _telemetry
 from ..ops import decode_attention as da
 
 __all__ = [
     "PoolExhausted", "PagedAllocator", "round_len", "init_paged_cache",
     "paged_decode_step_batched", "paged_prefill_chunk", "copy_blocks",
-    "prefix_fingerprint",
+    "inject_rows", "SpillSlots", "prefix_fingerprint",
 ]
 
 # the value/scale leaves of a pooled cache (everything except "tables")
@@ -254,9 +264,108 @@ def copy_blocks(cache: dict, src, dst) -> dict:
     return cache
 
 
+@torch.no_grad()
+def inject_rows(cache: dict, rows: dict, start, length, slot) -> dict:
+    """Write externally held cache rows into one slot's rows [start,
+    length) through its block table, in place — the restore of a spilled
+    prefix chain (and, in the JAX package, the fleet handoff's decode
+    half).  ``rows``: leaves ``[L, 1, C, Hkv(, hd)]`` by pool leaf name
+    (the int8 scale planes too), holding the slot's logical rows [0, C);
+    ``start``, ``length`` and ``slot`` are ints or 0-d / [1] int tensors
+    (a captured step's feeds).  Rows outside [start, length), past the
+    table or in an unmapped block go to the sink block; the caller has
+    made the write range writable (``PagedAllocator.ensure_rows``, or a
+    restore's fresh block).  One ``index_copy_`` a leaf, across every
+    layer at once.  Returns the cache it was given."""
+    N, bs, _ = _geometry(cache)
+    dev = cache["k"].device
+    start, length, slot = (generate._index(v, dev)
+                           for v in (start, length, slot))
+    C = rows["k"].shape[2]
+    trow = cache["tables"].index_select(0, slot.reshape(1))   # [1, nmax]
+    logi = torch.arange(C, device=dev)
+    phys = _phys_rows(trow.expand(C, -1), logi, N, bs,
+                      valid=(logi >= start) & (logi < length))
+    for name in POOL_LEAVES:
+        if name in cache:
+            arr = cache[name]
+            flat = arr.view((arr.shape[0], -1) + arr.shape[3:])
+            flat.index_copy_(1, phys, rows[name][:, 0].to(arr.dtype))
+    return cache
+
+
 # ---------------------------------------------------------------------------
 # host allocator: free list + refcounts + radix prefix index
 # ---------------------------------------------------------------------------
+
+
+def _read_rss_bytes() -> int:
+    """Current process resident set in bytes — ``/proc/self/statm``
+    (field 2, pages) on Linux, ``getrusage`` peak RSS as the portable
+    fallback, 0 when neither is readable (the watchdog disarms rather
+    than guessing)."""
+    try:
+        with open("/proc/self/statm", "rb") as f:
+            pages = int(f.read().split()[1])
+        import resource
+
+        return pages * resource.getpagesize()
+    except (OSError, ValueError, IndexError, ImportError):
+        try:
+            import resource
+
+            # ru_maxrss is KiB on Linux: a conservative upper bound, the
+            # safe direction for a pressure watchdog
+            return resource.getrusage(resource.RUSAGE_SELF).ru_maxrss << 10
+        except Exception:
+            return 0
+
+
+class SpillSlots:
+    """Host memory for the spill tier, pinned once: one slot a KV block
+    (every pool leaf's rows, ``[L, bs, Hkv(, hd)]`` each), as many slots
+    as ``limit_bytes`` holds whole.  Pinning fresh host memory is the slow
+    part of a device-to-host copy (page locking ran at about 1 GB/s:
+    3.5 ms a 3 MiB GPT-1.3B block, against ~0.1 ms for the copy, in
+    ``chip_smoke.py``'s pressure phase on an H100 80GB HBM3 host), so the
+    server pins the tier's budget when it is built and no spill pays it.
+    :meth:`take` hands out a record of views into one free slot; the slot
+    returns to the free list when the record's first view dies — its
+    views live and die together in the record's dict, which the
+    allocator drops on a restore, a release or a replacement.  Without
+    ``pin`` (a CPU server) the memory is ordinary."""
+
+    def __init__(self, cache: dict, limit_bytes: int, pin: bool):
+        self._layout = []
+        off = 0
+        for name in POOL_LEAVES:
+            if name in cache:
+                arr = cache[name]
+                shape = (arr.shape[0],) + tuple(arr.shape[2:])
+                nb = arr.element_size() * int(np.prod(shape))
+                self._layout.append((name, shape, arr.dtype, off, nb))
+                off += -(-nb // 64) * 64         # 64-byte aligned leaves
+        self.slot_bytes = off
+        n = int(limit_bytes) // self.slot_bytes
+        self._buf = torch.empty(n * self.slot_bytes, dtype=torch.uint8,
+                                pin_memory=pin)
+        self._free = list(range(n - 1, -1, -1))
+
+    @property
+    def free(self) -> int:
+        return len(self._free)
+
+    def take(self):
+        """A record of views into a free slot ({leaf: [L, bs, ...]}), or
+        None when every slot holds a record."""
+        if not self._free:
+            return None
+        i = self._free.pop()
+        base = i * self.slot_bytes
+        rec = {name: self._buf[base + off:base + off + nb].view(dt)
+               .view(shape) for name, shape, dt, off, nb in self._layout}
+        weakref.finalize(rec[self._layout[0][0]], self._free.append, i)
+        return rec
 
 
 def prefix_fingerprint(tokens) -> int:
@@ -306,8 +415,13 @@ class PagedAllocator:
     The index holds its own reference on every registered block (one
     per node — split siblings stack refs on a shared block, mirrored in
     ``_blk_ents``), so a retired request's prefix blocks survive for the
-    next request until :meth:`evict_cold` or :meth:`close` releases
-    them."""
+    next request until :meth:`evict_cold` / :meth:`spill_cold` (the OOM
+    ladder's first rung) or :meth:`close` releases them.  With
+    ``PADDLE_TPU_KV_SPILL_MB`` set, :meth:`spill_cold` demotes cold
+    block-aligned chains to host memory instead of dropping them and
+    :meth:`adopt_prefix` restores them on the next match — the restore
+    rows ride :meth:`take_restores` to the caller's :func:`inject_rows`
+    step."""
 
     def __init__(self, num_blocks: int, block_size: int, nmax: int,
                  max_batch: int):
@@ -330,11 +444,22 @@ class PagedAllocator:
         self._tick = 0                       # LRU clock for the index
         self.dirty = True                    # tables need a device push
         self.radix_on = _flags.kv_radix()
+        self.restore_on = _flags.kv_restore()
+        self.spill_limit_bytes = _flags.kv_spill_mb() << 20
+        self.spill_batch = _flags.kv_spill_batch()
+        self.rss_limit_bytes = _flags.kv_spill_rss_mb() << 20
+        self._spilled: dict = {}   # full chain tokens -> (host rows, nbytes)
+        self._pending_restores: list = []    # [(slot, start, rows, block)]
+        # host mirrors of the telemetry counters
         self.prefix_hits = 0
         self.prefix_misses = 0
         self.cow_copies = 0
         self.peak_blocks_in_use = 0
         self.radix_splits = 0
+        self.spilled_blocks = 0
+        self.restored_blocks = 0
+        self.host_spill_bytes = 0
+        self.rss_spills = 0
 
     # -- pool accounting ----------------------------------------------------
 
@@ -349,6 +474,7 @@ class PagedAllocator:
             raise PoolExhausted(1, self.N)
         b = self._free.pop()
         self._ref[b] = 1
+        _telemetry.count("kv_pool.blocks_allocated")
         self.peak_blocks_in_use = max(self.peak_blocks_in_use,
                                       self.blocks_in_use)
         return b
@@ -357,7 +483,8 @@ class PagedAllocator:
         """Drop one reference; a block reaching zero returns to the free
         list — the single release path.  Pending copies whose destination
         just died are discarded with it: a stale (src, dst) surviving
-        into a later drain could copy into a REALLOCATED dst."""
+        into a later drain could copy into a REALLOCATED dst.  Undrained
+        restores into it go the same way."""
         self._ref[b] -= 1
         if self._ref[b] < 0:
             raise AssertionError(f"block {b} refcount went negative")
@@ -366,6 +493,10 @@ class PagedAllocator:
             if self._pending_copies:
                 self._pending_copies = [p for p in self._pending_copies
                                         if p[1] != b]
+            if self._pending_restores:
+                self._pending_restores = [r for r in self._pending_restores
+                                          if r[3] != b]
+            _telemetry.count("kv_pool.blocks_freed")
 
     def _cow_block(self, slot: int, li: int) -> int:
         """Copy-on-write: the slot is about to write into a block another
@@ -379,6 +510,7 @@ class PagedAllocator:
         self._decref_free(src)
         self.dirty = True
         self.cow_copies += 1
+        _telemetry.count("kv_pool.cow_copies")
         return dst
 
     def ensure_rows(self, slot: int, start: int, stop: int) -> None:
@@ -426,8 +558,9 @@ class PagedAllocator:
 
         The walk descends the radix tree one node per step; a node
         matching only partially is SPLIT at the divergence point
-        (``PADDLE_TPU_KV_RADIX``) so the shared head still adopts.
-        Hits/misses count in TOKEN rows."""
+        (``PADDLE_TPU_KV_RADIX``) so the shared head still adopts; a
+        missing child may instead be RESTORED from the host spill tier
+        (:meth:`_restore_spilled`).  Hits/misses count in TOKEN rows."""
         n = len(prompt)
         self._tick += 1
         matched = 0
@@ -435,6 +568,8 @@ class PagedAllocator:
         deepest = {}                 # block index -> deepest node's block
         while matched < n:
             cid = self._children.get(parent, {}).get(prompt[matched])
+            if cid is None and self.restore_on:
+                cid = self._restore_spilled(slot, parent, prompt, matched)
             if cid is None:
                 break
             ent = self._prefix[cid]
@@ -465,9 +600,11 @@ class PagedAllocator:
         shared = min(matched, n - 1)
         if shared > 0:
             self.prefix_hits += shared
+            _telemetry.count("kv_pool.prefix_hits", shared)
         missed = (n - 1) - shared
         if missed > 0:
             self.prefix_misses += missed
+            _telemetry.count("kv_pool.prefix_misses", missed)
         return shared
 
     def register_prefix(self, slot: int, prompt) -> None:
@@ -551,6 +688,7 @@ class PagedAllocator:
         self._children.setdefault(parent, {})[run[0]] = scid
         self._children[scid] = {run[m]: cid}
         self.radix_splits += 1
+        _telemetry.count("kv_pool.radix_splits")
         return scid
 
     @property
@@ -585,28 +723,171 @@ class PagedAllocator:
         return cold if max_entries is None else cold[:max_entries]
 
     def evict_cold(self, max_entries: int | None = None) -> int:
-        """Drop cold prefix-cache leaves — the first relief when the pool
-        runs dry.  Returns the number of entries dropped.  A cold inner
-        block's whole subtree is cold too, so repeated engagements drain
-        chains tail-first."""
+        """Drop cold prefix-cache leaves — the OOM ladder's first rung
+        with the spill tier off, and admission's last resort before
+        parking a request.  Returns the number of entries dropped.  A
+        cold inner block's whole subtree is cold too, so repeated
+        engagements drain chains tail-first."""
         freed = 0
         for _, cid in self._cold_leaves(max_entries):
             self._drop_entry(cid)
             freed += 1
+        if freed:
+            _telemetry.count("kv_pool.prefix_evictions", freed)
         return freed
 
+    # -- host-RAM spill tier ------------------------------------------------
+
+    def _chain_tokens(self, cid: int) -> tuple:
+        """Full token chain of a node, root to ``cid`` — the spill-store
+        key.  Parents are always live: only childless nodes are dropped."""
+        parts = []
+        while cid:
+            ent = self._prefix[cid]
+            parts.append(ent.key[1])
+            cid = ent.parent
+        return tuple(t for run in reversed(parts) for t in run)
+
+    def spill_cold(self, max_entries: int | None = None,
+                   fetch=None) -> int:
+        """The evict rung, spill-aware: demote cold block-aligned leaf
+        chains to host memory before freeing their blocks.  ``fetch`` (the
+        caller's one batched read of the pool leaves) is called once a
+        round with the block list and returns one record a block,
+        ``{leaf: [L, bs, ...]}`` of host tensors — where
+        the JAX allocator's fetch returns ``{leaf: [L, P, bs, ...]}`` and
+        keeps ``leaf[:, j]``: the server's records are slots of its pinned
+        :class:`SpillSlots`, not views of one batch.  Entries outside the
+        spill contract (mid-block
+        split remnants, blocks with undrained copies or restores, past
+        ``PADDLE_TPU_KV_SPILL_BATCH`` or the ``PADDLE_TPU_KV_SPILL_MB``
+        budget) drop as :meth:`evict_cold` drops them.  Returns the
+        entries freed."""
+        if fetch is None or not self.spill_limit_bytes:
+            return self.evict_cold(max_entries)
+        cold = self._cold_leaves(max_entries)
+        if not cold:
+            return 0
+        # blocks whose device rows are not written yet: pending copy
+        # destinations and restore targets — spilling one would keep
+        # garbage
+        pend = {d for _, d in self._pending_copies}
+        pend.update(r[3] for r in self._pending_restores)
+        spill, drop = [], []
+        for _, cid in cold:
+            ent = self._prefix[cid]
+            if (len(spill) < self.spill_batch and ent.end % self.bs == 0
+                    and ent.block not in pend):
+                spill.append(cid)
+            else:
+                drop.append(cid)
+        if spill:
+            recs = fetch([self._prefix[cid].block for cid in spill])
+            kept = 0
+            for rec, cid in zip(recs, spill):
+                nb = sum(a.numel() * a.element_size() for a in rec.values())
+                key = self._chain_tokens(cid)
+                old = self._spilled.pop(key, None)
+                if old is not None:
+                    self.host_spill_bytes -= old[1]
+                if self.host_spill_bytes + nb > self.spill_limit_bytes:
+                    self._drop_entry(cid)    # over budget: plain drop
+                    continue
+                self._spilled[key] = (rec, nb)
+                self.host_spill_bytes += nb
+                self._drop_entry(cid)
+                kept += 1
+            if kept:
+                self.spilled_blocks += kept
+                _telemetry.count("kv_pool.spilled_blocks", kept)
+        for cid in drop:
+            self._drop_entry(cid)
+        freed = len(spill) + len(drop)
+        if freed:
+            _telemetry.count("kv_pool.prefix_evictions", freed)
+        return freed
+
+    def rss_watchdog(self, rss_bytes: int | None = None) -> int:
+        """Host-memory relief (``PADDLE_TPU_KV_SPILL_RSS_MB``): over the
+        threshold, release up to ``spill_batch`` entries — the OLDEST
+        spilled chains first (insertion order is spill order), then cold
+        index leaves through :meth:`evict_cold`.  ``rss_bytes`` overrides
+        the ``/proc`` read.  Returns entries released; counts
+        ``kv_pool.rss_spills``."""
+        if not self.rss_limit_bytes:
+            return 0
+        rss = _read_rss_bytes() if rss_bytes is None else int(rss_bytes)
+        if rss <= self.rss_limit_bytes:
+            return 0
+        freed = 0
+        while self._spilled and freed < self.spill_batch:
+            key = next(iter(self._spilled))
+            _, nb = self._spilled.pop(key)
+            self.host_spill_bytes -= nb
+            freed += 1
+        if freed < self.spill_batch:
+            freed += self.evict_cold(self.spill_batch - freed)
+        if freed:
+            self.rss_spills += freed
+            _telemetry.count("kv_pool.rss_spills", freed)
+        return freed
+
+    def _restore_spilled(self, slot: int, parent: int, prompt,
+                         matched: int):
+        """Adoption's promotion of one spilled chain block: re-intern the
+        node on a fresh block (the index's reference) and queue its host
+        rows for the caller's :func:`inject_rows` step
+        (:meth:`take_restores`).  Chains restore block by block as the
+        adopt walk descends.  Returns the new chain id, or None when
+        nothing matches."""
+        if not self._spilled or not self._free or matched % self.bs:
+            return None
+        end = matched + self.bs
+        if end > len(prompt):
+            return None
+        item = self._spilled.pop(tuple(prompt[:end]), None)
+        if item is None:
+            return None
+        rec, nb = item
+        self.host_spill_bytes -= nb
+        b = self._alloc_block()              # the index's own ref
+        run = tuple(prompt[matched:end])
+        key = (parent, run)
+        cid = self._next_chain
+        self._next_chain += 1
+        self._interned[key] = cid
+        self._prefix[cid] = _PrefixEntry(b, self._tick, key, parent, end)
+        self._children.setdefault(parent, {})[run[0]] = cid
+        self._blk_ents[b] += 1
+        self._pending_restores.append((slot, matched, rec, b))
+        self.restored_blocks += 1
+        _telemetry.count("kv_pool.restored_blocks")
+        return cid
+
+    def take_restores(self) -> list:
+        """Drain the pending restores ``(slot, start_row, rows, block)``
+        for the caller's inject step (``serving._drain_restores``)."""
+        out, self._pending_restores = self._pending_restores, []
+        if out:
+            _telemetry.count("kv_pool.restore_drains")
+        return out
+
     def close(self) -> None:
-        """Release the whole index and every table (server shutdown)."""
+        """Release the whole index, every table and the spill store
+        (server shutdown)."""
         for cid in list(self._prefix):
             if cid in self._prefix:
                 self._drop_entry(cid)
         for slot in range(self.max_batch):
             if (self.tables[slot] >= 0).any():
                 self.free_slot(slot)
+        self._spilled.clear()
+        self._pending_restores.clear()
+        self.host_spill_bytes = 0
 
     def stats(self) -> dict:
-        """The JAX allocator's stats, key for key; the spill-tier and
-        migration counters are 0 (the tier is not ported)."""
+        """The JAX allocator's stats, key for key (cross-replica chain
+        migration is not ported: ``chain_migrations`` stays 0)."""
         return {
             "num_blocks": self.N, "block_size": self.bs,
             "blocks_in_use": self.blocks_in_use,
@@ -616,9 +897,9 @@ class PagedAllocator:
             "prefix_misses": self.prefix_misses,
             "cow_copies": self.cow_copies,
             "radix_splits": self.radix_splits,
-            "spilled_blocks": 0,
-            "restored_blocks": 0,
-            "spilled_entries": 0,
-            "host_spill_bytes": 0,
+            "spilled_blocks": self.spilled_blocks,
+            "restored_blocks": self.restored_blocks,
+            "spilled_entries": len(self._spilled),
+            "host_spill_bytes": self.host_spill_bytes,
             "chain_migrations": 0,
         }

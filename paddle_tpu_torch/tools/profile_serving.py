@@ -74,11 +74,12 @@ def main_prompts(vocab_size: int, seed: int = 0) -> list:
 def make_server(path: str, params, cfg, device="cuda", **kw):
     """A server of ``path`` ("main", "w4" or "paged") at its geometry on
     ``params``; ``kw`` adds server options (``async_dispatch``, or the
-    private ``_graphs=False`` that runs the steps eagerly)."""
+    private ``_graphs=False`` that runs the steps eagerly) or overrides
+    the geometry's (``num_blocks``)."""
     geometry = PAGED_GEOMETRY if path == "paged" else dict(max_batch=8,
                                                            max_len=512)
-    return serving.DecodeServer(params, cfg, device=device, **geometry,
-                                **kw)
+    return serving.DecodeServer(params, cfg, device=device,
+                                **{**geometry, **kw})
 
 
 def build_main_path(device="cuda", seed=0, **server_kw):
@@ -136,6 +137,76 @@ def paged_prompts(vocab_size: int, seed: int = 0) -> list:
                for n in TAILS]
     prompts[2] = list(prompts[1])
     return prompts
+
+
+# The pressure phase's traffic (``chip_smoke.py``): six waves of 8 chat
+# requests on the paged path's geometry, each wave sharing one
+# PREFIX-token system prompt — A, B, C, D, E, then A again, with fresh
+# tails of 40..100 tokens — served one wave after another.  After a wave
+# the prefix index holds about 50 of the pool's 128 blocks, so every later
+# wave needs relief, which the evict rung takes from the coldest leaves:
+# A's tails first, A's 12-block system chain (the coldest entry, but not
+# a leaf until its tails are gone) only during waves D and E.  So the
+# returning wave finds A's system prompt spilled to host memory (spill
+# tier on) or gone (evict only); with A, B, C, A alone it would still
+# find A's chain in the index.
+PRESSURE_SYSTEMS = ("A", "B", "C", "D", "E", "A")
+PRESSURE_TAIL = (40, 100)
+# the spill tier's budget: room for every chain the waves spill (a
+# GPT-1.3B block is 3 MiB in bf16)
+PRESSURE_SPILL_MB = 2048
+
+
+def pressure_waves(vocab_size: int, seed: int = 0) -> list:
+    """The pressure phase's six waves of 8 prompts, drawn from ``seed``."""
+    rng = np.random.default_rng(seed)
+    systems = {s: rng.integers(0, vocab_size, PREFIX).tolist()
+               for s in sorted(set(PRESSURE_SYSTEMS))}
+    lo, hi = PRESSURE_TAIL
+    return [[systems[s] + rng.integers(
+        0, vocab_size, int(rng.integers(lo, hi + 1))).tolist()
+        for _ in range(8)] for s in PRESSURE_SYSTEMS]
+
+
+def serve_waves(srv, waves, new: int, around=None, sync=None) -> list:
+    """Serve each wave of ``waves`` to its end before the next (submit its
+    prompts, tick until drained).  ``around(i)``, when given, returns a
+    context manager entered around wave i's submits (which run its
+    admissions); ``sync`` (``torch.cuda.synchronize`` on a card) ends each
+    timed region.  Returns one dict a wave: its streams, ticks, wall and
+    admission seconds, and the deltas of the server's prefill rows and
+    of its allocator's prefix hits, restored and spilled blocks."""
+    import contextlib
+
+    sync = sync or (lambda: None)
+    out = []
+    for i, wave in enumerate(waves):
+        ls0 = srv.load_stats()
+        sync()
+        t0 = time.perf_counter()
+        with (around(i) if around else contextlib.nullcontext()):
+            rids = [srv.submit(p, max_new_tokens=new) for p in wave]
+            sync()
+        t_admit = time.perf_counter() - t0
+        ticks = 0
+        while srv.pending():
+            srv.tick()
+            ticks += 1
+        sync()
+        wall = time.perf_counter() - t0
+        ls1 = srv.load_stats()
+        p0, p1 = ls0["kv_pool"], ls1["kv_pool"]
+        out.append({
+            "streams": [srv.result(r) for r in rids], "ticks": ticks,
+            "wall_s": wall, "admission_s": t_admit,
+            "prompt_rows": sum(map(len, wave)),
+            "prefill_rows": ls1["prefill_rows"] - ls0["prefill_rows"],
+            "prefix_hits": p1["prefix_hits"] - p0["prefix_hits"],
+            "restored_blocks": p1["restored_blocks"]
+            - p0["restored_blocks"],
+            "spilled_blocks": p1["spilled_blocks"] - p0["spilled_blocks"],
+            "prefix_entries": p1["prefix_entries"]})
+    return out
 
 
 def build_paged_path(device="cuda", seed=0, **server_kw):

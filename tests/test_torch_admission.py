@@ -247,7 +247,10 @@ def test_budgeted_matches_monolithic(budget):
             assert _serve(srv, prompts, mode, max_new_tokens=8) == ref, (
                 layout, mode)
             long = [len(p) for p in prompts if len(p) > budget]
-            assert srv.stats() == {
+            st = srv.stats()
+            assert {k: st.get(k, 0) for k in (
+                "serving.admitting_claims",
+                "serving.prefill_chunks_interleaved")} == {
                 "serving.admitting_claims": len(long),
                 "serving.prefill_chunks_interleaved": sum(
                     len(srv._chunk_starts(n, budget)) for n in long)}
@@ -353,3 +356,135 @@ def test_warmup_after_a_drain_keeps_the_prefix_rows(async_):
         return seen[0]
 
     assert torch.equal(readmit(True), readmit(False))
+
+
+# ---------------------------------------------------------------------------
+# a half-prefilled slot under the resilience machinery
+# ---------------------------------------------------------------------------
+
+
+def _faulted(pkg, markov, prompts, spec, priorities=(0, 1), ttl=None,
+             async_=False, layout="contiguous", sleep_on_requeue=0.0):
+    """Serve ``prompts`` (5 new tokens each) through a budgeted
+    (``prefill_budget=6``) server of ``pkg`` under the fault ``spec`` in
+    that package's harness; the first request gets ``ttl``.  Returns
+    (outcomes, statuses, whether request 0 was ever seen queued again,
+    the compared counters)."""
+    from paddle_tpu import faults as jfaults
+    from paddle_tpu import telemetry as jtl
+    from paddle_tpu.framework import monitor
+    from paddle_tpu_torch import faults
+    from paddle_tpu_torch import telemetry as tl
+
+    import time
+
+    jcfg, jparams, cfg, params = markov
+    f, t = (jfaults, jtl) if pkg == "jax" else (faults, tl)
+    f.reset()
+    t.reset()
+    t.clear_runtime_wedge()
+    f.install(spec)
+    kw = dict(max_batch=2, max_len=32, prefill_budget=6,
+              async_dispatch=async_, layout=layout)
+    if layout == "paged":
+        kw["block_size"] = 8
+    try:
+        srv = (jserving.DecodeServer(jparams, jcfg, **kw) if pkg == "jax"
+               else serving.DecodeServer(params, cfg, device="cpu", **kw))
+        rids = [srv.submit(p, max_new_tokens=5, priority=q,
+                           ttl_s=ttl if i == 0 else None)
+                for i, (p, q) in enumerate(zip(prompts, priorities))]
+        requeued = False
+        for _ in range(200):
+            if not srv.pending():
+                break
+            srv.tick()
+            if not requeued and srv.status(rids[0]) == "queued":
+                requeued = True
+                time.sleep(sleep_on_requeue)
+        out = []
+        for r in rids:
+            try:
+                out.append([int(x) for x in srv.result(r)])
+            except (RuntimeError, TimeoutError) as e:
+                out.append(type(e).__name__)
+        st = [srv.status(r) for r in rids]
+        srv.close()
+    finally:
+        f.reset()
+        t.clear_runtime_wedge()
+    got = monitor.stats() if pkg == "jax" else tl.counters()
+    ctr = {k: int(v) for k, v in sorted(got.items())
+           if k.startswith(("serving.", "resilience.", "kv_pool.")) and v}
+    return out, st, requeued, ctr
+
+
+def _half_prefilled_prompts(seed):
+    rng = np.random.default_rng(seed)
+    return ([int(x) for x in rng.integers(1, 13, 20)],
+            [int(x) for x in rng.integers(1, 13, 4)])
+
+
+@pytest.mark.parametrize("layout", ["contiguous", "paged"])
+def test_oom_evicts_half_prefilled_slot_and_finishes_exact(markov, layout):
+    """A tick OOM while a long prompt is mid-admission: the ladder evicts
+    the (lowest-priority) admitting slot back to the queue with its
+    ORIGINAL prompt, and the request still finishes with its fault-free
+    tokens — the JAX server's tokens, statuses and counters."""
+    jcfg, jparams, cfg, params = markov
+    long_p, short_p = _half_prefilled_prompts(4)
+    clean = _serve(serving.DecodeServer(params, cfg, max_batch=2, max_len=32,
+                                        device="cpu"),
+                   [long_p, short_p], max_new_tokens=5)
+    seen = {pkg: _faulted(pkg, markov, [long_p, short_p], "oom:tick:2",
+                          layout=layout)
+            for pkg in ("jax", "torch")}
+    assert seen["torch"] == seen["jax"]
+    out, st, requeued, ctr = seen["torch"]
+    assert out == clean and st == ["ok", "ok"] and requeued
+    assert ctr["resilience.oom_evictions"] >= 1
+    # the evicted half-prefilled request claimed budgeted admission again
+    assert ctr["serving.admitting_claims"] >= 2
+
+
+def test_ttl_sheds_evicted_half_prefilled_request(markov):
+    """An OOM-evicted admitting request with a tiny TTL: its queue clock
+    restarts at the requeue, and the shed times it out instead of
+    admitting it again; the short request is unaffected."""
+    jcfg, jparams, cfg, params = markov
+    long_p, short_p = _half_prefilled_prompts(5)
+    clean_short = _serve(serving.DecodeServer(params, cfg, max_batch=2,
+                                              max_len=32, device="cpu"),
+                         [short_p], max_new_tokens=5)[0]
+    seen = {pkg: _faulted(pkg, markov, [long_p, short_p], "oom:tick:2",
+                          ttl=0.05, sleep_on_requeue=0.08)
+            for pkg in ("jax", "torch")}
+    assert seen["torch"] == seen["jax"]
+    out, st, requeued, ctr = seen["torch"]
+    assert requeued and st == ["timeout", "ok"]
+    assert out == ["DeadlineExceeded", clean_short]
+    assert ctr["resilience.deadline_sheds"] == 1
+
+
+def test_wedge_recovery_with_admitting_slot(markov, monkeypatch):
+    """A wedged async fetch while a long prompt is mid-admission: the
+    watchdog cancels the work in flight and recovers with the admitting
+    slot's chunk walk intact — the tokens of an unfaulted budgeted async
+    serve, in both packages alike."""
+    jcfg, jparams, cfg, params = markov
+    long_p, short_p = _half_prefilled_prompts(6)
+    clean = _serve(serving.DecodeServer(params, cfg, max_batch=2, max_len=32,
+                                        device="cpu", prefill_budget=6,
+                                        async_dispatch=True),
+                   [long_p, short_p], max_new_tokens=5)
+    monkeypatch.setenv("PADDLE_TPU_STEP_BUDGET_S", "0.3")
+    monkeypatch.setenv("PADDLE_TPU_FAULT_WEDGE_S", "0.6")
+    seen = {pkg: _faulted(pkg, markov, [long_p, short_p], "wedge:tick:2",
+                          priorities=(0, 0), async_=True)
+            for pkg in ("jax", "torch")}
+    assert seen["torch"][:2] == seen["jax"][:2]
+    assert seen["torch"][3] == seen["jax"][3]
+    out, st, _, ctr = seen["torch"]
+    assert out == clean
+    assert ctr["resilience.wedge_detected"] >= 1
+    assert ctr["resilience.wedge_recoveries"] >= 1

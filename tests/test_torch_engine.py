@@ -43,7 +43,8 @@ _READS = {"step": {"paged"}, "sample": {"paged"}, "async": {"paged"},
           "async_block": {"paged", "k"},
           "async_sample_block": {"paged", "k"},
           "prefill": {"bucket"}, "prefill_chunk": {"width"},
-          "paged_prefill": {"bucket"}, "generate": {"extra"}}
+          "paged_prefill": {"bucket"}, "inject": {"bucket", "paged"},
+          "generate": {"extra"}}
 
 
 def _cfg(**kw):

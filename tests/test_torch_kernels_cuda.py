@@ -1191,3 +1191,163 @@ def test_generate_replays_its_step(monkeypatch):
     engine.ENGINE.purge(cfg)
     assert not [g for g in engine.ENGINE.graphs()
                 if g.name == "generate.generate"]
+
+
+# ---------------------------------------------------------------------------
+# the spill tier's restore step and a capture that fails
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("case", ["paged", "int8_kv"])
+def test_graphed_inject_equals_eager(case, monkeypatch):
+    """From one pool state, the ``inject`` graph writes the rows its eager
+    body writes, bit for bit (int8 scale planes too), and again after its
+    feeds changed (another slot, start and length)."""
+    from paddle_tpu_torch.text import engine, kv_pool
+
+    cfg, params, prompts = _graph_case(case, monkeypatch)
+    srv = _graph_server(cfg, params, "paged", True)
+    for p in prompts[:4]:
+        srv.submit(p, max_new_tokens=12)
+    srv._apply_pool_ops()
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    names = [n for n in kv_pool.POOL_LEAVES if n in srv.cache]
+    bucket = 64
+    spec = srv._spec(bucket=bucket)
+    eager = engine._Eager(engine._REGISTRY["inject"].build(spec), srv._bind,
+                          "inject")
+    graph = engine.ENGINE.get("inject", spec)
+    slots = sorted(srv._slots)
+    for start, length, slot in ((0, 48, slots[0]), (16, 40, slots[1])):
+        rows = []
+        for n in names:
+            t = srv.cache[n]
+            shape = (t.shape[0], 1, bucket) + tuple(t.shape[3:])
+            r = torch.randn(shape, generator=gen, device="cuda") * 20
+            rows.append(r.to(t.dtype))
+        feeds = (*rows, *srv._scalars(start, length, slot))
+        snap = {n: t.clone() for n, t in srv.cache.items()}
+        eager(*feeds)
+        want = {n: t.clone() for n, t in srv.cache.items()}
+        for n, t in srv.cache.items():
+            t.copy_(snap[n])
+        r0 = graph.replays
+        assert graph(*feeds) == ()
+        assert graph.replays == r0 + 1
+        for n in names:
+            assert torch.equal(_live(srv, n), _live(srv, n, want)), n
+            assert not torch.equal(_live(srv, n), _live(srv, n, snap)), n
+    srv.close()
+
+
+def test_spill_restore_keeps_pool_addresses(monkeypatch):
+    """A graphed paged server with the spill tier: serve a prompt, spill
+    its chain to pinned host memory, serve it again — its chain restored
+    through the inject graph (one replay a restored run) into the pool at
+    the addresses the graphs read, every restored row the row spilled,
+    the tokens of the cold pass."""
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case("paged", monkeypatch)
+    monkeypatch.setenv("PADDLE_TPU_KV_SPILL_MB", "64")
+    srv = _graph_server(cfg, params, "paged", True)
+    ptrs = {n: t.data_ptr() for n, t in srv.cache.items()}
+    prompt = prompts[2]                           # 100 tokens: 6 blocks
+    cold = _serve_all(srv, [prompt])
+    kept = {}
+    fetch = srv._spill_fetch
+
+    def spill_fetch(blocks):
+        recs = fetch(blocks)
+        assert all(v.is_pinned() for rec in recs for v in rec.values())
+        kept.update({(b, n): v.clone() for b, rec in zip(blocks, recs)
+                     for n, v in rec.items()})
+        return recs
+
+    srv._spill_fetch = spill_fetch
+    while srv._pool.prefix_entries:
+        srv._evict_or_spill(8)
+    assert srv._pool.spilled_blocks == 6
+    restored = []
+    take = srv._pool.take_restores
+
+    def take_restores():
+        recs = take()
+        restored.extend(recs)
+        return recs
+
+    srv._pool.take_restores = take_restores
+    assert _serve_all(srv, [prompt]) == cold
+    assert {n: t.data_ptr() for n, t in srv.cache.items()} == ptrs
+    assert len(restored) == 6
+    for _slot, _start, rows, blk in restored:
+        for n, v in rows.items():
+            assert torch.equal(srv.cache[n][:, blk], v.to("cuda"))
+    (g,) = [g for g in engine.ENGINE.graphs(srv._bind)
+            if g.name.startswith("serving.inject@")]
+    assert g.replays == 1                         # one contiguous run
+    srv.close()
+
+
+def test_a_failed_capture_leaves_no_graph(monkeypatch):
+    """A real allocator OOM inside the first admission's capture (the
+    body raises ``torch.cuda.OutOfMemoryError`` under capture, after its
+    kernels were recorded): the error reaches the caller classified as an
+    OOM, the request is back at the queue front with its slot free, no
+    stream is left capturing, no half-captured graph stays in the Engine
+    and the launch counters are as they were; the next tick captures
+    afresh and serves the eager server's tokens."""
+    from paddle_tpu_torch import resilience
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case("contiguous", monkeypatch)
+    want = _serve_all(_graph_server(cfg, params, "contiguous", False),
+                      prompts[:1])
+    real = engine._REGISTRY["prefill"].build
+    failed = []
+
+    def build(spec):
+        body = real(spec)
+
+        def flaky(*a):
+            out = body(*a)
+            if torch.cuda.is_current_stream_capturing() and not failed:
+                failed.append(1)
+                raise torch.cuda.OutOfMemoryError(
+                    "CUDA out of memory. Tried to allocate 1.00 GiB")
+            return out
+        return flaky
+
+    monkeypatch.setattr(engine._REGISTRY["prefill"], "build", build)
+    srv = _graph_server(cfg, params, "contiguous", True)
+    counts = engine._counts()
+    with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+        srv.submit(prompts[0], max_new_tokens=12)
+    assert resilience.is_oom(ei.value) and failed
+    assert not torch.cuda.is_current_stream_capturing()
+    assert engine._counts() == counts
+    assert len(srv._free) == 4 and len(srv._queue) == 1
+    assert not [g for g in engine.ENGINE.graphs(srv._bind)
+                if g.name.startswith("serving.prefill@")]
+    while srv.pending():
+        srv.tick()
+    assert [srv.result(0)] == want
+    assert [g for g in engine.ENGINE.graphs(srv._bind)
+            if g.name.startswith("serving.prefill@")]
+    srv.close()
+
+
+def test_a_real_oom_is_classified_and_survived():
+    """Allocating more than the card has free raises
+    ``torch.cuda.OutOfMemoryError``, which ``resilience.is_oom`` classifies;
+    the CUDA context survives it (a later allocation and kernel work)."""
+    from paddle_tpu_torch import resilience
+
+    _card()
+    free, _ = torch.cuda.mem_get_info()
+    with pytest.raises(torch.cuda.OutOfMemoryError) as ei:
+        torch.empty(free + (1 << 30), dtype=torch.uint8, device="cuda")
+    assert resilience.is_oom(ei.value)
+    torch.cuda.empty_cache()
+    x = torch.ones(1024, device="cuda")
+    assert float((x * 2).sum()) == 2048.0
