@@ -133,6 +133,29 @@ Phases, in order; any failure raises and the script exits non-zero:
    ``torch.cuda.OutOfMemoryError`` classified and survived, a TTL shed
    and a NaN-poisoned tick — streams held to the unfaulted serves' by
    the tie rule — and the OOM drill again on small fp32 models (PATH_TOL);
+   then the overload phase (``overload_phase``), admission control on
+   the main path's model at ``prefill_budget=64`` (ladder widths 64, 32,
+   16), every server warmed up first: the 8 requests served unloaded (the
+   reference streams, the decode gap's p50, tokens/s); the ladder arm —
+   ``profile_serving.overload_waves`` (48 requests, classes 0/1/2, 4
+   every 0.24 s) against a decode-gap objective of half that p50 over
+   0.2 s windows, scraped at 10 Hz by a ``/metrics`` client — gated: rung
+   4 reached, claimed widths walking 64 -> 32 -> 16 (each claim at the
+   controller's width, each chunk one replay of its width's graph), only
+   class-0 submits at rung 4 rejected (``result`` raises
+   ``Overloaded``), no capture and no recompile record after warmup,
+   every chunk on #9's tensor-core body and every tick on its tick body,
+   admitted streams equal to the unloaded ones by the tie rule, one span
+   of each kind per finished request, every scrape valid Prometheus text
+   with the rung seen rising, and the rung back at 0 at the first idle
+   window; two tenants flooding at half the unloaded tokens/s each
+   (admitted tokens within 20%, throttles counted); a burst of 24 under
+   a queue cap of 4 (the newest past the cap rejected, class 2 admitted
+   first); ``/healthz`` 200 -> 503 -> 200 through the wedge drill, a
+   Chrome trace of two requests' spans and ``torch.profiler`` kernels
+   (``chiprun_out/overload_trace.json``), a card memory sample; and the
+   cost of telemetry: main's requests with it off, on, and on under a
+   10 Hz scrape (streams equal);
 9. the train rungs, as ``paddle_tpu_torch.tools.profile_train.
    build_train_path`` defines them (``RUNGS``, the JAX bench's recipes):
    GPT-1.3B with fp32 master weights from a seed, batch 8 x 2048 tokens in
@@ -160,6 +183,7 @@ import gc
 import json
 import math
 import os
+import re
 import statistics
 import sys
 import time
@@ -2865,6 +2889,529 @@ def pressure_phase(torch, gpt, serving, engine, ks, wl):
     return stats, launches
 
 
+# -- the overload phase: admission control and the metrics plane ----------
+
+# one line of Prometheus text exposition: a sample, or a TYPE comment
+PROM_SAMPLE = re.compile(
+    r'^([a-zA-Z_:][a-zA-Z0-9_:]*(?:\{[a-zA-Z_][a-zA-Z0-9_]*="[^"]*"'
+    r'(?:,[a-zA-Z_][a-zA-Z0-9_]*="[^"]*")*\})?) '
+    r'([-+]?(?:[0-9.]+(?:[eE][-+]?[0-9]+)?|Inf|NaN))$')
+PROM_TYPE = re.compile(r"^# TYPE [a-zA-Z_:][a-zA-Z0-9_:]* "
+                       r"(counter|gauge|histogram)$")
+
+
+def parse_prometheus(body):
+    """{name{labels}: value} of one exposition body; raises on a line that
+    is neither a ``# TYPE name kind`` comment nor ``name{labels} value``."""
+    out = {}
+    for line in body.splitlines():
+        if PROM_TYPE.match(line):
+            continue
+        m = PROM_SAMPLE.match(line)
+        if m is None:
+            raise AssertionError(f"not Prometheus text: {line!r}")
+        out[m.group(1)] = float(m.group(2))
+    return out
+
+
+def http_get(url):
+    """(status, body) of a GET; an HTTP error status is returned, not
+    raised."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(url, timeout=10) as r:
+            return r.status, r.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+class Scraper:
+    """GET ``url`` (a /metrics endpoint) every ``period`` seconds on a
+    thread until :meth:`stop`; every body parsed line by line as
+    Prometheus text, the value of ``series`` kept per scrape."""
+
+    def __init__(self, url, period=0.1, series=None):
+        import threading
+
+        self.url, self.period, self.series = url, period, series
+        self.values, self.errors, self.scrapes = [], [], 0
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        while not self._stop.is_set():
+            t0 = time.perf_counter()
+            try:
+                code, body = http_get(self.url)
+                if code != 200:
+                    raise AssertionError(f"/metrics answered {code}")
+                samples = parse_prometheus(body)
+                self.scrapes += 1
+                if self.series is not None:
+                    self.values.append(samples.get(self.series))
+            except Exception as e:  # noqa: BLE001 - reported by stop()
+                self.errors.append(repr(e))
+            self._stop.wait(max(0.0, self.period
+                                - (time.perf_counter() - t0)))
+
+    def start(self):
+        self._thread.start()
+        return self
+
+    def stop(self):
+        self._stop.set()
+        self._thread.join(timeout=10)
+        if self.errors:
+            raise AssertionError(f"scrapes failed: {self.errors[:3]}")
+        return self
+
+
+@contextlib.contextmanager
+def env_set(**kv):
+    """Set environment flags for the block, then put them back."""
+    old = {k: os.environ.get(k) for k in kv}
+    os.environ.update(kv)
+    try:
+        yield
+    finally:
+        for k, v in old.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def overload_server(wl, cfg, params, env=None, **kw):
+    """A graphed main-path server at the overload budget (ladder widths
+    64, 32, 16), built under ``env`` (admission control reads its flags
+    at construction) and warmed up at the main prompts' widths — every
+    ladder width among them."""
+    with env_set(**(env or {})):
+        srv = wl.make_server("main", params, cfg,
+                             prefill_budget=wl.OVERLOAD_BUDGET, **kw)
+    srv.warmup(prompt_lens=wl.LENS)
+    return srv
+
+
+def graph_replays(engine, srv):
+    return {g.name: g.replays for g in engine.ENGINE.graphs(srv._bind)}
+
+
+def ladder_arm(torch, gpt, engine, wl, cfg, params, ks, tl, ref, gap_p50):
+    """The ladder arm (module note, the overload phase): the overload
+    traffic on a budgeted server whose decode-gap objective is half the
+    unloaded p50, scraped at 10 Hz.  Returns its record and the serve's
+    launches."""
+    L = cfg.num_layers
+    W = wl.OVERLOAD_WINDOW_S
+    slo = gap_p50 / 2
+    srv = overload_server(wl, cfg, params, env=dict(
+        PADDLE_TPU_SLO_TPOT_MS=repr(slo),
+        PADDLE_TPU_SLO_WINDOW_S=repr(W)), metrics_port=0)
+    adm = srv._adm
+    assert adm.budget_rungs == (64, 32, 16), adm.budget_rungs
+    graphs0 = {g.name for g in engine.ENGINE.graphs(srv._bind)}
+    replays0 = graph_replays(engine, srv)
+    claims = []
+    claim = srv._claim_admitting
+
+    def watched(slot, st):
+        claim(slot, st)
+        claims.append({"rid": st["rid"], "width": st["admit_w"],
+                       "chunks": len(st["admit_starts"]), "rung": adm.rung,
+                       "budget": srv._effective_budget(),
+                       "t": time.perf_counter() - t0})
+
+    srv._claim_admitting = watched
+    waves = wl.overload_waves(cfg.vocab_size, seed=0)
+    prompts = wl.main_prompts(cfg.vocab_size, seed=0)
+    index = {tuple(p): i for i, p in enumerate(prompts)}
+    scraper = Scraper(f"http://127.0.0.1:{srv.metrics_server.port}/metrics",
+                      0.1, "paddle_tpu_admission_rung")
+    torch.cuda.synchronize()
+    tl.reset()
+    subs, timeline, walls = [], [], []
+    pending = list(waves)
+    zero_counts(ks)
+    scraper.start()
+    t0 = time.perf_counter()
+    i = 0
+    while srv.pending() or pending:
+        if pending and time.perf_counter() - t0 >= wl.OVERLOAD_EVERY_S * (
+                len(waves) - len(pending)):
+            for prompt, q in pending.pop(0):
+                rid = srv.submit(prompt, max_new_tokens=wl.NEW, priority=q)
+                subs.append({"rid": rid, "prompt": index[tuple(prompt)],
+                             "class": q, "rung": adm.rung,
+                             "status": srv.status(rid)})
+        if not srv.pending():           # drained before the next batch
+            time.sleep(1e-3)
+            continue
+        t1 = time.perf_counter()
+        srv.tick()
+        walls.append(time.perf_counter() - t1)
+        state = (adm.rung, adm.budget_level)
+        if not timeline or timeline[-1][2:] != state:
+            timeline.append((i, round(time.perf_counter() - t0, 4),
+                             *state))
+        i += 1
+        if time.perf_counter() - t0 > 120:
+            raise AssertionError("the ladder serve did not drain")
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches, tc, tick = launch_counts(ks), tc_counts(ks), tick_counts(ks)
+    scraper.stop()
+    compiles = tl.compile_log()
+    replays = graph_replays(engine, srv)
+    graphs1 = {g.name for g in engine.ENGINE.graphs(srv._bind)}
+    ls = srv.load_stats(include_spans=True)
+    # the drain: idle rounds until the ladder is back at rung 0
+    drain = []
+    t_idle = time.perf_counter()
+    while adm.rung > 0 and time.perf_counter() - t_idle < 20 * W:
+        before = adm.rung
+        srv.tick()
+        if adm.rung != before:
+            drain.append((before, adm.rung,
+                          round(time.perf_counter() - t_idle, 4)))
+        time.sleep(W / 8)
+    ctr = tl.counters("admission.")
+    srv.close()
+
+    # gates
+    if max(r for _, _, r, _ in timeline) != 4:
+        raise AssertionError(f"the ladder never reached rung 4: {timeline}")
+    widths = [c["width"] for c in claims]
+    walk = [w for k, w in enumerate(widths) if k == 0 or w != widths[k - 1]]
+    if walk != [64, 32, 16] or any(c["width"] != c["budget"]
+                                   for c in claims):
+        raise AssertionError(f"claimed widths walk {walk}: {claims}")
+    rejected = [s for s in subs if s["status"] == "rejected"]
+    if not rejected or any(s["class"] != 0 or s["rung"] < 4
+                           for s in rejected) \
+            or any(s["class"] == 0 and s["rung"] >= 4
+                   and s["status"] != "rejected" for s in subs):
+        raise AssertionError(f"rejections: {subs}")
+    if graphs1 != graphs0 or compiles:
+        raise AssertionError(f"captures after warmup: {graphs1 - graphs0}, "
+                             f"recompile records {compiles}")
+    chunks = {w: replays.get(f"serving.prefill_chunk@{w}", 0)
+              - replays0.get(f"serving.prefill_chunk@{w}", 0)
+              for w in (64, 32, 16)}
+    planned = {w: sum(c["chunks"] for c in claims if c["width"] == w)
+               for w in (64, 32, 16)}
+    mono = replays.get("serving.prefill@64", 0) \
+        - replays0.get("serving.prefill@64", 0)
+    if chunks != planned:
+        raise AssertionError(f"chunk replays {chunks}, planned {planned}")
+    n_chunks = sum(chunks.values())
+    if not (tc["decode_attention"] == L * n_chunks
+            and tick["decode_attention"] == launches["decode_attention"]
+            - L * n_chunks and tick["decode_attention"] > 0
+            and launches["flash_attention_fwd"] == L * mono
+            and launches["paged_decode_attention"] == 0):
+        raise AssertionError(f"launches {launches}, tc {tc}, tick {tick}, "
+                             f"{n_chunks} chunks, {mono} monolithic")
+    if not drain or drain[0][1] != 0:
+        raise AssertionError(f"after the drain the rung went {drain}")
+    seen = [v for v in scraper.values if v is not None]
+    if not seen or max(seen) != 4 or not any(
+            b > a for a, b in zip(seen, seen[1:])):
+        raise AssertionError(f"scraped rungs {seen}")
+    ok = [s for s in subs if s["status"] != "rejected"]
+    spans = ls["spans"]
+    kinds = {k: sum(sp["name"] == k for sp in spans)
+             for k in ("prefill", "decode", "retire")}
+    if kinds != {k: len(ok) for k in kinds} or ls["span_drops"]:
+        raise AssertionError(f"spans {kinds} for {len(ok)} requests, "
+                             f"{ls['span_drops']} dropped")
+    equal = 0
+    for s in ok:
+        got = srv._results[s["rid"]]
+        p = s["prompt"]
+        equal += check_tokens(torch, gpt, params, cfg, prompts[p], got,
+                              ref[p], f"ladder request {s['rid']}") is None
+    per_class = {c: sum(s["status"] == "rejected" for s in subs
+                        if s["class"] == c) for c in range(3)}
+    return {"slo_tpot_ms": slo, "window_s": W, "requests": len(subs),
+            "ticks": len(walls), "wall_s": wall,
+            "tokens": sum(len(srv._results[s["rid"]]) for s in ok),
+            "tick_ms_median": 1e3 * statistics.median(walls),
+            "timeline": timeline, "claims": [(c["width"], c["rung"],
+                                              round(c["t"], 4))
+                                             for c in claims],
+            "walk": walk, "rejected_per_class": per_class,
+            "rejected_at": [(s["rid"], s["class"], s["rung"])
+                            for s in rejected],
+            "chunk_replays": chunks, "monolithic": mono,
+            "drain": drain, "counters": ctr, "scrapes": scraper.scrapes,
+            "scraped_rungs": seen, "spans": kinds,
+            "streams_equal": equal, "streams": len(ok),
+            "launches": launches, "tc_launches": tc,
+            "tick_launches": tick}, launches
+
+
+def tenant_arm(torch, wl, cfg, params, prompts, rate, tl):
+    """Two tenants flood a budgeted server whose tenant rate is ``rate``
+    tokens/s: each round both submit the same prompt, then one tick, for
+    64 rounds; then the drain.  Gated: admitted tokens within 20% of each
+    other and some throttles."""
+    srv = overload_server(wl, cfg, params,
+                          env=dict(PADDLE_TPU_TENANT_RATE=repr(rate)))
+    tl.reset()
+    subs = []
+    t0 = time.perf_counter()
+    for i in range(64):
+        for tenant in ("a", "b"):
+            rid = srv.submit(prompts[i % len(prompts)],
+                             max_new_tokens=wl.NEW, tenant=tenant)
+            subs.append((tenant, rid))
+        srv.tick()
+    flood = time.perf_counter() - t0
+    while srv.pending():
+        srv.tick()
+    torch.cuda.synchronize()
+    admitted = dict(srv._adm.admitted_tokens)
+    status = {t: [srv.status(r) for tt, r in subs if tt == t]
+              for t in ("a", "b")}
+    throttles = tl.counter("admission.tenant_throttles")
+    srv.close()
+    a, b = admitted.get("a", 0), admitted.get("b", 0)
+    if not (min(a, b) > 0 and abs(a - b) <= 0.2 * max(a, b)
+            and throttles > 0) or any(
+            s not in ("ok", "rejected") for v in status.values() for s in v):
+        raise AssertionError(f"tenants: admitted {admitted}, throttles "
+                             f"{throttles}, statuses {status}")
+    return {"rate": rate, "flood_s": flood, "admitted_tokens": admitted,
+            "throttles": throttles,
+            "admitted_requests": {t: v.count("ok") for t, v in
+                                  status.items()},
+            "rejected_requests": {t: v.count("rejected") for t, v in
+                                  status.items()}}
+
+
+QUEUE_CLASSES = (0, 1, 2, 0, 1, 0, 2, 1,          # admitted at once
+                 0, 1, 0, 2, 0, 1, 0, 2, 0, 1, 0, 1, 2, 0, 1, 0)
+
+
+def queue_arm(torch, wl, cfg, params, prompts):
+    """A burst of 24 mixed-class submits on a budgeted server with
+    ``PADDLE_TPU_ADMISSION_QUEUE_CAP=4``: the first 8 take the slots, the
+    rest queue by class.  Gated: the rejected requests are exactly the
+    newest entries past the cap of each over-cap class (the lowest
+    over-cap class sheds; at each submit only the submitted class can be
+    over), and the queued requests are admitted class 2 first, then 1,
+    then 0."""
+    cap = 4
+    srv = overload_server(wl, cfg, params,
+                          env=dict(PADDLE_TPU_ADMISSION_QUEUE_CAP=str(cap)))
+    rids = [srv.submit(prompts[k % len(prompts)], max_new_tokens=wl.NEW,
+                       priority=q) for k, q in enumerate(QUEUE_CLASSES)]
+    queued = {c: [] for c in range(3)}
+    for rid, q in zip(rids[srv.max_batch:], QUEUE_CLASSES[srv.max_batch:]):
+        queued[q].append(rid)
+    want = sorted(r for c in range(3) for r in queued[c][cap:])
+    got = sorted(r for r in rids if srv.status(r) == "rejected")
+    cls = dict(zip(rids, QUEUE_CLASSES))
+    waiting = {r for r in rids if srv.status(r) == "queued"}
+    order, skipped = [], []
+    while srv.pending():
+        srv.tick()
+        now = [r for r in waiting if srv.status(r) != "queued"]
+        waiting.difference_update(now)
+        # admitted this round, highest class first (the queue's order);
+        # none of a class lower than one still waiting
+        order += sorted((cls[r] for r in now), reverse=True)
+        if now and waiting and min(cls[r] for r in now) < max(
+                cls[r] for r in waiting):
+            skipped.append((now, sorted(waiting)))
+    torch.cuda.synchronize()
+    done = sum(srv.status(r) == "ok" for r in rids)
+    srv.close()
+    if got != want or skipped or done != len(rids) - len(want) \
+            or not order or order[0] != 2:
+        raise AssertionError(f"queue arm: rejected {got}, expected {want}, "
+                             f"admission order by class {order}, passed "
+                             f"over {skipped}")
+    return {"cap": cap, "submits": len(rids), "rejected": got,
+            "rejected_classes": [QUEUE_CLASSES[rids.index(r)] for r in got],
+            "queued_admission_order": order}
+
+
+def healthz_and_trace_arm(torch, wl, cfg, params, prompts, faults, tl):
+    """/healthz around the pressure phase's wedge drill (an async graphed
+    main server, ``PADDLE_TPU_STEP_BUDGET_S=0.5``, a hung second fetch):
+    200, then 503 while the server is wedged, then 200 after the next
+    clean tick.  Then two requests served under ``torch.profiler`` (host and CUDA) on the
+    same server, and ``telemetry.dump_chrome_trace`` of that profile with
+    the requests' spans into chiprun_out/; and one card memory sample."""
+    from torch.profiler import ProfilerActivity, profile
+
+    codes = []
+    with env_set(PADDLE_TPU_STEP_BUDGET_S="0.5",
+                 PADDLE_TPU_FAULT_WEDGE_S="2"):
+        faults.install("wedge:tick:2")
+        try:
+            srv = wl.make_server("main", params, cfg, async_dispatch=True,
+                                 metrics_port=0)
+            srv.warmup(prompt_lens=wl.LENS)
+            url = f"http://127.0.0.1:{srv.metrics_server.port}/healthz"
+            codes.append((False, http_get(url)[0]))
+            rids = [srv.submit(p, max_new_tokens=16) for p in prompts[:2]]
+            while srv.pending():
+                srv.tick()
+                codes.append((srv.wedged, http_get(url)[0]))
+        finally:
+            faults.reset()
+    if not (codes[0] == (False, 200) and (True, 503) in codes
+            and codes[-1] == (False, 200)
+            and all((c == 503) == w for w, c in codes)):
+        raise AssertionError(f"/healthz through the wedge drill: {codes}")
+    assert all(srv.status(r) == "ok" for r in rids)
+    srv.drain_spans()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        rids = [srv.submit(p, max_new_tokens=8) for p in prompts[:2]]
+        while srv.pending():
+            srv.tick()
+        torch.cuda.synchronize()
+    spans, drops = srv.drain_spans()
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out", "overload_trace.json")
+    tl.dump_chrome_trace(out, profiler=prof, spans=spans)
+    srv.close()
+    with open(out) as f:
+        evs = json.load(f)["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" for e in evs)
+    names = {e.get("name") for e in evs}
+    if not (kernels and {"prefill", "decode", "retire",
+                         "serving.request"} <= names and not drops):
+        raise AssertionError(f"trace: {kernels} kernel events, {drops} "
+                             f"spans dropped, names {sorted(map(str, names))}")
+    mem = tl.sample_device_stats(min_interval_s=0.0)
+    if not mem or not mem.get("device0_bytes_in_use"):
+        raise AssertionError(f"card memory sample {mem}")
+    return {"healthz": [c for _, c in codes], "trace_events": len(evs),
+            "trace_kernel_events": kernels, "trace_path": out,
+            "device_stats": mem}
+
+
+COST_WAYS = (("telemetry_off", dict(PADDLE_TPU_TELEMETRY="0"), False),
+             ("telemetry_on", {}, False), ("scraped_10hz", {}, True))
+
+
+def cost_arm(torch, wl, cfg, params, prompts, tl):
+    """Main's 8 requests x 64 tokens on the main path's graphed server
+    three ways — telemetry off, on, on and scraped at 10 Hz — in the order
+    off, on, scraped, scraped, on, off; each way's tokens/s and tick ms
+    (mean of its two serves' medians).  Gated: the streams equal across
+    all six serves."""
+    runs = {name: [] for name, _, _ in COST_WAYS}
+    streams = {}
+    for name, env, scrape in COST_WAYS + COST_WAYS[::-1]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        with env_set(**env):
+            srv = wl.make_server("main", params, cfg,
+                                 metrics_port=0 if scrape else None)
+            srv.warmup(prompt_lens=wl.LENS)
+            tl.reset()
+            scraper = (Scraper(f"http://127.0.0.1:"
+                               f"{srv.metrics_server.port}/metrics").start()
+                       if scrape else None)
+            torch.cuda.synchronize()
+            served, _, ticks, wall = serve(torch, srv, prompts, wl.NEW)
+            if scraper:
+                scraper.stop()
+            srv.close()
+        n_tok = sum(map(len, served))
+        runs[name].append({"tokens_per_s": n_tok / wall,
+                           "tick_ms_median": 1e3 * statistics.median(ticks),
+                           "tick_ms_mean": 1e3 * statistics.mean(ticks),
+                           "scrapes": scraper.scrapes if scraper else 0})
+        streams.setdefault("first", served)
+        if served != streams["first"]:
+            raise AssertionError(f"{name}: other streams than the first "
+                                 f"way's")
+    return {name: {"runs": r,
+                   "tokens_per_s": statistics.mean(x["tokens_per_s"]
+                                                   for x in r),
+                   "tick_ms_median": statistics.mean(x["tick_ms_median"]
+                                                     for x in r)}
+            for name, r in runs.items()}
+
+
+def overload_phase(torch, gpt, engine, ks, wl, card):
+    """The overload phase (module note): admission control and the
+    metrics plane on the main path.  Returns (stats, launches)."""
+    from paddle_tpu_torch import faults
+    from paddle_tpu_torch import telemetry as tl
+
+    cfg, params, srv, prompts = wl.build_main_path("cuda", seed=0)
+    srv.close()
+    t_phase = time.perf_counter()
+    # unloaded: the reference streams, the decode gap, tokens/s
+    srv = overload_server(wl, cfg, params)
+    tl.reset()
+    ref, _, ticks, wall = serve(torch, srv, prompts, wl.NEW)
+    gap_p50 = tl.hist("serving.decode_gap_ms").quantile(0.5)
+    tok_s = sum(map(len, ref)) / wall
+    srv.close()
+    log(f"  unloaded (budget {wl.OVERLOAD_BUDGET}): {tok_s:.1f} tokens/s, "
+        f"decode gap p50 {gap_p50:.4f} ms, tick median "
+        f"{1e3 * statistics.median(ticks):.3f} ms [{card}]")
+    gc.collect()
+    torch.cuda.empty_cache()
+    ladder, launches = ladder_arm(torch, gpt, engine, wl, cfg, params, ks,
+                                  tl, ref, gap_p50)
+    tok_s_ladder = ladder["tokens"] / ladder["wall_s"]
+    log(f"  ladder: {ladder['requests']} requests, {ladder['ticks']} ticks "
+        f"in {ladder['wall_s']:.3f} s ({tok_s_ladder:.1f} tokens/s, tick "
+        f"median {ladder['tick_ms_median']:.3f} ms), decode "
+        f"gap objective {ladder['slo_tpot_ms']:.4f} ms over "
+        f"{ladder['window_s']} s windows [{card}]")
+    log(f"  ladder timeline (tick, s, rung, budget level): "
+        f"{ladder['timeline']}")
+    log(f"  claims (width, rung, s): {ladder['claims']}; widths walk "
+        f"{ladder['walk']}; chunk replays {ladder['chunk_replays']}")
+    log(f"  rejected per class {ladder['rejected_per_class']} (rid, class, "
+        f"rung) {ladder['rejected_at']}; drain {ladder['drain']}; "
+        f"{ladder['streams_equal']} of {ladder['streams']} streams equal "
+        f"throughout to the unloaded ones (the rest by the tie rule)")
+    log(f"  metrics: {ladder['scrapes']} scrapes at 10 Hz parsed, rung "
+        f"seen {ladder['scraped_rungs']}; spans {ladder['spans']}; "
+        f"counters {json.dumps(ladder['counters'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    tenants = tenant_arm(torch, wl, cfg, params, prompts, tok_s / 2, tl)
+    log(f"  tenants at {tok_s / 2:.1f} tokens/s each: {json.dumps(tenants)}")
+    queue = queue_arm(torch, wl, cfg, params, prompts)
+    log(f"  queue cap 4: {json.dumps(queue)}")
+    health = healthz_and_trace_arm(torch, wl, cfg, params, prompts, faults,
+                                   tl)
+    log(f"  /healthz through the wedge drill {health['healthz']}; trace "
+        f"{health['trace_events']} events, {health['trace_kernel_events']} "
+        f"kernel events; card memory {json.dumps(health['device_stats'])}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cost = cost_arm(torch, wl, cfg, params, prompts, tl)
+    for name, c in cost.items():
+        runs = [(round(r["tokens_per_s"], 1), round(r["tick_ms_median"], 4))
+                for r in c["runs"]]
+        log(f"  cost, {name}: tokens/s {c['tokens_per_s']:.1f}, tick median "
+            f"{c['tick_ms_median']:.4f} ms (runs: tokens/s, tick median "
+            f"{runs}) [{card}]")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"unloaded": {"tokens_per_s": tok_s, "decode_gap_p50_ms": gap_p50},
+            "ladder": ladder, "tenants": tenants, "queue": queue,
+            "health": health, "cost": cost,
+            "phase_s": time.perf_counter() - t_phase}, launches
+
+
 def expected_train_launches(cfg, rung, remat_policies):
     """Each kernel's launches in one step of ``rung``: per micro-batch a
     flash forward, dq and dk/dv a layer, the CE forward and backward once,
@@ -3182,6 +3729,13 @@ def main() -> int:
                                                   engine, ks, wl)
     log(json.dumps({"pressure": prstats}))
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[overload: admission control on GPT-1.3B main]")
+    ostats, by_path["overload"] = overload_phase(torch, gpt, engine, ks, wl,
+                                                 card)
+    log(json.dumps({"overload": ostats}))
+
     gc.collect()                    # the bf16 serving models leave the card
     torch.cuda.empty_cache()
     log("[W4 path: DecodeServer, gpt_1p3b int4 weights, W4 kernel]")
@@ -3235,12 +3789,15 @@ def main() -> int:
     tc_by_path = {"main": stats["tc_launches"], "paged": pstats["tc_launches"],
                   "w4": wstats["tc_launches"],
                   "pressure": prstats["tc_launches"],
+                  "overload": ostats["ladder"]["tc_launches"],
                   **{p: t["tc_launches"] for p, t in train.items()}}
     assert all(by_path[p]["decode_attention"] == 0 for p in train)
     tick_by_path = {name: {"main": stats["tick_launches"][name],
                            "paged": pstats["tick_launches"][name],
                            "w4": wstats["tick_launches"][name],
                            "pressure": prstats["tick_launches"][name],
+                           "overload": ostats["ladder"]["tick_launches"][
+                               name],
                            **{p: 0 for p in train}}
                     for name in ("decode_attention", "paged_decode_attention")}
 

@@ -240,6 +240,154 @@ def nan_guard_serving() -> bool:
     return os.environ.get("PADDLE_TPU_NAN_GUARD_SERVING", "") == "1"
 
 
+def admission_enabled() -> bool:
+    """Admission control's master switch (``PADDLE_TPU_ADMISSION``, on by
+    default).  On, ``DecodeServer`` builds a
+    ``text.admission.AdmissionController``: per-tenant token buckets,
+    bounded per-class queues that shed the lowest class first, and the
+    SLO degradation ladder (admit cap -> prefill-budget rung -> speculation
+    off -> shed) driven by the TTFT and decode-gap histograms.  ``0``
+    builds no controller: strict FIFO admission, no request ever
+    ``rejected``.  Host scheduling only — never part of a step key (the
+    ladder picks among chunk widths ``warmup`` captured)."""
+    v = os.environ.get("PADDLE_TPU_ADMISSION", "1").strip().lower()
+    return v not in ("0", "false", "off", "no")
+
+
+def adaptive_budget() -> bool:
+    """The adaptive prefill budget (``PADDLE_TPU_ADAPTIVE_BUDGET``, on by
+    default): a breached decode-gap (TPOT) window moves the budget one
+    ladder width down on its own counter, without the ladder's other
+    levers; healthy windows move it back up, an idle window resets it.
+    ``0`` couples the budget to the ladder's rung alone.  Host scheduling
+    only."""
+    v = os.environ.get("PADDLE_TPU_ADAPTIVE_BUDGET", "1").strip().lower()
+    return v not in ("0", "false", "off", "no")
+
+
+def _float_or_none(name: str) -> float | None:
+    v = os.environ.get(name)
+    if v is None or not v.strip():
+        return None
+    try:
+        f = float(v)
+    except ValueError:
+        raise ValueError(f"{name}={v!r}: expected a number")
+    return f if f > 0 else None
+
+
+def slo_ttft_ms() -> float | None:
+    """The TTFT objective in ms (``PADDLE_TPU_SLO_TTFT_MS``; unset or 0:
+    none), held against the windowed p99 of ``serving.ttft_ms``."""
+    return _float_or_none("PADDLE_TPU_SLO_TTFT_MS")
+
+
+def slo_tpot_ms() -> float | None:
+    """The decode-gap objective in ms (``PADDLE_TPU_SLO_TPOT_MS``; unset or
+    0: none), held against the windowed p99 of ``serving.decode_gap_ms``."""
+    return _float_or_none("PADDLE_TPU_SLO_TPOT_MS")
+
+
+def slo_window_s() -> float:
+    """The SLO evaluation window in seconds (``PADDLE_TPU_SLO_WINDOW_S``,
+    default 2.0, at least 0.05): one ladder move at most a window."""
+    try:
+        return max(0.05, float(os.environ.get("PADDLE_TPU_SLO_WINDOW_S",
+                                              "2.0")))
+    except ValueError:
+        return 2.0
+
+
+def tenant_rate() -> float | None:
+    """Per-tenant token-bucket refill rate in admitted tokens (prompt +
+    max_new) a second (``PADDLE_TPU_TENANT_RATE``; unset or 0: no rate
+    limit).  A submit its tenant's bucket cannot cover is ``rejected``."""
+    return _float_or_none("PADDLE_TPU_TENANT_RATE")
+
+
+def tenant_burst() -> float | None:
+    """Per-tenant bucket capacity (``PADDLE_TPU_TENANT_BURST``; default
+    twice the rate)."""
+    return _float_or_none("PADDLE_TPU_TENANT_BURST")
+
+
+def admission_queue_cap() -> int:
+    """Bound on each priority class's queued requests
+    (``PADDLE_TPU_ADMISSION_QUEUE_CAP``, default 0 = unbounded); past it
+    the lowest over-cap class sheds its newest entry as ``rejected``."""
+    try:
+        return max(0, int(os.environ.get(
+            "PADDLE_TPU_ADMISSION_QUEUE_CAP", "0")))
+    except ValueError:
+        return 0
+
+
+def wedge_evidence_ttl_s() -> float:
+    """How long a probe-log entry stays evidence (``PADDLE_TPU_WEDGE_TTL_S``
+    seconds, default 1800): ``telemetry.probe_health`` calls an older
+    entry ``stale``."""
+    try:
+        return max(0.0, float(os.environ.get("PADDLE_TPU_WEDGE_TTL_S",
+                                             "1800")))
+    except ValueError:
+        return 1800.0
+
+
+def device_feed_enabled() -> bool:
+    """The device feed (``PADDLE_TPU_DEVICE_FEED``, on by default, under
+    the telemetry switch): per-step walls (``telemetry.note_step_time``)
+    and the rate-limited card memory sample
+    (``telemetry.sample_device_stats``).  Host bookkeeping only."""
+    if not telemetry_enabled():
+        return False
+    v = os.environ.get("PADDLE_TPU_DEVICE_FEED", "1").strip().lower()
+    return v not in ("0", "false", "off", "no")
+
+
+def hbm_sample_interval_s() -> float:
+    """Least seconds between two card memory samples on the hot paths
+    (``PADDLE_TPU_HBM_SAMPLE_MS``, default 500)."""
+    try:
+        return max(0.0, float(os.environ.get("PADDLE_TPU_HBM_SAMPLE_MS",
+                                             "500"))) / 1e3
+    except ValueError:
+        return 0.5
+
+
+def telemetry_log() -> str | None:
+    """``PADDLE_TPU_TELEMETRY_LOG=<path>``: every telemetry event and span
+    is also appended to this file as one JSON line.  None: no log."""
+    return os.environ.get("PADDLE_TPU_TELEMETRY_LOG") or None
+
+
+def trace_enabled() -> bool:
+    """Request tracing (``PADDLE_TPU_TRACE``, on by default, under the
+    telemetry switch): ``telemetry.mint_trace`` hands out trace contexts
+    and the server records request spans under them.  Host bookkeeping
+    only."""
+    v = os.environ.get("PADDLE_TPU_TRACE", "1").strip().lower()
+    return v not in ("0", "false", "off", "no")
+
+
+def trace_ring_spans() -> int:
+    """Completed spans a server's ring holds before new ones are dropped
+    and counted (``PADDLE_TPU_TRACE_RING``, default 4096)."""
+    try:
+        return max(1, int(os.environ.get("PADDLE_TPU_TRACE_RING", "4096")))
+    except ValueError:
+        return 4096
+
+
+def trace_piggyback_cap() -> int:
+    """Spans one ``drain_spans`` takes (``PADDLE_TPU_TRACE_PIGGYBACK``,
+    default 256); the rest wait for the next take."""
+    try:
+        return max(1, int(os.environ.get("PADDLE_TPU_TRACE_PIGGYBACK",
+                                         "256")))
+    except ValueError:
+        return 256
+
+
 def decode_jit_key() -> tuple:
     """The decode-routing flags a captured step bakes in — the port's copy
     of ``paddle_tpu/flags.py``'s ``decode_jit_key``, cut to the flags the
@@ -247,7 +395,14 @@ def decode_jit_key() -> tuple:
     (``gpt._norm``), the KV-cache storage dtype, layout and block size,
     and the admission prefill budget.  ``text/engine.cfg_key`` folds it
     into every step key, so flipping one of them mid-process keys a new
-    CUDA graph instead of replaying one captured on the other route."""
+    CUDA graph instead of replaying one captured on the other route.
+
+    The admission and telemetry flags (``PADDLE_TPU_ADMISSION``, the SLO,
+    tenant and queue knobs, the adaptive budget, the telemetry log, the
+    trace ring, the device feed) are not in it: they change which
+    captured step the host picks or what it records, never what a step
+    computes.  The ladder's chunk widths are ``StepSpec`` fields of the
+    graphs ``warmup`` captures."""
     return (os.environ.get("PADDLE_TPU_W4_KERNEL", ""),
             os.environ.get("PADDLE_TPU_FUSED_LN", ""),
             kv_cache_dtype(), kv_layout(), kv_block_size(),

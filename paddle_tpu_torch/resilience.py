@@ -8,6 +8,9 @@ that sit above the card (the ``DecodeServer`` ticks):
   deterministic jitter (seeded, so a test can hold the exact schedule),
   every engagement counted into the telemetry registry;
 * :class:`Deadline` — TTL arithmetic for request shedding;
+* :class:`Overloaded` — admission control refused a request at the door
+  (``text/admission.py``), distinct from a TTL's
+  :class:`DeadlineExceeded`;
 * :func:`call_with_budget` — a wall-budget watchdog around a blocking
   call (the async serving fetch): on timeout the caller gets a
   :class:`WedgeError` while the call is abandoned on a daemon thread;
@@ -29,7 +32,7 @@ from . import flags as _flags
 from . import telemetry as _telemetry
 
 __all__ = [
-    "enabled", "DeadlineExceeded", "WedgeError", "Deadline",
+    "enabled", "DeadlineExceeded", "Overloaded", "WedgeError", "Deadline",
     "backoff_schedule", "retry", "is_oom", "call_with_budget",
 ]
 
@@ -42,6 +45,15 @@ def enabled() -> bool:
 class DeadlineExceeded(TimeoutError):
     """A TTL expired: a queued serving request was shed before admission
     (``DecodeServer.result`` raises this for the ``timeout`` status)."""
+
+
+class Overloaded(RuntimeError):
+    """Admission control shed this request at the door: a tenant's rate
+    limit, a bounded per-class queue overflowing, or the SLO ladder's shed
+    rung (``DecodeServer.result`` raises this for the ``rejected``
+    status).  Distinct from :class:`DeadlineExceeded` on purpose: a
+    ``timeout`` waited in the queue and lost; a ``rejected`` request was
+    never queued, the signal for a client to back off."""
 
 
 class WedgeError(RuntimeError):

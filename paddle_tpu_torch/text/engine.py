@@ -51,6 +51,13 @@ raises after the capture has ended and its graph has been dropped: the
 step is left uncaptured, the launch counters as they were, and the next
 call captures afresh.  There is no eager fallback on the card.
 
+Every build — a capture on the card, an eager step's first call — is
+reported to the recompile watch (``telemetry.record_compile``) with its
+step key and ``flags.decode_jit_key()``: ``telemetry.compile_log()``
+lists the builds, and a build of a step seen before under other flags
+warns.  After ``warmup`` a server's serve should add no record (the
+admission ladder's widths are captured there too).
+
 The kernel wrappers count launches in Python (``.launches``,
 ``.tc_launches``, ``.tick_launches``), which a replay does not run: each
 graph records the counts its capture added, puts back what its eager and
@@ -69,6 +76,7 @@ from typing import Any, Callable
 import torch
 
 from .. import flags as _flags
+from .. import telemetry as _telemetry
 
 __all__ = ["StepSpec", "Binding", "Engine", "ENGINE", "register", "kinds",
            "cfg_key"]
@@ -486,20 +494,35 @@ def _capture_stream(device) -> torch.cuda.Stream:
     return s
 
 
+def _record_build(name: str, key, seconds: float) -> None:
+    """A step build for the recompile watch: its name, step key and the
+    flags key (the part of ``cfg_key`` a flag flip changes)."""
+    _telemetry.record_compile(name, key, _flags.decode_jit_key(), seconds)
+
+
 class _Eager:
     """A step run eagerly: on the CPU (the plain twins) or on the card
     with graphs off.  Host tensors among the feeds move to the binding's
-    device (without blocking when they are pinned)."""
+    device (without blocking when they are pinned).  Its first call is
+    its build for the recompile watch."""
 
-    def __init__(self, body, binding: Binding, name: str):
+    def __init__(self, body, binding: Binding, name: str, key=None):
         self.body, self.binding, self.name = body, binding, name
+        self.key = key
+        self._built = False
 
     def __call__(self, *feeds):
         dev = self.binding.device
         feeds = [f.to(dev, non_blocking=True)
                  if isinstance(f, torch.Tensor) and f.device != dev else f
                  for f in feeds]
-        return self.body(self.binding.params, self.binding.cache, *feeds)
+        if self._built:
+            return self.body(self.binding.params, self.binding.cache, *feeds)
+        t0 = _time.perf_counter()
+        out = self.body(self.binding.params, self.binding.cache, *feeds)
+        self._built = True
+        _record_build(self.name, self.key, _time.perf_counter() - t0)
+        return out
 
 
 class _Graph:
@@ -507,10 +530,12 @@ class _Graph:
     after.  ``static`` holds the input buffers the graph reads (each call
     copies its feeds in, without blocking), ``out`` the output tensors a
     replay overwrites — a caller must copy them out before the next
-    replay.  ``delta``: the launch counts one replay stands for."""
+    replay.  ``delta``: the launch counts one replay stands for.  A
+    capture is reported to the recompile watch."""
 
-    def __init__(self, body, binding: Binding, name: str):
+    def __init__(self, body, binding: Binding, name: str, key=None):
         self.body, self.binding, self.name = body, binding, name
+        self.key = key
         self.graph = None
         self.static = self.out = self.delta = None
         self.replays = 0
@@ -521,6 +546,7 @@ class _Graph:
 
         dev = self.binding.device
         p, c = self.binding.params, self.binding.cache
+        t0 = _time.perf_counter()
         self.static = tuple(torch.empty(f.shape, dtype=f.dtype, device=dev)
                             for f in feeds)
         for buf, f in zip(self.static, feeds):
@@ -554,6 +580,7 @@ class _Graph:
         # buffers the graph reads by address that no binding names: the
         # tick route's ticket buffers (replaced, never freed, while held)
         self._keep = tuple(da._tickets.values())
+        _record_build(self.name, self.key, _time.perf_counter() - t0)
 
     def __call__(self, *feeds):
         if self.graph is None:
@@ -641,7 +668,7 @@ class Engine:
         fn = self._steps.get(key)
         if fn is None:
             wrap = _Graph if bind.graphs else _Eager
-            fn = wrap(entry.build(spec), bind, entry.name(spec))
+            fn = wrap(entry.build(spec), bind, entry.name(spec), key)
             self._steps[key] = fn
         return fn
 

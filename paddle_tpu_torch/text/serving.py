@@ -88,14 +88,36 @@ on by default; ``0`` fails fast):
   logits) are not finite fails with the ``error`` status; the server
   lives on.
 
+Admission control (``text/admission.py``, ``PADDLE_TPU_ADMISSION``, on by
+default; ``0`` builds no controller), as the JAX server's:
+
+* **at the door** — ``submit(tenant=)`` charges the tenant's token bucket
+  (``PADDLE_TPU_TENANT_RATE``); a request its bucket cannot cover, or a
+  lowest-class request while the ladder sheds, retires ``rejected`` at
+  once and ``result()`` raises ``resilience.Overloaded``;
+* **bounded class queues** — ``PADDLE_TPU_ADMISSION_QUEUE_CAP`` bounds each
+  priority class's queue (<= 0 low, 1 normal, >= 2 high); an over-cap
+  class sheds its newest entry;
+* **the SLO ladder** — each scheduler round runs the controller's control
+  tick: a window (``PADDLE_TPU_SLO_WINDOW_S``) whose p99 TTFT or decode
+  gap breaches ``PADDLE_TPU_SLO_TTFT_MS`` / ``PADDLE_TPU_SLO_TPOT_MS``
+  climbs one rung — class-0 admit cap halved, the prefill budget down to
+  the next of ``admission.ladder_widths`` (captured by ``warmup``, so a
+  move never captures a graph mid-serve), then shed — and healthy windows
+  step back down.  A configured controller admits the highest class
+  first (FIFO within a class); an unconfigured one keeps strict FIFO.
+
 Faults are injected by ``PADDLE_TPU_FAULTS`` (``paddle_tpu_torch/
 faults.py``) at the JAX server's sites, and every event is counted in
 the telemetry registry (``paddle_tpu_torch/telemetry.py``) under the
-JAX server's counter names.
+JAX server's counter names.  ``metrics_port=`` serves that registry over
+HTTP (``/metrics``, ``/snapshot``, ``/healthz``); each request carries a
+trace context, and its prefill, decode and retire spans go to the
+server's span ring (``load_stats(include_spans=True)``,
+:meth:`DecodeServer.drain_spans`).
 
 Everything else the JAX server does — speculation, adapters and
-constraints, tensor parallelism, MoE, admission control and its SLO
-ladder, the metrics endpoint and request spans, the fleet — is later
+constraints, tensor parallelism, MoE, the fleet and its router — is later
 slices' work; no entry point of the port reaches it.
 """
 from __future__ import annotations
@@ -105,6 +127,7 @@ import time
 import numpy as np
 import torch
 
+from . import admission as _admission
 from . import engine, generate, gpt, kv_pool
 from .. import faults as _faults
 from .. import flags as _flags
@@ -217,6 +240,12 @@ def sample_block_batched(params, cache, tok, pos, key, temp, topk, topp,
     return torch.stack(toks, dim=1), cache
 
 
+def _name(fn):
+    """An Engine step's name, for the device feed's per-step walls (None
+    for a bare callable standing in for one)."""
+    return getattr(fn, "name", None)
+
+
 def _hits_stop(st: dict) -> bool:
     gen = st["generated"]
     return any(len(gen) >= len(seq) and gen[-len(seq):] == seq
@@ -280,9 +309,12 @@ class DecodeServer:
     in N-token chunks interleaved with the decode steps (module note).
     ``device`` defaults to the card; ``params`` must live there.  The
     resilience switches (TTLs, the OOM ladder, the spill tier, the wedge
-    watchdog, the NaN guard: module note) are read from the environment
-    at construction.  A server is a context manager: leaving the
-    ``with`` block closes it.
+    watchdog, the NaN guard: module note) and admission control's
+    (``PADDLE_TPU_ADMISSION`` and its knobs) are read from the environment
+    at construction.  ``metrics_port`` starts the telemetry endpoint
+    (``telemetry.serve_metrics``; 0 takes a free port,
+    ``self.metrics_server.port``), closed with the server.  A server is a
+    context manager: leaving the ``with`` block closes it.
 
     ``_graphs=False`` is private: it runs the steps eagerly on the card,
     for the card tests, ``chip_smoke.py`` and ``tools/profile_serving``,
@@ -295,7 +327,8 @@ class DecodeServer:
                  num_blocks: int | None = None,
                  prefill_chunk: int | None = None,
                  async_dispatch: bool = False,
-                 prefill_budget: int | None = None, _graphs: bool = True):
+                 prefill_budget: int | None = None,
+                 metrics_port: int | None = None, _graphs: bool = True):
         self.device = resolve_device(device)
         if params["wte"].device != self.device:
             raise ValueError(f"params live on {params['wte'].device}, the "
@@ -376,6 +409,21 @@ class DecodeServer:
         self._wedge_event = False        # ... recovered by a clean tick
         self._in_tick = False            # the guard is not re-entered
         self._rss_tick = 0               # the RSS watchdog's 1-in-16
+        self._prefill_steps = (None, 1)  # the last admission's (step, calls)
+        # the decode-gap probe: when the last round that appended decode
+        # tokens ended (None while idle: an empty server is not stalled)
+        self._gap_anchor: float | None = None
+        # completed trace spans of this server's requests
+        self._span_ring = _telemetry.SpanRing()
+        # admission control (module note), decided once here: with
+        # PADDLE_TPU_ADMISSION=0 no controller, and every consult is an
+        # ``is None``; its budget rungs are the widths warmup captures
+        self._adm = (_admission.AdmissionController(
+            scope="serving",
+            budget_rungs=_admission.ladder_widths(self._budget))
+            if _flags.admission_enabled() else None)
+        self.metrics_server = (_telemetry.serve_metrics(metrics_port)
+                               if metrics_port is not None else None)
 
     # -- host <-> device ----------------------------------------------------
 
@@ -419,14 +467,23 @@ class DecodeServer:
     def submit(self, prompt, max_new_tokens: int = 32,
                stop: list | None = None, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 1.0,
-               ttl_s: float | None = None, priority: int = 0) -> int:
+               ttl_s: float | None = None, priority: int = 0,
+               tenant: str | None = None) -> int:
         """Queue one request and admit what fits; returns its id.
         ``stop``: optional list of token SEQUENCES; generation ends
         (sequence included) as soon as the generated tail matches one.
         ``ttl_s`` (default ``PADDLE_TPU_REQUEST_TTL_S``; None = none)
         bounds the request's wait in the queue: still queued past it, it
         is shed with the ``timeout`` status.  ``priority`` (higher = kept
-        longer): the OOM ladder evicts the lowest-priority slot first."""
+        longer): the OOM ladder evicts the lowest-priority slot first, and
+        admission control buckets it into a class (<= 0 low, 1 normal,
+        >= 2 high) for queue bounds and shed order.  ``tenant``: the
+        request's token bucket under ``PADDLE_TPU_TENANT_RATE`` (None
+        shares one); refused at the door, the request retires
+        ``rejected`` at once and ``result()`` raises
+        ``resilience.Overloaded``.  A queued request gets a trace context
+        (``telemetry.mint_trace()``) for its spans: the server is the
+        front door here, as the JAX package's fleet router is."""
         if self.cache is None:
             raise RuntimeError("the server is closed")
         prompt, stop, ttl, top_k = validate_request(
@@ -446,29 +503,57 @@ class DecodeServer:
         self._next_rid += 1
         now = time.perf_counter()
         self._count("serving.requests_submitted")
+        if self._adm is not None:
+            self._adm.control_tick()
+            ok, _reason = self._adm.admit(tenant, priority,
+                                          len(prompt) + max_new_tokens)
+            if not ok:
+                self._status[rid] = "rejected"
+                self._count("serving.requests_rejected")
+                self._tel_gauges()
+                return rid
         self._queue.append({"rid": rid, "prompt": prompt,
                             "max_new": int(max_new_tokens), "stop": stop,
                             "temperature": float(temperature),
                             "top_k": top_k, "top_p": float(top_p),
                             "ttl": ttl, "priority": int(priority),
-                            "t_submit": now, "t_enqueue": now})
+                            "tenant": tenant,
+                            "trace": _telemetry.mint_trace(),
+                            "t_submit": now, "t_enqueue": now,
+                            "t_queued": now})
+        if self._adm is not None:
+            self._shed_queue_overflow()
         self._admit()
         self._tel_gauges()
         return rid
 
+    def _shed_queue_overflow(self) -> None:
+        """The bounded per-class queues: while a class is over
+        ``PADDLE_TPU_ADMISSION_QUEUE_CAP``, retire the controller's victim
+        (the lowest over-cap class's newest entry) as ``rejected``.  Runs
+        after every enqueue, so the bound holds between submits."""
+        while True:
+            i = self._adm.overflow_victim(self._queue)
+            if i is None:
+                return
+            req = self._queue.pop(i)
+            self._status[req["rid"]] = "rejected"
+            self._adm.count_shed(req["priority"], "queue_full")
+            self._count("serving.requests_rejected")
+
     def _shed_expired(self):
         """Deadline shedding: queued requests past their TTL retire with
         the ``timeout`` status and never take a slot.  The TTL bounds the
-        wait of the current queue entry (an evicted request's clock
-        restarts when it is requeued), never the request's total age.
-        Active slots are never shed."""
+        wait of the current queue entry (``t_queued``: an evicted
+        request's clock restarts when it is requeued), never the
+        request's total age.  Active slots are never shed."""
         if not self._resil or not self._queue:
             return
         now = time.perf_counter()
         kept = []
         for req in self._queue:
             ttl = req.get("ttl")
-            if ttl is not None and now - req["t_enqueue"] > ttl:
+            if ttl is not None and now - req["t_queued"] > ttl:
                 rid = req["rid"]
                 self._status[rid] = "timeout"
                 self._count("serving.requests_shed")
@@ -512,14 +597,18 @@ class DecodeServer:
                 torch.tensor([st["top_p"]], device=dev))[0])
         return int(lnp.argmax())
 
-    def _take_first_token(self, st, slot: int, logits) -> bool | None:
+    def _take_first_token(self, st, slot: int, logits,
+                          wall=None) -> bool | None:
         """The end of an admission: fetch the prefill logits [V] (one
         small device-to-host copy — the JAX server's host logits), run
         the NaN guard on them, then append the admission token; the slot
-        decodes from position len(prompt) on.  Returns None when the
-        guard failed the request (its slot is released), else whether
-        that token ends the request."""
+        decodes from position len(prompt) on.  ``wall`` — (step name,
+        calls, start) of the admission steps — feeds the device feed one
+        step's wall, bounded by this fetch.  Returns None when the guard
+        failed the request (its slot is released), else whether that
+        token ends the request."""
         lnp = logits.detach().float().cpu().numpy()
+        t_fetch = time.perf_counter()
         if _faults.active():
             lnp = _faults.corrupt_nan("logits", lnp)
         if self._resil and not np.isfinite(lnp).all():
@@ -534,13 +623,41 @@ class DecodeServer:
             now = time.perf_counter()
             st["t_first"] = now
             self._observe("serving.ttft_ms", (now - st["t_submit"]) * 1e3)
+            t_admit = st.get("t_admit", now)
+            _telemetry.event("serving.prefill", t_admit, now, tid=slot,
+                             rid=st["rid"], prompt_len=len(st["prompt"]))
+            self._span_ring.record(st.get("trace"), "prefill", t_admit,
+                                   now, rid=st["rid"],
+                                   prompt_len=len(st["prompt"]))
+            if wall is not None and wall[0] is not None:
+                name, calls, t0 = wall
+                _telemetry.note_step_time(name, (t_fetch - t0) / calls)
         return self._finished(st, t)
 
     def _admit(self):
         self._shed_expired()
-        # the OOM ladder's cap bounds every admission (a memory bound)
-        while self._queue and self._free \
-                and len(self._slots) < self._admit_cap:
+        # the OOM ladder's cap bounds every class (a memory bound); the
+        # admission ladder's cap is shed pressure and bounds class 0 only
+        cap = self._admit_cap
+        adm_cap = None
+        if self._adm is not None:
+            adm_cap = min(cap, self._adm.effective_admit_cap(self.max_batch))
+            if self._adm.engaged and len(self._queue) > 1:
+                # a configured controller spends free slots on the highest
+                # class first (a stable sort: FIFO within a class, by the
+                # time each request first entered the queue, which an
+                # evicted request keeps); an unconfigured one keeps strict
+                # FIFO, the order of PADDLE_TPU_ADMISSION=0
+                self._queue.sort(key=lambda r: (
+                    -_admission.priority_class(r["priority"]),
+                    r["t_enqueue"]))
+        while self._queue and self._free and len(self._slots) < cap:
+            if (adm_cap is not None and len(self._slots) >= adm_cap
+                    and _admission.priority_class(
+                        self._queue[0]["priority"]) == 0):
+                # the queue is class-sorted: a class-0 head means no
+                # higher class waits either
+                break
             slot = self._free.pop()
             req = self._queue.pop(0)
             t_admit = time.perf_counter()
@@ -557,8 +674,10 @@ class DecodeServer:
                   "generated": list(carry),
                   "base": len(req["prompt"]) - len(carry),
                   "ttl": req["ttl"], "priority": req["priority"],
+                  "tenant": req["tenant"], "trace": req["trace"],
                   "evictions": req.get("evictions", 0), "pos": 0,
-                  "t_submit": req["t_submit"], "t_admit": t_admit}
+                  "t_submit": req["t_submit"],
+                  "t_enqueue": req["t_enqueue"], "t_admit": t_admit}
             if self._tel:
                 self._observe("serving.queue_wait_ms",
                               (t_admit - st["t_submit"]) * 1e3)
@@ -584,7 +703,8 @@ class DecodeServer:
                 self._release(slot)
                 self._queue.insert(0, req)
                 raise
-            done = self._take_first_token(st, slot, logits)
+            done = self._take_first_token(
+                st, slot, logits, (*self._prefill_steps, t_admit))
             if done is None:
                 continue                        # failed by the NaN guard
             if done:
@@ -607,19 +727,24 @@ class DecodeServer:
         parks the request) before anything is claimed."""
         prompt = st["prompt"]
         n = len(prompt)
+        # the width of this claim's chunks: the budget, or under the
+        # admission ladder one of its captured widths
+        W = self._effective_budget()
         if self._paged:
             shared = self._pool.adopt_prefix(slot, prompt)
             self._drain_restores()
-            starts = self._chunk_starts(n, self._budget, shared)
+            starts = self._chunk_starts(n, W, shared)
             self._ensure_admission_rows(slot, min(starts), n)
             self._apply_pool_ops()
         else:
-            starts = self._chunk_starts(n, self._budget)
+            starts = self._chunk_starts(n, W)
         # pos doubles as the prefill frontier: rows [starts[0], pos) are
         # written; decode steps feed prompt[pos] at pos meanwhile, a row
-        # the next chunk rewrites
+        # the next chunk rewrites.  ``admit_w``: the slot's chunks keep
+        # the width their starts were planned at, whatever the ladder
+        # does meanwhile
         st.update(admitting=True, admit_starts=starts, admit_i=0,
-                  pos=starts[0])
+                  admit_w=W, pos=starts[0])
         self._slots[slot] = st
         self._count("serving.admitting_claims")
 
@@ -635,13 +760,14 @@ class DecodeServer:
         if slot is None:
             return False
         st = self._slots[slot]
-        W = self._budget
+        W = st["admit_w"]
         s = st["admit_starts"][st["admit_i"]]
         chunk = st["prompt"][s:s + W]
         kind, spec = (("paged_prefill", self._spec(bucket=W)) if self._paged
                       else ("prefill_chunk", self._spec(width=W)))
-        (logits,) = engine.ENGINE.get(kind, spec)(
-            *self._feeds(chunk, W, s, len(chunk), slot))
+        t0 = time.perf_counter()
+        fn = engine.ENGINE.get(kind, spec)
+        (logits,) = fn(*self._feeds(chunk, W, s, len(chunk), slot))
         self._prefill_rows += len(chunk)
         self._count("serving.prefill_chunks_interleaved")
         if self._paged:
@@ -649,17 +775,24 @@ class DecodeServer:
         st["admit_i"] += 1
         st["pos"] = min(s + len(chunk), len(st["prompt"]))
         if st["admit_i"] == len(st["admit_starts"]):
-            self._graduate(slot, st, logits)
+            self._graduate(slot, st, logits, (_name(fn), 1, t0))
         return True
 
-    def _graduate(self, slot: int, st, logits) -> None:
+    def _effective_budget(self) -> int:
+        """The chunk width a new budgeted claim plans at: the budget, or
+        the admission ladder's current width (one ``warmup`` captured)."""
+        if self._adm is None:
+            return self._budget
+        return self._adm.effective_budget(self._budget)
+
+    def _graduate(self, slot: int, st, logits, wall) -> None:
         """The last chunk landed: draw the admission token exactly as
         monolithic admission does (its NaN guard too) and let the slot
         decode (or retire at once); paged, the prompt's blocks index for
-        later prompts."""
-        for k in ("admitting", "admit_starts", "admit_i"):
+        later prompts.  ``wall``: the last chunk's (name, 1, start)."""
+        for k in ("admitting", "admit_starts", "admit_i", "admit_w"):
             del st[k]
-        done = self._take_first_token(st, slot, logits)
+        done = self._take_first_token(st, slot, logits, wall)
         if done is None:                        # failed by the NaN guard
             del self._slots[slot]
             return
@@ -703,8 +836,10 @@ class DecodeServer:
         bucket, or the one chunk width; paged: the suffix chunk's width,
         which depends on the adopted prefix, so every power of two from the
         block size up to the window; with a budget, prompts longer than it
-        take the budget-width chunk instead (named as the JAX warmup names
-        it)."""
+        take the budget-width chunk instead — and, with admission control,
+        each width of the ladder (``admission.ladder_widths``), so a
+        ladder move never captures mid-serve (named as the JAX warmup
+        names them)."""
         window = min(self.max_len, self.cfg.max_seq_len)
         kind = "paged_prefill" if self._paged else "prefill_chunk"
         if self._chunk is not None:
@@ -725,16 +860,19 @@ class DecodeServer:
                       for n in lens
                       if not self._budget or int(n) <= self._budget]
         out = {(k, w): f"{k}{w}" for k, w in widths}
-        if self._budget and (kind, self._budget) not in out:
-            out[(kind, self._budget)] = (f"{kind}{self._budget}"
-                                         if self._paged else
-                                         f"{kind}@{self._budget}")
+        rungs = (self._adm.budget_rungs if self._adm is not None else ()) \
+            or ((self._budget,) if self._budget else ())
+        for w in rungs:
+            if (kind, w) not in out:
+                out[(kind, w)] = (f"{kind}{w}" if self._paged
+                                  else f"{kind}@{w}")
         return [(name, k, w) for (k, w), name in sorted(out.items())]
 
     def _prefill_slot(self, prompt, slot: int):
         """Admission prefill of ``prompt`` into ``slot``; returns the
         logits [V] at its last position (the step's output buffer: read
-        it before the next admission)."""
+        it before the next admission).  ``_prefill_steps`` names the step
+        it ran and how often: (name, calls)."""
         n = len(prompt)
         if self._paged:
             return self._paged_prefill_slot(prompt, slot)
@@ -743,13 +881,16 @@ class DecodeServer:
             fn = engine.ENGINE.get("prefill", self._spec(bucket=bucket))
             (logits,) = fn(*self._feeds(prompt, bucket, n, slot))
             self._prefill_rows += n
+            self._prefill_steps = (_name(fn), 1)
             return logits
         C = self._chunk
         fn = engine.ENGINE.get("prefill_chunk", self._spec(width=C))
-        for s in self._chunk_starts(n, C):
+        starts = self._chunk_starts(n, C)
+        for s in starts:
             chunk = prompt[s:s + C]
             (logits,) = fn(*self._feeds(chunk, C, s, len(chunk), slot))
             self._prefill_rows += len(chunk)
+        self._prefill_steps = (_name(fn), len(starts))
         return logits
 
     def _feeds(self, tokens, width: int, *scalars) -> tuple:
@@ -810,6 +951,7 @@ class DecodeServer:
         self._prefill_rows += rows
         self._count("kv_pool.prefill_rows", rows)
         alloc.register_prefix(slot, prompt)
+        self._prefill_steps = (_name(fn), len(starts))
         return logits
 
     def _apply_pool_ops(self):
@@ -970,9 +1112,17 @@ class DecodeServer:
         """One batched decode step over every slot, then retire finished
         requests and admit queued ones (with ``async_dispatch``: dispatch
         the next step before processing the one in flight) — under the
-        resilience guard (:meth:`_guarded`)."""
+        resilience guard (:meth:`_guarded`).  The admission controller's
+        control tick runs first (one SLO evaluation a window at most)."""
+        self._control_tick()
         self._rss_guard()
         self._guarded(self._tick_impl)
+
+    def _control_tick(self):
+        """The SLO control loop rides every scheduler round; idle — no
+        slot, nothing queued — lets an empty window reset the ladder."""
+        if self._adm is not None:
+            self._adm.control_tick(idle=not self._slots and not self._queue)
 
     def _tick_impl(self):
         if self._async:
@@ -981,6 +1131,7 @@ class DecodeServer:
         if not self._slots:
             self._admit()
             if not self._slots:
+                self._gap_anchor = None        # idle, not stalled
                 return
         # budgeted admission: at most one prefill chunk a round, before
         # the decode step
@@ -1001,7 +1152,8 @@ class DecodeServer:
                         self._host(tk), self._host(tp))
         else:
             self._fault_check("step")
-            (logits,) = engine.ENGINE.get("step", self._spec())(tok, pos)
+            fn = engine.ENGINE.get("step", self._spec())
+            (logits,) = fn(tok, pos)
             nxt = torch.argmax(logits, dim=-1)
         # the step counter advances only after the step call returned: a
         # failed call leaves the host state as it was, so the guard's
@@ -1030,7 +1182,7 @@ class DecodeServer:
         for slot in failed:
             self._fail_request(self._slots.pop(slot), slot,
                                "non-finite tick logits")
-        self._tel_tokens(appended, t0)
+        self._tel_tokens(appended, t0, step=_name(fn))
         self._retire(done)
 
     def _nan_rows(self, logits) -> set:
@@ -1067,6 +1219,7 @@ class DecodeServer:
         block = int(block)
         if block < 1:
             raise ValueError(f"block must be >= 1, got {block}")
+        self._control_tick()
         self._rss_guard()
         self._guarded(lambda: self._tick_block_impl(block))
 
@@ -1077,6 +1230,7 @@ class DecodeServer:
         if not self._slots:
             self._admit()
             if not self._slots:
+                self._gap_anchor = None
                 return
         # a slot at pos == len(prompt)-1 is fine for block decode (its
         # feed token is the prompt's last; everything after is feedback);
@@ -1101,8 +1255,8 @@ class DecodeServer:
                          self._host(temp), self._host(tk), self._host(tp))
         else:
             self._fault_check(f"block@{block}")
-            (toks,) = engine.ENGINE.get("block", self._spec(k=block))(tok,
-                                                                      pos)
+            fn = engine.ENGINE.get("block", self._spec(k=block))
+            (toks,) = fn(tok, pos)
         self._step_no = n + block        # after the call: see tick
         toks = self._fetch_wait(self._fetch_start(toks))
         done, appended = [], []
@@ -1117,7 +1271,7 @@ class DecodeServer:
                     done.append(slot)
                     break
             appended.append((st, kept))
-        self._tel_tokens(appended, t0, steps=block)
+        self._tel_tokens(appended, t0, steps=block, step=_name(fn))
         self._retire(done)
 
     # -- async dispatch: one step or block in flight ------------------------
@@ -1207,7 +1361,7 @@ class DecodeServer:
             raise
         self._inflight = {"kind": "step", "fetch": self._fetch_start(nxt),
                           "feed": nxt, "snap": snap, "step_no0": n,
-                          "t_disp": time.perf_counter()}
+                          "name": _name(fn), "t_disp": time.perf_counter()}
 
     def _dispatch_block_async(self, prev, block: int):
         self._ensure_decode_blocks(block)
@@ -1233,7 +1387,7 @@ class DecodeServer:
             raise
         self._inflight = {"kind": "block", "fetch": self._fetch_start(toks),
                           "feed": toks[:, -1], "snap": snap,
-                          "block": block, "step_no0": n,
+                          "block": block, "step_no0": n, "name": _name(fn),
                           "t_disp": time.perf_counter()}
 
     def _process_inflight(self, prev):
@@ -1291,7 +1445,7 @@ class DecodeServer:
                         break
                 appended.append((st, kept))
         self._tel_tokens(appended, prev["t_disp"],
-                         steps=prev.get("block", 1))
+                         steps=prev.get("block", 1), step=prev["name"])
         self._retire(done)
 
     def _drain_inflight(self):
@@ -1310,6 +1464,7 @@ class DecodeServer:
         if not self._slots:
             self._admit()
             if not self._slots:
+                self._gap_anchor = None
                 return
         try:
             # one prefill chunk a round, before the dispatch: the stream
@@ -1339,6 +1494,7 @@ class DecodeServer:
         if not self._slots:
             self._admit()
             if not self._slots:
+                self._gap_anchor = None
                 return
         if self._stepwise():
             if prev is not None:
@@ -1494,10 +1650,13 @@ class DecodeServer:
             "max_new": st["max_new"], "stop": st["stop"],
             "temperature": st["temperature"], "top_k": st["top_k"],
             "top_p": st["top_p"], "ttl": st["ttl"],
-            "priority": st["priority"], "evictions": evictions,
+            "priority": st["priority"], "tenant": st["tenant"],
+            "trace": st["trace"], "evictions": evictions,
             "carry": list(st["generated"]), "t_submit": st["t_submit"],
-            # the TTL bounds the wait of this queue entry: a fresh clock
-            "t_enqueue": time.perf_counter()})
+            # the class sort keeps the request's place: its first
+            # enqueue time; the TTL bounds the wait of this queue entry:
+            # a fresh clock
+            "t_enqueue": st["t_enqueue"], "t_queued": time.perf_counter()})
         self._count("resilience.oom_evictions")
         return True
 
@@ -1574,9 +1733,11 @@ class DecodeServer:
             _telemetry.event(name, t0, t1, **args)
 
     def _tel_gauges(self):
-        """Occupancy gauges off the scheduler's host state."""
+        """Occupancy gauges off the scheduler's host state, and the card
+        memory sample (rate-limited; a host query, never a sync)."""
         if not self._tel:
             return
+        _telemetry.sample_device_stats()
         act = len(self._slots)
         _telemetry.set_gauge("serving.queue_depth", len(self._queue))
         _telemetry.set_gauge("serving.active_slots", act)
@@ -1601,12 +1762,25 @@ class DecodeServer:
         _telemetry.event("serving.request", st["t_submit"], now, tid=slot,
                          rid=st["rid"], prompt_len=len(st["prompt"]),
                          tokens=len(st["generated"]))
+        tr = st.get("trace")
+        if tr:
+            # its trace: one decode span (first token to retire) and a
+            # zero-width retire mark
+            n = len(st["generated"])
+            self._span_ring.record(tr, "decode", st.get("t_first", now), now,
+                                   rid=st["rid"], tokens=n)
+            self._span_ring.record(tr, "retire", now, now, rid=st["rid"],
+                                   tokens=n)
 
-    def _tel_tokens(self, appended, t0: float, steps: int = 1):
+    def _tel_tokens(self, appended, t0: float, steps: int = 1,
+                    step: str | None = None):
         """A round's records from the tokens it just appended
-        (``appended``: (state, count) pairs): tick latency, first-token
-        time for a slot's first kept token (``prefill=False`` — prefill
-        admission stamps it itself) and per-token latency."""
+        (``appended``: (state, count) pairs): tick latency, the device
+        feed's wall of ``step`` (the Engine's step name; the wall runs to
+        the token fetch, so it covers the card's work), the decode gap
+        since the last round that appended tokens, first-token time for a
+        slot's first kept token (``prefill=False`` — prefill admission
+        stamps it itself) and per-token latency."""
         total = sum(n for _, n in appended)
         self._tokens += total
         if not self._tel:
@@ -1614,8 +1788,17 @@ class DecodeServer:
         now = time.perf_counter()
         dt_ms = (now - t0) * 1e3
         self._observe("serving.tick_ms", dt_ms)
+        if step is not None:
+            _telemetry.note_step_time(step, dt_ms / 1e3)
         if not appended:
             return
+        # the decode gap: the wall between two rounds that appended
+        # tokens — the stall budgeted admission bounds, and the
+        # admission ladder's decode-gap objective
+        if self._gap_anchor is not None:
+            self._observe("serving.decode_gap_ms",
+                          (now - self._gap_anchor) * 1e3)
+        self._gap_anchor = now
         per_tok = dt_ms / max(steps, 1)
         for st, n in appended:
             if "t_first" not in st:
@@ -1642,9 +1825,11 @@ class DecodeServer:
     def result(self, rid: int):
         """Generated tokens (no prompt) once the request finished.  A
         request shed past its deadline raises
-        ``resilience.DeadlineExceeded``; one failed by the NaN guard or
-        the requeue bound raises ``RuntimeError`` with the reason — in
-        both cases it retired cleanly and the server serves on."""
+        ``resilience.DeadlineExceeded``; one refused by admission control
+        raises ``resilience.Overloaded`` (it never queued: back off and
+        submit again); one failed by the NaN guard or the requeue bound
+        raises ``RuntimeError`` with the reason — in each case it retired
+        cleanly and the server serves on."""
         if rid in self._dropped:
             raise RuntimeError(
                 f"request {rid} was abandoned unfinished when the server "
@@ -1653,6 +1838,11 @@ class DecodeServer:
         if disp == "timeout":
             raise _resilience.DeadlineExceeded(
                 f"request {rid} was shed: still queued past its ttl")
+        if disp == "rejected":
+            raise _resilience.Overloaded(
+                f"request {rid} was rejected by admission control (rate "
+                f"limit, queue bound, or overload shed) — it never queued; "
+                f"back off and resubmit")
         if disp == "error":
             raise RuntimeError(
                 f"request {rid} failed: "
@@ -1663,7 +1853,8 @@ class DecodeServer:
 
     def status(self, rid: int) -> str:
         """One of ``ok`` (result ready), ``timeout`` (shed past its
-        deadline), ``error`` (NaN guard, requeue bound), ``dropped``
+        deadline), ``rejected`` (refused by admission control at the
+        door), ``error`` (NaN guard, requeue bound), ``dropped``
         (abandoned by close), ``active`` (decoding, or in the dispatch in
         flight), ``queued``."""
         if rid in self._results:
@@ -1698,20 +1889,26 @@ class DecodeServer:
         return sum(min(st["pos"], rows) for st in self._slots.values()) \
             / (self.max_batch * rows)
 
-    def load_stats(self) -> dict:
+    def load_stats(self, include_spans: bool = False) -> dict:
         """Scheduler load read from host state: queue depth, slot use
-        (free slots within the OOM ladder's admit cap), KV utilization,
-        the admit cap and the wedge verdict, the tokens generated and the
-        prompt rows admission computed so far.  A paged server adds its
-        prefix hit rate (adopted rows over adoptable rows), the spill
-        tier's resident host bytes and its allocator's ``kv_pool``
-        stats."""
+        (free slots within the OOM ladder's and the admission ladder's
+        caps), KV utilization, the admit cap and the wedge verdict, the
+        tokens generated and the prompt rows admission computed so far,
+        the admission ladder's rung (``admission_rung``, 0 without a
+        controller) and whether it is at 0 (``slo_ok``).  A paged server
+        adds its prefix hit rate (adopted rows over adoptable rows), the
+        spill tier's resident host bytes and its allocator's ``kv_pool``
+        stats.  ``include_spans=True`` also takes the completed trace
+        spans (:meth:`drain_spans`: ``spans``, ``span_drops``)."""
         act = len(self._slots)
+        eff_cap = self._admit_cap
+        if self._adm is not None:
+            eff_cap = min(eff_cap,
+                          self._adm.effective_admit_cap(self.max_batch))
         stats = {
             "queue_depth": len(self._queue),
             "active_slots": act,
-            "free_slots": min(len(self._free),
-                              max(0, self._admit_cap - act)),
+            "free_slots": min(len(self._free), max(0, eff_cap - act)),
             "slot_occupancy": act / self.max_batch,
             "kv_utilization": self._kv_util(),
             "admit_cap": self._admit_cap,
@@ -1721,7 +1918,11 @@ class DecodeServer:
             "admitting_slots": sum(1 for st in self._slots.values()
                                    if st.get("admitting")),
             "prefill_budget": self._budget,
+            "admission_rung": 0 if self._adm is None else self._adm.rung,
+            "slo_ok": self._adm is None or self._adm.rung == 0,
         }
+        if include_spans:
+            stats["spans"], stats["span_drops"] = self.drain_spans()
         if self._paged:
             pool = self._pool
             stats["prefix_hit_rate"] = pool.prefix_hits / max(
@@ -1729,6 +1930,12 @@ class DecodeServer:
             stats["host_spill_bytes"] = pool.host_spill_bytes
             stats["kv_pool"] = pool.stats()
         return stats
+
+    def drain_spans(self):
+        """Take this server's completed trace spans (at most
+        ``PADDLE_TPU_TRACE_PIGGYBACK`` a take) and the number dropped
+        since the last take: (spans, drops)."""
+        return self._span_ring.drain(_flags.trace_piggyback_cap())
 
     def stats(self) -> dict:
         """This server's telemetry counters so far, under the registry's
@@ -1749,10 +1956,13 @@ class DecodeServer:
         abandoned unfetched (a wedged fetch cannot hang the exit);
         unfinished requests too: ``result()`` raises for them and
         ``status()`` says ``dropped``.  A wedge verdict this server raised
-        is cleared.  Idempotent."""
+        is cleared and the metrics endpoint's thread joined.  Idempotent."""
         if self._wedged:
             self._wedged = False
             _telemetry.clear_runtime_wedge()
+        if self.metrics_server is not None:
+            self.metrics_server.close()
+            self.metrics_server = None
         self._inflight = None
         if self._bind is not None:
             # by binding alone: a routing flag flipped since a capture

@@ -209,6 +209,37 @@ def serve_waves(srv, waves, new: int, around=None, sync=None) -> list:
     return out
 
 
+# The overload phase's traffic (``chip_smoke.py``): 48 greedy requests of
+# the main path's prompts (each of the 8 six times, NEW tokens each) in
+# three priority classes, 16 each — copy c of prompt i takes class
+# (i + c) % 3, so every prompt comes in every class — arriving in batches
+# of OVERLOAD_BATCH every OVERLOAD_EVERY_S seconds on the main path's
+# budgeted server (``prefill_budget=OVERLOAD_BUDGET``: ladder widths 64,
+# 32, 16) whose SLO window is OVERLOAD_WINDOW_S.  The ladder moves once a
+# window, on the wall clock, so the arrivals are timed on it too: batch
+# k lands 1.2 k windows in — the second inside the first breached window
+# (width 32), the third inside the second (16), and the eight after the
+# fourth, when the lowest class sheds.  Arrivals counted in scheduler
+# rounds would land wherever the card's tick speed put them.
+OVERLOAD_REQUESTS = 48
+OVERLOAD_BATCH = 4
+OVERLOAD_BUDGET = 64
+OVERLOAD_WINDOW_S = 0.2
+OVERLOAD_EVERY_S = 1.2 * OVERLOAD_WINDOW_S
+
+
+def overload_waves(vocab_size: int, seed: int = 0) -> list:
+    """The overload phase's arrivals: OVERLOAD_REQUESTS / OVERLOAD_BATCH
+    batches of (prompt, priority) pairs, in order, drawn from ``seed``
+    (the main path's prompts)."""
+    prompts = main_prompts(vocab_size, seed)
+    reqs = [(prompts[k % len(prompts)], (k % len(prompts)
+                                         + k // len(prompts)) % 3)
+            for k in range(OVERLOAD_REQUESTS)]
+    return [reqs[b:b + OVERLOAD_BATCH]
+            for b in range(0, len(reqs), OVERLOAD_BATCH)]
+
+
 def build_paged_path(device="cuda", seed=0, **server_kw):
     """The paged path, at full width: GPT-1.3B with random weights from
     ``seed`` (bf16) behind ``DecodeServer(max_batch=8, max_len=512,

@@ -1351,3 +1351,49 @@ def test_a_real_oom_is_classified_and_survived():
     torch.cuda.empty_cache()
     x = torch.ones(1024, device="cuda")
     assert float((x * 2).sum()) == 2048.0
+
+
+def test_ladder_moves_capture_nothing_after_warmup(monkeypatch):
+    """Admission control's ladder on the card: ``warmup`` on a small bf16
+    model with ``prefill_budget=16`` captures every ladder width
+    (``admission.ladder_widths(16)`` = 16, 8); forcing rungs 0-3 while a
+    long prompt is served adds no graph to the Engine and no record to
+    the recompile watch, and each claim's chunks replay its rung's
+    width's graph."""
+    from paddle_tpu_torch import telemetry
+    from paddle_tpu_torch.text import admission, engine, serving
+
+    gen = _card()
+    monkeypatch.setenv("PADDLE_TPU_ADMISSION_QUEUE_CAP", "8")
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, max_seq_len=256)
+    params = gpt.init_params(cfg, seed=3, device="cuda")
+    srv = serving.DecodeServer(params, cfg, max_batch=4, max_len=160,
+                               device="cuda", prefill_budget=16)
+    assert srv._adm.budget_rungs == admission.ladder_widths(16) == (16, 8)
+    srv.warmup()
+    graphs0 = {g.name for g in engine.ENGINE.graphs(srv._bind)}
+    assert {"serving.prefill_chunk@16", "serving.prefill_chunk@8"} <= graphs0
+    logs0 = len(telemetry.compile_log())
+
+    def replays():
+        return {g.name: g.replays for g in engine.ENGINE.graphs(srv._bind)}
+
+    prompt = torch.randint(0, 512, (40,), generator=gen,
+                           device="cuda").tolist()
+    for rung, width in ((0, 16), (1, 16), (2, 8), (3, 8)):
+        srv._adm.rung = rung
+        r0 = replays()
+        rid = srv.submit(prompt, max_new_tokens=4)
+        while srv.pending():
+            srv.tick()
+        assert srv.status(rid) == "ok"
+        r1 = replays()
+        moved = {n for n in r1 if n.startswith("serving.prefill_chunk")
+                 and r1[n] != r0[n]}
+        assert moved == {f"serving.prefill_chunk@{width}"}
+        assert r1[moved.pop()] - r0[f"serving.prefill_chunk@{width}"] == \
+            -(-40 // width)
+    assert {g.name for g in engine.ENGINE.graphs(srv._bind)} == graphs0
+    assert len(telemetry.compile_log()) == logs0
+    srv.close()
