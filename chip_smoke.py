@@ -62,6 +62,7 @@ Phases, in order; any failure raises and the script exits non-zero:
    SDPA on a pre-gathered contiguous copy, the gather timed on its own);
    the decode kernel also at admission widths R = 128 and 256, and the
    paged kernel at the paged serve's admission widths C = 128 and 256,
+   both at a speculative verify's (B = 8, K = 4 rows a slot, T = 512),
    and on the contiguous kernel's own memory viewed as blocks (the
    tables' cost; bit-equal outputs);
    the W4 kernel at N = 8, 64, 128 and 256 for each gpt_1p3b
@@ -115,6 +116,26 @@ Phases, in order; any failure raises and the script exits non-zero:
    longest tick while a slot admits; then greedy ``generate.generate``
    on GPT-1.3B (8 prompts of 64 tokens, 32 new): one replay of its
    captured step a position, rows equal by the tie rule to a server's;
+   then the speculation phase (``spec_phase``, K = 4): on small fp32
+   models the batched verify's logits on the card against the CPU's
+   (PATH_TOL) and a speculating card server's greedy streams against the
+   plain CPU server's, both layouts; on GPT-1.3B the main path's 8
+   requests, graphed and warmed, plain and with draft == target (a second
+   cache, the same weights) on the contiguous and the paged layout —
+   gated: streams equal to plain by the tie rule, target passes a token
+   at least 1.5x fewer, every verify one replay of ``spec_verify@4`` with
+   no capture or build after warmup, one tick-body launch of the decode
+   kernel a layer a verify and every decode launch on the tick body —
+   then, reported: the JAX bench's small drafter (hidden 512, 4 layers, 8
+   heads, seed 1), n-gram self-drafting on prompts whose second half
+   repeats the first, and a sampled serve at temperature 1 (each arm's
+   tokens/s, target passes a token, acceptance, fallbacks, draft steps);
+   then the beam phase (``beam_phase``): small fp32 models' beam search
+   on the card equal to the CPU's (tokens exactly, scores within 1e-4);
+   GPT-1.3B, 2 prompts of 64 tokens, 32 new: one beam equals greedy
+   ``generate`` by the tie rule, width 4 replays its ``beam`` graph once a
+   position, with the call's wall, the beam graph's, the prompt step's
+   and the cache reorder's device ms;
    then the pressure phase on GPT-1.3B (``pressure_phase``): the paged
    path's server under ``profile_serving.pressure_waves`` (six waves of 8
    chat requests with system prompts A, B, C, D, E, then A again) three
@@ -1313,23 +1334,30 @@ def time_flash(torch, fa, F, T):
     }
 
 
-def time_decode(torch, da, F, pos_list, T=512):
+def time_decode(torch, da, F, pos_list, T=512, Tq=1):
+    """The decode kernel at a tick's shape (Tq = 1) or a speculative
+    verify's (Tq = K rows a slot, each seeing the cache through its own
+    position): B = len(pos_list) slots, Hq = Hkv = 16, hd 128, bf16.
+    Bytes: each slot's live K/V rows, q and out; operations: the visible
+    (query, key) pairs."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     B, Hq, Hkv, hd = len(pos_list), 16, 16, 128
-    q = torch.randn(B, 1, Hq, hd, generator=gen,
+    q = torch.randn(B, Tq, Hq, hd, generator=gen,
                     device="cuda").to(torch.bfloat16)
     k, v = (torch.randn(B, T, Hkv, hd, generator=gen, device="cuda")
             .to(torch.bfloat16) for _ in range(2))
     pos = torch.tensor(pos_list, dtype=torch.int32, device="cuda")
-    live = sum(min(T, p + 1) for p in pos_list)      # rows this data needs
+    live = sum(min(T, p + Tq) for p in pos_list)     # rows this data needs
+    pairs = sum(Tq * p + Tq * (Tq + 1) // 2 for p in pos_list)
     nbytes = live * Hkv * hd * 2 * 2 + 2 * q.numel() * 2 + B * 4
-    flops = 4 * live * Hq * hd
+    flops = 4 * pairs * Hq * hd
     b_ms, b_by = bound(nbytes, flops)
-    mask = (torch.arange(T, device="cuda")[None, :]
-            <= pos[:, None])[:, None, None, :]      # [B, 1, 1, T]
+    mask = (torch.arange(T, device="cuda")[None, None, :]
+            <= pos[:, None, None] + torch.arange(Tq, device="cuda")[:, None]
+            )[:, None]                               # [B, 1, Tq, T]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     return {
-        "shape": f"B={B} Tq=1 Hq={Hq} Hkv={Hkv} hd={hd} T={T} bf16 "
+        "shape": f"B={B} Tq={Tq} Hq={Hq} Hkv={Hkv} hd={hd} T={T} bf16 "
                  f"pos={pos_list}",
         "ms": cold_ms(torch, lambda: da.decode_attention(q, k, v, pos)),
         "plain_ms": cold_ms(torch, lambda: da._plain_decode(
@@ -1633,12 +1661,12 @@ def zero_counts(ks):
                 setattr(fn, attr, 0)
 
 
-def serve(torch, srv, prompts, new, block=None):
-    """Submit every prompt, then ``tick()`` (or ``tick_block(block)``)
-    until drained; returns (tokens per request, admission seconds,
-    per-call seconds, wall seconds)."""
+def serve(torch, srv, prompts, new, block=None, **sub):
+    """Submit every prompt (``sub``: more ``submit`` options), then
+    ``tick()`` (or ``tick_block(block)``) until drained; returns (tokens
+    per request, admission seconds, per-call seconds, wall seconds)."""
     t0 = time.perf_counter()
-    rids = [srv.submit(p, max_new_tokens=new) for p in prompts]
+    rids = [srv.submit(p, max_new_tokens=new, **sub) for p in prompts]
     t_admit = time.perf_counter() - t0
     ticks = []
     while srv.pending():
@@ -2328,6 +2356,392 @@ def generate_path(torch, gpt, G, serving, engine):
         f"({stats['tokens_per_s']:.1f} tokens/s); rows equal to the "
         f"server's: {stats['server_equal']} {stats['divergences']}")
     return stats
+
+
+# ---------------------------------------------------------------------------
+# speculation and beam search on GPT-1.3B
+# ---------------------------------------------------------------------------
+
+SPEC_K = 4
+# the small drafter of the JAX bench's speculation arm: the target's
+# vocabulary, hidden 512, 4 layers, 8 heads, random weights from seed 1
+SMALL_DRAFT = dict(vocab_size=50304, hidden_size=512, num_layers=4,
+                   num_heads=8)
+
+
+def _small_server(serving, cfg, params, dev, layout, **kw):
+    """A server of the small card-vs-CPU models: max_batch 4, the paged
+    one with its blocks handed out in a shuffled order on the card."""
+    lay = (dict(layout="paged", block_size=16, num_blocks=48)
+           if layout == "paged" else {})
+    srv = serving.DecodeServer(params, cfg, max_batch=4, max_len=160,
+                               device=dev, **lay, **kw)
+    if layout == "paged" and dev == "cuda":
+        srv._pool._free = np.random.default_rng(0).permutation(
+            srv._pool.N).tolist()
+    return srv
+
+
+def spec_small_vs_cpu(torch, gpt, serving):
+    """Small fp32 models (fp32 and int8 KV), contiguous and paged: the
+    batched verify's logits at K = SPEC_K on the card (the decode kernels'
+    tick body, R = K * G) against the CPU's plain math from the same
+    admitted prompts, within PATH_TOL; and a graphed speculating server
+    (draft == target) on the card against the plain server on the CPU:
+    the same greedy streams (a divergence only on a PATH_TOL tie, the
+    rule for two correct routes).  Returns the largest logit gap."""
+    worst, divs = 0.0, 0
+    for name, cfg, kv in _small_models(torch, gpt):
+        os.environ["PADDLE_TPU_KV_DTYPE"] = kv
+        cpu = gpt.init_params(cfg, seed=11, device="cpu")
+        card = _to_card(cpu)
+        rng = np.random.default_rng(6)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in (7, 60, 100)]
+        for layout in ("contiguous", "paged"):
+            logits = {}
+            toks = rng.integers(0, cfg.vocab_size, (4, SPEC_K))
+            for dev, p in (("cpu", cpu), ("cuda", card)):
+                srv = _small_server(serving, cfg, p, dev, layout)
+                for pr in prompts:
+                    srv.submit(pr, max_new_tokens=8)
+                srv._ensure_decode_blocks(SPEC_K)
+                feed, pos = srv._feed_arrays()
+                toks[:, 0] = feed
+                # live slots only: a free paged slot reads exact zeros
+                # through the kernel and block 0 through the plain gather
+                live = sorted(srv._slots)
+                logits[dev] = serving.spec_verify_batched(
+                    p, srv.cache, torch.from_numpy(toks).to(dev),
+                    torch.from_numpy(pos).to(dev), cfg)[0][live].cpu()
+                srv.close()
+            worst = max(worst, (logits["cuda"] - logits["cpu"]).abs().max()
+                        .item())
+            ref = serve(torch, _small_server(serving, cfg, cpu, "cpu",
+                                             layout), prompts, 12)[0]
+            srv = _small_server(serving, cfg, card, "cuda", layout,
+                                spec_k=SPEC_K, draft_cfg=cfg,
+                                draft_params=card)
+            got = serve(torch, srv, prompts, 12)[0]
+            rounds = srv._spec_rounds
+            srv.close()
+            for r in range(len(prompts)):
+                d = check_tokens(torch, gpt, card, cfg, prompts[r], got[r],
+                                 ref[r], f"{name} kv={kv or 'fp32'} "
+                                 f"{layout} spec request {r} vs the CPU",
+                                 tol=PATH_TOL)
+                divs += d is not None
+            if not rounds:
+                raise AssertionError(f"{name} {layout}: no verify round")
+        log(f"  {name} kv={kv or 'fp32'}: max|verify logits card - cpu| so "
+            f"far {worst:.3g} (tol {PATH_TOL}); spec streams on the card "
+            f"vs plain on the CPU, divergences so far {divs}")
+        if not worst <= PATH_TOL:
+            raise AssertionError(f"verify on the card disagrees with the CPU "
+                                 f"on {name}")
+    os.environ.pop("PADDLE_TPU_KV_DTYPE", None)
+    return worst, divs
+
+
+def _binds(srv):
+    return [b for b in (srv._bind, srv._draft_bind) if b is not None]
+
+
+def _replays(engine, srv):
+    """{(binding index, graph name): replays} of ``srv``'s graphs, the
+    draft's under index 1."""
+    return {(i, g.name): g.replays for i, b in enumerate(_binds(srv))
+            for g in engine.ENGINE.graphs(b)}
+
+
+def spec_arm(torch, engine, wl, tl, ks, path, cfg, params, prompts, new,
+             name, sub=None, **kw):
+    """One graphed serve of ``path``'s geometry (main: contiguous; paged:
+    full provisioning) with ``kw``'s server options, warmed up first:
+    streams, and stats — tokens/s, target passes (verify rounds + plain
+    ticks) a generated token, acceptance, fallbacks, draft steps, the
+    replays of each graph and the kernel launches during the serve, the
+    graphs captured and builds recorded after the warmup."""
+    if path == "paged":
+        kw["num_blocks"] = None             # a block for every row
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = wl.make_server(path, params, cfg, **kw)
+    warm = srv.warmup(prompt_lens=[len(p) for p in prompts])
+    rep0 = _replays(engine, srv)
+    builds0 = len(tl.compile_log())
+    torch.cuda.synchronize()
+    zero_counts(ks)
+    served, t_admit, ticks, wall = serve(torch, srv, prompts, new,
+                                         **(sub or {}))
+    launches, tick, tc = launch_counts(ks), tick_counts(ks), tc_counts(ks)
+    rep = {k: v - rep0.get(k, 0) for k, v in _replays(engine, srv).items()}
+    n_tok = sum(len(s) for s in served)
+    spec = srv._spec_on
+    passes = (srv._spec_rounds + srv._spec_plain_steps) if spec \
+        else srv._step_no
+    counts = srv.stats()
+    verify = (rep.get((0, f"serving.spec_verify@{srv._spec_k}"), 0)
+              if spec else 0)
+    stats = {
+        "arm": name, "path": path, "tokens": n_tok, "wall_s": wall,
+        "tokens_per_s": n_tok / wall, "ticks": len(ticks),
+        "tick_ms_mean": 1e3 * statistics.mean(ticks),
+        "target_passes": passes, "passes_per_token": passes / n_tok,
+        "verify_rounds": srv._spec_rounds if spec else 0,
+        "plain_steps": srv._spec_plain_steps if spec else srv._step_no,
+        "accept_rate": srv.load_stats()["spec_accept_rate"],
+        "fallbacks": counts.get("spec.fallbacks", 0),
+        "reearns": counts.get("spec.reearns", 0),
+        "draft_steps": counts.get("spec.draft_steps", 0),
+        "verify_replays": verify,
+        "replays": {f"{'draft ' if i else ''}{n}": v
+                    for (i, n), v in sorted(rep.items()) if v},
+        "launches": launches, "tick_launches": tick, "tc_launches": tc,
+        "captures_after_warmup": sorted(
+            f"{i}:{n}" for i, n in set(_replays(engine, srv)) - set(rep0)),
+        "builds_after_warmup": len(tl.compile_log()) - builds0,
+        "warmup_s": sum(warm.values()),
+    }
+    # device ms of one replay of each graph a round runs (its last feeds
+    # again: the rows it rewrites are its own)
+    graphs = {(i, g.name): g for i, b in enumerate(_binds(srv))
+              for g in engine.ENGINE.graphs(b)}
+    stats["graph_ms"] = {
+        f"{'draft ' if i else ''}{n}": event_ms(torch, lambda g=g: g(
+            *g.static)) for (i, n), g in sorted(graphs.items())
+        if n in ("serving.step", f"serving.spec_verify@{srv._spec_k}",
+                 f"serving.block@{srv._spec_k - 1}")}
+    if spec:
+        # what one verify replay launches of each decode wrapper, as its
+        # capture recorded it
+        g = graphs[(0, f"serving.spec_verify@{srv._spec_k}")]
+        stats["verify_delta"] = {
+            f"{w.__name__}.{a}": d for (w, a), d in
+            zip(engine._counter_fields(), g.delta)
+            if d and w.__name__.endswith("decode_attention")}
+    srv.close()
+    log(f"  {name} ({path}): tokens/s {stats['tokens_per_s']:.1f}, "
+        f"{passes} target passes ({stats['passes_per_token']:.4f} a token: "
+        f"{stats['verify_rounds']} verify rounds + {stats['plain_steps']} "
+        f"plain steps), accept rate {stats['accept_rate']}, fallbacks "
+        f"{stats['fallbacks']}, draft steps {stats['draft_steps']}, mean "
+        f"call {stats['tick_ms_mean']:.2f} ms; replays {stats['replays']}; "
+        f"device ms a replay {stats['graph_ms']}")
+    return served, stats
+
+
+def spec_gates(torch, gpt, cfg, params, prompts, plain, arm, served):
+    """The draft == target arm's gates: streams equal the plain server's
+    by the tie rule; at least 1.5x fewer target passes a token; every
+    verify one replay of ``spec_verify@K`` and no capture or build after
+    the warmup; each verify replay one launch of the layout's decode
+    kernel a layer on its tick body, and every decode launch of the serve
+    on the tick body: L x (verify + plain steps + the draft's steps)."""
+    L = cfg.num_layers
+    div = {r: check_tokens(torch, gpt, params, cfg, prompts[r], served[r],
+                           plain[0][r], f"{arm['arm']} {arm['path']} request "
+                           f"{r} vs plain") for r in range(len(prompts))}
+    arm["plain_equal"] = all(d is None for d in div.values())
+    arm["plain_divergences"] = {r: d for r, d in div.items() if d is not None}
+    ratio = plain[1]["passes_per_token"] / arm["passes_per_token"]
+    arm["passes_ratio_vs_plain"] = ratio
+    if ratio < 1.5:
+        raise AssertionError(f"{arm['arm']}: target passes a token only "
+                             f"{ratio:.3f}x fewer than plain")
+    if arm["verify_replays"] != arm["verify_rounds"] or \
+            arm["captures_after_warmup"] or arm["builds_after_warmup"]:
+        raise AssertionError(f"{arm['arm']}: {arm['verify_rounds']} rounds, "
+                             f"{arm['verify_replays']} verify replays, "
+                             f"captures after warmup "
+                             f"{arm['captures_after_warmup']}, builds "
+                             f"{arm['builds_after_warmup']}")
+    wrap = ("paged_decode_attention" if arm["path"] == "paged"
+            else "decode_attention")
+    if arm["verify_delta"] != {f"{wrap}.launches": L,
+                               f"{wrap}.tick_launches": L}:
+        raise AssertionError(f"a verify replay launches "
+                             f"{arm['verify_delta']}")
+    rp = arm["replays"]
+    draft = (SPEC_K - 1) * rp.get(f"draft serving.block@{SPEC_K - 1}", 0) \
+        + rp.get("draft serving.step", 0)
+    want = L * (arm["verify_replays"] + rp.get("serving.step", 0) + draft)
+    arm["draft_decode_launches"] = L * draft
+    if not arm["tick_launches"][wrap] == want:
+        raise AssertionError(f"{arm['tick_launches'][wrap]} tick launches "
+                             f"of {wrap}, not {want}")
+    if arm["path"] == "main" and arm["launches"][wrap] != want:
+        raise AssertionError(f"{arm['launches'][wrap]} launches of {wrap}")
+    log(f"  gates: {arm['arm']} {arm['path']} streams equal to plain "
+        f"{arm['plain_equal']} {arm['plain_divergences']}; passes "
+        f"{ratio:.3f}x fewer; {arm['verify_replays']} verify replays, one a "
+        f"round, each {L} tick-body launches of {wrap}; the draft's own "
+        f"steps launched {arm['draft_decode_launches']} more")
+
+
+def spec_phase(torch, gpt, serving, engine, ks, wl):
+    """[speculation: GPT-1.3B, K = SPEC_K] — the small models first
+    (:func:`spec_small_vs_cpu`), then the main path's model and 8
+    requests, graphed: plain, draft == target (gated, contiguous and
+    paged: :func:`spec_gates`), the bench's small drafter and n-gram
+    self-drafting on prompts whose second half repeats the first
+    (reported), and one sampled serve at temperature 1."""
+    from paddle_tpu_torch import telemetry as tl
+
+    vgap, vdivs = spec_small_vs_cpu(torch, gpt, serving)
+    cfg = gpt.gpt_1p3b()
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    prompts, new = wl.main_prompts(cfg.vocab_size, 0), wl.NEW
+    both = dict(spec_k=SPEC_K, draft_cfg=cfg, draft_params=params)
+    arms, launches = {}, {}
+    for path in ("main", "paged"):
+        plain = spec_arm(torch, engine, wl, tl, ks, path, cfg, params,
+                         prompts, new, "plain")
+        served, arm = spec_arm(torch, engine, wl, tl, ks, path, cfg, params,
+                               prompts, new, "draft==target", **both)
+        spec_gates(torch, gpt, cfg, params, prompts, plain, arm, served)
+        arms[f"{path} plain"], arms[f"{path} draft==target"] = plain[1], arm
+        for n, v in arm["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+    dcfg = gpt.GPTConfig(**SMALL_DRAFT)
+    dparams = gpt.init_params(dcfg, seed=1, device="cuda")
+    arms["main small draft"] = spec_arm(
+        torch, engine, wl, tl, ks, "main", cfg, params, prompts, new,
+        "small draft", spec_k=SPEC_K, draft_cfg=dcfg,
+        draft_params=dparams)[1]
+    del dparams
+    halves = [p[:len(p) // 2] * 2 for p in prompts]
+    arms["main n-gram plain"] = spec_arm(torch, engine, wl, tl, ks, "main",
+                                         cfg, params, halves, new,
+                                         "plain (repeated halves)")[1]
+    arms["main n-gram"] = spec_arm(torch, engine, wl, tl, ks, "main", cfg,
+                                   params, halves, new, "n-gram",
+                                   spec_k=SPEC_K)[1]
+    arms["main sampled"] = spec_arm(torch, engine, wl, tl, ks, "main", cfg,
+                                    params, prompts, new,
+                                    "draft==target sampled, temperature 1",
+                                    sub=dict(temperature=1.0), **both)[1]
+    if arms["main sampled"]["tokens"] != len(prompts) * new:
+        raise AssertionError("the sampled serve did not finish")
+    # the gated arms' launches count for the kernels line
+    stats = {"k": SPEC_K, "verify_logit_gap_small": vgap,
+             "small_stream_divergences": vdivs,
+             "arms": {n: {k: v for k, v in a.items()
+                          if k not in ("launches", "tc_launches")}
+                      for n, a in arms.items()}}
+    tick = {n: sum(arms[f"{p} draft==target"]["tick_launches"][n]
+                   for p in ("main", "paged"))
+            for n in ("decode_attention", "paged_decode_attention")}
+    tc = {n: sum(arms[f"{p} draft==target"]["tc_launches"][n]
+                 for p in ("main", "paged"))
+          for n in arms["main draft==target"]["tc_launches"]}
+    stats.update(tick_launches=tick, tc_launches=tc)
+    engine.ENGINE.purge(cfg, dcfg)
+    return stats, launches
+
+
+def beam_phase(torch, gpt, G, engine, ks):
+    """[beam search: GPT-1.3B, 2 prompts x 64 tokens, num_beams 4, 32
+    new] — small fp32 models first: the card's tokens exactly the CPU's,
+    scores within 1e-4; then GPT-1.3B (the main path's weights): one beam
+    equals greedy ``generate`` by the tie rule, and width 4 replays the
+    ``beam`` graph once a position (the prompt positions replay
+    ``generate``'s step at batch B * W), with its call wall, the beam
+    graph's device ms and the cache reorder's device ms apart (it copies
+    the whole [L, B * W, T, ...] cache each position: bound 4 x its bytes,
+    read and written twice)."""
+    worst = 0.0
+    for name, cfg, kv in _small_models(torch, gpt):
+        if kv:
+            continue
+        cpu = gpt.init_params(cfg, seed=13, device="cpu")
+        card = _to_card(cpu)
+        prompts = np.random.default_rng(7).integers(0, cfg.vocab_size,
+                                                    (2, 9))
+        want_t, want_s = G.beam_search(cpu, cfg, prompts, 8, num_beams=4,
+                                       device="cpu")
+        got_t, got_s = G.beam_search(card, cfg, prompts, 8, num_beams=4,
+                                     device="cuda")
+        gap = (got_s.cpu() - want_s).abs().max().item()
+        worst = max(worst, gap)
+        log(f"  {name}: beam tokens card == cpu "
+            f"{got_t.cpu().tolist() == want_t.tolist()}, max|score gap| "
+            f"{gap:.3g} (tol 1e-4)")
+        if got_t.cpu().tolist() != want_t.tolist() or not gap <= 1e-4:
+            raise AssertionError(f"beam search on the card disagrees with "
+                                 f"the CPU on {name}")
+        engine.ENGINE.purge(cfg)
+    cfg = gpt.gpt_1p3b()
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    B, P, new, W = 2, 64, 32, 4
+    prompts = np.random.default_rng(3).integers(0, cfg.vocab_size, (B, P))
+    greedy = G.generate(params, cfg, prompts, new, device="cuda")
+    one, _ = G.beam_search(params, cfg, prompts, new, num_beams=1,
+                           device="cuda")
+    div = {r: check_tokens(torch, gpt, params, cfg, prompts[r].tolist(),
+                           one[r, P:].tolist(), greedy[r, P:].tolist(),
+                           f"beam 1 row {r} vs greedy") for r in range(B)}
+
+    def graph(name):
+        bind = engine.ENGINE.generate_binding(params, cfg, B * W, P + new,
+                                              torch.device("cuda", 0))
+        return [g for g in engine.ENGINE.graphs(bind) if g.name == name]
+
+    walls, launches = [], None
+    for i in range(2):              # the first call captures both steps
+        r0 = sum(g.replays for g in graph("generate.beam_search"))
+        torch.cuda.synchronize()
+        if i:
+            zero_counts(ks)
+        t0 = time.perf_counter()
+        toks, scores = G.beam_search(params, cfg, prompts, new, num_beams=W,
+                                     device="cuda")
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        if i:
+            launches, tick = launch_counts(ks), tick_counts(ks)
+            tc = tc_counts(ks)
+        replays = sum(g.replays for g in graph("generate.beam_search")) - r0
+        if replays != new:
+            raise AssertionError(f"beam search replayed its step {replays} "
+                                 f"times, not {new}")
+    assert toks.shape == (B, P + new) and bool(torch.isfinite(scores).all())
+    L, steps = cfg.num_layers, P - 1 + new
+    if not launches["decode_attention"] == tick["decode_attention"] \
+            == L * steps:
+        raise AssertionError(f"beam search launched {launches} ({tick} on "
+                             f"the tick body), not {L * steps} a call")
+    (g,) = graph("generate.beam_search")
+    (feed,) = graph("generate.generate")
+    cache = g.binding.cache
+    flat = torch.arange(B * W, device=cache["k"].device)
+    cache_bytes = sum(t.numel() * t.element_size() for t in cache.values())
+    reorder_ms = event_ms(torch, lambda: [t.copy_(t.index_select(1, flat))
+                                          for t in cache.values()])
+    stats = {"batch": B, "prompt": P, "new_tokens": new, "num_beams": W,
+             "beam1_equals_greedy": all(d is None for d in div.values()),
+             "beam1_divergences": {r: d for r, d in div.items()
+                                   if d is not None},
+             "small_score_gap": worst, "first_call_s": walls[0],
+             "second_call_s": walls[1], "positions": steps,
+             "wall_ms_a_position": 1e3 * walls[1] / steps,
+             "beam_graph_ms": event_ms(torch, lambda: g(*g.static)),
+             "prompt_step_ms": event_ms(torch, lambda: feed(*feed.static)),
+             "reorder_ms": reorder_ms, "cache_gb": cache_bytes / 1e9,
+             "reorder_bound_ms": 4 * cache_bytes / HBM_BYTES_PER_S * 1e3,
+             "launches_a_call": launches["decode_attention"],
+             "tick_launches": tick, "tc_launches": tc,
+             "scores": scores.tolist()}
+    engine.ENGINE.purge(cfg)
+    log(f"  beam 1 == greedy {stats['beam1_equals_greedy']} "
+        f"{stats['beam1_divergences']}; width {W}: {new} beam replays a "
+        f"call, call {walls[1]:.3f} s ({stats['wall_ms_a_position']:.3f} ms "
+        f"a position over {steps}; first call {walls[0]:.3f} s captures), "
+        f"beam graph {stats['beam_graph_ms']:.3f} ms, prompt step "
+        f"{stats['prompt_step_ms']:.3f} ms, cache reorder "
+        f"{reorder_ms:.4f} ms ({stats['cache_gb']:.3f} GB cache, bound "
+        f"{stats['reorder_bound_ms']:.4f} ms)")
+    return stats, launches
 
 
 # ---------------------------------------------------------------------------
@@ -3650,6 +4064,12 @@ def main() -> int:
     log(f"  decode_attention {json.dumps(dec)}")
     dec_chunk = time_decode_chunk(torch, da, F)
     log(f"  decode_attention admission chunk {json.dumps(dec_chunk)}")
+    # a speculative verify at mid-serve: K = SPEC_K rows a slot (G = 1:
+    # R = K, the tick body)
+    verify_pos = [n + wl.NEW // 2 for n in wl.LENS]
+    dec_verify = time_decode(torch, da, F, verify_pos, Tq=SPEC_K)
+    dec_verify.update(route=da.route(SPEC_K, torch.bfloat16, 128))
+    log(f"  decode_attention verify {json.dumps(dec_verify)}")
     # the paged serve's admission widths (G = 1: R = C)
     dec_widths = {f"R={R}": time_decode_chunk(torch, da, F, Tq=R)
                   for R in (128, 256)}
@@ -3669,6 +4089,9 @@ def main() -> int:
                    chunk_nsplit=da.tc_split_plan(1, 16, 512, C))
         paged_widths[f"C={C}"] = row
         log(f"  paged_decode_attention admission chunk {json.dumps(row)}")
+    paged_verify = time_paged(torch, da, F, verify_pos, Tq=SPEC_K)
+    paged_verify.update(route=da.paged_route(SPEC_K, torch.bfloat16, 128))
+    log(f"  paged_decode_attention verify {json.dumps(paged_verify)}")
     # the tables' cost: the paged kernel on the contiguous kernel's memory
     tick_pos = [n + wl.NEW // 2 for n in paged_lens]
     paged_addr = {"tick": time_paged_addressing(torch, da, tick_pos),
@@ -3720,6 +4143,20 @@ def main() -> int:
     log("[generate: gpt_1p3b, batch 8, 64-token prompts, 32 new tokens]")
     gstats = generate_path(torch, gpt, G, serving, engine)
     log(json.dumps({"generate": gstats}))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[speculation: GPT-1.3B, K = {SPEC_K}]")
+    sstats, by_path["speculation"] = spec_phase(torch, gpt, serving, engine,
+                                                ks, wl)
+    log(json.dumps({"speculation": sstats}))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[beam search: GPT-1.3B, 2 prompts x 64 tokens, num_beams 4, 32 "
+        "new]")
+    bmstats, by_path["beam"] = beam_phase(torch, gpt, G, engine, ks)
+    log(json.dumps({"beam": bmstats}))
 
     gc.collect()
     torch.cuda.empty_cache()
@@ -3790,6 +4227,8 @@ def main() -> int:
                   "w4": wstats["tc_launches"],
                   "pressure": prstats["tc_launches"],
                   "overload": ostats["ladder"]["tc_launches"],
+                  "speculation": sstats["tc_launches"],
+                  "beam": bmstats["tc_launches"],
                   **{p: t["tc_launches"] for p, t in train.items()}}
     assert all(by_path[p]["decode_attention"] == 0 for p in train)
     tick_by_path = {name: {"main": stats["tick_launches"][name],
@@ -3798,6 +4237,8 @@ def main() -> int:
                            "pressure": prstats["tick_launches"][name],
                            "overload": ostats["ladder"]["tick_launches"][
                                name],
+                           "speculation": sstats["tick_launches"][name],
+                           "beam": bmstats["tick_launches"][name],
                            **{p: 0 for p in train}}
                     for name in ("decode_attention", "paged_decode_attention")}
 
@@ -3858,13 +4299,13 @@ def main() -> int:
         entry("decode_attention", "paddle_tpu_torch/csrc/decode_attention.cu",
               "paddle_tpu/ops/decode_attention.py:282", dec,
               at_admission_chunk=dec_chunk,
-              at_admission_widths=dec_widths),
+              at_admission_widths=dec_widths, at_verify=dec_verify),
         entry("paged_decode_attention",
               "paddle_tpu_torch/csrc/paged_decode_attention.cu",
               "paddle_tpu/ops/decode_attention.py:509", paged,
               gather_ms=paged["gather_ms"],
               at_admission_widths=paged_widths,
-              on_contiguous_memory=paged_addr),
+              on_contiguous_memory=paged_addr, at_verify=paged_verify),
     ]
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))

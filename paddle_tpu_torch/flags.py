@@ -127,6 +127,44 @@ def prefill_budget() -> int:
     return b
 
 
+def spec_k() -> int:
+    """Proposals scored per speculative serving round, feed token
+    included (``PADDLE_TPU_SPEC_K``, default 0 = speculation off): what a
+    ``DecodeServer`` built without ``spec_k=`` resolves.  The verify step
+    captures K in its shapes, so the raw string is part of
+    :func:`decode_jit_key`."""
+    v = os.environ.get("PADDLE_TPU_SPEC_K", "0")
+    try:
+        k = int(v)
+    except ValueError:
+        raise ValueError(f"PADDLE_TPU_SPEC_K={v!r}: expected an integer "
+                         f">= 0 (0 disables speculation)")
+    if k < 0:
+        raise ValueError(f"PADDLE_TPU_SPEC_K={k}: must be >= 0")
+    return k
+
+
+def spec_tree() -> int:
+    """The tree-speculation node budget (``PADDLE_TPU_SPEC_TREE``, default
+    0 = off).  Tree speculation is not ported: a server that resolves a
+    budget > 0 refuses to build rather than serve linearly unasked."""
+    try:
+        return max(0, int(os.environ.get("PADDLE_TPU_SPEC_TREE", "0")))
+    except ValueError:
+        return 0
+
+
+def spec_min_accept() -> float:
+    """Rolling per-request acceptance rate below which a speculating slot
+    falls back to plain decode (``PADDLE_TPU_SPEC_MIN_ACCEPT``, default
+    0.3).  Host scheduling only — never part of a step key."""
+    try:
+        return min(1.0, max(0.0, float(os.environ.get(
+            "PADDLE_TPU_SPEC_MIN_ACCEPT", "0.3"))))
+    except ValueError:
+        return 0.3
+
+
 def telemetry_enabled() -> bool:
     """The telemetry registry's master switch (``PADDLE_TPU_TELEMETRY``,
     on by default): off, every record call of ``paddle_tpu_torch.telemetry``
@@ -393,6 +431,7 @@ def decode_jit_key() -> tuple:
     of ``paddle_tpu/flags.py``'s ``decode_jit_key``, cut to the flags the
     port reads: the W4 kernel gate (``woq.mm``), the fused LayerNorm
     (``gpt._norm``), the KV-cache storage dtype, layout and block size,
+    the speculative chunk K (the verify step's token and logit shapes)
     and the admission prefill budget.  ``text/engine.cfg_key`` folds it
     into every step key, so flipping one of them mid-process keys a new
     CUDA graph instead of replaying one captured on the other route.
@@ -406,4 +445,5 @@ def decode_jit_key() -> tuple:
     return (os.environ.get("PADDLE_TPU_W4_KERNEL", ""),
             os.environ.get("PADDLE_TPU_FUSED_LN", ""),
             kv_cache_dtype(), kv_layout(), kv_block_size(),
+            os.environ.get("PADDLE_TPU_SPEC_K", ""),
             os.environ.get("PADDLE_TPU_PREFILL_BUDGET", ""))

@@ -41,8 +41,8 @@ the answer is given at the door.  One :class:`AdmissionController` per
         multiplicative — the widths are halvings — the climb back is
         one width per healthy window)
   3     prefill budget drops again; speculation forced off for new
-        admissions (:meth:`AdmissionController.spec_forced`, inert
-        until the port serves speculatively)
+        admissions (:meth:`AdmissionController.spec_forced`, read by a
+        speculating ``DecodeServer`` at each claim)
   4     shed: new lowest-class submissions reject at the door
   ====  =========================================================
 
@@ -424,10 +424,10 @@ class AdmissionController:
                 or self.queue_cap > 0)
 
     def spec_forced(self) -> bool:
-        """True when new admissions must decode plain (rung >= 3): the
-        slot's speculation is disabled at claim, exactly like the
-        acceptance-driven fallback.  Inert in the port until it serves
-        speculatively: no caller reads it yet."""
+        """True when new admissions must decode plain (rung >= 3): a
+        speculating server sets the claimed slot's ``spec_off``, the flag
+        the acceptance-driven fallback sets, and counts
+        ``admission.spec_forced``."""
         return self.rung >= RUNG_SPEC_OFF
 
     def rejecting(self) -> bool:

@@ -21,8 +21,10 @@ wrappers of an eager step.
   ``paged_prefill`` per chunk width — fed the tokens and the offset,
   length and slot as device tensors, so one graph serves any prompt and
   slot), ``inject`` per rows bucket (a spilled prefix chain restored
-  into the pool through the block tables) and ``generate``'s decode
-  step.  On the CPU every kind runs its plain callable.
+  into the pool through the block tables), ``spec_verify`` per chunk K
+  (the speculative round's one target pass, fed device tokens and
+  positions like the ticks), ``generate``'s decode step and ``beam``'s
+  position step.  On the CPU every kind runs its plain callable.
 * :class:`Engine` — the bounded, thread-safe cache (``_LRU``, sized by
   ``PADDLE_TPU_STEP_CACHE_SIZE`` as in the JAX package), ``get``,
   ``purge``, ``warmup`` and the caches ``generate`` binds its steps to
@@ -43,11 +45,13 @@ first — it builds the kernels (``ops/_build.load``), sets their
 ``argtypes`` and creates the stream's tick ticket buffer
 (``ops/decode_attention._ticket_buf``), which would otherwise be born
 inside the capture — then ``torch.cuda.graph`` records the same call.
-Every step is idempotent on the cache (it rewrites the rows it attends
-from the same inputs — an admission the rows of its prompt or chunk), so
-the eager run and the replay that follows leave the cache as one step
-would.  A capture that fails (a real allocator OOM inside it, say)
-raises after the capture has ended and its graph has been dropped: the
+Every step but ``beam`` is idempotent on the cache (it rewrites the rows
+it attends from the same inputs — an admission the rows of its prompt or
+chunk), so the eager run and the replay that follows leave the cache as
+one step would; ``beam`` reorders the cache's batch axis, so its capture
+puts the cache back as it was after the eager run.  A capture that fails
+(a real allocator OOM inside it, say) raises after the capture has
+ended and its graph has been dropped: the
 step is left uncaptured, the launch counters as they were, and the next
 call captures afresh.  There is no eager fallback on the card.
 
@@ -217,25 +221,28 @@ class StepSpec:
 
 
 class _Kind:
-    __slots__ = ("kind", "key", "name", "build")
+    __slots__ = ("kind", "key", "name", "build", "idempotent")
 
-    def __init__(self, kind, key, name, build):
+    def __init__(self, kind, key, name, build, idempotent):
         self.kind, self.key, self.name, self.build = kind, key, name, build
+        self.idempotent = idempotent
 
 
 _REGISTRY: dict[str, _Kind] = {}
 
 
-def register(kind: str, *, key: Callable, name):
+def register(kind: str, *, key: Callable, name, idempotent: bool = True):
     """Register a step builder: ``key(spec)`` -> step key (reading only
     the fields the step depends on), ``name(spec)`` -> its name (a str
     for a fixed one).  The builder takes the :class:`StepSpec` and returns
     the step body ``body(params, cache, *feeds) -> tuple of tensors``,
-    captured on the card."""
+    captured on the card.  ``idempotent=False``: running the body twice
+    on the same feeds changes the cache again (``beam``'s reorder), so a
+    capture restores the cache after its eager run."""
     name_fn = (lambda spec, _n=name: _n) if isinstance(name, str) else name
 
     def deco(build: Callable) -> Callable:
-        _REGISTRY[kind] = _Kind(kind, key, name_fn, build)
+        _REGISTRY[kind] = _Kind(kind, key, name_fn, build, idempotent)
         return build
 
     return deco
@@ -414,6 +421,22 @@ def _build_inject(spec):
     return body
 
 
+@register("spec_verify",
+          key=lambda s: ("spec_verify", cfg_key(s.cfg), int(s.k), s.paged),
+          name=lambda s: f"serving.spec_verify@{s.k}")
+def _build_spec_verify(spec):
+    """The speculative round's verify: (tokens [B, K], pos [B]) ->
+    (logits [B, K, V],) — column 0 each slot's feed token, columns 1..K-1
+    its proposals, row j the target's logits at pos_b + j.  One graph per
+    (cfg, K, layout, binding); K is in the shapes (and
+    ``PADDLE_TPU_SPEC_K`` in ``flags.decode_jit_key``)."""
+    from . import serving
+
+    def body(p, c, tok, pos, _cfg=spec.cfg):
+        return (serving.spec_verify_batched(p, c, tok, pos, _cfg)[0],)
+    return body
+
+
 @register("generate",
           key=lambda s: ("generate", cfg_key(s.cfg), *s.extra, s.shape),
           name="generate.generate")
@@ -427,6 +450,26 @@ def _build_generate(spec):
 
     def body(p, c, tok, pos, _cfg=spec.cfg):
         return (generate.decode_step(p, c, tok, pos, _cfg)[0],)
+    return body
+
+
+@register("beam",
+          key=lambda s: ("beam", cfg_key(s.cfg), *s.extra, s.shape),
+          name="generate.beam_search", idempotent=False)
+def _build_beam(spec):
+    """One beam-search position over ``beam_search``'s [B * W] cache:
+    (tok [B * W], pos, scores, alive, lengths) -> (scores, parent,
+    new_tok, alive, lengths), each [B, W] (``generate._beam_step``) — one
+    replay a position, as ``generate``'s.  Keyed as the JAX registry
+    keys its whole-search jit (cfg, max_new_tokens, num_beams,
+    length_penalty, eos_id), plus the prompt shape."""
+    from . import generate
+
+    eos_id = spec.extra[3]
+
+    def body(p, c, tok, pos, scores, alive, lengths, _cfg=spec.cfg):
+        return generate._beam_step(p, c, tok, pos, scores, alive, lengths,
+                                   _cfg, eos_id)
     return body
 
 
@@ -533,9 +576,11 @@ class _Graph:
     replay.  ``delta``: the launch counts one replay stands for.  A
     capture is reported to the recompile watch."""
 
-    def __init__(self, body, binding: Binding, name: str, key=None):
+    def __init__(self, body, binding: Binding, name: str, key=None,
+                 idempotent: bool = True):
         self.body, self.binding, self.name = body, binding, name
         self.key = key
+        self.idempotent = idempotent
         self.graph = None
         self.static = self.out = self.delta = None
         self.replays = 0
@@ -558,8 +603,15 @@ class _Graph:
         graph = None
         try:
             with torch.cuda.stream(side):
+                kept = (None if self.idempotent
+                        else {n: t.clone() for n, t in c.items()})
                 for _ in range(_WARM_RUNS):
                     self.body(p, c, *self.static)
+                if kept is not None:
+                    # the replay below is the call's one application
+                    for n, t in c.items():
+                        t.copy_(kept[n])
+                    del kept
             warm = _counts()
             graph = torch.cuda.CUDAGraph()
             # a failure inside ends the capture on the way out (the
@@ -667,8 +719,11 @@ class Engine:
         key = entry.key(spec) + (bind.key,)
         fn = self._steps.get(key)
         if fn is None:
-            wrap = _Graph if bind.graphs else _Eager
-            fn = wrap(entry.build(spec), bind, entry.name(spec), key)
+            if bind.graphs:
+                fn = _Graph(entry.build(spec), bind, entry.name(spec), key,
+                            entry.idempotent)
+            else:
+                fn = _Eager(entry.build(spec), bind, entry.name(spec), key)
             self._steps[key] = fn
         return fn
 
@@ -711,6 +766,10 @@ class Engine:
         buckets or chunk widths of ``prompt_lens`` (default every bucket
         up to the serving window) and at the budget width when
         ``prefill_budget`` is set (``DecodeServer._admission_widths``).
+        A speculating server adds ``spec_verify`` at its K and, with a
+        draft model, the draft's ``step``, its ``block`` of K - 1 steps
+        (a greedy round's proposals) and its admission steps at the same
+        widths, on the draft's binding.
 
         Warm steps run on the live cache with zero feeds, writing rows at
         position 0 of every slot (warm admissions: of slot 0) — rows
@@ -748,9 +807,10 @@ class Engine:
         timings = {}
         counts = _counts()
 
-        def warm(name, kind, *feeds, **kw):
+        def warm(name, kind, *feeds, draft=False, **kw):
             t0 = _time.perf_counter()
-            self.get(kind, srv._spec(**kw))(*feeds)
+            self.get(kind, (srv._dspec if draft else srv._spec)(**kw))(
+                *feeds)
             if cuda:
                 torch.cuda.synchronize(dev)
             timings[name] = _time.perf_counter() - t0
@@ -778,16 +838,29 @@ class Engine:
                     if sample:
                         warm(f"sample_block{k}", "sample_block", zi, zp, key,
                              zf, zi, of, k=k)
+            drafts = (False, True) if srv._draft_bind is not None \
+                else (False,)
+            if srv._spec_on:
+                K = srv._spec_k
+                warm(f"spec_verify@{K}", "spec_verify",
+                     torch.zeros((B, K), dtype=torch.int64), zp, k=K)
+                if srv._draft_bind is not None:
+                    warm("draft_step", "step", zi, zp, draft=True)
+                    if K > 1:
+                        warm(f"draft_block{K - 1}", "block", zi, zp,
+                             k=K - 1, draft=True)
             for name, kind, width in srv._admission_widths(prompt_lens):
-                if kind == "prefill":
-                    warm(name, kind, *srv._feeds([0], width, 1, 0),
-                         bucket=width)
-                elif kind == "prefill_chunk":
-                    warm(name, kind, *srv._feeds([0], width, 0, 1, 0),
-                         width=width)
-                else:
-                    warm(name, kind, *srv._feeds([0], width, 0, 1, 0),
-                         bucket=width)
+                for draft in drafts:
+                    tag = "draft_" + name if draft else name
+                    if kind == "prefill":
+                        warm(tag, kind, *srv._feeds([0], width, 1, 0),
+                             bucket=width, draft=draft)
+                    elif kind == "prefill_chunk":
+                        warm(tag, kind, *srv._feeds([0], width, 0, 1, 0),
+                             width=width, draft=draft)
+                    else:
+                        warm(tag, kind, *srv._feeds([0], width, 0, 1, 0),
+                             bucket=width, draft=draft)
         finally:
             _set_counts(counts)
         return timings

@@ -4,8 +4,12 @@ Counterpart of ``paddle_tpu/text/generate.py`` for the serving slices:
 the cache format (with the int8 ``k_s``/``v_s`` scale planes; the paged
 layout lives in ``text/kv_pool.py``), the single-position decode step,
 whole-prompt and chunked prefill (and the chunk math the paged prefill
-shares), the logit filter, and ``generate``.  Where the JAX module scans over layers and returns a new
-cache, this one loops over layers and **writes cache rows in place**
+shares), the K-token verify step, the logit filter, ``generate``,
+``beam_search`` and linear ``speculative_generate`` (a draft model
+proposes, the target verifies; the model-free n-gram proposer lives here
+too).  Tree speculation is not ported yet.  Where the JAX module scans
+over layers and returns a new cache, this one loops over layers and
+**writes cache rows in place**
 (``index_put_`` / ``index_copy_`` into the [L, B, T, ...] leaves): a
 decode step writes each layer's fresh row before that layer attends the
 cache, which is what the JAX step computes by splicing the row into its
@@ -14,10 +18,13 @@ admission functions take their offset, length and slot as device
 tensors (or ints), so a captured graph serves any prompt and slot;
 ``generate`` runs through the step Engine (``text/engine.py``).
 
-On a CUDA cache every cached-attention site (decode steps and prefill
-chunks) runs the split-KV decode kernel (``ops/decode_attention``) and
-whole-prompt prefill runs the flash kernel; on the CPU they keep the
-reference's plain math.
+On a CUDA cache every cached-attention site (decode steps, verify
+chunks and prefill chunks) runs the split-KV decode kernel
+(``ops/decode_attention``) and whole-prompt prefill runs the flash
+kernel; on the CPU they keep the reference's plain math.  The JAX
+package gates its batched verify on its kernel flag and otherwise vmaps
+a per-slot einsum; the port has one attention path on the card, the
+kernel, and the einsum is only the CPU's plain version.
 """
 from __future__ import annotations
 
@@ -31,7 +38,8 @@ from ..ops import decode_attention as da
 from ..ops.attention import attention_array
 
 __all__ = ["init_cache", "decode_step", "prefill_slot", "prefill_slot_chunk",
-           "generate"]
+           "verify_chunk", "verify_chunk_batched", "generate", "beam_search",
+           "ngram_propose", "speculative_generate"]
 
 
 def _kv_store_dtype(cfg: gpt.GPTConfig):
@@ -382,6 +390,82 @@ def prefill_slot_chunk(params, cache, tokens, pos0, length, slot,
 
 
 # ---------------------------------------------------------------------------
+# verify: K tokens per slot in one pass (speculative decoding)
+# ---------------------------------------------------------------------------
+
+
+def _embed_verify(params, tokens, pos, cfg: gpt.GPTConfig):
+    """Embed a verify chunk's tokens [B, K] at each slot's positions
+    [pos_b, pos_b + K) (``pos`` int32 [B]) -> [B, K, D]."""
+    x = woq.embed(params, tokens, cfg.dtype)
+    if cfg.pos_embed == "learned":
+        K = tokens.shape[1]
+        at = pos.long()[:, None] + torch.arange(K, device=x.device)
+        x = x + params["wpe"][at].to(cfg.dtype)
+    return x
+
+
+def _write_rows_batched(csl: dict, rows: dict, dst) -> None:
+    """Per-slot offset write: chunk row leaves [B, K, Hkv(, hd)] land in
+    one layer's cache leaves [B, T, ...] (seen as [B * T, ...]) at the
+    flat rows ``dst`` [B, K] = b * T + pos_b + j — one ``index_copy_`` a
+    leaf, fed device indices, as :func:`_merge_slot_rows`.  PRECONDITION
+    pos_b + K <= T: a row past a slot's end would land in the next slot
+    (the JAX package's ``dynamic_update_slice`` clamps instead; the
+    server's ``_spec_ready`` gate keeps every round inside)."""
+    idx = dst.reshape(-1)
+    for name, val in rows.items():
+        arr = csl[name]
+        flat = arr.view((-1,) + arr.shape[2:])
+        flat.index_copy_(0, idx, val.reshape((-1,) + val.shape[2:])
+                         .to(arr.dtype))
+
+
+@torch.no_grad()
+def verify_chunk_batched(params, cache, tokens, pos, cfg: gpt.GPTConfig):
+    """Score K tokens per slot in one pass: tokens [B, K] int fed at
+    per-slot positions [pos_b, pos_b + K) (``pos`` an int [B] tensor, or
+    one int for the batch) -> (logits [B, K, V] float32, cache).  Row j
+    of slot b attends the slot's rows t <= pos_b + j, so row 0 is the
+    decode step's logits for the same feed token.
+
+    Per layer the K fresh rows are written into each slot's rows first
+    (in storage form — the splice-before-attend rule of the JAX
+    package's ``_chunk_attend_block``), then the layer attends its cache:
+    on the card one launch of the decode kernel over [B, K] query rows
+    (R = K * G, the tick body below ``R_TC``).  All K rows are written
+    unconditionally: rows past a rejection sit at or past the slot's
+    position pointer, where the causal mask hides them until a later
+    round overwrites them.  PRECONDITION pos_b + K <= the cache rows and
+    the position table (:func:`_write_rows_batched`)."""
+    B, K = tokens.shape
+    T = cache["k"].shape[2]
+    dev = tokens.device
+    pos = _positions(pos, B, dev)
+    dst = (torch.arange(B, device=dev) * T + pos.long())[:, None] \
+        + torch.arange(K, device=dev)
+    x = _embed_verify(params, tokens, pos, cfg)
+    for l in range(cfg.num_layers):
+        p = gpt.layer(params, l)
+        csl = _layer_cache(cache, l)
+        q, rows = _chunk_pre_attn(x, p, pos.long()[:, None], cfg)
+        _write_rows_batched(csl, rows, dst)
+        attn = _attend_cache(q, csl, pos, cfg)             # [B, K, D]
+        x = _block_post_attn(x, attn, p, cfg)
+    x = gpt._norm(x, params, "ln_f", cfg)
+    return woq.logits(x, params, cfg.dtype).float(), cache
+
+
+def verify_chunk(params, cache, tokens, pos0, cfg: gpt.GPTConfig):
+    """Score tokens [B, K] fed at positions [pos0, pos0 + K) of every row
+    (one ``pos0`` for the batch) against the cache's rows [0, pos0) plus
+    the chunk causally; writes the chunk's rows at [pos0, pos0 + K).
+    Returns (logits [B, K, V] float32, cache).  The offline speculative
+    path's verify: :func:`verify_chunk_batched` at one shared offset."""
+    return verify_chunk_batched(params, cache, tokens, pos0, cfg)
+
+
+# ---------------------------------------------------------------------------
 # sampling + generate
 # ---------------------------------------------------------------------------
 
@@ -470,3 +554,317 @@ def generate(params, cfg: gpt.GPTConfig, prompt, max_new_tokens=32,
                 nxt = torch.argmax(logits, dim=-1)
             tokens[:, pos + 1] = nxt
     return tokens
+
+
+# ---------------------------------------------------------------------------
+# beam search: width-W max-probability decoding
+# ---------------------------------------------------------------------------
+
+_NEG = -1e30
+
+
+def _beam_step(params, cache, tok, pos, scores, alive, lengths,
+               cfg: gpt.GPTConfig, eos_id):
+    """One beam position over a [B * W] cache: decode ``tok`` [B * W] at
+    ``pos``, expand every beam by the whole vocabulary and keep the W best
+    of the W * V candidates per batch row; the cache's rows follow their
+    parents.  scores float32 [B, W], alive bool [B, W], lengths int64
+    [B, W].  Returns (scores, parent, new_tok, alive, lengths), each
+    [B, W].
+
+    Tie rule: ``jax.lax.top_k`` returns the lower index first among equal
+    values, and ``torch.topk`` promises no order, so the candidates take a
+    STABLE descending sort (equal candidates keep their index order) and
+    the first W are kept.  The duplicate beams' -1e30 scores make their
+    candidates tie in fp32 at the first expansion, which an exhaustive
+    search (W = V ** m) keeps.
+
+    The reorder gathers the cache's batch axis: ``index_select`` into a
+    new tensor (inside a captured graph, a buffer of its private pool at
+    a fixed address), then ``copy_`` back into the cache, which the
+    Engine's graphs read by address."""
+    BW = tok.shape[0]
+    W = scores.shape[1]
+    B, V = BW // W, cfg.vocab_size
+    logits, _ = decode_step(params, cache, tok, pos, cfg)
+    logp = torch.log_softmax(logits.float(), dim=-1).reshape(B, W, V)
+    if eos_id is not None:
+        # a finished beam survives unexpanded: exactly one candidate
+        # (continue with eos) at zero added score
+        only_eos = torch.full((V,), _NEG, dtype=torch.float32,
+                              device=logp.device)
+        only_eos[eos_id] = 0.0
+        logp = torch.where(alive[:, :, None], logp, only_eos)
+    cand = (scores[:, :, None] + logp).reshape(B, W * V)
+    top, idx = torch.sort(cand, dim=-1, descending=True, stable=True)
+    new_scores, idx = top[:, :W], idx[:, :W]
+    parent = idx // V
+    new_tok = idx % V
+    flat = (torch.arange(B, device=tok.device)[:, None] * W
+            + parent).reshape(-1)
+    for arr in cache.values():
+        arr.copy_(arr.index_select(1, flat))
+    alive = torch.gather(alive, 1, parent)
+    lengths = torch.gather(lengths, 1, parent)
+    if eos_id is not None:
+        lengths = torch.where(alive, lengths + 1, lengths)
+        alive = alive & (new_tok != eos_id)
+    else:
+        lengths = lengths + 1
+    return new_scores, parent, new_tok, alive, lengths
+
+
+@torch.no_grad()
+def beam_search(params, cfg: gpt.GPTConfig, prompt, max_new_tokens=32,
+                num_beams=4, length_penalty: float = 0.0,
+                eos_id: int | None = None, device=None):
+    """Width-``num_beams`` beam search -> (tokens [B, P + max_new] int64,
+    score [B] float32) on ``device`` (default the card; ``params`` must
+    live there).
+
+    Every beam shares the prompt, so the prompt feeds at beam-batch width
+    and the cache is [B * W] from the start: its positions replay
+    ``generate``'s decode step (the Engine's ``generate`` kind, at batch
+    B * W), and each generated position replays the Engine's ``beam``
+    kind — one captured :func:`_beam_step` on the card: the decode step,
+    the W * V candidates, the stable sort and the cache's reorder.  The
+    beams' token history is reordered outside the graph.  A finished beam
+    (``eos_id``) survives through a single zero-delta eos candidate.
+    ``length_penalty`` alpha divides each final score by its generated
+    length ** alpha (0 = the plain sum of log-probabilities); with
+    ``num_beams`` >= V ** max_new the search is exhaustive."""
+    from . import engine
+
+    dev = resolve_device(device)
+    if params["wte"].device != dev:
+        raise ValueError(f"params live on {params['wte'].device}, "
+                         f"beam_search was asked to run on {dev}")
+    prompt = torch.as_tensor(np.asarray(prompt), dtype=torch.int64,
+                             device=dev)
+    B, P = prompt.shape
+    total = P + int(max_new_tokens)
+    if total > cfg.max_seq_len:
+        raise ValueError(f"prompt + max_new_tokens = {total} exceeds "
+                         f"cfg.max_seq_len {cfg.max_seq_len}")
+    W = int(num_beams)
+    if W < 1:
+        raise ValueError(f"num_beams must be >= 1, got {num_beams}")
+    BW = B * W
+    bind = engine.ENGINE.generate_binding(params, cfg, BW, total, dev)
+    feed = engine.ENGINE.get("generate", engine.StepSpec(
+        cfg=cfg, extra=(int(max_new_tokens), 0, 1.0), shape=(BW, P),
+        payload=bind))
+    step = engine.ENGINE.get("beam", engine.StepSpec(
+        cfg=cfg, extra=(int(max_new_tokens), W, float(length_penalty),
+                        eos_id), shape=(B, P), payload=bind))
+    toks = torch.zeros((B, W, total), dtype=torch.int64, device=dev)
+    toks[:, :, :P] = prompt[:, None, :]
+    wide = prompt.repeat_interleave(W, dim=0)              # [B * W, P]
+    positions = torch.arange(total, dtype=torch.int32, device=dev)
+    scores = torch.full((B, W), _NEG, dtype=torch.float32, device=dev)
+    scores[:, 0] = 0.0      # beam 0 seeds the search; its duplicates
+    #                         start at -1e30, so the first expansion
+    #                         yields W distinct continuations
+    alive = torch.ones((B, W), dtype=torch.bool, device=dev)
+    lengths = torch.zeros((B, W), dtype=torch.int64, device=dev)
+    rows = torch.arange(B, device=dev)
+    with bind.lock:
+        for pos in range(P - 1):
+            feed(wide[:, pos], positions[pos])
+        for pos in range(P - 1, total - 1):
+            scores, parent, new_tok, alive, lengths = step(
+                toks[:, :, pos].reshape(BW), positions[pos], scores,
+                alive, lengths)
+            toks = torch.gather(toks, 1,
+                                parent[:, :, None].expand(B, W, total))
+            toks[:, :, pos + 1] = new_tok
+        norm = scores / lengths.clamp_min(1).float() ** float(length_penalty)
+        best = torch.argmax(norm, dim=1)
+        return toks[rows, best], norm[rows, best]
+
+
+# ---------------------------------------------------------------------------
+# speculative decoding: a draft proposes, the target verifies in one pass
+# ---------------------------------------------------------------------------
+
+
+def _filtered_probs(logits, temperature, top_k, top_p):
+    """The sampling law of one [V] logit vector as a float64 numpy
+    probability vector: :func:`_filter_logits` (the device sampler's
+    formula) evaluated on the host in float64, then normalized — the p
+    and q vectors of the rejection rule.  Without top-k and top-p the
+    formula only scales (by the float32 temperature, as it divides), so
+    its two sorts are skipped: the same bits."""
+    x = np.asarray(logits, np.float64)
+    if int(top_k) > 0 or float(top_p) < 1.0:
+        x = _filter_logits(torch.as_tensor(x), float(temperature),
+                           int(top_k), float(top_p)).numpy()
+    elif temperature > 0:
+        x = x / np.float64(np.maximum(np.float32(temperature),
+                                      np.float32(1e-6)))
+    e = np.exp(x - x.max())
+    return e / e.sum()
+
+
+def ngram_propose(sequence, k, max_order=3, window=256):
+    """Model-free draft proposals: match the sequence's trailing n-gram
+    (longest order first, down to one token) against its most recent
+    earlier occurrence within the last ``window`` tokens and copy the
+    continuation — prompt-lookup self-drafting, pure host work.  Returns
+    k tokens (a short continuation padded by repeating its last token),
+    or None when no order matches."""
+    seq = list(sequence)
+    n = len(seq)
+    if n < 2:
+        return None
+    lo = max(0, n - int(window))
+    for order in range(min(int(max_order), n - 1), 0, -1):
+        tail = tuple(seq[n - order:])
+        for s in range(n - order - 1, lo - 1, -1):
+            if tuple(seq[s:s + order]) == tail:
+                out = list(seq[s + order:s + order + k])
+                while len(out) < k:
+                    out.append(out[-1])
+                return out
+    return None
+
+
+def _spec_setup(tparams, tcfg, dparams, dcfg, prompt, max_new_tokens,
+                device):
+    """Checks and the prompt feed shared by both speculative bodies: both
+    models fed the prompt token by token into caches of their own.
+    Returns (prompt list, total, target cache, draft cache, the target's
+    logits at the last prompt position [V])."""
+    dev = resolve_device(device)
+    for params, what in ((tparams, "target"), (dparams, "draft")):
+        if params["wte"].device != dev:
+            raise ValueError(f"{what} params live on {params['wte'].device}"
+                             f", speculative_generate was asked to run on "
+                             f"{dev}")
+    prompt = [int(t) for t in np.asarray(prompt).reshape(-1)]
+    if not prompt:
+        raise ValueError("empty prompt")
+    total = len(prompt) + int(max_new_tokens)
+    if total > min(tcfg.max_seq_len, dcfg.max_seq_len):
+        raise ValueError("prompt + max_new_tokens exceeds a model's window")
+    t_cache = init_cache(tcfg, 1, total, dev)
+    d_cache = init_cache(dcfg, 1, total, dev)
+    t_logits = None
+    for pos, t in enumerate(prompt):
+        tok = torch.tensor([t], device=dev)
+        t_logits, _ = decode_step(tparams, t_cache, tok, pos, tcfg)
+        decode_step(dparams, d_cache, tok, pos, dcfg)
+    return prompt, total, t_cache, d_cache, t_logits[0]
+
+
+@torch.no_grad()
+def speculative_generate(tparams, tcfg, dparams, dcfg, prompt,
+                         max_new_tokens=32, k=4, temperature=0.0, top_k=0,
+                         top_p=1.0, key=None, device=None):
+    """Speculative decoding of one prompt: the DRAFT model proposes ``k``
+    tokens a round (k decode steps), the TARGET scores them in one
+    :func:`verify_chunk` pass.  Returns the generated tokens (no prompt)
+    as a list.  Both models' params live on ``device`` (default the
+    card) and share a vocabulary.
+
+    Greedy (``temperature == 0``): the longest prefix on which the
+    target's argmax agrees is accepted, and the target's own token is
+    appended at the first disagreement — the output is exactly the
+    target's greedy generation whatever the draft.  Sampled: each
+    proposal is drawn from the draft's filtered law q and accepted with
+    probability min(1, p/q) against the target's filtered law p; the
+    first rejection draws from the residual (p - q)+ and ends the round,
+    so every token's law is the target's.  The host draws come from one
+    numpy generator seeded by ``key`` (an int, default 0) through
+    ``rng.seed_key`` — deterministic per key; the JAX package's streams
+    are not reproduced.
+
+    Rejected rows in either cache stay behind the position pointer and
+    are overwritten by the next round (after a rejection the draft's
+    first stale row is exactly the next round's first feed)."""
+    prompt, total, t_cache, d_cache, t_logits = _spec_setup(
+        tparams, tcfg, dparams, dcfg, prompt, max_new_tokens, device)
+    if temperature > 0.0:
+        return _speculative_sample(
+            tparams, tcfg, dparams, dcfg, prompt, int(max_new_tokens), k,
+            float(temperature), min(int(top_k), tcfg.vocab_size),
+            float(top_p), key, total, t_cache, d_cache, t_logits)
+    dev = t_logits.device
+    out = [int(torch.argmax(t_logits))]
+    t_pos = len(prompt)         # target rows [0, t_pos) are final
+    while len(out) < max_new_tokens:
+        kk = min(k, max_new_tokens - len(out), total - 1 - t_pos)
+        if kk <= 0:
+            break
+        draft = []
+        cur = out[-1]
+        for j in range(kk):
+            dl, _ = decode_step(dparams, d_cache,
+                                torch.tensor([cur], device=dev), t_pos + j,
+                                dcfg)
+            cur = int(torch.argmax(dl[0]))
+            draft.append(cur)
+        # row j scores the token after out[-1], draft[0..j-1]
+        chunk = torch.tensor([[out[-1]] + draft[:-1]], device=dev)
+        vl, _ = verify_chunk(tparams, t_cache, chunk, t_pos, tcfg)
+        tchoice = torch.argmax(vl[0], dim=-1).tolist()
+        for j in range(kk):
+            out.append(tchoice[j])
+            t_pos += 1
+            if tchoice[j] != draft[j]:
+                break           # the target's token wins; the round ends
+    return out[:max_new_tokens]
+
+
+def _speculative_sample(tparams, tcfg, dparams, dcfg, prompt,
+                        max_new_tokens, k, temperature, top_k, top_p, key,
+                        total, t_cache, d_cache, t_logits):
+    """The rejection-sampling body of :func:`speculative_generate`: host
+    control flow over fetched logit vectors, one numpy generator for the
+    draft's draws, the acceptance tests and the resamples.  No bonus
+    token is drawn on a fully accepted round (at most k tokens a round),
+    which keeps the draft cache's stale-row invariant the greedy path's."""
+    from .. import rng as _rng
+
+    gen = np.random.default_rng(_rng.seed_key(0 if key is None
+                                              else int(key)))
+    dev = t_logits.device
+
+    def law(row):
+        return _filtered_probs(row.cpu().numpy(), temperature, top_k, top_p)
+
+    def draw(p):
+        return int(gen.choice(len(p), p=p))
+
+    out = [draw(law(t_logits))]
+    t_pos = len(prompt)
+    while len(out) < max_new_tokens:
+        kk = min(k, max_new_tokens - len(out), total - 1 - t_pos)
+        if kk <= 0:
+            break
+        draft, qs = [], []
+        cur = out[-1]
+        for j in range(kk):
+            dl, _ = decode_step(dparams, d_cache,
+                                torch.tensor([cur], device=dev), t_pos + j,
+                                dcfg)
+            q = law(dl[0])
+            cur = draw(q)
+            draft.append(cur)
+            qs.append(q)
+        chunk = torch.tensor([[out[-1]] + draft[:-1]], device=dev)
+        vl, _ = verify_chunk(tparams, t_cache, chunk, t_pos, tcfg)
+        ps = [law(vl[0, j]) for j in range(kk)]
+        for j in range(kk):
+            x = draft[j]
+            if gen.uniform() < min(1.0, ps[j][x] / max(qs[j][x], 1e-300)):
+                out.append(x)
+                t_pos += 1
+                continue
+            resid = np.maximum(ps[j] - qs[j], 0.0)
+            mass = resid.sum()
+            # a degenerate residual (q == p to rounding): draw from p
+            out.append(draw(resid / mass) if mass > 0 else draw(ps[j]))
+            t_pos += 1
+            break
+    return out[:max_new_tokens]

@@ -28,9 +28,11 @@ slice:
   address.  Cross-replica chain migration (the fleet's) is not ported.
 
 Device math: :func:`paged_decode_step_batched` (the pooled twin of
-``serving.decode_step_batched``) and :func:`paged_prefill_chunk` (the
-pooled ``generate.prefill_slot_chunk``) write each layer's fresh rows
-into the pool, then attend through the tables — on the card with the
+``serving.decode_step_batched``), :func:`paged_prefill_chunk` (the
+pooled ``generate.prefill_slot_chunk``) and
+:func:`paged_verify_chunk_batched` (the pooled
+``generate.verify_chunk_batched``) write each layer's fresh rows into
+the pool, then attend through the tables — on the card with the
 block-table kernel (``ops/decode_attention.paged_decode_attention``),
 which reads the pool in place, on the CPU through each slot's gathered
 view.  Both write in place and return the cache they were given.
@@ -51,7 +53,8 @@ from ..ops import decode_attention as da
 
 __all__ = [
     "PoolExhausted", "PagedAllocator", "round_len", "init_paged_cache",
-    "paged_decode_step_batched", "paged_prefill_chunk", "copy_blocks",
+    "paged_decode_step_batched", "paged_prefill_chunk",
+    "paged_verify_chunk_batched", "copy_blocks",
     "inject_rows", "SpillSlots", "prefix_fingerprint",
 ]
 
@@ -248,6 +251,43 @@ def paged_prefill_chunk(params, cache, tokens, pos0, length, slot,
         attn = _attend_pool(q, pool_l, trow, pos, cfg)      # [1, C, D]
         x = generate._block_post_attn(x, attn, p, cfg)
     return generate._last_logits(x, length, params, cfg), cache
+
+
+@torch.no_grad()
+def paged_verify_chunk_batched(params, cache, tokens, pos,
+                               cfg: gpt.GPTConfig):
+    """``generate.verify_chunk_batched`` on the pooled layout: tokens
+    [B, K] int scored at per-slot positions [pos_b, pos_b + K) (``pos``
+    int32 [B]) -> (logits [B, K, V] float32, cache).
+
+    Per layer the K rows of every slot scatter through its table first
+    (a free slot's, or an unmapped block's, to the sink), then the layer
+    attends through the tables — on the card one launch of the
+    block-table kernel at Tq = K over the pool in place.  Rows
+    [pos_b, pos_b + K) may cross a block boundary: the caller maps them
+    all before the step (``DecodeServer._ensure_decode_blocks(K)``).
+    Rejected rows stay behind the slot's position pointer, as on the
+    contiguous layout."""
+    N, bs, nmax = _geometry(cache)
+    B, K = tokens.shape
+    dev = tokens.device
+    pos = generate._positions(pos, B, dev)
+    tables = cache["tables"]
+    logi = pos.long()[:, None] + torch.arange(K, device=dev)     # [B, K]
+    phys = _phys_rows(tables[:, None].expand(B, K, nmax).reshape(B * K,
+                                                                nmax),
+                      logi.reshape(-1), N, bs)
+    x = generate._embed_verify(params, tokens, pos, cfg)
+    for l in range(cfg.num_layers):
+        p = gpt.layer(params, l)
+        pool_l = _layer_pool(cache, l)
+        q, rows = generate._chunk_pre_attn(x, p, pos.long()[:, None], cfg)
+        _scatter_rows(pool_l, {n: v.reshape((B * K,) + v.shape[2:])
+                               for n, v in rows.items()}, phys)
+        attn = _attend_pool(q, pool_l, tables, pos, cfg)     # [B, K, D]
+        x = generate._block_post_attn(x, attn, p, cfg)
+    x = gpt._norm(x, params, "ln_f", cfg)
+    return woq.logits(x, params, cfg.dtype).float(), cache
 
 
 @torch.no_grad()

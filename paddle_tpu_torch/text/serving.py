@@ -116,7 +116,23 @@ trace context, and its prefill, decode and retire spans go to the
 server's span ring (``load_stats(include_spans=True)``,
 :meth:`DecodeServer.drain_spans`).
 
-Everything else the JAX server does — speculation, adapters and
+Linear speculative decoding, as the JAX server's (``spec_k=K``, default
+``PADDLE_TPU_SPEC_K``; 0 = off): each round proposes K - 1 tokens per slot
+— from a draft model (``draft_cfg``/``draft_params``, whose cache is a
+twin of the target's: on the paged layout a second pool walked through
+the same block tables) or, without one, from the sequence itself
+(``generate.ngram_propose``) — and scores them with ONE target pass, the
+graphed ``spec_verify`` step (K rows a slot; on the card one launch of
+the decode kernel a block).  Greedy slots keep the longest agreeing
+prefix plus the target's own token, so the streams are the plain
+server's; sampled slots take the rejection rule, so every token's law is
+the target's.  Slots whose rolling acceptance falls below
+``PADDLE_TPU_SPEC_MIN_ACCEPT`` fall back to plain rounds and re-earn
+speculation after a cooldown; near the window, while a slot feeds its
+prompt or admits, and from the admission ladder's spec-off rung on (for
+new claims), the server runs plain ticks.
+
+Everything else the JAX server does — tree speculation, adapters and
 constraints, tensor parallelism, MoE, the fleet and its router — is later
 slices' work; no entry point of the port reaches it.
 """
@@ -136,8 +152,8 @@ from .. import resolve_device, rng
 from .. import telemetry as _telemetry
 
 __all__ = ["decode_step_batched", "sample_step_batched",
-           "decode_block_batched", "sample_block_batched", "DecodeServer",
-           "validate_request"]
+           "decode_block_batched", "sample_block_batched",
+           "spec_verify_batched", "DecodeServer", "validate_request"]
 
 
 # cold prefix-cache entries evicted per relief round when the pool runs dry
@@ -146,6 +162,9 @@ _EVICT_BATCH = 4
 # admission draws use counters from here up (one per request id), clear of
 # the per-step counters of the device steps
 _ADMIT_COUNTER = 1 << 40
+# the speculative rounds' host draws: one numpy generator per request,
+# seeded from here up (the JAX server's fold_in(base, (1 << 21) + rid))
+_SPEC_COUNTER = 1 << 41
 
 
 def decode_step_batched(params, cache, token, pos, cfg: gpt.GPTConfig):
@@ -158,6 +177,21 @@ def decode_step_batched(params, cache, token, pos, cfg: gpt.GPTConfig):
         return kv_pool.paged_decode_step_batched(params, cache, token, pos,
                                                  cfg)
     return generate.decode_step(params, cache, token, pos, cfg)
+
+
+def spec_verify_batched(params, cache, tokens, pos, cfg: gpt.GPTConfig):
+    """The speculative round's target pass: tokens [B, K] int fed at
+    per-slot positions [pos_b, pos_b + K) (pos int32 [B]) -> (logits
+    [B, K, V] float32, cache).  Column 0 is each slot's feed token,
+    columns 1..K-1 its proposals; row 0 is the plain decode step's logits.
+    Routed by layout: ``generate.verify_chunk_batched`` on the slab,
+    ``kv_pool.paged_verify_chunk_batched`` through the block tables.
+    Every slot's K rows are written unconditionally (rejected rows stay
+    behind its position pointer)."""
+    if "tables" in cache:
+        return kv_pool.paged_verify_chunk_batched(params, cache, tokens, pos,
+                                                  cfg)
+    return generate.verify_chunk_batched(params, cache, tokens, pos, cfg)
 
 
 # -- the sampling stream: counter-based, keyed (seed, step) ----------------
@@ -246,6 +280,15 @@ def _name(fn):
     return getattr(fn, "name", None)
 
 
+def _token_at(st: dict, i: int) -> int:
+    """The token a request's sequence holds at position ``i``: its prompt
+    inside it, its generated tail after (``base`` — the original prompt
+    length — differs from len(prompt) only for an evicted request
+    re-admitted with its progress carried)."""
+    return st["prompt"][i] if i < len(st["prompt"]) \
+        else st["generated"][i - st["base"]]
+
+
 def _hits_stop(st: dict) -> bool:
     gen = st["generated"]
     return any(len(gen) >= len(seq) and gen[-len(seq):] == seq
@@ -307,7 +350,13 @@ class DecodeServer:
     note).  ``prefill_budget=N`` (default ``PADDLE_TPU_PREFILL_BUDGET``,
     0 = off; clamped to the serving window) admits prompts longer than N
     in N-token chunks interleaved with the decode steps (module note).
-    ``device`` defaults to the card; ``params`` must live there.  The
+    ``device`` defaults to the card; ``params`` must live there.
+    ``spec_k`` (default ``PADDLE_TPU_SPEC_K``; 4 when only ``draft_cfg``
+    is given) turns on linear speculation (module note) with the draft
+    model ``draft_cfg``/``draft_params`` (same vocabulary, a window
+    covering the server's, params on the same device) or, without one,
+    n-gram self-drafting; ``spec_tree`` is refused (tree speculation is
+    not ported).  The
     resilience switches (TTLs, the OOM ladder, the spill tier, the wedge
     watchdog, the NaN guard: module note) and admission control's
     (``PADDLE_TPU_ADMISSION`` and its knobs) are read from the environment
@@ -328,13 +377,18 @@ class DecodeServer:
                  prefill_chunk: int | None = None,
                  async_dispatch: bool = False,
                  prefill_budget: int | None = None,
-                 metrics_port: int | None = None, _graphs: bool = True):
+                 metrics_port: int | None = None,
+                 spec_k: int | None = None, draft_cfg=None,
+                 draft_params=None, spec_tree: int | None = None,
+                 _graphs: bool = True):
         self.device = resolve_device(device)
         if params["wte"].device != self.device:
             raise ValueError(f"params live on {params['wte'].device}, the "
                              f"server was asked to run on {self.device}")
         if max_batch < 1 or max_len < 1:
             raise ValueError("max_batch and max_len must be >= 1")
+        self._spec_args(cfg, min(max_len, cfg.max_seq_len), spec_k,
+                        draft_cfg, draft_params, spec_tree)
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
@@ -376,12 +430,32 @@ class DecodeServer:
         self._pool = (kv_pool.PagedAllocator(
             *kv_pool._geometry(self.cache), max_batch)
             if self._paged else None)
+        # a draft cache shares the allocator, and spilled target rows
+        # alone would leave the draft's rows of those blocks stale on
+        # restore: with a draft the evict rung drops instead of spilling
         self._spill_slots = (kv_pool.SpillSlots(
             self.cache, self._pool.spill_limit_bytes,
             pin=self.device.type == "cuda")
-            if self._paged and self._pool.spill_limit_bytes else None)
+            if self._paged and self._pool.spill_limit_bytes
+            and self.draft_cfg is None else None)
         # what every step of this server is bound to (text/engine.py)
         self._bind = engine.Binding(params, self.cache, graphs=_graphs)
+        # the draft's twin cache, bound to its own steps: on the paged
+        # layout a second pool of the target's geometry whose ``tables``
+        # leaf IS the target's (one push, one allocator for both)
+        self._draft_cache = self._draft_bind = None
+        if self.draft_cfg is not None:
+            if self._paged:
+                n_blocks, bs, _ = kv_pool._geometry(self.cache)
+                self._draft_cache = kv_pool.init_paged_cache(
+                    self.draft_cfg, max_batch, max_len, block_size=bs,
+                    num_blocks=n_blocks, device=self.device)
+                self._draft_cache["tables"] = self.cache["tables"]
+            else:
+                self._draft_cache = generate.init_cache(
+                    self.draft_cfg, max_batch, max_len, self.device)
+            self._draft_bind = engine.Binding(draft_params, self._draft_cache,
+                                              graphs=_graphs)
         self._prefill_rows = 0       # prompt rows admission computed
         self._seed_key = rng.seed_key(seed)
         self._step_no = 0            # device steps dispatched so far
@@ -425,11 +499,66 @@ class DecodeServer:
         self.metrics_server = (_telemetry.serve_metrics(metrics_port)
                                if metrics_port is not None else None)
 
+    def _spec_args(self, cfg, window: int, spec_k, draft_cfg, draft_params,
+                   spec_tree) -> None:
+        """The speculation arguments' checks, as the JAX server's: K, and
+        a draft that shares the target's vocabulary, covers the serving
+        window and lives on the server's device.  Sets the spec state."""
+        n_tree = _flags.spec_tree() if spec_tree is None else int(spec_tree)
+        if n_tree:
+            raise NotImplementedError(
+                f"spec_tree={n_tree}: tree speculation is not ported yet "
+                f"(it is the port's next slice, ROADMAP A5); linear "
+                f"spec_k= serves")
+        if spec_k is not None:
+            k = int(spec_k)
+        else:
+            k = _flags.spec_k()
+            if k == 0 and draft_cfg is not None:
+                k = 4               # passing a draft model IS opting in
+        if k < 0:
+            raise ValueError(f"spec_k must be >= 0, got {k}")
+        if k == 0 and draft_cfg is not None:
+            raise ValueError("draft_cfg given but spec_k=0 disables "
+                             "speculation — drop one or the other")
+        if k and not 1 <= k < window:
+            raise ValueError(f"spec_k {k} must be in [1, {window}) — the "
+                             f"verify chunk must fit the serving window")
+        if draft_cfg is not None:
+            if draft_params is None:
+                raise ValueError("draft_cfg requires draft_params")
+            if draft_cfg.vocab_size != cfg.vocab_size:
+                raise ValueError(f"draft vocab {draft_cfg.vocab_size} != "
+                                 f"target vocab {cfg.vocab_size}")
+            if draft_cfg.max_seq_len < window:
+                raise ValueError(f"draft max_seq_len {draft_cfg.max_seq_len}"
+                                 f" < serving window {window}")
+            if draft_params["wte"].device != self.device:
+                raise ValueError(f"draft params live on "
+                                 f"{draft_params['wte'].device}, the server "
+                                 f"runs on {self.device}")
+        self._spec_k = k
+        self._spec_on = k > 0
+        self.draft_cfg = draft_cfg if k else None
+        self._draft_params = draft_params if k else None
+        self._self_draft = self._spec_on and draft_cfg is None
+        self._min_accept = _flags.spec_min_accept()
+        # server-wide accounting (load_stats, the accept-rate gauge, the
+        # target passes a token): proposals scored, accepted, verify
+        # rounds, plain target steps while speculation is on
+        self._spec_prop = self._spec_acc = 0
+        self._spec_rounds = self._spec_plain_steps = 0
+
     # -- host <-> device ----------------------------------------------------
 
     def _spec(self, **kw) -> engine.StepSpec:
         return engine.StepSpec(cfg=self.cfg, paged=self._paged,
                                payload=self._bind, **kw)
+
+    def _dspec(self, **kw) -> engine.StepSpec:
+        """A step of the draft model, bound to the draft's cache."""
+        return engine.StepSpec(cfg=self.draft_cfg, paged=self._paged,
+                               payload=self._draft_bind, **kw)
 
     def _host(self, arr):
         """A host feed as a CPU tensor — pinned on a card, so its copy to
@@ -617,6 +746,8 @@ class DecodeServer:
         t = self._first_token(st, logits, lnp)
         st["generated"].append(t)
         st["pos"] = len(st["prompt"])          # cache rows [0, n) filled
+        if self._draft_bind is not None:
+            st["spec_dpos"] = st["pos"]        # the draft walked them too
         self._tokens += 1
         self._count("serving.tokens_generated")
         if self._tel:
@@ -678,6 +809,12 @@ class DecodeServer:
                   "evictions": req.get("evictions", 0), "pos": 0,
                   "t_submit": req["t_submit"],
                   "t_enqueue": req["t_enqueue"], "t_admit": t_admit}
+            if self._spec_on and self._adm is not None \
+                    and self._adm.spec_forced():
+                # the ladder's spec-off rung: this claim decodes plain,
+                # through the flag the acceptance fallback sets
+                st["spec_off"] = True
+                self._count("admission.spec_forced")
             if self._tel:
                 self._observe("serving.queue_wait_ms",
                               (t_admit - st["t_submit"]) * 1e3)
@@ -763,11 +900,13 @@ class DecodeServer:
         W = st["admit_w"]
         s = st["admit_starts"][st["admit_i"]]
         chunk = st["prompt"][s:s + W]
-        kind, spec = (("paged_prefill", self._spec(bucket=W)) if self._paged
-                      else ("prefill_chunk", self._spec(width=W)))
+        kind, kw = (("paged_prefill", {"bucket": W}) if self._paged
+                    else ("prefill_chunk", {"width": W}))
         t0 = time.perf_counter()
-        fn = engine.ENGINE.get(kind, spec)
-        (logits,) = fn(*self._feeds(chunk, W, s, len(chunk), slot))
+        fn = engine.ENGINE.get(kind, self._spec(**kw))
+        feeds = self._feeds(chunk, W, s, len(chunk), slot)
+        (logits,) = fn(*feeds)
+        self._draft_walk(kind, [feeds], **kw)
         self._prefill_rows += len(chunk)
         self._count("serving.prefill_chunks_interleaved")
         if self._paged:
@@ -879,19 +1018,35 @@ class DecodeServer:
         if self._chunk is None:
             bucket = _pow2_bucket(n, self.max_len, self.cfg.max_seq_len)
             fn = engine.ENGINE.get("prefill", self._spec(bucket=bucket))
-            (logits,) = fn(*self._feeds(prompt, bucket, n, slot))
+            feeds = self._feeds(prompt, bucket, n, slot)
+            (logits,) = fn(*feeds)
+            self._draft_walk("prefill", [feeds], bucket=bucket)
             self._prefill_rows += n
             self._prefill_steps = (_name(fn), 1)
             return logits
         C = self._chunk
         fn = engine.ENGINE.get("prefill_chunk", self._spec(width=C))
-        starts = self._chunk_starts(n, C)
-        for s in starts:
-            chunk = prompt[s:s + C]
-            (logits,) = fn(*self._feeds(chunk, C, s, len(chunk), slot))
-            self._prefill_rows += len(chunk)
-        self._prefill_steps = (_name(fn), len(starts))
+        calls = [self._feeds(prompt[s:s + C], C, s, len(prompt[s:s + C]),
+                             slot) for s in self._chunk_starts(n, C)]
+        for feeds in calls:
+            (logits,) = fn(*feeds)
+        self._draft_walk("prefill_chunk", calls, width=C)
+        self._prefill_rows += sum(len(prompt[s:s + C])
+                                  for s in self._chunk_starts(n, C))
+        self._prefill_steps = (_name(fn), len(calls))
         return logits
+
+    def _draft_walk(self, kind: str, calls, **kw) -> None:
+        """The draft's admission: its cache walks the target's steps — the
+        same kind at the same width over the same feeds (``calls``: one
+        feed tuple a step), through its own graphs — so the draft holds
+        the prompt's rows once the target does (paged: through the shared
+        tables, so an adopted prefix's draft rows are there already)."""
+        if self._draft_bind is None:
+            return
+        dfn = engine.ENGINE.get(kind, self._dspec(**kw))
+        for feeds in calls:
+            dfn(*feeds)
 
     def _feeds(self, tokens, width: int, *scalars) -> tuple:
         """An admission step's feeds as host tensors (pinned on a card,
@@ -943,11 +1098,12 @@ class DecodeServer:
         self._ensure_admission_rows(slot, min(starts), n)
         self._apply_pool_ops()
         fn = engine.ENGINE.get("paged_prefill", self._spec(bucket=C))
-        rows = 0
-        for s in starts:
-            chunk = prompt[s:s + C]
-            (logits,) = fn(*self._feeds(chunk, C, s, len(chunk), slot))
-            rows += len(chunk)
+        calls = [self._feeds(prompt[s:s + C], C, s, len(prompt[s:s + C]),
+                             slot) for s in starts]
+        for feeds in calls:
+            (logits,) = fn(*feeds)
+        self._draft_walk("paged_prefill", calls, bucket=C)
+        rows = sum(len(prompt[s:s + C]) for s in starts)
         self._prefill_rows += rows
         self._count("kv_pool.prefill_rows", rows)
         alloc.register_prefix(slot, prompt)
@@ -965,6 +1121,9 @@ class DecodeServer:
             idx = self._host(np.asarray(pairs, np.int64)).to(
                 self.device, non_blocking=True)
             kv_pool.copy_blocks(self.cache, idx[:, 0], idx[:, 1])
+            if self._draft_cache is not None:
+                # a copied block holds both pools' rows of its positions
+                kv_pool.copy_blocks(self._draft_cache, idx[:, 0], idx[:, 1])
         if self._pool.dirty:
             self.cache["tables"].copy_(self._host(self._pool.tables),
                                        non_blocking=True)
@@ -974,10 +1133,12 @@ class DecodeServer:
         """The OOM ladder's evict rung, spill-aware: with
         ``PADDLE_TPU_KV_SPILL_MB`` set, cold prefix chains demote to host
         memory (:meth:`_spill_fetch`) instead of dropping, so the next
-        admission restores them instead of recomputing.  Returns the
-        entries freed."""
+        admission restores them instead of recomputing — unless a draft
+        cache shares the allocator (the restore would bring back the
+        target's rows only): then they drop.  Returns the entries
+        freed."""
         pool = self._pool
-        if pool.spill_limit_bytes:
+        if self._spill_slots is not None:
             return pool.spill_cold(max_entries, fetch=self._spill_fetch)
         return pool.evict_cold(max_entries)
 
@@ -1087,8 +1248,7 @@ class DecodeServer:
         pos = np.zeros((self.max_batch,), np.int32)
         for slot, st in self._slots.items():
             i = st["pos"]
-            tok[slot] = (st["prompt"][i] if i < len(st["prompt"])
-                         else st["generated"][i - st["base"]])
+            tok[slot] = _token_at(st, i)
             pos[slot] = i
         return tok, pos
 
@@ -1105,6 +1265,339 @@ class DecodeServer:
                 tk[slot] = st["top_k"]
                 tp[slot] = st["top_p"]
         return temp, tk, tp
+
+    # -- speculative decoding: batched draft-then-verify rounds -------------
+
+    def _spec_limit(self) -> int:
+        """The highest position a round may reach: ``pos + K`` must stay
+        inside the cache rows (the slab's, or the tables' reach), the
+        target's position table and, with a draft, the draft's.  The JAX
+        package's slices clamp an out-of-range start; the port's writes
+        would raise or, inside a graph, land in another slot's rows — so
+        near the window the server runs plain ticks (:meth:`_spec_gate`)."""
+        if self._paged:
+            rows = self._pool.nmax * self._pool.bs
+        else:
+            rows = int(self.cache["k"].shape[2])
+        lim = min(rows, self.cfg.max_seq_len)
+        if self._draft_cache is not None:
+            drows = (rows if self._paged
+                     else int(self._draft_cache["k"].shape[2]))
+            lim = min(lim, drows, self.draft_cfg.max_seq_len)
+        return lim
+
+    def _spec_chunk(self) -> int:
+        """Cache rows one round writes per slot (the feed row included)."""
+        return self._spec_k
+
+    def _spec_gate(self) -> bool:
+        """Whether every slot can take a round, without changing any
+        state: past its prompt and not admitting (a round consumes
+        feedback positions only; a budgeted claim waits for graduation),
+        and ``pos + K`` inside :meth:`_spec_limit`."""
+        K, lim = self._spec_chunk(), self._spec_limit()
+        return all(not st.get("admitting")
+                   and st["pos"] >= len(st["prompt"]) - 1
+                   and st["pos"] + K <= lim
+                   for st in self._slots.values())
+
+    def _spec_ready(self) -> bool:
+        """Whether THIS tick runs as a speculative round: the gate holds
+        and at least one slot still speculates.  A fallen-back slot sits
+        out a cooldown of eligible rounds (doubling per trip, 16 -> 256),
+        then rejoins with a fresh acceptance window."""
+        if not self._spec_on or not self._slots or not self._spec_gate():
+            return False
+        alive = False
+        for st in self._slots.values():
+            if st.get("spec_off"):
+                st["spec_cool"] = st.get("spec_cool", 1) - 1
+                if st["spec_cool"] <= 0:
+                    st["spec_off"] = False
+                    st["spec_prop"] = st["spec_acc"] = 0
+                    alive = True
+                    self._count("spec.reearns")
+            else:
+                alive = True
+        return alive
+
+    def _spec_rng(self, st):
+        """A request's host generator for the sampled rounds (draft draws,
+        acceptance tests, resamples), seeded from the server's key and
+        its id through ``rng.fold_in`` — apart from the device steps'
+        counters and the admission draws'."""
+        if "spec_rng" not in st:
+            st["spec_rng"] = np.random.default_rng(
+                rng.fold_in(self._seed_key, _SPEC_COUNTER + st["rid"]))
+        return st["spec_rng"]
+
+    def _spec_draft_catchup(self):
+        """Advance every lagging slot's draft rows to its target position
+        (``spec_dpos``: rows the draft holds) with batched draft steps.
+        Lag comes from ``prefill=False`` admission (the prompt went to the
+        target only) and from rounds that end past the last drafted row.
+        The other slots ride along fed their feed token at their own
+        position — a row the proposal steps rewrite identically."""
+        fn = None
+        while True:
+            lag = {slot: st for slot, st in self._slots.items()
+                   if not st.get("spec_off")
+                   and st.get("spec_dpos", 0) < st["pos"]}
+            if not lag:
+                return
+            tok, pos = self._feed_arrays()
+            for slot, st in lag.items():
+                d = st.get("spec_dpos", 0)
+                tok[slot], pos[slot] = _token_at(st, d), d
+            fn = fn or engine.ENGINE.get("step", self._dspec())
+            fn(self._host(tok), self._host(pos))
+            for slot, st in lag.items():
+                st["spec_dpos"] = int(pos[slot]) + 1
+
+    def _spec_propose_draft(self, K):
+        """K - 1 batched draft steps from each slot's feed position: the
+        draft's proposals for positions pos + 1 .. pos + K - 1 and, for a
+        sampled slot, the filtered law q of each draw.  A greedy batch runs
+        them as ONE replay of the draft's ``block`` step (each argmax fed
+        back on the card, one fetch); a batch with a sampled slot steps
+        the draft and draws on the host.  Fallen-back slots ride along
+        (their draft rows go stale and are caught up if they re-earn).
+        Returns {slot: (tokens, qs or None)}."""
+        self._spec_draft_catchup()
+        eligible = {slot: st for slot, st in self._slots.items()
+                    if not st.get("spec_off")}
+        if not eligible or K < 2:
+            return {}
+        tok, pos = self._feed_arrays()
+        temp, tk, tp = self._sampling_arrays()
+        if not any(temp[s] > 0 for s in eligible):
+            fn = engine.ENGINE.get("block", self._dspec(k=K - 1))
+            (toks,) = fn(self._host(tok), self._host(pos))
+            toks = self._fetch_wait(self._fetch_start(toks))
+            props = {s: ([int(t) for t in toks[s]], None) for s in eligible}
+        else:
+            fn = engine.ENGINE.get("step", self._dspec())
+            props = {s: ([], [] if temp[s] > 0 else None) for s in eligible}
+            for _ in range(K - 1):
+                (logits,) = fn(self._host(tok), self._host(pos))
+                lnp = self._fetch_wait(self._fetch_start(logits))
+                for slot, st in eligible.items():
+                    toks, qs = props[slot]
+                    if qs is None:
+                        d = int(lnp[slot].argmax())
+                    else:
+                        q = generate._filtered_probs(
+                            lnp[slot], float(temp[slot]), int(tk[slot]),
+                            float(tp[slot]))
+                        d = int(self._spec_rng(st).choice(len(q), p=q))
+                        qs.append(q)
+                    toks.append(d)
+                    tok[slot] = d
+                pos = pos + 1
+        self._count("spec.draft_steps", K - 1)
+        return props
+
+    def _spec_propose_ngram(self, K):
+        """Model-free self-drafting: each speculating slot proposes the
+        continuation of the most recent earlier occurrence of its
+        sequence's suffix (``generate.ngram_propose``, host work only).  A
+        miss proposes nothing: the slot takes row 0 of the round, one
+        token, as a plain step would."""
+        props = {}
+        hits = miss = 0
+        for slot, st in self._slots.items():
+            if st.get("spec_off"):
+                continue
+            seq = st["prompt"][:st["base"]] + st["generated"]
+            d = generate.ngram_propose(seq, K - 1) if K > 1 else None
+            if d:
+                props[slot] = (d, None)
+                hits += 1
+            else:
+                miss += 1
+        if hits:
+            self._count("spec.ngram_hits", hits)
+        if miss:
+            self._count("spec.ngram_misses", miss)
+        return props
+
+    def _spec_accept(self, st, rows, choice, prop):
+        """Resolve one slot's round -> the tokens (1..K) it appends.
+        ``rows``: its verify logits [K, V] on the host (None when the
+        round fetched only ``choice``, the rows' argmax [K]).  Greedy:
+        the longest prefix on which the target's argmax agrees with the
+        proposals, then the target's own token (at the first disagreement,
+        or the bonus row after full agreement) — each kept token is what
+        stepwise greedy decode gives at that position.  Sampled:
+        :meth:`_spec_sampled_tokens`."""
+        draft, qs = prop if prop is not None else ([], None)
+        kk = len(draft)
+        if st["temperature"] > 0.0:
+            toks, accepted = self._spec_sampled_tokens(st, rows, draft, qs)
+        else:
+            toks, accepted = [], 0
+            for j in range(kk):
+                t = int(choice[j])
+                toks.append(t)
+                if t != draft[j]:
+                    break
+                accepted += 1
+            else:
+                toks.append(int(choice[kk]))
+        if kk:
+            self._spec_prop += kk
+            self._spec_acc += accepted
+            st["spec_prop"] = st.get("spec_prop", 0) + kk
+            st["spec_acc"] = st.get("spec_acc", 0) + accepted
+            self._count("spec.proposed", kk)
+            if accepted:
+                self._count("spec.accepted", accepted)
+        return toks
+
+    def _spec_sampled_tokens(self, st, rows, draft, qs):
+        """Rejection sampling on one slot's verify rows: accept proposal x
+        at row j with probability min(1, p_j(x) / q_j(x)); the first
+        rejection draws from the residual (p_j - q_j)+ — self-drafting's q
+        is the point mass at x, so the residual is p_j with x zeroed — and
+        full acceptance draws the bonus row.  Every token's law is the
+        target's filtered law.  Returns (tokens, accepted)."""
+        t, tk, tp = st["temperature"], st["top_k"], st["top_p"]
+        gen = self._spec_rng(st)
+        toks, accepted = [], 0
+        for j, x in enumerate(draft):
+            p = generate._filtered_probs(rows[j], t, tk, tp)
+            qx = float(qs[j][x]) if qs is not None else 1.0
+            if float(gen.uniform()) < min(1.0, float(p[x]) / max(qx, 1e-300)):
+                toks.append(int(x))
+                accepted += 1
+                continue
+            if qs is not None:
+                resid = np.maximum(p - qs[j], 0.0)
+            else:
+                resid = p.copy()
+                resid[x] = 0.0
+            mass = float(resid.sum())
+            if mass > 0.0:
+                toks.append(int(gen.choice(len(resid), p=resid / mass)))
+            else:
+                toks.append(int(gen.choice(len(p), p=p)))
+            break
+        else:
+            p = generate._filtered_probs(rows[len(draft)], t, tk, tp)
+            toks.append(int(gen.choice(len(p), p=p)))
+        return toks, accepted
+
+    def _spec_fallback_check(self, st):
+        """Acceptance-driven fallback: past a fair trial (4 windows of K - 1
+        proposals) a slot whose rolling accept rate is below
+        ``PADDLE_TPU_SPEC_MIN_ACCEPT`` stops speculating (its rounds take
+        row 0 only) until its cooldown ends (:meth:`_spec_ready`).  The
+        window halves at 16 windows, so the rate follows the request's
+        recent regime."""
+        if st.get("spec_off") or not st.get("spec_prop"):
+            return
+        k = max(1, self._spec_chunk() - 1)
+        if st["spec_prop"] >= 16 * k:
+            st["spec_prop"] //= 2
+            st["spec_acc"] //= 2
+        if st["spec_prop"] >= 4 * k \
+                and st["spec_acc"] / st["spec_prop"] < self._min_accept:
+            st["spec_off"] = True
+            st["spec_cool"] = cool = min(256, 2 * st.get("spec_cool0", 8))
+            st["spec_cool0"] = cool
+            self._count("spec.fallbacks")
+
+    def _spec_round(self) -> bool:
+        """Speculative routing above the dispatch modes: a ready batch
+        runs one round (:meth:`_tick_spec`); anything else (a slot feeding
+        its prompt or admitting, the window's edge, every slot fallen
+        back) takes the plain path, counted as a plain target step.
+        Returns True when a round ran."""
+        if not self._slots and not self._async:
+            self._admit()
+        if self._slots and self._spec_ready():
+            self._tick_spec()
+            return True
+        if self._slots:
+            self._spec_plain_steps += 1
+        return False
+
+    def _tick_spec(self):
+        """One speculative round: propose (n-gram lookup, or K - 1 batched
+        draft steps), ONE graphed ``spec_verify`` pass over every slot,
+        acceptance on the host, retire.  Rejected rows land at or past
+        each slot's new position, where the causal mask hides them until
+        the next round overwrites them: no rollback.  Every slot's rows
+        [pos, pos + K) are mapped before any state moves (a
+        ``PoolExhausted`` there is retried by the OOM ladder on the same
+        state); an async server first drains the step in flight — its
+        tokens are real work — and runs its rounds synchronously."""
+        if self._inflight is not None:
+            self._drain_inflight()
+            if not self._slots or not self._spec_gate():
+                return          # the drained tokens were this tick's work
+        t0 = time.perf_counter()
+        K = self._spec_k
+        self._ensure_decode_blocks(K)
+        props = (self._spec_propose_ngram(K) if self._self_draft
+                 else self._spec_propose_draft(K))
+        tok, pos = self._feed_arrays()
+        tokens = np.repeat(tok[:, None], K, axis=1)
+        for slot, (draft, _) in props.items():
+            tokens[slot, 1:1 + len(draft[:K - 1])] = draft[:K - 1]
+        kind = f"spec_verify@{K}"
+        self._fault_check(kind)
+        fn = engine.ENGINE.get("spec_verify", self._spec(k=K))
+        (logits,) = fn(self._host(tokens), self._host(pos))
+        self._step_no += 1              # after the call: see _tick_impl
+        self._spec_rounds += 1
+        guard = self._resil and (_faults.active()
+                                 or _flags.nan_guard_serving())
+        failed = set()
+        if guard or any(st["temperature"] > 0.0
+                        for st in self._slots.values()):
+            # the round's one fetch: the logits, for the sampled laws and
+            # the NaN guard
+            lnp = self._fetch_wait(self._fetch_start(logits))
+            if guard:
+                if _faults.active():
+                    lnp = _faults.corrupt_nan("logits", lnp)
+                finite = np.isfinite(lnp).all(axis=(-2, -1))
+                failed = {s for s in self._slots if not finite[s]}
+            choice = lnp.argmax(axis=-1)
+        else:
+            # greedy: the rows' argmax is all acceptance reads
+            lnp = None
+            choice = self._fetch_wait(self._fetch_start(
+                torch.argmax(logits, dim=-1)))
+        done, appended = [], []
+        for slot, st in self._slots.items():
+            if slot in failed:
+                continue
+            toks = self._spec_accept(st, None if lnp is None else lnp[slot],
+                                     choice[slot], props.get(slot))
+            old = st["pos"]
+            kept = 0
+            for t in toks:
+                st["generated"].append(t)
+                st["pos"] += 1
+                kept += 1
+                if self._finished(st, t):
+                    done.append(slot)
+                    break
+            appended.append((st, kept))
+            if self._draft_cache is not None and not st.get("spec_off"):
+                # draft rows [old, old + K - 1) were fed this round; those
+                # fed accepted tokens hold through the new position
+                st["spec_dpos"] = min(st["pos"], old + K - 1)
+            self._spec_fallback_check(st)
+        for slot in failed:
+            self._fail_request(self._slots.pop(slot), slot,
+                               "non-finite spec-verify logits")
+        self._tel_tokens(appended, t0,
+                         steps=max([k for _, k in appended], default=1),
+                         step=_name(fn))
+        self._retire(done)
 
     # -- sync dispatch ------------------------------------------------------
 
@@ -1125,6 +1618,8 @@ class DecodeServer:
             self._adm.control_tick(idle=not self._slots and not self._queue)
 
     def _tick_impl(self):
+        if self._spec_on and self._spec_round():
+            return
         if self._async:
             self._tick_async()
             return
@@ -1224,6 +1719,20 @@ class DecodeServer:
         self._guarded(lambda: self._tick_block_impl(block))
 
     def _tick_block_impl(self, block: int):
+        if self._spec_on:
+            if not self._slots and not self._async:
+                self._admit()
+            if self._slots and self._spec_ready():
+                # a round yields up to K tokens a slot: ceil(block / K)
+                # rounds cover the block's work, one fetch each
+                for _ in range(max(1, -(-block // self._spec_chunk()))):
+                    if not self._slots or not self._spec_ready():
+                        break
+                    self._tick_spec()
+                return
+            if self._slots and not self._stepwise():
+                # the stepwise fallback's ticks count their own
+                self._spec_plain_steps += block
         if self._async:
             self._tick_block_async(block)
             return
@@ -1746,6 +2255,9 @@ class DecodeServer:
                              sum(1 for st in self._slots.values()
                                  if st.get("admitting")))
         _telemetry.set_gauge("serving.kv_utilization", self._kv_util())
+        if self._spec_on and self._spec_prop:
+            _telemetry.set_gauge("serving.spec_accept_rate",
+                                 self._spec_acc / self._spec_prop)
         if self._paged and self._pool is not None:
             _telemetry.set_gauge("kv_pool.blocks_in_use",
                                  self._pool.blocks_in_use)
@@ -1895,7 +2407,9 @@ class DecodeServer:
         caps), KV utilization, the admit cap and the wedge verdict, the
         tokens generated and the prompt rows admission computed so far,
         the admission ladder's rung (``admission_rung``, 0 without a
-        controller) and whether it is at 0 (``slo_ok``).  A paged server
+        controller) and whether it is at 0 (``slo_ok``), and the
+        server-wide speculative acceptance rate (``spec_accept_rate``:
+        accepted over scored proposals, None before the first).  A paged server
         adds its prefix hit rate (adopted rows over adoptable rows), the
         spill tier's resident host bytes and its allocator's ``kv_pool``
         stats.  ``include_spans=True`` also takes the completed trace
@@ -1920,6 +2434,8 @@ class DecodeServer:
             "prefill_budget": self._budget,
             "admission_rung": 0 if self._adm is None else self._adm.rung,
             "slo_ok": self._adm is None or self._adm.rung == 0,
+            "spec_accept_rate": (self._spec_acc / self._spec_prop
+                                 if self._spec_prop else None),
         }
         if include_spans:
             stats["spans"], stats["span_drops"] = self.drain_spans()
@@ -1945,14 +2461,18 @@ class DecodeServer:
         recoveries, and, paged, the rows admission prefilled and the
         admissions the pool parked.  The registry
         (``paddle_tpu_torch.telemetry``) holds the process-wide sums,
-        the allocator's ``kv_pool.*`` counters among them.  Empty with
+        the allocator's ``kv_pool.*`` counters among them.  A speculating
+        server adds ``spec.*`` (proposed, accepted, draft steps, n-gram
+        hits and misses, fallbacks, re-earns) and
+        ``admission.spec_forced``.  Empty with
         ``PADDLE_TPU_TELEMETRY=0``."""
         return dict(sorted(self._counts.items()))
 
     def close(self):
         """Release this server's steps (``Engine.purge``: its graphs and
-        their memory pools) and its KV cache (and, paged, every block, the
-        prefix index and the spill store).  The step in flight is
+        their memory pools, the draft's too) and its KV cache (and the
+        draft's; paged, every block, the prefix index and the spill
+        store).  The step in flight is
         abandoned unfetched (a wedged fetch cannot hang the exit);
         unfinished requests too: ``result()`` raises for them and
         ``status()`` says ``dropped``.  A wedge verdict this server raised
@@ -1964,12 +2484,13 @@ class DecodeServer:
             self.metrics_server.close()
             self.metrics_server = None
         self._inflight = None
-        if self._bind is not None:
-            # by binding alone: a routing flag flipped since a capture
-            # changed its config key, not what it holds
-            engine.ENGINE.purge(binding=self._bind)
-            self._bind = None
-        self.cache = None
+        for bind in (self._bind, self._draft_bind):
+            if bind is not None:
+                # by binding alone: a routing flag flipped since a capture
+                # changed its config key, not what it holds
+                engine.ENGINE.purge(binding=bind)
+        self._bind = self._draft_bind = None
+        self.cache = self._draft_cache = None
         if self._paged:
             self._pool.close()
             self._spill_slots = None

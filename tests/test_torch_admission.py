@@ -369,7 +369,12 @@ def _faulted(pkg, markov, prompts, spec, priorities=(0, 1), ttl=None,
     (``prefill_budget=6``) server of ``pkg`` under the fault ``spec`` in
     that package's harness; the first request gets ``ttl``.  Returns
     (outcomes, statuses, whether request 0 was ever seen queued again,
-    the compared counters)."""
+    the compared counters).  The counters are what the serve added: the
+    registry read after it minus a snapshot taken before the submits —
+    an absolute read would also see what earlier tests of the worker left
+    in the JAX registry that ``telemetry.reset()`` does not clear (a
+    ``monitor.get_stat`` made outside the telemetry module, such as the
+    reference telemetry test's ``serving.test_ms{slot="3"}``)."""
     from paddle_tpu import faults as jfaults
     from paddle_tpu import telemetry as jtl
     from paddle_tpu.framework import monitor
@@ -391,6 +396,7 @@ def _faulted(pkg, markov, prompts, spec, priorities=(0, 1), ttl=None,
     try:
         srv = (jserving.DecodeServer(jparams, jcfg, **kw) if pkg == "jax"
                else serving.DecodeServer(params, cfg, device="cpu", **kw))
+        before = (monitor.stats() if pkg == "jax" else tl.counters()).copy()
         rids = [srv.submit(p, max_new_tokens=5, priority=q,
                            ttl_s=ttl if i == 0 else None)
                 for i, (p, q) in enumerate(zip(prompts, priorities))]
@@ -414,9 +420,9 @@ def _faulted(pkg, markov, prompts, spec, priorities=(0, 1), ttl=None,
         f.reset()
         t.clear_runtime_wedge()
     got = monitor.stats() if pkg == "jax" else tl.counters()
-    ctr = {k: int(v) for k, v in sorted(got.items())
-           if k.startswith(("serving.", "resilience.", "kv_pool.")) and v}
-    return out, st, requeued, ctr
+    ctr = {k: int(v) - int(before.get(k, 0)) for k, v in sorted(got.items())
+           if k.startswith(("serving.", "resilience.", "kv_pool."))}
+    return out, st, requeued, {k: v for k, v in ctr.items() if v}
 
 
 def _half_prefilled_prompts(seed):

@@ -333,18 +333,22 @@ def _both(model, submits, env=(), force_rung=None, ticks_between=0,
         if force_rung is not None:
             srv._adm.rung = force_rung
             srv._adm._set_gauges()
+        # the compared counters are what the serve added: an absolute
+        # read would also see whatever earlier tests of the worker left in
+        # the JAX registry that ``telemetry.reset()`` does not clear
+        ctr = PKGS[pkg][2]
+        keys = SHED_KEYS + ("serving.requests_rejected",
+                            "serving.requests_completed")
+        before = {k: ctr(k) for k in keys}
         rids = []
         for sub in submits:
             rids.append(srv.submit(**sub))
             for _ in range(ticks_between):
                 srv.tick()
         _drain(srv)
-        ctr = PKGS[pkg][2]
         res[pkg] = ([srv.status(r) for r in rids],
                     [_outcome(srv, r) for r in rids],
-                    {k: ctr(k) for k in SHED_KEYS + (
-                        "serving.requests_rejected",
-                        "serving.requests_completed")})
+                    {k: ctr(k) - before[k] for k in keys})
     assert res["torch"] == res["jax"], (res["torch"], res["jax"])
     return res["torch"][:2]
 

@@ -12,6 +12,9 @@ JAX package's (paddle_tpu/text/engine.py), on the CPU.
   one draws);
 * the counter-based sampling stream: a pure function of (key, element),
   drawing in distribution;
+* the speculative ``spec_verify`` kind and ``beam_search``'s ``beam``
+  kind are keyed as the JAX registry keys them (``beam`` plus the prompt
+  shape);
 * ``generate`` runs as the Engine's ``generate`` kind: greedy fp32 tokens
   equal to the JAX ``generate``'s, keyed as the JAX registry keys it plus
   the prompt shape, its step and cache reused by a second call of the
@@ -44,7 +47,8 @@ _READS = {"step": {"paged"}, "sample": {"paged"}, "async": {"paged"},
           "async_sample_block": {"paged", "k"},
           "prefill": {"bucket"}, "prefill_chunk": {"width"},
           "paged_prefill": {"bucket"}, "inject": {"bucket", "paged"},
-          "generate": {"extra"}}
+          "spec_verify": {"paged", "k"}, "generate": {"extra"},
+          "beam": {"extra"}}
 
 
 def _cfg(**kw):

@@ -1397,3 +1397,137 @@ def test_ladder_moves_capture_nothing_after_warmup(monkeypatch):
     assert {g.name for g in engine.ENGINE.graphs(srv._bind)} == graphs0
     assert len(telemetry.compile_log()) == logs0
     srv.close()
+
+
+# ---------------------------------------------------------------------------
+# speculation and beam search through the Engine on the card
+# ---------------------------------------------------------------------------
+
+
+def _spec_server(cfg, params, case, graphs, **kw):
+    """A speculating server (draft == target, K = 4) of ``case``."""
+    return _graph_server(cfg, params, case, graphs, spec_k=4, draft_cfg=cfg,
+                         draft_params=params, **kw)
+
+
+@pytest.mark.parametrize("case", ["contiguous", "paged", "int8_kv"])
+def test_graphed_spec_verify_equals_eager(case, monkeypatch):
+    """From one cache state, ``spec_verify@4``'s graph gives its eager
+    body's logits and cache bit for bit, also after its feeds change (the
+    next round's positions); every verify launch is on the tick body, one
+    a layer.  Served: the graphed tick, tick_block(4) and async streams
+    equal the graphs-off speculating server's and the plain server's,
+    every round one replay of the verify graph."""
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case(case, monkeypatch)
+    srv = _spec_server(cfg, params, case, True)
+    for p in prompts[:4]:
+        srv.submit(p, max_new_tokens=12)
+    srv._ensure_decode_blocks(8)
+    spec = srv._spec(k=4)
+    eager = engine._Eager(engine._REGISTRY["spec_verify"].build(spec),
+                          srv._bind, "spec_verify")
+    graph = engine.ENGINE.get("spec_verify", spec)
+    wrap = (da.paged_decode_attention if case == "paged"
+            else da.decode_attention)
+    gen = torch.Generator().manual_seed(5)
+    _, pos = srv._feed_arrays()
+    for shift in (0, 4):
+        toks = torch.randint(0, cfg.vocab_size, (4, 4), generator=gen)
+        at = torch.from_numpy(pos + shift)
+        snap = {n: t.clone() for n, t in srv.cache.items()}
+        want = eager(toks, at)[0].clone()
+        want_cache = {n: t.clone() for n, t in srv.cache.items()}
+        for n, t in srv.cache.items():
+            t.copy_(snap[n])
+        n0, t0 = wrap.launches, wrap.tick_launches
+        got = graph(toks, at)[0]
+        assert torch.equal(got, want), shift
+        assert wrap.launches - n0 == wrap.tick_launches - t0 == \
+            cfg.num_layers
+        for n in snap:
+            assert torch.equal(_live(srv, n), _live(srv, n, want_cache)), n
+    srv.close()
+    ref = _serve_all(_graph_server(cfg, params, case, False), prompts)
+    assert _serve_all(_spec_server(cfg, params, case, False), prompts) == ref
+    for block, async_ in ((None, False), (4, False), (None, True)):
+        srv = _spec_server(cfg, params, case, True, async_dispatch=async_)
+        assert _serve_all(srv, prompts, block) == ref, (block, async_)
+        (g,) = [g for g in engine.ENGINE.graphs(srv._bind)
+                if g.name == "serving.spec_verify@4"]
+        assert g.replays == srv._spec_rounds > 0
+        srv.close()
+
+
+def test_two_speculating_servers_keep_separate_graphs(monkeypatch):
+    """Two speculating servers whose draft is their target (one parameter
+    tree, four caches): four bindings, no graph shared, each server's
+    eager streams; close() frees the draft's graphs with the target's."""
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case("contiguous", monkeypatch)
+    halves = (prompts[:3], prompts[3:])
+    refs = [_serve_all(_graph_server(cfg, params, "contiguous", False), h)
+            for h in halves]
+    a, b = (_spec_server(cfg, params, "contiguous", True) for _ in "ab")
+    rids = [[s.submit(p, max_new_tokens=12) for p in h]
+            for s, h in zip((a, b), halves)]
+    while a.pending() or b.pending():
+        for s in (a, b):
+            if s.pending():
+                s.tick()
+    assert [[s.result(r) for r in rs] for s, rs in zip((a, b), rids)] \
+        == refs
+    binds = [a._bind, a._draft_bind, b._bind, b._draft_bind]
+    assert len({bd.key for bd in binds}) == 4
+    sets = [{id(g) for g in engine.ENGINE.graphs(bd)} for bd in binds]
+    assert all(sets) and sum(map(len, sets)) == len(set().union(*sets))
+    for s in (a, b):
+        s.close()
+    assert not any(engine.ENGINE.graphs(bd) for bd in binds)
+
+
+def test_graphed_beam_equals_eager_and_the_cpu(monkeypatch):
+    """beam_search on the card: one replay of the ``beam`` graph a
+    position, the CPU's tokens and its scores within 1e-4; from one cache
+    state the beam graph's outputs and its reordered cache equal its eager
+    body's bit for bit."""
+    from paddle_tpu_torch.text import engine
+    from paddle_tpu_torch.text import generate as G
+
+    cfg, params, prompts = _graph_case("contiguous", monkeypatch)
+    batch = [p[:5] for p in prompts[:2]]
+    W, new = 4, 12
+    cpu = {n: (t.cpu() if n != "blocks" else {k: v.cpu()
+                                               for k, v in t.items()})
+           for n, t in params.items()}
+    want_t, want_s = G.beam_search(cpu, cfg, batch, new, num_beams=W,
+                                   device="cpu")
+    got_t, got_s = G.beam_search(params, cfg, batch, new, num_beams=W,
+                                 device="cuda")
+    assert got_t.cpu().tolist() == want_t.tolist()
+    assert (got_s.cpu() - want_s).abs().max() <= 1e-4
+    (g,) = [g for g in engine.ENGINE.graphs()
+            if g.name == "generate.beam_search"]
+    assert g.replays == new
+    bind, spec = g.binding, engine.StepSpec(
+        cfg=cfg, extra=(new, W, 0.0, None), shape=(2, 5),
+        payload=g.binding)
+    assert engine.ENGINE.get("beam", spec) is g
+    eager = engine._Eager(engine._REGISTRY["beam"].build(spec), bind, "beam")
+    gen = torch.Generator().manual_seed(7)
+    feeds = (torch.randint(0, cfg.vocab_size, (2 * W,), generator=gen),
+             torch.tensor(9, dtype=torch.int32),
+             torch.randn((2, W), generator=gen),
+             torch.rand((2, W), generator=gen) > 0.2,
+             torch.randint(0, 5, (2, W), generator=gen))
+    snap = {n: t.clone() for n, t in bind.cache.items()}
+    want = [t.clone() for t in eager(*feeds)]
+    want_cache = {n: t.clone() for n, t in bind.cache.items()}
+    for n, t in bind.cache.items():
+        t.copy_(snap[n])
+    got = g(*feeds)
+    assert all(torch.equal(x, y) for x, y in zip(got, want))
+    assert all(torch.equal(bind.cache[n], want_cache[n]) for n in snap)
+    engine.ENGINE.purge(cfg)

@@ -59,12 +59,33 @@ def _one_thread():
     torch.set_num_threads(old)
 
 
+# each package's counters when the current serve began (_mark): the
+# compared counters are differences from it (_counters)
+_BASE: dict = {}
+
+
+def _raw(pkg) -> dict:
+    got = monitor.stats() if pkg == "jax" else tl.counters()
+    return {k: int(v) for k, v in got.items() if k.startswith(FAMILIES)}
+
+
+def _mark(*pkgs) -> None:
+    """Snapshot the packages' counters before a serve.  Comparing
+    absolute registry contents would also see what earlier tests of the
+    worker left in the JAX registry that ``telemetry.reset()`` does not
+    clear (a ``monitor.get_stat`` made outside the telemetry module, such
+    as the reference telemetry test's ``serving.test_ms{slot="3"}``)."""
+    for pkg in pkgs:
+        _BASE[pkg] = _raw(pkg)
+
+
 @pytest.fixture(autouse=True)
 def _clean():
     for f, t in ((jfaults, jtl), (faults, tl)):
         f.reset()
         t.reset()
         t.clear_runtime_wedge()
+    _mark("jax", "torch")
     yield
     for f, t in ((jfaults, jtl), (faults, tl)):
         f.reset()
@@ -72,13 +93,11 @@ def _clean():
 
 
 def _counters(pkg) -> dict:
-    """One package's nonzero counters of the compared families."""
-    if pkg == "jax":
-        got = monitor.stats()
-    else:
-        got = tl.counters()
-    return {k: int(v) for k, v in sorted(got.items())
-            if k.startswith(FAMILIES) and v}
+    """One package's nonzero counters of the compared families, as the
+    difference from the snapshot :func:`_mark` took before the serve."""
+    base = _BASE.get(pkg, {})
+    got = {k: v - base.get(k, 0) for k, v in sorted(_raw(pkg).items())}
+    return {k: v for k, v in got.items() if v}
 
 
 @pytest.fixture(scope="module")
@@ -133,6 +152,7 @@ def _run(pkg, model, prompts, spec="", mode="tick", max_new=6,
         srv = _server(pkg, model, max_batch=max_batch, max_len=max_len,
                       **kw)
         pr = priorities or [0] * len(prompts)
+        _mark(pkg)
         rids = [srv.submit(p, max_new_tokens=max_new, priority=q)
                 for p, q in zip(prompts, pr)]
         for _ in range(400):

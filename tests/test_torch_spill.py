@@ -56,11 +56,32 @@ def _one_thread():
     torch.set_num_threads(old)
 
 
+# each package's counters after the last reset (_mark): the compared
+# counters are differences from it (_counters)
+_BASE: dict = {}
+
+
+def _raw(pkg) -> dict:
+    got = monitor.stats() if pkg == "jax" else tl.counters()
+    return {k: int(v) for k, v in got.items() if k.startswith(FAMILIES)}
+
+
+def _mark() -> None:
+    """Snapshot both packages' counters before a serve.  Comparing
+    absolute registry contents would also see what earlier tests of the
+    worker left in the JAX registry that ``telemetry.reset()`` does not
+    clear (a ``monitor.get_stat`` made outside the telemetry module, such
+    as the reference telemetry test's ``serving.test_ms{slot="3"}``)."""
+    for pkg in ("jax", "torch"):
+        _BASE[pkg] = _raw(pkg)
+
+
 @pytest.fixture(autouse=True)
 def _clean():
     for f, t in ((jfaults, jtl), (faults, tl)):
         f.reset()
         t.reset()
+    _mark()
     yield
     jfaults.reset()
     faults.reset()
@@ -84,9 +105,11 @@ def kv_env(monkeypatch):
 
 
 def _counters(pkg) -> dict:
-    got = monitor.stats() if pkg == "jax" else tl.counters()
-    return {k: int(v) for k, v in sorted(got.items())
-            if k.startswith(FAMILIES) and v}
+    """One package's nonzero counters of the compared families, as the
+    difference from the last :func:`_mark`."""
+    base = _BASE.get(pkg, {})
+    got = {k: v - base.get(k, 0) for k, v in sorted(_raw(pkg).items())}
+    return {k: v for k, v in got.items() if v}
 
 
 @pytest.fixture(scope="module")
@@ -427,6 +450,7 @@ def test_spill_restore_bit_parity(kv_env, kv, mode, markov):
         seen[pkg] = (warm, stats, _counters(pkg))
         tl.reset()
         jtl.reset()
+        _mark()
     assert seen["torch"] == seen["jax"]
 
 
@@ -460,6 +484,7 @@ def test_oom_fault_spills_cold_prefix_with_parity(kv_env, markov):
         clean = run(pkg, "")
         tl.reset()
         jtl.reset()
+        _mark()
         faulted = run(pkg, "oom:serving.block:1")
         assert faulted[:2] == clean[:2]
         got[pkg] = (faulted, _counters(pkg))
