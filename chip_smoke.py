@@ -118,18 +118,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    captured step a position, rows equal by the tie rule to a server's;
    then the speculation phase (``spec_phase``, K = 4): on small fp32
    models the batched verify's logits on the card against the CPU's
-   (PATH_TOL) and a speculating card server's greedy streams against the
+   (PATH_TOL) and a speculating card server's greedy streams exactly the
    plain CPU server's, both layouts; on GPT-1.3B the main path's 8
    requests, graphed and warmed, plain and with draft == target (a second
    cache, the same weights) on the contiguous and the paged layout —
-   gated: streams equal to plain by the tie rule, target passes a token
+   gated: streams equal to plain by the tie rule, every served token
+   within TIE_TOL of the best logit of a teacher-forced forward over its
+   own stream, target passes a token
    at least 1.5x fewer, every verify one replay of ``spec_verify@4`` with
    no capture or build after warmup, one tick-body launch of the decode
    kernel a layer a verify and every decode launch on the tick body —
    then, reported: the JAX bench's small drafter (hidden 512, 4 layers, 8
    heads, seed 1), n-gram self-drafting on prompts whose second half
-   repeats the first, and a sampled serve at temperature 1 (each arm's
-   tokens/s, target passes a token, acceptance, fallbacks, draft steps);
+   repeats the first, and a sampled serve at temperature 1 beside a
+   plain sampled serve (each arm's tokens/s, target passes a token,
+   acceptance, fallbacks, draft steps);
    then the beam phase (``beam_phase``): small fp32 models' beam search
    on the card equal to the CPU's (tokens exactly, scores within 1e-4);
    GPT-1.3B, 2 prompts of 64 tokens, 32 new: one beam equals greedy
@@ -225,6 +228,7 @@ PATH_TOL = 1e-3                  # fp32 logits, card vs CPU, TF32 off
 # leaves the reference must do so on a token whose logit, in the
 # reference's own context, is within two steps of the best one.
 TIE_TOL = 0.0625
+SPEC_K = 4                       # tokens a slot a speculative verify round
 # CE dlogits are softmax values ~ 1/V, rounded once to bf16 by kernel and
 # twin alike: |kernel - plain| <= CE_DX_ATOL + BF16_TOL * |plain|
 CE_DX_ATOL = 1e-6
@@ -357,7 +361,8 @@ def check_decode(torch, da):
     """Decode at a tick's widths and a few more against the plain twin,
     each launch on the route ``da.route`` names (``tick_launches`` and
     ``tc_launches`` count them): the main path's shape (T = 512 cache
-    rows, Hkv = 16, Tq = 1, bf16) first, then T = 2048 over GQA, Tq = 4
+    rows, Hkv = 16, Tq = 1, bf16) first, then its speculative verify's
+    (Tq = SPEC_K: R = 4 on the tick body), then T = 2048 over GQA, Tq = 4
     and int8, head_dim 256 (Tq = 16 at G = 4: the tensor-core route), the
     tick body's R = 12 and 15 at head_dim 64, 128 and 256, and fp32 q over
     an fp32 cache (tolerance 1e-4: summation order only).  A tick launch
@@ -365,7 +370,7 @@ def check_decode(torch, da):
     gen = torch.Generator(device="cuda").manual_seed(2)
     B = 8
     worst = 0.0
-    cases = [(512, 16, 1, "bf16", 128)] + [
+    cases = [(512, 16, 1, "bf16", 128), (512, 16, SPEC_K, "bf16", 128)] + [
         (2048, h, tq, kv, 128) for h in (16, 4) for tq in (1, 4)
         for kv in ("bf16", "int8")] + [(1024, 4, 1, "bf16", 256),
                                        (1024, 4, 16, "int8", 256),
@@ -495,7 +500,9 @@ def paged_inputs(torch, da, gen, Tq, Hq, Hkv, bs, nmax, kv, pos_list,
 def check_paged(torch, da):
     """The paged kernel against gather-then-attend on every live slot, at
     the paged path's tick shape first (B = 8, Hq = Hkv = 16, bs = 16,
-    nmax = 32, bf16), then GQA, Tq = 4, int8, block size 8, the routes'
+    nmax = 32, bf16) and its speculative verify's (Tq = SPEC_K: R = 4 on
+    the tick body over the tables), then GQA, Tq = 4, int8, block size 8,
+    the routes'
     edge R_TC - 1 / R_TC and the paged serve's admission widths 128 and
     256 (bf16 and int8); last, head_dim 256.  Each launch on the route
     ``da.paged_route`` names (``tick_launches`` and ``tc_launches`` count
@@ -509,6 +516,7 @@ def check_paged(torch, da):
     fn = da.paged_decode_attention
     for Tq, Hkv, kv, bs, hd in [(1, 16, "bf16", 16, 128),
                                 (1, 16, "int8", 16, 128),
+                                (SPEC_K, 16, "bf16", 16, 128),
                                 (4, 4, "bf16", 8, 128),
                                 (4, 4, "int8", 16, 128),
                                 (da.R_TC - 1, 16, "bf16", 16, 128),
@@ -1334,12 +1342,26 @@ def time_flash(torch, fa, F, T):
     }
 
 
+def held_to_plain(torch, out, ref, live, what):
+    """max |out - ref| over the ``live`` slots; raises unless within
+    BF16_TOL * (1 + |ref|) elementwise."""
+    live = list(live)
+    out, ref = out[live].float(), ref[live].float()
+    torch.cuda.synchronize()
+    err = (out - ref).abs().max().item()
+    log(f"  {what}: max|out-plain| {err:.3g} (tol {BF16_TOL}*(1+|plain|))")
+    if not torch.allclose(out, ref, atol=BF16_TOL, rtol=BF16_TOL):
+        raise AssertionError(f"{what}: the kernel disagrees with plain")
+    return err
+
+
 def time_decode(torch, da, F, pos_list, T=512, Tq=1):
     """The decode kernel at a tick's shape (Tq = 1) or a speculative
     verify's (Tq = K rows a slot, each seeing the cache through its own
     position): B = len(pos_list) slots, Hq = Hkv = 16, hd 128, bf16.
     Bytes: each slot's live K/V rows, q and out; operations: the visible
-    (query, key) pairs."""
+    (query, key) pairs.  At Tq > 1 the kernel's output is held against the
+    plain version's on these inputs first (``max_abs_err``)."""
     gen = torch.Generator(device="cuda").manual_seed(5)
     B, Hq, Hkv, hd = len(pos_list), 16, 16, 128
     q = torch.randn(B, Tq, Hq, hd, generator=gen,
@@ -1356,9 +1378,13 @@ def time_decode(torch, da, F, pos_list, T=512, Tq=1):
             <= pos[:, None, None] + torch.arange(Tq, device="cuda")[:, None]
             )[:, None]                               # [B, 1, Tq, T]
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    err = {} if Tq == 1 else {"max_abs_err": held_to_plain(
+        torch, da.decode_attention(q, k, v, pos),
+        da._plain_decode(q, k, v, pos, None, None, None), range(B),
+        f"decode timed at Tq={Tq} pos={pos_list}")}
     return {
         "shape": f"B={B} Tq={Tq} Hq={Hq} Hkv={Hkv} hd={hd} T={T} bf16 "
-                 f"pos={pos_list}",
+                 f"pos={pos_list}", **err,
         "ms": cold_ms(torch, lambda: da.decode_attention(q, k, v, pos)),
         "plain_ms": cold_ms(torch, lambda: da._plain_decode(
             q, k, v, pos, None, None, None)),
@@ -1407,7 +1433,9 @@ def time_paged(torch, da, F, pos_list, Tq=1):
     (one slot, Tq = C query rows).  Bound: the live K/V rows, the tables,
     q and the output; operations: the visible (query, key) pairs.
     Yardstick: SDPA on a pre-gathered contiguous copy (``gather_ms`` times
-    the gather of K and V on its own)."""
+    the gather of K and V on its own).  At Tq > 1 the kernel's output is
+    held against the plain version's on these inputs first
+    (``max_abs_err``)."""
     gen = torch.Generator(device="cuda").manual_seed(9)
     bs, nmax, Hq, hd = 16, 32, 16, 128
     q, k, v, _, _, tables, pos = paged_inputs(
@@ -1423,9 +1451,13 @@ def time_paged(torch, da, F, pos_list, Tq=1):
             <= pos[:, None, None] + torch.arange(Tq, device="cuda")[:, None]
             )[:, None]                              # [B, 1, Tq, T]
     qt, kt, vt = q.transpose(1, 2), kg.transpose(1, 2), vg.transpose(1, 2)
+    err = {} if Tq == 1 else {"max_abs_err": held_to_plain(
+        torch, da.paged_decode_attention(q, k, v, tables, pos),
+        da._plain_paged(q, k, v, tables, pos, None, None, None), range(B),
+        f"paged decode timed at Tq={Tq} pos={pos_list}")}
     return {
         "shape": f"B={B} Tq={Tq} Hq={Hq} Hkv={Hq} hd={hd} bs={bs} "
-                 f"nmax={nmax} bf16 pos={pos_list}",
+                 f"nmax={nmax} bf16 pos={pos_list}", **err,
         "ms": cold_ms(torch, lambda: da.paged_decode_attention(
             q, k, v, tables, pos)),
         "plain_ms": cold_ms(torch, lambda: da._plain_paged(
@@ -1702,6 +1734,18 @@ def check_tokens(torch, gpt, params, cfg, prompt, got, ref, what,
                              f"{i}: {got[:i + 3]} vs {ref[:i + 3]}, logit "
                              f"gap {gap}")
     return i, gap
+
+
+def forced_gap(torch, gpt, params, cfg, prompt, got):
+    """The largest, over every token of the greedy stream ``got``, of the
+    best logit less got's logit in a teacher-forced forward over prompt +
+    got: 0 for a stream that is the forward's argmax throughout, a bf16
+    tie's step where a route broke a tie the other way."""
+    seq = torch.tensor([prompt + got[:-1]], device="cuda")
+    with torch.no_grad():
+        rows = gpt.forward(params, seq, cfg)[0, len(prompt) - 1:].float()
+    idx = torch.tensor(got, device="cuda")[:, None]
+    return (rows.max(-1).values - rows.gather(1, idx)[:, 0]).max().item()
 
 
 def check_solo(torch, gpt, G, params, cfg, prompt, served, new):
@@ -2362,7 +2406,6 @@ def generate_path(torch, gpt, G, serving, engine):
 # speculation and beam search on GPT-1.3B
 # ---------------------------------------------------------------------------
 
-SPEC_K = 4
 # the small drafter of the JAX bench's speculation arm: the target's
 # vocabulary, hidden 512, 4 layers, 8 heads, random weights from seed 1
 SMALL_DRAFT = dict(vocab_size=50304, hidden_size=512, num_layers=4,
@@ -2388,9 +2431,8 @@ def spec_small_vs_cpu(torch, gpt, serving):
     tick body, R = K * G) against the CPU's plain math from the same
     admitted prompts, within PATH_TOL; and a graphed speculating server
     (draft == target) on the card against the plain server on the CPU:
-    the same greedy streams (a divergence only on a PATH_TOL tie, the
-    rule for two correct routes).  Returns the largest logit gap."""
-    worst, divs = 0.0, 0
+    exactly the same greedy streams.  Returns the largest logit gap."""
+    worst = 0.0
     for name, cfg, kv in _small_models(torch, gpt):
         os.environ["PADDLE_TPU_KV_DTYPE"] = kv
         cpu = gpt.init_params(cfg, seed=11, device="cpu")
@@ -2425,22 +2467,20 @@ def spec_small_vs_cpu(torch, gpt, serving):
             got = serve(torch, srv, prompts, 12)[0]
             rounds = srv._spec_rounds
             srv.close()
-            for r in range(len(prompts)):
-                d = check_tokens(torch, gpt, card, cfg, prompts[r], got[r],
-                                 ref[r], f"{name} kv={kv or 'fp32'} "
-                                 f"{layout} spec request {r} vs the CPU",
-                                 tol=PATH_TOL)
-                divs += d is not None
+            if got != ref:
+                raise AssertionError(f"{name} kv={kv or 'fp32'} {layout}: "
+                                     f"spec streams on the card {got} differ "
+                                     f"from plain on the CPU {ref}")
             if not rounds:
                 raise AssertionError(f"{name} {layout}: no verify round")
         log(f"  {name} kv={kv or 'fp32'}: max|verify logits card - cpu| so "
             f"far {worst:.3g} (tol {PATH_TOL}); spec streams on the card "
-            f"vs plain on the CPU, divergences so far {divs}")
+            f"equal plain on the CPU, both layouts")
         if not worst <= PATH_TOL:
             raise AssertionError(f"verify on the card disagrees with the CPU "
                                  f"on {name}")
     os.environ.pop("PADDLE_TPU_KV_DTYPE", None)
-    return worst, divs
+    return worst
 
 
 def _binds(srv):
@@ -2533,7 +2573,11 @@ def spec_arm(torch, engine, wl, tl, ks, path, cfg, params, prompts, new,
 
 def spec_gates(torch, gpt, cfg, params, prompts, plain, arm, served):
     """The draft == target arm's gates: streams equal the plain server's
-    by the tie rule; at least 1.5x fewer target passes a token; every
+    by the tie rule, and every token of every speculative stream (the
+    plain ones too, as the control) within TIE_TOL of the best logit of a
+    teacher-forced forward over its own prompt + stream, so a verify
+    fault after an early tie still shows; at least 1.5x fewer target
+    passes a token; every
     verify one replay of ``spec_verify@K`` and no capture or build after
     the warmup; each verify replay one launch of the layout's decode
     kernel a layer on its tick body, and every decode launch of the serve
@@ -2544,6 +2588,16 @@ def spec_gates(torch, gpt, cfg, params, prompts, plain, arm, served):
                            f"{r} vs plain") for r in range(len(prompts))}
     arm["plain_equal"] = all(d is None for d in div.values())
     arm["plain_divergences"] = {r: d for r, d in div.items() if d is not None}
+    for key, streams in (("forced_gap", served),
+                         ("plain_forced_gap", plain[0])):
+        arm[key] = max(forced_gap(torch, gpt, params, cfg, prompts[r],
+                                  streams[r]) for r in range(len(prompts)))
+    if not (arm["forced_gap"] <= TIE_TOL and arm["plain_forced_gap"]
+            <= TIE_TOL):
+        raise AssertionError(f"{arm['arm']} {arm['path']}: a served token "
+                             f"{arm['forced_gap']} (plain "
+                             f"{arm['plain_forced_gap']}) under the best "
+                             f"teacher-forced logit (tol {TIE_TOL})")
     ratio = plain[1]["passes_per_token"] / arm["passes_per_token"]
     arm["passes_ratio_vs_plain"] = ratio
     if ratio < 1.5:
@@ -2573,7 +2627,9 @@ def spec_gates(torch, gpt, cfg, params, prompts, plain, arm, served):
     if arm["path"] == "main" and arm["launches"][wrap] != want:
         raise AssertionError(f"{arm['launches'][wrap]} launches of {wrap}")
     log(f"  gates: {arm['arm']} {arm['path']} streams equal to plain "
-        f"{arm['plain_equal']} {arm['plain_divergences']}; passes "
+        f"{arm['plain_equal']} {arm['plain_divergences']}; every token "
+        f"within {arm['forced_gap']:.4g} of the teacher-forced best (plain "
+        f"streams {arm['plain_forced_gap']:.4g}, tol {TIE_TOL}); passes "
         f"{ratio:.3f}x fewer; {arm['verify_replays']} verify replays, one a "
         f"round, each {L} tick-body launches of {wrap}; the draft's own "
         f"steps launched {arm['draft_decode_launches']} more")
@@ -2585,10 +2641,11 @@ def spec_phase(torch, gpt, serving, engine, ks, wl):
     requests, graphed: plain, draft == target (gated, contiguous and
     paged: :func:`spec_gates`), the bench's small drafter and n-gram
     self-drafting on prompts whose second half repeats the first
-    (reported), and one sampled serve at temperature 1."""
+    (reported), and one sampled serve at temperature 1 beside a plain
+    sampled serve of the same requests."""
     from paddle_tpu_torch import telemetry as tl
 
-    vgap, vdivs = spec_small_vs_cpu(torch, gpt, serving)
+    vgap = spec_small_vs_cpu(torch, gpt, serving)
     cfg = gpt.gpt_1p3b()
     params = gpt.init_params(cfg, seed=0, device="cuda")
     prompts, new = wl.main_prompts(cfg.vocab_size, 0), wl.NEW
@@ -2617,15 +2674,20 @@ def spec_phase(torch, gpt, serving, engine, ks, wl):
     arms["main n-gram"] = spec_arm(torch, engine, wl, tl, ks, "main", cfg,
                                    params, halves, new, "n-gram",
                                    spec_k=SPEC_K)[1]
+    hot = dict(temperature=1.0)
+    arms["main sampled plain"] = spec_arm(torch, engine, wl, tl, ks, "main",
+                                          cfg, params, prompts, new,
+                                          "plain sampled, temperature 1",
+                                          sub=hot)[1]
     arms["main sampled"] = spec_arm(torch, engine, wl, tl, ks, "main", cfg,
                                     params, prompts, new,
                                     "draft==target sampled, temperature 1",
-                                    sub=dict(temperature=1.0), **both)[1]
+                                    sub=hot, **both)[1]
     if arms["main sampled"]["tokens"] != len(prompts) * new:
         raise AssertionError("the sampled serve did not finish")
     # the gated arms' launches count for the kernels line
     stats = {"k": SPEC_K, "verify_logit_gap_small": vgap,
-             "small_stream_divergences": vdivs,
+             "small_streams_equal": True,
              "arms": {n: {k: v for k, v in a.items()
                           if k not in ("launches", "tc_launches")}
                       for n, a in arms.items()}}

@@ -144,16 +144,6 @@ def spec_k() -> int:
     return k
 
 
-def spec_tree() -> int:
-    """The tree-speculation node budget (``PADDLE_TPU_SPEC_TREE``, default
-    0 = off).  Tree speculation is not ported: a server that resolves a
-    budget > 0 refuses to build rather than serve linearly unasked."""
-    try:
-        return max(0, int(os.environ.get("PADDLE_TPU_SPEC_TREE", "0")))
-    except ValueError:
-        return 0
-
-
 def spec_min_accept() -> float:
     """Rolling per-request acceptance rate below which a speculating slot
     falls back to plain decode (``PADDLE_TPU_SPEC_MIN_ACCEPT``, default

@@ -504,10 +504,9 @@ class DecodeServer:
         """The speculation arguments' checks, as the JAX server's: K, and
         a draft that shares the target's vocabulary, covers the serving
         window and lives on the server's device.  Sets the spec state."""
-        n_tree = _flags.spec_tree() if spec_tree is None else int(spec_tree)
-        if n_tree:
+        if spec_tree:
             raise NotImplementedError(
-                f"spec_tree={n_tree}: tree speculation is not ported yet "
+                f"spec_tree={spec_tree}: tree speculation is not ported yet "
                 f"(it is the port's next slice, ROADMAP A5); linear "
                 f"spec_k= serves")
         if spec_k is not None:
@@ -1286,16 +1285,12 @@ class DecodeServer:
             lim = min(lim, drows, self.draft_cfg.max_seq_len)
         return lim
 
-    def _spec_chunk(self) -> int:
-        """Cache rows one round writes per slot (the feed row included)."""
-        return self._spec_k
-
     def _spec_gate(self) -> bool:
         """Whether every slot can take a round, without changing any
         state: past its prompt and not admitting (a round consumes
         feedback positions only; a budgeted claim waits for graduation),
         and ``pos + K`` inside :meth:`_spec_limit`."""
-        K, lim = self._spec_chunk(), self._spec_limit()
+        K, lim = self._spec_k, self._spec_limit()
         return all(not st.get("admitting")
                    and st["pos"] >= len(st["prompt"]) - 1
                    and st["pos"] + K <= lim
@@ -1496,7 +1491,7 @@ class DecodeServer:
         recent regime."""
         if st.get("spec_off") or not st.get("spec_prop"):
             return
-        k = max(1, self._spec_chunk() - 1)
+        k = max(1, self._spec_k - 1)
         if st["spec_prop"] >= 16 * k:
             st["spec_prop"] //= 2
             st["spec_acc"] //= 2
@@ -1725,7 +1720,7 @@ class DecodeServer:
             if self._slots and self._spec_ready():
                 # a round yields up to K tokens a slot: ceil(block / K)
                 # rounds cover the block's work, one fetch each
-                for _ in range(max(1, -(-block // self._spec_chunk()))):
+                for _ in range(max(1, -(-block // self._spec_k))):
                     if not self._slots or not self._spec_ready():
                         break
                     self._tick_spec()

@@ -198,14 +198,19 @@ def test_spec_small_distinct_draft_parity(markov):
 
 
 def test_spec_kv_dtype_parity(monkeypatch):
-    """int8 KV: the verify writes through the quantized store — spec and
-    plain agree in the same storage dtype."""
+    """int8 KV on both layouts: the verify writes through the quantized
+    store (the contiguous cache's scale planes, the pool's through the
+    tables) — spec and plain agree in the same storage dtype, and with
+    the JAX int8 spec server."""
     monkeypatch.setenv("PADDLE_TPU_KV_DTYPE", "int8")
     model = _pair(3)
     prompts = _prompts(4, 2, 6)
-    kw = dict(max_batch=2, max_len=48)
-    assert _serve("torch", model, prompts, draft="self", spec_k=4, **kw) \
-        == _serve("torch", model, prompts, **kw)
+    for layout in ("contiguous", "paged"):
+        kw = _layout(layout)
+        got = _serve("torch", model, prompts, draft="self", spec_k=4, **kw)
+        assert got == _serve("torch", model, prompts, **kw), layout
+        assert got == _serve("jax", model, prompts, draft="self", spec_k=4,
+                             **kw), layout
 
 
 def _passes(srv):
