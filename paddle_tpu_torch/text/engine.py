@@ -615,8 +615,14 @@ class _Graph:
             warm = _counts()
             graph = torch.cuda.CUDAGraph()
             # a failure inside ends the capture on the way out (the
-            # context manager's exit); the graph is dropped below
-            with torch.cuda.graph(graph, stream=side):
+            # context manager's exit); the graph is dropped below.
+            # "thread_local": only this thread is barred from syncing
+            # calls while it captures.  In the default "global" mode an
+            # event wait on any other thread voids the capture — a fetch
+            # that the wedge watchdog abandoned (resilience.call_with_
+            # budget) wakes and waits on its event, whenever that is.
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
                 out = self.body(p, c, *self.static)
         except BaseException:
             cur.wait_stream(side)

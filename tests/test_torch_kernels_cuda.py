@@ -1337,6 +1337,45 @@ def test_a_failed_capture_leaves_no_graph(monkeypatch):
     srv.close()
 
 
+def test_capture_survives_an_event_wait_on_another_thread(monkeypatch):
+    """While ``warmup`` captures a graphed server's steps, another thread
+    waits on a finished event over and over, as a fetch the wedge
+    watchdog abandoned does when it wakes.  Every capture completes, the
+    waits raise nothing, and the warmed server serves the eager
+    server's tokens."""
+    import threading
+
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case("contiguous", monkeypatch)
+    want = _serve_all(_graph_server(cfg, params, "contiguous", False),
+                      prompts)
+    ev = torch.cuda.Event()
+    ev.record()
+    stop, errors, waits = threading.Event(), [], [0]
+
+    def wait_loop():
+        try:
+            while not stop.is_set():
+                ev.synchronize()
+                waits[0] += 1
+        except BaseException as e:  # noqa: BLE001 - asserted below
+            errors.append(e)
+
+    srv = _graph_server(cfg, params, "contiguous", True)
+    t = threading.Thread(target=wait_loop, daemon=True)
+    t.start()
+    try:
+        srv.warmup(prompt_lens=_GRAPH_LENS)
+    finally:
+        stop.set()
+        t.join()
+    assert not errors and waits[0] > 0, (errors, waits)
+    assert engine.ENGINE.graphs(srv._bind)
+    assert _serve_all(srv, prompts) == want
+    srv.close()
+
+
 def test_a_real_oom_is_classified_and_survived():
     """Allocating more than the card has free raises
     ``torch.cuda.OutOfMemoryError``, which ``resilience.is_oom`` classifies;
