@@ -128,11 +128,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    at least 1.5x fewer, every verify one replay of ``spec_verify@4`` with
    no capture or build after warmup, one tick-body launch of the decode
    kernel a layer a verify and every decode launch on the tick body —
-   then, reported: the JAX bench's small drafter (hidden 512, 4 layers, 8
-   heads, seed 1), n-gram self-drafting on prompts whose second half
-   repeats the first, and a sampled serve at temperature 1 beside a
-   plain sampled serve (each arm's tokens/s, target passes a token,
-   acceptance, fallbacks, draft steps);
+   and the same gates for tree speculation (draft == target, N = 4 nodes,
+   branch 2), whose every round is one replay of ``spec_tree_verify@4``
+   with no decode launch in it (its attention is the einsum under the
+   tree mask); on the small fp32 models the tree verify's logits card
+   against CPU (PATH_TOL) and the tree servers' streams (draft == target
+   and the biased draft) exactly the plain CPU server's — then, reported:
+   the JAX bench's small drafter (hidden 512, 4 layers, 8 heads, seed 1),
+   the bench's biased draft (the final LN bias plus 30 x wte[42]) tree
+   against linear, n-gram self-drafting linear and tree on prompts whose
+   second half repeats the first, and a sampled serve at temperature 1
+   beside a plain sampled serve (each arm's tokens/s, target passes a
+   token, acceptance, fallbacks, draft steps, the mean accepted path, the
+   device ms of a replay of each graph a round runs);
    then the beam phase (``beam_phase``): small fp32 models' beam search
    on the card equal to the CPU's (tokens exactly, scores within 1e-4);
    GPT-1.3B, 2 prompts of 64 tokens, 32 new: one beam equals greedy
@@ -2425,14 +2433,43 @@ def _small_server(serving, cfg, params, dev, layout, **kw):
     return srv
 
 
-def spec_small_vs_cpu(torch, gpt, serving):
+def _biased(params, scale=30.0, row=42):
+    """The JAX bench's biased draft (bench.py's tree arm): the target's
+    weights with the final LayerNorm bias pushed toward embedding row
+    ``row``, so its argmax is wrong nearly everywhere and the truth often
+    sits at its second choice — a tree's sibling branch."""
+    bad = dict(params)
+    bad["ln_f_b"] = params["ln_f_b"] + scale * params["wte"][row]
+    return bad
+
+
+def _random_trees(rng, G, B, N):
+    """Random trees of 2..N nodes a slot, padded with self-only rows at
+    depth 0: (ancestor mask [B, N, N] bool, depths [B, N] int64) as numpy
+    arrays."""
+    amask = np.zeros((B, N, N), bool)
+    amask[:, np.arange(N), np.arange(N)] = True
+    depth = np.zeros((B, N), np.int64)
+    for b in range(B):
+        n = int(rng.integers(2, N + 1))
+        parent = [-1] + [int(rng.integers(0, j)) for j in range(1, n)]
+        amask[b, :n, :n] = G.tree_ancestor_mask(parent)
+        depth[b, :n] = G.tree_depths(parent)
+    return amask, depth
+
+
+def spec_small_vs_cpu(torch, gpt, G, serving):
     """Small fp32 models (fp32 and int8 KV), contiguous and paged: the
     batched verify's logits at K = SPEC_K on the card (the decode kernels'
-    tick body, R = K * G) against the CPU's plain math from the same
-    admitted prompts, within PATH_TOL; and a graphed speculating server
-    (draft == target) on the card against the plain server on the CPU:
-    exactly the same greedy streams.  Returns the largest logit gap."""
-    worst = 0.0
+    tick body, R = K * G) and the tree verify's at N = SPEC_K over random
+    trees (the einsum under the tree mask) against the CPU's plain math
+    from the same admitted prompts, within PATH_TOL; and graphed
+    speculating servers on the card — linear with draft == target, tree
+    with draft == target and with the biased draft (its paths leave the
+    trunk, so the rows move) — against the plain server on the CPU:
+    exactly the same greedy streams.  Returns the largest logit gaps,
+    linear and tree."""
+    worst = tworst = 0.0
     for name, cfg, kv in _small_models(torch, gpt):
         os.environ["PADDLE_TPU_KV_DTYPE"] = kv
         cpu = gpt.init_params(cfg, seed=11, device="cpu")
@@ -2441,8 +2478,10 @@ def spec_small_vs_cpu(torch, gpt, serving):
         prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
                    for n in (7, 60, 100)]
         for layout in ("contiguous", "paged"):
-            logits = {}
+            logits, tlogits = {}, {}
             toks = rng.integers(0, cfg.vocab_size, (4, SPEC_K))
+            amask, depth = (torch.from_numpy(a) for a in
+                            _random_trees(rng, G, 4, SPEC_K))
             for dev, p in (("cpu", cpu), ("cuda", card)):
                 srv = _small_server(serving, cfg, p, dev, layout)
                 for pr in prompts:
@@ -2456,9 +2495,15 @@ def spec_small_vs_cpu(torch, gpt, serving):
                 logits[dev] = serving.spec_verify_batched(
                     p, srv.cache, torch.from_numpy(toks).to(dev),
                     torch.from_numpy(pos).to(dev), cfg)[0][live].cpu()
+                tlogits[dev] = serving.spec_tree_verify_batched(
+                    p, srv.cache, torch.from_numpy(toks).to(dev),
+                    amask.to(dev), depth.to(dev),
+                    torch.from_numpy(pos).to(dev), cfg)[0][live].cpu()
                 srv.close()
             worst = max(worst, (logits["cuda"] - logits["cpu"]).abs().max()
                         .item())
+            tworst = max(tworst, (tlogits["cuda"] - tlogits["cpu"]).abs()
+                         .max().item())
             ref = serve(torch, _small_server(serving, cfg, cpu, "cpu",
                                              layout), prompts, 12)[0]
             srv = _small_server(serving, cfg, card, "cuda", layout,
@@ -2473,14 +2518,31 @@ def spec_small_vs_cpu(torch, gpt, serving):
                                      f"from plain on the CPU {ref}")
             if not rounds:
                 raise AssertionError(f"{name} {layout}: no verify round")
+            for dname, dp in (("draft==target", card),
+                              ("biased", _biased(card))):
+                srv = _small_server(serving, cfg, card, "cuda", layout,
+                                    spec_tree=SPEC_K, draft_cfg=cfg,
+                                    draft_params=dp)
+                got = serve(torch, srv, prompts, 12)[0]
+                rounds = srv._spec_rounds
+                srv.close()
+                if got != ref:
+                    raise AssertionError(
+                        f"{name} kv={kv or 'fp32'} {layout} tree {dname}: "
+                        f"streams on the card {got} differ from plain on "
+                        f"the CPU {ref}")
+                if not rounds:
+                    raise AssertionError(f"{name} {layout} tree {dname}: "
+                                         f"no verify round")
         log(f"  {name} kv={kv or 'fp32'}: max|verify logits card - cpu| so "
-            f"far {worst:.3g} (tol {PATH_TOL}); spec streams on the card "
-            f"equal plain on the CPU, both layouts")
-        if not worst <= PATH_TOL:
+            f"far {worst:.3g}, tree verify {tworst:.3g} (tol {PATH_TOL}); "
+            f"linear and tree spec streams on the card equal plain on the "
+            f"CPU, both layouts")
+        if not (worst <= PATH_TOL and tworst <= PATH_TOL):
             raise AssertionError(f"verify on the card disagrees with the CPU "
                                  f"on {name}")
     os.environ.pop("PADDLE_TPU_KV_DTYPE", None)
-    return worst
+    return worst, tworst
 
 
 def _binds(srv):
@@ -2521,8 +2583,11 @@ def spec_arm(torch, engine, wl, tl, ks, path, cfg, params, prompts, new,
     passes = (srv._spec_rounds + srv._spec_plain_steps) if spec \
         else srv._step_no
     counts = srv.stats()
-    verify = (rep.get((0, f"serving.spec_verify@{srv._spec_k}"), 0)
-              if spec else 0)
+    N = srv._spec_tree_n
+    vname = (f"serving.spec_tree_verify@{N}" if N
+             else f"serving.spec_verify@{srv._spec_k}")
+    cname = f"serving.spec_tree_commit@{N}"
+    verify = rep.get((0, vname), 0) if spec else 0
     stats = {
         "arm": name, "path": path, "tokens": n_tok, "wall_s": wall,
         "tokens_per_s": n_tok / wall, "ticks": len(ticks),
@@ -2534,7 +2599,9 @@ def spec_arm(torch, engine, wl, tl, ks, path, cfg, params, prompts, new,
         "fallbacks": counts.get("spec.fallbacks", 0),
         "reearns": counts.get("spec.reearns", 0),
         "draft_steps": counts.get("spec.draft_steps", 0),
-        "verify_replays": verify,
+        "verify_replays": verify, "tree": N,
+        "commit_replays": rep.get((0, cname), 0),
+        "tree_accept_len": srv.load_stats()["spec_tree_accept_len"],
         "replays": {f"{'draft ' if i else ''}{n}": v
                     for (i, n), v in sorted(rep.items()) if v},
         "launches": launches, "tick_launches": tick, "tc_launches": tc,
@@ -2550,12 +2617,12 @@ def spec_arm(torch, engine, wl, tl, ks, path, cfg, params, prompts, new,
     stats["graph_ms"] = {
         f"{'draft ' if i else ''}{n}": event_ms(torch, lambda g=g: g(
             *g.static)) for (i, n), g in sorted(graphs.items())
-        if n in ("serving.step", f"serving.spec_verify@{srv._spec_k}",
+        if n in ("serving.step", vname, cname,
                  f"serving.block@{srv._spec_k - 1}")}
     if spec:
         # what one verify replay launches of each decode wrapper, as its
         # capture recorded it
-        g = graphs[(0, f"serving.spec_verify@{srv._spec_k}")]
+        g = graphs[(0, vname)]
         stats["verify_delta"] = {
             f"{w.__name__}.{a}": d for (w, a), d in
             zip(engine._counter_fields(), g.delta)
@@ -2565,8 +2632,10 @@ def spec_arm(torch, engine, wl, tl, ks, path, cfg, params, prompts, new,
         f"{passes} target passes ({stats['passes_per_token']:.4f} a token: "
         f"{stats['verify_rounds']} verify rounds + {stats['plain_steps']} "
         f"plain steps), accept rate {stats['accept_rate']}, fallbacks "
-        f"{stats['fallbacks']}, draft steps {stats['draft_steps']}, mean "
-        f"call {stats['tick_ms_mean']:.2f} ms; replays {stats['replays']}; "
+        f"{stats['fallbacks']}, draft steps {stats['draft_steps']}"
+        + (f", mean accepted path {stats['tree_accept_len']}" if N else "")
+        + f", mean call {stats['tick_ms_mean']:.2f} ms; replays "
+        f"{stats['replays']}; "
         f"device ms a replay {stats['graph_ms']}")
     return served, stats
 
@@ -2578,10 +2647,12 @@ def spec_gates(torch, gpt, cfg, params, prompts, plain, arm, served):
     teacher-forced forward over its own prompt + stream, so a verify
     fault after an early tie still shows; at least 1.5x fewer target
     passes a token; every
-    verify one replay of ``spec_verify@K`` and no capture or build after
-    the warmup; each verify replay one launch of the layout's decode
-    kernel a layer on its tick body, and every decode launch of the serve
-    on the tick body: L x (verify + plain steps + the draft's steps)."""
+    verify one replay of ``spec_verify@K`` (a tree arm: ``spec_tree_verify
+    @N``) and no capture or build after the warmup; each linear verify
+    replay one launch of the layout's decode kernel a layer on its tick
+    body (a tree verify none: its attention is the einsum under the tree
+    mask), and every decode launch of the serve on the tick body: L x
+    (linear verifies + plain steps + the draft's steps)."""
     L = cfg.num_layers
     div = {r: check_tokens(torch, gpt, params, cfg, prompts[r], served[r],
                            plain[0][r], f"{arm['arm']} {arm['path']} request "
@@ -2612,14 +2683,16 @@ def spec_gates(torch, gpt, cfg, params, prompts, plain, arm, served):
                              f"{arm['builds_after_warmup']}")
     wrap = ("paged_decode_attention" if arm["path"] == "paged"
             else "decode_attention")
-    if arm["verify_delta"] != {f"{wrap}.launches": L,
-                               f"{wrap}.tick_launches": L}:
+    tree = bool(arm["tree"])
+    if arm["verify_delta"] != ({} if tree else {f"{wrap}.launches": L,
+                                                f"{wrap}.tick_launches": L}):
         raise AssertionError(f"a verify replay launches "
                              f"{arm['verify_delta']}")
     rp = arm["replays"]
     draft = (SPEC_K - 1) * rp.get(f"draft serving.block@{SPEC_K - 1}", 0) \
         + rp.get("draft serving.step", 0)
-    want = L * (arm["verify_replays"] + rp.get("serving.step", 0) + draft)
+    want = L * (0 if tree else arm["verify_replays"]) \
+        + L * (rp.get("serving.step", 0) + draft)
     arm["draft_decode_launches"] = L * draft
     if not arm["tick_launches"][wrap] == want:
         raise AssertionError(f"{arm['tick_launches'][wrap]} tick launches "
@@ -2631,35 +2704,52 @@ def spec_gates(torch, gpt, cfg, params, prompts, plain, arm, served):
         f"within {arm['forced_gap']:.4g} of the teacher-forced best (plain "
         f"streams {arm['plain_forced_gap']:.4g}, tol {TIE_TOL}); passes "
         f"{ratio:.3f}x fewer; {arm['verify_replays']} verify replays, one a "
-        f"round, each {L} tick-body launches of {wrap}; the draft's own "
-        f"steps launched {arm['draft_decode_launches']} more")
+        f"round, each "
+        + ("no decode launch (the tree mask's einsum); "
+           f"{arm['commit_replays']} commit replays" if tree else
+           f"{L} tick-body launches of {wrap}")
+        + f"; the draft's own steps launched "
+        f"{arm['draft_decode_launches']} more")
 
 
-def spec_phase(torch, gpt, serving, engine, ks, wl):
+def spec_phase(torch, gpt, G, serving, engine, ks, wl):
     """[speculation: GPT-1.3B, K = SPEC_K] — the small models first
     (:func:`spec_small_vs_cpu`), then the main path's model and 8
-    requests, graphed: plain, draft == target (gated, contiguous and
-    paged: :func:`spec_gates`), the bench's small drafter and n-gram
-    self-drafting on prompts whose second half repeats the first
-    (reported), and one sampled serve at temperature 1 beside a plain
-    sampled serve of the same requests."""
+    requests, graphed: plain, draft == target linear and tree (N = SPEC_K,
+    branch 2; gated, contiguous and paged: :func:`spec_gates`), the
+    bench's small drafter, n-gram self-drafting (linear and tree) on
+    prompts whose second half repeats the first, the bench's biased draft
+    tree against linear (reported), and one sampled serve at temperature
+    1 beside a plain sampled serve of the same requests."""
     from paddle_tpu_torch import telemetry as tl
 
-    vgap = spec_small_vs_cpu(torch, gpt, serving)
+    vgap, tgap = spec_small_vs_cpu(torch, gpt, G, serving)
     cfg = gpt.gpt_1p3b()
     params = gpt.init_params(cfg, seed=0, device="cuda")
     prompts, new = wl.main_prompts(cfg.vocab_size, 0), wl.NEW
     both = dict(spec_k=SPEC_K, draft_cfg=cfg, draft_params=params)
-    arms, launches = {}, {}
+    tree = dict(spec_tree=SPEC_K, draft_cfg=cfg, draft_params=params)
+    arms, launches, gated = {}, {}, []
     for path in ("main", "paged"):
         plain = spec_arm(torch, engine, wl, tl, ks, path, cfg, params,
                          prompts, new, "plain")
-        served, arm = spec_arm(torch, engine, wl, tl, ks, path, cfg, params,
-                               prompts, new, "draft==target", **both)
-        spec_gates(torch, gpt, cfg, params, prompts, plain, arm, served)
-        arms[f"{path} plain"], arms[f"{path} draft==target"] = plain[1], arm
-        for n, v in arm["launches"].items():
-            launches[n] = launches.get(n, 0) + v
+        arms[f"{path} plain"] = plain[1]
+        for name, kw in (("draft==target", both),
+                         ("tree draft==target", tree)):
+            served, arm = spec_arm(torch, engine, wl, tl, ks, path, cfg,
+                                   params, prompts, new, name, **kw)
+            spec_gates(torch, gpt, cfg, params, prompts, plain, arm, served)
+            arms[f"{path} {name}"] = arm
+            gated.append(arm)
+            for n, v in arm["launches"].items():
+                launches[n] = launches.get(n, 0) + v
+    biased = _biased(params)
+    for name, kw in (("biased draft", dict(spec_k=SPEC_K)),
+                     ("tree biased draft", dict(spec_tree=SPEC_K))):
+        arms[f"main {name}"] = spec_arm(
+            torch, engine, wl, tl, ks, "main", cfg, params, prompts, new,
+            name, draft_cfg=cfg, draft_params=biased, **kw)[1]
+    del biased
     dcfg = gpt.GPTConfig(**SMALL_DRAFT)
     dparams = gpt.init_params(dcfg, seed=1, device="cuda")
     arms["main small draft"] = spec_arm(
@@ -2674,6 +2764,9 @@ def spec_phase(torch, gpt, serving, engine, ks, wl):
     arms["main n-gram"] = spec_arm(torch, engine, wl, tl, ks, "main", cfg,
                                    params, halves, new, "n-gram",
                                    spec_k=SPEC_K)[1]
+    arms["main tree n-gram"] = spec_arm(torch, engine, wl, tl, ks, "main",
+                                        cfg, params, halves, new,
+                                        "tree n-gram", spec_tree=SPEC_K)[1]
     hot = dict(temperature=1.0)
     arms["main sampled plain"] = spec_arm(torch, engine, wl, tl, ks, "main",
                                           cfg, params, prompts, new,
@@ -2685,18 +2778,18 @@ def spec_phase(torch, gpt, serving, engine, ks, wl):
                                     sub=hot, **both)[1]
     if arms["main sampled"]["tokens"] != len(prompts) * new:
         raise AssertionError("the sampled serve did not finish")
-    # the gated arms' launches count for the kernels line
-    stats = {"k": SPEC_K, "verify_logit_gap_small": vgap,
+    stats = {"k": SPEC_K, "tree_nodes": SPEC_K, "tree_branch": 2,
+             "verify_logit_gap_small": vgap,
+             "tree_verify_logit_gap_small": tgap,
              "small_streams_equal": True,
              "arms": {n: {k: v for k, v in a.items()
                           if k not in ("launches", "tc_launches")}
                       for n, a in arms.items()}}
-    tick = {n: sum(arms[f"{p} draft==target"]["tick_launches"][n]
-                   for p in ("main", "paged"))
+    # the gated arms' launches count for the kernels line
+    tick = {n: sum(a["tick_launches"][n] for a in gated)
             for n in ("decode_attention", "paged_decode_attention")}
-    tc = {n: sum(arms[f"{p} draft==target"]["tc_launches"][n]
-                 for p in ("main", "paged"))
-          for n in arms["main draft==target"]["tc_launches"]}
+    tc = {n: sum(a["tc_launches"][n] for a in gated)
+          for n in gated[0]["tc_launches"]}
     stats.update(tick_launches=tick, tc_launches=tc)
     engine.ENGINE.purge(cfg, dcfg)
     return stats, launches
@@ -4209,8 +4302,8 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     log(f"[speculation: GPT-1.3B, K = {SPEC_K}]")
-    sstats, by_path["speculation"] = spec_phase(torch, gpt, serving, engine,
-                                                ks, wl)
+    sstats, by_path["speculation"] = spec_phase(torch, gpt, G, serving,
+                                                engine, ks, wl)
     log(json.dumps({"speculation": sstats}))
 
     gc.collect()

@@ -144,6 +144,37 @@ def spec_k() -> int:
     return k
 
 
+def spec_tree() -> int:
+    """Node budget of a tree-speculation round (``PADDLE_TPU_SPEC_TREE``,
+    default 0 = off): what a ``DecodeServer`` built without
+    ``spec_tree=`` resolves.  Node 0 carries the feed token, so a tree
+    needs at least 2 nodes.  The tree verify step captures N in its
+    shapes, so the raw string is part of :func:`decode_jit_key`; the
+    tree's topology is a runtime feed and keys nothing."""
+    v = os.environ.get("PADDLE_TPU_SPEC_TREE", "0")
+    try:
+        n = int(v)
+    except ValueError:
+        raise ValueError(f"PADDLE_TPU_SPEC_TREE={v!r}: expected an "
+                         f"integer >= 0 (0 disables tree speculation)")
+    if n < 0 or n == 1:
+        raise ValueError(f"PADDLE_TPU_SPEC_TREE={n}: must be 0 (off) or "
+                         f">= 2 (node 0 carries the feed token, so a "
+                         f"1-node tree proposes nothing)")
+    return n
+
+
+def spec_branch() -> int:
+    """Sibling candidates a tree proposal may fan out at a node
+    (``PADDLE_TPU_SPEC_BRANCH``, default 2): the draft's top-b tokens, or
+    distinct n-gram continuations when self-drafting.  Host proposal
+    shaping only — never part of a step key."""
+    try:
+        return max(1, int(os.environ.get("PADDLE_TPU_SPEC_BRANCH", "2")))
+    except ValueError:
+        return 2
+
+
 def spec_min_accept() -> float:
     """Rolling per-request acceptance rate below which a speculating slot
     falls back to plain decode (``PADDLE_TPU_SPEC_MIN_ACCEPT``, default
@@ -421,8 +452,9 @@ def decode_jit_key() -> tuple:
     of ``paddle_tpu/flags.py``'s ``decode_jit_key``, cut to the flags the
     port reads: the W4 kernel gate (``woq.mm``), the fused LayerNorm
     (``gpt._norm``), the KV-cache storage dtype, layout and block size,
-    the speculative chunk K (the verify step's token and logit shapes)
-    and the admission prefill budget.  ``text/engine.cfg_key`` folds it
+    the speculative chunk K (the verify step's token and logit shapes),
+    the tree node budget (the tree verify's) and the admission prefill
+    budget.  ``text/engine.cfg_key`` folds it
     into every step key, so flipping one of them mid-process keys a new
     CUDA graph instead of replaying one captured on the other route.
 
@@ -436,4 +468,5 @@ def decode_jit_key() -> tuple:
             os.environ.get("PADDLE_TPU_FUSED_LN", ""),
             kv_cache_dtype(), kv_layout(), kv_block_size(),
             os.environ.get("PADDLE_TPU_SPEC_K", ""),
+            os.environ.get("PADDLE_TPU_SPEC_TREE", ""),
             os.environ.get("PADDLE_TPU_PREFILL_BUDGET", ""))

@@ -23,8 +23,11 @@ wrappers of an eager step.
   slot), ``inject`` per rows bucket (a spilled prefix chain restored
   into the pool through the block tables), ``spec_verify`` per chunk K
   (the speculative round's one target pass, fed device tokens and
-  positions like the ticks), ``generate``'s decode step and ``beam``'s
-  position step.  On the CPU every kind runs its plain callable.
+  positions like the ticks), ``spec_tree_verify`` and
+  ``spec_tree_commit`` per node budget N (the tree round's pass, its
+  topology fed as data, and its row permute), ``generate``'s decode step
+  and ``beam``'s position step.  On the CPU every kind runs its plain
+  callable.
 * :class:`Engine` — the bounded, thread-safe cache (``_LRU``, sized by
   ``PADDLE_TPU_STEP_CACHE_SIZE`` as in the JAX package), ``get``,
   ``purge``, ``warmup`` and the caches ``generate`` binds its steps to
@@ -45,12 +48,13 @@ first — it builds the kernels (``ops/_build.load``), sets their
 ``argtypes`` and creates the stream's tick ticket buffer
 (``ops/decode_attention._ticket_buf``), which would otherwise be born
 inside the capture — then ``torch.cuda.graph`` records the same call.
-Every step but ``beam`` is idempotent on the cache (it rewrites the rows
-it attends from the same inputs — an admission the rows of its prompt or
-chunk), so the eager run and the replay that follows leave the cache as
-one step would; ``beam`` reorders the cache's batch axis, so its capture
-puts the cache back as it was after the eager run.  A capture that fails
-(a real allocator OOM inside it, say) raises after the capture has
+Every step but ``beam`` and ``spec_tree_commit`` is idempotent on the
+cache (it rewrites the rows it attends from the same inputs — an
+admission the rows of its prompt or chunk), so the eager run and the
+replay that follows leave the cache as one step would; ``beam`` reorders
+the cache's batch axis and ``spec_tree_commit`` permutes rows, so their
+captures put the cache back as it was after the eager run.  A capture
+that fails (a real allocator OOM inside it, say) raises after the capture has
 ended and its graph has been dropped: the
 step is left uncaptured, the launch counters as they were, and the next
 call captures afresh.  There is no eager fallback on the card.
@@ -437,6 +441,42 @@ def _build_spec_verify(spec):
     return body
 
 
+@register("spec_tree_verify",
+          key=lambda s: ("spec_tree_verify", cfg_key(s.cfg), int(s.k),
+                         s.paged),
+          name=lambda s: f"serving.spec_tree_verify@{s.k}")
+def _build_spec_tree_verify(spec):
+    """The tree round's verify: (tokens [B, N], amask [B, N, N] bool,
+    depth [B, N], pos [B]) -> (logits [B, N, V],).  The topology is fed
+    like the tokens, so one graph per (cfg, N, layout, binding) serves
+    every tree; N is in the shapes (and ``PADDLE_TPU_SPEC_TREE`` in
+    ``flags.decode_jit_key``).  Torch ops only: the tree mask is not
+    causal, and the decode kernels' is."""
+    from . import serving
+
+    def body(p, c, tok, amask, depth, pos, _cfg=spec.cfg):
+        return (serving.spec_tree_verify_batched(p, c, tok, amask, depth,
+                                                 pos, _cfg)[0],)
+    return body
+
+
+@register("spec_tree_commit",
+          key=lambda s: ("spec_tree_commit", cfg_key(s.cfg), int(s.k),
+                         s.paged),
+          name=lambda s: f"serving.spec_tree_commit@{s.k}",
+          idempotent=False)
+def _build_spec_tree_commit(spec):
+    """The tree round's row permute, cache only: (src [B, N - 1], pos [B])
+    -> ().  Not idempotent — a second run moves the moved rows again — so
+    its capture puts the cache back after the eager run."""
+    from . import serving
+
+    def body(p, c, src, pos):
+        serving.spec_tree_commit_batched(c, src, pos)
+        return ()
+    return body
+
+
 @register("generate",
           key=lambda s: ("generate", cfg_key(s.cfg), *s.extra, s.shape),
           name="generate.generate")
@@ -772,10 +812,12 @@ class Engine:
         buckets or chunk widths of ``prompt_lens`` (default every bucket
         up to the serving window) and at the budget width when
         ``prefill_budget`` is set (``DecodeServer._admission_widths``).
-        A speculating server adds ``spec_verify`` at its K and, with a
+        A speculating server adds ``spec_verify`` at its K (a tree server
+        ``spec_tree_verify`` and ``spec_tree_commit`` at its N, fed a
+        self-only mask, zero depths and an identity permute) and, with a
         draft model, the draft's ``step``, its ``block`` of K - 1 steps
-        (a greedy round's proposals) and its admission steps at the same
-        widths, on the draft's binding.
+        (a linear greedy round's proposals) and its admission steps at the
+        same widths, on the draft's binding.
 
         Warm steps run on the live cache with zero feeds, writing rows at
         position 0 of every slot (warm admissions: of slot 0) — rows
@@ -847,9 +889,19 @@ class Engine:
             drafts = (False, True) if srv._draft_bind is not None \
                 else (False,)
             if srv._spec_on:
-                K = srv._spec_k
-                warm(f"spec_verify@{K}", "spec_verify",
-                     torch.zeros((B, K), dtype=torch.int64), zp, k=K)
+                K, N = srv._spec_k, srv._spec_tree_n
+                if N:
+                    warm(f"spec_tree_verify@{N}", "spec_tree_verify",
+                         torch.zeros((B, N), dtype=torch.int64),
+                         torch.eye(N, dtype=torch.bool).expand(B, N, N)
+                         .contiguous(),
+                         torch.zeros((B, N), dtype=torch.int64), zp, k=N)
+                    warm(f"spec_tree_commit@{N}", "spec_tree_commit",
+                         torch.arange(1, N).expand(B, N - 1).contiguous(),
+                         zp, k=N)
+                else:
+                    warm(f"spec_verify@{K}", "spec_verify",
+                         torch.zeros((B, K), dtype=torch.int64), zp, k=K)
                 if srv._draft_bind is not None:
                     warm("draft_step", "step", zi, zp, draft=True)
                     if K > 1:

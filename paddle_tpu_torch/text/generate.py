@@ -7,7 +7,8 @@ whole-prompt and chunked prefill (and the chunk math the paged prefill
 shares), the K-token verify step, the logit filter, ``generate``,
 ``beam_search`` and linear ``speculative_generate`` (a draft model
 proposes, the target verifies; the model-free n-gram proposer lives here
-too).  Tree speculation is not ported yet.  Where the JAX module scans
+too), and tree speculation's verify over a token tree, its row permute
+and the n-gram trie proposer.  Where the JAX module scans
 over layers and returns a new cache, this one loops over layers and
 **writes cache rows in place**
 (``index_put_`` / ``index_copy_`` into the [L, B, T, ...] leaves): a
@@ -21,7 +22,10 @@ tensors (or ints), so a captured graph serves any prompt and slot;
 On a CUDA cache every cached-attention site (decode steps, verify
 chunks and prefill chunks) runs the split-KV decode kernel
 (``ops/decode_attention``) and whole-prompt prefill runs the flash
-kernel; on the CPU they keep the reference's plain math.  The JAX
+kernel; on the CPU they keep the reference's plain math.  The tree
+verify is the exception: its mask is not causal, and the reference has
+no kernel there either, so it runs the reference's einsum on both
+devices.  The JAX
 package gates its batched verify on its kernel flag and otherwise vmaps
 a per-slot einsum; the port has one attention path on the card, the
 kernel, and the einsum is only the CPU's plain version.
@@ -39,7 +43,10 @@ from ..ops.attention import attention_array
 
 __all__ = ["init_cache", "decode_step", "prefill_slot", "prefill_slot_chunk",
            "verify_chunk", "verify_chunk_batched", "generate", "beam_search",
-           "ngram_propose", "speculative_generate"]
+           "ngram_propose", "speculative_generate", "tree_depths",
+           "tree_ancestor_mask", "tree_verify_chunk",
+           "tree_verify_chunk_batched", "tree_commit_rows",
+           "ngram_propose_tree"]
 
 
 def _kv_store_dtype(cfg: gpt.GPTConfig):
@@ -131,26 +138,38 @@ def _attend_cache(q, full, pos, cfg: gpt.GPTConfig):
     registers).  CPU: the reference's grouped einsum, in the compute
     dtype as the JAX package computes it."""
     B, Tq, H, hd = q.shape
+    k_all = full["k"]
+    if k_all.is_cuda:
+        out = da.decode_attention(q.contiguous(), k_all, full["v"], pos,
+                                  k_scale=full.get("k_s"),
+                                  v_scale=full.get("v_s"))
+        return out.to(cfg.dtype).reshape(B, Tq, H * hd)
+    t = torch.arange(k_all.shape[1], device=q.device)
+    i = torch.arange(Tq, device=q.device)
+    mask = t <= pos.reshape(B, 1, 1, 1, 1) + i[:, None]     # [B,1,1,Tq,T]
+    return _attend_masked(q, full, mask, cfg)
+
+
+def _attend_masked(q, full, mask, cfg: gpt.GPTConfig):
+    """The reference's plain cached attention: q [B, Tq, H, hd] against
+    one layer's cache ``full`` (leaves k/v [B, T, Hkv, hd] + int8 scales)
+    under a visibility ``mask`` broadcasting to [B, Hkv, G, Tq, T] (True =
+    attend) — the grouped einsum in the compute dtype, the scores masked
+    with -1e30 in fp32, softmax, cast back.  Returns [B, Tq, H*hd]."""
+    B, Tq, H, hd = q.shape
     dt = cfg.dtype
     k_all, v_all = full["k"], full["v"]
     ks, vs = full.get("k_s"), full.get("v_s")
-    if k_all.is_cuda:
-        out = da.decode_attention(q.contiguous(), k_all, v_all, pos,
-                                  k_scale=ks, v_scale=vs)
-        return out.to(dt).reshape(B, Tq, H * hd)
     if ks is not None:
         k_all = da.dequantize_kv(k_all, ks, dt)
         v_all = da.dequantize_kv(v_all, vs, dt)
     k_all = k_all.to(dt)
     v_all = v_all.to(dt)
-    T, Hkv = k_all.shape[1], k_all.shape[2]
+    Hkv = k_all.shape[2]
     g = H // Hkv
     qg = q.reshape(B, Tq, Hkv, g, hd)
     scores = torch.einsum("bikgd,btkd->bkgit", qg, k_all) \
         / torch.tensor(hd, dtype=torch.float32).sqrt().to(dt)
-    t = torch.arange(T, device=q.device)
-    i = torch.arange(Tq, device=q.device)
-    mask = t <= pos.reshape(B, 1, 1, 1, 1) + i[:, None]     # [B,1,1,Tq,T]
     scores = torch.where(mask, scores.float(), -1e30)
     w = torch.softmax(scores, dim=-1).to(dt)
     return torch.einsum("bkgit,btkd->bikgd", w, v_all).reshape(B, Tq, -1)
@@ -314,15 +333,17 @@ def prefill_slot(params, cache, tokens, length, slot, cfg: gpt.GPTConfig):
 # ---------------------------------------------------------------------------
 
 
-def _chunk_pre_attn(x, p, pos0, cfg: gpt.GPTConfig):
+def _chunk_pre_attn(x, p, pos0, cfg: gpt.GPTConfig, offsets=None):
     """Pre-attention half of one block on a C-token chunk [B, C, D] at
-    positions [pos0, pos0 + C) (``pos0`` an int or a 0-d tensor): ln1 ->
-    qkv projection (Hkv heads kept) -> rope over the chunk's positions ->
+    positions [pos0, pos0 + C) (``pos0`` an int or a 0-d tensor), or at
+    ``pos0 + offsets`` (a tree chunk's node depths [B, C]): ln1 -> qkv
+    projection (Hkv heads kept) -> rope over the chunk's positions ->
     storage-dtype rows.  Returns (q [B, C, H, hd], rows)."""
     C = x.shape[1]
     q, k_new, v_new = gpt._project_qkv(gpt._norm(x, p, "ln1", cfg), p, cfg)
     if cfg.pos_embed == "rope":
-        chunk_pos = pos0 + torch.arange(C, device=x.device)
+        chunk_pos = pos0 + (torch.arange(C, device=x.device)
+                            if offsets is None else offsets)
         q = gpt.apply_rope(q, chunk_pos)
         k_new = gpt.apply_rope(k_new, chunk_pos)
     return q, _store_rows(k_new, v_new, cfg)
@@ -394,13 +415,15 @@ def prefill_slot_chunk(params, cache, tokens, pos0, length, slot,
 # ---------------------------------------------------------------------------
 
 
-def _embed_verify(params, tokens, pos, cfg: gpt.GPTConfig):
+def _embed_verify(params, tokens, pos, cfg: gpt.GPTConfig, offsets=None):
     """Embed a verify chunk's tokens [B, K] at each slot's positions
-    [pos_b, pos_b + K) (``pos`` int32 [B]) -> [B, K, D]."""
+    [pos_b, pos_b + K) (``pos`` int32 [B]), or at ``pos_b + offsets``
+    (a tree chunk's node depths [B, K]) -> [B, K, D]."""
     x = woq.embed(params, tokens, cfg.dtype)
     if cfg.pos_embed == "learned":
         K = tokens.shape[1]
-        at = pos.long()[:, None] + torch.arange(K, device=x.device)
+        at = pos.long()[:, None] + (torch.arange(K, device=x.device)
+                                    if offsets is None else offsets.long())
         x = x + params["wpe"][at].to(cfg.dtype)
     return x
 
@@ -463,6 +486,136 @@ def verify_chunk(params, cache, tokens, pos0, cfg: gpt.GPTConfig):
     Returns (logits [B, K, V] float32, cache).  The offline speculative
     path's verify: :func:`verify_chunk_batched` at one shared offset."""
     return verify_chunk_batched(params, cache, tokens, pos0, cfg)
+
+
+# ---------------------------------------------------------------------------
+# tree speculation: one verify pass over a branching token tree
+# ---------------------------------------------------------------------------
+
+
+def tree_depths(parent):
+    """Per-node depths [N] int32 of a parent-index tree (``parent[0] ==
+    -1`` is the root, the feed node; parents precede children, as every
+    proposer lays its tree out).  Host work."""
+    n = len(parent)
+    d = np.zeros(n, np.int32)
+    for j in range(1, n):
+        d[j] = d[parent[j]] + 1
+    return d
+
+
+def tree_ancestor_mask(parent):
+    """Ancestor-or-self mask [N, N] bool of a parent-index tree: ``m[j,
+    t]`` is True iff node t lies on node j's root path (j included) — the
+    within-chunk half of the tree-attention mask, built on the host and
+    fed to the verify as data, so a new topology never keys a new step."""
+    n = len(parent)
+    m = np.zeros((n, n), bool)
+    for j in range(n):
+        m[j, j] = True
+        if parent[j] >= 0:
+            m[j] |= m[parent[j]]
+    return m
+
+
+def _tree_visibility(amask, pos, T: int):
+    """The tree-attention mask [B, N, T] bool of chunks stored at rows
+    [pos_b, pos_b + N): node j of slot b sees the committed rows t <
+    pos_b and, inside the chunk, its own root path ``amask[b, j, t -
+    pos_b]`` — nothing of a sibling branch.  Rows past the chunk stay
+    hidden."""
+    B, N, _ = amask.shape
+    rel = torch.arange(T, device=amask.device)[None, :] \
+        - pos.long()[:, None]                                   # [B, T]
+    inside = (rel >= 0) & (rel < N)
+    within = torch.gather(amask, 2, rel.clamp(0, N - 1)[:, None, :]
+                          .expand(B, N, T))
+    return (rel < 0)[:, None, :] | (within & inside[:, None, :])
+
+
+def _tree_forward(params, tokens, depth, pos, tmask, write, read,
+                  cfg: gpt.GPTConfig):
+    """THE tree verify body of both layouts: tokens [B, N] (node 0 the
+    feed token) embedded and roped at their logical positions ``pos_b +
+    depth[b, j]`` (siblings share one); per layer the N fresh rows of
+    every slot go to the cache first (``write(l, rows)``: rows [pos_b,
+    pos_b + N) in storage form), then every node attends the layer's
+    rows ``read(l)`` ([B, T, ...] a leaf) under ``tmask`` [B, N, T] —
+    the reference's einsum, on the card too: the decode kernels' masks
+    are causal.  Returns logits [B, N, V] float32."""
+    offsets = depth.long()
+    x = _embed_verify(params, tokens, pos, cfg, offsets)
+    mask = tmask[:, None, None]                           # [B,1,1,N,T]
+    for l in range(cfg.num_layers):
+        p = gpt.layer(params, l)
+        q, rows = _chunk_pre_attn(x, p, pos.long()[:, None], cfg, offsets)
+        write(l, rows)
+        attn = _attend_masked(q, read(l), mask, cfg)         # [B, N, D]
+        x = _block_post_attn(x, attn, p, cfg)
+    x = gpt._norm(x, params, "ln_f", cfg)
+    return woq.logits(x, params, cfg.dtype).float()
+
+
+@torch.no_grad()
+def tree_verify_chunk_batched(params, cache, tokens, amask, depth, pos,
+                              cfg: gpt.GPTConfig):
+    """Score each slot's N-node token tree in one pass: tokens [B, N] int
+    (node 0 the feed token, the rest in topological order), ``amask``
+    [B, N, N] bool (ancestor-or-self) and ``depth`` [B, N] int — the
+    topology, as data — and per-slot positions ``pos`` [B] (or one int)
+    -> (logits [B, N, V] float32, cache).  Node j of slot b is stored at
+    row pos_b + j, embedded and roped at pos_b + depth[b, j], and attends
+    the rows before pos_b plus its own root path, so row j scores the
+    continuation of that path and row 0 the plain step's.  All N rows are
+    written unconditionally; those off the accepted path stay at or past
+    the slot's pointer (a short tree pads with self-only mask rows).
+    PRECONDITION pos_b + N <= the cache rows and the position table
+    (:func:`_write_rows_batched`)."""
+    B, N = tokens.shape
+    T = cache["k"].shape[2]
+    dev = tokens.device
+    pos = _positions(pos, B, dev)
+    dst = (torch.arange(B, device=dev) * T + pos.long())[:, None] \
+        + torch.arange(N, device=dev)
+    logits = _tree_forward(
+        params, tokens, depth, pos, _tree_visibility(amask, pos, T),
+        lambda l, rows: _write_rows_batched(_layer_cache(cache, l), rows,
+                                            dst),
+        lambda l: _layer_cache(cache, l), cfg)
+    return logits, cache
+
+
+def tree_verify_chunk(params, cache, tokens, amask, depth, pos0,
+                      cfg: gpt.GPTConfig):
+    """Score tokens [B, N] as a tree at one offset ``pos0`` for the whole
+    batch: :func:`tree_verify_chunk_batched` with ``depth`` [1, N] and
+    ``amask`` [1, N, N] shared by every row."""
+    B, N = tokens.shape
+    return tree_verify_chunk_batched(params, cache, tokens,
+                                     amask.expand(B, N, N),
+                                     depth.expand(B, N), pos0, cfg)
+
+
+@torch.no_grad()
+def tree_commit_rows(cache, src, pos):
+    """The post-acceptance row permute of a tree round on the slab: per
+    slot b, the rows at ``pos_b + src[b, i]`` move to ``pos_b + 1 + i``
+    for i < M (src int [B, M], pos int [B] the round's positions).  Every
+    row is gathered into a temporary before any is written, so the
+    permute is alias-safe; identity entries rewrite themselves, and rows
+    past the accepted path are stale either way.  In place, every layer
+    at once; returns the cache.  PRECONDITION pos_b + M + 1 <= the cache
+    rows."""
+    B, M = src.shape
+    T = cache["k"].shape[2]
+    dev = src.device
+    base = (torch.arange(B, device=dev) * T + pos.long())[:, None]
+    src_i = (base + src.long()).reshape(-1)
+    dst_i = (base + 1 + torch.arange(M, device=dev)).reshape(-1)
+    for arr in cache.values():
+        flat = arr.view((arr.shape[0], -1) + arr.shape[3:])
+        flat.index_copy_(1, dst_i, flat.index_select(1, src_i))
+    return cache
 
 
 # ---------------------------------------------------------------------------
@@ -727,6 +880,66 @@ def ngram_propose(sequence, k, max_order=3, window=256):
                     out.append(out[-1])
                 return out
     return None
+
+
+def ngram_propose_tree(sequence, nodes, branch=2, max_order=3, window=256):
+    """Tree-shaped self-drafting: :func:`ngram_propose`'s search, but up
+    to ``branch`` DISTINCT continuations (most recent and longest order
+    first) merged into a prefix trie of at most ``nodes`` node slots, so
+    the tree branches where the history disagrees about what comes next.
+    Slot 0 is the feed token's (the caller's); the first continuation is
+    the trunk, nodes 1..D, so a trunk-prefix acceptance moves no row.
+    Returns ``(tokens, parent)`` — ``tokens[0]`` None, ``parent[0] ==
+    -1``, parents before children — possibly shorter than ``nodes`` (the
+    caller pads with self-only rows), or None when no order matches."""
+    seq = list(sequence)
+    n = len(seq)
+    if n < 2:
+        return None
+    lo = max(0, n - int(window))
+    cap = int(nodes) - 1                     # token-bearing node slots
+    branch = max(1, int(branch))
+    if cap < 1:
+        return None
+    conts, seen = [], set()
+    for order in range(min(int(max_order), n - 1), 0, -1):
+        tail = tuple(seq[n - order:])
+        for s in range(n - order - 1, lo - 1, -1):
+            if tuple(seq[s:s + order]) == tail:
+                c = tuple(seq[s + order:s + order + cap])
+                if c and c not in seen:
+                    seen.add(c)
+                    conts.append(list(c))
+                    if len(conts) >= branch:
+                        break
+        if len(conts) >= branch:
+            break
+    if not conts:
+        return None
+    # the trunk is not padded, and leaves a slot for each alternate
+    trunk = conts[0][:max(1, cap - (len(conts) - 1))]
+    tokens, parent = [None], [-1]
+    children = {0: {}}
+    for i, t in enumerate(trunk):
+        tokens.append(int(t))
+        parent.append(i)
+        children[i][int(t)] = i + 1
+        children[i + 1] = {}
+    for c in conts[1:]:                      # graft where they diverge
+        cur = 0
+        for t in c:
+            t = int(t)
+            nxt = children[cur].get(t)
+            if nxt is None:
+                if len(tokens) >= int(nodes):
+                    break
+                tokens.append(t)
+                parent.append(cur)
+                nxt = len(tokens) - 1
+                children[cur][t] = nxt
+                children[nxt] = {}
+            cur = nxt
+    return tokens, parent
 
 
 def _spec_setup(tparams, tcfg, dparams, dcfg, prompt, max_new_tokens,

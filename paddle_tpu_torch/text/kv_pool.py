@@ -35,7 +35,11 @@ pooled ``generate.prefill_slot_chunk``) and
 the pool, then attend through the tables — on the card with the
 block-table kernel (``ops/decode_attention.paged_decode_attention``),
 which reads the pool in place, on the CPU through each slot's gathered
-view.  Both write in place and return the cache they were given.
+view.  Tree speculation's :func:`paged_tree_verify_chunk_batched` writes
+the same way but attends each slot's gathered view under the tree mask
+on both devices (the kernel's mask is causal), and
+:func:`paged_tree_commit` permutes accepted rows through the tables.
+All write in place and return the cache they were given.
 """
 from __future__ import annotations
 
@@ -54,7 +58,8 @@ from ..ops import decode_attention as da
 __all__ = [
     "PoolExhausted", "PagedAllocator", "round_len", "init_paged_cache",
     "paged_decode_step_batched", "paged_prefill_chunk",
-    "paged_verify_chunk_batched", "copy_blocks",
+    "paged_verify_chunk_batched", "paged_tree_verify_chunk_batched",
+    "paged_tree_commit", "copy_blocks",
     "inject_rows", "SpillSlots", "prefix_fingerprint",
 ]
 
@@ -288,6 +293,71 @@ def paged_verify_chunk_batched(params, cache, tokens, pos,
         x = generate._block_post_attn(x, attn, p, cfg)
     x = gpt._norm(x, params, "ln_f", cfg)
     return woq.logits(x, params, cfg.dtype).float(), cache
+
+
+@torch.no_grad()
+def paged_tree_verify_chunk_batched(params, cache, tokens, amask, depth, pos,
+                                    cfg: gpt.GPTConfig):
+    """``generate.tree_verify_chunk_batched`` on the pooled layout: tokens
+    [B, N] int (node 0 the feed token), ``amask`` [B, N, N] bool, ``depth``
+    [B, N] int, ``pos`` int32 [B] -> (logits [B, N, V] float32, cache).
+
+    The same tree body (``generate._tree_forward``): per layer each slot's
+    N rows scatter through its table to logical rows [pos_b, pos_b + N)
+    (a free slot's, or an unmapped block's, to the sink), then every node
+    attends its slot's gathered view under the tree mask — the einsum on
+    both devices, as in the reference (the block-table kernel's mask is
+    causal).  The caller maps the N rows first
+    (``DecodeServer._ensure_decode_blocks(N)``)."""
+    n_blocks, bs, nmax = _geometry(cache)
+    B, N = tokens.shape
+    dev = tokens.device
+    pos = generate._positions(pos, B, dev)
+    tables = cache["tables"]
+    logi = pos.long()[:, None] + torch.arange(N, device=dev)     # [B, N]
+    phys = _phys_rows(tables[:, None].expand(B, N, nmax).reshape(B * N,
+                                                                nmax),
+                      logi.reshape(-1), n_blocks, bs)
+
+    def write(l, rows):
+        _scatter_rows(_layer_pool(cache, l),
+                      {n: v.reshape((B * N,) + v.shape[2:])
+                       for n, v in rows.items()}, phys)
+
+    def read(l):
+        return {n: da.gather_paged_view(v, tables)
+                for n, v in _layer_pool(cache, l).items()}
+
+    logits = generate._tree_forward(
+        params, tokens, depth, pos,
+        generate._tree_visibility(amask, pos, nmax * bs), write, read, cfg)
+    return logits, cache
+
+
+@torch.no_grad()
+def paged_tree_commit(cache: dict, src, pos) -> dict:
+    """``generate.tree_commit_rows`` on the pooled layout: per slot b the
+    pool rows at logical ``pos_b + src[b, i]`` move to logical ``pos_b +
+    1 + i``, both sides mapped through the slot's table (``_phys_rows``;
+    unmapped destinations go to the sink).  Gathered into a temporary
+    before any write, so rows sharing a block cannot alias; identity
+    entries rewrite themselves.  The destinations [pos_b + 1, pos_b + M
+    + 1) were mapped and split copy-on-write before the round's verify.
+    In place, every layer at once; returns the cache."""
+    n_blocks, bs, nmax = _geometry(cache)
+    B, M = src.shape
+    dev = src.device
+    trows = cache["tables"][:, None].expand(B, M, nmax).reshape(B * M, nmax)
+    base = pos.long()[:, None]
+    src_p = _phys_rows(trows, (base + src.long()).reshape(-1), n_blocks, bs)
+    dst_p = _phys_rows(trows, (base + 1 + torch.arange(M, device=dev))
+                       .reshape(-1), n_blocks, bs)
+    for name in POOL_LEAVES:
+        if name in cache:
+            arr = cache[name]
+            flat = arr.view((arr.shape[0], -1) + arr.shape[3:])
+            flat.index_copy_(1, dst_p, flat.index_select(1, src_p))
+    return cache
 
 
 @torch.no_grad()

@@ -132,9 +132,22 @@ speculation after a cooldown; near the window, while a slot feeds its
 prompt or admits, and from the admission ladder's spec-off rung on (for
 new claims), the server runs plain ticks.
 
-Everything else the JAX server does — tree speculation, adapters and
-constraints, tensor parallelism, MoE, the fleet and its router — is later
-slices' work; no entry point of the port reaches it.
+Tree speculation, as the JAX server's (``spec_tree=N``, default
+``PADDLE_TPU_SPEC_TREE``; exclusive with ``spec_k``): each round proposes
+a token tree of at most N nodes per slot, node 0 the feed token — the
+draft's argmax trunk with its top-b alternates
+(``PADDLE_TPU_SPEC_BRANCH``) fanned out where the draft was least sure,
+or an n-gram trie (``generate.ngram_propose_tree``) — and scores every
+node with ONE graphed ``spec_tree_verify`` pass under a tree mask fed as
+data.  Acceptance walks the tree from the root on the host (greedy: the
+target's argmax path; sampled: per-node multi-candidate rejection, so
+the law stays the target's); a path that leaves the trunk moves its rows
+into place with one graphed ``spec_tree_commit``.  Fallback, re-earn and
+the window's edge are the linear round's, counted in path lengths.
+
+Everything else the JAX server does — adapters and constraints, tensor
+parallelism, MoE, the fleet and its router — is later slices' work; no
+entry point of the port reaches it.
 """
 from __future__ import annotations
 
@@ -153,7 +166,8 @@ from .. import telemetry as _telemetry
 
 __all__ = ["decode_step_batched", "sample_step_batched",
            "decode_block_batched", "sample_block_batched",
-           "spec_verify_batched", "DecodeServer", "validate_request"]
+           "spec_verify_batched", "spec_tree_verify_batched",
+           "spec_tree_commit_batched", "DecodeServer", "validate_request"]
 
 
 # cold prefix-cache entries evicted per relief round when the pool runs dry
@@ -192,6 +206,36 @@ def spec_verify_batched(params, cache, tokens, pos, cfg: gpt.GPTConfig):
         return kv_pool.paged_verify_chunk_batched(params, cache, tokens, pos,
                                                   cfg)
     return generate.verify_chunk_batched(params, cache, tokens, pos, cfg)
+
+
+def spec_tree_verify_batched(params, cache, tokens, amask, depth, pos,
+                             cfg: gpt.GPTConfig):
+    """The tree round's target pass: tokens [B, N] int (column 0 each
+    slot's feed token, the tree's root; columns 1.. its proposed nodes in
+    topological order), the topology as data — ancestor-or-self ``amask``
+    [B, N, N] bool and ``depth`` [B, N] int — and per-slot positions
+    ``pos`` int32 [B] -> (logits [B, N, V] float32, cache).  Row j scores
+    the continuation of node j's root path, so row 0 is the plain step's
+    logits, and a chain tree scores what ``spec_verify_batched`` does.
+    Routed by layout: ``generate.tree_verify_chunk_batched`` on the slab,
+    ``kv_pool.paged_tree_verify_chunk_batched`` through the block tables,
+    one tree body for both.  All N rows a slot are written; those off the
+    accepted path stay behind its position pointer."""
+    if "tables" in cache:
+        return kv_pool.paged_tree_verify_chunk_batched(
+            params, cache, tokens, amask, depth, pos, cfg)
+    return generate.tree_verify_chunk_batched(params, cache, tokens, amask,
+                                              depth, pos, cfg)
+
+
+def spec_tree_commit_batched(cache, src, pos):
+    """The tree round's row permute: each slot's accepted-path rows
+    (``src`` [B, N - 1] node indices, identity where nothing moves) go to
+    rows [pos_b + 1, pos_b + N), where their committed positions put
+    them.  Routed by layout like the verify; in place, cache only."""
+    if "tables" in cache:
+        return kv_pool.paged_tree_commit(cache, src, pos)
+    return generate.tree_commit_rows(cache, src, pos)
 
 
 # -- the sampling stream: counter-based, keyed (seed, step) ----------------
@@ -355,8 +399,9 @@ class DecodeServer:
     is given) turns on linear speculation (module note) with the draft
     model ``draft_cfg``/``draft_params`` (same vocabulary, a window
     covering the server's, params on the same device) or, without one,
-    n-gram self-drafting; ``spec_tree`` is refused (tree speculation is
-    not ported).  The
+    n-gram self-drafting; ``spec_tree`` (default ``PADDLE_TPU_SPEC_TREE``,
+    exclusive with ``spec_k``) turns on tree speculation instead (module
+    note) with the same drafters.  The
     resilience switches (TTLs, the OOM ladder, the spill tier, the wedge
     watchdog, the NaN guard: module note) and admission control's
     (``PADDLE_TPU_ADMISSION`` and its knobs) are read from the environment
@@ -501,25 +546,38 @@ class DecodeServer:
 
     def _spec_args(self, cfg, window: int, spec_k, draft_cfg, draft_params,
                    spec_tree) -> None:
-        """The speculation arguments' checks, as the JAX server's: K, and
-        a draft that shares the target's vocabulary, covers the serving
-        window and lives on the server's device.  Sets the spec state."""
-        if spec_tree:
-            raise NotImplementedError(
-                f"spec_tree={spec_tree}: tree speculation is not ported yet "
-                f"(it is the port's next slice, ROADMAP A5); linear "
-                f"spec_k= serves")
+        """The speculation arguments' checks, as the JAX server's: K or
+        the tree's node budget N (never both), each inside the serving
+        window, and a draft that shares the target's vocabulary, covers
+        the window and lives on the server's device.  Sets the spec
+        state."""
+        if spec_tree is not None:
+            n = int(spec_tree)
+            if n < 0 or n == 1:
+                raise ValueError(f"spec_tree must be 0 (off) or >= 2 node "
+                                 f"slots (node 0 carries the feed token), "
+                                 f"got {n}")
+        else:
+            n = _flags.spec_tree()
         if spec_k is not None:
             k = int(spec_k)
+            if n and k:
+                raise ValueError(f"spec_k={k} and spec_tree={n} are mutually "
+                                 f"exclusive — a round is either a linear "
+                                 f"verify or a tree verify")
         else:
-            k = _flags.spec_k()
-            if k == 0 and draft_cfg is not None:
+            # a tree budget overrides the environment's K
+            k = 0 if n else _flags.spec_k()
+            if k == 0 and draft_cfg is not None and not n:
                 k = 4               # passing a draft model IS opting in
         if k < 0:
             raise ValueError(f"spec_k must be >= 0, got {k}")
-        if k == 0 and draft_cfg is not None:
+        if k == 0 and draft_cfg is not None and not n:
             raise ValueError("draft_cfg given but spec_k=0 disables "
                              "speculation — drop one or the other")
+        if n and not 2 <= n < window:
+            raise ValueError(f"spec_tree {n} must be in [2, {window}) — the "
+                             f"tree chunk must fit the serving window")
         if k and not 1 <= k < window:
             raise ValueError(f"spec_k {k} must be in [1, {window}) — the "
                              f"verify chunk must fit the serving window")
@@ -537,16 +595,20 @@ class DecodeServer:
                                  f"{draft_params['wte'].device}, the server "
                                  f"runs on {self.device}")
         self._spec_k = k
-        self._spec_on = k > 0
-        self.draft_cfg = draft_cfg if k else None
-        self._draft_params = draft_params if k else None
+        self._spec_tree_n = n
+        self._spec_branch = _flags.spec_branch()
+        self._spec_on = k > 0 or n > 0
+        self.draft_cfg = draft_cfg if self._spec_on else None
+        self._draft_params = draft_params if self._spec_on else None
         self._self_draft = self._spec_on and draft_cfg is None
         self._min_accept = _flags.spec_min_accept()
         # server-wide accounting (load_stats, the accept-rate gauge, the
         # target passes a token): proposals scored, accepted, verify
-        # rounds, plain target steps while speculation is on
+        # rounds, plain target steps while speculation is on; tree rounds
+        # add the accepted path lengths over the slot-rounds that walked
         self._spec_prop = self._spec_acc = 0
         self._spec_rounds = self._spec_plain_steps = 0
+        self._tree_path_sum = self._tree_path_cnt = 0
 
     # -- host <-> device ----------------------------------------------------
 
@@ -1285,12 +1347,18 @@ class DecodeServer:
             lim = min(lim, drows, self.draft_cfg.max_seq_len)
         return lim
 
+    def _spec_chunk(self) -> int:
+        """Cache rows a round writes a slot, the feed row included: the
+        tree's node budget in tree mode, K otherwise."""
+        return self._spec_tree_n or self._spec_k
+
     def _spec_gate(self) -> bool:
         """Whether every slot can take a round, without changing any
         state: past its prompt and not admitting (a round consumes
         feedback positions only; a budgeted claim waits for graduation),
-        and ``pos + K`` inside :meth:`_spec_limit`."""
-        K, lim = self._spec_k, self._spec_limit()
+        and ``pos + K`` (``pos + N`` in tree mode) inside
+        :meth:`_spec_limit`."""
+        K, lim = self._spec_chunk(), self._spec_limit()
         return all(not st.get("admitting")
                    and st["pos"] >= len(st["prompt"]) - 1
                    and st["pos"] + K <= lim
@@ -1484,14 +1552,15 @@ class DecodeServer:
 
     def _spec_fallback_check(self, st):
         """Acceptance-driven fallback: past a fair trial (4 windows of K - 1
-        proposals) a slot whose rolling accept rate is below
-        ``PADDLE_TPU_SPEC_MIN_ACCEPT`` stops speculating (its rounds take
-        row 0 only) until its cooldown ends (:meth:`_spec_ready`).  The
-        window halves at 16 windows, so the rate follows the request's
-        recent regime."""
+        proposals; N - 1 in tree mode, whose proposals count the deepest
+        root-to-leaf path a round offered) a slot whose rolling accept
+        rate is below ``PADDLE_TPU_SPEC_MIN_ACCEPT`` stops speculating (its
+        rounds take row 0 only) until its cooldown ends
+        (:meth:`_spec_ready`).  The window halves at 16 windows, so the
+        rate follows the request's recent regime."""
         if st.get("spec_off") or not st.get("spec_prop"):
             return
-        k = max(1, self._spec_k - 1)
+        k = max(1, self._spec_chunk() - 1)
         if st["spec_prop"] >= 16 * k:
             st["spec_prop"] //= 2
             st["spec_acc"] //= 2
@@ -1526,7 +1595,11 @@ class DecodeServer:
         [pos, pos + K) are mapped before any state moves (a
         ``PoolExhausted`` there is retried by the OOM ladder on the same
         state); an async server first drains the step in flight — its
-        tokens are real work — and runs its rounds synchronously."""
+        tokens are real work — and runs its rounds synchronously.  A tree
+        server runs :meth:`_tick_spec_tree` instead."""
+        if self._spec_tree_n:
+            self._tick_spec_tree()
+            return
         if self._inflight is not None:
             self._drain_inflight()
             if not self._slots or not self._spec_gate():
@@ -1589,6 +1662,350 @@ class DecodeServer:
         for slot in failed:
             self._fail_request(self._slots.pop(slot), slot,
                                "non-finite spec-verify logits")
+        self._tel_tokens(appended, t0,
+                         steps=max([k for _, k in appended], default=1),
+                         step=_name(fn))
+        self._retire(done)
+
+    # -- tree speculation: one verify pass over a token tree --------------
+
+    def _spec_tree_propose(self):
+        """Each speculating slot's proposal tree: {slot: tree}, a tree a
+        dict of ``tokens`` (index 0 the root, the feed token, already fed:
+        None), ``parent`` (parent[0] == -1, topological order),
+        ``depth``, ``children`` ({node: [kids in proposal order]}) and,
+        with a draft model, ``trunk``, ``dsteps`` and ``qs`` (the draft's
+        law at each depth for a sampled slot).  Self-drafting merges up to
+        ``branch`` distinct n-gram continuations into a trie
+        (``generate.ngram_propose_tree``; a miss proposes nothing); a
+        draft model lays a trunk and fans siblings out
+        (:meth:`_spec_tree_propose_draft`)."""
+        N = self._spec_tree_n
+        b = max(1, min(self._spec_branch, N - 1))
+        if self._self_draft:
+            props = {}
+            hits = miss = 0
+            for slot, st in self._slots.items():
+                if st.get("spec_off"):
+                    continue
+                seq = st["prompt"][:st["base"]] + st["generated"]
+                t = generate.ngram_propose_tree(seq, N, branch=b)
+                if t is not None:
+                    props[slot] = {"tokens": list(t[0]),
+                                   "parent": list(t[1])}
+                    hits += 1
+                else:
+                    miss += 1
+            if hits:
+                self._count("spec.ngram_hits", hits)
+            if miss:
+                self._count("spec.ngram_misses", miss)
+        else:
+            props = self._spec_tree_propose_draft(N, b)
+        total = 0
+        for tp in props.values():
+            n = len(tp["tokens"])
+            tp["depth"] = generate.tree_depths(tp["parent"])
+            total += n - 1
+            kids: dict = {}
+            for j in range(1, n):
+                kids.setdefault(tp["parent"][j], []).append(j)
+            tp["children"] = kids
+        if total:
+            self._count("spec.tree_nodes_proposed", total)
+        return props
+
+    def _spec_tree_propose_draft(self, N: int, b: int):
+        """Draft-model trees: D = ceil((N - 1) / b) batched draft steps lay
+        a TRUNK (greedy: the draft's argmax chain; sampled: draws from its
+        filtered law q, kept for the acceptance test), then the other
+        N - 1 - D node slots fan out as sibling leaves at the trunk
+        positions where the draft was least sure (the smallest top-1 /
+        top-2 margin; sampled: the smallest chosen-token probability).
+        Greedy siblings are the draft's top-2..b tokens; sampled ones are
+        drawn from q without replacement, the laws the acceptance chain
+        (:meth:`_spec_tree_sampled`) replays.  Each step is one replay of
+        the draft's ``step``; its top max(b, 2) logits are taken on the
+        card and fetched (the whole logits too when a slot samples).
+        Fallen-back slots ride along."""
+        self._spec_draft_catchup()
+        eligible = {slot: st for slot, st in self._slots.items()
+                    if not st.get("spec_off")}
+        tok, pos = self._feed_arrays()
+        temp, tk, tp = self._sampling_arrays()
+        sampled = any(temp[s] > 0 for s in eligible)
+        D = max(1, -(-(N - 1) // b))
+        m = max(b, 2)
+        rec = {slot: {"trunk": [], "alts": [], "margins": [],
+                      "qs": [] if temp[slot] > 0 else None}
+               for slot in eligible}
+        fn = engine.ENGINE.get("step", self._dspec())
+        for _ in range(D):
+            (logits,) = fn(self._host(tok), self._host(pos))
+            top = torch.topk(logits, m, dim=-1)
+            # values and indices in one fetch (ids < 2 ** 24 are exact)
+            packed = self._fetch_start(torch.cat(
+                [top.values.float(), top.indices.float()], dim=1))
+            lnp = (self._fetch_wait(self._fetch_start(logits))
+                   if sampled else None)
+            packed = self._fetch_wait(packed)
+            vals, idx = packed[:, :m], packed[:, m:].astype(np.int64)
+            self._count("spec.draft_steps")
+            for slot, st in eligible.items():
+                r = rec[slot]
+                if r["qs"] is None:
+                    d = int(idx[slot, 0])
+                    alts = [int(x) for x in idx[slot, 1:b]]
+                    r["margins"].append(float(vals[slot, 0]
+                                              - vals[slot, 1]))
+                else:
+                    q = generate._filtered_probs(
+                        lnp[slot], float(temp[slot]), int(tk[slot]),
+                        float(tp[slot]))
+                    gen = self._spec_rng(st)
+                    d = int(gen.choice(len(q), p=q))
+                    r["qs"].append(q)
+                    alts = []
+                    qq = q.copy()
+                    last = d
+                    for _a in range(b - 1):
+                        qq[last] = 0.0
+                        mass = float(qq.sum())
+                        if mass <= 0.0:
+                            break
+                        last = int(gen.choice(len(qq), p=qq / mass))
+                        alts.append(last)
+                    # a low chosen-token probability: mass elsewhere
+                    r["margins"].append(float(q[d]))
+                r["trunk"].append(d)
+                r["alts"].append(alts)
+                tok[slot] = d
+            pos = pos + 1
+        props = {}
+        for slot, r in rec.items():
+            toks: list = [None]
+            parent = [-1]
+            for i, t in enumerate(r["trunk"]):
+                toks.append(int(t))
+                parent.append(i)        # trunk node i + 1 at depth i + 1
+            budget = N - 1 - len(r["trunk"])
+            order = np.argsort(np.asarray(r["margins"], np.float64),
+                               kind="stable")
+            for i in order:
+                if budget <= 0:
+                    break
+                for a in r["alts"][int(i)]:
+                    if budget <= 0:
+                        break
+                    if a == r["trunk"][int(i)]:
+                        continue
+                    toks.append(int(a))
+                    parent.append(int(i))    # a sibling of trunk node i+1
+                    budget -= 1
+            props[slot] = {"tokens": toks, "parent": parent,
+                           "trunk": [int(t) for t in r["trunk"]],
+                           "dsteps": len(r["trunk"]), "qs": r["qs"]}
+        return props
+
+    def _spec_tree_accept(self, st, rows, choice, tp):
+        """Resolve one slot's tree round -> (tokens it appends, the
+        accepted node path).  ``rows``: its verify logits [N, V] on the
+        host (None when the round fetched only ``choice``, the rows'
+        argmax [N]).  Greedy: from the root, each visited node's target
+        argmax descends into the child carrying that token; the first
+        miss appends the target's own token and a leaf's choice is the
+        bonus, so a round emits at least one token, each what stepwise
+        greedy decode gives.  Sampled: per-node multi-candidate rejection
+        (:meth:`_spec_tree_sampled`).  The fallback window counts in path
+        lengths: proposed = the tree's depth, accepted = edges taken."""
+        if tp is None:
+            tokens, depth, children, qs = [None], [0], {}, None
+        else:
+            tokens, depth = tp["tokens"], tp["depth"]
+            children, qs = tp["children"], tp.get("qs")
+        sampled = st["temperature"] > 0.0
+        cur = 0
+        toks: list = []
+        sel: list = []
+        while True:
+            kids = children.get(cur, [])
+            if sampled:
+                t, child = self._spec_tree_sampled(st, rows[cur], kids,
+                                                   tokens, depth, qs)
+            else:
+                t = int(choice[cur])
+                child = next((j for j in kids if tokens[j] == t), None)
+            toks.append(t)
+            if child is None:
+                break
+            sel.append(child)
+            cur = child
+        maxd = int(max(depth))
+        if maxd:
+            self._spec_prop += maxd
+            self._spec_acc += len(sel)
+            st["spec_prop"] = st.get("spec_prop", 0) + maxd
+            st["spec_acc"] = st.get("spec_acc", 0) + len(sel)
+            self._count("spec.proposed", maxd)
+            if sel:
+                self._count("spec.accepted", len(sel))
+        if sel:
+            self._count("spec.tree_nodes_accepted", len(sel))
+        self._tree_path_sum += len(sel)
+        self._tree_path_cnt += 1
+        return toks, sel
+
+    def _spec_tree_sampled(self, st, row, kids, tokens, depth, qs):
+        """SpecInfer's sequential multi-candidate rejection at one node:
+        children x_1..x_m in proposal order are tested against the target
+        law p — accept x_i with probability min(1, p(x_i) / q_i(x_i)),
+        q_1 the draft's law at this depth; each rejection sets p to
+        norm((p - q_i)+) and q_{i+1} to q_i with x_i zeroed, the law the
+        proposer drew x_{i+1} from.  All rejected: a draw from the final
+        residual; no children: a draw from p (the bonus).  Self-drafted
+        children are point masses (q_i = 1 at x_i): accept with p(x_i),
+        zero x_i out of p.  Every emitted token's law is p.  Returns
+        (token, accepted child or None)."""
+        gen = self._spec_rng(st)
+        p = generate._filtered_probs(row, float(st["temperature"]),
+                                     int(st["top_k"]), float(st["top_p"]))
+        p0 = p
+        q = None
+        if qs is not None and kids:
+            q = np.asarray(qs[int(depth[kids[0]]) - 1], np.float64)
+        for x_node in kids:
+            x = tokens[x_node]
+            if qs is not None:
+                if q is None:
+                    break               # the proposer's law is spent
+                qx = float(q[x])
+                if qx <= 0.0:
+                    continue            # the proposer cannot have drawn it
+                if float(gen.uniform()) < min(1.0, float(p[x]) / qx):
+                    return int(x), x_node
+                p = np.maximum(p - q, 0.0)
+                pm = float(p.sum())
+                q = q.copy()
+                q[x] = 0.0
+                qm = float(q.sum())
+                q = q / qm if qm > 0.0 else None
+                if pm <= 0.0:
+                    p = None
+                    break
+                p = p / pm
+            else:
+                if float(gen.uniform()) < float(p[x]):
+                    return int(x), x_node
+                p = p.copy()
+                p[x] = 0.0
+                pm = float(p.sum())
+                if pm <= 0.0:
+                    p = None
+                    break
+                p = p / pm
+        if p is None:
+            p = p0          # a numerically empty residual: the target law
+        return int(gen.choice(len(p), p=p)), None
+
+    def _tick_spec_tree(self):
+        """One TREE speculative round: propose a tree a slot, ONE graphed
+        ``spec_tree_verify`` pass over every slot under the tree mask
+        (the topology — ancestor mask [B, N, N] and depths [B, N] — is a
+        device feed like the tokens, so no topology keys a graph),
+        acceptance on the host, one graphed ``spec_tree_commit`` when some
+        slot's path left the trunk (a trunk prefix is already where its
+        positions put it), retire.  Slots that propose nothing keep
+        self-only mask rows and depth 0.  Every slot's rows [pos, pos + N)
+        are mapped (and split copy-on-write) before any state moves: the
+        commit writes inside them."""
+        if self._inflight is not None:
+            self._drain_inflight()
+            if not self._slots or not self._spec_gate():
+                return          # the drained tokens were this tick's work
+        t0 = time.perf_counter()
+        N = self._spec_tree_n
+        B = self.max_batch
+        self._ensure_decode_blocks(N)
+        props = self._spec_tree_propose()
+        tok, pos = self._feed_arrays()
+        tokens = np.repeat(tok[:, None], N, axis=1)
+        amask = np.zeros((B, N, N), bool)
+        amask[:, np.arange(N), np.arange(N)] = True     # idle rows: self
+        depth = np.zeros((B, N), np.int64)
+        for slot, tp in props.items():
+            n = len(tp["tokens"])
+            tokens[slot, 1:n] = tp["tokens"][1:]
+            amask[slot, :n, :n] = generate.tree_ancestor_mask(tp["parent"])
+            depth[slot, :n] = tp["depth"]
+        kind = f"spec_tree_verify@{N}"
+        self._fault_check(kind)
+        fn = engine.ENGINE.get("spec_tree_verify", self._spec(k=N))
+        (logits,) = fn(self._host(tokens), self._host(amask),
+                       self._host(depth), self._host(pos))
+        self._step_no += 1              # after the call: see _tick_impl
+        self._spec_rounds += 1
+        self._count("spec.tree_rounds")
+        guard = self._resil and (_faults.active()
+                                 or _flags.nan_guard_serving())
+        failed = set()
+        if guard or any(st["temperature"] > 0.0
+                        for st in self._slots.values()):
+            lnp = self._fetch_wait(self._fetch_start(logits))
+            if guard:
+                if _faults.active():
+                    lnp = _faults.corrupt_nan("logits", lnp)
+                finite = np.isfinite(lnp).all(axis=(-2, -1))
+                failed = {s for s in self._slots if not finite[s]}
+            choice = lnp.argmax(axis=-1)
+        else:
+            lnp = None
+            choice = self._fetch_wait(self._fetch_start(
+                torch.argmax(logits, dim=-1)))
+        done, appended = [], []
+        src = None
+        for slot, st in self._slots.items():
+            if slot in failed:
+                continue
+            tp = props.get(slot)
+            toks, sel = self._spec_tree_accept(
+                st, None if lnp is None else lnp[slot], choice[slot], tp)
+            if any(s != i + 1 for i, s in enumerate(sel)):
+                # the path left the trunk: its rows move into place
+                if src is None:
+                    src = np.tile(np.arange(1, N, dtype=np.int64), (B, 1))
+                src[slot, :len(sel)] = sel
+            old = st["pos"]
+            kept = 0
+            for t in toks:
+                st["generated"].append(t)
+                st["pos"] += 1
+                kept += 1
+                if self._finished(st, t):
+                    done.append(slot)
+                    break
+            appended.append((st, kept))
+            if self._draft_cache is not None and not st.get("spec_off"):
+                # draft rows [old, old + D) were fed the feed token and
+                # the trunk: they hold through the committed prefix that
+                # agrees with the trunk
+                trunk = tp["trunk"] if tp else []
+                agree = 0
+                for a, t in zip(toks, trunk):
+                    if a != t:
+                        break
+                    agree += 1
+                dsteps = tp["dsteps"] if tp else 1
+                st["spec_dpos"] = min(st["pos"],
+                                      old + 1 + min(agree, dsteps - 1))
+            self._spec_fallback_check(st)
+        if src is not None:
+            # with the round's own positions: failed and trunk slots
+            # rewrite their rows in place
+            engine.ENGINE.get("spec_tree_commit", self._spec(k=N))(
+                self._host(src), self._host(pos))
+        for slot in failed:
+            self._fail_request(self._slots.pop(slot), slot,
+                               "non-finite spec-tree-verify logits")
         self._tel_tokens(appended, t0,
                          steps=max([k for _, k in appended], default=1),
                          step=_name(fn))
@@ -1720,7 +2137,7 @@ class DecodeServer:
             if self._slots and self._spec_ready():
                 # a round yields up to K tokens a slot: ceil(block / K)
                 # rounds cover the block's work, one fetch each
-                for _ in range(max(1, -(-block // self._spec_k))):
+                for _ in range(max(1, -(-block // self._spec_chunk()))):
                     if not self._slots or not self._spec_ready():
                         break
                     self._tick_spec()
@@ -2253,6 +2670,9 @@ class DecodeServer:
         if self._spec_on and self._spec_prop:
             _telemetry.set_gauge("serving.spec_accept_rate",
                                  self._spec_acc / self._spec_prop)
+        if self._spec_tree_n and self._tree_path_cnt:
+            _telemetry.set_gauge("serving.spec_tree_accept_len",
+                                 self._tree_path_sum / self._tree_path_cnt)
         if self._paged and self._pool is not None:
             _telemetry.set_gauge("kv_pool.blocks_in_use",
                                  self._pool.blocks_in_use)
@@ -2402,9 +2822,11 @@ class DecodeServer:
         caps), KV utilization, the admit cap and the wedge verdict, the
         tokens generated and the prompt rows admission computed so far,
         the admission ladder's rung (``admission_rung``, 0 without a
-        controller) and whether it is at 0 (``slo_ok``), and the
-        server-wide speculative acceptance rate (``spec_accept_rate``:
-        accepted over scored proposals, None before the first).  A paged server
+        controller) and whether it is at 0 (``slo_ok``), the server-wide
+        speculative acceptance rate (``spec_accept_rate``: accepted over
+        scored proposals, None before the first) and, in tree mode, the
+        mean accepted path length a slot-round (``spec_tree_accept_len``,
+        None before the first round).  A paged server
         adds its prefix hit rate (adopted rows over adoptable rows), the
         spill tier's resident host bytes and its allocator's ``kv_pool``
         stats.  ``include_spans=True`` also takes the completed trace
@@ -2431,6 +2853,9 @@ class DecodeServer:
             "slo_ok": self._adm is None or self._adm.rung == 0,
             "spec_accept_rate": (self._spec_acc / self._spec_prop
                                  if self._spec_prop else None),
+            "spec_tree_accept_len": (self._tree_path_sum
+                                     / self._tree_path_cnt
+                                     if self._tree_path_cnt else None),
         }
         if include_spans:
             stats["spans"], stats["span_drops"] = self.drain_spans()
@@ -2458,7 +2883,8 @@ class DecodeServer:
         (``paddle_tpu_torch.telemetry``) holds the process-wide sums,
         the allocator's ``kv_pool.*`` counters among them.  A speculating
         server adds ``spec.*`` (proposed, accepted, draft steps, n-gram
-        hits and misses, fallbacks, re-earns) and
+        hits and misses, fallbacks, re-earns; tree rounds, nodes proposed
+        and accepted) and
         ``admission.spec_forced``.  Empty with
         ``PADDLE_TPU_TELEMETRY=0``."""
         return dict(sorted(self._counts.items()))

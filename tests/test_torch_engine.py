@@ -12,8 +12,9 @@ JAX package's (paddle_tpu/text/engine.py), on the CPU.
   one draws);
 * the counter-based sampling stream: a pure function of (key, element),
   drawing in distribution;
-* the speculative ``spec_verify`` kind and ``beam_search``'s ``beam``
-  kind are keyed as the JAX registry keys them (``beam`` plus the prompt
+* the speculative ``spec_verify``, ``spec_tree_verify`` and
+  ``spec_tree_commit`` kinds and ``beam_search``'s ``beam`` kind are
+  keyed as the JAX registry keys them (``beam`` plus the prompt
   shape);
 * ``generate`` runs as the Engine's ``generate`` kind: greedy fp32 tokens
   equal to the JAX ``generate``'s, keyed as the JAX registry keys it plus
@@ -47,7 +48,8 @@ _READS = {"step": {"paged"}, "sample": {"paged"}, "async": {"paged"},
           "async_sample_block": {"paged", "k"},
           "prefill": {"bucket"}, "prefill_chunk": {"width"},
           "paged_prefill": {"bucket"}, "inject": {"bucket", "paged"},
-          "spec_verify": {"paged", "k"}, "generate": {"extra"},
+          "spec_verify": {"paged", "k"}, "spec_tree_verify": {"paged", "k"},
+          "spec_tree_commit": {"paged", "k"}, "generate": {"extra"},
           "beam": {"extra"}}
 
 

@@ -1570,3 +1570,126 @@ def test_graphed_beam_equals_eager_and_the_cpu(monkeypatch):
     assert all(torch.equal(x, y) for x, y in zip(got, want))
     assert all(torch.equal(bind.cache[n], want_cache[n]) for n in snap)
     engine.ENGINE.purge(cfg)
+
+
+# ---------------------------------------------------------------------------
+# tree speculation through the Engine on the card
+# ---------------------------------------------------------------------------
+
+
+def _tree_server(cfg, params, case, graphs, draft=None, **kw):
+    """A tree-speculating server (N = 4, branch 2) of ``case``; ``draft``
+    defaults to the target itself."""
+    return _graph_server(cfg, params, case, graphs, spec_tree=4,
+                         draft_cfg=cfg,
+                         draft_params=params if draft is None else draft,
+                         **kw)
+
+
+def _biased_draft(params, row=7):
+    """A draft whose argmax is one constant token, so acceptance leaves the
+    trunk and the rows move."""
+    bad = dict(params)
+    bad["ln_f_b"] = params["ln_f_b"] + 50.0 * params["wte"][row]
+    return bad
+
+
+def _tree_feeds(gen, B, N, vocab):
+    """Tokens, ancestor mask and depths of a random tree a slot."""
+    from paddle_tpu_torch.text import generate as G
+
+    tokens = torch.randint(0, vocab, (B, N), generator=gen)
+    amask = torch.eye(N, dtype=torch.bool).expand(B, N, N).clone()
+    depth = torch.zeros((B, N), dtype=torch.int64)
+    for b in range(B):
+        parent = [-1] + [int(torch.randint(0, j, (1,), generator=gen))
+                         for j in range(1, N)]
+        amask[b] = torch.from_numpy(G.tree_ancestor_mask(parent))
+        depth[b] = torch.from_numpy(G.tree_depths(parent))
+    return tokens, amask, depth
+
+
+@pytest.mark.parametrize("case", ["contiguous", "paged", "int8_kv"])
+def test_graphed_spec_tree_equals_eager(case, monkeypatch):
+    """From one cache state, the ``spec_tree_verify@4`` graph gives its
+    eager body's logits and cache bit for bit for two different trees at
+    two positions (the topology is a feed), launching no decode kernel;
+    the ``spec_tree_commit@4`` graph permutes the cache as its eager body
+    does, at its first call (the capture undoes its eager run) and after.
+    Served with a biased draft (the rows move): the graphed tick,
+    tick_block(4) and async streams equal the graphs-off tree server's and
+    the plain server's, every round one replay of the tree verify."""
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case(case, monkeypatch)
+    srv = _tree_server(cfg, params, case, True)
+    for p in prompts[:4]:
+        srv.submit(p, max_new_tokens=12)
+    srv._ensure_decode_blocks(8)
+    spec = srv._spec(k=4)
+    gen = torch.Generator().manual_seed(5)
+    _, pos = srv._feed_arrays()
+    counted = (da.decode_attention, da.paged_decode_attention)
+    for kind in ("spec_tree_verify", "spec_tree_commit"):
+        eager = engine._Eager(engine._REGISTRY[kind].build(spec), srv._bind,
+                              kind)
+        graph = engine.ENGINE.get(kind, spec)
+        for shift in (0, 4):
+            at = torch.from_numpy(pos + shift)
+            if kind == "spec_tree_verify":
+                feeds = (*_tree_feeds(gen, 4, 4, cfg.vocab_size), at)
+            else:
+                feeds = (torch.stack([torch.randperm(3, generator=gen) + 1
+                                      for _ in range(4)]), at)
+            snap = {n: t.clone() for n, t in srv.cache.items()}
+            want = [t.clone() for t in eager(*feeds)]
+            want_cache = {n: t.clone() for n, t in srv.cache.items()}
+            for n, t in srv.cache.items():
+                t.copy_(snap[n])
+            n0 = [w.launches for w in counted]
+            got = graph(*feeds)
+            assert all(torch.equal(x, y) for x, y in zip(got, want)), shift
+            assert [w.launches for w in counted] == n0
+            for n in snap:
+                assert torch.equal(_live(srv, n), _live(srv, n, want_cache)), \
+                    (kind, shift, n)
+                srv.cache[n].copy_(snap[n])
+    srv.close()
+    ref = _serve_all(_graph_server(cfg, params, case, False), prompts)
+    bad = _biased_draft(params)
+    assert _serve_all(_tree_server(cfg, params, case, False, bad),
+                      prompts) == ref
+    for block, async_ in ((None, False), (4, False), (None, True)):
+        srv = _tree_server(cfg, params, case, True, bad,
+                           async_dispatch=async_)
+        assert _serve_all(srv, prompts, block) == ref, (block, async_)
+        names = {g.name: g for g in engine.ENGINE.graphs(srv._bind)}
+        assert names["serving.spec_tree_verify@4"].replays \
+            == srv._spec_rounds > 0
+        assert names["serving.spec_tree_commit@4"].replays > 0
+        srv.close()
+
+
+@pytest.mark.parametrize("case", ["contiguous", "paged"])
+def test_tree_serve_after_warmup_captures_nothing(case, monkeypatch):
+    """warmup() captures the tree verify, the permute and the draft's
+    steps; a serve whose paths leave the trunk then captures no graph and
+    records no build, and serves the plain streams."""
+    from paddle_tpu_torch import telemetry as tl
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case(case, monkeypatch)
+    ref = _serve_all(_graph_server(cfg, params, case, False), prompts)
+    srv = _tree_server(cfg, params, case, True, _biased_draft(params))
+    warmed = srv.warmup(prompt_lens=_GRAPH_LENS)
+    assert {"spec_tree_verify@4", "spec_tree_commit@4",
+            "draft_step"} <= set(warmed)
+    binds = (srv._bind, srv._draft_bind)
+    graphs0 = {id(g) for b in binds for g in engine.ENGINE.graphs(b)}
+    builds0 = len(tl.compile_log())
+    assert _serve_all(srv, prompts) == ref
+    assert {id(g) for b in binds for g in engine.ENGINE.graphs(b)} \
+        == graphs0
+    assert len(tl.compile_log()) == builds0
+    assert srv.stats()["spec.tree_nodes_accepted"] > 0
+    srv.close()

@@ -540,7 +540,7 @@ def test_spec_rejects_bad_args():
         (ValueError, dict(spec_k=32)),                   # K must fit
         (ValueError, dict(spec_k=2, draft=other)),       # vocab differs
         (ValueError, dict(spec_k=2, draft=short)),       # window uncovered
-        (NotImplementedError, dict(spec_tree=4)),
+        (ValueError, dict(spec_k=2, spec_tree=4)),       # one round shape
     ]
     for exc, kw in cases:
         with pytest.raises(exc):
