@@ -43,7 +43,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    kind's graph bit-equal to its eager body from one cache state (and
    after its feeds change: another slot, offset and length), and a
    prompt re-admitted after a drained server's ``warmup()`` bit-equal to
-   the same walk without it; then five AdamW train steps of
+   the same walk without it; then the device feed's counts
+   (``feed_small_vs_cpu``): on MHA over an fp32 cache, GQA over an int8
+   one and an int4 tree on the W4 kernel, both layouts, every step a
+   graphed card serve builds counts the FLOPs and bytes the same step
+   counts in a CPU serve; then five AdamW train steps of
    small fp32 models (MHA with learned positions, GQA with rope; accum 1
    and 2; the LayerNorm ones again with ``PADDLE_TPU_FUSED_LN=1``) on the
    card against the same steps on the CPU; then the rest of the training
@@ -74,7 +78,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    buckets 64, 128, 256, 512), 64 new tokens each — warmed up
    (``DecodeServer.warmup``), then served through the step Engine: every
    tick one replay of the captured step graph and every admission one
-   replay of its bucket's graph, with the kernels'
+   replay of its bucket's graph, with the device feed printed one line a
+   step the server built (``serving.step``'s FLOPs equal to
+   ``step_flops`` of the config at 8 slots and a 512-row window, its MFU
+   known and below 1, its HBM use at most HBM_UTIL_CAP of the peak rate —
+   the W4 path too), with the kernels'
    launch counts read around it (every flash forward on the tensor-core
    body, every decode launch on the tick body: ``tick_launches``; a
    replay counts the launches it captured) and one
@@ -137,10 +145,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    the JAX bench's small drafter (hidden 512, 4 layers, 8 heads, seed 1),
    the bench's biased draft (the final LN bias plus 30 x wte[42]) tree
    against linear, n-gram self-drafting linear and tree on prompts whose
-   second half repeats the first, and a sampled serve at temperature 1
-   beside a plain sampled serve (each arm's tokens/s, target passes a
-   token, acceptance, fallbacks, draft steps, the mean accepted path, the
-   device ms of a replay of each graph a round runs);
+   second half repeats the first, and sampled serves at temperature 1,
+   draft == target linear and tree, beside a plain sampled serve (each
+   arm's tokens/s, target passes a token, acceptance, fallbacks, draft
+   steps, the mean accepted path, the device ms of a replay of each
+   graph a round runs);
    then the beam phase (``beam_phase``): small fp32 models' beam search
    on the card equal to the CPU's (tokens exactly, scores within 1e-4);
    GPT-1.3B, 2 prompts of 64 tokens, 32 new: one beam equals greedy
@@ -187,7 +196,19 @@ Phases, in order; any failure raises and the script exits non-zero:
    Chrome trace of two requests' spans and ``torch.profiler`` kernels
    (``chiprun_out/overload_trace.json``), a card memory sample; and the
    cost of telemetry: main's requests with it off, on, and on under a
-   10 Hz scrape (streams equal);
+   10 Hz scrape (streams equal); after the W4 path, the trees the other
+   phases bypass (``trees_phase``): GPT-1.3B with int8 KV and with GQA
+   16/4 on the main and paged paths, each served eagerly and then
+   graphed — the graphed streams held to the eager ones by the tie rule,
+   every token within TIE_TOL of its teacher-forced best, every tick on
+   the tick body, every admission on its tensor-core body (a GQA chunk
+   past 1024 query rows a kv head in pieces), ``serving.step``'s FLOPs
+   ``step_flops``' — the int4 tree on the paged path (144 W4 launches a
+   tick and a chunk of at most 256 rows, all on the tensor-core body),
+   and the OOM ladder, wedge, TTL and NaN drills on the int4 tree and on
+   a draft == target K = 4 speculating server; the seconds the feed
+   checks, the trees' phase and the sampled tree serve took, and the
+   whole smoke's;
 9. the train rungs, as ``paddle_tpu_torch.tools.profile_train.
    build_train_path`` defines them (``RUNGS``, the JAX bench's recipes):
    GPT-1.3B with fp32 master weights from a seed, batch 8 x 2048 tokens in
@@ -1900,6 +1921,8 @@ def serving_ways(torch, gpt, engine, wl, path, cfg, params, prompts, new,
 
 
 def main_path(torch, gpt, G, serving, engine, ks, wl):
+    from paddle_tpu_torch import telemetry as tl
+
     cfg, params, srv, prompts = wl.build_main_path("cuda", seed=0)
     n_params = sum(t.numel() for n, t in params.items() if n != "blocks") \
         + sum(t.numel() for t in params["blocks"].values())
@@ -1910,6 +1933,7 @@ def main_path(torch, gpt, G, serving, engine, ks, wl):
     lens, new = wl.LENS, wl.NEW
     buckets = sorted({serving._pow2_bucket(n, 512) for n in lens})
     assert buckets == [64, 128, 256, 512], buckets
+    since = time.time()
     warm = srv.warmup(prompt_lens=lens)
     replays0 = replays_now(engine, srv)
 
@@ -1946,6 +1970,7 @@ def main_path(torch, gpt, G, serving, engine, ks, wl):
                              f"on the tick body")
     assert all(len(s) == new and all(0 <= t < cfg.vocab_size for t in s)
                for s in served)
+    feed = feed_gates(tl, cfg, "main graph serve", since)
     graph_way = way_stats(torch, engine, srv, served, t_admit, ticks, wall,
                           peak, warm)
     srv.close()
@@ -1970,6 +1995,7 @@ def main_path(torch, gpt, G, serving, engine, ks, wl):
         "launches": launches, "tc_launches": tc, "tick_launches": tick,
         "graphs": n_graphs, "solo_generate_equal": solo_div is None,
         "solo_divergence": solo_div, "ways": ways, "admission": admission,
+        "device_feed": feed,
     }
     log(f"  tokens/s {stats['tokens_per_s']:.1f}, mean tick "
         f"{stats['tick_ms_mean']:.2f} ms, peak memory "
@@ -2107,6 +2133,8 @@ def w4_path(torch, gpt, G, serving, woq, wm, engine, ks, wl):
     """The W4 path (``build_w4_path``): the main path's 8 requests on the
     int4 GPT-1.3B with the W4 kernel, each admission and each tick's W4
     launches counted.  Returns (stats, launches)."""
+    from paddle_tpu_torch import telemetry as tl
+
     cfg, params, srv, prompts = wl.build_w4_path("cuda", seed=0)
     L, new = cfg.num_layers, wl.NEW
     per_pass = 6 * L                # qkv (3 slices) + proj + fc + out
@@ -2124,6 +2152,7 @@ def w4_path(torch, gpt, G, serving, woq, wm, engine, ks, wl):
                for n in wl.LENS]
     want_admit = [per_pass if b <= wm._N_CAP else 0 for b in buckets]
     w4 = ks["w4_matmul"]
+    since = time.time()
     warm = srv.warmup(prompt_lens=wl.LENS)
     replays0 = replays_now(engine, srv)
 
@@ -2191,6 +2220,7 @@ def w4_path(torch, gpt, G, serving, woq, wm, engine, ks, wl):
                              f"launches on the tick body")
     assert all(len(x) == new and all(0 <= t < cfg.vocab_size for t in x)
                for x in served)
+    feed = feed_gates(tl, cfg, "W4 graph serve", since)
     graph_way = way_stats(torch, engine, srv, served, t_admit, ticks, wall,
                           peak, warm)
     srv.close()
@@ -2217,6 +2247,7 @@ def w4_path(torch, gpt, G, serving, woq, wm, engine, ks, wl):
         "dequant_route_equal": {r: d is None for r, d in solo_div.items()},
         "dequant_route_divergence": {r: d for r, d in solo_div.items()
                                      if d is not None},
+        "device_feed": feed,
     }
     log(f"  tokens/s {stats['tokens_per_s']:.1f}, mean tick "
         f"{stats['tick_ms_mean']:.2f} ms, peak memory "
@@ -2719,8 +2750,9 @@ def spec_phase(torch, gpt, G, serving, engine, ks, wl):
     branch 2; gated, contiguous and paged: :func:`spec_gates`), the
     bench's small drafter, n-gram self-drafting (linear and tree) on
     prompts whose second half repeats the first, the bench's biased draft
-    tree against linear (reported), and one sampled serve at temperature
-    1 beside a plain sampled serve of the same requests."""
+    tree against linear (reported), and sampled serves at temperature 1,
+    draft == target linear and tree, beside a plain sampled serve of the
+    same requests (each must finish every request)."""
     from paddle_tpu_torch import telemetry as tl
 
     vgap, tgap = spec_small_vs_cpu(torch, gpt, G, serving)
@@ -2776,10 +2808,16 @@ def spec_phase(torch, gpt, G, serving, engine, ks, wl):
                                     params, prompts, new,
                                     "draft==target sampled, temperature 1",
                                     sub=hot, **both)[1]
-    if arms["main sampled"]["tokens"] != len(prompts) * new:
-        raise AssertionError("the sampled serve did not finish")
+    t_tree = time.perf_counter()
+    arms["main sampled tree"] = spec_arm(
+        torch, engine, wl, tl, ks, "main", cfg, params, prompts, new,
+        "tree draft==target sampled, temperature 1", sub=hot, **tree)[1]
+    t_tree = time.perf_counter() - t_tree
+    for name in ("main sampled", "main sampled tree"):
+        if arms[name]["tokens"] != len(prompts) * new:
+            raise AssertionError(f"the {name} serve did not finish")
     stats = {"k": SPEC_K, "tree_nodes": SPEC_K, "tree_branch": 2,
-             "verify_logit_gap_small": vgap,
+             "sampled_tree_s": t_tree, "verify_logit_gap_small": vgap,
              "tree_verify_logit_gap_small": tgap,
              "small_streams_equal": True,
              "arms": {n: {k: v for k, v in a.items()
@@ -3084,16 +3122,18 @@ def ladder_events(tl):
 
 
 def oom_drill(torch, gpt, wl, cfg, params, prompts, new, ref_async,
-              faults, tl, tol=TIE_TOL):
-    """The OOM ladder on an async graphed main server: injected tick OOMs
-    at checks 2, 4, 6 and 8 walk it — async -> sync, cap 8 -> 4, 4 -> 2,
-    2 -> 1, each cap rung evicting the slots past it back to the queue
-    with their progress carried.  Every stream is held to the unfaulted
-    async serve's ``ref_async``.  Returns the drill's record."""
+              faults, tl, tol=TIE_TOL, server_kw=None):
+    """The OOM ladder on an async graphed main server (``server_kw``: more
+    server options — a draft model, say): injected tick OOMs at checks 2,
+    4, 6 and 8 walk it — async -> sync, cap 8 -> 4, 4 -> 2, 2 -> 1, each
+    cap rung evicting the slots past it back to the queue with their
+    progress carried.  Every stream is held to the unfaulted async serve's
+    ``ref_async``.  Returns the drill's record."""
     tl.reset()
     faults.install("oom:tick:2,oom:tick:4,oom:tick:6,oom:tick:8")
     try:
-        srv = drill_server(torch, wl, cfg, params, async_dispatch=True)
+        srv = drill_server(torch, wl, cfg, params, async_dispatch=True,
+                           **(server_kw or {}))
         got = drill_serve(torch, srv, prompts, new)
         after = (srv._async, srv._admit_cap, srv.stats())
         srv.close()
@@ -3161,19 +3201,24 @@ def budgeted_oom_drill(torch, gpt, wl, cfg, params, prompts, new, faults,
 
 
 def wedge_drill(torch, gpt, wl, cfg, params, prompts, new, ref_async,
-                faults, tl, tol=TIE_TOL):
-    """The wedge watchdog on an async graphed main server:
-    ``PADDLE_TPU_STEP_BUDGET_S=0.5`` and a ``hang`` fault on the second
-    fetch (``PADDLE_TPU_FAULT_WEDGE_S=2``): ``wedged`` is set by that tick
-    and cleared by the next clean one; the streams are the unfaulted
-    async serve's."""
+                faults, tl, tol=TIE_TOL, server_kw=None,
+                spec="wedge:tick:2"):
+    """The wedge watchdog on an async graphed main server (``server_kw``
+    as in :func:`oom_drill`): ``PADDLE_TPU_STEP_BUDGET_S=0.5`` and a
+    ``hang`` fault (``PADDLE_TPU_FAULT_WEDGE_S=2``) on the second check
+    of the tick sites that take one — the async fetch, as a plain
+    server's dispatch sites pass wedge faults by (a speculating server's
+    verify is a synchronous site that would take it: ``spec`` names a
+    fetch instead): ``wedged`` is set by that tick and cleared by the
+    next clean one; the streams are the unfaulted async serve's."""
     flags_seen = []
     os.environ.update(PADDLE_TPU_STEP_BUDGET_S="0.5",
                       PADDLE_TPU_FAULT_WEDGE_S="2")
     tl.reset()
-    faults.install("wedge:tick:2")
+    faults.install(spec)
     try:
-        srv = drill_server(torch, wl, cfg, params, async_dispatch=True)
+        srv = drill_server(torch, wl, cfg, params, async_dispatch=True,
+                           **(server_kw or {}))
         got = drill_serve(torch, srv, prompts, new,
                           on_tick=lambda s: flags_seen.append(s.wedged))
         ctr = srv.stats()
@@ -3220,14 +3265,16 @@ def real_oom(torch, wl, cfg, params, prompt, new, resilience):
             "is_oom": True, "stream_unchanged": True}
 
 
-def ttl_and_nan(torch, wl, cfg, params, prompts, new, faults, resilience):
+def ttl_and_nan(torch, wl, cfg, params, prompts, new, faults, resilience,
+                server_kw=None):
     """TTL: a request queued behind 8 busy slots with ``ttl_s=0.001``
     past its wait is ``timeout`` and ``result`` raises
     ``DeadlineExceeded``; the 8 finish.  NaN: ``corrupt_nan`` on the
-    first tick's logits (``nan:logits:2``: check 1 is its admission) fails
-    exactly the request decoding then; the requests submitted after it
-    finish."""
-    srv = drill_server(torch, wl, cfg, params)
+    first tick's logits (``nan:logits:2``: check 1 is its admission; a
+    speculating server's first tick is a verify round) fails exactly the
+    request decoding then; the requests submitted after it finish.
+    ``server_kw`` as in :func:`oom_drill`."""
+    srv = drill_server(torch, wl, cfg, params, **(server_kw or {}))
     rids = [srv.submit(p, max_new_tokens=new) for p in prompts]
     doomed = srv.submit(prompts[0], max_new_tokens=new, ttl_s=0.001)
     time.sleep(0.01)
@@ -3981,6 +4028,445 @@ def overload_phase(torch, gpt, engine, ks, wl, card):
             "phase_s": time.perf_counter() - t_phase}, launches
 
 
+# -- the device feed on the card, and the GPT-1.3B trees and servers the
+#    other phases do not serve -----------------------------------------------
+
+# what the smoke prints of each step's device feed
+FEED_KEYS = ("flops", "bytes_accessed", "arithmetic_intensity", "bound",
+             "step_s", "step_calls", "mfu", "hbm_bw_util", "argument_bytes",
+             "output_bytes", "temp_bytes", "compiles")
+# a step's bytes over its wall may not pass the card's peak rate by more
+# than a rounding's worth: a count that did would be a broken count
+HBM_UTIL_CAP = 1.05
+
+
+def step_flops(cfg, batch, window):
+    """The smoke's own count of one decode step's FLOPs, from the config:
+    2 · batch · the matmul weights (qkv — GQA's narrower K and V —, the
+    attention projection, the FFN, the tied logits head) plus 4 · batch ·
+    window · hidden a layer for q·Kᵀ and p·V over the cache's window."""
+    D, Fd, L, V = (cfg.hidden_size, cfg.ffn_size, cfg.num_layers,
+                   cfg.vocab_size)
+    Dkv = cfg.kv_heads * cfg.head_dim
+    ffn = (3 if cfg.activation == "swiglu" else 2) * D * Fd
+    weights = L * (D * (D + 2 * Dkv) + D * D + ffn) + D * V
+    return 2 * batch * weights + 4 * batch * window * D * L
+
+
+def counted_since(tl, since):
+    """{step name: (flops, bytes_accessed)} of the builds the device feed
+    counted since ``since`` (a ``time.time()``)."""
+    return {n: (r.get("flops"), r.get("bytes_accessed"))
+            for n, r in sorted(tl._step_analysis.items())
+            if r["captured_at"] >= since}
+
+
+def feed_gates(tl, cfg, what, since):
+    """The device feed of a gated serve, one line a step the serve's
+    server built (since ``since``), then its gates: ``serving.step``'s
+    FLOPs are :func:`step_flops` of the config at the server's 8 slots
+    and 512-row window, its MFU known and below 1, its HBM bandwidth use
+    at most HBM_UTIL_CAP.  Returns the feed's rows."""
+    feed = tl.device_feed()
+    rows = {n: {k: feed["steps"][n].get(k) for k in FEED_KEYS}
+            for n in counted_since(tl, since)}
+    log(f"  {what}: device feed on {feed['device_kind']} (peaks "
+        f"{feed['peak_flops']} FLOP/s, {feed['peak_hbm_bytes_per_s']} B/s)")
+    for n, r in rows.items():
+        log(f"    {n} {json.dumps(r)}")
+    step = rows.get("serving.step", {})
+    want = step_flops(cfg, 8, 512)
+    mfu, util = step.get("mfu"), step.get("hbm_bw_util")
+    if step.get("flops") != want or mfu is None or not 0 < mfu < 1 \
+            or util is None or util > HBM_UTIL_CAP:
+        raise AssertionError(f"{what}: serving.step's feed {step}, not "
+                             f"{want} FLOPs with 0 < mfu < 1 and "
+                             f"hbm_bw_util <= {HBM_UTIL_CAP}")
+    return {"device_kind": feed["device_kind"],
+            "peak_flops": feed["peak_flops"],
+            "peak_hbm_bytes_per_s": feed["peak_hbm_bytes_per_s"],
+            "analytic_step_flops": want, "steps": rows}
+
+
+def feed_small_vs_cpu(torch, gpt, serving, woq, tl):
+    """The device feed counts a step by shape, so on the small fp32 models
+    (MHA over an fp32 cache, GQA over an int8 one, an int4 tree on the W4
+    kernel) every step a graphed card serve builds must count the FLOPs
+    and bytes the same step counts in a CPU serve of the same requests,
+    both layouts.  Returns {case: steps compared}."""
+    out = {}
+    models = list(_small_models(torch, gpt))
+    # MHA over an fp32 cache, GQA over an int8 one, the int4 tree
+    cases = [(f"{n} kv={kv or 'fp32'}", cfg, kv, False)
+             for n, cfg, kv in (models[0], models[3])]
+    cases.append(("mha-learned int4 W4", models[0][1], "", True))
+    try:
+        for name, cfg, kv, w4 in cases:
+            os.environ["PADDLE_TPU_KV_DTYPE"] = kv
+            os.environ["PADDLE_TPU_W4_KERNEL"] = "1" if w4 else "0"
+            cpu = gpt.init_params(cfg, seed=3, device="cpu")
+            if w4:
+                cpu = woq.quantize_gpt_int4(cpu, group_size=32)
+            card = _to_card(cpu)
+            gen = torch.Generator().manual_seed(2)
+            prompts = [torch.randint(0, cfg.vocab_size, (n,),
+                                     generator=gen).tolist()
+                       for n in (5, 40, 100, 17)]
+            for layout in ("contiguous", "paged"):
+                lay = (dict(layout="paged", block_size=16)
+                       if layout == "paged" else {})
+                counts = {}
+                for dev, p in (("cpu", cpu), ("cuda", card)):
+                    since = time.time()
+                    srv = serving.DecodeServer(p, cfg, max_batch=4,
+                                               max_len=160, device=dev,
+                                               **lay)
+                    drill_serve(torch, srv, prompts, 4)
+                    srv.close()
+                    counts[dev] = counted_since(tl, since)
+                if not counts["cpu"] or counts["cpu"] != counts["cuda"]:
+                    raise AssertionError(f"{name} {layout}: the card's "
+                                         f"counts {counts['cuda']}, the "
+                                         f"CPU's {counts['cpu']}")
+                out[f"{name} {layout}"] = len(counts["cpu"])
+            del cpu, card
+    finally:
+        for k in ("PADDLE_TPU_KV_DTYPE", "PADDLE_TPU_W4_KERNEL"):
+            os.environ.pop(k, None)
+    return out
+
+
+def counted_admissions(engine, ks, calls):
+    """Wrap ``Engine.get`` so that each admission call (a bucket prefill
+    or a paged chunk: one graph replay each, counting the launches its
+    capture recorded) appends (its width C, the tensor-core launches of
+    the two decode kernels and the W4 launches and their tensor-core ones
+    it added) to ``calls``.  Returns the unwrapping callable."""
+    get = engine.ENGINE.get
+    da_, pda, w4 = (ks["decode_attention"], ks["paged_decode_attention"],
+                    ks["w4_matmul"])
+
+    def counted_get(kind, spec):
+        fn = get(kind, spec)
+        if kind not in ("prefill", "paged_prefill"):
+            return fn
+
+        def counted(tokens, *rest):
+            before = (da_.tc_launches + pda.tc_launches, w4.launches,
+                      w4.tc_launches)
+            out = fn(tokens, *rest)
+            calls.append((tokens.shape[1],
+                          da_.tc_launches + pda.tc_launches - before[0],
+                          w4.launches - before[1], w4.tc_launches
+                          - before[2]))
+            return out
+        return counted
+
+    engine.ENGINE.get = counted_get
+
+    def undo():
+        del engine.ENGINE.get
+    return undo
+
+
+def tree_serve(torch, engine, wl, ks, path, cfg, params, prompts, new):
+    """One graphed, warmed serve of ``path``'s geometry, each admission
+    and each tick's launches counted (:func:`counted_admissions`).
+    Returns (streams, stats with the per-call launch records)."""
+    from paddle_tpu_torch import telemetry as tl
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    srv = wl.make_server(path, params, cfg)
+    since = time.time()
+    warm = srv.warmup(prompt_lens=[len(p) for p in prompts])
+    replays0 = replays_now(engine, srv)
+    calls, per_tick = [], []
+    w4 = ks["w4_matmul"]
+    undo = counted_admissions(engine, ks, calls)
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_counts(ks)
+        t0 = time.perf_counter()
+        rids = [srv.submit(p, max_new_tokens=new) for p in prompts]
+        t_admit = time.perf_counter() - t0
+        ticks = []
+        while srv.pending():
+            before = (w4.launches, w4.tc_launches)
+            t1 = time.perf_counter()
+            srv.tick()
+            ticks.append(time.perf_counter() - t1)
+            per_tick.append((w4.launches - before[0],
+                             w4.tc_launches - before[1]))
+            if len(ticks) > 10 * new:
+                raise AssertionError("server did not drain")
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches, tc, tick = launch_counts(ks), tc_counts(ks), tick_counts(ks)
+    finally:
+        undo()
+    peak = torch.cuda.max_memory_allocated()
+    served = [srv.result(r) for r in rids]
+    graphed_serve(torch, engine, srv, ticks, replays0, len(calls))
+    cache = srv._bind.cache
+    stats = way_stats(torch, engine, srv, served, t_admit, ticks, wall, peak,
+                      warm)
+    feed = tl.device_feed()["steps"]
+    built = counted_since(tl, since)
+    step = {k: feed["serving.step"].get(k) for k in FEED_KEYS}
+    if step["flops"] != step_flops(cfg, 8, 512):
+        raise AssertionError(f"{path}: serving.step's feed {step}, not "
+                             f"{step_flops(cfg, 8, 512)} FLOPs")
+    stats.update(
+        feed_step=step,
+        graph_pools_gb=sum(feed[n].get("temp_bytes") or 0
+                           for n in built) / 1e9,
+        kv_dtype=str(cache["k"].dtype).replace("torch.", ""),
+        kv_bytes=sum(t.numel() * t.element_size() for n, t in cache.items()
+                     if n != "tables"),
+        launches=launches, tc_launches=tc, tick_launches=tick,
+        admission_calls=calls, w4_per_tick=sorted(set(per_tick)))
+    srv.close()
+    return served, stats
+
+
+def route_gates(cfg, path, st, da):
+    """The launch gates of a :func:`tree_serve`: every attention of the
+    serve on its layout's kernel (the paged one reads the pool in place:
+    no contiguous decode launch and no flash forward), every tick on the
+    tick body (R = G < R_TC), every main admission's flash forward on the
+    tensor-core body, every paged chunk at R = C·G >= R_TC on the paged
+    kernel's tensor-core body (the tick body below) — one launch a layer,
+    or one a piece of at most ``_R_CAP`` rows a kv head past it."""
+    L, G = cfg.num_layers, cfg.num_heads // cfg.kv_heads
+    launches, tc, tick = st["launches"], st["tc_launches"], st["tick_launches"]
+    n_tick, calls = st["calls"], st["admission_calls"]
+
+    def pieces(C):
+        return -(-C * G // da._R_CAP)
+
+    ok = True
+    if path == "main":
+        ok &= launches["flash_attention_fwd"] == L * len(calls) \
+            == tc["flash_attention_fwd"]
+        ok &= launches["decode_attention"] == L * n_tick \
+            == tick["decode_attention"]
+        ok &= launches["paged_decode_attention"] == 0
+        ok &= all(c[1] == 0 for c in calls)
+    else:
+        narrow = sum(c[0] * G < da.R_TC for c in calls)
+        ok &= launches["paged_decode_attention"] == L * (
+            n_tick + sum(pieces(c[0]) for c in calls))
+        ok &= tick["paged_decode_attention"] == L * (n_tick + narrow)
+        ok &= all(c[1] == L * pieces(c[0]) * (c[0] * G >= da.R_TC)
+                  for c in calls)
+        ok &= launches["decode_attention"] == 0
+        ok &= launches["flash_attention_fwd"] == 0
+    if not ok:
+        raise AssertionError(f"{path}: launches {launches}, tc {tc}, tick "
+                             f"{tick}, {n_tick} ticks, admissions "
+                             f"(C, tc, w4, w4 tc) {calls}")
+
+
+def tree_arm(torch, gpt, engine, wl, ks, path, cfg, params, prompts, new,
+             what, da):
+    """A tree on ``path``'s geometry, served eagerly, then graphed and
+    warmed (:func:`tree_serve`): :func:`route_gates`; the graphed streams
+    held to the eager ones by the tie rule, and every token of them
+    within TIE_TOL of its row's best in a teacher-forced forward."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    eager = wl.make_server(path, params, cfg, _graphs=False)
+    ref = serve(torch, eager, prompts, new)[0]
+    eager.close()
+    del eager
+    served, st = tree_serve(torch, engine, wl, ks, path, cfg, params,
+                            prompts, new)
+    route_gates(cfg, path, st, da)
+    st["eager_equal"] = hold_streams(torch, gpt, params, cfg, prompts,
+                                     served, ref, f"{what} {path} graph vs "
+                                     f"eager")
+    st["forced_gap"] = max(forced_gap(torch, gpt, params, cfg, p, s)
+                           for p, s in zip(prompts, served))
+    if not st["forced_gap"] <= TIE_TOL:
+        raise AssertionError(f"{what} {path}: a served token "
+                             f"{st['forced_gap']} under its teacher-forced "
+                             f"best (tol {TIE_TOL})")
+    log(f"  {what} {path}: tokens/s {st['tokens_per_s']:.1f}, tick median "
+        f"{st['tick_ms_median']:.2f} ms, reserved {st['reserved_gb']:.4f} "
+        f"GB ({st['graph_pools_gb']:.4f} in graph pools), {st['kv_dtype']} "
+        f"cache {st['kv_bytes'] / 1e9:.4f} GB; serving.step "
+        f"{json.dumps(st['feed_step'])}; "
+        f"{st['eager_equal']} of {len(prompts)} streams equal to eager "
+        f"throughout (the rest by the tie rule), every token within "
+        f"{st['forced_gap']:.4g} of its teacher-forced best; launches "
+        f"{ {k: v for k, v in st['launches'].items() if v} }, tick body "
+        f"{ {k: v for k, v in st['tick_launches'].items() if v} }, "
+        f"tensor-core {({k: v for k, v in st['tc_launches'].items() if v})}")
+    return st
+
+
+def w4_paged_arm(torch, gpt, engine, wl, wm, ks, cfg, params, da):
+    """The int4 tree (``W4_FLAGS`` set) on the paged path's geometry and
+    chat requests (:func:`tree_serve`): :func:`route_gates`, and 6 W4
+    launches a layer in every tick and in every chunk of at most
+    ``_N_CAP`` rows (none past it), all on the tensor-core body; every
+    token within TIE_TOL of its teacher-forced best (the int4 forward)."""
+    L = cfg.num_layers
+    prompts = wl.paged_prompts(cfg.vocab_size, 0)
+    served, st = tree_serve(torch, engine, wl, ks, "paged", cfg, params,
+                            prompts, wl.NEW)
+    route_gates(cfg, "paged", st, da)
+    want = [6 * L if c[0] <= wm._N_CAP else 0 for c in st["admission_calls"]]
+    if [c[2] for c in st["admission_calls"]] != want \
+            or [c[3] for c in st["admission_calls"]] != want \
+            or st["w4_per_tick"] != [(6 * L, 6 * L)] \
+            or st["tc_launches"]["w4_matmul"] != st["launches"]["w4_matmul"]:
+        raise AssertionError(f"W4 paged: per admission (C, tc, w4, w4 tc) "
+                             f"{st['admission_calls']} (want {want}), per "
+                             f"tick {st['w4_per_tick']}, launches "
+                             f"{st['launches']}, tc {st['tc_launches']}")
+    st["forced_gap"] = max(forced_gap(torch, gpt, params, cfg, p, s)
+                           for p, s in zip(prompts, served))
+    if not st["forced_gap"] <= TIE_TOL:
+        raise AssertionError(f"W4 paged: a served token {st['forced_gap']} "
+                             f"under its teacher-forced best")
+    log(f"  W4 paged: tokens/s {st['tokens_per_s']:.1f}, tick median "
+        f"{st['tick_ms_median']:.2f} ms, reserved {st['reserved_gb']:.4f} "
+        f"GB ({st['graph_pools_gb']:.4f} in graph pools); serving.step "
+        f"{json.dumps(st['feed_step'])}; W4 launches per admission {[c[2] for c in st['admission_calls']]}"
+        f" (widths {[c[0] for c in st['admission_calls']]}), per tick "
+        f"{st['w4_per_tick']}, all on the tensor-core body; launches "
+        f"{ {k: v for k, v in st['launches'].items() if v} }; every token "
+        f"within {st['forced_gap']:.4g} of its teacher-forced best")
+    return st
+
+
+def drills_on(torch, gpt, wl, cfg, params, prompts, new, faults, tl,
+              resilience, what, server_kw=None, wedge="wedge:tick:2",
+              wedge_kw=None):
+    """The pressure phase's drills on the main path's requests, on a server
+    of ``params`` with ``server_kw``: the OOM ladder (rungs in order,
+    evictions), the wedge watchdog, TTL and the NaN guard, each stream
+    held by the tie rule to an unfaulted async serve's.  ``wedge`` and
+    ``wedge_kw``: the wedge drill's fault and its extra server options."""
+    kw = server_kw or {}
+    ref = drill_server(torch, wl, cfg, params, async_dispatch=True, **kw)
+    ref_async = drill_serve(torch, ref, prompts, new)
+    ref.close()
+    out = {"oom": oom_drill(torch, gpt, wl, cfg, params, prompts, new,
+                            ref_async, faults, tl, server_kw=kw),
+           "wedge": wedge_drill(torch, gpt, wl, cfg, params, prompts, new,
+                                ref_async, faults, tl,
+                                server_kw={**kw, **(wedge_kw or {})},
+                                spec=wedge),
+           "ttl_nan": ttl_and_nan(torch, wl, cfg, params, prompts, new,
+                                  faults, resilience, server_kw=kw)}
+    log(f"  {what} drills: OOM rungs {out['oom']['rungs']}, evictions "
+        f"{out['oom']['counters'].get('resilience.oom_evictions')}, "
+        f"{out['oom']['streams_equal']} of {len(prompts)} streams equal "
+        f"throughout; wedged after tick {out['wedge']['wedged_at_tick']}, "
+        f"cleared by the next, {out['wedge']['streams_equal']} streams "
+        f"equal; TTL and NaN {json.dumps(out['ttl_nan'])}")
+    return out
+
+
+def trees_phase(torch, gpt, serving, woq, wm, engine, ks, wl, bf16):
+    """[the GPT-1.3B trees the other phases bypass] — int8 KV and GQA
+    (``num_kv_heads=4``, G = 4) on the main and paged paths
+    (:func:`tree_arm`), the int4 tree on the paged path
+    (:func:`w4_paged_arm`), and the pressure phase's drills on the int4
+    tree and on a K = SPEC_K draft == target speculating server
+    (:func:`drills_on`).  ``bf16``: the main and paged paths' stats of
+    this run, printed beside.  Returns (stats, launches)."""
+    import dataclasses
+
+    from paddle_tpu_torch import faults, resilience
+    from paddle_tpu_torch import telemetry as tl
+    from paddle_tpu_torch.ops import decode_attention as da
+
+    new = wl.NEW
+    cfg = gpt.gpt_1p3b()
+    by_path = {"main": wl.main_prompts(cfg.vocab_size, 0),
+               "paged": wl.paged_prompts(cfg.vocab_size, 0)}
+    arms, launches = {}, {}
+
+    def tally(st):
+        for n, v in st["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    os.environ["PADDLE_TPU_KV_DTYPE"] = "int8"
+    try:
+        for path, prompts in by_path.items():
+            arms[f"int8 {path}"] = st = tree_arm(
+                torch, gpt, engine, wl, ks, path, cfg, params, prompts, new,
+                "int8 KV", da)
+            if st["kv_dtype"] != "int8":
+                raise AssertionError(f"int8 {path}: a {st['kv_dtype']} cache")
+            tally(st)
+    finally:
+        os.environ.pop("PADDLE_TPU_KV_DTYPE", None)
+    for path in by_path:
+        a, b = arms[f"int8 {path}"], bf16[path]
+        log(f"  int8 KV {path} beside bf16 (this run): tokens/s "
+            f"{a['tokens_per_s']:.1f} vs {b['tokens_per_s']:.1f}, tick "
+            f"median {a['tick_ms_median']:.2f} vs {b['tick_ms_median']:.2f} "
+            f"ms, reserved {a['reserved_gb']:.4f} vs "
+            f"{b['ways']['graph']['reserved_gb']:.4f} GB")
+    out_drills = {}
+    # a speculating server's rounds are synchronous: its only async
+    # fetches are the plain steps it takes while a budgeted claim admits,
+    # so its wedge drill admits under BUDGET and hangs the second fetch
+    out_drills["speculating"] = drills_on(
+        torch, gpt, wl, cfg, params, by_path["main"], new, faults, tl,
+        resilience, f"draft == target K = {SPEC_K}",
+        dict(spec_k=SPEC_K, draft_cfg=cfg, draft_params=params),
+        wedge="wedge:serving.fetch:2", wedge_kw=dict(prefill_budget=BUDGET))
+    del params
+    engine.ENGINE.purge(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    gcfg = dataclasses.replace(cfg, num_kv_heads=4)
+    gparams = gpt.init_params(gcfg, seed=0, device="cuda")
+    for path, prompts in by_path.items():
+        arms[f"gqa {path}"] = st = tree_arm(
+            torch, gpt, engine, wl, ks, path, gcfg, gparams, prompts, new,
+            "GQA 16/4", da)
+        tally(st)
+    del gparams
+    engine.ENGINE.purge(gcfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    os.environ.update(wl.W4_FLAGS)
+    try:
+        w4 = woq.quantize_gpt_int4(gpt.init_params(cfg, seed=0,
+                                                   device="cuda"),
+                                   group_size=wl.W4_GROUP)
+        arms["w4 paged"] = st = w4_paged_arm(torch, gpt, engine, wl, wm, ks,
+                                             cfg, w4, da)
+        tally(st)
+        out_drills["w4"] = drills_on(torch, gpt, wl, cfg, w4,
+                                     by_path["main"], new, faults, tl,
+                                     resilience, "int4 W4")
+    finally:
+        os.environ.pop("PADDLE_TPU_W4_KERNEL", None)
+    del w4
+    engine.ENGINE.purge(cfg)
+    stats = {"arms": {n: {k: v for k, v in a.items() if k not in (
+        "launches", "tc_launches", "tick_launches")} for n, a in arms.items()},
+        "drills": out_drills,
+        "tick_launches": {n: sum(a["tick_launches"][n] for a in arms.values())
+                          for n in ("decode_attention",
+                                    "paged_decode_attention")},
+        "tc_launches": {n: sum(a["tc_launches"][n] for a in arms.values())
+                        for n in arms["w4 paged"]["tc_launches"]}}
+    return stats, launches
+
+
 def expected_train_launches(cfg, rung, remat_policies):
     """Each kernel's launches in one step of ``rung``: per micro-batch a
     flash forward, dq and dk/dv a layer, the CE forward and backward once,
@@ -4172,6 +4658,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = wl.card_line()
     log(card)
     log(f"torch {torch.__version__} cuda {torch.version.cuda} "
@@ -4202,6 +4689,13 @@ def main() -> int:
     log("[served through graphs vs eager steps, admission included: small "
         "fp32 models]")
     check_graphs_vs_eager(torch, gpt, serving, woq, engine)
+    log("[the device feed: card vs CPU counts on small fp32 models]")
+    from paddle_tpu_torch import telemetry as tl
+    t_feed = time.perf_counter()
+    feed_small = feed_small_vs_cpu(torch, gpt, serving, woq, tl)
+    t_feed = time.perf_counter() - t_feed
+    log(f"  every step's FLOPs and bytes the CPU's, steps compared: "
+        f"{json.dumps(feed_small)} ({t_feed:.1f} s)")
     log("[train steps on the card vs the CPU]")
     check_train_vs_cpu(torch, gpt, gpt_hybrid, optim.AdamW, fn)
     log("[remat, dropout, Adafactor, Lamb, clipping, a schedule: train "
@@ -4340,6 +4834,23 @@ def main() -> int:
         f"ms, peak memory {wstats['peak_mem_gb']:.2f} vs "
         f"{stats['peak_mem_gb']:.2f} GB")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[the trees the other phases bypass: int8 KV and GQA on main and "
+        "paged, int4 weights on paged, the pressure drills on the int4 tree "
+        "and on a speculating server: GPT-1.3B]")
+    t_trees = time.perf_counter()
+    trstats, by_path["trees"] = trees_phase(
+        torch, gpt, serving, woq, wm, engine, ks, wl,
+        {"main": stats, "paged": pstats})
+    t_trees = time.perf_counter() - t_trees
+    log(json.dumps({"trees": trstats}))
+    log(f"[the feed checks, the trees' phase and the sampled tree serve: "
+        f"{t_feed + t_trees + sstats['sampled_tree_s']:.1f} s of command "
+        f"time — feed checks on small models {t_feed:.1f} s, the trees' "
+        f"phase {t_trees:.1f} s, the sampled tree serve "
+        f"{sstats['sampled_tree_s']:.1f} s]")
+
     train = {}
     for path, rung, twin in TRAIN_RUNGS:
         gc.collect()                # the last model leaves the card
@@ -4384,6 +4895,7 @@ def main() -> int:
                   "overload": ostats["ladder"]["tc_launches"],
                   "speculation": sstats["tc_launches"],
                   "beam": bmstats["tc_launches"],
+                  "trees": trstats["tc_launches"],
                   **{p: t["tc_launches"] for p, t in train.items()}}
     assert all(by_path[p]["decode_attention"] == 0 for p in train)
     tick_by_path = {name: {"main": stats["tick_launches"][name],
@@ -4394,6 +4906,7 @@ def main() -> int:
                                name],
                            "speculation": sstats["tick_launches"][name],
                            "beam": bmstats["tick_launches"][name],
+                           "trees": trstats["tick_launches"][name],
                            **{p: 0 for p in train}}
                     for name in ("decode_attention", "paged_decode_attention")}
 
@@ -4462,6 +4975,8 @@ def main() -> int:
               at_admission_widths=paged_widths,
               on_contiguous_memory=paged_addr, at_verify=paged_verify),
     ]
+    log(f"[whole smoke: {time.perf_counter() - t_start:.1f} s after "
+        f"the card's query]")
     log(f"card: {card}")
     log(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -394,13 +394,25 @@ def wedge_evidence_ttl_s() -> float:
 
 def device_feed_enabled() -> bool:
     """The device feed (``PADDLE_TPU_DEVICE_FEED``, on by default, under
-    the telemetry switch): per-step walls (``telemetry.note_step_time``)
-    and the rate-limited card memory sample
-    (``telemetry.sample_device_stats``).  Host bookkeeping only."""
+    the telemetry switch): each step build's cost count (FLOPs, bytes,
+    memory sizes: ``telemetry.instrument_compile`` and the Engine's
+    builds), per-step walls (``telemetry.note_step_time``) and the
+    rate-limited card memory sample (``telemetry.sample_device_stats``).
+    Host bookkeeping only: it never changes a step."""
+    return device_feed_mode() != "off"
+
+
+def device_feed_mode() -> str:
+    """'off' | 'on' | 'full' — the one parse of ``PADDLE_TPU_DEVICE_FEED``
+    (the JAX package's values).  In the port 'full' equals 'on': the
+    memory sizes come with the cost count, which is cheap, so 'on'
+    already takes both."""
     if not telemetry_enabled():
-        return False
+        return "off"
     v = os.environ.get("PADDLE_TPU_DEVICE_FEED", "1").strip().lower()
-    return v not in ("0", "false", "off", "no")
+    if v in ("0", "false", "off", "no"):
+        return "off"
+    return "full" if v == "full" else "on"
 
 
 def hbm_sample_interval_s() -> float:

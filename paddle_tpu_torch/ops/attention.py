@@ -12,6 +12,7 @@ from __future__ import annotations
 
 import torch
 
+from .. import telemetry as _telemetry
 from . import flash_attention as fa
 
 
@@ -30,6 +31,14 @@ def xla_attention(q, k, v, is_causal=False, scale=None):
     return torch.einsum("bhts,bshd->bthd", p, v)
 
 
+def _attention_cost(q, k, v, is_causal=False, scale=None):
+    """The flash forward's (FLOPs, bytes), on both devices: on the CPU the
+    plain expression stands in for the kernel, so the device feed counts
+    a step alike on each."""
+    return fa.flash_fwd_cost(q, k, v, is_causal)
+
+
+@_telemetry.counted(_attention_cost)
 def attention_array(q, k, v, is_causal=False, scale=None):
     """q [B, T, H, D], k/v [B, S, Hkv, D] with Hkv dividing H (GQA heads
     need not be repeated) -> [B, T, H, D].  CUDA: the flash kernel — under
@@ -48,4 +57,7 @@ def attention_array(q, k, v, is_causal=False, scale=None):
     if rep > 1:
         k = k.repeat_interleave(rep, dim=2)
         v = v.repeat_interleave(rep, dim=2)
-    return xla_attention(q, k, v, is_causal=is_causal, scale=scale)
+    # in the kernel's contiguous layout, so what follows (a reshape) runs
+    # alike on both devices
+    return xla_attention(q, k, v, is_causal=is_causal,
+                         scale=scale).contiguous()

@@ -30,6 +30,7 @@ import ctypes
 
 import torch
 
+from .. import telemetry as _telemetry
 from . import _build
 
 _NEG = -1e30
@@ -290,11 +291,68 @@ def _launch(name, q, k, Hkv, T, ptrs, dims, scale, body):
     return out
 
 
+def _row_pieces(q, Hkv: int) -> list:
+    """Query-row offsets of the launches one call takes: [0] — or, past
+    the kernels' cap of ``_R_CAP`` rows a kv head (a wide admission chunk
+    under GQA: Tq * G > 1024), the starts of pieces of ``_R_CAP // G``
+    rows.  A G past the cap keeps one launch, which ``_check`` refuses."""
+    Tq, G = q.shape[1], q.shape[2] // Hkv
+    if Tq * G <= _R_CAP or G > _R_CAP:
+        return [0]
+    return list(range(0, Tq, _R_CAP // G))
+
+
+def _by_pieces(launch, q, Hkv: int, pos):
+    """``launch(q_piece, pos_piece)`` over q's row pieces
+    (:func:`_row_pieces`), concatenated on the row axis: the piece from
+    row i attends as its rows do in the whole block, at ``pos + i``."""
+    step = _R_CAP // (q.shape[2] // Hkv)
+    return torch.cat([launch(q[:, i:i + step].contiguous(), pos + i)
+                      for i in _row_pieces(q, Hkv)], dim=1)
+
+
 def _scale_ptrs(k_scale, v_scale):
     return (k_scale.data_ptr() if k_scale is not None else None,
             v_scale.data_ptr() if v_scale is not None else None)
 
 
+def _window_bytes(q, k, k_scale, B: int, T: int) -> int:
+    """Bytes a launch moves over a window of T cache rows a slot: q in and
+    out, K and V (and their int8 scales) of every row."""
+    Hkv, hd = k.shape[2], k.shape[3]
+    kv = 2 * B * T * Hkv * hd * k.element_size()
+    if k_scale is not None:
+        kv += 2 * B * T * Hkv * 4
+    return 2 * q.numel() * q.element_size() + kv
+
+
+def decode_attention_cost(q, k, v, pos, k_scale=None, v_scale=None,
+                          scale=None):
+    """(FLOPs, bytes) of a :func:`decode_attention` call for the device
+    feed (``telemetry.counted``): q·Kᵀ and p·V over the cache's whole
+    window T, 4·B·Tq·Hq·T·hd FLOPs, and the window's bytes.  The window,
+    not the live rows: a captured step serves every position, which is a
+    feed."""
+    B, Tq, Hq, hd = q.shape
+    T = k.shape[1]
+    return (4 * B * Tq * Hq * T * hd,
+            _window_bytes(q, k, k_scale, B, T) + 4 * B)
+
+
+def paged_decode_attention_cost(q, k_pool, v_pool, tables, pos,
+                                k_scale=None, v_scale=None, scale=None):
+    """(FLOPs, bytes) of a :func:`paged_decode_attention` call: as
+    :func:`decode_attention_cost` over the window the tables address,
+    nmax · block_size rows a slot (the table's shape, not its live
+    blocks), plus the tables."""
+    B, Tq, Hq, hd = q.shape
+    T = tables.shape[1] * k_pool.shape[1]
+    return (4 * B * Tq * Hq * T * hd,
+            _window_bytes(q, k_pool, k_scale, B, T) + 4 * B
+            + tables.numel() * 4)
+
+
+@_telemetry.counted(decode_attention_cost)
 def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, scale=None):
     """q [B, Tq, Hq, hd] against a cache [B, T, Hkv, hd] -> [B, Tq, Hq, hd]
     (q.dtype).  ``pos`` [B] int32: q row i of batch b attends cache rows
@@ -303,12 +361,16 @@ def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, scale=None):
 
     CPU tensors run :func:`_plain_decode`.  CUDA tensors launch
     ``csrc/decode_attention.cu`` (q float32/bfloat16; cache float32,
-    bfloat16 or int8; hd in {64, 128, 256}; Tq * Hq / Hkv <= 1024); every
-    launch adds one to ``decode_attention.launches``, and one on the tick
-    route (:func:`route`) to ``.tick_launches``, on the tensor-core route
-    to ``.tc_launches``."""
+    bfloat16 or int8; hd in {64, 128, 256}) once for each piece of at
+    most 1024 query rows a kv head (:func:`_row_pieces`); every launch
+    adds one to ``decode_attention.launches``, and one on the tick route
+    (:func:`route`) to ``.tick_launches``, on the tensor-core route to
+    ``.tc_launches``."""
     if not q.is_cuda:
         return _plain_decode(q, k, v, pos, k_scale, v_scale, scale)
+    if len(_row_pieces(q, k.shape[2])) > 1:
+        return _by_pieces(lambda qp, pp: decode_attention(
+            qp, k, v, pp, k_scale, v_scale, scale), q, k.shape[2], pos)
     _check(q, k, v, pos, k_scale, v_scale)
     B, Tq, Hq, hd = q.shape
     T, Hkv = k.shape[1], k.shape[2]
@@ -372,6 +434,7 @@ def _plain_paged(q, k_pool, v_pool, tables, pos, k_scale, v_scale, scale):
     return _plain_decode(q, k, v, pos, ks, vs, scale)
 
 
+@_telemetry.counted(paged_decode_attention_cost)
 def paged_decode_attention(q, k_pool, v_pool, tables, pos,
                            k_scale=None, v_scale=None, scale=None):
     """Block-table decode attention: q [B, Tq, Hq, hd] against a pooled
@@ -383,13 +446,18 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos,
 
     CPU tensors run :func:`_plain_paged`.  CUDA tensors launch
     ``csrc/paged_decode_attention.cu`` (what ``decode_attention`` takes,
-    with bs a multiple of 8; unmapped blocks are never read); every
-    launch adds one to ``paged_decode_attention.launches``, and one on
-    the tick route (:func:`paged_route`) to ``.tick_launches``, on the
-    tensor-core route to ``.tc_launches``."""
+    with bs a multiple of 8; unmapped blocks are never read), once a
+    piece of at most 1024 query rows a kv head as there; every launch
+    adds one to ``paged_decode_attention.launches``, and one on the tick
+    route (:func:`paged_route`) to ``.tick_launches``, on the tensor-core
+    route to ``.tc_launches``."""
     if not q.is_cuda:
         return _plain_paged(q, k_pool, v_pool, tables, pos, k_scale,
                             v_scale, scale)
+    if len(_row_pieces(q, k_pool.shape[2])) > 1:
+        return _by_pieces(lambda qp, pp: paged_decode_attention(
+            qp, k_pool, v_pool, tables, pp, k_scale, v_scale, scale), q,
+            k_pool.shape[2], pos)
     _check(q, k_pool, v_pool, pos, k_scale, v_scale, tables)
     B, Tq, Hq, hd = q.shape
     N, bs, Hkv = k_pool.shape[:3]

@@ -26,6 +26,7 @@ import ctypes
 
 import torch
 
+from .. import telemetry as _telemetry
 from . import _build
 
 _NEG = -1e30  # large-negative instead of -inf: keeps lse finite on empty rows
@@ -105,6 +106,52 @@ def _check(q, k, v, what="flash_attention_fwd"):
                              f"contiguous and 16-byte aligned")
 
 
+def _pairs(T: int, S: int, causal: bool) -> int:
+    """(query row, key) pairs a head computes: all T·S, or causal — row i
+    sees keys j <= i — the visible ones."""
+    if not causal:
+        return T * S
+    m = min(T, S)
+    return m * (m + 1) // 2 + (T - m) * S
+
+
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def flash_fwd_cost(q, k, v, causal: bool = False, scale=None):
+    """(FLOPs, bytes) of a :func:`flash_attention_fwd` call for the device
+    feed (``telemetry.counted``): q·Kᵀ and p·V over the visible pairs,
+    4·B·H·D·pairs; q, k, v read, out and the fp32 lse written."""
+    B, T, H, D = q.shape
+    return (4 * B * H * D * _pairs(T, k.shape[1], causal),
+            2 * _nbytes(q) + _nbytes(k, v) + B * H * T * 4)
+
+
+def flash_bwd_dq_cost(q, k, v, out, lse, do, causal=False, scale=None):
+    """(FLOPs, bytes) of :func:`flash_attention_bwd_dq`: S, dP and dQ,
+    6·B·H·D·pairs; q, k, v, out, do, lse read, dq and delta written."""
+    B, T, H, D = q.shape
+    return (6 * B * H * D * _pairs(T, k.shape[1], causal),
+            _nbytes(q, k, v, out, do, lse) + _nbytes(q, lse))
+
+
+def flash_bwd_dkv_cost(q, k, v, lse, delta, do, causal=False, scale=None):
+    """(FLOPs, bytes) of :func:`flash_attention_bwd_dkv`: S, dP, dV and
+    dK, 8·B·H·D·pairs; q, k, v, do, lse, delta read, dk and dv written."""
+    B, T, H, D = q.shape
+    return (8 * B * H * D * _pairs(T, k.shape[1], causal),
+            _nbytes(q, k, v, do, lse, delta) + _nbytes(k, v))
+
+
+def flash_bwd_cost(q, k, v, out, lse, do, causal=False, scale=None):
+    """(FLOPs, bytes) of :func:`flash_attention_bwd`: its two kernels'."""
+    f1, b1 = flash_bwd_dq_cost(q, k, v, out, lse, do, causal)
+    f2, b2 = flash_bwd_dkv_cost(q, k, v, lse, lse, do, causal)
+    return f1 + f2, b1 + b2
+
+
+@_telemetry.counted(flash_fwd_cost)
 def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
     """q [B, T, H, D], k/v [B, S, Hkv, D] -> (out [B, T, H, D] in q.dtype,
     lse [B*H, T] float32).  Causal means query row i sees keys j <= i.
@@ -218,6 +265,7 @@ def _dims(q, k, causal):
             int(bool(causal))]
 
 
+@_telemetry.counted(flash_bwd_dq_cost)
 def flash_attention_bwd_dq(q, k, v, out, lse, do, causal=False, scale=None):
     """Launch the dq kernel (``csrc/flash_bwd.cu``, Pallas ``dq_kernel``)
     on CUDA tensors -> (dq like q, delta [B*H, T] float32 =
@@ -245,6 +293,7 @@ flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.tc_launches = 0
 
 
+@_telemetry.counted(flash_bwd_dkv_cost)
 def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal=False,
                             scale=None):
     """Launch the dk/dv kernel (``csrc/flash_bwd.cu``, Pallas
@@ -273,6 +322,7 @@ flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.tc_launches = 0
 
 
+@_telemetry.counted(flash_bwd_cost)
 def flash_attention_bwd(q, k, v, out, lse, do, causal=False, scale=None):
     """Gradients of :func:`flash_attention_fwd`: q/out/do [B, T, H, D],
     k/v [B, S, Hkv, D], lse [B*H, T] float32 (the forward's) -> (dq, dk,

@@ -20,6 +20,7 @@ import ctypes
 
 import torch
 
+from .. import telemetry as _telemetry
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -75,6 +76,24 @@ def _fn(name, n_ptrs):
     return fn
 
 
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def ce_fwd_cost(logits, labels):
+    """(FLOPs, bytes) of a :func:`ce_fwd` call for the device feed
+    (``telemetry.counted``): no matmul FLOPs; the logits and labels
+    read, the fp32 loss and lse written."""
+    return 0, _nbytes(logits, labels) + 8 * logits.shape[0]
+
+
+def ce_bwd_cost(logits, labels, lse, dloss):
+    """(FLOPs, bytes) of :func:`ce_bwd`: no matmul FLOPs; logits, labels,
+    lse, dloss read, dlogits written."""
+    return 0, 2 * _nbytes(logits) + _nbytes(labels, lse, dloss)
+
+
+@_telemetry.counted(ce_fwd_cost)
 def ce_fwd(logits, labels):
     """logits [N, V], labels [N] int64 -> (loss [N], lse [N]) float32.
 
@@ -101,6 +120,7 @@ def ce_fwd(logits, labels):
 ce_fwd.launches = 0
 
 
+@_telemetry.counted(ce_bwd_cost)
 def ce_bwd(logits, labels, lse, dloss):
     """dlogits [N, V] in logits.dtype = (softmax - onehot(label)) * dloss,
     the softmax recomputed from ``lse`` [N] float32; ``dloss`` [N].

@@ -22,6 +22,7 @@ import functools
 
 import torch
 
+from .. import telemetry as _telemetry
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -102,6 +103,25 @@ def bwd_plan(N: int, sm_count: int) -> tuple[int, int]:
     return R, -(-N // R)
 
 
+def _nbytes(*ts) -> int:
+    return sum(t.numel() * t.element_size() for t in ts)
+
+
+def ln_fwd_cost(x, g, b, eps=1e-5):
+    """(FLOPs, bytes) of an :func:`ln_fwd` call for the device feed
+    (``telemetry.counted``): no matmul FLOPs (the feed counts the
+    matmul family's, and a norm's elementwise work is not); x, g, b read,
+    y and the fp32 mu, rstd written."""
+    return 0, 2 * _nbytes(x) + _nbytes(g, b) + 8 * x.shape[0]
+
+
+def ln_bwd_cost(x, g, mu, rstd, dy):
+    """(FLOPs, bytes) of :func:`ln_bwd`: no matmul FLOPs; x, g, mu, rstd,
+    dy read, dx and the fp32 dg, db written."""
+    return 0, _nbytes(x, g, mu, rstd, dy) + _nbytes(x) + 8 * x.shape[1]
+
+
+@_telemetry.counted(ln_fwd_cost)
 def ln_fwd(x, g, b, eps=1e-5):
     """x [N, F], g and b [F] -> (y [N, F] in x.dtype, mu [N, 1], rstd
     [N, 1] float32).
@@ -130,6 +150,7 @@ def ln_fwd(x, g, b, eps=1e-5):
 ln_fwd.launches = 0
 
 
+@_telemetry.counted(ln_bwd_cost)
 def ln_bwd(x, g, mu, rstd, dy):
     """(dx [N, F] in x.dtype, dg [F], db [F] float32) from x and dy [N, F],
     g [F] and the forward's mu, rstd [N, 1] float32.

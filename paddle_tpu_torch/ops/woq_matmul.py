@@ -27,6 +27,7 @@ import functools
 
 import torch
 
+from .. import telemetry as _telemetry
 from . import _build
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -113,6 +114,18 @@ def _check(x, packed, scale):
             raise ValueError(f"w4_matmul: {name} must be contiguous")
 
 
+def w4_matmul_cost(x, packed, scale):
+    """(FLOPs, bytes) of a :func:`w4_matmul` call for the device feed
+    (``telemetry.counted``): 2·N·K·M FLOPs; x, the packed nibbles and
+    the scales read, the [N, M] output written in x.dtype."""
+    K, M = x.shape[-1], packed.shape[1]
+    N = x.numel() // K
+    return (2 * N * K * M,
+            (x.numel() + N * M) * x.element_size() + packed.numel()
+            + scale.numel() * 4)
+
+
+@_telemetry.counted(w4_matmul_cost)
 def w4_matmul(x, packed, scale):
     """x [..., K] @ dequant(packed [K/2, M] int8, scale [G, 1, M] float32)
     -> [..., M] in x.dtype, fp32 accumulation.  Raises ``ValueError`` on a

@@ -23,14 +23,18 @@ key for key:
   a jit-cache miss is the Engine building a step (on the card: capturing
   its CUDA graph, ``text/engine.py``); a build of a step key seen before
   under other flags warns;
-* the device feed: :func:`note_step_time` (per-step walls) and
+* the device feed: each step build's cost count
+  (:func:`instrument_compile`, and the Engine's builds through
+  :func:`record_build`), :func:`note_step_time` (per-step walls) and
   :func:`sample_device_stats` (the card's memory, read from
   ``torch.cuda.memory_stats`` / ``torch.cuda.mem_get_info`` into the
-  ``device.*`` gauges), joined by :func:`device_feed`.  The JAX package
-  also reads XLA's cost and memory analyses of each compiled step into
-  FLOPs, bytes, MFU and a roofline verdict; the port has no counterpart
-  yet, so those fields are ``None`` — what the JAX package reports for a
-  chip it does not know;
+  ``device.*`` gauges), joined by :func:`device_feed` into FLOPs, bytes,
+  MFU and a roofline verdict per step.  Where the JAX package reads XLA's
+  cost and memory analyses of a compiled step, the port counts the
+  step's own work by shape while it runs once (:func:`counted_call`,
+  and :func:`counted` on each kernel): FLOPs of the matmul family and of
+  the kernels, bytes each op reads and writes, and the step's argument,
+  output and (on the card) graph-pool sizes;
 * export: :func:`snapshot`, :func:`render_prometheus`,
   :func:`probe_health`, :func:`capture_device_profile` and
   :class:`MetricsServer` (``GET /metrics``, ``/snapshot``, ``/healthz`` —
@@ -46,6 +50,7 @@ from __future__ import annotations
 
 import bisect
 import contextlib
+import functools
 import json
 import math
 import os
@@ -61,7 +66,8 @@ __all__ = [
     "counter", "counters", "event", "events", "span", "snapshot",
     "latency_summary", "Histogram", "Gauge", "quantile_from_counts",
     "admission_snapshot", "set_runtime_wedge", "clear_runtime_wedge",
-    "runtime_wedge", "record_compile", "compile_log", "note_step_time",
+    "runtime_wedge", "record_compile", "compile_log", "instrument_compile",
+    "record_build", "counted_call", "counted", "note_step_time",
     "sample_device_stats", "device_feed", "render_prometheus",
     "probe_health", "capture_device_profile", "MetricsServer",
     "serve_metrics", "chrome_events", "dump_chrome_trace", "SpanRing",
@@ -248,10 +254,14 @@ _log_lock = threading.Lock()   # JSONL I/O only: never blocks recording
 _log_fh = None
 _log_path: str | None = None
 
-# the device feed: per-step wall EWMAs and the last card memory sample
+# the device feed: per-step cost records, wall EWMAs and the last card
+# memory sample
 _device_lock = threading.Lock()
+_step_analysis: dict[str, dict] = {}
 _step_times: dict[str, dict] = {}
+_skip_first_wall: set = set()
 _device_info: dict = {}
+_ANALYSES = 256          # cost records kept (the oldest capture goes first)
 _hbm_last: dict = {}
 _hbm_state = {"t": -math.inf}
 # EWMA weight of a step's walls: about the last 8 calls dominate
@@ -381,7 +391,7 @@ def reset() -> None:
     """Drop every histogram, gauge, counter and event, the JSONL log's
     handle, the recompile watch's records and the device feed's
     measurements (tests; a serve that reads its own counts).  The wedge
-    verdict is left alone (:func:`clear_runtime_wedge`)."""
+    verdict and the steps' cost records are left alone."""
     global _log_fh, _log_path
     with _lock:
         _hists.clear()
@@ -399,7 +409,11 @@ def reset() -> None:
         _compile_log.clear()
         _warn_last.clear()
     with _device_lock:
+        # measurements only: a step's cost record describes a build that
+        # reset() does not drop (it is counted once), so the store stays,
+        # as in the JAX package
         _step_times.clear()
+        _skip_first_wall.clear()
         _hbm_last.clear()
         _hbm_state["t"] = -math.inf
 
@@ -698,6 +712,254 @@ def compile_log() -> list:
 
 
 # ---------------------------------------------------------------------------
+# the cost count: a step's FLOPs and bytes, counted by shape as it runs once
+# ---------------------------------------------------------------------------
+
+_open_counts = 0         # counts open in the process: the hooks' one test
+_open_lock = threading.Lock()
+_mode_cls = None
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
+
+
+def _cost_mode():
+    """The ``TorchDispatchMode`` class of a count, built at its first use.
+
+    Under it every aten op adds FLOPs from ``torch.utils.flop_counter``'s
+    registry (the matmul family: mm, addmm, bmm, baddbmm, ...) and bytes:
+    its tensor operands plus its results — the unfused reading of XLA's
+    ``bytes accessed``.  An op whose result shares an operand's storage
+    (a view, or a write in place: a cache row's ``index_copy_``) counts
+    no bytes; an op that gathers rows of a source (embedding,
+    ``index_select``, indexing, ``gather``) reads only the rows it
+    returns.  Inside a kernel's hook (:func:`counted`) nothing is
+    counted.  A failure in the count is kept on the mode, never raised:
+    the step runs as it would without it."""
+    global _mode_cls
+    if _mode_cls is not None:
+        return _mode_cls
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+    from torch.utils._pytree import tree_leaves
+    from torch.utils.flop_counter import flop_registry
+
+    aten = torch.ops.aten
+    gathers = {aten.embedding, aten.index_select, aten.index, aten.gather}
+
+    class _CostMode(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.flops = 0
+            self.bytes = 0
+            self.muted = 0          # open kernel hooks
+            self.failed = None
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            out = func(*args, **kwargs)
+            if self.muted or self.failed is not None:
+                return out
+            try:
+                packet = func._overloadpacket
+                fl = flop_registry.get(packet)
+                if fl is not None:
+                    self.flops += int(fl(*args, **kwargs, out_val=out))
+                ins = [t for t in tree_leaves((args, kwargs))
+                       if isinstance(t, torch.Tensor)]
+                outs = [t for t in tree_leaves(out)
+                        if isinstance(t, torch.Tensor)]
+                held = {t.untyped_storage().data_ptr() for t in ins}
+                if any(o.untyped_storage().data_ptr() in held
+                       for o in outs):
+                    return out
+                if packet in gathers:
+                    self.bytes += sum(_nbytes(t) for t in ins[1:]) \
+                        + 2 * sum(map(_nbytes, outs))
+                else:
+                    self.bytes += sum(map(_nbytes, ins)) \
+                        + sum(map(_nbytes, outs))
+            except Exception as e:  # noqa: BLE001 - never break the step
+                self.failed = e
+            return out
+
+    _mode_cls = _CostMode
+    return _mode_cls
+
+
+def _active_count():
+    """The count open on this thread (the innermost), or None."""
+    if _mode_cls is None:
+        return None
+    from torch.utils._python_dispatch import _get_current_dispatch_mode_stack
+
+    for m in reversed(_get_current_dispatch_mode_stack()):
+        if isinstance(m, _mode_cls):
+            return m
+    return None
+
+
+def counted(cost):
+    """Decorate a kernel wrapper (or a site whose CPU branch is a kernel's
+    plain math) with its cost hook: while a count is open on this thread,
+    each call adds ``cost(*args, **kwargs)`` — the kernel's (FLOPs, bytes)
+    for the call's inputs, from their shapes alone; ``cost`` takes the
+    wrapper's signature — and counts nothing its body runs: the kernel's
+    launch and allocations on the card, the plain twin's aten ops on the
+    CPU, a hook nested inside.  So a step counts the same on both
+    devices.  Outside a count a call pays one test."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def call(*args, **kwargs):
+            mode = _active_count() if _open_counts else None
+            if mode is None or mode.muted:
+                return fn(*args, **kwargs)
+            if mode.failed is None:
+                try:
+                    f, b = cost(*args, **kwargs)
+                    mode.flops += int(f)
+                    mode.bytes += int(b)
+                except Exception as e:  # noqa: BLE001 - never break a step
+                    mode.failed = e
+            mode.muted += 1
+            try:
+                return fn(*args, **kwargs)
+            finally:
+                mode.muted -= 1
+        return call
+    return wrap
+
+
+def _tensors(tree) -> list:
+    import torch
+    from torch.utils._pytree import tree_leaves
+
+    return [t for t in tree_leaves(tree) if isinstance(t, torch.Tensor)]
+
+
+def counted_call(fn, args=(), kwargs=None):
+    """``fn(*args, **kwargs)`` run once; with the device feed on, under a
+    count.  Returns (its output, the cost record or None): ``flops``,
+    ``bytes_accessed``, ``argument_bytes`` (the distinct storages of the
+    call's arguments: a step's params, cache and feeds), ``output_bytes``
+    (its output tensors).  The count also
+    names the device it ran on in the feed (a card's name outranks the
+    CPU's).  A count never runs inside a CUDA graph capture."""
+    global _open_counts
+    kwargs = kwargs or {}
+    if not _flags.device_feed_enabled():
+        return fn(*args, **kwargs), None
+    mode = _cost_mode()()
+    with _open_lock:
+        _open_counts += 1
+    try:
+        with mode:
+            out = fn(*args, **kwargs)
+    finally:
+        with _open_lock:
+            _open_counts -= 1
+    rec = {"captured_at": time.time()}
+    try:
+        if mode.failed is not None:
+            raise mode.failed
+        ins = _tensors((args, kwargs))
+        outs = _tensors(out)
+        if mode.flops > 0:
+            rec["flops"] = float(mode.flops)
+        if mode.bytes > 0:
+            rec["bytes_accessed"] = float(mode.bytes)
+        rec["argument_bytes"] = sum({t.untyped_storage().data_ptr():
+                                     t.untyped_storage().nbytes()
+                                     for t in ins}.values())
+        rec["output_bytes"] = sum({(t.data_ptr(), _nbytes(t)): _nbytes(t)
+                                   for t in outs}.values())
+        _note_device(ins + outs)
+    except Exception as e:  # noqa: BLE001 - a failed count is a null feed
+        rec = {"captured_at": rec["captured_at"],
+               "count_failed": repr(e)[:200]}
+    return out, rec
+
+
+def _note_device(tensors) -> None:
+    """The feed's platform and device kind from a counted step's tensors:
+    a card's name replaces the CPU's, never the other way."""
+    dev = next((t.device for t in tensors if t.is_cuda), None)
+    with _device_lock:
+        if dev is None:
+            _device_info.setdefault("platform", "cpu")
+            _device_info.setdefault("device_kind", "cpu")
+            return
+    import torch
+
+    kind = torch.cuda.get_device_name(dev)
+    with _device_lock:
+        _device_info["platform"] = "gpu"
+        _device_info["device_kind"] = kind
+
+
+def _store_analysis(name: str, rec: dict) -> None:
+    if len(rec) <= 1:  # nothing beyond the timestamp — keep the feed null
+        return
+    with _device_lock:
+        prev = _step_analysis.get(name)
+        rec["compiles"] = (prev.get("compiles", 0) + 1) if prev else 1
+        _step_analysis[name] = rec
+        # a new build owns the name now (another server's, another
+        # config's): the old build's walls must not blend into its MFU
+        _step_times.pop(name, None)
+        # at most _ANALYSES names: the oldest capture goes first
+        while len(_step_analysis) > _ANALYSES:
+            oldest = min(_step_analysis,
+                         key=lambda n: _step_analysis[n]["captured_at"])
+            del _step_analysis[oldest]
+            _step_times.pop(oldest, None)
+            _skip_first_wall.discard(oldest)
+        while len(_skip_first_wall) > 1024:  # names never noted
+            _skip_first_wall.pop()
+
+
+def record_build(name: str, key, flags_key, seconds: float,
+                 cost: dict | None = None) -> None:
+    """One step build (the Engine's graph capture or first eager call, an
+    :func:`instrument_compile` wrapper's first call): the recompile
+    watch's record, the first wall noted after it discarded (it
+    overlapped the build), and ``cost`` (:func:`counted_call`'s record)
+    stored under ``name`` for :func:`device_feed`."""
+    record_compile(name, key, flags_key, seconds)
+    if not enabled():
+        return
+    with _device_lock:
+        _skip_first_wall.add(name)
+    if cost is not None:
+        _store_analysis(name, cost)
+
+
+def instrument_compile(name: str, key, flags_key, fn):
+    """Wrap a plain function: its first call is its build — counted
+    (:func:`counted_call`), timed and recorded (:func:`record_build`);
+    later calls pay one test.  Returns ``fn`` unchanged when telemetry is
+    off.  ``wrapper._telemetry_inner`` is ``fn``."""
+    if not enabled():
+        return fn
+    done = False
+
+    @functools.wraps(fn)
+    def wrapper(*a, **k):
+        nonlocal done
+        if done:
+            return fn(*a, **k)
+        t0 = time.perf_counter()
+        out, rec = counted_call(fn, a, k)
+        done = True
+        record_build(name, key, flags_key, time.perf_counter() - t0, rec)
+        return out
+
+    wrapper._telemetry_inner = fn
+    return wrapper
+
+
+# ---------------------------------------------------------------------------
 # the device feed
 # ---------------------------------------------------------------------------
 
@@ -705,11 +967,15 @@ def compile_log() -> list:
 def note_step_time(name: str, seconds: float) -> None:
     """Feed one measured wall of step ``name`` into its EWMA (callers hold
     a wall that covers the card's work: a tick up to its token fetch, an
-    admission up to its logits fetch)."""
+    admission up to its logits fetch).  The first wall after a build is
+    discarded: it overlapped the build."""
     if not enabled() or seconds <= 0.0:
         return
     s = float(seconds)
     with _device_lock:
+        if name in _skip_first_wall:
+            _skip_first_wall.discard(name)
+            return
         t = _step_times.get(name)
         if t is None:
             _step_times[name] = {"ewma_s": s, "last_s": s, "calls": 1}
@@ -787,21 +1053,63 @@ def sample_device_stats(min_interval_s: float | None = None,
 
 
 def device_feed() -> dict:
-    """The device half of :func:`snapshot`: each step's wall EWMA and the
-    last memory sample.  ``flops``, ``bytes_accessed``, ``mfu`` and
-    ``bound`` are ``None``: the port reads no per-step cost analysis
-    yet."""
+    """The device half of :func:`snapshot`: each step's cost record —
+    ``flops``, ``bytes_accessed``, ``argument_bytes``, ``output_bytes``,
+    ``temp_bytes`` (a graph's private pool, on the card), ``compiles`` —
+    joined with its measured walls into ``step_s``, ``flops_per_s``,
+    ``mfu``, ``bytes_per_s``, ``hbm_bw_util``, ``arithmetic_intensity``
+    and ``bound`` ("compute" when the intensity reaches the card's peak
+    FLOP/s over its peak bytes/s), and the last memory sample.
+
+    FLOPs are the matmul family's and the kernels' (attention over the
+    window a step is built for: every position a graph serves is a feed,
+    so the count is the window's, not the live rows'); ``mfu`` is against
+    the card's dense bf16 peak whatever the step's dtype, as in the JAX
+    package.  Peaks come from ``framework.platform.DEVICE_PEAKS``: on the
+    CPU or an unlisted card they, ``mfu``, ``hbm_bw_util`` and ``bound``
+    are None.  A step with walls and no record (no build counted) has
+    None cost fields."""
+    from .framework import platform as _platform
+
     with _device_lock:
         info = dict(_device_info)
+        analyses = {n: dict(r) for n, r in _step_analysis.items()}
         times = {n: dict(t) for n, t in _step_times.items()}
         hbm = dict(_hbm_last)
-    steps = {nm: {"step_s": round(t["ewma_s"], 6), "step_calls": t["calls"],
-                  "flops": None, "bytes_accessed": None, "mfu": None,
-                  "bound": None}
-             for nm, t in sorted(times.items())}
+    peak_f, peak_bw = _platform.device_peaks(info.get("device_kind"),
+                                             info.get("platform"))
+    balance = (peak_f / peak_bw) if peak_f and peak_bw else None
+    steps = {}
+    for nm in sorted(set(analyses) | set(times)):
+        rec = analyses.get(nm, {})
+        s = {k: v for k, v in rec.items() if k != "captured_at"}
+        flops = s.setdefault("flops", None)
+        bts = s.setdefault("bytes_accessed", None)
+        s["mfu"] = None
+        s["bound"] = None
+        if flops and bts:
+            ai = flops / bts  # arithmetic intensity, FLOPs a byte
+            s["arithmetic_intensity"] = round(ai, 3)
+            if balance is not None:
+                s["bound"] = "compute" if ai >= balance else "bandwidth"
+        t = times.get(nm)
+        if t and t.get("ewma_s", 0) > 0:
+            s["step_s"] = round(t["ewma_s"], 6)
+            s["step_calls"] = t["calls"]
+            if flops:
+                fps = flops / t["ewma_s"]
+                s["flops_per_s"] = round(fps, 1)
+                if peak_f:
+                    s["mfu"] = fps / peak_f
+            if bts:
+                bps = bts / t["ewma_s"]
+                s["bytes_per_s"] = round(bps, 1)
+                if peak_bw:
+                    s["hbm_bw_util"] = bps / peak_bw
+        steps[nm] = s
     return {"platform": info.get("platform"),
             "device_kind": info.get("device_kind"),
-            "peak_flops": None, "peak_hbm_bytes_per_s": None,
+            "peak_flops": peak_f, "peak_hbm_bytes_per_s": peak_bw,
             "steps": steps, "hbm": hbm}
 
 
@@ -853,8 +1161,10 @@ def _prom_name(name: str) -> str:
 
 def render_prometheus() -> str:
     """Prometheus text exposition (v0.0.4) of the whole registry:
-    histograms, gauges, counters, then each step's wall as
-    ``paddle_tpu_device_step_seconds{step="..."}``."""
+    histograms, gauges, counters, then the device feed's five labelled
+    gauge families (``paddle_tpu_device_step_flops``,
+    ``_step_bytes_accessed``, ``_step_mfu``, ``_step_hbm_bw_util``,
+    ``_step_seconds``; ``{step="..."}``), in the JAX package's order."""
     with _lock:
         hists = sorted(_hists.items())
         gauges = sorted(_gauges.items())
@@ -877,11 +1187,20 @@ def render_prometheus() -> str:
         pn = _prom_name(name)
         lines.append(f"# TYPE {pn.partition('{')[0]} counter")
         lines.append(f"{pn} {v}")
+    # the device feed: per-step cost, MFU and roofline as labelled gauges
+    # (a null — an unknown card — is absent, never a fabricated 0)
     steps = device_feed()["steps"]
-    if steps:
-        lines.append("# TYPE paddle_tpu_device_step_seconds gauge")
-        lines.extend(f'paddle_tpu_device_step_seconds{{step="{nm}"}} '
-                     f'{s["step_s"]:.6g}' for nm, s in steps.items())
+    for metric, field in (("step_flops", "flops"),
+                          ("step_bytes_accessed", "bytes_accessed"),
+                          ("step_mfu", "mfu"),
+                          ("step_hbm_bw_util", "hbm_bw_util"),
+                          ("step_seconds", "step_s")):
+        rows = [(nm, s[field]) for nm, s in steps.items()
+                if s.get(field) is not None]
+        if rows:
+            lines.append(f"# TYPE paddle_tpu_device_{metric} gauge")
+            lines.extend(f'paddle_tpu_device_{metric}{{step="{nm}"}} {v:.6g}'
+                         for nm, v in rows)
     return "\n".join(lines) + "\n"
 
 
@@ -1015,7 +1334,9 @@ class MetricsServer:
                         "probe": probe, "runtime_wedge": wedge,
                         "platform": feed["platform"],
                         "device_kind": feed["device_kind"],
-                        "instrumented_steps": sorted(feed["steps"]),
+                        "instrumented_steps": sorted(
+                            n for n, st in feed["steps"].items()
+                            if "compiles" in st),
                         "hbm": feed["hbm"],
                         "admission": admission_snapshot()}).encode()
                     # a probe that reads no body needs a non-2xx

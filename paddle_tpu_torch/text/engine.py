@@ -60,11 +60,16 @@ step is left uncaptured, the launch counters as they were, and the next
 call captures afresh.  There is no eager fallback on the card.
 
 Every build — a capture on the card, an eager step's first call — is
-reported to the recompile watch (``telemetry.record_compile``) with its
+reported to the recompile watch (``telemetry.record_build``) with its
 step key and ``flags.decode_jit_key()``: ``telemetry.compile_log()``
 lists the builds, and a build of a step seen before under other flags
-warns.  After ``warmup`` a server's serve should add no record (the
-admission ladder's widths are captured there too).
+warns.  The same build gives the device feed its cost record: the eager
+run (a capture's first warm run) is counted by shape — FLOPs, bytes,
+argument and output sizes (``telemetry.counted_call``) — and a
+capture's private pool is its ``temp_bytes``; ``telemetry.device_feed``
+joins them with the server's walls per step name.  After ``warmup`` a
+server's serve should add no record (the admission ladder's widths are
+captured there too).
 
 The kernel wrappers count launches in Python (``.launches``,
 ``.tc_launches``, ``.tick_launches``), which a replay does not run: each
@@ -577,17 +582,20 @@ def _capture_stream(device) -> torch.cuda.Stream:
     return s
 
 
-def _record_build(name: str, key, seconds: float) -> None:
-    """A step build for the recompile watch: its name, step key and the
-    flags key (the part of ``cfg_key`` a flag flip changes)."""
-    _telemetry.record_compile(name, key, _flags.decode_jit_key(), seconds)
+def _record_build(name: str, key, seconds: float, cost=None) -> None:
+    """A step build for the recompile watch — its name, step key and the
+    flags key (the part of ``cfg_key`` a flag flip changes) — and for the
+    device feed: ``cost``, the record of its counted run."""
+    _telemetry.record_build(name, key, _flags.decode_jit_key(), seconds,
+                            cost)
 
 
 class _Eager:
     """A step run eagerly: on the CPU (the plain twins) or on the card
     with graphs off.  Host tensors among the feeds move to the binding's
     device (without blocking when they are pinned).  Its first call is
-    its build for the recompile watch."""
+    its build for the recompile watch, and the run the device feed
+    counts."""
 
     def __init__(self, body, binding: Binding, name: str, key=None):
         self.body, self.binding, self.name = body, binding, name
@@ -602,9 +610,10 @@ class _Eager:
         if self._built:
             return self.body(self.binding.params, self.binding.cache, *feeds)
         t0 = _time.perf_counter()
-        out = self.body(self.binding.params, self.binding.cache, *feeds)
+        out, cost = _telemetry.counted_call(
+            self.body, (self.binding.params, self.binding.cache, *feeds))
         self._built = True
-        _record_build(self.name, self.key, _time.perf_counter() - t0)
+        _record_build(self.name, self.key, _time.perf_counter() - t0, cost)
         return out
 
 
@@ -614,7 +623,10 @@ class _Graph:
     copies its feeds in, without blocking), ``out`` the output tensors a
     replay overwrites — a caller must copy them out before the next
     replay.  ``delta``: the launch counts one replay stands for.  A
-    capture is reported to the recompile watch."""
+    capture is reported to the recompile watch; the device feed counts
+    its first eager warm run (never the capture) and takes the growth of
+    ``torch.cuda.memory_reserved`` across the capture — the graph's
+    private pool — as the step's ``temp_bytes``."""
 
     def __init__(self, body, binding: Binding, name: str, key=None,
                  idempotent: bool = True):
@@ -640,12 +652,14 @@ class _Graph:
         side = _capture_stream(dev)
         cur = torch.cuda.current_stream(dev)
         side.wait_stream(cur)
-        graph = None
+        graph = cost = None
         try:
             with torch.cuda.stream(side):
                 kept = (None if self.idempotent
                         else {n: t.clone() for n, t in c.items()})
-                for _ in range(_WARM_RUNS):
+                cost = _telemetry.counted_call(self.body,
+                                               (p, c, *self.static))[1]
+                for _ in range(_WARM_RUNS - 1):
                     self.body(p, c, *self.static)
                 if kept is not None:
                     # the replay below is the call's one application
@@ -663,6 +677,10 @@ class _Graph:
             # budget) wakes and waits on its event, whenever that is.
             with torch.cuda.graph(graph, stream=side,
                                   capture_error_mode="thread_local"):
+                # the context has dropped the allocator's free cache: from
+                # here the reserved memory grows by the graph's private
+                # pool alone (a host query, legal inside a capture)
+                reserved = torch.cuda.memory_reserved(dev)
                 out = self.body(p, c, *self.static)
         except BaseException:
             cur.wait_stream(side)
@@ -672,13 +690,16 @@ class _Graph:
             _set_counts(before)
             raise
         cur.wait_stream(side)
+        if cost is not None and "count_failed" not in cost:
+            cost["temp_bytes"] = max(
+                0, torch.cuda.memory_reserved(dev) - reserved)
         self.delta = [a - b for a, b in zip(_counts(), warm)]
         _set_counts(before)
         self.graph, self.out = graph, out
         # buffers the graph reads by address that no binding names: the
         # tick route's ticket buffers (replaced, never freed, while held)
         self._keep = tuple(da._tickets.values())
-        _record_build(self.name, self.key, _time.perf_counter() - t0)
+        _record_build(self.name, self.key, _time.perf_counter() - t0, cost)
 
     def __call__(self, *feeds):
         if self.graph is None:

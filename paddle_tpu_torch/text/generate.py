@@ -38,6 +38,7 @@ import torch
 from . import gpt, woq
 from .. import flags as _flags
 from .. import resolve_device
+from .. import telemetry as _telemetry
 from ..ops import decode_attention as da
 from ..ops.attention import attention_array
 
@@ -127,6 +128,14 @@ def _store_rows(k_rows, v_rows, cfg: gpt.GPTConfig) -> dict:
     return {"k": k_rows.to(dt), "v": v_rows.to(dt)}
 
 
+def _attend_cost(q, full, pos, cfg: gpt.GPTConfig):
+    """The device feed's count of :func:`_attend_cache`: the decode
+    kernel's, whichever body runs."""
+    return da.decode_attention_cost(q, full["k"], full["v"], pos,
+                                    full.get("k_s"))
+
+
+@_telemetry.counted(_attend_cost)
 def _attend_cache(q, full, pos, cfg: gpt.GPTConfig):
     """Cached attention for a Tq-row query block against one layer's
     cache ``full`` (leaves k/v [B, T, Hkv, hd] + scales, rows through the

@@ -168,6 +168,14 @@ def _phys_rows(trows, logi, N: int, bs: int, valid=None):
                        torch.full_like(logi, N * bs))
 
 
+def _attend_pool_cost(q, pool_l: dict, tables, pos, cfg: gpt.GPTConfig):
+    """The device feed's count of :func:`_attend_pool`: the block-table
+    kernel's, whichever body runs."""
+    return da.paged_decode_attention_cost(q, pool_l["k"], pool_l["v"],
+                                          tables, pos, pool_l.get("k_s"))
+
+
+@_telemetry.counted(_attend_pool_cost)
 def _attend_pool(q, pool_l: dict, tables, pos, cfg: gpt.GPTConfig):
     """Cached attention for q [B, Tq, H, hd] through the block tables
     against one layer's pool ``pool_l`` (rows through the current

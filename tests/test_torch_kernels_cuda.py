@@ -388,6 +388,34 @@ def test_paged_wide_query_rows_match_plain():
                                rtol=1e-2)
 
 
+@pytest.mark.parametrize("kv", ["bfloat16", "int8"])
+def test_rows_past_the_cap_launch_in_pieces(kv):
+    """A 512-row admission chunk under GQA 16/4 is 2048 query rows a kv
+    head, past the kernels' 1024: each decode wrapper launches it as two
+    pieces of 256 rows (the second at pos + 256), which together equal
+    the plain twin on the whole block."""
+    gen = _card()
+    q, k, v, ks, vs, tables, pos = _paged_inputs(
+        gen, 2, 512, 16, 4, 16, 64, kv, "bfloat16", [0, 300])
+    before = da.paged_decode_attention.tc_launches
+    out = da.paged_decode_attention(q, k, v, tables, pos, ks, vs)
+    ref = da._plain_paged(q, k, v, tables, pos, ks, vs, None)
+    torch.cuda.synchronize()
+    assert da.paged_decode_attention.tc_launches == before + 2
+    torch.testing.assert_close(out.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+    # the contiguous kernel on each slot's gathered rows, alike
+    kc, vc = (da.gather_paged_view(x, tables) for x in (k, v))
+    ksc, vsc = ((da.gather_paged_view(x, tables) for x in (ks, vs))
+                if ks is not None else (None, None))
+    before = da.decode_attention.tc_launches
+    cont = da.decode_attention(q, kc, vc, pos, ksc, vsc)
+    torch.cuda.synchronize()
+    assert da.decode_attention.tc_launches == before + 2
+    torch.testing.assert_close(cont.float(), ref.float(), atol=1e-2,
+                               rtol=1e-2)
+
+
 def _paged_route_cases():
     """(Tq, G, hd, bs, kv): every Tq of the routes' edges (1, 4, R_TC - 1,
     R_TC, 64, 256) at every pool dtype and head_dim, G and the block size
@@ -968,6 +996,39 @@ def test_graphed_step_logits_match_the_eager_step(case, monkeypatch):
     gap = (out[True][0] - out[False][0]).abs().max().item()
     assert gap <= 1e-3, gap
     assert torch.equal(out[True][1], out[False][1])
+
+
+@pytest.mark.parametrize("case", _GRAPH_CASES)
+def test_graphed_step_counts_the_eager_step(case, monkeypatch):
+    """The device feed's cost record of every step a serve builds is the
+    same whether the step was captured (counted in its eager warm run) or
+    run eagerly — FLOPs, bytes, argument and output sizes — and a capture
+    adds its private pool's growth as ``temp_bytes`` (> 0), which an
+    eager step has none of; the feed names the card."""
+    import time
+
+    from paddle_tpu_torch import telemetry as tl
+
+    cfg, params, prompts = _graph_case(case, monkeypatch)
+    recs = {}
+    for graphs in (False, True):
+        t0 = time.time()
+        srv = _graph_server(cfg, params, case, graphs)
+        _serve_all(srv, prompts)
+        srv.close()
+        recs[graphs] = {n: st for n, st in tl._step_analysis.items()
+                        if st["captured_at"] >= t0}
+    assert recs[False] and set(recs[False]) == set(recs[True]), recs
+    keys = ("flops", "bytes_accessed", "argument_bytes", "output_bytes")
+    for name, eager in recs[False].items():
+        graph = recs[True][name]
+        assert "count_failed" not in eager and "count_failed" not in graph
+        assert {k: graph[k] for k in keys} == {k: eager[k] for k in keys}, \
+            name
+        assert graph["temp_bytes"] > 0 and "temp_bytes" not in eager, name
+    feed = tl.device_feed()
+    assert feed["platform"] == "gpu"
+    assert feed["device_kind"] == torch.cuda.get_device_name(0)
 
 
 def test_graph_replays_count_the_eager_step_launches(monkeypatch):

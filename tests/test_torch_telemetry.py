@@ -9,7 +9,8 @@ JAX package's, on the CPU.
   ``mint_trace`` is ``None`` with telemetry or tracing off;
 * the recompile watch: a rebuild under another flags key warns and
   counts in both; the device feed's fake-card sample names the JAX
-  package's gauges, and its cost fields stay ``None``;
+  package's gauges, and a step with walls and no counted build has
+  ``None`` cost fields (the cost count: test_torch_device_telemetry.py);
 * the JSONL log, and a Chrome trace holding telemetry events, request
   spans and CPU ``torch.profiler`` events on one clock;
 * ``MetricsServer`` over loopback on port 0: ``/metrics``, ``/snapshot``,
@@ -219,10 +220,12 @@ def test_device_feed_names_and_nulls_match_jax():
     # rate-limited: a second sample within the interval repeats the last
     cards[0].used = 5
     assert tl.sample_device_stats(min_interval_s=60.0, devices=cards) == t
-    tl.note_step_time("serving.step", 0.02)
-    tl.note_step_time("serving.step", 0.01)
+    # a name no build makes: the cost records outlive reset(), as in the
+    # JAX package, so a step an earlier serve counted would carry costs
+    tl.note_step_time("t.wall_only", 0.02)
+    tl.note_step_time("t.wall_only", 0.01)
     feed = tl.device_feed()
-    step = feed["steps"]["serving.step"]
+    step = feed["steps"]["t.wall_only"]
     assert step["step_calls"] == 2 and 0.01 < step["step_s"] < 0.02
     assert all(step[k] is None for k in ("flops", "bytes_accessed", "mfu",
                                          "bound"))
