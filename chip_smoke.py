@@ -208,7 +208,30 @@ Phases, in order; any failure raises and the script exits non-zero:
    and the OOM ladder, wedge, TTL and NaN drills on the int4 tree and on
    a draft == target K = 4 speculating server; the seconds the feed
    checks, the trees' phase and the sampled tree serve took, and the
-   whole smoke's;
+   whole smoke's; then the MoE phase (``moe_phase``): (a) a small fp32
+   MoE model (4 top-2 experts, C = 3 at 4 slots) card against CPU —
+   joint-routing step logits within PATH_TOL and its routing counters
+   equal, six requests served by tick, ``tick_block(8)``, async and
+   budgeted admission on both layouts, graphed and eager, each equal to
+   the CPU's serve in streams, drops and expert load, and the zero-router
+   model at cf 0.5 whose device drop counter must equal the host-replayed
+   schedule; (b) ``gpt_1p3b()``'s widths with 8 top-2 experts in fp32
+   (~28 GB of weights, TF32 off) at the dropless cf 4.0: 4 of main's
+   requests for 32 tokens, graphed, main and paged — the streams exactly
+   ``moe_serving.dense_reference_greedy``'s with no drop counted; (c) the
+   same model in bf16 at cf 1.25 serving main's 8 requests on both
+   layouts, eager then graphed and warmed — tokens/s, tick ms, admission
+   ms, reserved memory, weight bytes, ``moe_dropped_tokens``, the drop
+   rate and ``moe_expert_load``; gated: every tick one replay of
+   ``serving.moe_step`` with no capture after warmup, every decode launch
+   on #9 / #10's tick body, every admission's flash forward on #1's
+   tensor-core body (paged: #10's bodies by width), the feed's FLOPs
+   ``moe_step_flops`` (C = 3) with MFU and HBM use in range, the graphed
+   streams held to the eager ones by ``moe_hold`` (a tie in the
+   teacher-forced routed context of the eager streams); reported: the
+   share of served tokens within TIE_TOL of the teacher-forced dense-eval
+   best and a dense-eval arm's decode tokens/s beside the routed serve's
+   (the JAX bench's ``vs_dense_eval``);
 9. the train rungs, as ``paddle_tpu_torch.tools.profile_train.
    build_train_path`` defines them (``RUNGS``, the JAX bench's recipes):
    GPT-1.3B with fp32 master weights from a seed, batch 8 x 2048 tokens in
@@ -832,9 +855,16 @@ def _leaves(params):
 
 
 def _to_card(params):
-    """A copy of a CPU parameter tree on the card."""
-    return {n: ({k: t.cuda() for k, t in v.items()} if n == "blocks"
-                else v.cuda()) for n, v in params.items()}
+    """A copy of a CPU parameter tree on the card (nested subtrees, an MoE
+    model's ``blocks["moe"]``, included)."""
+    return {n: (_to_card(v) if isinstance(v, dict) else v.cuda())
+            for n, v in params.items()}
+
+
+def _tree_bytes(params):
+    """Bytes of every leaf of a (nested) parameter tree."""
+    return sum(_tree_bytes(v) if isinstance(v, dict)
+               else v.numel() * v.element_size() for v in params.values())
 
 
 def _prefill_decode_gap(torch, G, serving, cfg, cpu, card):
@@ -983,7 +1013,9 @@ def check_paged_path_vs_cpu(torch, gpt, G, kv_pool, serving):
 
 # the admission kinds' graph names (``text/engine.py``)
 ADMISSION_GRAPHS = ("serving.prefill@", "serving.prefill_chunk@",
-                    "serving.paged_prefill@")
+                    "serving.paged_prefill@", "serving.moe_prefill@",
+                    "serving.moe_prefill_chunk@",
+                    "serving.moe_paged_prefill@")
 
 
 def admission_bits(torch, engine, srv, prompts):
@@ -1818,10 +1850,11 @@ def way_stats(torch, engine, srv, served, t_admit, ticks, wall, peak, warm,
             "warmup_s": sum(warm.values())}
 
 
-def step_replays(engine, srv):
-    """Replays of the server's step graph so far (0 before its capture)."""
+def step_replays(engine, srv, step="serving.step"):
+    """Replays of the server's step graph ``step`` so far (0 before its
+    capture)."""
     return sum(g.replays for g in engine.ENGINE.graphs(srv._bind)
-               if g.name == "serving.step")
+               if g.name == step)
 
 
 def admission_replays(engine, srv):
@@ -1830,20 +1863,22 @@ def admission_replays(engine, srv):
                if g.name.startswith(ADMISSION_GRAPHS))
 
 
-def replays_now(engine, srv):
+def replays_now(engine, srv, step="serving.step"):
     """(step, admission) replays of ``srv``'s graphs so far: read after
     warmup, the baseline :func:`graphed_serve` counts from."""
-    return step_replays(engine, srv), admission_replays(engine, srv)
+    return step_replays(engine, srv, step), admission_replays(engine, srv)
 
 
-def graphed_serve(torch, engine, srv, ticks, replays0, admissions):
+def graphed_serve(torch, engine, srv, ticks, replays0, admissions,
+                  step="serving.step"):
     """The gated serve went through captured graphs: the server's step
-    graph replayed once a tick, and an admission graph once an admission
-    call (``admissions``: the serve's prefill and chunk calls);
-    ``replays0``: :func:`replays_now` before the serve, after the
-    warmup's.  Returns the server's graph count."""
+    graph (``step``: an MoE server's is ``serving.moe_step``) replayed
+    once a tick, and an admission graph once an admission call
+    (``admissions``: the serve's prefill and chunk calls); ``replays0``:
+    :func:`replays_now` before the serve, after the warmup's.  Returns the
+    server's graph count."""
     graphs = {g.name for g in engine.ENGINE.graphs(srv._bind)}
-    replays = step_replays(engine, srv) - replays0[0]
+    replays = step_replays(engine, srv, step) - replays0[0]
     adm = admission_replays(engine, srv) - replays0[1]
     if replays != len(ticks) or adm != admissions:
         raise AssertionError(f"the serve's {len(ticks)} ticks replayed the "
@@ -4148,7 +4183,8 @@ def counted_admissions(engine, ks, calls):
 
     def counted_get(kind, spec):
         fn = get(kind, spec)
-        if kind not in ("prefill", "paged_prefill"):
+        if kind not in ("prefill", "paged_prefill", "moe_prefill",
+                        "moe_paged_prefill"):
             return fn
 
         def counted(tokens, *rest):
@@ -4169,18 +4205,24 @@ def counted_admissions(engine, ks, calls):
     return undo
 
 
-def tree_serve(torch, engine, wl, ks, path, cfg, params, prompts, new):
-    """One graphed, warmed serve of ``path``'s geometry, each admission
-    and each tick's launches counted (:func:`counted_admissions`).
-    Returns (streams, stats with the per-call launch records)."""
+def tree_serve(torch, engine, wl, ks, path, cfg, params, prompts, new,
+               step="serving.step", flops=None, **server_kw):
+    """One graphed, warmed serve of ``path``'s geometry (``server_kw``:
+    more server options), each admission and each tick's launches counted
+    (:func:`counted_admissions`): every tick one replay of the step graph
+    ``step`` and no graph captured after warmup, the step's FLOPs in the
+    device feed ``flops`` (default :func:`step_flops` at 8 slots and a
+    512-row window).  Returns (streams, stats with the per-call launch
+    records, and ``srv``'s routing totals for an MoE server)."""
     from paddle_tpu_torch import telemetry as tl
 
     gc.collect()
     torch.cuda.empty_cache()
-    srv = wl.make_server(path, params, cfg)
+    srv = wl.make_server(path, params, cfg, **server_kw)
     since = time.time()
     warm = srv.warmup(prompt_lens=[len(p) for p in prompts])
-    replays0 = replays_now(engine, srv)
+    replays0 = replays_now(engine, srv, step)
+    graphs0 = {g.name for g in engine.ENGINE.graphs(srv._bind)}
     calls, per_tick = [], []
     w4 = ks["w4_matmul"]
     undo = counted_admissions(engine, ks, calls)
@@ -4208,18 +4250,26 @@ def tree_serve(torch, engine, wl, ks, path, cfg, params, prompts, new):
         undo()
     peak = torch.cuda.max_memory_allocated()
     served = [srv.result(r) for r in rids]
-    graphed_serve(torch, engine, srv, ticks, replays0, len(calls))
+    graphed_serve(torch, engine, srv, ticks, replays0, len(calls), step)
+    graphs1 = {g.name for g in engine.ENGINE.graphs(srv._bind)}
+    if graphs1 != graphs0:
+        raise AssertionError(f"{path}: the serve captured "
+                             f"{sorted(graphs1 - graphs0)} after warmup")
     cache = srv._bind.cache
     stats = way_stats(torch, engine, srv, served, t_admit, ticks, wall, peak,
                       warm)
+    if srv._moe_stats is not None:
+        stats["moe_dropped_tokens"], stats["moe_expert_load"] = \
+            srv._moe_snapshot()
     feed = tl.device_feed()["steps"]
     built = counted_since(tl, since)
-    step = {k: feed["serving.step"].get(k) for k in FEED_KEYS}
-    if step["flops"] != step_flops(cfg, 8, 512):
-        raise AssertionError(f"{path}: serving.step's feed {step}, not "
-                             f"{step_flops(cfg, 8, 512)} FLOPs")
+    want = step_flops(cfg, 8, 512) if flops is None else flops
+    row = {k: feed[step].get(k) for k in FEED_KEYS}
+    if row["flops"] != want:
+        raise AssertionError(f"{path}: {step}'s feed {row}, not {want} "
+                             f"FLOPs")
     stats.update(
-        feed_step=step,
+        feed_step=row,
         graph_pools_gb=sum(feed[n].get("temp_bytes") or 0
                            for n in built) / 1e9,
         kv_dtype=str(cache["k"].dtype).replace("torch.", ""),
@@ -4464,6 +4514,516 @@ def trees_phase(torch, gpt, serving, woq, wm, engine, ks, wl, bf16):
                                     "paged_decode_attention")},
         "tc_launches": {n: sum(a["tc_launches"][n] for a in arms.values())
                         for n in arms["w4 paged"]["tc_launches"]}}
+    return stats, launches
+
+
+# --------------------------------------------------------------------------
+# MoE serving: GPT-1.3B widths with 8 top-2 experts a layer
+# --------------------------------------------------------------------------
+
+# the reference's MoEConfig defaults (paddle_tpu/text/moe.py:28-34), the
+# expert geometry of the README's MoE serving example
+MOE_E, MOE_K, MOE_CF = 8, 2, 1.25
+# the full-width fp32 parity serve: main's first requests, fewer tokens
+MOE_PARITY_REQUESTS, MOE_PARITY_NEW = 4, 32
+
+
+def moe_config(gpt, moe, cf=MOE_CF, **over):
+    """``gpt_1p3b()``'s widths (vocab 50304, hidden 2048, 24 layers, 16
+    heads) with MOE_E top-MOE_K experts a layer at capacity factor
+    ``cf``."""
+    import dataclasses
+
+    return dataclasses.replace(
+        gpt.gpt_1p3b(), moe=moe.MoEConfig(num_experts=MOE_E, top_k=MOE_K,
+                                          capacity_factor=cf,
+                                          router_noise=0.0), **over)
+
+
+def moe_step_flops(cfg, batch, window):
+    """:func:`step_flops` with the routed FFN in place of the dense one: a
+    layer's router (2·B·D·E), the dispatch and combine matmuls over the
+    E·C capacity slots (2·E·C·B·D each) and every expert's two matmuls
+    on its [C, D] buffer (4·E·C·D·F), C the capacity-factor bound over
+    the batch's B tokens (3 at B = 8, E = 8, top-2, cf 1.25)."""
+    D, Fd, L, V = (cfg.hidden_size, cfg.ffn_size, cfg.num_layers,
+                   cfg.vocab_size)
+    E = cfg.moe.num_experts
+    C = max(1, math.ceil(batch * cfg.moe.top_k / E
+                         * cfg.moe.capacity_factor))
+    Dkv = cfg.kv_heads * cfg.head_dim
+    weights = L * (D * (D + 2 * Dkv) + D * D) + D * V
+    routed = L * (2 * batch * D * E + 4 * E * C * batch * D
+                  + 4 * E * C * D * Fd)
+    return 2 * batch * weights + 4 * batch * window * D * L + routed
+
+
+def moe_small_cfg(torch, gpt, moe, cf=1.25):
+    """The small fp32 MoE model of the card-vs-CPU checks: head_dim 128,
+    4 top-2 experts; at 4 slots C = 3, so batch-mates contend."""
+    return gpt.GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                         num_heads=2, max_seq_len=256, dtype=torch.float32,
+                         moe=moe.MoEConfig(num_experts=4, top_k=2,
+                                           capacity_factor=cf))
+
+
+def moe_small_serve(torch, serving, cfg, params, dev, layout, prompts, new,
+                    block, **kw):
+    """One small serve (``_small_server``'s geometry; graphed on the card
+    unless ``_graphs=False``): (streams, dropped, load)."""
+    srv = _small_server(serving, cfg, params, dev, layout, **kw)
+    served = serve(torch, srv, prompts, new, block)[0]
+    ls = srv.load_stats()
+    srv.close()
+    return served, ls["moe_dropped_tokens"], ls["moe_expert_load"]
+
+
+def moe_small_vs_cpu(torch, gpt, G, serving, moe, moe_serving):
+    """(a) The small fp32 MoE model, card against CPU: three prompts
+    admitted and five joint-routing steps over four slots (one free) —
+    logits within PATH_TOL, routing counters equal; then six requests
+    served on both layouts by tick, ``tick_block(8)``, async dispatch and
+    budgeted admission (``prefill_budget=16``), graphed and eager on the
+    card, each equal to the same serve on the CPU — streams, drops and
+    expert load; then the zero-router model at cf 0.5 (every token ties
+    onto experts 0 and 1, C = 1 at 2 slots), graphed: the device drop
+    counter equals the host-replayed schedule."""
+    out = {}
+    cfg = moe_small_cfg(torch, gpt, moe)
+    cpu = gpt.init_params(cfg, seed=3, device="cpu")
+    card = _to_card(cpu)
+    V = cfg.vocab_size
+    worst = 0.0
+    caches = {d: G.init_cache(cfg, 4, 160, d) for d in ("cpu", "cuda")}
+    stats = {d: moe_serving.moe_stats_init(4, d) for d in ("cpu", "cuda")}
+    params = {"cpu": cpu, "cuda": card}
+    rng = np.random.default_rng(0)
+    lens = [5, 40, 100]
+    for slot, n in enumerate(lens):
+        toks = np.zeros((1, serving._pow2_bucket(n)), np.int64)
+        toks[0, :n] = rng.integers(0, V, n)
+        outs = {d: G.prefill_slot(params[d], caches[d],
+                                  torch.from_numpy(toks).to(d), n, slot,
+                                  cfg)[0] for d in params}
+        worst = max(worst, (outs["cuda"].cpu() - outs["cpu"]).abs().max()
+                    .item())
+    act = np.array([True, True, True, False])
+    pos = np.array(lens + [0], np.int32)
+    for _ in range(5):
+        tok = rng.integers(0, V, 4)
+        outs = {d: moe_serving.moe_decode_step_batched(
+            params[d], caches[d], torch.from_numpy(tok).to(d),
+            torch.from_numpy(pos).to(d), torch.from_numpy(act).to(d),
+            stats[d], cfg)[0] for d in params}
+        worst = max(worst, (outs["cuda"].cpu() - outs["cpu"]).abs().max()
+                    .item())
+        pos[:3] += 1
+    counted = {d: (int(s["dropped"]), s["load"].tolist())
+               for d, s in stats.items()}
+    log(f"  joint steps: max|logits card - cpu| {worst:.3g} (tol "
+        f"{PATH_TOL}); (dropped, load) card {counted['cuda']}, cpu "
+        f"{counted['cpu']}")
+    if not worst <= PATH_TOL or counted["cuda"] != counted["cpu"]:
+        raise AssertionError("MoE joint steps: the card disagrees with the "
+                             "CPU")
+    out["step_logits_gap"] = worst
+
+    gen = torch.Generator().manual_seed(2)
+    prompts = [torch.randint(0, V, (n,), generator=gen).tolist()
+               for n in (5, 40, 100, 17, 60, 9)]
+    new = 8
+    modes = (("tick", {}, None), ("block8", {}, 8),
+             ("async", dict(async_dispatch=True), None),
+             ("budgeted", dict(prefill_budget=16), None))
+    served = {}
+    for layout in ("contiguous", "paged"):
+        for mode, kw, block in modes:
+            ref = moe_small_serve(torch, serving, cfg, cpu, "cpu", layout,
+                                  prompts, new, block, **kw)
+            for way, extra in (("graph", {}), ("eager",
+                                                dict(_graphs=False))):
+                got = moe_small_serve(torch, serving, cfg, card, "cuda",
+                                      layout, prompts, new, block, **kw,
+                                      **extra)
+                if got != ref:
+                    raise AssertionError(
+                        f"MoE {layout} {mode} {way}: card (streams, "
+                        f"dropped, load) {got} vs the CPU's {ref}")
+            served[f"{layout} {mode}"] = ref[1:]
+    log(f"  served streams, drops and load card == CPU (graph and eager) "
+        f"in 8 cases; (dropped, load) by case: {served}")
+    out["served_cases"] = served
+
+    zcfg = moe_small_cfg(torch, gpt, moe, cf=0.5)
+    zero = gpt.init_params(zcfg, seed=5, device="cuda")
+    zero["blocks"]["moe"]["router_w"].zero_()
+    srv = serving.DecodeServer(zero, zcfg, max_batch=2, max_len=32)
+    srv.warmup(prompt_lens=[2, 3])
+    rids = [srv.submit([1, 2], max_new_tokens=4),
+            srv.submit([3, 4, 5], max_new_tokens=4)]
+    exp_dropped = exp_kept = 0
+    while srv.pending():
+        active = sum(1 for st in srv._slots.values()
+                     if not st.get("admitting"))
+        srv.tick()
+        if active:
+            exp_dropped += 2 * zcfg.num_layers * max(0, active - 1)
+            exp_kept += zcfg.num_layers
+    ls = srv.load_stats()
+    srv.close()
+    log(f"  zero router, cf 0.5: dropped {ls['moe_dropped_tokens']} (host "
+        f"replay {exp_dropped}), load {ls['moe_expert_load']}")
+    if exp_dropped <= 0 or ls["moe_dropped_tokens"] != exp_dropped \
+            or ls["moe_expert_load"] != [exp_kept, exp_kept, 0, 0] \
+            or not all(len(srv.result(r)) == 4 for r in rids):
+        raise AssertionError(f"the device drop counter {ls} against the host "
+                             f"replay {exp_dropped} dropped, {exp_kept} kept")
+    out["zero_router"] = {"dropped": exp_dropped, "load": exp_kept}
+    return out
+
+
+def moe_parity_fp32(torch, gpt, moe, moe_serving, engine, wl):
+    """(b) Full width in fp32 at the dropless cf = E / k (C >= B, so
+    joint routing is solo routing), TF32 off: main's first
+    MOE_PARITY_REQUESTS requests for MOE_PARITY_NEW tokens, graphed and
+    warmed, on the main and paged geometries — the streams exactly
+    ``dense_reference_greedy``'s (every expert for every token, a solo
+    cache each), no drop counted, every tick one ``serving.moe_step``
+    replay and every admission one of its graph's."""
+    cfg = moe_config(gpt, moe, cf=MOE_E / MOE_K, dtype=torch.float32)
+    t0 = time.perf_counter()
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out = {"weight_gb": _tree_bytes(params) / 1e9,
+           "init_s": time.perf_counter() - t0}
+    prompts = wl.main_prompts(cfg.vocab_size, 0)[:MOE_PARITY_REQUESTS]
+    new = MOE_PARITY_NEW
+    t0 = time.perf_counter()
+    ref = [moe_serving.dense_reference_greedy(params, cfg, p, new, 512)
+           for p in prompts]
+    out["reference_s"] = time.perf_counter() - t0
+    for path in ("main", "paged"):
+        kw = dict(num_blocks=256) if path == "paged" else {}
+        srv = wl.make_server(path, params, cfg, **kw)
+        srv.warmup(prompt_lens=[len(p) for p in prompts])
+        replays0 = replays_now(engine, srv, "serving.moe_step")
+        served, t_admit, ticks, wall = serve(torch, srv, prompts, new)
+        graphed_serve(torch, engine, srv, ticks, replays0, len(prompts),
+                      "serving.moe_step")
+        dropped, load = srv._moe_snapshot()
+        srv.close()
+        out[path] = {"equal": served == ref, "dropped": dropped,
+                     "load": load, "ticks": len(ticks),
+                     "tick_ms_median": 1e3 * statistics.median(ticks)}
+        log(f"  fp32 {path}: streams == dense_reference_greedy "
+            f"{served == ref}, dropped {dropped}, load {load}, tick median "
+            f"{out[path]['tick_ms_median']:.2f} ms")
+        if served != ref or dropped:
+            raise AssertionError(f"fp32 MoE {path}: {served} vs the "
+                                 f"dense-eval reference {ref}, {dropped} "
+                                 f"dropped")
+    log(f"  weights {out['weight_gb']:.3f} GB fp32, the reference's solo "
+        f"streams {out['reference_s']:.1f} s")
+    del params
+    engine.ENGINE.purge(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_forced_rows(torch, G, serving, moe_serving, params, cfg, prompts,
+                    streams, slots):
+    """The routed steps teacher-forced on ``streams`` (request r in slot
+    ``slots[r]`` of an 8-slot cache, as the server placed it): each
+    prompt admitted by ``prefill_slot``, then the joint step over the
+    8 slots feeding each stream's tokens.  Returns rows[r][i], the logits
+    that chose token i of request r."""
+    B = 8
+    cache = G.init_cache(cfg, B, 512, "cuda")
+    stats = moe_serving.moe_stats_init(cfg.moe.num_experts, "cuda")
+    rows = {}
+    for r, p in enumerate(prompts):
+        toks = torch.zeros((1, serving._pow2_bucket(len(p), 512)),
+                           dtype=torch.int64)
+        toks[0, :len(p)] = torch.tensor(p)
+        rows[r] = [G.prefill_slot(params, cache, toks.cuda(), len(p),
+                                  slots[r], cfg)[0].float()]
+    act = torch.zeros(B, dtype=torch.bool)
+    act[slots] = True
+    pos = torch.zeros(B, dtype=torch.int32)
+    pos[slots] = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    tok = torch.zeros(B, dtype=torch.int64)
+    for t in range(len(streams[0]) - 1):
+        tok[slots] = torch.tensor([s[t] for s in streams])
+        lg = moe_serving.moe_decode_step_batched(
+            params, cache, tok.cuda(), pos.cuda(), act.cuda(), stats,
+            cfg)[0]
+        for r, b in enumerate(slots):
+            rows[r].append(lg[b].float())
+        pos[slots] += 1
+    return rows
+
+
+def moe_hold(rows, got, ref, what):
+    """``got`` against ``ref`` by the tie rule in a jointly routed batch:
+    at the first step where any stream leaves ``ref``, each token that
+    left must sit within TIE_TOL of the best logit of its row in the
+    teacher-forced routed context of ``ref`` (``rows``).  Past that step
+    batch-mates route against another context, so the streams are not
+    compared further.  Returns (streams equal throughout, the first
+    divergence (step, {request: gap}) or None)."""
+    steps = [next((i for i, (a, b) in enumerate(zip(g, f)) if a != b), None)
+             for g, f in zip(got, ref)]
+    first = min((i for i in steps if i is not None), default=None)
+    if first is None:
+        return len(got), None
+    gaps = {}
+    for r, i in enumerate(steps):
+        if i == first:
+            row = rows[r][i]
+            gaps[r] = (row.max() - row[got[r][i]]).item()
+    log(f"  {what}: the streams first leave the eager ones at step {first} "
+        f"(requests {sorted(gaps)}, logit gaps {gaps}; tie tolerance "
+        f"{TIE_TOL})")
+    if not all(g <= TIE_TOL for g in gaps.values()):
+        raise AssertionError(f"{what}: left the reference at step {first} "
+                             f"off a tie: gaps {gaps}")
+    return sum(i is None for i in steps), (first, gaps)
+
+
+def dense_eval_graph(torch, G, engine, moe_serving, params, cfg, B, rows):
+    """``dense_eval_decode_step`` over a B-slot cache of ``rows`` rows,
+    captured as one CUDA graph (fed tok [B] and per-slot pos [B]; returns
+    its output tuple).  Returns (the step, its cache)."""
+    cache = G.init_cache(cfg, B, rows, "cuda")
+
+    def body(p, c, tok, pos):
+        return (moe_serving.dense_eval_decode_step(p, c, tok, pos, cfg)[0],)
+
+    return engine._Graph(body, engine.Binding(params, cache),
+                         "moe.dense_eval_step"), cache
+
+
+def dense_forced_share(torch, step, prompts, streams):
+    """Teacher-force prompt + stream through the dense-eval step, every
+    request in its own slot at its own positions: the share of served
+    tokens within TIE_TOL of the dense-eval best logit, and the largest
+    gap (a reading: below the dropless capacity a routed stream may leave
+    the dense evaluation wherever a drop moved a logit)."""
+    seqs = [p + s for p, s in zip(prompts, streams)]
+    B = len(seqs)
+    within = total = 0
+    worst = 0.0
+    for t in range(max(len(q) for q in seqs) - 1):
+        at = [min(t, len(q) - 2) for q in seqs]
+        tok = torch.tensor([q[i] for q, i in zip(seqs, at)])
+        pos = torch.tensor(at, dtype=torch.int32)
+        nxt = torch.tensor([q[i + 1] for q, i in zip(seqs, at)]).cuda()
+        (lg,) = step(tok, pos)
+        gap = (lg.max(-1).values - lg.gather(1, nxt[:, None])[:, 0]).cpu()
+        for b in range(B):
+            if at[b] == t and t + 1 >= len(prompts[b]):
+                total += 1
+                within += bool(gap[b] <= TIE_TOL)
+                worst = max(worst, gap[b].item())
+    return within / total, worst
+
+
+def dense_eval_arm(torch, G, serving, step, cache, params, cfg, prompts,
+                   new):
+    """The dense-eval arm (the JAX bench's ``vs_dense_eval``): the prompts
+    admitted into the step's cache by the routed ``prefill_slot`` (outside
+    the timing), then ``new - 1`` graphed dense-eval steps over all slots
+    at their own positions, each fetching its argmax as a tick does.
+    Returns decode tokens/s."""
+    B = len(prompts)
+    first = []
+    for b, p in enumerate(prompts):
+        toks = torch.zeros((1, serving._pow2_bucket(len(p), 512)),
+                           dtype=torch.int64)
+        toks[0, :len(p)] = torch.tensor(p)
+        first.append(int(G.prefill_slot(params, cache, toks.cuda(), len(p),
+                                        b, cfg)[0].argmax()))
+    tok = torch.tensor(first)
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(new - 1):
+        (lg,) = step(tok, pos)
+        tok = torch.argmax(lg, dim=-1).cpu()
+        pos += 1
+    wall = time.perf_counter() - t0
+    return B * (new - 1) / wall
+
+
+def moe_profile(torch, wl, params, cfg, prompts, dstep):
+    """Device time by kernel family (``profile_serving.summarize``, the
+    routing's sorts apart) of 8 graphed ticks of a warmed main-geometry
+    MoE server with every slot decoding, and of 8 replays of the
+    dense-eval step ``dstep`` at the prompts' positions; torch.profiler's
+    walls carry its own host cost, so read the device times."""
+    from torch.profiler import ProfilerActivity, profile
+
+    acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
+    fams = (("routing_sort", ("sort", "radix")),) + wl.FAMILIES
+    srv = wl.make_server("main", params, cfg)
+    srv.warmup(prompt_lens=[len(p) for p in prompts])
+    for p in prompts:
+        srv.submit(p, max_new_tokens=wl.NEW)
+    for _ in range(4):
+        srv.tick()
+    out = {}
+    tok = torch.zeros(len(prompts), dtype=torch.int64)
+    pos = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    for name, step in (("routed tick", srv.tick),
+                       ("dense-eval step", lambda: dstep(tok, pos)[0]
+                        .argmax(-1).cpu())):
+        torch.cuda.synchronize()
+        with profile(activities=acts) as prof:
+            t0 = time.perf_counter()
+            for _ in range(8):
+                step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        out[name] = r = wl.summarize(torch, prof, wall, 8, fams)
+        dev = ("not measured" if r["device_ms"] is None
+               else f"{r['device_ms']:.3f} ms")
+        log(f"  {name}, profiled: device {dev}, "
+            f"{r['launches']:.0f} launches, by family "
+            f"{json.dumps({k: round(v, 4) for k, v in r['device_ms_by_family'].items()})}")
+    while srv.pending():
+        srv.tick()
+    srv.close()
+    return out
+
+
+def moe_serve_bf16(torch, gpt, G, serving, moe, moe_serving, engine, ks, wl,
+                   da):
+    """(c) The full-width bf16 MoE model at cf 1.25 serving main's 8
+    requests (64 new tokens each) on the main and paged geometries: eager
+    first (the reference streams), then graphed and warmed
+    (:func:`tree_serve` on ``serving.moe_step`` with
+    :func:`moe_step_flops`): :func:`route_gates`, the graphed streams held
+    to the eager ones by :func:`moe_hold`, the feed's MFU and bandwidth
+    use in range, the routing totals and the drop rate, the teacher-forced
+    dense-eval share; then the dense-eval arm on the same weights.
+    Returns (stats, launches of the two gated serves)."""
+    cfg = moe_config(gpt, moe)
+    t0 = time.perf_counter()
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    out = {"model": f"gpt_1p3b widths, {MOE_E} experts top-{MOE_K}, cf "
+                    f"{MOE_CF}", "params": gpt.count_params(cfg),
+           "weight_bytes": _tree_bytes(params),
+           "init_s": time.perf_counter() - t0}
+    assert params["blocks"]["moe"]["router_w"].dtype == torch.float32
+    log(f"  {out['model']}: {out['params']} params, weights "
+        f"{out['weight_bytes'] / 1e9:.3f} GB (bf16, the router fp32)")
+    prompts, new = wl.main_prompts(cfg.vocab_size, 0), wl.NEW
+    slots = [7 - r for r in range(len(prompts))]
+    launches = {}
+    for path in ("main", "paged"):
+        kw = dict(num_blocks=256) if path == "paged" else {}
+        gc.collect()
+        torch.cuda.empty_cache()
+        eager = wl.make_server(path, params, cfg, _graphs=False, **kw)
+        ref, _, eticks, ewall = serve(torch, eager, prompts, new)
+        eager.close()
+        del eager
+        served, st = tree_serve(torch, engine, wl, ks, path, cfg, params,
+                                prompts, new, step="serving.moe_step",
+                                flops=moe_step_flops(cfg, 8, 512), **kw)
+        route_gates(cfg, path, st, da)
+        st["served"] = served
+        for n, v in st["launches"].items():
+            launches[n] = launches.get(n, 0) + v
+        step = st["feed_step"]
+        if not (step["mfu"] and 0 < step["mfu"] < 1) \
+                or not step["hbm_bw_util"] \
+                or step["hbm_bw_util"] > HBM_UTIL_CAP:
+            raise AssertionError(f"MoE {path}: serving.moe_step's feed "
+                                 f"{step}")
+        rows = moe_forced_rows(torch, G, serving, moe_serving, params, cfg,
+                               prompts, ref, slots)
+        st["eager_equal"], st["eager_divergence"] = moe_hold(
+            rows, served, ref, f"MoE {path} graph vs eager")
+        del rows
+        kept = sum(st["moe_expert_load"])
+        st["drop_rate"] = st["moe_dropped_tokens"] / max(
+            1, st["moe_dropped_tokens"] + kept)
+        st["eager_tick_ms_median"] = 1e3 * statistics.median(eticks)
+        st["eager_tokens_per_s"] = sum(len(s) for s in ref) / ewall
+        out[path] = st
+        log(f"  MoE {path}: tokens/s {st['tokens_per_s']:.1f} (eager "
+            f"{st['eager_tokens_per_s']:.1f}), tick ms mean "
+            f"{st['tick_ms_mean']:.3f} median {st['tick_ms_median']:.3f} "
+            f"(eager median {st['eager_tick_ms_median']:.2f}), admission "
+            f"{st['admission_ms']:.1f} ms, reserved {st['reserved_gb']:.4f} "
+            f"GB ({st['graph_pools_gb']:.4f} in graph pools), weights "
+            f"{out['weight_bytes']} bytes; moe_dropped_tokens "
+            f"{st['moe_dropped_tokens']}, drop rate {st['drop_rate']:.4f}, "
+            f"moe_expert_load {st['moe_expert_load']}; "
+            f"{st['eager_equal']} of {len(prompts)} streams equal to eager "
+            f"throughout; launches "
+            f"{ {k: v for k, v in st['launches'].items() if v} }, tick body "
+            f"{ {k: v for k, v in st['tick_launches'].items() if v} }, "
+            f"tensor-core {({k: v for k, v in st['tc_launches'].items() if v})}")
+        log(f"    serving.moe_step {json.dumps(step)}")
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    dstep, dcache = dense_eval_graph(torch, G, engine, moe_serving, params,
+                                     cfg, len(prompts), 512)
+    share, worst = dense_forced_share(torch, dstep,
+                                      prompts, out["main"]["served"])
+    dense_tps = dense_eval_arm(torch, G, serving, dstep, dcache, params, cfg,
+                               prompts, new)
+    routed_tps = len(prompts) * 1e3 / out["main"]["tick_ms_mean"]
+    out["dense_eval"] = {"forced_share_within_tie": share,
+                         "forced_worst_gap": worst,
+                         "decode_tokens_per_s": dense_tps,
+                         "routed_decode_tokens_per_s": routed_tps,
+                         "vs_dense_eval": routed_tps / dense_tps}
+    log(f"  dense-eval arm (every expert for every token, graphed, 8 slots "
+        f"at their own positions): decode tokens/s {dense_tps:.1f} against "
+        f"the routed serve's {routed_tps:.1f} (vs_dense_eval "
+        f"{routed_tps / dense_tps:.3f}); the main serve's tokens within "
+        f"{TIE_TOL} of the teacher-forced dense-eval best: {share:.4f} "
+        f"(largest gap {worst:.4g}; a reading, not a gate)")
+    out["profile"] = moe_profile(torch, wl, params, cfg, prompts, dstep)
+    dstep.release()
+    del dstep, dcache, params
+    engine.ENGINE.purge(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out, launches
+
+
+def moe_phase(torch, gpt, G, serving, engine, ks, wl, da):
+    """[MoE serving] (a) :func:`moe_small_vs_cpu`, (b)
+    :func:`moe_parity_fp32`, (c) :func:`moe_serve_bf16`; the launches
+    are those of (c)'s two gated serves.  Returns (stats, launches)."""
+    from paddle_tpu_torch.text import moe, moe_serving
+
+    t0 = time.perf_counter()
+    small = moe_small_vs_cpu(torch, gpt, G, serving, moe, moe_serving)
+    parity = moe_parity_fp32(torch, gpt, moe, moe_serving, engine, wl)
+    bf16, launches = moe_serve_bf16(torch, gpt, G, serving, moe,
+                                    moe_serving, engine, ks, wl, da)
+    stats = {"small": small, "fp32_parity": parity,
+             "bf16": {k: ({n: x for n, x in v.items() if n not in (
+                 "launches", "tc_launches", "tick_launches", "served",
+                 "admission_calls")} if isinstance(v, dict) else v)
+                 for k, v in bf16.items()},
+             "tc_launches": {n: sum(bf16[p]["tc_launches"][n]
+                                    for p in ("main", "paged"))
+                             for n in bf16["main"]["tc_launches"]},
+             "tick_launches": {n: sum(bf16[p]["tick_launches"][n]
+                                      for p in ("main", "paged"))
+                               for n in ("decode_attention",
+                                         "paged_decode_attention")},
+             "phase_s": time.perf_counter() - t0}
+    log(f"[the MoE phase: {stats['phase_s']:.1f} s of command time]")
     return stats, launches
 
 
@@ -4851,6 +5411,16 @@ def main() -> int:
         f"phase {t_trees:.1f} s, the sampled tree serve "
         f"{sstats['sampled_tree_s']:.1f} s]")
 
+    gc.collect()                    # the dense models leave the card
+    torch.cuda.empty_cache()
+    log(f"[MoE serving: GPT-1.3B widths, {MOE_E} experts top-{MOE_K} — (a) "
+        f"small fp32 models card vs CPU, (b) full width fp32 at the "
+        f"dropless cf {MOE_E / MOE_K} against the dense-eval reference, (c) "
+        f"full width bf16 at cf {MOE_CF}, main and paged]")
+    mstats, by_path["moe"] = moe_phase(torch, gpt, G, serving, engine, ks,
+                                       wl, da)
+    log(json.dumps({"moe": mstats}))
+
     train = {}
     for path, rung, twin in TRAIN_RUNGS:
         gc.collect()                # the last model leaves the card
@@ -4896,6 +5466,7 @@ def main() -> int:
                   "speculation": sstats["tc_launches"],
                   "beam": bmstats["tc_launches"],
                   "trees": trstats["tc_launches"],
+                  "moe": mstats["tc_launches"],
                   **{p: t["tc_launches"] for p, t in train.items()}}
     assert all(by_path[p]["decode_attention"] == 0 for p in train)
     tick_by_path = {name: {"main": stats["tick_launches"][name],
@@ -4907,6 +5478,7 @@ def main() -> int:
                            "speculation": sstats["tick_launches"][name],
                            "beam": bmstats["tick_launches"][name],
                            "trees": trstats["tick_launches"][name],
+                           "moe": mstats["tick_launches"][name],
                            **{p: 0 for p in train}}
                     for name in ("decode_attention", "paged_decode_attention")}
 

@@ -13,12 +13,15 @@ import numpy as np
 import torch
 
 from .text import gpt
+from .text.moe import MoEConfig
 
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 _CFG_FIELDS = ("vocab_size", "hidden_size", "num_layers", "num_heads",
                "max_seq_len", "ffn_ratio", "dropout", "remat", "remat_policy",
                "use_flash", "num_kv_heads", "pos_embed", "norm", "activation")
+_MOE_FIELDS = ("num_experts", "capacity_factor", "router_noise",
+               "aux_loss_weight", "top_k")
 
 
 def _tensor(a, device):
@@ -32,17 +35,12 @@ def _tensor(a, device):
 
 def params_from_jax(tree: dict, device="cpu") -> dict:
     """A JAX GPT parameter tree of numpy arrays -> the same tree of torch
-    tensors on ``device``, dtypes kept (bf16 leaves convert exactly).
-    Dense models only: an MoE ``blocks["moe"]`` subtree raises."""
-    if isinstance(tree.get("blocks", {}).get("moe"), dict):
-        raise NotImplementedError("MoE parameter trees are not ported yet")
-    out = {}
-    for name, leaf in tree.items():
-        if name == "blocks":
-            out[name] = {k: _tensor(v, device) for k, v in leaf.items()}
-        else:
-            out[name] = _tensor(leaf, device)
-    return out
+    tensors on ``device``, nesting and dtypes kept (bf16 leaves convert
+    exactly; an MoE ``blocks["moe"]`` subtree stays a dict, its float32
+    ``router_w`` float32)."""
+    return {name: (params_from_jax(leaf, device) if isinstance(leaf, dict)
+                   else _tensor(leaf, device))
+            for name, leaf in tree.items()}
 
 
 def _dtype_name(d) -> str:
@@ -52,12 +50,13 @@ def _dtype_name(d) -> str:
 def config_from_jax(jcfg) -> gpt.GPTConfig:
     """The port's ``GPTConfig`` from a JAX ``GPTConfig``'s field values
     (compute dtype mapped by name; ``use_flash`` is carried as it is;
-    ``GPTConfig`` validates ``remat_policy``).  MoE configs raise (not
-    ported yet)."""
-    if getattr(jcfg, "moe", None) is not None:
-        raise NotImplementedError("MoE configs are not ported yet")
+    ``GPTConfig`` validates ``remat_policy``; a ``MoEConfig`` mapped
+    field by field)."""
     kw = {f: getattr(jcfg, f) for f in _CFG_FIELDS}
     kw["dtype"] = _DTYPES[_dtype_name(jcfg.dtype)]
+    if getattr(jcfg, "moe", None) is not None:
+        kw["moe"] = MoEConfig(**{f: getattr(jcfg.moe, f)
+                                 for f in _MOE_FIELDS})
     return gpt.GPTConfig(**kw)
 
 

@@ -26,8 +26,12 @@ wrappers of an eager step.
   positions like the ticks), ``spec_tree_verify`` and
   ``spec_tree_commit`` per node budget N (the tree round's pass, its
   topology fed as data, and its row permute), ``generate``'s decode step
-  and ``beam``'s position step.  On the CPU every kind runs its plain
-  callable.
+  and ``beam``'s position step, and an MoE server's ``moe_*`` twins
+  (joint-routing ``moe_step``, ``moe_sample``, ``moe_block``,
+  ``moe_async``, fed the occupancy mask and adding into the binding's
+  routing accumulator; ``moe_prefill``, ``moe_prefill_chunk``,
+  ``moe_paged_prefill``; ``moe_verify``).  On the CPU every kind runs
+  its plain callable.
 * :class:`Engine` — the bounded, thread-safe cache (``_LRU``, sized by
   ``PADDLE_TPU_STEP_CACHE_SIZE`` as in the JAX package), ``get``,
   ``purge``, ``warmup`` and the caches ``generate`` binds its steps to
@@ -35,9 +39,10 @@ wrappers of an eager step.
 
 The one design difference from the JAX Engine: **a graph is bound to
 buffers.**  It reads the server's params and cache leaves (the paged
-``tables`` leaf included) by address and owns static input and output
-buffers, so the Engine keys each step by ``spec.key(kind)`` plus the
-binding — the leaves' ``data_ptr``s.  Two servers with one config never
+``tables`` leaf included, and an MoE server's routing accumulator) by
+address and owns static input and output buffers, so the Engine keys
+each step by ``spec.key(kind)`` plus the binding — the leaves'
+``data_ptr``s.  Two servers with one config never
 share a graph; ``Engine.purge(cfg, binding=...)`` (which
 ``DecodeServer.close`` calls) drops a server's graphs and their private
 memory pools.  A graph keeps references to what it reads, so it never
@@ -53,7 +58,9 @@ cache (it rewrites the rows it attends from the same inputs — an
 admission the rows of its prompt or chunk), so the eager run and the
 replay that follows leave the cache as one step would; ``beam`` reorders
 the cache's batch axis and ``spec_tree_commit`` permutes rows, so their
-captures put the cache back as it was after the eager run.  A capture
+captures put the cache back as it was after the eager run.  A binding's
+routing accumulator is never idempotent (each run adds its delta): every
+capture puts it back after the eager run, so the call counts once.  A capture
 that fails (a real allocator OOM inside it, say) raises after the capture has
 ended and its graph has been dropped: the
 step is left uncaptured, the launch counters as they were, and the next
@@ -157,34 +164,50 @@ class _LRU:
 
 def cfg_key(cfg):
     """Value-based key of a GPTConfig (an unhashable dataclass) plus
-    ``flags.decode_jit_key()``: the routes a captured step bakes in."""
+    ``flags.decode_jit_key()``: the routes a captured step bakes in.  An
+    MoE config adds every routing field, (E, top_k, capacity_factor,
+    router_noise, aux_loss_weight), as the JAX key does: two MoE configs
+    differing in any of them never share a step."""
+    moe = cfg.moe
+    moe_key = ((moe.num_experts, moe.top_k, moe.capacity_factor,
+                moe.router_noise, moe.aux_loss_weight)
+               if moe is not None else None)
     return (cfg.vocab_size, cfg.hidden_size, cfg.num_layers, cfg.num_heads,
             cfg.num_kv_heads, cfg.max_seq_len, cfg.ffn_ratio, str(cfg.dtype),
-            cfg.pos_embed, cfg.norm, cfg.activation,
+            cfg.pos_embed, cfg.norm, cfg.activation, moe_key,
             _flags.decode_jit_key())
 
 
 def _param_leaves(params) -> list:
+    """Every tensor of a parameter tree (a dict, nested ``blocks`` and
+    its MoE subtree included, or a module's parameters)."""
     if isinstance(params, torch.nn.Module):
         return list(params.parameters())
-    return [t for n, t in params.items() if n != "blocks"] \
-        + list(params["blocks"].values())
+    out = []
+    for t in params.values():
+        out.extend([t] if isinstance(t, torch.Tensor) else _param_leaves(t))
+    return out
 
 
 class Binding:
     """The buffers a server's steps read and write: its ``params`` and
-    ``cache`` (leaves written in place by every step).  ``key`` — the
-    device, the graph switch and every leaf's address — is the part of
-    the Engine's cache key that keeps one server's graphs from another's.
+    ``cache`` (leaves written in place by every step) and, on an MoE
+    server, ``stats`` — the routing accumulator its ``moe_*`` decode
+    steps add into (``moe_serving.moe_stats_init``).  ``key`` — the
+    device, the graph switch and every leaf's address, the accumulator's
+    too — is the part of the Engine's cache key that keeps one server's
+    graphs from another's (and from another server's counters).
 
     ``graphs=False`` runs the steps eagerly on the card: a private switch
     for the card tests, ``chip_smoke.py`` and ``tools/profile_serving``,
     which hold graphs against the eager steps (the JAX server has no
     eager mode either)."""
 
-    def __init__(self, params, cache: dict, graphs: bool = True):
+    def __init__(self, params, cache: dict, graphs: bool = True,
+                 stats: dict | None = None):
         self.params = params
         self.cache = cache
+        self.stats = stats
         # held by a caller driving the binding's steps from its own loop
         # (``generate``), so two threads never interleave on one cache
         self.lock = threading.Lock()
@@ -192,7 +215,8 @@ class Binding:
         self.graphs = bool(graphs) and self.device.type == "cuda"
         self.key = (str(self.device), self.graphs,
                     tuple(t.data_ptr() for t in cache.values()),
-                    tuple(t.data_ptr() for t in _param_leaves(params)))
+                    tuple(t.data_ptr() for t in _param_leaves(params)),
+                    tuple(t.data_ptr() for t in (stats or {}).values()))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -518,6 +542,135 @@ def _build_beam(spec):
     return body
 
 
+# -- MoE serving kinds (text/moe_serving.py) --------------------------------
+#
+# The joint-routing decode steps take the occupancy mask ``act`` [B] bool
+# as their last feed and add their routing delta into the binding's
+# ``stats`` accumulator in place (a replay writes the tensors the graph
+# was captured over; their addresses are in the binding's key).  The
+# admission kinds are the dense bodies — a prefill routes under its pad
+# mask at the dropless capacity, which is exact for MoE — registered
+# apart so an MoE server's admission steps are named and keyed as the
+# JAX registry's.  ``moe_verify`` is the spec verify over an MoE target:
+# registered and runnable, while ``DecodeServer`` refuses speculation on
+# MoE models (as the JAX server does).
+
+
+def _moe_stats(spec):
+    stats = spec.payload.stats
+    if stats is None:
+        raise ValueError("a moe_* decode step needs the binding's routing "
+                         "accumulator (Binding(stats=...))")
+    return stats
+
+
+@register("moe_step", key=lambda s: ("moe_step", cfg_key(s.cfg), s.paged),
+          name="serving.moe_step")
+def _build_moe_step(spec):
+    """Greedy joint-routing step: (tok [B], pos [B], act [B]) -> (logits
+    [B, V],)."""
+    from . import moe_serving
+
+    st = _moe_stats(spec)
+
+    def body(p, c, tok, pos, act, _cfg=spec.cfg):
+        return (moe_serving.moe_decode_step_batched(p, c, tok, pos, act, st,
+                                                    _cfg)[0],)
+    return body
+
+
+@register("moe_sample",
+          key=lambda s: ("moe_sample", cfg_key(s.cfg), s.paged),
+          name="serving.moe_sample_step")
+def _build_moe_sample(spec):
+    """Sampled joint-routing step: (tok, pos, key, temp, top_k, top_p,
+    act) -> (tokens,), the dense ``sample`` kind's key schedule."""
+    from . import moe_serving
+
+    st = _moe_stats(spec)
+
+    def body(p, c, tok, pos, key, te, tk, tp, act, _cfg=spec.cfg):
+        return (moe_serving.moe_sample_step_batched(
+            p, c, tok, pos, key, te, tk, tp, act, st, _cfg)[0],)
+    return body
+
+
+@register("moe_block",
+          key=lambda s: ("moe_block", cfg_key(s.cfg), s.k, s.paged),
+          name=lambda s: f"serving.moe_block@{s.k}")
+def _build_moe_block(spec):
+    """``k`` greedy joint-routing steps: (tok, pos, act) -> (tokens
+    [B, k],); ``act`` is the occupancy at dispatch for the whole block."""
+    from . import moe_serving
+
+    st = _moe_stats(spec)
+
+    def body(p, c, tok, pos, act, _cfg=spec.cfg, _k=spec.k):
+        return (moe_serving.moe_decode_block_batched(p, c, tok, pos, act, st,
+                                                     _k, _cfg)[0],)
+    return body
+
+
+@register("moe_async", key=lambda s: ("moe_async", cfg_key(s.cfg), s.paged),
+          name="serving.moe_async_step")
+def _build_moe_async(spec):
+    """The async-dispatch joint-routing tick: the device-side feed select
+    (``pm`` takes the in-flight step's ``pv`` over the host's ``ht``, as
+    the dense ``async`` kind) in front of the sampled joint step (temp 0
+    is greedy): (ht, pm, pv, pos, key, temp, top_k, top_p, act) ->
+    (tokens,)."""
+    from . import moe_serving
+
+    st = _moe_stats(spec)
+
+    def body(p, c, ht, pm, pv, pos, key, te, tk, tp, act, _cfg=spec.cfg):
+        return (moe_serving.moe_sample_step_batched(
+            p, c, torch.where(pm, pv, ht), pos, key, te, tk, tp, act, st,
+            _cfg)[0],)
+    return body
+
+
+@register("moe_prefill",
+          key=lambda s: ("moe_prefill", cfg_key(s.cfg), int(s.bucket)),
+          name=lambda s: f"serving.moe_prefill@{s.bucket}")
+def _build_moe_prefill(spec):
+    """MoE admission at one bucket: the ``prefill`` body (pads masked
+    out of routing, dropless capacity)."""
+    return _build_prefill(spec)
+
+
+@register("moe_prefill_chunk",
+          key=lambda s: ("moe_prefill_chunk", cfg_key(s.cfg),
+                         None if s.width is None else int(s.width)),
+          name=lambda s: ("serving.moe_prefill_chunk" if s.width is None
+                          else f"serving.moe_prefill_chunk@{int(s.width)}"))
+def _build_moe_prefill_chunk(spec):
+    """MoE chunked or budgeted admission: the ``prefill_chunk`` body."""
+    return _build_prefill_chunk(spec)
+
+
+@register("moe_paged_prefill",
+          key=lambda s: ("moe_paged_prefill", cfg_key(s.cfg),
+                         int(s.bucket)),
+          name=lambda s: f"serving.moe_paged_prefill@{s.bucket}")
+def _build_moe_paged_prefill(spec):
+    """MoE admission through the block tables: the ``paged_prefill``
+    body."""
+    return _build_paged_prefill(spec)
+
+
+@register("moe_verify",
+          key=lambda s: ("moe_verify", cfg_key(s.cfg), int(s.k), s.paged),
+          name=lambda s: f"serving.moe_verify@{s.k}")
+def _build_moe_verify(spec):
+    """The spec verify over an MoE target: the ``spec_verify`` body, whose
+    FFN tails route the call's B·K tokens jointly under the
+    capacity-factor bound (the reference's kernel route; its vmapped
+    route takes each slot's K apart — the same tokens wherever the
+    capacity is dropless)."""
+    return _build_spec_verify(spec)
+
+
 # --------------------------------------------------------------------------
 # launch counters: a replay runs no Python wrapper
 # --------------------------------------------------------------------------
@@ -653,8 +806,13 @@ class _Graph:
         cur = torch.cuda.current_stream(dev)
         side.wait_stream(cur)
         graph = cost = None
+        # the routing accumulator is never idempotent: the eager runs'
+        # deltas are taken back, so the replay below is the call's one
+        stats, stats0 = self.binding.stats, None
         try:
             with torch.cuda.stream(side):
+                if stats is not None:
+                    stats0 = {n: t.clone() for n, t in stats.items()}
                 kept = (None if self.idempotent
                         else {n: t.clone() for n, t in c.items()})
                 cost = _telemetry.counted_call(self.body,
@@ -666,6 +824,9 @@ class _Graph:
                     for n, t in c.items():
                         t.copy_(kept[n])
                     del kept
+                if stats0 is not None:
+                    for n, t in stats.items():
+                        t.copy_(stats0[n])
             warm = _counts()
             graph = torch.cuda.CUDAGraph()
             # a failure inside ends the capture on the way out (the
@@ -686,6 +847,9 @@ class _Graph:
             cur.wait_stream(side)
             if graph is not None:
                 graph.reset()
+            if stats0 is not None:
+                for n, t in stats.items():
+                    t.copy_(stats0[n])
             self.static = None
             _set_counts(before)
             raise
@@ -838,7 +1002,14 @@ class Engine:
         self-only mask, zero depths and an identity permute) and, with a
         draft model, the draft's ``step``, its ``block`` of K - 1 steps
         (a linear greedy round's proposals) and its admission steps at the
-        same widths, on the draft's binding.
+        same widths, on the draft's binding.  An MoE server warms its
+        ``moe_*`` twins under the JAX warmup's names: ``moe_step`` (named
+        "step"), ``moe_sample`` ("moe_sample_step"), ``moe_block``
+        ("moe_block{k}"), on an async server ``moe_async``
+        ("moe_async_step", its only tick step: an async MoE block runs
+        stepwise), and the ``moe_`` admission kinds — fed an all-False
+        occupancy mask, so the warm routes claim nothing and add nothing
+        to its routing counters.
 
         Warm steps run on the live cache with zero feeds, writing rows at
         position 0 of every slot (warm admissions: of slot 0) — rows
@@ -884,19 +1055,30 @@ class Engine:
                 torch.cuda.synchronize(dev)
             timings[name] = _time.perf_counter() - t0
 
+        moe = srv.cfg.moe is not None
         try:
-            if srv._async:
+            if srv._async and moe:
+                warm("moe_async_step", "moe_async", zi, zb, pv, zp, key, zf,
+                     zi, of, zb)
+            elif srv._async:
                 warm("async_step", "async_block", zi, zb, pv, zp, k=1)
                 if sample:
                     warm("async_sample_step", "async", zi, zb, pv, zp, key,
                          zf, zi, of)
             else:
-                warm("step", "step", zi, zp)
+                act = (zb,) if moe else ()
+                warm("step", srv._kind("step"), zi, zp, *act)
                 if sample:
-                    warm("sample_step", "sample", zi, zp, key, zf, zi, of)
+                    warm("moe_sample_step" if moe else "sample_step",
+                         srv._kind("sample"), zi, zp, key, zf, zi, of, *act)
             for k in blocks:
                 k = int(k)
-                if srv._async:
+                if moe:
+                    # an MoE block is greedy and sync (sampled or async
+                    # MoE blocks run stepwise, on the steps above)
+                    if not srv._async:
+                        warm(f"moe_block{k}", "moe_block", zi, zp, zb, k=k)
+                elif srv._async:
                     warm(f"async_block{k}", "async_block", zi, zb, pv, zp,
                          k=k)
                     if sample:
@@ -929,12 +1111,13 @@ class Engine:
                         warm(f"draft_block{K - 1}", "block", zi, zp,
                              k=K - 1, draft=True)
             for name, kind, width in srv._admission_widths(prompt_lens):
+                kind = srv._kind(kind)
                 for draft in drafts:
                     tag = "draft_" + name if draft else name
-                    if kind == "prefill":
+                    if kind in ("prefill", "moe_prefill"):
                         warm(tag, kind, *srv._feeds([0], width, 1, 0),
                              bucket=width, draft=draft)
-                    elif kind == "prefill_chunk":
+                    elif kind in ("prefill_chunk", "moe_prefill_chunk"):
                         warm(tag, kind, *srv._feeds([0], width, 0, 1, 0),
                              width=width, draft=draft)
                     else:

@@ -209,11 +209,17 @@ def _block_pre_attn(x, p, pos, cfg: gpt.GPTConfig):
     return q3, _store_rows(k3.reshape(B, -1, hd), v3.reshape(B, -1, hd), cfg)
 
 
-def _block_post_attn(x, attn, p, cfg: gpt.GPTConfig):
-    """Post-attention half: output projection + residual + dense FFN."""
+def _block_post_attn(x, attn, p, cfg: gpt.GPTConfig, valid=None,
+                     capacity=gpt._LEGACY, stats=None):
+    """Post-attention half: output projection + residual + FFN tail
+    (``gpt._ffn_tail``: dense, or MoE routed under ``valid``,
+    ``capacity`` and ``stats`` — the joint-routing decode step passes
+    the occupancy mask, the capacity-factor bound and its accumulator;
+    a prefill its pad mask)."""
     dt = cfg.dtype
     a = woq.mm(attn, p, "proj_w", dt) + p["proj_b"].to(dt)
-    return gpt._ffn_dense(x + a, p, cfg)
+    return gpt._ffn_tail(x + a, p, cfg, valid=valid, capacity=capacity,
+                         stats=stats)
 
 
 def _write_rows(csl: dict, rows: dict, pos) -> None:
@@ -226,28 +232,32 @@ def _write_rows(csl: dict, rows: dict, pos) -> None:
         arr.index_put_((b, pos.long()), val.to(arr.dtype))
 
 
-def _cached_block(x, p, csl, pos, cfg: gpt.GPTConfig):
+def _cached_block(x, p, csl, pos, cfg: gpt.GPTConfig, **ffn):
     """One block on a single position [B, 1, D] against one layer's cache
     ``csl``: the fresh rows are written in place at ``pos`` first (in
     storage form, so this step attends exactly what later steps read
-    back, int8 included), then the layer attends its cache."""
+    back, int8 included), then the layer attends its cache.  ``ffn``:
+    :func:`_block_post_attn`'s routing arguments."""
     q3, rows = _block_pre_attn(x, p, pos, cfg)
     _write_rows(csl, rows, pos)
     attn = _attend_cache(q3, csl, pos, cfg)            # [B, 1, D]
-    return _block_post_attn(x, attn, p, cfg)
+    return _block_post_attn(x, attn, p, cfg, **ffn)
 
 
 @torch.no_grad()
-def decode_step(params, cache, token, pos, cfg: gpt.GPTConfig):
+def decode_step(params, cache, token, pos, cfg: gpt.GPTConfig, **ffn):
     """token [B] int at position ``pos`` — one int for the whole batch or
     an int [B] per slot — -> (logits [B, V] float32, cache).  The cache
-    rows at ``pos`` are written in place."""
+    rows at ``pos`` are written in place.  ``ffn`` (MoE: ``valid``,
+    ``capacity``, ``stats``) goes to every layer's FFN tail: the B
+    tokens of the step route as one call (``moe_serving``'s joint
+    step)."""
     B = token.shape[0]
     pos = _positions(pos, B, token.device)
     x = _embed_step(params, token, pos, cfg)
     for l in range(cfg.num_layers):
         x = _cached_block(x, gpt.layer(params, l), _layer_cache(cache, l),
-                          pos, cfg)
+                          pos, cfg, **ffn)
     x = gpt._norm(x, params, "ln_f", cfg)
     return woq.logits(x, params, cfg.dtype)[:, 0].float(), cache
 
@@ -257,12 +267,14 @@ def decode_step(params, cache, token, pos, cfg: gpt.GPTConfig):
 # ---------------------------------------------------------------------------
 
 
-def _prefill_block(x, p, cfg: gpt.GPTConfig):
+def _prefill_block(x, p, cfg: gpt.GPTConfig, valid=None):
     """One block over a padded prompt [B, P, D] with within-prompt causal
     attention (the cache is empty at prefill), returning (x, rows) —
     storage-dtype row leaves [B, P, Hkv(, hd)] for the caller to merge.
     Attention reads the STORAGE view of the fresh rows, so under int8 the
-    admission path sees exactly what later decode steps read back."""
+    admission path sees exactly what later decode steps read back.
+    ``valid`` [B, P]: the pad mask an MoE router takes (pads claim no
+    expert capacity)."""
     B, P, D = x.shape
     dt = cfg.dtype
     h = gpt._norm(x, p, "ln1", cfg)
@@ -279,7 +291,7 @@ def _prefill_block(x, p, cfg: gpt.GPTConfig):
         k_att, v_att = rows["k"].to(dt), rows["v"].to(dt)
     attn = attention_array(q, k_att, v_att, is_causal=True).reshape(B, P, D)
     a = woq.mm(attn, p, "proj_w", dt) + p["proj_b"].to(dt)
-    return gpt._ffn_dense(x + a, p, cfg), rows
+    return gpt._ffn_tail(x + a, p, cfg, valid=valid), rows
 
 
 def _index(v, device) -> torch.Tensor:
@@ -290,6 +302,15 @@ def _index(v, device) -> torch.Tensor:
     if isinstance(v, torch.Tensor):
         return v.reshape(()).to(device=device, dtype=torch.int64)
     return torch.tensor(int(v), dtype=torch.int64, device=device)
+
+
+def _pad_mask(length, P: int, cfg: gpt.GPTConfig):
+    """The valid rows [1, P] of a P-row prompt chunk holding ``length``
+    tokens (a 0-d device tensor) for an MoE router; None for a dense
+    model, whose FFN reads no mask."""
+    if cfg.moe is None:
+        return None
+    return (torch.arange(P, device=length.device) < length)[None]
 
 
 def _slot_rows(slot, pos0, length, P: int, T: int):
@@ -325,14 +346,17 @@ def prefill_slot(params, cache, tokens, length, slot, cfg: gpt.GPTConfig):
     ``slot`` = batch row of the serving cache — each a Python int or a
     0-d int tensor on the cache's device (a captured step's feeds).
     Writes that slot's cache rows [0, length) in place and returns (logits
-    at position length-1 [V] float32, cache)."""
+    at position length-1 [V] float32, cache).  An MoE model routes the
+    bucket under its pad mask at the dropless capacity (the bucket's
+    rows), so the prompt routes as if fed token by token."""
     dev = tokens.device
     length, slot = _index(length, dev), _index(slot, dev)
     dst, src = _slot_rows(slot, 0, length, tokens.shape[1],
                           cache["k"].shape[2])
+    valid = _pad_mask(length, tokens.shape[1], cfg)
     x = _embed_chunk(params, tokens, cfg)
     for l in range(cfg.num_layers):
-        x, rows = _prefill_block(x, gpt.layer(params, l), cfg)
+        x, rows = _prefill_block(x, gpt.layer(params, l), cfg, valid)
         _merge_slot_rows(_layer_cache(cache, l), rows, dst, src)
     return _last_logits(x, length, params, cfg), cache
 
@@ -398,12 +422,15 @@ def prefill_slot_chunk(params, cache, tokens, pos0, length, slot,
     kernel at Tq = C) on a copy of the slot's rows [1, T, ...] — the slot
     is a device index, and the kernel takes a contiguous cache.  A valid
     row sees only rows <= pos0 + i, so what sits past the prompt cannot
-    reach it; the pads' own outputs are discarded.  Returns (logits at
-    the chunk's last valid position [V] float32, cache)."""
+    reach it; the pads' own outputs are discarded (an MoE router masks
+    them, at the dropless capacity, as :func:`prefill_slot` does).
+    Returns (logits at the chunk's last valid position [V] float32,
+    cache)."""
     dev = tokens.device
     pos0, length, slot = (_index(v, dev) for v in (pos0, length, slot))
     dst, src = _slot_rows(slot, pos0, length, tokens.shape[1],
                           cache["k"].shape[2])
+    valid = _pad_mask(length, tokens.shape[1], cfg)
     pos = pos0.to(torch.int32).reshape(1)
     rows_of = slot.reshape(1)
     x = _embed_chunk(params, tokens, cfg, pos0)
@@ -415,7 +442,7 @@ def prefill_slot_chunk(params, cache, tokens, pos0, length, slot,
         view = {name: arr.index_select(0, rows_of)
                 for name, arr in csl.items()}
         attn = _attend_cache(q, view, pos, cfg)            # [1, C, D]
-        x = _block_post_attn(x, attn, p, cfg)
+        x = _block_post_attn(x, attn, p, cfg, valid=valid)
     return _last_logits(x, length, params, cfg), cache
 
 

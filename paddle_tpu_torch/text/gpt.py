@@ -11,8 +11,11 @@ the stack, this one loops over ``l`` and slices it.
 
 Functions take ``params`` as a mapping — a plain dict from
 :func:`init_params` / ``convert.params_from_jax``, or a :class:`GPT`
-module, which answers ``params["wte"]`` the same way.  MoE is not
-ported yet.
+module, which answers ``params["wte"]`` the same way.  An MoE config
+(``GPTConfig.moe``, ``text/moe.py``) replaces each block's FFN by
+routed experts: the stacked ``blocks["moe"]`` subtree (``router_w``
+[L, D, E], ``w_in`` [L, E, D, F], ``b_in``, ``w_out`` [L, E, F, D],
+``b_out``) takes the place of ``fc_*`` / ``out_*``.
 
 Remat (``cfg.remat``) wraps each block in ``torch.utils.checkpoint``
 under the config's policy (``ops/remat_policies.py``); dropout draws its
@@ -27,6 +30,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from . import moe as _moe
 from . import woq
 from .. import flags, resolve_device, rng
 from ..ops import remat_policies
@@ -61,6 +65,8 @@ class GPTConfig:
     pos_embed: str = "learned"     # "learned" | "rope"
     norm: str = "layernorm"        # "layernorm" | "rmsnorm" (gain-only)
     activation: str = "gelu"       # "gelu" | "swiglu" (gated FFN)
+    # a MoEConfig: every block's FFN becomes routed experts (text/moe.py)
+    moe: _moe.MoEConfig | None = None
 
     def __post_init__(self):
         remat_policies.canonical(self.remat_policy)
@@ -77,6 +83,10 @@ class GPTConfig:
             raise ValueError(f"unknown activation {self.activation!r}")
         if self.pos_embed == "rope" and self.head_dim % 2:
             raise ValueError("rope needs an even head_dim")
+        if self.moe is not None and self.activation != "gelu":
+            raise ValueError(
+                "MoE experts use the gelu FFN; activation='swiglu' with "
+                "moe is not implemented")
 
     @property
     def head_dim(self):
@@ -105,7 +115,8 @@ def init_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
     ``cfg.dtype`` — the serving form; training keeps float32 masters
     (:func:`init_master_params`).  The numbers differ from JAX's for the
     same seed — carry JAX weights over with ``convert.params_from_jax``
-    instead."""
+    instead.  An MoE config's expert leaves are drawn a layer at a time
+    (``moe.init_moe_params``), its ``router_w`` kept in float32."""
     return _draw_params(cfg, seed, device, cfg.dtype)
 
 
@@ -150,12 +161,16 @@ def _draw_params(cfg: GPTConfig, seed, device, dtype) -> dict:
     else:
         blocks["qkv_w"] = nrm((L, 3, D, D))
         blocks["qkv_b"] = const((L, 3, D), 0.0)
-    blocks.update({
-        "fc_w": nrm((L, D, Fd)),
-        "fc_b": const((L, Fd), 0.0),
-        "out_w": nrm((L, Fd, D), std=s / math.sqrt(2 * L)),
-        "out_b": const((L, D), 0.0),
-    })
+    if cfg.moe is not None:
+        blocks["moe"] = _moe.init_moe_params(cfg.moe, D, Fd, L, gen, dev,
+                                             dtype)
+    else:
+        blocks.update({
+            "fc_w": nrm((L, D, Fd)),
+            "fc_b": const((L, Fd), 0.0),
+            "out_w": nrm((L, Fd, D), std=s / math.sqrt(2 * L)),
+            "out_b": const((L, D), 0.0),
+        })
     if cfg.activation == "swiglu":
         blocks["gate_w"] = nrm((L, D, Fd))
         blocks["gate_b"] = const((L, Fd), 0.0)
@@ -171,7 +186,8 @@ def _draw_params(cfg: GPTConfig, seed, device, dtype) -> dict:
 class GPT(nn.Module):
     """The parameter tree as an ``nn.Module``: top-level leaves are
     parameters of the same names (``wte``, ``wpe``, ``ln_f_g``, ...) and
-    ``blocks`` is a ``ParameterDict`` of the stacked [L, ...] weights.
+    ``blocks`` is a ``ParameterDict`` of the stacked [L, ...] weights
+    (an MoE model's ``blocks["moe"]`` a nested one).
     ``module["wte"]`` reads like the dict, so every function here takes
     either.  The parameters require grad only with ``trainable=True``
     (then :func:`loss_fn` on the module backpropagates into them); the
@@ -185,9 +201,13 @@ class GPT(nn.Module):
                 continue
             self.register_parameter(name, nn.Parameter(
                 t, requires_grad=trainable))
-        self.blocks = nn.ParameterDict({
-            name: nn.Parameter(t, requires_grad=trainable)
-            for name, t in params["blocks"].items()})
+        def pdict(tree):
+            return nn.ParameterDict({
+                name: (nn.Parameter(t, requires_grad=trainable)
+                       if isinstance(t, torch.Tensor) else pdict(t))
+                for name, t in tree.items()})
+
+        self.blocks = pdict(params["blocks"])
 
     def __getitem__(self, name):
         if name == "blocks" or name in self._parameters:
@@ -198,9 +218,17 @@ class GPT(nn.Module):
         return forward(self, tokens, self.cfg)
 
 
+def _per_layer(tree, pick):
+    """``pick`` applied to every stacked leaf of a blocks tree (the MoE
+    subtree nested)."""
+    return {name: (_per_layer(t, pick)
+                   if isinstance(t, (dict, nn.ParameterDict)) else pick(t))
+            for name, t in tree.items()}
+
+
 def layer(params, l: int) -> dict:
     """Block ``l``'s weights: every stacked leaf sliced at [l] (views)."""
-    return {name: t[l] for name, t in params["blocks"].items()}
+    return _per_layer(params["blocks"], lambda t: t[l])
 
 
 def _layer_norm(x, g, b, eps=1e-5):
@@ -295,6 +323,31 @@ def _ffn_dense(x, p, cfg: GPTConfig):
     return x + _ffn_body(_norm(x, p, "ln2", cfg), p, cfg)
 
 
+# _ffn_tail's default capacity rule (``None`` is a meaningful override
+# there: the capacity-factor bound)
+_LEGACY = object()
+
+
+def _ffn_tail(x, p, cfg: GPTConfig, valid=None, capacity=_LEGACY,
+              stats=None):
+    """Inference FFN half: dense MLP or MoE (no aux loss), as the
+    reference's ``_ffn_tail``.  MoE capacity counts the CALL's tokens:
+    left at ``_LEGACY`` it is the dropless bound (the call's token
+    count) when ``valid`` masks pads (admission: a padded prompt routes
+    as its unpadded prefix), else the capacity-factor bound; an explicit
+    value (``None``: the capacity-factor bound) overrides that — the
+    joint-routing decode step passes ``valid=act, capacity=None``.
+    ``stats``: the MoE routing accumulator, added to in place (dense
+    models ignore ``valid``, ``capacity`` and ``stats``)."""
+    if cfg.moe is None:
+        return _ffn_dense(x, p, cfg)
+    if capacity is _LEGACY:
+        capacity = x[..., 0].numel() if valid is not None else None
+    h = _norm(x, p, "ln2", cfg)
+    return x + _moe.moe_tail(p["moe"], h, cfg.moe, valid=valid,
+                             capacity=capacity, stats=stats)
+
+
 def _dropout(x, rate, key):
     """Inverted dropout, as the JAX package's ``_dropout``: each element
     kept with probability ``1 - rate`` and scaled by ``1 / keep``.  The
@@ -307,10 +360,13 @@ def _dropout(x, rate, key):
 
 
 def _block(x, p, cfg: GPTConfig, dropout_key=None):
-    """One transformer block on [B, T, D] activations (compute dtype).
-    With ``cfg.dropout > 0`` and a ``dropout_key``, dropout on the
-    attention projection's output (key ``fold_in(dropout_key, 0)``) and
-    on the FFN's (``fold_in(dropout_key, 1)``), as in the JAX block."""
+    """One transformer block on [B, T, D] activations (compute dtype) ->
+    (x, aux): aux the block's MoE load-balancing loss, None for a dense
+    model.  With ``cfg.dropout > 0`` and a ``dropout_key``, dropout on
+    the attention projection's output (key ``fold_in(dropout_key, 0)``)
+    and on the FFN's (``fold_in(dropout_key, 1)``), as in the JAX
+    block; the router's noise key would be ``fold_in(dropout_key, 2)``
+    (not ported: ``moe._route`` raises)."""
     B, T, D = x.shape
     dt = cfg.dtype
     drop = cfg.dropout > 0.0 and dropout_key is not None
@@ -326,10 +382,17 @@ def _block(x, p, cfg: GPTConfig, dropout_key=None):
                          rng.fold_in(dropout_key, 0))
     else:
         x = x + a + p["proj_b"].to(dt)
-    h = _ffn_body(_norm(x, p, "ln2", cfg), p, cfg)
+    h = _norm(x, p, "ln2", cfg)
+    aux = None
+    if cfg.moe is not None:
+        h, aux = _moe.moe_ffn(p["moe"], h, cfg.moe,
+                              key=(rng.fold_in(dropout_key, 2)
+                                   if dropout_key is not None else None))
+    else:
+        h = _ffn_body(h, p, cfg)
     if drop:
         h = _dropout(h, cfg.dropout, rng.fold_in(dropout_key, 1))
-    return x + h
+    return x + h, aux
 
 
 def _remat_wrap(cfg: GPTConfig):
@@ -346,8 +409,8 @@ def _remat_wrap(cfg: GPTConfig):
 
 def forward_with_aux(params, tokens, cfg: GPTConfig, key=None):
     """tokens [B, T] int -> (logits [B, T, V] in the compute dtype, aux
-    loss).  aux is the MoE load-balancing term, 0 for the dense models
-    this port runs.  ``key`` (an int or an int64 tensor, ``rng.py``)
+    loss).  aux is the MoE load-balancing term summed over the layers
+    (float32; 0 for a dense model).  ``key`` (an int or an int64 tensor, ``rng.py``)
     turns dropout on when ``cfg.dropout > 0``: layer ``l`` draws under
     ``rng.fold_in(key, l)`` (the JAX package splits its key over the
     layers); None is eval mode.
@@ -362,13 +425,16 @@ def forward_with_aux(params, tokens, cfg: GPTConfig, key=None):
     if cfg.pos_embed == "learned":
         x = x + params["wpe"][:T].to(dt)[None]
     blk = _remat_wrap(cfg)
-    need_keys = key is not None and cfg.dropout > 0.0
-    per_layer = {name: t.unbind(0) for name, t in params["blocks"].items()}
-    for l in range(cfg.num_layers):
-        x = blk(x, {name: ts[l] for name, ts in per_layer.items()}, cfg,
-                rng.fold_in(key, l) if need_keys else None)
-    x = _norm(x, params, "ln_f", cfg)
+    need_keys = key is not None and (cfg.dropout > 0.0
+                                     or cfg.moe is not None)
+    per_layer = _per_layer(params["blocks"], lambda t: t.unbind(0))
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for l in range(cfg.num_layers):
+        x, a = blk(x, _per_layer(per_layer, lambda ts: ts[l]), cfg,
+                   rng.fold_in(key, l) if need_keys else None)
+        if a is not None:
+            aux = aux + a
+    x = _norm(x, params, "ln_f", cfg)
     return woq.logits(x, params, dt), aux
 
 
@@ -404,6 +470,8 @@ def count_params(cfg: GPTConfig) -> int:
     ffn = D * Fd + Fd + Fd * D + D
     if cfg.activation == "swiglu":
         ffn += D * Fd + Fd
+    if cfg.moe is not None:         # E experts and the router
+        ffn = cfg.moe.num_experts * ffn + D * cfg.moe.num_experts
     per_block = norms + qkv + D * D + D + ffn
     final_norm = 2 * D if cfg.norm == "layernorm" else D
     pos = T * D if cfg.pos_embed == "learned" else 0
@@ -414,13 +482,17 @@ def flops_per_token(cfg: GPTConfig, seq_len: int) -> float:
     """Training FLOPs per token, as the JAX package counts them: 6 x the
     matmul weights (qkv, attention projection and FFN per block, plus the
     tied head V·D once) plus the attention term 12·L·D·T (full,
-    non-causal accounting — the conservative standard for MFU)."""
+    non-causal accounting — the conservative standard for MFU).  An MoE
+    block counts the weights a token is routed through: its top-k
+    experts and the router (the JAX package counts one dense FFN)."""
     D, Fd, L, V = cfg.hidden_size, cfg.ffn_size, cfg.num_layers, \
         cfg.vocab_size
     Dkv = cfg.kv_heads * cfg.head_dim
     qkv_w = (D * D + 2 * D * Dkv if cfg.num_kv_heads is not None
              else 3 * D * D)
     ffn_w = (3 if cfg.activation == "swiglu" else 2) * D * Fd
+    if cfg.moe is not None:
+        ffn_w = cfg.moe.top_k * ffn_w + D * cfg.moe.num_experts
     n_matmul = L * (qkv_w + D * D + ffn_w) + V * D
     attn = 12 * L * D * seq_len
     return 6 * n_matmul + attn

@@ -198,7 +198,7 @@ def _attend_pool(q, pool_l: dict, tables, pos, cfg: gpt.GPTConfig):
 
 @torch.no_grad()
 def paged_decode_step_batched(params, cache, token, pos,
-                              cfg: gpt.GPTConfig):
+                              cfg: gpt.GPTConfig, **ffn):
     """``serving.decode_step_batched`` on the pooled layout: token [B]
     int, pos int32 [B] (each slot's write position), cache an
     :func:`init_paged_cache` tree -> (logits [B, V] float32, cache).
@@ -206,7 +206,9 @@ def paged_decode_step_batched(params, cache, token, pos,
     Per layer: the fresh rows are scattered into the pool first (through
     the table; a free slot's row goes to the sink), then the layer
     attends through the tables — scatter-then-attend, so this step
-    attends exactly what later steps read back (int8 included)."""
+    attends exactly what later steps read back (int8 included).  ``ffn``
+    goes to every layer's FFN tail, as in ``generate.decode_step`` (the
+    MoE joint step)."""
     N, bs, _ = _geometry(cache)
     tables = cache["tables"]
     phys = _phys_rows(tables, pos.long(), N, bs)
@@ -217,7 +219,7 @@ def paged_decode_step_batched(params, cache, token, pos,
         q3, rows = generate._block_pre_attn(x, p, pos, cfg)
         _scatter_rows(pool_l, rows, phys)
         attn = _attend_pool(q3, pool_l, tables, pos, cfg)    # [B, 1, D]
-        x = generate._block_post_attn(x, attn, p, cfg)
+        x = generate._block_post_attn(x, attn, p, cfg, **ffn)
     x = gpt._norm(x, params, "ln_f", cfg)
     return woq.logits(x, params, cfg.dtype)[:, 0].float(), cache
 
@@ -244,7 +246,8 @@ def paged_prefill_chunk(params, cache, tokens, pos0, length, slot,
     or unmapped) never reach it; the pads' own outputs are discarded.
     With a shared prefix adopted into the table, ``pos0`` starts at the
     first unshared row: the shared blocks are attended but never
-    recomputed."""
+    recomputed.  An MoE router masks the pads at the dropless capacity,
+    as the contiguous chunk's."""
     N, bs, _ = _geometry(cache)
     dev = tokens.device
     pos0, length, slot = (generate._index(v, dev)
@@ -255,6 +258,7 @@ def paged_prefill_chunk(params, cache, tokens, pos0, length, slot,
     phys = _phys_rows(trow.expand(C, -1), pos0 + idx, N, bs,
                       valid=idx < length)
     pos = pos0.to(torch.int32).reshape(1)
+    valid = generate._pad_mask(length, C, cfg)
     x = generate._embed_chunk(params, tokens, cfg, pos0)
     for l in range(cfg.num_layers):
         p = gpt.layer(params, l)
@@ -262,7 +266,7 @@ def paged_prefill_chunk(params, cache, tokens, pos0, length, slot,
         q, rows = generate._chunk_pre_attn(x, p, pos0, cfg)
         _scatter_rows(pool_l, {n: v[0] for n, v in rows.items()}, phys)
         attn = _attend_pool(q, pool_l, trow, pos, cfg)      # [1, C, D]
-        x = generate._block_post_attn(x, attn, p, cfg)
+        x = generate._block_post_attn(x, attn, p, cfg, valid=valid)
     return generate._last_logits(x, length, params, cfg), cache
 
 

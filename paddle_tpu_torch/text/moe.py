@@ -1,0 +1,204 @@
+"""Mixture-of-Experts FFN layers (GShard-style routing), in PyTorch.
+
+Counterpart of ``paddle_tpu/text/moe.py``.  The router picks each
+token's top-k experts (softmax renormalized over the k), every
+(token, choice) assignment takes a capacity slot of its expert in
+token-major then choice order (a cumulative sum over the flattened
+[N·k, E] one-hot), and assignments past the capacity C are dropped
+(the residual keeps those tokens as they were).  Dispatch and combine
+are dense [N, E, C] tensors and the expert FFN runs every expert on its
+[C, D] buffer, as in the reference, so shapes are static — what a
+captured CUDA graph needs too.
+
+Where the reference scatters into the dispatch and combine tensors,
+this module builds them from one-hots (each (token, expert, slot) cell
+takes at most one assignment, so both are exact), and its top-k is a
+stable descending sort: ``jax.lax.top_k`` breaks ties to the lowest
+index, which ``torch.topk`` does not promise.
+
+Serving calls :func:`moe_tail` (no aux loss; the routing statistics,
+when asked, are added in place into the caller's int32 accumulator);
+:func:`moe_ffn` is the reference's signature.  Router noise under a key
+(training) and the expert-parallel ``moe_ffn_manual`` are not ported
+yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+import torch.nn.functional as F
+
+from .. import resolve_device
+from . import woq
+
+
+@dataclasses.dataclass
+class MoEConfig:
+    num_experts: int = 8
+    capacity_factor: float = 1.25
+    router_noise: float = 0.0          # jitter std for exploration
+    aux_loss_weight: float = 0.01      # load-balancing loss (GShard eq. 4)
+    top_k: int = 2
+
+
+def init_moe_params(cfg: MoEConfig, d_model: int, d_ff: int, L: int,
+                    gen: torch.Generator, device=None,
+                    dtype=torch.float32) -> dict:
+    """The stacked expert leaves of ``L`` layers with the reference's
+    shapes and init scales: ``router_w`` [L, D, E] and the expert
+    weights ``w_in`` [L, E, D, F], ``w_out`` [L, E, F, D] drawn normal
+    (std 0.02) in float32 from ``gen``, one layer at a time (so the
+    float32 transient is one layer's [E, D, F]), and stored in ``dtype``;
+    biases zero.  ``router_w`` stays float32 whatever ``dtype`` is: the
+    router computes in float32, as in the reference."""
+    dev = resolve_device(device)
+    E, D, Fd = cfg.num_experts, d_model, d_ff
+
+    def nrm(shape, out_dtype):
+        out = torch.empty((L, *shape), dtype=out_dtype, device=dev)
+        for l in range(L):
+            out[l] = (torch.randn(shape, generator=gen, device=dev,
+                                  dtype=torch.float32) * 0.02).to(out_dtype)
+        return out
+
+    return {"router_w": nrm((D, E), torch.float32),
+            "w_in": nrm((E, D, Fd), dtype),
+            "b_in": torch.zeros((L, E, Fd), dtype=dtype, device=dev),
+            "w_out": nrm((E, Fd, D), dtype),
+            "b_out": torch.zeros((L, E, D), dtype=dtype, device=dev)}
+
+
+def expert_capacity(n_tokens: int, cfg: MoEConfig) -> int:
+    """Slots per expert for a call over ``n_tokens`` rows, by the
+    reference's float expression: max(1, ceil(N · k / E · cf))."""
+    return max(1, math.ceil(n_tokens * cfg.top_k / cfg.num_experts
+                            * cfg.capacity_factor))
+
+
+def _top_k_gating(logits, k: int):
+    """(weights [N, k] renormalized over the k, indices [N, k], softmax
+    probs [N, E]) — ties to the lowest index, as ``jax.lax.top_k``."""
+    probs = torch.softmax(logits.float(), dim=-1)
+    w, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    w, idx = w[:, :k], idx[:, :k]
+    return w / w.sum(dim=-1, keepdim=True), idx, probs
+
+
+def _route(params, xf, cfg: MoEConfig, key, E: int, C: int, dtype,
+           valid=None, aux: bool = True):
+    """The router: (disp [N, E, C] in ``dtype``, comb [N, E, C] float32,
+    aux scalar or None).  ``valid`` [N] bool: tokens with False (bucket
+    padding, free slots) claim no capacity slot, carry zero gates and
+    stay out of the load-balancing statistics.  ``aux=False`` skips the
+    aux loss (serving).  ``key`` must be None unless ``router_noise`` is
+    0: router noise is not ported yet.
+
+    One-hots are comparisons against an ``arange``; an assignment whose
+    slot is -1 (a masked token claimed nothing) or past C (dropped)
+    matches no slot, so it lands nowhere in either tensor."""
+    if key is not None and cfg.router_noise > 0.0:
+        raise NotImplementedError("MoE router noise under a key (training) "
+                                  "is not ported yet")
+    N = xf.shape[0]
+    k = cfg.top_k
+    dev = xf.device
+    logits = xf.float() @ params["router_w"].float()
+    gate_w, gate_idx, probs = _top_k_gating(logits, k)
+    experts = torch.arange(E, device=dev)
+    v = None if valid is None else valid.reshape(N)
+    if v is not None:
+        gate_w = gate_w * v.float()[:, None]
+    aux_loss = None
+    if aux:
+        first = (gate_idx[:, 0, None] == experts).float()
+        if v is None:
+            me = probs.mean(dim=0)
+            fe = first.sum(dim=0) / N
+        else:
+            vf = v.float()[:, None]
+            denom = torch.clamp_min(vf.sum(), 1.0)
+            me = (probs * vf).sum(dim=0) / denom
+            fe = (first * vf).sum(dim=0) / denom
+        aux_loss = E * torch.sum(fe * me) * cfg.aux_loss_weight
+    onehot = gate_idx[..., None] == experts                        # [N,k,E]
+    claims = onehot if v is None else onehot & v[:, None, None]
+    flat = claims.reshape(N * k, E).to(torch.int32)
+    # slots in token-major then choice order; -1 where nothing claimed
+    pos = (torch.cumsum(flat, dim=0) * flat - 1).amax(dim=-1).reshape(N, k)
+    slot = pos[..., None] == torch.arange(C, device=dev)           # [N,k,C]
+    disp = comb = None
+    for j in range(k):
+        cell = onehot[:, j, :, None] & slot[:, j, None, :]         # [N,E,C]
+        c = cell * gate_w[:, j, None, None]
+        disp = cell if disp is None else disp | cell
+        comb = c if comb is None else comb + c
+    return disp.to(dtype), comb, aux_loss
+
+
+def _experts(params, disp, comb, xf, dt):
+    """Dispatch -> every expert's FFN on its [C, D] buffer (tanh-gelu) ->
+    combine: y [N, D] in ``dt``.  Weights resolve through ``woq.w`` (a
+    cast of float experts, the dequantized int8 / int4 stacks)."""
+    N, E, C = disp.shape
+    D = xf.shape[-1]
+    xin = (disp.reshape(N, E * C).T @ xf).reshape(E, C, D)
+    h = F.gelu(torch.bmm(xin, woq.w(params, "w_in", dt))
+               + params["b_in"].to(dt)[:, None], approximate="tanh")
+    out = torch.bmm(h, woq.w(params, "w_out", dt)) \
+        + params["b_out"].to(dt)[:, None]
+    return comb.to(dt).reshape(N, E * C) @ out.reshape(E * C, D)
+
+
+def _delta(disp, valid, k: int):
+    """The routing statistics of one call from its dispatch mask: kept
+    assignments per expert (int32 [E]) and dropped ones (valid tokens ×
+    k − kept, int32 scalar)."""
+    kept = disp.to(torch.int32).sum(dim=(0, 2), dtype=torch.int32)
+    n_valid = (kept.new_full((), disp.shape[0]) if valid is None
+               else valid.reshape(-1).to(torch.int32).sum(dtype=torch.int32))
+    return n_valid * k - kept.sum(dtype=torch.int32), kept
+
+
+def _moe(params, x, cfg: MoEConfig, key, valid, capacity, aux: bool):
+    """Route x [..., D] and run the experts: (y [..., D], disp, aux)."""
+    shape = x.shape
+    xf = x.reshape(-1, shape[-1])
+    C = (int(capacity) if capacity is not None
+         else expert_capacity(xf.shape[0], cfg))
+    disp, comb, aux_loss = _route(params, xf, cfg, key, cfg.num_experts, C,
+                                  x.dtype, valid=valid, aux=aux)
+    return (_experts(params, disp, comb, xf, x.dtype).reshape(shape), disp,
+            aux_loss)
+
+
+def moe_tail(params, x, cfg: MoEConfig, valid=None, capacity=None,
+             stats=None):
+    """The serving form of :func:`moe_ffn`: x [..., D] -> y [..., D]
+    with no aux loss.  ``capacity`` overrides C (None: the
+    capacity-factor bound over the call's tokens).  ``stats`` — a
+    ``{"dropped": int32 [], "load": int32 [E]}`` accumulator
+    (``moe_serving.moe_stats_init``) — takes this call's routing delta
+    IN PLACE, so a captured step adds to the tensors it was bound to."""
+    y, disp, _ = _moe(params, x, cfg, None, valid, capacity, aux=False)
+    if stats is not None:
+        dropped, kept = _delta(disp, valid, cfg.top_k)
+        stats["dropped"].add_(dropped)
+        stats["load"].add_(kept)
+    return y
+
+
+def moe_ffn(params, x, cfg: MoEConfig, key=None, valid=None,
+            capacity: int | None = None, with_stats: bool = False):
+    """x [..., D] -> (y [..., D], aux loss scalar), as the reference's
+    ``moe_ffn``: C = ceil(N · k / E · cf) unless ``capacity`` overrides
+    it; ``valid`` masks tokens out of routing.  ``with_stats`` also
+    returns this call's ``{"dropped": int32, "load": int32 [E]}``.  The
+    experts use tanh-gelu (the reference's ``activation`` default, the
+    only one its GPT passes)."""
+    y, disp, aux = _moe(params, x, cfg, key, valid, capacity, aux=True)
+    if not with_stats:
+        return y, aux
+    dropped, kept = _delta(disp, valid, cfg.top_k)
+    return y, aux, {"dropped": dropped, "load": kept}

@@ -145,9 +145,24 @@ the law stays the target's); a path that leaves the trunk moves its rows
 into place with one graphed ``spec_tree_commit``.  Fallback, re-earn and
 the window's edge are the linear round's, counted in path lengths.
 
+MoE models (``cfg.moe``, ``text/moe_serving.py``), as the JAX server
+serves them: each decode step routes the batch's slot tokens jointly —
+the ``moe_*`` Engine kinds, fed the occupancy mask (free and admitting
+slots claim no expert capacity; prompt-feeding slots do) under the
+configured capacity factor — and adds its routing delta into a device
+accumulator bound to the server's graphs; ``load_stats()`` drains it
+(``moe_dropped_tokens``, ``moe_expert_load``, and the ``moe.*``
+telemetry), as does ``close()``.  Admission routes under the pad mask
+at the dropless capacity (``moe_prefill``, ``moe_prefill_chunk``,
+``moe_paged_prefill``).  A sampled MoE ``tick_block`` runs stepwise; an
+async MoE server takes stepwise ``moe_async`` ticks, never a block.
+Speculation with an MoE target or draft, ``adapter_pool`` and
+``constraint=`` on an MoE server are refused at the door, in the JAX
+server's words.
+
 Everything else the JAX server does — adapters and constraints, tensor
-parallelism, MoE, the fleet and its router — is later slices' work; no
-entry point of the port reaches it.
+and expert parallelism, the fleet and its router — is later slices'
+work; no entry point of the port reaches it.
 """
 from __future__ import annotations
 
@@ -157,7 +172,7 @@ import numpy as np
 import torch
 
 from . import admission as _admission
-from . import engine, generate, gpt, kv_pool
+from . import engine, generate, gpt, kv_pool, moe_serving
 from .. import faults as _faults
 from .. import flags as _flags
 from .. import resilience as _resilience
@@ -179,6 +194,12 @@ _ADMIT_COUNTER = 1 << 40
 # the speculative rounds' host draws: one numpy generator per request,
 # seeded from here up (the JAX server's fold_in(base, (1 << 21) + rid))
 _SPEC_COUNTER = 1 << 41
+# an MoE server's twin of each kind it dispatches (the decode kinds take
+# the occupancy mask as their last feed)
+_MOE_KINDS = {"step": "moe_step", "sample": "moe_sample",
+              "block": "moe_block", "async": "moe_async",
+              "prefill": "moe_prefill", "prefill_chunk": "moe_prefill_chunk",
+              "paged_prefill": "moe_paged_prefill"}
 
 
 def decode_step_batched(params, cache, token, pos, cfg: gpt.GPTConfig):
@@ -401,7 +422,9 @@ class DecodeServer:
     covering the server's, params on the same device) or, without one,
     n-gram self-drafting; ``spec_tree`` (default ``PADDLE_TPU_SPEC_TREE``,
     exclusive with ``spec_k``) turns on tree speculation instead (module
-    note) with the same drafters.  The
+    note) with the same drafters; both are refused on an MoE target or
+    draft.  ``adapter_pool`` (LoRA pools) is not ported: an MoE server
+    refuses it in the JAX server's words, a dense one as not ported.  The
     resilience switches (TTLs, the OOM ladder, the spill tier, the wedge
     watchdog, the NaN guard: module note) and admission control's
     (``PADDLE_TPU_ADMISSION`` and its knobs) are read from the environment
@@ -425,7 +448,7 @@ class DecodeServer:
                  metrics_port: int | None = None,
                  spec_k: int | None = None, draft_cfg=None,
                  draft_params=None, spec_tree: int | None = None,
-                 _graphs: bool = True):
+                 adapter_pool=None, _graphs: bool = True):
         self.device = resolve_device(device)
         if params["wte"].device != self.device:
             raise ValueError(f"params live on {params['wte'].device}, the "
@@ -434,6 +457,15 @@ class DecodeServer:
             raise ValueError("max_batch and max_len must be >= 1")
         self._spec_args(cfg, min(max_len, cfg.max_seq_len), spec_k,
                         draft_cfg, draft_params, spec_tree)
+        if adapter_pool is not None:
+            if cfg.moe is not None:
+                raise NotImplementedError(
+                    "adapter_pool with an MoE config is not supported "
+                    "yet — the adapter step kinds have no joint-routing "
+                    "twin (the gathered LoRA delta composes with dense "
+                    "FFNs only)")
+            raise NotImplementedError("adapter pools (text/adapters.py) are "
+                                      "not ported yet")
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
@@ -483,8 +515,16 @@ class DecodeServer:
             pin=self.device.type == "cuda")
             if self._paged and self._pool.spill_limit_bytes
             and self.draft_cfg is None else None)
+        # an MoE server's routing accumulator, which its joint steps add
+        # into (bound to its graphs like the cache), and the drops
+        # already published (the drain's high-water mark)
+        self._moe_stats = (moe_serving.moe_stats_init(
+            cfg.moe.num_experts, self.device) if cfg.moe is not None
+            else None)
+        self._moe_counted = 0
         # what every step of this server is bound to (text/engine.py)
-        self._bind = engine.Binding(params, self.cache, graphs=_graphs)
+        self._bind = engine.Binding(params, self.cache, graphs=_graphs,
+                                    stats=self._moe_stats)
         # the draft's twin cache, bound to its own steps: on the paged
         # layout a second pool of the target's geometry whose ``tables``
         # leaf IS the target's (one push, one allocator for both)
@@ -575,6 +615,12 @@ class DecodeServer:
         if k == 0 and draft_cfg is not None and not n:
             raise ValueError("draft_cfg given but spec_k=0 disables "
                              "speculation — drop one or the other")
+        if (k or n) and (cfg.moe is not None or (
+                draft_cfg is not None and draft_cfg.moe is not None)):
+            raise NotImplementedError(
+                "speculative serving requires dense models (MoE capacity "
+                "routing differs between chunked verify and stepwise "
+                "decode — speculative_generate's rule)")
         if n and not 2 <= n < window:
             raise ValueError(f"spec_tree {n} must be in [2, {window}) — the "
                              f"tree chunk must fit the serving window")
@@ -615,6 +661,38 @@ class DecodeServer:
     def _spec(self, **kw) -> engine.StepSpec:
         return engine.StepSpec(cfg=self.cfg, paged=self._paged,
                                payload=self._bind, **kw)
+
+    def _kind(self, kind: str) -> str:
+        """The Engine kind this server runs for ``kind``: an MoE server's
+        joint-routing or MoE-admission twin, else ``kind`` itself."""
+        return _MOE_KINDS.get(kind, kind) if self.cfg.moe is not None \
+            else kind
+
+    def _moe_act(self):
+        """The joint-routing occupancy mask [max_batch] bool: occupied
+        slots route (prompt-feeding ones included: their rows are kept,
+        so they claim real capacity), free slots claim nothing, and
+        admitting slots are left out — their frontier output is
+        discarded and their row rewritten by the next chunk."""
+        act = np.zeros((self.max_batch,), bool)
+        for slot, st in self._slots.items():
+            act[slot] = not st.get("admitting")
+        return act
+
+    def _act(self) -> tuple:
+        """The trailing feed of a decode step: an MoE server's occupancy
+        mask, nothing for a dense one."""
+        return (self._host(self._moe_act()),) if self.cfg.moe is not None \
+            else ()
+
+    def _moe_snapshot(self):
+        """Drain the routing accumulator into telemetry (the drops since
+        the last drain, the per-expert load gauges) and return
+        (dropped_total, load_list).  Waits for the steps in flight."""
+        dropped, load = moe_serving.drain_drop_stats(
+            self._moe_stats, counted=self._moe_counted, tel=self._tel)
+        self._moe_counted = dropped
+        return dropped, load
 
     def _dspec(self, **kw) -> engine.StepSpec:
         """A step of the draft model, bound to the draft's cache."""
@@ -658,7 +736,7 @@ class DecodeServer:
                stop: list | None = None, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 1.0,
                ttl_s: float | None = None, priority: int = 0,
-               tenant: str | None = None) -> int:
+               tenant: str | None = None, constraint=None) -> int:
         """Queue one request and admit what fits; returns its id.
         ``stop``: optional list of token SEQUENCES; generation ends
         (sequence included) as soon as the generated tail matches one.
@@ -673,13 +751,23 @@ class DecodeServer:
         ``rejected`` at once and ``result()`` raises
         ``resilience.Overloaded``.  A queued request gets a trace context
         (``telemetry.mint_trace()``) for its spans: the server is the
-        front door here, as the JAX package's fleet router is."""
+        front door here, as the JAX package's fleet router is.
+        ``constraint`` (constrained decoding) is not ported: an MoE server
+        refuses it in the JAX server's words, a dense one as not
+        ported."""
         if self.cache is None:
             raise RuntimeError("the server is closed")
         prompt, stop, ttl, top_k = validate_request(
             prompt, max_new_tokens, stop, temperature, top_k, top_p, ttl_s,
             window=min(self.max_len, self.cfg.max_seq_len),
             vocab_size=self.cfg.vocab_size, default_ttl=self._default_ttl)
+        if constraint is not None:
+            if self.cfg.moe is not None:
+                raise NotImplementedError(
+                    "constrained decoding on an MoE server is not "
+                    "supported yet (no joint-routing masked step kind)")
+            raise NotImplementedError("constrained decoding is not ported "
+                                      "yet")
         if self._paged:
             # a request needing more blocks than the whole pool can NEVER
             # be admitted: refuse it here rather than park it forever
@@ -964,7 +1052,7 @@ class DecodeServer:
         kind, kw = (("paged_prefill", {"bucket": W}) if self._paged
                     else ("prefill_chunk", {"width": W}))
         t0 = time.perf_counter()
-        fn = engine.ENGINE.get(kind, self._spec(**kw))
+        fn = engine.ENGINE.get(self._kind(kind), self._spec(**kw))
         feeds = self._feeds(chunk, W, s, len(chunk), slot)
         (logits,) = fn(*feeds)
         self._draft_walk(kind, [feeds], **kw)
@@ -1078,7 +1166,8 @@ class DecodeServer:
             return self._paged_prefill_slot(prompt, slot)
         if self._chunk is None:
             bucket = _pow2_bucket(n, self.max_len, self.cfg.max_seq_len)
-            fn = engine.ENGINE.get("prefill", self._spec(bucket=bucket))
+            fn = engine.ENGINE.get(self._kind("prefill"),
+                                   self._spec(bucket=bucket))
             feeds = self._feeds(prompt, bucket, n, slot)
             (logits,) = fn(*feeds)
             self._draft_walk("prefill", [feeds], bucket=bucket)
@@ -1086,7 +1175,8 @@ class DecodeServer:
             self._prefill_steps = (_name(fn), 1)
             return logits
         C = self._chunk
-        fn = engine.ENGINE.get("prefill_chunk", self._spec(width=C))
+        fn = engine.ENGINE.get(self._kind("prefill_chunk"),
+                               self._spec(width=C))
         calls = [self._feeds(prompt[s:s + C], C, s, len(prompt[s:s + C]),
                              slot) for s in self._chunk_starts(n, C)]
         for feeds in calls:
@@ -1158,7 +1248,8 @@ class DecodeServer:
         starts = self._chunk_starts(n, C, shared)
         self._ensure_admission_rows(slot, min(starts), n)
         self._apply_pool_ops()
-        fn = engine.ENGINE.get("paged_prefill", self._spec(bucket=C))
+        fn = engine.ENGINE.get(self._kind("paged_prefill"),
+                               self._spec(bucket=C))
         calls = [self._feeds(prompt[s:s + C], C, s, len(prompt[s:s + C]),
                              slot) for s in starts]
         for feeds in calls:
@@ -2053,14 +2144,15 @@ class DecodeServer:
         tok, pos = self._host(tok), self._host(pos)
         logits = None
         if temp.any():
-            self._fault_check("sample_step")
-            fn = engine.ENGINE.get("sample", self._spec())
+            self._fault_check("moe_sample_step" if self.cfg.moe is not None
+                              else "sample_step")
+            fn = engine.ENGINE.get(self._kind("sample"), self._spec())
             (nxt,) = fn(tok, pos, self._host(self._key(n)), self._host(temp),
-                        self._host(tk), self._host(tp))
+                        self._host(tk), self._host(tp), *self._act())
         else:
             self._fault_check("step")
-            fn = engine.ENGINE.get("step", self._spec())
-            (logits,) = fn(tok, pos)
+            fn = engine.ENGINE.get(self._kind("step"), self._spec())
+            (logits,) = fn(tok, pos, *self._act())
             nxt = torch.argmax(logits, dim=-1)
         # the step counter advances only after the step call returned: a
         # failed call leaves the host state as it was, so the guard's
@@ -2156,8 +2248,9 @@ class DecodeServer:
         # a slot at pos == len(prompt)-1 is fine for block decode (its
         # feed token is the prompt's last; everything after is feedback);
         # admitting slots take single ticks too: one chunk a tick is the
-        # budgeted interleaving
-        if self._stepwise():
+        # budgeted interleaving; an MoE block is greedy only
+        if self._stepwise() or (self.cfg.moe is not None and any(
+                st["temperature"] > 0.0 for st in self._slots.values())):
             for _ in range(block):
                 self.tick()
                 if not self._slots:
@@ -2175,9 +2268,12 @@ class DecodeServer:
             (toks,) = fn(tok, pos, self._host(self._key(n)),
                          self._host(temp), self._host(tk), self._host(tp))
         else:
-            self._fault_check(f"block@{block}")
-            fn = engine.ENGINE.get("block", self._spec(k=block))
-            (toks,) = fn(tok, pos)
+            # an MoE block: k joint-routing steps, occupancy frozen at
+            # dispatch (every slot here is past its prompt, so it only
+            # shrinks mid-block: the block-overrun tradeoff)
+            self._fault_check(f"{self._kind('block')}@{block}")
+            fn = engine.ENGINE.get(self._kind("block"), self._spec(k=block))
+            (toks,) = fn(tok, pos, *self._act())
         self._step_no = n + block        # after the call: see tick
         toks = self._fetch_wait(self._fetch_start(toks))
         done, appended = [], []
@@ -2266,8 +2362,15 @@ class DecodeServer:
         feeds = (self._host(ht), self._host(pm), self._prev_feed(prev),
                  self._host(pos))
         try:
-            self._fault_check("async_step")
-            if temp.any():
+            if self.cfg.moe is not None:
+                # one joint-routing step serves greedy and sampled slots
+                self._fault_check("moe_async_step")
+                fn = engine.ENGINE.get("moe_async", self._spec())
+                (nxt,) = fn(*feeds, self._host(self._key(n)),
+                            self._host(temp), self._host(tk), self._host(tp),
+                            *self._act())
+            elif temp.any():
+                self._fault_check("async_step")
                 fn = engine.ENGINE.get("async", self._spec())
                 (nxt,) = fn(*feeds, self._host(self._key(n)),
                             self._host(temp), self._host(tk), self._host(tp))
@@ -2275,6 +2378,7 @@ class DecodeServer:
                 # greedy: the k = 1 greedy block, which skips the
                 # sampler's sorts and noise the ``async`` step computes
                 # for every slot
+                self._fault_check("async_step")
                 fn = engine.ENGINE.get("async_block", self._spec(k=1))
                 nxt = fn(*feeds)[0][:, 0]
         except Exception:
@@ -2410,14 +2514,17 @@ class DecodeServer:
     def _tick_block_async(self, block: int):
         """Async tick_block: one BLOCK in flight (see :meth:`_tick_async`).
         Prompt-feeding slots fall back to single async ticks after the
-        in-flight dispatch is processed — the same tokens."""
+        in-flight dispatch is processed — the same tokens.  So does an
+        MoE server always: a block would freeze the occupancy mask over
+        k steps while the async overrun keeps retired slots contending;
+        the stepwise ``moe_async`` step reads occupancy every tick."""
         prev, self._inflight = self._inflight, None
         if not self._slots:
             self._admit()
             if not self._slots:
                 self._gap_anchor = None
                 return
-        if self._stepwise():
+        if self._stepwise() or self.cfg.moe is not None:
             if prev is not None:
                 self._process_inflight(prev)
             for _ in range(block):
@@ -2826,7 +2933,12 @@ class DecodeServer:
         speculative acceptance rate (``spec_accept_rate``: accepted over
         scored proposals, None before the first) and, in tree mode, the
         mean accepted path length a slot-round (``spec_tree_accept_len``,
-        None before the first round).  A paged server
+        None before the first round).  An MoE server adds its routing
+        totals, drained from the device accumulator (:meth:`_moe_snapshot`,
+        which waits for the steps in flight and advances the ``moe.*``
+        telemetry): ``moe_dropped_tokens`` (cumulative dropped
+        token->expert assignments) and ``moe_expert_load`` (each expert's
+        kept assignments).  A paged server
         adds its prefix hit rate (adopted rows over adoptable rows), the
         spill tier's resident host bytes and its allocator's ``kv_pool``
         stats.  ``include_spans=True`` also takes the completed trace
@@ -2857,6 +2969,9 @@ class DecodeServer:
                                      / self._tree_path_cnt
                                      if self._tree_path_cnt else None),
         }
+        if self._moe_stats is not None:
+            stats["moe_dropped_tokens"], stats["moe_expert_load"] = \
+                self._moe_snapshot()
         if include_spans:
             stats["spans"], stats["span_drops"] = self.drain_spans()
         if self._paged:
@@ -2897,10 +3012,17 @@ class DecodeServer:
         abandoned unfetched (a wedged fetch cannot hang the exit);
         unfinished requests too: ``result()`` raises for them and
         ``status()`` says ``dropped``.  A wedge verdict this server raised
-        is cleared and the metrics endpoint's thread joined.  Idempotent."""
+        is cleared and the metrics endpoint's thread joined.  An MoE
+        server publishes its final routing totals first.  Idempotent."""
         if self._wedged:
             self._wedged = False
             _telemetry.clear_runtime_wedge()
+        if self._moe_stats is not None:
+            try:
+                self._moe_snapshot()
+            except Exception:  # noqa: BLE001 - a failed card must not
+                pass           # block the shutdown
+            self._moe_stats = None
         if self.metrics_server is not None:
             self.metrics_server.close()
             self.metrics_server = None

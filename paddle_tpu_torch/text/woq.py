@@ -16,9 +16,14 @@ for bit.  LayerNorm parameters, biases and wpe stay float.
 the identity cast on float weights, so one decode code serves float, int8
 and int4 trees.  Under ``PADDLE_TPU_W4_KERNEL=1`` a packed int4 weight's
 matmul in ``mm`` / ``mm_stacked`` runs the W4 kernel
-(``ops/woq_matmul.py``) on the packed bytes instead.  LoRA adapters (the
-JAX package's ``<name>_lora_a`` / ``_lora_b`` leaves) and MoE expert
-weights are not ported: a tree holding them raises.
+(``ops/woq_matmul.py``) on the packed bytes instead.  An MoE tree's
+expert stacks (``blocks["moe"]`` ``w_in`` [L, E, D, F], ``w_out``
+[L, E, F, D]) quantize the same way, per output channel or in groups
+along the input dim, and the experts' batched matmuls read them through
+``w`` (the W4 kernel takes 2-D weights only); the router stays float (a
+routing flip is a far larger error than its bytes are worth).  LoRA
+adapters (the JAX package's ``<name>_lora_a`` / ``_lora_b`` leaves) are
+not ported: ``w`` raises on them.
 """
 from __future__ import annotations
 
@@ -38,13 +43,24 @@ _BLOCK_WEIGHTS = {
     "gate_w": 1,  # [D, F]  (swiglu third matmul)
     "out_w": 1,   # [F, D]
 }
+# the MoE expert stacks, per layer [E, in, out] -> out axis 2
+_MOE_WEIGHTS = {"w_in": 2, "w_out": 2}
 
 
-def _dense_blocks(params) -> dict:
-    blocks = params["blocks"]
-    if isinstance(blocks.get("moe"), dict):
-        raise NotImplementedError("MoE parameter trees are not ported yet")
-    return dict(blocks)
+def _quantize_blocks(params, quant) -> dict:
+    """The blocks tree with every block matmul weight and, on an MoE
+    tree, every expert stack replaced by ``quant(w, axis)``'s
+    (values, scales) under ``<name>`` / ``<name>_s``."""
+    blocks = dict(params["blocks"])
+    for name, axis in _BLOCK_WEIGHTS.items():
+        if blocks.get(name) is not None:
+            blocks[name], blocks[name + "_s"] = quant(blocks[name], axis)
+    if blocks.get("moe") is not None:
+        experts = dict(blocks["moe"])
+        for name, axis in _MOE_WEIGHTS.items():
+            experts[name], experts[name + "_s"] = quant(experts[name], axis)
+        blocks["moe"] = experts
+    return blocks
 
 
 def _quant(w, axis: int):
@@ -65,15 +81,11 @@ def _quantize_wte_int8(out: dict, params) -> None:
 
 
 def quantize_gpt_int8(params: dict) -> dict:
-    """A decode-ready copy of ``params``: block matmul weights and the tied
-    embedding become int8 with per-output-channel scales ``<name>_s``, on
-    the tree's device."""
+    """A decode-ready copy of ``params``: block matmul weights (an MoE
+    tree's expert stacks too) and the tied embedding become int8 with
+    per-output-channel scales ``<name>_s``, on the tree's device."""
     out = dict(params)
-    blocks = _dense_blocks(params)
-    for name, axis in _BLOCK_WEIGHTS.items():
-        if blocks.get(name) is not None:
-            blocks[name], blocks[name + "_s"] = _quant(blocks[name], axis)
-    out["blocks"] = blocks
+    out["blocks"] = _quantize_blocks(params, _quant)
     _quantize_wte_int8(out, params)
     return out
 
@@ -94,7 +106,8 @@ def quantize_gpt_int4(params: dict, group_size: int = 64) -> dict:
     nibble-packed int4 ([..., in, out] -> [..., in/2, out] int8) with
     group-wise scales [..., in/group_size, 1, out] along the input dim; a
     weight whose input dim does not divide into even groups takes
-    per-channel int8 instead.  The embedding stays int8 (per row)."""
+    per-channel int8 instead.  The embedding stays int8 (per row); an
+    MoE tree's expert stacks take the same rule."""
     def q4(w_, axis):
         w_ = w_.float()
         in_dim = w_.shape[axis]
@@ -109,11 +122,7 @@ def quantize_gpt_int4(params: dict, group_size: int = 64) -> dict:
         return pack_int4_halves(q.reshape(shp)), scale / 7.0
 
     out = dict(params)
-    blocks = _dense_blocks(params)
-    for name, axis in _BLOCK_WEIGHTS.items():
-        if blocks.get(name) is not None:
-            blocks[name], blocks[name + "_s"] = q4(blocks[name], axis)
-    out["blocks"] = blocks
+    out["blocks"] = _quantize_blocks(params, q4)
     _quantize_wte_int8(out, params)
     return out
 

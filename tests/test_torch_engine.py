@@ -13,9 +13,9 @@ JAX package's (paddle_tpu/text/engine.py), on the CPU.
 * the counter-based sampling stream: a pure function of (key, element),
   drawing in distribution;
 * the speculative ``spec_verify``, ``spec_tree_verify`` and
-  ``spec_tree_commit`` kinds and ``beam_search``'s ``beam`` kind are
-  keyed as the JAX registry keys them (``beam`` plus the prompt
-  shape);
+  ``spec_tree_commit`` kinds, ``beam_search``'s ``beam`` kind and the
+  ``moe_*`` kinds are keyed as the JAX registry keys them (``beam`` plus
+  the prompt shape);
 * ``generate`` runs as the Engine's ``generate`` kind: greedy fp32 tokens
   equal to the JAX ``generate``'s, keyed as the JAX registry keys it plus
   the prompt shape, its step and cache reused by a second call of the
@@ -50,7 +50,10 @@ _READS = {"step": {"paged"}, "sample": {"paged"}, "async": {"paged"},
           "paged_prefill": {"bucket"}, "inject": {"bucket", "paged"},
           "spec_verify": {"paged", "k"}, "spec_tree_verify": {"paged", "k"},
           "spec_tree_commit": {"paged", "k"}, "generate": {"extra"},
-          "beam": {"extra"}}
+          "beam": {"extra"}, "moe_step": {"paged"}, "moe_sample": {"paged"},
+          "moe_block": {"paged", "k"}, "moe_async": {"paged"},
+          "moe_prefill": {"bucket"}, "moe_prefill_chunk": {"width"},
+          "moe_paged_prefill": {"bucket"}, "moe_verify": {"paged", "k"}}
 
 
 def _cfg(**kw):

@@ -1754,3 +1754,136 @@ def test_tree_serve_after_warmup_captures_nothing(case, monkeypatch):
     assert len(tl.compile_log()) == builds0
     assert srv.stats()["spec.tree_nodes_accepted"] > 0
     srv.close()
+
+
+# ---------------------------------------------------------------------------
+# MoE serving on the card: the joint-routing step graphs and counters
+# ---------------------------------------------------------------------------
+
+
+def _moe_case(cf=1.25):
+    """A small fp32 MoE model on the card (head_dim 64, 4 top-2 experts;
+    C = 3 at 4 slots, so batch-mates contend)."""
+    from paddle_tpu_torch.text import moe
+
+    gen = _card()
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=128, num_layers=2,
+                        num_heads=2, max_seq_len=256, dtype=torch.float32,
+                        moe=moe.MoEConfig(num_experts=4, top_k=2,
+                                          capacity_factor=cf))
+    params = gpt.init_params(cfg, seed=3, device="cuda")
+    prompts = [torch.randint(0, 512, (n,), generator=gen,
+                             device="cuda").tolist() for n in _GRAPH_LENS]
+    return cfg, params, prompts
+
+
+@pytest.mark.parametrize("case", ["contiguous", "paged"])
+def test_moe_step_graph_equals_the_eager_step(case, monkeypatch):
+    """From one cache state and one accumulator state, the captured
+    ``moe_step`` / ``moe_block`` give the eager bodies' logits and tokens
+    bit for bit, write the same cache rows and add the same routing
+    delta; the served streams, drops and load of graphed tick, block and
+    async serves equal the eager ones."""
+    from paddle_tpu_torch.text import engine
+
+    monkeypatch.delenv("PADDLE_TPU_KV_DTYPE", raising=False)
+    cfg, params, prompts = _moe_case()
+    out = {}
+    for graphs in (False, True):
+        srv = _graph_server(cfg, params, case, graphs)
+        for p in prompts[:4]:
+            srv.submit(p, max_new_tokens=12)
+        srv._ensure_decode_blocks(4)
+        tok, pos = srv._feed_arrays()
+        tok, pos = srv._host(tok), srv._host(pos)
+        act = srv._act()
+        st0 = {n: t.clone() for n, t in srv._moe_stats.items()}
+        (logits,) = engine.ENGINE.get("moe_step", srv._spec())(tok, pos,
+                                                               *act)
+        logits = logits.clone()
+        delta = {n: t - st0[n] for n, t in srv._moe_stats.items()}
+        (toks,) = engine.ENGINE.get("moe_block", srv._spec(k=4))(tok, pos,
+                                                                 *act)
+        torch.cuda.synchronize()
+        out[graphs] = (logits, toks.clone(), delta,
+                       {n: t.clone() for n, t in srv._moe_stats.items()})
+        srv.close()
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
+    for i in (2, 3):
+        assert all(torch.equal(out[True][i][n], out[False][i][n])
+                   for n in out[False][i])
+    for block, async_ in ((None, False), (4, False), (None, True)):
+        got = {}
+        for graphs in (False, True):
+            srv = _graph_server(cfg, params, case, graphs,
+                                async_dispatch=async_)
+            streams = _serve_all(srv, prompts, block)
+            ls = srv.load_stats()
+            got[graphs] = (streams, ls["moe_dropped_tokens"],
+                           ls["moe_expert_load"])
+            if graphs:
+                names = {g.name for g in engine.ENGINE.graphs(srv._bind)}
+                assert ("serving.moe_async_step" if async_ else
+                        f"serving.moe_block@{block}" if block else
+                        "serving.moe_step") in names, names
+            srv.close()
+        assert got[True] == got[False], (block, async_)
+
+
+def test_moe_accumulator_advances_across_replays_and_drains_exactly():
+    """The zero-router model at cf 0.5: each replay of the captured step
+    adds its drops into the bound accumulator (never into a copy), the
+    capture's eager warm run adds nothing, and ``load_stats`` drains the
+    host-replayed total; ``moe.dropped_tokens`` advances by exactly the
+    drops since the last drain."""
+    from paddle_tpu_torch import telemetry as tl
+    from paddle_tpu_torch.text import engine, serving
+
+    cfg, params, _ = _moe_case(cf=0.5)
+    params["blocks"]["moe"]["router_w"].zero_()
+    srv = serving.DecodeServer(params, cfg, max_batch=2, max_len=32,
+                               device="cuda")
+    srv.warmup(prompt_lens=[2, 3])
+    assert srv.load_stats()["moe_dropped_tokens"] == 0
+    c0 = tl.counter("moe.dropped_tokens")
+    rids = [srv.submit([1, 2], max_new_tokens=6),
+            srv.submit([3, 4, 5], max_new_tokens=6)]
+    L, want, drained = cfg.num_layers, 0, 0
+    stats_ptr = srv._moe_stats["dropped"].data_ptr()
+    while srv.pending():
+        active = sum(1 for st in srv._slots.values())
+        srv.tick()
+        want += 2 * L * max(0, active - 1)
+        if active == 2 and not drained:
+            drained = srv.load_stats()["moe_dropped_tokens"]
+            assert drained == want
+            assert tl.counter("moe.dropped_tokens") - c0 == want
+    assert srv._moe_stats["dropped"].data_ptr() == stats_ptr
+    step = next(g for g in engine.ENGINE.graphs(srv._bind)
+                if g.name == "serving.moe_step")
+    assert step.replays > 0
+    ls = srv.load_stats()
+    assert ls["moe_dropped_tokens"] == want > drained > 0
+    assert tl.counter("moe.dropped_tokens") - c0 == want
+    assert all(len(srv.result(r)) == 6 for r in rids)
+    srv.close()
+
+
+def test_moe_top_k_ties_on_the_card_take_the_lowest_experts():
+    """A stable descending sort keeps ``jax.lax.top_k``'s order on ties
+    on the card too: a zeroed router sends every token to experts 0 and
+    1; equal logits elsewhere take the lower index."""
+    from paddle_tpu_torch.text import moe
+
+    _card()
+    logits = torch.zeros(4096, 8, device="cuda")
+    logits[::2, 5] = logits[::2, 6] = 1.0
+    _, idx, _ = moe._top_k_gating(logits, 2)
+    assert idx[1::2].tolist() == [[0, 1]] * 2048
+    assert idx[::2].tolist() == [[5, 6]] * 2048
+    x = torch.randn(64, 32, device="cuda")
+    disp, _, _ = moe._route({"router_w": torch.zeros(32, 8, device="cuda")},
+                            x, moe.MoEConfig(num_experts=8, top_k=2), None,
+                            8, 64, torch.float32)
+    assert disp[:, 2:].sum() == 0 and disp[:, :2].sum() == 128

@@ -103,12 +103,25 @@ def test_pack_int4_halves_is_bit_identical_to_jax():
 
 
 def test_moe_and_lora_trees_raise():
+    """LoRA leaves still raise in ``woq.w``.  MoE trees quantize since
+    the MoE slice (the expert stacks as JAX's; tests/test_torch_moe.py
+    holds them bit-equal): here a tree with a ``blocks["moe"]`` subtree
+    no longer raises, and its router stays float."""
     _, jp = _float_tree(ARCHS[0])
     tree = convert.params_from_jax(jp)
-    moe = {**tree, "blocks": {**tree["blocks"], "moe": {"w_in": None}}}
+    blocks = dict(tree["blocks"])
+    E, D, F = 2, blocks["fc_w"].shape[1], blocks["fc_w"].shape[2]
+    L = blocks["fc_w"].shape[0]
+    blocks["moe"] = {"router_w": torch.zeros(L, D, E),
+                     "w_in": torch.ones(L, E, D, F),
+                     "b_in": torch.zeros(L, E, F),
+                     "w_out": torch.ones(L, E, F, D),
+                     "b_out": torch.zeros(L, E, D)}
+    moe = {**tree, "blocks": blocks}
     for quant in (woq.quantize_gpt_int8, woq.quantize_gpt_int4):
-        with pytest.raises(NotImplementedError, match="MoE"):
-            quant(moe)
+        got = quant(moe)["blocks"]["moe"]
+        assert got["w_in"].dtype == torch.int8 and "w_in_s" in got
+        assert got["router_w"].dtype == torch.float32
     p = gpt.layer(tree, 0)
     p["proj_w_lora_a"] = torch.zeros(64, 4)
     with pytest.raises(NotImplementedError, match="LoRA"):
