@@ -56,7 +56,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    remat, full remat and "dots" (each remat run bit-equal to no remat on
    the card), dropout 0.1 with a fixed key without remat and under
    "dots" (bit-equal again), Adafactor, Lamb, AdamW with a
-   ``ClipGradByGlobalNorm`` and on a ``LinearWarmup`` schedule;
+   ``ClipGradByGlobalNorm`` and on a ``LinearWarmup`` schedule; then MoE
+   training on a small fp32 model (4 top-2 experts, router noise 0.1,
+   every step under a key; ``moe_train_small_vs_cpu``): five AdamW steps
+   without remat, under full remat and under "dots" (each bit-equal to no
+   remat on the card) and one step at cf 0.5 (assignments dropped), each
+   against the same run on the CPU;
 5. time each kernel with CUDA events at its path's shapes (L2 flushed
    and the host's enqueue hidden before each launch), beside its plain twin, its least possible time on
    the card, and a PyTorch call on the same work as a yardstick the port
@@ -238,14 +243,21 @@ Phases, in order; any failure raises and the script exits non-zero:
    8 micro-batches, AdamW (bf16 moments), the fused loss head
    (``PADDLE_TPU_FUSED_CE=1``); the headline rung (the fused LayerNorm
    too); GPT-760M, batch 16 in 16, AdamW, fused LN and CE, without remat
-   and under remat "dots"; GPT-1.3B under full remat with Adafactor —
-   four steps of each on one batch with step time, tokens/s, MFU, peak
+   and under remat "dots"; GPT-1.3B under full remat with Adafactor;
+   GPT-1.3B's widths with 8 top-2 experts a layer at 8 layers (router
+   noise 0.01, each step under a key), AdamW, fused LN and CE, without
+   remat and under full remat —
+   four steps of each on one batch with step time, tokens/s, MFU (the
+   JAX package's count, and for MoE the routed count
+   ``moe_train_flops_per_token`` as ``mfu_routed``; for MoE too the drop
+   rate of micro-batch 0's routing after the steps), peak
    memory (and its split at the optimizer update), the bytes one
    micro-batch's forward keeps, and each step's kernel launches, exactly
    as ``expected_train_launches`` counts them (every flash forward, dq and
    dk/dv on its tensor-core body, the recompute's included); the loss must
    start near ln(vocab) and fall, and a remat rung's forward must keep
-   fewer bytes than its remat-off twin's, its step peak no more;
+   fewer bytes than its remat-off twin's, its step peak no more (the
+   allocated peak; on the MoE twins the requested one);
 10. one ``{"kernels": [...]}`` JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -845,20 +857,26 @@ def _small_models(torch, gpt):
         yield name, gpt.GPTConfig(**{**base, **kw}), kv
 
 
-def _leaves(params):
-    """(name, tensor) of every leaf of a parameter tree."""
+def _leaves(params, prefix=""):
+    """(dotted name, tensor) of every leaf of a (nested) parameter tree —
+    an MoE model's ``blocks.moe.w_in`` included."""
     for n, v in params.items():
-        if n == "blocks":
-            yield from ((f"blocks.{k}", t) for k, t in v.items())
+        if isinstance(v, dict):
+            yield from _leaves(v, f"{prefix}{n}.")
         else:
-            yield n, v
+            yield prefix + n, v
+
+
+def _tree_map(fn, params):
+    """``fn`` applied to every leaf of a (nested) parameter tree."""
+    return {n: (_tree_map(fn, v) if isinstance(v, dict) else fn(v))
+            for n, v in params.items()}
 
 
 def _to_card(params):
     """A copy of a CPU parameter tree on the card (nested subtrees, an MoE
     model's ``blocks["moe"]``, included)."""
-    return {n: (_to_card(v) if isinstance(v, dict) else v.cuda())
-            for n, v in params.items()}
+    return _tree_map(lambda t: t.cuda(), params)
 
 
 def _tree_bytes(params):
@@ -1281,6 +1299,73 @@ def check_train_vs_cpu(torch, gpt, gpt_hybrid, AdamW, fn):
     return worst_loss, worst_param
 
 
+def train_runs_vs_cpu(torch, gpt, gpt_hybrid, base, runs):
+    """Each run — (name, config fields over ``base``, a function making
+    (optimizer, its scheduler or None: stepped after each train step),
+    the steps' key, the run it equals or None, steps) — trained at accum
+    2 from the seed-7 masters on B = 4 of 64 tokens, on the CPU and on
+    the card, the step given no lr (the optimizer's own): losses within
+    TRAIN_LOSS_TOL, final params within TRAIN_PARAM_TOL but for a
+    TRAIN_PARAM_FAR share and all within TRAIN_STEPS * TRAIN_LR; a run
+    naming another must be bit-equal to it on the card.  Returns
+    ({name: (card losses, card params, config, masters, batches)}, the
+    worst loss gap, the worst parameter gap)."""
+    card_runs = {}
+    worst_loss = worst_param = 0.0
+    for name, kw, make_opt, key, same_as, steps in runs:
+        cfg = gpt.GPTConfig(**{**base, **kw})
+        master = gpt.init_master_params(cfg, seed=7, device="cpu")
+        rng = np.random.default_rng(3)
+        batches = [rng.integers(0, cfg.vocab_size, (4, 65))
+                   for _ in range(steps)]
+
+        def run(dev, params):
+            opt, sched = make_opt()
+            _, step_fn, _ = gpt_hybrid.build_gpt_train_step(
+                cfg, opt, accum=2, device=dev)
+            st = gpt_hybrid.GPTTrainState(
+                params, opt.init_state(params),
+                torch.zeros((), dtype=torch.int32, device=dev))
+            losses = []
+            for b in batches:
+                st, loss = step_fn(st, b, key, None)
+                losses.append(loss.item())
+                if sched is not None:
+                    sched.step()
+            return losses, dict(_leaves(st.params))
+
+        cpu_losses, cpu_params = run("cpu", master)
+        losses, params = run("cuda", _to_card(master))
+        card_runs[name] = losses, params, cfg, master, batches
+        d_loss = max(abs(a - b) for a, b in zip(cpu_losses, losses))
+        diff = torch.cat([(params[n].cpu() - t).abs().flatten()
+                          for n, t in cpu_params.items()])
+        d_param = diff.max().item()
+        far = (diff > TRAIN_PARAM_TOL).float().mean().item()
+        same = ""
+        if same_as is not None:
+            ref_losses, ref_params = card_runs[same_as][:2]
+            bits = losses == ref_losses and all(
+                torch.equal(t, ref_params[n]) for n, t in params.items())
+            same = f"; card bit-equal to {same_as!r}: {bits}"
+            if not bits:
+                raise AssertionError(f"{name} on the card is not bit-equal "
+                                     f"to {same_as}")
+        log(f"  {name}: losses (card) {[round(x, 5) for x in losses]}; "
+            f"max|loss card - cpu| {d_loss:.3g} (tol {TRAIN_LOSS_TOL}); "
+            f"params card - cpu: max {d_param:.3g} (tol "
+            f"{TRAIN_STEPS * TRAIN_LR}), share past {TRAIN_PARAM_TOL} "
+            f"{far:.3g} of {diff.numel()} (tol {TRAIN_PARAM_FAR}){same}")
+        if not (all(map(math.isfinite, losses))
+                and d_loss <= TRAIN_LOSS_TOL and far <= TRAIN_PARAM_FAR
+                and d_param <= TRAIN_STEPS * TRAIN_LR):
+            raise AssertionError(f"card training disagrees with the CPU on "
+                                 f"{name}")
+        worst_loss = max(worst_loss, d_loss)
+        worst_param = max(worst_param, d_param)
+    return card_runs, worst_loss, worst_param
+
+
 def check_train_surface_vs_cpu(torch, gpt, gpt_hybrid, optim, clip, lrs):
     """The rest of the training surface on small fp32 models (hidden 256,
     2 layers, head_dim 128, rope — a learned-position model's key bias
@@ -1324,64 +1409,64 @@ def check_train_surface_vs_cpu(torch, gpt, gpt_hybrid, optim, clip, lrs):
             ("adamw global-norm clip", {}, lambda: adamw(
                 grad_clip=clip.ClipGradByGlobalNorm(0.5)), None, None),
             ("adamw linear warmup", {}, warmup, None, None)]
-    card_runs = {}
-    worst_loss = worst_param = 0.0
-    for name, kw, make_opt, key, same_as in runs:
-        cfg = gpt.GPTConfig(**{**base, **kw})
-        master = gpt.init_master_params(cfg, seed=7, device="cpu")
-        rng = np.random.default_rng(3)
-        batches = [rng.integers(0, cfg.vocab_size, (4, 65))
-                   for _ in range(TRAIN_STEPS)]
-
-        def run(dev, params):
-            opt, sched = make_opt()
-            _, step_fn, _ = gpt_hybrid.build_gpt_train_step(
-                cfg, opt, accum=2, device=dev)
-            st = gpt_hybrid.GPTTrainState(
-                params, opt.init_state(params),
-                torch.zeros((), dtype=torch.int32, device=dev))
-            losses = []
-            for b in batches:
-                st, loss = step_fn(st, b, key, None)
-                losses.append(loss.item())
-                if sched is not None:
-                    sched.step()
-            return losses, dict(_leaves(st.params))
-
-        cpu_losses, cpu_params = run("cpu", master)
-        losses, params = run("cuda", _to_card(master))
-        card_runs[name] = losses, params
-        d_loss = max(abs(a - b) for a, b in zip(cpu_losses, losses))
-        diff = torch.cat([(params[n].cpu() - t).abs().flatten()
-                          for n, t in cpu_params.items()])
-        d_param = diff.max().item()
-        far = (diff > TRAIN_PARAM_TOL).float().mean().item()
-        same = ""
-        if same_as is not None:
-            ref_losses, ref_params = card_runs[same_as]
-            bits = losses == ref_losses and all(
-                torch.equal(t, ref_params[n]) for n, t in params.items())
-            same = f"; card bit-equal to {same_as!r}: {bits}"
-            if not bits:
-                raise AssertionError(f"{name} on the card is not bit-equal "
-                                     f"to {same_as}")
-        log(f"  {name}: losses (card) {[round(x, 5) for x in losses]}; "
-            f"max|loss card - cpu| {d_loss:.3g} (tol {TRAIN_LOSS_TOL}); "
-            f"params card - cpu: max {d_param:.3g} (tol "
-            f"{TRAIN_STEPS * TRAIN_LR}), share past {TRAIN_PARAM_TOL} "
-            f"{far:.3g} of {diff.numel()} (tol {TRAIN_PARAM_FAR}){same}")
-        if not (all(map(math.isfinite, losses))
-                and d_loss <= TRAIN_LOSS_TOL and far <= TRAIN_PARAM_FAR
-                and d_param <= TRAIN_STEPS * TRAIN_LR):
-            raise AssertionError(f"card training disagrees with the CPU on "
-                                 f"{name}")
-        worst_loss = max(worst_loss, d_loss)
-        worst_param = max(worst_param, d_param)
+    runs = [r + (TRAIN_STEPS,) for r in runs]
+    card_runs, worst_loss, worst_param = train_runs_vs_cpu(
+        torch, gpt, gpt_hybrid, base, runs)
     if card_runs["dropout 0.1"][0] == card_runs["adamw"][0]:
         raise AssertionError("dropout 0.1 left the losses as they were")
     os.environ.pop("PADDLE_TPU_FUSED_CE", None)
     os.environ.pop("PADDLE_TPU_FUSED_LN", None)
     return worst_loss, worst_param
+
+
+def moe_train_small_vs_cpu(torch, gpt, gpt_hybrid, optim):
+    """MoE training on a small fp32 model (hidden 256, 2 layers, head_dim
+    128, rope, 4 top-2 experts at cf 1.25 with router noise 0.1, the
+    LayerNorm and the loss head on the fused kernels, B = 4 of 64 tokens,
+    accum 2), every step under a key: five AdamW steps without remat,
+    under full remat and under "dots", and one step at cf 0.5, where
+    assignments drop.  Each run on the card against the same run on the
+    CPU (:func:`train_runs_vs_cpu`: the router noise is counter-based, so
+    both devices draw the same bits); on the card, each remat run
+    bit-equal (losses and params) to its run without remat.  Returns the
+    worst card-vs-CPU loss and parameter gaps and the cf 0.5 step's
+    routing of micro-batch 0."""
+    from paddle_tpu_torch.text import moe
+
+    os.environ["PADDLE_TPU_FUSED_CE"] = "1"
+    os.environ["PADDLE_TPU_FUSED_LN"] = "1"
+    base = dict(vocab_size=512, hidden_size=256, num_layers=2, num_heads=2,
+                max_seq_len=128, dtype=torch.float32, pos_embed="rope")
+
+    def experts(cf=1.25):
+        return moe.MoEConfig(num_experts=4, top_k=2, capacity_factor=cf,
+                             router_noise=0.1)
+
+    def adamw():
+        return optim.AdamW(learning_rate=TRAIN_LR, weight_decay=0.01), None
+
+    key = 5
+    runs = [("moe adamw", dict(moe=experts()), adamw, key, None,
+             TRAIN_STEPS),
+            ("moe full remat", dict(moe=experts(), remat=True), adamw, key,
+             "moe adamw", TRAIN_STEPS),
+            ("moe dots remat", dict(moe=experts(), remat=True,
+                                    remat_policy="dots"), adamw, key,
+             "moe adamw", TRAIN_STEPS),
+            ("moe cf 0.5", dict(moe=experts(0.5)), adamw, key, None, 1)]
+    card_runs, worst_loss, worst_param = train_runs_vs_cpu(
+        torch, gpt, gpt_hybrid, base, runs)
+    _, _, cfg, master, batches = card_runs["moe cf 0.5"]
+    routing = moe_train_routing(torch, gpt, cfg, master,
+                                torch.as_tensor(batches[0]), key)
+    log(f"  moe cf 0.5: micro-batch 0 drops {routing['dropped']} of "
+        f"{routing['dropped'] + routing['kept']} assignments")
+    if routing["dropped"] == 0:
+        raise AssertionError("cf 0.5 dropped no assignment")
+    os.environ.pop("PADDLE_TPU_FUSED_CE", None)
+    os.environ.pop("PADDLE_TPU_FUSED_LN", None)
+    return {"cf0.5_routing": routing, "worst_loss": worst_loss,
+            "worst_param": worst_param}
 
 
 def time_flash(torch, fa, F, T):
@@ -4558,6 +4643,60 @@ def moe_step_flops(cfg, batch, window):
     return 2 * batch * weights + 4 * batch * window * D * L + routed
 
 
+def moe_train_flops_per_token(cfg, seq):
+    """Training FLOPs a token by the weights it is routed through: the
+    JAX package's count (``gpt.flops_per_token``, which sees one dense
+    gelu FFN a block) plus, a block, the other k - 1 experts and the
+    router: 6·((k - 1)·2·D·F + D·E).  The capacity slots' padding and the
+    dispatch / combine matmuls are not counted, as the JAX count counts
+    no routing.  A dense config: the JAX count."""
+    from paddle_tpu_torch.text import gpt
+
+    dense = gpt.flops_per_token(cfg, seq)
+    if cfg.moe is None:
+        return dense
+    D, k, E = cfg.hidden_size, cfg.moe.top_k, cfg.moe.num_experts
+    return dense + 6 * cfg.num_layers * ((k - 1) * 2 * D * cfg.ffn_size
+                                         + D * E)
+
+
+def moe_train_routing(torch, gpt, cfg, params, tokens, key):
+    """The routing of micro-batch 0 (``tokens[:1]``) under its step key
+    (``rng.fold_in(key, 0)``, as ``step_fn`` gives it), no grad: every
+    layer's ``moe_ffn`` called with ``with_stats=True``.  Returns kept and
+    dropped token→expert assignments over the layers, the drop rate and
+    each expert's kept load; gates: every assignment counted once."""
+    from paddle_tpu_torch import rng
+    from paddle_tpu_torch.text import moe
+
+    got = []
+    real = moe.moe_ffn
+
+    def counted(p, x, mcfg, key=None, **kw):
+        y, aux, st = real(p, x, mcfg, key=key, with_stats=True, **kw)
+        got.append(st)
+        return y, aux
+
+    moe.moe_ffn = counted
+    try:
+        with torch.no_grad():
+            gpt.forward_with_aux(params, tokens[:1, :-1], cfg,
+                                 key=rng.fold_in(key, 0))
+    finally:
+        moe.moe_ffn = real
+    dropped = sum(int(st["dropped"]) for st in got)
+    load = [int(sum(int(st["load"][e]) for st in got))
+            for e in range(cfg.moe.num_experts)]
+    n_assign = cfg.num_layers * (tokens.shape[1] - 1) * cfg.moe.top_k
+    if len(got) != cfg.num_layers or dropped + sum(load) != n_assign:
+        raise AssertionError(f"routing stats of {len(got)} layers: dropped "
+                             f"{dropped} + kept {sum(load)} != {n_assign}")
+    return {"layers": len(got), "tokens": tokens.shape[1] - 1,
+            "capacity": moe.expert_capacity(tokens.shape[1] - 1, cfg.moe),
+            "kept": sum(load), "dropped": dropped,
+            "drop_rate": dropped / n_assign, "expert_load": load}
+
+
 def moe_small_cfg(torch, gpt, moe, cf=1.25):
     """The small fp32 MoE model of the card-vs-CPU checks: head_dim 128,
     4 top-2 experts; at 4 slots C = 3, so batch-mates contend."""
@@ -4913,7 +5052,8 @@ def moe_serve_bf16(torch, gpt, G, serving, moe, moe_serving, engine, ks, wl,
     params = gpt.init_params(cfg, seed=0, device="cuda")
     torch.cuda.synchronize()
     out = {"model": f"gpt_1p3b widths, {MOE_E} experts top-{MOE_K}, cf "
-                    f"{MOE_CF}", "params": gpt.count_params(cfg),
+                    f"{MOE_CF}",
+           "params": sum(t.numel() for _, t in _leaves(params)),
            "weight_bytes": _tree_bytes(params),
            "init_s": time.perf_counter() - t0}
     assert params["blocks"]["moe"]["router_w"].dtype == torch.float32
@@ -5050,56 +5190,73 @@ def expected_train_launches(cfg, rung, remat_policies):
             "paged_decode_attention": 0}
 
 
-def forward_bytes(torch, gpt, cfg, params, tokens):
+def forward_bytes(torch, gpt, cfg, params, tokens, key=None):
     """Bytes one micro-batch's forward (``loss_fn`` on its one sequence,
-    the masters as fresh autograd leaves, as the step takes them) leaves
-    allocated for its backward: what remat trades against recompute."""
-    leaves = {n: ({k: t.detach().requires_grad_(True) for k, t in v.items()}
-                  if n == "blocks" else v.detach().requires_grad_(True))
-              for n, v in params.items()}
+    the masters as fresh autograd leaves, as the step takes them; under
+    the step's ``key``) leaves allocated for its backward: what remat
+    trades against recompute."""
+    leaves = _tree_map(lambda t: t.detach().requires_grad_(True), params)
     torch.cuda.synchronize()
     before = torch.cuda.memory_allocated()
-    loss = gpt.loss_fn(leaves, tokens[:1], cfg)
+    loss = gpt.loss_fn(leaves, tokens[:1], cfg, key=key)
     kept = torch.cuda.memory_allocated() - before
     del loss
     return kept
 
 
 def train_path(torch, gpt, ks, tr, remat_policies, rung, steps=4):
-    """``steps`` train steps of ``rung`` (``tr.RUNGS``) on one batch, each
-    timed on the host clock (it ends in a sync: the loss is read), with
-    every kernel's launches counted per step and the step's memory split
-    at the optimizer update (the peak of the micro-batches' phase, and of
-    the update); then the bytes one micro-batch's forward keeps.  Returns
+    """``steps`` train steps of ``rung`` (``tr.RUNGS``) on one batch under
+    the rungs' one key (``tr.KEY``), each timed on the host clock (it
+    ends in a sync: the loss is read), with every kernel's launches
+    counted per step and the step's memory split at the optimizer update
+    (the peak of the micro-batches' phase, and of the update; allocated
+    and requested bytes); then the bytes one micro-batch's forward keeps,
+    and on an MoE rung the routing of micro-batch 0 at init and after the
+    steps (``moe_train_routing``, outside the counted steps).  Returns
     (stats, launches)."""
     r = tr.RUNGS[rung]
     cfg, opt, init_fn, step_fn, tokens = tr.build_train_path(
         "cuda", seed=0, rung=rung)
+    key = tr.KEY
     state = init_fn(0)
+    # the tree's own size: gpt.count_params is the JAX package's count,
+    # which sees one dense FFN a block on an MoE config
     n_params = sum(t.numel() for _, t in _leaves(state.params))
-    assert n_params == gpt.count_params(cfg)
+    assert cfg.moe is not None or n_params == gpt.count_params(cfg)
     assert all(t.dtype == torch.float32 for _, t in _leaves(state.params))
     n_tok = r.batch * tr.SEQ
     fpt = gpt.flops_per_token(cfg, tr.SEQ)
-    log(f"  hidden {cfg.hidden_size}, {cfg.num_layers} layers: {n_params} "
+    fpt_routed = moe_train_flops_per_token(cfg, tr.SEQ)
+    log(f"  hidden {cfg.hidden_size}, {cfg.num_layers} layers"
+        f"{'' if cfg.moe is None else f', {cfg.moe}'}: {n_params} "
         f"fp32 master params; batch {r.batch} x {tr.SEQ} tokens in "
         f"{r.accum} micro-batches; remat {cfg.remat} (policy "
-        f"{cfg.remat_policy}); {r.describe()}; optimizer state "
-        f"{tr.state_bytes(state.opt_state) / 1e9:.3f} GB; flops/token "
-        f"{fpt:.4g}")
+        f"{cfg.remat_policy}); {r.describe()}; step key {key}; optimizer "
+        f"state {tr.state_bytes(state.opt_state) / 1e9:.3f} GB; flops/token "
+        f"{fpt:.4g} (the JAX count), routed {fpt_routed:.4g}")
     want = expected_train_launches(cfg, r, remat_policies)
     phase = {}
     apply = opt.apply_gradients
+
+    def requested_peak():
+        # the bytes the program asked for, without the caching allocator's
+        # rounding and unsplit block tails (up to 1 MiB an allocation, by
+        # the cache's history): what a remat twin's gate compares
+        return torch.cuda.memory_stats().get("requested_bytes.all.peak", 0)
 
     def split_at_update(*args, **kwargs):
         # the peak since the step began is the micro-batches' phase; the
         # update's own peak is read after it
         phase["grads"] = torch.cuda.max_memory_allocated()
+        phase["grads_requested"] = requested_peak()
         torch.cuda.reset_peak_memory_stats()
         out = apply(*args, **kwargs)
         phase["update"] = torch.cuda.max_memory_allocated()
+        phase["update_requested"] = requested_peak()
         return out
 
+    routing0 = (None if cfg.moe is None else moe_train_routing(
+        torch, gpt, cfg, state.params, tokens, key))
     opt.apply_gradients = split_at_update
     torch.cuda.synchronize()
     zero_counts(ks)
@@ -5108,7 +5265,7 @@ def train_path(torch, gpt, ks, tr, remat_policies, rung, steps=4):
         before, before_tc = launch_counts(ks), tc_counts(ks)
         torch.cuda.reset_peak_memory_stats()
         t0 = time.perf_counter()
-        state, loss = step_fn(state, tokens, None, tr.LR)
+        state, loss = step_fn(state, tokens, key, tr.LR)
         losses.append(loss.item())
         torch.cuda.synchronize()
         step_s.append(time.perf_counter() - t0)
@@ -5146,10 +5303,14 @@ def train_path(torch, gpt, ks, tr, remat_policies, rung, steps=4):
     tc = tc_counts(ks)
     if tc != {n: steps * c for n, c in want_tc.items()}:
         raise AssertionError(f"tensor-core launches {tc} in {steps} steps")
-    kept = forward_bytes(torch, gpt, cfg, state.params, tokens)
+    kept = forward_bytes(torch, gpt, cfg, state.params, tokens, key)
+    routing = (None if cfg.moe is None else
+               moe_train_routing(torch, gpt, cfg, state.params, tokens, key))
     steady = statistics.median(step_s[1:])
     grads_peak = max(p["grads"] for p in peaks)
     update_peak = max(p["update"] for p in peaks)
+    requested = max(max(p["grads_requested"], p["update_requested"])
+                    for p in peaks)
     stats = {
         "rung": rung + (" + fused CE" if rung == "gpt_1.3b_acc8_b8" else ""),
         "hidden": cfg.hidden_size, "layers": cfg.num_layers,
@@ -5163,16 +5324,25 @@ def train_path(torch, gpt, ks, tr, remat_policies, rung, steps=4):
         "steady_step_ms": 1e3 * steady,
         "steady_tokens_per_s": n_tok / steady,
         "mfu": fpt * n_tok / steady / BF16_FLOPS_PER_S,
+        "mfu_routed": fpt_routed * n_tok / steady / BF16_FLOPS_PER_S,
         "peak_mem_gb": max(grads_peak, update_peak) / 1e9,
         "peak_micro_batches_gb": grads_peak / 1e9,
         "peak_update_gb": update_peak / 1e9,
+        "peak_requested_gb": requested / 1e9,
         "forward_kept_gb": kept / 1e9,
         "launches_per_step": per_step[-1],
         "tc_launches_per_step": per_step_tc[-1], "tc_launches": tc,
     }
+    if routing is not None:
+        stats.update(routing_at_init=routing0, routing=routing)
+        log(f"  routing of micro-batch 0 under its step key: at init "
+            f"{json.dumps(routing0)}; weights after the last step "
+            f"{json.dumps(routing)}")
     log(f"  steady (median of steps 2-{steps}): {stats['steady_step_ms']:.1f}"
         f" ms/step, {stats['steady_tokens_per_s']:.0f} tokens/s, MFU "
-        f"{stats['mfu']:.4f}; peak memory {stats['peak_mem_gb']:.2f} GB "
+        f"{stats['mfu']:.4f} (routed {stats['mfu_routed']:.4f}); peak "
+        f"memory {stats['peak_mem_gb']:.2f} GB (requested "
+        f"{stats['peak_requested_gb']:.4f}) "
         f"(micro-batches {grads_peak / 1e9:.2f}, update "
         f"{update_peak / 1e9:.2f}); one micro-batch's forward keeps "
         f"{kept / 1e9:.3f} GB")
@@ -5188,7 +5358,10 @@ TRAIN_RUNGS = (("train", "gpt_1.3b_acc8_b8", None),
                ("train_760m_dots", "gpt_760m_fused_dots_acc16_b16",
                 "train_760m"),
                ("train_1.3b_remat_af", "gpt_1.3b_fused_remat_af_acc8_b8",
-                "train_fused"))
+                "train_fused"),
+               ("train_moe", "gpt_1.3b_moe8_l8_fused_acc8_b8", None),
+               ("train_moe_remat", "gpt_1.3b_moe8_l8_fused_remat_acc8_b8",
+                "train_moe"))
 
 
 def main() -> int:
@@ -5261,6 +5434,10 @@ def main() -> int:
     log("[remat, dropout, Adafactor, Lamb, clipping, a schedule: train "
         "steps on the card vs the CPU, remat bit-equal to none]")
     check_train_surface_vs_cpu(torch, gpt, gpt_hybrid, optim, clip, lrs)
+    log("[MoE training: router noise under a key, remat and drops — train "
+        "steps on the card vs the CPU, remat bit-equal to none]")
+    moe_small = moe_train_small_vs_cpu(torch, gpt, gpt_hybrid, optim)
+    log(f"  {json.dumps(moe_small)}")
 
     log("[kernel timings at the paths' shapes]")
     flash_by_t = {T: time_flash(torch, fa, F, T) for T in (64, 128, 256, 512)}
@@ -5437,8 +5614,11 @@ def main() -> int:
             f"{b['steady_step_ms']:.1f} vs {a['steady_step_ms']:.1f} "
             f"ms/step, {b['steady_tokens_per_s']:.0f} vs "
             f"{a['steady_tokens_per_s']:.0f} tokens/s, MFU {b['mfu']:.4f} "
-            f"vs {a['mfu']:.4f}, peak memory {b['peak_mem_gb']:.2f} vs "
-            f"{a['peak_mem_gb']:.2f} GB (micro-batches "
+            f"vs {a['mfu']:.4f} (routed {b['mfu_routed']:.4f} vs "
+            f"{a['mfu_routed']:.4f}), peak memory {b['peak_mem_gb']:.4f} vs "
+            f"{a['peak_mem_gb']:.4f} GB (requested "
+            f"{b['peak_requested_gb']:.4f} vs {a['peak_requested_gb']:.4f}; "
+            f"micro-batches "
             f"{b['peak_micro_batches_gb']:.2f} vs "
             f"{a['peak_micro_batches_gb']:.2f}, update "
             f"{b['peak_update_gb']:.2f} vs {a['peak_update_gb']:.2f}), a "
@@ -5446,13 +5626,22 @@ def main() -> int:
             f"{a['forward_kept_gb']:.3f} GB")
         # remat trades recompute for the activations a forward keeps; the
         # step's peak is the optimizer update's, which remat cannot lower,
-        # so there it must only not rise
+        # so there it must only not rise.  A dense twin holds the
+        # allocated peak; an MoE twin the bytes the program asked for
+        # (requested): its allocated peak also holds the caching
+        # allocator's unsplit block tails, which follow the cache's
+        # history, and came out up to 1 MiB apart at an equal requested
+        # peak
+        peak = ("peak_requested_gb" if "moe" in tr.RUNGS[rung].cfg
+                else "peak_mem_gb")
         if twin and not (b["forward_kept_gb"] < a["forward_kept_gb"]
-                         and b["peak_mem_gb"] <= a["peak_mem_gb"]):
+                         and b[peak] <= a[peak]):
             raise AssertionError(
                 f"{rung}: a forward keeps {b['forward_kept_gb']} GB and the "
-                f"step peaks at {b['peak_mem_gb']} GB, against "
-                f"{a['forward_kept_gb']} and {a['peak_mem_gb']} GB for "
+                f"step's {peak} is {b[peak]} GB (allocated "
+                f"{b['peak_mem_gb']}, requested {b['peak_requested_gb']}), "
+                f"against {a['forward_kept_gb']} and {a[peak]} GB "
+                f"({a['peak_mem_gb']}, {a['peak_requested_gb']}) for "
                 f"{a['rung']}")
 
     ln["bwd"].update(ln_bwd_apart(torch, fn))

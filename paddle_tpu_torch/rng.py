@@ -16,6 +16,7 @@ against the JAX package draws by law, not bit for bit.
 """
 from __future__ import annotations
 
+import math
 import zlib
 
 import numpy as np
@@ -58,9 +59,23 @@ def bits(key, shape, device):
 
 
 def uniform(key, shape, device):
-    """float32 uniforms in (0, 1) on 2^24 levels (each bin's midpoint)."""
-    return ((bits(key, shape, device) >> 8).to(torch.float32) + 0.5) \
-        * (1.0 / (1 << 24))
+    """float32 uniforms in (0, 1) on 2^23 levels (each bin's midpoint,
+    ``(k + 0.5) / 2^23``: float32 holds every one exactly, so u lies in
+    [2^-24, 1 - 2^-24] and never rounds to 0 or 1)."""
+    return ((bits(key, shape, device) >> 9).to(torch.float32) + 0.5) \
+        * (1.0 / (1 << 23))
+
+
+def normal(key, shape, device):
+    """float32 standard normals of ``shape`` under ``key``: the
+    counterpart of ``jax.random.normal``, by the inverse CDF
+    ``sqrt(2) * erfinv(2u - 1)`` of :func:`uniform` — one draw an
+    element, so a remat recompute or a graph replay draws the same
+    values again (the bits are the same on every device; ``erfinv`` may
+    differ by an ulp between them).  |z| stays below 5.3: ``2u - 1`` is
+    exact and at most 1 - 2^-23 in magnitude."""
+    u = uniform(key, shape, device)
+    return math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
 
 
 def gumbel(key, shape, device):

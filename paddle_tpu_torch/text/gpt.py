@@ -365,8 +365,9 @@ def _block(x, p, cfg: GPTConfig, dropout_key=None):
     model.  With ``cfg.dropout > 0`` and a ``dropout_key``, dropout on
     the attention projection's output (key ``fold_in(dropout_key, 0)``)
     and on the FFN's (``fold_in(dropout_key, 1)``), as in the JAX
-    block; the router's noise key would be ``fold_in(dropout_key, 2)``
-    (not ported: ``moe._route`` raises)."""
+    block.  An MoE block routes under ``fold_in(dropout_key, 2)`` when
+    it has a key (router noise, ``cfg.moe.router_noise``), with or
+    without dropout."""
     B, T, D = x.shape
     dt = cfg.dtype
     drop = cfg.dropout > 0.0 and dropout_key is not None
@@ -410,10 +411,11 @@ def _remat_wrap(cfg: GPTConfig):
 def forward_with_aux(params, tokens, cfg: GPTConfig, key=None):
     """tokens [B, T] int -> (logits [B, T, V] in the compute dtype, aux
     loss).  aux is the MoE load-balancing term summed over the layers
-    (float32; 0 for a dense model).  ``key`` (an int or an int64 tensor, ``rng.py``)
-    turns dropout on when ``cfg.dropout > 0``: layer ``l`` draws under
-    ``rng.fold_in(key, l)`` (the JAX package splits its key over the
-    layers); None is eval mode.
+    (float32; 0 for a dense model).  ``key`` (an int or an int64 tensor,
+    ``rng.py``) turns dropout on when ``cfg.dropout > 0`` and router
+    noise on an MoE config: layer ``l`` draws under ``rng.fold_in(key,
+    l)`` (the JAX package splits its key over the layers); None is eval
+    mode.
 
     The stacked block weights are unbound once into per-layer views, so
     under autograd each [L, ...] leaf gets its gradient by one stack of
@@ -449,8 +451,8 @@ def loss_fn(params, tokens, cfg: GPTConfig, key=None):
     loss.  ``PADDLE_TPU_FUSED_CE=1`` (read at each call) takes the fused
     loss head (``ops/fused_ce.py``: the hand-written kernels on the card,
     their plain twins on the CPU); otherwise the fp32 ``log_softmax``
-    expression, as in the JAX package.  ``key``: the dropout key of
-    :func:`forward_with_aux` (None: no dropout)."""
+    expression, as in the JAX package.  ``key``: the dropout and
+    router-noise key of :func:`forward_with_aux` (None: neither)."""
     logits, aux = forward_with_aux(params, tokens[:, :-1], cfg, key=key)
     tgt = tokens[:, 1:]
     if flags.fused_ce():
@@ -461,6 +463,10 @@ def loss_fn(params, tokens, cfg: GPTConfig, key=None):
 
 
 def count_params(cfg: GPTConfig) -> int:
+    """The parameter count as the JAX package reckons it: one dense FFN a
+    block whatever ``cfg.moe`` says (the reference counts neither the
+    experts nor the router; kept for parity — an MoE tree's own size is
+    the sum of its leaves)."""
     D, Fd, L, V, T = (cfg.hidden_size, cfg.ffn_size, cfg.num_layers,
                       cfg.vocab_size, cfg.max_seq_len)
     Dkv = cfg.kv_heads * cfg.head_dim
@@ -470,8 +476,6 @@ def count_params(cfg: GPTConfig) -> int:
     ffn = D * Fd + Fd + Fd * D + D
     if cfg.activation == "swiglu":
         ffn += D * Fd + Fd
-    if cfg.moe is not None:         # E experts and the router
-        ffn = cfg.moe.num_experts * ffn + D * cfg.moe.num_experts
     per_block = norms + qkv + D * D + D + ffn
     final_norm = 2 * D if cfg.norm == "layernorm" else D
     pos = T * D if cfg.pos_embed == "learned" else 0
@@ -479,20 +483,17 @@ def count_params(cfg: GPTConfig) -> int:
 
 
 def flops_per_token(cfg: GPTConfig, seq_len: int) -> float:
-    """Training FLOPs per token, as the JAX package counts them: 6 x the
+    """Training FLOPs per token, as the JAX package counts them (one
+    dense FFN a block on an MoE config too, as there): 6 x the
     matmul weights (qkv, attention projection and FFN per block, plus the
     tied head V·D once) plus the attention term 12·L·D·T (full,
-    non-causal accounting — the conservative standard for MFU).  An MoE
-    block counts the weights a token is routed through: its top-k
-    experts and the router (the JAX package counts one dense FFN)."""
+    non-causal accounting — the conservative standard for MFU)."""
     D, Fd, L, V = cfg.hidden_size, cfg.ffn_size, cfg.num_layers, \
         cfg.vocab_size
     Dkv = cfg.kv_heads * cfg.head_dim
     qkv_w = (D * D + 2 * D * Dkv if cfg.num_kv_heads is not None
              else 3 * D * D)
     ffn_w = (3 if cfg.activation == "swiglu" else 2) * D * Fd
-    if cfg.moe is not None:
-        ffn_w = cfg.moe.top_k * ffn_w + D * cfg.moe.num_experts
     n_matmul = L * (qkv_w + D * D + ffn_w) + V * D
     attn = 12 * L * D * seq_len
     return 6 * n_matmul + attn

@@ -15,8 +15,11 @@ PyTorch's autograd through the hand-written kernels' backward functions
 ``l * (1/accum)``; the optimizer receives the bf16 grads.  (A trajectory
 accumulated in fp32 would not match the JAX one.)  The carry is updated
 in place, which saves a copy of the gradient tree per micro-batch.
-Each micro-batch draws its dropout under its own key (``rng.fold_in(key,
-i)``, where the JAX step splits its key over the micro-batches).
+Each micro-batch draws its dropout and an MoE model's router noise under
+its own key (``rng.fold_in(key, i)``, where the JAX step splits its key
+over the micro-batches).  An MoE tree's expert leaves (``blocks["moe"]``,
+``router_w`` float32) take the same bf16 carry and the same update; the
+aux loss is part of ``gpt.loss_fn``'s value.
 """
 from __future__ import annotations
 
@@ -71,8 +74,8 @@ def build_gpt_train_step(cfg: gpt.GPTConfig, optimizer, accum: int = 1,
       ``seed`` on the device, the optimizer's initial state, step 0;
     * ``step_fn(state, tokens, key, lr) -> (state, loss)``: tokens
       [B, T + 1] (tensor or array; B divisible by ``accum``), ``key``
-      the dropout key (an int or an int64 tensor on the device,
-      ``rng.py``; None: no dropout), ``lr`` a number, or None for the
+      the dropout and router-noise key (an int or an int64 tensor on the
+      device, ``rng.py``; None: neither), ``lr`` a number, or None for the
       optimizer's own (its scheduler's current value); the loss a 0-d
       fp32 tensor on the device (no host sync);
     * ``meta``: the axis sizes (all 1 here), ``accum`` and the device.

@@ -18,9 +18,13 @@ index, which ``torch.topk`` does not promise.
 
 Serving calls :func:`moe_tail` (no aux loss; the routing statistics,
 when asked, are added in place into the caller's int32 accumulator);
-:func:`moe_ffn` is the reference's signature.  Router noise under a key
-(training) and the expert-parallel ``moe_ffn_manual`` are not ported
-yet.
+:func:`moe_ffn` is the reference's signature; training calls it under a
+key, and then the router logits take ``router_noise`` × standard normals
+drawn by ``rng.normal`` (counter-based, so a remat recompute draws them
+again).  Its aux loss and the combine weights carry the reference's
+gradients: the load statistic ``fe`` and the dispatch mask are
+comparisons (no gradient), ``me`` and the gates reach the router through
+the softmax.  The expert-parallel ``moe_ffn_manual`` is not ported yet.
 """
 from __future__ import annotations
 
@@ -30,7 +34,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from .. import resolve_device
+from .. import resolve_device, rng
 from . import woq
 
 
@@ -92,19 +96,22 @@ def _route(params, xf, cfg: MoEConfig, key, E: int, C: int, dtype,
     aux scalar or None).  ``valid`` [N] bool: tokens with False (bucket
     padding, free slots) claim no capacity slot, carry zero gates and
     stay out of the load-balancing statistics.  ``aux=False`` skips the
-    aux loss (serving).  ``key`` must be None unless ``router_noise`` is
-    0: router noise is not ported yet.
+    aux loss (serving).  With a ``key`` and ``router_noise`` > 0 the
+    logits take ``router_noise`` × ``rng.normal(key, [N, E])`` before
+    the gating, as in the reference, so the noisy probabilities feed the
+    gates and the aux statistics alike (the draws are not
+    ``jax.random``'s: hold them by law).
 
     One-hots are comparisons against an ``arange``; an assignment whose
     slot is -1 (a masked token claimed nothing) or past C (dropped)
     matches no slot, so it lands nowhere in either tensor."""
-    if key is not None and cfg.router_noise > 0.0:
-        raise NotImplementedError("MoE router noise under a key (training) "
-                                  "is not ported yet")
     N = xf.shape[0]
     k = cfg.top_k
     dev = xf.device
     logits = xf.float() @ params["router_w"].float()
+    if cfg.router_noise > 0.0 and key is not None:
+        logits = logits + cfg.router_noise * rng.normal(key, logits.shape,
+                                                        dev)
     gate_w, gate_idx, probs = _top_k_gating(logits, k)
     experts = torch.arange(E, device=dev)
     v = None if valid is None else valid.reshape(N)

@@ -21,7 +21,18 @@ of 2048-token sequences in micro-batches of one sequence (``RUNGS``):
 * ``gpt_760m_fused_dots_acc16_b16``: the same under remat with the
   "dots" policy — first in the bench's preference (bench.py:2331);
 * ``gpt_1.3b_fused_remat_af_acc8_b8``: GPT-1.3B, batch 8 in 8, full
-  remat, ``Adafactor(learning_rate=2e-4)``, fused LN and CE.
+  remat, ``Adafactor(learning_rate=2e-4)``, fused LN and CE;
+* ``gpt_1.3b_moe8_l8_fused_acc8_b8``: GPT-1.3B's widths with 8 top-2
+  experts a layer (``MOE``: capacity factor 1.25, router noise 0.01, aux
+  loss weight 0.01), depth cut to 8 layers (2.39 B parameters: the fp32
+  masters, bf16 moments and gradient carry and the update's new trees
+  fit one 80 GB card there, not at 12), batch 8 in 8, AdamW, fused LN and
+  CE;
+* ``gpt_1.3b_moe8_l8_fused_remat_acc8_b8``: the same under full remat.
+
+Every rung's step takes the one key ``KEY`` (``rng.seed_key(0)``): the
+MoE rungs draw their router noise under it; a dense rung without dropout
+draws nothing.
 
 It warms the step once, then traces one step with ``torch.profiler`` and,
 in a window of its own, one optimizer update on bf16 gradients.
@@ -47,8 +58,10 @@ import time
 import numpy as np
 import torch
 
+from .. import rng
 from ..optimizer import Adafactor, AdamW
 from ..text import gpt, gpt_hybrid
+from ..text.moe import MoEConfig
 from . import profile_serving
 
 SEQ = 2048
@@ -60,6 +73,12 @@ C13 = dict(vocab_size=50304, hidden_size=2048, num_layers=24, num_heads=16,
            max_seq_len=2048)
 C760 = dict(vocab_size=50304, hidden_size=1536, num_layers=24, num_heads=12,
             max_seq_len=2048)
+# the MoE rungs' experts: the geometry and capacity factor of the MoE
+# serving model (chip_smoke.MOE_E / MOE_K / MOE_CF), router noise on
+MOE = MoEConfig(num_experts=8, top_k=2, capacity_factor=1.25,
+                router_noise=0.01, aux_loss_weight=0.01)
+# the key every rung's step takes
+KEY = rng.seed_key(0)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -90,6 +109,12 @@ RUNGS = {
         FUSED_FLAGS),
     "gpt_1.3b_fused_remat_af_acc8_b8": Rung(dict(C13, remat=True), 8, 8,
                                             "adafactor", FUSED_FLAGS),
+    "gpt_1.3b_moe8_l8_fused_acc8_b8": Rung(
+        dict(C13, num_layers=8, remat=False, moe=MOE), 8, 8, "adamw",
+        FUSED_FLAGS),
+    "gpt_1.3b_moe8_l8_fused_remat_acc8_b8": Rung(
+        dict(C13, num_layers=8, remat=True, moe=MOE), 8, 8, "adamw",
+        FUSED_FLAGS),
 }
 # gpt_1.3b_acc8_b8's batch and accumulation, which older callers read here
 BATCH, ACCUM = 8, 8
@@ -121,6 +146,14 @@ def build_train_path(device="cuda", seed=0, fused_ln=False, rung=None):
                                           (r.batch, SEQ + 1)),
                              device=meta["device"])
     return cfg, opt, init_fn, step_fn, tokens
+
+
+def bf16_zeros(tree):
+    """bf16 zeros shaped as every leaf of a (nested) parameter tree: the
+    gradients an accumulating step hands the optimizer."""
+    if isinstance(tree, dict):
+        return {n: bf16_zeros(v) for n, v in tree.items()}
+    return torch.zeros_like(tree, dtype=torch.bfloat16)
 
 
 def state_bytes(tree) -> int:
@@ -180,22 +213,19 @@ def main() -> int:
     r = RUNGS[rung]
     cfg, opt, init_fn, step_fn, tokens = build_train_path(rung=rung)
     state = init_fn(0)
-    state, loss = step_fn(state, tokens, None, LR)       # warm-up step
+    state, loss = step_fn(state, tokens, KEY, LR)        # warm-up step
     torch.cuda.synchronize()
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()
-        state, loss = step_fn(state, tokens, None, LR)
+        state, loss = step_fn(state, tokens, KEY, LR)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     step = profile_serving.summarize(torch, prof, wall, 1, FAMILIES)
     step["top_elementwise"] = top_elementwise(torch, prof)
     if args.trace:
         prof.export_chrome_trace(args.trace)
-    grads = {n: ({k: torch.zeros_like(t, dtype=torch.bfloat16)
-                  for k, t in v.items()} if n == "blocks"
-                 else torch.zeros_like(v, dtype=torch.bfloat16))
-             for n, v in state.params.items()}
+    grads = bf16_zeros(state.params)
     torch.cuda.synchronize()
     with profile(activities=acts) as prof:
         t0 = time.perf_counter()

@@ -151,8 +151,9 @@ def test_grads_under_remat_are_bit_equal(policy):
 
 
 def test_server_gumbel_noise_is_unchanged():
-    """The hash the server's sampling used before it moved into rng.py,
-    written out: the same noise, bit for bit."""
+    """The hash the server's sampling uses, written out: the same noise,
+    bit for bit — the uniform on 2^23 midpoints, inside (0, 1) in
+    float32, so the noise is finite everywhere."""
     M = 0xFFFFFFFF
 
     def mix(h):
@@ -167,6 +168,6 @@ def test_server_gumbel_noise_is_unchanged():
     h = mix(mix(key[0] ^ (c & M)) ^ ((c >> 32) & M))
     idx = torch.arange(6 * 50, dtype=torch.int64).reshape(6, 50)
     bits = mix(mix(idx ^ h) ^ 0x3C6EF372)
-    u = ((bits >> 8).to(torch.float32) + 0.5) * (1.0 / (1 << 24))
+    u = ((bits >> 9).to(torch.float32) + 0.5) * (1.0 / (1 << 23))
     assert torch.equal(rng.gumbel(key, (6, 50), "cpu"),
                        -torch.log(-torch.log(u)))

@@ -16,6 +16,7 @@ import jax
 import jax.numpy as jnp
 
 from paddle_tpu.text import gpt as jgpt
+from paddle_tpu.text import moe as jmoe
 from paddle_tpu_torch import convert
 from paddle_tpu_torch.text import gpt
 
@@ -92,6 +93,10 @@ def test_config_from_jax_maps_fields():
     ref = gpt.gpt_1p3b()
     assert cfg == ref and cfg.dtype == torch.bfloat16
     assert gpt.count_params(ref) == jgpt.count_params(jcfg)
+    # an MoE config: both count one dense FFN a block (kept for parity)
+    jmoe_cfg = dataclasses.replace(jcfg, moe=jmoe.MoEConfig())
+    assert gpt.count_params(convert.config_from_jax(jmoe_cfg)) \
+        == jgpt.count_params(jmoe_cfg) == jgpt.count_params(jcfg)
     assert convert.config_from_jax(_jcfg()).dtype == torch.float32
 
 

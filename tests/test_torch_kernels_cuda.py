@@ -1887,3 +1887,21 @@ def test_moe_top_k_ties_on_the_card_take_the_lowest_experts():
                             x, moe.MoEConfig(num_experts=8, top_k=2), None,
                             8, 64, torch.float32)
     assert disp[:, 2:].sum() == 0 and disp[:, :2].sum() == 128
+
+
+def test_normal_draws_on_the_card_are_the_cpus():
+    """``rng.normal`` (router noise under a key): the same bits on the
+    card as on the CPU, and values within 1e-6 (``erfinv`` may round one
+    ulp apart between the devices); a remat recompute or a CUDA graph
+    therefore draws the CPU's noise."""
+    from paddle_tpu_torch import rng
+
+    _card()
+    key = rng.fold_in(rng.seed_key(0), 2)
+    shape = (2048, 8)
+    assert torch.equal(rng.bits(key, shape, "cuda").cpu(),
+                       rng.bits(key, shape, "cpu"))
+    card = rng.normal(torch.tensor(key, device="cuda"), shape, "cuda")
+    cpu = rng.normal(key, shape, "cpu")
+    assert card.dtype == torch.float32
+    torch.testing.assert_close(card.cpu(), cpu, atol=1e-6, rtol=0)

@@ -16,8 +16,9 @@ as numpy arrays, the port's through ``convert.params_from_jax``).
   feeding, a padded prompt routing as its prefix, ``prefill_slot`` and
   ``dense_eval_decode_step`` against JAX's;
 * conversion (the nested tree, ``router_w`` kept float32, the MoE config
-  field by field), the config's gelu-only check, ``count_params`` against
-  the tree, the ``GPT`` module's nested parameters, and int8 / int4
+  field by field), the config's gelu-only check, the tree's size
+  against the expert arithmetic and ``count_params`` / ``flops_per_token``
+  against JAX's, the ``GPT`` module's nested parameters, and int8 / int4
   expert quantization bit-equal to JAX's.
 """
 import numpy as np
@@ -316,6 +317,10 @@ def test_conversion_and_config():
 
 
 def test_init_params_and_counts():
+    """The MoE tree's size is its leaves' sum, the expert arithmetic
+    written out here; ``count_params`` and ``flops_per_token`` are the
+    JAX package's numbers, which count one dense FFN a block (kept for
+    parity: the reference counts neither the experts nor the router)."""
     cfg = gpt.GPTConfig(vocab_size=32, hidden_size=32, num_layers=3,
                         num_heads=4, max_seq_len=16, dtype=torch.bfloat16,
                         moe=moe.MoEConfig(num_experts=4, top_k=2))
@@ -328,12 +333,18 @@ def test_init_params_and_counts():
     assert m["w_out"].shape == (3, 4, 128, 32)
     assert abs(float(m["w_in"].float().std()) - 0.02) < 2e-3
     n = sum(t.numel() for t in gpt.GPT(cfg, p).parameters())
-    assert gpt.count_params(cfg) == n
-    dense = gpt.GPTConfig(vocab_size=32, hidden_size=32, num_layers=3,
-                          num_heads=4, max_seq_len=16)
-    # a token runs through top_k experts and the router
-    assert gpt.flops_per_token(cfg, 16) - gpt.flops_per_token(dense, 16) \
-        == 6 * 3 * (2 * 2 * 32 * 128 + 32 * 4 - 2 * 32 * 128)
+    L, E, D, F, V, T = 3, 4, 32, 128, 32, 16
+    experts = E * (2 * D * F + F + D) + D * E        # and the router
+    attention = 4 * D + 3 * D * D + 3 * D + D * D + D  # norms, qkv, proj
+    assert n == L * (experts + attention) + V * D + T * D + 2 * D
+    jcfg = jgpt.GPTConfig(vocab_size=V, hidden_size=D, num_layers=L,
+                          num_heads=4, max_seq_len=T,
+                          moe=jmoe.MoEConfig(num_experts=E, top_k=2))
+    assert gpt.count_params(cfg) == jgpt.count_params(jcfg)
+    assert gpt.count_params(cfg) == n - L * (experts - (2 * D * F + F + D))
+    for seq in (16, 2048):
+        assert gpt.flops_per_token(cfg, seq) \
+            == jgpt.flops_per_token(jcfg, seq)
 
 
 @pytest.mark.parametrize("bits", [8, 4])

@@ -44,6 +44,7 @@ from paddle_tpu import optimizer as jopt
 from paddle_tpu.ops import fused_norm as jfused_norm
 from paddle_tpu.text import gpt as jgpt
 from paddle_tpu.text import gpt_hybrid as jhybrid
+from paddle_tpu.text import moe as jmoe
 from paddle_tpu_torch import convert
 from paddle_tpu_torch.ops import fused_norm
 from paddle_tpu_torch.optimizer import Adafactor, AdamW
@@ -371,6 +372,14 @@ def test_flops_per_token_matches_jax(arch):
     assert gpt.flops_per_token(cfg, 2048) == jgpt.flops_per_token(jcfg, 2048)
     assert gpt.flops_per_token(gpt.gpt_1p3b(), 2048) \
         == jgpt.flops_per_token(jgpt.gpt_1p3b(), 2048)
+    # an MoE config: the JAX package counts one dense FFN a block, and so
+    # does the port (kept for parity)
+    if jcfg.activation == "gelu":          # MoE experts are gelu FFNs
+        jmoe_cfg = dataclasses.replace(
+            jcfg, moe=jmoe.MoEConfig(num_experts=4, top_k=2))
+        assert gpt.flops_per_token(convert.config_from_jax(jmoe_cfg), 2048) \
+            == jgpt.flops_per_token(jmoe_cfg, 2048) \
+            == jgpt.flops_per_token(jcfg, 2048)
 
 
 def test_accum_must_divide_the_batch():
