@@ -1033,7 +1033,9 @@ def check_paged_path_vs_cpu(torch, gpt, G, kv_pool, serving):
 ADMISSION_GRAPHS = ("serving.prefill@", "serving.prefill_chunk@",
                     "serving.paged_prefill@", "serving.moe_prefill@",
                     "serving.moe_prefill_chunk@",
-                    "serving.moe_paged_prefill@")
+                    "serving.moe_paged_prefill@", "serving.adapter_prefill@",
+                    "serving.adapter_prefill_chunk@",
+                    "serving.adapter_paged_prefill@")
 
 
 def admission_bits(torch, engine, srv, prompts):
@@ -1096,8 +1098,8 @@ def readmit_after_warmup(torch, make, prompt):
             srv.warmup(prompt_lens=[len(prompt)])
         seen = []
         prefill = srv._prefill_slot
-        srv._prefill_slot = lambda p, s: seen.append(
-            prefill(p, s).clone()) or seen[-1]
+        srv._prefill_slot = lambda p, s, *a: seen.append(
+            prefill(p, s, *a).clone()) or seen[-1]
         serve(torch, srv, [prompt], 4)
         srv.close()
         return seen[0]
@@ -4181,12 +4183,13 @@ def counted_since(tl, since):
             if r["captured_at"] >= since}
 
 
-def feed_gates(tl, cfg, what, since):
+def feed_gates(tl, cfg, what, since, step="serving.step", want=None):
     """The device feed of a gated serve, one line a step the serve's
-    server built (since ``since``), then its gates: ``serving.step``'s
-    FLOPs are :func:`step_flops` of the config at the server's 8 slots
-    and 512-row window, its MFU known and below 1, its HBM bandwidth use
-    at most HBM_UTIL_CAP.  Returns the feed's rows."""
+    server built (since ``since``), then its gates: the decode step's
+    (``step``) FLOPs are ``want`` — default :func:`step_flops` of the
+    config at the server's 8 slots and 512-row window —, its MFU known
+    and below 1, its HBM bandwidth use at most HBM_UTIL_CAP.  Returns the
+    feed's rows."""
     feed = tl.device_feed()
     rows = {n: {k: feed["steps"][n].get(k) for k in FEED_KEYS}
             for n in counted_since(tl, since)}
@@ -4194,12 +4197,14 @@ def feed_gates(tl, cfg, what, since):
         f"{feed['peak_flops']} FLOP/s, {feed['peak_hbm_bytes_per_s']} B/s)")
     for n, r in rows.items():
         log(f"    {n} {json.dumps(r)}")
-    step = rows.get("serving.step", {})
-    want = step_flops(cfg, 8, 512)
+    name = step
+    step = rows.get(name, {})
+    if want is None:
+        want = step_flops(cfg, 8, 512)
     mfu, util = step.get("mfu"), step.get("hbm_bw_util")
     if step.get("flops") != want or mfu is None or not 0 < mfu < 1 \
             or util is None or util > HBM_UTIL_CAP:
-        raise AssertionError(f"{what}: serving.step's feed {step}, not "
+        raise AssertionError(f"{what}: {name}'s feed {step}, not "
                              f"{want} FLOPs with 0 < mfu < 1 and "
                              f"hbm_bw_util <= {HBM_UTIL_CAP}")
     return {"device_kind": feed["device_kind"],
@@ -5167,6 +5172,823 @@ def moe_phase(torch, gpt, G, serving, engine, ks, wl, da):
     return stats, launches
 
 
+# --------------------------------------------------------------------------
+# multi-tenant serving: LoRA adapter pools, constrained decoding, LoRA
+# training and evaluation
+# --------------------------------------------------------------------------
+
+ADAPTER_RANK = 8                 # the 1.3B pool's rank (default targets)
+ADAPTER_N = 4                    # adapters in the 1.3B pool (ids 1-4)
+ADAPTER_B_STD = 0.1              # the 1.3B adapters' b: N(0, 1) x this
+SMALL_B_STD = 0.3                # the small models' b (bench.py:1863)
+JSON_SCHEMA = {"type": "object",
+               "properties": {"ok": {"type": "boolean"},
+                              "tag": {"enum": ["a", "b"]}}}
+EVAL_TOL = 0.02                  # nats: bf16 nll, forward vs decode path
+EVAL_INT8_REL = 0.05             # int8-KV cached perplexity, relative
+JSON_NEW = 32                    # new tokens a constrained request may
+                                 # take (the schema's texts are <= 22)
+LORA_LR = 2e-3
+LORA_BATCH = 4                   # the LoRA rung: 4 x 2048 tokens a step
+
+
+def make_adapters(torch, lora, params, cfg, n, rank, b_std, targets=None):
+    """``n`` adapter sub-trees over ``params``: ``lora_init``'s ``a``
+    under key i + 1 and ``b`` drawn as ``b_std`` x N(0, 1) (a torch
+    generator seeded 1000 + i, on the params' device), so each bites."""
+    out = []
+    kw = {} if targets is None else dict(targets=targets)
+    for i in range(n):
+        ad = lora.split_lora(lora.lora_init(params, cfg, rank=rank,
+                                            key=i + 1, **kw))[1]
+        dev = next(iter(ad.values())).device
+        gen = torch.Generator(device=dev).manual_seed(1000 + i)
+        out.append({k: (b_std * torch.randn(v.shape, generator=gen,
+                                            device=dev)
+                        if k.endswith("_lora_b") else v)
+                    for k, v in ad.items()})
+    return out
+
+
+def adapter_step_flops(cfg, batch, window, pool):
+    """:func:`step_flops` plus the pool's per-slot rank-r terms: 2 · batch
+    · rank · (in + out) a targeted [k, in, out] matrix, k of them a layer
+    (the gather moves bytes, no FLOPs)."""
+    extra = 0
+    for t in pool.targets:
+        shp = pool.stacks()[t + "_lora_a"].shape   # [A, L, (k,) in, r]
+        k = shp[2] if len(shp) == 5 else 1
+        out = pool.stacks()[t + "_lora_b"].shape[-1]
+        extra += 2 * batch * pool.rank * (shp[-2] + out) * k * shp[1]
+    return step_flops(cfg, batch, window) + extra
+
+
+def drain(srv, jobs, new, block=None):
+    """Submit ``jobs`` ((prompt, submit options) pairs) and tick (or
+    ``tick_block(block)``) until drained, on any device: the streams."""
+    rids = [srv.submit(p, max_new_tokens=new, **kw) for p, kw in jobs]
+    for _ in range(20 * new):
+        if not srv.pending():
+            break
+        srv.tick_block(block) if block else srv.tick()
+    if srv.pending():
+        raise AssertionError("server did not drain")
+    return [[int(t) for t in srv.result(r)] for r in rids]
+
+
+def solo_greedy(torch, G, params, cfg, prompt, new, dev):
+    """One prompt's greedy stream through ``generate.decode_step``,
+    position by position, on ``dev``."""
+    cache = G.init_cache(cfg, 1, cfg.max_seq_len, dev)
+    out, tok = [], None
+    for pos in range(len(prompt) + new - 1):
+        cur = prompt[pos] if pos < len(prompt) else tok
+        logits, cache = G.decode_step(params, cache,
+                                      torch.tensor([cur], device=dev), pos,
+                                      cfg)
+        if pos >= len(prompt) - 1:
+            tok = int(logits[0].argmax())
+            out.append(tok)
+    return out
+
+
+def _adapter_logit_gap(torch, G, A, cfg, cpu, card, pools, paged):
+    """Admission of three slots under ids 0, 1, 2, then four adapter
+    decode steps and a K = 4 verify with mixed ids, on the card and on the
+    CPU from the same weights and pools: the largest |logits card - cpu|."""
+    rng = np.random.default_rng(1)
+    lay = dict(layout="paged", block_size=16, num_blocks=30) if paged else {}
+    caches = {dev: G.init_cache(cfg, 3, 160, dev, **lay)
+              for dev in ("cpu", "cuda")}
+    if paged:
+        tables = torch.full(tuple(caches["cpu"]["tables"].shape), -1,
+                            dtype=torch.int32)
+        tables[:, :10] = torch.from_numpy(
+            rng.permutation(30).astype(np.int32).reshape(3, 10))
+        for c in caches.values():
+            c["tables"].copy_(tables)
+    params = {"cpu": cpu, "cuda": card}
+    lens, worst = [5, 40, 100], 0.0
+    for slot, n in enumerate(lens):
+        toks = np.zeros((1, 128), np.int64)
+        toks[0, :n] = rng.integers(0, cfg.vocab_size, n)
+        outs = {}
+        for dev in ("cpu", "cuda"):
+            t = torch.from_numpy(toks).to(dev)
+            if paged:
+                outs[dev], _ = A.adapter_paged_prefill_chunk(
+                    params[dev], caches[dev], pools[dev].stacks(), slot, t,
+                    0, n, slot, cfg)
+            else:
+                outs[dev], _ = A.adapter_prefill_slot(
+                    params[dev], caches[dev], pools[dev].stacks(), slot, t,
+                    n, slot, cfg)
+        worst = max(worst, (outs["cuda"].cpu() - outs["cpu"]).abs().max()
+                    .item())
+    ids = np.array([0, 1, 2])
+    pos = np.array(lens, np.int32)
+    for step in range(5):
+        outs = {}
+        verify = step == 4
+        tok = rng.integers(0, cfg.vocab_size, (3, 4) if verify else 3)
+        for dev in ("cpu", "cuda"):
+            fn = (A.adapter_spec_verify_batched if verify
+                  else A.adapter_decode_step_batched)
+            outs[dev], _ = fn(params[dev], caches[dev], pools[dev].stacks(),
+                              torch.from_numpy(ids).to(dev),
+                              torch.from_numpy(tok).to(dev),
+                              torch.from_numpy(pos).to(dev), cfg)
+        d = (outs["cuda"].cpu() - outs["cpu"]).abs().max().item()
+        assert np.isfinite(d)
+        worst = max(worst, d)
+        pos = pos + 1
+    return worst
+
+
+def adapters_small_vs_cpu(torch, gpt, G, serving, A, lora, engine):
+    """(a) A small fp32 model (TF32 off) with a 3-adapter pool, card
+    against CPU: the adapter steps' logits with mixed ids within PATH_TOL
+    (contiguous and paged); the streams of tick, tick_block(8), async and
+    budgeted admission, both layouts, graphed and eager, equal to the CPU
+    serve's, and each adapter's streams to its merged tree's solo greedy
+    decode (by the PATH_TOL tie rule); a token-set and a JSON-schema
+    stream (vocab: token id = char code) equal to the CPU's, the JSON
+    parsing to the schema's shape; linear speculation under the pool equal
+    to the plain pool serve; a constrained tree serve equal to the plain
+    constrained serve with no spec fallback.  Returns a dict of results."""
+    from paddle_tpu_torch import telemetry as tl
+
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=2, max_seq_len=256, dtype=torch.float32)
+    cpu = gpt.init_params(cfg, seed=11, device="cpu")
+    card = _to_card(cpu)
+    ads = make_adapters(torch, lora, cpu, cfg, 3, 4, SMALL_B_STD)
+    pools = {}
+    for dev, p in (("cpu", cpu), ("cuda", card)):
+        pools[dev] = A.AdapterPool(p, cfg, rank=4, max_adapters=3)
+        for i, ad in enumerate(ads):
+            pools[dev].register(f"ad-{i + 1}",
+                                {k: v.to(dev) for k, v in ad.items()})
+    out = {"logit_gap": {}}
+    for paged in (False, True):
+        gap = _adapter_logit_gap(torch, G, A, cfg, cpu, card, pools, paged)
+        out["logit_gap"]["paged" if paged else "contiguous"] = gap
+        if not gap <= PATH_TOL:
+            raise AssertionError(f"adapter step logits card vs CPU {gap}")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, 512, n).tolist() for n in (5, 40, 100, 17)]
+    jobs = [(p, {"adapter": None if i == 0 else f"ad-{i}"})
+            for i, p in enumerate(prompts)]
+    new = 12
+    merged = [cpu] + [lora.merge_lora(lora.join_lora(cpu, ad))
+                      for ad in ads]
+    solo = [solo_greedy(torch, G, merged[i], cfg, p, new, "cpu")
+            for i, p in enumerate(prompts)]
+    merged_card = [card] + [_to_card(m) for m in merged[1:]]
+    ways = (("tick", {}, None), ("block8", {}, 8),
+            ("async", dict(async_dispatch=True), None),
+            ("budget", dict(prefill_budget=16), None))
+    paged_kw = dict(layout="paged", block_size=16, num_blocks=48)
+    served = {}
+    for lay, lkw in (("contiguous", {}), ("paged", paged_kw)):
+        for way, wkw, block in ways:
+            ref = drain(serving.DecodeServer(
+                cpu, cfg, max_batch=4, max_len=160, device="cpu",
+                adapter_pool=pools["cpu"], **lkw, **wkw), jobs, new, block)
+            for graphs in (True, False):
+                srv = serving.DecodeServer(
+                    card, cfg, max_batch=4, max_len=160, device="cuda",
+                    adapter_pool=pools["cuda"], _graphs=graphs, **lkw, **wkw)
+                got = drain(srv, jobs, new, block)
+                if graphs and not engine.ENGINE.graphs(srv._bind):
+                    raise AssertionError(f"{lay} {way}: no graph captured")
+                srv.close()
+                what = f"{lay} {way} {'graph' if graphs else 'eager'}"
+                for r in range(len(jobs)):
+                    check_tokens(torch, gpt, merged_card[r], cfg, prompts[r],
+                                 got[r], ref[r], f"{what} request {r} vs "
+                                 f"the CPU serve", tol=PATH_TOL)
+                    check_tokens(torch, gpt, merged_card[r], cfg, prompts[r],
+                                 got[r], solo[r], f"{what} request {r} vs "
+                                 f"its merged solo decode", tol=PATH_TOL)
+                served[what] = got == ref
+    out["streams_equal_cpu"] = served
+    # constrained: a token set and the JSON schema over token id = char
+    vocab = [chr(i) for i in range(cfg.vocab_size)]
+    spec = A.JsonSchemaConstraint(JSON_SCHEMA, vocab)
+    allowed = [3, 7, 11, 19, 40]
+    cjobs = [(prompts[0], {"constraint": allowed}),
+             (prompts[1], {"constraint": spec, "adapter": "ad-1"}),
+             (prompts[2], {"constraint": spec})]
+    tl.reset()
+    got = {dev: drain(serving.DecodeServer(
+        p, cfg, max_batch=4, max_len=160, device=dev,
+        adapter_pool=pools[dev]), cjobs, 30)
+        for dev, p in (("cpu", cpu), ("cuda", card))}
+    if got["cuda"] != got["cpu"]:
+        raise AssertionError(f"constrained streams card {got['cuda']} vs "
+                             f"cpu {got['cpu']}")
+    assert all(t in allowed for t in got["cuda"][0])
+    docs = [json.loads("".join(vocab[t] for t in s))
+            for s in got["cuda"][1:]]
+    for doc in docs:
+        if set(doc) != {"ok", "tag"} or not isinstance(doc["ok"], bool) \
+                or doc["tag"] not in ("a", "b"):
+            raise AssertionError(f"JSON stream {doc} is not the schema's")
+    out["json"] = ["".join(vocab[t] for t in s) for s in got["cuda"][1:]]
+    out["masked_tokens"] = tl.counter("constraint.masked_tokens")
+    assert out["masked_tokens"] > 0
+    # linear speculation under the pool: the plain pool serve's streams
+    plain = drain(serving.DecodeServer(card, cfg, max_batch=4, max_len=160,
+                                       device="cuda",
+                                       adapter_pool=pools["cuda"]),
+                  jobs, new)
+    spec_srv = serving.DecodeServer(card, cfg, max_batch=4, max_len=160,
+                                    device="cuda",
+                                    adapter_pool=pools["cuda"], spec_k=4,
+                                    draft_cfg=cfg, draft_params=card)
+    got = drain(spec_srv, jobs, new)
+    rounds = spec_srv._spec_rounds
+    spec_srv.close()
+    if got != plain or not rounds:
+        raise AssertionError(f"spec under a pool: {got} vs {plain}, "
+                             f"{rounds} rounds")
+    out["spec_rounds"] = rounds
+    # a constrained tree serve against the plain constrained serve
+    tjobs = [(prompts[0], {"constraint": allowed}),
+             (prompts[3], {"constraint": allowed})]
+    plain = drain(serving.DecodeServer(card, cfg, max_batch=4, max_len=160,
+                                       device="cuda"), tjobs, new)
+    tl.reset()
+    tree = serving.DecodeServer(card, cfg, max_batch=4, max_len=160,
+                                device="cuda", spec_tree=4, draft_cfg=cfg,
+                                draft_params=card)
+    got = drain(tree, tjobs, new)
+    tree.close()
+    fb = tl.counter("constraint.spec_fallbacks")
+    tr_rounds = tl.counter("spec.tree_rounds")
+    if got != plain or fb or not tr_rounds:
+        raise AssertionError(f"constrained tree serve {got} vs {plain}, "
+                             f"{fb} spec fallbacks, {tr_rounds} rounds")
+    out["tree_rounds"], out["tree_spec_fallbacks"] = tr_rounds, fb
+    engine.ENGINE.purge(cfg)
+    return out
+
+
+def adapter_jobs(prompts, n_ids):
+    """Main's requests spread over adapter ids 0..n_ids - 1 (request r
+    under id r % n_ids; id 0 the base model)."""
+    return [(p, {"adapter": None if r % n_ids == 0 else f"ad-{r % n_ids}"})
+            for r, p in enumerate(prompts)]
+
+
+def adapter_serve_1p3b(torch, gpt, serving, engine, ks, wl, A, lora, path,
+                       cfg, params, pool, ads):
+    """(b) One layout of GPT-1.3B (bf16) under the pool: a pool-less
+    graphed serve of main's (or paged's) 8 requests, then the pool's
+    eager serve and its graphed, warmed serve of the same requests over
+    ids 0-4 (counted: every tick one ``serving.adapter_step`` replay, no
+    capture after warmup, every decode launch on the tick body, every
+    admission on its tensor-core body), then a register after warmup.
+    Gates: each adapted stream within TIE_TOL of its merged tree's best
+    at every token (teacher-forced), the graphed streams the eager ones by
+    the tie rule, id 0 the pool-less server's exactly; the re-registered
+    adapter's next streams changed, on its new merged tree, with no build.
+    Returns (stats, launches)."""
+    from paddle_tpu_torch import telemetry as tl
+    from paddle_tpu_torch.ops.decode_attention import R_TC
+
+    prompts = (wl.main_prompts(cfg.vocab_size, 0) if path == "main"
+               else wl.paged_prompts(cfg.vocab_size, 0))
+    lens = [len(p) for p in prompts]
+    new, L = wl.NEW, cfg.num_layers
+    jobs = adapter_jobs(prompts, ADAPTER_N + 1)
+
+    def make(**kw):
+        return wl.make_server(path, params, cfg, **kw)
+
+    def timed(srv, jobs_, warm=None):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        rids = [srv.submit(p, max_new_tokens=new, **kw) for p, kw in jobs_]
+        t_admit = time.perf_counter() - t0
+        ticks = []
+        while srv.pending():
+            t1 = time.perf_counter()
+            srv.tick()
+            ticks.append(time.perf_counter() - t1)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        got = [[int(t) for t in srv.result(r)] for r in rids]
+        return got, way_stats(torch, engine, srv, got, t_admit, ticks, wall,
+                              torch.cuda.max_memory_allocated(), warm or {}), \
+            ticks
+
+    plain_srv = make()
+    warm = plain_srv.warmup(prompt_lens=lens)
+    plain, plain_stats, _ = timed(plain_srv, [(p, {}) for p in prompts],
+                                  warm)
+    plain_srv.close()
+    eager_srv = make(adapter_pool=pool, _graphs=False)
+    eager, eager_stats, _ = timed(eager_srv, jobs)
+    eager_srv.close()
+    srv = make(adapter_pool=pool)
+    since = time.time()
+    warm = srv.warmup(prompt_lens=lens)
+    replays0 = replays_now(engine, srv, "serving.adapter_step")
+    builds0 = len(tl.compile_log())
+    chunk_calls = []
+    get = engine.ENGINE.get
+    dec = ks["paged_decode_attention"]
+
+    def counted_get(kind, spec):
+        # each paged admission chunk (a replay), read from its feeds
+        fn = get(kind, spec)
+        if kind != "adapter_paged_prefill":
+            return fn
+
+        def counted(aid, tokens, pos0, length, slot):
+            before = dec.tc_launches
+            o = fn(aid, tokens, pos0, length, slot)
+            chunk_calls.append((int(pos0), int(length), tokens.shape[1],
+                                dec.tc_launches - before))
+            return o
+        return counted
+
+    engine.ENGINE.get = counted_get
+    try:
+        zero_counts(ks)
+        got, stats, ticks = timed(srv, jobs, warm)
+        launches, tc, tick = launch_counts(ks), tc_counts(ks), tick_counts(ks)
+    finally:
+        del engine.ENGINE.get
+    admissions = len(chunk_calls) if path == "paged" else len(prompts)
+    n_graphs = graphed_serve(torch, engine, srv, ticks, replays0, admissions,
+                             step="serving.adapter_step")
+    if len(tl.compile_log()) != builds0:
+        raise AssertionError(f"{path}: the pool serve built steps after "
+                             f"warmup: {tl.compile_log()[builds0:]}")
+    # adapted prompts neither adopt nor index prefix rows: on the paged
+    # geometry the pool runs dry, and the OOM ladder's counts show it
+    pressure = {k: v for k, v in srv.stats().items()
+                if k.startswith("resilience.")}
+    load = srv.load_stats()
+    if path == "main":
+        assert launches["flash_attention_fwd"] == L * len(prompts), launches
+        assert launches["decode_attention"] == L * len(ticks), launches
+        assert launches["paged_decode_attention"] == 0, launches
+        assert tc["flash_attention_fwd"] == launches["flash_attention_fwd"]
+        assert tick["decode_attention"] == launches["decode_attention"]
+    else:
+        assert launches["paged_decode_attention"] == L * (
+            len(ticks) + len(chunk_calls)), launches
+        assert launches["decode_attention"] == 0, launches
+        assert launches["flash_attention_fwd"] == 0, launches
+        for _, _, C, added in chunk_calls:
+            assert added == L * (C >= R_TC), chunk_calls
+        narrow = sum(c[2] < R_TC for c in chunk_calls)
+        assert tick["paged_decode_attention"] == L * (len(ticks) + narrow), (
+            tick, chunk_calls)
+    if not any(launches.values()):
+        raise AssertionError(f"no kernel of the path ran: {launches}")
+    feed = feed_gates(tl, cfg, f"{path} adapter graph serve", since,
+                      step="serving.adapter_step",
+                      want=adapter_step_flops(cfg, 8, 512, pool))
+    # the streams: id 0 the pool-less server's exactly; the rest within
+    # TIE_TOL of their merged tree's best at every token; graph vs eager
+    ids = [r % (ADAPTER_N + 1) for r in range(len(prompts))]
+    for r, i in enumerate(ids):
+        if i == 0 and got[r] != plain[r]:
+            raise AssertionError(f"{path} request {r} (id 0) differs from "
+                                 f"the pool-less server's stream")
+    gaps = {}
+    for i in range(1, ADAPTER_N + 1):
+        merged = lora.merge_lora(lora.join_lora(params, ads[i - 1]))
+        for r in (r for r, j in enumerate(ids) if j == i):
+            gaps[r] = forced_gap(torch, gpt, merged, cfg, prompts[r], got[r])
+            check_tokens(torch, gpt, merged, cfg, prompts[r], got[r],
+                         eager[r], f"{path} adapter request {r} graph vs "
+                         f"eager")
+        del merged
+        gc.collect()
+    if max(gaps.values()) > TIE_TOL:
+        raise AssertionError(f"{path}: adapted tokens off their merged "
+                             f"tree's best by {gaps}")
+    changed = sum(got[r] != plain[r] for r, i in enumerate(ids) if i)
+    log(f"  {path} adapter graph serve: {changed} of "
+        f"{sum(1 for i in ids if i)} adapted streams differ from the base "
+        f"model's; forced gaps {json.dumps(gaps)}")
+    # a register after warmup: a row write, no capture; the next serve of
+    # that name reads the new adapter
+    graphs0 = len(engine.ENGINE.graphs(srv._bind))
+    fresh = make_adapters(torch, lora, params, cfg, ADAPTER_N + 1,
+                          ADAPTER_RANK, ADAPTER_B_STD)[-1]
+    pool.register("ad-2", fresh)
+    again_jobs = [(prompts[r], {"adapter": "ad-2"})
+                  for r, i in enumerate(ids) if i == 2]
+    again = drain(srv, again_jobs, new)
+    if len(engine.ENGINE.graphs(srv._bind)) != graphs0 \
+            or len(tl.compile_log()) != builds0:
+        raise AssertionError("a register after warmup built a step")
+    merged = lora.merge_lora(lora.join_lora(params, fresh))
+    reg_gaps = [forced_gap(torch, gpt, merged, cfg, p, s)
+                for (p, _), s in zip(again_jobs, again)]
+    del merged
+    before = [got[r] for r, i in enumerate(ids) if i == 2]
+    if max(reg_gaps) > TIE_TOL or again == before:
+        raise AssertionError(f"after the register: gaps {reg_gaps}, streams "
+                             f"changed {again != before}")
+    pool.register("ad-2", ads[1])
+    srv.close()
+    stats.update(
+        layout=path, graphs=n_graphs, launches=launches, tc_launches=tc,
+        tick_launches=tick, forced_gaps=gaps, adapted_changed=changed,
+        register_gaps=reg_gaps, stack_bytes=_tree_bytes(pool.stacks()),
+        eager=eager_stats, plain=plain_stats, device_feed=feed,
+        admission_chunks=chunk_calls, resilience=pressure,
+        adapters_active=load["adapters_active"],
+        prefix_hit_rate=load.get("prefix_hit_rate"))
+    log(f"  {path} under the pool (graph / eager / pool-less graph): "
+        f"tokens/s {stats['tokens_per_s']:.1f} / "
+        f"{eager_stats['tokens_per_s']:.1f} / "
+        f"{plain_stats['tokens_per_s']:.1f}; tick ms mean "
+        f"{stats['tick_ms_mean']:.3f} / {eager_stats['tick_ms_mean']:.3f} / "
+        f"{plain_stats['tick_ms_mean']:.3f}, median "
+        f"{stats['tick_ms_median']:.3f} / "
+        f"{eager_stats['tick_ms_median']:.3f} / "
+        f"{plain_stats['tick_ms_median']:.3f}; admission ms "
+        f"{stats['admission_ms']:.1f} / {eager_stats['admission_ms']:.1f} / "
+        f"{plain_stats['admission_ms']:.1f}; reserved GB "
+        f"{stats['reserved_gb']:.4f} / {eager_stats['reserved_gb']:.4f} / "
+        f"{plain_stats['reserved_gb']:.4f} (the stacks "
+        f"{_tree_bytes(pool.stacks()) / 1e9:.4f} GB); {n_graphs} graphs; "
+        f"{len(ticks)} ticks against the pool-less {plain_stats['calls']}; "
+        f"resilience {json.dumps(pressure)}")
+    return stats, launches
+
+
+def constrained_1p3b(torch, gpt, serving, engine, ks, wl, A, cfg, params):
+    """(c) GPT-1.3B (bf16) without a pool: main's 8 prompts under the
+    JSON schema (vocab: token id = char code), greedy and at temperature
+    1, on a graphed server warmed with ``constrained=True`` — every output
+    parses to the schema's shape, every tick one ``serving.masked_step``
+    replay, ``constraint.masked_tokens`` counted — beside a plain serve;
+    then an async server's constrained serve, which drains to synchronous
+    ticks (``constraint.sync_fallbacks``).  Returns (stats, launches)."""
+    from paddle_tpu_torch import telemetry as tl
+
+    prompts = wl.main_prompts(cfg.vocab_size, 0)
+    lens = [len(p) for p in prompts]
+    vocab = [chr(i) for i in range(cfg.vocab_size)]
+    t0 = time.perf_counter()
+    spec = A.JsonSchemaConstraint(JSON_SCHEMA, vocab)
+    # the token table of every automaton state, built before the serves
+    # time their ticks (the lazy tables are the spec's, shared by them)
+    machine = spec._machine
+    seen, todo = set(), [machine.rx.start_state]
+    while todo:
+        st = todo.pop()
+        if st not in seen:
+            seen.add(st)
+            todo.extend(machine.table(st)[1].values())
+    compile_s = time.perf_counter() - t0
+    srv = wl.make_server("main", params, cfg)
+    warm = srv.warmup(prompt_lens=lens, sample=True, constrained=True)
+    out = {"spec_compile_s": compile_s, "dfa_states": len(seen)}
+    launches = None
+    for temp in (0.0, 1.0):
+        tl.reset()
+        r0 = step_replays(engine, srv, "serving.masked_step")
+        mask_s = []
+        build = srv._mask_array
+
+        def timed_mask():
+            # the host's mask build a tick, timed from outside the server
+            t1 = time.perf_counter()
+            m = build()
+            mask_s.append(time.perf_counter() - t1)
+            return m
+
+        srv._mask_array = timed_mask
+        zero_counts(ks)
+        torch.cuda.synchronize()
+        served, t_admit, ticks, wall = serve(torch, srv, prompts, JSON_NEW,
+                                             constraint=spec,
+                                             temperature=temp)
+        if launches is None:
+            launches = launch_counts(ks)
+            tick = tick_counts(ks)
+            if tick["decode_attention"] != launches["decode_attention"] \
+                    or not launches["decode_attention"]:
+                raise AssertionError(f"constrained decode launches "
+                                     f"{launches}, tick body {tick}")
+        replays = step_replays(engine, srv, "serving.masked_step") - r0
+        if replays != len(ticks):
+            raise AssertionError(f"{len(ticks)} constrained ticks, "
+                                 f"{replays} masked_step replays")
+        texts = ["".join(vocab[t] for t in s) for s in served]
+        for text in texts:
+            doc = json.loads(text)
+            if set(doc) != {"ok", "tag"} or not isinstance(doc["ok"], bool) \
+                    or doc["tag"] not in ("a", "b"):
+                raise AssertionError(f"{text!r} is not the schema's shape")
+        del srv._mask_array
+        masked = tl.counter("constraint.masked_tokens")
+        if not masked:
+            raise AssertionError("no token was masked")
+        n_tok = sum(len(s) for s in served)
+        out["greedy" if temp == 0 else "sampled"] = {
+            "tokens": n_tok, "wall_s": wall, "tokens_per_s": n_tok / wall,
+            "ticks": len(ticks), "tick_ms_mean": 1e3 * statistics.mean(ticks),
+            "tick_ms_median": 1e3 * statistics.median(ticks),
+            "admission_ms": 1e3 * t_admit, "masked_tokens": masked,
+            "mask_host_ms_per_tick": 1e3 * statistics.mean(mask_s),
+            "masked_step_replays": replays,
+            "texts": texts[:3]}
+    plain, t_admit, ticks, wall = serve(torch, srv, prompts, wl.NEW)
+    n_tok = sum(len(s) for s in plain)
+    out["plain"] = {"tokens": n_tok, "tokens_per_s": n_tok / wall,
+                    "tick_ms_median": 1e3 * statistics.median(ticks)}
+    out["warmup"] = sorted(warm)
+    srv.close()
+    asrv = wl.make_server("main", params, cfg, async_dispatch=True)
+    asrv.warmup(prompt_lens=lens, constrained=True)
+    tl.reset()
+    served = serve(torch, asrv, prompts, JSON_NEW, constraint=spec)[0]
+    fallbacks = asrv.stats().get("constraint.sync_fallbacks", 0)
+    asrv.close()
+    for s in served:
+        json.loads("".join(vocab[t] for t in s))
+    if not fallbacks:
+        raise AssertionError("the async constrained serve took no sync "
+                             "fallback")
+    out["async_sync_fallbacks"] = fallbacks
+    g, s = out["greedy"], out["sampled"]
+    log(f"  constrained JSON on GPT-1.3B main: greedy {g['tokens_per_s']:.1f}"
+        f" tokens/s ({g['tokens']} tokens, tick median "
+        f"{g['tick_ms_median']:.3f} ms, masks {g['mask_host_ms_per_tick']:.3f}"
+        f" host ms a tick), sampled {s['tokens_per_s']:.1f} "
+        f"({s['mask_host_ms_per_tick']:.3f} ms), plain "
+        f"{out['plain']['tokens_per_s']:.1f} tokens/s (tick median "
+        f"{out['plain']['tick_ms_median']:.3f} ms); the tables of the "
+        f"spec's {len(seen)} states built in {compile_s:.3f} s; async sync "
+        f"fallbacks {fallbacks}; e.g. "
+        f"{g['texts'][0]} / {s['texts'][0]}")
+    return out, launches
+
+
+def adapters_phase(torch, gpt, G, serving, engine, ks, wl):
+    """The multi-tenant phase: (a) small fp32 models card vs CPU; (b)
+    GPT-1.3B under a 4-adapter pool, main and paged; (c) GPT-1.3B
+    constrained.  Returns (stats, launches of the gated serves)."""
+    from paddle_tpu_torch.text import adapters as A
+    from paddle_tpu_torch.text import lora
+
+    t0 = time.perf_counter()
+    out = {"small": adapters_small_vs_cpu(torch, gpt, G, serving, A, lora,
+                                          engine)}
+    log(f"  (a) small fp32 models: {json.dumps(out['small'])} "
+        f"({time.perf_counter() - t0:.1f} s)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = gpt.gpt_1p3b()
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    ads = make_adapters(torch, lora, params, cfg, ADAPTER_N, ADAPTER_RANK,
+                        ADAPTER_B_STD)
+    pool = A.AdapterPool(params, cfg, rank=ADAPTER_RANK,
+                         max_adapters=ADAPTER_N)
+    for i, ad in enumerate(ads):
+        pool.register(f"ad-{i + 1}", ad)
+    log(f"  (b) GPT-1.3B pool: {ADAPTER_N} adapters, rank {ADAPTER_RANK}, "
+        f"targets {pool.targets}, stacks "
+        f"{_tree_bytes(pool.stacks()) / 1e9:.4f} GB fp32 on the card")
+    launches = {}
+    for path in ("main", "paged"):
+        t1 = time.perf_counter()
+        out[path], launches[path] = adapter_serve_1p3b(
+            torch, gpt, serving, engine, ks, wl, A, lora, path, cfg, params,
+            pool, ads)
+        log(f"  (b) {path}: {time.perf_counter() - t1:.1f} s")
+        gc.collect()
+        torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    out["constrained"], launches["constrained"] = constrained_1p3b(
+        torch, gpt, serving, engine, ks, wl, A, cfg, params)
+    log(f"  (c) constrained: {time.perf_counter() - t1:.1f} s")
+    del pool, ads
+    engine.ENGINE.purge(cfg)
+    total = {n: sum(l[n] for l in launches.values())
+             for n in launches["main"]}
+    out["tc_launches"] = {
+        n: out["main"]["tc_launches"].get(n, 0)
+        + out["paged"]["tc_launches"].get(n, 0)
+        for n in out["main"]["tc_launches"]}
+    out["tick_launches"] = {
+        n: out["main"]["tick_launches"].get(n, 0)
+        + out["paged"]["tick_launches"].get(n, 0)
+        for n in out["main"]["tick_launches"]}
+    out["phase_s"] = time.perf_counter() - t0
+    return out, total
+
+
+def lora_small_vs_cpu(torch, gpt, lora, optim, woq):
+    """(d) Small fp32 LoRA and QLoRA-int8 train runs (5 AdamW steps on
+    the attention adapters, one repeated batch, the fused flags off) on
+    the card and on the CPU: losses within TRAIN_LOSS_TOL, the base
+    unchanged on both."""
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=2, max_seq_len=256, dtype=torch.float32)
+    base = gpt.init_master_params(cfg, seed=5, device="cpu")
+    toks = torch.from_numpy(np.random.default_rng(4).integers(
+        0, 512, (4, 65)))
+    out = {}
+    for name, tree in (("lora", base), ("qlora_int8",
+                                         woq.quantize_gpt_int8(base))):
+        adapted = lora.lora_init(tree, cfg, rank=8, key=3)
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            p = adapted if dev == "cpu" else _to_card(adapted)
+            init, step = lora.build_lora_train_step(
+                cfg, optim.AdamW(learning_rate=TRAIN_LR))
+            state = init(p)
+            ls = []
+            with env_set(PADDLE_TPU_FUSED_CE="0", PADDLE_TPU_FUSED_LN="0"):
+                for _ in range(TRAIN_STEPS):
+                    state, loss = step(state, toks.to(dev), TRAIN_LR)
+                    ls.append(float(loss))
+            for k, v in state.base["blocks"].items():
+                assert torch.equal(v.cpu(), tree["blocks"][k]), k
+            losses[dev] = ls
+        gap = max(abs(a - b) for a, b in zip(losses["cpu"], losses["cuda"]))
+        if not gap <= TRAIN_LOSS_TOL or not losses["cuda"][-1] < \
+                losses["cuda"][0]:
+            raise AssertionError(f"{name}: card {losses['cuda']} vs cpu "
+                                 f"{losses['cpu']}")
+        out[name] = {"losses": losses["cuda"], "max_gap": gap}
+    return out
+
+
+def lora_rung(torch, gpt, ks, tr, optim, headline):
+    """(d) The LoRA rung: GPT-1.3B widths, an fp32 base frozen
+    (``init_master_params``), rank-8 adapters on the attention targets,
+    AdamW on the adapters alone, batch LORA_BATCH x 2048 in one pass under
+    ``PADDLE_TPU_FUSED_CE=1``, 4 steps on one batch.  Gates: the first
+    loss near ln V and the last below it, the base bit-unchanged (a hash
+    of every leaf's bits before and after) and at its addresses, and each
+    step's launches exactly a flash forward, dq and dk/dv a layer and one
+    CE forward and backward, the flash ones on the tensor-core bodies.
+    Reported beside the headline rung's numbers.  Returns (stats,
+    launches)."""
+    from paddle_tpu_torch.text import lora
+
+    cfg = gpt.gpt_1p3b()
+    L, V = cfg.num_layers, cfg.vocab_size
+    base = gpt.init_master_params(cfg, seed=0, device="cuda")
+
+    def bits(tree):
+        return {k: (v.data_ptr(), int(v.view(torch.int32).to(torch.int64)
+                                       .mul(torch.arange(
+                                           1, v.numel() + 1, device=v.device,
+                                           dtype=torch.int64).view(v.shape)
+                                           % 65521).sum()))
+                for k, v in _leaves(tree)}
+
+    before = bits(base)
+    params = lora.lora_init(base, cfg, rank=ADAPTER_RANK, key=0)
+    n_ad = sum(v.numel() for k, v in params["blocks"].items()
+               if "_lora_" in k)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, V, (LORA_BATCH, tr.SEQ + 1))).cuda()
+    opt = optim.AdamW(learning_rate=LORA_LR)
+    init, step = lora.build_lora_train_step(cfg, opt)
+    state = init(params)
+    n_tok = LORA_BATCH * tr.SEQ
+    want = {"flash_attention_fwd": L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "fused_ce_fwd": 1,
+            "fused_ce_bwd": 1, "fused_layer_norm_fwd": 0,
+            "fused_layer_norm_bwd": 0, "w4_matmul": 0, "decode_attention": 0,
+            "paged_decode_attention": 0}
+    want_tc = {n: want[n] for n in ("flash_attention_fwd",
+                                    "flash_attention_bwd_dq",
+                                    "flash_attention_bwd_dkv", "w4_matmul",
+                                    "decode_attention",
+                                    "paged_decode_attention")}
+    losses, step_s = [], []
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(ks)
+    # the train rungs before leave their flags set: the fused CE on, the
+    # fused LN off for this rung
+    with env_set(PADDLE_TPU_FUSED_CE="1", PADDLE_TPU_FUSED_LN="0"):
+        for i in range(4):
+            b, btc = launch_counts(ks), tc_counts(ks)
+            t0 = time.perf_counter()
+            state, loss = step(state, toks, LORA_LR)
+            losses.append(loss.item())
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            got = {n: c - b[n] for n, c in launch_counts(ks).items()}
+            got_tc = {n: c - btc[n] for n, c in tc_counts(ks).items()}
+            if got != want or got_tc != want_tc:
+                raise AssertionError(f"LoRA step {i + 1} launched {got} "
+                                     f"(tensor-core {got_tc}), not {want}")
+            log(f"  LoRA step {i + 1}: loss {losses[-1]:.5f}, "
+                f"{step_s[-1] * 1e3:.1f} ms, {n_tok / step_s[-1]:.0f} "
+                f"tokens/s")
+    launches = launch_counts(ks)
+    tc = tc_counts(ks)
+    peak = torch.cuda.max_memory_allocated()
+    if abs(losses[0] - math.log(V)) > 1.0 or not losses[-1] < losses[0]:
+        raise AssertionError(f"LoRA losses {losses}")
+    if bits(state.base) != before:
+        raise AssertionError("the frozen base changed")
+    steady = statistics.median(step_s[1:])
+    stats = {
+        "rung": "gpt_1.3b_lora_r8_attn_b4", "batch": LORA_BATCH,
+        "seq": tr.SEQ, "rank": ADAPTER_RANK,
+        "targets": sorted({k.rsplit("_lora_", 1)[0]
+                           for k in state.adapters}),
+        "adapter_params": n_ad, "losses": losses,
+        "step_ms": [1e3 * t for t in step_s],
+        "steady_step_ms": 1e3 * steady,
+        "steady_tokens_per_s": n_tok / steady, "peak_mem_gb": peak / 1e9,
+        "optimizer_state_gb": tr.state_bytes(state.opt_state) / 1e9,
+        "launches_per_step": want, "tc_launches": tc,
+        "base_unchanged": True}
+    log(f"  LoRA rung: steady {stats['steady_step_ms']:.1f} ms/step, "
+        f"{stats['steady_tokens_per_s']:.0f} tokens/s, peak "
+        f"{stats['peak_mem_gb']:.2f} GB, optimizer state "
+        f"{stats['optimizer_state_gb'] * 1e3:.3f} MB ({n_ad} adapter "
+        f"params) — beside the headline rung "
+        f"{headline['steady_step_ms']:.1f} ms/step, "
+        f"{headline['steady_tokens_per_s']:.0f} tokens/s, peak "
+        f"{headline['peak_mem_gb']:.2f} GB, optimizer state "
+        f"{headline['optimizer_state_gb']:.3f} GB")
+    del state, params, base
+    return stats, launches
+
+
+def evaluate_phase(torch, gpt, ks):
+    """(e) ``nll`` against ``cached_nll`` on GPT-1.3B (bf16, random weights
+    from seed 0) over 4 x 513 tokens within EVAL_TOL, and the int8-KV
+    ``cached_perplexity`` within EVAL_INT8_REL of the exact cache's, each
+    timed; the forward's flash launches on the tensor-core body and every
+    decode-path launch on the tick body.  A small fp32 model's ``nll`` and
+    ``cached_nll`` card vs CPU within 1e-4.  Returns (stats, launches)."""
+    from paddle_tpu_torch.text import evaluate as ev
+
+    small = gpt.GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                          num_heads=2, max_seq_len=256, dtype=torch.float32)
+    cpu = gpt.init_params(small, seed=9, device="cpu")
+    batch = np.random.default_rng(8).integers(0, 512, (3, 65))
+    vals = {}
+    for dev, p in (("cpu", cpu), ("cuda", _to_card(cpu))):
+        vals[dev] = (ev.nll(p, small, batch), ev.cached_nll(p, small, batch))
+    gap = max(abs(a - b) for a, b in zip(vals["cpu"], vals["cuda"]))
+    if not gap <= 1e-4:
+        raise AssertionError(f"small eval card {vals['cuda']} vs cpu "
+                             f"{vals['cpu']}")
+    cfg = gpt.gpt_1p3b()
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    L = cfg.num_layers
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 513))
+    zero_counts(ks)
+    out = {"small_card_vs_cpu": gap}
+    for name, fn, kv in (("nll", ev.nll, ""), ("cached_nll", ev.cached_nll,
+                                                ""),
+                         ("cached_nll_int8_kv", ev.cached_nll, "int8")):
+        os.environ["PADDLE_TPU_KV_DTYPE"] = kv
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out[name] = fn(params, cfg, toks)
+        out[name + "_s"] = time.perf_counter() - t0
+    os.environ.pop("PADDLE_TPU_KV_DTYPE", None)
+    launches, tc, tick = launch_counts(ks), tc_counts(ks), tick_counts(ks)
+    if launches["flash_attention_fwd"] != L or tc["flash_attention_fwd"] != L:
+        raise AssertionError(f"the eval forward launched {launches} (tc {tc})")
+    if launches["decode_attention"] != 2 * L * 512 \
+            or tick["decode_attention"] != 2 * L * 512:
+        raise AssertionError(f"the decode-path evals launched {launches} "
+                             f"(tick body {tick})")
+    d = abs(out["nll"] - out["cached_nll"])
+    rel = abs(math.exp(out["cached_nll_int8_kv"])
+              - math.exp(out["cached_nll"])) / math.exp(out["cached_nll"])
+    out.update(nll_vs_cached=d, int8_kv_ppl_rel=rel,
+               launches=launches, tc_launches=tc, tick_launches=tick)
+    if not (math.isfinite(out["nll"]) and d <= EVAL_TOL
+            and rel <= EVAL_INT8_REL):
+        raise AssertionError(f"evaluation: {out}")
+    log(f"  GPT-1.3B bf16, 4 x 513 tokens: nll {out['nll']:.5f} "
+        f"({out['nll_s']:.2f} s), cached_nll {out['cached_nll']:.5f} "
+        f"({out['cached_nll_s']:.2f} s; |delta| {d:.5f}, tol {EVAL_TOL}), "
+        f"int8 KV {out['cached_nll_int8_kv']:.5f} "
+        f"({out['cached_nll_int8_kv_s']:.2f} s; perplexity {rel:+.5f} "
+        f"relative, tol {EVAL_INT8_REL}); small fp32 card vs CPU {gap:.3g}")
+    del params
+    return out, launches
+
+
 def expected_train_launches(cfg, rung, remat_policies):
     """Each kernel's launches in one step of ``rung``: per micro-batch a
     flash forward, dq and dk/dv a layer, the CE forward and backward once,
@@ -5385,7 +6207,8 @@ def main() -> int:
     from paddle_tpu_torch.optimizer import lr as lrs
     from paddle_tpu_torch.text import generate as G
     from paddle_tpu_torch.text import engine
-    from paddle_tpu_torch.text import gpt, gpt_hybrid, kv_pool, serving, woq
+    from paddle_tpu_torch.text import gpt, gpt_hybrid, kv_pool, lora, serving
+    from paddle_tpu_torch.text import woq
     from paddle_tpu_torch.tools import profile_serving as wl
     from paddle_tpu_torch.tools import profile_train as tr
 
@@ -5598,6 +6421,26 @@ def main() -> int:
                                        wl, da)
     log(json.dumps({"moe": mstats}))
 
+    gc.collect()                    # the MoE models leave the card
+    torch.cuda.empty_cache()
+    log(f"[multi-tenant serving: (a) small fp32 models with a 3-adapter pool "
+        f"card vs CPU, constraints and speculation; (b) GPT-1.3B under a "
+        f"{ADAPTER_N}-adapter rank-{ADAPTER_RANK} pool, main and paged, "
+        f"eager then graphed; (c) GPT-1.3B under a JSON schema]")
+    astats, by_path["adapters"] = adapters_phase(torch, gpt, G, serving,
+                                                 engine, ks, wl)
+    log(json.dumps({"adapters": astats}))
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[evaluation: nll vs cached_nll, GPT-1.3B bf16 on 4 x 513 tokens, "
+        "int8 KV; a small fp32 model card vs CPU]")
+    t_eval = time.perf_counter()
+    evstats, by_path["evaluate"] = evaluate_phase(torch, gpt, ks)
+    log(json.dumps({"evaluate": evstats}))
+    log(f"[the multi-tenant phase {astats['phase_s']:.1f} s, evaluation "
+        f"{time.perf_counter() - t_eval:.1f} s]")
+
     train = {}
     for path, rung, twin in TRAIN_RUNGS:
         gc.collect()                # the last model leaves the card
@@ -5644,6 +6487,20 @@ def main() -> int:
                 f"({a['peak_mem_gb']}, {a['peak_requested_gb']}) for "
                 f"{a['rung']}")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[LoRA: small fp32 LoRA and QLoRA-int8 runs card vs CPU; the LoRA "
+        "rung, GPT-1.3B widths, fp32 base frozen, rank 8 on the attention, "
+        "AdamW, 4 x 2048 tokens, fused CE]")
+    t_lora = time.perf_counter()
+    lora_small = lora_small_vs_cpu(torch, gpt, lora, optim, woq)
+    log(f"  {json.dumps(lora_small)}")
+    lstats, by_path["lora"] = lora_rung(torch, gpt, ks, tr, optim,
+                                        train["train_fused"])
+    lstats["small_vs_cpu"] = lora_small
+    log(json.dumps({"lora_path": lstats}))
+    log(f"[LoRA: {time.perf_counter() - t_lora:.1f} s]")
+
     ln["bwd"].update(ln_bwd_apart(torch, fn))
     log(f"  fused_layer_norm_bwd apart: rows_ms {ln['bwd']['rows_ms']:.4f}, "
         f"cols_ms {ln['bwd']['cols_ms']:.4f} (ms {ln['bwd']['ms']:.4f})")
@@ -5656,8 +6513,12 @@ def main() -> int:
                   "beam": bmstats["tc_launches"],
                   "trees": trstats["tc_launches"],
                   "moe": mstats["tc_launches"],
+                  "adapters": astats["tc_launches"],
+                  "evaluate": evstats["tc_launches"],
+                  "lora": lstats["tc_launches"],
                   **{p: t["tc_launches"] for p, t in train.items()}}
-    assert all(by_path[p]["decode_attention"] == 0 for p in train)
+    assert all(by_path[p]["decode_attention"] == 0
+               for p in (*train, "lora"))
     tick_by_path = {name: {"main": stats["tick_launches"][name],
                            "paged": pstats["tick_launches"][name],
                            "w4": wstats["tick_launches"][name],
@@ -5668,6 +6529,9 @@ def main() -> int:
                            "beam": bmstats["tick_launches"][name],
                            "trees": trstats["tick_launches"][name],
                            "moe": mstats["tick_launches"][name],
+                           "adapters": astats["tick_launches"][name],
+                           "evaluate": evstats["tick_launches"][name],
+                           "lora": 0,
                            **{p: 0 for p in train}}
                     for name in ("decode_attention", "paged_decode_attention")}
 

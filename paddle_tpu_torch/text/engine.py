@@ -30,8 +30,14 @@ wrappers of an eager step.
   (joint-routing ``moe_step``, ``moe_sample``, ``moe_block``,
   ``moe_async``, fed the occupancy mask and adding into the binding's
   routing accumulator; ``moe_prefill``, ``moe_prefill_chunk``,
-  ``moe_paged_prefill``; ``moe_verify``).  On the CPU every kind runs
-  its plain callable.
+  ``moe_paged_prefill``; ``moe_verify``), a constrained server's
+  ``masked_step`` (fed the [B, V] mask) and a pool-attached server's
+  ``adapter_*`` twins (``adapter_step``, ``adapter_sample``,
+  ``adapter_block``, ``adapter_async``, ``adapter_spec_verify``,
+  ``adapter_prefill``, ``adapter_prefill_chunk``,
+  ``adapter_paged_prefill``: fed the per-slot adapter ids, reading the
+  pool's stacks from the binding).  On the CPU every kind runs its plain
+  callable.
 * :class:`Engine` — the bounded, thread-safe cache (``_LRU``, sized by
   ``PADDLE_TPU_STEP_CACHE_SIZE`` as in the JAX package), ``get``,
   ``purge``, ``warmup`` and the caches ``generate`` binds its steps to
@@ -39,10 +45,10 @@ wrappers of an eager step.
 
 The one design difference from the JAX Engine: **a graph is bound to
 buffers.**  It reads the server's params and cache leaves (the paged
-``tables`` leaf included, and an MoE server's routing accumulator) by
-address and owns static input and output buffers, so the Engine keys
-each step by ``spec.key(kind)`` plus the binding — the leaves'
-``data_ptr``s.  Two servers with one config never
+``tables`` leaf included, an MoE server's routing accumulator and an
+adapter pool's stacks) by address and owns static input and output
+buffers, so the Engine keys each step by ``spec.key(kind)`` plus the
+binding — the leaves' ``data_ptr``s.  Two servers with one config never
 share a graph; ``Engine.purge(cfg, binding=...)`` (which
 ``DecodeServer.close`` calls) drops a server's graphs and their private
 memory pools.  A graph keeps references to what it reads, so it never
@@ -191,12 +197,15 @@ def _param_leaves(params) -> list:
 
 class Binding:
     """The buffers a server's steps read and write: its ``params`` and
-    ``cache`` (leaves written in place by every step) and, on an MoE
-    server, ``stats`` — the routing accumulator its ``moe_*`` decode
-    steps add into (``moe_serving.moe_stats_init``).  ``key`` — the
+    ``cache`` (leaves written in place by every step), on an MoE server
+    ``stats`` — the routing accumulator its ``moe_*`` decode steps add
+    into (``moe_serving.moe_stats_init``) — and with an adapter pool
+    ``adapters``, the pool's stacks (``AdapterPool.stacks()``, written in
+    place by a register, read by the ``adapter_*`` steps).  ``key`` — the
     device, the graph switch and every leaf's address, the accumulator's
-    too — is the part of the Engine's cache key that keeps one server's
-    graphs from another's (and from another server's counters).
+    and the stacks' too — is the part of the Engine's cache key that keeps
+    one server's graphs from another's (and from another server's
+    counters).
 
     ``graphs=False`` runs the steps eagerly on the card: a private switch
     for the card tests, ``chip_smoke.py`` and ``tools/profile_serving``,
@@ -204,10 +213,11 @@ class Binding:
     eager mode either)."""
 
     def __init__(self, params, cache: dict, graphs: bool = True,
-                 stats: dict | None = None):
+                 stats: dict | None = None, adapters: dict | None = None):
         self.params = params
         self.cache = cache
         self.stats = stats
+        self.adapters = adapters
         # held by a caller driving the binding's steps from its own loop
         # (``generate``), so two threads never interleave on one cache
         self.lock = threading.Lock()
@@ -216,6 +226,7 @@ class Binding:
         self.key = (str(self.device), self.graphs,
                     tuple(t.data_ptr() for t in cache.values()),
                     tuple(t.data_ptr() for t in _param_leaves(params)),
+                    tuple(t.data_ptr() for t in (adapters or {}).values()),
                     tuple(t.data_ptr() for t in (stats or {}).values()))
 
 
@@ -235,6 +246,8 @@ class StepSpec:
       registry);
     * ``shape`` — the feed shape of a kind the JAX package retraces per
       shape and a graph fixes (``generate``'s prompt [B, P]);
+    * ``pkey`` — ``AdapterPool.pool_key()``, the pool's geometry
+      (capacity, rank, targets), read by the ``adapter_*`` kinds;
     * ``payload`` — the server's :class:`Binding`, never keyed by value
       (the Engine adds its ``key``)."""
 
@@ -245,6 +258,7 @@ class StepSpec:
     k: int | None = None
     extra: tuple = ()
     shape: tuple = ()
+    pkey: Any = None
     payload: Any = dataclasses.field(default=None, compare=False)
 
     def key(self, kind: str) -> tuple:
@@ -671,6 +685,177 @@ def _build_moe_verify(spec):
     return _build_spec_verify(spec)
 
 
+# -- constrained and adapter kinds (text/adapters.py) ----------------------
+#
+# ``masked_step`` is a pool-less server's constrained step: the ``sample``
+# step plus the [B, V] float32 mask, a feed copied into the graph's static
+# input each tick.  The ``adapter_*`` kinds are a pool-attached server's
+# twins of its steps: they read the pool's stacks from the binding (by
+# address: a register writes a row in place, and the next replay reads
+# it) and take the per-slot ids [B] (admission: the slot's id [1]) as
+# their first feed.  Each keys on ``pkey``, the pool's geometry, beside
+# the fields its plain twin reads, as the JAX registry keys them.
+
+
+def _adapter_stacks(spec):
+    stacks = spec.payload.adapters
+    if stacks is None:
+        raise ValueError("an adapter_* step needs the binding's pool stacks "
+                         "(Binding(adapters=...))")
+    return stacks
+
+
+@register("masked_step",
+          key=lambda s: ("masked_step", cfg_key(s.cfg), s.paged),
+          name="serving.masked_step")
+def _build_masked_step(spec):
+    """Constrained step without a pool: (tok, pos, key, temp, top_k, top_p,
+    mask [B, V]) -> (tokens,); greedy slots take the masked argmax."""
+    from . import serving
+
+    def body(p, c, tok, pos, key, te, tk, tp, m, _cfg=spec.cfg):
+        return (serving.sample_step_batched(p, c, tok, pos, key, te, tk, tp,
+                                            _cfg, mask=m)[0],)
+    return body
+
+
+@register("adapter_step",
+          key=lambda s: ("adapter_step", cfg_key(s.cfg), s.pkey, s.paged),
+          name="serving.adapter_step")
+def _build_adapter_step(spec):
+    """Greedy adapter step: (ids [B], tok [B], pos [B]) -> (logits
+    [B, V],)."""
+    from . import adapters
+
+    ad = _adapter_stacks(spec)
+
+    def body(p, c, ids, tok, pos, _cfg=spec.cfg):
+        return (adapters.adapter_decode_step_batched(p, c, ad, ids, tok, pos,
+                                                     _cfg)[0],)
+    return body
+
+
+@register("adapter_sample",
+          key=lambda s: ("adapter_sample", cfg_key(s.cfg), s.pkey, s.paged),
+          name="serving.adapter_sample_step")
+def _build_adapter_sample(spec):
+    """Sampled / masked adapter step: (ids, tok, pos, key, temp, top_k,
+    top_p, mask [B, V]) -> (tokens,); an all-zero mask is unconstrained."""
+    from . import adapters
+
+    ad = _adapter_stacks(spec)
+
+    def body(p, c, ids, tok, pos, key, te, tk, tp, m, _cfg=spec.cfg):
+        return (adapters.adapter_sample_step_batched(
+            p, c, ad, ids, tok, pos, key, te, tk, tp, m, _cfg)[0],)
+    return body
+
+
+@register("adapter_block",
+          key=lambda s: ("adapter_block", cfg_key(s.cfg), s.k, s.pkey,
+                         s.paged),
+          name=lambda s: f"serving.adapter_block@{s.k}")
+def _build_adapter_block(spec):
+    """``k`` greedy adapter steps: (ids, tok, pos) -> (tokens [B, k],)."""
+    from . import adapters
+
+    ad = _adapter_stacks(spec)
+
+    def body(p, c, ids, tok, pos, _cfg=spec.cfg, _k=spec.k):
+        return (adapters.adapter_decode_block_batched(p, c, ad, ids, tok, pos,
+                                                      _k, _cfg)[0],)
+    return body
+
+
+@register("adapter_async",
+          key=lambda s: ("adapter_async", cfg_key(s.cfg), s.pkey, s.paged),
+          name="serving.adapter_async_step")
+def _build_adapter_async(spec):
+    """The async adapter step: the ``async`` kind's device-side feed
+    select in front of the sampled adapter step (temp 0 is greedy), no
+    mask — constrained slots run synchronously: (ids, ht, pm, pv, pos,
+    key, temp, top_k, top_p) -> (tokens,)."""
+    from . import adapters
+
+    ad = _adapter_stacks(spec)
+
+    def body(p, c, ids, ht, pm, pv, pos, key, te, tk, tp, _cfg=spec.cfg):
+        return (adapters.adapter_sample_step_batched(
+            p, c, ad, ids, torch.where(pm, pv, ht), pos, key, te, tk, tp,
+            None, _cfg)[0],)
+    return body
+
+
+@register("adapter_spec_verify",
+          key=lambda s: ("adapter_spec_verify", cfg_key(s.cfg), int(s.k),
+                         s.pkey, s.paged),
+          name=lambda s: f"serving.adapter_spec_verify@{s.k}")
+def _build_adapter_spec_verify(spec):
+    """The adapter verify: (ids, tokens [B, K], pos) -> (logits [B, K,
+    V],), each slot under its own adapter."""
+    from . import adapters
+
+    ad = _adapter_stacks(spec)
+
+    def body(p, c, ids, tok, pos, _cfg=spec.cfg):
+        return (adapters.adapter_spec_verify_batched(p, c, ad, ids, tok, pos,
+                                                     _cfg)[0],)
+    return body
+
+
+@register("adapter_prefill",
+          key=lambda s: ("adapter_prefill", cfg_key(s.cfg), int(s.bucket),
+                         s.pkey),
+          name=lambda s: f"serving.adapter_prefill@{s.bucket}")
+def _build_adapter_prefill(spec):
+    """Whole-prompt admission under one slot's adapter: (aid [1], tokens
+    [1, bucket], length, slot) -> (logits [V],)."""
+    from . import adapters
+
+    ad = _adapter_stacks(spec)
+
+    def body(p, c, aid, tokens, length, slot, _cfg=spec.cfg):
+        return (adapters.adapter_prefill_slot(p, c, ad, aid, tokens, length,
+                                              slot, _cfg)[0],)
+    return body
+
+
+@register("adapter_prefill_chunk",
+          key=lambda s: ("adapter_prefill_chunk", cfg_key(s.cfg), s.pkey,
+                         None if s.width is None else int(s.width)),
+          name=lambda s: ("serving.adapter_prefill_chunk" if s.width is None
+                          else f"serving.adapter_prefill_chunk@"
+                               f"{int(s.width)}"))
+def _build_adapter_prefill_chunk(spec):
+    """Chunked or budgeted admission under one slot's adapter: (aid,
+    tokens [1, C], pos0, length, slot) -> (logits [V],)."""
+    from . import adapters
+
+    ad = _adapter_stacks(spec)
+
+    def body(p, c, aid, tokens, pos0, length, slot, _cfg=spec.cfg):
+        return (adapters.adapter_prefill_slot_chunk(
+            p, c, ad, aid, tokens, pos0, length, slot, _cfg)[0],)
+    return body
+
+
+@register("adapter_paged_prefill",
+          key=lambda s: ("adapter_paged_prefill", cfg_key(s.cfg),
+                         int(s.bucket), s.pkey),
+          name=lambda s: f"serving.adapter_paged_prefill@{s.bucket}")
+def _build_adapter_paged_prefill(spec):
+    """Paged admission chunk under one slot's adapter: (aid, tokens
+    [1, C], pos0, length, slot) -> (logits [V],)."""
+    from . import adapters
+
+    ad = _adapter_stacks(spec)
+
+    def body(p, c, aid, tokens, pos0, length, slot, _cfg=spec.cfg):
+        return (adapters.adapter_paged_prefill_chunk(
+            p, c, ad, aid, tokens, pos0, length, slot, _cfg)[0],)
+    return body
+
+
 # --------------------------------------------------------------------------
 # launch counters: a replay runs no Python wrapper
 # --------------------------------------------------------------------------
@@ -987,7 +1172,8 @@ class Engine:
                     dropped += 1
         return dropped
 
-    def warmup(self, srv, prompt_lens=None, blocks=(), sample=False) -> dict:
+    def warmup(self, srv, prompt_lens=None, blocks=(), sample=False,
+               constrained=False) -> dict:
         """Build (and on the card capture) every step ``srv`` (a
         DecodeServer) will serve, so its first request pays device time
         only: the tick step of its dispatch mode (``step``, or on an async
@@ -1009,7 +1195,14 @@ class Engine:
         ("moe_async_step", its only tick step: an async MoE block runs
         stepwise), and the ``moe_`` admission kinds — fed an all-False
         occupancy mask, so the warm routes claim nothing and add nothing
-        to its routing counters.
+        to its routing counters.  A pool-attached server warms every
+        site's adapter twin instead, fed all-zero ids, under the JAX
+        warmup's names: ``adapter_step`` always, ``adapter_async_step`` on
+        an async server, ``adapter_sample_step`` when ``sample`` or
+        ``constrained``, ``adapter_block{k}`` on a sync server,
+        ``adapter_spec_verify@K`` and the admission names with the
+        ``adapter_`` prefix; ``constrained`` without a pool warms
+        ``masked_step`` (fed a zero mask).
 
         Warm steps run on the live cache with zero feeds, writing rows at
         position 0 of every slot (warm admissions: of slot 0) — rows
@@ -1056,8 +1249,24 @@ class Engine:
             timings[name] = _time.perf_counter() - t0
 
         moe = srv.cfg.moe is not None
+        pool = srv._adapters is not None
+        ids = (zi,) if pool else ()
+        aid = (torch.zeros(1, dtype=torch.int64),) if pool else ()
+        zm = (torch.zeros((B, srv.cfg.vocab_size), dtype=torch.float32)
+              if pool or constrained else None)
         try:
-            if srv._async and moe:
+            if pool:
+                # the adapter twins ARE what a pool-attached server runs;
+                # the sync greedy step also serves an async server's
+                # constrained fallback
+                if srv._async:
+                    warm("adapter_async_step", "adapter_async", zi, zi, zb,
+                         pv, zp, key, zf, zi, of)
+                warm("adapter_step", "adapter_step", zi, zi, zp)
+                if sample or constrained:
+                    warm("adapter_sample_step", "adapter_sample", zi, zi, zp,
+                         key, zf, zi, of, zm)
+            elif srv._async and moe:
                 warm("moe_async_step", "moe_async", zi, zb, pv, zp, key, zf,
                      zi, of, zb)
             elif srv._async:
@@ -1071,9 +1280,20 @@ class Engine:
                 if sample:
                     warm("moe_sample_step" if moe else "sample_step",
                          srv._kind("sample"), zi, zp, key, zf, zi, of, *act)
+            if constrained and not pool and not moe:
+                # an async server's constrained traffic drains to it too
+                warm("masked_step", "masked_step", zi, zp, key, zf, zi, of,
+                     zm)
             for k in blocks:
                 k = int(k)
-                if moe:
+                if pool:
+                    # an async pool server's blocks run stepwise (the
+                    # adapter async step above); sampled pool traffic steps
+                    # through adapter_sample
+                    if not srv._async:
+                        warm(f"adapter_block{k}", "adapter_block", zi, zi, zp,
+                             k=k)
+                elif moe:
                     # an MoE block is greedy and sync (sampled or async
                     # MoE blocks run stepwise, on the steps above)
                     if not srv._async:
@@ -1103,25 +1323,31 @@ class Engine:
                          torch.arange(1, N).expand(B, N - 1).contiguous(),
                          zp, k=N)
                 else:
-                    warm(f"spec_verify@{K}", "spec_verify",
+                    warm(f"{srv._kind('spec_verify')}@{K}",
+                         srv._kind("spec_verify"), *ids,
                          torch.zeros((B, K), dtype=torch.int64), zp, k=K)
                 if srv._draft_bind is not None:
                     warm("draft_step", "step", zi, zp, draft=True)
                     if K > 1:
                         warm(f"draft_block{K - 1}", "block", zi, zp,
                              k=K - 1, draft=True)
-            for name, kind, width in srv._admission_widths(prompt_lens):
-                kind = srv._kind(kind)
+            for name, plain, width in srv._admission_widths(prompt_lens):
                 for draft in drafts:
-                    tag = "draft_" + name if draft else name
-                    if kind in ("prefill", "moe_prefill"):
-                        warm(tag, kind, *srv._feeds([0], width, 1, 0),
+                    # the draft walks the plain kinds; the target its twin
+                    kind = plain if draft else srv._kind(plain)
+                    lead = () if draft else aid
+                    tag = ("draft_" + name if draft else
+                           "adapter_" + name if pool else name)
+                    if plain == "prefill":
+                        warm(tag, kind, *lead, *srv._feeds([0], width, 1, 0),
                              bucket=width, draft=draft)
-                    elif kind in ("prefill_chunk", "moe_prefill_chunk"):
-                        warm(tag, kind, *srv._feeds([0], width, 0, 1, 0),
+                    elif plain == "prefill_chunk":
+                        warm(tag, kind, *lead,
+                             *srv._feeds([0], width, 0, 1, 0),
                              width=width, draft=draft)
                     else:
-                        warm(tag, kind, *srv._feeds([0], width, 0, 1, 0),
+                        warm(tag, kind, *lead,
+                             *srv._feeds([0], width, 0, 1, 0),
                              bucket=width, draft=draft)
         finally:
             _set_counts(counts)

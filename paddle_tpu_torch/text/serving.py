@@ -160,9 +160,25 @@ Speculation with an MoE target or draft, ``adapter_pool`` and
 ``constraint=`` on an MoE server are refused at the door, in the JAX
 server's words.
 
-Everything else the JAX server does — adapters and constraints, tensor
-and expert parallelism, the fleet and its router — is later slices'
-work; no entry point of the port reaches it.
+Multi-tenant serving (``text/adapters.py``), as the JAX server's: with
+``adapter_pool=`` every step — tick, block, async, verify, each admission
+— runs its ``adapter_*`` twin, fed the per-slot adapter ids, and adds
+each slot's rank-r LoRA term to the base matmuls (id 0 is the base
+model: the same tokens as a pool-less server); ``submit(adapter=)``
+names the adapter (or the tenant's default does), and a prompt under an
+adapter neither adopts nor indexes prefix-cache rows.
+``submit(constraint=)`` decodes under a token-set, regex or JSON-schema
+automaton advanced on the host: each tick feeds the [B, V] mask of its
+allowed sets to the sampling step (``masked_step`` without a pool,
+``adapter_sample`` with one), the admission token is drawn from the
+masked row, an exhausted automaton retires its slot, and a constrained
+batch runs synchronous steps — async and block dispatch drain to single
+ticks (``constraint.sync_fallbacks``), linear speculation to plain ones
+(``constraint.spec_fallbacks``), while tree speculation prunes the
+banned branches and masks its acceptance.
+
+Tensor and expert parallelism and the fleet and its router are later
+slices' work; no entry point of the port reaches them.
 """
 from __future__ import annotations
 
@@ -200,6 +216,14 @@ _MOE_KINDS = {"step": "moe_step", "sample": "moe_sample",
               "block": "moe_block", "async": "moe_async",
               "prefill": "moe_prefill", "prefill_chunk": "moe_prefill_chunk",
               "paged_prefill": "moe_paged_prefill"}
+# a pool-attached server's twin of each kind it dispatches (each takes the
+# adapter ids as its first feed; ``sample`` also the [B, V] mask last)
+_ADAPTER_KINDS = {"step": "adapter_step", "sample": "adapter_sample",
+                  "block": "adapter_block", "async": "adapter_async",
+                  "spec_verify": "adapter_spec_verify",
+                  "prefill": "adapter_prefill",
+                  "prefill_chunk": "adapter_prefill_chunk",
+                  "paged_prefill": "adapter_paged_prefill"}
 
 
 def decode_step_batched(params, cache, token, pos, cfg: gpt.GPTConfig):
@@ -265,14 +289,19 @@ def spec_tree_commit_batched(cache, src, pos):
 # a replayed graph draws what the eager step draws.
 
 
-def _sample_batched(logits, key, temp, topk, topp):
+def _sample_batched(logits, key, temp, topk, topp, mask=None):
     """Per-slot sampling over batched logits [B, V]: temperature, top-k,
     nucleus (generate._filter_logits) with PER-SLOT parameters, so one
     step serves a batch mixing greedy and sampled requests; the draw is
     the Gumbel-max of the filtered logits under ``key``'s noise (exactly
     a categorical draw from their softmax).  temp/topp float32 [B], topk
     int [B] (0 = off); slots with temp == 0 take the argmax of the raw
-    logits."""
+    logits.  ``mask``: the additive constraint mask [B, V] float32 (0
+    allowed, ``adapters.NEG_INF`` banned), added before both branches, so
+    greedy slots take the masked argmax; an all-zero row is exactly the
+    unconstrained math."""
+    if mask is not None:
+        logits = logits + mask
     scaled = generate._filter_logits(logits, temp, topk, topp)
     noise = rng.gumbel(key, scaled.shape, scaled.device)
     sampled = torch.argmax(scaled.float() + noise, dim=-1)
@@ -286,11 +315,13 @@ def _step_key(key, j: int):
 
 
 def sample_step_batched(params, cache, tok, pos, key, temp, topk, topp,
-                        cfg: gpt.GPTConfig):
+                        cfg: gpt.GPTConfig, mask=None):
     """One batched decode step that returns sampled TOKENS [B] (greedy
-    where temp == 0) instead of logits."""
+    where temp == 0) instead of logits.  ``mask`` (optional [B, V]
+    additive constraint mask, see :func:`_sample_batched`) rides through
+    to the sampler."""
     logits, cache = decode_step_batched(params, cache, tok, pos, cfg)
-    return _sample_batched(logits, key, temp, topk, topp), cache
+    return _sample_batched(logits, key, temp, topk, topp, mask=mask), cache
 
 
 def _row_limit(cache, cfg: gpt.GPTConfig) -> int:
@@ -423,12 +454,14 @@ class DecodeServer:
     n-gram self-drafting; ``spec_tree`` (default ``PADDLE_TPU_SPEC_TREE``,
     exclusive with ``spec_k``) turns on tree speculation instead (module
     note) with the same drafters; both are refused on an MoE target or
-    draft.  ``adapter_pool`` (LoRA pools) is not ported: an MoE server
-    refuses it in the JAX server's words, a dense one as not ported.  The
-    resilience switches (TTLs, the OOM ladder, the spill tier, the wedge
-    watchdog, the NaN guard: module note) and admission control's
-    (``PADDLE_TPU_ADMISSION`` and its knobs) are read from the environment
-    at construction.  ``metrics_port`` starts the telemetry endpoint
+    draft.  ``adapter_pool`` (``adapters.AdapterPool`` over these params'
+    config, on the server's device) serves LoRA adapters per request
+    (module note); it is refused on an MoE model, with ``spec_tree``, for
+    another config, and on params that already carry lora leaves, in the
+    JAX server's words.  The resilience switches (TTLs, the OOM ladder,
+    the spill tier, the wedge watchdog, the NaN guard: module note) and
+    admission control's (``PADDLE_TPU_ADMISSION`` and its knobs) are read
+    from the environment at construction.  ``metrics_port`` starts the telemetry endpoint
     (``telemetry.serve_metrics``; 0 takes a free port,
     ``self.metrics_server.port``), closed with the server.  A server is a
     context manager: leaving the ``with`` block closes it.
@@ -458,14 +491,14 @@ class DecodeServer:
         self._spec_args(cfg, min(max_len, cfg.max_seq_len), spec_k,
                         draft_cfg, draft_params, spec_tree)
         if adapter_pool is not None:
-            if cfg.moe is not None:
-                raise NotImplementedError(
-                    "adapter_pool with an MoE config is not supported "
-                    "yet — the adapter step kinds have no joint-routing "
-                    "twin (the gathered LoRA delta composes with dense "
-                    "FFNs only)")
-            raise NotImplementedError("adapter pools (text/adapters.py) are "
-                                      "not ported yet")
+            self._check_pool(adapter_pool, params, cfg)
+        # multi-tenant serving (text/adapters.py): with a pool every step
+        # runs its adapter twin, fed the per-slot ids; id 0 gathers the
+        # zero row, so base traffic gets the pool-less server's tokens
+        self._adapters = adapter_pool
+        self._pkey = (adapter_pool.pool_key() if adapter_pool is not None
+                      else None)
+        self._mask_buf = None            # the [B, V] mask feed, pinned once
         self.params = params
         self.cfg = cfg
         self.max_batch = max_batch
@@ -523,8 +556,10 @@ class DecodeServer:
             else None)
         self._moe_counted = 0
         # what every step of this server is bound to (text/engine.py)
-        self._bind = engine.Binding(params, self.cache, graphs=_graphs,
-                                    stats=self._moe_stats)
+        self._bind = engine.Binding(
+            params, self.cache, graphs=_graphs, stats=self._moe_stats,
+            adapters=(adapter_pool.stacks() if adapter_pool is not None
+                      else None))
         # the draft's twin cache, bound to its own steps: on the paged
         # layout a second pool of the target's geometry whose ``tables``
         # leaf IS the target's (one push, one allocator for both)
@@ -583,6 +618,35 @@ class DecodeServer:
             if _flags.admission_enabled() else None)
         self.metrics_server = (_telemetry.serve_metrics(metrics_port)
                                if metrics_port is not None else None)
+
+    def _check_pool(self, pool, params, cfg) -> None:
+        """An adapter pool's checks, in the JAX server's words: a dense
+        model, the pool's own config, no tree speculation, and params
+        that carry no lora leaves yet."""
+        if cfg.moe is not None:
+            raise NotImplementedError(
+                "adapter_pool with an MoE config is not supported "
+                "yet — the adapter step kinds have no joint-routing "
+                "twin (the gathered LoRA delta composes with dense "
+                "FFNs only)")
+        if self._spec_tree_n:
+            raise NotImplementedError(
+                "spec_tree with an adapter_pool is not supported yet (the "
+                "tree verify kind has no adapter-gathered twin); linear "
+                "spec_k composes with pools")
+        if engine.cfg_key(pool.cfg) != engine.cfg_key(cfg):
+            raise ValueError(
+                "adapter_pool was built for a different GPTConfig "
+                "than this server — pool and server must share the "
+                "base model geometry")
+        if any(k.endswith(("_lora_a", "_lora_b")) for k in params["blocks"]):
+            raise ValueError(
+                "params already carry lora leaves — merge or strip "
+                "them before attaching an adapter_pool (the pool's "
+                "gathered delta would stack on top of them)")
+        if pool.device != self.device:
+            raise ValueError(f"the adapter pool lives on {pool.device}, the "
+                             f"server runs on {self.device}")
 
     def _spec_args(self, cfg, window: int, spec_k, draft_cfg, draft_params,
                    spec_tree) -> None:
@@ -660,13 +724,29 @@ class DecodeServer:
 
     def _spec(self, **kw) -> engine.StepSpec:
         return engine.StepSpec(cfg=self.cfg, paged=self._paged,
-                               payload=self._bind, **kw)
+                               pkey=self._pkey, payload=self._bind, **kw)
 
     def _kind(self, kind: str) -> str:
         """The Engine kind this server runs for ``kind``: an MoE server's
-        joint-routing or MoE-admission twin, else ``kind`` itself."""
-        return _MOE_KINDS.get(kind, kind) if self.cfg.moe is not None \
-            else kind
+        joint-routing or MoE-admission twin, a pool-attached server's
+        adapter twin, else ``kind`` itself."""
+        if self.cfg.moe is not None:
+            return _MOE_KINDS.get(kind, kind)
+        if self._adapters is not None:
+            return _ADAPTER_KINDS.get(kind, kind)
+        return kind
+
+    def _ids(self) -> tuple:
+        """The leading feed of a pool-attached server's decode steps: the
+        per-slot adapter ids [B] (:meth:`_gather_adapter_ids`); nothing
+        without a pool."""
+        return ((self._host(self._gather_adapter_ids()),)
+                if self._adapters is not None else ())
+
+    def _aid(self, aid: int) -> tuple:
+        """The leading feed of a pool-attached server's admission steps:
+        the slot's adapter id as an int64 [1]; nothing without a pool."""
+        return (self._scalars(aid) if self._adapters is not None else ())
 
     def _moe_act(self):
         """The joint-routing occupancy mask [max_batch] bool: occupied
@@ -736,7 +816,8 @@ class DecodeServer:
                stop: list | None = None, temperature: float = 0.0,
                top_k: int = 0, top_p: float = 1.0,
                ttl_s: float | None = None, priority: int = 0,
-               tenant: str | None = None, constraint=None) -> int:
+               tenant: str | None = None, adapter: str | None = None,
+               constraint=None) -> int:
         """Queue one request and admit what fits; returns its id.
         ``stop``: optional list of token SEQUENCES; generation ends
         (sequence included) as soon as the generated tail matches one.
@@ -752,22 +833,39 @@ class DecodeServer:
         ``resilience.Overloaded``.  A queued request gets a trace context
         (``telemetry.mint_trace()``) for its spans: the server is the
         front door here, as the JAX package's fleet router is.
-        ``constraint`` (constrained decoding) is not ported: an MoE server
-        refuses it in the JAX server's words, a dense one as not
-        ported."""
+        ``adapter``: serve the request under a named LoRA of the attached
+        ``adapter_pool`` (None: the tenant's default adapter,
+        ``AdapterPool.set_tenant_default``, else the base model).
+        ``constraint``: constrained decoding — a ``text/adapters.py``
+        ``Constraint`` spec (TokenSet / Regex / JsonSchema) or an iterable
+        of allowed token ids, compiled here (a malformed spec raises in
+        the caller's frame) and again at admission into the slot's
+        automaton; every step then masks the tokens it bans, greedy and
+        sampled alike.  An MoE server refuses constraints."""
         if self.cache is None:
             raise RuntimeError("the server is closed")
         prompt, stop, ttl, top_k = validate_request(
             prompt, max_new_tokens, stop, temperature, top_k, top_p, ttl_s,
             window=min(self.max_len, self.cfg.max_seq_len),
             vocab_size=self.cfg.vocab_size, default_ttl=self._default_ttl)
+        aid = 0
+        if adapter is not None and self._adapters is None:
+            raise ValueError(
+                f"adapter={adapter!r} but no adapter_pool attached to "
+                f"this server")
+        if self._adapters is not None:
+            if adapter is None:
+                adapter = self._adapters.default_for(tenant)
+            aid = self._adapters.resolve(adapter)
         if constraint is not None:
             if self.cfg.moe is not None:
                 raise NotImplementedError(
                     "constrained decoding on an MoE server is not "
                     "supported yet (no joint-routing masked step kind)")
-            raise NotImplementedError("constrained decoding is not ported "
-                                      "yet")
+            from . import adapters as _ad
+
+            # compiled and discarded: a malformed spec raises here
+            _ad.compile_constraint(constraint, self.cfg.vocab_size)
         if self._paged:
             # a request needing more blocks than the whole pool can NEVER
             # be admitted: refuse it here rather than park it forever
@@ -795,7 +893,9 @@ class DecodeServer:
                             "temperature": float(temperature),
                             "top_k": top_k, "top_p": float(top_p),
                             "ttl": ttl, "priority": int(priority),
-                            "tenant": tenant,
+                            "tenant": tenant, "adapter": aid,
+                            "adapter_name": adapter if aid else None,
+                            "constraint": constraint,
                             "trace": _telemetry.mint_trace(),
                             "t_submit": now, "t_enqueue": now,
                             "t_queued": now})
@@ -863,7 +963,20 @@ class DecodeServer:
         """The admission token from the prefill logits [V] (``lnp``: the
         same row on the host): a draw keyed by the request id
         (independent of admission order and batch-mates, as the JAX
-        server's ``fold_in(base, (1 << 20) + rid)``), or the argmax."""
+        server's ``fold_in(base, (1 << 20) + rid)``), or the argmax.  A
+        constrained slot's row is masked first
+        (``adapters.apply_constraint_host``): the argmax of the masked
+        host row, or the device draw under the same additive mask."""
+        cst = st.get("constraint")
+        mask = None
+        if cst is not None:
+            from . import adapters as _ad
+
+            lnp = _ad.apply_constraint_host(lnp, cst)
+            if st["temperature"] > 0.0:
+                mask = torch.from_numpy(np.where(
+                    cst.allowed_mask(), np.float32(0.0),
+                    np.float32(_ad.NEG_INF))[None]).to(self.device)
         if st["temperature"] > 0.0:
             dev = self.device
             key = torch.tensor(self._key(_ADMIT_COUNTER + st["rid"]),
@@ -872,7 +985,7 @@ class DecodeServer:
                 logits[None], key,
                 torch.tensor([st["temperature"]], device=dev),
                 torch.tensor([st["top_k"]], device=dev),
-                torch.tensor([st["top_p"]], device=dev))[0])
+                torch.tensor([st["top_p"]], device=dev), mask=mask)[0])
         return int(lnp.argmax())
 
     def _take_first_token(self, st, slot: int, logits,
@@ -912,7 +1025,8 @@ class DecodeServer:
             if wall is not None and wall[0] is not None:
                 name, calls, t0 = wall
                 _telemetry.note_step_time(name, (t_fetch - t0) / calls)
-        return self._finished(st, t)
+        fin = self._constraint_push(st, t)
+        return self._finished(st, t) or fin
 
     def _admit(self):
         self._shed_expired()
@@ -957,7 +1071,22 @@ class DecodeServer:
                   "tenant": req["tenant"], "trace": req["trace"],
                   "evictions": req.get("evictions", 0), "pos": 0,
                   "t_submit": req["t_submit"],
-                  "t_enqueue": req["t_enqueue"], "t_admit": t_admit}
+                  "t_enqueue": req["t_enqueue"], "t_admit": t_admit,
+                  # the pool row this slot gathers (0 = base) and the
+                  # constraint SPEC, which an evicted request carries
+                  "adapter": req.get("adapter", 0),
+                  "adapter_name": req.get("adapter_name"),
+                  "constraint_spec": req.get("constraint")}
+            if req.get("constraint") is not None:
+                from . import adapters as _ad
+
+                cst = _ad.compile_constraint(req["constraint"],
+                                             self.cfg.vocab_size)
+                # a re-admitted evicted request resumes its automaton
+                # where it stood: replay the carried tokens
+                for t in carry:
+                    cst.advance(int(t))
+                st["constraint"] = cst
             if self._spec_on and self._adm is not None \
                     and self._adm.spec_forced():
                 # the ladder's spec-off rung: this claim decodes plain,
@@ -975,7 +1104,8 @@ class DecodeServer:
                 if budgeted:
                     self._claim_admitting(slot, st)
                     continue
-                logits = self._prefill_slot(req["prompt"], slot)
+                logits = self._prefill_slot(req["prompt"], slot,
+                                            st["adapter"])
             except kv_pool.PoolExhausted:
                 # no free blocks even after evicting the cold prefix
                 # cache: the request WAITS for active slots to retire —
@@ -1017,7 +1147,9 @@ class DecodeServer:
         # admission ladder one of its captured widths
         W = self._effective_budget()
         if self._paged:
-            shared = self._pool.adopt_prefix(slot, prompt)
+            # adapter rows never share: adopted rows carry another delta
+            shared = (self._pool.adopt_prefix(slot, prompt)
+                      if not st.get("adapter") else 0)
             self._drain_restores()
             starts = self._chunk_starts(n, W, shared)
             self._ensure_admission_rows(slot, min(starts), n)
@@ -1054,7 +1186,7 @@ class DecodeServer:
         t0 = time.perf_counter()
         fn = engine.ENGINE.get(self._kind(kind), self._spec(**kw))
         feeds = self._feeds(chunk, W, s, len(chunk), slot)
-        (logits,) = fn(*feeds)
+        (logits,) = fn(*self._aid(st["adapter"]), *feeds)
         self._draft_walk(kind, [feeds], **kw)
         self._prefill_rows += len(chunk)
         self._count("serving.prefill_chunks_interleaved")
@@ -1084,7 +1216,7 @@ class DecodeServer:
         if done is None:                        # failed by the NaN guard
             del self._slots[slot]
             return
-        if self._paged:
+        if self._paged and not st["adapter"]:
             self._pool.register_prefix(slot, st["prompt"])
         if done:
             del self._slots[slot]
@@ -1156,20 +1288,23 @@ class DecodeServer:
                                   else f"{kind}@{w}")
         return [(name, k, w) for (k, w), name in sorted(out.items())]
 
-    def _prefill_slot(self, prompt, slot: int):
-        """Admission prefill of ``prompt`` into ``slot``; returns the
-        logits [V] at its last position (the step's output buffer: read
-        it before the next admission).  ``_prefill_steps`` names the step
-        it ran and how often: (name, calls)."""
+    def _prefill_slot(self, prompt, slot: int, aid: int = 0):
+        """Admission prefill of ``prompt`` into ``slot`` under adapter
+        ``aid`` (a pool-attached server's admission steps are the adapter
+        twins, id 0 the base); returns the logits [V] at its last position
+        (the step's output buffer: read it before the next admission).
+        ``_prefill_steps`` names the step it ran and how often: (name,
+        calls)."""
         n = len(prompt)
+        ad = self._aid(aid)
         if self._paged:
-            return self._paged_prefill_slot(prompt, slot)
+            return self._paged_prefill_slot(prompt, slot, aid)
         if self._chunk is None:
             bucket = _pow2_bucket(n, self.max_len, self.cfg.max_seq_len)
             fn = engine.ENGINE.get(self._kind("prefill"),
                                    self._spec(bucket=bucket))
             feeds = self._feeds(prompt, bucket, n, slot)
-            (logits,) = fn(*feeds)
+            (logits,) = fn(*ad, *feeds)
             self._draft_walk("prefill", [feeds], bucket=bucket)
             self._prefill_rows += n
             self._prefill_steps = (_name(fn), 1)
@@ -1180,7 +1315,7 @@ class DecodeServer:
         calls = [self._feeds(prompt[s:s + C], C, s, len(prompt[s:s + C]),
                              slot) for s in self._chunk_starts(n, C)]
         for feeds in calls:
-            (logits,) = fn(*feeds)
+            (logits,) = fn(*ad, *feeds)
         self._draft_walk("prefill_chunk", calls, width=C)
         self._prefill_rows += sum(len(prompt[s:s + C])
                                   for s in self._chunk_starts(n, C))
@@ -1227,17 +1362,19 @@ class DecodeServer:
                 if self._evict_or_spill(_EVICT_BATCH) == 0:
                     raise
 
-    def _paged_prefill_slot(self, prompt, slot: int):
+    def _paged_prefill_slot(self, prompt, slot: int, aid: int = 0):
         """Paged admission: adopt the longest indexed prompt prefix into
         the slot's table (those rows are never recomputed; spilled blocks
         of it are restored, :meth:`_drain_restores`), make the suffix's
         rows writable (allocate / copy-on-write, relieving the pool while
         it is dry), run the suffix through the ``paged_prefill`` step and
-        index this prompt's full blocks for later prompts.  Raises
-        ``PoolExhausted`` when nothing more can be evicted."""
+        index this prompt's full blocks for later prompts.  A prompt under
+        an adapter (``aid`` != 0) neither adopts nor indexes rows: its
+        rows carry the adapter's delta.  Raises ``PoolExhausted`` when
+        nothing more can be evicted."""
         n = len(prompt)
         alloc = self._pool
-        shared = alloc.adopt_prefix(slot, prompt)
+        shared = alloc.adopt_prefix(slot, prompt) if not aid else 0
         self._drain_restores()
         window = min(self.max_len, self.cfg.max_seq_len)
         # the chunk width: prefill_chunk, or one power-of-two chunk over
@@ -1252,13 +1389,15 @@ class DecodeServer:
                                self._spec(bucket=C))
         calls = [self._feeds(prompt[s:s + C], C, s, len(prompt[s:s + C]),
                              slot) for s in starts]
+        ad = self._aid(aid)
         for feeds in calls:
-            (logits,) = fn(*feeds)
+            (logits,) = fn(*ad, *feeds)
         self._draft_walk("paged_prefill", calls, bucket=C)
         rows = sum(len(prompt[s:s + C]) for s in starts)
         self._prefill_rows += rows
         self._count("kv_pool.prefill_rows", rows)
-        alloc.register_prefix(slot, prompt)
+        if not aid:
+            alloc.register_prefix(slot, prompt)
         self._prefill_steps = (_name(fn), len(starts))
         return logits
 
@@ -1459,8 +1598,17 @@ class DecodeServer:
         """Whether THIS tick runs as a speculative round: the gate holds
         and at least one slot still speculates.  A fallen-back slot sits
         out a cooldown of eligible rounds (doubling per trip, 16 -> 256),
-        then rejoins with a fresh acceptance window."""
-        if not self._spec_on or not self._slots or not self._spec_gate():
+        then rejoins with a fresh acceptance window.  In linear mode a
+        constrained slot makes the whole batch step plainly (counted as
+        ``constraint.spec_fallbacks``): a draft's proposals cannot be
+        masked without walking the automaton mid-chunk; tree mode prunes
+        banned branches instead (:meth:`_prune_branches_constrained`)."""
+        if not self._spec_on or not self._slots:
+            return False
+        if self._constrained_active() and not self._spec_tree_n:
+            self._count("constraint.spec_fallbacks")
+            return False
+        if not self._spec_gate():
             return False
         alive = False
         for st in self._slots.values():
@@ -1704,10 +1852,12 @@ class DecodeServer:
         tokens = np.repeat(tok[:, None], K, axis=1)
         for slot, (draft, _) in props.items():
             tokens[slot, 1:1 + len(draft[:K - 1])] = draft[:K - 1]
-        kind = f"spec_verify@{K}"
+        # with a pool the verify gathers each slot's own adapter: accepted
+        # tokens are the adapted target's, whatever the base draft said
+        kind = f"{self._kind('spec_verify')}@{K}"
         self._fault_check(kind)
-        fn = engine.ENGINE.get("spec_verify", self._spec(k=K))
-        (logits,) = fn(self._host(tokens), self._host(pos))
+        fn = engine.ENGINE.get(self._kind("spec_verify"), self._spec(k=K))
+        (logits,) = fn(*self._ids(), self._host(tokens), self._host(pos))
         self._step_no += 1              # after the call: see _tick_impl
         self._spec_rounds += 1
         guard = self._resil and (_faults.active()
@@ -1741,7 +1891,8 @@ class DecodeServer:
                 st["generated"].append(t)
                 st["pos"] += 1
                 kept += 1
-                if self._finished(st, t):
+                fin = self._constraint_push(st, t)
+                if self._finished(st, t) or fin:
                     done.append(slot)
                     break
             appended.append((st, kept))
@@ -1794,13 +1945,18 @@ class DecodeServer:
         else:
             props = self._spec_tree_propose_draft(N, b)
         total = 0
-        for tp in props.values():
+        for slot, tp in props.items():
             n = len(tp["tokens"])
             tp["depth"] = generate.tree_depths(tp["parent"])
+            tp["live"] = [True] * n
             total += n - 1
+            st = self._slots[slot]
+            if st.get("constraint") is not None:
+                self._prune_branches_constrained(st, tp)
             kids: dict = {}
             for j in range(1, n):
-                kids.setdefault(tp["parent"][j], []).append(j)
+                if tp["live"][j]:
+                    kids.setdefault(tp["parent"][j], []).append(j)
             tp["children"] = kids
         if total:
             self._count("spec.tree_nodes_proposed", total)
@@ -1898,6 +2054,30 @@ class DecodeServer:
                            "dsteps": len(r["trunk"]), "qs": r["qs"]}
         return props
 
+    def _prune_branches_constrained(self, st, tp):
+        """Before the verify pass, walk ``adapters.constraint_lookahead``
+        cursors down one slot's proposed tree from the request's current
+        automaton state (never moved: acceptance advances the real state
+        through :meth:`_constraint_push`) and mark every node whose token
+        the grammar bans — and its subtree — dead.  Dead nodes keep their
+        rows in the verify (its shapes are fixed) but leave the candidate
+        set, so no accepted path emits a banned token and
+        ``constraint.spec_fallbacks`` stays put in tree mode."""
+        from . import adapters as _ad
+
+        tokens, parent, live = tp["tokens"], tp["parent"], tp["live"]
+        cursors = {0: _ad.constraint_lookahead(st["constraint"])}
+        pruned = 0
+        for j in range(1, len(tokens)):
+            pl = cursors.get(parent[j])
+            if pl is None or not pl.allows(tokens[j]):
+                live[j] = False       # parent dead, or token banned
+                pruned += 1
+                continue
+            cursors[j] = pl.child(tokens[j])
+        if pruned:
+            self._count("spec.tree_pruned_constrained", pruned)
+
     def _spec_tree_accept(self, st, rows, choice, tp):
         """Resolve one slot's tree round -> (tokens it appends, the
         accepted node path).  ``rows``: its verify logits [N, V] on the
@@ -1907,31 +2087,48 @@ class DecodeServer:
         miss appends the target's own token and a leaf's choice is the
         bonus, so a round emits at least one token, each what stepwise
         greedy decode gives.  Sampled: per-node multi-candidate rejection
-        (:meth:`_spec_tree_sampled`).  The fallback window counts in path
-        lengths: proposed = the tree's depth, accepted = edges taken."""
+        (:meth:`_spec_tree_sampled`).  A constrained slot's rows are masked
+        through a lookahead cursor walked along the path (``rows`` are
+        then always fetched), so each token is the masked plain step's;
+        its automaton itself advances when the tokens are pushed.  The
+        fallback window counts in path lengths: proposed = the deepest
+        live node's depth, accepted = edges taken."""
+        from . import adapters as _ad
+
         if tp is None:
             tokens, depth, children, qs = [None], [0], {}, None
+            live = [True]
         else:
             tokens, depth = tp["tokens"], tp["depth"]
-            children, qs = tp["children"], tp.get("qs")
+            children, qs, live = tp["children"], tp.get("qs"), tp["live"]
+        cst = st.get("constraint")
+        look = _ad.constraint_lookahead(cst) if cst is not None else None
         sampled = st["temperature"] > 0.0
         cur = 0
         toks: list = []
         sel: list = []
         while True:
+            if look is not None and look.exhausted:
+                break                 # the automaton completed mid-path
             kids = children.get(cur, [])
+            row = None if rows is None else rows[cur]
+            if look is not None:
+                row = _ad.apply_constraint_host(row, look)
             if sampled:
-                t, child = self._spec_tree_sampled(st, rows[cur], kids,
-                                                   tokens, depth, qs)
+                t, child = self._spec_tree_sampled(st, row, kids, tokens,
+                                                   depth, qs, look)
             else:
-                t = int(choice[cur])
+                t = int(choice[cur]) if look is None else int(row.argmax())
                 child = next((j for j in kids if tokens[j] == t), None)
             toks.append(t)
+            if look is not None:
+                look = look.child(t)
             if child is None:
                 break
             sel.append(child)
             cur = child
-        maxd = int(max(depth))
+        maxd = max((int(depth[j]) for j in range(len(tokens)) if live[j]),
+                   default=0)
         if maxd:
             self._spec_prop += maxd
             self._spec_acc += len(sel)
@@ -1946,7 +2143,8 @@ class DecodeServer:
         self._tree_path_cnt += 1
         return toks, sel
 
-    def _spec_tree_sampled(self, st, row, kids, tokens, depth, qs):
+    def _spec_tree_sampled(self, st, row, kids, tokens, depth, qs,
+                           look=None):
         """SpecInfer's sequential multi-candidate rejection at one node:
         children x_1..x_m in proposal order are tested against the target
         law p — accept x_i with probability min(1, p(x_i) / q_i(x_i)),
@@ -1955,8 +2153,11 @@ class DecodeServer:
         proposer drew x_{i+1} from.  All rejected: a draw from the final
         residual; no children: a draw from p (the bonus).  Self-drafted
         children are point masses (q_i = 1 at x_i): accept with p(x_i),
-        zero x_i out of p.  Every emitted token's law is p.  Returns
-        (token, accepted child or None)."""
+        zero x_i out of p.  Every emitted token's law is p.  Under a
+        constraint (``look``, the cursor at this node) ``row`` is already
+        masked and q is the draft's law restricted to the allowed set,
+        renormalized — the law of a proposal that survived pruning.
+        Returns (token, accepted child or None)."""
         gen = self._spec_rng(st)
         p = generate._filtered_probs(row, float(st["temperature"]),
                                      int(st["top_k"]), float(st["top_p"]))
@@ -1964,6 +2165,10 @@ class DecodeServer:
         q = None
         if qs is not None and kids:
             q = np.asarray(qs[int(depth[kids[0]]) - 1], np.float64)
+            if look is not None:
+                q = q * look.allowed_mask()
+                m = float(q.sum())
+                q = q / m if m > 0.0 else None
         for x_node in kids:
             x = tokens[x_node]
             if qs is not None:
@@ -2040,7 +2245,10 @@ class DecodeServer:
                                  or _flags.nan_guard_serving())
         failed = set()
         if guard or any(st["temperature"] > 0.0
+                        or st.get("constraint") is not None
                         for st in self._slots.values()):
+            # the sampled laws, the constrained slots' masked rows and the
+            # NaN guard read the logits
             lnp = self._fetch_wait(self._fetch_start(logits))
             if guard:
                 if _faults.active():
@@ -2071,7 +2279,8 @@ class DecodeServer:
                 st["generated"].append(t)
                 st["pos"] += 1
                 kept += 1
-                if self._finished(st, t):
+                fin = self._constraint_push(st, t)
+                if self._finished(st, t) or fin:
                     done.append(slot)
                     break
             appended.append((st, kept))
@@ -2124,8 +2333,17 @@ class DecodeServer:
         if self._spec_on and self._spec_round():
             return
         if self._async:
-            self._tick_async()
-            return
+            if not self._slots:
+                self._admit()
+            if not self._constrained_active():
+                self._tick_async()
+                return
+            # a constrained slot cannot pipeline: the next step's mask
+            # needs the token the step in flight has not fetched.  Drain
+            # it and run this tick synchronously — the same tokens, one
+            # tick of overlap lost
+            self._drain_inflight()
+            self._count("constraint.sync_fallbacks")
         if not self._slots:
             self._admit()
             if not self._slots:
@@ -2140,19 +2358,36 @@ class DecodeServer:
         self._ensure_decode_blocks(1)
         tok, pos = self._feed_arrays()
         temp, tk, tp = self._sampling_arrays()
+        mask = self._mask_array()
         n = self._step_no
         tok, pos = self._host(tok), self._host(pos)
         logits = None
-        if temp.any():
+        if self._adapters is not None and (temp.any() or mask is not None):
+            # the one adapter step of sampled or constrained pool traffic:
+            # the mask feed is all zero where nothing is constrained
+            self._fault_check("adapter_sample_step")
+            fn = engine.ENGINE.get("adapter_sample", self._spec())
+            (nxt,) = fn(*self._ids(), tok, pos, self._host(self._key(n)),
+                        self._host(temp), self._host(tk), self._host(tp),
+                        self._mask_feed(mask))
+        elif mask is not None:
+            # constrained without a pool: the sampled step plus the mask;
+            # greedy slots take the masked argmax
+            self._fault_check("masked_step")
+            fn = engine.ENGINE.get("masked_step", self._spec())
+            (nxt,) = fn(tok, pos, self._host(self._key(n)), self._host(temp),
+                        self._host(tk), self._host(tp), self._mask_feed(mask))
+        elif temp.any():
             self._fault_check("moe_sample_step" if self.cfg.moe is not None
                               else "sample_step")
             fn = engine.ENGINE.get(self._kind("sample"), self._spec())
             (nxt,) = fn(tok, pos, self._host(self._key(n)), self._host(temp),
                         self._host(tk), self._host(tp), *self._act())
         else:
-            self._fault_check("step")
+            self._fault_check("adapter_step" if self._adapters is not None
+                              else "step")
             fn = engine.ENGINE.get(self._kind("step"), self._spec())
-            (logits,) = fn(tok, pos, *self._act())
+            (logits,) = fn(*self._ids(), tok, pos, *self._act())
             nxt = torch.argmax(logits, dim=-1)
         # the step counter advances only after the step call returned: a
         # failed call leaves the host state as it was, so the guard's
@@ -2176,7 +2411,8 @@ class DecodeServer:
             t = int(nxt[slot])
             st["generated"].append(t)
             appended.append((st, 1))
-            if self._finished(st, t):
+            fin = self._constraint_push(st, t)
+            if self._finished(st, t) or fin:
                 done.append(slot)
         for slot in failed:
             self._fail_request(self._slots.pop(slot), slot,
@@ -2248,9 +2484,13 @@ class DecodeServer:
         # a slot at pos == len(prompt)-1 is fine for block decode (its
         # feed token is the prompt's last; everything after is feedback);
         # admitting slots take single ticks too: one chunk a tick is the
-        # budgeted interleaving; an MoE block is greedy only
-        if self._stepwise() or (self.cfg.moe is not None and any(
-                st["temperature"] > 0.0 for st in self._slots.values())):
+        # budgeted interleaving; an MoE or adapter block is greedy only;
+        # a constrained slot's mask for step j + 1 needs step j's token
+        # on the host
+        if self._stepwise() or self._constrained_active() or (
+                (self.cfg.moe is not None or self._adapters is not None)
+                and any(st["temperature"] > 0.0
+                        for st in self._slots.values())):
             for _ in range(block):
                 self.tick()
                 if not self._slots:
@@ -2273,7 +2513,7 @@ class DecodeServer:
             # shrinks mid-block: the block-overrun tradeoff)
             self._fault_check(f"{self._kind('block')}@{block}")
             fn = engine.ENGINE.get(self._kind("block"), self._spec(k=block))
-            (toks,) = fn(tok, pos, *self._act())
+            (toks,) = fn(*self._ids(), tok, pos, *self._act())
         self._step_no = n + block        # after the call: see tick
         toks = self._fetch_wait(self._fetch_start(toks))
         done, appended = [], []
@@ -2284,7 +2524,8 @@ class DecodeServer:
                 st["generated"].append(t)
                 st["pos"] += 1
                 kept += 1
-                if self._finished(st, t):
+                fin = self._constraint_push(st, t)
+                if self._finished(st, t) or fin:
                     done.append(slot)
                     break
             appended.append((st, kept))
@@ -2362,7 +2603,14 @@ class DecodeServer:
         feeds = (self._host(ht), self._host(pm), self._prev_feed(prev),
                  self._host(pos))
         try:
-            if self.cfg.moe is not None:
+            if self._adapters is not None:
+                # one adapter step serves greedy and sampled slots (no
+                # mask: constrained slots never dispatch async)
+                self._fault_check("adapter_async_step")
+                fn = engine.ENGINE.get("adapter_async", self._spec())
+                (nxt,) = fn(*self._ids(), *feeds, self._host(self._key(n)),
+                            self._host(temp), self._host(tk), self._host(tp))
+            elif self.cfg.moe is not None:
                 # one joint-routing step serves greedy and sampled slots
                 self._fault_check("moe_async_step")
                 fn = engine.ENGINE.get("moe_async", self._spec())
@@ -2457,7 +2705,10 @@ class DecodeServer:
                 t = int(toks[slot])
                 st["generated"].append(t)
                 appended.append((st, 1))
-                if self._finished(st, t):
+                # constrained slots never dispatch async; the push covers
+                # a slot admitted in the drain that ends the pipeline
+                fin = self._constraint_push(st, t)
+                if self._finished(st, t) or fin:
                     done.append(slot)
             else:
                 kept = 0
@@ -2465,7 +2716,8 @@ class DecodeServer:
                     t = int(toks[slot, j])
                     st["generated"].append(t)
                     kept += 1
-                    if self._finished(st, t):
+                    fin = self._constraint_push(st, t)
+                    if self._finished(st, t) or fin:
                         done.append(slot)
                         break
                 appended.append((st, kept))
@@ -2517,14 +2769,17 @@ class DecodeServer:
         in-flight dispatch is processed — the same tokens.  So does an
         MoE server always: a block would freeze the occupancy mask over
         k steps while the async overrun keeps retired slots contending;
-        the stepwise ``moe_async`` step reads occupancy every tick."""
+        the stepwise ``moe_async`` step reads occupancy every tick.  A
+        pool-attached server (no async adapter block) and a constrained
+        batch (each mask needs the last token) take stepwise ticks too."""
         prev, self._inflight = self._inflight, None
         if not self._slots:
             self._admit()
             if not self._slots:
                 self._gap_anchor = None
                 return
-        if self._stepwise() or self.cfg.moe is not None:
+        if self._stepwise() or self.cfg.moe is not None \
+                or self._adapters is not None or self._constrained_active():
             if prev is not None:
                 self._process_inflight(prev)
             for _ in range(block):
@@ -2539,6 +2794,71 @@ class DecodeServer:
             raise
         if prev is not None:
             self._process_inflight(prev)
+
+    # -- multi-tenant serving: adapter ids and constraint masks ------------
+
+    def _constrained_active(self) -> bool:
+        """Whether some slot decodes under a constraint automaton: the
+        gate of every path that cannot take one (async pipelining, device
+        blocks, linear speculation) — a masked step needs the previous
+        token on the host to build its mask."""
+        return any(st.get("constraint") is not None
+                   for st in self._slots.values())
+
+    def _gather_adapter_ids(self):
+        """Per-slot adapter ids [max_batch] int64 for this dispatch (free
+        slots read row 0, the zero delta); counts
+        ``adapters.gather_steps``."""
+        ids = np.zeros((self.max_batch,), np.int64)
+        for slot, st in self._slots.items():
+            ids[slot] = st["adapter"]
+        self._count("adapters.gather_steps")
+        return ids
+
+    def _mask_array(self):
+        """The [B, V] additive constraint mask of the next step, built on
+        the host from each constrained slot's automaton
+        (``adapters.mask_logits``, which counts
+        ``constraint.masked_tokens``), or None when no decoding slot is
+        constrained.  Admitting and prompt-feeding slots are left out:
+        their step output is never kept."""
+        cons = {slot: st["constraint"]
+                for slot, st in self._slots.items()
+                if st.get("constraint") is not None
+                and not st.get("admitting")
+                and st["pos"] >= len(st["prompt"]) - 1}
+        if not cons:
+            return None
+        from . import adapters as _ad
+
+        return _ad.mask_logits(cons, self.max_batch, self.cfg.vocab_size)
+
+    def _mask_feed(self, mask):
+        """The mask as the sampling step's feed: one [B, V] float32 host
+        buffer, pinned on a card and made once, overwritten in place each
+        tick (zeros where ``mask`` is None) — the graph copies it into its
+        static input.  Safe to reuse: every masked tick fetches its tokens
+        before the next one writes the buffer."""
+        if self._mask_buf is None:
+            self._mask_buf = self._host(np.zeros(
+                (self.max_batch, self.cfg.vocab_size), np.float32))
+        buf = self._mask_buf.numpy()
+        if mask is None:
+            buf.fill(0.0)
+        else:
+            np.copyto(buf, mask)
+        return self._mask_buf
+
+    def _constraint_push(self, st, t: int) -> bool:
+        """Advance the slot's automaton past the token it just emitted;
+        True when the constraint is exhausted (it accepted a complete
+        output and allows nothing more): the slot retires whatever
+        max_new, eos or stop say."""
+        cst = st.get("constraint")
+        if cst is None:
+            return False
+        cst.advance(t)
+        return cst.exhausted
 
     # -- resilience: the guarded tick, the OOM ladder, wedge recovery ------
 
@@ -2679,6 +2999,8 @@ class DecodeServer:
             "temperature": st["temperature"], "top_k": st["top_k"],
             "top_p": st["top_p"], "ttl": st["ttl"],
             "priority": st["priority"], "tenant": st["tenant"],
+            "adapter": st["adapter"], "adapter_name": st["adapter_name"],
+            "constraint": st["constraint_spec"],
             "trace": st["trace"], "evictions": evictions,
             "carry": list(st["generated"]), "t_submit": st["t_submit"],
             # the class sort keeps the request's place: its first
@@ -2774,6 +3096,13 @@ class DecodeServer:
                              sum(1 for st in self._slots.values()
                                  if st.get("admitting")))
         _telemetry.set_gauge("serving.kv_utilization", self._kv_util())
+        if self._adapters is not None:
+            # per-adapter active slots, every registered name each sample
+            # (a retired adapter's gauge drops to 0)
+            active = self._adapters_active()
+            for nm in list(self._adapters.names()) + ["base"]:
+                _telemetry.set_gauge(f'adapters.active{{adapter="{nm}"}}',
+                                     active.get(nm, 0))
         if self._spec_on and self._spec_prop:
             _telemetry.set_gauge("serving.spec_accept_rate",
                                  self._spec_acc / self._spec_prop)
@@ -2785,6 +3114,14 @@ class DecodeServer:
                                  self._pool.blocks_in_use)
             _telemetry.set_gauge("kv_pool.host_spill_bytes",
                                  self._pool.host_spill_bytes)
+
+    def _adapters_active(self) -> dict:
+        """Active slots per adapter name ("base" for id 0)."""
+        out: dict = {}
+        for st in self._slots.values():
+            nm = st.get("adapter_name") or "base"
+            out[nm] = out.get(nm, 0) + 1
+        return out
 
     def _tel_retire(self, st, slot: int):
         """End of a request's life: its end-to-end latency and event."""
@@ -2845,14 +3182,19 @@ class DecodeServer:
                 self._observe("serving.tpot_ms", per_tok, n=n)
         self._count("serving.tokens_generated", total)
 
-    def warmup(self, prompt_lens=None, blocks=(), sample: bool = False):
+    def warmup(self, prompt_lens=None, blocks=(), sample: bool = False,
+               constrained: bool = False):
         """Build (on the card: capture) every step this server will serve
-        before its first request: ``Engine.warmup`` (text/engine.py).
-        Requires an idle server; leaves the step counter, the kernels'
-        launch counters and every request's state as they were.  Returns
-        {step: seconds}."""
+        before its first request: ``Engine.warmup`` (text/engine.py) —
+        with an adapter pool every site's adapter twin (ids all zero), and
+        ``sample`` or ``constrained`` the ``adapter_sample`` step;
+        ``constrained=True`` without a pool the ``masked_step``.  Requires
+        an idle server; leaves the step counter, the kernels' launch
+        counters and every request's state as they were.  Returns {step:
+        seconds}."""
         return engine.ENGINE.warmup(self, prompt_lens=prompt_lens,
-                                    blocks=blocks, sample=sample)
+                                    blocks=blocks, sample=sample,
+                                    constrained=constrained)
 
     # -- results and state --------------------------------------------------
 
@@ -2933,7 +3275,10 @@ class DecodeServer:
         speculative acceptance rate (``spec_accept_rate``: accepted over
         scored proposals, None before the first) and, in tree mode, the
         mean accepted path length a slot-round (``spec_tree_accept_len``,
-        None before the first round).  An MoE server adds its routing
+        None before the first round), the slots decoding under a
+        constraint (``constrained_slots``) and, with an adapter pool, the
+        active slots per adapter name (``adapters_active``, "base" for id
+        0).  An MoE server adds its routing
         totals, drained from the device accumulator (:meth:`_moe_snapshot`,
         which waits for the steps in flight and advances the ``moe.*``
         telemetry): ``moe_dropped_tokens`` (cumulative dropped
@@ -2968,7 +3313,11 @@ class DecodeServer:
             "spec_tree_accept_len": (self._tree_path_sum
                                      / self._tree_path_cnt
                                      if self._tree_path_cnt else None),
+            "constrained_slots": sum(1 for st in self._slots.values()
+                                     if st.get("constraint") is not None),
         }
+        if self._adapters is not None:
+            stats["adapters_active"] = self._adapters_active()
         if self._moe_stats is not None:
             stats["moe_dropped_tokens"], stats["moe_expert_load"] = \
                 self._moe_snapshot()
@@ -3000,7 +3349,10 @@ class DecodeServer:
         server adds ``spec.*`` (proposed, accepted, draft steps, n-gram
         hits and misses, fallbacks, re-earns; tree rounds, nodes proposed
         and accepted) and
-        ``admission.spec_forced``.  Empty with
+        ``admission.spec_forced``; a pool-attached server
+        ``adapters.gather_steps``; constrained traffic
+        ``constraint.sync_fallbacks`` and ``constraint.spec_fallbacks``
+        (``constraint.masked_tokens`` is the registry's).  Empty with
         ``PADDLE_TPU_TELEMETRY=0``."""
         return dict(sorted(self._counts.items()))
 

@@ -21,9 +21,17 @@ expert stacks (``blocks["moe"]`` ``w_in`` [L, E, D, F], ``w_out``
 [L, E, F, D]) quantize the same way, per output channel or in groups
 along the input dim, and the experts' batched matmuls read them through
 ``w`` (the W4 kernel takes 2-D weights only); the router stays float (a
-routing flip is a far larger error than its bytes are worth).  LoRA
-adapters (the JAX package's ``<name>_lora_a`` / ``_lora_b`` leaves) are
-not ported: ``w`` raises on them.
+routing flip is a far larger error than its bytes are worth).
+
+LoRA (``text/lora.py``): an adapter pair ``<name>_lora_a`` [..., in, r] /
+``<name>_lora_b`` [..., r, out] beside a weight makes ``w`` add the delta
+``a @ b`` after dequantization, as the JAX accessor does — LoRA over a
+float base, QLoRA over an int8/int4 one; such a weight never takes the
+W4 kernel.  A served adapter pool (``text/adapters.py``) instead puts
+each slot's pair beside the weight as ``<name>_lora_sa`` / ``_lora_sb``
+(one row a slot, gathered from the pool's stacks by the ``lora_ids``
+leaf): ``mm`` / ``mm_stacked`` then add the per-slot rank-r term
+``(h @ A[ids]) @ B[ids]`` to the base product, which keeps its route.
 """
 from __future__ import annotations
 
@@ -133,25 +141,70 @@ def _packed(arr, s) -> bool:
         and s.dim() == arr.dim() + 1
 
 
+def logical_shape(p, name: str) -> tuple:
+    """Weight ``name``'s [..., in, out] shape: a packed int4 weight's
+    input dim unpacked (two rows a byte)."""
+    arr = p[name]
+    shp = tuple(arr.shape)
+    if _packed(arr, p.get(name + "_s")):
+        shp = shp[:-2] + (2 * shp[-2], shp[-1])
+    return shp
+
+
 def w(p, name: str, dt):
     """Weight ``name`` in the compute dtype: a cast of a float weight; an
     int8 weight times its scale; a packed int4 weight unpacked to
     [..., in, out] in original row order and times its group scale — each
-    dequantized in ``dt``."""
-    if name + "_lora_a" in p:
-        raise NotImplementedError(
-            f"{name}: LoRA-adapted weights are not ported yet")
+    dequantized in ``dt`` — plus, beside a LoRA pair ``<name>_lora_a`` /
+    ``<name>_lora_b``, the delta ``a @ b`` in ``dt``."""
     arr = p[name]
     if arr.dtype != torch.int8:
-        return arr.to(dt)
-    s = p[name + "_s"]
-    if not _packed(arr, s):
-        return arr.to(dt) * s.to(dt)
-    q = unpack_int4(arr)
-    shp = q.shape
-    G = s.shape[-3]
-    grouped = q.reshape(*shp[:-2], G, shp[-2] // G, shp[-1])
-    return (grouped.to(dt) * s.to(dt)).reshape(shp)
+        out = arr.to(dt)
+    else:
+        s = p[name + "_s"]
+        if not _packed(arr, s):
+            out = arr.to(dt) * s.to(dt)
+        else:
+            q = unpack_int4(arr)
+            shp = q.shape
+            G = s.shape[-3]
+            grouped = q.reshape(*shp[:-2], G, shp[-2] // G, shp[-1])
+            out = (grouped.to(dt) * s.to(dt)).reshape(shp)
+    a = p.get(name + "_lora_a")
+    if a is not None:
+        # the low-rank delta after dequantization, in dt (LoRA / QLoRA)
+        out = out + a.to(dt) @ p[name + "_lora_b"].to(dt)
+    return out
+
+
+def _slot_delta(h, p, name: str, dt):
+    """The served adapters' per-slot rank-r term of ``h @ w`` for a 2-D
+    weight, or None: h [B, ..., in] (row b is slot b), the slot pairs
+    gathered as A [B, in, r], B [B, r, out] -> [B, ..., out]."""
+    sa = p.get(name + "_lora_sa")
+    if sa is None:
+        return None
+    ids = p["lora_ids"]
+    a = sa.index_select(0, ids).to(dt)
+    b = p[name + "_lora_sb"].index_select(0, ids).to(dt)
+    hf = h.to(dt).reshape(h.shape[0], -1, h.shape[-1])
+    return torch.bmm(torch.bmm(hf, a), b).reshape(*h.shape[:-1],
+                                                  b.shape[-1])
+
+
+def _slot_delta_stacked(h, p, name: str, dt):
+    """:func:`_slot_delta` for a stacked [k, in, out] weight: A [B, k, in,
+    r], B [B, k, r, out] -> [k, B, ..., out] (``mm_stacked``'s form)."""
+    sa = p.get(name + "_lora_sa")
+    if sa is None:
+        return None
+    ids = p["lora_ids"]
+    a = sa.index_select(0, ids).to(dt)
+    b = p[name + "_lora_sb"].index_select(0, ids).to(dt)
+    hf = h.to(dt).reshape(h.shape[0], -1, h.shape[-1])
+    t = torch.einsum("bnd,bkdr->kbnr", hf, a)
+    d = torch.einsum("kbnr,bkrf->kbnf", t, b)
+    return d.reshape(d.shape[0], *h.shape[:-1], d.shape[-1])
 
 
 def _w4_qualifies(p, name: str, ndim: int) -> bool:
@@ -165,10 +218,14 @@ def _w4_qualifies(p, name: str, ndim: int) -> bool:
 
 def mm(h, p, name: str, dt):
     """``h @ w(p, name, dt)``; a packed int4 2-D weight under
-    ``PADDLE_TPU_W4_KERNEL=1`` runs ``w4_matmul`` on the packed bytes."""
+    ``PADDLE_TPU_W4_KERNEL=1`` runs ``w4_matmul`` on the packed bytes.
+    Served adapters add their per-slot term (:func:`_slot_delta`)."""
     if _w4_qualifies(p, name, 2):
-        return w4_matmul(h.to(dt), p[name], p[name + "_s"])
-    return h @ w(p, name, dt)
+        out = w4_matmul(h.to(dt), p[name], p[name + "_s"])
+    else:
+        out = h @ w(p, name, dt)
+    d = _slot_delta(h, p, name, dt)
+    return out if d is None else out + d
 
 
 def mm_stacked(h, p, name: str, dt):
@@ -177,15 +234,18 @@ def mm_stacked(h, p, name: str, dt):
     output is contiguous (each [k] slice is a contiguous tensor the
     attention kernels can take as it is).  A packed int4 weight under
     ``PADDLE_TPU_W4_KERNEL=1`` runs one ``w4_matmul`` per stack slice,
-    stacked."""
+    stacked.  Served adapters add their per-slot term."""
     if _w4_qualifies(p, name, 3):
         hq = h.to(dt)
         arr, s = p[name], p[name + "_s"]
-        return torch.stack([w4_matmul(hq, arr[i], s[i])
-                            for i in range(arr.shape[0])])
-    wt = w(p, name, dt)
-    out = h.reshape(1, -1, h.shape[-1]) @ wt
-    return out.reshape(wt.shape[0], *h.shape[:-1], wt.shape[-1])
+        out = torch.stack([w4_matmul(hq, arr[i], s[i])
+                           for i in range(arr.shape[0])])
+    else:
+        wt = w(p, name, dt)
+        out = (h.reshape(1, -1, h.shape[-1]) @ wt).reshape(
+            wt.shape[0], *h.shape[:-1], wt.shape[-1])
+    d = _slot_delta_stacked(h, p, name, dt)
+    return out if d is None else out + d
 
 
 def embed(params, token, dt):

@@ -349,8 +349,8 @@ def test_warmup_after_a_drain_keeps_the_prefix_rows(async_):
             srv.warmup()
         seen = []
         prefill = srv._prefill_slot
-        srv._prefill_slot = lambda p, s: seen.append(
-            prefill(p, s).clone()) or seen[-1]
+        srv._prefill_slot = lambda p, s, *a: seen.append(
+            prefill(p, s, *a).clone()) or seen[-1]
         _serve(srv, [prompt], max_new_tokens=3)
         assert srv.load_stats()["kv_pool"]["prefix_hits"] >= 16
         return seen[0]

@@ -13,9 +13,10 @@ JAX package's (paddle_tpu/text/engine.py), on the CPU.
 * the counter-based sampling stream: a pure function of (key, element),
   drawing in distribution;
 * the speculative ``spec_verify``, ``spec_tree_verify`` and
-  ``spec_tree_commit`` kinds, ``beam_search``'s ``beam`` kind and the
-  ``moe_*`` kinds are keyed as the JAX registry keys them (``beam`` plus
-  the prompt shape);
+  ``spec_tree_commit`` kinds, ``beam_search``'s ``beam`` kind, the
+  ``moe_*`` kinds, ``masked_step`` and the ``adapter_*`` kinds (their
+  ``pkey``, the pool's geometry, among the fields) are keyed as the JAX
+  registry keys them (``beam`` plus the prompt shape);
 * ``generate`` runs as the Engine's ``generate`` kind: greedy fp32 tokens
   equal to the JAX ``generate``'s, keyed as the JAX registry keys it plus
   the prompt shape, its step and cache reused by a second call of the
@@ -41,7 +42,9 @@ from paddle_tpu_torch.text import engine, gpt, serving
 from paddle_tpu_torch.text import generate as G
 
 _FIELDS = dict(paged=(False, True), bucket=(8, 16), width=(4, 8),
-               k=(2, 4), extra=((8, 0, 1.0), (16, 3, 0.9)))
+               k=(2, 4), extra=((8, 0, 1.0), (16, 3, 0.9)),
+               pkey=(("adapters", 3, 4, ("qkv_w", "proj_w")),
+                     ("adapters", 5, 8, ("qkv_w",))))
 _READS = {"step": {"paged"}, "sample": {"paged"}, "async": {"paged"},
           "block": {"paged", "k"}, "sample_block": {"paged", "k"},
           "async_block": {"paged", "k"},
@@ -53,7 +56,15 @@ _READS = {"step": {"paged"}, "sample": {"paged"}, "async": {"paged"},
           "beam": {"extra"}, "moe_step": {"paged"}, "moe_sample": {"paged"},
           "moe_block": {"paged", "k"}, "moe_async": {"paged"},
           "moe_prefill": {"bucket"}, "moe_prefill_chunk": {"width"},
-          "moe_paged_prefill": {"bucket"}, "moe_verify": {"paged", "k"}}
+          "moe_paged_prefill": {"bucket"}, "moe_verify": {"paged", "k"},
+          "masked_step": {"paged"}, "adapter_step": {"paged", "pkey"},
+          "adapter_sample": {"paged", "pkey"},
+          "adapter_block": {"paged", "k", "pkey"},
+          "adapter_async": {"paged", "pkey"},
+          "adapter_spec_verify": {"paged", "k", "pkey"},
+          "adapter_prefill": {"bucket", "pkey"},
+          "adapter_prefill_chunk": {"width", "pkey"},
+          "adapter_paged_prefill": {"bucket", "pkey"}}
 
 
 def _cfg(**kw):

@@ -1221,8 +1221,8 @@ def test_graphed_warmup_after_a_drain_keeps_the_prefix_rows(async_,
             srv.warmup()
         seen = []
         prefill = srv._prefill_slot
-        srv._prefill_slot = lambda p, s: seen.append(
-            prefill(p, s).clone()) or seen[-1]
+        srv._prefill_slot = lambda p, s, *a: seen.append(
+            prefill(p, s, *a).clone()) or seen[-1]
         _serve_all(srv, prompts[1:2])
         assert srv.load_stats()["kv_pool"]["prefix_hits"] >= 32
         srv.close()
@@ -1905,3 +1905,120 @@ def test_normal_draws_on_the_card_are_the_cpus():
     cpu = rng.normal(key, shape, "cpu")
     assert card.dtype == torch.float32
     torch.testing.assert_close(card.cpu(), cpu, atol=1e-6, rtol=0)
+
+
+def _adapter_pool(cfg, params, n=2, rank=4, seed=0):
+    """A pool of ``n`` rank-``rank`` adapters over ``params`` whose b is
+    drawn (0.3 x N(0, 1)), so each bites; returns (pool, adapters)."""
+    from paddle_tpu_torch.text import adapters, lora
+
+    pool = adapters.AdapterPool(params, cfg, rank=rank, max_adapters=n + 1)
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    ads = []
+    for i in range(n):
+        ad = lora.split_lora(lora.lora_init(params, cfg, rank=rank,
+                                            key=seed + i))[1]
+        ad = {k: (0.3 * torch.randn(v.shape, generator=gen, device="cuda")
+                  if k.endswith("_lora_b") else v) for k, v in ad.items()}
+        pool.register(f"ad-{i + 1}", ad)
+        ads.append(ad)
+    return pool, ads
+
+
+@pytest.mark.parametrize("case", ["contiguous", "paged"])
+def test_adapter_step_graph_equals_the_eager_step(case, monkeypatch):
+    """From one cache state, the captured ``adapter_step`` with mixed ids
+    gives the eager body's logits bit for bit, and its ``adapter_block``
+    the eager block's tokens."""
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case(case, monkeypatch)
+    pool, _ = _adapter_pool(cfg, params)
+    out = {}
+    for graphs in (False, True):
+        srv = _graph_server(cfg, params, case, graphs, adapter_pool=pool)
+        for i, p in enumerate(prompts[:4]):
+            srv.submit(p, max_new_tokens=12,
+                       adapter=None if i % 3 == 0 else f"ad-{i % 3}")
+        srv._ensure_decode_blocks(4)
+        tok, pos = srv._feed_arrays()
+        tok, pos = srv._host(tok), srv._host(pos)
+        (ids,) = srv._ids()
+        (logits,) = engine.ENGINE.get("adapter_step", srv._spec())(
+            ids, tok, pos)
+        logits = logits.clone()
+        (toks,) = engine.ENGINE.get("adapter_block", srv._spec(k=4))(
+            ids, tok, pos)
+        out[graphs] = (logits, toks.clone())
+        srv.close()
+    assert torch.equal(out[True][0], out[False][0])
+    assert torch.equal(out[True][1], out[False][1])
+
+
+def test_register_after_warmup_captures_nothing_and_serves_the_row(
+        monkeypatch):
+    """A register after warmup writes its pool row in place: serving that
+    adapter then captures no graph and builds no step, and its streams
+    are those of an eager server that had the adapter from the start."""
+    from paddle_tpu_torch import telemetry as tl
+    from paddle_tpu_torch.text import engine, lora
+
+    cfg, params, prompts = _graph_case("contiguous", monkeypatch)
+    pool, ads = _adapter_pool(cfg, params, n=1)
+    srv = _graph_server(cfg, params, "contiguous", True, adapter_pool=pool)
+    srv.warmup(prompt_lens=list(_GRAPH_LENS))
+    graphs = {g.name: g for g in engine.ENGINE.graphs(srv._bind)}
+    builds = len(tl.compile_log())
+    fresh = _adapter_pool(cfg, params, n=1, seed=5)[1][0]
+    pool.register("ad-2", fresh)
+    got = _serve_all(srv, prompts[:3], adapter="ad-2")
+    assert len(tl.compile_log()) == builds
+    assert {g.name: g for g in engine.ENGINE.graphs(srv._bind)} == graphs
+    assert graphs["serving.adapter_step"].replays > 1
+    srv.close()
+    ref_pool, _ = _adapter_pool(cfg, params, n=0)
+    ref_pool.register("ad-2", fresh)
+    eager = _graph_server(cfg, params, "contiguous", False,
+                          adapter_pool=ref_pool)
+    assert got == _serve_all(eager, prompts[:3], adapter="ad-2")
+    eager.close()
+    merged = lora.merge_lora(lora.join_lora(params, fresh))
+    base = _graph_server(cfg, merged, "contiguous", False)
+    solo = _serve_all(base, prompts[:3])
+    base.close()
+    assert got == solo
+
+
+def test_masked_step_greedy_pick_is_the_masked_argmax(monkeypatch):
+    """The captured ``masked_step`` at temperature 0 returns, per slot,
+    the argmax of the step's logits plus the mask, from the same cache
+    state as the eager step's logits."""
+    from paddle_tpu_torch.text import engine
+
+    cfg, params, prompts = _graph_case("contiguous", monkeypatch)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    out = {}
+    for graphs in (False, True):
+        srv = _graph_server(cfg, params, "contiguous", graphs)
+        for p in prompts[:4]:
+            srv.submit(p, max_new_tokens=12)
+        tok, pos = srv._feed_arrays()
+        tok, pos = srv._host(tok), srv._host(pos)
+        if not graphs:
+            (logits,) = engine.ENGINE.get("step", srv._spec())(tok, pos)
+            logits = logits.clone()
+        else:
+            B, V = 4, cfg.vocab_size
+            allowed = torch.rand(B, V, generator=gen, device="cuda") < 0.1
+            mask = torch.where(allowed, 0.0, -1e30).float().cpu()
+            z = torch.zeros(B)
+            (nxt,) = engine.ENGINE.get("masked_step", srv._spec())(
+                tok, pos, srv._host(srv._key(0)), z, z.long(),
+                torch.ones(B), mask)
+            nxt = nxt.clone()
+            assert engine.ENGINE.graphs(srv._bind)
+        srv.close()
+        out[graphs] = logits if not graphs else nxt
+    want = torch.argmax(out[False] + mask.cuda(), dim=-1)
+    assert torch.equal(out[True], want)
+    assert bool(allowed[torch.arange(4, device="cuda"), out[True]].all())

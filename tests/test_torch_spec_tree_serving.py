@@ -1,8 +1,7 @@
 """Tree speculation in the port's server (paddle_tpu_torch/text/serving.py
 ``DecodeServer(spec_tree=N)``, the Engine's ``spec_tree_verify`` and
 ``spec_tree_commit`` kinds) against the JAX tree server, on the CPU —
-the cases of ``tests/test_spec_tree.py`` but the constrained ones (the
-port has no constraints yet):
+the cases of ``tests/test_spec_tree.py``:
 
 * greedy: a tree server's streams equal the plain server's and the JAX
   tree server's token for token, with the ``spec.*`` / ``serving.*``
@@ -21,7 +20,11 @@ port has no constraints yet):
   (each against the JAX server's tokens and counters), the window's edge,
   a warmed server building nothing while it serves, the accept-length
   gauge, ``PADDLE_TPU_SPEC_TREE`` read, validated and keyed, and the
-  constructor's refusals.
+  constructor's refusals;
+* constrained slots keep speculating through pruned trees: greedy streams
+  equal to the plain constrained server's and the JAX tree server's,
+  banned branches pruned (``spec.tree_pruned_constrained``), sampled
+  streams inside the language, ``constraint.spec_fallbacks`` at 0.
 
 The JAX tree servers run once per configuration, in a module fixture.
 Models are the reference suite's random one (vocab 32, 2 layers) in fp32
@@ -425,9 +428,10 @@ def test_spec_tree_flag(monkeypatch):
 
 
 def test_tree_rejects_bad_construction():
-    """The reference's refusals (its adapter-pool case aside: the port has
-    no pools): tree and linear K together, a 1-node tree, a tree past the
-    window, a negative budget — each a ValueError in both packages."""
+    """The reference's refusals (its adapter-pool case is in
+    test_torch_adapters.py): tree and linear K together, a 1-node tree, a
+    tree past the window, a negative budget — each a ValueError in both
+    packages."""
     cases = [dict(spec_tree=4, spec_k=4), dict(spec_tree=1),
              dict(spec_tree=16, max_len=16), dict(spec_tree=-1),
              dict(spec_tree=4, spec_k=2, draft=_drafts()["self"])]
@@ -443,3 +447,84 @@ def test_tree_rejects_bad_construction():
                   max_len=48, spec_tree=4, spec_k=0)
     assert srv._spec_tree_n == 4 and srv.draft_cfg is not None
     srv.close()
+
+
+# ---------------------------------------------------------------------------
+# constrained slots: pruned trees instead of the fallback
+# ---------------------------------------------------------------------------
+
+
+def _constrained(pkg, model, prompts, allowed, draft=None, max_new=8,
+                 temperature=0.0, **kw):
+    """One constrained serve: (streams, counters it added)."""
+    before = {**_snap(pkg), **_ckeys(pkg)}
+    srv = _server(pkg, model, draft, max_len=48, **kw)
+    rids = [srv.submit(p, max_new_tokens=max_new, temperature=temperature,
+                       constraint=allowed) for p in prompts]
+    while srv.pending():
+        srv.tick()
+    out = [[int(t) for t in srv.result(r)] for r in rids]
+    srv.close()
+    now = {**_snap(pkg), **_ckeys(pkg)}
+    return out, {k: v - before.get(k, 0) for k, v in now.items()
+                 if v != before.get(k, 0)}
+
+
+def _ckeys(pkg):
+    got = monitor.stats() if pkg == "jax" else tl.counters()
+    return {k: int(v) for k, v in got.items() if k.startswith("constraint.")}
+
+
+def test_tree_constrained_parity_and_zero_fallbacks():
+    """Constrained slots speculate in tree mode: greedy streams equal to
+    the plain constrained server's and the JAX tree server's, tree rounds
+    run, and ``constraint.spec_fallbacks`` does not move."""
+    model = _pair(3)
+    allowed = [2, 5, 9, 11, 17, 23]
+    prompts = [[5, 9, 5, 9, 5, 9], [int(x) for x in
+               np.random.default_rng(5).integers(1, 30, 6)]]
+    ref, _ = _constrained("torch", model, prompts, allowed, max_batch=2)
+    got, d = _constrained("torch", model, prompts, allowed, draft=model,
+                          spec_tree=4, max_batch=2)
+    jgot, jd = _constrained("jax", model, prompts, allowed, draft=model,
+                            spec_tree=4, max_batch=2)
+    assert got == ref == jgot
+    assert all(t in allowed for toks in got for t in toks)
+    assert d.get("spec.tree_rounds", 0) > 0
+    assert d.get("constraint.spec_fallbacks", 0) == 0
+    assert d.get("spec.tree_rounds") == jd.get("spec.tree_rounds")
+
+
+def test_tree_constrained_prunes_forbidden_branches():
+    """A draft whose argmax is the banned token 20: the lookahead prunes
+    those branches before the verify (the pruned counter moves as JAX's),
+    with no fallback and the plain constrained streams."""
+    model = _pair(4)
+    allowed = [3, 6, 12, 19, 25]
+    bad = _biased(model)
+    prompts = [[int(x) for x in np.random.default_rng(6).integers(1, 30, 5)]]
+    ref, _ = _constrained("torch", model, prompts, allowed, max_new=6,
+                          max_batch=1)
+    got, d = _constrained("torch", model, prompts, allowed, draft=bad,
+                          max_new=6, spec_tree=4, max_batch=1)
+    jgot, jd = _constrained("jax", model, prompts, allowed, draft=bad,
+                            max_new=6, spec_tree=4, max_batch=1)
+    assert got == ref == jgot
+    assert d.get("spec.tree_pruned_constrained", 0) > 0
+    assert d.get("spec.tree_pruned_constrained") == \
+        jd.get("spec.tree_pruned_constrained")
+    assert d.get("constraint.spec_fallbacks", 0) == 0
+
+
+def test_tree_constrained_sampled_stays_in_language():
+    """Sampled constrained tree serving: every token inside the allowed
+    set, no fallback."""
+    model = _pair(5)
+    allowed = [2, 5, 9, 11, 17]
+    got, d = _constrained("torch", model, [[4, 7, 4, 7]] * 3, allowed,
+                          draft=model, temperature=1.2, spec_tree=4,
+                          max_batch=2, seed=7)
+    assert all(t in allowed for toks in got for t in toks)
+    assert all(len(toks) == 8 for toks in got)
+    assert d.get("spec.tree_rounds", 0) > 0
+    assert d.get("constraint.spec_fallbacks", 0) == 0

@@ -103,10 +103,12 @@ def test_pack_int4_halves_is_bit_identical_to_jax():
 
 
 def test_moe_and_lora_trees_raise():
-    """LoRA leaves still raise in ``woq.w``.  MoE trees quantize since
-    the MoE slice (the expert stacks as JAX's; tests/test_torch_moe.py
-    holds them bit-equal): here a tree with a ``blocks["moe"]`` subtree
-    no longer raises, and its router stays float."""
+    """MoE trees quantize since the MoE slice (the expert stacks as
+    JAX's; tests/test_torch_moe.py holds them bit-equal): here a tree with
+    a ``blocks["moe"]`` subtree does not raise, and its router stays
+    float.  LoRA leaves no longer raise either since the LoRA slice:
+    ``woq.w`` adds ``a @ b`` after dequantization, on a float and on an
+    int8 weight (tests/test_torch_lora.py holds it against JAX)."""
     _, jp = _float_tree(ARCHS[0])
     tree = convert.params_from_jax(jp)
     blocks = dict(tree["blocks"])
@@ -122,10 +124,14 @@ def test_moe_and_lora_trees_raise():
         got = quant(moe)["blocks"]["moe"]
         assert got["w_in"].dtype == torch.int8 and "w_in_s" in got
         assert got["router_w"].dtype == torch.float32
-    p = gpt.layer(tree, 0)
-    p["proj_w_lora_a"] = torch.zeros(64, 4)
-    with pytest.raises(NotImplementedError, match="LoRA"):
-        woq.w(p, "proj_w", torch.float32)
+    for t in (tree, woq.quantize_gpt_int8(tree)):
+        p = gpt.layer(t, 0)
+        base = woq.w(p, "proj_w", torch.float32)
+        a = torch.randn(64, 4, generator=torch.Generator().manual_seed(0))
+        b = torch.randn(4, 64, generator=torch.Generator().manual_seed(1))
+        p["proj_w_lora_a"], p["proj_w_lora_b"] = a, b
+        assert torch.equal(woq.w(p, "proj_w", torch.float32), base + a @ b)
+        assert not woq._w4_qualifies(p, "proj_w", 2)
 
 
 def _w4_case(N, K, M, gs, dtype, seed=0):
