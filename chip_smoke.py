@@ -236,7 +236,38 @@ Phases, in order; any failure raises and the script exits non-zero:
    teacher-forced routed context of the eager streams); reported: the
    share of served tokens within TIE_TOL of the teacher-forced dense-eval
    best and a dense-eval arm's decode tokens/s beside the routed serve's
-   (the JAX bench's ``vs_dense_eval``);
+   (the JAX bench's ``vs_dense_eval``); then the fleet phase
+   (``fleet_phase``, ``text/fleet.py``): (a) small fp32 models, the card
+   against the CPU — loopback fleets of 2 graphed replicas and 1 worker
+   (its own CUDA stream) on both layouts at ``PADDLE_TPU_STREAM_CHUNK_ROWS``
+   0 and 8, fp32 and int8 KV, a socket fleet over 127.0.0.1 with the
+   worker served in process by ``serve_prefill_worker``, a live add and
+   remove of a replica, the autoscale drill and a spilled chain migrated
+   between paged replicas: every card stream the single card server's
+   exactly and the CPU run's (a PATH_TOL tie at most); (b) GPT-1.3B (bf16,
+   random weights from seed 0) on the JAX bench's mixed schedule (6
+   64-token prompts at iteration 0, 1536-token ones at 8 and 24, 64 new
+   tokens each, ``max_len`` 1600): one server (``max_batch`` 8), a
+   loopback fleet of 2 replicas (``max_batch`` 4) and 1 worker streaming
+   256-row chunks, the same fleet answering whole, and the fleet on the
+   short prompts alone, all graphed after warmup — the decode-loop gap p50
+   and p99 (``bench_fleet``'s: the wall of a drive iteration that started
+   with work mid-decode), tokens/s, handoffs, stream chunks and bytes,
+   the worker's ms a handoff and reserved memory; the mixed-over-short
+   gap p99 ratio beside the bench's 4.0 (reported, not gated: the worker
+   shares the card's SMs); gated: the fleet's streams the single server's
+   by the tie rule, both long prompts handed off, no capture and no build
+   after warmup, every decode launch on #9's tick body, every worker
+   prefill's flash on #1's tensor-core body and every ``prefill_chunk@W``
+   launch on #9's tensor-core body, counted after the threads joined;
+   (c) 2 paged replicas (``block_size`` 16) and a paged worker on the
+   paged path's chat prompts: streams the single paged server's by the
+   tie rule, every #10 launch on its body (decode steps on the tick body,
+   admission and worker chunks on the tensor-core body); (d) the wedge
+   drill on a 1.3B fleet of 2 async one-slot replicas (the JAX bench's
+   ``wedge:tick:1``): ``fleet.reroutes`` > 0, ``healthz`` flipping and
+   recovering, streams the unfaulted single async server's by the tie
+   rule;
 9. the train rungs, as ``paddle_tpu_torch.tools.profile_train.
    build_train_path`` defines them (``RUNGS``, the JAX bench's recipes):
    GPT-1.3B with fp32 master weights from a seed, batch 8 x 2048 tokens in
@@ -2777,8 +2808,7 @@ def spec_arm(torch, engine, wl, tl, ks, path, cfg, params, prompts, new,
         # capture recorded it
         g = graphs[(0, vname)]
         stats["verify_delta"] = {
-            f"{w.__name__}.{a}": d for (w, a), d in
-            zip(engine._counter_fields(), g.delta)
+            f"{w.__name__}.{a}": d for (w, a), d in g.delta.items()
             if d and w.__name__.endswith("decode_attention")}
     srv.close()
     log(f"  {name} ({path}): tokens/s {stats['tokens_per_s']:.1f}, "
@@ -3708,9 +3738,14 @@ class Scraper:
 
 @contextlib.contextmanager
 def env_set(**kv):
-    """Set environment flags for the block, then put them back."""
+    """Set environment flags for the block (a None value unsets one),
+    then put them back."""
     old = {k: os.environ.get(k) for k in kv}
-    os.environ.update(kv)
+    for k, v in kv.items():
+        if v is None:
+            os.environ.pop(k, None)
+        else:
+            os.environ[k] = v
     try:
         yield
     finally:
@@ -5989,6 +6024,614 @@ def evaluate_phase(torch, gpt, ks):
     return out, launches
 
 
+# ---------------------------------------------------------------------------
+# the serving fleet (text/fleet.py)
+# ---------------------------------------------------------------------------
+
+FLEET_SHORT = 64                 # the JAX bench's fleet schedule (bench.py
+FLEET_LONG = 1536                # bench_fleet): 6 short prompts at
+FLEET_SHORTS = 6                 # iteration 0, long ones at 8 and 24,
+FLEET_LONG_AT = (8, 24)          # 64 new tokens each
+FLEET_NEW = 64
+FLEET_MAX_LEN = FLEET_LONG + FLEET_NEW
+FLEET_CHUNK_ROWS = "256"         # PADDLE_TPU_STREAM_CHUNK_ROWS' default
+FLEET_TOL = 4.0                  # bench.py's BENCH_FLEET_TOL (reported)
+FLEET_SMALL_LENS = (5, 40, 100, 17, 60, 33)
+
+
+def fleet_schedule(vocab, mixed, seed=0):
+    """bench_fleet's schedule: [(iteration, prompt)], sorted by iteration;
+    the short prompts drawn first, then the long ones, from ``seed``."""
+    rng = np.random.default_rng(seed)
+    shorts = [rng.integers(1, vocab, FLEET_SHORT).tolist()
+              for _ in range(FLEET_SHORTS)]
+    longs = [rng.integers(1, vocab, FLEET_LONG).tolist()
+             for _ in FLEET_LONG_AT]
+    sched = [(0, p) for p in shorts]
+    if mixed:
+        sched += list(zip(FLEET_LONG_AT, longs))
+    return sorted(sched, key=lambda x: x[0])
+
+
+def fleet_drive(obj, active_fn, sched, new):
+    """bench_fleet's drive loop: submit each prompt at its iteration, one
+    ``tick()`` an iteration; the decode-loop gaps are the walls of the
+    iterations that began with work mid-decode (any submit landing in
+    them included).  Returns (streams in schedule order, gaps ms, wall
+    s)."""
+    sched = list(sched)
+    rids, gaps = [], []
+    it = 0
+    t_start = time.perf_counter()
+    while sched or obj.pending():
+        act = active_fn() > 0
+        t0 = time.perf_counter()
+        while sched and sched[0][0] <= it:
+            rids.append(obj.submit(sched.pop(0)[1], max_new_tokens=new))
+        obj.tick()
+        if act:
+            gaps.append((time.perf_counter() - t0) * 1e3)
+        it += 1
+        if it > 50 * new:
+            raise AssertionError("the fleet drive did not drain")
+    wall = time.perf_counter() - t_start
+    return [[int(t) for t in obj.result(r)] for r in rids], gaps, wall
+
+
+def _pct(xs, q):
+    return float(np.percentile(np.asarray(xs), q)) if xs else 0.0
+
+
+def _fleet_run(fleet, router, prompts, new=12):
+    """Submit every prompt to ``router`` at once and tick until drained;
+    the streams."""
+    rids = [router.submit(p, max_new_tokens=new) for p in prompts]
+    deadline = time.time() + 300.0
+    while router.pending() and time.time() < deadline:
+        router.tick()
+        if not any(r._slots or r._queue for r in router.replicas
+                   if r is not None):
+            time.sleep(0.002)
+    if router.pending():
+        raise AssertionError("the fleet did not drain")
+    return [[int(t) for t in router.result(r)] for r in rids]
+
+
+def _small_single(serving, cfg, params, dev, layout, prompts, new=12, **kw):
+    """One server of the fleet replicas' geometry (max_batch 2: the decode
+    kernels' split plan follows the batch, so the streams can be equal
+    bit for bit)."""
+    lay = dict(layout="paged", block_size=16) if layout == "paged" else {}
+    srv = serving.DecodeServer(params, cfg, max_batch=2,
+                               max_len=160, device=dev, **lay, **kw)
+    rids = [srv.submit(p, max_new_tokens=new) for p in prompts]
+    while srv.pending():
+        srv.tick()
+    out = [[int(t) for t in srv.result(r)] for r in rids]
+    srv.close()
+    return out
+
+
+def _small_fleet(fleet, serving, cfg, params, dev, layout, prompts,
+                 socket_link=False, **rkw):
+    """A loopback (or socket) fleet of 2 replicas (max_batch 2) and one
+    worker over the small model on ``dev``, every prompt of 16+ tokens
+    handed off; the card's replicas and worker are warmed first.  Returns
+    (streams, fleet counters)."""
+    from paddle_tpu_torch import telemetry as tl
+
+    lay = dict(layout="paged", block_size=16) if layout == "paged" else {}
+    worker = fleet.PrefillWorker(params, cfg, max_len=160, device=dev, **lay)
+    reps = [serving.DecodeServer(params, cfg, max_batch=2, max_len=160,
+                                 device=dev, **lay) for _ in range(2)]
+    if dev == "cuda":
+        lens = [len(p) for p in prompts]
+        worker.warmup(prompt_lens=lens)
+        for r in reps:
+            r.warmup(prompt_lens=lens)
+    c0 = tl.counters("fleet.")
+    listener = None
+    if socket_link:
+        listener = fleet.serve_prefill_worker(worker)
+        pre = [fleet.SocketTransport.connect("127.0.0.1", listener.port)]
+    else:
+        pre = [worker]
+    router = fleet.Router(reps, prefill=pre, prefill_threshold=16, **rkw)
+    got = _fleet_run(fleet, router, prompts)
+    router.close()
+    if listener is not None:
+        worker.close()
+        listener.close()
+    c1 = tl.counters("fleet.")
+    return got, {k: v - c0.get(k, 0) for k, v in c1.items()
+                 if v - c0.get(k, 0)}
+
+
+def fleet_small_vs_cpu(torch, gpt, serving, fleet, faults):
+    """(a): small fp32 fleets on the card against one card server and the
+    same fleet on the CPU.  Returns the cases' records."""
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=2, max_seq_len=256, dtype=torch.float32)
+    cpu = gpt.init_params(cfg, seed=0, device="cpu")
+    card = _to_card(cpu)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in FLEET_SMALL_LENS]
+    out = {}
+
+    def hold(what, got, ref, cpu_got):
+        if got != ref:
+            raise AssertionError(f"{what}: the card fleet's streams are not "
+                                 f"the card server's: {got} vs {ref}")
+        eq = hold_streams(torch, gpt, card, cfg, prompts, cpu_got, got,
+                          f"{what} CPU vs card", tol=PATH_TOL)
+        return eq
+
+    for layout in ("contiguous", "paged"):
+        for rows, kv in (("0", ""), ("8", ""), ("8", "int8")):
+            with env_set(PADDLE_TPU_STREAM_CHUNK_ROWS=rows,
+                         PADDLE_TPU_KV_DTYPE=kv or None):
+                ref = _small_single(serving, cfg, card, "cuda", layout,
+                                    prompts)
+                got, ctr = _small_fleet(fleet, serving, cfg, card, "cuda",
+                                        layout, prompts)
+                cgot, cctr = _small_fleet(fleet, serving, cfg, cpu, "cpu",
+                                          layout, prompts)
+            name = f"{layout} rows={rows} {kv or 'fp32'}"
+            if ctr != cctr or not ctr.get("fleet.prefill_handoffs"):
+                raise AssertionError(f"{name}: fleet counters card {ctr}, "
+                                     f"CPU {cctr}")
+            out[name] = {"cpu_equal": hold(name, got, ref, cgot),
+                         "counters": ctr}
+            log(f"  {name}: streams the card server's, {out[name]}")
+    # a socket fleet: the worker served in process over 127.0.0.1
+    ref = _small_single(serving, cfg, card, "cuda", "contiguous", prompts)
+    got, ctr = _small_fleet(fleet, serving, cfg, card, "cuda", "contiguous",
+                            prompts, socket_link=True)
+    cgot, _ = _small_fleet(fleet, serving, cfg, cpu, "cpu", "contiguous",
+                           prompts, socket_link=True)
+    out["socket"] = {"cpu_equal": hold("socket", got, ref, cgot),
+                     "counters": ctr}
+    if not ctr.get("fleet.prefill_handoffs"):
+        raise AssertionError(f"socket fleet: no handoff {ctr}")
+    log(f"  socket fleet: {out['socket']}")
+    # a live add and remove of a replica
+    streams = {}
+    for dev, params in (("cuda", card), ("cpu", cpu)):
+        mk = lambda: serving.DecodeServer(  # noqa: E731
+            params, cfg, max_batch=2, max_len=160, device=dev)
+        router = fleet.Router([mk(), mk()])
+        rids = [router.submit(p, max_new_tokens=12) for p in prompts]
+        for _ in range(2):
+            router.tick()
+        router.add_replica(mk())
+        for _ in range(2):
+            router.tick()
+        router.remove_replica(0).close()
+        while router.pending():
+            router.tick()
+        streams[dev] = [[int(t) for t in router.result(r)] for r in rids]
+        router.close()
+    out["add_remove"] = {"cpu_equal": hold("add/remove", streams["cuda"], ref,
+                                           streams["cpu"])}
+    # the autoscale drill
+    from paddle_tpu_torch import telemetry as tl
+
+    with env_set(PADDLE_TPU_FLEET_AUTOSCALE="1", PADDLE_TPU_FLEET_SCALE_RUNG="2",
+                 PADDLE_TPU_FLEET_SCALE_OUT_TICKS="2",
+                 PADDLE_TPU_FLEET_SCALE_IN_TICKS="3"):
+        srv = serving.DecodeServer(card, cfg, max_batch=2, max_len=160)
+        spare = serving.DecodeServer(card, cfg, max_batch=2, max_len=160)
+        router = fleet.Router([srv])
+        router.register_spare(spare)
+        orig = srv.load_stats
+        srv.load_stats = lambda: dict(orig(), admission_rung=2,
+                                      queue_depth=1)
+        live = []
+        c0 = tl.counters("fleet.")
+        for _ in range(2):
+            router.tick()
+            live.append(sum(r is not None for r in router.replicas))
+        srv.load_stats = orig
+        auto = _fleet_run(fleet, router, prompts[:2])
+        for _ in range(4):
+            router.tick()
+            live.append(sum(r is not None for r in router.replicas))
+        c1 = tl.counters("fleet.")
+        router.close()
+    outs = c1.get("fleet.scale_outs", 0) - c0.get("fleet.scale_outs", 0)
+    ins = c1.get("fleet.scale_ins", 0) - c0.get("fleet.scale_ins", 0)
+    if live[:2] != [1, 2] or live[-1] != 1 or outs != 1 or ins != 1:
+        raise AssertionError(f"autoscale: live replicas {live}, scale outs "
+                             f"{outs}, ins {ins}")
+    if auto != ref[:2]:
+        raise AssertionError("autoscale: the streams are not the server's")
+    out["autoscale"] = {"live": live, "scale_outs": outs, "scale_ins": ins}
+    # chain migration between paged replicas
+    with env_set(PADDLE_TPU_KV_SPILL_MB="4"):
+        long_p = prompts[2][:64]
+        mk = lambda: serving.DecodeServer(  # noqa: E731
+            card, cfg, max_batch=2, max_len=160, layout="paged",
+            block_size=16)
+        a, b = mk(), mk()
+        router = fleet.Router([a, b])
+        r0 = a.submit(long_p, max_new_tokens=12)
+        while a.pending():
+            a.tick()
+        warm0 = [int(t) for t in a.result(r0)]
+        for _ in range(8):
+            if not a._pool.prefix_entries:
+                break
+            a._evict_or_spill(8)
+        spilled = len(a._pool._spilled)
+        router._migrate_chains({"prompt": long_p}, 1)
+        moved = (len(a._pool._spilled), len(b._pool._spilled))
+        r1 = b.submit(long_p, max_new_tokens=12)
+        while b.pending():
+            b.tick()
+        warm1 = [int(t) for t in b.result(r1)]
+        st = b._pool.stats()
+        router.close()
+    if not spilled or moved[0] or not moved[1] or warm1 != warm0 \
+            or st["restored_blocks"] < 1 or st["chain_migrations"] < 1:
+        raise AssertionError(f"chain migration: spilled {spilled}, after "
+                             f"the move {moved}, stats {st}, streams equal "
+                             f"{warm1 == warm0}")
+    out["migration"] = {"chains": moved[1],
+                        "restored_blocks": st["restored_blocks"],
+                        "chain_migrations": st["chain_migrations"]}
+    log(f"  add/remove, autoscale, migration: "
+        f"{json.dumps({k: out[k] for k in ('add_remove', 'autoscale', 'migration')})}")
+    return out
+
+
+def _named_replays(engine, binds):
+    """{graph name: replays} over the graphs of ``binds``."""
+    out = {}
+    for b in binds:
+        for g in engine.ENGINE.graphs(b):
+            out[g.name] = out.get(g.name, 0) + g.replays
+    return out
+
+
+def _grown(after, before):
+    return {k: v - before.get(k, 0) for k, v in after.items()
+            if v - before.get(k, 0)}
+
+
+def _hist_delta(tl, name, before):
+    s = tl.hist(name).summary()
+    n = s["count"] - before[0]
+    return (s["sum"] - before[1]) / n if n else 0.0, n
+
+
+def fleet_arm(torch, engine, ks, tl, obj, binds, active_fn, sched, L):
+    """One measured pass of ``sched`` through ``obj`` (a server or a
+    router), counters zeroed just before and read after (every thread
+    idle).  Returns its record."""
+    replays0 = _named_replays(engine, binds)
+    graphs0 = len(engine.ENGINE.graphs())
+    builds0 = len(tl.compile_log())
+    fleet0 = tl.counters("fleet.")
+    h = tl.hist("fleet.prefill_ms").summary()
+    ms0 = (h["count"], h["sum"])
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts(ks)
+    streams, gaps, wall = fleet_drive(obj, active_fn, sched, FLEET_NEW)
+    torch.cuda.synchronize()
+    launches, tc, tick = launch_counts(ks), tc_counts(ks), tick_counts(ks)
+    grown = _grown(_named_replays(engine, binds), replays0)
+    fl = tl.counters("fleet.")
+    fl = {k: v - fleet0.get(k, 0) for k, v in fl.items()
+          if v - fleet0.get(k, 0)}
+    handoff_ms, handoffs_timed = _hist_delta(tl, "fleet.prefill_ms", ms0)
+    toks = sum(len(s) for s in streams)
+    rec = {"gap_p50_ms": _pct(gaps, 50), "gap_p99_ms": _pct(gaps, 99),
+           "gap_max_ms": max(gaps) if gaps else 0.0, "gaps": len(gaps),
+           "tokens_per_s": toks / wall, "wall_s": wall,
+           "prefill_handoffs": fl.get("fleet.prefill_handoffs", 0),
+           "stream_chunks": fl.get("fleet.stream_chunks", 0),
+           "stream_bytes": fl.get("fleet.stream_bytes", 0),
+           "handoff_ms_mean": handoff_ms, "handoffs_timed": handoffs_timed,
+           "reserved_gb": torch.cuda.memory_reserved() / 1e9,
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+           "captures_after_warmup": len(engine.ENGINE.graphs()) - graphs0,
+           "builds_after_warmup": len(tl.compile_log()) - builds0,
+           "replays": grown}
+    steps = sum(n for g, n in grown.items() if g == "serving.step")
+    chunks = sum(n for g, n in grown.items()
+                 if g.startswith("serving.prefill_chunk@"))
+    prefills = sum(n for g, n in grown.items()
+                   if g.startswith("serving.prefill@"))
+    rec["launches"] = {"decode_attention": launches["decode_attention"],
+                       "decode_tick": tick["decode_attention"],
+                       "decode_tc": tc["decode_attention"],
+                       "flash": launches["flash_attention_fwd"],
+                       "flash_tc": tc["flash_attention_fwd"]}
+    want = {"decode_attention": L * (steps + chunks),
+            "decode_tick": L * steps, "decode_tc": L * chunks,
+            "flash": L * prefills, "flash_tc": L * prefills}
+    if rec["launches"] != want:
+        raise AssertionError(f"fleet launches {rec['launches']}, the "
+                             f"replays say {want} ({grown})")
+    if rec["captures_after_warmup"] or rec["builds_after_warmup"]:
+        raise AssertionError(f"captures after warmup "
+                             f"{rec['captures_after_warmup']}, builds "
+                             f"{tl.compile_log()[builds0:]}")
+    return rec, streams, {"launches": launches, "tc": tc, "tick": tick}
+
+
+def fleet_arm_twice(torch, engine, ks, tl, obj, binds, active_fn, sched, L,
+                    total):
+    """:func:`fleet_arm` twice in a row (host-clock gaps swing between
+    passes): the first pass's record with the second's under
+    ``"repeat"``, the last pass's streams, both passes' launches added to
+    ``total``; the streams of the two passes must be equal."""
+    rec, streams, part = fleet_arm(torch, engine, ks, tl, obj, binds,
+                                   active_fn, sched, L)
+    _add_counts_to(total, part)
+    rep, streams2, part = fleet_arm(torch, engine, ks, tl, obj, binds,
+                                    active_fn, sched, L)
+    _add_counts_to(total, part)
+    if streams2 != streams:
+        raise AssertionError("two passes of one schedule served other "
+                             "streams")
+    rec["repeat"] = {k: v for k, v in rep.items()
+                     if k not in ("replays", "launches")}
+    return rec, streams, part
+
+
+def _add_counts_to(total, part):
+    for k in ("launches", "tc", "tick"):
+        for n, v in part[k].items():
+            total[k][n] = total[k].get(n, 0) + v
+
+
+def fleet_1p3b(torch, gpt, serving, fleet, engine, ks, tl, total):
+    """(b): the mixed schedule on GPT-1.3B, contiguous."""
+    cfg = gpt.gpt_1p3b()
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    L = cfg.num_layers
+    mixed = fleet_schedule(cfg.vocab_size, True)
+    short = fleet_schedule(cfg.vocab_size, False)
+    lens = [FLEET_SHORT, FLEET_LONG]
+    arms = {}
+    os.environ["PADDLE_TPU_STREAM_CHUNK_ROWS"] = FLEET_CHUNK_ROWS
+    try:
+        srv = serving.DecodeServer(params, cfg, max_batch=8,
+                                   max_len=FLEET_MAX_LEN)
+        srv.warmup(prompt_lens=lens)
+        act = lambda: len(srv._slots)  # noqa: E731
+        fleet_drive(srv, act, mixed, FLEET_NEW)          # warm pass
+        arms["single"], single, part = fleet_arm_twice(
+            torch, engine, ks, tl, srv, [srv._bind], act, mixed, L, total)
+        srv.close()
+        gc.collect()
+        torch.cuda.empty_cache()
+        worker = fleet.PrefillWorker(params, cfg, max_len=FLEET_MAX_LEN)
+        worker.warmup(prompt_lens=[FLEET_LONG],
+                      chunk_rows=int(FLEET_CHUNK_ROWS))
+        reps = [serving.DecodeServer(params, cfg, max_batch=4,
+                                     max_len=FLEET_MAX_LEN)
+                for _ in range(2)]
+        for r in reps:
+            r.warmup(prompt_lens=lens)
+        router = fleet.Router(reps, prefill=[worker],
+                              prefill_threshold=(FLEET_SHORT
+                                                 + FLEET_LONG) // 2)
+        binds = [r._bind for r in reps] + [worker._bind]
+        act = lambda: sum(len(r._slots) for r in reps)  # noqa: E731
+        for name, sched, rows in (("fleet_short", short, FLEET_CHUNK_ROWS),
+                                  ("fleet_mixed", mixed, FLEET_CHUNK_ROWS),
+                                  ("fleet_mixed_whole", mixed, "0")):
+            os.environ["PADDLE_TPU_STREAM_CHUNK_ROWS"] = rows
+            fleet_drive(router, act, sched, FLEET_NEW)   # warm pass
+            arms[name], got, part = fleet_arm_twice(
+                torch, engine, ks, tl, router, binds, act, sched, L, total)
+            if name == "fleet_short":
+                continue
+            if {arms[name]["prefill_handoffs"],
+                    arms[name]["repeat"]["prefill_handoffs"]} \
+                    != {len(FLEET_LONG_AT)}:
+                raise AssertionError(f"{name}: {arms[name]['prefill_handoffs']}"
+                                     f" handoffs, not {len(FLEET_LONG_AT)}")
+            prompts = [p for _, p in mixed]
+            arms[name]["streams_equal"] = hold_streams(
+                torch, gpt, params, cfg, prompts, got, single, name)
+            arms[name]["streams"] = len(got)
+            replays = arms[name]["replays"]
+            want = ("serving.prefill_chunk@" if rows != "0"
+                    else "serving.prefill@")
+            if not any(g.startswith(want) for g in replays):
+                raise AssertionError(f"{name}: the worker ran no "
+                                     f"{want}: {replays}")
+        router.close()
+    finally:
+        os.environ.pop("PADDLE_TPU_STREAM_CHUNK_ROWS", None)
+    for name, rec in arms.items():
+        for i, r in enumerate((rec, rec["repeat"])):
+            log(f"  {name} pass {i + 1}: gap p50 {r['gap_p50_ms']:.3f} ms, "
+                f"p99 {r['gap_p99_ms']:.3f} ms (max {r['gap_max_ms']:.3f}, "
+                f"{r['gaps']} gaps), {r['tokens_per_s']:.1f} tokens/s, "
+                f"handoffs {r['prefill_handoffs']}, stream chunks "
+                f"{r['stream_chunks']} ({r['stream_bytes']} bytes), worker "
+                f"{r['handoff_ms_mean']:.3f} ms a handoff "
+                f"({r['handoffs_timed']}), reserved "
+                f"{r['reserved_gb']:.2f} GB, streams equal "
+                f"{rec.get('streams_equal', '-')}")
+
+    def best(name):
+        rec = arms[name]
+        return min(rec["gap_p99_ms"], rec["repeat"]["gap_p99_ms"])
+
+    ratio = best("fleet_mixed") / max(best("fleet_short"), 1e-9)
+    ratio_whole = best("fleet_mixed_whole") / max(best("fleet_short"), 1e-9)
+    log(f"  gap p99 mixed fleet / short-only fleet, best of 2 passes each: "
+        f"{ratio:.3f} streamed, {ratio_whole:.3f} whole (the JAX bench's "
+        f"bar {FLEET_TOL}, reported); single server mixed p99 "
+        f"{best('single'):.3f} ms")
+    del params
+    return {"arms": arms, "gap_p99_ratio": ratio,
+            "gap_p99_ratio_whole": ratio_whole, "bar": FLEET_TOL}
+
+
+def fleet_paged_1p3b(torch, gpt, serving, fleet, engine, ks, tl, wl,
+                     total):
+    """(c): 2 paged replicas and a paged worker on the paged path's chat
+    prompts against one paged server."""
+    cfg = gpt.gpt_1p3b()
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    L = cfg.num_layers
+    prompts = wl.paged_prompts(cfg.vocab_size)
+    lens = [len(p) for p in prompts]
+    srv = serving.DecodeServer(params, cfg, **wl.PAGED_GEOMETRY)
+    srv.warmup(prompt_lens=lens)
+    ref, _, _, _ = serve(torch, srv, prompts, wl.NEW)
+    ref = [[int(t) for t in s] for s in ref]
+    srv.close()
+    geo = dict(wl.PAGED_GEOMETRY, max_batch=4, num_blocks=96)
+    reps = [serving.DecodeServer(params, cfg, **geo) for _ in range(2)]
+    for r in reps:
+        r.warmup(prompt_lens=lens)
+    worker = fleet.PrefillWorker(params, cfg, max_len=geo["max_len"],
+                                 layout="paged", block_size=16)
+    worker.warmup(prompt_lens=lens, chunk_rows=int(FLEET_CHUNK_ROWS))
+    binds = [r._bind for r in reps] + [worker._bind]
+    os.environ["PADDLE_TPU_STREAM_CHUNK_ROWS"] = FLEET_CHUNK_ROWS
+    try:
+        # the Router warms the replicas' inject steps at the worker's lens
+        router = fleet.Router(reps, prefill=[worker], prefill_threshold=250)
+        replays0 = _named_replays(engine, binds)
+        fl0 = tl.counters("fleet.")
+        zero_counts(ks)
+        got = _fleet_run(fleet, router, prompts, new=wl.NEW)
+        torch.cuda.synchronize()
+        launches, tc, tick = launch_counts(ks), tc_counts(ks), \
+            tick_counts(ks)
+        grown = _grown(_named_replays(engine, binds), replays0)
+        router.close()
+    finally:
+        os.environ.pop("PADDLE_TPU_STREAM_CHUNK_ROWS", None)
+    _add_counts_to(total, {"launches": launches, "tc": tc, "tick": tick})
+    fl = {k: v - fl0.get(k, 0) for k, v in tl.counters("fleet.").items()
+          if v - fl0.get(k, 0)}
+    steps = grown.get("serving.step", 0)
+    chunks = sum(n for g, n in grown.items()
+                 if g.startswith("serving.paged_prefill"))
+    have = {"paged": launches["paged_decode_attention"],
+            "tick": tick["paged_decode_attention"],
+            "tc": tc["paged_decode_attention"],
+            "decode_attention": launches["decode_attention"]}
+    want = {"paged": L * (steps + chunks), "tick": L * steps,
+            "tc": L * chunks, "decode_attention": 0}
+    if have != want:
+        raise AssertionError(f"paged fleet launches {have}, the replays say "
+                             f"{want} ({grown})")
+    if not fl.get("fleet.prefill_handoffs"):
+        raise AssertionError(f"paged fleet: no handoff {fl}")
+    equal = hold_streams(torch, gpt, params, cfg, prompts, got, ref,
+                         "paged fleet")
+    rec = {"streams_equal": equal, "streams": len(got), "launches": have,
+           "counters": fl}
+    log(f"  paged fleet: {json.dumps(rec)}")
+    del params
+    return rec
+
+
+def fleet_wedge_1p3b(torch, gpt, serving, fleet, faults, tl):
+    """(d): the JAX bench's wedge round on a GPT-1.3B fleet of 2 async
+    one-slot replicas."""
+    cfg = gpt.gpt_1p3b()
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(1, cfg.vocab_size, FLEET_SHORT).tolist()
+               for _ in range(4)]
+    new = 16
+    srv = serving.DecodeServer(params, cfg, max_batch=4, max_len=512,
+                               async_dispatch=True)
+    srv.warmup(prompt_lens=[FLEET_SHORT])
+    rids = [srv.submit(p, max_new_tokens=new) for p in prompts]
+    while srv.pending():
+        srv.tick()
+    ref = [[int(t) for t in srv.result(r)] for r in rids]
+    srv.close()
+    reroutes0 = tl.counter("fleet.reroutes")
+    saw, health = False, None
+    with env_set(PADDLE_TPU_STEP_BUDGET_S="0.25",
+                 PADDLE_TPU_FAULT_WEDGE_S="0.8"):
+        reps = [serving.DecodeServer(params, cfg, max_batch=1, max_len=512,
+                                     async_dispatch=True) for _ in range(2)]
+        for r in reps:
+            r.warmup(prompt_lens=[FLEET_SHORT])
+        faults.install("wedge:tick:1")
+        try:
+            router = fleet.Router(reps)
+            rids = [router.submit(p, max_new_tokens=new) for p in prompts]
+            for _ in range(50 * new):
+                if not router.pending():
+                    break
+                router.tick()
+                if not router.healthz()["ok"]:
+                    saw = True
+            if router.pending():
+                raise AssertionError("the wedge drill did not drain")
+            got = [[int(t) for t in router.result(r)] for r in rids]
+            health = router.healthz()["ok"]
+            router.close()
+        finally:
+            faults.reset()
+            tl.clear_runtime_wedge()
+    reroutes = tl.counter("fleet.reroutes") - reroutes0
+    if not saw or not health or reroutes < 1:
+        raise AssertionError(f"wedge drill: unhealthy seen {saw}, healthy "
+                             f"after {health}, reroutes {reroutes}")
+    equal = hold_streams(torch, gpt, params, cfg, prompts, got, ref,
+                         "fleet wedge drill")
+    rec = {"reroutes": reroutes, "healthz_flipped": saw,
+           "healthz_recovered": health, "streams_equal": equal,
+           "streams": len(got)}
+    log(f"  wedge drill: {json.dumps(rec)}")
+    del params
+    return rec
+
+
+def fleet_phase(torch, gpt, serving, engine, ks, wl):
+    """The fleet phase: (a) small fp32 fleets card against CPU, (b) the
+    1.3B mixed schedule, (c) the 1.3B paged fleet, (d) the wedge drill.
+    Returns (record, the phase's launch counts by wrapper, its tc and tick
+    counts)."""
+    from paddle_tpu_torch import faults
+    from paddle_tpu_torch import telemetry as tl
+    from paddle_tpu_torch.text import fleet
+
+    t0 = time.perf_counter()
+    total = {"launches": {}, "tc": {}, "tick": {}}
+    zero_counts(ks)
+    small = fleet_small_vs_cpu(torch, gpt, serving, fleet, faults)
+    _add_counts_to(total, {"launches": launch_counts(ks),
+                           "tc": tc_counts(ks), "tick": tick_counts(ks)})
+    t_small = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    mixed = fleet_1p3b(torch, gpt, serving, fleet, engine, ks, tl, total)
+    gc.collect()
+    torch.cuda.empty_cache()
+    paged = fleet_paged_1p3b(torch, gpt, serving, fleet, engine, ks, tl, wl,
+                             total)
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts(ks)
+    wedge = fleet_wedge_1p3b(torch, gpt, serving, fleet, faults, tl)
+    _add_counts_to(total, {"launches": launch_counts(ks),
+                           "tc": tc_counts(ks), "tick": tick_counts(ks)})
+    rec = {"small_vs_cpu": small, "mixed": mixed, "paged": paged,
+           "wedge": wedge, "small_s": t_small,
+           "phase_s": time.perf_counter() - t0,
+           "tc_launches": total["tc"], "tick_launches": total["tick"]}
+    return rec, total["launches"]
+
+
 def expected_train_launches(cfg, rung, remat_policies):
     """Each kernel's launches in one step of ``rung``: per micro-batch a
     flash forward, dq and dk/dv a layer, the CE forward and backward once,
@@ -6441,6 +7084,19 @@ def main() -> int:
     log(f"[the multi-tenant phase {astats['phase_s']:.1f} s, evaluation "
         f"{time.perf_counter() - t_eval:.1f} s]")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[the serving fleet: (a) small fp32 fleets card vs CPU — loopback, "
+        "streamed and whole, fp32 and int8 KV, socket, add/remove, "
+        "autoscale, chain migration; (b) GPT-1.3B on the JAX bench's mixed "
+        "schedule, one server vs 2 replicas + 1 prefill worker; (c) the "
+        "paged fleet; (d) the wedge drill]")
+    flstats, by_path["fleet"] = fleet_phase(torch, gpt, serving, engine, ks,
+                                            wl)
+    log(json.dumps({"fleet": flstats}))
+    log(f"[the fleet phase {flstats['phase_s']:.1f} s, its small models "
+        f"{flstats['small_s']:.1f} s]")
+
     train = {}
     for path, rung, twin in TRAIN_RUNGS:
         gc.collect()                # the last model leaves the card
@@ -6516,6 +7172,7 @@ def main() -> int:
                   "adapters": astats["tc_launches"],
                   "evaluate": evstats["tc_launches"],
                   "lora": lstats["tc_launches"],
+                  "fleet": flstats["tc_launches"],
                   **{p: t["tc_launches"] for p, t in train.items()}}
     assert all(by_path[p]["decode_attention"] == 0
                for p in (*train, "lora"))
@@ -6531,6 +7188,7 @@ def main() -> int:
                            "moe": mstats["tick_launches"][name],
                            "adapters": astats["tick_launches"][name],
                            "evaluate": evstats["tick_launches"][name],
+                           "fleet": flstats["tick_launches"][name],
                            "lora": 0,
                            **{p: 0 for p in train}}
                     for name in ("decode_attention", "paged_decode_attention")}

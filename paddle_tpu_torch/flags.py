@@ -459,6 +459,107 @@ def trace_piggyback_cap() -> int:
         return 256
 
 
+def _int_flag(name: str, default: int, lo: int) -> int:
+    """An integer flag, at least ``lo``; the default when unset or not an
+    integer."""
+    try:
+        return max(lo, int(os.environ.get(name, str(default))))
+    except ValueError:
+        return default
+
+
+def fleet_prefill_threshold() -> int:
+    """Prompt length at which the fleet router hands admission prefill to
+    a prefill worker (``PADDLE_TPU_FLEET_PREFILL_THRESHOLD``, default 0:
+    every prompt while a worker is attached).  Host scheduling only."""
+    return _int_flag("PADDLE_TPU_FLEET_PREFILL_THRESHOLD", 0, 0)
+
+
+def fleet_tick_block() -> int:
+    """Decode steps a replica tick takes in the router's loop
+    (``PADDLE_TPU_FLEET_TICK_BLOCK``, default 1; > 1 ticks through
+    ``tick_block(k)``).  Host scheduling only."""
+    return _int_flag("PADDLE_TPU_FLEET_TICK_BLOCK", 1, 1)
+
+
+def fleet_tick_workers() -> int:
+    """Threads the router ticks its replicas on
+    (``PADDLE_TPU_FLEET_TICK_WORKERS``, default 8; 1 ticks them in turn on
+    the caller's thread).  Host scheduling only."""
+    return _int_flag("PADDLE_TPU_FLEET_TICK_WORKERS", 8, 1)
+
+
+def fleet_max_queue() -> int:
+    """Requests the router stacks on one replica's queue beyond its free
+    slots before holding work in the fleet queue
+    (``PADDLE_TPU_FLEET_MAX_QUEUE``, default 2).  Host scheduling only."""
+    return _int_flag("PADDLE_TPU_FLEET_MAX_QUEUE", 2, 0)
+
+
+def fleet_metrics_port() -> int | None:
+    """``PADDLE_TPU_FLEET_METRICS_PORT=<port>``: the router's
+    fleet-aggregated metrics endpoint when it is built without
+    ``metrics_port=`` (0 = a free port); None = no endpoint."""
+    v = os.environ.get("PADDLE_TPU_FLEET_METRICS_PORT")
+    if v is None or not v.strip():
+        return None
+    try:
+        return max(0, int(v))
+    except ValueError:
+        return None
+
+
+def prefix_route() -> bool:
+    """Prefix-aware fleet routing (``PADDLE_TPU_PREFIX_ROUTE``, on by
+    default): the router leads its load score with each replica's
+    expected prefix overlap.  Host scheduling only."""
+    v = os.environ.get("PADDLE_TPU_PREFIX_ROUTE", "1").strip().lower()
+    return v not in ("0", "false", "off", "no")
+
+
+def prefix_route_imbalance() -> int:
+    """Prefix affinity counts only on replicas whose queue is within this
+    many requests of the least loaded candidate's
+    (``PADDLE_TPU_PREFIX_ROUTE_IMBALANCE``, default 2).  Host scheduling
+    only."""
+    return _int_flag("PADDLE_TPU_PREFIX_ROUTE_IMBALANCE", 2, 0)
+
+
+def stream_chunk_rows() -> int:
+    """Rows a prefill worker streams a chunk
+    (``PADDLE_TPU_STREAM_CHUNK_ROWS``, default 256; 0 = the whole walk in
+    one reply).  Host scheduling only: the width rounds to a power of
+    two, a width warmup captures."""
+    return _int_flag("PADDLE_TPU_STREAM_CHUNK_ROWS", 256, 0)
+
+
+def fleet_autoscale() -> bool:
+    """The router's scaling loop (``PADDLE_TPU_FLEET_AUTOSCALE``, off by
+    default): a sustained degradation rung attaches a registered spare, a
+    sustained idle fleet drains its youngest replica back to the spares.
+    Host scheduling only."""
+    v = os.environ.get("PADDLE_TPU_FLEET_AUTOSCALE", "0").strip().lower()
+    return v not in ("0", "false", "off", "no", "")
+
+
+def fleet_scale_rung() -> int:
+    """The worst replica rung that arms a scale-out
+    (``PADDLE_TPU_FLEET_SCALE_RUNG``, default 2)."""
+    return _int_flag("PADDLE_TPU_FLEET_SCALE_RUNG", 2, 1)
+
+
+def fleet_scale_out_ticks() -> int:
+    """Consecutive hot router ticks before a spare attaches
+    (``PADDLE_TPU_FLEET_SCALE_OUT_TICKS``, default 3)."""
+    return _int_flag("PADDLE_TPU_FLEET_SCALE_OUT_TICKS", 3, 1)
+
+
+def fleet_scale_in_ticks() -> int:
+    """Consecutive idle router ticks before the youngest replica drains
+    back to the spares (``PADDLE_TPU_FLEET_SCALE_IN_TICKS``, default 50)."""
+    return _int_flag("PADDLE_TPU_FLEET_SCALE_IN_TICKS", 50, 1)
+
+
 def decode_jit_key() -> tuple:
     """The decode-routing flags a captured step bakes in — the port's copy
     of ``paddle_tpu/flags.py``'s ``decode_jit_key``, cut to the flags the

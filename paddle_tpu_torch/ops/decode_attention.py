@@ -31,7 +31,7 @@ import ctypes
 import torch
 
 from .. import telemetry as _telemetry
-from . import _build
+from . import _build, _counts
 
 _NEG = -1e30
 _Q_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -379,9 +379,8 @@ def decode_attention(q, k, v, pos, k_scale=None, v_scale=None, scale=None):
                   [q.data_ptr(), k.data_ptr(), v.data_ptr(),
                    *_scale_ptrs(k_scale, v_scale), pos.data_ptr()],
                   [B, Tq, Hq, Hkv, T], scale, body)
-    decode_attention.launches += 1
-    decode_attention.tick_launches += body == "tick"
-    decode_attention.tc_launches += body == "tc"
+    _counts.bump(decode_attention, launches=1,
+                 tick_launches=body == "tick", tc_launches=body == "tc")
     return out
 
 
@@ -468,9 +467,8 @@ def paged_decode_attention(q, k_pool, v_pool, tables, pos,
                    *_scale_ptrs(k_scale, v_scale), pos.data_ptr(),
                    tables.data_ptr()],
                   [B, Tq, Hq, Hkv, N, nmax, bs], scale, body)
-    paged_decode_attention.launches += 1
-    paged_decode_attention.tick_launches += body == "tick"
-    paged_decode_attention.tc_launches += body == "tc"
+    _counts.bump(paged_decode_attention, launches=1,
+                 tick_launches=body == "tick", tc_launches=body == "tc")
     return out
 
 

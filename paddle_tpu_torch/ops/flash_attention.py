@@ -27,7 +27,7 @@ import ctypes
 import torch
 
 from .. import telemetry as _telemetry
-from . import _build
+from . import _build, _counts
 
 _NEG = -1e30  # large-negative instead of -inf: keeps lse finite on empty rows
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
@@ -179,8 +179,8 @@ def flash_attention_fwd(q, k, v, causal: bool = False, scale=None):
                   int(bool(causal)), float(scale),
                   torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "flash_fwd")
-    flash_attention_fwd.launches += 1
-    flash_attention_fwd.tc_launches += route(q.dtype, D) == "tc"
+    _counts.bump(flash_attention_fwd, launches=1,
+                 tc_launches=route(q.dtype, D) == "tc")
     return out, lse
 
 
@@ -284,8 +284,8 @@ def flash_attention_bwd_dq(q, k, v, out, lse, do, causal=False, scale=None):
                   dq.data_ptr(), *_dims(q, k, causal), float(scale),
                   torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "flash_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
-    flash_attention_bwd_dq.tc_launches += route_bwd(q.dtype, D) == "tc"
+    _counts.bump(flash_attention_bwd_dq, launches=1,
+                 tc_launches=route_bwd(q.dtype, D) == "tc")
     return dq, delta
 
 
@@ -312,9 +312,8 @@ def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal=False,
                   dv.data_ptr(), *_dims(q, k, causal), float(scale),
                   torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(code, "flash_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
-    flash_attention_bwd_dkv.tc_launches += \
-        route_bwd(q.dtype, q.shape[-1]) == "tc"
+    _counts.bump(flash_attention_bwd_dkv, launches=1,
+                 tc_launches=route_bwd(q.dtype, q.shape[-1]) == "tc")
     return dk, dv
 
 

@@ -21,7 +21,7 @@ import ctypes
 import torch
 
 from .. import telemetry as _telemetry
-from . import _build
+from . import _build, _counts
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -113,7 +113,7 @@ def ce_fwd(logits, labels):
                   lse.data_ptr(), N, V, _DTYPES[logits.dtype],
                   torch.cuda.current_stream(logits.device).cuda_stream)
     _build.check(code, "ce_fwd")
-    ce_fwd.launches += 1
+    _counts.bump(ce_fwd, launches=1)
     return loss, lse
 
 
@@ -146,7 +146,7 @@ def ce_bwd(logits, labels, lse, dloss):
                   _DTYPES[logits.dtype],
                   torch.cuda.current_stream(logits.device).cuda_stream)
     _build.check(code, "ce_bwd")
-    ce_bwd.launches += 1
+    _counts.bump(ce_bwd, launches=1)
     return dx
 
 

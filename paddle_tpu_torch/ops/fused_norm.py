@@ -23,7 +23,7 @@ import functools
 import torch
 
 from .. import telemetry as _telemetry
-from . import _build
+from . import _build, _counts
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_FEATURES = 8192          # csrc/fused_norm.cu kMaxF: one row in registers
@@ -143,7 +143,7 @@ def ln_fwd(x, g, b, eps=1e-5):
                   _DTYPES[x.dtype], _DTYPES[g.dtype],
                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "ln_fwd")
-    ln_fwd.launches += 1
+    _counts.bump(ln_fwd, launches=1)
     return y, mu, rstd
 
 
@@ -187,7 +187,7 @@ def ln_bwd(x, g, mu, rstd, dy):
                   N, F, R, _DTYPES[x.dtype], _DTYPES[g.dtype],
                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "ln_bwd")
-    ln_bwd.launches += 1
+    _counts.bump(ln_bwd, launches=1)
     return dx, dgb[0], dgb[1]
 
 

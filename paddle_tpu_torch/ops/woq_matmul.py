@@ -28,7 +28,7 @@ import functools
 import torch
 
 from .. import telemetry as _telemetry
-from . import _build
+from . import _build, _counts
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _N_CAP = 256        # decode / serving batches; prefill-sized N goes plain
@@ -171,8 +171,7 @@ def w4_matmul(x, packed, scale):
                   _DTYPES[x.dtype], _ROUTES[body],
                   torch.cuda.current_stream(x.device).cuda_stream)
     _build.check(code, "w4_matmul")
-    w4_matmul.launches += 1
-    w4_matmul.tc_launches += body == "tc"
+    _counts.bump(w4_matmul, launches=1, tc_launches=body == "tc")
     return out.reshape(*lead, M)
 
 

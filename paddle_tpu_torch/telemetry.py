@@ -558,6 +558,18 @@ class SpanRing:
             else:
                 self._spans.append(sp)
 
+    def add_drops(self, n: int) -> None:
+        """Fold a remote ring's reported drop count into this one (the
+        fleet router's tracks), so the fleet's accounting sums exactly."""
+        if n > 0:
+            with self._lock:
+                self._dropped += int(n)
+
+    def spans(self) -> list:
+        """The spans held, without taking them (the dump path)."""
+        with self._lock:
+            return list(self._spans)
+
     def drain(self, cap=None):
         """Take up to ``cap`` spans and the drops so far (the drop count
         resets with the take, so repeated takes sum exactly)."""

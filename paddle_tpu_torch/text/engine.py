@@ -20,8 +20,10 @@ wrappers of an eager step.
   admission (``prefill`` per bucket, ``prefill_chunk`` per width,
   ``paged_prefill`` per chunk width — fed the tokens and the offset,
   length and slot as device tensors, so one graph serves any prompt and
-  slot), ``inject`` per rows bucket (a spilled prefix chain restored
-  into the pool through the block tables), ``spec_verify`` per chunk K
+  slot), ``inject`` per rows bucket and layout (rows computed elsewhere
+  written into a slot: a spilled prefix chain restored through the block
+  tables, a fleet worker's handoff), ``kv_copy`` per power-of-two pair
+  count (copy-on-write block copies), ``spec_verify`` per chunk K
   (the speculative round's one target pass, fed device tokens and
   positions like the ticks), ``spec_tree_verify`` and
   ``spec_tree_commit`` per node budget N (the tree round's pass, its
@@ -85,10 +87,17 @@ server's serve should add no record (the admission ladder's widths are
 captured there too).
 
 The kernel wrappers count launches in Python (``.launches``,
-``.tc_launches``, ``.tick_launches``), which a replay does not run: each
-graph records the counts its capture added, puts back what its eager and
-captured runs added, and adds the recorded counts at every replay — so N
-replays count exactly N eager steps' launches.
+``.tc_launches``, ``.tick_launches``, through ``ops/_counts.py``), which a
+replay does not run: a capture tallies its warm run's and its own
+launches on the capturing thread only (``_counts.held``) and keeps the
+capture's tally, which every replay adds — so N replays count exactly N
+eager steps' launches, and a capture or a warmup on one thread never
+takes back the launches another thread made meanwhile (a fleet ticks its
+replicas on a thread pool beside a prefill worker's thread).  Captures
+are serialized by one lock, and each takes the side stream of the stream
+it was made from, so a worker's graphs (its own stream) and the
+replicas' (the default stream) never share a tick ticket buffer.
+
 """
 from __future__ import annotations
 
@@ -103,6 +112,7 @@ import torch
 
 from .. import flags as _flags
 from .. import telemetry as _telemetry
+from ..ops import _counts as _launch_counts
 
 __all__ = ["StepSpec", "Binding", "Engine", "ENGINE", "register", "kinds",
            "cfg_key"]
@@ -447,23 +457,37 @@ def _build_paged_prefill(spec):
           key=lambda s: ("inject", cfg_key(s.cfg), int(s.bucket), s.paged),
           name=lambda s: f"serving.inject@{s.bucket}")
 def _build_inject(spec):
-    """Rows written into one slot's pool rows [start, length) through its
-    block table (``kv_pool.inject_rows``): (one [L, 1, bucket, Hkv(, hd)]
-    rows feed per pool leaf, in ``POOL_LEAVES`` order, start, length,
-    slot) -> ().  The server restores a spilled prefix chain with it.
-    Paged only: the contiguous twin (the JAX package's
-    ``generate._merge_slot_rows``, which only its fleet handoff runs) is
-    not ported."""
-    from . import kv_pool
+    """Rows computed elsewhere written into one slot's rows [start,
+    length): (one [L, 1, bucket, Hkv(, hd)] rows feed per cache leaf, in
+    ``kv_pool.POOL_LEAVES`` order, start, length, slot) -> ().  Paged:
+    through the slot's block table (``kv_pool.inject_rows``; a restored
+    spill chain, a fleet handoff); contiguous: the masked merge into the
+    slab (``generate.inject_slot_rows``; a fleet handoff)."""
+    from . import generate, kv_pool
 
-    if not spec.paged:
-        raise NotImplementedError("the inject step is ported for the paged "
-                                  "layout only")
+    write = kv_pool.inject_rows if spec.paged else generate.inject_slot_rows
 
     def body(p, c, *feeds):
         names = [n for n in kv_pool.POOL_LEAVES if n in c]
         *rows, start, length, slot = feeds
-        kv_pool.inject_rows(c, dict(zip(names, rows)), start, length, slot)
+        write(c, dict(zip(names, rows)), start, length, slot)
+        return ()
+    return body
+
+
+@register("kv_copy",
+          key=lambda s: ("kv_copy", cfg_key(s.cfg), int(s.k)),
+          name=lambda s: f"serving.kv_copy@{s.k}")
+def _build_kv_copy(spec):
+    """The copy-on-write device half: ``k`` pool block pairs copied in one
+    step (``kv_pool.copy_blocks``): (src [k], dst [k] int64) -> ().  The
+    server pads a drain's pairs to a power of two by repeating its first
+    pair (the same copy twice), so one graph serves every count of a
+    log2 bucket."""
+    from . import kv_pool
+
+    def body(p, c, src, dst):
+        kv_pool.copy_blocks(c, src, dst)
         return ()
     return body
 
@@ -889,17 +913,6 @@ def _counts() -> list:
     return [getattr(w, a) for w, a in _counter_fields()]
 
 
-def _set_counts(values) -> None:
-    for (w, a), v in zip(_counter_fields(), values):
-        setattr(w, a, v)
-
-
-def _add_counts(delta) -> None:
-    for (w, a), d in zip(_counter_fields(), delta):
-        if d:
-            setattr(w, a, getattr(w, a) + d)
-
-
 # --------------------------------------------------------------------------
 # the two step wrappers
 # --------------------------------------------------------------------------
@@ -908,15 +921,25 @@ def _add_counts(delta) -> None:
 _WARM_RUNS = 1          # eager runs on the capture stream before capture
 _GEN_BINDINGS = 4       # generate caches kept (Engine.generate_binding)
 _capture_streams: dict = {}
+# one capture at a time in the process: a capture's warm run and the
+# capture itself must not interleave with another thread's on a shared
+# side stream, and the allocator's capture pool is per capture
+_capture_lock = threading.RLock()
 
 
-def _capture_stream(device) -> torch.cuda.Stream:
-    """One side stream per card for every eager warm run and capture, so
-    their per-stream state (the tick ticket buffer, cuBLAS's workspace)
-    is made once, outside any capture."""
-    s = _capture_streams.get(device)
+def _capture_stream(device, stream) -> torch.cuda.Stream:
+    """The side stream every eager warm run and capture made from
+    ``stream`` (the caller's current stream) runs on, one per (card,
+    calling stream), so its per-stream state (the tick ticket buffer,
+    cuBLAS's workspace) is made once, outside any capture.  A graph bakes
+    in the ticket buffer of its capture stream: graphs captured from
+    different streams get different buffers, so a prefill worker replaying
+    on its own stream never shares tickets with the replicas' ticks on
+    the default stream (launches sharing a buffer must be ordered)."""
+    key = (device, stream.cuda_stream)
+    s = _capture_streams.get(key)
     if s is None:
-        s = _capture_streams[device] = torch.cuda.Stream(device)
+        s = _capture_streams[key] = torch.cuda.Stream(device)
     return s
 
 
@@ -960,7 +983,8 @@ class _Graph:
     after.  ``static`` holds the input buffers the graph reads (each call
     copies its feeds in, without blocking), ``out`` the output tensors a
     replay overwrites — a caller must copy them out before the next
-    replay.  ``delta``: the launch counts one replay stands for.  A
+    replay.  ``delta``: the launch counts one replay stands for ({(wrapper,
+    attribute): n}, the capture's ``_counts.held`` tally).  A
     capture is reported to the recompile watch; the device feed counts
     its first eager warm run (never the capture) and takes the growth of
     ``torch.cuda.memory_reserved`` across the capture — the graph's
@@ -977,6 +1001,10 @@ class _Graph:
         self._keep = ()
 
     def _capture(self, feeds) -> None:
+        with _capture_lock:
+            self._capture_locked(feeds)
+
+    def _capture_locked(self, feeds) -> None:
         from ..ops import decode_attention as da
 
         dev = self.binding.device
@@ -986,16 +1014,18 @@ class _Graph:
                             for f in feeds)
         for buf, f in zip(self.static, feeds):
             buf.copy_(f, non_blocking=True)
-        before = _counts()
-        side = _capture_stream(dev)
         cur = torch.cuda.current_stream(dev)
+        side = _capture_stream(dev, cur)
         side.wait_stream(cur)
         graph = cost = None
         # the routing accumulator is never idempotent: the eager runs'
         # deltas are taken back, so the replay below is the call's one
         stats, stats0 = self.binding.stats, None
         try:
-            with torch.cuda.stream(side):
+            # the warm run's launches are dropped (the replay below is the
+            # call's one), the capture's become the replays' ``delta``:
+            # both tallied on this thread only
+            with torch.cuda.stream(side), _launch_counts.held():
                 if stats is not None:
                     stats0 = {n: t.clone() for n, t in stats.items()}
                 kept = (None if self.idempotent
@@ -1012,7 +1042,6 @@ class _Graph:
                 if stats0 is not None:
                     for n, t in stats.items():
                         t.copy_(stats0[n])
-            warm = _counts()
             graph = torch.cuda.CUDAGraph()
             # a failure inside ends the capture on the way out (the
             # context manager's exit); the graph is dropped below.
@@ -1022,7 +1051,8 @@ class _Graph:
             # that the wedge watchdog abandoned (resilience.call_with_
             # budget) wakes and waits on its event, whenever that is.
             with torch.cuda.graph(graph, stream=side,
-                                  capture_error_mode="thread_local"):
+                                  capture_error_mode="thread_local"), \
+                    _launch_counts.held() as delta:
                 # the context has dropped the allocator's free cache: from
                 # here the reserved memory grows by the graph's private
                 # pool alone (a host query, legal inside a capture)
@@ -1036,14 +1066,12 @@ class _Graph:
                 for n, t in stats.items():
                     t.copy_(stats0[n])
             self.static = None
-            _set_counts(before)
             raise
         cur.wait_stream(side)
         if cost is not None and "count_failed" not in cost:
             cost["temp_bytes"] = max(
                 0, torch.cuda.memory_reserved(dev) - reserved)
-        self.delta = [a - b for a, b in zip(_counts(), warm)]
-        _set_counts(before)
+        self.delta = delta
         self.graph, self.out = graph, out
         # buffers the graph reads by address that no binding names: the
         # tick route's ticket buffers (replaced, never freed, while held)
@@ -1066,7 +1094,7 @@ class _Graph:
                 buf.copy_(f, non_blocking=True)
         self.graph.replay()
         self.replays += 1
-        _add_counts(self.delta)
+        _launch_counts.add(self.delta)
         return self.out
 
     def release(self) -> None:
@@ -1094,6 +1122,9 @@ class Engine:
             int(_os.environ.get("PADDLE_TPU_STEP_CACHE_SIZE", "64")))
         self._gen = collections.OrderedDict()
         self._gen_mu = threading.Lock()
+        # a lookup that misses builds and inserts under this lock, so two
+        # threads asking for one step get one entry
+        self._mu = threading.RLock()
 
     def generate_binding(self, params, cfg, batch: int, rows: int,
                          device) -> Binding:
@@ -1135,12 +1166,16 @@ class Engine:
         key = entry.key(spec) + (bind.key,)
         fn = self._steps.get(key)
         if fn is None:
-            if bind.graphs:
-                fn = _Graph(entry.build(spec), bind, entry.name(spec), key,
-                            entry.idempotent)
-            else:
-                fn = _Eager(entry.build(spec), bind, entry.name(spec), key)
-            self._steps[key] = fn
+            with self._mu:
+                fn = self._steps.get(key)
+                if fn is None:
+                    if bind.graphs:
+                        fn = _Graph(entry.build(spec), bind,
+                                    entry.name(spec), key, entry.idempotent)
+                    else:
+                        fn = _Eager(entry.build(spec), bind,
+                                    entry.name(spec), key)
+                    self._steps[key] = fn
         return fn
 
     def graphs(self, binding: Binding | None = None) -> list:
@@ -1163,13 +1198,14 @@ class Engine:
                 for k in [k for k in self._gen if k[0] in cks]:
                     del self._gen[k]
         dropped = 0
-        for k in self._steps.keys():
-            if (not cks or k[1] in cks) and (binding is None
-                                             or k[-1] == binding.key):
-                fn = self._steps.pop(k, None)
-                if fn is not None:
-                    _release(fn)
-                    dropped += 1
+        with self._mu:
+            for k in self._steps.keys():
+                if (not cks or k[1] in cks) and (binding is None
+                                                 or k[-1] == binding.key):
+                    fn = self._steps.pop(k, None)
+                    if fn is not None:
+                        _release(fn)
+                        dropped += 1
         return dropped
 
     def warmup(self, srv, prompt_lens=None, blocks=(), sample=False,
@@ -1202,7 +1238,11 @@ class Engine:
         ``constrained``, ``adapter_block{k}`` on a sync server,
         ``adapter_spec_verify@K`` and the admission names with the
         ``adapter_`` prefix; ``constrained`` without a pool warms
-        ``masked_step`` (fed a zero mask).
+        ``masked_step`` (fed a zero mask).  A paged server warms
+        ``kv_copy`` at every power of two up to its batch ("kv_copy@{k}",
+        copying the sink block onto itself: a drain copies at most one
+        block a slot).  A fleet replica's ``inject`` steps are
+        :meth:`warm_inject`'s, which the fleet's Router calls.
 
         Warm steps run on the live cache with zero feeds, writing rows at
         position 0 of every slot (warm admissions: of slot 0) — rows
@@ -1216,17 +1256,7 @@ class Engine:
         they were, so a warmed server serves the tokens a cold one does.
 
         Returns {name: seconds} of each build (capture or first run)."""
-        if srv._inflight is not None and not srv._slots and not srv._queue:
-            srv._inflight = None       # a drained server's overrun step
-        if srv._slots or srv._queue or srv._inflight is not None:
-            raise RuntimeError(
-                "DecodeServer.warmup() requires an idle server: warm steps "
-                "write rows at position 0 of every slot, which only "
-                "requests admitted later are sure to overwrite")
-        if srv.cache is None:
-            raise RuntimeError("the server is closed")
-        if srv._paged:
-            srv._apply_pool_ops()
+        self._idle(srv)
         dev = srv.device
         cuda = dev.type == "cuda"
         B = srv.max_batch
@@ -1238,7 +1268,6 @@ class Engine:
         key = torch.tensor(srv._key(0))
         pv = zi.to(dev)
         timings = {}
-        counts = _counts()
 
         def warm(name, kind, *feeds, draft=False, **kw):
             t0 = _time.perf_counter()
@@ -1254,7 +1283,9 @@ class Engine:
         aid = (torch.zeros(1, dtype=torch.int64),) if pool else ()
         zm = (torch.zeros((B, srv.cfg.vocab_size), dtype=torch.float32)
               if pool or constrained else None)
-        try:
+        # the warm steps' launches are tallied on this thread and dropped:
+        # the counters other threads add meanwhile stay
+        with _launch_counts.held():
             if pool:
                 # the adapter twins ARE what a pool-attached server runs;
                 # the sync greedy step also serves an async server's
@@ -1349,8 +1380,66 @@ class Engine:
                         warm(tag, kind, *lead,
                              *srv._feeds([0], width, 0, 1, 0),
                              bucket=width, draft=draft)
-        finally:
-            _set_counts(counts)
+            if srv._paged:
+                sink = torch.full((1,), srv._pool.N, dtype=torch.int64)
+                k = 1
+                while True:
+                    for draft in drafts:
+                        warm(("draft_" if draft else "") + f"kv_copy@{k}",
+                             "kv_copy", sink.expand(k).contiguous(),
+                             sink.expand(k).contiguous(), k=k, draft=draft)
+                    if k >= B:
+                        break
+                    k *= 2
+        return timings
+
+    @staticmethod
+    def _idle(srv):
+        """The warm steps' precondition: an idle, open server, its paged
+        pool work pushed."""
+        if srv._inflight is not None and not srv._slots and not srv._queue:
+            srv._inflight = None       # a drained server's overrun step
+        if srv._slots or srv._queue or srv._inflight is not None:
+            raise RuntimeError(
+                "DecodeServer.warmup() requires an idle server: warm steps "
+                "write rows at position 0 of every slot, which only "
+                "requests admitted later are sure to overwrite")
+        if srv.cache is None:
+            raise RuntimeError("the server is closed")
+        if srv._paged:
+            srv._apply_pool_ops()
+
+    def warm_inject(self, srv, prompt_lens=None) -> dict:
+        """Build (on the card: capture) a fleet replica's handoff steps:
+        ``inject`` at the bucket of each of ``prompt_lens`` (default every
+        bucket up to the serving window), "inject@{bucket}", one zero row
+        into slot 0 — so a worker's first rows replay a graph instead of
+        capturing one mid-serve.  Same contract as :meth:`warmup`: an idle
+        server, its counters left as they were.  Returns {name: seconds}."""
+        from . import kv_pool, serving
+
+        self._idle(srv)
+        dev = srv.device
+        window = min(srv.max_len, srv.cfg.max_seq_len)
+        lens = prompt_lens if prompt_lens is not None else [
+            1 << i for i in range(window.bit_length() + 1)
+            if (1 << i) <= window]
+        timings = {}
+        with _launch_counts.held():
+            for bucket in sorted({serving._pow2_bucket(
+                    int(n), srv.max_len, srv.cfg.max_seq_len)
+                    for n in lens}):
+                rows = [torch.zeros((a.shape[0], 1, bucket)
+                                    + tuple(a.shape[3:]),
+                                    dtype=a.dtype, device=dev)
+                        for a in (srv.cache[n] for n in kv_pool.POOL_LEAVES
+                                  if n in srv.cache)]
+                t0 = _time.perf_counter()
+                self.get("inject", srv._spec(bucket=bucket))(
+                    *rows, *srv._scalars(0, 1, 0))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize(dev)
+                timings[f"inject@{bucket}"] = _time.perf_counter() - t0
         return timings
 
 

@@ -339,6 +339,32 @@ def _merge_slot_rows(csl: dict, rows: dict, dst, src) -> None:
 
 
 @torch.no_grad()
+def inject_slot_rows(cache: dict, rows: dict, start, length, slot) -> dict:
+    """The contiguous injector — the JAX package's ``_merge_slot_rows``
+    masked write as the fleet handoff runs it: rows computed elsewhere (a
+    prefill worker's), leaves ``[L, 1, P, Hkv(, hd)]`` by cache leaf name
+    holding the slot's logical rows [0, P), written into ``slot``'s rows
+    [start, length) across every layer, in place.  ``start``, ``length``
+    and ``slot`` are ints or 0-d / [1] int tensors (a captured step's
+    feeds).  Rows outside [start, length) write nothing of their own: each
+    repeats the index and value of the nearest row inside (the
+    :func:`_slot_rows` rule), so the old tenant's rows stay bit for bit.
+    PRECONDITION start < length <= P <= the cache's rows.  One
+    ``index_copy_`` a leaf.  Returns the cache it was given."""
+    dev = cache["k"].device
+    start, length, slot = (_index(v, dev) for v in (start, length, slot))
+    P, T = rows["k"].shape[2], cache["k"].shape[2]
+    src = torch.minimum(torch.maximum(torch.arange(P, device=dev), start),
+                        length - 1)
+    dst = slot * T + src
+    for name, val in rows.items():
+        arr = cache[name]
+        flat = arr.view((arr.shape[0], -1) + arr.shape[3:])
+        flat.index_copy_(1, dst, val[:, 0].index_select(1, src).to(arr.dtype))
+    return cache
+
+
+@torch.no_grad()
 def prefill_slot(params, cache, tokens, length, slot, cfg: gpt.GPTConfig):
     """Process one request's whole (padded) prompt in a single pass.
 

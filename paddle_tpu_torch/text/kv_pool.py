@@ -25,7 +25,15 @@ slice:
   (``PADDLE_TPU_KV_SPILL_RSS_MB``) releases the oldest spills first.
   The byte accounting against the budget is the JAX package's.  Restores
   and spills never replace a pool tensor: the graphs read the pool by
-  address.  Cross-replica chain migration (the fleet's) is not ported.
+  address;
+* **cross-replica chain migration** (the fleet's) — the router moves a
+  spilled chain matching a prompt from one replica's spill store to the
+  replica that is about to adopt the prompt
+  (:meth:`PagedAllocator.migrate_out` / :meth:`PagedAllocator.migrate_in`,
+  host tensors through the fleet's wire codec), where it restores through
+  the same inject step as a local spill; :meth:`PagedAllocator.
+  prefix_summary` gives the router the index's shape for prefix-aware
+  routing.
 
 Device math: :func:`paged_decode_step_batched` (the pooled twin of
 ``serving.decode_step_batched``), :func:`paged_prefill_chunk` (the
@@ -582,6 +590,7 @@ class PagedAllocator:
         self.restored_blocks = 0
         self.host_spill_bytes = 0
         self.rss_spills = 0
+        self.chain_migrations = 0
 
     # -- pool accounting ----------------------------------------------------
 
@@ -994,6 +1003,76 @@ class PagedAllocator:
             _telemetry.count("kv_pool.restore_drains")
         return out
 
+    # -- cross-replica chain migration --------------------------------------
+
+    def migrate_out(self, prompt) -> list:
+        """Detach every spilled chain that prefixes ``prompt`` for
+        shipment to another replica's pool (the router calls this on every
+        other replica right before a dispatch, so a tenant's spilled rows
+        follow its traffic).  A move, not a copy: the chains leave this
+        pool's spill store and budget.  Returns wire-ready entries
+        ``{"tokens": [...], "rows": {leaf: [L, bs, ...]}}`` of host
+        tensors (``kv_pool.chain_migrations_out``)."""
+        if not self._spilled:
+            return []
+        pl = tuple(int(t) for t in prompt)
+        out = []
+        for key in list(self._spilled):
+            if len(key) <= len(pl) and pl[:len(key)] == key:
+                rec, nb = self._spilled.pop(key)
+                self.host_spill_bytes -= nb
+                out.append({"tokens": list(key), "rows": rec})
+        if out:
+            _telemetry.count("kv_pool.chain_migrations_out", len(out))
+        return out
+
+    def migrate_in(self, entries) -> int:
+        """Adopt migrated chains into this pool's spill store: the next
+        admission's adopt walk restores them through the same inject step
+        a local spill takes, so migrated rows land as this replica's own
+        spills would.  A chain that is not block-aligned is refused, and
+        one past the host budget drops (the prompt recomputes).  Returns
+        the chains kept (``kv_pool.chain_migrations``)."""
+        added = 0
+        for ent in entries:
+            key = tuple(int(t) for t in ent["tokens"])
+            if not key or len(key) % self.bs:
+                continue
+            rec = {name: torch.as_tensor(v) for name, v in ent["rows"].items()}
+            nb = sum(a.numel() * a.element_size() for a in rec.values())
+            old = self._spilled.pop(key, None)
+            if old is not None:
+                self.host_spill_bytes -= old[1]
+            if self.spill_limit_bytes \
+                    and self.host_spill_bytes + nb > self.spill_limit_bytes:
+                continue
+            self._spilled[key] = (rec, nb)
+            self.host_spill_bytes += nb
+            added += 1
+        if added:
+            self.chain_migrations += added
+            _telemetry.count("kv_pool.chain_migrations", added)
+        return added
+
+    def prefix_summary(self, max_roots: int = 16) -> list:
+        """The index's shape for prefix-aware routing: per root-fanout
+        subtree, ``(run_len, fingerprint, resident_tokens)`` — the router
+        matches a prompt's head against the fingerprint and takes the
+        resident tokens as the expected overlap.  The ``max_roots``
+        subtrees holding the most tokens."""
+        out = []
+        for cid in self._children.get(0, {}).values():
+            run = self._prefix[cid].key[1]
+            resident = 0
+            stack = [cid]
+            while stack:
+                c = stack.pop()
+                resident += len(self._prefix[c].key[1])
+                stack.extend(self._children.get(c, {}).values())
+            out.append((len(run), prefix_fingerprint(run), resident))
+        out.sort(key=lambda t: (-t[2], t[1]))
+        return out[:max_roots]
+
     def close(self) -> None:
         """Release the whole index, every table and the spill store
         (server shutdown)."""
@@ -1008,8 +1087,7 @@ class PagedAllocator:
         self.host_spill_bytes = 0
 
     def stats(self) -> dict:
-        """The JAX allocator's stats, key for key (cross-replica chain
-        migration is not ported: ``chain_migrations`` stays 0)."""
+        """The JAX allocator's stats, key for key."""
         return {
             "num_blocks": self.N, "block_size": self.bs,
             "blocks_in_use": self.blocks_in_use,
@@ -1023,5 +1101,5 @@ class PagedAllocator:
             "restored_blocks": self.restored_blocks,
             "spilled_entries": len(self._spilled),
             "host_spill_bytes": self.host_spill_bytes,
-            "chain_migrations": 0,
+            "chain_migrations": self.chain_migrations,
         }

@@ -177,8 +177,22 @@ ticks (``constraint.sync_fallbacks``), linear speculation to plain ones
 (``constraint.spec_fallbacks``), while tree speculation prunes the
 banned branches and masks its acceptance.
 
-Tensor and expert parallelism and the fleet and its router are later
-slices' work; no entry point of the port reaches them.
+The fleet's entries (``text/fleet.py``, as the JAX server's): a prefill
+worker's rows join a request through :meth:`DecodeServer.submit_prefilled`
+(or ``adopt_request`` on a router's dict carrying them) and stream in
+chunk by chunk through ``stream_prefilled_begin`` / ``_rows`` / ``_abort``
+— a streamed slot rides the decode steps at its injected frontier, as a
+budgeted one does — each written into its slot by the graphed ``inject``
+step (contiguous: the masked merge; paged: through the block table after
+adopting the indexed prefix), and the first token drawn as local
+admission draws it; ``drain_queue`` hands queued work back to a router,
+``adopt_request`` takes it (the window and the pool checked again), and
+``local_snapshot`` gives the router this server's own histograms and
+totals.  Rows from a worker on another CUDA stream come with the event
+they are final at (``ready``), which the injection waits on.
+
+Tensor and expert parallelism are later slices' work; no entry point of
+the port reaches them.
 """
 from __future__ import annotations
 
@@ -204,6 +218,8 @@ __all__ = ["decode_step_batched", "sample_step_batched",
 # cold prefix-cache entries evicted per relief round when the pool runs dry
 # (LRU-first batches; never the whole index at once)
 _EVICT_BATCH = 4
+# the totals a server keeps of its own for the fleet's metrics plane
+_LOCAL_COUNTERS = ("serving.tokens_generated", "serving.requests_completed")
 # admission draws use counters from here up (one per request id), clear of
 # the per-step counters of the device steps
 _ADMIT_COUNTER = 1 << 40
@@ -586,12 +602,19 @@ class DecodeServer:
         self._queue: list[dict] = []             # waiting requests
         self._results: dict[int, list] = {}
         self._dropped: set[int] = set()          # rids abandoned by close()
+        self._streams: dict[int, dict] = {}      # rid -> open handoff stream
         self._next_rid = 0
         self._tokens = 0                          # tokens generated so far
         # telemetry: the registry (process-wide) and this server's own
         # counter twins (stats()), decided once here
         self._tel = _telemetry.enabled()
         self._counts: dict[str, int] = {}
+        # this server's own latency histograms and token/request totals —
+        # the fleet metrics plane's merge inputs (:meth:`local_snapshot`):
+        # the registry is process-wide, and a loopback fleet's replicas
+        # share the process
+        self._hist_local: dict = {}
+        self._counts_local: dict[str, int] = {}
         # resilience (module note), decided once here
         self._resil = _resilience.enabled()
         self._default_ttl = _flags.request_ttl_s()
@@ -842,6 +865,35 @@ class DecodeServer:
         the caller's frame) and again at admission into the slot's
         automaton; every step then masks the tokens it bans, greedy and
         sampled alike.  An MoE server refuses constraints."""
+        req = self._build_request(prompt, max_new_tokens, stop, temperature,
+                                  top_k, top_p, ttl_s, priority, tenant,
+                                  adapter, constraint)
+        rid = req["rid"]
+        self._count("serving.requests_submitted")
+        if self._adm is not None:
+            self._adm.control_tick()
+            ok, _reason = self._adm.admit(tenant, priority,
+                                          len(req["prompt"]) + max_new_tokens)
+            if not ok:
+                self._status[rid] = "rejected"
+                self._count("serving.requests_rejected")
+                self._tel_gauges()
+                return rid
+        req["trace"] = _telemetry.mint_trace()
+        self._queue.append(req)
+        if self._adm is not None:
+            self._shed_queue_overflow()
+        self._admit()
+        self._tel_gauges()
+        return rid
+
+    def _build_request(self, prompt, max_new_tokens, stop, temperature,
+                       top_k, top_p, ttl_s, priority, tenant=None,
+                       adapter=None, constraint=None) -> dict:
+        """Validate one request and mint its queue entry (the shared half
+        of :meth:`submit`, :meth:`submit_prefilled` and
+        :meth:`stream_prefilled_begin`), taking the next request id: the
+        JAX server's checks and refusals, in its words."""
         if self.cache is None:
             raise RuntimeError("the server is closed")
         prompt, stop, ttl, top_k = validate_request(
@@ -878,32 +930,382 @@ class DecodeServer:
         rid = self._next_rid
         self._next_rid += 1
         now = time.perf_counter()
+        return {"rid": rid, "prompt": prompt,
+                "max_new": int(max_new_tokens), "stop": stop,
+                "temperature": float(temperature),
+                "top_k": top_k, "top_p": float(top_p),
+                "ttl": ttl, "priority": int(priority),
+                "tenant": tenant, "adapter": aid,
+                "adapter_name": adapter if aid else None,
+                "constraint": constraint, "trace": None,
+                "t_submit": now, "t_enqueue": now, "t_queued": now}
+
+    def _check_rows(self, rows, what: str) -> dict:
+        """A prefill worker's rows ({leaf: [L, 1, P, Hkv(, hd)]}) held to
+        this server's cache: the same leaves (the int8 scale planes
+        included) in the same storage dtype — a drift is refused, never
+        cast (bit parity with local admission is the contract).  Returns
+        the rows as tensors."""
+        rows = {name: torch.as_tensor(v) for name, v in rows.items()}
+        want = {name for name in self.cache if name != "tables"}
+        if set(rows) != want:
+            raise ValueError(
+                f"{what} leaves {sorted(rows)} do not match the cache "
+                f"leaves {sorted(want)} (KV dtype mismatch between prefill "
+                f"worker and decode server?)")
+        for name, v in rows.items():
+            have = self.cache[name].dtype
+            if v.dtype != have:
+                raise ValueError(
+                    f"{what} leaf {name!r} is {v.dtype}, this server stores "
+                    f"{have} (PADDLE_TPU_KV_DTYPE drift between prefill "
+                    f"worker and decode server?)")
+        return rows
+
+    def submit_prefilled(self, prompt, rows, logits,
+                         max_new_tokens: int = 32, stop: list | None = None,
+                         temperature: float = 0.0, top_k: int = 0,
+                         top_p: float = 1.0, ttl_s: float | None = None,
+                         priority: int = 0, trace=None, ready=None) -> int:
+        """Admit a request whose prompt a prefill worker already ran (the
+        fleet's prefill/decode handoff, ``text/fleet.py``): ``rows`` are
+        the worker's cache rows — leaves ``[L, 1, n, Hkv(, hd)]`` in this
+        server's storage dtype, int8 scale planes included — and
+        ``logits`` its admission logits [V].  Admission writes the rows
+        into a slot through the graphed ``inject`` step (one per
+        power-of-two bucket; paged: through the slot's block table, after
+        adopting the longest indexed prefix) and draws the first token
+        from ``logits`` exactly as local admission draws it (sampling,
+        telemetry, NaN guard), so decode goes on as after a local
+        admission.  Refused, in the JAX server's words: leaves that do
+        not match the cache's, a dtype drift, a row count that is not the
+        prompt's.  ``ready``: a CUDA event the rows are final at (a
+        worker on another stream of this card); the injection waits on
+        it."""
+        req = self._build_request(prompt, max_new_tokens, stop, temperature,
+                                  top_k, top_p, ttl_s, priority)
+        n = len(req["prompt"])
+        rows = self._check_rows(rows, "prefilled rows")
+        if rows["k"].shape[2] != n:
+            raise ValueError(
+                f"prefilled rows cover {rows['k'].shape[2]} positions for a "
+                f"{n}-token prompt")
+        req["prefilled"] = (rows, torch.as_tensor(logits,
+                                                  dtype=torch.float32), ready)
+        req["trace"] = trace or None
+        self._queue.append(req)
         self._count("serving.requests_submitted")
-        if self._adm is not None:
-            self._adm.control_tick()
-            ok, _reason = self._adm.admit(tenant, priority,
-                                          len(prompt) + max_new_tokens)
-            if not ok:
-                self._status[rid] = "rejected"
-                self._count("serving.requests_rejected")
-                self._tel_gauges()
-                return rid
-        self._queue.append({"rid": rid, "prompt": prompt,
-                            "max_new": int(max_new_tokens), "stop": stop,
-                            "temperature": float(temperature),
-                            "top_k": top_k, "top_p": float(top_p),
-                            "ttl": ttl, "priority": int(priority),
-                            "tenant": tenant, "adapter": aid,
-                            "adapter_name": adapter if aid else None,
-                            "constraint": constraint,
-                            "trace": _telemetry.mint_trace(),
-                            "t_submit": now, "t_enqueue": now,
-                            "t_queued": now})
-        if self._adm is not None:
-            self._shed_queue_overflow()
+        self._count("serving.prefilled_submissions")
+        self._admit()
+        self._tel_gauges()
+        return req["rid"]
+
+    def adopt_request(self, req: dict) -> int:
+        """Enqueue a request dict drained from another server or built by
+        the fleet router (its re-route and dispatch path): a fresh local id
+        and queue clock (the TTL stays a bound on the queue wait), with
+        the progress carry and any prefilled payload kept.  The dict is
+        trusted, not validated again — but the window and, paged, the
+        whole pool are checked again, as replicas may differ."""
+        if self.cache is None:
+            raise RuntimeError("the server is closed")
+        window = min(self.max_len, self.cfg.max_seq_len)
+        total = len(req["prompt"]) + req["max_new"] \
+            - len(req.get("carry", ()))
+        if total > window:
+            raise ValueError(
+                f"adopted request needs a {total}-row window; this replica "
+                f"serves {window}")
+        if self._paged:
+            need = -(-total // self._pool.bs)
+            if need > self._pool.N:
+                raise ValueError(
+                    f"adopted request needs {need} KV blocks; this "
+                    f"replica's pool has {self._pool.N}")
+        rid = self._next_rid
+        self._next_rid += 1
+        now = time.perf_counter()
+        r = dict(req, rid=rid, t_enqueue=now, t_queued=now)
+        r.setdefault("t_submit", now)
+        for k, v in (("trace", None), ("tenant", None), ("adapter", 0),
+                     ("adapter_name", None), ("constraint", None)):
+            r.setdefault(k, v)
+        self._queue.append(r)
+        self._count("serving.requests_adopted")
         self._admit()
         self._tel_gauges()
         return rid
+
+    def drain_queue(self, rids=None) -> list:
+        """Remove and return queued request dicts (the fleet router's drain:
+        a wedged or removed replica's queued work moves to the others
+        through :meth:`adopt_request`; its active slots keep decoding
+        here).  ``rids`` limits the drain to those ids — the router passes
+        the ones it owns, so a request submitted directly to this server
+        stays queued for its submitter.  A drained stream request's open
+        stream record dies with the drain."""
+        if rids is None:
+            out, self._queue[:] = list(self._queue), []
+        else:
+            out = [r for r in self._queue if r["rid"] in rids]
+            self._queue[:] = [r for r in self._queue if r["rid"] not in rids]
+        for r in out:
+            if r.get("stream"):
+                self._streams.pop(r["rid"], None)
+        if out:
+            self._count("serving.queue_drained", len(out))
+        self._tel_gauges()
+        return out
+
+    def _await_rows(self, ready) -> None:
+        """On a card, order what this server's stream does next after
+        ``ready`` — the event a prefill worker on another stream recorded
+        once its rows and logits were final."""
+        if ready is not None and self.device.type == "cuda":
+            torch.cuda.current_stream(self.device).wait_event(ready)
+
+    def _inject_rows(self, slot: int, rows: dict, offset: int, lo: int,
+                     hi: int, bucket: int) -> None:
+        """Write rows [lo, hi) of a worker's rows (``rows`` hold logical
+        rows [offset, offset + P)) into ``slot`` through the graphed
+        ``inject`` step at ``bucket``: each leaf padded into a zeroed
+        [L, 1, bucket, ...] buffer at its absolute rows.  On a card each
+        rows tensor is recorded on the current stream, so the allocator
+        cannot hand the memory of a worker's rows to its next job before
+        this copy ran (:meth:`_await_rows` ordered the copy after the
+        worker's writes)."""
+        dev = self.device
+        cur = (torch.cuda.current_stream(dev) if dev.type == "cuda"
+               else None)
+        feeds = []
+        for name in kv_pool.POOL_LEAVES:
+            if name not in self.cache:
+                continue
+            v = rows[name]
+            if cur is not None and v.is_cuda:
+                v.record_stream(cur)
+            buf = torch.zeros((v.shape[0], 1, bucket) + tuple(v.shape[3:]),
+                              dtype=self.cache[name].dtype, device=dev)
+            buf[:, :, lo:hi].copy_(v[:, :, lo - offset:hi - offset],
+                                   non_blocking=True)
+            feeds.append(buf)
+        engine.ENGINE.get("inject", self._spec(bucket=bucket))(
+            *feeds, *self._scalars(lo, hi, slot))
+
+    def _inject_prefilled(self, req, slot: int):
+        """Admission of a handed-off request: paged, adopt the longest
+        indexed prefix (the worker's rows of adopted blocks equal what the
+        index holds, so those blocks are attended, never rewritten),
+        restore what of it was spilled and make the rest writable
+        (relieving the pool as local admission does: ``PoolExhausted``
+        parks the request); then one ``inject`` step writes the rows.
+        Returns the admission logits on this server's device."""
+        rows, logits, ready = req["prefilled"]
+        prompt = req["prompt"]
+        n = len(prompt)
+        t0 = time.perf_counter()
+        bucket = _pow2_bucket(n, self.max_len, self.cfg.max_seq_len)
+        shared = 0
+        if self._paged:
+            if self._prefill:
+                shared = self._pool.adopt_prefix(slot, prompt)
+                self._drain_restores()
+            self._ensure_admission_rows(slot, shared, n)
+            self._apply_pool_ops()
+        self._await_rows(ready)
+        self._inject_rows(slot, rows, 0, shared, n, bucket)
+        if self._paged and self._prefill:
+            # the injected rows are local prefill's: the prompt's full
+            # blocks index for later prompts to share
+            self._pool.register_prefix(slot, prompt)
+        self._count("serving.prefilled_rows", n - shared)
+        if self._tel:
+            self._span_ring.record(req.get("trace"), "inject", t0,
+                                   time.perf_counter(), rid=req["rid"],
+                                   rows=n - shared)
+        self._prefill_steps = (f"serving.inject@{bucket}", 1)
+        return logits.to(self.device)
+
+    # -- streamed fleet handoff: per-chunk row injection --------------------
+
+    def stream_prefilled_begin(self, prompt, max_new_tokens: int = 32,
+                               stop: list | None = None,
+                               temperature: float = 0.0, top_k: int = 0,
+                               top_p: float = 1.0,
+                               ttl_s: float | None = None,
+                               priority: int = 0, trace=None) -> int:
+        """Open a streamed handoff, the chunked twin of
+        :meth:`submit_prefilled`: the caller (the fleet router, as a
+        worker's chunks land) follows with one :meth:`stream_prefilled_rows`
+        a chunk, the last carrying the admission logits.  The slot is
+        claimed at admission with no rows present and rides the decode
+        steps at its injected frontier, as a budgeted admission rides them
+        (the frontier row a step writes is rewritten by the next chunk's
+        injection), so the transfer overlaps this server's decode instead
+        of stalling it.  Chunks landing while the request is queued wait
+        on the host and are injected at its claim.  Tokens are those of
+        :meth:`submit_prefilled` with the same rows and logits."""
+        req = self._build_request(prompt, max_new_tokens, stop, temperature,
+                                  top_k, top_p, ttl_s, priority)
+        req["stream"] = True
+        req["trace"] = trace or None
+        self._streams[req["rid"]] = {"req": req, "pending": [], "expect": 0,
+                                     "slot": None, "st": None}
+        self._queue.append(req)
+        self._count("serving.requests_submitted")
+        self._count("serving.stream_begins")
+        self._admit()
+        self._tel_gauges()
+        return req["rid"]
+
+    def _claim_stream(self, slot: int, st) -> None:
+        """A streamed handoff's claim: reserve the slot and, paged, adopt
+        the longest indexed prefix and make the whole row range writable
+        before any chunk lands (:meth:`_inject_prefilled`'s allocation).
+        No prefill runs.  Raises ``PoolExhausted`` (the caller parks the
+        request) before anything is claimed.  Chunks that arrived while
+        the request was queued are injected now."""
+        prompt = st["prompt"]
+        n = len(prompt)
+        shared = 0
+        if self._paged:
+            if self._prefill:
+                shared = self._pool.adopt_prefix(slot, prompt)
+                self._drain_restores()
+            self._ensure_admission_rows(slot, shared, n)
+            self._apply_pool_ops()
+        # pos doubles as the injected frontier: rows [0, pos) are valid
+        st.update(admitting=True, stream=True, stream_shared=shared,
+                  pos=shared)
+        self._slots[slot] = st
+        sr = self._streams[st["rid"]]
+        sr["slot"], sr["st"] = slot, st
+        self._count("serving.stream_claims")
+        self._stream_drain(st["rid"])
+
+    def stream_prefilled_rows(self, rid: int, start: int, stop: int, rows,
+                              logits=None, ready=None) -> None:
+        """Fold one streamed chunk — worker rows of prompt positions
+        [start, stop), leaves ``[L, 1, stop - start, Hkv(, hd)]`` in this
+        server's storage dtype — into the request's slot through the
+        ``inject`` step at the prompt's bucket.  ``logits`` [V] ride the
+        final chunk (``stop == n``), which graduates the slot in the same
+        call.  Chunks landing before the claim wait on the host.  Raises
+        on a leaf, dtype or range mismatch (the transport is ordered: a
+        gap is a protocol fault); ``KeyError`` when no stream is open for
+        ``rid``.  ``ready``: as in :meth:`submit_prefilled`."""
+        sr = self._streams.get(rid)
+        if sr is None:
+            raise KeyError(f"no open handoff stream for rid {rid}")
+        if self._status.get(rid) is not None:
+            # shed or failed while the chunks were in flight
+            self._streams.pop(rid, None)
+            return
+        start, stop = int(start), int(stop)
+        n = len(sr["req"]["prompt"])
+        if start != sr["expect"] or stop <= start or stop > n:
+            raise ValueError(
+                f"stream chunk [{start}, {stop}) for rid {rid}: expected "
+                f"start {sr['expect']} in a {n}-token prompt")
+        if logits is None and stop == n:
+            raise ValueError(f"final stream chunk for rid {rid} carries no "
+                             f"admission logits")
+        if logits is not None and stop != n:
+            raise ValueError(
+                f"stream chunk [{start}, {stop}) for rid {rid} carries "
+                f"logits before the final row {n}")
+        rows = self._check_rows(rows, "stream chunk")
+        for name, v in rows.items():
+            if v.shape[2] != stop - start:
+                raise ValueError(
+                    f"stream chunk leaf {name!r} covers {v.shape[2]} "
+                    f"positions for range [{start}, {stop})")
+        sr["expect"] = stop
+        sr["pending"].append(
+            (start, stop, rows,
+             None if logits is None else torch.as_tensor(
+                 logits, dtype=torch.float32), ready))
+        if sr["st"] is not None:
+            self._stream_drain(rid)
+
+    def _stream_drain(self, rid: int) -> None:
+        """Inject every waiting chunk of a claimed stream, in order; the
+        chunk carrying the logits graduates the slot (and may retire the
+        request: a one-token budget ends on the admission token)."""
+        sr = self._streams.get(rid)
+        if sr is None or sr["st"] is None:
+            return
+        while sr["pending"]:
+            start, stop, rows, logits, ready = sr["pending"].pop(0)
+            self._await_rows(ready)
+            self._stream_inject(sr["slot"], sr["st"], start, stop, rows)
+            if logits is not None:
+                self._graduate_stream(sr["slot"], sr["st"], logits)
+                break
+
+    def _stream_inject(self, slot: int, st, start: int, stop: int,
+                       rows) -> None:
+        """One chunk through the handoff's ``inject`` step: its rows at
+        their absolute offsets in the prompt's bucket, rows
+        [max(shared, start), stop) written — the step monolithic handoff
+        admission runs, with per-chunk range feeds.  Rows under an adopted
+        prefix are attended, never rewritten.  The frontier moves to
+        ``stop`` (the row a decode step wrote at the old frontier was just
+        rewritten)."""
+        n = len(st["prompt"])
+        lo = max(st.get("stream_shared", 0), start)
+        if stop > lo:
+            t0 = time.perf_counter()
+            bucket = _pow2_bucket(n, self.max_len, self.cfg.max_seq_len)
+            self._inject_rows(slot, rows, start, lo, stop, bucket)
+            self._count("serving.prefilled_rows", stop - lo)
+            if self._tel:
+                self._span_ring.record(st.get("trace"), "inject", t0,
+                                       time.perf_counter(), rid=st["rid"],
+                                       start=lo, stop=stop)
+        st["pos"] = max(st["pos"], stop)
+
+    def _graduate_stream(self, slot: int, st, logits) -> None:
+        """The final chunk landed, its logits with it: draw the admission
+        token as every admission draws it (:meth:`_take_first_token`, the
+        NaN guard too) and let the slot decode (or retire at once);
+        paged, the prompt's blocks index for later prompts.  A draft
+        model's cache saw none of the rows: its first round catches up
+        from position 0."""
+        self._streams.pop(st["rid"], None)
+        for k in ("admitting", "stream", "stream_shared"):
+            st.pop(k, None)
+        done = self._take_first_token(st, slot, logits.to(self.device),
+                                      span=False)
+        if done is None:                        # failed by the NaN guard
+            del self._slots[slot]
+            return
+        if self._paged and self._prefill:
+            self._pool.register_prefix(slot, st["prompt"])
+        if self._draft_bind is not None:
+            st["spec_dpos"] = 0
+        if done:
+            del self._slots[slot]
+            self._results[st["rid"]] = st["generated"]
+            self._release(slot)
+            self._tel_retire(st, slot)
+
+    def stream_prefilled_abort(self, rid: int, reason: str) -> None:
+        """Tear down a half-streamed handoff (a worker's death, a lost
+        link, a TTL, the replica's removal): the request retires with the
+        ``error`` status and a claimed slot frees with its blocks.
+        ``KeyError`` when no stream is open for ``rid``."""
+        sr = self._streams.pop(rid)
+        if sr["st"] is None:
+            self._queue[:] = [r for r in self._queue if r["rid"] != rid]
+        else:
+            self._slots.pop(sr["slot"], None)
+            self._release(sr["slot"])
+        if self._status.get(rid) is None:
+            self._status[rid] = "error"
+            self._err_reason[rid] = reason
+        self._count("serving.requests_failed")
+        self._count("serving.stream_aborts")
 
     def _shed_queue_overflow(self) -> None:
         """The bounded per-class queues: while a class is over
@@ -988,8 +1390,8 @@ class DecodeServer:
                 torch.tensor([st["top_p"]], device=dev), mask=mask)[0])
         return int(lnp.argmax())
 
-    def _take_first_token(self, st, slot: int, logits,
-                          wall=None) -> bool | None:
+    def _take_first_token(self, st, slot: int, logits, wall=None,
+                          span: bool = True) -> bool | None:
         """The end of an admission: fetch the prefill logits [V] (one
         small device-to-host copy — the JAX server's host logits), run
         the NaN guard on them, then append the admission token; the slot
@@ -997,7 +1399,9 @@ class DecodeServer:
         calls, start) of the admission steps — feeds the device feed one
         step's wall, bounded by this fetch.  Returns None when the guard
         failed the request (its slot is released), else whether that
-        token ends the request."""
+        token ends the request.  ``span=False``: no ``prefill`` span (a
+        streamed handoff's rows were computed elsewhere; its spans are the
+        worker's chunks and this server's injects)."""
         lnp = logits.detach().float().cpu().numpy()
         t_fetch = time.perf_counter()
         if _faults.active():
@@ -1019,9 +1423,10 @@ class DecodeServer:
             t_admit = st.get("t_admit", now)
             _telemetry.event("serving.prefill", t_admit, now, tid=slot,
                              rid=st["rid"], prompt_len=len(st["prompt"]))
-            self._span_ring.record(st.get("trace"), "prefill", t_admit,
-                                   now, rid=st["rid"],
-                                   prompt_len=len(st["prompt"]))
+            if span:
+                self._span_ring.record(st.get("trace"), "prefill", t_admit,
+                                       now, rid=st["rid"],
+                                       prompt_len=len(st["prompt"]))
             if wall is not None and wall[0] is not None:
                 name, calls, t0 = wall
                 _telemetry.note_step_time(name, (t_fetch - t0) / calls)
@@ -1096,16 +1501,26 @@ class DecodeServer:
             if self._tel:
                 self._observe("serving.queue_wait_ms",
                               (t_admit - st["t_submit"]) * 1e3)
-            budgeted = self._budget and len(req["prompt"]) > self._budget
-            if not (self._prefill or budgeted):
+            # a handed-off request's rows arrive computed: its admission
+            # is one inject step, whatever the prefill mode
+            handed = "prefilled" in req or req.get("stream")
+            budgeted = (self._budget and not handed
+                        and len(req["prompt"]) > self._budget)
+            if not (self._prefill or budgeted or handed):
                 self._slots[slot] = st         # fed token by token
                 continue
             try:
+                if req.get("stream"):
+                    self._claim_stream(slot, st)
+                    continue
                 if budgeted:
                     self._claim_admitting(slot, st)
                     continue
-                logits = self._prefill_slot(req["prompt"], slot,
-                                            st["adapter"])
+                if "prefilled" in req:
+                    logits = self._inject_prefilled(req, slot)
+                else:
+                    logits = self._prefill_slot(req["prompt"], slot,
+                                                st["adapter"])
             except kv_pool.PoolExhausted:
                 # no free blocks even after evicting the cold prefix
                 # cache: the request WAITS for active slots to retire —
@@ -1123,6 +1538,8 @@ class DecodeServer:
                 st, slot, logits, (*self._prefill_steps, t_admit))
             if done is None:
                 continue                        # failed by the NaN guard
+            if "prefilled" in req and self._draft_bind is not None:
+                st["spec_dpos"] = 0   # the draft saw no rows: it catches up
             if done:
                 self._results[st["rid"]] = st["generated"]
                 self._release(slot)
@@ -1173,8 +1590,10 @@ class DecodeServer:
         prefill tokens a scheduler round.  The last chunk graduates the
         slot.  Host state moves only after the step returned, so a failed
         chunk is run again as it was.  Returns True when a chunk ran."""
+        # a stream slot is admitting for the ride, but its rows arrive off
+        # the tick: it has no chunk plan
         slot = next((s for s, st in self._slots.items()
-                     if st.get("admitting")), None)
+                     if st.get("admitting") and not st.get("stream")), None)
         if slot is None:
             return False
         st = self._slots[slot]
@@ -1403,18 +1822,26 @@ class DecodeServer:
 
     def _apply_pool_ops(self):
         """Run the allocator's pending device work: copy-on-write block
-        copies, then the table push when the host mirror changed — in
-        place (the graphs read the ``tables`` leaf by address), from
-        pinned memory, so an async server's push does not wait for the
-        step in flight (the stream runs it after that step)."""
+        copies through the graphed ``kv_copy`` step, then the table push
+        when the host mirror changed — in place (the graphs read the
+        ``tables`` leaf by address), from pinned memory, so an async
+        server's push does not wait for the step in flight (the stream
+        runs it after that step).  The copies pad to a power-of-two count
+        by repeating the first pair (the same copy twice: one step a log2
+        bucket, never one a count; a constant filler pair could name a
+        destination twice with different sources)."""
         pairs = self._pool.take_copies()
         if pairs:
-            idx = self._host(np.asarray(pairs, np.int64)).to(
-                self.device, non_blocking=True)
-            kv_pool.copy_blocks(self.cache, idx[:, 0], idx[:, 1])
+            width = 1
+            while width < len(pairs):
+                width *= 2
+            idx = np.asarray(pairs + [pairs[0]] * (width - len(pairs)),
+                             np.int64)
+            src, dst = self._host(idx[:, 0]), self._host(idx[:, 1])
+            engine.ENGINE.get("kv_copy", self._spec(k=width))(src, dst)
             if self._draft_cache is not None:
                 # a copied block holds both pools' rows of its positions
-                kv_pool.copy_blocks(self._draft_cache, idx[:, 0], idx[:, 1])
+                engine.ENGINE.get("kv_copy", self._dspec(k=width))(src, dst)
         if self._pool.dirty:
             self.cache["tables"].copy_(self._host(self._pool.tables),
                                        non_blocking=True)
@@ -3070,13 +3497,38 @@ class DecodeServer:
 
     def _count(self, name: str, n: int = 1) -> None:
         """Count into the telemetry registry and this server's twin
-        (:meth:`stats`)."""
+        (:meth:`stats`); the token and request totals also into the fleet
+        plane's twin (:meth:`_count_local`)."""
         if self._tel:
             _telemetry.count(name, n)
             self._counts[name] = self._counts.get(name, 0) + n
+            if name in _LOCAL_COUNTERS:
+                self._count_local(name, n)
+
+    def _count_local(self, name: str, n: int = 1) -> None:
+        """The per-server twin of a token or request total
+        (:meth:`local_snapshot`)."""
+        self._counts_local[name] = self._counts_local.get(name, 0) + n
 
     def _observe(self, name: str, v: float, n: int = 1) -> None:
+        """Observe into the registry's histogram and this server's own
+        (:meth:`local_snapshot`)."""
         _telemetry.observe(name, v, n)
+        if self._tel:
+            h = self._hist_local.get(name)
+            if h is None:
+                h = self._hist_local[name] = _telemetry.Histogram(name)
+            h.observe(v, n)
+
+    def local_snapshot(self) -> dict:
+        """This server's latency histograms as JSON-safe
+        ``Histogram.state()`` dicts by name, and its token and request
+        totals (``counters``) — the fleet metrics plane's merge inputs,
+        apart from the process-wide registry a loopback fleet's replicas
+        share."""
+        return {"histograms": {name: h.state() for name, h in
+                               sorted(self._hist_local.items())},
+                "counters": dict(sorted(self._counts_local.items()))}
 
     def _event(self, name: str, t0: float, t1: float, **args) -> None:
         if self._tel:
@@ -3188,10 +3640,11 @@ class DecodeServer:
         before its first request: ``Engine.warmup`` (text/engine.py) —
         with an adapter pool every site's adapter twin (ids all zero), and
         ``sample`` or ``constrained`` the ``adapter_sample`` step;
-        ``constrained=True`` without a pool the ``masked_step``.  Requires
-        an idle server; leaves the step counter, the kernels' launch
-        counters and every request's state as they were.  Returns {step:
-        seconds}."""
+        ``constrained=True`` without a pool the ``masked_step``; a paged
+        server the ``kv_copy`` widths up to its batch (a fleet replica's
+        ``inject`` steps are the Router's to warm).  Requires an idle
+        server; leaves the step counter, the kernels' launch counters and
+        every request's state as they were.  Returns {step: seconds}."""
         return engine.ENGINE.warmup(self, prompt_lens=prompt_lens,
                                     blocks=blocks, sample=sample,
                                     constrained=constrained)
@@ -3327,6 +3780,7 @@ class DecodeServer:
             pool = self._pool
             stats["prefix_hit_rate"] = pool.prefix_hits / max(
                 1, pool.prefix_hits + pool.prefix_misses)
+            stats["prefix_summary"] = pool.prefix_summary()
             stats["host_spill_bytes"] = pool.host_spill_bytes
             stats["kv_pool"] = pool.stats()
         return stats

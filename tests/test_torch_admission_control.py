@@ -372,17 +372,29 @@ def test_queue_bound_sheds_lowest_class_first(small):
     assert out[st.index("rejected")] == "Overloaded"
 
 
+def _expire(srv, rid, pkg) -> None:
+    """Move a queued request's wait clock back past any TTL: the JAX
+    server times the queue wait from ``t_enqueue``, the port from
+    ``t_queued``."""
+    key = "t_enqueue" if pkg == "jax" else "t_queued"
+    (req,) = [r for r in srv._queue if r["rid"] == rid]
+    req[key] -= 3600.0
+
+
 def test_rejected_is_not_timeout(small, monkeypatch):
     """A reject at the door and a TTL shed are different verdicts: other
-    statuses, other exceptions."""
+    statuses, other exceptions.  The TTL expires when the test says so,
+    not by the wall clock: a TTL short enough to pass in a sleep could
+    also pass before the burst is submitted (a loaded run), shedding the
+    slow request early and leaving the burst room in the class queue."""
     monkeypatch.setenv("PADDLE_TPU_ADMISSION_QUEUE_CAP", "1")
     for pkg in ("jax", "torch"):
         srv = _server(pkg, small, max_batch=1, max_len=48)
         p = _prompts(7)
         srv.submit(p[0], max_new_tokens=8)
-        slow = srv.submit(p[1], max_new_tokens=4, ttl_s=0.001)
+        slow = srv.submit(p[1], max_new_tokens=4, ttl_s=60.0)
         burst = [srv.submit(p[2], max_new_tokens=4) for _ in range(3)]
-        time.sleep(0.01)
+        _expire(srv, slow, pkg)
         _drain(srv)
         assert srv.status(slow) == "timeout"
         assert [srv.status(r) for r in burst] == \

@@ -51,6 +51,7 @@ _READS = {"step": {"paged"}, "sample": {"paged"}, "async": {"paged"},
           "async_sample_block": {"paged", "k"},
           "prefill": {"bucket"}, "prefill_chunk": {"width"},
           "paged_prefill": {"bucket"}, "inject": {"bucket", "paged"},
+          "kv_copy": {"k"},
           "spec_verify": {"paged", "k"}, "spec_tree_verify": {"paged", "k"},
           "spec_tree_commit": {"paged", "k"}, "generate": {"extra"},
           "beam": {"extra"}, "moe_step": {"paged"}, "moe_sample": {"paged"},
@@ -266,7 +267,8 @@ def test_warmup_reports_its_steps(model):
                                  device="cpu", layout="paged", block_size=8)
     assert set(paged.warmup()) == {"step", "paged_prefill8",
                                    "paged_prefill16", "paged_prefill32",
-                                   "paged_prefill40"}
+                                   "paged_prefill40", "kv_copy@1",
+                                   "kv_copy@2"}
 
 
 @pytest.mark.parametrize("mode", ["tick", "block", "async"])

@@ -1023,8 +1023,16 @@ def test_graphed_step_counts_the_eager_step(case, monkeypatch):
     for name, eager in recs[False].items():
         graph = recs[True][name]
         assert "count_failed" not in eager and "count_failed" not in graph
-        assert {k: graph[k] for k in keys} == {k: eager[k] for k in keys}, \
-            name
+        # every step counts FLOPs but the paged layout's copy-on-write
+        # step (``kv_copy``), which only moves bytes and so has no
+        # ``flops`` entry; every step counts its bytes
+        if name.startswith("serving.kv_copy@"):
+            assert "flops" not in eager and "flops" not in graph, name
+            keys_of = keys[1:]
+        else:
+            keys_of = keys
+        assert {k: graph[k] for k in keys_of} == \
+            {k: eager[k] for k in keys_of}, name
         assert graph["temp_bytes"] > 0 and "temp_bytes" not in eager, name
     feed = tl.device_feed()
     assert feed["platform"] == "gpu"
@@ -2022,3 +2030,147 @@ def test_masked_step_greedy_pick_is_the_masked_argmax(monkeypatch):
     want = torch.argmax(out[False] + mask.cuda(), dim=-1)
     assert torch.equal(out[True], want)
     assert bool(allowed[torch.arange(4, device="cuda"), out[True]].all())
+
+
+# ---------------------------------------------------------------------------
+# the serving fleet on the card: a worker on its own stream, rows handed
+# across streams, launch counts across threads
+# ---------------------------------------------------------------------------
+
+
+def _fleet_drive(router, prompts, new=12):
+    import time
+
+    rids = [router.submit(p, max_new_tokens=new) for p in prompts]
+    deadline = time.time() + 120.0
+    while router.pending() and time.time() < deadline:
+        router.tick()
+        if not any(r._slots or r._queue for r in router.replicas
+                   if r is not None):
+            time.sleep(0.002)
+    assert not router.pending()
+    return [router.result(r) for r in rids]
+
+
+@pytest.mark.parametrize("case", ["contiguous", "paged"])
+def test_loopback_fleet_equals_one_server(case, monkeypatch):
+    """A loopback fleet of 2 graphed replicas and 1 graphed worker (its
+    own stream), every prompt handed off, streamed and whole: the single
+    graphed server's streams exactly; nothing captured after the warmups
+    (the Router's of the replicas' inject steps included)."""
+    from paddle_tpu_torch.text import engine, fleet
+
+    cfg, params, prompts = _graph_case("paged" if case == "paged"
+                                       else "fp32", monkeypatch)
+    engine.ENGINE._steps.clear()     # room: no eviction during the test
+    lens = [len(p) for p in prompts]
+    one = _graph_server(cfg, params, case, True)
+    ref = _serve_all(one, prompts)
+    one.close()
+    lay = (dict(layout="paged", block_size=16) if case == "paged" else {})
+    for rows in ("0", "8"):
+        monkeypatch.setenv("PADDLE_TPU_STREAM_CHUNK_ROWS", rows)
+        worker = fleet.PrefillWorker(params, cfg, max_len=160, **lay)
+        worker.warmup(prompt_lens=lens)
+        reps = [_graph_server(cfg, params, case, True) for _ in range(2)]
+        for r in reps:
+            r.warmup(prompt_lens=lens)
+        router = fleet.Router(reps, prefill=[worker], prefill_threshold=1)
+        graphs = len(engine.ENGINE.graphs())
+        assert _fleet_drive(router, prompts) == ref, rows
+        assert len(engine.ENGINE.graphs()) == graphs
+        router.close()
+
+
+def test_rows_cross_streams_after_the_workers_event(monkeypatch):
+    """The worker's rows are written on its stream, behind a long spin;
+    ``submit_prefilled(..., ready=event)`` makes the replica's stream wait
+    on the event before its inject replay: the stream equals a local
+    admission's."""
+    from paddle_tpu_torch.text import engine, fleet
+
+    cfg, params, prompts = _graph_case("fp32", monkeypatch)
+    # room: an evicted graph captured again inside the spin would
+    # synchronize the card and complete the event
+    engine.ENGINE._steps.clear()
+    prompt = max(prompts, key=len)
+    one = _graph_server(cfg, params, "fp32", True)
+    ref = _serve_all(one, [prompt])
+    one.close()
+    worker = fleet.PrefillWorker(params, cfg, max_len=160)
+    worker.warmup(prompt_lens=[len(prompt)])
+    srv = _graph_server(cfg, params, "fp32", True)
+    srv.warmup(prompt_lens=[len(prompt)])
+    engine.ENGINE.warm_inject(srv, [len(prompt)])
+    n = len(prompt)
+    C = worker._bucket(n)
+    # the worker's admission step, its rows' copies and their event, on
+    # its stream behind a long spin (``_prefill`` would wait for them)
+    with torch.cuda.stream(worker._stream):
+        torch.cuda._sleep(200_000_000)         # ~0.1 s behind the rows
+        (logits,) = engine.ENGINE.get("prefill", worker._spec(bucket=C))(
+            *worker._feeds(prompt, C, n, 0))
+        rows, logits, ev = worker._ship(worker._take_rows(0, n),
+                                        logits.float().clone(), False)
+    assert ev is not None and not ev.query()
+    rid = srv.submit_prefilled(prompt, rows, logits, max_new_tokens=12,
+                               ready=ev)
+    del rows, logits
+    while srv.pending():
+        srv.tick()
+    assert [srv.result(rid)] == ref
+    worker.close()
+    srv.close()
+
+
+def test_launch_counts_exact_while_a_worker_thread_prefills(monkeypatch):
+    """A replica ticks on this thread while a worker thread prefills (and
+    captures nothing: warmed first): every launch of both lands in the
+    wrappers' counters — the decode tick launches are the replica's step
+    replays' and the flash launches its and the worker's prefill
+    replays'."""
+    import threading
+
+    from paddle_tpu_torch.text import engine, fleet
+
+    cfg, params, prompts = _graph_case("fp32", monkeypatch)
+    engine.ENGINE._steps.clear()     # room: no eviction during the test
+    worker = fleet.PrefillWorker(params, cfg, max_len=160)
+    long_p = max(prompts, key=len)
+    worker.warmup(prompt_lens=[len(long_p)])
+    srv = _graph_server(cfg, params, "fp32", True)
+    srv.warmup(prompt_lens=[len(p) for p in prompts])
+    for w in (fa.flash_attention_fwd, da.decode_attention):
+        for a in ("launches", "tc_launches", "tick_launches"):
+            if hasattr(w, a):
+                setattr(w, a, 0)
+    graphs = (engine.ENGINE.graphs(worker._bind)
+              + engine.ENGINE.graphs(srv._bind))
+    reps0 = {g: g.replays for g in graphs}
+    done = threading.Event()
+
+    def prefill_loop():
+        for _ in range(20):
+            worker.prefill(long_p)
+        done.set()
+
+    t = threading.Thread(target=prefill_loop)
+    t.start()
+    _serve_all(srv, prompts)
+    t.join()
+    assert done.is_set()
+    torch.cuda.synchronize()
+    # the same graphs as before the run: nothing captured or evicted
+    assert set(engine.ENGINE.graphs(worker._bind)
+               + engine.ENGINE.graphs(srv._bind)) == set(reps0)
+    grown = [(g.name, g.replays - n) for g, n in reps0.items()]
+    L = cfg.num_layers
+    steps = sum(n for name, n in grown if name == "serving.step")
+    prefills = sum(n for name, n in grown
+                   if name.startswith("serving.prefill@"))
+    assert prefills == 20 + len(prompts)
+    assert da.decode_attention.launches == L * steps
+    assert da.decode_attention.tick_launches == L * steps
+    assert fa.flash_attention_fwd.launches == L * prefills
+    worker.close()
+    srv.close()

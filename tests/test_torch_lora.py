@@ -16,7 +16,13 @@ on the CPU, in fp32:
 * ``build_lora_train_step``: a 5-step AdamW trajectory from the same
   adapters, losses within 1e-5 and adapters within a tenth of lr of the
   JAX step's, the frozen base bit-unchanged and never a gradient leaf,
-  and a QLoRA int8 step.
+  and a QLoRA int8 step;
+* QLoRA over an int4 base, adapters built in numpy at the logical shape
+  (the shape both packages' ``woq.w`` take; the JAX ``lora_init`` shapes
+  ``a`` by the packed rows, which its ``woq.w`` refuses — shown apart):
+  decode logits and a two-step LoRA trajectory against JAX within 1e-5,
+  and a pool-attached server over the int4 tree against the adapted
+  tree's solo decode (the JAX pool refuses logical-shape rows).
 """
 import numpy as np
 import pytest
@@ -276,3 +282,162 @@ def test_qlora_int8_train_step_matches_jax():
     assert torch.equal(state.base["blocks"]["qkv_w"], q["blocks"]["qkv_w"])
     with pytest.raises(ValueError, match="no lora leaves"):
         lora.build_lora_train_step(cfg, AdamW())[0](q)
+
+
+# ---------------------------------------------------------------------------
+# QLoRA over an int4 base.  The adapters are built in numpy at each
+# target's LOGICAL shape ([L, ..., in, out], ``woq.logical_shape``), the
+# shape both packages' ``woq.w`` add the delta at.  The JAX ``lora_init``
+# shapes ``a`` by the packed int4 rows ([..., in / 2, r]), which its own
+# ``woq.w`` then cannot broadcast; the port's ``lora_init`` takes the
+# logical rows.  These tests hold the port to the logical shape — the one
+# on which the JAX forward runs at all — and show the JAX init's shape
+# apart.
+# ---------------------------------------------------------------------------
+
+
+def _int4_pair(seed):
+    """A hidden-64 model and its int4 tree (group size 32), both
+    packages (the quantized trees are bit-identical)."""
+    jcfg, jp, cfg, params = _pair(seed, hidden_size=64)
+    jq = jax.device_get(jwoq.quantize_gpt_int4(jp, group_size=32))
+    q = woq.quantize_gpt_int4(params, group_size=32)
+    for k, v in convert.params_from_jax(jq)["blocks"].items():
+        assert torch.equal(v, q["blocks"][k]), k
+    return jcfg, jq, cfg, q
+
+
+def _logical_adapters(q, seed, rank=4, scale=0.3, zero_b=False,
+                      targets=("qkv_w", "proj_w")):
+    """numpy adapters at each target's logical shape: ``a`` kaiming-scaled,
+    ``b`` drawn (or zero)."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for name in targets:
+        shp = woq.logical_shape(q["blocks"], name)
+        out[name + "_lora_a"] = (rng.standard_normal(shp[:-1] + (rank,))
+                                 / np.sqrt(shp[-2])).astype(np.float32)
+        out[name + "_lora_b"] = (
+            np.zeros(shp[:-2] + (rank, shp[-1]), np.float32) if zero_b
+            else (scale * rng.standard_normal(shp[:-2] + (rank, shp[-1])))
+            .astype(np.float32))
+    return out
+
+
+def test_lora_init_on_int4_shapes_a_by_logical_rows():
+    """The port's ``lora_init`` on an int4 base shapes ``a`` by the
+    logical rows, and its forward runs; the JAX ``lora_init`` shapes it by
+    the packed rows (half), which the JAX ``woq.w`` refuses — the reason
+    the int4 tests below build their adapters in numpy."""
+    jcfg, jq, cfg, q = _int4_pair(13)
+    tree = lora.lora_init(q, cfg, rank=4, key=3)
+    jtree = jax.device_get(jlora.lora_init(jq, jcfg, rank=4,
+                                           key=jax.random.PRNGKey(3)))
+    for name in ("qkv_w", "proj_w"):
+        logical = woq.logical_shape(q["blocks"], name)
+        assert tuple(tree["blocks"][name + "_lora_a"].shape) == \
+            logical[:-1] + (4,)
+        assert tuple(jtree["blocks"][name + "_lora_a"].shape) == \
+            logical[:-2] + (logical[-2] // 2, 4)
+    cache = G.init_cache(cfg, 1, 8, "cpu")
+    logits, _ = G.decode_step(tree, cache, torch.tensor([3]), 0, cfg)
+    assert torch.isfinite(logits).all()
+    with pytest.raises(Exception):
+        jG.decode_step(jtree, jG.init_cache(jcfg, 1, 8), jnp.asarray([3]),
+                       0, jcfg)
+
+
+def test_qlora_int4_decode_matches_jax():
+    """Zero-b adapters over an int4 base decode the int4 base's tokens;
+    drawn ones give the JAX decode's logits within 1e-5 at every
+    position."""
+    jcfg, jq, cfg, q = _int4_pair(7)
+    zero = lora.join_lora(q, convert.params_from_jax(
+        _logical_adapters(q, 8, zero_b=True)))
+    prompt = torch.tensor([[3, 1]])
+    assert torch.equal(G.generate(q, cfg, prompt, max_new_tokens=5,
+                                  device="cpu"),
+                       G.generate(zero, cfg, prompt, max_new_tokens=5,
+                                  device="cpu"))
+    ad = _logical_adapters(q, 9)
+    adapted = lora.join_lora(q, convert.params_from_jax(ad))
+    jadapted = jlora.join_lora(jq, ad)
+    cache = G.init_cache(cfg, 2, 16, "cpu")
+    jcache = jG.init_cache(jcfg, 2, 16)
+    toks = _toks(4, (2, 6))
+    base_cache = G.init_cache(cfg, 2, 16, "cpu")
+    moved = 0.0
+    for pos in range(6):
+        lt, cache = G.decode_step(adapted, cache,
+                                  torch.as_tensor(toks[:, pos]), pos, cfg)
+        lj, jcache = jG.decode_step(jadapted, jcache,
+                                    jnp.asarray(toks[:, pos]), pos, jcfg)
+        np.testing.assert_allclose(lt.numpy(), np.asarray(lj), atol=TOL,
+                                   rtol=0)
+        lb, base_cache = G.decode_step(q, base_cache,
+                                       torch.as_tensor(toks[:, pos]), pos,
+                                       cfg)
+        moved = max(moved, float((lt - lb).abs().max()))
+    assert moved > 1e-3                       # the delta bites
+
+
+def test_qlora_int4_train_step_matches_jax():
+    """Two LoRA steps over an int4 base: losses within 1e-5 of JAX's, the
+    int4 weights outside the trainable tree and unchanged, every adapter
+    within lr / 10 of JAX's."""
+    jcfg, jq, cfg, q = _int4_pair(6)
+    ad = _logical_adapters(q, 12, scale=0.05)
+    before = {k: v.clone() for k, v in q["blocks"].items()}
+    losses, jlosses, state, jstate = _trajectory_pair(jcfg, jq, cfg, q, ad,
+                                                      2, 40)
+    np.testing.assert_allclose(losses, jlosses, atol=TOL, rtol=0)
+    assert state.base["blocks"]["qkv_w"].dtype == torch.int8
+    for k, v in state.base["blocks"].items():
+        assert torch.equal(v, before[k]), k
+    for k, v in state.adapters.items():
+        np.testing.assert_allclose(v.numpy(), jstate.adapters[k],
+                                   atol=LR / 10, rtol=0, err_msg=k)
+
+
+def test_served_adapter_pool_over_int4_matches_adapted_decode():
+    """A pool-attached server over the int4 tree: a base request is the
+    int4 base's stream and an adapted one the adapted int4 tree's solo
+    greedy decode (whose logits the test above holds to JAX's), on both
+    layouts.  The JAX pool is not the reference here: it sizes its rows
+    by the packed int4 rows and refuses logical-shape adapters."""
+    from paddle_tpu_torch.text import adapters as A
+    from paddle_tpu_torch.text import serving
+
+    jcfg, jq, cfg, q = _int4_pair(5)
+    ad = convert.params_from_jax(_logical_adapters(q, 21))
+    adapted = lora.join_lora(q, ad)
+
+    def solo(tree, prompt, n):
+        cache = G.init_cache(cfg, 1, cfg.max_seq_len, "cpu")
+        out, tok = [], None
+        for pos in range(len(prompt) + n - 1):
+            cur = prompt[pos] if pos < len(prompt) else tok
+            lg, cache = G.decode_step(tree, cache, torch.tensor([cur]), pos,
+                                      cfg)
+            if pos >= len(prompt) - 1:
+                tok = int(lg[0].argmax())
+                out.append(tok)
+        return out
+
+    prompts = [[1, 5, 7, 3, 2], [4, 8, 9, 1]]
+    want = [solo(q, prompts[0], 6), solo(adapted, prompts[1], 6)]
+    assert want[1] != solo(q, prompts[1], 6)
+    for layout in ("contiguous", "paged"):
+        pool = A.AdapterPool(q, cfg, rank=4, max_adapters=2)
+        pool.register("w4", ad)
+        kw = {"block_size": 8} if layout == "paged" else {}
+        srv = serving.DecodeServer(q, cfg, max_batch=2, max_len=32,
+                                   device="cpu", layout=layout,
+                                   adapter_pool=pool, **kw)
+        rids = [srv.submit(prompts[0], max_new_tokens=6),
+                srv.submit(prompts[1], max_new_tokens=6, adapter="w4")]
+        while srv.pending():
+            srv.tick()
+        got = [[int(t) for t in srv.result(r)] for r in rids]
+        srv.close()
+        assert got == want, layout
