@@ -289,7 +289,31 @@ Phases, in order; any failure raises and the script exits non-zero:
    start near ln(vocab) and fall, and a remat rung's forward must keep
    fewer bytes than its remat-off twin's, its step peak no more (the
    allocated peak; on the MoE twins the requested one);
-10. one ``{"kernels": [...]}`` JSON line, then, as the last line,
+10. after the LoRA phase, hybrid-parallel training (``hybrid_phase``,
+   ``paddle_tpu_torch/distributed/`` and ``build_gpt_train_step(mesh=)``):
+   four ranks spawned from this process (``distributed.spawn``; the
+   kernels built here, so the ranks only load them), one a card over
+   NCCL with four cards, else all on card 0 over gloo with collectives
+   staged through pinned host memory (the phase's first line says
+   which); first #1-#3 over a rank's 8 heads and #6 / #7 on a 25152-wide
+   vocab shard (the backward fed the global lse) against their plain
+   twins; (a) five AdamW steps of the small fp32 models (the base of the
+   train checks above and its GQA-rope-RMSNorm-SwiGLU variant) at dp2 x
+   mp2, pp2 x mp2 under 1F1B and F-then-B at 2 and 4 micro-batches, dp4
+   at ZeRO 0-3 and dp2 x mp2 with a clipping global norm, fused CE and
+   LN, against the one-card step on the same masters and batches
+   (TRAIN_LOSS_TOL, TRAIN_PARAM_TOL but a TRAIN_PARAM_FAR share), each
+   rank's launches of #1-#7 exact (``hybrid_check.
+   expected_hybrid_launches``), and the vocab-parallel CE's kernel route
+   against its plain twin on mp 4; (b) GPT-1.3B at pp2 x mp2, 1F1B, 8
+   micro-batches on the headline rung's masters, batch and optimizer:
+   step 1's loss within HYBRID_1P3B_LOSS_TOL of the headline rung's step
+   1, step 2's below it, launches exact, step 3 profiled; each rank's
+   step ms, peak memory, collective bytes and the collectives' share of
+   its device time; (c) with four cards also dp2 x mp2 under ZeRO 1 at
+   accum 4.  ``python3 chip_smoke.py --hybrid-only`` runs the build and
+   this phase alone;
+11. one ``{"kernels": [...]}`` JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a CUDA card.  Imports nothing
@@ -6829,12 +6853,450 @@ TRAIN_RUNGS = (("train", "gpt_1.3b_acc8_b8", None),
                 "train_moe"))
 
 
+# ---------------------------------------------------------------------------
+# hybrid-parallel training: ranks over torch.distributed
+# ---------------------------------------------------------------------------
+
+HYBRID_RANKS = 4
+HYBRID_FLAGS = {"PADDLE_TPU_FUSED_CE": "1", "PADDLE_TPU_FUSED_LN": "1"}
+# the small models: check_train_vs_cpu's base and its GQA variant
+HYBRID_BASE = dict(vocab_size=512, hidden_size=256, num_layers=2,
+                   num_heads=2, max_seq_len=128)
+HYBRID_GQA = dict(num_heads=4, num_kv_heads=2, hidden_size=512,
+                  pos_embed="rope", norm="rmsnorm", activation="swiglu")
+HYBRID_CLIP = 0.05               # below the small models' gradient norm
+# (name, config fields over HYBRID_BASE, mesh, step arguments, clip norm)
+HYBRID_SMALL_RUNS = (
+    ("mha dp2 x mp2", {}, {"dp": 2, "mp": 2}, {}, None),
+    ("gqa-rope-rmsnorm-swiglu dp2 x mp2", HYBRID_GQA, {"dp": 2, "mp": 2},
+     {}, None),
+    ("mha pp2 x mp2 1f1b M=2", {}, {"pp": 2, "mp": 2}, {"n_micro": 2},
+     None),
+    ("mha pp2 x mp2 1f1b M=4", {}, {"pp": 2, "mp": 2}, {"n_micro": 4},
+     None),
+    ("mha pp2 x mp2 fthenb M=2", {}, {"pp": 2, "mp": 2},
+     {"n_micro": 2, "schedule": "fthenb"}, None),
+    ("mha pp2 x mp2 fthenb M=4", {}, {"pp": 2, "mp": 2},
+     {"n_micro": 4, "schedule": "fthenb"}, None),
+    *((f"mha dp4 zero {z}", {}, {"dp": 4}, {"zero": z}, None)
+      for z in range(4)),
+    ("mha dp2 x mp2 clip", {}, {"dp": 2, "mp": 2}, {}, HYBRID_CLIP),
+)
+# GPT-1.3B at pp2 x mp2, 1F1B, 8 micro-batches: step 1's loss against the
+# one-card headline rung's step-1 loss on the same masters and batch
+# (bf16: the mp split sums the heads and the vocab in another order)
+HYBRID_1P3B_LOSS_TOL = 0.02
+HYBRID_1P3B_RUNG = "gpt_1.3b_fused_acc8_b8"
+HYBRID_1P3B_STEPS = 3            # steps 1-2 gated and timed, 3 profiled
+
+
+def hybrid_placement(torch, env):
+    """(device, backend, transport) the ranks take on this machine and
+    the phase's first line."""
+    dev, backend, transport = env.placement(HYBRID_RANKS)
+    cards = torch.cuda.device_count() if backend == "nccl" else 1
+    how = ("NCCL, one rank a card" if backend == "nccl" else
+           "gloo, staged collectives and p2p through pinned host memory")
+    return (dev, backend, transport), (
+        f"[hybrid-parallel training: {HYBRID_RANKS} ranks on {cards} "
+        f"card{'s' if cards > 1 else ''}, {how}]")
+
+
+def check_hybrid_shapes(torch, fa, fc):
+    """The kernels at the shapes only the hybrid path gives them, against
+    their plain twins: flash forward and backward over a rank's 8 heads
+    (GPT-1.3B at mp 2: [1, 2048, 8, 128] bf16, causal); the CE forward on
+    a vocab shard [2048, 25152] with shard-local labels (a quarter of them
+    outside the shard, picking 0) and the backward fed the GLOBAL lse of
+    the whole row (softmax_global - onehot_local).  Returns the worst
+    errors by kernel name."""
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    B, T, H, D = 1, 2048, 8, 128
+    q, k, v, do = (torch.randn(B, T, H, D, generator=gen, device="cuda")
+                   .to(torch.bfloat16) for _ in range(4))
+    out, lse = fa.flash_attention_fwd(q, k, v, True)
+    ref_out, ref_lse = fa._plain_fwd(q, k, v, True)
+    dq, delta = fa.flash_attention_bwd_dq(q, k, v, out, lse, do, True)
+    dk, dv = fa.flash_attention_bwd_dkv(q, k, v, lse, delta, do, True)
+    ref = fa._plain_bwd(q, k, v, out, lse, do, True)
+    torch.cuda.synchronize()
+    err = {"flash_attention_fwd": (out.float() - ref_out.float()).abs()
+           .max().item(),
+           "flash_attention_bwd_dq": (dq.float() - ref[0].float()).abs()
+           .max().item(),
+           "flash_attention_bwd_dkv": max((a.float() - b.float()).abs().max()
+                                          .item() for a, b in
+                                          zip((dk, dv), ref[1:]))}
+    ok = (torch.allclose(out.float(), ref_out.float(), atol=BF16_TOL,
+                         rtol=BF16_TOL)
+          and all(torch.allclose(a.float(), b.float(), atol=BF16_TOL,
+                                 rtol=BF16_TOL)
+                  for a, b in zip((dq, dk, dv), ref)))
+    N, V, Vl = 2048, 50304, 25152
+    x = (2 * torch.randn(N, V, generator=gen, device="cuda")).bfloat16()
+    y = torch.randint(0, V, (N,), generator=gen, device="cuda")
+    shard = x[:, Vl:].contiguous()            # rank 1 of mp 2
+    local = y - Vl                            # labels below the shard: < 0
+    dl = torch.full((N,), 1.0 / N, device="cuda")
+    loss, lse_r = fc.ce_fwd(shard, local)
+    ref_loss, ref_lse_r = fc._plain_ce_fwd(shard, local)
+    lse_g = torch.logsumexp(x.float(), dim=-1)
+    dx = fc.ce_bwd(shard, local, lse_g, dl)
+    ref_dx = fc._plain_ce_bwd(shard, local, lse_g, dl)
+    torch.cuda.synchronize()
+    err["fused_ce_fwd"] = max((loss - ref_loss).abs().max().item(),
+                              (lse_r - ref_lse_r).abs().max().item())
+    err["fused_ce_bwd"] = (dx.float() - ref_dx.float()).abs().max().item()
+    ok = ok and err["fused_ce_fwd"] <= LSE_TOL and torch.allclose(
+        dx.float(), ref_dx.float(), atol=CE_DX_ATOL, rtol=BF16_TOL)
+    log(f"  at the hybrid path's shapes (flash B={B} T={T} H={H} D={D} "
+        f"bf16 causal; CE shard N={N} V/mp={Vl}, {int((local < 0).sum())} "
+        f"labels outside it, backward on the global lse): max|kernel - "
+        f"plain| {json.dumps({n: float(f'{e:.3g}') for n, e in err.items()})}"
+        f" (tol {BF16_TOL}*(1+|plain|); lse/loss {LSE_TOL}; dlogits "
+        f"{CE_DX_ATOL} + {BF16_TOL}*|plain|)")
+    if not ok:
+        raise AssertionError("a kernel disagrees with its plain twin at the "
+                             "hybrid path's shapes")
+    return err
+
+
+def _np_get(tree, dotted):
+    for k in dotted.split("."):
+        tree = tree[k]
+    return tree
+
+
+def _np_tree(tree):
+    return {k: (_np_tree(v) if isinstance(v, dict)
+                else v.detach().float().cpu().numpy())
+            for k, v in tree.items()}
+
+
+def _one_card_run(torch, gpt_hybrid, optim, clip, cfg, master, batches,
+                  clip_norm):
+    """The one-card step (mesh None) on the card: (losses, {name:
+    final param on the CPU})."""
+    opt = optim.AdamW(learning_rate=TRAIN_LR, grad_clip=(
+        clip.ClipGradByGlobalNorm(clip_norm) if clip_norm else None))
+    init_fn, step_fn, _ = gpt_hybrid.build_gpt_train_step(cfg, opt,
+                                                          device="cuda")
+    st = init_fn(params=_to_card(master))
+    losses = []
+    for b in batches:
+        st, loss = step_fn(st, b, None, TRAIN_LR)
+        losses.append(loss.item())
+    return losses, {n: t.cpu() for n, t in _leaves(st.params)}
+
+
+def _launch_gates(rank_outs, want_of, what):
+    """Every rank's launches, step by step, against ``want_of(coords)``;
+    returns the launches summed over ranks and steps."""
+    total: dict = {}
+    for r in rank_outs:
+        want = want_of(r["coords"])
+        for i, got in enumerate(r["launches"]):
+            if got != want:
+                raise AssertionError(f"{what}: rank {r['rank']} "
+                                     f"{r['coords']} step {i + 1} launched "
+                                     f"{got}, not {want}")
+            for k, v in got.items():
+                total[k] = total.get(k, 0) + v
+    return total
+
+
+def _add(total, part):
+    for k, v in part.items():
+        total[k] = total.get(k, 0) + v
+
+
+def hybrid_small(torch, gpt, gpt_hybrid, optim, clip, spawn, hc):
+    """(a): five AdamW steps of the small fp32 models on every mesh of
+    ``HYBRID_SMALL_RUNS`` (CE and LN flags on), all in one spawn of the
+    ranks, against the one-card step (mesh None) on the card from the same
+    seed-7 masters and batches: losses within TRAIN_LOSS_TOL, the gathered
+    final params within TRAIN_PARAM_TOL but for a TRAIN_PARAM_FAR share
+    (all within TRAIN_STEPS * TRAIN_LR), each rank's launches of #1-#7
+    exactly ``hc.expected_hybrid_launches``; and on mp 4 the
+    vocab-parallel CE's kernel route against its plain twin (loss within
+    LSE_TOL, dlogits within CE_DX_ATOL + BF16_TOL * |plain|)."""
+    rng = np.random.default_rng(3)
+    batches = [rng.integers(0, HYBRID_BASE["vocab_size"], (4, 65))
+               for _ in range(TRAIN_STEPS)]
+    cfgs, masters, refs, cases = {}, {}, {}, []
+    os.environ.update(HYBRID_FLAGS)
+    for name, over, mesh, kw, clip_norm in HYBRID_SMALL_RUNS:
+        key = tuple(sorted(over.items()))
+        if key not in cfgs:
+            cfgs[key] = gpt.GPTConfig(**{**HYBRID_BASE, **over},
+                                      dtype=torch.float32)
+            masters[key] = gpt.init_master_params(cfgs[key], seed=7,
+                                                  device="cpu")
+        if (key, clip_norm) not in refs:
+            refs[key, clip_norm] = _one_card_run(
+                torch, gpt_hybrid, optim, clip, cfgs[key], masters[key],
+                batches, clip_norm)
+        cases.append({"kind": "train", "cfg": cfgs[key], "mesh": mesh,
+                      "kw": kw, "clip": clip_norm,
+                      "params": _np_tree(masters[key]), "batches": batches,
+                      "lr": TRAIN_LR, "flags": HYBRID_FLAGS})
+    g = np.random.default_rng(5)
+    V = 2048
+    cases.append({"kind": "megatron", "mesh": {"mp": HYBRID_RANKS},
+                  "flags": HYBRID_FLAGS,
+                  "wte": g.standard_normal((V, 64)).astype(np.float32),
+                  "tokens": g.integers(0, V, (4, 9)),
+                  "x": g.standard_normal((4, 32)).astype(np.float32),
+                  "w": g.standard_normal((32, 16)).astype(np.float32),
+                  "b": g.standard_normal(16).astype(np.float32),
+                  "logits": (5 * g.standard_normal((4, 64, V))).astype(
+                      np.float32),
+                  "targets": g.integers(0, V, (4, 64))})
+    t0 = time.perf_counter()
+    outs = spawn.spawn(hc.run_cases, (cases,), nprocs=HYBRID_RANKS)
+    wall = time.perf_counter() - t0
+    total, tc_total = {}, {}
+    worst_loss = worst_param = 0.0
+    for i, (name, over, mesh, kw, clip_norm) in enumerate(HYBRID_SMALL_RUNS):
+        key = tuple(sorted(over.items()))
+        ref_losses, ref_params = refs[key, clip_norm]
+        ranks = [o[i] for o in outs]
+        got = ranks[0]
+        d_loss = max(abs(a - b) for a, b in zip(got["losses"], ref_losses))
+        diff = np.concatenate([
+            np.abs(_np_get(got["params"], n) - t.numpy()).ravel()
+            for n, t in ref_params.items()])
+        far = float((diff > TRAIN_PARAM_TOL).mean())
+        cfg = cfgs[key]
+        total_run = _launch_gates(
+            ranks, lambda c: hc.expected_hybrid_launches(
+                cfg, mesh, kw.get("n_micro", 1), 1, c.get("pp", 0),
+                fused_ln=True, fused_ce=True), name)
+        _add(total, total_run)
+        for r in ranks:
+            for t in r["tc_launches"]:
+                _add(tc_total, t)
+        comm = got["comm"][-1]
+        log(f"  {name}: losses {[round(x, 5) for x in got['losses']]}; "
+            f"max|loss - one card| {d_loss:.3g} (tol {TRAIN_LOSS_TOL}); "
+            f"params - one card: max {diff.max():.3g} (tol "
+            f"{TRAIN_STEPS * TRAIN_LR}), share past {TRAIN_PARAM_TOL} "
+            f"{far:.3g} of {diff.size} (tol {TRAIN_PARAM_FAR}); rank 0 "
+            f"launches a step {got['launches'][-1]}; collectives a step "
+            f"(rank 0) {json.dumps(comm)}")
+        if not (all(map(math.isfinite, got["losses"]))
+                and d_loss <= TRAIN_LOSS_TOL and far <= TRAIN_PARAM_FAR
+                and diff.max() <= TRAIN_STEPS * TRAIN_LR):
+            raise AssertionError(f"hybrid {name} disagrees with the "
+                                 f"one-card step")
+        worst_loss = max(worst_loss, d_loss)
+        worst_param = max(worst_param, float(diff.max()))
+    mg = outs[0][-1]
+    e_loss = float(np.abs(mg["ce_kernel"] - mg["ce_plain"]).max())
+    e_grad = float(np.abs(mg["ce_kernel_grad"] - mg["ce_plain_grad"]).max())
+    grad_ok = np.allclose(mg["ce_kernel_grad"], mg["ce_plain_grad"],
+                          atol=CE_DX_ATOL, rtol=BF16_TOL)
+    log(f"  vocab-parallel CE on mp {HYBRID_RANKS} (fp32 [256, {V}] logits): "
+        f"kernel route - plain twin: loss {e_loss:.3g} (tol {LSE_TOL}), "
+        f"dlogits {e_grad:.3g}")
+    if not (e_loss <= LSE_TOL and grad_ok):
+        raise AssertionError("the vocab-parallel CE's kernel route "
+                             "disagrees with its plain twin")
+    for k in HYBRID_FLAGS:
+        os.environ.pop(k, None)
+    return ({"runs": len(HYBRID_SMALL_RUNS), "worst_loss": worst_loss,
+             "worst_param": worst_param, "spawn_wall_s": wall,
+             "vocab_parallel_ce": {"loss": e_loss, "dlogits": e_grad}},
+            total, tc_total)
+
+
+def headline_step1_loss(torch, gpt, tr):
+    """The headline rung's step-1 loss without its step: the mean of its
+    8 micro-batch losses on the seed-0 masters (what its step reports)."""
+    cfg, opt, init_fn, step_fn, tokens = tr.build_train_path(
+        "cuda", seed=0, rung=HYBRID_1P3B_RUNG)
+    params = gpt.init_master_params(cfg, 0, "cuda")
+    r = tr.RUNGS[HYBRID_1P3B_RUNG]
+    inv = 1.0 / r.accum
+    loss = torch.zeros((), device="cuda")
+    with torch.no_grad():
+        for t in tokens.reshape(r.accum, -1, tokens.shape[-1]):
+            loss = loss + gpt.loss_fn(params, t, cfg) * inv
+    out = loss.item()
+    del params
+    for k in r.flags:
+        os.environ.pop(k, None)
+    return out
+
+
+def hybrid_1p3b(torch, gpt, tr, spawn, hc, headline, placement):
+    """(b) GPT-1.3B (``gpt.gpt_1p3b()``) at pp2 x mp2, 1F1B, 8
+    micro-batches, on the headline rung's batch (8 x 2048 tokens, seed 0),
+    masters and optimizer (AdamW, bf16 moments), both fused flags; with
+    four cards also (c) dp2 x mp2 under ZeRO 1 at accum 4.  Steps 1-2:
+    step 1's loss within HYBRID_1P3B_LOSS_TOL of the one-card headline
+    rung's, step 2's below it, every rank's launches exact (the flash
+    kernels on their tensor-core bodies); step 3 profiled on every rank
+    (device time by family, the collectives' share).  Prints each rank's
+    step ms, peak memory and collective bytes; tokens/s and MFU (JAX's
+    FLOP count over the cards' bf16 peak) of step 2."""
+    (dev, backend, transport), _ = placement
+    r = tr.RUNGS[HYBRID_1P3B_RUNG]
+    cfg = gpt.GPTConfig(**r.cfg)
+    toks = np.random.default_rng(0).integers(0, cfg.vocab_size,
+                                             (r.batch, tr.SEQ + 1))
+    opt = ("AdamW", {"learning_rate": tr.LR,
+                     "weight_decay": tr.WEIGHT_DECAY,
+                     "state_dtype": torch.bfloat16})
+    arms = [("pp2 x mp2 1f1b M=8", {"pp": 2, "mp": 2}, {"n_micro": 8})]
+    if backend == "nccl":
+        arms.append(("dp2 x mp2 zero 1 accum 4", {"dp": 2, "mp": 2},
+                     {"zero": 1, "accum": 4}))
+    cases = [{"kind": "train", "cfg": cfg, "mesh": mesh, "kw": kw,
+              "seed": 0, "batches": [toks], "steps": HYBRID_1P3B_STEPS,
+              "lr": tr.LR, "opt": opt, "flags": dict(r.flags),
+              "gather": False, "profile_last": True}
+             for _, mesh, kw in arms]
+    t0 = time.perf_counter()
+    outs = spawn.spawn(hc.run_cases, (cases,), nprocs=HYBRID_RANKS)
+    wall = time.perf_counter() - t0
+    cards = torch.cuda.device_count() if backend == "nccl" else 1
+    n_tok = r.batch * tr.SEQ
+    fpt = gpt.flops_per_token(cfg, tr.SEQ)
+    shared = "" if backend == "nccl" else (
+        f" (the {HYBRID_RANKS} ranks share one card: these times measure "
+        f"the sharing)")
+    stats, total, tc_total = {}, {}, {}
+    for i, (name, mesh, kw) in enumerate(arms):
+        ranks = [o[i] for o in outs]
+        losses = ranks[0]["losses"]
+        gated = HYBRID_1P3B_STEPS - 1
+        _add(total, _launch_gates(
+            [dict(x, launches=x["launches"][:gated]) for x in ranks],
+            lambda c: hc.expected_hybrid_launches(
+                cfg, mesh, kw.get("n_micro", 1), kw.get("accum", 1),
+                c.get("pp", 0)), name))
+        for x in ranks:
+            for j, tc in enumerate(x["tc_launches"][:gated]):
+                want = {k: x["launches"][j][k] for k in tc}
+                if tc != want:
+                    raise AssertionError(f"{name}: rank {x['rank']} step "
+                                         f"{j + 1} tensor-core launches {tc}"
+                                         f", not {want}")
+                _add(tc_total, tc)
+        step_s = ranks[0]["step_ms"][1] / 1e3
+        per_rank = [{
+            "rank": x["rank"], "coords": x["coords"],
+            "step_ms": x["step_ms"], "peak_gb": x["peak_gb"],
+            "collective_bytes_step2": {k: v["bytes"] for k, v in
+                                       x["comm"][1].items()},
+            "collective_calls_step2": {k: v["calls"] for k, v in
+                                       x["comm"][1].items()},
+            "profiled_step3": {k: x["profile"][k] for k in (
+                "wall_ms", "device_ms", "device_busy_share",
+                "collective_share", "device_ms_by_family")}}
+            for x in ranks]
+        rec = {"mesh": mesh, **kw, "backend": backend,
+               "transport": transport, "cards": cards, "losses": losses,
+               "headline_step1_loss": headline,
+               "tokens_per_s": n_tok / step_s,
+               "mfu": fpt * n_tok / step_s / (cards * BF16_FLOPS_PER_S),
+               "ranks": per_rank}
+        for x in per_rank:
+            log(f"  {name} rank {x['rank']} {x['coords']}: step ms "
+                f"{[round(m, 1) for m in x['step_ms']]}{shared}, peak "
+                f"{x['peak_gb']:.2f} GB, collective bytes a step "
+                f"{json.dumps(x['collective_bytes_step2'])}, profiled step: "
+                f"device {x['profiled_step3']['device_ms']} ms, busy "
+                f"{x['profiled_step3']['device_busy_share']}, collectives' "
+                f"share {x['profiled_step3']['collective_share']}")
+        log(f"  {name}: losses {[round(x, 5) for x in losses]} (one-card "
+            f"headline step 1 {headline:.5f}, tol {HYBRID_1P3B_LOSS_TOL}); "
+            f"step 2 {step_s * 1e3:.1f} ms, {rec['tokens_per_s']:.0f} "
+            f"tokens/s, MFU {rec['mfu']:.4f} over {cards} card(s){shared}")
+        if not (all(map(math.isfinite, losses))
+                and abs(losses[0] - headline) <= HYBRID_1P3B_LOSS_TOL
+                and losses[1] < losses[0]):
+            raise AssertionError(f"{name}: losses {losses} against the "
+                                 f"one-card step 1 {headline}")
+        stats[name] = rec
+    stats["spawn_wall_s"] = wall
+    return stats, total, tc_total
+
+
+def hybrid_phase(torch, gpt, gpt_hybrid, optim, clip, tr, fa, fc, headline):
+    """The hybrid-parallel phase: the kernels at its shapes in this
+    process, then (a) and (b) (and (c) with four cards) in ranks spawned
+    from it — the libraries already built here, so the ranks only load
+    them.  Returns (stats, launches by kernel summed over ranks, their
+    tensor-core launches, the kernels' errors at the hybrid shapes)."""
+    from paddle_tpu_torch.distributed import env, spawn
+    from paddle_tpu_torch.tools import hybrid_check as hc
+
+    t0 = time.perf_counter()
+    placement = hybrid_placement(torch, env)
+    log(placement[1])
+    err = check_hybrid_shapes(torch, fa, fc)
+    small, total, tc_total = hybrid_small(torch, gpt, gpt_hybrid, optim,
+                                          clip, spawn, hc)
+    log(f"  (a) {json.dumps(small)}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    big, t2, tc2 = hybrid_1p3b(torch, gpt, tr, spawn, hc, headline,
+                               placement)
+    _add(total, t2)
+    _add(tc_total, tc2)
+    stats = {"placement": placement[1], "small": small, "gpt_1p3b": big,
+             "phase_s": time.perf_counter() - t0}
+    log(f"[hybrid-parallel phase: {stats['phase_s']:.1f} s]")
+    return stats, total, tc_total, err
+
+
+def hybrid_only(torch, card) -> int:
+    """``--hybrid-only``: the build, then the hybrid-parallel phase alone
+    (its one-card reference loss computed here, not taken from the train
+    rungs) — what a four-card machine runs for (c)."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch import nn as clip
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.text import gpt, gpt_hybrid
+    from paddle_tpu_torch.tools import profile_train as tr
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"[build] {len(_build.SOURCES)} sources in "
+        f"{time.perf_counter() - t0:.1f} s")
+    headline = headline_step1_loss(torch, gpt, tr)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"[the headline rung's step-1 loss, one card: {headline:.5f}]")
+    hstats, launches, tc, herr = hybrid_phase(
+        torch, gpt, gpt_hybrid, optim, clip, tr, fa, fc, headline)
+    log(json.dumps({"hybrid": hstats, "launches": launches,
+                    "tc_launches": tc, "max_abs_err": herr}))
+    log(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if "--hybrid-only" in sys.argv[1:]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from paddle_tpu_torch.tools import profile_serving as wl
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = wl.card_line()
+        log(card)
+        return hybrid_only(torch, card)
     sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
     import torch.nn.functional as F
 
@@ -7157,6 +7619,18 @@ def main() -> int:
     log(json.dumps({"lora_path": lstats}))
     log(f"[LoRA: {time.perf_counter() - t_lora:.1f} s]")
 
+    gc.collect()
+    torch.cuda.empty_cache()
+    hstats, hyb, tc_hyb, herr = hybrid_phase(
+        torch, gpt, gpt_hybrid, optim, clip, tr, fa, fc,
+        train["train_fused"]["losses"][0])
+    log(json.dumps({"hybrid": hstats}))
+    by_path["hybrid"] = {name: hyb.get(name, 0) for name in ks}
+    for name, e in herr.items():
+        err[name] = max(err[name], e)
+    ce_shard = time_ce(torch, fc, F, V=25152)
+    log(f"  fused_ce at a vocab shard (mp 2) {json.dumps(ce_shard)}")
+
     ln["bwd"].update(ln_bwd_apart(torch, fn))
     log(f"  fused_layer_norm_bwd apart: rows_ms {ln['bwd']['rows_ms']:.4f}, "
         f"cols_ms {ln['bwd']['cols_ms']:.4f} (ms {ln['bwd']['ms']:.4f})")
@@ -7173,6 +7647,8 @@ def main() -> int:
                   "evaluate": evstats["tc_launches"],
                   "lora": lstats["tc_launches"],
                   "fleet": flstats["tc_launches"],
+                  "hybrid": {name: tc_hyb.get(name, 0)
+                             for name in stats["tc_launches"]},
                   **{p: t["tc_launches"] for p, t in train.items()}}
     assert all(by_path[p]["decode_attention"] == 0
                for p in (*train, "lora"))
@@ -7189,7 +7665,7 @@ def main() -> int:
                            "adapters": astats["tick_launches"][name],
                            "evaluate": evstats["tick_launches"][name],
                            "fleet": flstats["tick_launches"][name],
-                           "lora": 0,
+                           "lora": 0, "hybrid": 0,
                            **{p: 0 for p in train}}
                     for name in ("decode_attention", "paged_decode_attention")}
 
@@ -7241,9 +7717,11 @@ def main() -> int:
               "paddle_tpu/ops/fused_norm.py:202", ln["bwd"],
               rows_ms=ln["bwd"]["rows_ms"], cols_ms=ln["bwd"]["cols_ms"]),
         entry("fused_ce_fwd", "paddle_tpu_torch/csrc/fused_ce.cu",
-              "paddle_tpu/ops/fused_ce.py:159", ce["fwd"]),
+              "paddle_tpu/ops/fused_ce.py:159", ce["fwd"],
+              at_vocab_shard=ce_shard["fwd"]),
         entry("fused_ce_bwd", "paddle_tpu_torch/csrc/fused_ce.cu",
-              "paddle_tpu/ops/fused_ce.py:200", ce["bwd"]),
+              "paddle_tpu/ops/fused_ce.py:200", ce["bwd"],
+              at_vocab_shard=ce_shard["bwd"]),
         entry("w4_matmul", "paddle_tpu_torch/csrc/woq_matmul.cu",
               "paddle_tpu/ops/woq_matmul.py:157", w4_main,
               at_other_shapes=w4_more),

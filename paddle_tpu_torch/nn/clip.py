@@ -31,8 +31,12 @@ class ClipGradBase:
             "the eager (param, grad) clip surface is not ported; use "
             "apply_pytree on a gradient tree")
 
-    def apply_pytree(self, grads):
-        """grads: tree of tensors -> the clipped tree (pure)."""
+    def apply_pytree(self, grads, sum_squares=None):
+        """grads: tree of tensors -> the clipped tree (pure).
+        ``sum_squares`` (a norm clip's): what a step whose leaves are
+        split across ranks passes to reduce the tree of per-leaf sums of
+        squares to the whole tree's — each leaf summed over the ranks it
+        is split across (``text/gpt_hybrid.py``)."""
         raise NotImplementedError
 
 
@@ -41,7 +45,7 @@ class ClipGradByValue(ClipGradBase):
         self.max = float(max)
         self.min = float(min) if min is not None else -self.max
 
-    def apply_pytree(self, grads):
+    def apply_pytree(self, grads, sum_squares=None):
         return _map(lambda g: torch.clamp(g, self.min, self.max), grads)
 
 
@@ -57,7 +61,11 @@ class ClipGradByNorm(ClipGradBase):
                                 1.0)
         return (g.float() * scale).to(g.dtype)
 
-    def apply_pytree(self, grads):
+    def apply_pytree(self, grads, sum_squares=None):
+        if sum_squares is not None:
+            raise NotImplementedError(
+                "ClipGradByNorm over leaves split across ranks is not "
+                "ported yet (ROADMAP A2); use ClipGradByGlobalNorm")
         return _map(self._clip_one, grads)
 
 
@@ -69,12 +77,16 @@ class ClipGradByGlobalNorm(ClipGradBase):
         self.clip_norm = float(clip_norm)
         self.group_name = group_name
 
-    def _scale(self, leaves):
-        sq = sum(torch.sum(g.float() ** 2) for g in leaves)
+    def _scale(self, leaves, sum_squares=None, grads=None):
+        if sum_squares is None:
+            sq = sum(torch.sum(g.float() ** 2) for g in leaves)
+        else:
+            sq = sum_squares(_map(lambda g: torch.sum(g.float() ** 2),
+                                  grads))
         gnorm = torch.sqrt(sq)
         return torch.clamp_max(
             self.clip_norm / torch.clamp_min(gnorm, 1e-12), 1.0)
 
-    def apply_pytree(self, grads):
-        s = self._scale(list(_leaves(grads)))
+    def apply_pytree(self, grads, sum_squares=None):
+        s = self._scale(list(_leaves(grads)), sum_squares, grads)
         return _map(lambda g: (g.float() * s).to(g.dtype), grads)

@@ -89,16 +89,21 @@ class Optimizer:
         with torch.no_grad():
             return _map(self._init_leaf, params)
 
-    def apply_gradients(self, grads, params, state, lr=None, step=0):
+    def apply_gradients(self, grads, params, state, lr=None, step=0,
+                        sum_squares=None):
         """Pure update of matching trees -> (new_params, new_state): the
         gradient clip first, then coupled weight decay into the
         gradients, then each leaf's update (and AdamW's decoupled decay).
         ``lr`` overrides the optimizer's own (:meth:`get_lr`).  A ``None``
-        gradient leaves its parameter and state as they are."""
+        gradient leaves its parameter and state as they are.
+        ``sum_squares``: a sharded step's reduction for a norm clip
+        (``nn/clip.py``); the update itself is per element."""
         lr = self.get_lr() if lr is None else lr
         with torch.no_grad():
             if self._grad_clip is not None:
-                grads = self._grad_clip.apply_pytree(grads)
+                grads = (self._grad_clip.apply_pytree(grads)
+                         if sum_squares is None else
+                         self._grad_clip.apply_pytree(grads, sum_squares))
             return self._apply(grads, params, state, lr, step, ())
 
     def _apply(self, g, p, s, lr, step, path):

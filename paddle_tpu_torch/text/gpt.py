@@ -130,7 +130,9 @@ def init_master_params(cfg: GPTConfig, seed: int = 0, device=None) -> dict:
 
 def _draw_params(cfg: GPTConfig, seed, device, dtype) -> dict:
     dev = resolve_device(device)
-    gen = torch.Generator(device=dev).manual_seed(int(seed))
+    # the meta device (param_shapes) draws nothing and takes no generator
+    gen = (None if dev.type == "meta"
+           else torch.Generator(device=dev).manual_seed(int(seed)))
     D, Fd, L, V, T = (cfg.hidden_size, cfg.ffn_size, cfg.num_layers,
                       cfg.vocab_size, cfg.max_seq_len)
     s = 0.02
@@ -181,6 +183,13 @@ def _draw_params(cfg: GPTConfig, seed, device, dtype) -> dict:
     if cfg.norm == "layernorm":
         params["ln_f_b"] = const((D,), 0.0)
     return params
+
+
+def param_shapes(cfg: GPTConfig) -> dict:
+    """The parameter tree's shapes (``torch.Size`` leaves), drawn on the
+    meta device: no memory, no numbers."""
+    return _per_layer(_draw_params(cfg, 0, "meta", torch.float32),
+                      lambda t: t.shape)
 
 
 class GPT(nn.Module):
@@ -278,35 +287,46 @@ def apply_rope(x, positions, base: float = 10000.0):
     return out.to(x.dtype)
 
 
-def _gqa_qkv(h, p, cfg: GPTConfig):
+def _heads(cfg: GPTConfig, tp):
+    """(query heads, kv heads) of the weights at hand: the config's, or a
+    tensor-parallel rank's local ones."""
+    if tp is None:
+        return cfg.num_heads, cfg.kv_heads
+    return tp.heads, tp.kv_heads
+
+
+def _gqa_qkv(h, p, cfg: GPTConfig, tp=None):
     """Grouped-query projections: q [B, T, H, hd], k/v [B, T, Hkv, hd].
     k/v keep their Hkv heads (the cache-row layout); attention reads kv
     head h // (H / Hkv) for query head h, so nothing repeats them."""
     B, T, _ = h.shape
-    H, Hkv, hd = cfg.num_heads, cfg.kv_heads, cfg.head_dim
+    (H, Hkv), hd = _heads(cfg, tp), cfg.head_dim
     dt = cfg.dtype
     q = (woq.mm(h, p, "q_w", dt) + p["q_b"].to(dt)).reshape(B, T, H, hd)
     kv = woq.mm_stacked(h, p, "kv_w", dt) + p["kv_b"].to(dt)[:, None, None]
     return q, kv[0].reshape(B, T, Hkv, hd), kv[1].reshape(B, T, Hkv, hd)
 
 
-def _project_qkv(h, p, cfg: GPTConfig):
+def _project_qkv(h, p, cfg: GPTConfig, tp=None):
     """qkv projection for both attention families: q [B,T,H,hd], k/v
     [B,T,Hkv,hd] (Hkv = H without GQA) — the single source the train
-    block and every decode-path block project through."""
+    block and every decode-path block project through.  ``tp``: the
+    local heads of a tensor-parallel rank's column shards (``_block``)."""
     if cfg.num_kv_heads is not None:
-        return _gqa_qkv(h, p, cfg)
+        return _gqa_qkv(h, p, cfg, tp)
     B, T, _ = h.shape
     dt = cfg.dtype
-    H, hd = cfg.num_heads, cfg.head_dim
+    H, hd = _heads(cfg, tp)[0], cfg.head_dim
     qkv = woq.mm_stacked(h, p, "qkv_w", dt) + p["qkv_b"].to(dt)[:, None, None]
     return (qkv[0].reshape(B, T, H, hd), qkv[1].reshape(B, T, H, hd),
             qkv[2].reshape(B, T, H, hd))
 
 
-def _ffn_body(h, p, cfg: GPTConfig):
+def _ffn_body(h, p, cfg: GPTConfig, tp=None):
     """The FFN matmuls on a normalized input — tanh-gelu MLP (jax.nn.gelu's
-    default) or SwiGLU (down(silu(gate) * up))."""
+    default) or SwiGLU (down(silu(gate) * up)).  Under ``tp`` the weights
+    are a rank's column (fc, gate) and row (out) shards, and the down
+    product is all-reduced before its bias."""
     dt = cfg.dtype
     if cfg.activation == "swiglu":
         gate = F.silu(woq.mm(h, p, "gate_w", dt) + p["gate_b"].to(dt))
@@ -315,7 +335,10 @@ def _ffn_body(h, p, cfg: GPTConfig):
     else:
         h = F.gelu(woq.mm(h, p, "fc_w", dt) + p["fc_b"].to(dt),
                    approximate="tanh")
-    return woq.mm(h, p, "out_w", dt) + p["out_b"].to(dt)
+    y = woq.mm(h, p, "out_w", dt)
+    if tp is not None:
+        y = tp.exit(y)
+    return y + p["out_b"].to(dt)
 
 
 def _ffn_dense(x, p, cfg: GPTConfig):
@@ -359,7 +382,7 @@ def _dropout(x, rate, key):
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _block(x, p, cfg: GPTConfig, dropout_key=None):
+def _block(x, p, cfg: GPTConfig, dropout_key=None, tp=None):
     """One transformer block on [B, T, D] activations (compute dtype) ->
     (x, aux): aux the block's MoE load-balancing loss, None for a dense
     model.  With ``cfg.dropout > 0`` and a ``dropout_key``, dropout on
@@ -367,17 +390,28 @@ def _block(x, p, cfg: GPTConfig, dropout_key=None):
     and on the FFN's (``fold_in(dropout_key, 1)``), as in the JAX
     block.  An MoE block routes under ``fold_in(dropout_key, 2)`` when
     it has a key (router noise, ``cfg.moe.router_noise``), with or
-    without dropout."""
+    without dropout.
+
+    ``tp`` (``distributed.megatron.TensorParallel``): the weights are a
+    tensor-parallel rank's shards (``param_shardings``) — its heads'
+    qkv and FFN columns, the matching rows of proj and out — and the
+    block runs Megatron's pattern: f before the qkv and FFN-in products,
+    g (one all-reduce) after proj and out, each before its bias.  Norms,
+    biases after g and dropout act on the whole, replicated D."""
     B, T, D = x.shape
     dt = cfg.dtype
     drop = cfg.dropout > 0.0 and dropout_key is not None
     h = _norm(x, p, "ln1", cfg)
-    q, k, v = _project_qkv(h, p, cfg)
+    if tp is not None:
+        h = tp.enter(h)
+    q, k, v = _project_qkv(h, p, cfg, tp)
     if cfg.pos_embed == "rope":
         pos = torch.arange(T, device=x.device)
         q, k = apply_rope(q, pos), apply_rope(k, pos)
-    attn = attention_array(q, k, v, is_causal=True).reshape(B, T, D)
+    attn = attention_array(q, k, v, is_causal=True).reshape(B, T, -1)
     a = woq.mm(attn, p, "proj_w", dt)
+    if tp is not None:
+        a = tp.exit(a)
     if drop:
         x = x + _dropout(a + p["proj_b"].to(dt), cfg.dropout,
                          rng.fold_in(dropout_key, 0))
@@ -390,7 +424,9 @@ def _block(x, p, cfg: GPTConfig, dropout_key=None):
                               key=(rng.fold_in(dropout_key, 2)
                                    if dropout_key is not None else None))
     else:
-        h = _ffn_body(h, p, cfg)
+        if tp is not None:
+            h = tp.enter(h)
+        h = _ffn_body(h, p, cfg, tp)
     if drop:
         h = _dropout(h, cfg.dropout, rng.fold_in(dropout_key, 1))
     return x + h, aux
@@ -460,6 +496,97 @@ def loss_fn(params, tokens, cfg: GPTConfig, key=None):
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, tgt[..., None].long())[..., 0]
     return -torch.mean(ll) + aux
+
+
+def param_shardings(cfg: GPTConfig, dp="dp", mp="mp", pp=None) -> dict:
+    """Megatron's layout of the parameter tree, as the JAX package's
+    ``param_shardings`` (gpt.py:189-238): one spec a leaf, a tuple with
+    an entry a dim (None: whole; an axis name: split over it).  The
+    stacked blocks split their leading [L] over ``pp``; qkv / q / kv /
+    fc / gate are column-split over ``mp``, proj / out row-split; ``wte``
+    splits its vocab over ``mp`` and is held whole along ``pp`` (it is
+    tied to the head).  ``dp`` is accepted for the reference's signature
+    and places nothing.  MoE trees have no layout here (expert
+    parallelism is ROADMAP A2)."""
+    if cfg.moe is not None:
+        raise NotImplementedError(
+            "the MoE layout (expert parallelism, moe_param_shardings) is "
+            "not ported yet (ROADMAP A2)")
+    l = pp
+    blocks = {"ln1_g": (l, None), "ln2_g": (l, None),
+              "qkv_w": (l, None, None, mp), "qkv_b": (l, None, mp),
+              "proj_w": (l, mp, None), "proj_b": (l, None),
+              "fc_w": (l, None, mp), "fc_b": (l, mp),
+              "out_w": (l, mp, None), "out_b": (l, None)}
+    if cfg.norm == "layernorm":
+        blocks["ln1_b"] = (l, None)
+        blocks["ln2_b"] = (l, None)
+    if cfg.num_kv_heads is not None:
+        del blocks["qkv_w"], blocks["qkv_b"]
+        blocks.update({"q_w": (l, None, mp), "q_b": (l, mp),
+                       "kv_w": (l, None, None, mp), "kv_b": (l, None, mp)})
+    if cfg.activation == "swiglu":
+        blocks["gate_w"] = (l, None, mp)
+        blocks["gate_b"] = (l, mp)
+    out = {"wte": (mp, None), "ln_f_g": (None,), "blocks": blocks}
+    if cfg.pos_embed == "learned":
+        out["wpe"] = (None, None)
+    if cfg.norm == "layernorm":
+        out["ln_f_b"] = (None,)
+    return out
+
+
+def _spec_map(fn, tree, specs):
+    return {k: (_spec_map(fn, v, specs[k]) if isinstance(v, dict)
+                else fn(v, specs[k])) for k, v in tree.items()}
+
+
+def shard_leaf(t, spec, mesh):
+    """This rank's block of the whole tensor ``t`` under ``spec``: along
+    each split dim, chunk ``mesh.index(axes)`` of ``mesh.size(axes)``
+    (a copy; no communication)."""
+    for dim, entry in enumerate(spec or ()):
+        n = mesh.size(entry)
+        if n == 1:
+            continue
+        if t.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(t.shape)} does not "
+                             f"split over {entry} ({n} ranks)")
+        c = t.shape[dim] // n
+        t = t.narrow(dim, mesh.index(entry) * c, c)
+    return t.clone()
+
+
+def shard_params(tree, specs, mesh, rank=None):
+    """Each leaf of a whole tree (tensors, or numpy arrays as
+    ``convert.params_from_jax`` reads them) cut to this rank's block of
+    its spec, on the mesh's device.  ``rank`` must be the mesh's own
+    (kept for the reference's signature)."""
+    if rank is not None and rank != mesh.rank:
+        raise ValueError(f"rank {rank} is not the mesh's ({mesh.rank})")
+    dev = mesh.device
+    return _spec_map(
+        lambda t, s: shard_leaf(torch.as_tensor(t).to(dev), s, mesh),
+        tree, specs)
+
+
+def gather_leaf(t, spec, mesh):
+    """The whole tensor from every rank's block of it (all-gathers over
+    each split dim's axes, minor axis first): collective."""
+    from ..distributed import collective
+
+    for dim, entry in enumerate(spec or ()):
+        axes = entry if isinstance(entry, tuple) else (entry,)
+        for a in reversed(axes):
+            if a is not None and mesh.size(a) > 1:
+                t = collective.all_gather(t, mesh, a, dim=dim)
+    return t
+
+
+def gather_params(tree, specs, mesh):
+    """The whole tree back from each rank's blocks (:func:`gather_leaf`
+    on every leaf, in one order on every rank)."""
+    return _spec_map(lambda t, s: gather_leaf(t, s, mesh), tree, specs)
 
 
 def count_params(cfg: GPTConfig) -> int:

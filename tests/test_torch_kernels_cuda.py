@@ -2174,3 +2174,76 @@ def test_launch_counts_exact_while_a_worker_thread_prefills(monkeypatch):
     assert fa.flash_attention_fwd.launches == L * prefills
     worker.close()
     srv.close()
+
+
+# ---------------------------------------------------------------------------
+# hybrid-parallel training: ranks on the card against ranks on the CPU
+# ---------------------------------------------------------------------------
+
+HYBRID_FLAGS = {"PADDLE_TPU_FUSED_CE": "1", "PADDLE_TPU_FUSED_LN": "1"}
+
+
+def _hybrid_cases(device, meshes):
+    """Five AdamW steps of a small fp32 model (head_dim 128) on each of
+    ``meshes`` ((mesh, step arguments)), the fused CE and LN flags on."""
+    import numpy as np
+
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=256, num_layers=2,
+                        num_heads=2, max_seq_len=128, dtype=torch.float32)
+    master = gpt.init_master_params(cfg, seed=7, device="cpu")
+    params = {k: (v.numpy() if not isinstance(v, dict) else
+                  {n: t.numpy() for n, t in v.items()})
+              for k, v in master.items()}
+    rng = np.random.default_rng(3)
+    batches = [rng.integers(0, cfg.vocab_size, (4, 65)) for _ in range(5)]
+    return cfg, [{"kind": "train", "cfg": cfg, "mesh": mesh, "kw": kw,
+                  "params": params, "batches": batches, "lr": 1e-3,
+                  "flags": HYBRID_FLAGS, "device": device}
+                 for mesh, kw in meshes]
+
+
+def _hybrid_card_vs_cpu(card_device, meshes):
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.tools import hybrid_check as hc
+
+    _build.build_all()          # here, so that the ranks only load
+    cfg, card = _hybrid_cases(card_device, meshes)
+    _, cpu = _hybrid_cases("cpu", meshes)
+    got = spawn.spawn(hc.run_cases, (card,), nprocs=4, device=card_device)
+    ref = spawn.spawn(hc.run_cases, (cpu,), nprocs=4, device="cpu")[0]
+    for i, (mesh, kw) in enumerate(meshes):
+        losses = got[0][i]["losses"]
+        assert max(abs(a - b) for a, b in zip(losses, ref[i]["losses"])) \
+            <= 1e-4, (mesh, losses, ref[i]["losses"])
+        for r in got:
+            want = hc.expected_hybrid_launches(
+                cfg, mesh, kw.get("n_micro", 1), 1,
+                r[i]["coords"].get("pp", 0))
+            assert all(step == want for step in r[i]["launches"]), \
+                (mesh, r[i]["rank"], r[i]["launches"][0], want)
+    return got[0]
+
+
+def test_hybrid_ranks_share_one_card():
+    """dp2 x mp2 and pp2 x mp2 (1F1B) with four ranks on card 0 over gloo,
+    collectives staged through pinned host memory: the losses of four CPU
+    ranks, every rank's kernels launched exactly."""
+    _card()
+    out = _hybrid_card_vs_cpu("cuda:0", [({"dp": 2, "mp": 2}, {}),
+                                         ({"pp": 2, "mp": 2},
+                                          {"n_micro": 2})])
+    assert out[0]["meta"]["backend"] == "gloo"
+    assert out[0]["meta"]["transport"] == "staged"
+
+
+def test_hybrid_on_four_cards():
+    """The same on NCCL, one rank a card (four_cards: run it alone with
+    ``-k four_cards`` on a four-card machine)."""
+    _card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards (four_cards)")
+    out = _hybrid_card_vs_cpu(None, [({"dp": 2, "mp": 2}, {}),
+                                     ({"pp": 2, "mp": 2}, {"n_micro": 2}),
+                                     ({"dp": 4}, {"zero": 2})])
+    assert out[0]["meta"]["backend"] == "nccl"
