@@ -19,7 +19,8 @@ _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
            "float16": torch.float16}
 _CFG_FIELDS = ("vocab_size", "hidden_size", "num_layers", "num_heads",
                "max_seq_len", "ffn_ratio", "dropout", "remat", "remat_policy",
-               "use_flash", "num_kv_heads", "pos_embed", "norm", "activation")
+               "use_flash", "num_kv_heads", "pos_embed", "norm", "activation",
+               "sp_sub_block")
 _MOE_FIELDS = ("num_experts", "capacity_factor", "router_noise",
                "aux_loss_weight", "top_k")
 

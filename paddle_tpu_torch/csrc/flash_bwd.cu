@@ -146,13 +146,14 @@ __device__ __forceinline__ void stage(const T* __restrict__ x, float* dst,
   }
 }
 
-// dq and δ.  grid (ceil(Tq / kBQ), B·H).
-template <typename T, int D>
+// dq and δ.  grid (ceil(Tq / kBQ), B·H).  dq is written as OT (T, or
+// float for a caller that sums partial gradients).
+template <typename T, int D, typename OT = T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
                     const T* __restrict__ v, const T* __restrict__ o,
                     const T* __restrict__ dout, const float* __restrict__ lse,
-                    float* __restrict__ delta, T* __restrict__ dq, int Tq,
+                    float* __restrict__ delta, OT* __restrict__ dq, int Tq,
                     int S, int H, int Hkv, float scale, int causal) {
   extern __shared__ float smem[];
   float* Qs = smem;                       // [kBQ][D]
@@ -255,20 +256,20 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int rr = 0; rr < kRows; ++rr) {
     const int i = q0 + warp * kRows + rr;
     if (i >= Tq) continue;
-    T* row = dq + ((size_t)(b * Tq + i) * H + h) * D;
+    OT* row = dq + ((size_t)(b * Tq + i) * H + h) * D;
 #pragma unroll
     for (int e = 0; e < NV; ++e) store1(row + lane + 32 * e, scale * acc[rr][e]);
   }
 }
 
-// dk and dv.  grid (ceil(S / kBKc), B·Hkv).
-template <typename T, int D>
+// dk and dv.  grid (ceil(S / kBKc), B·Hkv).  Written as OT.
+template <typename T, int D, typename OT = T>
 __global__ void __launch_bounds__(kThreads)
 flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
                      const T* __restrict__ v, const T* __restrict__ dout,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int Tq, int S, int H, int Hkv,
+                     const float* __restrict__ delta, OT* __restrict__ dk,
+                     OT* __restrict__ dv, int Tq, int S, int H, int Hkv,
                      float scale, int causal) {
   extern __shared__ float smem[];
   float* Kc = smem;                       // [kBKc][D]  this CTA's keys
@@ -403,26 +404,27 @@ cudaError_t allow_smem(K kernel, size_t smem, size_t* attr_bytes) {
   return cudaSuccess;
 }
 
-template <typename T, int D>
+template <typename T, int D, typename OT = T>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const void* lse,
                       void* delta, void* dq, int B, int Tq, int S, int H,
                       int Hkv, int causal, float scale, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (2 * kBQ * D + 2 * kBK * (D + 1));
   static size_t attr_bytes[kMaxDevices] = {};
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D>, smem, attr_bytes);
+  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D, OT>, smem,
+                             attr_bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((Tq + kBQ - 1) / kBQ, B * H);
-  flash_bwd_dq_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dq_kernel<T, D, OT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(o),
       static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<T*>(dq), Tq, S, H, Hkv, scale,
+      static_cast<float*>(delta), static_cast<OT*>(dq), Tq, S, H, Hkv, scale,
       causal);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, int D, typename OT = T>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int Tq, int S, int H,
@@ -430,14 +432,16 @@ cudaError_t launch_dkv(const void* q, const void* k, const void* v,
   const size_t smem =
       sizeof(float) * (2 * kBKc * D + 2 * kBQc * (D + 1) + 2 * kBQc);
   static size_t attr_bytes[kMaxDevices] = {};
-  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<T, D>, smem, attr_bytes);
+  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<T, D, OT>, smem,
+                             attr_bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid((S + kBKc - 1) / kBKc, B * Hkv);
-  flash_bwd_dkv_kernel<T, D><<<grid, kThreads, smem, stream>>>(
+  flash_bwd_dkv_kernel<T, D, OT><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), static_cast<const T*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<T*>(dk), static_cast<T*>(dv), Tq, S, H, Hkv, scale, causal);
+      static_cast<OT*>(dk), static_cast<OT*>(dv), Tq, S, H, Hkv, scale,
+      causal);
   return cudaGetLastError();
 }
 
@@ -516,6 +520,25 @@ __device__ __forceinline__ void store_rows(__nv_bfloat16* __restrict__ x,
     }
 }
 
+// The same rows as float32 (a caller summing partial gradients).
+template <int D>
+__device__ __forceinline__ void store_rows(float* __restrict__ x,
+                                           const float (&acc)[D / 64][32],
+                                           float mul, int b, int r0, int Tx,
+                                           int Hx, int hx) {
+  const int i0 = (threadIdx.x >> 5) * 16 + ((threadIdx.x & 31) >> 2);
+#pragma unroll
+  for (int nb = 0; nb < D / 64; ++nb)
+#pragma unroll
+    for (int e = 0; e < 32; e += 2) {
+      const int t = r0 + i0 + 8 * acc_half(e);
+      if (t >= Tx) continue;
+      *reinterpret_cast<float2*>(
+          x + ((size_t)(b * Tx + t) * Hx + hx) * D + acc_col(nb, e)) =
+          make_float2(acc[nb][e] * mul, acc[nb][e + 1] * mul);
+    }
+}
+
 // Σ_d a_d·b_d over the 16-byte chunks c4, c4 + 4, ... of two bf16 rows.
 template <int D>
 __device__ __forceinline__ float part_dot(const __nv_bfloat16* a,
@@ -537,13 +560,14 @@ __device__ __forceinline__ float part_dot(const __nv_bfloat16* a,
   return acc;
 }
 
-// dq and δ.  grid (B·H, ceil(Tq / 64)), q tiles from the last.
-template <int D>
+// dq and δ.  grid (B·H, ceil(Tq / 64)), q tiles from the last.  dq is
+// written as OT (bf16, or float for a caller summing partial gradients).
+template <int D, typename OT = __nv_bfloat16>
 __global__ void __launch_bounds__(kThreads)
 dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
           const __nv_bfloat16* __restrict__ v, const __nv_bfloat16* __restrict__ o,
           const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-          float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int Tq,
+          float* __restrict__ delta, OT* __restrict__ dq, int Tq,
           int S, int H, int Hkv, float scale, int causal) {
   constexpr uint32_t kTile = tile_bytes<D>();
   const int bh = blockIdx.x, b = bh / H, h = bh % H, hk = h / (H / Hkv);
@@ -638,13 +662,14 @@ dq_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__
 }
 
 // dk and dv.  grid (B·Hkv, ceil(S / 64)), the first key tiles first.
-template <int D>
+// Written as OT.
+template <int D, typename OT = __nv_bfloat16>
 __global__ void __launch_bounds__(kThreads)
 dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
            const __nv_bfloat16* __restrict__ v,
            const __nv_bfloat16* __restrict__ dout, const float* __restrict__ lse,
-           const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-           __nv_bfloat16* __restrict__ dv, int Tq, int S, int H, int Hkv,
+           const float* __restrict__ delta, OT* __restrict__ dk,
+           OT* __restrict__ dv, int Tq, int S, int H, int Hkv,
            float scale, int causal) {
   constexpr uint32_t kTile = tile_bytes<D>();
   const int bhk = blockIdx.x, b = bhk / Hkv, hk = bhk % Hkv, G = H / Hkv;
@@ -754,42 +779,43 @@ dkv_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict_
   store_rows<D>(dv, dva, 1.f, b, k0, S, Hkv, hk);
 }
 
-template <int D>
+template <int D, typename OT = __nv_bfloat16>
 cudaError_t launch_dq(const void* q, const void* k, const void* v,
                       const void* o, const void* dout, const void* lse,
                       void* delta, void* dq, int B, int Tq, int S, int H,
                       int Hkv, int causal, float scale, cudaStream_t stream) {
   static size_t attr_bytes[kMaxDevices] = {};
-  cudaError_t e = allow_smem(dq_kernel<D>, dq_smem<D>(), attr_bytes);
+  cudaError_t e = allow_smem(dq_kernel<D, OT>, dq_smem<D>(), attr_bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * H, (Tq + kBM - 1) / kBM);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
-  dq_kernel<D><<<grid, kThreads, dq_smem<D>(), stream>>>(
+  dq_kernel<D, OT><<<grid, kThreads, dq_smem<D>(), stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<const bf*>(o),
       static_cast<const bf*>(dout), static_cast<const float*>(lse),
-      static_cast<float*>(delta), static_cast<bf*>(dq), Tq, S, H, Hkv, scale,
+      static_cast<float*>(delta), static_cast<OT*>(dq), Tq, S, H, Hkv, scale,
       causal);
   return cudaGetLastError();
 }
 
-template <int D>
+template <int D, typename OT = __nv_bfloat16>
 cudaError_t launch_dkv(const void* q, const void* k, const void* v,
                        const void* dout, const void* lse, const void* delta,
                        void* dk, void* dv, int B, int Tq, int S, int H,
                        int Hkv, int causal, float scale, cudaStream_t stream) {
   static size_t attr_bytes[kMaxDevices] = {};
-  cudaError_t e = allow_smem(dkv_kernel<D>, dkv_smem<D>(), attr_bytes);
+  cudaError_t e = allow_smem(dkv_kernel<D, OT>, dkv_smem<D>(), attr_bytes);
   if (e != cudaSuccess) return e;
   const dim3 grid(B * Hkv, (S + kBN - 1) / kBN);
   if (grid.y > 65535) return cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
-  dkv_kernel<D><<<grid, kThreads, dkv_smem<D>(), stream>>>(
+  dkv_kernel<D, OT><<<grid, kThreads, dkv_smem<D>(), stream>>>(
       static_cast<const bf*>(q), static_cast<const bf*>(k),
       static_cast<const bf*>(v), static_cast<const bf*>(dout),
       static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<bf*>(dk), static_cast<bf*>(dv), Tq, S, H, Hkv, scale, causal);
+      static_cast<OT*>(dk), static_cast<OT*>(dv), Tq, S, H, Hkv, scale,
+      causal);
   return cudaGetLastError();
 }
 
@@ -855,5 +881,53 @@ extern "C" int flash_bwd_dkv(const void* q, const void* k, const void* v,
     PT_DKV((launch_dkv<__nv_bfloat16, 256>), 256)
   }
 #undef PT_DKV
+  return (int)cudaErrorInvalidValue;
+}
+
+// The same kernels writing their gradients as float32 whatever the input
+// dtype (dq [B, Tq, H, D], dk/dv [B, S, Hkv, D] float32): a caller that
+// sums partial gradients over key blocks (the sp ring's kernel route)
+// rounds once, at the end.  float32 inputs take the entries above.
+extern "C" int flash_bwd_dq_f32out(const void* q, const void* k,
+                                   const void* v, const void* o,
+                                   const void* dout, const void* lse,
+                                   void* delta, void* dq, int B, int Tq,
+                                   int S, int H, int Hkv, int D, int dtype,
+                                   int causal, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!valid(Tq, S, H, Hkv) || dtype != 1) return (int)cudaErrorInvalidValue;
+  if (D == 64)
+    return (int)tc::launch_dq<64, float>(q, k, v, o, dout, lse, delta, dq, B,
+                                         Tq, S, H, Hkv, causal, scale, st);
+  if (D == 128)
+    return (int)tc::launch_dq<128, float>(q, k, v, o, dout, lse, delta, dq,
+                                          B, Tq, S, H, Hkv, causal, scale,
+                                          st);
+  if (D == 256)
+    return (int)launch_dq<__nv_bfloat16, 256, float>(
+        q, k, v, o, dout, lse, delta, dq, B, Tq, S, H, Hkv, causal, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+extern "C" int flash_bwd_dkv_f32out(const void* q, const void* k,
+                                    const void* v, const void* dout,
+                                    const void* lse, const void* delta,
+                                    void* dk, void* dv, int B, int Tq, int S,
+                                    int H, int Hkv, int D, int dtype,
+                                    int causal, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (!valid(Tq, S, H, Hkv) || dtype != 1) return (int)cudaErrorInvalidValue;
+  if (D == 64)
+    return (int)tc::launch_dkv<64, float>(q, k, v, dout, lse, delta, dk, dv,
+                                          B, Tq, S, H, Hkv, causal, scale,
+                                          st);
+  if (D == 128)
+    return (int)tc::launch_dkv<128, float>(q, k, v, dout, lse, delta, dk,
+                                           dv, B, Tq, S, H, Hkv, causal,
+                                           scale, st);
+  if (D == 256)
+    return (int)launch_dkv<__nv_bfloat16, 256, float>(
+        q, k, v, dout, lse, delta, dk, dv, B, Tq, S, H, Hkv, causal, scale,
+        st);
   return (int)cudaErrorInvalidValue;
 }

@@ -128,7 +128,8 @@ def flash_fwd_cost(q, k, v, causal: bool = False, scale=None):
             2 * _nbytes(q) + _nbytes(k, v) + B * H * T * 4)
 
 
-def flash_bwd_dq_cost(q, k, v, out, lse, do, causal=False, scale=None):
+def flash_bwd_dq_cost(q, k, v, out, lse, do, causal=False, scale=None,
+                      f32_out=False):
     """(FLOPs, bytes) of :func:`flash_attention_bwd_dq`: S, dP and dQ,
     6·B·H·D·pairs; q, k, v, out, do, lse read, dq and delta written."""
     B, T, H, D = q.shape
@@ -136,7 +137,8 @@ def flash_bwd_dq_cost(q, k, v, out, lse, do, causal=False, scale=None):
             _nbytes(q, k, v, out, do, lse) + _nbytes(q, lse))
 
 
-def flash_bwd_dkv_cost(q, k, v, lse, delta, do, causal=False, scale=None):
+def flash_bwd_dkv_cost(q, k, v, lse, delta, do, causal=False, scale=None,
+                       f32_out=False):
     """(FLOPs, bytes) of :func:`flash_attention_bwd_dkv`: S, dP, dV and
     dK, 8·B·H·D·pairs; q, k, v, do, lse, delta read, dk and dv written."""
     B, T, H, D = q.shape
@@ -188,12 +190,14 @@ flash_attention_fwd.launches = 0
 flash_attention_fwd.tc_launches = 0
 
 
-def _plain_bwd(q, k, v, out, lse, do, causal: bool, scale=None):
+def _plain_bwd(q, k, v, out, lse, do, causal: bool, scale=None,
+               f32_out=False):
     """The backward kernels' math in plain PyTorch, all in fp32: p =
     exp(scale * q.k - lse) with the causal mask filled with -1e30, dp =
     do.v, delta = rowsum(do * out), ds = p * (dp - delta); dq = scale *
     ds.k, dk = scale * ds^T.q, dv = p^T.do.  GQA grads sum over each kv
-    head's group.  Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    head's group.  Returns (dq, dk, dv) in q's, k's and v's dtypes, or in
+    float32 with ``f32_out``."""
     B, T, H, D = q.shape
     S, Hkv = k.shape[1], k.shape[2]
     G = H // Hkv
@@ -216,6 +220,8 @@ def _plain_bwd(q, k, v, out, lse, do, causal: bool, scale=None):
     if G > 1:
         dk = dk.reshape(B, S, Hkv, G, D).sum(3)
         dv = dv.reshape(B, S, Hkv, G, D).sum(3)
+    if f32_out:
+        return dq, dk, dv
     return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
@@ -248,6 +254,12 @@ def _check_bwd(q, k, v, lse, do, out=None, delta=None):
                          "to the plain twin)")
 
 
+def _out(like, f32_out):
+    """The gradient buffer: like ``like``, or float32 with ``f32_out``."""
+    return torch.empty_like(like, dtype=torch.float32 if f32_out
+                            else like.dtype)
+
+
 def _bwd_fn(name):
     """A backward entry of csrc/flash_bwd.cu: 8 pointers, 8 ints (B, T, S,
     H, Hkv, D, dtype, causal), the scale and the stream."""
@@ -266,18 +278,22 @@ def _dims(q, k, causal):
 
 
 @_telemetry.counted(flash_bwd_dq_cost)
-def flash_attention_bwd_dq(q, k, v, out, lse, do, causal=False, scale=None):
+def flash_attention_bwd_dq(q, k, v, out, lse, do, causal=False, scale=None,
+                           f32_out=False):
     """Launch the dq kernel (``csrc/flash_bwd.cu``, Pallas ``dq_kernel``)
     on CUDA tensors -> (dq like q, delta [B*H, T] float32 =
-    rowsum(do * out), which :func:`flash_attention_bwd_dkv` reads).  Every
+    rowsum(do * out), which :func:`flash_attention_bwd_dkv` reads).
+    ``f32_out``: dq in float32 from the same body (its ``_f32out`` entry;
+    bf16 inputs) — for a caller that sums partial gradients.  Every
     launch adds one to ``flash_attention_bwd_dq.launches``, and one on the
     tensor-core body (:func:`route_bwd`) to ``.tc_launches``."""
     _check_bwd(q, k, v, lse, do, out=out)
     B, T, H, D = q.shape
     scale = scale if scale is not None else 1.0 / (D ** 0.5)
-    dq = torch.empty_like(q)
+    f32_out = f32_out and q.dtype != torch.float32
+    dq = _out(q, f32_out)
     delta = torch.empty((B * H, T), dtype=torch.float32, device=q.device)
-    fn = _bwd_fn("flash_bwd_dq")
+    fn = _bwd_fn("flash_bwd_dq_f32out" if f32_out else "flash_bwd_dq")
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
                   do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
@@ -295,17 +311,19 @@ flash_attention_bwd_dq.tc_launches = 0
 
 @_telemetry.counted(flash_bwd_dkv_cost)
 def flash_attention_bwd_dkv(q, k, v, lse, delta, do, causal=False,
-                            scale=None):
+                            scale=None, f32_out=False):
     """Launch the dk/dv kernel (``csrc/flash_bwd.cu``, Pallas
-    ``dkv_kernel``) on CUDA tensors -> (dk, dv) like k and v, each
-    kv head's group summed.  Every launch adds one to
+    ``dkv_kernel``) on CUDA tensors -> (dk, dv) like k and v (float32
+    with ``f32_out``, as :func:`flash_attention_bwd_dq`), each kv head's
+    group summed.  Every launch adds one to
     ``flash_attention_bwd_dkv.launches``, and one on the tensor-core body
     (:func:`route_bwd`) to ``.tc_launches``."""
     _check_bwd(q, k, v, lse, do, delta=delta)
     scale = scale if scale is not None else 1.0 / (q.shape[-1] ** 0.5)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    fn = _bwd_fn("flash_bwd_dkv")
+    f32_out = f32_out and q.dtype != torch.float32
+    dk = _out(k, f32_out)
+    dv = _out(v, f32_out)
+    fn = _bwd_fn("flash_bwd_dkv_f32out" if f32_out else "flash_bwd_dkv")
     with torch.cuda.device(q.device):
         code = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
                   lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),

@@ -67,6 +67,10 @@ class GPTConfig:
     activation: str = "gelu"       # "gelu" | "swiglu" (gated FFN)
     # a MoEConfig: every block's FFN becomes routed experts (text/moe.py)
     moe: _moe.MoEConfig | None = None
+    # the sp ring's plain route walks each kv chunk in sub-chunks of this
+    # many rows, capping the live score block (ops/ring_attention.py);
+    # None = whole chunks.  The kernel route never forms the block.
+    sp_sub_block: int | None = None
 
     def __post_init__(self):
         remat_policies.canonical(self.remat_policy)
@@ -382,7 +386,8 @@ def _dropout(x, rate, key):
                        torch.zeros((), dtype=x.dtype, device=x.device))
 
 
-def _block(x, p, cfg: GPTConfig, dropout_key=None, tp=None):
+def _block(x, p, cfg: GPTConfig, dropout_key=None, tp=None, sp=None,
+           ep=None):
     """One transformer block on [B, T, D] activations (compute dtype) ->
     (x, aux): aux the block's MoE load-balancing loss, None for a dense
     model.  With ``cfg.dropout > 0`` and a ``dropout_key``, dropout on
@@ -397,7 +402,13 @@ def _block(x, p, cfg: GPTConfig, dropout_key=None, tp=None):
     qkv and FFN columns, the matching rows of proj and out — and the
     block runs Megatron's pattern: f before the qkv and FFN-in products,
     g (one all-reduce) after proj and out, each before its bias.  Norms,
-    biases after g and dropout act on the whole, replicated D."""
+    biases after g and dropout act on the whole, replicated D.
+
+    ``sp`` (``ops.ring_attention.SequenceParallel``): x holds this rank's
+    rows of the sequence and attention is the ring over them.  ``ep``
+    (``moe.ExpertParallel``): an MoE block's FFN is
+    ``moe.moe_ffn_manual`` on the rank's experts (and FFN columns under
+    ``mp``)."""
     B, T, D = x.shape
     dt = cfg.dtype
     drop = cfg.dropout > 0.0 and dropout_key is not None
@@ -408,7 +419,10 @@ def _block(x, p, cfg: GPTConfig, dropout_key=None, tp=None):
     if cfg.pos_embed == "rope":
         pos = torch.arange(T, device=x.device)
         q, k = apply_rope(q, pos), apply_rope(k, pos)
-    attn = attention_array(q, k, v, is_causal=True).reshape(B, T, -1)
+    if sp is not None:
+        attn = sp.attend(q, k, v).reshape(B, T, -1)
+    else:
+        attn = attention_array(q, k, v, is_causal=True).reshape(B, T, -1)
     a = woq.mm(attn, p, "proj_w", dt)
     if tp is not None:
         a = tp.exit(a)
@@ -420,9 +434,12 @@ def _block(x, p, cfg: GPTConfig, dropout_key=None, tp=None):
     h = _norm(x, p, "ln2", cfg)
     aux = None
     if cfg.moe is not None:
-        h, aux = _moe.moe_ffn(p["moe"], h, cfg.moe,
-                              key=(rng.fold_in(dropout_key, 2)
-                                   if dropout_key is not None else None))
+        mkey = (rng.fold_in(dropout_key, 2) if dropout_key is not None
+                else None)
+        if ep is not None:
+            h, aux = ep.ffn(p["moe"], h, cfg.moe, key=mkey)
+        else:
+            h, aux = _moe.moe_ffn(p["moe"], h, cfg.moe, key=mkey)
     else:
         if tp is not None:
             h = tp.enter(h)
@@ -498,26 +515,27 @@ def loss_fn(params, tokens, cfg: GPTConfig, key=None):
     return -torch.mean(ll) + aux
 
 
-def param_shardings(cfg: GPTConfig, dp="dp", mp="mp", pp=None) -> dict:
+def param_shardings(cfg: GPTConfig, dp="dp", mp="mp", pp=None,
+                    ep="ep") -> dict:
     """Megatron's layout of the parameter tree, as the JAX package's
     ``param_shardings`` (gpt.py:189-238): one spec a leaf, a tuple with
     an entry a dim (None: whole; an axis name: split over it).  The
     stacked blocks split their leading [L] over ``pp``; qkv / q / kv /
     fc / gate are column-split over ``mp``, proj / out row-split; ``wte``
     splits its vocab over ``mp`` and is held whole along ``pp`` (it is
-    tied to the head).  ``dp`` is accepted for the reference's signature
-    and places nothing.  MoE trees have no layout here (expert
-    parallelism is ROADMAP A2)."""
-    if cfg.moe is not None:
-        raise NotImplementedError(
-            "the MoE layout (expert parallelism, moe_param_shardings) is "
-            "not ported yet (ROADMAP A2)")
+    tied to the head); an MoE tree's experts split over ``ep`` and their
+    FFN dim over ``mp`` (``moe.moe_param_shardings``).  ``dp`` is
+    accepted for the reference's signature and places nothing."""
     l = pp
     blocks = {"ln1_g": (l, None), "ln2_g": (l, None),
               "qkv_w": (l, None, None, mp), "qkv_b": (l, None, mp),
-              "proj_w": (l, mp, None), "proj_b": (l, None),
-              "fc_w": (l, None, mp), "fc_b": (l, mp),
-              "out_w": (l, mp, None), "out_b": (l, None)}
+              "proj_w": (l, mp, None), "proj_b": (l, None)}
+    if cfg.moe is None:
+        blocks.update({"fc_w": (l, None, mp), "fc_b": (l, mp),
+                       "out_w": (l, mp, None), "out_b": (l, None)})
+    else:
+        blocks["moe"] = {k: (l, *v) for k, v in
+                         _moe.moe_param_shardings(ep=ep, mp=mp).items()}
     if cfg.norm == "layernorm":
         blocks["ln1_b"] = (l, None)
         blocks["ln2_b"] = (l, None)

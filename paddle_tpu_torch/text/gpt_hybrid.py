@@ -23,20 +23,38 @@ micro-batches).  An MoE tree's expert leaves (``blocks["moe"]``,
 aux loss is part of ``gpt.loss_fn``'s value.
 
 **A mesh** (``distributed.topology.Mesh`` with axes ``dp``, ``pp``,
-``mp`` and ``sharding``; one process a rank, every rank calling the
-step with the same global batch).  Where JAX compiles one
+``mp``, ``sp``, ``ep`` and ``sharding``; one process a rank, every rank
+calling the step with the same global batch).  Where JAX compiles one
 ``shard_map``/GSPMD program, each rank here runs its own part:
 
 * the batch splits over ``dp`` in contiguous blocks (JAX's ``P("dp")``);
+  at ``accum > 1`` JAX's micro-batch i is rows block i of the global
+  batch, so a rank takes its dp part of each block;
 * every leaf is stored as the rank's block of ``gpt.param_shardings``
   (stacked blocks split [L] over ``pp``; Megatron's column / row splits
   over ``mp``; ``wte`` split by vocab over ``mp`` on every stage);
-* with ``pp == mp == 1`` the loss is ``gpt.loss_fn`` on the rank's
-  batch; under ``mp`` the block is ``gpt._block`` itself on the local
+* the block is ``gpt._block`` itself; under ``mp`` on the local
   shards (``megatron.TensorParallel``: H/mp heads, F/mp FFN columns, two
   all-reduces a block), the embedding vocab-parallel and the loss the
   vocab-parallel CE (kernels #6 / #7 under ``PADDLE_TPU_FUSED_CE=1``,
   the reference's max / sum / pick otherwise);
+* ``sp > 1`` (ring attention, ``ops/ring_attention.py``): each rank
+  takes its rows of the sequence — contiguous [r·Tl, (r+1)·Tl), or the
+  chunk pair (r, 2R-1-r) under ``sp_zigzag`` — with their own positions
+  in ``wpe``, and the block's attention is the ring over the ``sp``
+  group (``gpt._block(sp=)``; the kernel route on the card, the plain
+  one on the CPU); the dropout and router-noise key is folded by the sp
+  rank, so each chunk draws its own;
+* MoE (``ep`` splits the experts, ``mp`` their FFN columns; the tokens
+  are the same on every ``ep`` rank): ``gpt._block(ep=)`` runs
+  ``moe.moe_ffn_manual``.  Where JAX runs one GSPMD program (``pp ==
+  sp == 1``) the router logits are all-gathered over ``dp``, so the
+  global batch (or global micro-batch) is routed as one set; on the
+  pipeline and ring paths each rank routes its own micro-batch and
+  sequence chunk, as JAX's ``shard_map`` does.  No leaf's gradient is
+  summed over ``ep``: the experts' blocks are each rank's own, and every
+  leaf held whole (the router among them) gets its complete gradient on
+  each ep rank (``copy_to`` before the dispatch and on the gates);
 * ``pp > 1`` runs ``n_micro`` micro-batches through the stages, each
   stage holding its layers (stage 0 the embedding, the last one the
   final norm and the head), activations and their gradients passing
@@ -53,10 +71,11 @@ step with the same global batch).  Where JAX compiles one
   at ``accum = n_micro``;
 * the gradients are then made whole: summed over ``pp`` for the leaves
   a stage may not use (``wte``, ``wpe``, ``ln_f_*``; an unused leaf
-  gives zeros), left as they are over ``mp`` (Megatron's pair gives
-  every rank the complete gradient of a replicated leaf), averaged over
-  ``dp``.  The returned loss is the ``dp`` mean, summed over ``pp``
-  (only the last stage's head is real);
+  gives zeros), left as they are over ``mp`` and ``ep`` (Megatron's pair
+  gives every rank the complete gradient of a replicated leaf),
+  averaged over ``dp`` and ``sp``.  The returned loss is the mean over
+  ``dp`` and ``sp``, summed over ``pp`` (the last stage's head, and each
+  stage's MoE aux loss);
 * ZeRO (``zero``): stage 1 keeps the optimizer state of each leaf as
   the block of ``fleet.base.zero_shard_spec`` (its ZeRO dim split over
   ``sharding``, or ``dp`` without it), updates that block and
@@ -68,12 +87,11 @@ step with the same global batch).  Where JAX compiles one
   each leaf is split on.  Lamb, Lars and Adafactor, whose per-leaf norms
   and means need the whole leaf, are refused under a layout that splits
   leaves (ROADMAP A2);
-* ``accum > 1`` composes with ``pp == 1`` only, as in JAX: the same
-  bf16 carry on each rank, averaged over ``dp`` once (in fp32) before
-  the update.
+* ``accum > 1`` composes with ``pp == sp == 1`` only, as in JAX: the
+  same bf16 carry on each rank, averaged over ``dp`` once (in fp32)
+  before the update.
 
-The ``sp`` axis (ring attention), the interleaved schedule and expert
-parallelism are not ported yet (ROADMAP A2).
+The interleaved virtual-stage schedule is not ported yet (ROADMAP A2).
 """
 from __future__ import annotations
 
@@ -145,7 +163,8 @@ def _accumulate(loss_fn, params, tokens, key, accum, dev):
 
 def build_gpt_train_step(cfg: gpt.GPTConfig, optimizer, accum: int = 1,
                          device=None, mesh=None, n_micro: int = 1,
-                         zero: bool | int = False, schedule: str = "1f1b"):
+                         zero: bool | int = False, schedule: str = "1f1b",
+                         sp_zigzag: bool = False):
     """The GPT train step.  Returns (init_fn, step_fn, meta):
 
     * ``init_fn(seed=0, params=None, opt_state=None) -> GPTTrainState``:
@@ -156,7 +175,8 @@ def build_gpt_train_step(cfg: gpt.GPTConfig, optimizer, accum: int = 1,
       cut to this rank's blocks;
     * ``step_fn(state, tokens, key, lr) -> (state, loss)``: tokens
       [B, T + 1] (tensor or array; B divisible by ``accum``, and on a
-      mesh by dp and by ``n_micro`` a dp block), ``key`` the dropout and
+      mesh by dp and by ``n_micro`` a dp block; T divisible by sp, and
+      by 2·sp under ``sp_zigzag``), ``key`` the dropout and
       router-noise key (an int or an int64 tensor on the device,
       ``rng.py``; None: neither), ``lr`` a number, or None for the
       optimizer's own (its scheduler's current value); the loss a 0-d
@@ -168,8 +188,10 @@ def build_gpt_train_step(cfg: gpt.GPTConfig, optimizer, accum: int = 1,
       tokens, key)`` — the step's loss and its whole (synced, not
       ZeRO-cut) gradients on the stored layout of stages 0-2.
 
-    Runs on the card unless ``device="cpu"``; on a mesh, on the mesh's
-    device.  See the module docstring for the mesh path and its
+    ``sp_zigzag`` lays the sequence over ``sp`` in the zigzag layout
+    (rank r holds chunks r and 2R-1-r of 2R), which balances the causal
+    ring.  Runs on the card unless ``device="cpu"``; on a mesh, on the
+    mesh's device.  See the module docstring for the mesh path and its
     refusals, which raise JAX's exception types."""
     if schedule not in ("1f1b", "fthenb"):
         raise ValueError(f"unknown pipeline schedule {schedule!r}")
@@ -177,7 +199,7 @@ def build_gpt_train_step(cfg: gpt.GPTConfig, optimizer, accum: int = 1,
         raise ValueError(f"accum {accum} must be >= 1")
     if mesh is not None and mesh.world_size > 1:
         return _build_mesh_step(cfg, optimizer, mesh, accum, n_micro,
-                                int(zero), schedule)
+                                int(zero), schedule, sp_zigzag)
     dev = mesh.device if mesh is not None else resolve_device(device)
 
     def init_fn(seed: int = 0, params=None, opt_state=None) -> GPTTrainState:
@@ -200,7 +222,8 @@ def build_gpt_train_step(cfg: gpt.GPTConfig, optimizer, accum: int = 1,
             grads, state.params, state.opt_state, lr=lr, step=step)
         return GPTTrainState(new_p, new_o, step), loss
 
-    meta = dict(dp=1, pp=1, mp=1, sp=1, n_micro=1, accum=accum, device=dev)
+    meta = dict(dp=1, pp=1, mp=1, sp=1, ep=1, sp_zigzag=False, n_micro=1,
+                accum=accum, device=dev)
     return init_fn, step_fn, meta
 
 
@@ -218,14 +241,13 @@ _NORM_OPTIMIZERS = ("Lamb", "Lars", "Adafactor")
 
 def _refuse(cfg, mesh, accum, zero_stage):
     """The refusals of the JAX ``build_gpt_train_step``
-    (gpt_hybrid.py:579-628, :716), with its exception types, and the
+    (gpt_hybrid.py:579-631, :716-720), with its exception types, and the
     port's own (ROADMAP A2)."""
     pp, mp = mesh.size("pp"), mesh.size("mp")
-    if mesh.size("sp") > 1:
-        raise NotImplementedError(
-            "the sp axis (ring attention) is not ported yet (ROADMAP A2)")
-    if pp > 1 and (cfg.pos_embed != "learned" or cfg.norm != "layernorm"
-                   or cfg.activation != "gelu"):
+    sp, ep = mesh.size("sp"), mesh.size("ep")
+    if (pp > 1 or sp > 1) and (cfg.pos_embed != "learned"
+                               or cfg.norm != "layernorm"
+                               or cfg.activation != "gelu"):
         raise NotImplementedError(
             "pos_embed/norm/activation variants (rope/rmsnorm/swiglu) "
             "are implemented on the GSPMD path only; use pp == 1, "
@@ -234,20 +256,18 @@ def _refuse(cfg, mesh, accum, zero_stage):
         raise ValueError(f"num_layers {cfg.num_layers} must divide by pp {pp}")
     if cfg.num_heads % mp or cfg.vocab_size % mp:
         raise ValueError("num_heads and vocab_size must divide by mp")
-    if cfg.moe is not None and (mp > 1 or pp > 1):
-        raise NotImplementedError(
-            "MoE under mp or pp (expert parallelism) is not ported yet "
-            "(ROADMAP A2); MoE trains over dp")
+    if cfg.moe is not None and cfg.moe.num_experts % ep:
+        raise ValueError("num_experts must divide by ep")
     if cfg.num_kv_heads is not None and cfg.kv_heads % mp:
         raise ValueError(
             f"num_kv_heads {cfg.kv_heads} must divide by mp {mp} (kv heads "
             f"shard over tensor parallel like q heads)")
-    if zero_stage >= 2 and pp > 1:
+    if zero_stage >= 2 and (pp > 1 or sp > 1):
         raise NotImplementedError(
             "ZeRO stage >= 2 composes with the pure-GSPMD path (pp == 1, "
             "sp == 1) only; the manual-collective pipeline computes its own "
             "grad reduction")
-    if accum > 1 and pp > 1:
+    if accum > 1 and (pp > 1 or sp > 1):
         raise ValueError("accum composes with the pure-GSPMD path only "
                          "(pp == 1, sp == 1); the pipeline already "
                          "micro-batches via n_micro")
@@ -279,25 +299,36 @@ def _split_axes(spec, mesh) -> tuple:
 
 
 def _build_mesh_step(cfg, optimizer, mesh, accum, n_micro, zero_stage,
-                     schedule):
+                     schedule, sp_zigzag):
     from ..distributed import collective as C
     from ..distributed import megatron as mt
     from ..distributed.fleet.base import zero_dim, zero_shard_spec
+    from ..ops.ring_attention import SequenceParallel
+    from . import moe
 
     _refuse(cfg, mesh, accum, zero_stage)
     dev = mesh.device
     S, mp, dp = mesh.size("pp"), mesh.size("mp"), mesh.size("dp")
+    R, ep = mesh.size("sp"), mesh.size("ep")
     s = mesh.coord("pp")
     first, last = s == 0, s == S - 1
     mp_ax = "mp" if mp > 1 else None
     pp_ax = "pp" if S > 1 else None
+    sp_ax = "sp" if R > 1 else None
+    ep_ax = "ep" if ep > 1 else None
+    zig = bool(sp_zigzag) and sp_ax is not None
+    # JAX's manual-collective path (shard_map): pp or sp; else one GSPMD
+    # program over the global batch
+    manual = S > 1 or sp_ax is not None
+    data = ("dp", "sp")             # the loss and gradients average here
+    n_data = dp * R
     zero_axis = "sharding" if mesh.size("sharding") > 1 else "dp"
     zero_on = zero_stage >= 1 and mesh.size(zero_axis) > 1
     shapes = gpt.param_shapes(cfg)
-    if mp_ax is None and pp_ax is None:
+    if mp_ax is None and pp_ax is None and ep_ax is None:
         specs = gpt._per_layer(shapes, lambda shp: ())
     else:
-        specs = gpt.param_shardings(cfg, mp=mp_ax, pp=pp_ax)
+        specs = gpt.param_shardings(cfg, mp=mp_ax, pp=pp_ax, ep=ep_ax)
     paths = [p for p, _ in _leaves(specs)]
     spec_of = dict(_leaves(specs))
     shape_of = dict(_leaves(shapes))
@@ -320,6 +351,14 @@ def _build_mesh_step(cfg, optimizer, mesh, accum, n_micro, zero_stage,
                 for p in paths}
     tp = (mt.TensorParallel(mesh, mp_ax, cfg.num_heads // mp,
                             cfg.kv_heads // mp) if mp_ax else None)
+    ring = (SequenceParallel(mesh, "sp", zig, cfg.sp_sub_block)
+            if sp_ax else None)
+    # MoE routes the global batch's tokens as one set where JAX runs one
+    # GSPMD program (the router's logits gathered over dp), each rank's
+    # micro-batch and sequence chunk on the manual path, as JAX does
+    experts = (moe.ExpertParallel(mesh, ep_ax, mp_ax,
+                                  route_axes=() if manual else ("dp",))
+               if cfg.moe is not None else None)
     vps = cfg.vocab_size // mp
     L_local = cfg.num_layers // S
     dt = cfg.dtype
@@ -346,23 +385,61 @@ def _build_mesh_step(cfg, optimizer, mesh, accum, n_micro, zero_stage,
         return GPTTrainState(local, opt,
                              torch.zeros((), dtype=torch.int32, device=dev))
 
+    # -- the sequence: this rank's rows (JAX's seq_chunk / seq_pos) --------
+    def seq_len(T):
+        """The local rows of a T-token sequence, with JAX's checks."""
+        if T % R:
+            raise ValueError(f"sequence length {T} must divide by sp {R}")
+        Tl = T // R
+        if zig and Tl % 2:
+            raise ValueError(
+                f"zigzag needs an even local sequence chunk (Tl={Tl}: "
+                f"T-1 must divide by 2*sp)")
+        return Tl
+
+    def seq_rows(Tl):
+        """The global positions of this rank's rows: a range (contiguous
+        layout), or the chunk pair (rank, 2R-1-rank) under zigzag."""
+        r = mesh.coord("sp")
+        if not zig:
+            return [(r * Tl, Tl)]
+        Tc = Tl // 2
+        return [(r * Tc, Tc), ((2 * R - 1 - r) * Tc, Tc)]
+
+    def seq(tok, Tl, shift):
+        """tok [..., T + 1] -> this rank's inputs (shift 0) or targets
+        (shift 1)."""
+        return torch.cat([tok[..., a + shift:a + shift + n]
+                          for a, n in seq_rows(Tl)], dim=-1)
+
     # -- the loss pieces on a rank's shards --------------------------------
     def embed(p, tok):
         x = mt.vocab_parallel_embedding(p["wte"], tok, mesh, mp_ax, vps,
                                         dtype=dt)
         if cfg.pos_embed == "learned":
-            x = x + p["wpe"][:tok.shape[1]].to(dt)[None]
+            wpe = torch.cat([p["wpe"][a:a + n]
+                             for a, n in seq_rows(tok.shape[1])])
+            x = x + wpe.to(dt)[None]
         return x
 
     def blocks(p, x, key, layer0):
+        """The stage's layers -> (x, the summed MoE aux or None).  Layer
+        l (global index) draws under fold_in(key, l); under sp the key is
+        first folded by the sp rank, so each chunk masks its own rows."""
         blk = gpt._remat_wrap(cfg)
-        need_keys = key is not None and cfg.dropout > 0.0
+        need_keys = key is not None and (cfg.dropout > 0.0
+                                         or cfg.moe is not None)
+        if need_keys and sp_ax:
+            key = rng.fold_in(key, mesh.coord("sp"))
         per_layer = gpt._per_layer(p["blocks"], lambda t: t.unbind(0))
+        aux = None
         for l in range(_layer_count(per_layer)):
-            x, _ = blk(x, gpt._per_layer(per_layer, lambda ts: ts[l]), cfg,
+            x, a = blk(x, gpt._per_layer(per_layer, lambda ts: ts[l]), cfg,
                        rng.fold_in(key, layer0 + l) if need_keys else None,
-                       tp)
-        return x
+                       tp, sp=ring, ep=experts)
+            if a is not None:
+                aux = a if aux is None else aux + a
+        return x, aux
 
     def head_loss(p, x, tgt):
         x = gpt._norm(x, p, "ln_f", cfg)
@@ -371,12 +448,11 @@ def _build_mesh_step(cfg, optimizer, mesh, accum, n_micro, zero_stage,
               else mt.plain_vocab_parallel_softmax_ce)
         return torch.mean(ce(logits, tgt, mesh, mp_ax, vps))
 
-    def tp_loss(p, tokens, key):
-        x = blocks(p, embed(p, tokens[:, :-1]), key, 0)
-        return head_loss(p, x, tokens[:, 1:])
-
-    def dp_loss(p, tokens, key):
-        return gpt.loss_fn(p, tokens, cfg, key=key)
+    def model_loss(p, tokens, key):
+        Tl = seq_len(tokens.shape[1] - 1)
+        x, aux = blocks(p, embed(p, seq(tokens, Tl, 0)), key, 0)
+        loss = head_loss(p, x, seq(tokens, Tl, 1))
+        return loss if aux is None else loss + aux
 
     # -- the pipeline ------------------------------------------------------
     def pipeline(params, tokens, key):
@@ -385,12 +461,13 @@ def _build_mesh_step(cfg, optimizer, mesh, accum, n_micro, zero_stage,
         if B % M:
             raise ValueError(
                 f"per-dp-shard batch {B} must be divisible by n_micro {M}")
-        b, T = B // M, tokens.shape[1] - 1
-        mb = tokens.reshape(M, b, T + 1)
+        b = B // M
+        Tl = seq_len(tokens.shape[1] - 1)
+        mb = tokens.reshape(M, b, tokens.shape[1])
         pairs = list(_leaves(params))
         leaves = [t.detach().requires_grad_(True) for _, t in pairs]
         p = _build((path, t) for (path, _), t in zip(pairs, leaves))
-        act = ((b, T, cfg.hidden_size), dt)
+        act = ((b, Tl, cfg.hidden_size), dt)
         seed = torch.full((), 1.0 / M, dtype=torch.float32, device=dev)
         loss_sum = torch.zeros((), dtype=torch.float32, device=dev)
         inflight = {}
@@ -399,26 +476,36 @@ def _build_mesh_step(cfg, optimizer, mesh, accum, n_micro, zero_stage,
         def forward(m, x_in):
             tok = mb[m]
             k = None if key is None else rng.fold_in(key, m)
-            x = embed(p, tok[:, :-1]) if first else x_in
-            y = blocks(p, x, k, s * L_local)
-            return head_loss(p, y, tok[:, 1:]) if last else y
+            x = embed(p, seq(tok, Tl, 0)) if first else x_in
+            y, aux = blocks(p, x, k, s * L_local)
+            if last:
+                y = head_loss(p, y, seq(tok, Tl, 1))
+                return (y if aux is None else y + aux), None
+            return y, aux
 
         def backward(m, dy):
+            # each stage's MoE aux joins the loss (JAX counts it at the
+            # stage's valid ticks and sums over pp)
             nonlocal loss_sum
-            x_in, out = inflight.pop(m)
+            x_in, out, aux = inflight.pop(m)
+            outs, grads = [], []
             if last:
                 loss_sum = loss_sum + out.detach()
-                torch.autograd.backward(out, seed)
+                outs.append(out), grads.append(seed)
             else:
-                torch.autograd.backward(out, dy)
+                outs.append(out), grads.append(dy)
+            if aux is not None:
+                loss_sum = loss_sum + aux.detach()
+                outs.append(aux), grads.append(seed)
+            torch.autograd.backward(outs, grads)
             return None if first else x_in.grad
 
         def f_slot(t, sends):
             m = t - s
             if 0 <= m < M:
                 x_in = None if first else x_recv.requires_grad_(True)
-                out = forward(m, x_in)
-                inflight[m] = (x_in, out)
+                out, aux = forward(m, x_in)
+                inflight[m] = (x_in, out, aux)
                 if not last:
                     sends.append((out.detach(), 1))
 
@@ -466,22 +553,32 @@ def _build_mesh_step(cfg, optimizer, mesh, accum, n_micro, zero_stage,
         B = tokens.shape[0]
         if B % dp:
             raise ValueError(f"batch size {B} must divide by dp {dp}")
-        Bl = B // dp
-        tokens = tokens[mesh.coord("dp") * Bl:(mesh.coord("dp") + 1) * Bl]
+        d = mesh.coord("dp")
+        if accum > 1:
+            # JAX's micro-batch i is rows block i of the global batch,
+            # split over dp: this rank takes its part of each
+            if B % accum or (B // accum) % dp:
+                raise ValueError(f"batch size {B} must divide by accum "
+                                 f"{accum} x dp {dp}")
+            Bm = B // accum // dp
+            tokens = tokens.reshape(accum, dp, Bm, tokens.shape[1])[:, d]
+            tokens = tokens.reshape(accum * Bm, -1)
+        else:
+            Bl = B // dp
+            tokens = tokens[d * Bl:(d + 1) * Bl]
         if S > 1:
             return pipeline(params, tokens, key)
-        return _accumulate(tp_loss if mp_ax else dp_loss, params, tokens,
-                           key, accum, dev)
+        return _accumulate(model_loss, params, tokens, key, accum, dev)
 
     def reduce_loss(loss):
         loss = loss.reshape(1)
-        C.all_reduce_(loss, mesh, ("pp", "dp"))
-        return (loss / dp if dp > 1 else loss).reshape(())
+        C.all_reduce_(loss, mesh, ("pp",) + data)
+        return (loss / n_data if n_data > 1 else loss).reshape(())
 
     def sync(path, g, cut: bool):
         """Leaf ``path``'s whole gradient: summed over pp where a stage
-        may not use the leaf, averaged over dp; with ``cut`` its ZeRO
-        block (reduce-scattered over dp at stages 2-3)."""
+        may not use the leaf, averaged over dp and sp; with ``cut`` its
+        ZeRO block (reduce-scattered over dp at stages 2-3)."""
         zdim = zdim_of[path]
         cut = cut and zero_on and zdim is not None
         axes = () if S == 1 or "pp" in _split_axes(spec_of[path], mesh) \
@@ -493,11 +590,11 @@ def _build_mesh_step(cfg, optimizer, mesh, accum, n_micro, zero_stage,
             if axes:
                 C.all_reduce_(g, mesh, axes)
         else:
-            C.all_reduce_(g, mesh, axes + ("dp",))
+            C.all_reduce_(g, mesh, axes + data)
             if cut:
                 g = zslice(g, zdim).contiguous()
-        if dp > 1:
-            g = g / dp
+        if n_data > 1:
+            g = g / n_data
         return g.to(torch.bfloat16) if low else g
 
     def sum_squares(sq_tree):
@@ -548,7 +645,8 @@ def _build_mesh_step(cfg, optimizer, mesh, accum, n_micro, zero_stage,
                            for path, t in _leaves(new_b))
         return GPTTrainState(new_b, new_o, step), reduce_loss(loss)
 
-    meta = dict(dp=dp, pp=S, mp=mp, sp=1, n_micro=n_micro, accum=accum,
+    meta = dict(dp=dp, pp=S, mp=mp, sp=R, ep=ep, sp_zigzag=zig,
+                n_micro=n_micro, accum=accum,
                 device=dev, mesh=mesh, schedule=schedule, zero=zero_stage,
                 zero_axis=zero_axis if zero_on else None, specs=specs,
                 param_specs=store_specs, opt_specs=opt_specs,

@@ -24,7 +24,21 @@ drawn by ``rng.normal`` (counter-based, so a remat recompute draws them
 again).  Its aux loss and the combine weights carry the reference's
 gradients: the load statistic ``fe`` and the dispatch mask are
 comparisons (no gradient), ``me`` and the gates reach the router through
-the softmax.  The expert-parallel ``moe_ffn_manual`` is not ported yet.
+the softmax.
+
+:func:`moe_ffn_manual` is the expert-parallel form a mesh's train step
+calls (``ExpertParallel`` is its view of the mesh): the tokens are the
+same on every rank of ``ep`` and each rank runs only its E/ep experts on
+its block of the dispatch and combine tensors; under ``mp`` each expert
+holds F/mp columns and its down product is all-reduced over ``mp``
+before ``b_out``; one all-reduce over ``ep`` merges the parts.  With
+``route_axes`` (the train step's ``dp`` where JAX runs the step as one
+GSPMD program) the router logits are all-gathered over those axes, so
+that the capacity, the slot order and the aux loss are those of the
+global token set, as in JAX, while each rank dispatches only its own
+tokens.  Gradients follow Megatron's convention (``collective.copy_to``
+/ ``reduce_from``): a leaf the ranks hold whole gets its complete
+gradient on each rank, so no leaf's gradient is summed over ``ep``.
 """
 from __future__ import annotations
 
@@ -35,6 +49,7 @@ import torch
 import torch.nn.functional as F
 
 from .. import resolve_device, rng
+from ..distributed import collective as _C
 from . import woq
 
 
@@ -117,31 +132,53 @@ def _route(params, xf, cfg: MoEConfig, key, E: int, C: int, dtype,
     v = None if valid is None else valid.reshape(N)
     if v is not None:
         gate_w = gate_w * v.float()[:, None]
-    aux_loss = None
-    if aux:
-        first = (gate_idx[:, 0, None] == experts).float()
-        if v is None:
-            me = probs.mean(dim=0)
-            fe = first.sum(dim=0) / N
-        else:
-            vf = v.float()[:, None]
-            denom = torch.clamp_min(vf.sum(), 1.0)
-            me = (probs * vf).sum(dim=0) / denom
-            fe = (first * vf).sum(dim=0) / denom
-        aux_loss = E * torch.sum(fe * me) * cfg.aux_loss_weight
+    aux_loss = _aux_loss(probs, gate_idx, experts, cfg, v) if aux else None
     onehot = gate_idx[..., None] == experts                        # [N,k,E]
+    pos = _slots(onehot, v)
+    disp, comb = _cells(onehot, pos, gate_w, C)
+    return disp.to(dtype), comb, aux_loss
+
+
+def _slots(onehot, v=None):
+    """Each assignment's capacity slot [N, k]: token-major then choice
+    order (a cumulative sum over the flattened [N·k, E] claims); -1
+    where nothing was claimed."""
+    N, k, E = onehot.shape
     claims = onehot if v is None else onehot & v[:, None, None]
     flat = claims.reshape(N * k, E).to(torch.int32)
-    # slots in token-major then choice order; -1 where nothing claimed
-    pos = (torch.cumsum(flat, dim=0) * flat - 1).amax(dim=-1).reshape(N, k)
-    slot = pos[..., None] == torch.arange(C, device=dev)           # [N,k,C]
+    return (torch.cumsum(flat, dim=0) * flat - 1).amax(dim=-1).reshape(N, k)
+
+
+def _cells(onehot, pos, gate_w, C: int):
+    """(disp bool [N, E, C], comb float32 [N, E, C]) from the one-hots
+    [N, k, E], the slots [N, k] and the gates [N, k]: a slot past C or
+    -1 matches no cell."""
+    k = onehot.shape[1]
+    slot = pos[..., None] == torch.arange(C, device=pos.device)    # [N,k,C]
     disp = comb = None
     for j in range(k):
         cell = onehot[:, j, :, None] & slot[:, j, None, :]         # [N,E,C]
         c = cell * gate_w[:, j, None, None]
         disp = cell if disp is None else disp | cell
         comb = c if comb is None else comb + c
-    return disp.to(dtype), comb, aux_loss
+    return disp, comb
+
+
+def _aux_loss(probs, gate_idx, experts, cfg: MoEConfig, v=None):
+    """The load-balancing loss E · Σ_e f_e · m_e · weight over the
+    (valid) tokens: f_e the share routed first to e (no gradient), m_e
+    the mean router probability."""
+    N, E = probs.shape
+    first = (gate_idx[:, 0, None] == experts).float()
+    if v is None:
+        me = probs.mean(dim=0)
+        fe = first.sum(dim=0) / N
+    else:
+        vf = v.float()[:, None]
+        denom = torch.clamp_min(vf.sum(), 1.0)
+        me = (probs * vf).sum(dim=0) / denom
+        fe = (first * vf).sum(dim=0) / denom
+    return E * torch.sum(fe * me) * cfg.aux_loss_weight
 
 
 def _experts(params, disp, comb, xf, dt):
@@ -209,3 +246,111 @@ def moe_ffn(params, x, cfg: MoEConfig, key=None, valid=None,
         return y, aux
     dropped, kept = _delta(disp, valid, cfg.top_k)
     return y, aux, {"dropped": dropped, "load": kept}
+
+
+# ---------------------------------------------------------------------------
+# expert parallelism
+# ---------------------------------------------------------------------------
+
+def moe_param_shardings(ep="ep", mp=None) -> dict:
+    """One layer's expert leaves' layout, as the reference's (moe.py:50):
+    the experts split over ``ep``; inside each expert the FFN dim may
+    split over ``mp``; the router is whole on every rank."""
+    return {"router_w": (None, None), "w_in": (ep, None, mp),
+            "b_in": (ep, mp), "w_out": (ep, mp, None), "b_out": (ep, None)}
+
+
+class _GatherRows(torch.autograd.Function):
+    """All-gather of rows over ``axes``; the backward reduce-scatters, so
+    each rank gets the sum of every rank's gradient on its own rows."""
+
+    @staticmethod
+    def forward(ctx, t, mesh, axes):
+        ctx.mesh, ctx.axes = mesh, axes
+        return _C.all_gather(t, mesh, axes)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _C.reduce_scatter(g, ctx.mesh, ctx.axes), None, None
+
+
+def moe_ffn_manual(params, x, cfg: MoEConfig, mesh=None,
+                   ep_axis: str | None = None, mp_axis: str | None = None,
+                   key=None, route_axes=()):
+    """The expert-parallel MoE FFN (the reference's ``moe_ffn_manual``,
+    moe.py:123-170): x [..., D], the same on every rank of ``ep_axis``;
+    ``params`` the rank's blocks of :func:`moe_param_shardings` (w_in
+    [E/ep, D, F/mp], ...; the router whole) -> (y [..., D], aux).
+
+    The router runs on every rank.  Without ``route_axes`` the call's
+    tokens are routed as one set (the reference's manual path: a rank's
+    micro-batch or sequence chunk); with them the float32 logits [N, E]
+    are all-gathered over those axes and the capacity C, the slots and
+    the aux loss are the gathered set's (JAX's GSPMD step over the
+    global batch), the noise the gathered set's draw sliced to this
+    rank's rows.  Each rank then dispatches its own rows to its own
+    experts' [C, D] buffers (tanh-gelu), all-reduces the down product
+    over ``mp_axis`` before ``b_out``, combines, and all-reduces over
+    ``ep_axis``.  ``copy_to`` over (ep, mp) before the dispatch and over
+    ep on the gates give the input and the router their whole
+    gradients."""
+    shape = x.shape
+    D = shape[-1]
+    xf = x.reshape(-1, D)
+    n = xf.shape[0]
+    dev = xf.device
+    dt = x.dtype
+    k = cfg.top_k
+    E_local = params["w_in"].shape[0]
+    n_ep = mesh.size(ep_axis) if mesh is not None else 1
+    E = E_local * n_ep
+    if E != cfg.num_experts:
+        raise ValueError(f"{E_local} experts x ep {n_ep} != num_experts "
+                         f"{cfg.num_experts}")
+    group = mesh.active(route_axes) if mesh is not None else ()
+    N = n * (mesh.size(group) if group else 1)
+    row0 = mesh.index(group) * n if group else 0
+    logits = xf.float() @ params["router_w"].float()
+    if cfg.router_noise > 0.0 and key is not None:
+        noise = rng.normal(key, (N, E), dev)[row0:row0 + n]
+        logits = logits + cfg.router_noise * noise
+    if group:
+        logits = _GatherRows.apply(logits, mesh, group)
+    C = expert_capacity(N, cfg)
+    gate_w, gate_idx, probs = _top_k_gating(logits, k)
+    experts = torch.arange(E, device=dev)
+    aux = _aux_loss(probs, gate_idx, experts, cfg)
+    pos = _slots(gate_idx[..., None] == experts)[row0:row0 + n]
+    gate_w, gate_idx = gate_w[row0:row0 + n], gate_idx[row0:row0 + n]
+    e0 = (mesh.coord(ep_axis) if mesh is not None else 0) * E_local
+    if n_ep > 1:
+        gate_w = _C.copy_to(gate_w, mesh, ep_axis)
+    mine = gate_idx[..., None] == torch.arange(e0, e0 + E_local, device=dev)
+    disp, comb = _cells(mine, pos, gate_w, C)          # [n, E_local, C]
+    xe = xf if mesh is None else _C.copy_to(xf, mesh, (ep_axis, mp_axis))
+    xin = (disp.to(dt).reshape(n, E_local * C).T @ xe).reshape(E_local, C, D)
+    h = F.gelu(torch.bmm(xin, woq.w(params, "w_in", dt))
+               + params["b_in"].to(dt)[:, None], approximate="tanh")
+    out = torch.bmm(h, woq.w(params, "w_out", dt))
+    if mesh is not None:
+        out = _C.reduce_from(out, mesh, mp_axis)
+    out = out + params["b_out"].to(dt)[:, None]
+    y = comb.to(dt).reshape(n, E_local * C) @ out.reshape(E_local * C, D)
+    if mesh is not None:
+        y = _C.reduce_from(y, mesh, ep_axis)
+    return y.reshape(shape), aux
+
+
+class ExpertParallel:
+    """A rank's view of the MoE layout, as ``gpt._block`` takes it: the
+    mesh, its ``ep`` and ``mp`` axes (None: not split) and the axes the
+    router gathers its logits over (see :func:`moe_ffn_manual`)."""
+
+    def __init__(self, mesh, ep_axis=None, mp_axis=None, route_axes=()):
+        self.mesh, self.ep_axis, self.mp_axis = mesh, ep_axis, mp_axis
+        self.route_axes = tuple(route_axes)
+
+    def ffn(self, params, x, cfg: MoEConfig, key=None):
+        return moe_ffn_manual(params, x, cfg, self.mesh, self.ep_axis,
+                              self.mp_axis, key=key,
+                              route_axes=self.route_axes)

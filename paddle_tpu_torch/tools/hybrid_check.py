@@ -16,13 +16,26 @@ list of cases, each a dict with a ``kind``:
   ``profile_last=True`` the last step's device time by family
   (``profiled_step``), with ``saved=True`` the peak bytes the autograd graphs held
   (``SavedBytes``), with ``record_update=True`` the shapes of the
-  gradients and the optimizer state the update saw;
+  gradients and the optimizer state the update saw; with
+  ``stagger_init=True`` the ranks initialise one at a time;
 * ``"grads"`` — the step's ``meta["loss_and_grads"]`` on ``params``:
   the loss and the gathered whole gradients;
 * ``"megatron"`` — the tensor-parallel primitives at the mesh's ``mp``
   on whole inputs given: the vocab-parallel embedding, the row-parallel
   linear, the vocab-parallel CE (both routes) and its gradient; and a
-  broadcast from the axis' first rank (all-gathered back).
+  broadcast from the axis' first rank (all-gathered back);
+* ``"ring"`` — ring attention over the mesh's ``sp`` on whole q, k, v
+  and a cotangent w (numpy, or ``gen``: drawn on the device from a
+  seed), each rank its rows of the contiguous or the zigzag layout, for
+  each of ``routes``: the output and dq, dk, dv of sum(out · w),
+  gathered back to the global row order (rank 0), the kernels' launches
+  and tensor-core launches, the forward + backward's ms, and with
+  ``largest=True`` the most elements of any tensor an op produced in
+  them;
+* ``"moe"`` — ``moe.moe_ffn_manual`` on a whole layer of expert
+  params, each rank its blocks of ``moe_param_shardings`` over the
+  mesh's ``ep`` / ``mp``: y, aux and the gradients of sum(y · w) + aux
+  (params gathered back, x).
 
 Optimizers are named (``opt``: [class name, kwargs], ``clip``: a clip
 norm for ``ClipGradByGlobalNorm``), so a case pickles.  Nothing here
@@ -37,6 +50,8 @@ import time
 
 import numpy as np
 import torch
+from torch.utils._pytree import tree_leaves
+from torch.utils._python_dispatch import TorchDispatchMode
 
 from .. import nn as clip_mod
 from .. import optimizer as optim
@@ -46,7 +61,8 @@ from ..distributed import megatron as mt
 from ..ops import flash_attention as fa
 from ..ops import fused_ce as fc
 from ..ops import fused_norm as fn
-from ..text import gpt, gpt_hybrid
+from ..ops import ring_attention as ra
+from ..text import gpt, gpt_hybrid, moe
 
 KERNELS = (("flash_attention_fwd", lambda: fa.flash_attention_fwd),
            ("flash_attention_bwd_dq", lambda: fa.flash_attention_bwd_dq),
@@ -104,23 +120,29 @@ def profiled_step(fn, dev):
 
 
 def expected_hybrid_launches(cfg, mesh_shape, n_micro=1, accum=1,
-                             stage=0, fused_ln=True, fused_ce=True) -> dict:
+                             stage=0, fused_ln=True, fused_ce=True,
+                             sp_rank=0, zigzag=False) -> dict:
     """Kernels #1-#7 launched by one rank in one step: per micro-batch,
     a flash forward, dq and dk/dv for each of the stage's layers (its
     graph is kept, so nothing is recomputed; remat's checkpoint adds each
-    block's flash and two LN forwards again); the CE forward and backward
-    once on the stage holding the head; every LayerNorm of the stage (two
-    a block, the final one with the head) forward and backward once."""
+    block's flash and two LN forwards again) — under sp the ring's kernel
+    route, ``ring_attention.launches`` of each at sp rank ``sp_rank``;
+    the CE forward and backward once on the stage holding the head; every
+    LayerNorm of the stage (two a block, the final one with the head)
+    forward and backward once."""
     S = int(mesh_shape.get("pp", 1))
+    R = int(mesh_shape.get("sp", 1))
     M = n_micro if S > 1 else accum
     L = cfg.num_layers // S
     head = int(stage == S - 1)
     again = int(bool(cfg.remat))
     ln = int(fused_ln and cfg.norm == "layernorm")
     ce = int(fused_ce)
-    return {"flash_attention_fwd": L * M * (1 + again),
-            "flash_attention_bwd_dq": L * M,
-            "flash_attention_bwd_dkv": L * M,
+    fl = (ra.launches("zigzag" if zigzag else "causal", R, sp_rank)
+          if R > 1 else 1)
+    return {"flash_attention_fwd": L * M * fl * (1 + again),
+            "flash_attention_bwd_dq": L * M * fl,
+            "flash_attention_bwd_dkv": L * M * fl,
             "fused_ce_fwd": head * M * ce, "fused_ce_bwd": head * M * ce,
             "fused_layer_norm_fwd": ((2 * L + head) + 2 * L * again) * M * ln,
             "fused_layer_norm_bwd": (2 * L + head) * M * ln}
@@ -190,6 +212,20 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
+def _release(dev):
+    """Return this process's cached card memory (ranks may share a
+    card)."""
+    import gc
+
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _barrier(mesh):
+    C.all_reduce_(torch.zeros(1, device=mesh.device), mesh, mesh.names)
+
+
 def _train(case, mesh):
     cfg = case["cfg"]
     opt = make_optimizer(case.get("opt", ("AdamW", {"learning_rate": 1e-3})),
@@ -197,8 +233,22 @@ def _train(case, mesh):
     init_fn, step_fn, meta = gpt_hybrid.build_gpt_train_step(
         cfg, opt, mesh=mesh, **case.get("kw", {}))
     dev = mesh.device
-    state = init_fn(case.get("seed", 0), params=case.get("params"),
-                    opt_state=case.get("opt_state"))
+
+    def init():
+        return init_fn(case.get("seed", 0), params=case.get("params"),
+                       opt_state=case.get("opt_state"))
+
+    if case.get("stagger_init"):
+        # one rank at a time: the whole masters a rank draws before it
+        # cuts its blocks never sit on a shared card four times at once
+        state = None
+        for r in range(mesh.world_size):
+            if r == mesh.rank:
+                state = init()
+                _release(dev)
+            _barrier(mesh)
+    else:
+        state = init()
     seen = {}
     if case.get("record_update"):
         apply = opt.apply_gradients
@@ -250,7 +300,8 @@ def _train(case, mesh):
            "saved_peak": saved.peak, "update": seen,
            "peak_gb": (torch.cuda.max_memory_allocated(dev) / 1e9
                        if dev.type == "cuda" else None),
-           "meta": {k: meta[k] for k in ("dp", "pp", "mp", "n_micro",
+           "meta": {k: meta[k] for k in ("dp", "pp", "mp", "sp", "ep",
+                                         "sp_zigzag", "n_micro",
                                          "accum", "schedule", "zero",
                                          "backend", "transport")},
            "local_shapes": {".".join(p): tuple(t.shape) for p, t in
@@ -316,7 +367,115 @@ def _megatron(case, mesh):
         if mesh.rank == 0 else None
 
 
-_KINDS = {"train": _train, "grads": _grads, "megatron": _megatron}
+def _global_rows(T, R, r, zigzag):
+    """The global rows of rank ``r``'s chunk of a T-row sequence."""
+    if not zigzag:
+        Tl = T // R
+        return list(range(r * Tl, (r + 1) * Tl))
+    Tc = T // (2 * R)
+    return (list(range(r * Tc, (r + 1) * Tc))
+            + list(range((2 * R - 1 - r) * Tc, (2 * R - r) * Tc)))
+
+
+def _ring_inputs(case, dev):
+    if "gen" in case:
+        B, T, H, Hkv, D, seed = case["gen"]
+        g = torch.Generator(device=dev).manual_seed(seed)
+        dt = getattr(torch, case.get("dtype", "bfloat16"))
+
+        def draw(h):
+            return torch.randn(B, T, h, D, generator=g, device=dev).to(dt)
+
+        return draw(H), draw(Hkv), draw(Hkv), draw(H)
+    return tuple(torch.as_tensor(np.asarray(case[n]), device=dev)
+                 for n in ("q", "k", "v", "w"))
+
+
+class _Largest(TorchDispatchMode):
+    """The most elements of any tensor an op produced under it."""
+
+    def __init__(self):
+        super().__init__()
+        self.n = 0
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        out = func(*args, **(kwargs or {}))
+        for t in tree_leaves(out):
+            if isinstance(t, torch.Tensor):
+                self.n = max(self.n, t.numel())
+        return out
+
+
+def _ring(case, mesh):
+    dev = mesh.device
+    R, r = mesh.size("sp"), mesh.coord("sp")
+    zig = case.get("zigzag", False)
+    q, k, v, w = _ring_inputs(case, dev)
+    ids = torch.tensor(_global_rows(q.shape[1], R, r, zig), device=dev)
+    order = torch.argsort(C.all_gather(ids, mesh, "sp"))
+    ql, kl, vl, wl = (t[:, ids].contiguous() for t in (q, k, v, w))
+    del q, k, v, w
+    out = {}
+    for route in case.get("routes", ("plain",)):
+        qq, kk, vv = (t.clone().requires_grad_(True) for t in (ql, kl, vl))
+        before, before_tc = launch_counts(), tc_counts()
+        _sync(dev)
+        t0 = time.perf_counter()
+        largest = _Largest()
+        with (largest if case.get("largest") else contextlib.nullcontext()):
+            if zig:
+                o = ra.ring_attention_zigzag(qq, kk, vv, mesh, "sp",
+                                             sub_block=case.get("sub_block"),
+                                             route=route)
+            else:
+                o = ra.ring_attention(qq, kk, vv, mesh, "sp",
+                                      causal=case.get("causal", True),
+                                      sub_block=case.get("sub_block"),
+                                      route=route)
+            (o.float() * wl.float()).sum().backward()
+        _sync(dev)
+        ms = 1e3 * (time.perf_counter() - t0)
+        res = {"ms": ms, "largest": largest.n,
+               "launches": {k_: v_ - before[k_]
+                            for k_, v_ in launch_counts().items()
+                            if k_.startswith("flash")},
+               "tc_launches": {k_: v_ - before_tc[k_]
+                               for k_, v_ in tc_counts().items()}}
+        for name, t in (("out", o), ("dq", qq.grad), ("dk", kk.grad),
+                        ("dv", vv.grad)):
+            full = C.all_gather(t.detach().contiguous(), mesh, "sp", dim=1)
+            res[name] = (full[:, order].float().cpu().numpy()
+                         if mesh.rank == 0 else None)
+        out[route] = res
+    return out
+
+
+def _moe(case, mesh):
+    dev = mesh.device
+    cfg = case["moe_cfg"]
+    ep_ax = "ep" if mesh.size("ep") > 1 else None
+    mp_ax = "mp" if mesh.size("mp") > 1 else None
+    specs = moe.moe_param_shardings(ep=ep_ax, mp=mp_ax)
+    whole = {n: torch.as_tensor(np.asarray(a), device=dev)
+             for n, a in case["params"].items()}
+    p = {n: gpt.shard_leaf(t, specs[n], mesh).requires_grad_(True)
+         for n, t in whole.items()}
+    x = torch.as_tensor(np.asarray(case["x"]), device=dev) \
+        .requires_grad_(True)
+    w = torch.as_tensor(np.asarray(case["w"]), device=dev)
+    y, aux = moe.moe_ffn_manual(p, x, cfg, mesh, ep_ax, mp_ax,
+                                route_axes=case.get("route_axes", ()))
+    ((y * w).sum() + aux).backward()
+    grads = {n: gpt.gather_leaf(t.grad, specs[n], mesh) for n, t in p.items()}
+    if mesh.rank != 0:
+        return None
+    return {"y": y.detach().cpu().numpy(), "aux": aux.item(),
+            "dx": x.grad.cpu().numpy(),
+            "grads": {n: g.cpu().numpy() for n, g in grads.items()}}
+
+
+_KINDS = {"train": _train, "grads": _grads, "megatron": _megatron,
+          "ring": _ring, "moe": _moe}
 
 
 def run_cases(cases):
@@ -329,4 +488,5 @@ def run_cases(cases):
                                      device=case.get("device"))
         with _flags(case.get("flags", {})):
             results.append(_KINDS[case["kind"]](case, mesh))
+        _release(mesh.device)
     return results

@@ -307,7 +307,16 @@ REFUSALS = [
      NotImplementedError),
     ("accum_pp", {}, dict(pp=2), dict(accum=2, n_micro=2), ValueError),
     ("schedule", {}, dict(pp=2), dict(schedule="zigzag"), ValueError),
-    ("sp", {}, dict(dp=2, sp=2), {}, NotImplementedError),
+    ("sp", dict(pos_embed="rope"), dict(dp=2, sp=2), {},
+     NotImplementedError),
+    ("rmsnorm_sp", dict(norm="rmsnorm"), dict(sp=2), {},
+     NotImplementedError),
+    ("swiglu_sp", dict(activation="swiglu"), dict(sp=2), {},
+     NotImplementedError),
+    ("kv_heads_sp", dict(num_kv_heads=1), dict(sp=2, mp=2), {},
+     ValueError),
+    ("zero2_sp", {}, dict(dp=2, sp=2), dict(zero=2), NotImplementedError),
+    ("accum_sp", {}, dict(sp=2), dict(accum=2), ValueError),
 ]
 
 
@@ -324,14 +333,52 @@ def test_jax_refuses_alike():
     """The JAX ``build_gpt_train_step`` raises the same types on the same
     meshes."""
     for what, over, shape, kw, exc in REFUSALS:
-        if what in ("sp", "kv_heads"):
-            continue   # JAX trains sp; its kv_heads case is the next test
+        if what == "kv_heads":
+            continue   # JAX refuses it on the pipeline path: next test
         jcfg = dataclasses.replace(JCFG, **{k: v for k, v in over.items()})
         names = tuple(shape)
         mesh = mesh_of(tuple(shape[n] for n in names), names)
         with pytest.raises(exc):
             jhybrid.build_gpt_train_step(jcfg, mesh,
                                          JAdamW(learning_rate=LR), **kw)
+
+
+def test_experts_must_divide_ep():
+    """``num_experts % ep`` is a ValueError in both packages, and MoE
+    under mp or pp is no longer refused."""
+    from paddle_tpu.text.moe import MoEConfig as JMoEConfig
+    from paddle_tpu_torch.text.moe import MoEConfig
+
+    cfg = dataclasses.replace(_small(), moe=MoEConfig(num_experts=4))
+    with pytest.raises(ValueError, match="ep"):
+        gpt_hybrid.build_gpt_train_step(cfg, AdamW(learning_rate=LR),
+                                        mesh=_fake_mesh(ep=3))
+    jcfg = dataclasses.replace(JCFG, moe=JMoEConfig(num_experts=4))
+    with pytest.raises(ValueError, match="ep"):
+        jhybrid.build_gpt_train_step(jcfg, mesh_of((3,), ("ep",)),
+                                     JAdamW(learning_rate=LR))
+    for shape in (dict(mp=2), dict(pp=2, ep=2)):
+        gpt_hybrid.build_gpt_train_step(cfg, AdamW(learning_rate=LR),
+                                        mesh=_fake_mesh(**shape))
+
+
+@pytest.mark.parametrize("width,zigzag", [(32, False), (31, True)],
+                         ids=["seq_divides_sp", "zigzag_even_chunk"])
+def test_sequence_refusals_raise_the_jax_types(width, zigzag):
+    """At the step, as in JAX's traced loss, on tokens [2, width]: the
+    sequence (width - 1 = 31) must divide by sp, and under zigzag each
+    rank's chunk (30 / 2 = 15) must be even — ValueError."""
+    init_fn, step_fn, _ = gpt_hybrid.build_gpt_train_step(
+        _small(), AdamW(learning_rate=LR), mesh=_fake_mesh(sp=2),
+        sp_zigzag=zigzag)
+    with pytest.raises(ValueError, match="sp|zigzag"):
+        step_fn(init_fn(0), np.zeros((2, width), np.int64), None, LR)
+    jinit, jstep, _ = jhybrid.build_gpt_train_step(
+        JCFG, mesh_of((2,), ("sp",)), JAdamW(learning_rate=LR),
+        sp_zigzag=zigzag, donate=False)
+    with pytest.raises(ValueError, match="sp|zigzag"):
+        jstep(jinit(0), jnp.zeros((2, width), jnp.int32),
+              jax.random.PRNGKey(0), LR)
 
 
 def test_gqa_kv_heads_must_divide_mp():

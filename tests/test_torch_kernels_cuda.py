@@ -2247,3 +2247,109 @@ def test_hybrid_on_four_cards():
                                      ({"pp": 2, "mp": 2}, {"n_micro": 2}),
                                      ({"dp": 4}, {"zero": 2})])
     assert out[0]["meta"]["backend"] == "nccl"
+
+
+# ---------------------------------------------------------------------------
+# the sp ring's kernel route and the sp / ep axes of the hybrid step
+# ---------------------------------------------------------------------------
+
+def test_ring_kernel_route_matches_plain_twin():
+    """Ring attention on four ranks sharing card 0 (gloo, staged): the
+    kernel route (#1 on each live block, #2 / #3 in the backward) against
+    the plain route, bf16 at head_dim 128, contiguous and zigzag over sp4
+    and sp2 (mp2 heads), GQA 8/2 and the non-causal ring: the output
+    within atol = rtol = 1e-2, dq, dk, dv within rtol 1e-2 and atol 1e-2
+    of the tensor's largest entry (flash takes δ from the bf16 output;
+    the plain route differentiates fp32 math), each rank's launches
+    exactly ``ring_attention.launches`` and all on the tensor-core
+    bodies."""
+    _card()
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import ring_attention as ra
+    from paddle_tpu_torch.tools import hybrid_check as hc
+
+    _build.build_all()
+    shapes = [({"sp": 4}, 8, 8, False, True), ({"sp": 4}, 8, 8, True, True),
+              ({"sp": 2, "mp": 2}, 8, 2, False, True),
+              ({"sp": 2, "mp": 2}, 8, 2, True, True),
+              ({"sp": 4}, 4, 4, False, False)]
+    cases = [{"kind": "ring", "mesh": mesh, "zigzag": zig, "causal": causal,
+              "gen": (2, 512, H, Hkv, 128, 5), "dtype": "bfloat16",
+              "routes": ("kernel", "plain")}
+             for mesh, H, Hkv, zig, causal in shapes]
+    outs = spawn.spawn(hc.run_cases, (cases,), nprocs=4, device="cuda:0")
+    for i, (mesh, H, Hkv, zig, causal) in enumerate(shapes):
+        R = mesh["sp"]
+        layout = "zigzag" if zig else ("causal" if causal else "full")
+        for rank, o in enumerate(outs):
+            n = ra.launches(layout, R, rank // (4 // R))
+            want = {k: n for k in ("flash_attention_fwd",
+                                   "flash_attention_bwd_dq",
+                                   "flash_attention_bwd_dkv")}
+            assert o[i]["kernel"]["launches"] == want, (i, rank)
+            assert o[i]["kernel"]["tc_launches"] == want, (i, rank)
+        k, p = outs[0][i]["kernel"], outs[0][i]["plain"]
+        for t in ("out", "dq", "dk", "dv"):
+            want = torch.as_tensor(p[t])
+            atol = 1e-2 * (1.0 if t == "out" else float(want.abs().max()))
+            torch.testing.assert_close(torch.as_tensor(k[t]), want,
+                                       atol=atol, rtol=1e-2,
+                                       msg=f"{shapes[i]} {t}")
+
+
+def test_hybrid_sp_ep_ranks_share_one_card():
+    """sp2 x mp2 zigzag, pp2 x sp2 (1F1B) and an MoE model at dp2 x ep2
+    with four ranks on card 0 over gloo: the losses of four CPU ranks
+    within 1e-4 (the CPU's ring takes the plain route, the card's the
+    kernels), every rank's kernels launched exactly."""
+    _card()
+    import dataclasses
+
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.text.moe import MoEConfig
+    from paddle_tpu_torch.tools import hybrid_check as hc
+
+    _build.build_all()
+    dense, _ = _hybrid_cases("cpu", [])
+    moe_cfg = dataclasses.replace(dense, moe=MoEConfig(
+        num_experts=4, capacity_factor=1.0))
+    runs = [(dense, {"sp": 2, "mp": 2}, {"sp_zigzag": True}),
+            (dense, {"pp": 2, "sp": 2}, {"n_micro": 2}),
+            (moe_cfg, {"dp": 2, "ep": 2}, {})]
+
+    def cases(device):
+        import numpy as np
+
+        out = []
+        for cfg, mesh, kw in runs:
+            master = gpt.init_master_params(cfg, seed=7, device="cpu")
+            params = {k: (v.numpy() if not isinstance(v, dict) else
+                          {n: (t.numpy() if not isinstance(t, dict) else
+                               {m: u.numpy() for m, u in t.items()})
+                           for n, t in v.items()})
+                      for k, v in master.items()}
+            rng = np.random.default_rng(3)
+            out.append({"kind": "train", "cfg": cfg, "mesh": mesh, "kw": kw,
+                        "params": params, "lr": 1e-3, "device": device,
+                        "flags": HYBRID_FLAGS,
+                        "batches": [rng.integers(0, cfg.vocab_size, (4, 65))
+                                    for _ in range(5)]})
+        return out
+
+    got = spawn.spawn(hc.run_cases, (cases("cuda:0"),), nprocs=4,
+                      device="cuda:0")
+    ref = spawn.spawn(hc.run_cases, (cases("cpu"),), nprocs=4,
+                      device="cpu")[0]
+    for i, (cfg, mesh, kw) in enumerate(runs):
+        losses = got[0][i]["losses"]
+        assert max(abs(a - b) for a, b in zip(losses, ref[i]["losses"])) \
+            <= 1e-4, (mesh, losses, ref[i]["losses"])
+        for r in got:
+            c = r[i]["coords"]
+            want = hc.expected_hybrid_launches(
+                cfg, mesh, kw.get("n_micro", 1), 1, c.get("pp", 0),
+                sp_rank=c.get("sp", 0), zigzag=kw.get("sp_zigzag", False))
+            assert all(step == want for step in r[i]["launches"]), \
+                (mesh, r[i]["rank"], r[i]["launches"][0], want)
