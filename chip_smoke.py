@@ -325,7 +325,18 @@ Phases, in order; any failure raises and the script exits non-zero:
    the same rows (``one_card_loss``) and falling at step 2.  ``python3
    chip_smoke.py --hybrid-only`` runs the build and this phase alone
    (``--full-width-only`` with it: (b), (c) and (f) only);
-11. one ``{"kernels": [...]}`` JSON line, then, as the last line,
+11. after it, tensor- and expert-parallel serving (``tp_phase``): a pool
+   of four rank processes (four cards: NCCL, a card a rank, graphs; one
+   card: gloo through pinned host buffers, eager) and, each against a
+   single-card server, (a) + (e) the small fp32 models at mp2 with
+   speculation and an adapter pool (streams equal), (b) GPT-1.3B at mp2
+   and mp4, main and paged, (c) int4 ``build_sharded_decode`` at mp2 (both
+   by the tie rule), (d) the 8-expert MoE model at ep2 x mp2 by the routed
+   tie rule, and its fp32 twin held at every token and counter
+   (``tp_moe_exact``); per-rank launches exact, one replay a tick a rank
+   on four cards.  ``python3 chip_smoke.py --tp-only`` runs the build and
+   this phase alone;
+12. one ``{"kernels": [...]}`` JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a CUDA card.  Imports nothing
@@ -4951,8 +4962,10 @@ def moe_forced_rows(torch, G, serving, moe_serving, params, cfg, prompts,
     """The routed steps teacher-forced on ``streams`` (request r in slot
     ``slots[r]`` of an 8-slot cache, as the server placed it): each
     prompt admitted by ``prefill_slot``, then the joint step over the
-    8 slots feeding each stream's tokens.  Returns rows[r][i], the logits
-    that chose token i of request r."""
+    8 slots feeding each stream's tokens.  Returns (rows, counters):
+    rows[r][i], the logits that chose token i of request r; counters,
+    the joint steps' (dropped, load), as a server's ``_moe_snapshot``
+    reads them (admission adds nothing to them)."""
     B = 8
     cache = G.init_cache(cfg, B, 512, "cuda")
     stats = moe_serving.moe_stats_init(cfg.moe.num_experts, "cuda")
@@ -4976,14 +4989,16 @@ def moe_forced_rows(torch, G, serving, moe_serving, params, cfg, prompts,
         for r, b in enumerate(slots):
             rows[r].append(lg[b].float())
         pos[slots] += 1
-    return rows
+    return rows, (int(stats["dropped"].item()),
+                  [int(v) for v in stats["load"].tolist()])
 
 
 def moe_hold(rows, got, ref, what):
     """``got`` against ``ref`` by the tie rule in a jointly routed batch:
     at the first step where any stream leaves ``ref``, each token that
     left must sit within TIE_TOL of the best logit of its row in the
-    teacher-forced routed context of ``ref`` (``rows``).  Past that step
+    teacher-forced routed context of ``ref`` or of ``got`` (``rows``:
+    the two agree up to that step).  Past that step
     batch-mates route against another context, so the streams are not
     compared further.  Returns (streams equal throughout, the first
     divergence (step, {request: gap}) or None)."""
@@ -5159,8 +5174,8 @@ def moe_serve_bf16(torch, gpt, G, serving, moe, moe_serving, engine, ks, wl,
                 or step["hbm_bw_util"] > HBM_UTIL_CAP:
             raise AssertionError(f"MoE {path}: serving.moe_step's feed "
                                  f"{step}")
-        rows = moe_forced_rows(torch, G, serving, moe_serving, params, cfg,
-                               prompts, ref, slots)
+        rows, _ = moe_forced_rows(torch, G, serving, moe_serving, params,
+                                  cfg, prompts, ref, slots)
         st["eager_equal"], st["eager_divergence"] = moe_hold(
             rows, served, ref, f"MoE {path} graph vs eager")
         del rows
@@ -7504,6 +7519,654 @@ def hybrid_phase(torch, gpt, gpt_hybrid, optim, clip, tr, fa, fc, headline,
     return stats, total, tc_total, sp_total, sp_tc, err
 
 
+# -- tensor- and expert-parallel serving (text/tp_serving.py) ----------------
+
+TP_MOD = "paddle_tpu_torch.text.tp_serving"
+SM_MOD = "paddle_tpu_torch.distributed.serving_mesh"
+TP_RANKS = 4                     # one pool for the phase: mp2, mp4, ep2 x mp2
+TP_TIMEOUT_S = 600.0             # every wait for a rank, every collective
+TP_SMALL_NEW = 24
+# the depth of (b) and (c) where the ranks share one card: each of a
+# step's 50 gloo collectives is staged through the host and syncs its
+# rank, so a 24-layer step takes 0.2-0.7 s there and the whole smoke
+# must stay inside its time limit; four cards run all 24.
+# (d) keeps 24 layers: its gate is the routed tie rule, and another depth
+# is another model, whose near-tied routing choices the ranks' reduction
+# order may flip
+TP_ONE_CARD_LAYERS = 4
+# (d)'s fp32 twin, held token by token and counter by counter
+TP_MOE_EXACT_LAYERS = 4
+# the slots the server places main's 8 requests in (the last free first)
+TP_MOE_SLOTS = [7 - r for r in range(8)]
+TP_ADMISSION_KINDS = ("prefill", "prefill_chunk", "paged_prefill",
+                      "moe_prefill", "moe_prefill_chunk", "moe_paged_prefill")
+
+
+def tp_rank_counts(ks, srv):
+    """Each rank's kernel launches (by the kernels line's names):
+    [{"launches": .., "tc_launches": .., "tick_launches": ..}] in rank
+    order."""
+    out = []
+    for raw in srv._bind.counts():
+        out.append({attr: {n: raw[f"{fn.__name__}.{attr}"]
+                           for n, fn in ks.items() if hasattr(fn, attr)}
+                    for attr in ("launches", "tc_launches",
+                                 "tick_launches")})
+    return out
+
+
+def tp_arm(torch, engine, ks, srv, prompts, new, cfg, what, gate=True):
+    """One tensor-parallel serve, warmed: the streams and, per rank, the
+    launches (gated exact when ``gate``: every rank alike; contiguous —
+    #1 on the tensor-core body once a layer an admission, #9 on the tick
+    body once a layer a tick; paged — #10 on the tick body once a layer a
+    tick and an admission chunk below R_TC, on the tensor-core body once a
+    layer a chunk from R_TC on), the collectives a tick, reserved memory a
+    rank and, on NCCL (graphs), one step replay a tick per rank with no
+    capture after warmup.  Returns (streams, stats)."""
+    from paddle_tpu_torch.ops.decode_attention import R_TC
+
+    bind = srv._bind
+    pool, members = bind.mesh.pool, bind.mesh.members
+    # warmup captures a graphed server's steps; an eager one's would only
+    # run them once more
+    warm = (srv.warmup(prompt_lens=[len(p) for p in prompts])
+            if bind.rank_graphs else {})
+    g0 = pool.call(members, f"{TP_MOD}:rank_graphs", bind.bid)
+    pool.call(members, f"{TP_MOD}:rank_reset_counts")
+    pool.call(members, f"{TP_MOD}:rank_collectives", True)
+    pool.call(members, f"{TP_MOD}:rank_step_ms", True)
+    pool.call(members, f"{SM_MOD}:step_times", True)
+    pool.steps, pool.step_s = 0, 0.0
+    widths = []
+    get = engine.ENGINE.get
+
+    def counted_get(kind, spec):
+        fn = get(kind, spec)
+        if kind not in TP_ADMISSION_KINDS:
+            return fn
+
+        def counted(*feeds):
+            widths.append(int(feeds[0].shape[1]))
+            return fn(*feeds)
+        return counted
+
+    engine.ENGINE.get = counted_get
+    try:
+        served, t_admit, ticks, wall = serve(torch, srv, prompts, new)
+    finally:
+        engine.ENGINE.get = get
+    counts = tp_rank_counts(ks, srv)
+    coll = pool.call(members, f"{TP_MOD}:rank_collectives", False)[0]
+    dev_ms = pool.call(members, f"{TP_MOD}:rank_step_ms")[0]
+    host = pool.call(members, f"{SM_MOD}:step_times")
+    steps = {"round_trips": pool.steps,
+             "round_trip_ms_mean": 1e3 * pool.step_s / max(1, pool.steps),
+             "rank_step_ms_mean": [1e3 * h["step_s"] / max(1, h["steps"])
+                                   for h in host],
+             "rank0_device_ms_median": (statistics.median(dev_ms)
+                                        if dev_ms else 0.0)}
+    g1 = pool.call(members, f"{TP_MOD}:rank_graphs", bind.bid)
+    mem = pool.call(members, f"{TP_MOD}:rank_memory")
+    L, T = cfg.num_layers, len(ticks)
+    if gate:
+        if any(c != counts[0] for c in counts):
+            raise AssertionError(f"{what}: the ranks launched other kernels: "
+                                 f"{counts}")
+        c = counts[0]
+        la, tc, tick = c["launches"], c["tc_launches"], c["tick_launches"]
+        if srv._paged:
+            small = sum(w < R_TC for w in widths)
+            want = {"flash_attention_fwd": 0, "decode_attention": 0,
+                    "paged_decode_attention": L * (T + len(widths))}
+            ok = (tick["paged_decode_attention"] == L * (T + small)
+                  and tc["paged_decode_attention"] == L * (len(widths)
+                                                           - small))
+        else:
+            want = {"flash_attention_fwd": L * len(widths),
+                    "decode_attention": L * T, "paged_decode_attention": 0}
+            ok = (tc["flash_attention_fwd"] == L * len(widths)
+                  and tick["decode_attention"] == L * T)
+        if any(la[n] != v for n, v in want.items()) or not ok:
+            raise AssertionError(f"{what}: per-rank launches {c} against "
+                                 f"{want} ({T} ticks, admission widths "
+                                 f"{widths})")
+    step = "serving.moe_step" if cfg.moe is not None else "serving.step"
+    graphed = bind.rank_graphs
+    if graphed:
+        for r, (a, b) in enumerate(zip(g0, g1)):
+            rep = b["replays"].get(step, 0) - a["replays"].get(step, 0)
+            if b["captured"] != a["captured"] or rep != T:
+                raise AssertionError(
+                    f"{what}: rank {r} captured {b['captured'] - a['captured']}"
+                    f" graphs in the serve and replayed {step} {rep} times "
+                    f"for {T} ticks")
+    n_tok = sum(len(x) for x in served)
+    st = {"transport": bind.mesh.transport, "graphs": graphed,
+          "ranks": len(members), "ticks": T, "tokens": n_tok,
+          "wall_s": wall, "tokens_per_s": n_tok / wall,
+          "tick_ms_mean": 1e3 * statistics.mean(ticks),
+          "tick_ms_median": 1e3 * statistics.median(ticks),
+          "admission_ms": 1e3 * t_admit, "admission_widths": widths,
+          "warmup_s": sum(warm.values()),
+          "reserved_gb_per_rank": [m["reserved"] / 1e9 for m in mem],
+          "collectives": coll,
+          "collective_calls_per_tick": {k: v["calls"] / T
+                                        for k, v in coll.items()},
+          "collective_bytes_per_tick": {k: v["bytes"] / T
+                                        for k, v in coll.items()},
+          "rank_launches": counts[0]["launches"],
+          "rank_tc_launches": counts[0]["tc_launches"],
+          "rank_tick_launches": counts[0]["tick_launches"],
+          "captured_graphs_per_rank": [g["captured"] for g in g1],
+          "steps": steps}
+    log(f"  {what}: tokens/s {st['tokens_per_s']:.1f}, tick ms mean "
+        f"{st['tick_ms_mean']:.3f} median {st['tick_ms_median']:.3f}, "
+        f"admission {st['admission_ms']:.1f} ms, reserved GB a rank "
+        f"{[round(x, 3) for x in st['reserved_gb_per_rank']]}, collectives "
+        f"a tick {json.dumps(st['collective_calls_per_tick'])} bytes a tick "
+        f"{json.dumps(st['collective_bytes_per_tick'])}, launches a rank "
+        f"{ {k: v for k, v in st['rank_launches'].items() if v} } (tick "
+        f"body { {k: v for k, v in st['rank_tick_launches'].items() if v} }, "
+        f"tensor-core { {k: v for k, v in st['rank_tc_launches'].items() if v} }"
+        f"), {bind.mesh.transport}, graphs {graphed}; a step call "
+        f"{steps['round_trip_ms_mean']:.3f} ms round trip, on the ranks "
+        f"{[round(x, 3) for x in steps['rank_step_ms_mean']]} ms from frame "
+        f"to done, rank 0's card {steps['rank0_device_ms_median']:.3f} ms "
+        f"(median)")
+    return served, st
+
+
+def one_card_arm(torch, engine, srv, prompts, new):
+    """The single-card server's graphed serve, warmed: (streams, stats)."""
+    warm = srv.warmup(prompt_lens=[len(p) for p in prompts])
+    served, t_admit, ticks, wall = serve(torch, srv, prompts, new)
+    n_tok = sum(len(x) for x in served)
+    st = {"tokens_per_s": n_tok / wall, "ticks": len(ticks),
+          "tick_ms_mean": 1e3 * statistics.mean(ticks),
+          "tick_ms_median": 1e3 * statistics.median(ticks),
+          "admission_ms": 1e3 * t_admit, "warmup_s": sum(warm.values()),
+          "reserved_gb": torch.cuda.memory_reserved() / 1e9}
+    log(f"  one card: tokens/s {st['tokens_per_s']:.1f}, tick ms mean "
+        f"{st['tick_ms_mean']:.3f} median {st['tick_ms_median']:.3f}, "
+        f"admission {st['admission_ms']:.1f} ms")
+    return served, st
+
+
+def _add_rank(total, counts, ranks):
+    for n, v in counts.items():
+        total[n] = total.get(n, 0) + v * ranks
+
+
+def tp_small(torch, gpt, serving, lora, A, m2):
+    """(a) and (e): the small fp32 models (fp32 and int8 KV, contiguous
+    and paged) at mp2 against the single-card server on the card —
+    exactly the same greedy streams; eager, and on NCCL graphed too.
+    Then (e): a speculating server (draft == target, linear K = SPEC_K and
+    a tree of SPEC_K nodes; n-gram self-drafting) and an adapter pool of
+    two adapters at mp2, each against its single-card twin."""
+    out = {}
+    graphs = (False, True) if m2.transport == "nccl" else (False,)
+    models = list(_small_models(torch, gpt))
+    if m2.transport != "nccl":
+        # one card: MHA with an fp32 cache and GQA with an int8 one
+        models = [models[0], models[3]]
+    for name, cfg, kv in models:
+        os.environ["PADDLE_TPU_KV_DTYPE"] = kv
+        params = gpt.init_params(cfg, seed=11, device="cuda")
+        rng = np.random.default_rng(6)
+        prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+                   for n in (7, 60, 100)]
+        for layout in ("contiguous", "paged"):
+            one = _small_server(serving, cfg, params, "cuda", layout)
+            ref = serve(torch, one, prompts, TP_SMALL_NEW)[0]
+            one.close()
+            for g in graphs:
+                lay = (dict(layout="paged", block_size=16, num_blocks=48)
+                       if layout == "paged" else {})
+                srv = serving.DecodeServer(params, cfg, max_batch=4,
+                                           max_len=160, mesh=m2, _graphs=g,
+                                           **lay)
+                if layout == "paged":
+                    srv._pool._free = np.random.default_rng(0).permutation(
+                        srv._pool.N).tolist()
+                got = serve(torch, srv, prompts, TP_SMALL_NEW)[0]
+                srv.close()
+                key = f"{name}{'-int8' if kv else ''} {layout} " \
+                      f"{'graphed' if g else 'eager'}"
+                out[key] = got == ref
+                if got != ref:
+                    raise AssertionError(f"tp small {key}: {got} vs {ref}")
+        del params
+    os.environ.pop("PADDLE_TPU_KV_DTYPE", None)
+    log(f"  (a) small fp32 models at mp2, streams equal to one card's: "
+        f"{json.dumps(out)}")
+    # (e) speculation and an adapter pool on the mesh
+    name, cfg, _ = list(_small_models(torch, gpt))[1]
+    params = gpt.init_params(cfg, seed=11, device="cuda")
+    rng = np.random.default_rng(7)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (7, 60, 100)]
+    spec = {}
+    arms = [("linear draft==target", dict(spec_k=SPEC_K, draft_cfg=cfg,
+                                           draft_params=params)),
+            ("linear n-gram", dict(spec_k=SPEC_K)),
+            ("tree draft==target", dict(spec_tree=SPEC_K, draft_cfg=cfg,
+                                         draft_params=params))]
+    # one card: the contiguous layout (the small models' paged arms above
+    # and the CPU tests hold the paged twins)
+    layouts = (("contiguous", "paged") if m2.transport == "nccl"
+               else ("contiguous",))
+    for arm, kw in arms:
+        for layout in layouts:
+            ref = serve(torch, _small_server(serving, cfg, params, "cuda",
+                                             layout, **kw),
+                        prompts, TP_SMALL_NEW)[0]
+            lay = (dict(layout="paged", block_size=16, num_blocks=48)
+                   if layout == "paged" else {})
+            srv = serving.DecodeServer(params, cfg, max_batch=4, max_len=160,
+                                       mesh=m2, **lay, **kw)
+            got = serve(torch, srv, prompts, TP_SMALL_NEW)[0]
+            srv.close()
+            spec[f"{arm} {layout}"] = got == ref
+            if got != ref:
+                raise AssertionError(f"tp spec {arm} {layout}: {got} vs "
+                                     f"{ref}")
+    engine_purge(cfg)
+    ads = make_adapters(torch, lora, params, cfg, 2, 8, SMALL_B_STD)
+    jobs = [(p, a) for p in prompts for a in (None, "a0", "a1")]
+
+    def pool_serve(**kw):
+        pool = A.AdapterPool(params, cfg, rank=8, max_adapters=2)
+        pool.register("a0", ads[0])
+        srv = serving.DecodeServer(params, cfg, max_batch=4, max_len=160,
+                                   adapter_pool=pool, **kw)
+        pool.register("a1", ads[1])       # after the build: the ranks too
+        rids = [srv.submit(p, max_new_tokens=TP_SMALL_NEW, adapter=a)
+                for p, a in jobs]
+        while srv.pending():
+            srv.tick()
+        got = [srv.result(r) for r in rids]
+        srv.close()
+        return got
+
+    ref = pool_serve(device="cuda")
+    got = pool_serve(mesh=m2)
+    spec["adapter pool (2 adapters, one registered after the build)"] = \
+        got == ref
+    if got != ref:
+        raise AssertionError(f"tp adapter pool: {got} vs {ref}")
+    if len({tuple(x) for x in ref}) < 2:
+        raise AssertionError("the adapters changed no stream")
+    del params
+    log(f"  (e) speculation and an adapter pool at mp2 (small gqa-rope "
+        f"fp32), streams equal to one card's: {json.dumps(spec)}")
+    out.update(spec)
+    return out
+
+
+def engine_purge(cfg):
+    from paddle_tpu_torch.text import engine
+
+    engine.ENGINE.purge(cfg)
+
+
+def tp_1p3b(torch, gpt, serving, engine, ks, wl, meshes, total, tc_total,
+            tick_total, layers=None):
+    """(b) GPT-1.3B (bf16, seed 0; at ``layers`` layers when given) at mp2
+    and mp4, main and paged: main's or paged's 8 requests x 64 greedy
+    tokens against the single-card graphed server by the tie rule.  The
+    weights are cut over each mesh once (``tp_serving.shard_params``) and
+    serve both paths."""
+    from paddle_tpu_torch.text import tp_serving
+
+    cfg = tp_cfg(gpt.gpt_1p3b(), layers)
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    prompts = {"main": wl.main_prompts(cfg.vocab_size, 0),
+               "paged": wl.paged_prompts(cfg.vocab_size, 0)}
+    out, ref = {}, {}
+    for path in ("main", "paged"):
+        one = wl.make_server(path, params, cfg, "cuda")
+        ref[path], st1 = one_card_arm(torch, engine, one, prompts[path],
+                                      wl.NEW)
+        one.close()
+        del one
+        out[path] = {"one_card": st1}
+    gc.collect()
+    torch.cuda.empty_cache()
+    for mname, mesh in meshes:
+        t0 = time.perf_counter()
+        sharded = tp_serving.shard_params(params, cfg, mesh)
+        cut_s = time.perf_counter() - t0
+        for path in ("main", "paged"):
+            srv = wl.make_server(path, sharded, cfg, mesh=mesh)
+            got, st = tp_arm(torch, engine, ks, srv, prompts[path], wl.NEW,
+                             cfg, f"(b) {path} {mname}")
+            srv.close()
+            st["cut_and_upload_s"] = cut_s
+            st["streams_equal"] = hold_streams(
+                torch, gpt, params, cfg, prompts[path], got, ref[path],
+                f"(b) {path} {mname}")
+            st["tick_vs_one_card"] = st["tick_ms_median"] / out[path][
+                "one_card"]["tick_ms_median"]
+            n = st["ranks"]
+            _add_rank(total, st["rank_launches"], n)
+            _add_rank(tc_total, st["rank_tc_launches"], n)
+            _add_rank(tick_total, st["rank_tick_launches"], n)
+            out[path][mname] = st
+        tp_serving.ShardedParams.of(sharded).release()
+        del sharded
+        log(f"  (b) {mname}: the weights cut and sent to the ranks in "
+            f"{cut_s:.1f} s")
+    del params
+    engine_purge(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+TP_W4_STEPS = 16
+
+
+def tp_int4(torch, gpt, G, woq, engine, wl, m2, total, tc_total,
+            layers=None):
+    """(c) ``build_sharded_decode`` on GPT-1.3B's int4 weights (group 64)
+    at mp2 under the W4 kernel: TP_W4_STEPS steps of 8 slots against the
+    single-card ``decode_step`` on the same weights — the logits' largest
+    gap, every greedy choice equal or within TIE_TOL of the best — and
+    per rank 6 launches of #8 a layer a step (qkv's three slices, proj,
+    fc and out; 144 at 24 layers), all on the tensor-core body."""
+    os.environ.update(wl.W4_FLAGS)
+    try:
+        cfg = tp_cfg(gpt.gpt_1p3b(), layers)
+        params = woq.quantize_gpt_int4(
+            gpt.init_params(cfg, seed=0, device="cuda"),
+            group_size=wl.W4_GROUP)
+        prompts = wl.main_prompts(cfg.vocab_size, 0)
+        B = len(prompts)
+        sp, make_cache, decode = G.build_sharded_decode(params, cfg, m2)
+        cache = make_cache(B, 64)
+        ref_cache = G.init_cache(cfg, B, 64, "cuda")
+        pool = m2.pool
+        pool.call(m2.members, f"{TP_MOD}:rank_reset_counts")
+        gap = worst_tie = 0.0
+        agree = 0
+        t_one, t_tp = [], []
+        for pos in range(TP_W4_STEPS):
+            tok = torch.tensor([p[pos] for p in prompts])
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            want, ref_cache = G.decode_step(params, ref_cache, tok.to("cuda"),
+                                            pos, cfg)
+            want = want.cpu()
+            t_one.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            got, cache = decode(sp, cache, tok, pos)
+            t_tp.append(time.perf_counter() - t0)
+            gap = max(gap, (got - want).abs().max().item())
+            for b in range(B):
+                a = int(got[b].argmax())
+                tie = (want[b].max() - want[b, a]).item()
+                worst_tie = max(worst_tie, tie)
+                agree += int(a == int(want[b].argmax()))
+        raw = cache.binding.counts()
+        w4 = [r["w4_matmul.launches"] for r in raw]
+        w4tc = [r["w4_matmul.tc_launches"] for r in raw]
+        want_n = 6 * cfg.num_layers * TP_W4_STEPS
+        if w4 != [want_n] * 2 or w4tc != [want_n] * 2:
+            raise AssertionError(f"(c) #8 launches a rank {w4} (tensor-core "
+                                 f"{w4tc}) against {want_n}")
+        if worst_tie > TIE_TOL:
+            raise AssertionError(f"(c) a sharded greedy choice sits "
+                                 f"{worst_tie} under the best logit")
+        st = {"steps": TP_W4_STEPS, "slots": B, "max_abs_logit_gap": gap,
+              "argmax_equal": agree, "of": B * TP_W4_STEPS,
+              "worst_choice_gap": worst_tie,
+              "w4_launches_per_rank": w4, "w4_tc_launches_per_rank": w4tc,
+              "step_ms_one_card_median": 1e3 * statistics.median(t_one[2:]),
+              "step_ms_mp2_median": 1e3 * statistics.median(t_tp[2:]),
+              "weights": "int4 group 64, int8 embedding"}
+        _add_rank(total, {"w4_matmul": w4[0]}, 2)
+        _add_rank(tc_total, {"w4_matmul": w4tc[0]}, 2)
+        log(f"  (c) build_sharded_decode, int4 at mp2: {json.dumps(st)}")
+        del cache, sp, params, ref_cache
+        engine_purge(cfg)
+    finally:
+        for k in wl.W4_FLAGS:
+            os.environ.pop(k, None)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return st
+
+
+def moe_forced_gaps(rows, got):
+    """gaps[r][i]: the best logit less the logit of ``got[r][i]`` in its
+    row of ``rows`` (teacher-forced on ``got``)."""
+    return [[(row.max() - row[t]).item() for row, t in zip(rows[r], g)]
+            for r, g in enumerate(got)]
+
+
+def tp_moe(torch, gpt, G, serving, moe, moe_serving, engine, ks, wl, m22,
+           total, tc_total, tick_total, layers=None):
+    """(d) The 8-expert GPT-1.3B-width MoE model (bf16, cf MOE_CF) at
+    ep2 x mp2 — each rank 4 experts and half of each one's FFN columns,
+    cut on the host — serving main's 8 requests x 64 tokens against the
+    single-card eager server by the routed tie rule (``moe_hold``: the
+    first step where a stream leaves one card's is a tie).  Past that
+    step, and wherever the ranks' bf16 reduction order flips a near-tied
+    routing choice, the contexts part; so the TP server's own streams are
+    also teacher-forced through one card's joint step (``moe_forced_rows``
+    on ``got``) and read against it — the share of tokens within TIE_TOL
+    of their row's best, the drop and load counters against the forced
+    run's.  The exact hold of every sharded tick is
+    :func:`tp_moe_exact`'s, in fp32."""
+    cfg = tp_cfg(moe_config(gpt, moe), layers)
+    t0 = time.perf_counter()
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    prompts = wl.main_prompts(cfg.vocab_size, 0)
+    one = wl.make_server("main", params, cfg, "cuda", _graphs=False)
+    ref, _, oticks, owall = serve(torch, one, prompts, wl.NEW)
+    ref_drops = one._moe_snapshot()
+    one.close()
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    srv = wl.make_server("main", params, cfg, mesh=m22, ep_axis="ep")
+    cut_s = time.perf_counter() - t0
+    m = srv.params["blocks"]["moe"]
+    shapes = {n: m[n].shard_shape() for n in ("w_in", "w_out", "router_w")}
+    got, st = tp_arm(torch, engine, ks, srv, prompts, wl.NEW, cfg,
+                     "(d) MoE main ep2 x mp2")
+    drops = srv._moe_snapshot()
+    srv.close()
+    rows, forced = moe_forced_rows(torch, G, serving, moe_serving, params,
+                                   cfg, prompts, got, TP_MOE_SLOTS)
+    st["streams_equal"], st["divergence"] = moe_hold(
+        rows, got, ref, "(d) MoE ep2 x mp2 vs one card")
+    gaps = [g for row in moe_forced_gaps(rows, got) for g in row]
+    del rows
+    st["forced"] = {
+        "within_tie": sum(g <= TIE_TOL for g in gaps) / len(gaps),
+        "worst_gap": max(gaps), "dropped": forced[0], "load": forced[1],
+        "dropped_less_forced": drops[0] - forced[0],
+        "load_l1_from_forced": sum(abs(a - b)
+                                   for a, b in zip(drops[1], forced[1]))}
+    st.update(init_s=init_s, cut_and_upload_s=cut_s, rank_shapes=shapes,
+              moe_dropped_tokens=drops[0], moe_expert_load=drops[1],
+              one_card={"dropped": ref_drops[0], "load": ref_drops[1],
+                        "eager_tick_ms_median":
+                        1e3 * statistics.median(oticks),
+                        "eager_tokens_per_s":
+                        sum(len(x) for x in ref) / owall})
+    log(f"  (d) rank blocks {shapes}; drops {drops[0]} (one card "
+        f"{ref_drops[0]}), load {drops[1]} (one card {ref_drops[1]}); "
+        f"cut and upload {cut_s:.1f} s")
+    log(f"  (d) its own streams teacher-forced through one card's joint "
+        f"step (a reading): {json.dumps(st['forced'])}")
+    _add_rank(total, st["rank_launches"], 4)
+    _add_rank(tc_total, st["rank_tc_launches"], 4)
+    _add_rank(tick_total, st["rank_tick_launches"], 4)
+    del params
+    engine_purge(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return st
+
+
+def tp_moe_exact(torch, gpt, G, serving, moe, moe_serving, wl, m22):
+    """(d) held at every tick: the same MoE widths in fp32 at
+    TP_MOE_EXACT_LAYERS layers, at ep2 x mp2, serving main's 8 requests x
+    64 tokens.  The TP server's own streams are teacher-forced through one
+    card's joint routed step (``moe_forced_rows`` on ``got``): every token
+    of every stream must be within PATH_TOL of its row's best logit, and
+    the server's drop and load counters must equal the forced run's — so
+    each of the 63 sharded ticks (the E/ep experts, the F/mp columns, the
+    (ep, mp) reduction, the replicated counters) is held to one card.  In
+    fp32 the ranks' reduction order moves the router's logits by fp32
+    rounding alone, so no top-k choice flips, as bf16's may in (d).  The
+    streams' equality with the single-card server is read too."""
+    cfg = tp_cfg(moe_config(gpt, moe, dtype=torch.float32),
+                 TP_MOE_EXACT_LAYERS)
+    params = gpt.init_params(cfg, seed=0, device="cuda")
+    prompts = wl.main_prompts(cfg.vocab_size, 0)
+    one = wl.make_server("main", params, cfg, "cuda", _graphs=False)
+    ref = serve(torch, one, prompts, wl.NEW)[0]
+    ref_drops = one._moe_snapshot()
+    one.close()
+    del one
+    srv = wl.make_server("main", params, cfg, mesh=m22, ep_axis="ep")
+    got, _, ticks, wall = serve(torch, srv, prompts, wl.NEW)
+    drops = srv._moe_snapshot()
+    srv.close()
+    rows, forced = moe_forced_rows(torch, G, serving, moe_serving, params,
+                                   cfg, prompts, got, TP_MOE_SLOTS)
+    gaps = moe_forced_gaps(rows, got)
+    del rows
+    worst = max(max(g) for g in gaps)
+    st = {"layers": TP_MOE_EXACT_LAYERS, "ticks": len(ticks),
+          "tokens": sum(len(g) for g in got), "wall_s": wall,
+          "forced_worst_gap": worst,
+          "streams_equal_one_card": sum(g == f for g, f in zip(got, ref)),
+          "dropped": drops[0], "load": drops[1],
+          "forced": {"dropped": forced[0], "load": forced[1]},
+          "one_card": {"dropped": ref_drops[0], "load": ref_drops[1]}}
+    log(f"  (d) exact, fp32 at {TP_MOE_EXACT_LAYERS} layers: "
+        f"{json.dumps(st)}")
+    if not worst <= PATH_TOL:
+        bad = [(r, i) for r, g in enumerate(gaps)
+               for i, x in enumerate(g) if x > PATH_TOL]
+        raise AssertionError(f"(d) exact: tokens (request, index) {bad[:8]}"
+                             f" not their forced row's best (worst gap "
+                             f"{worst}, tol {PATH_TOL})")
+    if drops != forced:
+        raise AssertionError(f"(d) exact: drops / load {drops} vs the "
+                             f"forced run's {forced}")
+    if st["streams_equal_one_card"] == len(prompts) and drops != ref_drops:
+        raise AssertionError(f"(d) exact: equal streams but drops / load "
+                             f"{drops} vs one card's {ref_drops}")
+    del params
+    engine_purge(cfg)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return st
+
+
+def tp_cfg(cfg, layers):
+    """``cfg`` at ``layers`` layers (None: as it is) — the width whole."""
+    import dataclasses
+
+    return cfg if layers is None else dataclasses.replace(cfg,
+                                                          num_layers=layers)
+
+
+def tp_phase(torch, gpt, G, serving, engine, ks, wl, woq):
+    """The tensor- and expert-parallel serving phase: one pool of TP_RANKS
+    rank processes (four cards: NCCL, a card a rank, graphs; one card:
+    the ranks share it over gloo, eagerly) and meshes over it — (a) + (e)
+    the small fp32 models, (b) GPT-1.3B at mp2 and mp4, (c) int4
+    ``build_sharded_decode`` at mp2, (d) the MoE model at ep2 x mp2 and
+    its fp32 twin.  Returns (stats, launches, tensor-core launches, tick-body launches —
+    summed over the ranks of (b), (c), (d))."""
+    from paddle_tpu_torch.distributed import serving_mesh as sm
+    from paddle_tpu_torch.text import adapters as A
+    from paddle_tpu_torch.text import lora, moe, moe_serving
+
+    t0 = time.perf_counter()
+    pool = sm.RankPool(TP_RANKS, timeout_s=TP_TIMEOUT_S)
+    try:
+        start_s = time.perf_counter() - t0
+        m2, m4 = pool.mesh({"mp": 2}), pool.mesh({"mp": 4})
+        m22 = pool.mesh({"ep": 2, "mp": 2})
+        n_cards = torch.cuda.device_count()
+        peer = [torch.cuda.can_device_access_peer(0, j)
+                for j in range(1, n_cards)]
+        log(f"  {TP_RANKS} ranks up in {start_s:.1f} s: {pool.transport} "
+            f"over {[str(d) for d in pool.devices]}; card 0 reaches cards "
+            f"1-{n_cards - 1} peer to peer: {peer}")
+        total, tc_total, tick_total = {}, {}, {}
+        stats = {"ranks": TP_RANKS, "transport": pool.transport,
+                 "devices": [str(d) for d in pool.devices],
+                 "peer_to_peer": peer, "start_s": start_s}
+        t1 = time.perf_counter()
+        stats["small"] = tp_small(torch, gpt, serving, lora, A, m2)
+        stats["small_s"] = time.perf_counter() - t1
+        layers = None if pool.transport == "nccl" else TP_ONE_CARD_LAYERS
+        stats["layers"] = layers or 24
+        log(f"  (b) and (c) at {stats['layers']} layers, (d) at 24, its "
+            f"fp32 twin at {TP_MOE_EXACT_LAYERS}")
+        stats["gpt_1p3b"] = tp_1p3b(torch, gpt, serving, engine, ks, wl,
+                                    (("mp2", m2), ("mp4", m4)), total,
+                                    tc_total, tick_total, layers)
+        stats["int4"] = tp_int4(torch, gpt, G, woq, engine, wl, m2, total,
+                                tc_total, layers)
+        stats["moe"] = tp_moe(torch, gpt, G, serving, moe, moe_serving,
+                              engine, ks, wl, m22, total, tc_total,
+                              tick_total)
+        stats["moe_exact"] = tp_moe_exact(torch, gpt, G, serving, moe,
+                                          moe_serving, wl, m22)
+    finally:
+        pool.close()
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"  the phase's launches, all ranks: {json.dumps(total)}; on "
+        f"tensor cores {json.dumps(tc_total)}; on the tick body "
+        f"{json.dumps(tick_total)}")
+    log(f"[tensor-parallel serving phase: {stats['phase_s']:.1f} s]")
+    return stats, total, tc_total, tick_total
+
+
+def tp_only(torch, card) -> int:
+    """``--tp-only``: the build, then the tensor-parallel serving phase
+    alone."""
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.ops import decode_attention as da
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import woq_matmul as wm
+    from paddle_tpu_torch.text import engine, generate as G, gpt, serving
+    from paddle_tpu_torch.text import woq
+    from paddle_tpu_torch.tools import profile_serving as wl
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"[build] {len(_build.SOURCES)} sources in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ks = counters(fa, da, fc, fn, wm)
+    log("[tensor- and expert-parallel serving]")
+    tstats, launches, tc, tick = tp_phase(torch, gpt, G, serving, engine,
+                                          ks, wl, woq)
+    log(json.dumps({"tp": tstats, "launches": launches, "tc_launches": tc,
+                    "tick_launches": tick}))
+    log(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def hybrid_only(torch, card, small_runs=True) -> int:
     """``--hybrid-only``: the build, then the hybrid-parallel phase alone
     (its one-card reference loss computed here, not taken from the train
@@ -7545,6 +8208,14 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if "--tp-only" in sys.argv[1:]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from paddle_tpu_torch.tools import profile_serving as wl
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = wl.card_line()
+        log(card)
+        return tp_only(torch, card)
     if "--hybrid-only" in sys.argv[1:]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         from paddle_tpu_torch.tools import profile_serving as wl
@@ -7889,9 +8560,23 @@ def main() -> int:
     ce_shard = time_ce(torch, fc, F, V=25152)
     log(f"  fused_ce at a vocab shard (mp 2) {json.dumps(ce_shard)}")
 
+
     ln["bwd"].update(ln_bwd_apart(torch, fn))
     log(f"  fused_layer_norm_bwd apart: rows_ms {ln['bwd']['rows_ms']:.4f}, "
         f"cols_ms {ln['bwd']['cols_ms']:.4f} (ms {ln['bwd']['ms']:.4f})")
+
+    # last: its rank processes share the card, and nothing after it
+    # profiles
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[tensor- and expert-parallel serving: (a) + (e) small fp32 models, "
+        "speculation and an adapter pool at mp2; (b) GPT-1.3B widths at mp2 "
+        "and mp4, main and paged; (c) int4 build_sharded_decode at mp2; (d) "
+        "the 8-expert MoE model at ep2 x mp2, and its fp32 twin]")
+    tpstats, tp_l, tp_tc, tp_tick = tp_phase(torch, gpt, G, serving, engine,
+                                             ks, wl, woq)
+    log(json.dumps({"tp": tpstats}))
+    by_path["tp"] = {name: tp_l.get(name, 0) for name in ks}
 
     tc_by_path = {"main": stats["tc_launches"], "paged": pstats["tc_launches"],
                   "w4": wstats["tc_launches"],
@@ -7909,6 +8594,8 @@ def main() -> int:
                              for name in stats["tc_launches"]},
                   "hybrid_sp_ep": {name: tc_hyb_sp.get(name, 0)
                                    for name in stats["tc_launches"]},
+                  "tp": {name: tp_tc.get(name, 0)
+                         for name in stats["tc_launches"]},
                   **{p: t["tc_launches"] for p, t in train.items()}}
     assert all(by_path[p]["decode_attention"] == 0
                for p in (*train, "lora"))
@@ -7926,6 +8613,7 @@ def main() -> int:
                            "evaluate": evstats["tick_launches"][name],
                            "fleet": flstats["tick_launches"][name],
                            "lora": 0, "hybrid": 0, "hybrid_sp_ep": 0,
+                           "tp": tp_tick.get(name, 0),
                            **{p: 0 for p in train}}
                     for name in ("decode_attention", "paged_decode_attention")}
 

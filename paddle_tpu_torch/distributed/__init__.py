@@ -12,7 +12,11 @@
   pinned host memory where gloo serves ranks that share a card, and
   Megatron's autograd pair;
 * ``megatron`` — the tensor-parallel layers and the vocab-parallel loss;
-* ``fleet.base`` — ``zero_shard_spec``.
+* ``fleet.base`` — ``zero_shard_spec``;
+* ``sharding_rules`` — ordered (regex, spec) rules over a tree's paths;
+* ``serving_mesh`` — rank processes a controlling process drives step by
+  step (``RankPool``, ``ServingMesh``): what a tensor-parallel
+  ``DecodeServer(mesh=)`` runs on.
 
 The JAX package's services (ps, kvstore, launch, elastic, heter,
 ``parallel.DataParallel``) are not ported (ROADMAP A2).

@@ -31,9 +31,14 @@ each, so no loss seed is split over the replicas.
 """
 from __future__ import annotations
 
+import contextlib
+import threading
+
 import torch
 
 STATS: dict = {}
+_lock = threading.Lock()
+_tls = threading.local()
 
 
 def reset_stats():
@@ -45,10 +50,42 @@ def stats() -> dict:
     return {k: dict(v) for k, v in STATS.items()}
 
 
+def _add(op, calls, nbytes) -> None:
+    """Count into :data:`STATS` — or, inside :func:`held` on this thread,
+    into the innermost tally."""
+    tally = getattr(_tls, "tally", None)
+    with _lock if tally is None else contextlib.nullcontext():
+        s = (STATS if tally is None else tally).setdefault(
+            op, {"calls": 0, "bytes": 0})
+        s["calls"] += calls
+        s["bytes"] += int(nbytes)
+
+
+def add_stats(delta: dict) -> None:
+    """Add a tally ({op: {"calls", "bytes"}}, as :func:`held` yields) as
+    the ops would: what one replay of a captured graph stands for (its
+    Python, which counts, does not run again)."""
+    for op, d in delta.items():
+        _add(op, d["calls"], d["bytes"])
+
+
+@contextlib.contextmanager
+def held():
+    """Count this thread's collectives into a fresh tally (the yielded
+    dict) until the block ends; :data:`STATS` does not move — a graph
+    capture's warm runs and the capture itself, as ``ops._counts.held``
+    does for the launches."""
+    prev = getattr(_tls, "tally", None)
+    tally: dict = {}
+    _tls.tally = tally
+    try:
+        yield tally
+    finally:
+        _tls.tally = prev
+
+
 def _count(op, nbytes):
-    s = STATS.setdefault(op, {"calls": 0, "bytes": 0})
-    s["calls"] += 1
-    s["bytes"] += int(nbytes)
+    _add(op, 1, nbytes)
 
 
 def _nbytes(t) -> int:

@@ -35,12 +35,15 @@ weights and output contract:
   speculation prunes banned branches with :func:`constraint_lookahead`.
   This half is host numpy, a copy of the JAX module's.
 
-``stacked_pool_specs`` (tensor-parallel placement of the stacks) waits
-for the port's mesh.
+:func:`stacked_pool_specs` places the stacks under tensor parallel
+(``DecodeServer(mesh=, adapter_pool=)``): each rank holds its block of
+every stack, and a register writes the new row's blocks to the ranks of
+every sharded server the pool serves.
 """
 from __future__ import annotations
 
 import json
+import weakref
 from typing import Any, Iterable
 
 import numpy as np
@@ -214,6 +217,9 @@ class AdapterPool:
                 device=self.device)
         self._ids: dict[str, int] = {}              # name -> row (>= 1)
         self._tenant_default: dict[Any, str] = {}
+        # tensor-parallel servers holding blocks of the stacks on their
+        # ranks (``tp_serving.ShardedBinding``): a register writes there too
+        self._mirrors = weakref.WeakSet()
 
     # -- registration -------------------------------------------------
 
@@ -256,6 +262,8 @@ class AdapterPool:
         for leaf, stack in self._stacks.items():
             # in place: graphs captured over the stacks read the new row
             stack[i].copy_(rows[leaf].to(stack.device, torch.float32))
+        for m in list(self._mirrors):
+            m.adapter_row(i, {leaf: s[i] for leaf, s in self._stacks.items()})
         self._ids[name] = i
         if _telemetry.enabled():
             _telemetry.count("adapters.registered")
@@ -307,6 +315,26 @@ class AdapterPool:
 
     def default_for(self, tenant) -> str | None:
         return self._tenant_default.get(tenant)
+
+
+def stacked_pool_specs(pool: AdapterPool, mp: str = "mp") -> dict:
+    """The specs of the pool's stacked ``[A, ...]`` leaves under tensor
+    parallel, as the JAX package derives them from each target's Megatron
+    spec (``gpt.param_shardings``) with the leading stack axis replicated:
+    ``*_lora_a`` ``[A, ..., in, r]`` keeps the base spec's dims up to the
+    input dim and replicates the rank dim; ``*_lora_b`` ``[A, ..., r,
+    out]`` replicates the rank dim and keeps the base output dim's spec.
+    A column-parallel target gets a replicated ``a`` and an out-split
+    ``b`` — the gathered delta lands split like the base product's output;
+    a row-parallel target mirrors that on the input side, its partial
+    delta summed by the product's own all-reduce."""
+    base = gpt.param_shardings(pool.cfg, mp=mp)["blocks"]
+    specs = {}
+    for t in pool.targets:
+        dims = tuple(base[t])
+        specs[t + lora._SUFFIX_A] = (None, *dims[:-1], None)
+        specs[t + lora._SUFFIX_B] = (None, *dims[:-2], None, dims[-1])
+    return specs
 
 
 # ---------------------------------------------------------------------------

@@ -112,6 +112,7 @@ import torch
 
 from .. import flags as _flags
 from .. import telemetry as _telemetry
+from ..distributed import collective as _collective
 from ..ops import _counts as _launch_counts
 
 __all__ = ["StepSpec", "Binding", "Engine", "ENGINE", "register", "kinds",
@@ -238,6 +239,62 @@ class Binding:
                     tuple(t.data_ptr() for t in _param_leaves(params)),
                     tuple(t.data_ptr() for t in (adapters or {}).values()),
                     tuple(t.data_ptr() for t in (stats or {}).values()))
+
+
+class _ShardCtx:
+    """A tensor-parallel server's placement (the JAX ``_ShardCtx``): the
+    ``mesh`` (``distributed.serving_mesh.ServingMesh``), its ``mp`` axis
+    and optional ``ep`` axis, and the specs its leaves take — ``params``
+    (``generate._decode_param_specs``, or on an MoE config
+    ``moe_serving.moe_decode_param_specs``: experts over ``ep``, replicated
+    under pure tensor parallel), ``cache`` (``generate.sharded_cache_specs``:
+    the Hkv axis of slab and pool over ``mp``, ``tables`` whole) and, with
+    an adapter pool, ``adapters`` (``adapters.stacked_pool_specs``).  The
+    refusals are the JAX server's, in its words.  ``key`` — the axis, the
+    mesh's shape and devices, and ``ep`` when given — joins every step key
+    of the server (through its ``tp_serving.ShardedBinding``), so a sharded
+    server's builds never collide with a single card's and stay visible to
+    the recompile watch.  What JAX's ``_shard_kw`` hands ``jax.jit`` (the
+    in / out shardings) is here each rank's own binding: its blocks of the
+    params, its cache heads."""
+
+    def __init__(self, mesh, cfg, params, cache, mp: str = "mp",
+                 pool=None, ep: str | None = None):
+        from . import generate
+
+        if mp not in mesh.shape:
+            raise ValueError(f"mesh has no {mp!r} axis (axes: "
+                             f"{tuple(mesh.shape)})")
+        if ep is not None:
+            if cfg.moe is None:
+                raise ValueError("ep axis given but cfg.moe is None — "
+                                 "expert parallelism needs experts")
+            if ep not in mesh.shape:
+                raise ValueError(f"mesh has no {ep!r} axis (axes: "
+                                 f"{tuple(mesh.shape)})")
+            if cfg.moe.num_experts % mesh.shape[ep] != 0:
+                raise ValueError(
+                    f"num_experts={cfg.moe.num_experts} not divisible by "
+                    f"ep axis size {mesh.shape[ep]}")
+        self.mesh, self.mp, self.ep = mesh, mp, ep
+        if cfg.moe is not None:
+            from . import moe_serving
+
+            self.params = moe_serving.moe_decode_param_specs(
+                params, cfg, mp=mp, ep=ep)
+        else:
+            self.params = generate._decode_param_specs(params, cfg, mp)
+        self.cache = generate.sharded_cache_specs(cfg, cache, mesh, mp)
+        if pool is not None:
+            from . import adapters
+
+            self.adapters = adapters.stacked_pool_specs(pool, mp=mp)
+        else:
+            self.adapters = None
+        self.key = (mp, tuple(mesh.shape.items()),
+                    tuple(str(d) for d in mesh.devices))
+        if ep is not None:
+            self.key = self.key + (("ep", ep),)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -541,6 +598,27 @@ def _build_spec_tree_commit(spec):
     def body(p, c, src, pos):
         serving.spec_tree_commit_batched(c, src, pos)
         return ()
+    return body
+
+
+@register("sharded_decode",
+          key=lambda s: ("sharded_decode", cfg_key(s.cfg)) + tuple(s.extra),
+          name="generate.sharded_decode")
+def _build_sharded_decode(spec):
+    """``generate.build_sharded_decode``'s step, run on every rank of its
+    binding: (token [B], pos 0-d) -> (logits [B, V],), the cache written
+    in place.  ``extra`` is (layout, block_size): the paged layout takes
+    the block-table step with ``pos`` broadcast to every slot."""
+    from . import generate, kv_pool
+
+    paged = spec.extra[0] == "paged"
+
+    def body(p, c, tok, pos, _cfg=spec.cfg):
+        if paged:
+            pos_b = pos.to(torch.int32).reshape(()).expand(tok.shape[0])
+            return (kv_pool.paged_decode_step_batched(
+                p, c, tok, pos_b.contiguous(), _cfg)[0],)
+        return (generate.decode_step(p, c, tok, pos, _cfg)[0],)
     return body
 
 
@@ -984,7 +1062,8 @@ class _Graph:
     copies its feeds in, without blocking), ``out`` the output tensors a
     replay overwrites — a caller must copy them out before the next
     replay.  ``delta``: the launch counts one replay stands for ({(wrapper,
-    attribute): n}, the capture's ``_counts.held`` tally).  A
+    attribute): n}, the capture's ``_counts.held`` tally), ``coll_delta``
+    the collectives (the capture's ``collective.held`` tally).  A
     capture is reported to the recompile watch; the device feed counts
     its first eager warm run (never the capture) and takes the growth of
     ``torch.cuda.memory_reserved`` across the capture — the graph's
@@ -997,6 +1076,7 @@ class _Graph:
         self.idempotent = idempotent
         self.graph = None
         self.static = self.out = self.delta = None
+        self.coll_delta = {}
         self.replays = 0
         self._keep = ()
 
@@ -1022,10 +1102,12 @@ class _Graph:
         # deltas are taken back, so the replay below is the call's one
         stats, stats0 = self.binding.stats, None
         try:
-            # the warm run's launches are dropped (the replay below is the
-            # call's one), the capture's become the replays' ``delta``:
-            # both tallied on this thread only
-            with torch.cuda.stream(side), _launch_counts.held():
+            # the warm run's launches and collectives are dropped (the
+            # replay below is the call's one), the capture's become the
+            # replays' ``delta`` / ``coll_delta``: all tallied on this
+            # thread only
+            with torch.cuda.stream(side), _launch_counts.held(), \
+                    _collective.held():
                 if stats is not None:
                     stats0 = {n: t.clone() for n, t in stats.items()}
                 kept = (None if self.idempotent
@@ -1052,7 +1134,8 @@ class _Graph:
             # budget) wakes and waits on its event, whenever that is.
             with torch.cuda.graph(graph, stream=side,
                                   capture_error_mode="thread_local"), \
-                    _launch_counts.held() as delta:
+                    _launch_counts.held() as delta, \
+                    _collective.held() as coll:
                 # the context has dropped the allocator's free cache: from
                 # here the reserved memory grows by the graph's private
                 # pool alone (a host query, legal inside a capture)
@@ -1071,7 +1154,9 @@ class _Graph:
         if cost is not None and "count_failed" not in cost:
             cost["temp_bytes"] = max(
                 0, torch.cuda.memory_reserved(dev) - reserved)
-        self.delta = delta
+        # the launches and collectives (a rank of a tensor-parallel
+        # server) a replay stands for
+        self.delta, self.coll_delta = delta, coll
         self.graph, self.out = graph, out
         # buffers the graph reads by address that no binding names: the
         # tick route's ticket buffers (replaced, never freed, while held)
@@ -1095,6 +1180,8 @@ class _Graph:
         self.graph.replay()
         self.replays += 1
         _launch_counts.add(self.delta)
+        if self.coll_delta:
+            _collective.add_stats(self.coll_delta)
         return self.out
 
     def release(self) -> None:
@@ -1158,9 +1245,11 @@ class Engine:
         kind on a card with graphs on; captured at its first call) or
         eager callable.  Either is called with the kind's feeds and
         returns the step's output tensors."""
+        from .tp_serving import ShardedBinding
+
         entry = _REGISTRY[kind]
         bind = spec.payload
-        if not isinstance(bind, Binding):
+        if not isinstance(bind, (Binding, ShardedBinding)):
             raise TypeError(f"{kind}: StepSpec.payload must be the server's "
                             f"Binding, got {type(bind).__name__}")
         key = entry.key(spec) + (bind.key,)
@@ -1169,7 +1258,10 @@ class Engine:
             with self._mu:
                 fn = self._steps.get(key)
                 if fn is None:
-                    if bind.graphs:
+                    if isinstance(bind, ShardedBinding):
+                        # every rank builds (and on NCCL captures) its own
+                        fn = bind.step(kind, spec, entry.name(spec), key)
+                    elif bind.graphs:
                         fn = _Graph(entry.build(spec), bind,
                                     entry.name(spec), key, entry.idempotent)
                     else:

@@ -36,6 +36,7 @@ import numpy as np
 import torch
 
 from . import gpt, woq
+from . import tp_context as _tp
 from .. import flags as _flags
 from .. import resolve_device
 from .. import telemetry as _telemetry
@@ -147,6 +148,7 @@ def _attend_cache(q, full, pos, cfg: gpt.GPTConfig):
     registers).  CPU: the reference's grouped einsum, in the compute
     dtype as the JAX package computes it."""
     B, Tq, H, hd = q.shape
+    full = _tp.kv_view_leaves(full, 2)
     k_all = full["k"]
     if k_all.is_cuda:
         out = da.decode_attention(q.contiguous(), k_all, full["v"], pos,
@@ -167,6 +169,7 @@ def _attend_masked(q, full, mask, cfg: gpt.GPTConfig):
     with -1e30 in fp32, softmax, cast back.  Returns [B, Tq, H*hd]."""
     B, Tq, H, hd = q.shape
     dt = cfg.dtype
+    full = _tp.kv_view_leaves(full, 2)
     k_all, v_all = full["k"], full["v"]
     ks, vs = full.get("k_s"), full.get("v_s")
     if ks is not None:
@@ -217,7 +220,7 @@ def _block_post_attn(x, attn, p, cfg: gpt.GPTConfig, valid=None,
     the occupancy mask, the capacity-factor bound and its accumulator;
     a prefill its pad mask)."""
     dt = cfg.dtype
-    a = woq.mm(attn, p, "proj_w", dt) + p["proj_b"].to(dt)
+    a = _tp.reduce_mp(woq.mm(attn, p, "proj_w", dt)) + p["proj_b"].to(dt)
     return gpt._ffn_tail(x + a, p, cfg, valid=valid, capacity=capacity,
                          stats=stats)
 
@@ -263,6 +266,139 @@ def decode_step(params, cache, token, pos, cfg: gpt.GPTConfig, **ffn):
 
 
 # ---------------------------------------------------------------------------
+# tensor-parallel (sharded) decode — a model split over the ranks of a mesh
+# ---------------------------------------------------------------------------
+
+
+def _decode_param_specs(params, cfg: gpt.GPTConfig, mp: str) -> dict:
+    """The spec tree of ``params`` — float, weight-only int8 / int4
+    (``woq``) or LoRA-adapted — as the JAX package places it: each weight
+    takes its float twin's Megatron spec (``gpt.param_shardings``), the
+    ``*_s`` scales and ``*_lora_a`` / ``*_lora_b`` pairs replicate
+    (``()``).  A rank cuts scales and pairs along their weight's split
+    dims all the same (``tp_serving.local_specs``): JAX reshards them at
+    the product, a rank multiplies its own block."""
+    base = gpt.param_shardings(cfg, mp=mp)
+    blocks = {}
+    for name in params["blocks"]:
+        if name.endswith(("_s", "_lora_a", "_lora_b")):
+            blocks[name] = ()
+        else:
+            blocks[name] = base["blocks"][name]
+    out = {k: (base[k] if k in base else ()) for k in params
+           if k != "blocks"}
+    out["blocks"] = blocks
+    return out
+
+
+def sharded_cache_specs(cfg: gpt.GPTConfig, cache: dict, mesh,
+                        mp: str = "mp") -> dict:
+    """The spec of each cache leaf under tensor parallel — one rule for
+    both layouts: the Hkv axis (axis 3 of the slab ``[L, B, T, Hkv, hd]``
+    and of the pool ``[L, N, bs, Hkv, hd]``, the int8 scale planes too)
+    splits over ``mp`` when ``mp`` divides the kv heads; otherwise the
+    whole cache replicates; the paged ``tables`` leaf always replicates
+    (the host allocator's state)."""
+    n = mesh.shape[mp]
+
+    def spec(name, arr):
+        if name == "tables" or cfg.kv_heads % n:
+            return ()
+        return (None,) * 3 + (mp,) + (None,) * (arr.dim() - 4)
+
+    return {name: spec(name, arr) for name, arr in cache.items()}
+
+
+class ShardedCache(dict):
+    """A sharded cache's leaves (``tp_serving.ShardedTensor`` handles) by
+    name, with the ``binding`` that holds them on the ranks."""
+
+    binding = None
+
+
+def build_sharded_decode(params, cfg: gpt.GPTConfig, mesh, mp: str = "mp",
+                         layout: str | None = None,
+                         block_size: int | None = None):
+    """Megatron-sharded single-token decode over ``mesh``
+    (``distributed.serving_mesh.ServingMesh``), as the JAX package's:
+    returns ``(sharded_params, make_cache, decode_fn)``:
+
+        sharded_params   the params cut over the ranks (a tree of
+                         ``tp_serving.ShardedTensor`` handles)
+        make_cache(B, T, num_blocks=None)   a cache split over the ranks
+        decode_fn(p, cache, token [B], pos) -> (logits [B, V], cache)
+
+    Each rank holds its block of every weight (``_decode_param_specs``;
+    weight-only int8 / int4 trees shard the same way) and of the cache
+    (``sharded_cache_specs``); the step (the Engine's ``sharded_decode``
+    kind) runs on every rank and the logits come back whole.  The cache
+    is updated in place on the ranks and returned as it was given (the
+    JAX step donates it).  ``layout`` (default ``PADDLE_TPU_KV_LAYOUT``)
+    picks slab or pool; ``pos`` is one position for the batch (the pool
+    broadcasts it per slot).  A flag flip after the build —
+    ``PADDLE_TPU_KV_LAYOUT``, ``_KV_BLOCK``, ``_KV_DTYPE`` — makes
+    ``make_cache`` raise.  MoE is refused (``DecodeServer(mesh=,
+    ep_axis=)`` serves it)."""
+    from . import engine, tp_serving
+
+    if cfg.moe is not None:
+        raise NotImplementedError("sharded decode supports dense models")
+    lay = _flags.kv_layout() if layout is None else layout
+    if lay not in ("contiguous", "paged"):
+        raise ValueError(f"layout {lay!r}: expected 'contiguous' or "
+                         f"'paged'")
+    bs = None
+    if lay == "paged":
+        bs = _flags.kv_block_size() if block_size is None \
+            else int(block_size)
+    template = init_cache(cfg, 1, 1, "meta", layout=lay, block_size=bs)
+    shard = engine._ShardCtx(mesh, cfg, params, template, mp)
+    sp = tp_serving.ShardedParams(params, cfg, mesh, shard.params, mp)
+
+    def make_cache(batch: int, max_len: int, num_blocks: int | None = None):
+        # the flag-derived layout and block size were pinned at build (an
+        # explicit argument is the caller's own): a flip since then fails
+        # loudly instead of serving two layouts at once
+        if layout is None and _flags.kv_layout() != lay:
+            raise ValueError(
+                f"PADDLE_TPU_KV_LAYOUT changed since "
+                f"build_sharded_decode (built {lay!r}, flag now "
+                f"{_flags.kv_layout()!r}); rebuild the sharded decoder")
+        if lay == "paged" and block_size is None \
+                and _flags.kv_block_size() != bs:
+            raise ValueError(
+                f"PADDLE_TPU_KV_BLOCK changed since "
+                f"build_sharded_decode (built {bs}, flag now "
+                f"{_flags.kv_block_size()}); rebuild the sharded "
+                f"decoder")
+        fresh = init_cache(cfg, batch, max_len, "meta", layout=lay,
+                           block_size=bs, num_blocks=num_blocks)
+        if set(fresh) != set(shard.cache):
+            raise ValueError(
+                "PADDLE_TPU_KV_DTYPE changed since build_sharded_decode "
+                f"(built {sorted(shard.cache)}, now {sorted(fresh)}); "
+                "rebuild the sharded decoder")
+        nb = fresh["k"].shape[1] - 1 if lay == "paged" else None
+        bind = tp_serving.ShardedBinding(shard, sp, fresh, lay, batch,
+                                         max_len, bs, nb)
+        out = ShardedCache(bind.cache)
+        out.binding = bind
+        return out
+
+    def decode_fn(p, cache, token, pos):
+        if p is not sp.tree:
+            raise ValueError("decode_fn takes the sharded_params of its "
+                             "own build_sharded_decode")
+        fn = engine.ENGINE.get("sharded_decode", engine.StepSpec(
+            cfg=cfg, extra=(lay, bs), payload=cache.binding))
+        (logits,) = fn(torch.as_tensor(token).long(),
+                       torch.as_tensor(pos).long().reshape(()))
+        return logits, cache
+
+    return sp.tree, make_cache, decode_fn
+
+
+# ---------------------------------------------------------------------------
 # whole-prompt prefill
 # ---------------------------------------------------------------------------
 
@@ -289,8 +425,9 @@ def _prefill_block(x, p, cfg: gpt.GPTConfig, valid=None):
         v_att = da.dequantize_kv(rows["v"], rows["v_s"], dt)
     else:
         k_att, v_att = rows["k"].to(dt), rows["v"].to(dt)
-    attn = attention_array(q, k_att, v_att, is_causal=True).reshape(B, P, D)
-    a = woq.mm(attn, p, "proj_w", dt) + p["proj_b"].to(dt)
+    k_att, v_att = _tp.kv_view(k_att, 2), _tp.kv_view(v_att, 2)
+    attn = attention_array(q, k_att, v_att, is_causal=True).reshape(B, P, -1)
+    a = _tp.reduce_mp(woq.mm(attn, p, "proj_w", dt)) + p["proj_b"].to(dt)
     return gpt._ffn_tail(x + a, p, cfg, valid=valid), rows
 
 

@@ -31,6 +31,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from . import moe as _moe
+from . import tp_context as _tp_context
 from . import woq
 from .. import flags, resolve_device, rng
 from ..ops import remat_policies
@@ -293,7 +294,10 @@ def apply_rope(x, positions, base: float = 10000.0):
 
 def _heads(cfg: GPTConfig, tp):
     """(query heads, kv heads) of the weights at hand: the config's, or a
-    tensor-parallel rank's local ones."""
+    tensor-parallel rank's local ones (``tp``, or a serving rank's
+    ``tp_context``)."""
+    if tp is None:
+        tp = _tp_context.current()
     if tp is None:
         return cfg.num_heads, cfg.kv_heads
     return tp.heads, tp.kv_heads
@@ -340,6 +344,8 @@ def _ffn_body(h, p, cfg: GPTConfig, tp=None):
         h = F.gelu(woq.mm(h, p, "fc_w", dt) + p["fc_b"].to(dt),
                    approximate="tanh")
     y = woq.mm(h, p, "out_w", dt)
+    if tp is None:
+        tp = _tp_context.current()
     if tp is not None:
         y = tp.exit(y)
     return y + p["out_b"].to(dt)

@@ -58,6 +58,7 @@ import numpy as np
 import torch
 
 from . import generate, gpt, woq
+from . import tp_context as _tp
 from .. import flags as _flags
 from .. import resolve_device
 from .. import telemetry as _telemetry
@@ -196,6 +197,7 @@ def _attend_pool(q, pool_l: dict, tables, pos, cfg: gpt.GPTConfig):
     package's own route off its kernel."""
     B, Tq, H, hd = q.shape
     if pool_l["k"].is_cuda:
+        pool_l = _tp.kv_view_leaves(pool_l, 2)
         out = da.paged_decode_attention(
             q.contiguous(), pool_l["k"], pool_l["v"], tables, pos,
             k_scale=pool_l.get("k_s"), v_scale=pool_l.get("v_s"))

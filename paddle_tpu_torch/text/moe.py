@@ -50,6 +50,7 @@ import torch.nn.functional as F
 
 from .. import resolve_device, rng
 from ..distributed import collective as _C
+from . import tp_context as _tp_context
 from . import woq
 
 
@@ -181,18 +182,29 @@ def _aux_loss(probs, gate_idx, experts, cfg: MoEConfig, v=None):
     return E * torch.sum(fe * me) * cfg.aux_loss_weight
 
 
-def _experts(params, disp, comb, xf, dt):
-    """Dispatch -> every expert's FFN on its [C, D] buffer (tanh-gelu) ->
-    combine: y [N, D] in ``dt``.  Weights resolve through ``woq.w`` (a
-    cast of float experts, the dequantized int8 / int4 stacks)."""
+def _experts(params, disp, comb, xf, dt, down=None, bias: bool = True,
+             comb_dt=None):
+    """Dispatch -> each expert's FFN on its [C, D] buffer (tanh-gelu) ->
+    combine: disp [N, E, C] (bool or ``dt``), comb [N, E, C] float32 over
+    the experts ``params`` holds (all of them, or a rank's E/ep block with
+    F/mp of each one's columns) -> y [N, D].  ``down`` runs on the down
+    product before ``b_out`` (a training rank's all-reduce over mp),
+    ``bias=False`` leaves ``b_out`` out (a serving rank off mp coordinate
+    0), and the combine runs in ``comb_dt`` (None: ``dt``).  Weights
+    resolve through ``woq.w`` (a cast of float experts, the dequantized
+    int8 / int4 stacks)."""
     N, E, C = disp.shape
     D = xf.shape[-1]
-    xin = (disp.reshape(N, E * C).T @ xf).reshape(E, C, D)
+    xin = (disp.to(dt).reshape(N, E * C).T @ xf).reshape(E, C, D)
     h = F.gelu(torch.bmm(xin, woq.w(params, "w_in", dt))
                + params["b_in"].to(dt)[:, None], approximate="tanh")
-    out = torch.bmm(h, woq.w(params, "w_out", dt)) \
-        + params["b_out"].to(dt)[:, None]
-    return comb.to(dt).reshape(N, E * C) @ out.reshape(E * C, D)
+    out = torch.bmm(h, woq.w(params, "w_out", dt))
+    if down is not None:
+        out = down(out)
+    if bias:
+        out = out + params["b_out"].to(dt)[:, None]
+    cd = dt if comb_dt is None else comb_dt
+    return comb.to(cd).reshape(N, E * C) @ out.reshape(E * C, D).to(cd)
 
 
 def _delta(disp, valid, k: int):
@@ -224,13 +236,48 @@ def moe_tail(params, x, cfg: MoEConfig, valid=None, capacity=None,
     capacity-factor bound over the call's tokens).  ``stats`` — a
     ``{"dropped": int32 [], "load": int32 [E]}`` accumulator
     (``moe_serving.moe_stats_init``) — takes this call's routing delta
-    IN PLACE, so a captured step adds to the tensors it was bound to."""
+    IN PLACE, so a captured step adds to the tensors it was bound to.
+    On a tensor-parallel serving rank (``tp_context``) the experts are
+    the rank's block: :func:`_moe_tail_sharded`."""
+    ctx = _tp_context.current()
+    if ctx is not None and (ctx.n_ep > 1 or ctx.n_mp > 1):
+        return _moe_tail_sharded(params, x, cfg, ctx, valid, capacity,
+                                 stats)
     y, disp, _ = _moe(params, x, cfg, None, valid, capacity, aux=False)
     if stats is not None:
         dropped, kept = _delta(disp, valid, cfg.top_k)
         stats["dropped"].add_(dropped)
         stats["load"].add_(kept)
     return y
+
+
+def _moe_tail_sharded(params, x, cfg: MoEConfig, ctx, valid, capacity,
+                      stats):
+    """:func:`moe_tail` on a serving rank holding experts [e0, e0 + E/ep)
+    and F/mp of each one's FFN columns (``moe_decode_rules``).  The router
+    is whole on every rank and x the same on each, so every rank routes
+    the call's tokens jointly and identically: the same capacity slots,
+    the same drop and load counts (``stats`` — the host reads one rank's
+    copy).  Each rank dispatches to its own experts, runs its columns,
+    adds ``b_out`` on the mp coordinate 0 only and combines its part in
+    float32; one float32 all-reduce over (ep, mp) sums the parts, rounded
+    to the compute dtype once (as one card's combine product is)."""
+    shape = x.shape
+    D = shape[-1]
+    xf = x.reshape(-1, D)
+    dt = x.dtype
+    C = (int(capacity) if capacity is not None
+         else expert_capacity(xf.shape[0], cfg))
+    disp, comb, _ = _route(params, xf, cfg, None, cfg.num_experts, C, dt,
+                           valid=valid, aux=False)
+    if stats is not None:
+        dropped, kept = _delta(disp, valid, cfg.top_k)
+        stats["dropped"].add_(dropped)
+        stats["load"].add_(kept)
+    e0, El = ctx.e0, params["w_in"].shape[0]
+    y = _experts(params, disp[:, e0:e0 + El], comb[:, e0:e0 + El], xf, dt,
+                 bias=ctx.r_mp == 0, comb_dt=torch.float32)
+    return ctx.reduce_experts(y).to(dt).reshape(shape)
 
 
 def moe_ffn(params, x, cfg: MoEConfig, key=None, valid=None,
@@ -328,14 +375,9 @@ def moe_ffn_manual(params, x, cfg: MoEConfig, mesh=None,
     mine = gate_idx[..., None] == torch.arange(e0, e0 + E_local, device=dev)
     disp, comb = _cells(mine, pos, gate_w, C)          # [n, E_local, C]
     xe = xf if mesh is None else _C.copy_to(xf, mesh, (ep_axis, mp_axis))
-    xin = (disp.to(dt).reshape(n, E_local * C).T @ xe).reshape(E_local, C, D)
-    h = F.gelu(torch.bmm(xin, woq.w(params, "w_in", dt))
-               + params["b_in"].to(dt)[:, None], approximate="tanh")
-    out = torch.bmm(h, woq.w(params, "w_out", dt))
-    if mesh is not None:
-        out = _C.reduce_from(out, mesh, mp_axis)
-    out = out + params["b_out"].to(dt)[:, None]
-    y = comb.to(dt).reshape(n, E_local * C) @ out.reshape(E_local * C, D)
+    y = _experts(params, disp, comb, xe, dt,
+                 down=(None if mesh is None
+                       else lambda o: _C.reduce_from(o, mesh, mp_axis)))
     if mesh is not None:
         y = _C.reduce_from(y, mesh, ep_axis)
     return y.reshape(shape), aux

@@ -27,8 +27,15 @@ At a dropless capacity factor (cf >= E / top_k, so C >= B) the joint
 step's tokens equal per-slot solo routing, and every dispatch mode on
 either layout equals the reference; below it batch-mates contend, and
 a block (whose occupancy is frozen at dispatch) may differ from ticks.
-The regex partition rules and expert parallelism are multi-card work,
-not ported yet.
+* **Regex partition rules** (:func:`match_partition_rules`,
+  :func:`moe_decode_rules`, :func:`moe_decode_param_specs`): the
+  ``generate._decode_param_specs`` placements generalized to the
+  ``blocks/moe/*`` leaves with an explicit ``ep`` axis — first matching
+  regex wins, scalars replicate, no match is an error.  A spec is the
+  port's tuple (``gpt.param_shardings``).  A tensor-parallel server
+  (``DecodeServer(mesh=, ep_axis=)``) cuts its experts by them: each rank
+  holds E/ep experts and F/mp of each one's FFN columns
+  (``text/tp_serving.py``).
 """
 from __future__ import annotations
 
@@ -37,7 +44,74 @@ import torch.nn.functional as F
 
 from .. import resolve_device
 from .. import telemetry as _telemetry
+from ..distributed import sharding_rules
 from . import generate, gpt, kv_pool, moe, woq
+
+
+# -- regex partition rules -------------------------------------------------
+
+
+def match_partition_rules(rules, tree, sep: str = "/"):
+    """A spec per leaf of ``tree`` (nested dicts) by regex table:
+    ``sharding_rules.match_sharding_rules``, strict, with the reference's
+    scalar test (a 0-d leaf replicates before the table is consulted)
+    and its error naming the leaf no rule covers."""
+    return sharding_rules.match_sharding_rules(
+        rules, tree, sep=sep, one_element=False,
+        unmatched="no partition rule matches param {name!r} — extend "
+                  "moe_decode_rules (silent replication would hide a "
+                  "sharding bug)")
+
+
+def moe_decode_rules(cfg: gpt.GPTConfig, mp: str | None = "mp",
+                     ep: str | None = None) -> list:
+    """The decode-param rule table: dense leaves carry exactly
+    ``generate._decode_param_specs``'s placements (Megatron column / row,
+    scales and LoRA pairs replicated, the vocab-parallel embedding) and
+    the ``blocks/moe/*`` leaves ``moe.moe_param_shardings``'s with the
+    caller's axes — ``ep=None`` replicates the expert dim (pure tensor
+    parallel over an MoE model).  Scales and LoRA pairs match first, so
+    ``w_in_s`` never takes ``w_in``'s spec."""
+    l = None       # decode params have no pipeline axis
+    return [
+        (r"_s$", ()),
+        (r"_lora_[ab]$", ()),
+        (r"blocks/moe/router_w$", (l, None, None)),
+        (r"blocks/moe/w_in$", (l, ep, None, mp)),
+        (r"blocks/moe/b_in$", (l, ep, mp)),
+        (r"blocks/moe/w_out$", (l, ep, mp, None)),
+        (r"blocks/moe/b_out$", (l, ep, None)),
+        (r"blocks/ln[12]_[gb]$", (l, None)),
+        (r"blocks/qkv_w$", (l, None, None, mp)),
+        (r"blocks/qkv_b$", (l, None, mp)),
+        (r"blocks/q_w$", (l, None, mp)),
+        (r"blocks/q_b$", (l, mp)),
+        (r"blocks/kv_w$", (l, None, None, mp)),
+        (r"blocks/kv_b$", (l, None, mp)),
+        (r"blocks/proj_w$", (l, mp, None)),
+        (r"blocks/proj_b$", (l, None)),
+        (r"blocks/fc_w$", (l, None, mp)),
+        (r"blocks/fc_b$", (l, mp)),
+        (r"blocks/gate_w$", (l, None, mp)),
+        (r"blocks/gate_b$", (l, mp)),
+        (r"blocks/out_w$", (l, mp, None)),
+        (r"blocks/out_b$", (l, None)),
+        (r"^wte$", (mp, None)),
+        (r"^wpe$", (None, None)),
+        (r"^ln_f_[gb]$", (None,)),
+    ]
+
+
+def moe_decode_param_specs(params, cfg: gpt.GPTConfig, mp: str = "mp",
+                           ep: str | None = None):
+    """The spec tree of ``params`` resolved through
+    :func:`moe_decode_rules` — on a dense model equal to
+    ``generate._decode_param_specs`` leaf for leaf."""
+    return match_partition_rules(moe_decode_rules(cfg, mp=mp, ep=ep),
+                                 params)
+
+
+# -- device-side routing stats ---------------------------------------------
 
 
 def moe_stats_init(num_experts: int, device=None) -> dict:
@@ -57,8 +131,8 @@ def drain_drop_stats(stats, counted: int = 0, tel: bool = True):
     exact and monotone), ``moe.expert_load{expert=e}`` gauges each
     expert's cumulative kept assignments.  Returns ``(dropped_total,
     load_list)`` as host ints."""
-    dropped = int(stats["dropped"].item())
-    load = [int(v) for v in stats["load"].tolist()]
+    dropped = int(_host(stats["dropped"]).item())
+    load = [int(v) for v in _host(stats["load"]).tolist()]
     if tel:
         delta = dropped - int(counted)
         if delta > 0:
@@ -66,6 +140,12 @@ def drain_drop_stats(stats, counted: int = 0, tel: bool = True):
         for e, n in enumerate(load):
             _telemetry.set_gauge(f"moe.expert_load{{expert={e}}}", n)
     return dropped, load
+
+
+def _host(t):
+    """A tensor, or a tensor-parallel server's replicated leaf read from
+    its first rank (``tp_serving.ShardedTensor.fetch``)."""
+    return t.fetch() if hasattr(t, "fetch") else t
 
 
 def moe_decode_step_batched(params, cache, token, pos, act, stats,

@@ -477,7 +477,15 @@ class DecodeServer:
     JAX server's words.  The resilience switches (TTLs, the OOM ladder,
     the spill tier, the wedge watchdog, the NaN guard: module note) and
     admission control's (``PADDLE_TPU_ADMISSION`` and its knobs) are read
-    from the environment at construction.  ``metrics_port`` starts the telemetry endpoint
+    from the environment at construction.  ``mesh`` (a
+    ``distributed.serving_mesh.ServingMesh``, exclusive with ``device``)
+    splits the model over the mesh's ranks (``text/tp_serving.py``):
+    weights and the KV cache's Hkv axis over ``mp_axis``, an MoE model's
+    experts over ``ep_axis`` when given (refused without a mesh, on a dense
+    config, or where it does not divide the experts), every step run on
+    every rank; ``params`` then may live anywhere (they are cut on the host)
+    or be a tree already cut over the mesh (``tp_serving.shard_params``),
+    and ``cache`` / ``params`` are the ranks' handles.  ``metrics_port`` starts the telemetry endpoint
     (``telemetry.serve_metrics``; 0 takes a free port,
     ``self.metrics_server.port``), closed with the server.  A server is a
     context manager: leaving the ``with`` block closes it.
@@ -497,9 +505,22 @@ class DecodeServer:
                  metrics_port: int | None = None,
                  spec_k: int | None = None, draft_cfg=None,
                  draft_params=None, spec_tree: int | None = None,
-                 adapter_pool=None, _graphs: bool = True):
-        self.device = resolve_device(device)
-        if params["wte"].device != self.device:
+                 adapter_pool=None, mesh=None, mp_axis: str = "mp",
+                 ep_axis: str | None = None, _graphs: bool = True):
+        if ep_axis is not None and mesh is None:
+            raise ValueError("ep_axis requires mesh= (expert parallelism "
+                             "is a mesh placement)")
+        if mesh is not None and device is not None:
+            raise ValueError("mesh= and device= are mutually exclusive "
+                             "(TP server vs pinned single-chip replica)")
+        # a tensor-parallel server (module note) keeps its host feeds and
+        # fetched outputs on the CPU; its ranks hold the model
+        self._mesh = mesh
+        self._shard = self._draft_shard = None
+        self._own_params: list = []     # per ShardedParams made here
+        self.device = (torch.device("cpu") if mesh is not None
+                       else resolve_device(device))
+        if mesh is None and params["wte"].device != self.device:
             raise ValueError(f"params live on {params['wte'].device}, the "
                              f"server was asked to run on {self.device}")
         if max_batch < 1 or max_len < 1:
@@ -549,8 +570,12 @@ class DecodeServer:
                 f"layout {lay!r}: expected 'contiguous' or 'paged'")
         self._paged = lay == "paged"
         self.cache = generate.init_cache(
-            cfg, max_batch, max_len, self.device, layout=lay,
+            cfg, max_batch, max_len,
+            "meta" if mesh is not None else self.device, layout=lay,
             block_size=block_size, num_blocks=num_blocks)
+        if mesh is not None:
+            self._shard_target(params, cfg, mesh, mp_axis, ep_axis,
+                               adapter_pool, lay, _graphs)
         # the host allocator mirrors the built pool's geometry; with the
         # spill tier on, its host memory is pinned here, once
         self._pool = (kv_pool.PagedAllocator(
@@ -559,28 +584,34 @@ class DecodeServer:
         # a draft cache shares the allocator, and spilled target rows
         # alone would leave the draft's rows of those blocks stale on
         # restore: with a draft the evict rung drops instead of spilling
+        # (a tensor-parallel server has no spill tier yet: its evict rung
+        # drops, as with a draft)
         self._spill_slots = (kv_pool.SpillSlots(
             self.cache, self._pool.spill_limit_bytes,
             pin=self.device.type == "cuda")
             if self._paged and self._pool.spill_limit_bytes
-            and self.draft_cfg is None else None)
-        # an MoE server's routing accumulator, which its joint steps add
-        # into (bound to its graphs like the cache), and the drops
-        # already published (the drain's high-water mark)
-        self._moe_stats = (moe_serving.moe_stats_init(
-            cfg.moe.num_experts, self.device) if cfg.moe is not None
-            else None)
+            and self.draft_cfg is None and mesh is None else None)
         self._moe_counted = 0
-        # what every step of this server is bound to (text/engine.py)
-        self._bind = engine.Binding(
-            params, self.cache, graphs=_graphs, stats=self._moe_stats,
-            adapters=(adapter_pool.stacks() if adapter_pool is not None
-                      else None))
+        if mesh is None:
+            # an MoE server's routing accumulator, which its joint steps
+            # add into (bound to its graphs like the cache), and the drops
+            # already published (the drain's high-water mark)
+            self._moe_stats = (moe_serving.moe_stats_init(
+                cfg.moe.num_experts, self.device) if cfg.moe is not None
+                else None)
+            # what every step of this server is bound to (text/engine.py)
+            self._bind = engine.Binding(
+                params, self.cache, graphs=_graphs, stats=self._moe_stats,
+                adapters=(adapter_pool.stacks() if adapter_pool is not None
+                          else None))
         # the draft's twin cache, bound to its own steps: on the paged
         # layout a second pool of the target's geometry whose ``tables``
         # leaf IS the target's (one push, one allocator for both)
         self._draft_cache = self._draft_bind = None
-        if self.draft_cfg is not None:
+        if self.draft_cfg is not None and mesh is not None:
+            self._shard_draft(draft_params, mesh, mp_axis, max_batch,
+                              max_len, _graphs)
+        elif self.draft_cfg is not None:
             if self._paged:
                 n_blocks, bs, _ = kv_pool._geometry(self.cache)
                 self._draft_cache = kv_pool.init_paged_cache(
@@ -642,6 +673,75 @@ class DecodeServer:
         self.metrics_server = (_telemetry.serve_metrics(metrics_port)
                                if metrics_port is not None else None)
 
+    def _shard_target(self, params, cfg, mesh, mp, ep, pool, lay,
+                      graphs) -> None:
+        """A tensor-parallel server's placement (``text/tp_serving.py``):
+        the JAX server's refusals (``engine._ShardCtx``), the params cut
+        over the ranks, its cache made there — ``self.cache`` and
+        ``self.params`` become handles — and the binding every step runs
+        on, an MoE server's routing accumulator with it."""
+        from . import tp_serving
+
+        self._shard = engine._ShardCtx(mesh, cfg, params, self.cache, mp,
+                                       pool=pool, ep=ep)
+        self._sparams = self._placed(params, cfg, mesh, self._shard, mp, ep)
+        bs = int(self.cache["k"].shape[2]) if lay == "paged" else None
+        nb = int(self.cache["k"].shape[1]) - 1 if lay == "paged" else None
+        self._bind = tp_serving.ShardedBinding(
+            self._shard, self._sparams, self.cache, lay, self.max_batch,
+            self.max_len, bs, nb, graphs=graphs, adapters=pool)
+        self.cache = self._bind.cache
+        self.params = self._sparams.tree
+        self._moe_stats = self._bind.stats
+
+    def _placed(self, params, cfg, mesh, shard, mp, ep):
+        """The params on the ranks: a handle tree already cut over this mesh
+        for this config and these axes (``tp_serving.shard_params``) as it
+        is, else cut and sent now — and then released with the server
+        (``self._own_params``)."""
+        from . import tp_serving
+
+        sp = tp_serving.ShardedParams.of(params)
+        if sp is None:
+            self._own_params.append(True)
+            return tp_serving.ShardedParams(params, cfg, mesh, shard.params,
+                                            mp, ep)
+        if sp.mesh is not mesh or sp.cfg != cfg or (sp.mp, sp.ep) != (mp,
+                                                                      ep):
+            raise ValueError(
+                "sharded params were cut for another mesh, config or axes "
+                f"(mp={sp.mp!r}, ep={sp.ep!r}) than this server's")
+        self._own_params.append(False)
+        return sp
+
+    def _shard_draft(self, draft_params, mesh, mp, max_batch, max_len,
+                     graphs) -> None:
+        """The draft twin of a tensor-parallel server: its own shard
+        context and params over the same mesh, its cache made on the
+        ranks (paged: a pool of the target's geometry reading the
+        target's ``tables``)."""
+        from . import tp_serving
+
+        lay = "paged" if self._paged else "contiguous"
+        bs = nb = None
+        if self._paged:
+            nb, bs, _ = kv_pool._geometry(self.cache)
+        tmpl = generate.init_cache(self.draft_cfg, max_batch, max_len,
+                                   "meta", layout=lay, block_size=bs,
+                                   num_blocks=nb)
+        self._draft_shard = engine._ShardCtx(mesh, self.draft_cfg,
+                                             draft_params, tmpl, mp)
+        self._draft_sparams = self._placed(draft_params, self.draft_cfg,
+                                           mesh, self._draft_shard, mp, None)
+        self._draft_bind = tp_serving.ShardedBinding(
+            self._draft_shard, self._draft_sparams, tmpl, lay, max_batch,
+            max_len, bs, nb, share_tables=self._bind if self._paged else None,
+            graphs=graphs)
+        self._draft_cache = dict(self._draft_bind.cache)
+        if self._paged:
+            self._draft_cache["tables"] = self.cache["tables"]
+        self._draft_params = self._draft_sparams.tree
+
     def _check_pool(self, pool, params, cfg) -> None:
         """An adapter pool's checks, in the JAX server's words: a dense
         model, the pool's own config, no tree speculation, and params
@@ -667,7 +767,7 @@ class DecodeServer:
                 "params already carry lora leaves — merge or strip "
                 "them before attaching an adapter_pool (the pool's "
                 "gathered delta would stack on top of them)")
-        if pool.device != self.device:
+        if self._mesh is None and pool.device != self.device:
             raise ValueError(f"the adapter pool lives on {pool.device}, the "
                              f"server runs on {self.device}")
 
@@ -723,7 +823,8 @@ class DecodeServer:
             if draft_cfg.max_seq_len < window:
                 raise ValueError(f"draft max_seq_len {draft_cfg.max_seq_len}"
                                  f" < serving window {window}")
-            if draft_params["wte"].device != self.device:
+            if self._mesh is None and \
+                    draft_params["wte"].device != self.device:
                 raise ValueError(f"draft params live on "
                                  f"{draft_params['wte'].device}, the server "
                                  f"runs on {self.device}")
@@ -3318,7 +3419,11 @@ class DecodeServer:
                 try:
                     out = fn()
                 except Exception as e:  # noqa: BLE001 - classified below
-                    if _resilience.is_oom(e) and self._oom_degrade(e):
+                    # a failed rank (``RankFailure``) ends the mesh: no
+                    # rung of the ladder can help it
+                    if (_resilience.is_oom(e) and not getattr(e, "fatal",
+                                                             False)
+                            and self._oom_degrade(e)):
                         continue
                     raise
                 if self._wedged and not self._wedge_event:
@@ -3838,6 +3943,16 @@ class DecodeServer:
                 # by binding alone: a routing flag flipped since a capture
                 # changed its config key, not what it holds
                 engine.ENGINE.purge(binding=bind)
+                if self._mesh is not None:
+                    # the ranks' steps, graphs and cache (nothing to ask of
+                    # a broken mesh: its ranks are being stopped)
+                    bind.release()
+        if self._mesh is not None:
+            for sp, own in zip((getattr(self, "_sparams", None),
+                                getattr(self, "_draft_sparams", None)),
+                               self._own_params):
+                if own:
+                    sp.release()
         self._bind = self._draft_bind = None
         self.cache = self._draft_cache = None
         if self._paged:

@@ -38,6 +38,7 @@ from __future__ import annotations
 import torch
 
 from .. import flags
+from . import tp_context as _tp
 from ..ops.woq_matmul import unpack_int4, w4_matmul
 
 # block-level matmul weights and the OUTPUT-channel axis to scale over
@@ -249,20 +250,39 @@ def mm_stacked(h, p, name: str, dt):
 
 
 def embed(params, token, dt):
-    """wte[token] in the compute dtype, times its row scale if int8."""
-    e = params["wte"][token].to(dt)
+    """wte[token] in the compute dtype, times its row scale if int8.  On a
+    tensor-parallel rank whose ``wte`` (and ``wte_s``) hold a vocab shard
+    (``tp_context``): the rank looks up the tokens it owns, zeros the
+    rest, and one all-reduce over ``mp`` assembles the rows (one nonzero
+    term a row: exact in any dtype)."""
+    ctx = _tp.current()
+    if ctx is None or not ctx.vocab_split:
+        e = params["wte"][token].to(dt)
+        if params["wte"].dtype == torch.int8:
+            e = e * params["wte_s"][token].to(dt)
+        return e
+    vps = ctx.vocab_per_shard
+    local = token - ctx.r_mp * vps
+    ok = (local >= 0) & (local < vps)
+    local = local.clamp(0, vps - 1)
+    e = params["wte"][local].to(dt)
     if params["wte"].dtype == torch.int8:
-        e = e * params["wte_s"][token].to(dt)
-    return e
+        e = e * params["wte_s"][local].to(dt)
+    e = torch.where(ok[..., None], e, torch.zeros((), dtype=dt,
+                                                  device=e.device))
+    return ctx.exit(e)
 
 
 def logits(x, params, dt):
     """Tied-head logits x @ wte.T; int8 per-row wte scales apply on the
-    [..., V] output (they factor out of the contraction)."""
+    [..., V] output (they factor out of the contraction).  On a
+    tensor-parallel rank with a vocab shard the [..., V/mp] block is
+    all-gathered to the whole vocabulary (``tp_context``)."""
     y = x @ params["wte"].to(dt).T
     if params["wte"].dtype == torch.int8:
         y = y * params["wte_s"].reshape(-1).to(dt)
-    return y
+    ctx = _tp.current()
+    return y if ctx is None else ctx.gather_vocab(y)
 
 
 def is_quantized(params) -> bool:

@@ -74,10 +74,13 @@ def main_prompts(vocab_size: int, seed: int = 0) -> list:
 def make_server(path: str, params, cfg, device="cuda", **kw):
     """A server of ``path`` ("main", "w4" or "paged") at its geometry on
     ``params``; ``kw`` adds server options (``async_dispatch``, or the
-    private ``_graphs=False`` that runs the steps eagerly) or overrides
-    the geometry's (``num_blocks``)."""
+    private ``_graphs=False`` that runs the steps eagerly; ``mesh=`` for a
+    tensor-parallel server, which takes no ``device``) or overrides the
+    geometry's (``num_blocks``)."""
     geometry = PAGED_GEOMETRY if path == "paged" else dict(max_batch=8,
                                                            max_len=512)
+    if kw.get("mesh") is not None:
+        device = None
     return serving.DecodeServer(params, cfg, device=device,
                                 **{**geometry, **kw})
 

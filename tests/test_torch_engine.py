@@ -54,6 +54,7 @@ _READS = {"step": {"paged"}, "sample": {"paged"}, "async": {"paged"},
           "kv_copy": {"k"},
           "spec_verify": {"paged", "k"}, "spec_tree_verify": {"paged", "k"},
           "spec_tree_commit": {"paged", "k"}, "generate": {"extra"},
+          "sharded_decode": {"extra"},
           "beam": {"extra"}, "moe_step": {"paged"}, "moe_sample": {"paged"},
           "moe_block": {"paged", "k"}, "moe_async": {"paged"},
           "moe_prefill": {"bucket"}, "moe_prefill_chunk": {"width"},

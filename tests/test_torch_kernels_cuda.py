@@ -2353,3 +2353,99 @@ def test_hybrid_sp_ep_ranks_share_one_card():
                 sp_rank=c.get("sp", 0), zigzag=kw.get("sp_zigzag", False))
             assert all(step == want for step in r[i]["launches"]), \
                 (mesh, r[i]["rank"], r[i]["launches"][0], want)
+
+
+# ---------------------------------------------------------------------------
+# tensor-parallel serving: DecodeServer(mesh=) over rank processes
+# ---------------------------------------------------------------------------
+
+def _tp_serve(srv, prompts, new=16):
+    rids = [srv.submit(p, max_new_tokens=new) for p in prompts]
+    ticks = 0
+    while srv.pending():
+        srv.tick()
+        ticks += 1
+    return [srv.result(r) for r in rids], ticks
+
+
+def _tp_case(device, shape, graphs_expected):
+    """A small fp32 model (head_dim 128, GQA 4/2) served by a mesh= server
+    of ``shape`` on ``device``'s placement and by one card's server:
+    the same greedy streams; each rank's launches — #1 on admission, #9
+    (contiguous) or #10 (paged) on the tick body once a layer a tick —
+    exact; on NCCL one step replay a tick per rank, no capture after
+    warmup."""
+    import numpy as np
+
+    from paddle_tpu_torch.distributed import serving_mesh
+    from paddle_tpu_torch.ops import _build
+    from paddle_tpu_torch.text import serving
+
+    _build.build_all()
+    cfg = gpt.GPTConfig(vocab_size=512, hidden_size=512, num_layers=2,
+                        num_heads=4, num_kv_heads=2, max_seq_len=256,
+                        pos_embed="rope", activation="swiglu",
+                        dtype=torch.float32)
+    params = gpt.init_params(cfg, seed=11, device="cuda")
+    rng = np.random.default_rng(6)
+    prompts = [rng.integers(0, cfg.vocab_size, n).tolist()
+               for n in (7, 60, 100)]
+    size = 1
+    for v in shape.values():
+        size *= v
+    pool = serving_mesh.RankPool(size, device=device, timeout_s=300.0)
+    mod = "paddle_tpu_torch.text.tp_serving"
+    try:
+        mesh = pool.mesh(shape)
+        assert (pool.transport == "nccl") == graphs_expected
+        for layout in ("contiguous", "paged"):
+            lay = (dict(layout="paged", block_size=16, num_blocks=48)
+                   if layout == "paged" else {})
+            one = serving.DecodeServer(params, cfg, max_batch=4,
+                                       max_len=160, device="cuda", **lay)
+            ref, _ = _tp_serve(one, prompts)
+            one.close()
+            srv = serving.DecodeServer(params, cfg, max_batch=4, max_len=160,
+                                       mesh=mesh, **lay)
+            srv.warmup(prompt_lens=[len(p) for p in prompts])
+            g0 = pool.call(mesh.members, f"{mod}:rank_graphs", srv._bind.bid)
+            pool.call(mesh.members, f"{mod}:rank_reset_counts")
+            got, ticks = _tp_serve(srv, prompts)
+            counts = srv._bind.counts()
+            g1 = pool.call(mesh.members, f"{mod}:rank_graphs", srv._bind.bid)
+            srv.close()
+            assert got == ref, (layout, got, ref)
+            L = cfg.num_layers
+            for c in counts:
+                assert c == counts[0]
+            c = counts[0]
+            if layout == "contiguous":
+                assert c["flash_attention_fwd.launches"] == L * len(prompts)
+                assert c["decode_attention.launches"] == L * ticks
+                assert c["decode_attention.tick_launches"] == L * ticks
+            else:
+                assert c["decode_attention.launches"] == 0
+                assert c["paged_decode_attention.tick_launches"] >= L * ticks
+            for a, b in zip(g0, g1):
+                assert b["captured"] == a["captured"]
+                if graphs_expected:
+                    assert b["replays"]["serving.step"] \
+                        - a["replays"].get("serving.step", 0) == ticks
+    finally:
+        pool.close()
+
+
+def test_tp_server_ranks_share_one_card():
+    """mp2 with two ranks on card 0 over gloo (staged, eager steps)."""
+    _card()
+    _tp_case("cuda:0", {"mp": 2}, False)
+
+
+def test_tp_server_on_four_cards():
+    """mp4 on NCCL, one rank a card, every step a captured graph with the
+    collectives inside (four_cards: run it alone with ``-k four_cards``
+    on a four-card machine)."""
+    _card()
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA cards (four_cards)")
+    _tp_case(None, {"mp": 4}, True)
