@@ -336,7 +336,22 @@ Phases, in order; any failure raises and the script exits non-zero:
    (``tp_moe_exact``); per-rank launches exact, one replay a tick a rank
    on four cards.  ``python3 chip_smoke.py --tp-only`` runs the build and
    this phase alone;
-12. one ``{"kernels": [...]}`` JSON line, then, as the last line,
+12. then the parameter-server services (``ps_phase``), which launch no
+   kernel of the port (the counts, zeroed before, stay 0): (a) a 4096 x 16
+   device table under 20 adagrad pushes with duplicates and
+   tests/test_heter.py's V = 64 ``HeterTrainer``, card against CPU; (b)
+   two host table servers holding the Criteo Kaggle table (33,762,577 x
+   16, DLRM's slots; ``tools/criteo_dlrm.py``) and a ``HeterTrainer``
+   running DLRM's Kaggle step on the card, 200 ``train_step`` and 200
+   ``train_stream`` steps of 128 (the loss falls; touched rows move,
+   untouched ones keep their bits); (c) ``TheOnePS`` holding the same
+   table on the card: pull and push ms of 128 x 26 and 2048 x 26 ids,
+   sampled rows against a float64 replay of the adagrad; (d) the table
+   row-sharded over 4 ranks (NCCL a card a rank on four cards, else gloo
+   ranks sharing card 0, staged) at 1/16 of the rows, its gathered rows
+   the one-card table's after the same pushes.  ``python3 chip_smoke.py
+   --ps-only`` runs this phase alone;
+13. one ``{"kernels": [...]}`` JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
 Exits non-zero and prints no result without a CUDA card.  Imports nothing
@@ -8137,6 +8152,426 @@ def tp_phase(torch, gpt, G, serving, engine, ks, wl, woq):
     return stats, total, tc_total, tick_total
 
 
+# ---------------------------------------------------------------------------
+# the parameter-server services: host tables, DLRM on the card,
+# device tables
+# ---------------------------------------------------------------------------
+
+PS_STEPS = 200               # train_step steps, then as many streamed
+PS_TABLE_TOL = 1e-6          # device table, card vs CPU: relative
+PS_REPLAY_TOL = 1e-5         # fp32 rows vs the float64 adagrad replay
+PS_SHARD_TOL = 1e-6          # row-sharded vs one card: rows, absolute
+# accumulators, relative: a hot row of a 3-row slot merges ~700 duplicate
+# grads a push, summed in index_add_'s atomic order on each side
+PS_SHARD_ACC_RTOL = 1e-5
+PS_HETER_ROWS_TOL = 2e-3     # a small HeterTrainer's rows, card vs CPU
+PS_SAMPLE = 1024
+PS_SHARD_SCALE = 16          # (d): 1/16 of the rows
+
+
+class _TimedClient:
+    """Forwards to a ``PSClient``, timing every pull and shard push (wall
+    ms, in the thread that made it), and keeping the largest |grad| each
+    row of ``watch`` (sorted global ids) was pushed."""
+
+    def __init__(self, client, watch):
+        self._c = client
+        self.pull_ms, self.push_ms = [], []
+        self.watch = watch
+        self.max_grad = np.zeros(len(watch))
+
+    def __getattr__(self, k):
+        return getattr(self._c, k)
+
+    def pull_sparse(self, tid, ids):
+        t0 = time.perf_counter()
+        out = self._c.pull_sparse(tid, ids)
+        self.pull_ms.append((time.perf_counter() - t0) * 1e3)
+        return out
+
+    def push_sparse_shard(self, s, tid, ids, grads, lr=0.05):
+        t0 = time.perf_counter()
+        self._c.push_sparse_shard(s, tid, ids, grads, lr=lr)
+        self.push_ms.append((time.perf_counter() - t0) * 1e3)
+        glob = np.asarray(ids) * self._c.S + s
+        j = np.searchsorted(self.watch, glob).clip(max=len(self.watch) - 1)
+        hit = self.watch[j] == glob
+        np.maximum.at(self.max_grad, j[hit],
+                      np.abs(np.asarray(grads)[hit]).max(axis=1))
+
+
+def _median(xs):
+    return statistics.median(xs) if xs else None
+
+
+def ps_small(torch, ps_check, workdir):
+    """(a): the 4096 x 16 device table and the V = 64 trainer, card
+    against CPU."""
+    rows_err, acc_err = ps_check.small_table_vs_cpu("cuda",
+                                                    rtol=PS_TABLE_TOL)
+    log(f"  (a) device table 4096 x 16, 20 adagrad pushes, card vs CPU: "
+        f"largest |card - CPU| / ({PS_TABLE_TOL} |CPU| + 1e-7): rows "
+        f"{rows_err:.3g}, accumulator {acc_err:.3g} (gate 1)")
+    assert rows_err <= 1 and acc_err <= 1, (rows_err, acc_err)
+    out = ps_check.small_heter_vs_cpu("cuda", workdir)
+    cpu, card = out["cpu"], out["card"]
+    loss_gap = float(np.abs(np.array(card["losses"])
+                            - np.array(cpu["losses"])).max())
+    push_gap = 0.0
+    assert len(card["first_pushes"]) == len(cpu["first_pushes"])
+    for (s1, i1, g1), (s2, i2, g2) in zip(card["first_pushes"],
+                                          cpu["first_pushes"]):
+        assert s1 == s2 and np.array_equal(i1, i2)
+        push_gap = max(push_gap, float(np.abs(g1 - g2).max()))
+    rows = np.abs(card["rows"] - cpu["rows"])
+    far = float((rows > 1e-5).mean())      # a reading
+    log(f"  (a) HeterTrainer V=64, 20 steps, card vs CPU (each on its own "
+        f"two-server cluster): losses within {loss_gap:.3g}, step-1 pushed "
+        f"row grads within {push_gap:.3g}; rows: {far:.4f} of elements past "
+        f"1e-5, max {float(rows.max()):.3g}")
+    assert loss_gap <= TRAIN_LOSS_TOL, loss_gap
+    assert push_gap <= 1e-7, push_gap
+    # the servers' adagrad (and Adam on the dense params) turn last-bit
+    # differences of nearly cancelled grads into larger steps (ROADMAP C)
+    assert rows.max() <= PS_HETER_ROWS_TOL, (far, rows.max())
+    return {"table_rows_excess": rows_err, "table_accum_excess": acc_err,
+            "loss_gap": loss_gap, "step1_push_gap": push_gap,
+            "rows_far_share": far, "rows_max": float(rows.max())}
+
+
+def ps_criteo_heter(torch, cd, ps_service, heter, optim, wl, workdir):
+    """(b): the Criteo Kaggle table on two host servers, DLRM on the
+    card through a ``HeterTrainer``."""
+    t0 = time.perf_counter()
+    procs, eps = ps_service.start_servers(2, workdir)
+    client = ps_service.PSClient(eps, timeout=600)
+    try:
+        client.create_table(0, cd.TOTAL_ROWS, cd.DIM, seed=0,
+                            init_range=0.01)
+        up_s = time.perf_counter() - t0
+        rng = np.random.default_rng(0)
+        batches = [cd.batch(rng) for _ in range(2 * PS_STEPS + 12)]
+        touched = np.unique(np.concatenate([b[0].ravel()
+                                            for b in batches]))
+        sample = np.sort(rng.choice(touched, PS_SAMPLE, replace=False))
+        cand = np.unique(rng.integers(0, cd.TOTAL_ROWS, 4 * PS_SAMPLE))
+        untouched = np.setdiff1d(cand, touched)[:PS_SAMPLE]
+        before_t = client.pull_sparse(0, sample)
+        before_u = client.pull_sparse(0, untouched)
+        timed = _TimedClient(client, sample)
+        trainer = heter.HeterTrainer(
+            timed, 0, cd.DIM, cd.init_params(0, "cuda"), cd.dense_apply,
+            optim.SGD(learning_rate=cd.LR), sparse_lr=cd.LR)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        losses, ways = [], {}
+        for way in ("train_step", "train_stream"):
+            timed.pull_ms.clear()
+            timed.push_ms.clear()
+            part = batches[:PS_STEPS] if way == "train_step" else \
+                batches[PS_STEPS:2 * PS_STEPS]
+            marks = [time.perf_counter()]
+            if way == "train_step":
+                for ids, b in part:
+                    losses.append(trainer.train_step(ids, b))
+                    marks.append(time.perf_counter())
+            else:
+                for loss in trainer.train_stream(iter(part)):
+                    losses.append(loss)
+                    marks.append(time.perf_counter())
+            step_ms = [(b - a) * 1e3 for a, b in zip(marks, marks[1:])]
+            ways[way] = {"step_ms_median": _median(step_ms[10:]),
+                         "step_ms_mean": statistics.mean(step_ms[10:]),
+                         "pull_ms_median": _median(timed.pull_ms),
+                         "push_ms_median": _median(timed.push_ms),
+                         "wall_s": marks[-1] - marks[0]}
+        # a profiled window of train_step: device ms a step, busy share
+        from torch.profiler import ProfilerActivity, profile
+
+        extra = batches[2 * PS_STEPS:]
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            for ids, b in extra:
+                trainer.train_step(ids, b)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        prof_sum = wl.summarize(torch, prof, wall, len(extra))
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        after_t = client.pull_sparse(0, sample)
+        after_u = client.pull_sparse(0, untouched)
+    finally:
+        client.shutdown_servers()
+        client.close()
+        for p in procs:
+            p.wait(timeout=60)
+    first, last = statistics.mean(losses[:20]), statistics.mean(losses[-20:])
+    # a row moves iff some push gave it a non-zero grad (a row seen only
+    # behind dead ReLUs is pushed exact zeros, and adagrad leaves it)
+    changed = (after_t != before_t).any(axis=1)
+    pushed = timed.max_grad > 0
+    moved = float(changed[pushed].mean())
+    uniq = statistics.mean(len(np.unique(b[0])) for b in batches)
+    out = {"rows": cd.TOTAL_ROWS, "dim": cd.DIM, "servers": 2,
+           "up_s": up_s, "ways": ways, "loss_first20": first,
+           "loss_last20": last, "touched_moved_share": moved,
+           "touched_zero_grad_share": float(1 - pushed.mean()),
+           "untouched_bit_equal": bool(np.array_equal(after_u, before_u)),
+           "unique_rows_a_step": uniq, "peak_gb": peak,
+           "profiled": {k: prof_sum[k] for k in ("wall_ms", "device_ms",
+                                                 "device_busy_share",
+                                                 "launches")},
+           "flops_a_step": cd.step_flops()}
+    log(f"  (b) Criteo Kaggle table {cd.TOTAL_ROWS} x {cd.DIM} on 2 host "
+        f"servers (up and filled in {up_s:.1f} s); DLRM on the card, batch "
+        f"{cd.BATCH}, {uniq:.1f} unique rows a step")
+    for way, w in ways.items():
+        log(f"  (b) {way}: step ms median {w['step_ms_median']:.3f} (mean "
+            f"{w['step_ms_mean']:.3f}), pull ms median "
+            f"{w['pull_ms_median']:.3f}, push ms median "
+            f"{w['push_ms_median']:.3f} a shard, {PS_STEPS} steps in "
+            f"{w['wall_s']:.2f} s")
+    log(f"  (b) profiled train_step: wall {prof_sum['wall_ms']:.3f} ms, "
+        f"device {prof_sum['device_ms']} ms, busy "
+        f"{prof_sum['device_busy_share']}; peak {peak:.3f} GB; loss "
+        f"first 20 {first:.5f} -> last 20 {last:.5f}; of {PS_SAMPLE} "
+        f"sampled touched rows {int(pushed.sum())} were pushed a non-zero "
+        f"grad, of which {moved:.4f} moved, and every one pushed only "
+        f"zeros kept its bits: {not changed[~pushed].any()}; untouched "
+        f"bit-equal {out['untouched_bit_equal']}")
+    assert last < first, (first, last)
+    assert moved == 1.0 and not changed[~pushed].any(), moved
+    assert out["untouched_bit_equal"]
+    return out
+
+
+def _adagrad_replay(rows0, sample, pushes, lr, dim):
+    """float64 host replay of merged adagrad pushes on the (sorted)
+    ``sample`` rows."""
+    n = len(sample)
+    rows = rows0.astype(np.float64).copy()
+    acc = np.zeros(n)
+    for ids, g in pushes:
+        flat = ids.reshape(-1)
+        idx = np.searchsorted(sample, flat).clip(max=n - 1)
+        hit = sample[idx] == flat
+        m = np.zeros((n, dim))
+        np.add.at(m, idx[hit], g.reshape(-1, dim)[hit].astype(np.float64))
+        t = np.zeros(n, bool)
+        t[idx[hit]] = True
+        acc[t] += (m[t] ** 2).sum(1) / dim
+        rows[t] -= lr * m[t] / (np.sqrt(acc[t])[:, None] + 1e-8)
+    return rows
+
+
+def ps_device_table(torch, cd, dps):
+    """(c): ``TheOnePS`` with the Criteo table on the card."""
+    ps = dps.TheOnePS()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tab = ps.create_table(0, cd.TOTAL_ROWS, cd.DIM, optimizer="adagrad",
+                          lr=0.05, seed=0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    rng = np.random.default_rng(1)
+    pushes = []
+    for n in (2048,) * 10 + (128,) * 10:
+        ids = cd.batch(rng, n)[0]
+        pushes.append((ids, (0.1 * rng.standard_normal(
+            (ids.size, cd.DIM))).astype(np.float32)))
+    touched = np.unique(np.concatenate([p[0].ravel() for p in pushes]))
+    sample = np.sort(rng.choice(touched, PS_SAMPLE, replace=False))
+    untouched = np.setdiff1d(np.unique(rng.integers(
+        0, cd.TOTAL_ROWS, 4 * PS_SAMPLE)), touched)[:PS_SAMPLE]
+    dev = tab.device
+    before_t = tab.pull(sample).cpu().numpy()
+    before_u = tab.pull(untouched).cpu().numpy()
+    pull_ms = {n: event_ms(torch, lambda i=torch.as_tensor(
+        cd.batch(rng, n)[0]).to(dev): tab.pull(i), iters=20)
+        for n in (128, 2048)}
+    push_ms = {128: [], 2048: []}
+    for ids, g in pushes:
+        i, gg = torch.from_numpy(ids).to(dev), torch.from_numpy(g).to(dev)
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        a.record()
+        tab.push(i, gg)
+        b.record()
+        b.synchronize()
+        push_ms[ids.shape[0]].append(a.elapsed_time(b))
+    after_t = tab.pull(sample).cpu().numpy()
+    after_u = tab.pull(untouched).cpu().numpy()
+    want = _adagrad_replay(before_t, sample, pushes, 0.05, cd.DIM)
+    # where a push's time goes: one more push of each size, profiled
+    # (after the replay's reads: it moves the rows)
+    from torch.profiler import ProfilerActivity, profile
+
+    from paddle_tpu_torch.tools import profile_serving as wl
+
+    push_prof = {}
+    for n in (128, 2048):
+        ids = torch.from_numpy(cd.batch(rng, n)[0]).to(dev)
+        g = torch.zeros((ids.numel(), cd.DIM), device=dev)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t1 = time.perf_counter()
+            tab.push(ids, g)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t1
+        summ = wl.summarize(torch, prof, wall, 1)
+        top = sorted((e for e in prof.key_averages()
+                      if e.device_type != torch.autograd.DeviceType.CUDA),
+                     key=lambda e: -e.self_cpu_time_total)[:6]
+        push_prof[n] = {"wall_ms": summ["wall_ms"],
+                        "device_ms": summ["device_ms"],
+                        "launches": summ["launches"],
+                        "host_top_ms": {e.key: e.self_cpu_time_total / 1e3
+                                        for e in top}}
+        log(f"  (c) one profiled push of {n} x 26: {json.dumps(push_prof[n])}")
+    err = float(np.abs(after_t - want).max())
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    table_gb = (tab.state.rows.numel() + tab.state.accum.numel()) * 4 / 1e9
+    # bound: a pull reads B x 26 rows and writes them; a push reads and
+    # writes each touched row and accumulator (merge traffic ignored)
+    bound = {n: 2 * n * cd.SLOTS * cd.DIM * 4 / HBM_BYTES_PER_S * 1e3
+             for n in (128, 2048)}
+    out = {"rows": cd.TOTAL_ROWS, "table_gb": table_gb, "init_s": init_s,
+           "pull_ms": pull_ms,
+           "push_ms_median": {n: _median(v) for n, v in push_ms.items()},
+           "pull_bound_ms": bound, "replay_max_abs_err": err,
+           "push_profiled": push_prof,
+           "untouched_bit_equal": bool(np.array_equal(after_u, before_u)),
+           "peak_gb": peak}
+    log(f"  (c) TheOnePS on the card: {cd.TOTAL_ROWS} x {cd.DIM} "
+        f"({table_gb:.3f} GB with the accumulator) drawn in {init_s:.2f} s;"
+        f" pull ms 128 x 26: {pull_ms[128]:.4f}, 2048 x 26: "
+        f"{pull_ms[2048]:.4f} (byte bound {bound[128]:.5f} / "
+        f"{bound[2048]:.5f}); push ms median 128 x 26: "
+        f"{out['push_ms_median'][128]:.4f}, 2048 x 26: "
+        f"{out['push_ms_median'][2048]:.4f}; {PS_SAMPLE} touched rows vs "
+        f"the float64 replay: {err:.3g}; untouched bit-equal "
+        f"{out['untouched_bit_equal']}; peak {peak:.3f} GB")
+    assert err <= PS_REPLAY_TOL, err
+    assert out["untouched_bit_equal"]
+    del tab, ps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ps_sharded(torch, cd, dps, spawn, ps_check):
+    """(d): the table row-sharded over 4 ranks against one card."""
+    vocab = sum(cd.rows_at(PS_SHARD_SCALE))
+    rng = np.random.default_rng(2)
+    pushes = []
+    for n in (2048,) * 5 + (128,) * 5:
+        ids = cd.batch(rng, n, scale=PS_SHARD_SCALE)[0]
+        pushes.append((ids, (0.1 * rng.standard_normal(
+            (ids.size, cd.DIM))).astype(np.float32)))
+    pull_ids = cd.batch(rng, 2048, scale=PS_SHARD_SCALE)[0]
+    case = {"vocab": vocab, "dim": cd.DIM, "seed": 0, "pushes": pushes,
+            "pull_ids": pull_ids, "gather_to": 0}
+    t0, wall0 = time.perf_counter(), time.time()
+    outs = spawn.spawn(ps_check.run_tables, ([case],), 4)
+    ranks_s = time.perf_counter() - t0
+    m = outs[0][0]["marks"]
+    stages = {"start": m["entered"] - wall0}
+    prev = m["entered"]
+    for k in ("mesh", "table", "pushed", "pulled", "gathered"):
+        stages[k] = m[k] - prev
+        prev = m[k]
+    stages["exit_and_read"] = wall0 + ranks_s - prev
+    one = dps.SparseEmbeddingTable(vocab, cd.DIM, seed=0)
+    for ids, g in pushes:
+        one.push(ids, g)
+    n = vocab + 1            # the ranks' layout pads past V + 1 rows
+    err = float(np.abs(outs[0][0]["rows"][:n]
+                       - one.state.rows.cpu().numpy()).max())
+    want = one.state.accum.cpu().numpy()
+    acc_err = float((np.abs(outs[0][0]["accum"][:n] - want)
+                     / (PS_SHARD_ACC_RTOL * want + 1e-7)).max())
+    pull_err = float(np.abs(outs[0][0]["pulls"]
+                            - one.pull(pull_ids).cpu().numpy()).max())
+    cards = torch.cuda.device_count()
+    out = {"ranks": 4, "rows": vocab, "transport": "nccl" if cards >= 4
+           else "gloo staged on card 0", "ranks_s": ranks_s,
+           "max_abs_err": err, "accum_excess": acc_err,
+           "pull_max_abs_err": pull_err,
+           "rank0_stages_s": stages,
+           "push_ms_median_rank0": _median(outs[0][0]["push_ms"]),
+           "pull_ms_rank0": outs[0][0]["pull_ms"][0]}
+    log(f"  (d) {vocab} rows over 4 ranks ({out['transport']}; ranks up, "
+        f"pushed and gathered in {ranks_s:.1f} s): gathered rows within "
+        f"{err:.3g} of one card's; accumulator: largest |ranks - one card| "
+        f"/ ({PS_SHARD_ACC_RTOL} one card + 1e-7) {acc_err:.3g} (gate 1); "
+        f"a pull of 2048 x 26 within {pull_err:.3g}; rank 0 push ms median "
+        f"{out['push_ms_median_rank0']:.3f}, pull ms "
+        f"{out['pull_ms_rank0']:.3f}; rank 0's stages, s: "
+        f"{json.dumps({k: round(v, 3) for k, v in stages.items()})}")
+    assert err <= PS_SHARD_TOL and acc_err <= 1, (err, acc_err)
+    assert pull_err <= PS_SHARD_TOL, pull_err
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def ps_phase(torch, ks):
+    """The parameter-server phase, (a)-(d) (see the module docstring);
+    the port's kernel counts are zeroed before it and must read 0
+    after: no kernel lies on this path."""
+    import tempfile
+
+    from paddle_tpu_torch import _native
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.distributed import heter, ps as dps, ps_service
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.tools import criteo_dlrm as cd, ps_check
+    from paddle_tpu_torch.tools import profile_serving as wl
+
+    t0 = time.perf_counter()
+    _native.ps_table()
+    log(f"  the native table built in {time.perf_counter() - t0:.1f} s")
+    zero_counts(ks)
+    stats = {}
+    with tempfile.TemporaryDirectory(prefix="ps_phase_") as d:
+        stats["small"] = ps_small(torch, ps_check, d + "/small")
+        stats["criteo_heter"] = ps_criteo_heter(torch, cd, ps_service, heter,
+                                                optim, wl, d + "/criteo")
+    gc.collect()
+    torch.cuda.empty_cache()
+    stats["device_table"] = ps_device_table(torch, cd, dps)
+    stats["sharded"] = ps_sharded(torch, cd, dps, spawn, ps_check)
+    launches = launch_counts(ks)
+    assert not any(launches.values()), launches
+    stats["launches"] = launches
+    stats["phase_s"] = time.perf_counter() - t0
+    log(f"[parameter-server phase: {stats['phase_s']:.1f} s; kernel "
+        f"launches {json.dumps(launches)}]")
+    return stats
+
+
+def ps_only(torch, card) -> int:
+    """``--ps-only``: the parameter-server phase alone."""
+    from paddle_tpu_torch.ops import decode_attention as da
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import woq_matmul as wm
+
+    log("[parameter-server services]")
+    psstats = ps_phase(torch, counters(fa, da, fc, fn, wm))
+    log(json.dumps({"ps": psstats}))
+    log(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def tp_only(torch, card) -> int:
     """``--tp-only``: the build, then the tensor-parallel serving phase
     alone."""
@@ -8216,6 +8651,14 @@ def main() -> int:
         card = wl.card_line()
         log(card)
         return tp_only(torch, card)
+    if "--ps-only" in sys.argv[1:]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from paddle_tpu_torch.tools import profile_serving as wl
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = wl.card_line()
+        log(card)
+        return ps_only(torch, card)
     if "--hybrid-only" in sys.argv[1:]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         from paddle_tpu_torch.tools import profile_serving as wl
@@ -8577,6 +9020,15 @@ def main() -> int:
                                              ks, wl, woq)
     log(json.dumps({"tp": tpstats}))
     by_path["tp"] = {name: tp_l.get(name, 0) for name in ks}
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[parameter-server services: (a) a device table and a small "
+        "HeterTrainer, card vs CPU; (b) the Criteo Kaggle table on two host "
+        "servers, DLRM on the card; (c) the table on the card; (d) "
+        "row-sharded over 4 ranks]")
+    psstats = ps_phase(torch, ks)
+    log(json.dumps({"ps": psstats}))
 
     tc_by_path = {"main": stats["tc_launches"], "paged": pstats["tc_launches"],
                   "w4": wstats["tc_launches"],

@@ -12,18 +12,23 @@ Entry points (``text.gpt.init_params``, ``text.generate.generate``,
 ``text.serving.DecodeServer``) run on the card unless the caller passes
 ``device="cpu"``; asking for the default on a machine without a card
 raises instead of falling back.
+
+Importing the package itself loads nothing but the standard library, so
+that processes which never touch a tensor — the parameter-server table
+servers (``distributed.ps_service``) and the launcher
+(``distributed.launch``) — start without importing torch.
 """
 from __future__ import annotations
-
-import torch
 
 __all__ = ["resolve_device"]
 
 
-def resolve_device(device=None) -> torch.device:
+def resolve_device(device=None) -> "torch.device":
     """The device an entry point runs on: ``cuda`` by default, else what
     the caller names.  Raises when the answer is a card this machine does
     not have — the port never moves work to the CPU on its own."""
+    import torch
+
     dev = torch.device("cuda" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():

@@ -1,5 +1,5 @@
-"""Carry a JAX-package GPT across: its parameter tree, its config and its
-optimizer state.
+"""Carry JAX-package state across: a GPT's parameter tree, its config and
+its optimizer state; a device sparse table's state.
 
 The port imports nothing of JAX; callers hand over host values —
 ``jax.device_get(params)`` (a tree of numpy arrays) and the JAX
@@ -74,3 +74,20 @@ def opt_state_from_jax(tree, device="cpu"):
     if isinstance(tree, (tuple, list)):
         return tuple(_tensor(a, device) for a in tree)
     raise TypeError(f"unexpected optimizer-state leaf {type(tree).__name__}")
+
+
+def table_state_from_jax(state, device="cpu"):
+    """A JAX ``SparseTableState`` (``rows`` [rows_total, D] and ``accum``
+    [rows_total], as numpy arrays from ``jax.device_get``, or a
+    ``(rows, accum)`` pair) -> the port's ``distributed.ps.
+    SparseTableState`` of float32 tensors on ``device``, the row layout
+    kept (V + 1 rows padded to the JAX mesh's shard count; the rows past
+    V are zero).  ``SparseEmbeddingTable.set_state`` takes it under any
+    padding and keeps its own shard."""
+    from .distributed.ps import SparseTableState
+
+    rows, accum = ((state.rows, state.accum) if hasattr(state, "rows")
+                   else state)
+    return SparseTableState(
+        torch.from_numpy(np.array(rows, np.float32)).to(device),
+        torch.from_numpy(np.array(accum, np.float32)).to(device))

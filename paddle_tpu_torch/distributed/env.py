@@ -14,8 +14,10 @@ own.  The placement decides the backend:
   tensors).
 
 The rank, world size and rendezvous come from the arguments or, as
-``spawn`` sets them, from ``PADDLE_TRAINER_ID`` / ``PADDLE_TRAINERS_NUM``
-/ ``PADDLE_TPU_INIT_METHOD``.  Nothing of a cluster is discovered.
+``spawn`` and ``launch`` set them, from ``PADDLE_TRAINER_ID`` /
+``PADDLE_TRAINERS_NUM`` / ``PADDLE_TPU_INIT_METHOD`` (and the device from
+``PADDLE_TPU_DEVICE``, which ``launch --device cpu`` sets).  Nothing of a
+cluster is discovered.
 """
 from __future__ import annotations
 
@@ -60,6 +62,8 @@ def init_process(rank=None, world_size=None, init_method=None,
                      if world_size is None else world_size)
     if init_method is None:
         init_method = os.environ["PADDLE_TPU_INIT_METHOD"]
+    if device is None:
+        device = os.environ.get("PADDLE_TPU_DEVICE")
     dev, backend, transport = placement(world_size, device, rank)
     if dev.type == "cuda":
         torch.cuda.set_device(dev)

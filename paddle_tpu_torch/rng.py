@@ -48,25 +48,29 @@ def fold_in(key, data):
     return mix32(mix32(key ^ (data & M32)) ^ ((data >> 32) & M32))
 
 
-def bits(key, shape, device):
+def bits(key, shape, device, offset: int = 0):
     """32 random bits (int64 in [0, 2^32)) per element of ``shape``, a pure
-    function of ``key`` and the element's flat index."""
+    function of ``key`` and the element's flat index.  ``offset`` shifts
+    the indices: a block of a larger draw, made on its own (a row shard
+    of a table, a chunk of a draw too large to make at once), holds the
+    same bits as the whole draw there."""
     n = 1
     for d in shape:
         n *= d
-    idx = torch.arange(n, dtype=torch.int64, device=device).reshape(shape)
+    idx = torch.arange(offset, offset + n, dtype=torch.int64,
+                       device=device).reshape(shape)
     return mix32(mix32(idx ^ key) ^ _ELEMENT)
 
 
-def uniform(key, shape, device):
+def uniform(key, shape, device, offset: int = 0):
     """float32 uniforms in (0, 1) on 2^23 levels (each bin's midpoint,
     ``(k + 0.5) / 2^23``: float32 holds every one exactly, so u lies in
     [2^-24, 1 - 2^-24] and never rounds to 0 or 1)."""
-    return ((bits(key, shape, device) >> 9).to(torch.float32) + 0.5) \
+    return ((bits(key, shape, device, offset) >> 9).to(torch.float32) + 0.5) \
         * (1.0 / (1 << 23))
 
 
-def normal(key, shape, device):
+def normal(key, shape, device, offset: int = 0):
     """float32 standard normals of ``shape`` under ``key``: the
     counterpart of ``jax.random.normal``, by the inverse CDF
     ``sqrt(2) * erfinv(2u - 1)`` of :func:`uniform` — one draw an
@@ -74,7 +78,7 @@ def normal(key, shape, device):
     values again (the bits are the same on every device; ``erfinv`` may
     differ by an ulp between them).  |z| stays below 5.3: ``2u - 1`` is
     exact and at most 1 - 2^-23 in magnitude."""
-    u = uniform(key, shape, device)
+    u = uniform(key, shape, device, offset)
     return math.sqrt(2.0) * torch.erfinv(2.0 * u - 1.0)
 
 

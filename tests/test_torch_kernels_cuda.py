@@ -2449,3 +2449,69 @@ def test_tp_server_on_four_cards():
     if torch.cuda.device_count() < 4:
         pytest.skip("needs four CUDA cards (four_cards)")
     _tp_case(None, {"mp": 4}, True)
+
+
+# -- parameter-server services (no kernel of the port on this path) ---------
+
+def test_ps_device_table_card_matches_cpu():
+    """A 4096 x 16 adagrad table under 20 pushes with duplicates: rows and
+    accumulator within 1e-6 relative (1e-7 absolute) of the CPU's."""
+    _card()
+    from paddle_tpu_torch.tools import ps_check
+
+    rows, accum = ps_check.small_table_vs_cpu("cuda")
+    assert rows <= 1 and accum <= 1, (rows, accum)
+
+
+def test_ps_heter_trainer_card_matches_cpu(tmp_path):
+    """tests/test_heter.py's V = 64 trainer on the card and on the CPU,
+    each on its own same-seed servers: losses within 1e-4 for 20 steps,
+    the first step's pushed row grads within 1e-7, and the rows within
+    2e-3 (the servers' adagrad and Adam turn last bits of nearly
+    cancelled grads into larger steps: ROADMAP C)."""
+    _card()
+    import numpy as np
+
+    from paddle_tpu_torch import _native
+    from paddle_tpu_torch.tools import ps_check
+
+    _native.ps_table()
+    out = ps_check.small_heter_vs_cpu("cuda", str(tmp_path))
+    cpu, card = out["cpu"], out["card"]
+    np.testing.assert_allclose(card["losses"], cpu["losses"], rtol=0,
+                               atol=1e-4)
+    assert len(card["first_pushes"]) == len(cpu["first_pushes"]) == 2
+    for (s1, i1, g1), (s2, i2, g2) in zip(card["first_pushes"],
+                                          cpu["first_pushes"]):
+        assert s1 == s2
+        np.testing.assert_array_equal(i1, i2)
+        np.testing.assert_allclose(g1, g2, rtol=0, atol=1e-7)
+    assert np.abs(card["rows"] - cpu["rows"]).max() <= 2e-3
+
+
+def test_ps_sharded_table_ranks_share_one_card():
+    """Two ranks on card 0 (gloo, staged) hold the table's row shards:
+    after the same pushes the gathered rows and a pull equal one card's
+    table within 1e-6."""
+    _card()
+    import numpy as np
+
+    from paddle_tpu_torch.distributed import ps as dps
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.tools import ps_check
+
+    V, D = 1023, 16
+    pushes = ps_check.duplicate_pushes(0, 6, 256, V, D)
+    pull = np.arange(0, V, 7)
+    outs = spawn.spawn(ps_check.run_tables, ([{
+        "vocab": V, "dim": D, "pushes": pushes, "pull_ids": pull,
+        "device": "cuda:0"}],), 2)
+    one = dps.SparseEmbeddingTable(V, D, seed=0)
+    for ids, g in pushes:
+        one.push(ids, g)
+    for (got,) in outs:
+        np.testing.assert_allclose(got["rows"], one.state.rows.cpu().numpy(),
+                                   rtol=0, atol=1e-6)
+        np.testing.assert_allclose(got["pulls"],
+                                   one.pull(pull).cpu().numpy(),
+                                   rtol=0, atol=1e-6)
