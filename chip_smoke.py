@@ -289,6 +289,32 @@ Phases, in order; any failure raises and the script exits non-zero:
    start near ln(vocab) and fall, and a remat rung's forward must keep
    fewer bytes than its remat-off twin's, its step peak no more (the
    allocated peak; on the MoE twins the requested one);
+9b. after the rungs, the data and comm phase (``data_comm_phase``): (a)
+   the headline rung's batch written into four 16.8 MB token shards
+   (``write_token_shards``: the batch four times at the head of the
+   first, seeded filler after) and four steps of the headline rung from
+   the same init fed by ``QueueDataset`` -> ``TokenShardReader(
+   num_threads=1)`` -> ``DevicePrefetcher(depth=2)`` (pinned ring, side
+   stream, events): every delivered batch the in-memory batch bit for
+   bit, the losses the in-memory run's, #1-#7 launched exactly as its
+   steps launch them; step ms against the in-memory run's, the prefetch
+   queue's depth before each step, and the reader alone over the 64 MB
+   at 1 and 4 threads (records/s; in order at 1, the multiset at 4); (b)
+   the headline's fp32 gradients of one batch and two ``dgc_compress``
+   calls on them (sparsity 0.99, momentum 0.9), each timed by CUDA events
+   with its peak memory, every leaf of both rounds held to the DGC law
+   (``_dgc_leaf_gate``: the kept set by ``kthvalue``, density within 1 -
+   sparsity but for ties, send + v' = v + (m·u + g), u' and v' zero on
+   the kept set and m·u + g, v + (m·u + g) off it), and a small model's
+   rounds card vs CPU bit for bit; (c) rides in the hybrid phase's
+   spawns: the functional pipeline (``build_pipeline_train_step``) on
+   the small fp32 model at pp4 and dp2 x pp2 against the one-card step,
+   DGC over dp4 and LocalSGD (k = 4, 8 steps) against one card, exact
+   all-reduce counts, and GPT-1.3B's widths at dp2 x pp2, M = 2 on the
+   headline batch's first 4 rows (one card: 4 layers) within
+   HYBRID_1P3B_LOSS_TOL of one card's loss; each rank's #1-#7 launches
+   exact.  ``python3 chip_smoke.py --data-comm-only`` runs the build, the
+   headline rung in memory, (a), (b) and (c) in a spawn of its own;
 10. after the LoRA phase, hybrid-parallel training (``hybrid_phase``,
    ``paddle_tpu_torch/distributed/`` and ``build_gpt_train_step(mesh=)``):
    four ranks spawned from this process (``distributed.spawn``; the
@@ -297,8 +323,9 @@ Phases, in order; any failure raises and the script exits non-zero:
    staged through pinned host memory (the phase's first line says
    which); first #1-#3 over a rank's 8 heads and #6 / #7 on a 25152-wide
    vocab shard (the backward fed the global lse) against their plain
-   twins; (a) five AdamW steps of the small fp32 models (the base of the
-   train checks above and its GQA-rope-RMSNorm-SwiGLU variant) at dp2 x
+   twins; (a) HYBRID_SMALL_STEPS AdamW steps of the small fp32 models
+   (the base of the train checks above and its GQA-rope-RMSNorm-SwiGLU
+   variant) at dp2 x
    mp2, pp2 x mp2 under 1F1B and F-then-B at 2 and 4 micro-batches, dp4
    at ZeRO 0-3 and dp2 x mp2 with a clipping global norm, fused CE and
    LN, against the one-card step on the same masters and batches
@@ -322,7 +349,12 @@ Phases, in order; any failure raises and the script exits non-zero:
    GPT-1.3B at sp2 x mp2 in both layouts and the MoE rung's model under
    ep (ep4 on one card, dp2 x ep2 on four; four cards add sp4 zigzag),
    each step-1 loss within HYBRID_1P3B_LOSS_TOL of the one-card loss on
-   the same rows (``one_card_loss``) and falling at step 2.  ``python3
+   the same rows (``one_card_loss``) and falling at step 2.  On one card
+   the dense arms of (b) and (f) run HYBRID_DENSE_LAYERS (8) deep, each
+   against one card's loss at that depth, two steps, none profiled; the
+   small runs take HYBRID_SMALL_STEPS (3; five on four cards).  One
+   spawn of the ranks runs the whole phase, (c) of the data and comm
+   phase and the PS phase's (d) with it.  ``python3
    chip_smoke.py --hybrid-only`` runs the build and this phase alone
    (``--full-width-only`` with it: (b), (c) and (f) only);
 11. after it, tensor- and expert-parallel serving (``tp_phase``): a pool
@@ -349,8 +381,11 @@ Phases, in order; any failure raises and the script exits non-zero:
    sampled rows against a float64 replay of the adagrad; (d) the table
    row-sharded over 4 ranks (NCCL a card a rank on four cards, else gloo
    ranks sharing card 0, staged) at 1/16 of the rows, its gathered rows
-   the one-card table's after the same pushes.  ``python3 chip_smoke.py
-   --ps-only`` runs this phase alone;
+   the one-card table's after the same pushes — in the whole smoke its
+   ranks' work runs in the hybrid phase's first spawn (no start-up of its
+   own), held here.  ``python3 chip_smoke.py --ps-only`` runs this phase
+   alone, (d)'s ranks (the same ``hybrid_check`` case) in a spawn of
+   their own;
 13. one ``{"kernels": [...]}`` JSON line, then, as the last line,
    ``{"ok": true, "device": {...}}``.
 
@@ -6901,6 +6936,11 @@ TRAIN_RUNGS = (("train", "gpt_1.3b_acc8_b8", None),
 
 HYBRID_RANKS = 4
 HYBRID_FLAGS = {"PADDLE_TPU_FUSED_CE": "1", "PADDLE_TPU_FUSED_LN": "1"}
+# AdamW steps of the small fp32 runs, (a), (d) and the data and comm
+# phase's (c), by backend: on one card (gloo) three, to keep the whole
+# smoke inside its time; on four (NCCL) five; each parameter gate scales
+# with the steps taken
+HYBRID_SMALL_STEPS = {"gloo": 3, "nccl": 5}
 # the small models: check_train_vs_cpu's base and its GQA variant
 HYBRID_BASE = dict(vocab_size=512, hidden_size=256, num_layers=2,
                    num_heads=2, max_seq_len=128)
@@ -6971,7 +7011,10 @@ HYBRID_RING_SHAPES = (
 # (bf16: the mp split sums the heads and the vocab in another order)
 HYBRID_1P3B_LOSS_TOL = 0.02
 HYBRID_1P3B_RUNG = "gpt_1.3b_fused_acc8_b8"
-HYBRID_1P3B_STEPS = 3            # steps 1-2 gated and timed, 3 profiled
+# steps 1-2 gated and timed; on four cards step 3 profiled (one card's
+# profile measures the sharing, and its step is cut to keep the smoke's
+# time)
+HYBRID_1P3B_STEPS = {"gloo": 2, "nccl": 3}
 # (f) sp and ep at full width on the batch's first rows, and the MoE rung's
 # depth, by backend: four ranks sharing one card's 80 GB each peak at the
 # update near 20 bytes a parameter they hold (old and new masters and
@@ -6980,6 +7023,11 @@ HYBRID_1P3B_STEPS = 3            # steps 1-2 gated and timed, 3 profiled
 HYBRID_MOE_RUNG = "gpt_1.3b_moe8_l8_fused_acc8_b8"
 HYBRID_SP_ROWS = {"gloo": 1, "nccl": 8}
 HYBRID_MOE_LAYERS = {"gloo": 4, "nccl": 8}
+# the dense GPT-1.3B arms' depth, (b) and (f), by backend: four ranks
+# sharing one card step a 24-layer model in 6.6-17 s (PR 25's whole
+# smoke), so one card runs 8 (each arm held to the one-card loss at that
+# depth) to keep the whole smoke inside its time; four cards run all 24
+HYBRID_DENSE_LAYERS = {"gloo": 8, "nccl": 24}
 
 
 def hybrid_placement(torch, env):
@@ -7176,25 +7224,30 @@ def check_ring_shapes(ra, outs):
     return stats, worst
 
 
-def hybrid_small(torch, gpt, gpt_hybrid, optim, clip, spawn, hc):
-    """(a) and (d): five AdamW steps of the small fp32 models on every
-    mesh of ``HYBRID_SMALL_RUNS`` and ``HYBRID_SP_RUNS`` (CE and LN flags
-    on), all in one spawn of the ranks, against the one-card step (mesh
-    None) on the card from the same seed-7 masters and batches: losses
+def hybrid_small(torch, gpt, gpt_hybrid, optim, clip, spawn, hc, env,
+                 steps, extra=()):
+    """(a) and (d): ``steps`` (HYBRID_SMALL_STEPS) AdamW steps of the
+    small fp32 models on every mesh of ``HYBRID_SMALL_RUNS`` and
+    ``HYBRID_SP_RUNS`` (CE and LN flags on), all in one spawn of the
+    ranks, against the one-card step (mesh None) on the card from the
+    same seed-7 masters and batches: losses
     within TRAIN_LOSS_TOL, the gathered final params within
     TRAIN_PARAM_TOL but for a TRAIN_PARAM_FAR share (all within
-    TRAIN_STEPS * TRAIN_LR), each rank's launches of #1-#7 exactly
+    steps * TRAIN_LR), each rank's launches of #1-#7 exactly
     ``hc.expected_hybrid_launches`` (under sp: the ring's kernel route);
     on mp 4 the vocab-parallel CE's kernel route against its plain twin
     (loss within LSE_TOL, dlogits within CE_DX_ATOL + BF16_TOL * |plain|);
-    and (e), ``check_ring_shapes``.  Returns (stats, launches of (a),
-    their tc launches, launches of (d), their tc launches, the ring's
-    worst errors)."""
+    and (e), ``check_ring_shapes``.  ``extra`` cases run in the same spawn
+    after them (the data and comm phase's (c), the PS phase's (d), the
+    full-width arms).
+    Returns (stats, launches of (a), their tc launches, launches of (d),
+    their tc launches, the ring's worst errors, each rank's results of
+    ``extra``)."""
     from paddle_tpu_torch.ops import ring_attention as ra
 
     rng = np.random.default_rng(3)
     batches = [rng.integers(0, HYBRID_BASE["vocab_size"], (4, 65))
-               for _ in range(TRAIN_STEPS)]
+               for _ in range(steps)]
     runs = HYBRID_SMALL_RUNS + HYBRID_SP_RUNS
     cfgs, masters, refs, cases = {}, {}, {}, []
     os.environ.update(HYBRID_FLAGS)
@@ -7224,10 +7277,13 @@ def hybrid_small(torch, gpt, gpt_hybrid, optim, clip, spawn, hc):
                   "logits": (5 * g.standard_normal((4, 64, V))).astype(
                       np.float32),
                   "targets": g.integers(0, V, (4, 64))})
-    cases += _ring_cases()
+    ring = _ring_cases()
+    cases += ring + list(extra)
     t0 = time.perf_counter()
-    outs = spawn.spawn(hc.run_cases, (cases,), nprocs=HYBRID_RANKS)
+    with shared_card_allocator(hybrid_placement(torch, env)[0][1]):
+        outs = spawn.spawn(hc.run_cases, (cases,), nprocs=HYBRID_RANKS)
     wall = time.perf_counter() - t0
+    n_extra = len(extra)
     total, tc_total, sp_total, sp_tc = {}, {}, {}, {}
     worst_loss = worst_param = 0.0
     failed = []
@@ -7261,7 +7317,7 @@ def hybrid_small(torch, gpt, gpt_hybrid, optim, clip, spawn, hc):
             f"max|loss - one card| {d_loss:.3g} (tol {TRAIN_LOSS_TOL}"
             f"{f'; step 1 {d_first:.3g}, later {HYBRID_ROUTED_TOL}' if routed else ''}); "
             f"params - one card: max {diff.max():.3g} (tol "
-            f"{TRAIN_STEPS * TRAIN_LR}), share past {TRAIN_PARAM_TOL} "
+            f"{steps * TRAIN_LR}), share past {TRAIN_PARAM_TOL} "
             f"{far:.3g} of {diff.size} (tol {TRAIN_PARAM_FAR}); rank 0 "
             f"launches a step {got['launches'][-1]}; collectives a step "
             f"(rank 0) {json.dumps(comm)}")
@@ -7269,7 +7325,7 @@ def hybrid_small(torch, gpt, gpt_hybrid, optim, clip, spawn, hc):
             ok = d_first <= TRAIN_LOSS_TOL and d_loss <= HYBRID_ROUTED_TOL
         else:
             ok = (d_loss <= TRAIN_LOSS_TOL and far <= TRAIN_PARAM_FAR
-                  and diff.max() <= TRAIN_STEPS * TRAIN_LR)
+                  and diff.max() <= steps * TRAIN_LR)
             worst_loss = max(worst_loss, d_loss)
             worst_param = max(worst_param, float(diff.max()))
         if not (all(map(math.isfinite, got["losses"])) and ok):
@@ -7286,7 +7342,7 @@ def hybrid_small(torch, gpt, gpt_hybrid, optim, clip, spawn, hc):
         failed.append("the vocab-parallel CE's kernel route disagrees with "
                       "its plain twin")
     ring_stats, ring_err = check_ring_shapes(
-        ra, [o[len(runs) + 1:] for o in outs])
+        ra, [o[len(runs) + 1:len(runs) + 1 + len(ring)] for o in outs])
     if failed:
         raise AssertionError("; ".join(failed))
     for k in HYBRID_FLAGS:
@@ -7295,7 +7351,8 @@ def hybrid_small(torch, gpt, gpt_hybrid, optim, clip, spawn, hc):
              "worst_param": worst_param, "spawn_wall_s": wall,
              "vocab_parallel_ce": {"loss": e_loss, "dlogits": e_grad},
              "ring_shapes": ring_stats},
-            total, tc_total, sp_total, sp_tc, ring_err)
+            total, tc_total, sp_total, sp_tc, ring_err,
+            [o[len(o) - n_extra:] if n_extra else [] for o in outs])
 
 
 def headline_step1_loss(torch, gpt, tr):
@@ -7349,20 +7406,30 @@ def hybrid_1p3b_arms(torch, gpt, tr, backend, headline):
     mesh, step kwargs, rows of the batch, key, the one-card loss on those
     rows).  (b) pp2 x mp2; (f) sp2 x mp2 in both layouts and the MoE
     rung's model under ep (ep4 on one card at HYBRID_MOE_LAYERS' depth,
-    dp2 x ep2 on four); with four cards also sp4 zigzag and (c)."""
+    dp2 x ep2 on four); with four cards also sp4 zigzag and (c).  The
+    dense arms run HYBRID_DENSE_LAYERS deep (one card: 8, each held to
+    the one-card loss of its rows at that depth)."""
     rows = HYBRID_SP_ROWS[backend]
-    dense = (headline if rows == tr.RUNGS[HYBRID_1P3B_RUNG].batch else
-             one_card_loss(torch, gpt, tr, HYBRID_1P3B_RUNG, rows))
+    r = tr.RUNGS[HYBRID_1P3B_RUNG]
+    layers = HYBRID_DENSE_LAYERS[backend]
+    cut = layers != r.cfg["num_layers"]
+    over = {"num_layers": layers} if cut else {}
+    deep = f" ({layers} layers)" if cut else ""
+    pp_ref = (one_card_loss(torch, gpt, tr, HYBRID_1P3B_RUNG, r.batch,
+                            over=over) if cut else headline)
+    dense = (headline if rows == r.batch and not cut else
+             one_card_loss(torch, gpt, tr, HYBRID_1P3B_RUNG, rows,
+                           over=over))
     moe_mesh = {"dp": 2, "ep": 2} if backend == "nccl" else {"ep": 4}
     moe_over = {"num_layers": HYBRID_MOE_LAYERS[backend]}
     moe_loss = one_card_loss(torch, gpt, tr, HYBRID_MOE_RUNG, rows, tr.KEY,
                              moe_over)
-    arms = [("pp2 x mp2 1f1b M=8", HYBRID_1P3B_RUNG, {}, {"pp": 2, "mp": 2},
-             {"n_micro": 8}, 8, None, headline),
-            ("sp2 x mp2", HYBRID_1P3B_RUNG, {}, {"sp": 2, "mp": 2}, {},
-             rows, None, dense),
-            ("sp2 x mp2 zigzag", HYBRID_1P3B_RUNG, {}, {"sp": 2, "mp": 2},
-             {"sp_zigzag": True}, rows, None, dense),
+    arms = [("pp2 x mp2 1f1b M=8" + deep, HYBRID_1P3B_RUNG, over,
+             {"pp": 2, "mp": 2}, {"n_micro": 8}, 8, None, pp_ref),
+            ("sp2 x mp2" + deep, HYBRID_1P3B_RUNG, over, {"sp": 2, "mp": 2},
+             {}, rows, None, dense),
+            ("sp2 x mp2 zigzag" + deep, HYBRID_1P3B_RUNG, over,
+             {"sp": 2, "mp": 2}, {"sp_zigzag": True}, rows, None, dense),
             ("moe " + " x ".join(f"{a}{n}" for a, n in moe_mesh.items())
              + f" ({moe_over['num_layers']} layers)", HYBRID_MOE_RUNG,
              moe_over, moe_mesh, {}, rows, tr.KEY, moe_loss)]
@@ -7375,7 +7442,43 @@ def hybrid_1p3b_arms(torch, gpt, tr, backend, headline):
     return arms
 
 
-def hybrid_1p3b(torch, gpt, tr, spawn, hc, headline, placement):
+def hybrid_1p3b_cases(torch, gpt, tr, headline, placement):
+    """(b) and (f)'s rank cases and, last, the full-width pipeline's: (the
+    arms, the cases) for ``hybrid_check.run_cases``; see
+    ``hybrid_1p3b``."""
+    (dev, backend, transport), _ = placement
+    arms = hybrid_1p3b_arms(torch, gpt, tr, backend, headline)
+    toks = np.random.default_rng(0).integers(
+        0, gpt.gpt_1p3b().vocab_size,
+        (tr.RUNGS[HYBRID_1P3B_RUNG].batch, tr.SEQ + 1))
+    opt = ("AdamW", {"learning_rate": tr.LR,
+                     "weight_decay": tr.WEIGHT_DECAY,
+                     "state_dtype": torch.bfloat16})
+    steps = HYBRID_1P3B_STEPS[backend]
+    cases = [{"kind": "train",
+              "cfg": gpt.GPTConfig(**{**tr.RUNGS[rung].cfg, **over}),
+              "mesh": mesh, "kw": kw, "seed": 0, "batches": [toks[:rows]],
+              "steps": steps, "lr": tr.LR, "opt": opt,
+              "key": key, "flags": dict(tr.RUNGS[rung].flags),
+              "gather": False, "profile_last": steps > 2,
+              "stagger_init": True}
+             for _, rung, over, mesh, kw, rows, key, _ in arms]
+    cases.append(pipeline_1p3b_case(torch, gpt, tr, backend, toks))
+    return arms, cases
+
+
+@contextlib.contextmanager
+def shared_card_allocator(backend):
+    """Ranks sharing a card: the allocator grows segments in place rather
+    than caching a freed block per size (less memory held unused) — set
+    for the ranks a spawn starts in the block."""
+    with env_set(PYTORCH_CUDA_ALLOC_CONF=(
+            os.environ.get("PYTORCH_CUDA_ALLOC_CONF") if backend == "nccl"
+            else "expandable_segments:True")):
+        yield
+
+
+def hybrid_1p3b(torch, gpt, tr, hc, arms, cases, outs, placement, wall):
     """(b) and (f): GPT-1.3B (``gpt.gpt_1p3b()``) at pp2 x mp2, 1F1B, 8
     micro-batches, on the headline rung's batch (8 x 2048 tokens, seed 0),
     masters and optimizer (AdamW, bf16 moments), both fused flags; at sp2
@@ -7387,40 +7490,16 @@ def hybrid_1p3b(torch, gpt, tr, spawn, hc, headline, placement):
     the whole batch), every rank's launches exact (the flash kernels on
     their tensor-core bodies; under sp the ring's kernel route); the loss
     falls (step 2 below step 1: without warm-up the 1.3B loss overshoots
-    at step 3); step 3 profiled on every rank (device time by
-    family, the collectives' share).  Prints each rank's step ms, peak
+    at step 3); on four cards step 3 profiled on every rank (device time
+    by family, the collectives' share).  Prints each rank's step ms, peak
     memory and collective bytes; tokens/s and MFU (JAX's FLOP count over
-    the cards' bf16 peak) of step 2.  Returns (stats, launches of (b) and
-    (c), their tc launches, launches of (f), their tc launches)."""
+    the cards' bf16 peak) of step 2.  ``arms`` and ``cases`` are
+    ``hybrid_1p3b_cases``', ``outs`` each rank's results of ``cases``
+    (the full-width pipeline's last), ``wall`` their spawn's
+    seconds.  Returns (stats, launches of (b) and (c), their tc launches,
+    launches of (f), their tc launches, the pipeline's launches and tc
+    launches)."""
     (dev, backend, transport), _ = placement
-    arms = hybrid_1p3b_arms(torch, gpt, tr, backend, headline)
-    toks = np.random.default_rng(0).integers(
-        0, gpt.gpt_1p3b().vocab_size,
-        (tr.RUNGS[HYBRID_1P3B_RUNG].batch, tr.SEQ + 1))
-    opt = ("AdamW", {"learning_rate": tr.LR,
-                     "weight_decay": tr.WEIGHT_DECAY,
-                     "state_dtype": torch.bfloat16})
-    cases = [{"kind": "train",
-              "cfg": gpt.GPTConfig(**{**tr.RUNGS[rung].cfg, **over}),
-              "mesh": mesh, "kw": kw, "seed": 0, "batches": [toks[:rows]],
-              "steps": HYBRID_1P3B_STEPS, "lr": tr.LR, "opt": opt,
-              "key": key, "flags": dict(tr.RUNGS[rung].flags),
-              "gather": False, "profile_last": True, "stagger_init": True}
-             for _, rung, over, mesh, kw, rows, key, _ in arms]
-    t0 = time.perf_counter()
-    # ranks sharing a card: the allocator grows segments in place rather
-    # than caching a freed block per size (less memory held unused)
-    alloc = os.environ.get("PYTORCH_CUDA_ALLOC_CONF")
-    if backend != "nccl":
-        os.environ["PYTORCH_CUDA_ALLOC_CONF"] = "expandable_segments:True"
-    try:
-        outs = spawn.spawn(hc.run_cases, (cases,), nprocs=HYBRID_RANKS)
-    finally:
-        if alloc is None:
-            os.environ.pop("PYTORCH_CUDA_ALLOC_CONF", None)
-        else:
-            os.environ["PYTORCH_CUDA_ALLOC_CONF"] = alloc
-    wall = time.perf_counter() - t0
     cards = torch.cuda.device_count() if backend == "nccl" else 1
     shared = "" if backend == "nccl" else (
         f" (the {HYBRID_RANKS} ranks share one card: these times measure "
@@ -7434,7 +7513,7 @@ def hybrid_1p3b(torch, gpt, tr, spawn, hc, headline, placement):
         new = "sp" in mesh or cfg.moe is not None
         ranks = [o[i] for o in outs]
         losses = ranks[0]["losses"]
-        gated = HYBRID_1P3B_STEPS - 1
+        gated = 2
         _add(new_total if new else total, _launch_gates(
             [dict(x, launches=x["launches"][:gated]) for x in ranks],
             lambda c: hc.expected_hybrid_launches(
@@ -7457,7 +7536,7 @@ def hybrid_1p3b(torch, gpt, tr, spawn, hc, headline, placement):
                                        x["comm"][1].items()},
             "collective_calls_step2": {k: v["calls"] for k, v in
                                        x["comm"][1].items()},
-            "profiled_step3": {k: x["profile"][k] for k in (
+            "profiled_step3": x["profile"] and {k: x["profile"][k] for k in (
                 "wall_ms", "device_ms", "device_busy_share",
                 "collective_share", "device_ms_by_family")}}
             for x in ranks]
@@ -7468,13 +7547,14 @@ def hybrid_1p3b(torch, gpt, tr, spawn, hc, headline, placement):
                "mfu": fpt * n_tok / step_s / (cards * BF16_FLOPS_PER_S),
                "ranks": per_rank}
         for x in per_rank:
+            prof = x["profiled_step3"]
             log(f"  {name} rank {x['rank']} {x['coords']}: step ms "
                 f"{[round(m, 1) for m in x['step_ms']]}{shared}, peak "
                 f"{x['peak_gb']:.2f} GB, collective bytes a step "
-                f"{json.dumps(x['collective_bytes_step2'])}, profiled step: "
-                f"device {x['profiled_step3']['device_ms']} ms, busy "
-                f"{x['profiled_step3']['device_busy_share']}, collectives' "
-                f"share {x['profiled_step3']['collective_share']}")
+                f"{json.dumps(x['collective_bytes_step2'])}"
+                + (f", profiled step: device {prof['device_ms']} ms, busy "
+                   f"{prof['device_busy_share']}, collectives' share "
+                   f"{prof['collective_share']}" if prof else ""))
         log(f"  {name} ({rows} x {tr.SEQ + 1} tokens): losses "
             f"{[round(x, 5) for x in losses]} (one-card step 1 {ref:.5f}, "
             f"tol {HYBRID_1P3B_LOSS_TOL}); step 2 {step_s * 1e3:.1f} ms, "
@@ -7491,47 +7571,609 @@ def hybrid_1p3b(torch, gpt, tr, spawn, hc, headline, placement):
     stats["spawn_wall_s"] = wall
     if failed:
         raise AssertionError("; ".join(failed))
-    return stats, total, tc_total, new_total, new_tc
+    stats["pipeline"], pipe_l, pipe_tc = check_pipeline_1p3b(
+        torch, gpt, tr, hc, cases[-1], [o[len(arms)] for o in outs],
+        backend)
+    return stats, total, tc_total, new_total, new_tc, pipe_l, pipe_tc
 
 
 def hybrid_phase(torch, gpt, gpt_hybrid, optim, clip, tr, fa, fc, headline,
-                 small_runs=True):
+                 small_runs=True, ps_case=None):
     """The hybrid-parallel phase: the kernels at its shapes in this
     process, then (a)-(f) in ranks spawned from it — the libraries already
     built here, so the ranks only load them; ``small_runs=False`` runs
-    the full-width arms alone.  Returns (stats, launches by kernel summed
-    over ranks of (a)-(c), their tensor-core launches, the same of the sp
-    / ep runs (d) and (f), the kernels' errors at the hybrid shapes and
-    on the ring)."""
+    the full-width arms alone.  Everything runs in one spawn of the
+    ranks: (a), (d), (e), the data and comm phase's rank cases (c), the
+    PS phase's (d) (``ps_case``: its rank results come back under
+    stats["ps_sharded"], popped by the caller), then (b), (f) and the
+    full-width pipeline.
+    Returns (stats, launches by kernel summed over ranks of (a)-(c),
+    their tensor-core launches, the same of the sp / ep runs (d) and
+    (f), the kernels' errors at the hybrid shapes and on the ring); the
+    data and comm cases' launches are in stats["data_comm_launches"] and
+    ["data_comm_tc_launches"]."""
     from paddle_tpu_torch.distributed import env, spawn
+    from paddle_tpu_torch.distributed.fleet import comm_opt as co
     from paddle_tpu_torch.tools import hybrid_check as hc
 
     t0 = time.perf_counter()
     placement = hybrid_placement(torch, env)
     log(placement[1])
     err, small, total, tc_total, sp_total, sp_tc = {}, None, {}, {}, {}, {}
+    comm, comm_l, comm_tc, ps_ranks = None, {}, {}, None
+    arms, big = hybrid_1p3b_cases(torch, gpt, tr, headline, placement)
     if small_runs:
         err = check_hybrid_shapes(torch, fa, fc)
-        small, total, tc_total, sp_total, sp_tc, ring_err = hybrid_small(
-            torch, gpt, gpt_hybrid, optim, clip, spawn, hc)
+        steps = HYBRID_SMALL_STEPS[placement[0][1]]
+        comm_cases, comm_ctx = comm_small_cases(torch, gpt, steps)
+        extra = comm_cases + ([ps_case] if ps_case is not None else [])
+        t_spawn = time.time()
+        small, total, tc_total, sp_total, sp_tc, ring_err, tail = \
+            hybrid_small(torch, gpt, gpt_hybrid, optim, clip, spawn, hc, env,
+                         steps, extra + big)
         for k, e in ring_err.items():
             err[k] = max(err.get(k, 0.0), e)
         log(f"  (a) (d) (e) {json.dumps(small)}")
+        n = len(comm_cases)
+        comm, comm_l, comm_tc = check_comm_small(
+            torch, gpt_hybrid, optim, clip, hc, co, comm_ctx,
+            [t[:n] for t in tail])
+        if ps_case is not None:
+            ps_ranks = {"rank0": tail[0][n], "spawn_wall_clock": t_spawn}
+        outs = [t[len(extra):] for t in tail]
+        wall = small["spawn_wall_s"]
+    else:
+        t1 = time.perf_counter()
+        with shared_card_allocator(placement[0][1]):
+            outs = spawn.spawn(hc.run_cases, (big,), nprocs=HYBRID_RANKS)
+        wall = time.perf_counter() - t1
     gc.collect()
     torch.cuda.empty_cache()
-    big, t2, tc2, t3, tc3 = hybrid_1p3b(torch, gpt, tr, spawn, hc, headline,
-                                        placement)
+    big_stats, t2, tc2, t3, tc3, pipe_l, pipe_tc = hybrid_1p3b(
+        torch, gpt, tr, hc, arms, big, outs, placement, wall)
     _add(total, t2)
     _add(tc_total, tc2)
     _add(sp_total, t3)
     _add(sp_tc, tc3)
-    stats = {"placement": placement[1], "small": small, "gpt_1p3b": big,
+    _add(comm_l, pipe_l)
+    _add(comm_tc, pipe_tc)
+    stats = {"placement": placement[1], "small": small,
+             "gpt_1p3b": big_stats,
              "sp_ep_launches": sp_total, "sp_ep_tc_launches": sp_tc,
+             "data_comm_small": comm, "data_comm_launches": comm_l,
+             "data_comm_tc_launches": comm_tc, "ps_sharded": ps_ranks,
              "phase_s": time.perf_counter() - t0}
     log(f"  the sp / ep runs' launches (d) + (f), all ranks: "
         f"{json.dumps(sp_total)}; on tensor cores {json.dumps(sp_tc)}")
     log(f"[hybrid-parallel phase: {stats['phase_s']:.1f} s]")
     return stats, total, tc_total, sp_total, sp_tc, err
+
+
+# -- data ingestion, DGC, LocalSGD and the functional pipeline -------------
+
+# (a): the headline rung fed from token shards on disk
+DATA_SHARDS = 4
+DATA_SHARD_RECORDS = 2048        # 2048 x 2049 int32 tokens: 16.8 MB a shard
+DATA_STEPS = 4
+DATA_THREADS = (1, 4)
+# (b): DGC at full width, the reference's defaults
+DGC_SPARSITY, DGC_MOMENTUM = 0.99, 0.9
+DGC_ROUNDS = 2
+# the sends' mean over dp against one card's mean of the ranks' sends
+DGC_AXIS_RTOL = 1e-6
+# (c): the rank cases
+LOCALSGD_K, LOCALSGD_STEPS = 4, 8
+# (name, mesh, micro-batches, remat_stage) on the small fp32 model at 4
+# layers (HYBRID_BASE's widths).  Every mesh of the spawn spans its four
+# ranks, so pp2 runs as dp2 x pp2 (pp2 alone is held in the CPU tests)
+PIPE_SMALL_RUNS = (("pipeline pp4 M=4 remat", {"pp": 4}, 4, True),
+                   ("pipeline dp2 x pp2 M=2 remat", {"dp": 2, "pp": 2}, 2,
+                    True),
+                   ("pipeline dp2 x pp2 M=4", {"dp": 2, "pp": 2}, 4, False))
+PIPE_SMALL_LAYERS = 4
+# GPT-1.3B's widths at dp2 x pp2, M = 2, on the headline batch's first 4
+# rows: one card (four gloo ranks sharing it, staged) at 4 layers, four
+# cards (NCCL) at all 24
+PIPE_1P3B_ROWS = 4
+PIPE_1P3B_LAYERS = {"gloo": 4, "nccl": 24}
+PIPE_1P3B_STEPS = 2
+
+
+def write_token_shards(d, head, filler_seed=1):
+    """DATA_SHARDS files of DATA_SHARD_RECORDS records each (the shard
+    format: int32 tokens, one row of ``head.shape[1]`` a record): the
+    first begins with the rows of ``head`` DATA_STEPS times — the batches
+    the steps take, in the order one reader thread delivers them — and
+    every shard is filled to its size with seeded tokens.  Returns (the
+    paths, every record written, in file order)."""
+    rng = np.random.default_rng(filler_seed)
+    W = head.shape[1]
+    files, rows = [], []
+    for i in range(DATA_SHARDS):
+        lead = np.concatenate([head] * DATA_STEPS) if i == 0 else \
+            head[:0]
+        fill = rng.integers(0, 50304, (DATA_SHARD_RECORDS - len(lead), W),
+                            dtype=np.int32)
+        arr = np.ascontiguousarray(np.concatenate([lead, fill]), np.int32)
+        p = os.path.join(d, f"tokens_{i:02d}.bin")
+        arr.tofile(p)
+        files.append(p)
+        rows.append(arr)
+    return files, np.concatenate(rows)
+
+
+def reader_rate(nr, files, W, batch, threads, written):
+    """The reader alone over every shard: (records/s, records, ok) — one
+    thread delivers ``written`` in order; more, its multiset."""
+    t0 = time.perf_counter()
+    got = list(nr.TokenShardReader(files, W, batch, num_threads=threads))
+    wall = time.perf_counter() - t0
+    recs = np.concatenate(got)
+    if threads == 1:
+        ok = np.array_equal(recs, written)
+    else:
+        ok = (len(recs) == len(written) and
+              sorted(map(bytes, recs)) == sorted(map(bytes, written)))
+    return len(recs) / wall, len(recs), ok
+
+
+def reader_fed_headline(torch, gpt, tr, ks, remat_policies, in_memory):
+    """(a): DATA_STEPS steps of the headline rung from the same init, fed
+    by ``QueueDataset`` -> ``TokenShardReader(num_threads=1)`` ->
+    ``DevicePrefetcher(depth=2)`` over shards written from its batch;
+    ``in_memory`` the in-memory run's stats (``train_path``'s).  Gates:
+    every delivered batch equals the in-memory batch bit for bit; the
+    losses equal the in-memory run's; #1-#7 launch exactly the headline's
+    a step.  Then the reader alone at DATA_THREADS over the 64 MB."""
+    import tempfile
+
+    from paddle_tpu_torch.distributed.fleet.dataset import QueueDataset
+    from paddle_tpu_torch.io import native_reader as nr
+
+    rung = HYBRID_1P3B_RUNG
+    r = tr.RUNGS[rung]
+    cfg, opt, init_fn, step_fn, tokens = tr.build_train_path(
+        "cuda", seed=0, rung=rung)
+    head = tokens.cpu().numpy().astype(np.int32)
+    W = head.shape[1]
+    want = expected_train_launches(cfg, r, remat_policies)
+    out = {}
+    with tempfile.TemporaryDirectory(prefix="token_shards_") as d:
+        t0 = time.perf_counter()
+        files, written = write_token_shards(d, head)
+        out["shards_written_s"] = time.perf_counter() - t0
+        out["shard_bytes"] = [os.path.getsize(f) for f in files]
+        ds = QueueDataset()
+        ds.set_filelist(files)
+        ds.set_record_schema(W, np.int32)
+        ds.set_batch_size(r.batch)
+        ds.set_thread(1)
+        state = init_fn(0)
+        torch.cuda.synchronize()
+        pf = nr.DevicePrefetcher(iter(ds), depth=2)
+        it = iter(pf)
+        losses, step_ms, depth, per_step, equal = [], [], [], [], []
+        n_tok = r.batch * tr.SEQ
+        for _ in range(DATA_STEPS):
+            depth.append(pf.pending())
+            before = launch_counts(ks)
+            t0 = time.perf_counter()
+            batch = next(it)
+            equal.append(bool(torch.equal(batch.long(), tokens)))
+            state, loss = step_fn(state, batch, tr.KEY, tr.LR)
+            losses.append(loss.item())
+            torch.cuda.synchronize()
+            step_ms.append(1e3 * (time.perf_counter() - t0))
+            per_step.append({n: c - before[n]
+                             for n, c in launch_counts(ks).items()})
+        pf.close()
+        copies = dict(pf.stager.stats)
+        del state
+        gc.collect()
+        torch.cuda.empty_cache()
+        rates = {}
+        for n in DATA_THREADS:
+            rate, recs, ok = reader_rate(nr, files, W, r.batch, n, written)
+            rates[n] = {"records_per_s": rate, "records": recs,
+                        "in_order" if n == 1 else "multiset_equal": ok}
+            if not ok:
+                raise AssertionError(f"the reader at {n} thread(s) did not "
+                                     f"deliver the records written")
+    steady = statistics.median(step_ms[1:])
+    ref = in_memory["losses"]
+    out.update(losses=losses, in_memory_losses=ref, step_ms=step_ms,
+               steady_step_ms=steady,
+               in_memory_steady_step_ms=in_memory["steady_step_ms"],
+               steady_tokens_per_s=n_tok / (steady / 1e3),
+               queue_depth_before_step=depth, batches_equal=equal,
+               launches_per_step=per_step[-1], stager=copies,
+               reader=rates)
+    log(f"  (a) reader-fed headline: losses {[round(x, 6) for x in losses]} "
+        f"(in memory {[round(x, 6) for x in ref]}); step ms "
+        f"{[round(x, 1) for x in step_ms]}, steady {steady:.1f} against "
+        f"{in_memory['steady_step_ms']:.1f} in memory "
+        f"({steady / in_memory['steady_step_ms']:.4f}x); queue depth before "
+        f"each step {depth}; batches equal {equal}; stager {copies}; the "
+        f"reader alone over {sum(out['shard_bytes']) / 1e6:.1f} MB: "
+        + ", ".join(f"{n} thread(s) {v['records_per_s']:.0f} records/s"
+                    for n, v in rates.items()))
+    if not all(equal):
+        raise AssertionError(f"a delivered batch is not the in-memory "
+                             f"batch: {equal}")
+    if losses != ref:
+        raise AssertionError(f"reader-fed losses {losses} are not the "
+                             f"in-memory run's {ref}")
+    for i, got in enumerate(per_step):
+        if got != want:
+            raise AssertionError(f"reader-fed step {i + 1} launched {got}, "
+                                 f"not {want}")
+    return out
+
+
+def _dgc_leaf_gate(torch, g, u, v, send, u2, v2, what):
+    """One leaf of one round against the DGC law, from the round's inputs
+    (g, u, v) and outputs: the kept set by ``kthvalue`` (the function
+    finds its threshold by ``topk``); density within 1 - sparsity but for
+    ties; send + v' the pre-mask accumulator V = v + (m·u + g); u' and v'
+    zero on the kept set and m·u + g and V off it.  Returns (kept, k)."""
+    acc = u * DGC_MOMENTUM
+    acc.add_(g)
+    V = v + acc
+    n = V.numel()
+    k = max(1, int(n * (1.0 - DGC_SPARSITY)))
+    mag = V.abs()
+    thr = torch.kthvalue(mag.reshape(-1), n - k + 1).values
+    kept = mag >= thr
+    above = int((mag > thr).sum())
+    n_kept = int(kept.sum())
+    del mag
+    zero = torch.zeros((), dtype=V.dtype, device=V.device)
+    ok = (above < k <= n_kept
+          and torch.equal(send + v2, V)
+          and torch.equal(send, torch.where(kept, V, zero))
+          and torch.equal(u2, torch.where(kept, zero, acc))
+          and torch.equal(v2, torch.where(kept, zero, V)))
+    if not ok:
+        raise AssertionError(f"DGC {what}: the round breaks the law (n {n}, "
+                             f"k {k}, above the threshold {above}, kept "
+                             f"{n_kept})")
+    return n_kept, k
+
+
+def dgc_full_width(torch, gpt, gpt_hybrid, tr, co):
+    """(b): the headline rung's fp32 gradients of one batch (8
+    micro-batches' mean, fp32 sums) on its seed-0 masters, then DGC_ROUNDS
+    ``dgc_compress`` calls on them, the state carried, each timed by CUDA
+    events with its peak memory above what it was handed; every leaf of
+    every round held to the DGC law (``_dgc_leaf_gate``)."""
+    cfg, _, _, _, tokens = tr.build_train_path("cuda", seed=0,
+                                               rung=HYBRID_1P3B_RUNG)
+    r = tr.RUNGS[HYBRID_1P3B_RUNG]
+    params = gpt.init_master_params(cfg, 0, "cuda")
+    grads = None
+    t0 = time.perf_counter()
+    for t in tokens.reshape(r.accum, -1, tokens.shape[-1]):
+        _, g = gpt_hybrid.value_and_grad(
+            lambda p, x: gpt.loss_fn(p, x, cfg), params, t)
+        if grads is None:
+            grads = _tree_map(lambda x: x.mul_(1.0 / r.accum), g)
+        else:
+            for name, x in _leaves(g):
+                _np_get(grads, name).add_(x, alpha=1.0 / r.accum)
+        del g
+    del params
+    torch.cuda.synchronize()
+    grads_s = time.perf_counter() - t0
+    gc.collect()
+    torch.cuda.empty_cache()
+    n = sum(x.numel() for _, x in _leaves(grads))
+    biggest = max(x.numel() for _, x in _leaves(grads))
+    st = co.dgc_init(grads)
+    rounds = []
+    for i in range(DGC_ROUNDS):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        e0, e1 = torch.cuda.Event(True), torch.cuda.Event(True)
+        e0.record()
+        send, st2 = co.dgc_compress(grads, st, sparsity=DGC_SPARSITY,
+                                    momentum=DGC_MOMENTUM)
+        e1.record()
+        torch.cuda.synchronize()
+        ms = e0.elapsed_time(e1)
+        peak = torch.cuda.max_memory_allocated() - base
+        kept = total_k = 0
+        for name, g in _leaves(grads):
+            nk, k = _dgc_leaf_gate(
+                torch, g, _np_get(st.u, name), _np_get(st.v, name),
+                _np_get(send, name), _np_get(st2.u, name),
+                _np_get(st2.v, name), f"round {i + 1} {name}")
+            kept += nk
+            total_k += k
+        rounds.append({"ms": ms, "peak_above_inputs_gb": peak / 1e9,
+                       "kept": kept, "k": total_k, "density": kept / n})
+        del send, st
+        st = st2
+        gc.collect()
+    # each call reads g, u and v and writes u, v and the send (fp32)
+    nbytes = 6 * 4 * n
+    b_ms, _ = bound(nbytes, 0)
+    out = {"elements": n, "largest_leaf": biggest, "grads_s": grads_s,
+           "rounds": rounds, "bound_ms": b_ms, "bytes_a_call": nbytes}
+    log(f"  (b) DGC at GPT-1.3B (sparsity {DGC_SPARSITY}, momentum "
+        f"{DGC_MOMENTUM}; {n} elements, largest leaf {biggest}; grads in "
+        f"{grads_s:.1f} s): "
+        + "; ".join(f"round {i + 1} {x['ms']:.2f} ms, peak +"
+                    f"{x['peak_above_inputs_gb']:.2f} GB, density "
+                    f"{x['density']:.6f} ({x['kept']} kept, k {x['k']})"
+                    for i, x in enumerate(rounds))
+        + f"; byte bound {b_ms:.2f} ms; every leaf of every round held to "
+        f"the law")
+    del st, grads
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def dgc_small_card_vs_cpu(torch, gpt, gpt_hybrid, co):
+    """(b): DGC_ROUNDS rounds on a small fp32 model's gradients (drawn on
+    the CPU, copied to the card): sends, u and v of the card equal the
+    CPU's bit for bit."""
+    cfg = _small_cfg(torch, gpt, {})
+    params = gpt.init_master_params(cfg, 7, "cpu")
+    toks = torch.as_tensor(np.random.default_rng(3).integers(
+        0, cfg.vocab_size, (4, 65)))
+    _, g = gpt_hybrid.value_and_grad(
+        lambda p, x: gpt.loss_fn(p, x, cfg), params, toks)
+    gc_ = _tree_map(lambda t: t.cuda(), g)
+    s_cpu, s_card = co.dgc_init(g), co.dgc_init(gc_)
+    worst = 0
+    for _ in range(DGC_ROUNDS):
+        a, s_cpu = co.dgc_compress(g, s_cpu, DGC_SPARSITY, DGC_MOMENTUM)
+        b, s_card = co.dgc_compress(gc_, s_card, DGC_SPARSITY, DGC_MOMENTUM)
+        for x, y in ((a, b), (s_cpu.u, s_card.u), (s_cpu.v, s_card.v)):
+            for name, t in _leaves(x):
+                diff = int((t.view(torch.int32) !=
+                            _np_get(y, name).cpu().view(torch.int32)).sum())
+                worst = max(worst, diff)
+    log(f"  (b) DGC on a small fp32 model, card vs CPU: {DGC_ROUNDS} rounds, "
+        f"elements whose bits differ: {worst}")
+    if worst:
+        raise AssertionError(f"DGC on the card differs from the CPU in "
+                             f"{worst} elements")
+    return worst
+
+
+def comm_small_cases(torch, gpt, steps):
+    """(c)'s small cases for ``hybrid_check.run_cases`` on the four ranks
+    and what each is held to: the functional pipeline on the small fp32
+    model (PIPE_SMALL_RUNS, ``steps`` AdamW steps), DGC over dp4 and
+    LocalSGD(k = LOCALSGD_K) over LOCALSGD_STEPS steps on small fp32
+    trees.  Returns (cases,
+    context for ``check_comm_small``)."""
+    cfg = _small_cfg(torch, gpt, {"num_layers": PIPE_SMALL_LAYERS})
+    master = gpt.init_master_params(cfg, 7, device="cpu")
+    rng = np.random.default_rng(3)
+    batches = [rng.integers(0, HYBRID_BASE["vocab_size"], (8, 65))
+               for _ in range(steps)]
+    cases = [{"kind": "pipeline", "cfg": cfg, "mesh": mesh,
+              "params": _np_tree(master), "batches": batches,
+              "n_micro": m, "remat_stage": remat, "lr": TRAIN_LR,
+              "opt": ("AdamW", {"learning_rate": TRAIN_LR}),
+              "flags": HYBRID_FLAGS}
+             for _, mesh, m, remat in PIPE_SMALL_RUNS]
+    g = np.random.default_rng(4)
+    dgc_grads = {"blocks": {"fc_w": g.standard_normal(
+                     (HYBRID_RANKS, 2, 64, 256)).astype(np.float32)},
+                 "wte": g.standard_normal(
+                     (HYBRID_RANKS, 512, 64)).astype(np.float32)}
+    params = {"w": g.standard_normal((HYBRID_RANKS, 64, 64)).astype(
+                  np.float32),
+              "b": g.standard_normal((HYBRID_RANKS, 64)).astype(np.float32)}
+    deltas = [{k: (0.01 * g.standard_normal(v.shape)).astype(np.float32)
+               for k, v in params.items()} for _ in range(LOCALSGD_STEPS)]
+    cases += [{"kind": "dgc", "mesh": {"dp": HYBRID_RANKS},
+               "grads": dgc_grads, "sparsity": DGC_SPARSITY,
+               "momentum": DGC_MOMENTUM, "rounds": DGC_ROUNDS},
+              {"kind": "localsgd", "mesh": {"dp": HYBRID_RANKS},
+               "params": params, "deltas": deltas, "k_steps": LOCALSGD_K,
+               "steps": LOCALSGD_STEPS}]
+    return cases, {"cfg": cfg, "master": master, "batches": batches,
+                   "dgc_grads": dgc_grads, "params": params,
+                   "deltas": deltas}
+
+
+def check_comm_small(torch, gpt_hybrid, optim, clip, hc, co, ctx, outs):
+    """The small cases' gates, ``outs`` each rank's results of
+    ``comm_small_cases``' cases in order: the pipeline's losses within
+    TRAIN_LOSS_TOL of the one-card step's on the same masters and
+    batches, each rank's #1-#7 launches exactly
+    ``hc.expected_pipeline_launches``; DGC's sends within DGC_AXIS_RTOL of
+    one card's mean of the ranks' sends, u and v bit-equal, one
+    all-reduce a leaf a round; LocalSGD's params one card's mean on the
+    sync steps and untouched between, all-reduces on the sync steps
+    only (one a leaf).  Returns (stats, launches, tc launches)."""
+    cfg = ctx["cfg"]
+    with env_set(**HYBRID_FLAGS):
+        ref_losses, _ = _one_card_run(torch, gpt_hybrid, optim, clip, cfg,
+                                      ctx["master"], ctx["batches"], None)
+    stats, total, tc_total, failed = {}, {}, {}, []
+    for i, (name, mesh, m, remat) in enumerate(PIPE_SMALL_RUNS):
+        ranks = [o[i] for o in outs]
+        losses = ranks[0]["losses"]
+        d = max(abs(a - b) for a, b in zip(losses, ref_losses))
+        _add(total, _launch_gates(
+            ranks, lambda c: hc.expected_pipeline_launches(
+                cfg, mesh["pp"], m, c.get("pp", 0), remat), name))
+        for x in ranks:
+            for t in x["tc_launches"]:
+                _add(tc_total, t)
+        stats[name] = {"losses": losses, "max_loss_gap": d,
+                       "launches_rank0": ranks[0]["launches"][-1],
+                       "comm_rank0": ranks[0]["comm"][-1]}
+        stats[name]["case_s_rank0"] = ranks[0]["case_s"]
+        log(f"  (c) {name}: losses {[round(x, 5) for x in losses]}; "
+            f"max|loss - one card| {d:.3g} (tol {TRAIN_LOSS_TOL}); rank 0 "
+            f"launches a step {ranks[0]['launches'][-1]}; collectives a "
+            f"step (rank 0) {json.dumps(ranks[0]['comm'][-1])}; rank 0 "
+            f"step ms {[round(x, 1) for x in ranks[0]['step_ms']]}, the "
+            f"case {ranks[0]['case_s']:.1f} s")
+        if not (all(map(math.isfinite, losses)) and d <= TRAIN_LOSS_TOL):
+            failed.append(f"{name} disagrees with the one-card step")
+    j = len(PIPE_SMALL_RUNS)
+    # DGC over dp4: one card runs each rank's rounds and means the sends
+    dg = ctx["dgc_grads"]
+    per_rank = []
+    for r in range(HYBRID_RANKS):
+        g = _tree_map(lambda a: torch.as_tensor(a[r]).cuda(), dg)
+        st, rounds = co.dgc_init(g), []
+        for _ in range(DGC_ROUNDS):
+            s, st = co.dgc_compress(g, st, DGC_SPARSITY, DGC_MOMENTUM)
+            rounds.append((s, st))
+        per_rank.append(rounds)
+    worst = 0.0
+    n_leaves = 2
+    for rank in range(HYBRID_RANKS):
+        got = outs[rank][j]
+        for i in range(DGC_ROUNDS):
+            for name, _ in _leaves(dg):
+                mean = sum(_np_get(per_rank[q][i][0], name)
+                           for q in range(HYBRID_RANKS)) / HYBRID_RANKS
+                want = mean.cpu().numpy()
+                have = _np_get(got[i]["send"], name)
+                err = float(np.abs(have - want).max() /
+                            max(np.abs(want).max(), 1e-30))
+                worst = max(worst, err)
+                for what, idx in (("u", 0), ("v", 1)):
+                    mine = _np_get(per_rank[rank][i][1][idx], name)
+                    if not np.array_equal(_np_get(got[i][what], name),
+                                          mine.cpu().numpy()):
+                        failed.append(f"DGC dp4 rank {rank} round {i + 1} "
+                                      f"{what} differs from one card's")
+            calls = got[i]["comm"].get("all_reduce", {}).get("calls")
+            if calls != n_leaves:
+                failed.append(f"DGC dp4 rank {rank} round {i + 1}: {calls} "
+                              f"all-reduces, not {n_leaves}")
+    if worst > DGC_AXIS_RTOL:
+        failed.append(f"DGC dp4 sends {worst:.3g} from one card's mean")
+    stats["dgc_dp4"] = {"worst_send_rel": worst, "rounds": DGC_ROUNDS}
+    log(f"  (c) DGC over dp4 ({DGC_ROUNDS} rounds): sends within {worst:.3g} "
+        f"of one card's mean (tol {DGC_AXIS_RTOL}) relative to each leaf's "
+        f"largest, u and v bit-equal, {n_leaves} all-reduces a round")
+    # LocalSGD: one card replays every rank's steps and means on the syncs
+    p = {k: v.astype(np.float64).copy() for k, v in ctx["params"].items()}
+    worst_p, syncs, calls_all = 0.0, 0, []
+    for step in range(1, LOCALSGD_STEPS + 1):
+        for k in p:
+            p[k] += ctx["deltas"][step - 1][k]
+        if step % LOCALSGD_K == 0:
+            for k in p:
+                p[k][:] = p[k].mean(0)
+            syncs += 1
+        want_calls = len(p) if step % LOCALSGD_K == 0 else 0
+        for rank in range(HYBRID_RANKS):
+            got = outs[rank][j + 1][step - 1]
+            for k in p:
+                worst_p = max(worst_p, float(np.abs(
+                    got["params"][k] - p[k][rank]).max()))
+            calls_all.append(got["all_reduce"])
+            if got["all_reduce"] != want_calls:
+                failed.append(f"LocalSGD rank {rank} step {step}: "
+                              f"{got['all_reduce']} all-reduces, not "
+                              f"{want_calls}")
+    stats["localsgd"] = {"k": LOCALSGD_K, "steps": LOCALSGD_STEPS,
+                         "syncs": syncs, "worst_param": worst_p,
+                         "all_reduces_rank0": sum(
+                             calls_all[::HYBRID_RANKS])}
+    log(f"  (c) LocalSGD k={LOCALSGD_K} over {LOCALSGD_STEPS} steps on "
+        f"dp4: {syncs} syncs, {stats['localsgd']['all_reduces_rank0']} "
+        f"all-reduces on rank 0 (one a leaf a sync, none between); params "
+        f"within {worst_p:.3g} of one card's replay")
+    if worst_p > 1e-5:
+        failed.append(f"LocalSGD params {worst_p} from one card's")
+    if failed:
+        raise AssertionError("; ".join(failed))
+    return stats, total, tc_total
+
+
+def pipeline_1p3b_case(torch, gpt, tr, backend, toks):
+    """(c)'s full-width case: GPT-1.3B's widths (PIPE_1P3B_LAYERS deep by
+    backend) at dp2 x pp2, M = 2, ``remat_stage``, on the headline batch's
+    first PIPE_1P3B_ROWS rows, its optimizer and flags, seed-0 masters
+    drawn on each rank in turn."""
+    r = tr.RUNGS[HYBRID_1P3B_RUNG]
+    cfg = gpt.GPTConfig(**{**r.cfg, "num_layers": PIPE_1P3B_LAYERS[backend]})
+    return {"kind": "pipeline", "cfg": cfg, "mesh": {"dp": 2, "pp": 2},
+            "seed": 0, "batches": [toks[:PIPE_1P3B_ROWS]],
+            "steps": PIPE_1P3B_STEPS, "n_micro": 2, "remat_stage": True,
+            "lr": tr.LR, "opt": ("AdamW", {
+                "learning_rate": tr.LR, "weight_decay": tr.WEIGHT_DECAY,
+                "state_dtype": torch.bfloat16}),
+            "flags": dict(r.flags), "stagger_init": True}
+
+
+def check_pipeline_1p3b(torch, gpt, tr, hc, case, ranks, backend):
+    """The full-width pipeline's gates: step 1's loss within
+    HYBRID_1P3B_LOSS_TOL of the one-card loss of the same rows and depth
+    (``one_card_loss``), the loss falling at step 2, each rank's #1-#7
+    launches exact (the recompute included).  Returns (stats, launches,
+    tc launches)."""
+    cfg = case["cfg"]
+    ref = one_card_loss(torch, gpt, tr, HYBRID_1P3B_RUNG, PIPE_1P3B_ROWS,
+                        over={"num_layers": cfg.num_layers})
+    name = f"pipeline GPT-1.3B widths dp2 x pp2 M=2 ({cfg.num_layers} layers)"
+    total = _launch_gates(ranks, lambda c: hc.expected_pipeline_launches(
+        cfg, 2, 2, c.get("pp", 0), True), name)
+    tc = {}
+    for x in ranks:
+        for t in x["tc_launches"]:
+            _add(tc, t)
+    losses = ranks[0]["losses"]
+    stats = {"layers": cfg.num_layers, "rows": PIPE_1P3B_ROWS,
+             "losses": losses, "one_card_step1_loss": ref,
+             "step_ms": [x["step_ms"] for x in ranks],
+             "peak_gb": [x["peak_gb"] for x in ranks],
+             "comm_rank0": ranks[0]["comm"][-1], "backend": backend,
+             "case_s": [x["case_s"] for x in ranks]}
+    log(f"  (c) {name}: losses {[round(x, 5) for x in losses]} (one card "
+        f"{ref:.5f}, tol {HYBRID_1P3B_LOSS_TOL}); rank step ms "
+        f"{[[round(m, 1) for m in x['step_ms']] for x in ranks]}; peak GB "
+        f"{[x['peak_gb'] and round(x['peak_gb'], 2) for x in ranks]}; "
+        f"launches a step "
+        f"{[x['launches'][-1] for x in ranks]}; collectives a step (rank 0) "
+        f"{json.dumps(ranks[0]['comm'][-1])}; the case "
+        f"{[round(x['case_s'], 1) for x in ranks]} s a rank")
+    if not (all(map(math.isfinite, losses))
+            and abs(losses[0] - ref) <= HYBRID_1P3B_LOSS_TOL
+            and losses[1] < losses[0]):
+        raise AssertionError(f"{name}: losses {losses} against one card's "
+                             f"{ref}")
+    return stats, total, tc
+
+
+def data_comm_phase(torch, gpt, gpt_hybrid, tr, ks, remat_policies,
+                    in_memory):
+    """The data and comm phase's one-process arms: (a) the reader-fed
+    headline against the in-memory run ``in_memory`` (``train_path``'s
+    stats of the headline rung); (b) DGC at full width and card vs CPU.
+    (c)'s rank cases run in the hybrid phase's spawns.  The kernel counts
+    are zeroed first.  Returns (stats, the launches of (a) and (b))."""
+    from paddle_tpu_torch.distributed.fleet import comm_opt as co
+
+    t0 = time.perf_counter()
+    zero_counts(ks)
+    a = reader_fed_headline(torch, gpt, tr, ks, remat_policies, in_memory)
+    gc.collect()
+    torch.cuda.empty_cache()
+    b = dgc_full_width(torch, gpt, gpt_hybrid, tr, co)
+    b["card_vs_cpu_bits_differing"] = dgc_small_card_vs_cpu(
+        torch, gpt, gpt_hybrid, co)
+    launches = launch_counts(ks)
+    for k in tr.RUNGS[HYBRID_1P3B_RUNG].flags:
+        os.environ.pop(k, None)
+    stats = {"reader_fed": a, "dgc": b, "phase_s": time.perf_counter() - t0}
+    log(f"[data and comm phase (a) + (b): {stats['phase_s']:.1f} s]")
+    return stats, launches
 
 
 # -- tensor- and expert-parallel serving (text/tp_serving.py) ----------------
@@ -8462,8 +9104,10 @@ def ps_device_table(torch, cd, dps):
     return out
 
 
-def ps_sharded(torch, cd, dps, spawn, ps_check):
-    """(d): the table row-sharded over 4 ranks against one card."""
+def ps_sharded_case(cd):
+    """(d)'s case for ``hybrid_check``'s "ps_table" kind on a 4-rank
+    ``mp`` mesh: 1/PS_SHARD_SCALE of the Criteo Kaggle rows, 10 pushes, a
+    2048 x 26 pull."""
     vocab = sum(cd.rows_at(PS_SHARD_SCALE))
     rng = np.random.default_rng(2)
     pushes = []
@@ -8472,28 +9116,37 @@ def ps_sharded(torch, cd, dps, spawn, ps_check):
         pushes.append((ids, (0.1 * rng.standard_normal(
             (ids.size, cd.DIM))).astype(np.float32)))
     pull_ids = cd.batch(rng, 2048, scale=PS_SHARD_SCALE)[0]
-    case = {"vocab": vocab, "dim": cd.DIM, "seed": 0, "pushes": pushes,
+    return {"kind": "ps_table", "mesh": {"mp": 4}, "vocab": vocab,
+            "dim": cd.DIM, "seed": 0, "pushes": pushes,
             "pull_ids": pull_ids, "gather_to": 0}
-    t0, wall0 = time.perf_counter(), time.time()
-    outs = spawn.spawn(ps_check.run_tables, ([case],), 4)
-    ranks_s = time.perf_counter() - t0
-    m = outs[0][0]["marks"]
+
+
+def ps_sharded(torch, cd, dps, held):
+    """(d): the table row-sharded over 4 ranks against one card.  ``held``
+    ({"rank0": rank 0's result, "spawn_wall_clock": the spawn's start})
+    is ``ps_sharded_case(cd)`` run by ``hybrid_check.run_cases`` on four
+    ranks: in the hybrid phase's spawn, or under ``--ps-only`` in
+    ``ps_only``'s."""
+    case = ps_sharded_case(cd)
+    vocab, pushes, pull_ids = case["vocab"], case["pushes"], case["pull_ids"]
+    r0, wall0 = held["rank0"], held["spawn_wall_clock"]
+    m = r0["marks"]
+    ranks_s = m["gathered"] - m["entered"]
     stages = {"start": m["entered"] - wall0}
     prev = m["entered"]
     for k in ("mesh", "table", "pushed", "pulled", "gathered"):
         stages[k] = m[k] - prev
         prev = m[k]
-    stages["exit_and_read"] = wall0 + ranks_s - prev
     one = dps.SparseEmbeddingTable(vocab, cd.DIM, seed=0)
     for ids, g in pushes:
         one.push(ids, g)
     n = vocab + 1            # the ranks' layout pads past V + 1 rows
-    err = float(np.abs(outs[0][0]["rows"][:n]
+    err = float(np.abs(r0["rows"][:n]
                        - one.state.rows.cpu().numpy()).max())
     want = one.state.accum.cpu().numpy()
-    acc_err = float((np.abs(outs[0][0]["accum"][:n] - want)
+    acc_err = float((np.abs(r0["accum"][:n] - want)
                      / (PS_SHARD_ACC_RTOL * want + 1e-7)).max())
-    pull_err = float(np.abs(outs[0][0]["pulls"]
+    pull_err = float(np.abs(r0["pulls"]
                             - one.pull(pull_ids).cpu().numpy()).max())
     cards = torch.cuda.device_count()
     out = {"ranks": 4, "rows": vocab, "transport": "nccl" if cards >= 4
@@ -8501,11 +9154,11 @@ def ps_sharded(torch, cd, dps, spawn, ps_check):
            "max_abs_err": err, "accum_excess": acc_err,
            "pull_max_abs_err": pull_err,
            "rank0_stages_s": stages,
-           "push_ms_median_rank0": _median(outs[0][0]["push_ms"]),
-           "pull_ms_rank0": outs[0][0]["pull_ms"][0]}
-    log(f"  (d) {vocab} rows over 4 ranks ({out['transport']}; ranks up, "
-        f"pushed and gathered in {ranks_s:.1f} s): gathered rows within "
-        f"{err:.3g} of one card's; accumulator: largest |ranks - one card| "
+           "push_ms_median_rank0": _median(r0["push_ms"]),
+           "pull_ms_rank0": r0["pull_ms"][0]}
+    log(f"  (d) {vocab} rows over 4 ranks ({out['transport']}; the case's "
+        f"own work: pushed and gathered in {ranks_s:.1f} s): gathered rows "
+        f"within {err:.3g} of one card's; accumulator: largest |ranks - one card| "
         f"/ ({PS_SHARD_ACC_RTOL} one card + 1e-7) {acc_err:.3g} (gate 1); "
         f"a pull of 2048 x 26 within {pull_err:.3g}; rank 0 push ms median "
         f"{out['push_ms_median_rank0']:.3f}, pull ms "
@@ -8519,16 +9172,16 @@ def ps_sharded(torch, cd, dps, spawn, ps_check):
     return out
 
 
-def ps_phase(torch, ks):
+def ps_phase(torch, ks, sharded):
     """The parameter-server phase, (a)-(d) (see the module docstring);
     the port's kernel counts are zeroed before it and must read 0
-    after: no kernel lies on this path."""
+    after: no kernel lies on this path.  ``sharded``: (d)'s rank results
+    (``ps_sharded``'s ``held``)."""
     import tempfile
 
     from paddle_tpu_torch import _native
     from paddle_tpu_torch import optimizer as optim
     from paddle_tpu_torch.distributed import heter, ps as dps, ps_service
-    from paddle_tpu_torch.distributed import spawn
     from paddle_tpu_torch.tools import criteo_dlrm as cd, ps_check
     from paddle_tpu_torch.tools import profile_serving as wl
 
@@ -8544,7 +9197,7 @@ def ps_phase(torch, ks):
     gc.collect()
     torch.cuda.empty_cache()
     stats["device_table"] = ps_device_table(torch, cd, dps)
-    stats["sharded"] = ps_sharded(torch, cd, dps, spawn, ps_check)
+    stats["sharded"] = ps_sharded(torch, cd, dps, sharded)
     launches = launch_counts(ks)
     assert not any(launches.values()), launches
     stats["launches"] = launches
@@ -8555,15 +9208,22 @@ def ps_phase(torch, ks):
 
 
 def ps_only(torch, card) -> int:
-    """``--ps-only``: the parameter-server phase alone."""
+    """``--ps-only``: the parameter-server phase alone, (d)'s four ranks
+    spawned first (the whole smoke runs them in the hybrid phase's
+    spawn)."""
+    from paddle_tpu_torch.distributed import spawn
     from paddle_tpu_torch.ops import decode_attention as da
     from paddle_tpu_torch.ops import flash_attention as fa
     from paddle_tpu_torch.ops import fused_ce as fc
     from paddle_tpu_torch.ops import fused_norm as fn
     from paddle_tpu_torch.ops import woq_matmul as wm
+    from paddle_tpu_torch.tools import criteo_dlrm as cd, hybrid_check as hc
 
     log("[parameter-server services]")
-    psstats = ps_phase(torch, counters(fa, da, fc, fn, wm))
+    t0 = time.time()
+    outs = spawn.spawn(hc.run_cases, ([ps_sharded_case(cd)],), 4)
+    psstats = ps_phase(torch, counters(fa, da, fc, fn, wm),
+                       {"rank0": outs[0][0], "spawn_wall_clock": t0})
     log(json.dumps({"ps": psstats}))
     log(f"card: {card}")
     print(json.dumps({"ok": True, "device": {
@@ -8637,6 +9297,70 @@ def hybrid_only(torch, card, small_runs=True) -> int:
     return 0
 
 
+def data_comm_only(torch, card) -> int:
+    """``--data-comm-only``: the build, the headline rung in memory (the
+    reference of (a)), then the data and comm phase — (a), (b), and (c)'s
+    rank cases in one four-rank spawn of their own."""
+    from paddle_tpu_torch import nn as clip
+    from paddle_tpu_torch import optimizer as optim
+    from paddle_tpu_torch.distributed import env, spawn
+    from paddle_tpu_torch.distributed.fleet import comm_opt as co
+    from paddle_tpu_torch.ops import _build, remat_policies
+    from paddle_tpu_torch.ops import decode_attention as da
+    from paddle_tpu_torch.ops import flash_attention as fa
+    from paddle_tpu_torch.ops import fused_ce as fc
+    from paddle_tpu_torch.ops import fused_norm as fn
+    from paddle_tpu_torch.ops import woq_matmul as wm
+    from paddle_tpu_torch.text import gpt, gpt_hybrid
+    from paddle_tpu_torch.tools import hybrid_check as hc
+    from paddle_tpu_torch.tools import profile_train as tr
+
+    t0 = time.perf_counter()
+    _build.build_all()
+    log(f"[build] {len(_build.SOURCES)} sources in "
+        f"{time.perf_counter() - t0:.1f} s")
+    ks = counters(fa, da, fc, fn, wm)
+    log(f"[train path: build_gpt_train_step, rung {HYBRID_1P3B_RUNG}, in "
+        f"memory]")
+    ref, _ = train_path(torch, gpt, ks, tr, remat_policies,
+                        HYBRID_1P3B_RUNG)
+    gc.collect()
+    torch.cuda.empty_cache()
+    log("[data and comm: (a) reader-fed headline, (b) DGC]")
+    dcstats, launches = data_comm_phase(torch, gpt, gpt_hybrid, tr, ks,
+                                        remat_policies, ref)
+    gc.collect()
+    torch.cuda.empty_cache()
+    (_, backend, _), line = hybrid_placement(torch, env)
+    log(f"[data and comm (c): {line[1:-1]}]")
+    cases, ctx = comm_small_cases(torch, gpt, HYBRID_SMALL_STEPS[backend])
+    toks = np.random.default_rng(0).integers(
+        0, gpt.gpt_1p3b().vocab_size,
+        (tr.RUNGS[HYBRID_1P3B_RUNG].batch, tr.SEQ + 1))
+    pipe = pipeline_1p3b_case(torch, gpt, tr, backend, toks)
+    t0 = time.perf_counter()
+    with shared_card_allocator(backend):
+        outs = spawn.spawn(hc.run_cases, (cases + [pipe],),
+                           nprocs=HYBRID_RANKS)
+    spawn_s = time.perf_counter() - t0
+    n = len(cases)
+    cstats, cl, ctc = check_comm_small(torch, gpt_hybrid, optim, clip, hc,
+                                       co, ctx, [o[:n] for o in outs])
+    pstats, pl, ptc = check_pipeline_1p3b(torch, gpt, tr, hc, pipe,
+                                          [o[n] for o in outs], backend)
+    _add(cl, pl)
+    _add(ctc, ptc)
+    _add(launches, cl)
+    log(json.dumps({"data_comm": dcstats, "rank_cases": cstats,
+                    "pipeline_1p3b": pstats, "spawn_s": spawn_s,
+                    "launches": launches, "rank_tc_launches": ctc}))
+    log(f"card: {card}")
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
 def main() -> int:
     import torch
 
@@ -8659,6 +9383,14 @@ def main() -> int:
         card = wl.card_line()
         log(card)
         return ps_only(torch, card)
+    if "--data-comm-only" in sys.argv[1:]:
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        from paddle_tpu_torch.tools import profile_serving as wl
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        card = wl.card_line()
+        log(card)
+        return data_comm_only(torch, card)
     if "--hybrid-only" in sys.argv[1:]:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
         from paddle_tpu_torch.tools import profile_serving as wl
@@ -8978,6 +9710,17 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
+    log("[data and comm: (a) the headline rung fed from token shards on disk "
+        "(QueueDataset -> TokenShardReader -> DevicePrefetcher) against the "
+        "in-memory run; (b) DGC at GPT-1.3B's gradients and card vs CPU; "
+        "(c) in the hybrid phase's spawns]")
+    dcstats, by_path["data_comm"] = data_comm_phase(
+        torch, gpt, gpt_hybrid, tr, ks, remat_policies, train["train_fused"])
+    dc_tc = tc_counts(ks)
+    log(json.dumps({"data_comm": dcstats}))
+
+    gc.collect()
+    torch.cuda.empty_cache()
     log("[LoRA: small fp32 LoRA and QLoRA-int8 runs card vs CPU; the LoRA "
         "rung, GPT-1.3B widths, fp32 base frozen, rank 8 on the attention, "
         "AdamW, 4 x 2048 tokens, fused CE]")
@@ -8992,10 +9735,15 @@ def main() -> int:
 
     gc.collect()
     torch.cuda.empty_cache()
+    from paddle_tpu_torch.tools import criteo_dlrm
     hstats, hyb, tc_hyb, hyb_sp, tc_hyb_sp, herr = hybrid_phase(
         torch, gpt, gpt_hybrid, optim, clip, tr, fa, fc,
-        train["train_fused"]["losses"][0])
+        train["train_fused"]["losses"][0],
+        ps_case=ps_sharded_case(criteo_dlrm))
+    ps_held = hstats.pop("ps_sharded")
     log(json.dumps({"hybrid": hstats}))
+    _add(by_path["data_comm"], hstats["data_comm_launches"])
+    _add(dc_tc, hstats["data_comm_tc_launches"])
     by_path["hybrid"] = {name: hyb.get(name, 0) for name in ks}
     by_path["hybrid_sp_ep"] = {name: hyb_sp.get(name, 0) for name in ks}
     for name, e in herr.items():
@@ -9027,7 +9775,7 @@ def main() -> int:
         "HeterTrainer, card vs CPU; (b) the Criteo Kaggle table on two host "
         "servers, DLRM on the card; (c) the table on the card; (d) "
         "row-sharded over 4 ranks]")
-    psstats = ps_phase(torch, ks)
+    psstats = ps_phase(torch, ks, ps_held)
     log(json.dumps({"ps": psstats}))
 
     tc_by_path = {"main": stats["tc_launches"], "paged": pstats["tc_launches"],
@@ -9048,9 +9796,11 @@ def main() -> int:
                                    for name in stats["tc_launches"]},
                   "tp": {name: tp_tc.get(name, 0)
                          for name in stats["tc_launches"]},
+                  "data_comm": {name: dc_tc.get(name, 0)
+                                for name in stats["tc_launches"]},
                   **{p: t["tc_launches"] for p, t in train.items()}}
     assert all(by_path[p]["decode_attention"] == 0
-               for p in (*train, "lora"))
+               for p in (*train, "lora", "data_comm"))
     tick_by_path = {name: {"main": stats["tick_launches"][name],
                            "paged": pstats["tick_launches"][name],
                            "w4": wstats["tick_launches"][name],
@@ -9065,6 +9815,7 @@ def main() -> int:
                            "evaluate": evstats["tick_launches"][name],
                            "fleet": flstats["tick_launches"][name],
                            "lora": 0, "hybrid": 0, "hybrid_sp_ep": 0,
+                           "data_comm": 0,
                            "tp": tp_tick.get(name, 0),
                            **{p: 0 for p in train}}
                     for name in ("decode_attention", "paged_decode_attention")}

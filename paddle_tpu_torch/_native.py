@@ -1,17 +1,25 @@
 """The port's host (C++) pieces, built with ``g++`` at first use and bound
 with ctypes — counterpart of ``paddle_tpu/_native/__init__.py``.
 
-``csrc/host/ps_table.cpp`` is the parameter-server table shard (sparse
-rows with merged adagrad and delta pushes, mmap-backed "ssd" storage, the
-graph table and its neighbour sampling): the same source as the JAX
-package's, so that servers of both packages draw the same rows from the
-same seed (``fill_random``'s ``mt19937_64``).  It compiles once into
-``paddle_tpu_torch/_build/<hash>/lib<name>.so``, ``<hash>`` covering the
-source and the flags (the way ``ops/_build.py`` keys the CUDA sources),
-written through a temporary file and an atomic rename so that processes
-building at once never load a torn library.  A failed build raises
-:class:`NativeUnavailable`; nothing falls back.  Nothing here imports
-torch: the table servers are plain CPU processes.
+Two sources, each the JAX package's own, copied unedited:
+
+* ``csrc/host/ps_table.cpp`` — the parameter-server table shard (sparse
+  rows with merged adagrad and delta pushes, mmap-backed "ssd" storage,
+  the graph table and its neighbour sampling), so that servers of both
+  packages draw the same rows from the same seed (``fill_random``'s
+  ``mt19937_64``);
+* ``csrc/host/io_runtime.cpp`` — the data-ingestion runtime: a bounded
+  blocking queue of byte batches and the multithreaded fixed-record
+  shard feeder (``io/native_reader.py``), so that both packages' readers
+  deliver the same batches from the same shards.
+
+Each compiles once into ``paddle_tpu_torch/_build/<hash>/lib<name>.so``,
+``<hash>`` covering the source and the flags (the way ``ops/_build.py``
+keys the CUDA sources), written through a temporary file and an atomic
+rename so that processes building at once never load a torn library.  A
+failed build raises :class:`NativeUnavailable`; nothing falls back.
+Nothing here imports torch: the table servers and data-generator
+processes are plain CPU processes.
 """
 from __future__ import annotations
 
@@ -114,5 +122,35 @@ def ps_table() -> ctypes.CDLL:
         lib.pgt_save.argtypes = [ptr, cstr]
         lib.pgt_load.restype = c.c_int
         lib.pgt_load.argtypes = [ptr, cstr]
+        lib._sigs_set = True
+    return lib
+
+
+def io_runtime() -> ctypes.CDLL:
+    """The ingestion runtime's library, its signatures set (those of
+    ``paddle_tpu/_native/__init__.py``)."""
+    lib = load("io_runtime")
+    if not getattr(lib, "_sigs_set", False):
+        c = ctypes
+        u64, ptr, cstr = c.c_uint64, c.c_void_p, c.c_char_p
+        u8p = c.POINTER(c.c_uint8)
+        lib.ptq_create.restype = ptr
+        lib.ptq_create.argtypes = [u64]
+        lib.ptq_push.restype = c.c_int
+        lib.ptq_push.argtypes = [ptr, u8p, u64]
+        lib.ptq_next_size.restype = u64
+        lib.ptq_next_size.argtypes = [ptr]
+        lib.ptq_pop.restype = u64
+        lib.ptq_pop.argtypes = [ptr, u8p, u64]
+        lib.ptq_size.restype = u64
+        lib.ptq_size.argtypes = [ptr]
+        lib.ptq_close.argtypes = [ptr]
+        lib.ptq_destroy.argtypes = [ptr]
+        lib.ptf_start.restype = ptr
+        lib.ptf_start.argtypes = [ptr, cstr, u64, u64, c.c_int, u64, u64]
+        lib.ptf_records_read.restype = u64
+        lib.ptf_records_read.argtypes = [ptr]
+        lib.ptf_join.argtypes = [ptr]
+        lib.ptf_destroy.argtypes = [ptr]
         lib._sigs_set = True
     return lib

@@ -1,5 +1,5 @@
 """Carry JAX-package state across: a GPT's parameter tree, its config and
-its optimizer state; a device sparse table's state.
+its optimizer state; a device sparse table's state; a DGC state.
 
 The port imports nothing of JAX; callers hand over host values —
 ``jax.device_get(params)`` (a tree of numpy arrays) and the JAX
@@ -91,3 +91,21 @@ def table_state_from_jax(state, device="cpu"):
     return SparseTableState(
         torch.from_numpy(np.array(rows, np.float32)).to(device),
         torch.from_numpy(np.array(accum, np.float32)).to(device))
+
+
+def dgc_state_from_jax(state, device="cpu"):
+    """A JAX ``DGCState`` (``u`` and ``v``, trees of numpy arrays from
+    ``jax.device_get``, or a ``(u, v)`` pair) -> the port's
+    ``distributed.fleet.comm_opt.DGCState`` of float32 tensors on
+    ``device``, the tree and each leaf's (stacked) shape kept — a run
+    resumes its next ``dgc_compress`` round in the port."""
+    from .distributed.fleet.comm_opt import DGCState
+
+    u, v = (state.u, state.v) if hasattr(state, "u") else state
+
+    def conv(tree):
+        if isinstance(tree, dict):
+            return {k: conv(x) for k, x in tree.items()}
+        return torch.from_numpy(np.array(tree, np.float32)).to(device)
+
+    return DGCState(conv(u), conv(v))

@@ -31,19 +31,35 @@ The parameter-server services:
 * ``role_maker``, ``elastic``, ``launch`` — the launcher's environment,
   elastic membership, and ``python -m paddle_tpu_torch.distributed.launch``.
 
-Each is a submodule, loaded at first use: the table servers and the
-launcher import this package without loading torch.
-``parallel.DataParallel`` and ``fleet.ShardedTrainStep`` are not ported
-(ROADMAP A2).
+The functional pipeline and the fleet's helpers:
+
+* ``pipeline`` — ``make_pipeline_loss`` / ``build_pipeline_train_step``
+  over embed, stage and head functions, its hop an autograd function
+  over ``collective.exchange``;
+* ``pp_schedule`` — the interleaved 1F1B schedule tables;
+* ``fleet`` — ``strategy``, ``metrics``, ``util``, ``utils.fs``,
+  ``data_generator``, ``dataset`` (``InMemoryDataset`` / ``QueueDataset``
+  over ``io.native_reader``, also exported here) and ``comm_opt`` (DGC,
+  LocalSGD).
+
+Each is a submodule, loaded at first use: the table servers, the
+launcher and a data-generator process import this package without
+loading torch.  ``parallel.DataParallel``, ``fleet.ShardedTrainStep``
+and ``fleet.strategy_compiler`` are not ported (ROADMAP A2).
 """
 import importlib
 
-__all__ = ["collective", "elastic", "env", "heter", "kvstore", "launch",
-           "megatron", "ps", "ps_service", "role_maker", "serving_mesh",
-           "sharding_rules", "spawn", "topology"]
+__all__ = ["collective", "elastic", "env", "fleet", "heter", "kvstore",
+           "launch", "megatron", "pipeline", "pp_schedule", "ps",
+           "ps_service", "role_maker", "serving_mesh", "sharding_rules",
+           "spawn", "topology", "InMemoryDataset", "QueueDataset"]
+_DATASETS = ("InMemoryDataset", "QueueDataset")
 
 
 def __getattr__(name):
+    if name in _DATASETS:
+        return getattr(importlib.import_module(f"{__name__}.fleet.dataset"),
+                       name)
     if name in __all__:
         return importlib.import_module(f"{__name__}.{name}")
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

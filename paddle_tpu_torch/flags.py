@@ -206,6 +206,19 @@ def resilience_enabled() -> bool:
     return v not in ("0", "false", "off", "no")
 
 
+def prefetch_retries() -> int:
+    """Bounded re-read retries for a ``DevicePrefetcher`` worker whose
+    source iterator raises a transient error
+    (``PADDLE_TPU_PREFETCH_RETRIES``, default 2; resilience off = 0)."""
+    if not resilience_enabled():
+        return 0
+    try:
+        return max(0, int(os.environ.get("PADDLE_TPU_PREFETCH_RETRIES",
+                                         "2")))
+    except ValueError:
+        return 2
+
+
 def request_ttl_s() -> float | None:
     """Default per-request deadline (``PADDLE_TPU_REQUEST_TTL_S`` seconds,
     None = off): a request still queued this long after it entered the

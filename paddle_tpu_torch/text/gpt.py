@@ -480,11 +480,7 @@ def forward_with_aux(params, tokens, cfg: GPTConfig, key=None):
     under autograd each [L, ...] leaf gets its gradient by one stack of
     the layers' slices.  Under ``cfg.remat`` only the blocks are
     checkpointed; the embedding, the final norm and the head are not."""
-    B, T = tokens.shape
-    dt = cfg.dtype
-    x = woq.embed(params, tokens, dt)
-    if cfg.pos_embed == "learned":
-        x = x + params["wpe"][:T].to(dt)[None]
+    x = embed_tokens(params, tokens, cfg)
     blk = _remat_wrap(cfg)
     need_keys = key is not None and (cfg.dropout > 0.0
                                      or cfg.moe is not None)
@@ -496,7 +492,7 @@ def forward_with_aux(params, tokens, cfg: GPTConfig, key=None):
         if a is not None:
             aux = aux + a
     x = _norm(x, params, "ln_f", cfg)
-    return woq.logits(x, params, dt), aux
+    return woq.logits(x, params, cfg.dtype), aux
 
 
 def forward(params, tokens, cfg: GPTConfig):
@@ -513,12 +509,27 @@ def loss_fn(params, tokens, cfg: GPTConfig, key=None):
     expression, as in the JAX package.  ``key``: the dropout and
     router-noise key of :func:`forward_with_aux` (None: neither)."""
     logits, aux = forward_with_aux(params, tokens[:, :-1], cfg, key=key)
-    tgt = tokens[:, 1:]
+    return lm_loss(logits, tokens[:, 1:]) + aux
+
+
+def embed_tokens(params, tokens, cfg: GPTConfig):
+    """tokens [B, T] -> the first block's input [B, T, D] (compute
+    dtype): the token embedding, plus the learned positions."""
+    x = woq.embed(params, tokens, cfg.dtype)
+    if cfg.pos_embed == "learned":
+        x = x + params["wpe"][:tokens.shape[1]].to(cfg.dtype)[None]
+    return x
+
+
+def lm_loss(logits, tgt):
+    """The mean fp32 softmax-CE of ``logits`` [B, T, V] against ``tgt``
+    [B, T]: the fused loss head under ``PADDLE_TPU_FUSED_CE=1`` (read at
+    each call), else the fp32 ``log_softmax`` expression."""
     if flags.fused_ce():
-        return torch.mean(fused_softmax_ce(logits, tgt)) + aux
+        return torch.mean(fused_softmax_ce(logits, tgt))
     logp = torch.log_softmax(logits.float(), dim=-1)
     ll = torch.gather(logp, -1, tgt[..., None].long())[..., 0]
-    return -torch.mean(ll) + aux
+    return -torch.mean(ll)
 
 
 def param_shardings(cfg: GPTConfig, dp="dp", mp="mp", pp=None,

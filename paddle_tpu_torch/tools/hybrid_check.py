@@ -37,6 +37,25 @@ list of cases, each a dict with a ``kind``:
   mesh's ``ep`` / ``mp``: y, aux and the gradients of sum(y · w) + aux
   (params gathered back, x).
 
+* ``"pipeline"`` — ``distributed.pipeline.build_pipeline_train_step``
+  over ``mesh`` (dp and pp) with the GPT stage functions of
+  :func:`gpt_pipeline_fns`, ``n_micro`` micro-batches, ``remat_stage``:
+  ``steps`` steps on ``batches`` from the whole ``params`` (or ``seed``);
+  returns the losses, the launches a step, the step ms, the peak memory,
+  the collectives, the case's wall seconds (``case_s``), with
+  ``grads=True`` the first step's whole gradients (rank 0) and with
+  ``gather=True`` the final whole params (rank 0);
+* ``"dgc"`` — ``fleet.comm_opt.dgc_compress`` over the mesh's ``dp``:
+  each rank's ``grads[rank]``, ``rounds`` rounds; the sends, u and v of
+  every round and the collectives a round;
+* ``"localsgd"`` — ``LocalSGD(k_steps, "dp")``: ``steps`` steps each
+  adding ``deltas[step][rank]`` to the params, then ``maybe_average``;
+  the params after each step and the all-reduces of each step;
+* ``"ps_table"`` — ``tools.ps_check.run_table`` on the mesh's ``mp``
+  (the row-sharded device table);
+* ``"util"`` — ``fleet.util.UtilBase``'s collectives over the world,
+  this rank's file shard and the process group's backend.
+
 Optimizers are named (``opt``: [class name, kwargs], ``clip``: a clip
 norm for ``ClipGradByGlobalNorm``), so a case pickles.  Nothing here
 imports JAX: the children a test spawns stay free of it.  The smoke
@@ -474,8 +493,177 @@ def _moe(case, mesh):
             "grads": {n: g.cpu().numpy() for n, g in grads.items()}}
 
 
+def gpt_pipeline_fns(cfg):
+    """(embed_fn, stage_fn, head_loss_fn) of a dense GPT for
+    ``distributed.pipeline``: the embedding (and learned positions) of
+    tokens[:, :-1]; the stage's block layers in order (no dropout: the
+    key is not drawn from); the final norm, the logits and
+    ``gpt.lm_loss`` against tokens[:, 1:] — the pieces of
+    ``gpt.loss_fn``."""
+    from ..text import woq
+
+    def embed_fn(params, tok):
+        return gpt.embed_tokens(params, tok[:, :-1], cfg)
+
+    def stage_fn(blocks, x, key):
+        per = gpt._per_layer(blocks, lambda t: t.unbind(0))
+        n = next(iter(tree_leaves(blocks))).shape[0]
+        for l in range(n):
+            x, _ = gpt._block(x, gpt._per_layer(per, lambda ts: ts[l]), cfg)
+        return x
+
+    def head_loss_fn(params, y, tok):
+        y = gpt._norm(y, params, "ln_f", cfg)
+        return gpt.lm_loss(woq.logits(y, params, cfg.dtype), tok[:, 1:])
+
+    return embed_fn, stage_fn, head_loss_fn
+
+
+def expected_pipeline_launches(cfg, S, n_micro, stage, remat_stage,
+                               fused_ln=True, fused_ce=True) -> dict:
+    """Kernels #1-#7 launched by pp stage ``stage`` in one step of the
+    functional pipeline: its layers' for each of the M micro-batches (the
+    bubble ticks run nothing), the stage recomputed under
+    ``remat_stage`` (:func:`expected_hybrid_launches` with remat)."""
+    import dataclasses
+
+    return expected_hybrid_launches(
+        dataclasses.replace(cfg, remat=bool(remat_stage)), {"pp": S},
+        n_micro, 1, stage, fused_ln=fused_ln, fused_ce=fused_ce)
+
+
+def _pipeline(case, mesh):
+    from ..distributed import pipeline
+
+    t_case = time.perf_counter()
+    cfg = case["cfg"]
+    dev = mesh.device
+    opt = make_optimizer(case.get("opt", ("AdamW", {"learning_rate": 1e-3})))
+    specs = gpt.param_shardings(cfg, pp="pp")
+
+    def init():
+        whole = (gpt.init_master_params(cfg, case.get("seed", 0), dev)
+                 if case.get("params") is None else case["params"])
+        return gpt.shard_params(whole, specs, mesh)
+
+    if case.get("stagger_init"):
+        params = None
+        for r in range(mesh.world_size):
+            if r == mesh.rank:
+                params = init()
+                _release(dev)
+            _barrier(mesh)
+    else:
+        params = init()
+    opt_state = opt.init_state(params)
+    step_fn = pipeline.build_pipeline_train_step(
+        mesh, *gpt_pipeline_fns(cfg), specs, opt, case["n_micro"],
+        remat_stage=case.get("remat_stage", True))
+    batches = case["batches"]
+    out = {"rank": mesh.rank, "coords": dict(mesh.coords), "losses": [],
+           "step_ms": [], "launches": [], "tc_launches": [], "comm": []}
+    if case.get("grads"):
+        toks = torch.as_tensor(np.asarray(batches[0]), device=dev)
+        _, g = step_fn.loss_and_grads(params, toks, case.get("key"))
+        full = gpt.gather_params(g, specs, mesh)
+        out["grads"] = _numpy(full) if mesh.rank == 0 else None
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    for i in range(case.get("steps", len(batches))):
+        toks = torch.as_tensor(np.asarray(batches[i % len(batches)]),
+                               device=dev)
+        before, before_tc = launch_counts(), tc_counts()
+        C.reset_stats()
+        _sync(dev)
+        t0 = time.perf_counter()
+        params, opt_state, loss = step_fn(params, opt_state, toks,
+                                          case.get("key"),
+                                          case.get("lr", 1e-3), i)
+        out["losses"].append(loss.item())
+        _sync(dev)
+        out["step_ms"].append(1e3 * (time.perf_counter() - t0))
+        out["launches"].append({k: v - before[k]
+                                for k, v in launch_counts().items()})
+        out["tc_launches"].append({k: v - before_tc[k]
+                                   for k, v in tc_counts().items()})
+        out["comm"].append(C.stats())
+    out["peak_gb"] = (torch.cuda.max_memory_allocated(dev) / 1e9
+                      if dev.type == "cuda" else None)
+    if case.get("gather"):
+        full = gpt.gather_params(params, specs, mesh)
+        out["params"] = _numpy(full) if mesh.rank == 0 else None
+    out["case_s"] = time.perf_counter() - t_case
+    return out
+
+
+def _rank_block(tree, mesh):
+    """Row ``mesh.rank`` of every leaf of a tree of per-rank stacks, as
+    tensors on the mesh's device."""
+    if isinstance(tree, dict):
+        return {k: _rank_block(v, mesh) for k, v in tree.items()}
+    return torch.as_tensor(np.asarray(tree)[mesh.rank]).to(mesh.device)
+
+
+def _dgc(case, mesh):
+    from ..distributed.fleet import comm_opt
+
+    g = _rank_block(case["grads"], mesh)
+    st = comm_opt.dgc_init(g)
+    rounds = []
+    for _ in range(case.get("rounds", 1)):
+        C.reset_stats()
+        send, st = comm_opt.dgc_compress(
+            g, st, sparsity=case["sparsity"], momentum=case["momentum"],
+            mesh=mesh, axis="dp")
+        rounds.append({"send": _numpy(send), "u": _numpy(st.u),
+                       "v": _numpy(st.v), "comm": C.stats()})
+    return rounds
+
+
+def _localsgd(case, mesh):
+    from ..distributed.fleet import comm_opt
+
+    sync = comm_opt.LocalSGD(k_steps=case["k_steps"], axis="dp")
+    params = _rank_block(case["params"], mesh)
+    steps = []
+    for step in range(1, case["steps"] + 1):
+        C.reset_stats()
+        for k, d in _rank_block(case["deltas"][step - 1], mesh).items():
+            params[k].add_(d)
+        params = sync.maybe_average(params, step, mesh)
+        steps.append({"params": {k: v.cpu().numpy().copy()  # not views
+                                 for k, v in params.items()},
+                      "all_reduce": C.stats().get("all_reduce",
+                                                  {"calls": 0})["calls"]})
+    return steps
+
+
+def _util(case, mesh):
+    """``fleet.UtilBase`` over the world (the default process group):
+    sum / max / min of ``values[rank]``, a gather of the rank, a barrier,
+    this rank's ``get_file_shard(files)``."""
+    from ..distributed.fleet.util import UtilBase
+
+    u = UtilBase()
+    v = np.asarray(case["values"][mesh.rank])
+    out = {m: u.all_reduce(v, m) for m in ("sum", "max", "min")}
+    out["gather"] = u.all_gather(np.int64(mesh.rank))
+    u.barrier()
+    out["shard"] = u.get_file_shard(case["files"])
+    out["backend"] = mesh.backend
+    return out
+
+
+def _ps_table(case, mesh):
+    from . import ps_check
+
+    return ps_check.run_table(case, mesh)
+
+
 _KINDS = {"train": _train, "grads": _grads, "megatron": _megatron,
-          "ring": _ring, "moe": _moe}
+          "ring": _ring, "moe": _moe, "pipeline": _pipeline, "dgc": _dgc,
+          "localsgd": _localsgd, "ps_table": _ps_table, "util": _util}
 
 
 def run_cases(cases):

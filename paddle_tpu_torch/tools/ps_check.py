@@ -33,10 +33,14 @@ def _sync(dev):
         torch.cuda.synchronize(dev)
 
 
-def run_table(case):
+def run_table(case, mesh=None):
+    """One case on this rank, over ``mesh`` (a mesh whose ``"mp"`` spans
+    the world; None: made here)."""
     marks = {"entered": time.time()}    # wall clock: comparable across ranks
-    world = torch.distributed.get_world_size()
-    mesh = env.init_parallel_env({"mp": world}, device=case.get("device"))
+    if mesh is None:
+        world = torch.distributed.get_world_size()
+        mesh = env.init_parallel_env({"mp": world},
+                                     device=case.get("device"))
     dev = torch.device(mesh.device)
     marks["mesh"] = time.time()
     t = SparseEmbeddingTable(case["vocab"], case["dim"], mesh=mesh,

@@ -248,8 +248,10 @@ def test_mid_pull_server_loss_degrades_in_bounded_time(clusters):
     port.create_table(tid, V, D, seed=3)
     fast = PSClient(port.endpoints, timeout=1.0)
     rng = np.random.default_rng(1)
-    trainer = make_trainer(fast, rng, D=D, tid=tid, degrade="stale",
-                           op_budget=2.0, vocab=V)
+    # the reference's dense work beside the table (its big=50,
+    # tests/test_heter.py:245)
+    trainer = make_trainer(fast, rng, D=D, tid=tid, big=50,
+                           degrade="stale", op_budget=2.0, vocab=V)
     ids = rng.integers(0, V, (64, 4)).astype(np.int64)
     y = torch.from_numpy((ids[:, 0] % 2).astype(np.int64))
     for _ in range(3):     # healthy warm-up fills the row cache

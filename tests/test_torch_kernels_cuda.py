@@ -2515,3 +2515,108 @@ def test_ps_sharded_table_ranks_share_one_card():
         np.testing.assert_allclose(got["pulls"],
                                    one.pull(pull).cpu().numpy(),
                                    rtol=0, atol=1e-6)
+
+
+def test_prefetcher_on_the_card_orders_copies_and_slots():
+    """``io.native_reader.DevicePrefetcher`` on the card: a fast producer
+    of 24 host batches (64 MB each, so a copy takes time) and a slow
+    consumer (the card spins before each read, on the consumer's
+    stream): every batch arrives bit-equal to the host's, so the
+    consumer's stream waited for each copy's event and no pinned slot was
+    written again under a copy still reading it; the ring holds depth + 1
+    buffers a leaf shape, made once."""
+    _card()
+    import numpy as np
+
+    from paddle_tpu_torch.io import native_reader as nr
+
+    rng = np.random.default_rng(0)
+    host = [{"x": rng.standard_normal((4096, 4096)).astype(np.float32),
+             "tok": rng.integers(0, 50304, (8, 2049), dtype=np.int32)}
+            for _ in range(24)]
+    pf = nr.DevicePrefetcher(iter(host), depth=2)
+    got = 0
+    for want, batch in zip(host, pf):
+        torch.cuda._sleep(2_000_000)          # the slow consumer's step
+        assert batch["x"].is_cuda and batch["tok"].dtype == torch.int32
+        assert torch.equal(batch["x"], torch.from_numpy(want["x"]).cuda())
+        assert torch.equal(batch["tok"],
+                           torch.from_numpy(want["tok"]).cuda())
+        got += 1
+    assert got == len(host)
+    assert pf.stager.stats["pinned_buffers"] == 2 * 3
+    assert pf.stager.stats["copies"] == 2 * len(host)
+
+
+def test_prefetcher_copy_failure_raises_in_the_consumer():
+    """A batch the stager cannot take (already on the card) fails the
+    iteration with its error; nothing falls back to the CPU."""
+    _card()
+    from paddle_tpu_torch.io import native_reader as nr
+
+    pf = nr.DevicePrefetcher(iter([torch.zeros(3, device="cuda")]))
+    with pytest.raises(ValueError, match="host batches"):
+        list(pf)
+
+
+def test_dgc_card_matches_cpu_bit_for_bit():
+    """``fleet.comm_opt.dgc_compress``, three rounds on a small dict tree
+    (a stacked [L, ...] leaf, a matrix, a leaf with ties at the
+    threshold): the card's sends, u and v equal the CPU's bit for bit."""
+    _card()
+    import numpy as np
+
+    from paddle_tpu_torch.distributed.fleet import comm_opt as co
+
+    rng = np.random.default_rng(0)
+    tie = 0.1 * rng.standard_normal(1000).astype(np.float32)
+    tie[:40] = 2.5                    # the 40 largest |g| tie (k = 10)
+    g = {"blocks": {"fc_w": torch.from_numpy(rng.standard_normal(
+             (4, 64, 256)).astype(np.float32))},
+         "wte": torch.from_numpy(rng.standard_normal(
+             (512, 64)).astype(np.float32)),
+         "tie": torch.from_numpy(tie)}
+    gc = {"blocks": {"fc_w": g["blocks"]["fc_w"].cuda()},
+          "wte": g["wte"].cuda(), "tie": g["tie"].cuda()}
+    a, b = co.dgc_init(g), co.dgc_init(gc)
+    assert b.u["wte"].is_cuda
+
+    def flat(tree):
+        return [tree["blocks"]["fc_w"], tree["wte"], tree["tie"]]
+
+    for i in range(3):
+        sa, a = co.dgc_compress(g, a, sparsity=0.99, momentum=0.9)
+        sb, b = co.dgc_compress(gc, b, sparsity=0.99, momentum=0.9)
+        for x, y in zip(flat(sa) + flat(a.u) + flat(a.v),
+                        flat(sb) + flat(b.u) + flat(b.v)):
+            assert torch.equal(x.view(torch.int32),
+                               y.cpu().view(torch.int32))
+        if i == 0:                    # every tie kept, past k
+            assert int((sb["tie"] != 0).sum()) == 40
+
+
+def test_util_over_card_ranks():
+    """``fleet.util.UtilBase`` over two ranks placed on the cards: NCCL
+    where there are two cards (its host values staged on each rank's
+    card), gloo staged on card 0 where there is one.  Sum / max / min, a
+    gather and the file shards as on the CPU."""
+    _card()
+    import numpy as np
+
+    from paddle_tpu_torch.distributed import spawn
+    from paddle_tpu_torch.tools import hybrid_check as hc
+
+    files = [f"f{i}" for i in range(5)]
+    values = [np.array([r, -r, 2.5 * r]) for r in range(2)]
+    outs = spawn.spawn(hc.run_cases, ([{"kind": "util", "mesh": {"dp": 2},
+                                        "values": values,
+                                        "files": files}],), nprocs=2)
+    stacked = np.stack(values)
+    want = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    for r, (out,) in enumerate(outs):
+        assert out["backend"] == want
+        np.testing.assert_array_equal(out["sum"], stacked.sum(0))
+        np.testing.assert_array_equal(out["max"], stacked.max(0))
+        np.testing.assert_array_equal(out["min"], stacked.min(0))
+        assert [int(x) for x in out["gather"]] == [0, 1]
+        assert out["shard"] == [files[0:3], files[3:5]][r]
